@@ -1,0 +1,21 @@
+"""paddle_tpu_torch — the PyTorch + CUDA port of `paddle_tpu`, for NVIDIA
+Hopper (H100).
+
+The JAX package `paddle_tpu` stays the reference; this package mirrors
+its module paths (``paddle_tpu/models/gpt.py`` ->
+``paddle_tpu_torch/models/gpt.py``) and imports neither `jax` nor any
+`paddle_tpu` module.  Every Pallas kernel on a ported path is a
+hand-written CUDA kernel under ``csrc/``, built with `nvcc` at first use
+and bound through `ctypes` (``ops/kernels/_build.py``).
+
+Entry points run on the CUDA device unless the caller passes
+``device="cpu"``; on a CPU tensor each kernel wrapper runs its plain
+PyTorch version, on a CUDA tensor it launches the kernel or raises.
+
+Ported so far (slice 1): the GPT serving path — `models.gpt`,
+greedy `models.generation.generate`, and the continuous-batching
+`inference.engine.InferenceEngine` over a paged KV cache.
+"""
+from __future__ import annotations
+
+__all__ = ["core", "inference", "models", "nn", "observability", "ops"]

@@ -1,0 +1,58 @@
+// Shared device helpers of the port's attention kernels: dtype codes,
+// f32 conversion, warp reductions, and the finite mask constant.
+//
+// NEG_INF is the JAX package's finite -1e30 (flash_attention.py:69),
+// not -inf: a fully masked row (a left-pad query) then gets finite,
+// uniform weights instead of exp(-inf - -inf) = NaN, and its finite
+// output cannot poison the next layer's real rows.  The 1e-30 clamp on
+// the softmax denominator (flash_attention.py:237) is kept for the same
+// reason.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define PT_NEG_INF (-1e30f)
+#define PT_L_MIN (1e-30f)
+#define PT_FULL_MASK 0xffffffffu
+
+enum PtDtype { PT_F32 = 0, PT_BF16 = 1 };
+
+template <typename T>
+__device__ __forceinline__ float to_f(T x);
+template <>
+__device__ __forceinline__ float to_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(PT_FULL_MASK, x, o);
+  return x;
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(PT_FULL_MASK, x, o));
+  return x;
+}
+
+// Lanes per head_dim chunk: a thread owns elements d = lane + 32 * j,
+// j < NJ.  The launchers round ceil(D / 32) up to 1, 2, 4 or 8.
+static inline int pt_nj(int d) {
+  int nj = (d + 31) / 32;
+  return nj <= 1 ? 1 : nj <= 2 ? 2 : nj <= 4 ? 4 : 8;
+}

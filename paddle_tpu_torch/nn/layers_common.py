@@ -1,0 +1,87 @@
+"""Linear / Embedding / Dropout / LayerNorm (counterparts of
+``paddle_tpu/nn/layers_common.py`` and ``layers_norm.py``).
+
+Parameter layouts follow Paddle, so names and shapes line up one to one
+with the JAX package's ``functional_state()``: `Linear.weight` is
+``[in_features, out_features]``.  Initialisers follow Paddle's defaults
+(Xavier-uniform Linear weights, N(0, 1) embeddings, zero biases, unit
+norm weights), drawn from the caller's `torch.Generator` on the
+parameter's device.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from .functional import layer_norm
+
+
+def _param(t):
+    # inference port: parameters carry no autograd state
+    return nn.Parameter(t, requires_grad=False)
+
+
+class Linear(nn.Module):
+    """``y = x @ weight + bias`` with weight ``[in, out]``."""
+
+    def __init__(self, in_features, out_features, bias=True, *, device,
+                 dtype=torch.float32, generator=None):
+        super().__init__()
+        self.in_features = in_features
+        self.out_features = out_features
+        limit = math.sqrt(6.0 / (in_features + out_features))
+        w = torch.empty(in_features, out_features, device=device,
+                        dtype=dtype)
+        w.uniform_(-limit, limit, generator=generator)
+        self.weight = _param(w)
+        self.bias = _param(torch.zeros(out_features, device=device,
+                                       dtype=dtype)) if bias else None
+
+    def forward(self, x):
+        y = torch.matmul(x, self.weight)
+        return y if self.bias is None else y + self.bias
+
+
+class Embedding(nn.Module):
+    def __init__(self, num_embeddings, embedding_dim, *, device,
+                 dtype=torch.float32, generator=None):
+        super().__init__()
+        w = torch.empty(num_embeddings, embedding_dim, device=device,
+                        dtype=dtype)
+        w.normal_(0.0, 1.0, generator=generator)
+        self.weight = _param(w)
+
+    def forward(self, ids):
+        return self.weight[ids]
+
+
+class Dropout(nn.Module):
+    """Inference port: identity (the serving path runs in eval mode)."""
+
+    def __init__(self, p=0.0):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x):
+        if self.training and self.p > 0:
+            raise NotImplementedError(
+                "paddle_tpu_torch ports the inference path; training "
+                "dropout arrives with the training slice (ROADMAP)")
+        return x
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, normalized_shape, epsilon=1e-5, *, device,
+                 dtype=torch.float32):
+        super().__init__()
+        self.normalized_shape = normalized_shape
+        self.epsilon = epsilon
+        self.weight = _param(torch.ones(normalized_shape, device=device,
+                                        dtype=dtype))
+        self.bias = _param(torch.zeros(normalized_shape, device=device,
+                                       dtype=dtype))
+
+    def forward(self, x):
+        return layer_norm(x, self.weight, self.bias, self.epsilon)

@@ -1,0 +1,2 @@
+"""Operators of the port (``paddle_tpu/ops`` counterpart)."""
+from __future__ import annotations
