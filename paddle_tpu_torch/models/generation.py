@@ -7,8 +7,8 @@ the model families call with a cache (`_static_cache_attention`,
 decode program; PyTorch runs the same steps eagerly, one model call per
 token, and writes the caches IN PLACE (the JAX functions return updated
 buffers; here the returned buffers are the same tensors).  Attention
-runs through the port's kernels: `flash_fwd` for prefill (causal, or
-biased by the left-pad / warm-prefix mask), `decode_attention` for the
+runs through the port's kernels: `flash_fwd` for prefill (causal, with
+a pad-key bias for left-padded rows), `decode_attention` for the
 dense decode step, `paged_attention` for the engine's paged step.
 
 Sampling and beam search are not ported yet (ROADMAP Queue B).
@@ -79,34 +79,36 @@ def _static_cache_attention(q, k, v, kv_cache, cache_pos, attn_start=None):
         out = decode_attention(q.reshape(b, hq, d).contiguous(), kb, vb,
                                pos, start=attn_start)
         return out.reshape(b, 1, hq, d), (kb, vb)
+    # Prefill attention is causal (bottom-right aligned, so the kernel
+    # skips the key blocks past the diagonal) plus, for left-padded rows,
+    # a pad-only bias [B, 1, 1, Sk] that hides the pad keys.  Pad query
+    # rows then see no valid key; the finite NEG_INF keeps them finite
+    # and no real row reads them.
     wp = getattr(_WARM_PREFILL, "value", None)
     if wp is not None:
         # WARM tail prefill: keys come from the cache buffer — prefix at
-        # [0, P) plus the tail just written at [P, P+S).  Query row i
-        # (real iff i >= start) attends every prefix key and the causal
-        # fresh span start <= j-P <= i; keys past the written span stay
-        # masked, so a bucketed prefix capacity never leaks in.
-        cap = kb.shape[2]
-        kk = kb.transpose(1, 2).contiguous()          # [B, cap, Hkv, D]
-        vv = vb.transpose(1, 2).contiguous()
-        st = attn_start if attn_start is not None else torch.zeros(
-            b, dtype=torch.int32, device=q.device)
-        j = torch.arange(cap, device=q.device)[None, None, :]
-        i = torch.arange(s, device=q.device)[None, :, None]
-        jj = j - wp
-        valid = (j < wp) | ((jj >= st.long()[:, None, None]) & (jj <= i))
-        mask = torch.where(valid[:, None], 0.0, NEG_INF)
-        out = F.scaled_dot_product_attention(q, kk, vv, attn_mask=mask)
+        # [0, P) plus the tail just written at [P, P+S).  Keys past the
+        # written span are cut off, so a bucketed prefix capacity never
+        # leaks in; causal with off = Sk - Sq = P lets query row i attend
+        # every prefix key and fresh keys j-P <= i, and the pad bias
+        # drops fresh keys below the tail's start.
+        kk = kb[:, :, :wp + s].transpose(1, 2).contiguous()  # [B,P+S,H,D]
+        vv = vb[:, :, :wp + s].transpose(1, 2).contiguous()
+        mask = None
+        if attn_start is not None:
+            j = torch.arange(wp + s, device=q.device)[None, :]
+            valid = (j < wp) | (j - wp >= attn_start.long()[:, None])
+            mask = torch.where(valid, 0.0, NEG_INF)[:, None, None]
+        out = F.scaled_dot_product_attention(q, kk, vv, attn_mask=mask,
+                                             is_causal=True)
         return out, (kb, vb)
+    mask = None
     if attn_start is not None:
-        j = torch.arange(s, device=q.device)[None, :]      # key pos
-        i = torch.arange(s, device=q.device)[:, None]      # query pos
-        valid = (j <= i)[None] & (j[None] >= attn_start.long()[:, None,
-                                                                 None])
-        mask = torch.where(valid[:, None], 0.0, NEG_INF)   # [B,1,S,S]
-        out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
-    else:
-        out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        j = torch.arange(s, device=q.device)[None, :]       # key pos
+        valid = j >= attn_start.long()[:, None]
+        mask = torch.where(valid, 0.0, NEG_INF)[:, None, None]  # [B,1,1,S]
+    out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                         is_causal=True)
     return out, (kb, vb)
 
 

@@ -5,8 +5,9 @@ Parameter names and shapes equal the JAX package's
 ``[in, out]``), so `load_reference_state` carries weights across
 one to one.  The JAX model's ``mpu.*ParallelLinear`` layers are plain
 `Linear` here under the same attribute names.  The LLaMA variant
-(rope / RMSNorm / SwiGLU) and training (dropout, recompute, the fused
-head + CE) come with later slices.
+(rope / RMSNorm / SwiGLU), an untied LM head and training (dropout,
+recompute, the fused head + CE) come with later slices; their
+`GPTConfig` fields arrive with them, so passing one raises `TypeError`.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import torch
 from torch import nn
 
 from ..core.device import resolve_device
-from ..nn import Dropout, Embedding, LayerNorm, Linear
+from ..nn import Embedding, LayerNorm, Linear
 from ..nn import functional as F
 from .generation import (
     GenerationMixin, _static_cache_attention, decode_position_ids,
@@ -27,28 +28,18 @@ __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "gpt_tiny",
 
 
 class GPTConfig:
-    """The fields of the JAX package's GPTConfig that the inference path
-    reads; the training-only ones (recompute, sequence/context parallel,
-    the fused head + CE) arrive with the training slice."""
+    """The fields of the JAX package's GPTConfig that the ported model
+    reads: the GPT-2 family with tied embeddings, at inference."""
 
     def __init__(self, vocab_size=50304, hidden_size=768, num_layers=12,
                  num_heads=12, max_seq_len=1024, ffn_hidden=None,
-                 dropout=0.0, use_rope=False, use_rmsnorm=False,
-                 use_swiglu=False, tie_embeddings=True,
                  layer_norm_eps=1e-5):
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
         self.num_heads = num_heads
         self.max_seq_len = max_seq_len
-        self.ffn_hidden = ffn_hidden or (
-            int(8 * hidden_size / 3 / 128 + 1) * 128 if use_swiglu
-            else 4 * hidden_size)
-        self.dropout = dropout
-        self.use_rope = use_rope
-        self.use_rmsnorm = use_rmsnorm
-        self.use_swiglu = use_swiglu
-        self.tie_embeddings = tie_embeddings
+        self.ffn_hidden = ffn_hidden or 4 * hidden_size
         self.layer_norm_eps = layer_norm_eps
 
 
@@ -94,7 +85,6 @@ class GPTBlock(nn.Module):
         self.ln_2 = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
                               device=device, dtype=dtype)
         self.mlp = GPTMLP(cfg, **kw)
-        self.drop = Dropout(cfg.dropout)
 
     def forward(self, x, kv_cache=None, cache_pos=None, attn_start=None):
         if kv_cache is not None:
@@ -104,8 +94,8 @@ class GPTBlock(nn.Module):
             x = x + a
             x = x + self.mlp(self.ln_2(x))
             return x, new_cache
-        x = x + self.drop(self.attn(self.ln_1(x)))
-        return x + self.drop(self.mlp(self.ln_2(x)))
+        x = x + self.attn(self.ln_1(x))
+        return x + self.mlp(self.ln_2(x))
 
 
 class GPTModel(nn.Module):
@@ -115,7 +105,6 @@ class GPTModel(nn.Module):
         kw = dict(device=device, dtype=dtype, generator=generator)
         self.wte = Embedding(cfg.vocab_size, cfg.hidden_size, **kw)
         self.wpe = Embedding(cfg.max_seq_len, cfg.hidden_size, **kw)
-        self.drop = Dropout(cfg.dropout)
         self.h = nn.ModuleList([GPTBlock(cfg, **kw)
                                 for _ in range(cfg.num_layers)])
         self.ln_f = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
@@ -130,7 +119,7 @@ class GPTModel(nn.Module):
                                       device=input_ids.device)
         else:
             pos = torch.arange(s, device=input_ids.device)
-        x = self.drop(x + self.wpe(pos.long()))
+        x = x + self.wpe(pos.long())
         if kv_caches is not None:
             new_caches = []
             for block, kc in zip(self.h, kv_caches):
@@ -151,20 +140,11 @@ class GPTForCausalLM(nn.Module, GenerationMixin):
 
     def __init__(self, cfg, device=None, dtype=torch.float32, seed=0):
         super().__init__()
-        for flag in ("use_rope", "use_rmsnorm", "use_swiglu"):
-            if getattr(cfg, flag):
-                raise NotImplementedError(
-                    f"GPTConfig({flag}=True), the LLaMA variant, is not "
-                    "ported yet (ROADMAP Queue B)")
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(seed))
         self.cfg = cfg
         self.gpt = GPTModel(cfg, device=dev, dtype=dtype, generator=gen)
-        if not cfg.tie_embeddings:
-            self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size,
-                                  bias=False, device=dev, dtype=dtype,
-                                  generator=gen)
         self.eval()
 
     @property
@@ -183,10 +163,7 @@ class GPTForCausalLM(nn.Module, GenerationMixin):
                                      attn_start=attn_start)
         else:
             x = self.gpt(input_ids)
-        if self.cfg.tie_embeddings:
-            logits = torch.matmul(x, self.gpt.wte.weight.t())
-        else:
-            logits = self.lm_head(x)
+        logits = torch.matmul(x, self.gpt.wte.weight.t())   # tied head
         if kv_caches is not None:
             return logits, new_caches
         return logits

@@ -108,6 +108,33 @@ def test_flash_fwd_left_pad_rows_finite_and_equal():
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("sq,sk", [(45, 45), (70, 70), (9, 40)])
+def test_flash_fwd_causal_with_pad_bias(sq, sk, dtype):
+    """The prefill's form: causal plus a pad-only bias [B, 1, 1, Sk]
+    (stride 0 over queries).  Real rows match the plain version; pad
+    rows, which see no valid key, are finite (the kernel skips the key
+    blocks past the diagonal, so it averages other keys there than the
+    plain version does)."""
+    g = torch.Generator(device="cuda").manual_seed(sq + sk)
+    b, h, d = 2, 2, 64
+    q = _randn(g, b, sq, h, d, dtype=dtype)
+    k = _randn(g, b, sk, h, d, dtype=dtype)
+    v = _randn(g, b, sk, h, d, dtype=dtype)
+    pad = 5
+    start = torch.tensor([sk - sq + pad, 0], device="cuda")
+    keys = torch.arange(sk, device="cuda")
+    bias = torch.where(keys[None] >= start[:, None], 0.0,
+                       FA.NEG_INF)[:, None, None]
+    out, lse = FA.flash_fwd(q, k, v, bias=bias, causal=True)
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    ref_out, ref_lse = FA.flash_fwd_reference(q, k, v, bias=bias,
+                                              causal=True)
+    _close(out[:, pad:], ref_out[:, pad:], dtype)
+    _close(out[1], ref_out[1], dtype)
+    _close(lse[..., pad:], ref_lse[..., pad:], torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("hq,hkv,d", [(8, 2, 64), (4, 4, 128), (8, 1, 32)])
 def test_paged_attention_matches_plain(hq, hkv, d, dtype):
     g = torch.Generator(device="cuda").manual_seed(hq + d)
