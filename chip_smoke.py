@@ -2,8 +2,9 @@
 """GPU smoke run of the PyTorch port (`paddle_tpu_torch`) on one card.
 
     python3 chip_smoke.py            # from the root of a checkout
-    python3 chip_smoke.py --profile  # + a torch.profiler breakdown of
-                                     #   the engine's decode step
+    python3 chip_smoke.py --profile  # + torch.profiler breakdowns of
+                                     #   the engine's decode step and
+                                     #   of one train step
 
 Phases (one line per phase, seconds included; any failure exits
 non-zero and prints no result):
@@ -26,11 +27,22 @@ non-zero and prints no result):
   6. parity: gpt_1p3b widths at 2 layers in f32, the 8 prompts of phase
      4 (two warm prefills) — engine streams must equal generate()
      streams (a divergence passes only at a top-2 logit margin below
-     1e-3, and is reported).
+     1e-3, and is reported);
+  7. train_parity: GPT-125M widths (hidden 768, 12 heads, vocab 50304)
+     at 2 layers in f32, batch 2 x 256, one seed: 3 AdamW steps on the
+     card through the kernels and the same 3 on the CPU through the
+     plain versions; the losses agree within 1e-3;
+  8. train: GPT-125M at full width and depth (12 layers, seq 1024),
+     f32 master weights, bf16 AMP, fused head + CE, AdamW lr 1e-4, batch
+     8 on one fixed batch (bench.py's step): 2 warm-up steps, then
+     `run_steps(repeat=10)` timed between synchronizes: tokens/s, ms per
+     step, MFU against the 989 TFLOP/s bf16 peak, peak memory, launches
+     per step.  The loss must stay finite and fall.
 
-Launch counters are reset just before phases 4 and 5 and read just
-after each; every kernel of each path must have launched.  The line
-before last is the JSON kernel table; the last line is the device JSON.
+Launch counters are reset just before the driven part of phases 4, 5
+and 8 and read just after each; every kernel of each path must have
+launched.  The line before last is the JSON kernel table (`launches`
+summed over those three paths); the last line is the device JSON.
 """
 from __future__ import annotations
 
@@ -113,8 +125,8 @@ def phase_build():
     from paddle_tpu_torch.ops import kernels as K
     from paddle_tpu_torch.ops.kernels import _build
 
-    names = [os.path.splitext(os.path.basename(m.SOURCE))[0]
-             for m, _, _ in K.KERNELS.values()]
+    names = [os.path.splitext(os.path.basename(k.source))[0]
+             for k in K.KERNELS.values()]
     t0 = time.perf_counter()
     secs = _build.build(names)
     log(f"[build] {json.dumps({n: round(s, 1) for n, s in secs.items()})}"
@@ -128,10 +140,22 @@ def phase_build():
 
 
 # ----------------------------------------------------------------- phase 3
+def _sdpa_mask(torch, q, k, bias, causal):
+    """The causal mask (bottom-right aligned) and the bias as one
+    additive mask in q's dtype, for F.scaled_dot_product_attention."""
+    sq, sk = q.shape[1], k.shape[1]
+    mask = bias
+    if causal:
+        keep = torch.ones(sq, sk, dtype=torch.bool,
+                          device=q.device).tril(sk - sq)
+        mask = bias + torch.where(keep, 0.0, -1e30)
+    return mask.to(q.dtype)
+
+
 def _sdpa_library(q, k, v, bias, causal):
     """One PyTorch call computing flash_fwd's output (yardstick only): the
-    causal mask (bottom-right aligned) and the bias go in as one additive
-    mask, built here, outside the timed call."""
+    causal mask and the bias go in as one additive mask, built here,
+    outside the timed call."""
     import torch
     import torch.nn.functional as F
 
@@ -139,15 +163,31 @@ def _sdpa_library(q, k, v, bias, causal):
     if bias is None:
         return lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                       is_causal=causal)
-    sq, sk = q.shape[1], k.shape[1]
-    mask = bias
-    if causal:
-        keep = torch.ones(sq, sk, dtype=torch.bool,
-                          device=q.device).tril(sk - sq)
-        mask = bias + torch.where(keep, 0.0, -1e30)
-    mask = mask.to(q.dtype)
+    mask = _sdpa_mask(torch, q, k, bias, causal)
     return lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                   attn_mask=mask)
+
+
+def _sdpa_bwd_library(q, k, v, dout, bias, causal):
+    """The backward of one F.scaled_dot_product_attention call on the same
+    inputs (yardstick only): its forward runs here, outside the timed
+    call, and the timed call computes dq, dk, dv from the kept graph.
+    GQA kv heads are expanded first, so its dk / dv are per query head."""
+    import torch
+    import torch.nn.functional as F
+
+    rep = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kt, vt = (x.repeat_interleave(rep, dim=2).transpose(1, 2).detach()
+              .requires_grad_() for x in (k, v))
+    if bias is None:
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    else:
+        out = F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=_sdpa_mask(torch, q, k, bias, causal))
+    dt = dout.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), dt,
+                                       retain_graph=True)
 
 
 def _pad_bias(torch, valid):
@@ -266,6 +306,64 @@ def kernel_cases(torch, dtype):
                   dec_library,
                   2 * keysd * h * d * isz + 2 * bd * h * d * isz + 32,
                   4 * keysd * h * d, 0))
+    return cases + bwd_cases(torch, dtype)
+
+
+def bwd_cases(torch, dtype):
+    """flash_fwd and flash_bwd at the train step's shape (GPT-125M: B8
+    S1024 H12 D64, causal), and flash_bwd at a GQA + pad-bias case (B2
+    S1024, 12 query heads over 4 kv heads, keys before each row's start
+    masked, causal).  Pad query rows, which see no key, get a zero
+    cotangent, as a loss that ignores pad positions gives them; then
+    every row is compared."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as FA
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    dev = "cuda"
+    isz = torch.empty((), dtype=dtype).element_size()
+    cases = []
+    for label, b, s, hq, hkv, starts in (
+            ("causal B8 S1024 H12 D64 (train)", 8, 1024, 12, 12, None),
+            ("GQA 12/4 causal+pad B2 S1024 D64", 2, 1024, 12, 4, (0, 100))):
+        d = 64
+        q, dout = (torch.randn(b, s, hq, d, generator=g, device=dev,
+                               dtype=dtype) for _ in range(2))
+        k, v = (torch.randn(b, s, hkv, d, generator=g, device=dev,
+                            dtype=dtype) for _ in range(2))
+        bias, bias_bytes = None, 0
+        if starts is None:
+            pairs = b * s * (s + 1) // 2
+        else:
+            st = torch.tensor(starts, device=dev)
+            valid = torch.arange(s, device=dev)[None] >= st[:, None]
+            bias = torch.where(valid, 0.0, -1e30)[:, None, None]
+            bias_bytes = b * s * 4
+            # causal: row i sees keys start..i, so rows before the start
+            # see none (pad rows)
+            dout = dout * valid[:, :, None, None].to(dtype)
+            pairs = sum(_causal_pairs(torch, s, valid[i]) for i in range(b))
+        if starts is None:
+            cases.append((
+                "flash_fwd", label,
+                lambda q=q, k=k, v=v: FA.flash_fwd(q, k, v, causal=True),
+                lambda q=q, k=k, v=v: FA.flash_fwd_reference(q, k, v,
+                                                             causal=True),
+                _sdpa_library(q, k, v, None, True),
+                # q, k, v, o once each, lse
+                4 * b * s * hq * d * isz + b * hq * s * 4,
+                4 * pairs * hq * d, 0))
+        out, lse = FA.flash_fwd(q, k, v, bias=bias, causal=True)
+        cases.append((
+            "flash_bwd", label,
+            lambda q=q, k=k, v=v, o=out, l=lse, g=dout, m=bias:
+                FA.flash_bwd(q, k, v, o, l, g, bias=m, causal=True),
+            lambda q=q, k=k, v=v, o=out, l=lse, g=dout, m=bias:
+                FA.flash_bwd_reference(q, k, v, o, l, g, bias=m,
+                                       causal=True),
+            _sdpa_bwd_library(q, k, v, dout, bias, True),
+            # q, o, dO, dq and k, v, dk, dv once each, lse, the bias
+            4 * b * s * (hq + hkv) * d * isz + b * hq * s * 4 + bias_bytes,
+            10 * pairs * hq * d, 0))
     return cases
 
 
@@ -283,7 +381,16 @@ def phase_kernels():
         for name, label, run, plain, lib, nbytes, flops, real in \
                 kernel_cases(torch, dtype):
             got, want = run(), plain()
-            if isinstance(got, tuple):   # flash_fwd: (out, lse)
+            rel = None
+            if name == "flash_bwd":      # (dq, dk, dv)
+                check(all(bool(torch.isfinite(x).all()) for x in got),
+                      f"{name} [{label} {dname}] non-finite gradient")
+                err = max((a.float() - r.float()).abs().max().item()
+                          for a, r in zip(got, want))
+                # held relative to the largest reference gradient
+                ref_max = max(r.float().abs().max().item() for r in want)
+                rel = err / ref_max
+            elif isinstance(got, tuple):   # flash_fwd: (out, lse)
                 check(bool(torch.isfinite(got[0]).all())
                       and bool(torch.isfinite(got[1]).all()),
                       f"{name} [{label} {dname}] non-finite output")
@@ -299,26 +406,35 @@ def phase_kernels():
             else:
                 err = (got.float() - want.float()).abs().max().item()
             torch.cuda.synchronize()
-            check(math.isfinite(err) and err <= tol,
-                  f"{name} [{label} {dname}] max_abs_err {err:.3g} > {tol}")
+            held = err if rel is None else rel
+            check(math.isfinite(held) and held <= tol,
+                  f"{name} [{label} {dname}] "
+                  f"{'max_abs_err' if rel is None else 'max_rel_err'} "
+                  f"{held:.3g} > {tol}")
             ms = time_ms(run)
             pms = time_ms(plain)
             lms = time_ms(lib) if lib is not None else None
             bms, by = bound_ms(nbytes, flops, dname)
-            log(f"[kernels] {name:16s} {label:26s} {dname:8s} max_abs_err "
-                f"{err:.3g} (tol {tol}) kernel_ms {ms:.4f} plain_ms "
+            log(f"[kernels] {name:16s} {label:32s} {dname:8s} max_abs_err "
+                f"{err:.3g}"
+                + ("" if rel is None else
+                   f" (rel {rel:.3g} of max |ref| {ref_max:.3g})")
+                + f" (tol {tol}) kernel_ms {ms:.4f} plain_ms "
                 f"{pms:.4f} library_ms "
                 f"{'null' if lms is None else f'{lms:.4f}'} bound_ms "
                 f"{bms:.5f} ({by})")
             # the JSON row: each kernel at its bf16 main-path shape (the
-            # first case of each kernel: flash_fwd's cold prefill is kept
-            # below as the serving path's case)
+            # first case of each kernel; flash_fwd's cold prefill is kept
+            # as the serving path's case)
             key = (name, dname)
             row = dict(name=name, case=label, dtype=dname,
                        max_abs_err=err, ms=ms, plain_ms=pms,
                        library_ms=lms, bound_ms=bms, bound_by=by)
-            if name != "flash_fwd" or "pad B1" in label:
-                table[key] = row
+            if name == "flash_fwd":
+                if "pad B1" in label:
+                    table[key] = row
+            else:
+                table.setdefault(key, row)
     K.reset_launches()   # comparison launches do not count
     return table
 
@@ -498,7 +614,160 @@ def phase_parity():
         f"{hits}")
 
 
+# ----------------------------------------------------------------- phase 7
+def _gpt125m(layers):
+    from paddle_tpu_torch.models.gpt import GPTConfig
+
+    # bench.py:66-68; the port's GPTConfig defaults are these widths
+    return GPTConfig(vocab_size=50304, hidden_size=768, num_layers=layers,
+                     num_heads=12, max_seq_len=1024, fused_head_ce=True)
+
+
+def _train_step(model, amp_dtype=None):
+    from paddle_tpu_torch.distributed import build_train_step
+    from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+
+    return build_train_step(model, AdamW(learning_rate=1e-4),
+                            GPTPretrainingCriterion(model=model),
+                            amp_dtype=amp_dtype)
+
+
+def phase_train_parity():
+    import torch
+
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.ops import kernels as K
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _gpt125m(2)
+    rs = np.random.RandomState(SEED)
+    ids, labels = (rs.randint(0, cfg.vocab_size, (2, 256)).astype(np.int32)
+                   for _ in range(2))
+    cpu = GPTForCausalLM(cfg, device="cpu", seed=SEED)
+    gpu = GPTForCausalLM(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    K.reset_launches()
+    lg = _train_step(gpu).run_steps(ids, labels, repeat=3).cpu().numpy()
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    lc = _train_step(cpu).run_steps(ids, labels, repeat=3).numpy()
+    gap = float(np.abs(lg - lc).max())
+    check(np.isfinite(lg).all() and np.isfinite(lc).all(),
+          f"train_parity non-finite losses {lg} / {lc}")
+    check(gap <= 1e-3, f"train_parity card {lg} vs cpu {lc}: max gap "
+          f"{gap:.3g} > 1e-3")
+    for k in ("flash_fwd", "flash_bwd"):
+        check(counts[k] > 0, f"train_parity never launched {k}")
+    log(f"[train_parity] f32 GPT-125M widths 2L B2 S256, 3 AdamW steps: "
+        f"card {lg.tolist()} cpu {lc.tolist()} max gap {gap:.3g} (tol "
+        f"1e-3); launches {json.dumps(counts)}")
+
+
+# ----------------------------------------------------------------- phase 8
+def phase_train(card):
+    import torch
+
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.ops import kernels as K
+
+    cfg = _gpt125m(12)
+    batch, seq, iters = 8, 1024, 10
+    model = GPTForCausalLM(cfg, device="cuda", seed=SEED)
+    step = _train_step(model, amp_dtype="bfloat16")
+    rs = np.random.RandomState(0)                 # bench.py:87
+    ids, labels = (torch.from_numpy(rs.randint(
+        0, cfg.vocab_size, (batch, seq)).astype(np.int32)).cuda()
+        for _ in range(2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    warm = [float(step(ids, labels)) for _ in range(2)]
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    losses = step.run_steps(ids, labels, repeat=iters)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = K.launch_counts()
+    losses = losses.cpu().numpy()
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in model.parameters())  # bench.py:174
+    tps = batch * seq * iters / dt
+    peak_flops = PEAK_FLOPS["bfloat16"]
+    mfu = 6 * n_params * tps / peak_flops
+    check(np.isfinite(warm).all() and np.isfinite(losses).all(),
+          f"train: non-finite loss {warm} {losses.tolist()}")
+    check(losses[-1] < warm[0], f"train: loss did not fall ({warm[0]} -> "
+          f"{losses[-1]})")
+    for k in ("flash_fwd", "flash_bwd"):
+        check(counts[k] == cfg.num_layers * iters,
+              f"train: {k} launched {counts[k]} times in {iters} steps, "
+              f"expected {cfg.num_layers} per step")
+    log(f"[train] GPT-125M bf16 AMP 12L B{batch} S{seq} ({card}): "
+        f"{tps:.1f} tokens/s, {1e3 * dt / iters:.2f} ms/step, MFU "
+        f"{100 * mfu:.2f}% of {peak_flops / 1e12:.0f} TFLOP/s "
+        f"(N={n_params}), peak memory {peak / 2**30:.2f} GiB; loss "
+        f"{warm[0]:.4f} -> {losses[-1]:.4f}; launches per step "
+        f"{json.dumps({k: v / iters for k, v in counts.items()})}")
+    return counts, step, ids, labels
+
+
 # ------------------------------------------------- optional: --profile
+def phase_profile_train(step, ids, labels, steps=3):
+    """torch.profiler over `steps` train steps: device busy share and
+    the device rows that hold the step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step.run_steps(ids, labels, repeat=steps)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    _log_profile(prof, "train step", wall_ms, steps)
+
+
+def _log_profile(prof, what, wall_ms, steps):
+    import torch
+
+    rows = prof.key_averages()
+    # device rows are the kernels and copies themselves (an aten op's
+    # row would count its kernels a second time)
+    kernels = [e for e in rows
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def dev(e):
+        return e.self_device_time_total / 1e3
+
+    busy = sum(dev(e) for e in kernels)
+    launches = sum(e.count for e in kernels)
+    log(f"[profile] {steps} x {what}: wall {wall_ms / steps:.2f} ms/step, "
+        f"device busy {busy / steps:.3f} ms/step "
+        f"({100 * busy / wall_ms:.1f}% busy), {launches / steps:.0f} device"
+        f" ops/step")
+    # device time by kind: the port's kernels, cuBLAS GEMMs, copies and
+    # casts, the rest (elementwise, reductions, indexing)
+    kinds = {"port kernels": 0.0, "gemm": 0.0, "copy/cast": 0.0,
+             "other": 0.0}
+    for e in kernels:
+        name = e.key.lower()
+        kind = ("port kernels" if "flash_" in name or "_attention_kernel"
+                in name else "gemm" if "nvjet" in name or "gemm" in name
+                else "copy/cast" if "copy" in name else "other")
+        kinds[kind] += dev(e) / steps
+    log("[profile] device by kind (ms/step): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in kinds.items()))
+    for e in sorted(kernels, key=dev, reverse=True)[:12]:
+        log(f"[profile] device {dev(e) / steps:8.3f} ms/step  "
+            f"x{e.count // steps:<5d} {e.key[:90]}")
+    for e in sorted(rows, key=lambda e: e.self_cpu_time_total,
+                    reverse=True)[:10]:
+        log(f"[profile] host   {e.self_cpu_time_total / 1e3 / steps:8.3f} "
+            f"ms/step  x{e.count // steps:<5d} {e.key[:90]}")
+
+
 def phase_profile(model, cfg, steps=10):
     """torch.profiler over `steps` steady decode steps of the engine (4
     slots busy): device busy share and the ops that hold the step."""
@@ -522,28 +791,7 @@ def phase_profile(model, cfg, steps=10):
             eng.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    rows = prof.key_averages()
-    # device rows are the kernels and copies themselves (an aten op's
-    # row would count its kernels a second time)
-    kernels = [e for e in rows
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-
-    def dev(e):
-        return e.self_device_time_total / 1e3
-
-    busy = sum(dev(e) for e in kernels)
-    launches = sum(e.count for e in kernels)
-    log(f"[profile] {steps} decode steps, 4 slots: wall {wall_ms / steps:.2f}"
-        f" ms/step, device busy {busy / steps:.3f} ms/step "
-        f"({100 * busy / wall_ms:.1f}% busy), {launches / steps:.0f} device"
-        f" ops/step")
-    for e in sorted(kernels, key=dev, reverse=True)[:12]:
-        log(f"[profile] device {dev(e) / steps:8.3f} ms/step  "
-            f"x{e.count // steps:<5d} {e.key[:90]}")
-    for e in sorted(rows, key=lambda e: e.self_cpu_time_total,
-                    reverse=True)[:10]:
-        log(f"[profile] host   {e.self_cpu_time_total / 1e3 / steps:8.3f} "
-            f"ms/step  x{e.count // steps:<5d} {e.key[:90]}")
+    _log_profile(prof, "engine decode step (4 slots)", wall_ms, steps)
 
 
 # ----------------------------------------------------------------- main
@@ -593,17 +841,23 @@ def main():
         del model
         torch.cuda.empty_cache()
         run("parity", phase_parity)
+        run("train_parity", phase_train_parity)
+        train, step, ids, labels = run("train", phase_train, card)
+        if "--profile" in sys.argv[1:]:
+            run("profile_train", phase_profile_train, step, ids, labels)
+        del step
     except Fail as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     rows = []
-    for name, (mod, _, _) in K.KERNELS.items():
+    for name, k in K.KERNELS.items():
         row = table[(name, "bfloat16")]
         errs = [table[(name, d)]["max_abs_err"]
                 for d in ("bfloat16", "float32")]
         rows.append(dict(
-            name=name, route="cuda", source=mod.SOURCE,
-            replaces=mod.REPLACES, launches=serve[name] + gen[name],
+            name=name, route="cuda", source=k.source,
+            replaces=k.replaces,
+            launches=serve[name] + gen[name] + train[name],
             max_abs_err=max(errs), ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"], shape=row["case"]))

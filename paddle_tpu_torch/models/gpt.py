@@ -1,13 +1,15 @@
-"""GPT family, inference path (``paddle_tpu/models/gpt.py`` counterpart).
+"""GPT family (``paddle_tpu/models/gpt.py`` counterpart): the serving
+forward, the training forward with the fused LM head + cross entropy,
+and `GPTPretrainingCriterion`.
 
 Parameter names and shapes equal the JAX package's
 ``functional_state()`` names (``gpt.h.0.attn.qkv_proj.weight`` is
 ``[in, out]``), so `load_reference_state` carries weights across
 one to one.  The JAX model's ``mpu.*ParallelLinear`` layers are plain
 `Linear` here under the same attribute names.  The LLaMA variant
-(rope / RMSNorm / SwiGLU), an untied LM head and training (dropout,
-recompute, the fused head + CE) come with later slices; their
-`GPTConfig` fields arrive with them, so passing one raises `TypeError`.
+(rope / RMSNorm / SwiGLU), an untied LM head, dropout and recompute come
+with later slices; their `GPTConfig` fields arrive with them, so passing
+one raises `TypeError`.
 """
 from __future__ import annotations
 
@@ -23,17 +25,18 @@ from .generation import (
     init_kv_caches,
 )
 
-__all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "gpt_tiny",
-           "gpt_1p3b", "load_reference_state"]
+__all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM",
+           "GPTPretrainingCriterion", "gpt_tiny", "gpt_1p3b",
+           "load_reference_state"]
 
 
 class GPTConfig:
     """The fields of the JAX package's GPTConfig that the ported model
-    reads: the GPT-2 family with tied embeddings, at inference."""
+    reads: the GPT-2 family with tied embeddings."""
 
     def __init__(self, vocab_size=50304, hidden_size=768, num_layers=12,
                  num_heads=12, max_seq_len=1024, ffn_hidden=None,
-                 layer_norm_eps=1e-5):
+                 layer_norm_eps=1e-5, fused_head_ce=False):
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
@@ -41,6 +44,10 @@ class GPTConfig:
         self.max_seq_len = max_seq_len
         self.ffn_hidden = ffn_hidden or 4 * hidden_size
         self.layer_norm_eps = layer_norm_eps
+        # training returns hidden states; GPTPretrainingCriterion fuses
+        # the LM-head projection into the chunked CE (the [B,S,V] logits
+        # never materialize)
+        self.fused_head_ce = fused_head_ce
 
 
 class GPTAttention(nn.Module):
@@ -163,6 +170,12 @@ class GPTForCausalLM(nn.Module, GenerationMixin):
                                      attn_start=attn_start)
         else:
             x = self.gpt(input_ids)
+        if self.cfg.fused_head_ce and self.training and kv_caches is None:
+            # hidden states out; GPTPretrainingCriterion(model=...) owns
+            # the projection.  The marker makes a criterion that cannot
+            # fuse fail loudly instead of scoring hidden states as logits.
+            x.fused_head_hidden = True
+            return x
         logits = torch.matmul(x, self.gpt.wte.weight.t())   # tied head
         if kv_caches is not None:
             return logits, new_caches
@@ -173,6 +186,185 @@ class GPTForCausalLM(nn.Module, GenerationMixin):
         return init_kv_caches(cfg.num_layers, batch, cfg.num_heads,
                               cfg.hidden_size // cfg.num_heads, max_len,
                               dtype=self.dtype, device=self.device)
+
+
+NEG_INF = -1e30
+
+
+def _ce_fwd_chunk(carry, blk, base, safe_labels):
+    """One online-logsumexp CE step over a [N, C] f32 logits block
+    (JAX :281): the running max / sum and the picked target logit, for
+    both the chunked-softmax CE and the fused linear + CE."""
+    m, l, picked = carry
+    m_new = torch.maximum(m, blk.max(dim=1).values)
+    l_new = l * torch.exp(m - m_new) + \
+        torch.exp(blk - m_new[:, None]).sum(dim=1)
+    width = blk.shape[1]
+    in_chunk = (safe_labels >= base) & (safe_labels < base + width)
+    idx = (safe_labels - base).clamp(0, width - 1)
+    val = blk.gather(1, idx[:, None])[:, 0]
+    return m_new, l_new, torch.where(in_chunk, val, picked)
+
+
+def _ce_bwd_chunk(blk, base, lse, safe_labels, valid):
+    """d(loss) / d(logits block) (JAX :297): the softmax recomputed from
+    the saved logsumexp minus the one-hot, zero on ignored tokens."""
+    p = torch.exp(blk - lse[:, None])
+    cols = torch.arange(blk.shape[1], device=blk.device)
+    onehot = cols[None, :] == (safe_labels - base)[:, None]
+    return (p - onehot.to(p.dtype)) * valid[:, None]
+
+
+def _ce_lse(block_at, bases, safe_labels):
+    """(logsumexp, target logit) per row, online over the blocks
+    `block_at(base)` for each vocab offset in `bases`.  The JAX scans pad
+    the vocab with -1e30 columns, whose exp is exactly 0; the port's last
+    block is narrower instead, with the same values."""
+    n, dev = safe_labels.shape[0], safe_labels.device
+    carry = (torch.full((n,), NEG_INF, device=dev),
+             torch.zeros(n, device=dev), torch.zeros(n, device=dev))
+    for base in bases:
+        carry = _ce_fwd_chunk(carry, block_at(base), base, safe_labels)
+    m, l, picked = carry
+    return m + torch.log(l.clamp(min=1e-30)), picked
+
+
+def _head_logits(h, wc):
+    """f32 logits [N, C] of one vocab chunk.  In f32 this is the JAX
+    product.  With bf16 operands torch.matmul accumulates in f32 but
+    rounds its output to bf16 before the upcast (JAX keeps the f32
+    accumulator, `preferred_element_type`, :401-403): each logit carries
+    a relative error up to 2^-9, which the logsumexp and the loss then
+    inherit, while every later step of the CE stays f32."""
+    return torch.matmul(h, wc.t()).float()
+
+
+class _ChunkedSoftmaxCE(torch.autograd.Function):
+    """Summed CE over [N, V] logits, read one vocab chunk at a time in
+    f32; the backward recomputes each chunk's softmax and writes
+    d(logits) in the logits' dtype (`_chunked_softmax_ce` :306)."""
+
+    @staticmethod
+    def forward(ctx, logits, safe_labels, valid, chunk):
+        lse, picked = _ce_lse(
+            lambda base: logits[:, base:base + chunk].float(),
+            range(0, logits.shape[1], chunk), safe_labels)
+        ctx.save_for_backward(logits, lse, safe_labels, valid)
+        ctx.chunk = chunk
+        return torch.where(valid, lse - picked, 0.0).sum()
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, safe_labels, valid = ctx.saved_tensors
+        chunk = ctx.chunk
+        dlogits = torch.empty_like(logits)
+        for base in range(0, logits.shape[1], chunk):
+            blk = logits[:, base:base + chunk].float()
+            d = _ce_bwd_chunk(blk, base, lse, safe_labels, valid)
+            dlogits[:, base:base + chunk] = (g * d).to(logits.dtype)
+        return dlogits, None, None, None
+
+
+class _FusedLinearCE(torch.autograd.Function):
+    """Summed CE of the logits h @ w.T without materialising them
+    (`_fused_linear_ce` :375): each vocab chunk's logits are computed,
+    folded into the running logsumexp and dropped; the backward
+    recomputes them per chunk and accumulates dh (f32) and each chunk's
+    dW, so nothing of size N x V is ever stored."""
+
+    @staticmethod
+    def forward(ctx, h, w, safe_labels, valid, chunk):
+        lse, picked = _ce_lse(
+            lambda base: _head_logits(h, w[base:base + chunk]),
+            range(0, w.shape[0], chunk), safe_labels)
+        ctx.save_for_backward(h, w, lse, safe_labels, valid)
+        ctx.chunk = chunk
+        return torch.where(valid, lse - picked, 0.0).sum()
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w, lse, safe_labels, valid = ctx.saved_tensors
+        chunk = ctx.chunk
+        dh = torch.zeros(h.shape, device=h.device, dtype=torch.float32)
+        dw = torch.empty(w.shape, device=w.device, dtype=torch.float32)
+        for base in range(0, w.shape[0], chunk):
+            wc = w[base:base + chunk]
+            d = _ce_bwd_chunk(_head_logits(h, wc), base, lse, safe_labels,
+                              valid).to(h.dtype)                   # [N, C]
+            dh += torch.matmul(d, wc).float()
+            dw[base:base + chunk] = torch.matmul(d.t(), h).float()
+        return (g * dh).to(h.dtype), (g * dw).to(w.dtype), None, None, None
+
+
+def _labels(labels, ignore_index):
+    valid = labels != ignore_index
+    return torch.where(valid, labels, 0).long(), valid
+
+
+def _chunked_softmax_ce(logits, labels, ignore_index, n_chunks=8):
+    """Cross entropy over [N, V] logits by vocab chunks.  Returns
+    (total loss f32, count of non-ignored tokens f32)."""
+    safe, valid = _labels(labels, ignore_index)
+    chunk = -(-logits.shape[1] // n_chunks)
+    total = _ChunkedSoftmaxCE.apply(logits, safe, valid, chunk)
+    return total, valid.float().sum()
+
+
+def _fused_linear_ce(h, w, labels, ignore_index, n_chunks=16):
+    """Cross entropy fused with the LM head: h [N, Hd], w [V, Hd] (the
+    tied embedding), labels [N].  Returns (total loss f32, count of
+    non-ignored tokens f32)."""
+    safe, valid = _labels(labels, ignore_index)
+    chunk = -(-w.shape[0] // n_chunks)
+    total = _FusedLinearCE.apply(h, w, safe, valid, chunk)
+    return total, valid.float().sum()
+
+
+class GPTPretrainingCriterion(nn.Module):
+    """Token-level LM loss, the mean over tokens whose label is not
+    `ignore_index` (JAX :461).
+
+    ``fused=True`` with ``model=`` (a model built with
+    ``cfg.fused_head_ce=True``, which returns hidden states in training)
+    fuses the tied LM head into the chunked CE, reading the embedding
+    weight through the live model, so a train step that swaps the
+    model's parameters differentiates it like any other.  ``fused=True``
+    on logits of a vocab >= 8192 takes the chunked-softmax CE;
+    otherwise the plain `cross_entropy`."""
+
+    def __init__(self, ignore_index=-100, fused=True, model=None):
+        super().__init__()
+        self.ignore_index = ignore_index
+        self.fused = fused
+        # a plain reference, not a submodule: the criterion owns no
+        # parameters of its own
+        object.__setattr__(self, "_model", model)
+
+    def forward(self, logits, labels):
+        labels = torch.as_tensor(labels, device=logits.device)
+        is_hidden = getattr(logits, "fused_head_hidden", False)
+        if is_hidden and (self._model is None or not self.fused):
+            # either mismatch silently scores hidden states as logits
+            raise RuntimeError(
+                "model was built with cfg.fused_head_ce=True (returns "
+                "hidden states in training) but the criterion cannot fuse "
+                "— construct GPTPretrainingCriterion(model=model) with "
+                "fused=True (got model="
+                f"{'set' if self._model is not None else 'None'}, "
+                f"fused={self.fused})")
+        n = logits.shape[:-1].numel()
+        if is_hidden:
+            total, count = _fused_linear_ce(
+                logits.reshape(n, logits.shape[-1]),
+                self._model.gpt.wte.weight, labels.reshape(n),
+                self.ignore_index)
+            return total / count.clamp(min=1.0)
+        if self.fused and logits.shape[-1] >= 8192:
+            total, count = _chunked_softmax_ce(
+                logits.reshape(n, logits.shape[-1]), labels.reshape(n),
+                self.ignore_index)
+            return total / count.clamp(min=1.0)
+        return F.cross_entropy(logits, labels, ignore_index=self.ignore_index)
 
 
 def load_reference_state(model, params) -> None:

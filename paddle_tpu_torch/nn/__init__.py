@@ -1,5 +1,5 @@
-"""Layers of the port (``paddle_tpu/nn`` counterpart): the inference
-subset the GPT serving path uses."""
+"""Layers of the port (``paddle_tpu/nn`` counterpart): the subset the
+GPT serving and training paths use."""
 from __future__ import annotations
 
 from . import functional  # noqa: F401

@@ -2,9 +2,11 @@
 attention.py:80`` counterpart; plain version `_sdpa_ref` :51).
 
 Inputs are ``[batch, seq, heads, head_dim]`` as in the JAX package.  A
-CPU tensor runs the plain version; a CUDA tensor runs the `flash_fwd`
-kernel, with the mask as its additive bias when one is given.  There is
-no fallback from CUDA to the plain version.
+CPU tensor runs the plain version, which autograd differentiates; a
+CUDA tensor runs `FlashAttention` (the `flash_fwd` kernel, differentiated
+by the `flash_bwd` kernel), with the mask as its stop-gradient additive
+bias when one is given (the JAX entry's grad-safe mask route, :92-97).
+There is no fallback from CUDA to the plain version.
 """
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ import math
 
 import torch
 
-from ...ops.kernels.flash_attention import flash_fwd
+from ...ops.kernels.flash_attention import FlashAttention
 
 NEG_INF = -1e30
 
@@ -43,10 +45,16 @@ def _sdpa_ref(q, k, v, attn_mask, is_causal, scale=None):
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  is_causal=False):
-    """Inference only: attention dropout arrives with the training
-    slice."""
+    """Attention dropout is not ported.  On CUDA a mask that requires
+    grad raises: the kernel gives the bias no gradient (the JAX entry
+    sends such masks to its reference path instead)."""
     if query.device.type == "cpu":
         return _sdpa_ref(query, key, value, attn_mask, is_causal)
-    out, _ = flash_fwd(query.contiguous(), key.contiguous(),
-                       value.contiguous(), bias=attn_mask, causal=is_causal)
-    return out
+    if attn_mask is not None and attn_mask.requires_grad \
+            and torch.is_grad_enabled():
+        raise NotImplementedError(
+            "scaled_dot_product_attention: a trainable attn_mask needs a "
+            "bias gradient, which the flash kernels do not compute; "
+            "detach the mask")
+    return FlashAttention.apply(query.contiguous(), key.contiguous(),
+                                value.contiguous(), attn_mask, is_causal)

@@ -19,8 +19,9 @@ from .functional import layer_norm
 
 
 def _param(t):
-    # inference port: parameters carry no autograd state
-    return nn.Parameter(t, requires_grad=False)
+    # trainable; the serving entries run under torch.inference_mode(), so
+    # serving builds no autograd graph
+    return nn.Parameter(t)
 
 
 class Linear(nn.Module):
@@ -58,7 +59,9 @@ class Embedding(nn.Module):
 
 
 class Dropout(nn.Module):
-    """Inference port: identity (the serving path runs in eval mode)."""
+    """Identity in eval mode and at p == 0.  Dropout with p > 0 in
+    training mode is not ported yet (ROADMAP Queue A): it raises rather
+    than silently acting as the identity."""
 
     def __init__(self, p=0.0):
         super().__init__()
@@ -67,8 +70,8 @@ class Dropout(nn.Module):
     def forward(self, x):
         if self.training and self.p > 0:
             raise NotImplementedError(
-                "paddle_tpu_torch ports the inference path; training "
-                "dropout arrives with the training slice (ROADMAP)")
+                f"Dropout(p={self.p}) in training mode is not ported yet "
+                "(ROADMAP Queue A); train with p=0")
         return x
 
 

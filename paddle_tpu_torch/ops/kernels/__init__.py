@@ -1,25 +1,47 @@
 """Hand-written CUDA kernels of the port (``paddle_tpu/ops/pallas``
-counterpart).  Each module holds one kernel's wrapper, its plain PyTorch
-version, its launch counter (`launches`), its source (`SOURCE`) and the
-TPU kernel it replaces (`REPLACES`).  `KERNELS` maps each kernel name to
-(module, wrapper name, plain-version name)."""
+counterpart).  Each module holds its kernels' wrappers, their plain
+PyTorch versions, launch counters, CUDA sources and the TPU kernels they
+replace.  `KERNELS` maps each kernel name to its `Kernel` record."""
 from __future__ import annotations
+
+from types import ModuleType
+from typing import NamedTuple
 
 from . import decode_attention, flash_attention, paged_attention
 
+
+class Kernel(NamedTuple):
+    module: ModuleType
+    wrapper: str      # the wrapper's name in `module`
+    plain: str        # its plain version's name in `module`
+    counter: str      # the module attribute counting its launches
+    source: str       # its CUDA source, relative to the repository root
+    replaces: str     # the TPU kernel it replaces (file:line)
+
+
 KERNELS = {
-    "flash_fwd": (flash_attention, "flash_fwd", "flash_fwd_reference"),
-    "paged_attention": (paged_attention, "paged_attention",
-                        "paged_attention_reference"),
-    "decode_attention": (decode_attention, "decode_attention",
-                         "decode_attention_reference"),
+    "flash_fwd": Kernel(flash_attention, "flash_fwd", "flash_fwd_reference",
+                        "launches", flash_attention.SOURCE,
+                        flash_attention.REPLACES),
+    "flash_bwd": Kernel(flash_attention, "flash_bwd", "flash_bwd_reference",
+                        "bwd_launches", flash_attention.BWD_SOURCE,
+                        flash_attention.BWD_REPLACES),
+    "paged_attention": Kernel(paged_attention, "paged_attention",
+                              "paged_attention_reference", "launches",
+                              paged_attention.SOURCE,
+                              paged_attention.REPLACES),
+    "decode_attention": Kernel(decode_attention, "decode_attention",
+                               "decode_attention_reference", "launches",
+                               decode_attention.SOURCE,
+                               decode_attention.REPLACES),
 }
 
 
 def reset_launches() -> None:
-    for mod, _, _ in KERNELS.values():
-        mod.launches = 0
+    for k in KERNELS.values():
+        setattr(k.module, k.counter, 0)
 
 
 def launch_counts() -> dict:
-    return {name: mod.launches for name, (mod, _, _) in KERNELS.items()}
+    return {name: getattr(k.module, k.counter)
+            for name, k in KERNELS.items()}

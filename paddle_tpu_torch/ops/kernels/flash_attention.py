@@ -1,12 +1,16 @@
-"""Flash-attention forward: CUDA kernel wrapper + plain PyTorch version.
+"""Flash attention: CUDA kernel wrappers + plain PyTorch versions, forward
+and backward, and the `FlashAttention` autograd function over them.
 
-Counterpart of ``paddle_tpu/ops/pallas/flash_attention.py``'s forward
+Counterpart of ``paddle_tpu/ops/pallas/flash_attention.py``: the forward
 (`_online_softmax` :149, `_fwd_kernel` :241, `_fwd_kernel_bias` :256,
-`_ref_attention` :1655).  The kernel is ``csrc/flash_fwd.cu``.  The JAX
-package's Mosaic workarounds (the `_biased_flash_ok` ``sk % 128`` gate,
-the flat/kv/mh layout tiers, block autotuning) have no counterpart: one
-kernel takes every Sq/Sk, GQA and broadcast bias in the native
-``[B, S, H, D]`` layout.
+`_ref_attention` :1655; kernel ``csrc/flash_fwd.cu``) and the backward
+(`_dq_loop` :421, `_dkv_loop` :536 under `_bwd_flat` :1329, `_bwd_t`
+:720, `_bwd_mh` :672, `_bwd_kv` :1020 and `_bwd_tb` :1541; kernel
+``csrc/flash_bwd.cu``).  The JAX package's Mosaic workarounds (the
+`_biased_flash_ok` ``sk % 128`` and MHA-only gate, the flat/kv/mh layout
+tiers, block autotuning) have no counterpart: one kernel per direction
+takes every Sq/Sk, GQA and broadcast bias in the native ``[B, S, H, D]``
+layout.
 """
 from __future__ import annotations
 
@@ -22,13 +26,21 @@ SOURCE = "paddle_tpu_torch/csrc/flash_fwd.cu"
 REPLACES = ("paddle_tpu/ops/pallas/flash_attention.py:241 (_fwd_kernel, "
             "via _fwd_t :291/_fwd_mh :384/_fwd_kv :913/_fwd_flat :1239) "
             "and :256 (_fwd_kernel_bias, via _fwd_tb :1503)")
+BWD_SOURCE = "paddle_tpu_torch/csrc/flash_bwd.cu"
+BWD_REPLACES = ("paddle_tpu/ops/pallas/flash_attention.py:1329 (_bwd_flat; "
+                "the same math in _bwd_t :720/_bwd_mh :672/_bwd_kv :1020) "
+                "and :1541 (_bwd_tb)")
 
-# kernel launches since the last reset (the plain path never counts)
-launches = 0
+# kernel launches since the last reset (the plain paths never count)
+launches = 0        # flash_fwd
+bwd_launches = 0    # flash_bwd
 
 _SIG = {"flash_fwd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
         + [ctypes.c_int64] * 3 + [ctypes.c_int, ctypes.c_float,
                                   ctypes.c_int, ctypes.c_void_p]}
+_BWD_SIG = {"flash_bwd": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+            + [ctypes.c_int64] * 3 + [ctypes.c_int, ctypes.c_float,
+                                      ctypes.c_int, ctypes.c_void_p]}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -50,17 +62,16 @@ def _as_bias(bias, b, hq, sq, sk):
     return bias.expand(b, hq, sq, sk)
 
 
-def flash_fwd_reference(q, k, v, bias=None, causal=False):
-    """Plain version: (out [B,Sq,Hq,D] in q's dtype, lse [B,Hq,Sq] f32).
-    Scores and softmax in f32; scale, then bias, then the causal mask
-    (bottom-right aligned), in the kernel's order."""
+def _scores(q, k, bias, causal):
+    """f32 scores [B, Hq, Sq, Sk] in the kernels' order: scale, then
+    bias, then the causal mask (bottom-right aligned); GQA kv heads
+    expanded.  Returns (scores, k expanded to Hq heads)."""
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
+    k = k.float()
     if hq != hkv:
         k = k.repeat_interleave(hq // hkv, dim=2)
-        v = v.repeat_interleave(hq // hkv, dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
-        * (1.0 / math.sqrt(d))
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k) * (1.0 / math.sqrt(d))
     bias = _as_bias(bias, b, hq, sq, sk)
     if bias is not None:
         s = s + bias
@@ -68,10 +79,89 @@ def flash_fwd_reference(q, k, v, bias=None, causal=False):
         keep = torch.ones(sq, sk, dtype=torch.bool,
                           device=q.device).tril(sk - sq)
         s = torch.where(keep, s, NEG_INF)
+    return s, k
+
+
+def flash_fwd_reference(q, k, v, bias=None, causal=False):
+    """Plain version: (out [B,Sq,Hq,D] in q's dtype, lse [B,Hq,Sq] f32).
+    Scores and softmax in f32."""
+    hq, hkv = q.shape[2], k.shape[2]
+    s, _ = _scores(q, k, bias, causal)
+    v = v.float()
+    if hq != hkv:
+        v = v.repeat_interleave(hq // hkv, dim=2)
     lse = torch.logsumexp(s, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1),
-                       v.float())
+    out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
     return out.to(q.dtype), lse
+
+
+def flash_bwd_reference(q, k, v, out, lse, dout, bias=None, causal=False):
+    """Plain version of the backward: (dq, dk, dv) in the dtypes of q, k,
+    v, everything in f32 between.  The math of `_dq_loop` / `_dkv_loop`:
+    p = exp(scores - lse) from the saved LSE, delta = rowsum(dO * O),
+    ds = p * (dO.v - delta) * scale; dK / dV summed over each GQA group.
+    The bias gets no gradient."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    s, kf = _scores(q, k, bias, causal)
+    vf = v.float()
+    if hq != hkv:
+        vf = vf.repeat_interleave(hq // hkv, dim=2)
+    p = torch.exp(s - lse[..., None])
+    do = dout.float()
+    delta = (do * out.float()).sum(-1).transpose(1, 2)          # [B,Hq,Sq]
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, vf)
+    ds = p * (dp - delta[..., None]) * (1.0 / math.sqrt(d))
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
+    if hq != hkv:
+        # query head h serves kv head h // rep: consecutive groups
+        dk = dk.reshape(b, sk, hkv, hq // hkv, d).sum(3)
+        dv = dv.reshape(b, sk, hkv, hq // hkv, d).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_qkv(fn, q, k, v):
+    """What both kernels take: q [B,Sq,Hq,D], k/v [B,Sk,Hkv,D] with
+    Hq % Hkv == 0, D % 8 == 0 and D <= 256, f32 or bf16 alike,
+    contiguous, on q's CUDA device.  Returns (B, Sq, Sk, Hq, Hkv, D)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {q.device}")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"{fn}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    b, sq, hq, d = q.shape
+    _, sk, hkv, _ = k.shape
+    if k.shape[0] != b or k.shape[3] != d or hq % hkv:
+        raise ValueError(f"{fn}: k {tuple(k.shape)} does not match "
+                         f"q {tuple(q.shape)}")
+    if d % 8 or d > 256:
+        raise ValueError(f"{fn}: head_dim {d} must be a multiple of 8 "
+                         "and <= 256")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{fn}: dtypes {q.dtype}/{k.dtype}/{v.dtype}; "
+                        "expected float32 or bfloat16, all alike")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be contiguous on "
+                             f"{q.device}")
+    if sq == 0 or sk == 0:
+        raise ValueError(f"{fn}: empty sequence")
+    return b, sq, sk, hq, hkv, d
+
+
+def _bias_arg(fn, bias, q, b, hq, sq, sk):
+    """(f32 bias with a unit last stride or None, its batch / head /
+    query strides: 0 on broadcast dims)."""
+    bias = _as_bias(bias, b, hq, sq, sk)
+    if bias is None:
+        return None, (0, 0, 0)
+    if bias.device != q.device:
+        raise ValueError(f"{fn}: bias on another device")
+    if bias.stride(3) != 1:
+        bias = bias.contiguous()
+    return bias, tuple(bias.stride(i) for i in range(3))
 
 
 def flash_fwd(q, k, v, bias=None, causal=False):
@@ -82,37 +172,8 @@ def flash_fwd(q, k, v, bias=None, causal=False):
     global launches
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, bias, causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_fwd: unsupported device {q.device}")
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"flash_fwd: q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    b, sq, hq, d = q.shape
-    _, sk, hkv, _ = k.shape
-    if k.shape[0] != b or k.shape[3] != d or hq % hkv:
-        raise ValueError(f"flash_fwd: k {tuple(k.shape)} does not match "
-                         f"q {tuple(q.shape)}")
-    if d % 8 or d > 256:
-        raise ValueError(f"flash_fwd: head_dim {d} must be a multiple of "
-                         "8 and <= 256")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_fwd: dtypes {q.dtype}/{k.dtype}/{v.dtype}"
-                        "; expected float32 or bfloat16, all alike")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device or not t.is_contiguous():
-            raise ValueError(f"flash_fwd: {name} must be contiguous on "
-                             f"{q.device}")
-    if sq == 0 or sk == 0:
-        raise ValueError("flash_fwd: empty sequence")
-    bias = _as_bias(bias, b, hq, sq, sk)
-    strides = (0, 0, 0)
-    if bias is not None:
-        if bias.device != q.device:
-            raise ValueError("flash_fwd: bias on another device")
-        if bias.stride(3) != 1:
-            bias = bias.contiguous()
-        # broadcast batch / head / query dims carry stride 0
-        strides = tuple(bias.stride(i) for i in range(3))
+    b, sq, sk, hq, hkv, d = _check_qkv("flash_fwd", q, k, v)
+    bias, strides = _bias_arg("flash_fwd", bias, q, b, hq, sq, sk)
     out = torch.empty_like(q)
     lse = torch.empty(b, hq, sq, device=q.device, dtype=torch.float32)
     lib = _build.library("flash_fwd", _SIG)
@@ -125,3 +186,60 @@ def flash_fwd(q, k, v, bias=None, causal=False):
     _build.check(err, "flash_fwd")
     launches += 1
     return out, lse
+
+
+def flash_bwd(q, k, v, out, lse, dout, bias=None, causal=False):
+    """Gradients of flash_fwd: q/out/dout [B,Sq,Hq,D], k/v [B,Sk,Hkv,D],
+    lse [B,Hq,Sq] f32 (flash_fwd's), bias and causal as given to it.
+    Returns (dq, dk, dv) in the inputs' layouts and dtype; the bias gets
+    no gradient.  CPU tensors run the plain version; CUDA tensors launch
+    the kernel or raise."""
+    global bwd_launches
+    if q.device.type == "cpu":
+        return flash_bwd_reference(q, k, v, out, lse, dout, bias, causal)
+    b, sq, sk, hq, hkv, d = _check_qkv("flash_bwd", q, k, v)
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != q.dtype \
+                or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"flash_bwd: {name} must be a contiguous "
+                             f"{q.dtype} {tuple(q.shape)} on {q.device}")
+    if lse.shape != (b, hq, sq) or lse.dtype != torch.float32 \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"flash_bwd: lse must be a contiguous float32 "
+                         f"{(b, hq, sq)} on {q.device}")
+    bias, strides = _bias_arg("flash_bwd", bias, q, b, hq, sq, sk)
+    delta = torch.empty(b, hq, sq, device=q.device, dtype=torch.float32)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(v)
+    lib = _build.library("flash_bwd", _BWD_SIG)
+    err = lib.flash_bwd(
+        _build.ptr(q), _build.ptr(k), _build.ptr(v),
+        _build.ptr(bias) if bias is not None else None,
+        _build.ptr(out), _build.ptr(lse), _build.ptr(dout),
+        _build.ptr(delta), _build.ptr(dq), _build.ptr(dk), _build.ptr(dv),
+        b, sq, sk, hq, hkv, d, *strides, int(bool(causal)),
+        1.0 / math.sqrt(d), _DTYPES[q.dtype], _build.stream_ptr(q.device))
+    _build.check(err, "flash_bwd")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """out = attention(q, k, v) through `flash_fwd`, differentiated by
+    `flash_bwd` (the `_flash_core_flat` / `_flash_core_b` custom VJPs).
+    The bias is a stop-gradient mask: it gets no gradient, as in
+    `_flash_core_b_bwd` (:1616-1621)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias=None, causal=False):
+        out, lse = flash_fwd(q, k, v, bias=bias, causal=causal)
+        ctx.save_for_backward(q, k, v, out, lse, bias)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, bias = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, out, lse, dout.contiguous(),
+                               bias=bias, causal=ctx.causal)
+        return dq, dk, dv, None, None

@@ -1,0 +1,95 @@
+"""Adam / AdamW, the functional rule of ``paddle_tpu/optimizer/
+optimizer.py`` (`Optimizer.init_state` / `apply_gradients` :107-135,
+`Adam.update` :336-352, `AdamW` :358-384).
+
+State is a dict ``{"slots": {name: {"moment1", "moment2"}}, "step": t}``
+with f32 moments, as in the JAX package.  Where the JAX rule returns new
+arrays, `apply_gradients` here updates the parameters and the moments in
+place (``torch._foreach_*``), which saves a copy of both; it returns
+them for symmetry.  A learning-rate scheduler, amsgrad, gradient
+clipping, parameter groups and the other optimizers are not ported.
+"""
+from __future__ import annotations
+
+import torch
+
+
+class Adam:
+    """Adam; weight decay, when given, is L2 added to the gradient.
+    `parameters` is accepted for the reference's signature; the train
+    step passes the parameters to `apply_gradients` itself."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=None):
+        if not isinstance(learning_rate, (int, float)):
+            raise NotImplementedError(
+                "learning-rate schedulers are not ported yet (ROADMAP "
+                "Queue A); pass a float")
+        self._learning_rate = float(learning_rate)
+        self._beta1 = beta1
+        self._beta2 = beta2
+        self._epsilon = epsilon
+        self._coeff = float(weight_decay or 0.0)
+
+    def get_lr(self) -> float:
+        return self._learning_rate
+
+    def init_state(self, params: dict) -> dict:
+        """params: name -> tensor.  Zero f32 moments and step 0."""
+        slots = {n: {"moment1": torch.zeros(p.shape, dtype=torch.float32,
+                                            device=p.device),
+                     "moment2": torch.zeros(p.shape, dtype=torch.float32,
+                                            device=p.device)}
+                 for n, p in params.items()}
+        return {"slots": slots, "step": 0}
+
+    def _decay(self, ps, gs, lr):
+        """Weight decay before the moment update: L2 into the gradient."""
+        if self._coeff:
+            gs = torch._foreach_add(gs, ps, alpha=self._coeff)
+        return gs
+
+    @torch.no_grad()
+    def apply_gradients(self, params: dict, grads: dict, state: dict):
+        """One step on f32 parameters, in place: p -= lr * m_hat /
+        (sqrt(v_hat) + eps), with m_hat = m / (1 - beta1^t) and v_hat =
+        v / (1 - beta2^t).  A name whose gradient is None is skipped.
+        Returns (params, state)."""
+        lr = self._learning_rate
+        t = state["step"] + 1
+        names = [n for n in params if grads.get(n) is not None]
+        ps = [params[n] for n in names]
+        if any(p.dtype != torch.float32 for p in ps):
+            raise TypeError("apply_gradients updates float32 (master) "
+                            "parameters only")
+        gs = [grads[n].float() for n in names]
+        m = [state["slots"][n]["moment1"] for n in names]
+        v = [state["slots"][n]["moment2"] for n in names]
+        gs = self._decay(ps, gs, lr)
+        b1, b2 = self._beta1, self._beta2
+        torch._foreach_mul_(m, b1)
+        torch._foreach_add_(m, gs, alpha=1 - b1)
+        torch._foreach_mul_(v, b2)
+        torch._foreach_addcmul_(v, gs, gs, value=1 - b2)
+        denom = torch._foreach_sqrt(torch._foreach_div(v, 1 - b2 ** t))
+        torch._foreach_add_(denom, self._epsilon)
+        torch._foreach_addcdiv_(ps, torch._foreach_div(m, 1 - b1 ** t),
+                                denom, value=-lr)
+        state["step"] = t
+        return params, state
+
+
+class AdamW(Adam):
+    """Adam with decoupled weight decay (default 0.01): p * (1 - lr * wd)
+    before the Adam update, on every parameter, as the JAX functional
+    path applies it."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=0.01):
+        super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
+                         weight_decay)
+
+    def _decay(self, ps, gs, lr):
+        if self._coeff:
+            torch._foreach_mul_(ps, 1.0 - lr * self._coeff)
+        return gs

@@ -1,17 +1,22 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
 Edge cases the main path of ``chip_smoke.py`` does not reach: GQA, odd
-and ragged lengths, head_dims 8..256, a single query row, broadcast
-and boolean biases, fully masked (left-pad) rows, pages crossed and the
-scratch page, ``start == pos``; plus launch counting, the wrappers'
-input checks, and a tiny GPT whose engine and ``generate()`` run on the
-card.  Every test needs an NVIDIA card and skips without one.  On the
-card (no JAX needed, so the JAX test conftest is left out)::
+and ragged lengths, Sq != Sk, head_dims 8..256, a single query row,
+broadcast and boolean biases, fully masked (left-pad) rows, pages
+crossed and the scratch page, ``start == pos``, for the forward and the
+backward; plus launch counting, the wrappers' input checks, the
+gradient of `FlashAttention` against autograd through the plain
+version, a tiny GPT whose engine and ``generate()`` run on the card, and
+a tiny GPT train step on the card against the same step on the CPU.
+Every test needs an NVIDIA card and skips without one.  On the card (no
+JAX needed, so the JAX test conftest is left out)::
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
 Tolerances: f32 1e-4 (the kernels sum in another order than the plain
-versions), bf16 2e-2 (both round an f32 result of O(1) to bf16).
+versions), bf16 2e-2 (both round an f32 result of O(1) to bf16); the
+backward's gradients are held relative to the largest reference
+gradient.
 """
 from __future__ import annotations
 
@@ -48,6 +53,23 @@ def _randn(gen, *shape, dtype):
 def _close(got, want, dtype):
     err = (got.float() - want.float()).abs().max().item()
     assert np.isfinite(err) and err <= TOL[dtype], err
+
+
+def _close_grads(got, want, dtype):
+    """(dq, dk, dv) pairs: max abs error over the largest reference
+    gradient, within the dtype's tolerance."""
+    for a, r in zip(got, want):
+        assert a.shape == r.shape and a.dtype == r.dtype
+        assert torch.isfinite(a).all()
+        err = (a.float() - r.float()).abs().max().item()
+        assert err <= TOL[dtype] * r.float().abs().max().item(), err
+
+
+def _bwd_pair(q, k, v, dout, bias=None, causal=False):
+    out, lse = FA.flash_fwd(q, k, v, bias=bias, causal=causal)
+    return (FA.flash_bwd(q, k, v, out, lse, dout, bias=bias, causal=causal),
+            FA.flash_bwd_reference(q, k, v, out, lse, dout, bias=bias,
+                                   causal=causal))
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
@@ -135,6 +157,88 @@ def test_flash_fwd_causal_with_pad_bias(sq, sk, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,d", [
+    (2, 13, 21, 4, 2, 64),      # GQA, odd lengths, Sk > Sq
+    (1, 70, 70, 8, 8, 128),     # ragged tail tile, head_dim 128
+    (2, 1, 40, 4, 1, 32),       # one query row, GQA rep 4
+    (2, 45, 30, 6, 3, 64),      # Sq > Sk: causal rows with no key
+    (1, 17, 17, 2, 2, 256),     # widest head_dim
+    (3, 9, 9, 3, 3, 8),         # narrowest head_dim
+])
+def test_flash_bwd_matches_plain(b, sq, sk, hq, hkv, d, causal, dtype):
+    g = torch.Generator(device="cuda").manual_seed(sq * 11 + d)
+    q, dout = (_randn(g, b, sq, hq, d, dtype=dtype) for _ in range(2))
+    k, v = (_randn(g, b, sk, hkv, d, dtype=dtype) for _ in range(2))
+    if causal and sq > sk:
+        # rows before sq - sk see no key; a loss gives them no cotangent
+        dout[:, :sq - sk] = 0
+    got, want = _bwd_pair(q, k, v, dout, causal=causal)
+    _close_grads(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("bias_shape", [(1, 1, 24, 40), (2, 1, 24, 40),
+                                        (1, 6, 24, 40), (2, 6, 24, 40),
+                                        (24, 40), (2, 1, 1, 40)])
+@pytest.mark.parametrize("kind", ["additive", "bool"])
+def test_flash_bwd_bias_matches_plain(bias_shape, kind, dtype):
+    """Broadcast and boolean biases, with GQA (6 query heads over 3 kv
+    heads), which the JAX biased tier does not take."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+    q, dout = (_randn(g, 2, 24, 6, 64, dtype=dtype) for _ in range(2))
+    k, v = (_randn(g, 2, 40, 3, 64, dtype=dtype) for _ in range(2))
+    if kind == "bool":
+        bias = torch.rand(*bias_shape, generator=g, device="cuda") > 0.3
+        bias[..., -1] = True           # every row sees at least one key
+    else:
+        bias = _randn(g, *bias_shape, dtype=torch.float32)
+    got, want = _bwd_pair(q, k, v, dout, bias=bias)
+    _close_grads(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("sq,sk", [(45, 45), (70, 70), (9, 40)])
+def test_flash_bwd_causal_pad_rows(sq, sk, dtype):
+    """The prefill's mask form under grad: causal plus a pad-only bias.
+    Pad rows (no visible key) get finite gradients whatever their
+    cotangent; with a zero cotangent there (a loss that ignores pads)
+    every gradient equals the plain version's, and pad rows get none."""
+    g = torch.Generator(device="cuda").manual_seed(sq * 3 + sk)
+    b, h, d = 2, 2, 64
+    q, dout = (_randn(g, b, sq, h, d, dtype=dtype) for _ in range(2))
+    k, v = (_randn(g, b, sk, h, d, dtype=dtype) for _ in range(2))
+    pad = 5
+    start = torch.tensor([sk - sq + pad, 0], device="cuda")
+    keys = torch.arange(sk, device="cuda")
+    bias = torch.where(keys[None] >= start[:, None], 0.0,
+                       FA.NEG_INF)[:, None, None]
+    out, lse = FA.flash_fwd(q, k, v, bias=bias, causal=True)
+    grads = FA.flash_bwd(q, k, v, out, lse, dout, bias=bias, causal=True)
+    assert all(torch.isfinite(x).all() for x in grads)
+    dout[0, :pad] = 0
+    got, want = _bwd_pair(q, k, v, dout, bias=bias, causal=True)
+    _close_grads(got, want, dtype)
+    assert not got[0][0, :pad].any()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2)])
+def test_flash_attention_grad_matches_autograd_of_plain(hq, hkv, causal):
+    g = torch.Generator(device="cuda").manual_seed(hq + hkv)
+    shapes = ((2, 19, hq, 32), (2, 27, hkv, 32), (2, 27, hkv, 32))
+    leaves = [_randn(g, *s, dtype=torch.float32).requires_grad_()
+              for s in shapes]
+    dout = _randn(g, 2, 19, hq, 32, dtype=torch.float32)
+    out = FA.FlashAttention.apply(*leaves, None, causal)
+    got = torch.autograd.grad(out, leaves, dout)
+    ref_out, _ = FA.flash_fwd_reference(*leaves, causal=causal)
+    want = torch.autograd.grad(ref_out, leaves, dout)
+    _close(out, ref_out, torch.float32)
+    _close_grads(got, want, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("hq,hkv,d", [(8, 2, 64), (4, 4, 128), (8, 1, 32)])
 def test_paged_attention_matches_plain(hq, hkv, d, dtype):
     g = torch.Generator(device="cuda").manual_seed(hq + d)
@@ -171,8 +275,10 @@ def test_decode_attention_matches_plain(hq, hkv, with_start, dtype):
 def test_launch_counters_count_cuda_launches_only():
     K.reset_launches()
     q = torch.randn(1, 4, 2, 64, device="cuda")
-    FA.flash_fwd(q, q, q)
+    out, lse = FA.flash_fwd(q, q, q)
     FA.flash_fwd(q.cpu(), q.cpu(), q.cpu())      # plain version: no count
+    FA.flash_bwd(q, q, q, out, lse, q)
+    FA.flash_bwd(q.cpu(), q.cpu(), q.cpu(), out.cpu(), lse.cpu(), q.cpu())
     q3 = torch.randn(1, 2, 64, device="cuda")
     cache = torch.randn(1, 2, 8, 64, device="cuda")
     pos = torch.tensor([5], dtype=torch.int32, device="cuda")
@@ -182,7 +288,8 @@ def test_launch_counters_count_cuda_launches_only():
                        torch.ones(1, 1, dtype=torch.int32, device="cuda"),
                        pos)
     torch.cuda.synchronize()
-    assert K.launch_counts() == {"flash_fwd": 1, "paged_attention": 1,
+    assert K.launch_counts() == {"flash_fwd": 1, "flash_bwd": 1,
+                                 "paged_attention": 1,
                                  "decode_attention": 1}
     K.reset_launches()
 
@@ -197,6 +304,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     q = torch.randn(1, 4, 2, 64, device="cuda", dtype=torch.float16)
     with pytest.raises(TypeError):
         FA.flash_fwd(q, q, q)
+    q = torch.randn(1, 4, 2, 64, device="cuda")
+    out, lse = FA.flash_fwd(q, q, q)
+    with pytest.raises(ValueError, match="lse"):
+        FA.flash_bwd(q, q, q, out, lse.to(torch.bfloat16), q)
+    with pytest.raises(ValueError, match="dout"):
+        FA.flash_bwd(q, q, q, out, lse, q[:, :2])
     q3 = torch.randn(1, 2, 64, device="cuda")
     pools = torch.zeros(2, 2, 8, 64, device="cuda", dtype=torch.int8)
     pos = torch.zeros(1, dtype=torch.int32, device="cuda")
@@ -243,3 +356,51 @@ def test_tiny_gpt_on_the_card_matches_cpu_and_engine_matches_generate():
     assert counts["flash_fwd"] > 0 and counts["paged_attention"] > 0
     for r, o in zip(refs, outs):
         np.testing.assert_array_equal(o, r)
+
+
+def test_tiny_gpt_train_step_on_the_card_matches_cpu():
+    """A tiny GPT with the fused head + CE in f32, the card (flash_fwd /
+    flash_bwd kernels) against the CPU (plain versions): every
+    parameter's gradient, then the losses of 3 AdamW steps.
+
+    The parameters after the steps are not compared: the key slice of
+    `qkv_proj.bias` has a gradient that is zero up to rounding (softmax
+    ignores a shift shared by all keys), and Adam scales that rounding
+    noise to a step of +-lr either way.  For the same reason each
+    gradient is held relative to at least a thousandth of the largest
+    gradient of the model."""
+    from paddle_tpu_torch.distributed import build_train_step
+    from paddle_tpu_torch.models.gpt import (
+        GPTConfig, GPTForCausalLM, GPTPretrainingCriterion,
+    )
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = GPTConfig(vocab_size=300, hidden_size=64, num_layers=2,
+                    num_heads=4, max_seq_len=64, fused_head_ce=True)
+    rs = np.random.RandomState(0)
+    ids, labels = (rs.randint(0, 300, (2, 40)).astype(np.int32)
+                   for _ in range(2))
+    cpu = GPTForCausalLM(cfg, device="cpu", seed=2)
+    gpu = GPTForCausalLM(cfg)
+    gpu.load_state_dict(cpu.state_dict())
+    K.reset_launches()
+    grads = []
+    for model in (gpu, cpu):
+        model.train()
+        dev = next(model.parameters()).device
+        loss = GPTPretrainingCriterion(model=model)(
+            model(torch.from_numpy(ids).to(dev)),
+            torch.from_numpy(labels).to(dev))
+        grads.append(torch.autograd.grad(loss, list(model.parameters())))
+    assert K.launch_counts()["flash_bwd"] == 2
+    top = max(g.abs().max().item() for g in grads[1])
+    for n, a, b in zip(dict(cpu.named_parameters()), *grads):
+        err = (a.cpu() - b).abs().max().item()
+        assert err <= 1e-4 * max(b.abs().max().item(), 1e-3 * top), (n, err)
+    losses = []
+    for model in (gpu, cpu):
+        step = build_train_step(model, AdamW(learning_rate=1e-3),
+                                GPTPretrainingCriterion(model=model))
+        losses.append(step.run_steps(ids, labels, repeat=3).cpu())
+    assert K.launch_counts()["flash_bwd"] == 2 + 2 * 3
+    torch.testing.assert_close(losses[0], losses[1], atol=1e-4, rtol=0)

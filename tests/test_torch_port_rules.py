@@ -9,7 +9,10 @@
   * every kernel wrapper has a plain version and a launch counter, and
     only a CPU tensor reaches the plain version: the wrappers hold no
     try/except, the plain call sits under the CPU test, and a tensor on
-    any other device raises instead of running it.
+    any other device raises instead of running it;
+  * attention's gradient on the card goes through the flash_bwd kernel
+    only, and every serving entry runs under ``torch.inference_mode()``
+    (the parameters are trainable, so serving must build no graph).
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 
@@ -123,25 +127,29 @@ def test_entry_points_default_to_cuda():
 
 @pytest.mark.parametrize("name", sorted(K.KERNELS))
 def test_kernel_has_plain_version_counter_and_source(name):
-    mod, wrapper, plain = K.KERNELS[name]
-    assert callable(getattr(mod, wrapper))
-    assert callable(getattr(mod, plain))
-    assert isinstance(mod.launches, int)
-    assert os.path.exists(os.path.join(REPO, mod.SOURCE)), mod.SOURCE
-    with open(os.path.join(REPO, mod.SOURCE)) as f:
+    k = K.KERNELS[name]
+    assert callable(getattr(k.module, k.wrapper))
+    assert callable(getattr(k.module, k.plain))
+    assert isinstance(getattr(k.module, k.counter), int)
+    assert os.path.exists(os.path.join(REPO, k.source)), k.source
+    with open(os.path.join(REPO, k.source)) as f:
         head = f.read(4000)
     # the source's note names the TPU kernel it replaces and its bound
     assert "Replaces:" in head and "Bound on this card" in head
-    assert mod.REPLACES.split(":")[0] in head
+    assert k.replaces.split(":")[0] in head
+    # each kernel counts on a counter of its own
+    assert sum(o.module is k.module and o.counter == k.counter
+               for o in K.KERNELS.values()) == 1
 
 
 @pytest.mark.parametrize("name", sorted(K.KERNELS))
 def test_wrapper_reaches_plain_only_for_cpu(name):
-    mod, wrapper, plain = K.KERNELS[name]
-    fn = ast.parse(textwrap.dedent(inspect.getsource(getattr(mod,
-                                                              wrapper))))
+    k = K.KERNELS[name]
+    plain = k.plain
+    fn = ast.parse(textwrap.dedent(inspect.getsource(getattr(k.module,
+                                                              k.wrapper))))
     assert not any(isinstance(n, ast.Try) for n in ast.walk(fn)), \
-        f"{wrapper} must not catch and fall back"
+        f"{k.wrapper} must not catch and fall back"
     # every call of the plain version sits in the body of an
     # `if <tensor>.device.type == "cpu":` branch
     calls = []
@@ -154,7 +162,7 @@ def test_wrapper_reaches_plain_only_for_cpu(name):
             visit(child, parents + [node])
 
     visit(fn, [])
-    assert calls, f"{wrapper} never calls {plain}"
+    assert calls, f"{k.wrapper} never calls {plain}"
     for call, parents in calls:
         guards = [p for p in parents if isinstance(p, ast.If)
                   and any(call in ast.walk(s) for s in p.body)]
@@ -167,6 +175,9 @@ def test_non_cpu_tensors_never_run_plain_versions():
     q = torch.empty(1, 4, 2, 8, **meta)
     with pytest.raises(ValueError, match="device"):
         K.flash_attention.flash_fwd(q, q, q)
+    lse = torch.empty(1, 2, 4, **meta)
+    with pytest.raises(ValueError, match="device"):
+        K.flash_attention.flash_bwd(q, q, q, q, lse, q)
     q3 = torch.empty(1, 2, 8, **meta)
     pools = torch.empty(2, 2, 4, 8, **meta)
     idx = torch.empty(1, dtype=torch.int32, **meta)
@@ -186,7 +197,7 @@ def test_sdpa_routes_cuda_to_flash_kernel_only():
     fn = ast.parse(textwrap.dedent(
         inspect.getsource(A.scaled_dot_product_attention)))
     src = ast.unparse(fn)
-    assert "_sdpa_ref" in src and "flash_fwd" in src
+    assert "_sdpa_ref" in src and "FlashAttention.apply" in src
     assert not any(isinstance(n, ast.Try) for n in ast.walk(fn))
     for node in ast.walk(fn):
         if isinstance(node, ast.If) and any(
@@ -211,3 +222,50 @@ def test_sdpa_routes_cuda_to_flash_kernel_only():
             if isinstance(node, ast.Attribute) and \
                     node.attr == "scaled_dot_product_attention":
                 assert ast.unparse(node.value) not in torch_f, path
+
+
+def test_flash_attention_backward_reaches_only_flash_bwd():
+    """The autograd function's gradient runs the flash_bwd wrapper (the
+    kernel on CUDA) and no plain version, with nothing caught."""
+    fa = K.flash_attention
+    for method, wrapper in ((fa.FlashAttention.forward, "flash_fwd"),
+                            (fa.FlashAttention.backward, "flash_bwd")):
+        fn = ast.parse(textwrap.dedent(inspect.getsource(method)))
+        assert not any(isinstance(n, ast.Try) for n in ast.walk(fn))
+        called = {ast.unparse(n.func) for n in ast.walk(fn)
+                  if isinstance(n, ast.Call)}
+        assert wrapper in called, called
+        assert not any(c.endswith("_reference") or "_sdpa_ref" in c
+                       for c in called), called
+
+
+def test_serving_entries_run_under_inference_mode():
+    """generate(), the engine inline and the engine's loop thread run
+    every model call with inference mode on: no autograd graph, though
+    the parameters require grad."""
+    from paddle_tpu_torch.inference.engine import (
+        EngineConfig, InferenceEngine,
+    )
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+
+    cfg = GPTConfig(vocab_size=64, hidden_size=16, num_layers=1,
+                    num_heads=2, max_seq_len=32)
+    model = GPTForCausalLM(cfg, device="cpu")
+    assert all(p.requires_grad for p in model.parameters())
+    seen = []
+    model.gpt.register_forward_hook(
+        lambda mod, args, out: seen.append(
+            (torch.is_inference_mode_enabled(), torch.is_grad_enabled())))
+    prompt = np.arange(5, dtype=np.int32)
+    model.generate(prompt[None], max_new_tokens=3)
+    eng = InferenceEngine(model, EngineConfig(page_size=4, max_slots=2,
+                                              max_seq_len=32))
+    eng.generate([prompt], max_new_tokens=3)
+    eng.start()
+    try:
+        assert len(eng.submit(prompt, max_new_tokens=3).result(
+            timeout=60)) == 8
+    finally:
+        eng.stop()
+    assert len(seen) >= 9
+    assert all(s == (True, False) for s in seen), seen
