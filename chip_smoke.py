@@ -10,12 +10,13 @@ Phases (one line per phase, seconds included; any failure exits
 non-zero and prints no result):
 
   1. device: `nvidia-smi` name and power limit, torch's device name;
-  2. build: every CUDA kernel with nvcc for sm_90a, one nvcc per source,
-     all started together;
+  2. build: every CUDA kernel with nvcc for sm_90a, one nvcc per source
+     (five), all started together;
   3. kernels: each kernel against its plain PyTorch version at the main
      path's shapes, in bf16 and f32, with its time, the plain version's,
      one PyTorch library call's where one computes the same function,
-     and the roofline bound;
+     and the roofline bound (rope and its adjoint at the llama_7b
+     prefill q, a ragged per-row-phase decode and the 70B-width GQA k);
   4. serve: gpt_1p3b (full width, 24 layers, bf16, seeded random
      weights) behind `InferenceEngine` with the default EngineConfig;
      8 requests at once, three sharing a 512-token prefix (warm
@@ -37,15 +38,28 @@ non-zero and prints no result):
      8 on one fixed batch (bench.py's step): 2 warm-up steps, then
      `run_steps(repeat=10)` timed between synchronizes: tokens/s, ms per
      step, MFU against the 989 TFLOP/s bf16 peak, peak memory, launches
-     per step.  The loss must stay finite and fall.
+     per step.  The loss must stay finite and fall;
+  9. llama_serve: llama_7b (hidden 4096, 32 layers, 32 heads of 128, ffn
+     11008, vocab 32000, untied head) in bf16 with seeded weights, as
+     phase 4: 8 requests x 32 tokens, >= 2 prefix hits, rope launched
+     2 x 32 times per model forward (q and k of every layer);
+ 10. llama_generate: as phase 5 on llama_7b (the f32 copy at full depth);
+ 11. llama_parity: llama2_70b_shapes widths (hidden 8192, 64 heads over 8
+     kv heads, ffn 28672) at 2 layers in f32, as phase 6: a GQA group of
+     8 through paged_attention, decode_attention and flash_fwd;
+ 12. llama_train_parity: llama_7b widths at 1 layer in f32, batch 1 x
+     128: 3 AdamW steps with `LlamaPretrainingCriterion` on the card
+     (rope and its adjoint, flash_fwd and flash_bwd at D=128) and on the
+     CPU; the losses agree within 1e-3.
 
-Launch counters are reset just before the driven part of phases 4, 5
-and 8 and read just after each; every kernel of each path must have
-launched.  The line before last is the JSON kernel table (`launches`
-summed over those three paths); the last line is the device JSON.
+Launch counters are reset just before the driven part of phases 4, 5,
+8, 9, 10 and 12 and read just after each; every kernel of each path must
+have launched.  The line before last is the JSON kernel table
+(`launches` summed over those paths); the last line is the device JSON.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -64,6 +78,9 @@ BF16_TOL = 2e-2     # bf16: both round the f32 result to bf16 (8 bits)
 PEAK_BYTES = 3.35e12                      # H100 SXM HBM3, bytes/s
 PEAK_FLOPS = {"bfloat16": 989e12,         # dense tensor-core bf16
               "float32": 67e12}           # f32 outside the tensor cores
+# kernels whose operations cannot run on the tensor cores: their bound
+# takes the f32 CUDA-core rate whatever the storage type
+ELEMENTWISE = {"rope", "rope_bwd"}
 SEED = 0
 
 
@@ -306,7 +323,50 @@ def kernel_cases(torch, dtype):
                   dec_library,
                   2 * keysd * h * d * isz + 2 * bd * h * d * isz + 32,
                   4 * keysd * h * d, 0))
-    return cases + bwd_cases(torch, dtype)
+    return cases + bwd_cases(torch, dtype) + rope_cases(torch, dtype)
+
+
+def rope_cases(torch, dtype):
+    """rope and its adjoint at the LLaMA path's shapes: the llama_7b
+    prefill q [1, 1008, 32, 128] as the attention gives it (a strided
+    view of the fused qkv projection, phases broadcast over the batch),
+    a ragged decode step [4, 1, 32, 128] with per-row phases, and the
+    70B-width GQA k [1, 1008, 8, 128].  Bytes: x read and the output
+    written once, the phases once; operations: 3 per element."""
+    from paddle_tpu_torch.nn.functional.attention import _rope_phases
+    from paddle_tpu_torch.ops.kernels import rope as RP
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    dev = "cuda"
+    isz = torch.empty((), dtype=dtype).element_size()
+    d, sb = 128, 1008
+    qkv = torch.randn(1, sb, 3 * 32 * d, generator=g, device=dev,
+                      dtype=dtype)
+    q = qkv[..., :32 * d].reshape(1, sb, 32, d)
+    kv70 = torch.randn(1, sb, (64 + 16) * d, generator=g, device=dev,
+                       dtype=dtype)
+    k70 = kv70[..., 64 * d:72 * d].reshape(1, sb, 8, d)
+    xd = torch.randn(4, 1, 32, d, generator=g, device=dev, dtype=dtype)
+    start = 8                       # the bucket's 8 left-pad rows
+    pos = torch.clamp(torch.arange(sb, device=dev) - start, min=0)[None]
+    ragged = torch.tensor([[1031], [330], [551], [0]], device=dev)
+    cases = []
+    for label, x, ids in (("prefill q B1 S1008 H32 D128 (qkv view)", q, pos),
+                          ("decode B4 S1 H32 D128 per-row", xd, ragged),
+                          ("70B GQA k B1 S1008 H8 D128 (qkv view)", k70,
+                           pos)):
+        cos, sin = (p.to(dtype) for p in _rope_phases(d, x.shape[1], 1e4,
+                                                      ids, dev))
+        n = x.numel()
+        nbytes = 2 * n * isz + 2 * cos.numel() * isz
+        for name, adj in (("rope", False), ("rope_bwd", True)):
+            cases.append((
+                name, label,
+                lambda x=x, c=cos, s=sin, a=adj: RP.rope(x, c, s, adjoint=a),
+                lambda x=x, c=cos, s=sin, a=adj: RP.rope_reference(
+                    x, c, s, adjoint=a),
+                None, nbytes, 3 * n, 0))
+    return cases
 
 
 def bwd_cases(torch, dtype):
@@ -414,7 +474,8 @@ def phase_kernels():
             ms = time_ms(run)
             pms = time_ms(plain)
             lms = time_ms(lib) if lib is not None else None
-            bms, by = bound_ms(nbytes, flops, dname)
+            bms, by = bound_ms(nbytes, flops, "float32" if name in
+                               ELEMENTWISE else dname)
             log(f"[kernels] {name:16s} {label:32s} {dname:8s} max_abs_err "
                 f"{err:.3g}"
                 + ("" if rel is None else
@@ -453,7 +514,25 @@ def _prompts(vocab):
             solo[1000], shared[1], shared[2]]
 
 
-def phase_serve(model, cfg):
+def _count_forwards(model):
+    """A list that grows by one per model forward (the engine's and
+    generate()'s calls alike), and the hook handle to remove."""
+    calls = []
+    return calls, model.register_forward_hook(
+        lambda mod, args, out: calls.append(1))
+
+
+def _rope_launches_per_forward(counts, cfg, forwards, what):
+    """rope runs on q and k of every layer of every forward; a model
+    without rope launches it never."""
+    uses_rope = getattr(cfg, "use_rope", True)
+    want = 2 * cfg.num_layers * forwards if uses_rope else 0
+    check(counts["rope"] == want,
+          f"{what}: rope launched {counts['rope']} times in {forwards} "
+          f"forwards, expected {want}")
+
+
+def phase_serve(model, cfg, name):
     import torch
 
     from paddle_tpu_torch.inference.engine import (
@@ -481,6 +560,7 @@ def phase_serve(model, cfg):
     eng.clear_prefix_cache()
     step_ms.clear()
     torch.cuda.synchronize()
+    forwards, hook = _count_forwards(model)
     K.reset_launches()
     eng.start()
     try:
@@ -505,6 +585,7 @@ def phase_serve(model, cfg):
         eng.stop()
     torch.cuda.synchronize()
     counts = K.launch_counts()
+    hook.remove()
     for p, o, h in zip(prompts, outs, handles):
         check(len(o) == len(p) + 32 and h.finish_reason == "length",
               f"request {h.request_id} finished {h.finish_reason} with "
@@ -514,25 +595,28 @@ def phase_serve(model, cfg):
     check(hits >= 2, f"prefix cache hits {hits}: warm prefill did not run")
     for k in ("flash_fwd", "paged_attention"):
         check(counts[k] > 0, f"serving path never launched {k}")
+    _rope_launches_per_forward(counts, cfg, len(forwards), "serve")
     gen = sum(len(o) - len(p) for p, o in zip(prompts, outs))
     ttft = sorted(first)
-    log(f"[serve] gpt_1p3b bf16 24L: {len(prompts)} requests x 32 tokens "
+    log(f"[serve] {name} bf16 {cfg.num_layers}L: {len(prompts)} requests "
+        f"x 32 tokens "
         f"in {wall:.2f}s: {gen / wall:.1f} tokens/s, TTFT p50 "
         f"{1e3 * ttft[len(ttft) // 2]:.1f} ms (max "
         f"{1e3 * ttft[-1]:.1f}), mean decode step "
         f"{np.mean(step_ms):.2f} ms over {len(step_ms)} steps, prefix "
-        f"hits {hits}, launches {json.dumps(counts)}")
+        f"hits {hits}, {len(forwards)} forwards, launches "
+        f"{json.dumps(counts)}")
     return counts
 
 
 # ----------------------------------------------------------------- phase 5
-def phase_generate(model, cfg):
+def phase_generate(model, cfg, name):
     import torch
 
-    from paddle_tpu_torch.models.gpt import GPTForCausalLM
     from paddle_tpu_torch.ops import kernels as K
 
     rs = np.random.RandomState(SEED + 1)
+    forwards, hook = _count_forwards(model)
     K.reset_launches()
     ids = rs.randint(0, cfg.vocab_size, (4, 128)).astype(np.int32)
     out = model.generate(ids, max_new_tokens=32).cpu().numpy()
@@ -548,14 +632,18 @@ def phase_generate(model, cfg):
     check(out_p.shape == (4, 160), f"padded generate shape {out_p.shape}")
     torch.cuda.synchronize()
     counts = K.launch_counts()
+    hook.remove()
     for k in ("flash_fwd", "decode_attention"):
         check(counts[k] > 0, f"generate path never launched {k}")
     check(counts["flash_fwd"] > causal_counts["flash_fwd"],
           "the left-padded prefill did not launch flash_fwd")
-    # bf16 logits against the f32 upcast of the same weights
-    f32 = GPTForCausalLM(cfg, device="cuda", dtype=torch.float32)
-    f32.load_state_dict({k: v.float() for k, v in
-                         model.state_dict().items()})
+    _rope_launches_per_forward(counts, cfg, len(forwards), "generate")
+    # bf16 logits against the f32 upcast of the same weights, copied one
+    # parameter at a time (no second full-size copy in flight)
+    f32 = type(model)(cfg, device="cuda", dtype=torch.float32)
+    with torch.no_grad():
+        for pf, pb in zip(f32.parameters(), model.parameters()):
+            pf.copy_(pb)
     with torch.inference_mode():
         x = torch.from_numpy(ids[:1, :64]).cuda()
         lb = model(x).float()
@@ -565,26 +653,24 @@ def phase_generate(model, cfg):
     torch.cuda.empty_cache()
     check(math.isfinite(rel) and rel < 0.05,
           f"bf16 logits relative L2 error {rel:.3g} >= 0.05 vs f32")
-    log(f"[generate] equal-length 4x128 and left-padded {lens} +32 "
-        f"tokens ok; bf16 vs f32 logits rel L2 {rel:.4f} (tol 0.05); "
-        f"launches {json.dumps(counts)}")
+    log(f"[generate] {name}: equal-length 4x128 and left-padded {lens} "
+        f"+32 tokens ok; bf16 vs f32 logits rel L2 {rel:.4f} (tol 0.05); "
+        f"{len(forwards)} forwards, launches {json.dumps(counts)}")
     return counts
 
 
 # ----------------------------------------------------------------- phase 6
-def phase_parity():
+def phase_parity(cls, cfg, name):
+    """`cls(cfg)` in f32 (depth cut by the caller): engine streams
+    against generate() streams."""
     import torch
 
     from paddle_tpu_torch.inference.engine import (
         EngineConfig, InferenceEngine,
     )
-    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_1p3b
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = gpt_1p3b()
-    cfg.num_layers = 2          # the preset fixes the depth; cut it here
-    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.float32,
-                           seed=SEED)
+    model = cls(cfg, device="cuda", dtype=torch.float32, seed=SEED)
     prompts = _prompts(cfg.vocab_size)
     eng = InferenceEngine(model, EngineConfig())
     outs = eng.generate(prompts, max_new_tokens=16)
@@ -609,7 +695,8 @@ def phase_parity():
               f"{at - len(p)} of a {len(p)}-token prompt, top-2 margin "
               f"{margin:.3g} >= 1e-3")
         near.append((len(p), at - len(p), margin))
-    log(f"[parity] f32 gpt_1p3b widths 2L: {same}/{len(prompts)} engine "
+    log(f"[parity] f32 {name} widths {cfg.num_layers}L: {same}/"
+        f"{len(prompts)} engine "
         f"streams identical to generate(); near-ties {near}; prefix hits "
         f"{hits}")
 
@@ -626,42 +713,48 @@ def _gpt125m(layers):
 def _train_step(model, amp_dtype=None):
     from paddle_tpu_torch.distributed import build_train_step
     from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
+    from paddle_tpu_torch.models.llama import LlamaPretrainingCriterion
     from paddle_tpu_torch.optimizer import AdamW
 
-    return build_train_step(model, AdamW(learning_rate=1e-4),
-                            GPTPretrainingCriterion(model=model),
+    crit = GPTPretrainingCriterion(model=model) \
+        if getattr(model.cfg, "fused_head_ce", False) \
+        else LlamaPretrainingCriterion()
+    return build_train_step(model, AdamW(learning_rate=1e-4), crit,
                             amp_dtype=amp_dtype)
 
 
-def phase_train_parity():
+def phase_train_parity(cls, cfg, name, batch, seq, kernels):
+    """3 f32 AdamW steps of `cls(cfg)` on the card and on the CPU from
+    the same weights and batch; `kernels` must launch on the card.
+    Returns the card run's launch counts."""
     import torch
 
-    from paddle_tpu_torch.models.gpt import GPTForCausalLM
     from paddle_tpu_torch.ops import kernels as K
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = _gpt125m(2)
     rs = np.random.RandomState(SEED)
-    ids, labels = (rs.randint(0, cfg.vocab_size, (2, 256)).astype(np.int32)
-                   for _ in range(2))
-    cpu = GPTForCausalLM(cfg, device="cpu", seed=SEED)
-    gpu = GPTForCausalLM(cfg, device="cuda")
+    ids, labels = (rs.randint(0, cfg.vocab_size, (batch, seq))
+                   .astype(np.int32) for _ in range(2))
+    cpu = cls(cfg, device="cpu", seed=SEED)
+    gpu = cls(cfg, device="cuda")
     gpu.load_state_dict(cpu.state_dict())
     K.reset_launches()
     lg = _train_step(gpu).run_steps(ids, labels, repeat=3).cpu().numpy()
     torch.cuda.synchronize()
     counts = K.launch_counts()
+    del gpu
     lc = _train_step(cpu).run_steps(ids, labels, repeat=3).numpy()
     gap = float(np.abs(lg - lc).max())
     check(np.isfinite(lg).all() and np.isfinite(lc).all(),
           f"train_parity non-finite losses {lg} / {lc}")
     check(gap <= 1e-3, f"train_parity card {lg} vs cpu {lc}: max gap "
           f"{gap:.3g} > 1e-3")
-    for k in ("flash_fwd", "flash_bwd"):
+    for k in kernels:
         check(counts[k] > 0, f"train_parity never launched {k}")
-    log(f"[train_parity] f32 GPT-125M widths 2L B2 S256, 3 AdamW steps: "
-        f"card {lg.tolist()} cpu {lc.tolist()} max gap {gap:.3g} (tol "
-        f"1e-3); launches {json.dumps(counts)}")
+    log(f"[train_parity] f32 {name} widths {cfg.num_layers}L B{batch} "
+        f"S{seq}, 3 AdamW steps: card {lg.tolist()} cpu {lc.tolist()} max "
+        f"gap {gap:.3g} (tol 1e-3); launches {json.dumps(counts)}")
+    return counts
 
 
 # ----------------------------------------------------------------- phase 8
@@ -754,7 +847,7 @@ def _log_profile(prof, what, wall_ms, steps):
     for e in kernels:
         name = e.key.lower()
         kind = ("port kernels" if "flash_" in name or "_attention_kernel"
-                in name else "gemm" if "nvjet" in name or "gemm" in name
+                in name or "rope_" in name else "gemm" if "nvjet" in name or "gemm" in name
                 else "copy/cast" if "copy" in name else "other")
         kinds[kind] += dev(e) / steps
     log("[profile] device by kind (ms/step): " + ", ".join(
@@ -808,6 +901,9 @@ def main():
     try:
         import paddle_tpu_torch  # noqa: F401
         from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_1p3b
+        from paddle_tpu_torch.models.llama import (
+            LlamaForCausalLM, llama2_70b_shapes, llama_7b,
+        )
         from paddle_tpu_torch.ops import kernels as K
     except ImportError as e:
         print(f"chip_smoke: the paddle_tpu_torch package is missing next "
@@ -823,44 +919,75 @@ def main():
         log(f"[{name}] done in {phases[name]:.1f}s")
         return r
 
+    def release():
+        # engines hold their page pools through reference cycles
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def load(cls, cfg, name):
+        t = time.perf_counter()
+        model = cls(cfg, device="cuda", dtype=torch.bfloat16, seed=SEED)
+        torch.cuda.synchronize()
+        log(f"[model] {name} bf16 seeded weights on the card in "
+            f"{time.perf_counter() - t:.1f}s")
+        return model
+
+    profile = "--profile" in sys.argv[1:]
     try:
         card, kind = run("device", phase_device)
         run("build", phase_build)
         table = run("kernels", phase_kernels)
         cfg = gpt_1p3b()
-        t = time.perf_counter()
-        model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
-                               seed=SEED)
-        torch.cuda.synchronize()
-        log(f"[model] gpt_1p3b bf16 seeded weights on the card in "
-            f"{time.perf_counter() - t:.1f}s")
-        serve = run("serve", phase_serve, model, cfg)
-        gen = run("generate", phase_generate, model, cfg)
-        if "--profile" in sys.argv[1:]:
+        model = load(GPTForCausalLM, cfg, "gpt_1p3b")
+        paths = [run("serve", phase_serve, model, cfg, "gpt_1p3b"),
+                 run("generate", phase_generate, model, cfg, "gpt_1p3b")]
+        if profile:
             run("profile", phase_profile, model, cfg)
         del model
-        torch.cuda.empty_cache()
-        run("parity", phase_parity)
-        run("train_parity", phase_train_parity)
+        release()
+        cut = gpt_1p3b()
+        cut.num_layers = 2          # the preset fixes the depth; cut it
+        run("parity", phase_parity, GPTForCausalLM, cut, "gpt_1p3b")
+        run("train_parity", phase_train_parity, GPTForCausalLM,
+            _gpt125m(2), "GPT-125M", 2, 256, ("flash_fwd", "flash_bwd"))
         train, step, ids, labels = run("train", phase_train, card)
-        if "--profile" in sys.argv[1:]:
+        paths.append(train)
+        if profile:
             run("profile_train", phase_profile_train, step, ids, labels)
         del step
+        release()
+        lcfg = llama_7b()
+        model = load(LlamaForCausalLM, lcfg, "llama_7b")
+        paths += [run("llama_serve", phase_serve, model, lcfg, "llama_7b"),
+                  run("llama_generate", phase_generate, model, lcfg,
+                      "llama_7b")]
+        if profile:
+            run("llama_profile", phase_profile, model, lcfg)
+        del model
+        release()
+        run("llama_parity", phase_parity, LlamaForCausalLM,
+            llama2_70b_shapes(num_layers=2), "llama2_70b_shapes")
+        paths.append(run("llama_train_parity", phase_train_parity,
+                         LlamaForCausalLM, llama_7b(num_layers=1),
+                         "llama_7b", 1, 128,
+                         ("flash_fwd", "flash_bwd", "rope", "rope_bwd")))
+        rows = []
+        for name, k in K.KERNELS.items():
+            row = table[(name, "bfloat16")]
+            errs = [table[(name, d)]["max_abs_err"]
+                    for d in ("bfloat16", "float32")]
+            launched = sum(counts[name] for counts in paths)
+            check(launched > 0, f"{name} never launched on the main paths")
+            rows.append(dict(
+                name=name, route="cuda", source=k.source,
+                replaces=k.replaces, launches=launched,
+                max_abs_err=max(errs), ms=row["ms"],
+                plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                bound_by=row["bound_by"], library_ms=row["library_ms"],
+                shape=row["case"]))
     except Fail as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    rows = []
-    for name, k in K.KERNELS.items():
-        row = table[(name, "bfloat16")]
-        errs = [table[(name, d)]["max_abs_err"]
-                for d in ("bfloat16", "float32")]
-        rows.append(dict(
-            name=name, route="cuda", source=k.source,
-            replaces=k.replaces,
-            launches=serve[name] + gen[name] + train[name],
-            max_abs_err=max(errs), ms=row["ms"], plain_ms=row["plain_ms"],
-            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-            library_ms=row["library_ms"], shape=row["case"]))
     log(f"[total] {time.perf_counter() - t_all:.1f}s "
         f"{json.dumps({k: round(v, 1) for k, v in phases.items()})}")
     print(json.dumps({"kernels": rows}))

@@ -12,9 +12,12 @@ Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; on a CPU tensor each kernel wrapper runs its plain
 PyTorch version, on a CUDA tensor it launches the kernel or raises.
 
-Ported so far (slice 1): the GPT serving path — `models.gpt`,
-greedy `models.generation.generate`, and the continuous-batching
-`inference.engine.InferenceEngine` over a paged KV cache.
+Ported so far: the GPT serving path — `models.gpt`, greedy
+`models.generation.generate`, and the continuous-batching
+`inference.engine.InferenceEngine` over a paged KV cache (slice 1); the
+single-device train step, `distributed.build_train_step` with
+`optimizer.AdamW` (slice 2); the LLaMA family, `models.llama`, served
+and trained through the same entry points (slice 3).
 """
 from __future__ import annotations
 

@@ -2,5 +2,11 @@
 from __future__ import annotations
 
 from .gpt import (  # noqa: F401
-    GPTConfig, GPTForCausalLM, gpt_1p3b, gpt_tiny, load_reference_state,
+    GPTConfig, GPTForCausalLM, GPTPretrainingCriterion, gpt_1p3b, gpt_tiny,
+    load_reference_state,
+)
+from .gpt import llama_7b as gpt_llama_7b  # noqa: F401 (legacy alias)
+from .llama import (  # noqa: F401
+    LlamaConfig, LlamaForCausalLM, LlamaModel, LlamaPretrainingCriterion,
+    llama2_70b_shapes, llama_7b, llama_13b, llama_tiny,
 )

@@ -1,15 +1,16 @@
 """GPT family (``paddle_tpu/models/gpt.py`` counterpart): the serving
 forward, the training forward with the fused LM head + cross entropy,
-and `GPTPretrainingCriterion`.
+`GPTPretrainingCriterion`, and the LLaMA variant (``use_rope``,
+``use_rmsnorm``, ``use_swiglu``, an untied LM head; the legacy
+`llama_7b` preset).
 
 Parameter names and shapes equal the JAX package's
 ``functional_state()`` names (``gpt.h.0.attn.qkv_proj.weight`` is
 ``[in, out]``), so `load_reference_state` carries weights across
 one to one.  The JAX model's ``mpu.*ParallelLinear`` layers are plain
-`Linear` here under the same attribute names.  The LLaMA variant
-(rope / RMSNorm / SwiGLU), an untied LM head, dropout and recompute come
-with later slices; their `GPTConfig` fields arrive with them, so passing
-one raises `TypeError`.
+`Linear` here under the same attribute names.  Dropout, recompute and
+the sequence / context parallel flags are not ported: setting one
+raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import torch
 from torch import nn
 
 from ..core.device import resolve_device
-from ..nn import Embedding, LayerNorm, Linear
+from ..nn import Embedding, LayerNorm, Linear, RMSNorm
 from ..nn import functional as F
 from .generation import (
     GenerationMixin, _static_cache_attention, decode_position_ids,
@@ -26,28 +27,61 @@ from .generation import (
 )
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM",
-           "GPTPretrainingCriterion", "gpt_tiny", "gpt_1p3b",
+           "GPTPretrainingCriterion", "gpt_tiny", "gpt_1p3b", "llama_7b",
            "load_reference_state"]
 
 
+def refuse_unported(owner, **options):
+    """Training options the port has not ported yet raise when set."""
+    for name, value in options.items():
+        if value:
+            raise NotImplementedError(
+                f"{owner}({name}={value!r}) is not ported yet (ROADMAP "
+                "Queue A)")
+
+
 class GPTConfig:
-    """The fields of the JAX package's GPTConfig that the ported model
-    reads: the GPT-2 family with tied embeddings."""
+    """The JAX package's GPTConfig: the GPT-2 family, and the LLaMA
+    variant with ``use_rope`` / ``use_rmsnorm`` / ``use_swiglu`` and
+    ``tie_embeddings=False``."""
 
     def __init__(self, vocab_size=50304, hidden_size=768, num_layers=12,
                  num_heads=12, max_seq_len=1024, ffn_hidden=None,
+                 dropout=0.0, attn_dropout=0.0, use_rope=False,
+                 use_rmsnorm=False, use_swiglu=False, tie_embeddings=True,
+                 recompute=False, sequence_parallel=False,
+                 context_parallel=False,
                  layer_norm_eps=1e-5, fused_head_ce=False):
+        refuse_unported("GPTConfig", dropout=dropout,
+                        attn_dropout=attn_dropout, recompute=recompute,
+                        sequence_parallel=sequence_parallel,
+                        context_parallel=context_parallel)
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
         self.num_heads = num_heads
         self.max_seq_len = max_seq_len
-        self.ffn_hidden = ffn_hidden or 4 * hidden_size
+        # SwiGLU: 8/3 of the width, rounded to 128 (JAX :43-45)
+        self.ffn_hidden = ffn_hidden or (
+            int(8 * hidden_size / 3 / 128 + 1) * 128 if use_swiglu
+            else 4 * hidden_size)
+        self.use_rope = use_rope
+        self.use_rmsnorm = use_rmsnorm
+        self.use_swiglu = use_swiglu
+        self.tie_embeddings = tie_embeddings
         self.layer_norm_eps = layer_norm_eps
         # training returns hidden states; GPTPretrainingCriterion fuses
         # the LM-head projection into the chunked CE (the [B,S,V] logits
         # never materialize)
         self.fused_head_ce = fused_head_ce
+
+
+def _norm(cfg, device, dtype):
+    if cfg.use_rmsnorm:
+        return RMSNorm(cfg.hidden_size, cfg.layer_norm_eps, device=device,
+                       dtype=dtype)
+    return LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, device=device,
+                     dtype=dtype)
 
 
 class GPTAttention(nn.Module):
@@ -64,6 +98,14 @@ class GPTAttention(nn.Module):
         qkv = self.qkv_proj(x).reshape(b, s, 3, self.num_heads,
                                        self.head_dim)
         q, k, v = qkv.unbind(dim=2)
+        if self.cfg.use_rope:
+            # cached forwards continue from cache_pos; left-padded rows
+            # put their first real token at rotary position 0
+            position_ids = None if kv_cache is None else \
+                decode_position_ids(cache_pos, b, s, attn_start,
+                                    device=x.device)
+            q, k, _ = F.fused_rotary_position_embedding(
+                q, k, None, position_ids=position_ids)
         if kv_cache is not None:
             out, new_cache = _static_cache_attention(
                 q, k, v, kv_cache, cache_pos, attn_start)
@@ -75,10 +117,17 @@ class GPTAttention(nn.Module):
 class GPTMLP(nn.Module):
     def __init__(self, cfg, **kw):
         super().__init__()
-        self.up_proj = Linear(cfg.hidden_size, cfg.ffn_hidden, **kw)
+        self.use_swiglu = cfg.use_swiglu
+        if cfg.use_swiglu:
+            self.gate_up_proj = Linear(cfg.hidden_size, 2 * cfg.ffn_hidden,
+                                       **kw)
+        else:
+            self.up_proj = Linear(cfg.hidden_size, cfg.ffn_hidden, **kw)
         self.down_proj = Linear(cfg.ffn_hidden, cfg.hidden_size, **kw)
 
     def forward(self, x):
+        if self.use_swiglu:
+            return self.down_proj(F.swiglu(self.gate_up_proj(x)))
         return self.down_proj(F.gelu(self.up_proj(x), approximate=True))
 
 
@@ -86,11 +135,9 @@ class GPTBlock(nn.Module):
     def __init__(self, cfg, *, device, dtype, generator):
         super().__init__()
         kw = dict(device=device, dtype=dtype, generator=generator)
-        self.ln_1 = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
-                              device=device, dtype=dtype)
+        self.ln_1 = _norm(cfg, device, dtype)
         self.attn = GPTAttention(cfg, **kw)
-        self.ln_2 = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
-                              device=device, dtype=dtype)
+        self.ln_2 = _norm(cfg, device, dtype)
         self.mlp = GPTMLP(cfg, **kw)
 
     def forward(self, x, kv_cache=None, cache_pos=None, attn_start=None):
@@ -111,22 +158,23 @@ class GPTModel(nn.Module):
         self.cfg = cfg
         kw = dict(device=device, dtype=dtype, generator=generator)
         self.wte = Embedding(cfg.vocab_size, cfg.hidden_size, **kw)
-        self.wpe = Embedding(cfg.max_seq_len, cfg.hidden_size, **kw)
+        if not cfg.use_rope:
+            self.wpe = Embedding(cfg.max_seq_len, cfg.hidden_size, **kw)
         self.h = nn.ModuleList([GPTBlock(cfg, **kw)
                                 for _ in range(cfg.num_layers)])
-        self.ln_f = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
-                              device=device, dtype=dtype)
+        self.ln_f = _norm(cfg, device, dtype)
 
     def forward(self, input_ids, kv_caches=None, cache_pos=None,
                 attn_start=None):
         b, s = input_ids.shape
         x = self.wte(input_ids.long())
-        if kv_caches is not None:
-            pos = decode_position_ids(cache_pos, b, s, attn_start,
-                                      device=input_ids.device)
-        else:
-            pos = torch.arange(s, device=input_ids.device)
-        x = x + self.wpe(pos.long())
+        if not self.cfg.use_rope:
+            if kv_caches is not None:
+                pos = decode_position_ids(cache_pos, b, s, attn_start,
+                                          device=input_ids.device)
+            else:
+                pos = torch.arange(s, device=input_ids.device)
+            x = x + self.wpe(pos.long())
         if kv_caches is not None:
             new_caches = []
             for block, kc in zip(self.h, kv_caches):
@@ -152,6 +200,9 @@ class GPTForCausalLM(nn.Module, GenerationMixin):
         gen.manual_seed(int(seed))
         self.cfg = cfg
         self.gpt = GPTModel(cfg, device=dev, dtype=dtype, generator=gen)
+        self.lm_head = None if cfg.tie_embeddings else Linear(
+            cfg.hidden_size, cfg.vocab_size, bias=False, device=dev,
+            dtype=dtype, generator=gen)
         self.eval()
 
     @property
@@ -176,7 +227,10 @@ class GPTForCausalLM(nn.Module, GenerationMixin):
             # fuse fail loudly instead of scoring hidden states as logits.
             x.fused_head_hidden = True
             return x
-        logits = torch.matmul(x, self.gpt.wte.weight.t())   # tied head
+        if self.lm_head is None:
+            logits = torch.matmul(x, self.gpt.wte.weight.t())   # tied head
+        else:
+            logits = self.lm_head(x)
         if kv_caches is not None:
             return logits, new_caches
         return logits
@@ -336,6 +390,9 @@ class GPTPretrainingCriterion(nn.Module):
         super().__init__()
         self.ignore_index = ignore_index
         self.fused = fused
+        if model is not None and not model.cfg.tie_embeddings:
+            raise ValueError("fused head+CE currently requires tied "
+                             "embeddings")
         # a plain reference, not a submodule: the criterion owns no
         # parameters of its own
         object.__setattr__(self, "_model", model)
@@ -401,3 +458,14 @@ def gpt_tiny(**kw):
 def gpt_1p3b(**kw):
     return GPTConfig(vocab_size=50304, hidden_size=2048, num_layers=24,
                      num_heads=16, max_seq_len=2048, **kw)
+
+
+def llama_7b(**kw):
+    """The legacy GPT-class LLaMA-7B preset (JAX :594); the LLaMA family
+    proper is `models.llama`."""
+    kw.setdefault("use_rope", True)
+    kw.setdefault("use_rmsnorm", True)
+    kw.setdefault("use_swiglu", True)
+    kw.setdefault("tie_embeddings", False)
+    return GPTConfig(vocab_size=32000, hidden_size=4096, num_layers=32,
+                     num_heads=32, max_seq_len=2048, **kw)

@@ -1,6 +1,8 @@
-"""gelu (``paddle_tpu/nn/functional/activation.py:66`` counterpart)."""
+"""gelu and swiglu (``paddle_tpu/nn/functional/activation.py:66`` and
+``:168`` counterparts)."""
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 
 
@@ -8,3 +10,11 @@ def gelu(x, approximate=False):
     """`approximate=True` is the tanh form (jax.nn.gelu's), the one GPT
     uses."""
     return F.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def swiglu(x, y=None):
+    """silu(x) * y, over the two halves of x's last axis when y is not
+    given (LLaMA's fused gate_up projection)."""
+    if y is None:
+        x, y = x.chunk(2, dim=-1)
+    return x * torch.sigmoid(x) * y

@@ -1,5 +1,7 @@
 """scaled_dot_product_attention (``paddle_tpu/nn/functional/
-attention.py:80`` counterpart; plain version `_sdpa_ref` :51).
+attention.py:80`` counterpart; plain version `_sdpa_ref` :51) and the
+rotary embedding `fused_rotary_position_embedding` /
+`apply_rotary_pos_emb` (:211, :264).
 
 Inputs are ``[batch, seq, heads, head_dim]`` as in the JAX package.  A
 CPU tensor runs the plain version, which autograd differentiates; a
@@ -15,6 +17,7 @@ import math
 import torch
 
 from ...ops.kernels.flash_attention import FlashAttention
+from ...ops.kernels.rope import RoPE
 
 NEG_INF = -1e30
 
@@ -58,3 +61,58 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
             "detach the mask")
     return FlashAttention.apply(query.contiguous(), key.contiguous(),
                                 value.contiguous(), attn_mask, is_causal)
+
+
+def _rope_phases(d, s, base, position_ids, device):
+    """f32 neox phases concat(freqs, freqs) (JAX :224-238): [1, S, 1, D]
+    for positions 0..S-1, or [B, S, 1, D] for `position_ids` [B, S]."""
+    inv = 1.0 / (base ** (torch.arange(0, d, 2, dtype=torch.float32,
+                                       device=device) / d))
+    if position_ids is None:
+        pos = torch.arange(s, dtype=torch.float32, device=device)[None]
+    else:
+        pos = position_ids.to(torch.float32)
+    freqs = pos[:, :, None] * inv                          # [B|1, S, D/2]
+    emb = torch.cat([freqs, freqs], dim=-1)
+    return torch.cos(emb)[:, :, None], torch.sin(emb)[:, :, None]
+
+
+def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
+                                    position_ids=None,
+                                    use_neox_rotary_style=True,
+                                    time_major=False,
+                                    rotary_emb_base=10000.0):
+    """Rotate q (and k, v when given), each [B, S, H, D], by the rotary
+    phases (JAX :212).  Without `cos`/`sin` the phases come from
+    `rotary_emb_base`, per row when `position_ids` [B, S] is given (the
+    left-pad-shifted decode positions); explicit `cos`/`sin` ([S', D] in
+    any leading shape) are gathered by `position_ids`.  The f32 phases
+    are cast to q's dtype first, as the JAX package does (:245-246).
+    Both styles run through the rope kernel on CUDA (`RoPE`, which the
+    backward sends through the kernel's adjoint)."""
+    if time_major:
+        raise NotImplementedError(
+            "fused_rotary_position_embedding: time_major=True ([S, B, ...]"
+            " layout) is not supported — pass batch-major tensors")
+    s, d = q.shape[1], q.shape[3]
+    if position_ids is not None:
+        position_ids = torch.as_tensor(position_ids, device=q.device)
+    if sin is None or cos is None:
+        cos, sin = _rope_phases(d, s, rotary_emb_base, position_ids,
+                                q.device)
+    else:
+        cos, sin = (torch.as_tensor(p, device=q.device).reshape(1, -1, 1, d)
+                    for p in (cos, sin))
+        if position_ids is not None:
+            ids = position_ids.long()
+            cos, sin = (p[0, :, 0][ids][:, :, None] for p in (cos, sin))
+    cos, sin = cos.to(q.dtype), sin.to(q.dtype)
+    interleaved = not use_neox_rotary_style
+    return tuple(None if x is None else
+                 RoPE.apply(x, cos, sin, interleaved) for x in (q, k, v))
+
+
+def apply_rotary_pos_emb(q, k, cos, sin, position_ids=None):
+    out = fused_rotary_position_embedding(q, k, None, sin=sin, cos=cos,
+                                          position_ids=position_ids)
+    return out[0], out[1]

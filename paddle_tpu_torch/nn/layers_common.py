@@ -1,4 +1,4 @@
-"""Linear / Embedding / Dropout / LayerNorm (counterparts of
+"""Linear / Embedding / Dropout / LayerNorm / RMSNorm (counterparts of
 ``paddle_tpu/nn/layers_common.py`` and ``layers_norm.py``).
 
 Parameter layouts follow Paddle, so names and shapes line up one to one
@@ -15,7 +15,7 @@ import math
 import torch
 from torch import nn
 
-from .functional import layer_norm
+from .functional import layer_norm, rms_norm
 
 
 def _param(t):
@@ -88,3 +88,17 @@ class LayerNorm(nn.Module):
 
     def forward(self, x):
         return layer_norm(x, self.weight, self.bias, self.epsilon)
+
+
+class RMSNorm(nn.Module):
+    """``layers_norm.py:44``: a unit-initialised weight, no bias."""
+
+    def __init__(self, hidden_size, epsilon=1e-6, *, device,
+                 dtype=torch.float32):
+        super().__init__()
+        self.epsilon = epsilon
+        self.weight = _param(torch.ones(hidden_size, device=device,
+                                        dtype=dtype))
+
+    def forward(self, x):
+        return rms_norm(x, self.weight, None, self.epsilon)

@@ -7,7 +7,7 @@ from __future__ import annotations
 from types import ModuleType
 from typing import NamedTuple
 
-from . import decode_attention, flash_attention, paged_attention
+from . import decode_attention, flash_attention, paged_attention, rope
 
 
 class Kernel(NamedTuple):
@@ -34,6 +34,11 @@ KERNELS = {
                                "decode_attention_reference", "launches",
                                decode_attention.SOURCE,
                                decode_attention.REPLACES),
+    # one source and one wrapper, the direction on a counter of its own
+    "rope": Kernel(rope, "rope", "rope_reference", "launches", rope.SOURCE,
+                   rope.REPLACES),
+    "rope_bwd": Kernel(rope, "rope", "rope_reference", "bwd_launches",
+                       rope.SOURCE, rope.BWD_REPLACES),
 }
 
 

@@ -92,7 +92,7 @@ def build(names) -> dict:
     """Build every named source in parallel (one nvcc each, all started
     together), under a lock so concurrent processes do not race.
     Returns {name: seconds} (0.0 for a library that was already built)."""
-    names = list(names)
+    names = list(dict.fromkeys(names))     # one nvcc per source
     os.makedirs(BUILD_DIR, exist_ok=True)
     with open(os.path.join(BUILD_DIR, "build.lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)

@@ -4,10 +4,14 @@ Edge cases the main path of ``chip_smoke.py`` does not reach: GQA, odd
 and ragged lengths, Sq != Sk, head_dims 8..256, a single query row,
 broadcast and boolean biases, fully masked (left-pad) rows, pages
 crossed and the scratch page, ``start == pos``, for the forward and the
-backward; plus launch counting, the wrappers' input checks, the
-gradient of `FlashAttention` against autograd through the plain
-version, a tiny GPT whose engine and ``generate()`` run on the card, and
-a tiny GPT train step on the card against the same step on the CPU.
+backward; rope's forward and adjoint over head counts 1..64, head_dims
+32..256, odd lengths, per-row and broadcast phases, the interleaved
+style and the strided q / k views of a fused qkv projection; plus
+launch counting, the wrappers' input checks, the gradients of
+`FlashAttention` and `RoPE` against autograd through the plain
+versions, tiny GPT and LLaMA models whose engine and ``generate()`` run
+on the card, and tiny GPT and LLaMA train steps on the card against the
+same steps on the CPU.
 Every test needs an NVIDIA card and skips without one.  On the card (no
 JAX needed, so the JAX test conftest is left out)::
 
@@ -28,6 +32,7 @@ from paddle_tpu_torch.ops import kernels as K
 from paddle_tpu_torch.ops.kernels import decode_attention as DA
 from paddle_tpu_torch.ops.kernels import flash_attention as FA
 from paddle_tpu_torch.ops.kernels import paged_attention as PA
+from paddle_tpu_torch.ops.kernels import rope as RP
 
 pytestmark = pytest.mark.cuda
 
@@ -272,6 +277,81 @@ def test_decode_attention_matches_plain(hq, hkv, with_start, dtype):
            DA.decode_attention_reference(q, kc, vc, pos, start), dtype)
 
 
+def _phases(gen, pb, s, d, dtype):
+    """neox phases concat(freqs, freqs) of random positions, [pb,S,1,D]."""
+    pos = torch.randint(0, 4096, (pb, s), generator=gen, device="cuda")
+    inv = 1.0 / 10000.0 ** (torch.arange(0, d, 2, device="cuda") / d)
+    emb = (pos[..., None].float() * inv).repeat(1, 1, 2)
+    return (torch.cos(emb)[:, :, None].to(dtype),
+            torch.sin(emb)[:, :, None].to(dtype))
+
+
+def _rope_pair(x, cos, sin, interleaved=False):
+    for adjoint in (False, True):
+        got = RP.rope(x, cos, sin, adjoint=adjoint, interleaved=interleaved)
+        assert got.is_contiguous() and got.shape == x.shape
+        _close(got, RP.rope_reference(x, cos, sin, adjoint, interleaved),
+               x.dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("h", [1, 8, 32, 64])
+def test_rope_matches_plain(h, d, dtype):
+    """Odd S; per-row phases (B > 1) and phases broadcast over the
+    batch; forward and adjoint."""
+    g = torch.Generator(device="cuda").manual_seed(h * 7 + d)
+    x = _randn(g, 3, 13, h, d, dtype=dtype)
+    for pb in (3, 1):
+        _rope_pair(x, *_phases(g, pb, 13, d, dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_rope_interleaved_and_unaligned(dtype):
+    """The interleaved style (any phases), and the scalar path: head_dim
+    whose half is not a multiple of the 16-byte vector, and an x that
+    starts off a 16-byte boundary."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = _randn(g, 2, 9, 4, 64, dtype=dtype)
+    cos = _randn(g, 2, 9, 1, 64, dtype=dtype)
+    sin = _randn(g, 2, 9, 1, 64, dtype=dtype)
+    _rope_pair(x, cos, sin, interleaved=True)
+    x = _randn(g, 2, 9, 4, 12, dtype=dtype)
+    _rope_pair(x, *_phases(g, 2, 9, 12, dtype))
+    flat = _randn(g, 2 * 9 * 4 * 64 + 1, dtype=dtype)
+    _rope_pair(flat[1:].view(2, 9, 4, 64), *_phases(g, 1, 9, 64, dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_rope_reads_strided_qkv_views(dtype):
+    """q and k as LLaMA's attention takes them: views of the fused qkv
+    projection (token stride q_size + 2 * kv_size), read in place."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+    b, s, hq, hkv, d = 2, 37, 8, 2, 128
+    qkv = _randn(g, b, s, (hq + 2 * hkv) * d, dtype=dtype)
+    q, k, _ = qkv.split([hq * d, hkv * d, hkv * d], dim=-1)
+    q, k = q.reshape(b, s, hq, d), k.reshape(b, s, hkv, d)
+    assert not q.is_contiguous() and not k.is_contiguous()
+    for x in (q, k):
+        _rope_pair(x, *_phases(g, b, s, d, dtype))
+        _rope_pair(x, *_phases(g, b, s, d, dtype), interleaved=True)
+
+
+@pytest.mark.parametrize("interleaved", [False, True])
+def test_rope_grad_matches_autograd_of_plain(interleaved):
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = _randn(g, 2, 11, 4, 64, dtype=torch.float32).requires_grad_()
+    cos, sin = _phases(g, 2, 11, 64, torch.float32)
+    dout = _randn(g, 2, 11, 4, 64, dtype=torch.float32)
+    K.reset_launches()
+    (got,) = torch.autograd.grad(RP.RoPE.apply(x, cos, sin, interleaved),
+                                 x, dout)
+    assert K.launch_counts()["rope"] == K.launch_counts()["rope_bwd"] == 1
+    (want,) = torch.autograd.grad(
+        RP.rope_reference(x, cos, sin, interleaved=interleaved), x, dout)
+    _close(got, want, torch.float32)
+
+
 def test_launch_counters_count_cuda_launches_only():
     K.reset_launches()
     q = torch.randn(1, 4, 2, 64, device="cuda")
@@ -287,10 +367,15 @@ def test_launch_counters_count_cuda_launches_only():
     PA.paged_attention(q3, pools, pools,
                        torch.ones(1, 1, dtype=torch.int32, device="cuda"),
                        pos)
+    ph = torch.ones(1, 4, 1, 64, device="cuda")
+    RP.rope(q, ph, ph)
+    RP.rope(q, ph, ph, adjoint=True)
+    RP.rope(q.cpu(), ph.cpu(), ph.cpu())
     torch.cuda.synchronize()
     assert K.launch_counts() == {"flash_fwd": 1, "flash_bwd": 1,
                                  "paged_attention": 1,
-                                 "decode_attention": 1}
+                                 "decode_attention": 1, "rope": 1,
+                                 "rope_bwd": 1}
     K.reset_launches()
 
 
@@ -323,6 +408,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         DA.decode_attention(q3, torch.randn(1, 2, 8, 64, device="cuda"),
                             torch.randn(1, 2, 8, 64, device="cuda"),
                             pos.long())
+    q = torch.randn(1, 4, 2, 64, device="cuda")
+    ph = torch.ones(1, 4, 1, 64, device="cuda")
+    with pytest.raises(ValueError, match="even"):
+        RP.rope(q[..., :63], ph[..., :63], ph[..., :63])
+    with pytest.raises(TypeError, match="bfloat16"):
+        RP.rope(q, ph.to(torch.bfloat16), ph.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="cos"):
+        RP.rope(q, ph[:, :3], ph)
 
 
 def test_tiny_gpt_on_the_card_matches_cpu_and_engine_matches_generate():
@@ -403,4 +496,63 @@ def test_tiny_gpt_train_step_on_the_card_matches_cpu():
                                 GPTPretrainingCriterion(model=model))
         losses.append(step.run_steps(ids, labels, repeat=3).cpu())
     assert K.launch_counts()["flash_bwd"] == 2 + 2 * 3
+    torch.testing.assert_close(losses[0], losses[1], atol=1e-4, rtol=0)
+
+
+def test_tiny_llama_on_the_card_matches_cpu_engine_and_train_step():
+    """A tiny GQA LLaMA (4 query heads over 2 kv heads): card logits
+    against the CPU's; the engine's streams against `generate()` on the
+    card; then every gradient and 3 AdamW steps against the CPU, with
+    the rope adjoint and flash_bwd launched."""
+    from paddle_tpu_torch.distributed import build_train_step
+    from paddle_tpu_torch.inference.engine import (
+        EngineConfig, InferenceEngine,
+    )
+    from paddle_tpu_torch.models.llama import (
+        LlamaForCausalLM, LlamaPretrainingCriterion, llama_tiny,
+    )
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = llama_tiny(vocab_size=128, max_seq_len=64)
+    cpu = LlamaForCausalLM(cfg, device="cpu", seed=1)
+    gpu = LlamaForCausalLM(cfg, seed=1)
+    gpu.load_state_dict(cpu.state_dict())
+    rs = np.random.RandomState(0)
+    ids = rs.randint(0, 128, (3, 11)).astype(np.int32)
+    with torch.inference_mode():
+        lc = cpu(torch.from_numpy(ids))
+        lg = gpu(torch.from_numpy(ids).cuda()).cpu()
+    assert (lg - lc).abs().max().item() < 1e-3
+    prompts = [rs.randint(0, 128, (n,)).astype(np.int32)
+               for n in (3, 9, 17, 5)]
+    refs = [gpu.generate(p[None], max_new_tokens=8).cpu().numpy()[0]
+            for p in prompts]
+    K.reset_launches()
+    outs = InferenceEngine(gpu, EngineConfig(
+        page_size=4, max_slots=2, max_seq_len=64)).generate(
+            prompts, max_new_tokens=8)
+    counts = K.launch_counts()
+    assert counts["flash_fwd"] and counts["paged_attention"] \
+        and counts["rope"]
+    for r, o in zip(refs, outs):
+        np.testing.assert_array_equal(o, r)
+    labels = rs.randint(0, 128, (3, 11)).astype(np.int32)
+    K.reset_launches()
+    grads = []
+    for model in (gpu, cpu):
+        model.train()
+        dev = model.device
+        loss = LlamaPretrainingCriterion()(
+            model(torch.from_numpy(ids).to(dev)),
+            torch.from_numpy(labels).to(dev))
+        grads.append(torch.autograd.grad(loss, list(model.parameters())))
+    assert K.launch_counts()["rope_bwd"] == 2 * cfg.num_layers
+    assert K.launch_counts()["flash_bwd"] == cfg.num_layers
+    top = max(g.abs().max().item() for g in grads[1])
+    for n, a, b in zip(dict(cpu.named_parameters()), *grads):
+        err = (a.cpu() - b).abs().max().item()
+        assert err <= 1e-4 * max(b.abs().max().item(), 1e-3 * top), (n, err)
+    losses = [build_train_step(m, AdamW(learning_rate=1e-3),
+                               LlamaPretrainingCriterion()).run_steps(
+        ids, labels, repeat=3).cpu() for m in (gpu, cpu)]
     torch.testing.assert_close(losses[0], losses[1], atol=1e-4, rtol=0)

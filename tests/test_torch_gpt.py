@@ -134,12 +134,15 @@ def test_load_reference_state_checks_names_and_shapes(models):
 
 
 def test_unported_options_raise():
-    # the LLaMA variant's and training's fields are not in the port's
-    # config until a slice ports them
-    for field in ("use_rope", "use_rmsnorm", "use_swiglu", "dropout",
-                  "tie_embeddings"):
-        with pytest.raises(TypeError, match=field):
+    # the LLaMA variant's fields are ported; dropout, recompute and the
+    # parallel flags raise when set
+    for field in ("dropout", "attn_dropout", "recompute",
+                  "sequence_parallel", "context_parallel"):
+        with pytest.raises(NotImplementedError, match=field):
             GPTConfig(**{field: True}, **CFG)
+    cfg = GPTConfig(use_rope=True, use_rmsnorm=True, use_swiglu=True,
+                    tie_embeddings=False, dropout=0.0, **CFG)
+    assert cfg.ffn_hidden == 128        # SwiGLU: 8/3 of 32, rounded to 128
     tm = GPTForCausalLM(GPTConfig(**CFG), device="cpu")
     with pytest.raises(NotImplementedError):
         tm.generate(np.zeros((1, 3), np.int32), do_sample=True)

@@ -2,7 +2,8 @@
 kernels, run the way the JAX tests run them on the CPU (interpret mode).
 
 Every case feeds the same seeded numpy inputs to both and compares in
-float32 at atol = rtol = 2e-5 (reduction-order noise of f32 softmax).
+float32 at atol = rtol = 2e-5 (reduction-order noise of f32 softmax);
+rope, which sums two products per element, at atol = rtol = 1e-6.
 On the CPU the port's wrappers run their plain versions, so these tests
 also check that CPU dispatch launches nothing.  The CUDA kernels
 themselves are held against these plain versions on the card by
@@ -14,9 +15,12 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
+import paddle_tpu as P
 from paddle_tpu.ops.pallas import flash_attention as JFA
+from paddle_tpu.ops.pallas import rope as JR
 from paddle_tpu.ops.pallas.decode_attention import (
     decode_attention as j_decode_attention,
 )
@@ -27,6 +31,8 @@ from paddle_tpu_torch.ops import kernels as K
 from paddle_tpu_torch.ops.kernels.decode_attention import decode_attention
 from paddle_tpu_torch.ops.kernels.flash_attention import flash_fwd
 from paddle_tpu_torch.ops.kernels.paged_attention import paged_attention
+from paddle_tpu_torch.ops.kernels.rope import RoPE, rope, rope_reference
+from paddle_tpu_torch.nn import functional as TF
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 
@@ -183,3 +189,178 @@ def test_paged_equals_dense_decode_plain():
     v = vp[pt.long()].transpose(1, 2).reshape(b, hkv, p * ps, d)
     torch.testing.assert_close(paged_attention(q, kp, vp, pt, pos),
                                decode_attention(q, k, v, pos), **TOL)
+
+
+# ------------------------------------------------------------------ rope
+ROPE_TOL = dict(atol=1e-6, rtol=1e-6)
+
+
+def _neox_phases(rs, pb, s, d):
+    """cos / sin [pb, S, 1, D] = concat(freqs, freqs) phases of random
+    positions (both halves equal, as every caller builds them)."""
+    pos = rs.randint(0, 2048, (pb, s)).astype(np.float32)
+    inv = 1.0 / 10000.0 ** (np.arange(0, d, 2, dtype=np.float32) / d)
+    emb = np.concatenate([pos[..., None] * inv] * 2, axis=-1)
+    return (np.cos(emb)[:, :, None].astype(np.float32),
+            np.sin(emb)[:, :, None].astype(np.float32))
+
+
+@pytest.mark.parametrize("adjoint", [False, True])
+@pytest.mark.parametrize("b,s,h,d,pb", [
+    (2, 4, 3, 16, 1),      # phases broadcast over the batch
+    (2, 4, 3, 16, 2),      # per-row phases (left-padded / ragged rows)
+    (1, 8, 2, 32, 1),
+    (4, 2, 5, 8, 4),
+])
+def test_rope_plain_matches_pallas_kernel(b, s, h, d, pb, adjoint):
+    """Forward and adjoint against `_rope_call` in interpret mode (the
+    Pallas kernel itself), on arbitrary phases: both apply the same
+    formula, whatever the halves of sin hold."""
+    rs = np.random.RandomState(b * 100 + s * 10 + d)
+    x = rs.randn(b, s, h, d).astype(np.float32)
+    cos = rs.randn(pb, s, 1, d).astype(np.float32)
+    sin = rs.randn(pb, s, 1, d).astype(np.float32)
+    ref = JR._rope_call(jnp.asarray(x), jnp.asarray(cos), jnp.asarray(sin),
+                        adjoint, interpret=True)
+    out = rope(*(torch.from_numpy(a) for a in (x, cos, sin)),
+               adjoint=adjoint)
+    assert out.shape == x.shape and out.is_contiguous()
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **ROPE_TOL)
+
+
+def test_rope_grad_matches_jax_grad_of_rope_pallas():
+    """`RoPE`'s gradient (the adjoint) against ``jax.grad`` through
+    `rope_pallas`'s custom VJP, with neox phases; the phases get none."""
+    rs = np.random.RandomState(5)
+    b, s, h, d = 2, 4, 3, 16
+    x = rs.randn(b, s, h, d).astype(np.float32)
+    g = rs.randn(b, s, h, d).astype(np.float32)
+    cos, sin = _neox_phases(rs, b, s, d)
+    want = jax.grad(lambda x_: (JR.rope_pallas(x_, jnp.asarray(cos),
+                                               jnp.asarray(sin)) * g).sum())(
+        jnp.asarray(x))
+    tx = torch.from_numpy(x).requires_grad_()
+    tc, ts = (torch.from_numpy(a).requires_grad_() for a in (cos, sin))
+    (RoPE.apply(tx, tc, ts) * torch.from_numpy(g)).sum().backward()
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(want), **ROPE_TOL)
+    assert tc.grad is None and ts.grad is None
+
+
+def test_rope_adjoint_is_the_transpose():
+    """<rope(x), g> == <x, rope_adjoint(g)> for neox phases (both halves
+    of sin equal) and, in the interleaved style, for any phases (to the
+    f32 rounding of the plain version's arithmetic)."""
+    rs = np.random.RandomState(6)
+    x, g = (torch.from_numpy(rs.randn(2, 3, 4, 8)) for _ in range(2))
+    cos, sin = (torch.from_numpy(a).double()
+                for a in _neox_phases(rs, 2, 3, 8))
+    for inter, (c, s_) in ((False, (cos, sin)),
+                           (True, (torch.randn(2, 3, 1, 8).double(),
+                                   torch.randn(2, 3, 1, 8).double()))):
+        lhs = (rope_reference(x, c, s_, interleaved=inter) * g).sum()
+        rhs = (x * rope_reference(g, c, s_, adjoint=True,
+                                  interleaved=inter)).sum()
+        assert abs(lhs - rhs).item() < 1e-5
+
+
+def _j_fused_rope(q, k, **kw):
+    out = P.nn.functional.fused_rotary_position_embedding(
+        P.to_tensor(q), P.to_tensor(k), None, **kw)
+    return [np.asarray(t._value) for t in out[:2]]
+
+
+@pytest.mark.parametrize("mode", ["plain", "position_ids", "interleaved",
+                                  "explicit_phases", "base"])
+def test_fused_rotary_position_embedding_matches_jax(mode):
+    rs = np.random.RandomState(7)
+    b, s, hq, hkv, d = 2, 6, 4, 2, 16
+    q = rs.randn(b, s, hq, d).astype(np.float32)
+    k = rs.randn(b, s, hkv, d).astype(np.float32)
+    kw = {}
+    if mode in ("position_ids", "explicit_phases"):
+        # left-pad shift: row 1 starts 3 tokens in (pads clip to 0)
+        kw["position_ids"] = np.clip(np.arange(s)[None] - np.asarray(
+            [[0], [3]]), 0, None).astype(np.int32)
+    if mode == "explicit_phases":
+        ang = rs.rand(16, d).astype(np.float32) * 6.0
+        kw["cos"], kw["sin"] = np.cos(ang), np.sin(ang)
+    if mode == "interleaved":
+        kw["use_neox_rotary_style"] = False
+    if mode == "base":
+        kw["rotary_emb_base"] = 500000.0
+    want = _j_fused_rope(q, k, **kw)
+    tkw = {n: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+           for n, v in kw.items()}
+    got = TF.fused_rotary_position_embedding(
+        torch.from_numpy(q), torch.from_numpy(k), None, **tkw)
+    assert got[2] is None
+    for a, r in zip(got[:2], want):
+        np.testing.assert_allclose(a.numpy(), r, atol=1e-5, rtol=1e-5)
+
+
+def test_apply_rotary_pos_emb_matches_jax():
+    from paddle_tpu.nn.functional.attention import (
+        apply_rotary_pos_emb as j_apply,
+    )
+
+    rs = np.random.RandomState(10)
+    q = rs.randn(2, 5, 4, 8).astype(np.float32)
+    k = rs.randn(2, 5, 2, 8).astype(np.float32)
+    ang = rs.rand(9, 8).astype(np.float32) * 6.0
+    cos, sin = np.cos(ang), np.sin(ang)
+    pos = rs.randint(0, 9, (2, 5)).astype(np.int32)
+    want = j_apply(*(P.to_tensor(a) for a in (q, k, cos, sin)),
+                   position_ids=pos)
+    got = TF.apply_rotary_pos_emb(*(torch.from_numpy(a)
+                                    for a in (q, k, cos, sin)),
+                                  position_ids=torch.from_numpy(pos))
+    for a, r in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r._value),
+                                   atol=1e-5, rtol=1e-5)
+
+
+def test_interleaved_rope_grad_matches_jax_grad():
+    """The interleaved style (a jnp path in the JAX package): the port's
+    kernel adjoint is the exact VJP that ``jax.grad`` gives there."""
+    rs = np.random.RandomState(8)
+    q = rs.randn(2, 5, 3, 8).astype(np.float32)
+    g = rs.randn(2, 5, 3, 8).astype(np.float32)
+
+    def jloss(q_):
+        out = P.nn.functional.fused_rotary_position_embedding(
+            P.Tensor(q_), use_neox_rotary_style=False)[0]
+        return (out._value * g).sum()
+
+    want = jax.grad(jloss)(jnp.asarray(q))
+    tq = torch.from_numpy(q).requires_grad_()
+    out = TF.fused_rotary_position_embedding(tq,
+                                             use_neox_rotary_style=False)[0]
+    (out * torch.from_numpy(g)).sum().backward()
+    np.testing.assert_allclose(tq.grad.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_fused_rope_refuses_time_major():
+    q = torch.zeros(1, 2, 1, 4)
+    with pytest.raises(NotImplementedError, match="time_major"):
+        TF.fused_rotary_position_embedding(q, time_major=True)
+
+
+def test_rope_bf16_plain_rounds_once():
+    """bf16: the plain version computes in f32 and rounds once, as the
+    kernel does; the JAX package's CPU path computes in bf16 throughout,
+    so the two differ by bf16 rounding only (stated tolerance 2e-2 on
+    O(1) values)."""
+    rs = np.random.RandomState(9)
+    x = torch.from_numpy(rs.randn(1, 4, 2, 16).astype(np.float32))
+    cos, sin = (torch.from_numpy(a) for a in _neox_phases(rs, 1, 4, 16))
+    xb, cb, sb = (t.to(torch.bfloat16) for t in (x, cos, sin))
+    got = rope_reference(xb, cb, sb)
+    assert got.dtype == torch.bfloat16
+    exact = rope_reference(xb.float(), cb.float(), sb.float())
+    torch.testing.assert_close(got, exact.to(torch.bfloat16), atol=0, rtol=0)
+    jx = P.nn.functional.fused_rotary_position_embedding(
+        P.to_tensor(xb.float().numpy()).astype("bfloat16"))[0]
+    jb = torch.from_numpy(np.array(jx._value.astype(jnp.float32)))
+    ours = TF.fused_rotary_position_embedding(xb)[0].float()
+    assert (ours - jb).abs().max().item() <= 2e-2

@@ -10,9 +10,10 @@
     only a CPU tensor reaches the plain version: the wrappers hold no
     try/except, the plain call sits under the CPU test, and a tensor on
     any other device raises instead of running it;
-  * attention's gradient on the card goes through the flash_bwd kernel
-    only, and every serving entry runs under ``torch.inference_mode()``
-    (the parameters are trainable, so serving must build no graph).
+  * attention's and rope's gradients on the card go through their
+    kernels only, and every serving entry runs under
+    ``torch.inference_mode()`` (the parameters are trainable, so serving
+    must build no graph).
 """
 from __future__ import annotations
 
@@ -112,17 +113,23 @@ def test_copied_module_matches_reference(rel):
 def test_entry_points_default_to_cuda():
     from paddle_tpu_torch.core.device import resolve_device
     from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_tiny
 
-    cfg = GPTConfig(vocab_size=16, hidden_size=8, num_layers=1,
-                    num_heads=2, max_seq_len=8)
-    if torch.cuda.is_available():
-        assert GPTForCausalLM(cfg).device.type == "cuda"
-        return
-    with pytest.raises(RuntimeError, match='device="cpu"'):
-        GPTForCausalLM(cfg)
-    with pytest.raises(RuntimeError, match='device="cpu"'):
-        resolve_device(None)
-    assert GPTForCausalLM(cfg, device="cpu").device.type == "cpu"
+    entries = [(GPTForCausalLM, GPTConfig(vocab_size=16, hidden_size=8,
+                                          num_layers=1, num_heads=2,
+                                          max_seq_len=8)),
+               (LlamaForCausalLM, llama_tiny(vocab_size=16, hidden_size=8,
+                                             num_layers=1, ffn_hidden=16))]
+    for cls, cfg in entries:
+        if torch.cuda.is_available():
+            assert cls(cfg).device.type == "cuda"
+            continue
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            cls(cfg)
+        assert cls(cfg, device="cpu").device.type == "cpu"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            resolve_device(None)
 
 
 @pytest.mark.parametrize("name", sorted(K.KERNELS))
@@ -188,6 +195,10 @@ def test_non_cpu_tensors_never_run_plain_versions():
         K.decode_attention.decode_attention(
             q3, torch.empty(1, 2, 8, 8, **meta),
             torch.empty(1, 2, 8, 8, **meta), idx)
+    phases = torch.empty(1, 4, 1, 8, **meta)
+    for adjoint in (False, True):
+        with pytest.raises(ValueError, match="device"):
+            K.rope.rope(q, phases, phases, adjoint=adjoint)
     assert K.launch_counts() == {n: 0 for n in K.KERNELS}
 
 
@@ -239,33 +250,61 @@ def test_flash_attention_backward_reaches_only_flash_bwd():
                        for c in called), called
 
 
+def test_rope_backward_reaches_only_the_kernel():
+    """`RoPE`'s forward and backward run the rope wrapper (the kernel on
+    CUDA; the backward with ``adjoint=True``) and no plain version, with
+    nothing caught; the functional rotates every style through `RoPE`."""
+    from paddle_tpu_torch.nn.functional import attention as A
+
+    for method, adjoint in ((K.rope.RoPE.forward, False),
+                            (K.rope.RoPE.backward, True)):
+        fn = ast.parse(textwrap.dedent(inspect.getsource(method)))
+        assert not any(isinstance(n, ast.Try) for n in ast.walk(fn))
+        calls = [n for n in ast.walk(fn) if isinstance(n, ast.Call)]
+        called = {ast.unparse(n.func) for n in calls}
+        assert "rope" in called, called
+        assert not any(c.endswith("_reference") for c in called), called
+        flags = [ast.unparse(kw.value) for n in calls
+                 if ast.unparse(n.func) == "rope" for kw in n.keywords
+                 if kw.arg == "adjoint"]
+        assert flags == (["True"] if adjoint else []), flags
+    src = inspect.getsource(A.fused_rotary_position_embedding)
+    assert "RoPE.apply" in src and "_reference" not in src
+
+
 def test_serving_entries_run_under_inference_mode():
     """generate(), the engine inline and the engine's loop thread run
     every model call with inference mode on: no autograd graph, though
-    the parameters require grad."""
+    the parameters require grad.  Both families: GPT and LLaMA."""
     from paddle_tpu_torch.inference.engine import (
         EngineConfig, InferenceEngine,
     )
     from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_tiny
 
-    cfg = GPTConfig(vocab_size=64, hidden_size=16, num_layers=1,
-                    num_heads=2, max_seq_len=32)
-    model = GPTForCausalLM(cfg, device="cpu")
-    assert all(p.requires_grad for p in model.parameters())
-    seen = []
-    model.gpt.register_forward_hook(
-        lambda mod, args, out: seen.append(
-            (torch.is_inference_mode_enabled(), torch.is_grad_enabled())))
-    prompt = np.arange(5, dtype=np.int32)
-    model.generate(prompt[None], max_new_tokens=3)
-    eng = InferenceEngine(model, EngineConfig(page_size=4, max_slots=2,
-                                              max_seq_len=32))
-    eng.generate([prompt], max_new_tokens=3)
-    eng.start()
-    try:
-        assert len(eng.submit(prompt, max_new_tokens=3).result(
-            timeout=60)) == 8
-    finally:
-        eng.stop()
-    assert len(seen) >= 9
-    assert all(s == (True, False) for s in seen), seen
+    gpt = GPTForCausalLM(GPTConfig(vocab_size=64, hidden_size=16,
+                                   num_layers=1, num_heads=2,
+                                   max_seq_len=32), device="cpu")
+    llama = LlamaForCausalLM(llama_tiny(vocab_size=64, hidden_size=16,
+                                        num_layers=1, ffn_hidden=32,
+                                        max_seq_len=32), device="cpu")
+    for model, body in ((gpt, gpt.gpt), (llama, llama.model)):
+        assert all(p.requires_grad for p in model.parameters())
+        seen = []
+        body.register_forward_hook(
+            lambda mod, args, out, seen=seen: seen.append(
+                (torch.is_inference_mode_enabled(),
+                 torch.is_grad_enabled())))
+        prompt = np.arange(5, dtype=np.int32)
+        model.generate(prompt[None], max_new_tokens=3)
+        eng = InferenceEngine(model, EngineConfig(page_size=4, max_slots=2,
+                                                  max_seq_len=32))
+        eng.generate([prompt], max_new_tokens=3)
+        eng.start()
+        try:
+            assert len(eng.submit(prompt, max_new_tokens=3).result(
+                timeout=60)) == 8
+        finally:
+            eng.stop()
+        assert len(seen) >= 9
+        assert all(s == (True, False) for s in seen), seen
