@@ -3,20 +3,25 @@
 
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --profile  # + torch.profiler breakdowns of
-                                     #   the engine's decode step and
-                                     #   of one train step
+                                     #   the engine's decode step, of
+                                     #   one train step and of one
+                                     #   ResNet-50 and one Swin-T batch
 
 Phases (one line per phase, seconds included; any failure exits
 non-zero and prints no result):
 
   1. device: `nvidia-smi` name and power limit, torch's device name;
   2. build: every CUDA kernel with nvcc for sm_90a, one nvcc per source
-     (five), all started together;
+     (seven), all started together;
   3. kernels: each kernel against its plain PyTorch version at the main
      path's shapes, in bf16 and f32, with its time, the plain version's,
      one PyTorch library call's where one computes the same function,
      and the roofline bound (rope and its adjoint at the llama_7b
-     prefill q, a ragged per-row-phase decode and the 70B-width GQA k);
+     prefill q, a ragged per-row-phase decode and the 70B-width GQA k;
+     conv_bn_act and window_attention at every distinct shape that one
+     bf16 forward of ResNet-50, MobileNetV2 and Swin-T at batch 64 gives
+     them, recorded from that forward, and each kernel's summed time per
+     model forward);
   4. serve: gpt_1p3b (full width, 24 layers, bf16, seeded random
      weights) behind `InferenceEngine` with the default EngineConfig;
      8 requests at once, three sharing a 512-token prefix (warm
@@ -50,10 +55,20 @@ non-zero and prints no result):
  12. llama_train_parity: llama_7b widths at 1 layer in f32, batch 1 x
      128: 3 AdamW steps with `LlamaPretrainingCriterion` on the card
      (rope and its adjoint, flash_fwd and flash_bwd at D=128) and on the
-     CPU; the losses agree within 1e-3.
+     CPU; the losses agree within 1e-3;
+ 13. vision_parity: ResNet-50, MobileNetV2 and Swin-T (224x224, 1000
+     classes, full depth) in f32 at batch 2 with seeded weights and batch
+     norm statistics: the card's logits against the CPU port's plain
+     forward within 1e-3 relative L2; conv_bn_act 49 / 35 and
+     window_attention 12 launches per forward;
+ 14. vision_serve: the same three in bf16 at batch 64 under
+     inference_mode: images/s over 10 batches after 2 warm-ups, ms per
+     batch, peak memory, exact launches per forward; the logits against
+     the CPU port's plain f32 forward of the same weights within 5%
+     relative L2.
 
 Launch counters are reset just before the driven part of phases 4, 5,
-8, 9, 10 and 12 and read just after each; every kernel of each path must
+8, 9, 10, 12 and 14 and read just after each; every kernel of each path must
 have launched.  The line before last is the JSON kernel table
 (`launches` summed over those paths); the last line is the device JSON.
 """
@@ -78,9 +93,6 @@ BF16_TOL = 2e-2     # bf16: both round the f32 result to bf16 (8 bits)
 PEAK_BYTES = 3.35e12                      # H100 SXM HBM3, bytes/s
 PEAK_FLOPS = {"bfloat16": 989e12,         # dense tensor-core bf16
               "float32": 67e12}           # f32 outside the tensor cores
-# kernels whose operations cannot run on the tensor cores: their bound
-# takes the f32 CUDA-core rate whatever the storage type
-ELEMENTWISE = {"rope", "rope_bwd"}
 SEED = 0
 
 
@@ -222,9 +234,13 @@ def _causal_pairs(torch, sq, valid):
     return int((keep & valid[None]).sum())
 
 
-def kernel_cases(torch, dtype):
+def kernel_cases(torch, dtype, vision):
     """(name, label, run_kernel, run_plain, library_fn, nbytes, flops,
-    real) at the main path's shapes: gpt_1p3b heads 16 x head_dim 128.
+    ops_dtype, real) at the main path's shapes: gpt_1p3b heads 16 x
+    head_dim 128, then the other paths' (`vision`: the launches recorded
+    by `_vision_launches`).  `ops_dtype` names the peak rate that bounds
+    the operations (float32 where they cannot run on the tensor cores,
+    whatever the storage type).
     `real` is the first query row that sees a valid key: rows before it
     are left pad, whose output no real row reads; the kernel skips the
     key blocks past the diagonal and the plain version does not, so the
@@ -237,6 +253,7 @@ def kernel_cases(torch, dtype):
     dev = "cuda"
     h, d = 16, 128
     isz = torch.empty((), dtype=dtype).element_size()
+    dname = str(dtype).split(".")[1]
 
     def randn(*shape):
         return torch.randn(*shape, generator=g, device=dev, dtype=dtype)
@@ -251,7 +268,7 @@ def kernel_cases(torch, dtype):
                   lambda: FA.flash_fwd_reference(q, k, v, causal=True),
                   _sdpa_library(q, k, v, None, True),
                   4 * b * s * h * d * isz + b * h * s * 4,
-                  4 * pairs * h * d, 0))
+                  4 * pairs * h * d, dname, 0))
     # flash_fwd, causal + pad bias: the engine's cold prefill of a
     # 1000-token prompt (bucket 1008, 8 pad rows)
     sb, start = 1008, 8
@@ -264,7 +281,8 @@ def kernel_cases(torch, dtype):
                                                  causal=True),
                   _sdpa_library(qb, kb, vb, bias, True),
                   4 * sb * h * d * isz + sb * 4 + h * sb * 4,
-                  4 * _causal_pairs(torch, sb, valid) * h * d, start))
+                  4 * _causal_pairs(torch, sb, valid) * h * d, dname,
+                  start))
     # flash_fwd, warm tail prefill: a 48-token bucket (8 pad rows) over a
     # 512-token cached prefix, keys cut to prefix + tail (560)
     sq, plen, tstart = 48, 512, 8
@@ -279,7 +297,7 @@ def kernel_cases(torch, dtype):
                                                  causal=True),
                   _sdpa_library(qw, kw, vw, wbias, True),
                   (2 * sq + 2 * sk) * h * d * isz + sk * 4 + h * sq * 4,
-                  4 * _causal_pairs(torch, sq, wvalid) * h * d, 0))
+                  4 * _causal_pairs(torch, sq, wvalid) * h * d, dname, 0))
     # paged_attention: a serving decode step, 4 slots, page 16, the pool
     # of the default EngineConfig (4 * 128 + 1 pages)
     ps, npool, p = 16, 4 * 128 + 1, 128
@@ -299,7 +317,7 @@ def kernel_cases(torch, dtype):
                   lambda: PA.paged_attention_reference(qp, kp, vp, pt, pos),
                   None,
                   2 * keys * h * d * isz + 2 * 4 * h * d * isz
-                  + pt.numel() * 4 + 16, 4 * keys * h * d, 0))
+                  + pt.numel() * 4 + 16, 4 * keys * h * d, dname, 0))
     # decode_attention: generate() decode over a left-padded batch
     bd, capd = 4, 256
     qd = randn(bd, h, d)
@@ -322,8 +340,173 @@ def kernel_cases(torch, dtype):
                                                         std),
                   dec_library,
                   2 * keysd * h * d * isz + 2 * bd * h * d * isz + 32,
-                  4 * keysd * h * d, 0))
-    return cases + bwd_cases(torch, dtype) + rope_cases(torch, dtype)
+                  4 * keysd * h * d, dname, 0))
+    return (cases + bwd_cases(torch, dtype) + rope_cases(torch, dtype)
+            + conv_cases(torch, dtype, vision)
+            + window_cases(torch, dtype, vision))
+
+
+def _vision_launches(batch):
+    """Every distinct call that one bf16 forward of ResNet-50,
+    MobileNetV2 and Swin-T at `batch` x 224x224 makes of `conv_bn_act`
+    (x and w shapes, stride, padding, act) and of `window_attention`
+    (qkv shape, heads, window, shift, whether a mask is passed), in the
+    order first made: [(kernel, signature, {model: calls per forward})].
+    The calls are recorded by wrapping the two wrappers for that forward;
+    the kernel rows of phase 3 run at exactly these shapes."""
+    import importlib
+    from unittest import mock
+
+    import torch
+
+    from paddle_tpu_torch.ops.kernels import conv_norm as CN
+
+    SW = importlib.import_module("paddle_tpu_torch.vision.models.swin")
+    conv, win = CN.conv_bn_act, SW.window_attention
+    seen = {}
+    model = None
+
+    def record(kernel, sig):
+        uses = seen.setdefault((kernel, sig), {})
+        uses[model] = uses.get(model, 0) + 1
+
+    def conv_rec(x, w, scale, shift, stride=1, padding=0, act="relu"):
+        record("conv_bn_act", (tuple(x.shape), tuple(w.shape),
+                               CN._pair(stride), CN._pair(padding), act))
+        return conv(x, w, scale, shift, stride, padding, act)
+
+    def win_rec(qkv, bias, mask, window_size, shift, num_heads):
+        record("window_attention", (tuple(qkv.shape), num_heads,
+                                    window_size, shift, mask is not None))
+        return win(qkv, bias, mask, window_size, shift, num_heads)
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    x = torch.randn(batch, 3, 224, 224, generator=g, device="cuda",
+                    dtype=torch.bfloat16)
+    with mock.patch.object(CN, "conv_bn_act", conv_rec), \
+            mock.patch.object(SW, "window_attention", win_rec), \
+            torch.inference_mode():
+        for model, kernel, per_fwd in VISION:
+            _vision_model(model, "cuda", torch.bfloat16)(x)
+            calls = sum(u.get(model, 0) for (k, _), u in seen.items()
+                        if k == kernel)
+            check(calls == per_fwd, f"kernels: {model} called {kernel} "
+                  f"{calls} times in one forward, expected {per_fwd}")
+    torch.cuda.empty_cache()
+    return [(k, sig, uses) for (k, sig), uses in seen.items()]
+
+
+def _vision_label(kernel, sig):
+    if kernel == "conv_bn_act":
+        (b, cin, h, _), (cout, cin_g, k, _), (st, _), _, act = sig
+        dw = " dw" if cin_g == 1 and cout == cin else ""
+        return f"B{b} {k}x{k}/s{st} {cin}->{cout} @{h} {act or 'none'}{dw}"
+    (b, h, w, c3), heads, ws, shift, masked = sig
+    return (f"B{b} {h}x{w} C{c3 // 3} h{heads} w{ws} shift{shift}"
+            + (" mask" if masked else ""))
+
+
+def conv_cases(torch, dtype, vision):
+    """conv_bn_act at every shape `vision` recorded (ResNet-50's and
+    MobileNetV2's at the served batch).  Weights scaled by 1/sqrt(fan_in),
+    scale near 1 and shift near 0, so outputs stay below 4 (a bf16
+    rounding there is under 2e-2).  Bytes: x, w, scale, shift read once
+    and the output written once; operations: 2 per multiply-add, at the
+    f32 rate for depthwise (no tensor cores).  Library yardstick: one
+    F.conv2d(x, w * scale, shift) and the activation, the weight folded
+    outside the timed call."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.kernels import conv_norm as CN
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    dev = "cuda"
+    isz = torch.empty((), dtype=dtype).element_size()
+    dname = str(dtype).split(".")[1]
+    cases = []
+    for kernel, sig, _ in vision:
+        if kernel != "conv_bn_act":
+            continue
+        xs, wsh, st, pad, act = sig
+        b, cin = xs[:2]
+        cout, cin_g, kh, kw = wsh
+        dw = cin_g == 1 and cout == cin
+        x = torch.randn(*xs, generator=g, device=dev, dtype=dtype)
+        w = (torch.randn(*wsh, generator=g, device=dev)
+             / math.sqrt(cin_g * kh * kw)).to(dtype)
+        sc = 0.5 + 0.5 * torch.rand(cout, generator=g, device=dev)
+        sh = 0.1 * torch.randn(cout, generator=g, device=dev)
+        ho = (xs[2] + 2 * pad[0] - kh) // st[0] + 1
+        wo = (xs[3] + 2 * pad[1] - kw) // st[1] + 1
+        wf = (w.float() * sc[:, None, None, None]).to(dtype)
+        bf = sh.to(dtype)
+        groups = cin if dw else 1
+        nbytes = (x.numel() + w.numel() + b * cout * ho * wo) * isz \
+            + 2 * cout * 4
+        flops = 2 * b * cout * ho * wo * cin_g * kh * kw
+        cases.append((
+            "conv_bn_act", _vision_label(kernel, sig),
+            lambda x=x, w=w, sc=sc, sh=sh, st=st, pad=pad, act=act:
+                CN.conv_bn_act(x, w, sc, sh, st, pad, act),
+            lambda x=x, w=w, sc=sc, sh=sh, st=st, pad=pad, act=act, dw=dw:
+                CN.conv_bn_act_reference(x, w, sc, sh, st, pad, act, dw),
+            lambda x=x, wf=wf, bf=bf, st=st, pad=pad, act=act, gr=groups:
+                CN._apply_act(F.conv2d(x, wf, bf, st, pad, 1, gr), act),
+            nbytes, flops, "float32" if dw else dname, 0))
+    return cases
+
+
+def window_cases(torch, dtype, vision):
+    """window_attention at every shape `vision` recorded (Swin-T's four
+    stages at the served batch, shifted with the mask and not, stage 4
+    one window with no shift); a seeded bias.  Bytes: qkv, bias, mask
+    read once, the output written once; operations: 4 * ws^4 * head_dim
+    per window and head.  Library yardstick:
+    F.scaled_dot_product_attention on the partitioned [B*nW, heads, ws^2,
+    head_dim] q, k, v with bias + mask as attn_mask; its time leaves out
+    the roll and the partition, done outside the timed call."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.kernels import window_attention as WA
+    from paddle_tpu_torch.vision.models.swin import _shift_mask
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    dev = "cuda"
+    isz = torch.empty((), dtype=dtype).element_size()
+    dname = str(dtype).split(".")[1]
+    cases = []
+    for kernel, sig, _ in vision:
+        if kernel != "window_attention":
+            continue
+        (b, h, w, c3), heads, ws, shift, masked = sig
+        c, p = c3 // 3, ws * ws
+        qkv = torch.randn(b, h, w, c3, generator=g, device=dev, dtype=dtype)
+        bias = torch.randn(heads, p, p, generator=g, device=dev)
+        mask = torch.from_numpy(_shift_mask((h, w), ws, shift)).to(dev) \
+            if masked else None
+        nw = (h // ws) * (w // ws)
+        x = torch.roll(qkv, (-shift, -shift), (1, 2)) if shift else qkv
+        wins = WA.window_partition(x, ws).reshape(b * nw, p, 3, heads,
+                                                  c // heads)
+        q, k, v = (wins[:, :, i].transpose(1, 2).contiguous()
+                   for i in range(3))
+        full = bias[None] if mask is None else bias[None] + mask[:, None]
+        am = full.to(dtype).repeat(b, 1, 1, 1) if mask is not None \
+            else full.to(dtype)
+        nbytes = qkv.numel() * isz + bias.numel() * 4 \
+            + (0 if mask is None else mask.numel() * 4) + b * h * w * c * isz
+        flops = 4 * b * nw * heads * p * p * (c // heads)
+        cases.append((
+            "window_attention", _vision_label(kernel, sig),
+            lambda qkv=qkv, bias=bias, mask=mask, heads=heads, ws=ws,
+            sh=shift: WA.window_attention(qkv, bias, mask, ws, sh, heads),
+            lambda qkv=qkv, bias=bias, mask=mask, heads=heads, ws=ws,
+            sh=shift: WA.window_attention_reference(qkv, bias, mask, ws, sh,
+                                                    heads),
+            lambda q=q, k=k, v=v, am=am:
+                F.scaled_dot_product_attention(q, k, v, attn_mask=am),
+            nbytes, flops, dname, 0))
+    return cases
 
 
 def rope_cases(torch, dtype):
@@ -365,7 +548,7 @@ def rope_cases(torch, dtype):
                 lambda x=x, c=cos, s=sin, a=adj: RP.rope(x, c, s, adjoint=a),
                 lambda x=x, c=cos, s=sin, a=adj: RP.rope_reference(
                     x, c, s, adjoint=a),
-                None, nbytes, 3 * n, 0))
+                None, nbytes, 3 * n, "float32", 0))
     return cases
 
 
@@ -381,6 +564,7 @@ def bwd_cases(torch, dtype):
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     dev = "cuda"
     isz = torch.empty((), dtype=dtype).element_size()
+    dname = str(dtype).split(".")[1]
     cases = []
     for label, b, s, hq, hkv, starts in (
             ("causal B8 S1024 H12 D64 (train)", 8, 1024, 12, 12, None),
@@ -411,7 +595,7 @@ def bwd_cases(torch, dtype):
                 _sdpa_library(q, k, v, None, True),
                 # q, k, v, o once each, lse
                 4 * b * s * hq * d * isz + b * hq * s * 4,
-                4 * pairs * hq * d, 0))
+                4 * pairs * hq * d, dname, 0))
         out, lse = FA.flash_fwd(q, k, v, bias=bias, causal=True)
         cases.append((
             "flash_bwd", label,
@@ -423,23 +607,28 @@ def bwd_cases(torch, dtype):
             _sdpa_bwd_library(q, k, v, dout, bias, True),
             # q, o, dO, dq and k, v, dk, dv once each, lse, the bias
             4 * b * s * (hq + hkv) * d * isz + b * hq * s * 4 + bias_bytes,
-            10 * pairs * hq * d, 0))
+            10 * pairs * hq * d, dname, 0))
     return cases
 
 
 def phase_kernels():
+    """Every case of `kernel_cases` in f32 and bf16: held against its
+    plain version, then timed.  Returns {(kernel, dtype): row} (the
+    first case of each kernel, flash_fwd's cold prefill, with the worst
+    error over all its cases) for the JSON line."""
     import torch
 
     from paddle_tpu_torch.ops import kernels as K
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    table = {}
+    vision = _vision_launches(VISION_BATCH)
+    table, worst, times = {}, {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
         tol = F32_TOL if dtype == torch.float32 else BF16_TOL
-        for name, label, run, plain, lib, nbytes, flops, real in \
-                kernel_cases(torch, dtype):
+        for name, label, run, plain, lib, nbytes, flops, ops_dtype, real \
+                in kernel_cases(torch, dtype, vision):
             got, want = run(), plain()
             rel = None
             if name == "flash_bwd":      # (dq, dk, dv)
@@ -474,9 +663,9 @@ def phase_kernels():
             ms = time_ms(run)
             pms = time_ms(plain)
             lms = time_ms(lib) if lib is not None else None
-            bms, by = bound_ms(nbytes, flops, "float32" if name in
-                               ELEMENTWISE else dname)
-            log(f"[kernels] {name:16s} {label:32s} {dname:8s} max_abs_err "
+            bms, by = bound_ms(nbytes, flops, ops_dtype)
+            times[(name, label, dname)] = (ms, pms, lms, bms)
+            log(f"[kernels] {name:16s} {label:36s} {dname:8s} max_abs_err "
                 f"{err:.3g}"
                 + ("" if rel is None else
                    f" (rel {rel:.3g} of max |ref| {ref_max:.3g})")
@@ -488,14 +677,31 @@ def phase_kernels():
             # first case of each kernel; flash_fwd's cold prefill is kept
             # as the serving path's case)
             key = (name, dname)
-            row = dict(name=name, case=label, dtype=dname,
-                       max_abs_err=err, ms=ms, plain_ms=pms,
-                       library_ms=lms, bound_ms=bms, bound_by=by)
+            worst[key] = max(worst.get(key, 0.0), err)
+            row = dict(name=name, case=label, dtype=dname, ms=ms,
+                       plain_ms=pms, library_ms=lms, bound_ms=bms,
+                       bound_by=by)
             if name == "flash_fwd":
                 if "pad B1" in label:
                     table[key] = row
             else:
                 table.setdefault(key, row)
+    for key, row in table.items():
+        row["max_abs_err"] = worst[key]
+    # each vision kernel's time in one forward: its rows weighted by the
+    # calls each model makes at that shape
+    for model, kernel, per_fwd in VISION:
+        for dname in ("float32", "bfloat16"):
+            tot = [0.0, 0.0, 0.0, 0.0]
+            for k, sig, uses in vision:
+                if model in uses:
+                    t = times[(k, _vision_label(k, sig), dname)]
+                    for i in range(4):
+                        tot[i] += uses[model] * t[i]
+            log(f"[kernels] {model} B{VISION_BATCH} {dname}: {kernel} x"
+                f"{per_fwd} per forward, kernel {tot[0]:.3f} ms, plain "
+                f"{tot[1]:.3f} ms, library {tot[2]:.3f} ms, bound "
+                f"{tot[3]:.4f} ms")
     K.reset_launches()   # comparison launches do not count
     return table
 
@@ -805,6 +1011,159 @@ def phase_train(card):
     return counts, step, ids, labels
 
 
+# ------------------------------------------------------- phases 13 and 14
+# (constructor, kwargs, kernel, launches per forward): ResNet-50 runs 49
+# eval-mode conv_bn_act (the stem and 3 per bottleneck; the 4 downsample
+# projections are plain convs), MobileNetV2 35 (17 of them depthwise),
+# Swin-T one window_attention per block
+VISION = (("resnet50", "conv_bn_act", 49), ("mobilenet_v2", "conv_bn_act", 35),
+          ("swin_t", "window_attention", 12))
+VISION_BATCH = 64   # served batch; phase 3's vision rows take its shapes
+
+
+def _vision_model(name, device, dtype):
+    """A seeded model with its batch-norm running statistics drawn from
+    the seed too (means N(0, 0.1), variances U(0.5, 2)), so the fused
+    path folds non-trivial statistics."""
+    import torch
+
+    from paddle_tpu_torch.vision import models as V
+
+    model = getattr(V, name)(device=device, dtype=dtype, seed=SEED)
+    rs = np.random.RandomState(SEED + 5)
+    with torch.no_grad():
+        for mod in model.modules():
+            if hasattr(mod, "_variance"):
+                n = mod._mean.numel()
+                mod._mean.copy_(torch.from_numpy(
+                    rs.normal(0, 0.1, n).astype(np.float32)))
+                mod._variance.copy_(torch.from_numpy(
+                    rs.uniform(0.5, 2.0, n).astype(np.float32)))
+    return model
+
+
+def _rel_l2(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def phase_vision_parity(batch=2):
+    """f32 at full width and depth: the card's forward through the
+    kernels against the CPU port's plain forward, same weights and
+    statistics (TF32 off for the card's plain convs and matmuls)."""
+    import torch
+
+    from paddle_tpu_torch.ops import kernels as K
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    x = torch.from_numpy(np.random.RandomState(SEED + 6).randn(
+        batch, 3, 224, 224).astype(np.float32))
+    for name, kernel, per_fwd in VISION:
+        cpu = _vision_model(name, "cpu", torch.float32)
+        gpu = _vision_model(name, "cuda", torch.float32)
+        gpu.load_state_dict(cpu.state_dict())
+        K.reset_launches()
+        with torch.inference_mode():
+            lg = gpu(x.cuda())
+            torch.cuda.synchronize()
+            counts = K.launch_counts()
+            lc = cpu(x)
+        rel = _rel_l2(lg.cpu(), lc)
+        check(lg.shape == (batch, 1000) and bool(torch.isfinite(lg).all()),
+              f"vision_parity {name}: logits {tuple(lg.shape)} not finite")
+        check(rel <= 1e-3, f"vision_parity {name}: card vs cpu logits rel "
+              f"L2 {rel:.3g} > 1e-3")
+        check(counts[kernel] == per_fwd,
+              f"vision_parity {name}: {kernel} launched {counts[kernel]} "
+              f"times in one forward, expected {per_fwd}")
+        log(f"[vision_parity] {name} f32 B{batch} 224: card vs cpu logits "
+            f"rel L2 {rel:.3g} (tol 1e-3), max |logit| "
+            f"{lc.abs().max().item():.4g}; {kernel} {counts[kernel]} "
+            f"launches")
+        del cpu, gpu
+
+
+def phase_vision_serve(card, batch=VISION_BATCH, iters=10, profile=False):
+    """bf16 serving of the three models: images/s over `iters` batches
+    after 2 warm-ups; exact launches per forward; the card's bf16 logits
+    against the CPU port's plain f32 forward of the same weights and
+    batch (no kernel on that side)."""
+    import torch
+
+    from paddle_tpu_torch.ops import kernels as K
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    x = torch.randn(batch, 3, 224, 224, generator=g, device="cuda",
+                    dtype=torch.bfloat16)
+    total = {}
+    for name, kernel, per_fwd in VISION:
+        model = _vision_model(name, "cuda", torch.bfloat16)
+        with torch.inference_mode():
+            for _ in range(2):
+                model(x)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            forwards, hook = _count_forwards(model)
+            K.reset_launches()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                logits = model(x)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = K.launch_counts()
+            hook.remove()
+            peak = torch.cuda.max_memory_allocated()
+            check(logits.shape == (batch, 1000)
+                  and bool(torch.isfinite(logits).all()),
+                  f"vision_serve {name}: bad logits")
+            check(counts[kernel] == per_fwd * len(forwards),
+                  f"vision_serve {name}: {kernel} launched {counts[kernel]} "
+                  f"times in {len(forwards)} forwards, expected {per_fwd} "
+                  "per forward")
+            others = {k: v for k, v in counts.items() if k != kernel and v}
+            check(not others, f"vision_serve {name}: other kernels {others}")
+            cpu = _vision_model(name, "cpu", torch.float32)
+            cpu.load_state_dict(model.state_dict())
+            t_cpu = time.perf_counter()
+            rel = _rel_l2(logits.cpu(), cpu(x.float().cpu()))
+            t_cpu = time.perf_counter() - t_cpu
+            del cpu
+            if profile:
+                _profile_forward(model, x, f"{name} bf16 B{batch} forward")
+        check(math.isfinite(rel) and rel < 0.05,
+              f"vision_serve {name}: bf16 card vs f32 cpu logits rel L2 "
+              f"{rel:.3g} >= 0.05")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        log(f"[vision_serve] {name} bf16 B{batch} 224 ({card}): "
+            f"{batch * iters / dt:.1f} images/s, {1e3 * dt / iters:.2f} "
+            f"ms/batch over {iters} batches, peak memory "
+            f"{peak / 2**30:.2f} GiB; bf16 card vs f32 cpu plain logits rel "
+            f"L2 {rel:.4f} (tol 0.05, cpu forward {t_cpu:.1f}s); {kernel} "
+            f"{counts[kernel] // iters} launches per forward")
+        del model
+        torch.cuda.empty_cache()
+    return total
+
+
+def _profile_forward(model, x, what, steps=3):
+    """torch.profiler over `steps` forwards (inside inference mode)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(steps):
+            model(x)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    _log_profile(prof, what, wall_ms, steps)
+
+
 # ------------------------------------------------- optional: --profile
 def phase_profile_train(step, ids, labels, steps=3):
     """torch.profiler over `steps` train steps: device busy share and
@@ -847,7 +1206,9 @@ def _log_profile(prof, what, wall_ms, steps):
     for e in kernels:
         name = e.key.lower()
         kind = ("port kernels" if "flash_" in name or "_attention_kernel"
-                in name or "rope_" in name else "gemm" if "nvjet" in name or "gemm" in name
+                in name or "rope_" in name or "conv_dense" in name
+                or "conv_depthwise" in name
+                else "gemm" if "nvjet" in name or "gemm" in name
                 else "copy/cast" if "copy" in name else "other")
         kinds[kind] += dev(e) / steps
     log("[profile] device by kind (ms/step): " + ", ".join(
@@ -971,6 +1332,10 @@ def main():
                          LlamaForCausalLM, llama_7b(num_layers=1),
                          "llama_7b", 1, 128,
                          ("flash_fwd", "flash_bwd", "rope", "rope_bwd")))
+        release()
+        run("vision_parity", phase_vision_parity)
+        paths.append(run("vision_serve", phase_vision_serve, card,
+                         VISION_BATCH, 10, profile))
         rows = []
         for name, k in K.KERNELS.items():
             row = table[(name, "bfloat16")]

@@ -17,8 +17,10 @@ Ported so far: the GPT serving path — `models.gpt`, greedy
 `inference.engine.InferenceEngine` over a paged KV cache (slice 1); the
 single-device train step, `distributed.build_train_step` with
 `optimizer.AdamW` (slice 2); the LLaMA family, `models.llama`, served
-and trained through the same entry points (slice 3).
+and trained through the same entry points (slice 3); vision inference,
+`vision.models` ResNet / MobileNetV2 / Swin (slice 4).
 """
 from __future__ import annotations
 
-__all__ = ["core", "inference", "models", "nn", "observability", "ops"]
+__all__ = ["core", "inference", "models", "nn", "observability", "ops",
+           "vision"]

@@ -424,26 +424,36 @@ class GPTPretrainingCriterion(nn.Module):
         return F.cross_entropy(logits, labels, ignore_index=self.ignore_index)
 
 
-def load_reference_state(model, params) -> None:
+def load_reference_state(model, params, buffers=None) -> None:
     """Copy the JAX model's ``functional_state()`` params (name -> array,
     numpy or anything `np.asarray` takes) into `model`, onto its device
-    and dtype.  Every name and shape must match: a missing or extra name
-    raises, as does a shape mismatch."""
+    and dtype; with `buffers` (the second dict of ``functional_state()``)
+    the model's persistent buffers too, such as batch norm's `_mean` and
+    `_variance`.  Every name and shape must match: a missing or extra
+    name raises, as does a shape mismatch."""
     own = dict(model.named_parameters())
-    missing = sorted(set(own) - set(params))
-    extra = sorted(set(params) - set(own))
-    if missing or extra:
-        raise KeyError(f"load_reference_state: missing {missing}, "
-                       f"unexpected {extra}")
+    targets = [(own, params)]
+    if buffers is not None:
+        state = model.state_dict(keep_vars=True)
+        targets.append(({n: b for n, b in model.named_buffers()
+                         if n in state}, buffers))
+    for dst, src_dict in targets:
+        missing = sorted(set(dst) - set(src_dict))
+        extra = sorted(set(src_dict) - set(dst))
+        if missing or extra:
+            raise KeyError(f"load_reference_state: missing {missing}, "
+                           f"unexpected {extra}")
     with torch.no_grad():
-        for name, p in own.items():
-            src = np.asarray(params[name])
-            if tuple(src.shape) != tuple(p.shape):
-                raise ValueError(f"load_reference_state: {name} has shape "
-                                 f"{tuple(src.shape)}, model expects "
-                                 f"{tuple(p.shape)}")
-            p.copy_(torch.from_numpy(np.array(src)).to(
-                device=p.device, dtype=p.dtype))
+        for dst, src_dict in targets:
+            for name, p in dst.items():
+                src = np.asarray(src_dict[name])
+                if tuple(src.shape) != tuple(p.shape):
+                    raise ValueError(
+                        f"load_reference_state: {name} has shape "
+                        f"{tuple(src.shape)}, model expects "
+                        f"{tuple(p.shape)}")
+                p.copy_(torch.from_numpy(np.array(src)).to(
+                    device=p.device, dtype=p.dtype))
 
 
 def gpt_tiny(**kw):

@@ -1,10 +1,12 @@
 """Functionals of the port (``paddle_tpu/nn/functional`` counterpart)."""
 from __future__ import annotations
 
-from .activation import gelu, swiglu  # noqa: F401
+from .activation import gelu, relu, relu6, swiglu  # noqa: F401
 from .attention import (  # noqa: F401
     apply_rotary_pos_emb, fused_rotary_position_embedding,
     scaled_dot_product_attention,
 )
+from .conv import conv2d  # noqa: F401
 from .loss import cross_entropy  # noqa: F401
-from .norm import layer_norm, rms_norm  # noqa: F401
+from .norm import batch_norm, layer_norm, rms_norm  # noqa: F401
+from .pooling import adaptive_avg_pool2d, max_pool2d  # noqa: F401

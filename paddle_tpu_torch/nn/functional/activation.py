@@ -1,14 +1,22 @@
-"""gelu and swiglu (``paddle_tpu/nn/functional/activation.py:66`` and
-``:168`` counterparts)."""
+"""relu, relu6, gelu and swiglu (``paddle_tpu/nn/functional/
+activation.py:22``, ``:31``, ``:66`` and ``:168`` counterparts)."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
 
+def relu(x):
+    return torch.relu(x)
+
+
+def relu6(x):
+    return torch.clamp(x, 0, 6)
+
+
 def gelu(x, approximate=False):
     """`approximate=True` is the tanh form (jax.nn.gelu's), the one GPT
-    uses."""
+    uses; the default is the erf form (Swin's `nn.GELU()`)."""
     return F.gelu(x, approximate="tanh" if approximate else "none")
 
 

@@ -1,5 +1,6 @@
-"""layer_norm and rms_norm (``paddle_tpu/nn/functional/norm.py:19`` and
-``:37`` counterparts)."""
+"""layer_norm, rms_norm and batch_norm's inference branch
+(``paddle_tpu/nn/functional/norm.py:19``, ``:37`` and ``:95-108``
+counterparts)."""
 from __future__ import annotations
 
 import torch
@@ -40,3 +41,29 @@ def rms_norm(x, weight=None, bias=None, epsilon=1e-6, begin_norm_axis=-1):
     ms = x32.square().mean(dim=tuple(range(axis, x.dim())), keepdim=True)
     out = (x32 * torch.rsqrt(ms + epsilon)).to(x.dtype)
     return _affine(out, weight, bias)
+
+
+def batch_norm(x, running_mean, running_var, weight=None, bias=None,
+               training=False, epsilon=1e-5):
+    """Inference batch norm over channel axis 1 (NCHW; axis 1 of a 2-D
+    input too), the JAX package's order: for half-precision inputs
+    normalise in f32 with the running statistics, cast the normalised
+    value back to x's dtype, THEN weight and bias in that dtype.  (The
+    fused `conv_bn_act` folds the same statistics in another order.)
+    Batch statistics (training mode) come with the ResNet training
+    slice: ``training=True`` raises."""
+    if training:
+        raise NotImplementedError(
+            "batch_norm with training=True (batch statistics) is not "
+            "ported yet: it comes with the ResNet training slice (ROADMAP "
+            "Queue A); call it in eval mode")
+    shape = [1] * x.dim()
+    shape[1] = -1
+    x32 = _stats_dtype(x)
+    out = ((x32 - running_mean.reshape(shape))
+           * torch.rsqrt(running_var.reshape(shape) + epsilon)).to(x.dtype)
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    return out

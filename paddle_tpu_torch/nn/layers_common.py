@@ -1,4 +1,5 @@
-"""Linear / Embedding / Dropout / LayerNorm / RMSNorm (counterparts of
+"""Linear / Embedding / Dropout / LayerNorm / RMSNorm / Sequential /
+LayerList (counterparts of
 ``paddle_tpu/nn/layers_common.py`` and ``layers_norm.py``).
 
 Parameter layouts follow Paddle, so names and shapes line up one to one
@@ -102,3 +103,9 @@ class RMSNorm(nn.Module):
 
     def forward(self, x):
         return rms_norm(x, self.weight, None, self.epsilon)
+
+
+# ``layers_common.py:125`` and ``:153``: children named "0", "1", ... in
+# order, so names read ``features.3.conv.1.0.weight`` as in the JAX package
+Sequential = nn.Sequential
+LayerList = nn.ModuleList

@@ -7,7 +7,10 @@ from __future__ import annotations
 from types import ModuleType
 from typing import NamedTuple
 
-from . import decode_attention, flash_attention, paged_attention, rope
+from . import (
+    conv_norm, decode_attention, flash_attention, paged_attention, rope,
+    window_attention,
+)
 
 
 class Kernel(NamedTuple):
@@ -39,6 +42,12 @@ KERNELS = {
                    rope.REPLACES),
     "rope_bwd": Kernel(rope, "rope", "rope_reference", "bwd_launches",
                        rope.SOURCE, rope.BWD_REPLACES),
+    "conv_bn_act": Kernel(conv_norm, "conv_bn_act", "conv_bn_act_reference",
+                          "launches", conv_norm.SOURCE, conv_norm.REPLACES),
+    "window_attention": Kernel(window_attention, "window_attention",
+                               "window_attention_reference", "launches",
+                               window_attention.SOURCE,
+                               window_attention.REPLACES),
 }
 
 

@@ -6,12 +6,17 @@ broadcast and boolean biases, fully masked (left-pad) rows, pages
 crossed and the scratch page, ``start == pos``, for the forward and the
 backward; rope's forward and adjoint over head counts 1..64, head_dims
 32..256, odd lengths, per-row and broadcast phases, the interleaved
-style and the strided q / k views of a fused qkv projection; plus
-launch counting, the wrappers' input checks, the gradients of
-`FlashAttention` and `RoPE` against autograd through the plain
-versions, tiny GPT and LLaMA models whose engine and ``generate()`` run
-on the card, and tiny GPT and LLaMA train steps on the card against the
-same steps on the CPU.
+style and the strided q / k views of a fused qkv projection;
+`conv_bn_act` at odd sizes, strides, paddings and kernel sizes, dense
+and depthwise, every activation; `window_attention` shifted and not,
+with and without a mask, one window, non-square images; plus launch
+counting, the wrappers' input checks, the gradients of
+`FlashAttention`, `RoPE` and `ConvBNAct` against autograd through the
+plain versions, `window_attention` refusing grads, tiny GPT and LLaMA
+models whose engine and ``generate()`` run on the card, tiny GPT and
+LLaMA train steps on the card against the same steps on the CPU, and
+tiny ResNet, ResNeXt, MobileNetV2 and Swin forwards against the CPU
+with their exact launches per forward.
 Every test needs an NVIDIA card and skips without one.  On the card (no
 JAX needed, so the JAX test conftest is left out)::
 
@@ -32,7 +37,9 @@ from paddle_tpu_torch.ops import kernels as K
 from paddle_tpu_torch.ops.kernels import decode_attention as DA
 from paddle_tpu_torch.ops.kernels import flash_attention as FA
 from paddle_tpu_torch.ops.kernels import paged_attention as PA
+from paddle_tpu_torch.ops.kernels import conv_norm as CN
 from paddle_tpu_torch.ops.kernels import rope as RP
+from paddle_tpu_torch.ops.kernels import window_attention as WA
 
 pytestmark = pytest.mark.cuda
 
@@ -45,10 +52,15 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU "
                     "mode (their plain versions are tested on the CPU)")
-    prev = torch.backends.cuda.matmul.allow_tf32
+    # full f32 in the plain versions' matmuls and cuDNN convs (both
+    # default to TF32 on this card for some or all calls)
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     yield
-    torch.backends.cuda.matmul.allow_tf32 = prev
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = prev
 
 
 def _randn(gen, *shape, dtype):
@@ -371,11 +383,21 @@ def test_launch_counters_count_cuda_launches_only():
     RP.rope(q, ph, ph)
     RP.rope(q, ph, ph, adjoint=True)
     RP.rope(q.cpu(), ph.cpu(), ph.cpu())
+    x = torch.randn(1, 4, 6, 6, device="cuda")
+    w = torch.randn(8, 4, 3, 3, device="cuda")
+    sc = torch.ones(8, device="cuda")
+    CN.conv_bn_act(x, w, sc, sc, 1, 1)
+    CN.conv_bn_act(x.cpu(), w.cpu(), sc.cpu(), sc.cpu(), 1, 1)
+    qkv = torch.randn(1, 4, 4, 24, device="cuda")
+    bias = torch.zeros(2, 16, 16, device="cuda")
+    WA.window_attention(qkv, bias, None, 4, 0, 2)
+    WA.window_attention(qkv.cpu(), bias.cpu(), None, 4, 0, 2)
     torch.cuda.synchronize()
     assert K.launch_counts() == {"flash_fwd": 1, "flash_bwd": 1,
                                  "paged_attention": 1,
                                  "decode_attention": 1, "rope": 1,
-                                 "rope_bwd": 1}
+                                 "rope_bwd": 1, "conv_bn_act": 1,
+                                 "window_attention": 1}
     K.reset_launches()
 
 
@@ -556,3 +578,142 @@ def test_tiny_llama_on_the_card_matches_cpu_engine_and_train_step():
                                LlamaPretrainingCriterion()).run_steps(
         ids, labels, repeat=3).cpu() for m in (gpu, cpu)]
     torch.testing.assert_close(losses[0], losses[1], atol=1e-4, rtol=0)
+
+
+# ------------------------------------------------------------------ vision
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("act", ["relu", "relu6", None])
+@pytest.mark.parametrize("b,cin,h,w,cout,k,st,pad,dw", [
+    (2, 3, 15, 15, 8, 3, 1, 1, False),     # odd H = W = 15, pad 1
+    (2, 5, 15, 13, 70, 3, 2, 1, False),    # Cout past one 64 tile
+    (1, 16, 7, 7, 33, 1, 1, 0, False),     # 1x1 at 7x7
+    (3, 3, 17, 17, 9, 7, 2, 3, False),     # a stem-like 7x7/s2/p3
+    (2, 4, 9, 9, 6, 5, 1, 2, False),       # run-time kernel size
+    (1, 8, 6, 10, 8, 3, 2, 0, False),      # no padding, stride 2
+    (2, 12, 15, 15, 12, 3, 1, 1, True),    # depthwise
+    (2, 12, 15, 15, 12, 3, 2, 1, True),    # depthwise stride 2
+    (1, 7, 9, 11, 7, 5, 1, 2, True),       # depthwise 5x5
+])
+def test_conv_bn_act_matches_plain(b, cin, h, w, cout, k, st, pad, dw, act,
+                                   dtype):
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cin_g = 1 if dw else cin
+    x = _randn(gen, b, cin, h, w, dtype=dtype)
+    wt = (_randn(gen, cout, cin_g, k, k, dtype=torch.float32)
+          / np.sqrt(cin_g * k * k)).to(dtype)
+    sc = 0.5 + 0.5 * torch.rand(cout, generator=gen, device="cuda")
+    sh = 0.1 * _randn(gen, cout, dtype=torch.float32)
+    got = CN.conv_bn_act(x, wt, sc, sh, st, pad, act)
+    want = CN.conv_bn_act_reference(x, wt, sc, sh, st, pad, act, dw)
+    assert got.shape == want.shape and got.dtype == dtype
+    _close(got, want, dtype)
+
+
+def test_conv_bn_act_grad_is_the_plain_versions():
+    """`ConvBNAct`: the kernel forward, the plain version's autograd
+    backward (the JAX custom VJP's contract)."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    ins = [_randn(gen, *s, dtype=torch.float32).requires_grad_()
+           for s in ((2, 6, 9, 9), (10, 6, 3, 3), (10,), (10,))]
+    dout = _randn(gen, 2, 10, 5, 5, dtype=torch.float32)
+    K.reset_launches()
+    out = CN.ConvBNAct.apply(*ins, (2, 2), (1, 1), "relu6")
+    assert K.launch_counts()["conv_bn_act"] == 1
+    got = torch.autograd.grad(out, ins, dout)
+    want = torch.autograd.grad(
+        CN.conv_bn_act_reference(*ins, 2, 1, "relu6"), ins, dout)
+    for a, r in zip(got, want):
+        _close(a, r, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("b,h,w,c,heads,ws,shift,masked", [
+    (2, 14, 14, 24, 3, 7, 3, True),        # Swin shape, shifted + mask
+    (1, 7, 7, 48, 2, 7, 0, False),         # one window (stage 4 shape)
+    (2, 8, 12, 16, 2, 4, 2, True),         # non-square, wrap-around
+    (1, 21, 21, 64, 2, 7, 3, True),        # 3x3 windows, hd 32
+    (2, 14, 14, 24, 3, 7, 3, False),       # a shift without a mask
+    (1, 10, 10, 40, 5, 5, 0, False),       # P = 25, head_dim 8
+])
+def test_window_attention_matches_plain(b, h, w, c, heads, ws, shift, masked,
+                                        dtype):
+    from paddle_tpu_torch.vision.models.swin import _shift_mask
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    qkv = _randn(gen, b, h, w, 3 * c, dtype=dtype)
+    bias = _randn(gen, heads, ws * ws, ws * ws, dtype=torch.float32)
+    mask = torch.from_numpy(_shift_mask((h, w), ws, shift)).cuda() \
+        if masked else None
+    got = WA.window_attention(qkv, bias, mask, ws, shift, heads)
+    want = WA.window_attention_reference(qkv, bias, mask, ws, shift, heads)
+    assert got.shape == (b, h, w, c) and got.dtype == dtype
+    _close(got, want, dtype)
+
+
+def test_window_attention_with_grad_raises_on_the_card():
+    qkv = torch.randn(1, 4, 4, 24, device="cuda", requires_grad=True)
+    bias = torch.zeros(2, 16, 16, device="cuda")
+    K.reset_launches()
+    with pytest.raises(NotImplementedError, match="Swin-T train"):
+        WA.window_attention(qkv, bias, None, 4, 0, 2)
+    with pytest.raises(NotImplementedError, match="Swin-T train"):
+        WA.window_attention(qkv.detach(), bias.requires_grad_(), None, 4, 0,
+                            2)
+    with torch.no_grad():
+        WA.window_attention(qkv, bias, None, 4, 0, 2)
+    assert K.launch_counts()["window_attention"] == 1
+
+
+def test_vision_wrappers_reject_what_the_kernels_do_not_take():
+    x = torch.randn(1, 4, 6, 6, device="cuda")
+    sc = torch.ones(8, device="cuda")
+    with pytest.raises(ValueError, match="neither"):
+        CN.conv_bn_act(x, torch.randn(8, 2, 3, 3, device="cuda"), sc, sc)
+    with pytest.raises(TypeError):
+        CN.conv_bn_act(x, torch.randn(8, 4, 3, 3, device="cuda",
+                                      dtype=torch.bfloat16), sc, sc)
+    with pytest.raises(ValueError, match="scale"):
+        CN.conv_bn_act(x, torch.randn(8, 4, 3, 3, device="cuda"),
+                       sc.double(), sc)
+    with pytest.raises(ValueError, match="act"):
+        CN.conv_bn_act(x, torch.randn(8, 4, 3, 3, device="cuda"), sc, sc,
+                       act="gelu")
+    with pytest.raises(ValueError, match="device"):      # a host weight
+        CN.conv_bn_act(x, torch.randn(8, 4, 3, 3), sc, sc)
+    qkv = torch.randn(1, 6, 6, 24, device="cuda")
+    bias = torch.zeros(2, 16, 16, device="cuda")
+    with pytest.raises(ValueError, match="window"):
+        WA.window_attention(qkv, bias, None, 4, 0, 2)     # 6 % 4 != 0
+    with pytest.raises(ValueError, match="mask"):
+        WA.window_attention(qkv[:, :4, :4], bias,
+                            torch.zeros(2, 16, 16, device="cuda"), 4, 2, 2)
+
+
+@pytest.mark.parametrize("name,kw,size,kernel,per_fwd", [
+    ("resnet18", dict(num_classes=10), 32, "conv_bn_act", 17),
+    ("resnext50_32x4d", dict(num_classes=10), 32, "conv_bn_act", 33),
+    ("MobileNetV2", dict(scale=0.25, num_classes=10), 32, "conv_bn_act",
+     35),
+    ("SwinTransformer", dict(img_size=56, embed_dim=24, depths=(2, 2),
+                             num_heads=(1, 2), window_size=7,
+                             num_classes=10), 56, "window_attention", 4),
+])
+def test_tiny_vision_models_on_the_card_match_cpu(name, kw, size, kernel,
+                                                  per_fwd):
+    """f32 logits of the card's forward (kernels) against the CPU's
+    (plain versions), and the exact launches per forward (ResNeXt's
+    grouped 3x3 convs take the composed path: 2 of 3 per block fused)."""
+    from paddle_tpu_torch.vision import models as V
+
+    cpu = getattr(V, name)(**kw, device="cpu", seed=3)
+    gpu = getattr(V, name)(**kw, seed=3)               # default: the card
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.from_numpy(np.random.RandomState(0).randn(
+        2, 3, size, size).astype(np.float32))
+    K.reset_launches()
+    with torch.inference_mode():
+        lg = gpu(x.cuda()).cpu()
+        counts = K.launch_counts()
+        lc = cpu(x)
+    assert counts[kernel] == per_fwd
+    assert ((lg - lc).norm() / lc.norm()).item() < 1e-4

@@ -13,7 +13,11 @@
   * attention's and rope's gradients on the card go through their
     kernels only, and every serving entry runs under
     ``torch.inference_mode()`` (the parameters are trainable, so serving
-    must build no graph).
+    must build no graph);
+  * the vision path: the fused conv reaches only the `conv_bn_act`
+    wrapper (the kernel on CUDA), Swin's attention only the
+    `window_attention` wrapper, and that wrapper refuses inputs that
+    require grad on CUDA before it could run anything.
 """
 from __future__ import annotations
 
@@ -110,6 +114,28 @@ def test_copied_module_matches_reference(rel):
         f"paddle_tpu_torch/{rel} drifted from paddle_tpu/{rel}"
 
 
+@pytest.mark.parametrize("name,kw", [
+    ("resnet18", dict(num_classes=10)),
+    ("MobileNetV2", dict(scale=0.25, num_classes=10)),
+    ("SwinTransformer", dict(img_size=56, embed_dim=24, depths=(2, 2),
+                             num_heads=(1, 2), window_size=7,
+                             num_classes=10)),
+])
+def test_vision_entry_points_default_to_cuda_in_eval_mode(name, kw):
+    from paddle_tpu_torch.vision import models as V
+
+    ctor = getattr(V, name)
+    if torch.cuda.is_available():
+        model = ctor(**kw)
+        assert next(model.parameters()).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            ctor(**kw)
+        model = ctor(**kw, device="cpu")
+    assert not model.training and not any(m.training
+                                          for m in model.modules())
+
+
 def test_entry_points_default_to_cuda():
     from paddle_tpu_torch.core.device import resolve_device
     from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
@@ -199,6 +225,14 @@ def test_non_cpu_tensors_never_run_plain_versions():
     for adjoint in (False, True):
         with pytest.raises(ValueError, match="device"):
             K.rope.rope(q, phases, phases, adjoint=adjoint)
+    x = torch.empty(1, 4, 6, 6, **meta)
+    sc = torch.empty(8, **meta)
+    with pytest.raises(ValueError, match="device"):
+        K.conv_norm.conv_bn_act(x, torch.empty(8, 4, 3, 3, **meta), sc, sc)
+    with pytest.raises(ValueError, match="device"):
+        K.window_attention.window_attention(
+            torch.empty(1, 4, 4, 24, **meta), torch.empty(2, 16, 16, **meta),
+            None, 4, 0, 2)
     assert K.launch_counts() == {n: 0 for n in K.KERNELS}
 
 
@@ -308,3 +342,52 @@ def test_serving_entries_run_under_inference_mode():
             eng.stop()
         assert len(seen) >= 9
         assert all(s == (True, False) for s in seen), seen
+
+
+def _calls(fn):
+    tree = ast.parse(textwrap.dedent(inspect.getsource(fn)))
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
+    return {ast.unparse(n.func) for n in ast.walk(tree)
+            if isinstance(n, ast.Call)}
+
+
+def test_conv_bn_act_reaches_only_the_kernel():
+    """The fused route of the vision models: `_fused.conv_bn_act` folds
+    and calls `ConvBNAct.apply`, whose forward calls the wrapper (the
+    kernel on CUDA) and no plain version; the backward is the plain
+    version's autograd, as the JAX custom VJP's."""
+    from paddle_tpu_torch.vision.models import _fused
+
+    called = _calls(_fused.conv_bn_act)
+    assert "ConvBNAct.apply" in called
+    assert not any(c.endswith("_reference") for c in called), called
+    fwd = _calls(K.conv_norm.ConvBNAct.forward)
+    assert "conv_bn_act" in fwd
+    assert not any(c.endswith("_reference") for c in fwd), fwd
+    assert "conv_bn_act_reference" in _calls(
+        K.conv_norm.ConvBNAct.backward)
+
+
+def test_window_attention_refuses_grad_on_cuda_before_any_work():
+    """In the wrapper the grad check sits after the CPU branch and before
+    the library is loaded, raising NotImplementedError: on CUDA an input
+    that requires grad never reaches the plain version (the backward
+    kernel is not ported) nor a launch.  Swin's attention calls only
+    the wrapper."""
+    from paddle_tpu_torch.vision.models import swin
+
+    fn = ast.parse(textwrap.dedent(inspect.getsource(
+        K.window_attention.window_attention))).body[0]
+    tests = [ast.unparse(n.test) if isinstance(n, ast.If) else None
+             for n in fn.body]
+    cpu = tests.index("qkv.device.type == 'cpu'")
+    grad = next(i for i, t in enumerate(tests) if t and "requires_grad" in t)
+    lib = next(i for i, n in enumerate(fn.body)
+               if "_build.library" in ast.unparse(n))
+    assert cpu < grad < lib
+    raised = fn.body[grad].body[0]
+    assert isinstance(raised, ast.Raise) and \
+        "NotImplementedError" in ast.unparse(raised.exc)
+    called = _calls(swin.WindowAttention.forward)
+    assert "window_attention" in called
+    assert not any(c.endswith("_reference") for c in called), called
