@@ -4,15 +4,16 @@
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --profile  # + torch.profiler breakdowns of
                                      #   the engine's decode step, of
-                                     #   one train step and of one
+                                     #   one GPT train step, of one
                                      #   ResNet-50 and one Swin-T batch
+                                     #   and of one Swin-T train step
 
 Phases (one line per phase, seconds included; any failure exits
 non-zero and prints no result):
 
   1. device: `nvidia-smi` name and power limit, torch's device name;
   2. build: every CUDA kernel with nvcc for sm_90a, one nvcc per source
-     (seven), all started together;
+     (eight), all started together;
   3. kernels: each kernel against its plain PyTorch version at the main
      path's shapes, in bf16 and f32, with its time, the plain version's,
      one PyTorch library call's where one computes the same function,
@@ -21,7 +22,10 @@ non-zero and prints no result):
      conv_bn_act and window_attention at every distinct shape that one
      bf16 forward of ResNet-50, MobileNetV2 and Swin-T at batch 64 gives
      them, recorded from that forward, and each kernel's summed time per
-     model forward);
+     model forward; window_attention_bwd at every distinct shape one bf16
+     Swin-T train step at batch 128 gives it, recorded from that step,
+     dqkv and dbias each held relative to its largest reference
+     gradient, and its summed time per step);
   4. serve: gpt_1p3b (full width, 24 layers, bf16, seeded random
      weights) behind `InferenceEngine` with the default EngineConfig;
      8 requests at once, three sharing a 512-token prefix (warm
@@ -65,11 +69,27 @@ non-zero and prints no result):
      inference_mode: images/s over 10 batches after 2 warm-ups, ms per
      batch, peak memory, exact launches per forward; the logits against
      the CPU port's plain f32 forward of the same weights within 5%
-     relative L2.
+     relative L2;
+ 15. vision_train_parity: Swin-T and ResNet-50 (224x224, 1000 classes,
+     full depth) in f32 at batch 2: 3 Momentum steps with
+     CrossEntropyLoss on the card through the kernels (TF32 off) and on
+     the CPU through the plain versions, each step from the CPU's state
+     (free-running ResNet-50 trajectories part after one step; that gap
+     is logged); the losses agree within 1e-3, ResNet-50's running
+     statistics within 1e-3 relative L2; window forward and backward
+     12 + 12 launches per Swin-T step, conv_bn_act 0 per ResNet-50 step
+     (training batch norm is not folded);
+ 16. vision_train: bench.py's vision rows, Swin-T at batch 128 and
+     ResNet-50 at batch 256, f32 masters, bf16 O2, Momentum(1e-3, 0.9),
+     CrossEntropyLoss, seeded numpy images and labels: 2 warm-up steps,
+     then `run_steps(repeat=10)` timed between synchronizes: images/s,
+     ms per step, MFU (bench.py's flops per image over 989 TFLOP/s),
+     peak memory, exact launches per step.  The loss must stay finite
+     and fall.
 
 Launch counters are reset just before the driven part of phases 4, 5,
-8, 9, 10, 12 and 14 and read just after each; every kernel of each path must
-have launched.  The line before last is the JSON kernel table
+8, 9, 10, 12, 14, 15 and 16 and read just after each; every kernel of
+each path must have launched.  The line before last is the JSON kernel table
 (`launches` summed over those paths); the last line is the device JSON.
 """
 from __future__ import annotations
@@ -234,11 +254,11 @@ def _causal_pairs(torch, sq, valid):
     return int((keep & valid[None]).sum())
 
 
-def kernel_cases(torch, dtype, vision):
+def kernel_cases(torch, dtype, vision, train):
     """(name, label, run_kernel, run_plain, library_fn, nbytes, flops,
     ops_dtype, real) at the main path's shapes: gpt_1p3b heads 16 x
     head_dim 128, then the other paths' (`vision`: the launches recorded
-    by `_vision_launches`).  `ops_dtype` names the peak rate that bounds
+    by `_vision_launches`; `train`: those of `_swin_train_launches`).  `ops_dtype` names the peak rate that bounds
     the operations (float32 where they cannot run on the tensor cores,
     whatever the storage type).
     `real` is the first query row that sees a valid key: rows before it
@@ -343,7 +363,8 @@ def kernel_cases(torch, dtype, vision):
                   4 * keysd * h * d, dname, 0))
     return (cases + bwd_cases(torch, dtype) + rope_cases(torch, dtype)
             + conv_cases(torch, dtype, vision)
-            + window_cases(torch, dtype, vision))
+            + window_cases(torch, dtype, vision)
+            + window_bwd_cases(torch, dtype, train))
 
 
 def _vision_launches(batch):
@@ -394,6 +415,40 @@ def _vision_launches(batch):
                   f"{calls} times in one forward, expected {per_fwd}")
     torch.cuda.empty_cache()
     return [(k, sig, uses) for (k, sig), uses in seen.items()]
+
+
+def _swin_train_launches(batch):
+    """Every distinct call that one bf16 O2 Swin-T train step at `batch` x
+    224x224 (bench.py's step: Momentum, CrossEntropyLoss) makes of
+    `window_attention_bwd` (qkv shape, heads, window, shift, whether a
+    mask is passed), recorded by wrapping the wrapper for that step:
+    [(signature, calls per step)].  The backward rows of phase 3 run at
+    exactly these shapes."""
+    from unittest import mock
+
+    import torch
+
+    from paddle_tpu_torch.ops.kernels import window_attention as WA
+
+    bwd = WA.window_attention_bwd
+    seen = {}
+
+    def rec(qkv, bias, mask, g, window_size, shift, num_heads):
+        sig = (tuple(qkv.shape), num_heads, window_size, shift,
+               mask is not None)
+        seen[sig] = seen.get(sig, 0) + 1
+        return bwd(qkv, bias, mask, g, window_size, shift, num_heads)
+
+    step, imgs, labels = _vision_train_step("swin_t", batch)
+    with mock.patch.object(WA, "window_attention_bwd", rec):
+        step(imgs, labels)
+    torch.cuda.synchronize()
+    calls = sum(seen.values())
+    check(calls == 12, f"kernels: one Swin-T train step called "
+          f"window_attention_bwd {calls} times, expected 12")
+    del step
+    torch.cuda.empty_cache()
+    return list(seen.items())
 
 
 def _vision_label(kernel, sig):
@@ -505,6 +560,68 @@ def window_cases(torch, dtype, vision):
                                                     heads),
             lambda q=q, k=k, v=v, am=am:
                 F.scaled_dot_product_attention(q, k, v, attn_mask=am),
+            nbytes, flops, dname, 0))
+    return cases
+
+
+def window_bwd_cases(torch, dtype, train):
+    """window_attention_bwd at every shape `train` recorded (Swin-T's
+    four stages in one bf16 train step at batch 128, shifted with the
+    mask and not, stage 4 one window with no shift); a seeded bias and
+    cotangent.  Bytes: qkv, g, bias, mask read once, dqkv and the summed
+    dbias written once; operations: 10 * ws^4 * head_dim per window and
+    head (the replayed scores, dP, dV, dQ, dK).  Library yardstick: the
+    backward of F.scaled_dot_product_attention on the partitioned [B*nW,
+    heads, ws^2, head_dim] q, k, v with bias + mask as attn_mask (no
+    bias gradient); its forward, the roll and the partition run outside
+    the timed call."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.kernels import window_attention as WA
+    from paddle_tpu_torch.vision.models.swin import _shift_mask
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    dev = "cuda"
+    isz = torch.empty((), dtype=dtype).element_size()
+    dname = str(dtype).split(".")[1]
+    cases = []
+    for sig, _ in train:
+        (b, h, w, c3), heads, ws, shift, masked = sig
+        c, p, hd = c3 // 3, ws * ws, c3 // 3 // heads
+        qkv = torch.randn(b, h, w, c3, generator=g, device=dev, dtype=dtype)
+        dout = torch.randn(b, h, w, c, generator=g, device=dev, dtype=dtype)
+        bias = torch.randn(heads, p, p, generator=g, device=dev)
+        mask = torch.from_numpy(_shift_mask((h, w), ws, shift)).to(dev) \
+            if masked else None
+        nw = (h // ws) * (w // ws)
+
+        def parts(x, ch, shift=shift):
+            x = torch.roll(x, (-shift, -shift), (1, 2)) if shift else x
+            return WA.window_partition(x, ws).reshape(b * nw, p, ch, heads,
+                                                      hd)
+
+        wins = parts(qkv, 3)
+        q, k, v = (wins[:, :, i].transpose(1, 2).contiguous()
+                   .requires_grad_() for i in range(3))
+        gt = parts(dout, 1)[:, :, 0].transpose(1, 2).contiguous()
+        full = bias[None] if mask is None else bias[None] + mask[:, None]
+        am = full.to(dtype).repeat(b, 1, 1, 1) if mask is not None \
+            else full.to(dtype)
+        out = F.scaled_dot_product_attention(q, k, v, attn_mask=am)
+        nbytes = (2 * qkv.numel() + dout.numel()) * isz \
+            + 2 * bias.numel() * 4 \
+            + (0 if mask is None else mask.numel() * 4)
+        flops = 10 * b * nw * heads * p * p * hd
+        cases.append((
+            "window_attention_bwd", _vision_label("window_attention", sig),
+            lambda qkv=qkv, bias=bias, mask=mask, d=dout, heads=heads, ws=ws,
+            sh=shift: WA.window_attention_bwd(qkv, bias, mask, d, ws, sh,
+                                              heads),
+            lambda qkv=qkv, bias=bias, mask=mask, d=dout, heads=heads, ws=ws,
+            sh=shift: WA.window_attention_bwd_reference(qkv, bias, mask, d,
+                                                        ws, sh, heads),
+            lambda out=out, q=q, k=k, v=v, gt=gt: torch.autograd.grad(
+                out, (q, k, v), gt, retain_graph=True),
             nbytes, flops, dname, 0))
     return cases
 
@@ -623,15 +740,26 @@ def phase_kernels():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     vision = _vision_launches(VISION_BATCH)
+    train = _swin_train_launches(SWIN_TRAIN_BATCH)
     table, worst, times = {}, {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
         tol = F32_TOL if dtype == torch.float32 else BF16_TOL
         for name, label, run, plain, lib, nbytes, flops, ops_dtype, real \
-                in kernel_cases(torch, dtype, vision):
+                in kernel_cases(torch, dtype, vision, train):
             got, want = run(), plain()
             rel = None
-            if name == "flash_bwd":      # (dq, dk, dv)
+            if name == "window_attention_bwd":    # (dqkv, dbias)
+                check(all(bool(torch.isfinite(x).all()) for x in got),
+                      f"{name} [{label} {dname}] non-finite gradient")
+                errs = [(a.float() - r.float()).abs().max().item()
+                        for a, r in zip(got, want)]
+                # each held relative to its largest reference gradient
+                refs = [r.float().abs().max().item() for r in want]
+                err = max(errs)
+                i = max(range(2), key=lambda i: errs[i] / refs[i])
+                rel, ref_max = errs[i] / refs[i], refs[i]
+            elif name == "flash_bwd":      # (dq, dk, dv)
                 check(all(bool(torch.isfinite(x).all()) for x in got),
                       f"{name} [{label} {dname}] non-finite gradient")
                 err = max((a.float() - r.float()).abs().max().item()
@@ -702,6 +830,18 @@ def phase_kernels():
                 f"{per_fwd} per forward, kernel {tot[0]:.3f} ms, plain "
                 f"{tot[1]:.3f} ms, library {tot[2]:.3f} ms, bound "
                 f"{tot[3]:.4f} ms")
+    # the backward kernel's time in one Swin-T train step
+    for dname in ("float32", "bfloat16"):
+        tot = [0.0, 0.0, 0.0, 0.0]
+        for sig, calls in train:
+            t = times[("window_attention_bwd",
+                       _vision_label("window_attention", sig), dname)]
+            for i in range(4):
+                tot[i] += calls * t[i]
+        log(f"[kernels] swin_t train step B{SWIN_TRAIN_BATCH} {dname}: "
+            f"window_attention_bwd x{sum(c for _, c in train)} per step, "
+            f"kernel {tot[0]:.3f} ms, plain {tot[1]:.3f} ms, library "
+            f"{tot[2]:.3f} ms, bound {tot[3]:.4f} ms")
     K.reset_launches()   # comparison launches do not count
     return table
 
@@ -1019,6 +1159,12 @@ def phase_train(card):
 VISION = (("resnet50", "conv_bn_act", 49), ("mobilenet_v2", "conv_bn_act", 35),
           ("swin_t", "window_attention", 12))
 VISION_BATCH = 64   # served batch; phase 3's vision rows take its shapes
+# the vision train step (bench.py:229-291, its first batch candidates,
+# :1322-1340): (model, batch, flops per image, launches per step)
+VISION_TRAIN = (("swin_t", 128, 3 * 4.5e9,
+                 {"window_attention": 12, "window_attention_bwd": 12}),
+                ("resnet50", 256, 3 * 4.09e9, {}))
+SWIN_TRAIN_BATCH = VISION_TRAIN[0][1]  # phase 3's backward rows take it
 
 
 def _vision_model(name, device, dtype):
@@ -1148,6 +1294,173 @@ def phase_vision_serve(card, batch=VISION_BATCH, iters=10, profile=False):
     return total
 
 
+def _vision_train_step(name, batch, amp_dtype="bfloat16", device="cuda"):
+    """bench.py's vision train step (:252-264): the model in f32 masters
+    with seeded weights, Momentum(lr 1e-3, momentum 0.9),
+    CrossEntropyLoss, `amp_dtype` O2; images and labels made with numpy
+    from seed 0, as bench.py makes them.  Returns (step, images,
+    labels), the batch on `device`."""
+    import torch
+
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed import build_train_step
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision import models as V
+
+    model = getattr(V, name)(device=device, seed=SEED)
+    step = build_train_step(model, Momentum(learning_rate=1e-3,
+                                            momentum=0.9),
+                            nn.CrossEntropyLoss(), amp_dtype=amp_dtype)
+    rs = np.random.RandomState(0)
+    imgs = torch.from_numpy(rs.randn(batch, 3, 224, 224).astype(
+        np.float32)).to(device)
+    labels = torch.from_numpy(rs.randint(0, 1000, (batch,)).astype(
+        np.int32)).to(device)
+    return step, imgs, labels
+
+
+def _launches_per_step(counts, want, steps, what):
+    """Exactly `want[kernel]` launches per step of every kernel named
+    there, and none of the others."""
+    for k, v in counts.items():
+        check(v == want.get(k, 0) * steps,
+              f"{what}: {k} launched {v} times in {steps} steps, expected "
+              f"{want.get(k, 0)} per step")
+
+
+def phase_vision_train_parity(batch=2, steps=3):
+    """f32 at full width and depth: `steps` Momentum steps of Swin-T and
+    ResNet-50 on the card through the kernels (TF32 off in cuBLAS and
+    cuDNN) and on the CPU through the plain versions, from the same
+    weights, batch-norm statistics and batch.
+
+    Free-running, ResNet-50's trajectories part after the first step
+    whatever computes them: at batch 2 its loss falls from 8.3 by more
+    than 1 per step, and rounding in the batch-norm backward moves the
+    next steps' losses by ~0.1 (the free-running gap is logged, not
+    held).  So every held step starts from one state: before it, the
+    card's parameters, running statistics and Momentum velocities are
+    set to the CPU's.  Held: each step's losses within 1e-3, then the
+    running statistics after the last step within 1e-3 relative L2, and
+    the launches per step exactly."""
+    import torch
+
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed import build_train_step
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.optimizer import Momentum
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rs = np.random.RandomState(SEED + 9)
+    x = rs.randn(batch, 3, 224, 224).astype(np.float32)
+    labels = rs.randint(0, 1000, (batch,)).astype(np.int32)
+
+    def steps_of(*models):
+        return [build_train_step(m, Momentum(learning_rate=1e-3,
+                                             momentum=0.9),
+                                 nn.CrossEntropyLoss()) for m in models]
+
+    for name, _, _, want in VISION_TRAIN:
+        cpu = _vision_model(name, "cpu", torch.float32)
+        gpu = _vision_model(name, "cuda", torch.float32)
+        init = {k: v.clone() for k, v in cpu.state_dict().items()}
+        gpu.load_state_dict(init)
+        free = [s.run_steps(x, labels, repeat=steps).cpu().numpy()
+                for s in steps_of(gpu, cpu)]
+        free_gap = float(np.abs(free[0] - free[1]).max())
+        for m in (gpu, cpu):
+            m.load_state_dict(init)
+        sg, sc = steps_of(gpu, cpu)
+        lg, lc = [], []
+        K.reset_launches()
+        for _ in range(steps):
+            gpu.load_state_dict(cpu.state_dict())
+            for n, slot in sc._state["slots"].items():
+                sg._state["slots"][n]["velocity"].copy_(slot["velocity"])
+            lg.append(float(sg(x, labels)))
+            lc.append(float(sc(x, labels)))
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        lg, lc = np.array(lg), np.array(lc)
+        gap = float(np.abs(lg - lc).max())
+        check(np.isfinite(lg).all() and np.isfinite(lc).all(),
+              f"vision_train_parity {name}: non-finite losses {lg} / {lc}")
+        check(gap <= 1e-3, f"vision_train_parity {name}: card {lg} vs cpu "
+              f"{lc}: max gap {gap:.3g} > 1e-3")
+        _launches_per_step(counts, want, steps,
+                           f"vision_train_parity {name}")
+        stats = [(n, _rel_l2(a.cpu(), b)) for (n, a), b in
+                 zip(gpu.named_buffers(), cpu.buffers())
+                 if n.endswith(("_mean", "_variance"))]
+        worst = max(stats, key=lambda t: t[1], default=("none", 0.0))
+        check(worst[1] <= 1e-3, f"vision_train_parity {name}: running "
+              f"statistic {worst[0]} rel L2 {worst[1]:.3g} > 1e-3")
+        log(f"[vision_train_parity] {name} f32 B{batch} 224, {steps} "
+            f"Momentum steps from the CPU's state each: card {lg.tolist()} "
+            f"cpu {lc.tolist()} max gap {gap:.3g} (tol 1e-3); "
+            f"{len(stats)} running statistics, worst rel L2 {worst[1]:.3g} "
+            f"({worst[0]}, tol 1e-3); free-running card {free[0].tolist()} "
+            f"cpu {free[1].tolist()} gap {free_gap:.3g} (not held); "
+            f"launches per step "
+            f"{json.dumps({k: v / steps for k, v in counts.items() if v})}")
+        del cpu, gpu, sg, sc
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_vision_train(card, iters=10, profile=False):
+    """bench.py's vision rows on the card: Swin-T at batch 128 and
+    ResNet-50 at batch 256, bf16 O2 over f32 masters, 2 warm-up steps,
+    then `run_steps(repeat=iters)` timed between synchronizes: images/s,
+    ms per step, MFU (images/s x bench.py's flops per image / 989
+    TFLOP/s), peak memory, exact launches per step.  The loss must stay
+    finite and fall.  Returns the launch counts of the timed runs."""
+    import torch
+
+    from paddle_tpu_torch.ops import kernels as K
+
+    total = {}
+    for name, batch, flops_per_image, want in VISION_TRAIN:
+        step, imgs, labels = _vision_train_step(name, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        warm = [float(step(imgs, labels)) for _ in range(2)]
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        losses = step.run_steps(imgs, labels, repeat=iters)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = K.launch_counts()
+        losses = losses.cpu().numpy()
+        peak = torch.cuda.max_memory_allocated()
+        ips = batch * iters / dt
+        mfu = ips * flops_per_image / PEAK_FLOPS["bfloat16"]
+        check(np.isfinite(warm).all() and np.isfinite(losses).all(),
+              f"vision_train {name}: non-finite loss {warm} "
+              f"{losses.tolist()}")
+        check(losses[-1] < warm[0], f"vision_train {name}: loss did not "
+              f"fall ({warm[0]} -> {losses[-1]})")
+        _launches_per_step(counts, want, iters, f"vision_train {name}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        log(f"[vision_train] {name} bf16 O2 B{batch} 224 ({card}): "
+            f"{ips:.1f} images/s, {1e3 * dt / iters:.2f} ms/step over "
+            f"{iters} steps, MFU {100 * mfu:.2f}% of "
+            f"{PEAK_FLOPS['bfloat16'] / 1e12:.0f} TFLOP/s ({flops_per_image:.4g}"
+            f" flops/image), peak memory {peak / 2**30:.2f} GiB; loss "
+            f"{warm[0]:.4f} -> {losses[-1]:.4f}; launches per step "
+            f"{json.dumps({k: v / iters for k, v in counts.items() if v})}")
+        if profile and name == "swin_t":
+            phase_profile_train(step, imgs, labels, steps=1,
+                                what=f"swin_t bf16 B{batch} train step")
+        del step, imgs, labels
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
 def _profile_forward(model, x, what, steps=3):
     """torch.profiler over `steps` forwards (inside inference mode)."""
     import torch
@@ -1165,7 +1478,7 @@ def _profile_forward(model, x, what, steps=3):
 
 
 # ------------------------------------------------- optional: --profile
-def phase_profile_train(step, ids, labels, steps=3):
+def phase_profile_train(step, ids, labels, steps=3, what="train step"):
     """torch.profiler over `steps` train steps: device busy share and
     the device rows that hold the step."""
     import torch
@@ -1178,7 +1491,7 @@ def phase_profile_train(step, ids, labels, steps=3):
         step.run_steps(ids, labels, repeat=steps)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    _log_profile(prof, "train step", wall_ms, steps)
+    _log_profile(prof, what, wall_ms, steps)
 
 
 def _log_profile(prof, what, wall_ms, steps):
@@ -1199,16 +1512,25 @@ def _log_profile(prof, what, wall_ms, steps):
         f"device busy {busy / steps:.3f} ms/step "
         f"({100 * busy / wall_ms:.1f}% busy), {launches / steps:.0f} device"
         f" ops/step")
-    # device time by kind: the port's kernels, cuBLAS GEMMs, copies and
-    # casts, the rest (elementwise, reductions, indexing)
-    kinds = {"port kernels": 0.0, "gemm": 0.0, "copy/cast": 0.0,
-             "other": 0.0}
+    # device time by kind: the window kernels, the port's other kernels,
+    # cuBLAS GEMMs and cuDNN convs, the optimizer's foreach kernels,
+    # norms / activations / reductions, copies and casts, the rest
+    kinds = {"window fwd": 0.0, "window bwd": 0.0, "port kernels": 0.0,
+             "gemm/conv": 0.0, "optimizer": 0.0, "norm/act/reduce": 0.0,
+             "copy/cast": 0.0, "other": 0.0}
     for e in kernels:
         name = e.key.lower()
-        kind = ("port kernels" if "flash_" in name or "_attention_kernel"
+        kind = ("window bwd" if "window_attention_bwd" in name
+                else "window fwd" if "window_attention_kernel" in name
+                else "port kernels" if "flash_" in name or "_attention_kernel"
                 in name or "rope_" in name or "conv_dense" in name
                 or "conv_depthwise" in name
-                else "gemm" if "nvjet" in name or "gemm" in name
+                else "gemm/conv" if "nvjet" in name or "gemm" in name
+                or "conv" in name or "cudnn" in name or "sm90" in name
+                else "optimizer" if "multi_tensor" in name
+                or "foreach" in name
+                else "norm/act/reduce" if "reduce" in name or "norm" in name
+                or "gelu" in name or "softmax" in name
                 else "copy/cast" if "copy" in name else "other")
         kinds[kind] += dev(e) / steps
     log("[profile] device by kind (ms/step): " + ", ".join(
@@ -1336,6 +1658,10 @@ def main():
         run("vision_parity", phase_vision_parity)
         paths.append(run("vision_serve", phase_vision_serve, card,
                          VISION_BATCH, 10, profile))
+        release()
+        run("vision_train_parity", phase_vision_train_parity)
+        paths.append(run("vision_train", phase_vision_train, card, 10,
+                         profile))
         rows = []
         for name, k in K.KERNELS.items():
             row = table[(name, "bfloat16")]

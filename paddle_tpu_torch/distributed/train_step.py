@@ -3,14 +3,17 @@
 device.
 
 The model's own float32 parameters are the master weights, updated in
-place, and the optimizer keeps its f32 moments.  One step: with
+place, and the optimizer keeps its f32 slots.  One step: with
 ``amp_dtype`` the forward runs on casts of the masters to that dtype,
 swapped in for the model's parameters by `torch.func.functional_call`
-(the JAX step's `bind_state` plus its O2 cast, :303-314), so gradients
-reach the masters through the cast and a tied weight (GPT's `wte`, read
-by the embedding and by the fused head) collects the gradient of every
-use; the loss comes back as f32.  Then the optimizer applies its rule
-to the masters.
+(the JAX step's `bind_state` plus its O2 cast, :303-314), and floating
+inputs enter in that dtype too (`_amp_in`).  Gradients reach the masters
+through the cast, and a tied weight (GPT's `wte`, read by the embedding
+and by the fused head) collects the gradient of every use; the loss
+comes back as f32.  Then the optimizer applies its rule to the masters.
+Buffers are not swapped: a batch norm in training mode updates the
+model's own f32 running statistics in place during the forward, where
+the JAX step threads them through as `new_buffers` (:327).
 
 The rest of the JAX step is not ported: the multi-device half (ZeRO
 stages, quantized collectives), its resilience hooks (guard, checkpoint
@@ -80,8 +83,18 @@ class DistributedTrainStep:
         self._state = optimizer.init_state(self._params)
 
     def _place(self, batch):
-        """Batch leaves (token ids, labels) onto the model's device."""
-        return tuple(torch.as_tensor(b).to(self._device) for b in batch)
+        """Batch leaves (images or token ids, labels) onto the model's
+        device.  Under `amp_dtype` a floating leaf enters in that dtype,
+        an integer one (token ids, class labels) as it is: the JAX
+        step's `_amp_in` (:308-313, O2 semantics: a conv or matmul
+        meets its cast weight in one dtype)."""
+        placed = []
+        for b in batch:
+            b = torch.as_tensor(b).to(self._device)
+            if self.amp_dtype is not None and b.is_floating_point():
+                b = b.to(self.amp_dtype)
+            placed.append(b)
+        return tuple(placed)
 
     def _step(self, batch):
         self.model.train()

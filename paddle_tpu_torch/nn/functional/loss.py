@@ -4,12 +4,37 @@ from __future__ import annotations
 import torch
 
 
-def cross_entropy(input, label, ignore_index=-100):
+def check_ported(weight=None, reduction="mean", soft_label=False, axis=-1,
+                 use_softmax=True, label_smoothing=0.0):
+    """Raise NotImplementedError for the options of `cross_entropy` the
+    port does not have, rather than silently differ: class weights, a
+    reduction other than the mean, soft labels, label smoothing, another
+    axis than the last and ``use_softmax=False``."""
+    unported = {"weight": weight is not None, "reduction": reduction != "mean",
+                "soft_label": bool(soft_label), "axis": axis != -1,
+                "use_softmax": not use_softmax,
+                "label_smoothing": bool(label_smoothing)}
+    for name, set_ in unported.items():
+        if set_:
+            raise NotImplementedError(
+                f"cross_entropy({name}=...) is not ported yet (ROADMAP "
+                "Queue A): the mean over hard labels on the last axis only")
+
+
+def cross_entropy(input, label, weight=None, ignore_index=-100,
+                  reduction="mean", soft_label=False, axis=-1,
+                  use_softmax=True, label_smoothing=0.0):
     """Hard-label cross entropy over the last axis, mean over the tokens
     whose label is not `ignore_index` (their count clamped at 1e-12, as
     the JAX package does): log-softmax in the input's dtype, the
-    target's log-probability picked.  The other reductions, soft labels,
-    class weights and label smoothing are not ported."""
+    target's log-probability picked.  The options `check_ported` names
+    raise."""
+    check_ported(weight, reduction, soft_label, axis, use_softmax,
+                 label_smoothing)
+    if label.is_floating_point():
+        raise NotImplementedError(
+            "cross_entropy with floating (soft) labels is not ported yet "
+            "(ROADMAP Queue A); pass integer class ids")
     logp = torch.log_softmax(input, dim=-1)
     label = label.long()
     valid = label != ignore_index

@@ -1,6 +1,5 @@
-"""layer_norm, rms_norm and batch_norm's inference branch
-(``paddle_tpu/nn/functional/norm.py:19``, ``:37`` and ``:95-108``
-counterparts)."""
+"""layer_norm, rms_norm and batch_norm (``paddle_tpu/nn/functional/
+norm.py:19``, ``:37`` and ``:52-108`` counterparts)."""
 from __future__ import annotations
 
 import torch
@@ -44,24 +43,35 @@ def rms_norm(x, weight=None, bias=None, epsilon=1e-6, begin_norm_axis=-1):
 
 
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,
-               training=False, epsilon=1e-5):
-    """Inference batch norm over channel axis 1 (NCHW; axis 1 of a 2-D
-    input too), the JAX package's order: for half-precision inputs
-    normalise in f32 with the running statistics, cast the normalised
-    value back to x's dtype, THEN weight and bias in that dtype.  (The
-    fused `conv_bn_act` folds the same statistics in another order.)
-    Batch statistics (training mode) come with the ResNet training
-    slice: ``training=True`` raises."""
-    if training:
-        raise NotImplementedError(
-            "batch_norm with training=True (batch statistics) is not "
-            "ported yet: it comes with the ResNet training slice (ROADMAP "
-            "Queue A); call it in eval mode")
+               training=False, momentum=0.9, epsilon=1e-5):
+    """Batch norm over channel axis 1 (NCHW; axis 1 of a 2-D input too),
+    the JAX package's order: for half-precision inputs normalise in f32,
+    cast the normalised value back to x's dtype, THEN weight and bias in
+    that dtype.  Inference uses the running statistics.  In training the
+    biased batch mean and variance (f32 for half-precision inputs)
+    normalise, and the f32 running statistics are updated in place,
+    outside autograd, by Paddle's convention: ``m * running + (1 - m) *
+    batch`` with the unbiased variance ``var * n / (n - 1)``.  (The fused
+    `conv_bn_act` folds the inference statistics in another order.)"""
     shape = [1] * x.dim()
     shape[1] = -1
     x32 = _stats_dtype(x)
-    out = ((x32 - running_mean.reshape(shape))
-           * torch.rsqrt(running_var.reshape(shape) + epsilon)).to(x.dtype)
+    if training:
+        # var = mean((x - mean)^2), as jnp.var: autograd then keeps one
+        # f32 copy of the activation (the centred x), not two
+        axes = tuple(i for i in range(x.dim()) if i != 1)
+        mean = x32.mean(dim=axes)
+        centred = x32 - mean.reshape(shape)
+        var = centred.square().mean(dim=axes)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            running_mean.mul_(momentum).add_(mean.float(),
+                                             alpha=1 - momentum)
+            running_var.mul_(momentum).add_(
+                var.float() * (n / max(1, n - 1)), alpha=1 - momentum)
+    else:
+        centred, var = x32 - running_mean.reshape(shape), running_var
+    out = (centred * torch.rsqrt(var.reshape(shape) + epsilon)).to(x.dtype)
     if weight is not None:
         out = out * weight.reshape(shape)
     if bias is not None:

@@ -1,12 +1,14 @@
-"""BatchNorm2D (``paddle_tpu/nn/layers_norm.py:99`` counterpart), for
-inference.
+"""BatchNorm2D (``paddle_tpu/nn/layers_norm.py:99`` counterpart; the
+forward of `_BatchNormBase` :59-86).
 
 Names match the JAX package's ``functional_state()``: parameters
 `weight` (ones) and `bias` (zeros) in the layer's dtype, persistent
 buffers `_mean` (zeros) and `_variance` (ones), always f32 as the JAX
 package keeps them, so `load_reference_state(model, params, buffers)`
-carries trained statistics across.  A forward in training mode raises:
-batch statistics come with the ResNet training slice.
+carries trained statistics across.  In training mode the forward
+normalises with the batch statistics and updates the running ones in
+place with `momentum` (Paddle's convention: 0.9 keeps 90% of the old
+value).
 """
 from __future__ import annotations
 
@@ -17,10 +19,11 @@ from .functional import batch_norm
 
 
 class BatchNorm2D(nn.Module):
-    def __init__(self, num_features, epsilon=1e-5, *, device,
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-5, *, device,
                  dtype=torch.float32):
         super().__init__()
         self.num_features = num_features
+        self.momentum = momentum
         self.epsilon = epsilon
         self.weight = nn.Parameter(torch.ones(num_features, device=device,
                                               dtype=dtype))
@@ -34,4 +37,4 @@ class BatchNorm2D(nn.Module):
     def forward(self, x):
         return batch_norm(x, self._mean, self._variance, self.weight,
                           self.bias, training=self.training,
-                          epsilon=self.epsilon)
+                          momentum=self.momentum, epsilon=self.epsilon)

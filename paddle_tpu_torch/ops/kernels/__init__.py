@@ -48,6 +48,11 @@ KERNELS = {
                                "window_attention_reference", "launches",
                                window_attention.SOURCE,
                                window_attention.REPLACES),
+    "window_attention_bwd": Kernel(window_attention, "window_attention_bwd",
+                                   "window_attention_bwd_reference",
+                                   "bwd_launches",
+                                   window_attention.BWD_SOURCE,
+                                   window_attention.BWD_REPLACES),
 }
 
 

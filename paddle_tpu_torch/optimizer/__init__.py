@@ -1,6 +1,6 @@
 """Optimizers of the port (``paddle_tpu/optimizer`` counterpart)."""
 from __future__ import annotations
 
-from .optimizer import Adam, AdamW  # noqa: F401
+from .optimizer import Adam, AdamW, Momentum  # noqa: F401
 
-__all__ = ["Adam", "AdamW"]
+__all__ = ["Adam", "AdamW", "Momentum"]

@@ -1,17 +1,81 @@
-"""Adam / AdamW, the functional rule of ``paddle_tpu/optimizer/
-optimizer.py`` (`Optimizer.init_state` / `apply_gradients` :107-135,
-`Adam.update` :336-352, `AdamW` :358-384).
+"""Momentum, Adam and AdamW, the functional rules of ``paddle_tpu/
+optimizer/optimizer.py`` (`Optimizer.init_state` / `apply_gradients`
+:107-135, `Momentum.update` :271-291, `Adam.update` :336-352, `AdamW`
+:358-384).
 
-State is a dict ``{"slots": {name: {"moment1", "moment2"}}, "step": t}``
-with f32 moments, as in the JAX package.  Where the JAX rule returns new
-arrays, `apply_gradients` here updates the parameters and the moments in
-place (``torch._foreach_*``), which saves a copy of both; it returns
-them for symmetry.  A learning-rate scheduler, amsgrad, gradient
-clipping, parameter groups and the other optimizers are not ported.
+State is a dict ``{"slots": {name: slots}, "step": t}`` with f32 slots
+(Momentum's `velocity`, Adam's `moment1` and `moment2`), as in the JAX
+package.  Where the JAX rule returns new arrays, `apply_gradients` here
+updates the parameters and the slots in place (``torch._foreach_*``),
+which saves a copy of both; it returns them for symmetry.  A
+learning-rate scheduler, amsgrad, gradient clipping, parameter groups
+and the other optimizers are not ported.
 """
 from __future__ import annotations
 
 import torch
+
+
+def _float_lr(learning_rate) -> float:
+    if not isinstance(learning_rate, (int, float)):
+        raise NotImplementedError(
+            "learning-rate schedulers are not ported yet (ROADMAP "
+            "Queue A); pass a float")
+    return float(learning_rate)
+
+
+def _with_grads(params, grads):
+    """The names whose gradient is not None, their f32 master parameters
+    and their gradients in f32."""
+    names = [n for n in params if grads.get(n) is not None]
+    ps = [params[n] for n in names]
+    if any(p.dtype != torch.float32 for p in ps):
+        raise TypeError("apply_gradients updates float32 (master) "
+                        "parameters only")
+    return names, ps, [grads[n].float() for n in names]
+
+
+class Momentum:
+    """SGD with momentum: v = mu * v + g, then p -= lr * v, or with
+    Nesterov p -= lr * (g + mu * v); weight decay, when given, is L2
+    added to the gradient first.  `parameters` is accepted for the
+    reference's signature; the train step passes the parameters to
+    `apply_gradients` itself."""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None):
+        self._learning_rate = _float_lr(learning_rate)
+        self._momentum = float(momentum)
+        self._nesterov = bool(use_nesterov)
+        self._coeff = float(weight_decay or 0.0)
+
+    def get_lr(self) -> float:
+        return self._learning_rate
+
+    def init_state(self, params: dict) -> dict:
+        """params: name -> tensor.  Zero f32 velocities and step 0."""
+        slots = {n: {"velocity": torch.zeros(p.shape, dtype=torch.float32,
+                                             device=p.device)}
+                 for n, p in params.items()}
+        return {"slots": slots, "step": 0}
+
+    @torch.no_grad()
+    def apply_gradients(self, params: dict, grads: dict, state: dict):
+        """One step on f32 parameters, in place.  A name whose gradient
+        is None is skipped.  Returns (params, state)."""
+        names, ps, gs = _with_grads(params, grads)
+        if self._coeff:
+            gs = torch._foreach_add(gs, ps, alpha=self._coeff)
+        v = [state["slots"][n]["velocity"] for n in names]
+        torch._foreach_mul_(v, self._momentum)
+        torch._foreach_add_(v, gs)
+        if self._nesterov:
+            step = torch._foreach_add(gs, v, alpha=self._momentum)
+        else:
+            step = v
+        torch._foreach_add_(ps, step, alpha=-self._learning_rate)
+        state["step"] = state["step"] + 1
+        return params, state
 
 
 class Adam:
@@ -21,11 +85,7 @@ class Adam:
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=None):
-        if not isinstance(learning_rate, (int, float)):
-            raise NotImplementedError(
-                "learning-rate schedulers are not ported yet (ROADMAP "
-                "Queue A); pass a float")
-        self._learning_rate = float(learning_rate)
+        self._learning_rate = _float_lr(learning_rate)
         self._beta1 = beta1
         self._beta2 = beta2
         self._epsilon = epsilon
@@ -57,12 +117,7 @@ class Adam:
         Returns (params, state)."""
         lr = self._learning_rate
         t = state["step"] + 1
-        names = [n for n in params if grads.get(n) is not None]
-        ps = [params[n] for n in names]
-        if any(p.dtype != torch.float32 for p in ps):
-            raise TypeError("apply_gradients updates float32 (master) "
-                            "parameters only")
-        gs = [grads[n].float() for n in names]
+        names, ps, gs = _with_grads(params, grads)
         m = [state["slots"][n]["moment1"] for n in names]
         v = [state["slots"][n]["moment2"] for n in names]
         gs = self._decay(ps, gs, lr)

@@ -1,5 +1,6 @@
 """Vision models of the port (``paddle_tpu/vision/models`` counterpart):
-ResNet (and ResNeXt, wide ResNet), MobileNetV2 and Swin for inference.
+ResNet (and ResNeXt, wide ResNet), MobileNetV2 and Swin, for inference
+and training.
 ViT, VGG, LeNet and the ``extras.py`` families are not ported yet
 (ROADMAP Queue A)."""
 from __future__ import annotations

@@ -8,6 +8,9 @@ convs of the ResNeXt presets take the composed path (the kernel is dense
 or depthwise).  Names and shapes equal the JAX model's
 ``functional_state()``.  Models are built in eval mode on `device`
 (``None`` = CUDA), parameters drawn from a generator seeded with `seed`.
+In training mode batch norm takes batch statistics, which `_fusable`
+refuses to fold, so every conv takes the composed route (no
+`conv_bn_act` launch), as in the JAX package.
 """
 from __future__ import annotations
 

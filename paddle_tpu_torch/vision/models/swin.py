@@ -9,8 +9,12 @@ constant of `_bias_onehot`, as in the JAX package; the shift
 mask is built in numpy exactly as there (-100.0 across regions, no
 shift when the window covers the feature map).  Both constants are
 non-persistent buffers: ``functional_state()`` has no buffers for Swin.
-Names and shapes equal the JAX model's.  The backward of the window
-kernel comes with the Swin-T train slice.
+Names and shapes equal the JAX model's.  In training (``model.train()``,
+`drop_rate` 0) the window attention differentiates through the
+backward kernel on the card (`WindowAttentionCore`, 12 launches per
+Swin-T step), and through the plain version on the CPU; under the train
+step's O2 cast the dense bias is still formed in f32 from the bf16
+table, and the mask stays an f32 constant with no gradient.
 """
 from __future__ import annotations
 
@@ -145,8 +149,8 @@ class PatchMerging(torch.nn.Module):
 
 class SwinTransformer(torch.nn.Module):
     """Built in eval mode on `device` (``None`` = CUDA), parameters drawn
-    from a generator seeded with `seed`.  Dropout is not ported
-    (`drop_rate` > 0 raises)."""
+    from a generator seeded with `seed`; ``.train()`` trains it.  Dropout
+    is not ported (`drop_rate` > 0 raises)."""
 
     def __init__(self, img_size=224, patch_size=4, in_ch=3, num_classes=1000,
                  embed_dim=96, depths=(2, 2, 6, 2), num_heads=(3, 6, 12, 24),

@@ -16,8 +16,10 @@
     must build no graph);
   * the vision path: the fused conv reaches only the `conv_bn_act`
     wrapper (the kernel on CUDA), Swin's attention only the
-    `window_attention` wrapper, and that wrapper refuses inputs that
-    require grad on CUDA before it could run anything.
+    `window_attention` wrapper, which on CUDA sends inputs that require
+    grad through `WindowAttentionCore` before it could run anything;
+    that function's forward and backward reach only the two window
+    wrappers (the kernels on CUDA), never a plain version.
 """
 from __future__ import annotations
 
@@ -229,10 +231,17 @@ def test_non_cpu_tensors_never_run_plain_versions():
     sc = torch.empty(8, **meta)
     with pytest.raises(ValueError, match="device"):
         K.conv_norm.conv_bn_act(x, torch.empty(8, 4, 3, 3, **meta), sc, sc)
+    qkv, bias = torch.empty(1, 4, 4, 24, **meta), torch.empty(2, 16, 16,
+                                                                **meta)
+    with pytest.raises(ValueError, match="device"):
+        K.window_attention.window_attention(qkv, bias, None, 4, 0, 2)
     with pytest.raises(ValueError, match="device"):
         K.window_attention.window_attention(
-            torch.empty(1, 4, 4, 24, **meta), torch.empty(2, 16, 16, **meta),
-            None, 4, 0, 2)
+            qkv.requires_grad_(), bias, None, 4, 0, 2)
+    with pytest.raises(ValueError, match="device"):
+        K.window_attention.window_attention_bwd(
+            qkv.detach(), bias, None, torch.empty(1, 4, 4, 8, **meta), 4, 0,
+            2)
     assert K.launch_counts() == {n: 0 for n in K.KERNELS}
 
 
@@ -369,25 +378,37 @@ def test_conv_bn_act_reaches_only_the_kernel():
 
 
 def test_window_attention_refuses_grad_on_cuda_before_any_work():
-    """In the wrapper the grad check sits after the CPU branch and before
-    the library is loaded, raising NotImplementedError: on CUDA an input
-    that requires grad never reaches the plain version (the backward
-    kernel is not ported) nor a launch.  Swin's attention calls only
-    the wrapper."""
+    """Inputs that require grad on CUDA leave the wrapper for the
+    autograd function before any work: in the wrapper the CPU branch
+    comes first, then the grad check, whose branch returns
+    `WindowAttentionCore.apply`, then the input checks and the library.
+    The function's forward calls only the wrapper and its backward only
+    `window_attention_bwd` (the kernels on CUDA), with nothing caught
+    and no plain version; Swin's attention calls only the wrapper."""
     from paddle_tpu_torch.vision.models import swin
 
+    wa = K.window_attention
     fn = ast.parse(textwrap.dedent(inspect.getsource(
-        K.window_attention.window_attention))).body[0]
+        wa.window_attention))).body[0]
     tests = [ast.unparse(n.test) if isinstance(n, ast.If) else None
              for n in fn.body]
     cpu = tests.index("qkv.device.type == 'cpu'")
     grad = next(i for i, t in enumerate(tests) if t and "requires_grad" in t)
+    work = next(i for i, n in enumerate(fn.body)
+                if "_checked" in ast.unparse(n))
     lib = next(i for i, n in enumerate(fn.body)
                if "_build.library" in ast.unparse(n))
-    assert cpu < grad < lib
-    raised = fn.body[grad].body[0]
-    assert isinstance(raised, ast.Raise) and \
-        "NotImplementedError" in ast.unparse(raised.exc)
+    assert cpu < grad < work < lib
+    routed = fn.body[grad].body[0]
+    assert isinstance(routed, ast.Return) and \
+        ast.unparse(routed.value.func) == "WindowAttentionCore.apply"
+    for method, wrapper in ((wa.WindowAttentionCore.forward,
+                             "window_attention"),
+                            (wa.WindowAttentionCore.backward,
+                             "window_attention_bwd")):
+        called = _calls(method)
+        assert wrapper in called, called
+        assert not any(c.endswith("_reference") for c in called), called
     called = _calls(swin.WindowAttention.forward)
     assert "window_attention" in called
     assert not any(c.endswith("_reference") for c in called), called

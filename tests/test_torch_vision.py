@@ -17,7 +17,9 @@ buffers)`: ResNet-50, ResNet-18 and ResNeXt-50 (grouped 3x3 convs on the
 composed path) at 32x32, MobileNetV2 at scale 0.25, and a two-stage Swin
 with a shifted block and a single-window stage, eval logits within 1e-4
 of the largest reference logit.  Also: the strict name and shape check
-of the buffers, training mode refused, and the fused gradient against
+of the buffers, what training mode refuses and runs (its batch norm and
+composed convs; the training slice itself is
+``tests/test_torch_vision_train.py``), and the fused gradient against
 `jax.grad` of the reference.  On the CPU the kernel wrappers run their
 plain versions, so nothing here launches a kernel.
 """
@@ -306,33 +308,47 @@ def test_load_reference_state_checks_buffers_strictly():
 
 
 def test_training_mode_is_refused():
-    """BN in training mode (batch statistics) comes with the ResNet
-    training slice: the layer, the functional and a model in train mode
-    raise; `_fusable` refuses training BN, so nothing folds."""
-    from paddle_tpu_torch.vision.models._fused import _fusable
+    """What training mode refuses, and what it runs.  Swin's dropout
+    (`drop_rate` > 0) raises.  Batch norm in training mode takes batch
+    statistics: `_fusable` refuses to fold it, so a ResNet in train mode
+    runs the composed conv, batch norm and act (no `conv_bn_act` call)
+    and updates the running statistics, with logits equal to the JAX
+    model's in train mode."""
+    from paddle_tpu_torch.vision.models import _fused
 
     kw = dict(device="cpu")
-    bn = tnn.BatchNorm2D(4, **kw).eval()
-    conv = tnn.Conv2D(3, 4, 3, padding=1, bias_attr=False, **kw)
-    x = torch.randn(1, 3, 5, 5)
-    assert _fusable(conv, bn, "relu")
-    bn.train()
-    assert not _fusable(conv, bn, "relu")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        bn(conv(x))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        TF.batch_norm(x, torch.zeros(3), torch.ones(3), training=True)
-    model = TV.resnet18(num_classes=10, **kw).train()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        model(torch.randn(1, 3, 32, 32))
     with pytest.raises(NotImplementedError, match="drop_rate"):
         TV.SwinTransformer(**SWIN_SMALL, drop_rate=0.1, **kw)
+    bn = tnn.BatchNorm2D(4, **kw).eval()
+    conv = tnn.Conv2D(3, 4, 3, padding=1, bias_attr=False, **kw)
+    assert _fused._fusable(conv, bn, "relu")
+    bn.train()
+    assert not _fused._fusable(conv, bn, "relu")
+    jm, tm, size = _pair("resnet18")
+    jm.train()
+    tm.train()
+    x = np.random.RandomState(2).randn(8, 3, size, size).astype(np.float32)
+    ref = np.asarray(jm(P.to_tensor(x)).numpy())
+    before = tm.bn1._mean.clone()
+    calls = []
+    kernel = CN.ConvBNAct.apply
+    CN.ConvBNAct.apply = lambda *a: calls.append(1) or kernel(*a)
+    try:
+        got = tm(_t(x)).detach().numpy()
+    finally:
+        CN.ConvBNAct.apply = kernel
+    assert not calls
+    assert not torch.equal(tm.bn1._mean, before)
+    np.testing.assert_allclose(tm.bn1._mean.numpy(), jm.bn1._mean.numpy(),
+                               **TOL)
+    scale = max(1.0, float(np.abs(ref).max()))
+    assert float(np.abs(got - ref).max()) <= 1e-4 * scale
 
 
 def test_swin_cpu_forward_differentiates_the_plain_version():
     """On the CPU the window wrapper runs the plain version, so a Swin
-    block's rel-pos table gets a gradient there (the card raises until
-    the backward kernel is ported)."""
+    block's rel-pos table gets a gradient there (on the card through
+    the backward kernel)."""
     model = TV.SwinTransformer(**SWIN_SMALL, device="cpu")
     model(torch.randn(1, 3, 56, 56)).square().mean().backward()
     g = model.blocks[1].attn.rel_bias.grad
