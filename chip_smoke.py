@@ -13,7 +13,7 @@ non-zero and prints no result):
 
   1. device: `nvidia-smi` name and power limit, torch's device name;
   2. build: every CUDA kernel with nvcc for sm_90a, one nvcc per source
-     (eight), all started together;
+     (nine), all started together;
   3. kernels: each kernel against its plain PyTorch version at the main
      path's shapes, in bf16 and f32, with its time, the plain version's,
      one PyTorch library call's where one computes the same function,
@@ -87,10 +87,42 @@ non-zero and prints no result):
      peak memory, exact launches per step.  The loss must stay finite
      and fall.
 
+ 17. varlen: `nn.functional.flash_attn_unpadded` forward and backward on
+     one packed batch at GPT-125M attention widths (12 heads of 64, 8192
+     tokens in 9 sequences of 1 to 4180 and an empty one): causal, not
+     causal, and not causal over keys packed twice as long (16384), in
+     bf16 and f32; one varlen_fwd and one varlen_bwd launch each, held
+     against the dense flash kernels run on each sequence alone;
+ 18. fused_transformer_parity: `FusedMultiTransformer` (eval) and a
+     stack of two `FusedTransformerEncoderLayer`s (training, every
+     gradient) at width 256, 4 heads, 2 layers, f32: the card against
+     the CPU within 1e-4 relative L2, exact launches;
+ 19. fused_transformer_serve: `FusedMultiTransformer` at gpt_1p3b widths
+     (2048, 16 heads, ffn 8192, 24 layers, gelu, pre-LN) in bf16, batch
+     8 x 1024: ms per forward, tokens/s, peak memory, 48 fused_norm and
+     24 flash_fwd launches per forward, a profiler split of one forward;
+     the output against the f32 forward of the same weights within 5%;
+ 20. fused_encoder_train: 12 `FusedTransformerEncoderLayer`s at
+     ernie_base widths (768, 12 heads, ffn 3072, gelu, post-LN), batch
+     32 x 512, bf16 O2 over f32 masters, AdamW, a mean-squared-error
+     loss against a seeded target: tokens/s, ms per step, MFU, peak
+     memory, 24 fused_norm + 12 flash_fwd + 12 flash_bwd launches per
+     step, a profiler split of one step; the loss must fall over 10
+     steps.
+
+Phase 3 also holds varlen_fwd / varlen_bwd on the packed batch of phase
+17 (library yardstick: SDPA on `torch.nested` jagged tensors, or with a
+block-diagonal mask where this PyTorch cannot dispatch those; the form
+is logged), fused_norm at the norms of phases 19 and 20, an RMS norm
+with bias and residual and an odd width of 1000, and decode_attention
+and paged_attention at a GQA group of 16 (32 query heads over 2 kv
+heads).
+
 Launch counters are reset just before the driven part of phases 4, 5,
-8, 9, 10, 12, 14, 15 and 16 and read just after each; every kernel of
-each path must have launched.  The line before last is the JSON kernel table
-(`launches` summed over those paths); the last line is the device JSON.
+8, 9, 10, 12, 14, 15, 16, 17, 19 and 20 and read just after each; every
+kernel of each path must have launched.  The line before last is the
+JSON kernel table (`launches` summed over those paths); the last line
+is the device JSON.
 """
 from __future__ import annotations
 
@@ -361,10 +393,255 @@ def kernel_cases(torch, dtype, vision, train):
                   dec_library,
                   2 * keysd * h * d * isz + 2 * bd * h * d * isz + 32,
                   4 * keysd * h * d, dname, 0))
-    return (cases + bwd_cases(torch, dtype) + rope_cases(torch, dtype)
-            + conv_cases(torch, dtype, vision)
+    return (cases + gqa16_cases(torch, dtype) + bwd_cases(torch, dtype)
+            + rope_cases(torch, dtype) + conv_cases(torch, dtype, vision)
             + window_cases(torch, dtype, vision)
-            + window_bwd_cases(torch, dtype, train))
+            + window_bwd_cases(torch, dtype, train)
+            + varlen_cases(torch, dtype) + fused_norm_cases(torch, dtype))
+
+
+def gqa16_cases(torch, dtype):
+    """decode_attention and paged_attention at a GQA group of 16 (32
+    query heads over 2 kv heads, head_dim 128): the group runs as two
+    chunks of 8 query heads, each reading the kv head's keys once.  The
+    shapes of the gpt_1p3b rows otherwise: paged B4 over the default
+    pool, decode B4 cap 256 left-padded."""
+    from paddle_tpu_torch.ops.kernels import decode_attention as DA
+    from paddle_tpu_torch.ops.kernels import paged_attention as PA
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    dev = "cuda"
+    hq, hkv, d = 32, 2, 128
+    isz = torch.empty((), dtype=dtype).element_size()
+    dname = str(dtype).split(".")[1]
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev, dtype=dtype)
+
+    ps, npool, p = 16, 4 * 128 + 1, 128
+    qp = randn(4, hq, d)
+    kp, vp = randn(npool, hkv, ps, d), randn(npool, hkv, ps, d)
+    pos = torch.tensor([1031, 330, 551, 0], dtype=torch.int32, device=dev)
+    pt = torch.zeros(4, p, dtype=torch.int32, device=dev)
+    perm = torch.randperm(npool - 1, generator=g, device=dev) + 1
+    used = 0
+    for r in range(3):
+        n = int(pos[r]) // ps + 1
+        pt[r, :n] = perm[used:used + n].int()
+        used += n
+    keys = int((pos + 1).sum())
+    cases = [("paged_attention", "GQA 32/2 B4 pool513x2x16x128",
+              lambda: PA.paged_attention(qp, kp, vp, pt, pos),
+              lambda: PA.paged_attention_reference(qp, kp, vp, pt, pos),
+              None,
+              # each kv row read once per chunk of 8 heads is the kernel's
+              # cost; the function needs it once
+              2 * keys * hkv * d * isz + 2 * 4 * hq * d * isz
+              + pt.numel() * 4 + 16, 4 * keys * hq * d, dname, 0)]
+    bd, capd = 4, 256
+    qd = randn(bd, hq, d)
+    kc, vc = randn(bd, hkv, capd, d), randn(bd, hkv, capd, d)
+    posd = torch.full((bd,), 150, dtype=torch.int32, device=dev)
+    std = torch.tensor([0, 28, 64, 111], dtype=torch.int32, device=dev)
+    keysd = int((posd - std + 1).sum())
+    ids = torch.arange(capd, device=dev)[None, :]
+    dmask = ((ids <= posd[:, None]) & (ids >= std[:, None]))[:, None, None]
+    kce, vce = (c.repeat_interleave(hq // hkv, dim=1) for c in (kc, vc))
+
+    def dec_library():
+        import torch.nn.functional as F
+
+        return F.scaled_dot_product_attention(qd[:, :, None], kce, vce,
+                                              attn_mask=dmask)
+
+    cases.append(("decode_attention", f"GQA 32/2 B{bd} cap{capd} left-pad",
+                  lambda: DA.decode_attention(qd, kc, vc, posd, std),
+                  lambda: DA.decode_attention_reference(qd, kc, vc, posd,
+                                                        std),
+                  dec_library,
+                  2 * keysd * hkv * d * isz + 2 * bd * hq * d * isz + 32,
+                  4 * keysd * hq * d, dname, 0))
+    return cases
+
+
+# the packed batch of the varlen rows and phase: GPT-125M attention widths
+# (12 heads of 64), 9 sequences of 8192 tokens with an empty one between
+# the 255 and 513 ones (a repeated cu_seqlens entry)
+VARLEN_LENS = (1, 7, 64, 100, 255, 0, 513, 1024, 2048, 4180)
+VARLEN_H, VARLEN_D = 12, 64
+
+
+def _varlen_batch(torch, dtype, unequal=False, seed=0):
+    """(q, k, v, dout, cu_q, cu_k, q lengths, k lengths): k lengths twice
+    the q lengths when `unequal` (16384 keys)."""
+    lq = list(VARLEN_LENS)
+    lk = [2 * n for n in lq] if unequal else lq
+    g = torch.Generator(device="cuda").manual_seed(SEED + 30 + seed)
+
+    def randn(t):
+        return torch.randn(t, VARLEN_H, VARLEN_D, generator=g,
+                           device="cuda", dtype=dtype)
+
+    q, dout = randn(sum(lq)), randn(sum(lq))
+    k, v = randn(sum(lk)), randn(sum(lk))
+
+    def cu(lens):
+        return torch.tensor([0] + np.cumsum(lens).tolist(),
+                            dtype=torch.int32, device="cuda")
+    return q, k, v, dout, cu(lq), cu(lk), lq, lk
+
+
+def _varlen_pairs(lq, lk, causal):
+    """The (query, key) pairs the packing leaves (the work it needs)."""
+    return sum(a * (a + 1) // 2 if causal else a * b
+               for a, b in zip(lq, lk))
+
+
+VARLEN_LIBRARY = {}     # which SDPA form the card's PyTorch dispatches
+
+
+def _varlen_library(torch, q, k, v, dout, cu_q, cu_k, causal):
+    """(forward, backward) of one PyTorch SDPA call on the same packed
+    batch, yardsticks only: on `torch.nested` jagged tensors where this
+    PyTorch dispatches them (empty sequences dropped), else with a
+    block-diagonal boolean mask built here, outside the timed call.  The
+    form taken is recorded in VARLEN_LIBRARY and logged."""
+    import torch.nn.functional as F
+
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+
+    def njt(x, cu):
+        offs = torch.unique_consecutive(cu.long())
+        return torch.nested.nested_tensor_from_jagged(x, offs) \
+            .transpose(1, 2)
+
+    key = (str(q.dtype), causal, bool(torch.equal(cu_q, cu_k)))
+    form = VARLEN_LIBRARY.get(key)
+    if form is None:
+        form = "nested jagged"
+        try:   # probe only: the yardstick's form, not a result
+            qn, kn, vn = (njt(x, c) for x, c in zip(leaves,
+                                                     (cu_q, cu_k, cu_k)))
+            out = F.scaled_dot_product_attention(qn, kn, vn,
+                                                 is_causal=causal)
+            torch.autograd.grad(out.transpose(1, 2).values(), leaves,
+                                dout)
+            torch.cuda.synchronize()
+        except (RuntimeError, NotImplementedError, ValueError, TypeError,
+                AttributeError) as e:
+            form = f"block-diagonal mask ({type(e).__name__}: " \
+                f"{str(e).splitlines()[0][:80]})"
+        VARLEN_LIBRARY[key] = form
+    if form == "nested jagged":
+        qn, kn, vn = (njt(x, c) for x, c in zip(leaves, (cu_q, cu_k, cu_k)))
+        fwd = (lambda: F.scaled_dot_product_attention(
+            qn, kn, vn, is_causal=causal))
+        out = fwd().transpose(1, 2).values()
+    else:
+        tq, tk = q.shape[0], k.shape[0]
+        sq = torch.searchsorted(cu_q, torch.arange(tq, device="cuda"),
+                                right=True)
+        sk = torch.searchsorted(cu_k, torch.arange(tk, device="cuda"),
+                                right=True)
+        mask = sq[:, None] == sk[None, :]
+        if causal:
+            mask &= torch.ones(tq, tk, dtype=torch.bool,
+                               device="cuda").tril(tk - tq)
+        qt, kt, vt = (x.transpose(0, 1)[None] for x in leaves)
+        fwd = (lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=mask))
+        out = fwd()[0].transpose(0, 1)
+    return fwd, (lambda: torch.autograd.grad(out, leaves, dout,
+                                             retain_graph=True))
+
+
+def varlen_cases(torch, dtype):
+    """varlen_fwd and varlen_bwd on the packed batch: causal and not,
+    and not causal over keys packed twice as long (cu_q != cu_k).
+    Bytes: q, k, v, o (and dO, dq, dk, dv) once each, the LSE; operations:
+    4 (forward) or 10 (backward) * D per visible pair of the packing."""
+    from paddle_tpu_torch.ops.kernels import varlen_attention as VA
+
+    isz = torch.empty((), dtype=dtype).element_size()
+    dname = str(dtype).split(".")[1]
+    h, d = VARLEN_H, VARLEN_D
+    cases = []
+    for label, causal, unequal in (("causal T8192", True, False),
+                                   ("full T8192", False, False),
+                                   ("full Tq8192 Tk16384", False, True)):
+        q, k, v, dout, cq, ck, lq, lk = _varlen_batch(torch, dtype, unequal)
+        pairs = _varlen_pairs(lq, lk, causal)
+        tq, tk = sum(lq), sum(lk)
+        lib_fwd, lib_bwd = _varlen_library(torch, q, k, v, dout, cq, ck,
+                                           causal)
+        cases.append((
+            "varlen_fwd", f"{label} H12 D64",
+            lambda q=q, k=k, v=v, a=cq, b=ck, c=causal:
+                VA.varlen_fwd(q, k, v, a, b, causal=c),
+            lambda q=q, k=k, v=v, a=cq, b=ck, c=causal:
+                VA.varlen_fwd_reference(q, k, v, a, b, causal=c),
+            lib_fwd, 2 * (tq + tk) * h * d * isz + h * tq * 4,
+            4 * pairs * h * d, dname, 0))
+        out, lse = VA.varlen_fwd(q, k, v, cq, ck, causal=causal)
+        cases.append((
+            "varlen_bwd", f"{label} H12 D64",
+            lambda q=q, k=k, v=v, o=out, l=lse, g=dout, a=cq, b=ck,
+            c=causal: VA.varlen_bwd(q, k, v, o, l, g, a, b, causal=c),
+            lambda q=q, k=k, v=v, o=out, l=lse, g=dout, a=cq, b=ck,
+            c=causal: VA.varlen_bwd_reference(q, k, v, o, l, g, a, b,
+                                              causal=c),
+            lib_bwd, 4 * (tq + tk) * h * d * isz + h * tq * 4,
+            10 * pairs * h * d, dname, 0))
+    return cases
+
+
+def fused_norm_cases(torch, dtype):
+    """fused_norm at the fused paths' shapes: the gpt_1p3b serving block's
+    LayerNorm [8 * 1024, 2048] (weight and shift, no residual), the
+    ernie_base encoder's [32 * 512, 768], an RMS norm with bias and
+    residual at [8192, 2048] (z written too) and an odd width of 1000.
+    Bytes: x (and residual) read, y (and z) written, the vectors once;
+    the f32 statistics bound nothing.  Library: F.layer_norm / F.rms_norm
+    on the precomputed sum."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.kernels import fused_norm as FN
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    isz = torch.empty((), dtype=dtype).element_size()
+    dname = str(dtype).split(".")[1]
+    cases = []
+    for label, rows, d, kind, with_res in (
+            ("ln gpt_1p3b [8192,2048]", 8 * 1024, 2048, "ln", False),
+            ("ln ernie_base [16384,768]", 32 * 512, 768, "ln", False),
+            ("rms+bias+res [8192,2048]", 8192, 2048, "rms", True),
+            ("ln odd d [4096,1000]", 4096, 1000, "ln", False)):
+        x = torch.randn(rows, d, generator=g, device="cuda", dtype=dtype)
+        w = 1 + 0.1 * torch.randn(d, generator=g, device="cuda",
+                                  dtype=dtype)
+        b = None if kind == "rms" else 0.1 * torch.randn(
+            d, generator=g, device="cuda", dtype=dtype)
+        bias = res = None
+        if with_res:
+            bias = torch.randn(d, generator=g, device="cuda", dtype=dtype)
+            res = torch.randn(rows, d, generator=g, device="cuda",
+                              dtype=dtype)
+        z = FN.fused_norm_reference(x, None, None, bias, res, kind=kind)[1]
+        z = x if z is None else z
+        eps = 1e-5
+        lib = (lambda z=z, w=w, b=b, d=d: F.layer_norm(z, (d,), w, b, eps)) \
+            if kind == "ln" else \
+            (lambda z=z, w=w, d=d: F.rms_norm(z, (d,), w, eps))
+        nbytes = (2 + 2 * with_res) * rows * d * isz \
+            + (2 + with_res) * d * isz
+        cases.append((
+            "fused_norm", label,
+            lambda x=x, w=w, b=b, bi=bias, r=res, k=kind:
+                FN.fused_norm(x, w, b, bi, r, eps=eps, kind=k),
+            lambda x=x, w=w, b=b, bi=bias, r=res, k=kind:
+                FN.fused_norm_reference(x, w, b, bi, r, eps=eps, kind=k),
+            lib, nbytes, 8 * rows * d, "float32", 0))
+    return cases
 
 
 def _vision_launches(batch):
@@ -759,7 +1036,18 @@ def phase_kernels():
                 err = max(errs)
                 i = max(range(2), key=lambda i: errs[i] / refs[i])
                 rel, ref_max = errs[i] / refs[i], refs[i]
-            elif name == "flash_bwd":      # (dq, dk, dv)
+            elif name == "fused_norm":     # (y, z or None)
+                check(bool(torch.isfinite(got[0]).all()),
+                      f"{name} [{label} {dname}] non-finite output")
+                err = (got[0].float() - want[0].float()).abs().max().item()
+                if want[1] is not None:    # the same rounded adds
+                    err = max(err, (got[1].float() - want[1].float())
+                              .abs().max().item())
+                # held relative to the largest |y|: bf16 rounds values
+                # up to ~5 here, where one ulp exceeds 2e-2
+                ref_max = want[0].float().abs().max().item()
+                rel = err / ref_max
+            elif name in ("flash_bwd", "varlen_bwd"):   # (dq, dk, dv)
                 check(all(bool(torch.isfinite(x).all()) for x in got),
                       f"{name} [{label} {dname}] non-finite gradient")
                 err = max((a.float() - r.float()).abs().max().item()
@@ -767,7 +1055,7 @@ def phase_kernels():
                 # held relative to the largest reference gradient
                 ref_max = max(r.float().abs().max().item() for r in want)
                 rel = err / ref_max
-            elif isinstance(got, tuple):   # flash_fwd: (out, lse)
+            elif isinstance(got, tuple):   # flash / varlen: (out, lse)
                 check(bool(torch.isfinite(got[0]).all())
                       and bool(torch.isfinite(got[1]).all()),
                       f"{name} [{label} {dname}] non-finite output")
@@ -842,6 +1130,8 @@ def phase_kernels():
             f"window_attention_bwd x{sum(c for _, c in train)} per step, "
             f"kernel {tot[0]:.3f} ms, plain {tot[1]:.3f} ms, library "
             f"{tot[2]:.3f} ms, bound {tot[3]:.4f} ms")
+    for key, form in VARLEN_LIBRARY.items():
+        log(f"[kernels] varlen library yardstick {key}: SDPA on {form}")
     K.reset_launches()   # comparison launches do not count
     return table
 
@@ -1461,6 +1751,303 @@ def phase_vision_train(card, iters=10, profile=False):
     return total
 
 
+# ------------------------------------------------------ phases 17 to 20
+def phase_varlen(card):
+    """`flash_attn_unpadded` forward and backward on the packed batch
+    (causal and not, and not causal over keys packed twice as long), in
+    bf16 and f32: exactly one varlen_fwd and one varlen_bwd launch each,
+    held against the port's dense `FlashAttention` run on each sequence
+    alone (the dense kernels: an independent check of the packed
+    indexing).  Returns the launch counts of the packed calls."""
+    import torch
+
+    from paddle_tpu_torch.nn.functional import flash_attn_unpadded
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.ops.kernels.flash_attention import FlashAttention
+
+    total = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        for label, causal, unequal in (("causal", True, False),
+                                       ("full", False, False),
+                                       ("full, k packed 2x", False, True)):
+            q, k, v, dout, cq, ck, lq, lk = _varlen_batch(torch, dtype,
+                                                          unequal, seed=1)
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            torch.cuda.synchronize()
+            K.reset_launches()
+            t0 = time.perf_counter()
+            out, _ = flash_attn_unpadded(*leaves, cq, ck, max(lq), max(lk),
+                                         None, causal=causal)
+            out.backward(dout)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            counts = K.launch_counts()
+            _launches_per_step(counts, {"varlen_fwd": 1, "varlen_bwd": 1},
+                               1, f"varlen {label} {dname}")
+            for kk, n in counts.items():
+                total[kk] = total.get(kk, 0) + n
+            grads = [x.grad for x in leaves]
+            check(bool(torch.isfinite(out).all()) and all(
+                bool(torch.isfinite(g_).all()) for g_ in grads),
+                f"varlen {label} {dname}: non-finite output or gradient")
+            # each sequence alone through the dense flash kernels
+            errs, tops = [0.0] * 4, [0.0] * 4
+            bq, bk = cq.tolist(), ck.tolist()
+            for i in range(len(lq)):
+                if lq[i] == 0:
+                    continue
+                sq, sk = slice(bq[i], bq[i + 1]), slice(bk[i], bk[i + 1])
+                dl = [x.detach()[s_][None].requires_grad_()
+                      for x, s_ in ((q, sq), (k, sk), (v, sk))]
+                o = FlashAttention.apply(*dl, None, causal)
+                o.backward(dout[sq][None])
+                for j, (a, b) in enumerate(zip(
+                        (out[sq], grads[0][sq], grads[1][sk], grads[2][sk]),
+                        (o[0], dl[0].grad[0], dl[1].grad[0],
+                         dl[2].grad[0]))):
+                    errs[j] = max(errs[j], (a.float() - b.float()).abs()
+                                  .max().item())
+                    tops[j] = max(tops[j], b.float().abs().max().item())
+            # out absolute, gradients relative to the largest, as phase 3
+            tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+            held = [errs[0]] + [e / t for e, t in zip(errs[1:], tops[1:])]
+            check(all(math.isfinite(h) and h <= tol for h in held),
+                  f"varlen {label} {dname}: packed vs per-sequence dense "
+                  f"(out abs, dq dk dv rel) {held} > {tol}")
+            launched = {k_: n for k_, n in counts.items() if n}
+            log(f"[varlen] {label} {dname} T{sum(lq)} Tk{sum(lk)} H12 D64 "
+                f"({card}): fwd+bwd {ms:.2f} ms (first call, host clock); "
+                f"packed vs per-sequence dense flash: out max_abs_err "
+                f"{held[0]:.3g}, dq/dk/dv rel "
+                f"{', '.join(f'{h:.3g}' for h in held[1:])} (tol {tol}); "
+                f"launches {json.dumps(launched)}")
+    return total
+
+
+def _mse():
+    """The encoder train step's loss: mean squared error against a seeded
+    target, in f32 (no new loss in the package)."""
+    import torch
+
+    class MSE(torch.nn.Module):
+        def forward(self, out, target):
+            return (out.float() - target.float()).square().mean()
+    return MSE()
+
+
+def _encoder(n, width, heads, ffn, device, seed=SEED):
+    """n post-LN `FusedTransformerEncoderLayer`s (gelu, dropout 0), f32,
+    each seeded from `seed` + its index."""
+    import torch
+
+    from paddle_tpu_torch.incubate.nn import FusedTransformerEncoderLayer
+
+    return torch.nn.Sequential(*[FusedTransformerEncoderLayer(
+        width, heads, ffn, dropout_rate=0.0, activation="gelu",
+        device=device, seed=seed + i) for i in range(n)])
+
+
+def phase_fused_transformer_parity():
+    """f32, width 256, 4 heads, ffn 1024, 2 layers, seeded with the JAX
+    package's initialiser rule: `FusedMultiTransformer` (eval) and a
+    stack of two `FusedTransformerEncoderLayer`s (training: outputs and
+    every gradient of a seeded linear functional of the output) on the
+    card through
+    the kernels against the same modules on the CPU through the plain
+    versions, within 1e-4 relative L2 (TF32 off); exact launches."""
+    import torch
+
+    from paddle_tpu_torch.incubate.nn import FusedMultiTransformer
+    from paddle_tpu_torch.ops import kernels as K
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = torch.from_numpy(np.random.RandomState(SEED + 50).randn(
+        2, 128, 256).astype(np.float32))
+    cpu = FusedMultiTransformer(256, 4, 1024, num_layers=2, device="cpu",
+                                seed=SEED).eval()
+    gpu = FusedMultiTransformer(256, 4, 1024, num_layers=2,
+                                seed=SEED).eval()
+    gpu.load_state_dict(cpu.state_dict())
+    K.reset_launches()
+    with torch.inference_mode():
+        yg = gpu(x.cuda())
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        yc = cpu(x)
+    rel = _rel_l2(yg.cpu(), yc)
+    check(math.isfinite(rel) and rel <= 1e-4,
+          f"fused_transformer_parity FusedMultiTransformer: rel L2 "
+          f"{rel:.3g} > 1e-4")
+    _launches_per_step(counts, {"fused_norm": 4, "flash_fwd": 2}, 1,
+                       "fused_transformer_parity FusedMultiTransformer")
+    cpu, gpu = _encoder(2, 256, 4, 1024, "cpu"), _encoder(2, 256, 4, 1024,
+                                                          "cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    outs, grads = [], []
+    # a fixed linear functional of the output (the mean square of a
+    # post-LN output hardly depends on the weights: f32 rounding then
+    # decides its gradients)
+    gy = torch.from_numpy(np.random.RandomState(SEED + 51).randn(
+        *x.shape).astype(np.float32))
+    K.reset_launches()
+    for m, dev in ((gpu, "cuda"), (cpu, "cpu")):
+        m.train()
+        out = m(x.to(dev))
+        # the post-LN layers leave their pre-LN scales unread: zero
+        grads.append(torch.autograd.grad((out * gy.to(dev)).mean(),
+                                         list(m.parameters()),
+                                         allow_unused=True,
+                                         materialize_grads=True))
+        outs.append(out.detach().cpu())
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            ecounts = K.launch_counts()
+    erel = _rel_l2(outs[0], outs[1])
+    worst = max(((n, _rel_l2(a.cpu(), b)) for n, a, b in zip(
+        dict(cpu.named_parameters()), *grads)), key=lambda t: t[1])
+    check(erel <= 1e-4 and worst[1] <= 1e-4,
+          f"fused_transformer_parity encoder: out rel L2 {erel:.3g}, worst "
+          f"gradient {worst[0]} rel L2 {worst[1]:.3g} (tol 1e-4)")
+    _launches_per_step(ecounts, {"fused_norm": 4, "flash_fwd": 2,
+                                 "flash_bwd": 2}, 1,
+                       "fused_transformer_parity encoder")
+    log(f"[fused_transformer_parity] f32 W256 H4 F1024 2 layers, B2 S128: "
+        f"FusedMultiTransformer card vs cpu rel L2 {rel:.3g}; encoder "
+        f"stack out rel L2 {erel:.3g}, worst of "
+        f"{len(grads[1])} gradients {worst[1]:.3g} ({worst[0]}) (tol "
+        f"1e-4); launches {json.dumps({k: v for k, v in counts.items() if v})}"
+        f" / {json.dumps({k: v for k, v in ecounts.items() if v})}")
+
+
+# the fused serving block at gpt_1p3b widths and the encoder train step
+# at ernie_base widths (paddle_tpu/models/ernie.py:171)
+SERVE_BLOCK = dict(embed=2048, heads=16, ffn=8192, layers=24, batch=8,
+                   seq=1024)
+ENCODER = dict(width=768, heads=12, ffn=3072, layers=12, batch=32, seq=512)
+
+
+def phase_fused_transformer_serve(card, iters=10):
+    """`FusedMultiTransformer` at gpt_1p3b widths (embed 2048, 16 heads,
+    ffn 8192, 24 layers, gelu, pre-LN) in bf16, eval, batch 8 x 1024:
+    ms per forward and tokens/s over `iters` forwards after 2 warm-ups,
+    peak memory, exactly 48 fused_norm and 24 flash_fwd launches per
+    forward, a profiler split of one forward; the output against the f32
+    forward of the same weights on the card within 5% relative L2.
+    Returns the launch counts of the timed forwards."""
+    import torch
+
+    from paddle_tpu_torch.incubate.nn import FusedMultiTransformer
+    from paddle_tpu_torch.ops import kernels as K
+
+    c = SERVE_BLOCK
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = FusedMultiTransformer(c["embed"], c["heads"], c["ffn"],
+                                  num_layers=c["layers"], activation="gelu",
+                                  seed=SEED).eval()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 60)
+    x = torch.randn(c["batch"], c["seq"], c["embed"], generator=g,
+                    device="cuda")
+    with torch.inference_mode():
+        ref = model(x)                      # f32 through the kernels
+    model.to(torch.bfloat16)
+    xb = x.to(torch.bfloat16)
+    with torch.inference_mode():
+        for _ in range(2):
+            model(xb)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            out = model(xb)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = K.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        rel = _rel_l2(out, ref)
+        _profile_forward(model, xb, "fused_transformer_serve forward "
+                         f"(B{c['batch']} S{c['seq']} bf16)", steps=1)
+    check(out.shape == x.shape and bool(torch.isfinite(out).all()),
+          "fused_transformer_serve: non-finite output")
+    check(math.isfinite(rel) and rel < 0.05,
+          f"fused_transformer_serve: bf16 vs f32 rel L2 {rel:.3g} >= 0.05")
+    _launches_per_step(counts, {"fused_norm": 2 * c["layers"],
+                                "flash_fwd": c["layers"]}, iters,
+                       "fused_transformer_serve")
+    tokens = c["batch"] * c["seq"] * iters
+    log(f"[fused_transformer_serve] FusedMultiTransformer gpt_1p3b widths "
+        f"{c['layers']}L bf16 B{c['batch']} S{c['seq']} ({card}): "
+        f"{1e3 * dt / iters:.2f} ms/forward, {tokens / dt:.1f} tokens/s "
+        f"over {iters} forwards, peak memory {peak / 2**30:.2f} GiB; bf16 "
+        f"vs f32 rel L2 {rel:.4f} (tol 0.05); launches per forward "
+        f"{json.dumps({k: v / iters for k, v in counts.items() if v})}")
+    del model, ref, out
+    return counts
+
+
+def phase_fused_encoder_train(card, iters=10):
+    """12 `FusedTransformerEncoderLayer`s at ernie_base widths (768, 12
+    heads, ffn 3072, gelu, post-LN, dropout 0), batch 32 x 512, f32
+    masters, bf16 O2, AdamW(lr 1e-3), `build_train_step`, the mean
+    squared error against a seeded target: 2 warm-up steps, then
+    `run_steps(repeat=iters)` timed between synchronizes: tokens/s, ms
+    per step, MFU (6 N tokens/s over 989 TFLOP/s, as phase 8), peak
+    memory, exactly 24 fused_norm, 12 flash_fwd and 12 flash_bwd launches
+    per step, a profiler split of one step.  The loss must stay finite
+    and fall.  Returns the launch counts of the timed steps."""
+    import torch
+
+    from paddle_tpu_torch.distributed import build_train_step
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.optimizer import AdamW
+
+    c = ENCODER
+    model = _encoder(c["layers"], c["width"], c["heads"], c["ffn"], "cuda")
+    step = build_train_step(model, AdamW(learning_rate=1e-3), _mse(),
+                            amp_dtype="bfloat16")
+    rs = np.random.RandomState(SEED + 70)
+    x, target = (torch.from_numpy(rs.randn(
+        c["batch"], c["seq"], c["width"]).astype(np.float32)).cuda()
+        for _ in range(2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    warm = [float(step(x, target)) for _ in range(2)]
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    losses = step.run_steps(x, target, repeat=iters)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = K.launch_counts()
+    losses = losses.cpu().numpy()
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in model.parameters())
+    tps = c["batch"] * c["seq"] * iters / dt
+    mfu = 6 * n_params * tps / PEAK_FLOPS["bfloat16"]
+    check(np.isfinite(warm).all() and np.isfinite(losses).all(),
+          f"fused_encoder_train: non-finite loss {warm} {losses.tolist()}")
+    check(losses[-1] < warm[0], f"fused_encoder_train: loss did not fall "
+          f"({warm[0]} -> {losses[-1]})")
+    _launches_per_step(counts, {"fused_norm": 2 * c["layers"],
+                                "flash_fwd": c["layers"],
+                                "flash_bwd": c["layers"]}, iters,
+                       "fused_encoder_train")
+    log(f"[fused_encoder_train] {c['layers']} x FusedTransformerEncoderLayer "
+        f"ernie_base widths bf16 O2 B{c['batch']} S{c['seq']} ({card}): "
+        f"{tps:.1f} tokens/s, {1e3 * dt / iters:.2f} ms/step over {iters} "
+        f"steps, MFU {100 * mfu:.2f}% of "
+        f"{PEAK_FLOPS['bfloat16'] / 1e12:.0f} TFLOP/s (N={n_params}), peak "
+        f"memory {peak / 2**30:.2f} GiB; loss {warm[0]:.4f} -> "
+        f"{losses[-1]:.4f}; launches per step "
+        f"{json.dumps({k: v / iters for k, v in counts.items() if v})}")
+    phase_profile_train(step, x, target, steps=1,
+                        what=f"fused_encoder_train step (B{c['batch']} "
+                        f"S{c['seq']} bf16 O2)")
+    del step, model
+    return counts
+
+
 def _profile_forward(model, x, what, steps=3):
     """torch.profiler over `steps` forwards (inside inference mode)."""
     import torch
@@ -1524,7 +2111,7 @@ def _log_profile(prof, what, wall_ms, steps):
                 else "window fwd" if "window_attention_kernel" in name
                 else "port kernels" if "flash_" in name or "_attention_kernel"
                 in name or "rope_" in name or "conv_dense" in name
-                or "conv_depthwise" in name
+                or "conv_depthwise" in name or "fused_norm_kernel" in name
                 else "gemm/conv" if "nvjet" in name or "gemm" in name
                 or "conv" in name or "cudnn" in name or "sm90" in name
                 else "optimizer" if "multi_tensor" in name
@@ -1662,6 +2249,15 @@ def main():
         run("vision_train_parity", phase_vision_train_parity)
         paths.append(run("vision_train", phase_vision_train, card, 10,
                          profile))
+        release()
+        paths.append(run("varlen", phase_varlen, card))
+        run("fused_transformer_parity", phase_fused_transformer_parity)
+        release()
+        paths.append(run("fused_transformer_serve",
+                         phase_fused_transformer_serve, card))
+        release()
+        paths.append(run("fused_encoder_train", phase_fused_encoder_train,
+                         card))
         rows = []
         for name, k in K.KERNELS.items():
             row = table[(name, "bfloat16")]

@@ -18,9 +18,12 @@ Ported so far: the GPT serving path — `models.gpt`, greedy
 single-device train step, `distributed.build_train_step` with
 `optimizer.AdamW` (slice 2); the LLaMA family, `models.llama`, served
 and trained through the same entry points (slice 3); vision inference,
-`vision.models` ResNet / MobileNetV2 / Swin (slice 4).
+`vision.models` ResNet / MobileNetV2 / Swin (slice 4), and their train
+step (slice 5); packed attention, `nn.functional.flash_attn_unpadded`,
+and the fused transformer blocks of `incubate.nn` over the fused norm
+(slice 6).
 """
 from __future__ import annotations
 
-__all__ = ["core", "inference", "models", "nn", "observability", "ops",
-           "vision"]
+__all__ = ["core", "incubate", "inference", "models", "nn", "observability",
+           "ops", "vision"]

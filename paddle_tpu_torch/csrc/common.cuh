@@ -56,3 +56,27 @@ static inline int pt_nj(int d) {
   int nj = (d + 31) / 32;
   return nj <= 1 ? 1 : nj <= 2 ? 2 : nj <= 4 ? 4 : 8;
 }
+
+// Packed (varlen) batches: cu [n + 1] holds cumulative lengths, and
+// position t of a packed axis belongs to segment
+// searchsorted(cu, t, side="right") - 1, in -1 .. n (JAX
+// varlen_attention.py:40-45), so repeated entries (empty sequences) are
+// skipped.  Binary search over the n + 1 entries.
+__device__ __forceinline__ int pt_segment(const int* __restrict__ cu, int n,
+                                          int t) {
+  int lo = 0, hi = n + 1;  // the first index with cu[i] > t
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (cu[mid] <= t) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo - 1;
+}
+
+// Start of segment i (-1 .. n + 1) of a packed axis of length T: the
+// positions of segment i are [pt_bound(i), pt_bound(i + 1)).  Segment -1
+// holds positions before cu[0], segment n those from cu[n] on.
+__device__ __forceinline__ int pt_bound(const int* __restrict__ cu, int n,
+                                        int T, int i) {
+  return i < 0 ? 0 : i > n ? T : cu[i];
+}

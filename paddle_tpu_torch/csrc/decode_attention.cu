@@ -7,7 +7,8 @@
 // Bound on this card: device-memory bytes.  A step reads each row's K
 // and V from `start` to `pos` once and does 4 flops per element read.
 //
-// Design: one block per (row, kv head) carrying the GQA group; the block
+// Design: one block per (row, kv head, chunk of <= 8 heads of the GQA
+// group; decode_common.cuh) carrying the chunk's query rows; the block
 // walks only keys start..pos (left-pad slots and the unwritten cache
 // tail are never read), so a step costs O(tokens in the cache), not
 // O(capacity).  Eight warps split the keys with several loads in flight
@@ -32,12 +33,13 @@ __global__ void __launch_bounds__(DEC_WARPS * 32) decode_attention_kernel(
     const int* __restrict__ start, T* __restrict__ out, int Hq, int Hkv,
     int S, int D, float scale) {
   const int hk = blockIdx.x, b = blockIdx.y;
-  const int G = Hq / Hkv;
+  const int group = Hq / Hkv, g0 = blockIdx.z * DEC_MAXG;
   const long long base = ((long long)b * Hkv + hk) * S * D;
   const DenseAddr addr{base, D};
   const int t0 = start ? start[b] : 0;
-  const long long qo = ((long long)b * Hq + (long long)hk * G) * D;
-  decode_rows<T, NJ>(q + qo, kc, vc, addr, t0, pos[b], G, D, scale, out + qo);
+  const long long qo = ((long long)b * Hq + (long long)hk * group + g0) * D;
+  decode_rows<T, NJ>(q + qo, kc, vc, addr, t0, pos[b],
+                     decode_chunk_rows(group, g0), D, scale, out + qo);
 }
 
 template <typename T, int NJ>
@@ -49,7 +51,8 @@ static int launch(const void* q, const void* kc, const void* vc,
   if (smem > 48 * 1024)
     cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
-  kern<<<dim3(Hkv, B), DEC_WARPS * 32, smem, stream>>>(
+  kern<<<dim3(Hkv, B, decode_chunks(Hq / Hkv)), DEC_WARPS * 32, smem,
+         stream>>>(
       (const T*)q, (const T*)kc, (const T*)vc, pos, start, (T*)out, Hq, Hkv,
       S, D, scale);
   return (int)cudaGetLastError();

@@ -1,9 +1,13 @@
 // One-query-token attention over a KV sequence, shared by the paged
 // (paged_attention.cu) and dense (decode_attention.cu) decode kernels.
 //
-// One block serves one (sequence, kv head) and carries the head's whole
-// GQA group of G query rows, so each K/V row is read from device memory
-// once per group.  DEC_WARPS warps split the keys: warp w takes chunks of
+// One block serves one (sequence, kv head, chunk of at most DEC_MAXG query
+// heads of the head's GQA group) and carries the chunk's G query rows, so
+// each K/V row is read from device memory once per chunk: once per group
+// for groups of up to DEC_MAXG, ceil(group / DEC_MAXG) times for larger
+// ones (a first version; sharing one read among all chunks would need the
+// group's rows in registers or shared memory).  DEC_WARPS warps split the
+// keys: warp w takes chunks of
 // DEC_UNROLL consecutive keys, loads all of a chunk's K and V rows before
 // using any (DEC_UNROLL loads in flight per warp), and keeps its own f32
 // online-softmax state (m, l, acc) per query row.  The warps' states are
@@ -106,6 +110,17 @@ __device__ __forceinline__ void decode_rows(
   }
 }
 
-static inline size_t decode_smem_bytes(int G, int D) {
+// Query heads of the chunk a block serves (the grid's z index picks the
+// chunk of the group): the group's heads g0 .. g0 + rows - 1.
+static inline int decode_chunks(int group) {
+  return (group + DEC_MAXG - 1) / DEC_MAXG;
+}
+
+__device__ __forceinline__ int decode_chunk_rows(int group, int g0) {
+  return min(DEC_MAXG, group - g0);
+}
+
+static inline size_t decode_smem_bytes(int group, int D) {
+  const int G = group < DEC_MAXG ? group : DEC_MAXG;
   return sizeof(float) * (size_t)DEC_WARPS * G * (2 + D);
 }

@@ -42,6 +42,19 @@
 // past Sq get p = 0 exactly.  Both passes visit the same (query tile, key
 // tile) pairs, so even a fully masked row's dQ and dK/dV agree with each
 // other.  Later work: mma.sync / wgmma on bf16 tiles with TMA staging.
+//
+// Packed (varlen) mode, the same kernels with PACKED = true.  Replaces:
+// paddle_tpu/ops/pallas/varlen_attention.py `_vl_bwd` (:139): its dQ
+// pass (`_vl_dq_kernel` :71, pallas_call :158) and dK/dV pass
+// (`_vl_dkv_kernel` :87, pallas_call :171), the same recurrences with
+// per-position segment ids in the block masks.  One packed batch (B = 1,
+// Hq == Hkv), cu_seqlens on the device: a dQ tile visits the keys of its
+// rows' segments only, a dK/dV tile the queries of its keys' segments
+// only (binary search in cu_seqlens, as in flash_fwd.cu), and every pair
+// outside a segment, or past the global causal diagonal, gets p = 0
+// exactly.  A row with no visible key (an empty k segment) gets zero dQ
+// and gives nothing to dK/dV.  Bound on this card: operations, 10 * D
+// flops per visible (query, key) pair of the segments.
 #include "common.cuh"
 
 #define FB_BQ 32
@@ -86,13 +99,14 @@ __device__ __forceinline__ void stage_rows(float* dst, const T* __restrict__ src
 }
 
 // (b) dQ for one (32-query tile, query head, batch).
-template <typename T, int NJ>
+template <typename T, int NJ, bool PACKED>
 __global__ void __launch_bounds__(FB_WARPS * 32) flash_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ bias, const float* __restrict__ lse,
     const float* __restrict__ delta, const T* __restrict__ dout,
     T* __restrict__ dq, int Sq, int Sk, int Hq, int Hkv, int D,
-    long long bsb, long long bsh, long long bsq, int causal, float scale) {
+    long long bsb, long long bsh, long long bsq, int causal, float scale,
+    const int* __restrict__ cu_q, const int* __restrict__ cu_k, int nseg) {
   extern __shared__ float smem[];
   const int DP = D + 1;
   float* Qs = smem;              // [FB_BQ][DP]
@@ -118,14 +132,28 @@ __global__ void __launch_bounds__(FB_WARPS * 32) flash_bwd_dq_kernel(
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc[r][j] = 0.f;
   }
-  int kend = Sk;
-  if (causal) {
+  int kbeg = 0, kend = Sk;
+  // packed: row r of this warp sees keys [klo[r], khi[r])
+  int klo[FB_RPW], khi[FB_RPW];
+  if constexpr (PACKED) {
+    const int qmax = min(q0 + FB_BQ, Sq) - 1;
+    kbeg = pt_bound(cu_k, nseg, Sk, pt_segment(cu_q, nseg, q0));
+    kend = pt_bound(cu_k, nseg, Sk, pt_segment(cu_q, nseg, qmax) + 1);
+    if (causal) kend = min(kend, qmax + off + 1);
+#pragma unroll
+    for (int r = 0; r < FB_RPW; ++r) {
+      const int s = pt_segment(cu_q, nseg,
+                               min(q0 + warp * FB_RPW + r, Sq - 1));
+      klo[r] = pt_bound(cu_k, nseg, Sk, s);
+      khi[r] = pt_bound(cu_k, nseg, Sk, s + 1);
+    }
+  } else if (causal) {
     const int qmax = min(q0 + FB_BQ, Sq) - 1;
     kend = max(0, min(Sk, qmax + off + 1));
   }
   const float* brow = bias ? bias + b * bsb + h * bsh : nullptr;
 
-  for (int k0 = 0; k0 < kend; k0 += FB_BK) {
+  for (int k0 = kbeg; k0 < kend; k0 += FB_BK) {
     __syncthreads();  // the previous tile is consumed; Q / dO are staged
     stage_rows(Ks, k, b, k0, Sk, Hkv, hk, D);
     stage_rows(Vs, v, b, k0, Sk, Hkv, hk, D);
@@ -153,9 +181,16 @@ __global__ void __launch_bounds__(FB_WARPS * 32) flash_bwd_dq_kernel(
     for (int r = 0; r < FB_RPW; ++r) {
       const int qi = q0 + warp * FB_RPW + r;
       float sv = s[r] * scale;
-      if (brow && kj < Sk && qi < Sq) sv += brow[qi * bsq + kj];
-      sv = (!causal || qi + off >= kj) ? sv : PT_NEG_INF;
-      const float p = (kj < Sk && qi < Sq) ? expf(sv - L[r]) : 0.f;
+      float p;
+      if constexpr (PACKED) {
+        const bool valid = kj >= klo[r] && kj < khi[r] && qi < Sq &&
+                           (!causal || qi + off >= kj);
+        p = valid ? expf(sv - L[r]) : 0.f;
+      } else {
+        if (brow && kj < Sk && qi < Sq) sv += brow[qi * bsq + kj];
+        sv = (!causal || qi + off >= kj) ? sv : PT_NEG_INF;
+        p = (kj < Sk && qi < Sq) ? expf(sv - L[r]) : 0.f;
+      }
       ds[r] = p * (dp[r] - Dl[r]) * scale;
     }
     for (int c = 0; c < FB_BK; ++c) {
@@ -189,14 +224,15 @@ __global__ void __launch_bounds__(FB_WARPS * 32) flash_bwd_dq_kernel(
 
 // (c) dK and dV for one (32-key tile, kv head, batch), summed over the
 // kv head's group of query heads.
-template <typename T, int NJ>
+template <typename T, int NJ, bool PACKED>
 __global__ void __launch_bounds__(FB_WARPS * 32) flash_bwd_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ bias, const float* __restrict__ lse,
     const float* __restrict__ delta, const T* __restrict__ dout,
     T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk, int Hq, int Hkv,
     int D, long long bsb, long long bsh, long long bsq, int causal,
-    float scale) {
+    float scale, const int* __restrict__ cu_q, const int* __restrict__ cu_k,
+    int nseg) {
   extern __shared__ float smem[];
   const int DP = D + 1;
   float* Ks = smem;              // [FB_BK][DP]
@@ -220,12 +256,27 @@ __global__ void __launch_bounds__(FB_WARPS * 32) flash_bwd_dkv_kernel(
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acck[r][j] = accv[r][j] = 0.f;
   // causal: key k0 is first seen by query k0 - off; start at its tile
-  const int qstart = causal ? max(0, k0 - off) / FB_BQ * FB_BQ : 0;
+  int qstart = causal ? max(0, k0 - off) / FB_BQ * FB_BQ : 0, qend = Sq;
+  // packed: key r of this warp is seen by queries [qlo[r], qhi[r])
+  int qlo[FB_RPW], qhi[FB_RPW];
+  if constexpr (PACKED) {
+    const int kmax = min(k0 + FB_BK, Sk) - 1;
+    qstart = pt_bound(cu_q, nseg, Sq, pt_segment(cu_k, nseg, k0));
+    qend = pt_bound(cu_q, nseg, Sq, pt_segment(cu_k, nseg, kmax) + 1);
+    if (causal) qstart = max(qstart, k0 - off);
+#pragma unroll
+    for (int r = 0; r < FB_RPW; ++r) {
+      const int s = pt_segment(cu_k, nseg,
+                               min(k0 + warp * FB_RPW + r, Sk - 1));
+      qlo[r] = pt_bound(cu_q, nseg, Sq, s);
+      qhi[r] = pt_bound(cu_q, nseg, Sq, s + 1);
+    }
+  }
 
   for (int g = 0; g < rep; ++g) {
     const int h = hk * rep + g;
     const float* brow = bias ? bias + b * bsb + h * bsh : nullptr;
-    for (int q0 = qstart; q0 < Sq; q0 += FB_BQ) {
+    for (int q0 = qstart; q0 < qend; q0 += FB_BQ) {
       __syncthreads();  // the previous query tile is consumed
       stage_rows(Qs, q, b, q0, Sq, Hq, h, D);
       stage_rows(dOs, dout, b, q0, Sq, Hq, h, D);
@@ -260,9 +311,15 @@ __global__ void __launch_bounds__(FB_WARPS * 32) flash_bwd_dkv_kernel(
       for (int r = 0; r < FB_RPW; ++r) {
         const int kj = k0 + warp * FB_RPW + r;
         float sv = s[r] * scale;
-        if (brow && kj < Sk && qi < Sq) sv += brow[qi * bsq + kj];
-        sv = (!causal || qi + off >= kj) ? sv : PT_NEG_INF;
-        p[r] = (kj < Sk && qi < Sq) ? expf(sv - L) : 0.f;
+        if constexpr (PACKED) {
+          const bool valid = qi >= qlo[r] && qi < qhi[r] && kj < Sk &&
+                             (!causal || qi + off >= kj);
+          p[r] = valid ? expf(sv - L) : 0.f;
+        } else {
+          if (brow && kj < Sk && qi < Sq) sv += brow[qi * bsq + kj];
+          sv = (!causal || qi + off >= kj) ? sv : PT_NEG_INF;
+          p[r] = (kj < Sk && qi < Sq) ? expf(sv - L) : 0.f;
+        }
         ds[r] = p[r] * (dp[r] - Dl) * scale;
       }
       for (int c = 0; c < FB_BQ; ++c) {
@@ -312,13 +369,14 @@ static void allow_smem(K kern, size_t smem) {
                          (int)smem);
 }
 
-template <typename T, int NJ>
+template <typename T, int NJ, bool PACKED>
 static int launch(const void* q, const void* k, const void* v,
                   const float* bias, const void* o, const float* lse,
                   const void* dout, float* delta, void* dq, void* dk,
                   void* dv, int B, int Sq, int Sk, int Hq, int Hkv, int D,
                   long long bsb, long long bsh, long long bsq, int causal,
-                  float scale, cudaStream_t stream) {
+                  float scale, const int* cu_q, const int* cu_k, int nseg,
+                  cudaStream_t stream) {
   const long long rows = (long long)B * Sq * Hq;
   flash_bwd_delta_kernel<T>
       <<<(unsigned)((rows + FB_WARPS - 1) / FB_WARPS), FB_WARPS * 32, 0,
@@ -328,37 +386,39 @@ static int launch(const void* q, const void* k, const void* v,
 
   const size_t tile = sizeof(float) * (size_t)32 * (D + 1);
   const size_t smem_dq = 4 * tile;
-  auto dq_kern = flash_bwd_dq_kernel<T, NJ>;
+  auto dq_kern = flash_bwd_dq_kernel<T, NJ, PACKED>;
   allow_smem(dq_kern, smem_dq);
   dq_kern<<<dim3((Sq + FB_BQ - 1) / FB_BQ, Hq, B), FB_WARPS * 32, smem_dq,
             stream>>>((const T*)q, (const T*)k, (const T*)v, bias, lse, delta,
                       (const T*)dout, (T*)dq, Sq, Sk, Hq, Hkv, D, bsb, bsh,
-                      bsq, causal, scale);
+                      bsq, causal, scale, cu_q, cu_k, nseg);
   err = (int)cudaGetLastError();
   if (err) return err;
 
   const size_t smem_dkv = 4 * tile + sizeof(float) * 2 * FB_BQ;
-  auto dkv_kern = flash_bwd_dkv_kernel<T, NJ>;
+  auto dkv_kern = flash_bwd_dkv_kernel<T, NJ, PACKED>;
   allow_smem(dkv_kern, smem_dkv);
   dkv_kern<<<dim3((Sk + FB_BK - 1) / FB_BK, Hkv, B), FB_WARPS * 32, smem_dkv,
              stream>>>((const T*)q, (const T*)k, (const T*)v, bias, lse,
                        delta, (const T*)dout, (T*)dk, (T*)dv, Sq, Sk, Hq,
-                       Hkv, D, bsb, bsh, bsq, causal, scale);
+                       Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k,
+                       nseg);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool PACKED>
 static int dispatch(const void* q, const void* k, const void* v,
                     const float* bias, const void* o, const float* lse,
                     const void* dout, float* delta, void* dq, void* dk,
                     void* dv, int B, int Sq, int Sk, int Hq, int Hkv, int D,
                     long long bsb, long long bsh, long long bsq, int causal,
-                    float scale, cudaStream_t s) {
+                    float scale, const int* cu_q, const int* cu_k, int nseg,
+                    cudaStream_t s) {
   switch (pt_nj(D)) {
-    case 1: return launch<T, 1>(q, k, v, bias, o, lse, dout, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, s);
-    case 2: return launch<T, 2>(q, k, v, bias, o, lse, dout, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, s);
-    case 4: return launch<T, 4>(q, k, v, bias, o, lse, dout, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, s);
-    default: return launch<T, 8>(q, k, v, bias, o, lse, dout, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, s);
+    case 1: return launch<T, 1, PACKED>(q, k, v, bias, o, lse, dout, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
+    case 2: return launch<T, 2, PACKED>(q, k, v, bias, o, lse, dout, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
+    case 4: return launch<T, 4, PACKED>(q, k, v, bias, o, lse, dout, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
+    default: return launch<T, 8, PACKED>(q, k, v, bias, o, lse, dout, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
   }
 }
 
@@ -374,11 +434,34 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v,
                          int causal, float scale, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == PT_BF16)
-    return dispatch<__nv_bfloat16>(q, k, v, (const float*)bias, o,
-                                   (const float*)lse, dout, (float*)delta, dq,
-                                   dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh,
-                                   bsq, causal, scale, s);
-  return dispatch<float>(q, k, v, (const float*)bias, o, (const float*)lse,
-                         dout, (float*)delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv,
-                         D, bsb, bsh, bsq, causal, scale, s);
+    return dispatch<__nv_bfloat16, false>(
+        q, k, v, (const float*)bias, o, (const float*)lse, dout,
+        (float*)delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq,
+        causal, scale, nullptr, nullptr, 0, s);
+  return dispatch<float, false>(q, k, v, (const float*)bias, o,
+                                (const float*)lse, dout, (float*)delta, dq,
+                                dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq,
+                                causal, scale, nullptr, nullptr, 0, s);
+}
+
+// Packed mode: q / o / dout / dq [Tq, H, D]; k / v / dk / dv [Tk, H, D];
+// cu_q / cu_k [nseg + 1] int32 on the device; lse and delta (scratch)
+// [H, Tq] f32.  Returns the first launch error, 0 when all three
+// launches were accepted.
+extern "C" int varlen_bwd(const void* q, const void* k, const void* v,
+                          const void* o, const void* lse, const void* dout,
+                          const void* cu_q, const void* cu_k, void* delta,
+                          void* dq, void* dk, void* dv, int nseg, int Tq,
+                          int Tk, int H, int D, int causal, float scale,
+                          int dtype, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int* cq = (const int*)cu_q;
+  const int* ck = (const int*)cu_k;
+  if (dtype == PT_BF16)
+    return dispatch<__nv_bfloat16, true>(
+        q, k, v, nullptr, o, (const float*)lse, dout, (float*)delta, dq, dk,
+        dv, 1, Tq, Tk, H, H, D, 0, 0, 0, causal, scale, cq, ck, nseg, s);
+  return dispatch<float, true>(q, k, v, nullptr, o, (const float*)lse, dout,
+                               (float*)delta, dq, dk, dv, 1, Tq, Tk, H, H, D,
+                               0, 0, 0, causal, scale, cq, ck, nseg, s);
 }

@@ -27,6 +27,25 @@
 // the finite NEG_INF and the denominator is clamped at 1e-30, as in the
 // JAX kernel, so a fully masked (left-pad) row stays finite.  Later
 // work: mma.sync / wgmma on bf16 tiles with TMA staging.
+//
+// Packed (varlen) mode, the same kernel with PACKED = true.  Replaces:
+// paddle_tpu/ops/pallas/varlen_attention.py `_vl_fwd_kernel` (:56),
+// launched by `_vl_fwd` (:105), which runs the same online softmax with
+// per-position segment ids in its block masks.  q [Tq, H, D] and k / v
+// [Tk, H, D] are one packed batch (B = 1, no GQA: the JAX kernel indexes
+// K/V by the query head); cu_seqlens_q / _k [n + 1] stay on the device.
+// Each 32-query tile finds its rows' segments by binary search in
+// cu_seqlens_q and visits only the keys of those segments in cu_seqlens_k
+// (from the first row's segment start to the last row's segment end), so
+// no [T, T] mask or segment-id array exists and the launch needs no host
+// sync.  A tile that straddles a boundary masks per row: row i sees keys
+// [cu_k[s], cu_k[s + 1]) of its segment s (and, causal, keys j <= i + Tk
+// - Tq: JAX's one global diagonal).  Masked keys get exactly zero weight
+// (-inf, against a running max that starts at the finite -1e30), so a
+// row with no visible key (an empty k segment) writes zeros and a finite
+// LSE, where the JAX kernel averages its block's padded values.  Bound
+// on this card: operations, 4 * D flops per visible (query, key) pair
+// (only the segments' pairs: the work this packing needs).
 #include "common.cuh"
 
 #define FA_BQ 32
@@ -34,12 +53,13 @@
 #define FA_WARPS 8
 #define FA_RPW (FA_BQ / FA_WARPS)
 
-template <typename T, int NJ>
+template <typename T, int NJ, bool PACKED>
 __global__ void __launch_bounds__(FA_WARPS * 32) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ bias, T* __restrict__ o, float* __restrict__ lse,
     int Sq, int Sk, int Hq, int Hkv, int D, long long bsb, long long bsh,
-    long long bsq, int causal, float scale) {
+    long long bsq, int causal, float scale, const int* __restrict__ cu_q,
+    const int* __restrict__ cu_k, int nseg) {
   extern __shared__ float smem[];
   const int DP = D + 1;
   float* Qs = smem;              // [FA_BQ][DP]
@@ -57,8 +77,22 @@ __global__ void __launch_bounds__(FA_WARPS * 32) flash_fwd_kernel(
     Qs[r * DP + d] =
         qi < Sq ? to_f(q[(((long long)b * Sq + qi) * Hq + h) * D + d]) : 0.f;
   }
-  int kend = Sk;
-  if (causal) {
+  int kbeg = 0, kend = Sk;
+  // packed: row r of this warp sees keys [klo[r], khi[r])
+  int klo[FA_RPW], khi[FA_RPW];
+  if constexpr (PACKED) {
+    const int qmax = min(q0 + FA_BQ, Sq) - 1;
+    kbeg = pt_bound(cu_k, nseg, Sk, pt_segment(cu_q, nseg, q0));
+    kend = pt_bound(cu_k, nseg, Sk, pt_segment(cu_q, nseg, qmax) + 1);
+    if (causal) kend = min(kend, qmax + off + 1);
+#pragma unroll
+    for (int r = 0; r < FA_RPW; ++r) {
+      const int s = pt_segment(cu_q, nseg,
+                               min(q0 + warp * FA_RPW + r, Sq - 1));
+      klo[r] = pt_bound(cu_k, nseg, Sk, s);
+      khi[r] = pt_bound(cu_k, nseg, Sk, s + 1);
+    }
+  } else if (causal) {
     const int qmax = min(q0 + FA_BQ, Sq) - 1;
     kend = max(0, min(Sk, qmax + off + 1));
   }
@@ -73,7 +107,7 @@ __global__ void __launch_bounds__(FA_WARPS * 32) flash_fwd_kernel(
     for (int j = 0; j < NJ; ++j) acc[r][j] = 0.f;
   }
 
-  for (int k0 = 0; k0 < kend; k0 += FA_BK) {
+  for (int k0 = kbeg; k0 < kend; k0 += FA_BK) {
     __syncthreads();  // the previous tile is consumed; Q is staged
     for (int i = tid; i < FA_BK * D; i += blockDim.x) {
       const int c = i / D, d = i % D, kj = k0 + c;
@@ -105,11 +139,17 @@ __global__ void __launch_bounds__(FA_WARPS * 32) flash_fwd_kernel(
     for (int r = 0; r < FA_RPW; ++r) {
       const int qi = q0 + warp * FA_RPW + r;
       float sv = s[r] * scale;
-      if (brow && kj < Sk && qi < Sq) sv += brow[qi * bsq + kj];
-      const bool valid = !causal || qi + off >= kj;
-      sv = valid ? sv : PT_NEG_INF;
-      // keys past Sk are not keys at all: weight exactly 0
-      if (kj >= Sk) sv = __int_as_float(0xff800000);  // -inf
+      if constexpr (PACKED) {
+        // another segment's key, or past the diagonal: weight exactly 0
+        if (kj < klo[r] || kj >= khi[r] || (causal && qi + off < kj))
+          sv = __int_as_float(0xff800000);  // -inf
+      } else {
+        if (brow && kj < Sk && qi < Sq) sv += brow[qi * bsq + kj];
+        const bool valid = !causal || qi + off >= kj;
+        sv = valid ? sv : PT_NEG_INF;
+        // keys past Sk are not keys at all: weight exactly 0
+        if (kj >= Sk) sv = __int_as_float(0xff800000);  // -inf
+      }
       const float m_new = fmaxf(m[r], warp_max(sv));
       p[r] = expf(sv - m_new);
       const float alpha = expf(m[r] - m_new);
@@ -149,35 +189,37 @@ __global__ void __launch_bounds__(FA_WARPS * 32) flash_fwd_kernel(
   }
 }
 
-template <typename T, int NJ>
+template <typename T, int NJ, bool PACKED>
 static int launch(const void* q, const void* k, const void* v,
                   const float* bias, void* o, float* lse, int B, int Sq,
                   int Sk, int Hq, int Hkv, int D, long long bsb, long long bsh,
-                  long long bsq, int causal, float scale, cudaStream_t stream) {
+                  long long bsq, int causal, float scale, const int* cu_q,
+                  const int* cu_k, int nseg, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)(FA_BQ + FA_BK) * (D + 1) + (size_t)FA_BK * D);
-  auto kern = flash_fwd_kernel<T, NJ>;
+  auto kern = flash_fwd_kernel<T, NJ, PACKED>;
   if (smem > 48 * 1024)
     cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
   dim3 grid((Sq + FA_BQ - 1) / FA_BQ, Hq, B);
   kern<<<grid, FA_WARPS * 32, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, bias, (T*)o, lse, Sq, Sk, Hq, Hkv,
-      D, bsb, bsh, bsq, causal, scale);
+      D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool PACKED>
 static int dispatch(const void* q, const void* k, const void* v,
                     const float* bias, void* o, float* lse, int B, int Sq,
                     int Sk, int Hq, int Hkv, int D, long long bsb,
                     long long bsh, long long bsq, int causal, float scale,
+                    const int* cu_q, const int* cu_k, int nseg,
                     cudaStream_t s) {
   switch (pt_nj(D)) {
-    case 1: return launch<T, 1>(q, k, v, bias, o, lse, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, s);
-    case 2: return launch<T, 2>(q, k, v, bias, o, lse, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, s);
-    case 4: return launch<T, 4>(q, k, v, bias, o, lse, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, s);
-    default: return launch<T, 8>(q, k, v, bias, o, lse, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, s);
+    case 1: return launch<T, 1, PACKED>(q, k, v, bias, o, lse, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
+    case 2: return launch<T, 2, PACKED>(q, k, v, bias, o, lse, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
+    case 4: return launch<T, 4, PACKED>(q, k, v, bias, o, lse, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
+    default: return launch<T, 8, PACKED>(q, k, v, bias, o, lse, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
   }
 }
 
@@ -191,9 +233,29 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == PT_BF16)
-    return dispatch<__nv_bfloat16>(q, k, v, (const float*)bias, o,
-                                   (float*)lse, B, Sq, Sk, Hq, Hkv, D, bsb,
-                                   bsh, bsq, causal, scale, s);
-  return dispatch<float>(q, k, v, (const float*)bias, o, (float*)lse, B, Sq,
-                         Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, s);
+    return dispatch<__nv_bfloat16, false>(q, k, v, (const float*)bias, o,
+                                          (float*)lse, B, Sq, Sk, Hq, Hkv, D,
+                                          bsb, bsh, bsq, causal, scale,
+                                          nullptr, nullptr, 0, s);
+  return dispatch<float, false>(q, k, v, (const float*)bias, o, (float*)lse,
+                                B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal,
+                                scale, nullptr, nullptr, 0, s);
+}
+
+// Packed mode: q [Tq, H, D]; k / v [Tk, H, D]; cu_q / cu_k [nseg + 1]
+// int32 on the device; o [Tq, H, D]; lse [H, Tq] f32.
+extern "C" int varlen_fwd(const void* q, const void* k, const void* v,
+                          const void* cu_q, const void* cu_k, void* o,
+                          void* lse, int nseg, int Tq, int Tk, int H, int D,
+                          int causal, float scale, int dtype, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int* cq = (const int*)cu_q;
+  const int* ck = (const int*)cu_k;
+  if (dtype == PT_BF16)
+    return dispatch<__nv_bfloat16, true>(q, k, v, nullptr, o, (float*)lse, 1,
+                                         Tq, Tk, H, H, D, 0, 0, 0, causal,
+                                         scale, cq, ck, nseg, s);
+  return dispatch<float, true>(q, k, v, nullptr, o, (float*)lse, 1, Tq, Tk,
+                               H, H, D, 0, 0, 0, causal, scale, cq, ck, nseg,
+                               s);
 }

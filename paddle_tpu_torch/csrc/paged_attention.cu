@@ -8,7 +8,8 @@
 // per kv head) and does 4 flops per element read, far below the ~295
 // flops/byte at which the H100 stops being bandwidth bound.
 //
-// Design: one block per (sequence, kv head) carrying the GQA group; the
+// Design: one block per (sequence, kv head, chunk of <= 8 heads of the GQA
+// group; decode_common.cuh) carrying the chunk's query rows; the
 // block walks keys 0..pos through the page table itself (the TPU grid's
 // scalar-prefetched index map becomes an in-kernel table read), so cost
 // is O(tokens in the cache), not O(pool).  Eight warps split the keys
@@ -39,12 +40,13 @@ __global__ void __launch_bounds__(DEC_WARPS * 32) paged_attention_kernel(
     const int* __restrict__ pos, T* __restrict__ out, int Hq, int Hkv,
     int PS, int P, int D, float scale) {
   const int hk = blockIdx.x, b = blockIdx.y;
-  const int G = Hq / Hkv;
+  const int group = Hq / Hkv, g0 = blockIdx.z * DEC_MAXG;
   const int* row = table + (long long)b * P;
   const long long page_elems = (long long)Hkv * PS * D;
   const PagedAddr addr{row, page_elems, hk, PS, D};
-  const long long qo = ((long long)b * Hq + (long long)hk * G) * D;
-  decode_rows<T, NJ>(q + qo, kp, vp, addr, 0, pos[b], G, D, scale, out + qo);
+  const long long qo = ((long long)b * Hq + (long long)hk * group + g0) * D;
+  decode_rows<T, NJ>(q + qo, kp, vp, addr, 0, pos[b],
+                     decode_chunk_rows(group, g0), D, scale, out + qo);
 }
 
 template <typename T, int NJ>
@@ -57,7 +59,8 @@ static int launch(const void* q, const void* kp, const void* vp,
   if (smem > 48 * 1024)
     cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
-  kern<<<dim3(Hkv, B), DEC_WARPS * 32, smem, stream>>>(
+  kern<<<dim3(Hkv, B, decode_chunks(Hq / Hkv)), DEC_WARPS * 32, smem,
+         stream>>>(
       (const T*)q, (const T*)kp, (const T*)vp, table, pos, (T*)out, Hq, Hkv,
       PS, P, D, scale);
   return (int)cudaGetLastError();

@@ -107,7 +107,10 @@ class DistributedTrainStep:
         loss = loss.float()
         if loss.dim():
             loss = loss.mean()
-        grads = torch.autograd.grad(loss, list(self._params.values()))
+        # a parameter the forward does not read (a post-LN layer's unused
+        # pre-LN scale) gets a zero gradient, as jax.grad gives it
+        grads = torch.autograd.grad(loss, list(self._params.values()),
+                                    allow_unused=True, materialize_grads=True)
         self.optimizer.apply_gradients(
             self._params, dict(zip(self._params, grads)), self._state)
         return loss.detach()

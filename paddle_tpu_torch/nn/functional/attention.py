@@ -1,7 +1,7 @@
 """scaled_dot_product_attention (``paddle_tpu/nn/functional/
-attention.py:80`` counterpart; plain version `_sdpa_ref` :51) and the
-rotary embedding `fused_rotary_position_embedding` /
-`apply_rotary_pos_emb` (:211, :264).
+attention.py:80`` counterpart; plain version `_sdpa_ref` :51), packed
+attention `flash_attn_unpadded` (:133) and the rotary embedding
+`fused_rotary_position_embedding` / `apply_rotary_pos_emb` (:211, :264).
 
 Inputs are ``[batch, seq, heads, head_dim]`` as in the JAX package.  A
 CPU tensor runs the plain version, which autograd differentiates; a
@@ -18,6 +18,7 @@ import torch
 
 from ...ops.kernels.flash_attention import FlashAttention
 from ...ops.kernels.rope import RoPE
+from ...ops.kernels.varlen_attention import VarlenAttention
 
 NEG_INF = -1e30
 
@@ -61,6 +62,45 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
             "detach the mask")
     return FlashAttention.apply(query.contiguous(), key.contiguous(),
                                 value.contiguous(), attn_mask, is_causal)
+
+
+def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
+                        max_seqlen_q, max_seqlen_k, scale, dropout=0.0,
+                        causal=False, return_softmax=False,
+                        fixed_seed_offset=None, rng_name="",
+                        training=True, name=None):
+    """Packed ragged-batch attention (JAX :133): query [Tq, H, D],
+    key / value [Tk, H, D], cu_seqlens_* [n + 1] cumulative lengths.
+    Returns (out, None).  Runs `VarlenAttention` (the `varlen_fwd` and
+    `varlen_bwd` kernels on CUDA, their plain versions on the CPU).  The
+    JAX entry's refusals are kept: `return_softmax`, dropout while
+    training, and causal with unequal packings, which is always checked
+    here (the packings are concrete; on CUDA the check reads them back,
+    one host sync per causal call).  `max_seqlen_*` are not needed: the
+    kernels find each tile's segments in cu_seqlens, so no segment is
+    cut at them.  `scale` None means 1 / sqrt(head_dim); an explicit
+    scale applies in f32 inside the kernel."""
+    if return_softmax:
+        raise NotImplementedError(
+            "flash_attn_unpadded: return_softmax=True would materialize "
+            "the T x T probabilities the fused kernel exists to avoid")
+    if dropout and training:
+        raise NotImplementedError(
+            "flash_attn_unpadded: attention-probability dropout is not "
+            "applied on the fused path; pass dropout=0 or training=False")
+    dev = query.device
+    cu_q = torch.as_tensor(cu_seqlens_q, device=dev).to(torch.int32)
+    cu_k = torch.as_tensor(cu_seqlens_k, device=dev).to(torch.int32)
+    if causal and not (cu_q.shape == cu_k.shape
+                       and bool(torch.equal(cu_q, cu_k))):
+        raise NotImplementedError(
+            "flash_attn_unpadded: causal=True requires identical "
+            "cu_seqlens_q and cu_seqlens_k (per-sequence causal alignment "
+            "across different packings is not supported)")
+    out = VarlenAttention.apply(query.contiguous(), key.contiguous(),
+                                value.contiguous(), cu_q.contiguous(),
+                                cu_k.contiguous(), scale, bool(causal))
+    return out, None
 
 
 def _rope_phases(d, s, base, position_ids, device):

@@ -36,6 +36,9 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
             "cross_entropy with floating (soft) labels is not ported yet "
             "(ROADMAP Queue A); pass integer class ids")
     logp = torch.log_softmax(input, dim=-1)
+    if label.dim() == input.dim() and label.shape[-1] == 1:
+        # Paddle's [N, 1] label layout (JAX loss.py:50-51)
+        label = label.squeeze(-1)
     label = label.long()
     valid = label != ignore_index
     safe = torch.where(valid, label, 0)

@@ -8,8 +8,8 @@ from types import ModuleType
 from typing import NamedTuple
 
 from . import (
-    conv_norm, decode_attention, flash_attention, paged_attention, rope,
-    window_attention,
+    conv_norm, decode_attention, flash_attention, fused_norm,
+    paged_attention, rope, varlen_attention, window_attention,
 )
 
 
@@ -53,6 +53,16 @@ KERNELS = {
                                    "bwd_launches",
                                    window_attention.BWD_SOURCE,
                                    window_attention.BWD_REPLACES),
+    # the packed mode of the flash sources, wrappers and counters of its own
+    "varlen_fwd": Kernel(varlen_attention, "varlen_fwd",
+                         "varlen_fwd_reference", "launches",
+                         varlen_attention.SOURCE, varlen_attention.REPLACES),
+    "varlen_bwd": Kernel(varlen_attention, "varlen_bwd",
+                         "varlen_bwd_reference", "bwd_launches",
+                         varlen_attention.BWD_SOURCE,
+                         varlen_attention.BWD_REPLACES),
+    "fused_norm": Kernel(fused_norm, "fused_norm", "fused_norm_reference",
+                         "launches", fused_norm.SOURCE, fused_norm.REPLACES),
 }
 
 

@@ -27,6 +27,7 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v", "-lineinfo"]
 
 _libs = {}
+_bound = set()   # (library, function) pairs whose signature is set
 # seconds each library took to build in this process (0.0 = loaded from
 # an earlier build of the same hash)
 build_seconds = {}
@@ -108,17 +109,20 @@ def build(names) -> dict:
 def library(name: str, signatures: dict) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu, built first if needed.
     `signatures` maps each C function to its argtypes; every function
-    returns the launch's cudaGetLastError() as an int."""
+    returns the launch's cudaGetLastError() as an int.  One source may
+    export several functions, each wrapper naming its own (flash_fwd.cu:
+    `flash_fwd` and `varlen_fwd`)."""
     lib = _libs.get(name)
-    if lib is not None:
-        return lib
-    build([name])
-    lib = ctypes.CDLL(_target(name))
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(_target(name))
+        _libs[name] = lib
     for fn, argtypes in signatures.items():
-        f = getattr(lib, fn)
-        f.argtypes = argtypes
-        f.restype = ctypes.c_int
-    _libs[name] = lib
+        if (name, fn) not in _bound:
+            f = getattr(lib, fn)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+            _bound.add((name, fn))
     return lib
 
 

@@ -56,9 +56,6 @@ def decode_attention(q, kcache, vcache, pos, start=None):
     if vcache.shape != kcache.shape or b2 != b or d2 != d or hq % hkv:
         raise ValueError(f"decode_attention: q {tuple(q.shape)}, caches "
                          f"{tuple(kcache.shape)}/{tuple(vcache.shape)}")
-    if hq // hkv > 8:
-        raise ValueError("decode_attention: at most 8 query heads per kv "
-                         f"head, got {hq // hkv}")
     if d % 8 or d > 256:
         raise ValueError(f"decode_attention: head_dim {d} must be a "
                          "multiple of 8 and <= 256")

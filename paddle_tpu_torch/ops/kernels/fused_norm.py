@@ -1,0 +1,174 @@
+"""Fused (bias + residual +) RMS / LayerNorm: CUDA kernel wrapper, plain
+version, and the `FusedNorm` autograd function over them.
+
+Counterpart of ``paddle_tpu/ops/pallas/fused_norm.py``: the forward
+`_norm_kernel` :58 launched by `_pallas_norm_fwd` :93 (kernel
+``csrc/fused_norm.cu``), and the jnp backward `_norm_bwd_math` :139 /
+`core_bwd` :199, which stays plain PyTorch here as it is jnp there.  The
+JAX gate `fused_norm_available` (:34: ``d % 128``, ``d <= 16384``) is a
+TPU layout rule with no counterpart: the kernel takes any d >= 1 and any
+row count.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+SOURCE = "paddle_tpu_torch/csrc/fused_norm.cu"
+REPLACES = ("paddle_tpu/ops/pallas/fused_norm.py:58 (_norm_kernel, via "
+            "_pallas_norm_fwd :93)")
+
+launches = 0
+
+_SIG = {"fused_norm": [ctypes.c_void_p] * 7
+        + [ctypes.c_int64, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_KINDS = ("rms", "ln")
+# the kernel keeps a row of z as f32 in shared memory (227 KB a block)
+MAX_D = 227 * 1024 // 4
+
+
+def _sum(x, bias, residual):
+    """z = x (+ bias) (+ residual) in x's dtype, each add rounded (the
+    JAX kernel's order, :70-74)."""
+    z = x
+    if bias is not None:
+        z = z + bias
+    if residual is not None:
+        z = z + residual
+    return z
+
+
+def _stats(z32, kind, eps):
+    """(centred or raw z in f32, 1 / sqrt(second moment + eps))."""
+    if kind == "rms":
+        ms = (z32 * z32).mean(dim=-1, keepdim=True)
+        return z32, torch.rsqrt(ms + eps)
+    xc = z32 - z32.mean(dim=-1, keepdim=True)
+    return xc, torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + eps)
+
+
+def fused_norm_reference(x, w=None, b=None, bias=None, residual=None,
+                         eps=1e-6, kind="rms"):
+    """Plain version: (y, z) with z None unless bias or residual is given.
+    Statistics of the rounded z in f32, LayerNorm's variance centred;
+    w and b applied in f32, y rounded once to x's dtype."""
+    z = _sum(x, bias, residual)
+    xc, inv = _stats(z.float(), kind, eps)
+    y = xc * inv
+    if w is not None:
+        y = y * w.float()
+    if b is not None:
+        y = y + b.float()
+    want_z = bias is not None or residual is not None
+    return y.to(x.dtype), (z if want_z else None)
+
+
+def _check(x, w, b, bias, residual, kind):
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_norm: unsupported device {x.device}")
+    if kind not in _KINDS:
+        raise ValueError(f"fused_norm: kind {kind!r} not in {_KINDS}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"fused_norm: x dtype {x.dtype}; expected float32 "
+                        "or bfloat16")
+    d = x.shape[-1] if x.dim() else 0
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"fused_norm: last axis {d} must be in "
+                         f"1..{MAX_D}")
+    wdt = {t.dtype for t in (w, b) if t is not None}
+    if len(wdt) > 1 or not wdt <= {torch.float32, x.dtype}:
+        raise TypeError(f"fused_norm: w / b dtypes {sorted(map(str, wdt))};"
+                        f" expected one of float32 or {x.dtype}")
+    for name, t, shape in (("w", w, (d,)), ("b", b, (d,)),
+                           ("bias", bias, (d,)),
+                           ("residual", residual, tuple(x.shape))):
+        if t is None:
+            continue
+        if tuple(t.shape) != shape:
+            raise ValueError(f"fused_norm: {name} of shape "
+                             f"{tuple(t.shape)}, expected {shape}")
+        if name in ("bias", "residual") and t.dtype != x.dtype:
+            raise TypeError(f"fused_norm: {name} dtype {t.dtype} differs "
+                            f"from x's {x.dtype}")
+    for name, t in (("x", x), ("w", w), ("b", b), ("bias", bias),
+                    ("residual", residual)):
+        if t is not None and (t.device != x.device
+                              or not t.is_contiguous()):
+            raise ValueError(f"fused_norm: {name} must be contiguous on "
+                             f"{x.device}")
+    return d, (wdt.pop() if wdt else x.dtype)
+
+
+def fused_norm(x, w=None, b=None, bias=None, residual=None, eps=1e-6,
+               kind="rms"):
+    """x [..., d]; w, b, bias [d]; residual like x.  Returns (y, z): y
+    the norm of z = x + bias + residual over the last axis, in x's
+    dtype; z None unless bias or residual is given.  `kind` "rms" or
+    "ln".  CPU tensors run the plain version; CUDA tensors launch the
+    kernel or raise."""
+    global launches
+    if x.device.type == "cpu":
+        return fused_norm_reference(x, w, b, bias, residual, eps, kind)
+    d, wdtype = _check(x, w, b, bias, residual, kind)
+    rows = x.numel() // d
+    y = torch.empty_like(x)
+    want_z = bias is not None or residual is not None
+    z = torch.empty_like(x) if want_z else None
+    lib = _build.library("fused_norm", _SIG)
+    opt = [None if t is None else _build.ptr(t)
+           for t in (w, b, bias, residual)]
+    err = lib.fused_norm(_build.ptr(x), *opt, _build.ptr(y),
+                         None if z is None else _build.ptr(z), rows, d,
+                         float(eps), int(kind == "rms"), _DTYPES[x.dtype],
+                         _DTYPES[wdtype], _build.stream_ptr(x.device))
+    _build.check(err, "fused_norm")
+    launches += 1
+    return y, z
+
+
+class FusedNorm(torch.autograd.Function):
+    """``fused_norm`` differentiated as the JAX custom VJP
+    (`fused_norm.py:185-216`): the forward is the kernel (plain on the
+    CPU); the backward recomputes the statistics from the saved z (x
+    when neither bias nor residual is given) in plain PyTorch, in
+    `_norm_bwd_math`'s order.  dz is rounded to z's dtype before z's own
+    cotangent is added; db is cast to z's dtype, dw to w's; dbias is the
+    f32 row sum of dz, dres is dz.  Returns y, or (y, z) when bias or
+    residual is given."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, bias, residual, eps, kind):
+        y, z = fused_norm(x, w, b, bias, residual, eps=eps, kind=kind)
+        ctx.want_z = z is not None
+        ctx.eps, ctx.kind = eps, kind
+        ctx.has = tuple(t is not None for t in (w, b, bias, residual))
+        ctx.save_for_backward(z if ctx.want_z else x, w)
+        return (y, z) if ctx.want_z else y
+
+    @staticmethod
+    def backward(ctx, gy, gz=None):
+        z, w = ctx.saved_tensors
+        xc, inv = _stats(z.float(), ctx.kind, ctx.eps)
+        xhat = xc * inv
+        g32 = gy.float()
+        gw = g32 * w.float() if w is not None else g32
+        proj = (gw * xhat).mean(dim=-1, keepdim=True)
+        if ctx.kind == "rms":
+            dz = inv * (gw - xhat * proj)
+        else:
+            dz = inv * (gw - gw.mean(dim=-1, keepdim=True) - xhat * proj)
+        dz = dz.to(z.dtype)
+        if ctx.want_z and gz is not None:
+            dz = dz + gz.to(dz.dtype)
+        rows = tuple(range(z.dim() - 1))
+        has_w, has_b, has_bias, has_res = ctx.has
+        dw = (g32 * xhat).sum(dim=rows).to(w.dtype) if has_w else None
+        db = g32.sum(dim=rows).to(z.dtype) if has_b else None
+        dbias = dz.float().sum(dim=rows).to(z.dtype) if has_bias else None
+        dres = dz if has_res else None
+        return dz, dw, db, dbias, dres, None, None

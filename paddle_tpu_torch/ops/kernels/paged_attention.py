@@ -73,9 +73,6 @@ def paged_attention(q, k_pages, v_pages, page_table, pos, k_scales=None,
     if v_pages.shape != k_pages.shape or d2 != d or hq % hkv:
         raise ValueError(f"paged_attention: q {tuple(q.shape)}, pools "
                          f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)}")
-    if hq // hkv > 8:
-        raise ValueError("paged_attention: at most 8 query heads per kv "
-                         f"head, got {hq // hkv}")
     if d % 8 or d > 256:
         raise ValueError(f"paged_attention: head_dim {d} must be a "
                          "multiple of 8 and <= 256")

@@ -17,7 +17,12 @@ autograd through the plain versions, tiny GPT and LLaMA models whose
 engine and ``generate()`` run on the card, tiny GPT, LLaMA, Swin and
 ResNet train steps on the card against the same steps on the CPU, and
 tiny ResNet, ResNeXt, MobileNetV2 and Swin forwards against the CPU
-with their exact launches per forward.
+with their exact launches per forward; packed (varlen) attention forward
+and backward over empty sequences, one-token sequences, unequal q / k
+packings, rows that see no key and an explicit scale; the fused norm
+over every operand combination, odd and wide rows, and `FusedNorm`'s
+gradient; decode and paged attention at GQA groups of 16 and 12; and
+the incubate fused layers on the card against the CPU.
 Every test needs an NVIDIA card and skips without one.  On the card (no
 JAX needed, so the JAX test conftest is left out)::
 
@@ -37,9 +42,11 @@ import torch
 from paddle_tpu_torch.ops import kernels as K
 from paddle_tpu_torch.ops.kernels import decode_attention as DA
 from paddle_tpu_torch.ops.kernels import flash_attention as FA
+from paddle_tpu_torch.ops.kernels import fused_norm as FN
 from paddle_tpu_torch.ops.kernels import paged_attention as PA
 from paddle_tpu_torch.ops.kernels import conv_norm as CN
 from paddle_tpu_torch.ops.kernels import rope as RP
+from paddle_tpu_torch.ops.kernels import varlen_attention as VA
 from paddle_tpu_torch.ops.kernels import window_attention as WA
 
 pytestmark = pytest.mark.cuda
@@ -396,13 +403,24 @@ def test_launch_counters_count_cuda_launches_only():
     gw = torch.randn(1, 4, 4, 8, device="cuda")
     WA.window_attention_bwd(qkv, bias, None, gw, 4, 0, 2)
     WA.window_attention_bwd(qkv.cpu(), bias.cpu(), None, gw.cpu(), 4, 0, 2)
+    qp = torch.randn(5, 2, 64, device="cuda")
+    cu = torch.tensor([0, 2, 5], dtype=torch.int32, device="cuda")
+    out, lse = VA.varlen_fwd(qp, qp, qp, cu, cu)
+    VA.varlen_fwd(qp.cpu(), qp.cpu(), qp.cpu(), cu.cpu(), cu.cpu())
+    VA.varlen_bwd(qp, qp, qp, out, lse, qp, cu, cu)
+    VA.varlen_bwd(qp.cpu(), qp.cpu(), qp.cpu(), out.cpu(), lse.cpu(),
+                  qp.cpu(), cu.cpu(), cu.cpu())
+    FN.fused_norm(qp)
+    FN.fused_norm(qp.cpu())
     torch.cuda.synchronize()
     assert K.launch_counts() == {"flash_fwd": 1, "flash_bwd": 1,
                                  "paged_attention": 1,
                                  "decode_attention": 1, "rope": 1,
                                  "rope_bwd": 1, "conv_bn_act": 1,
                                  "window_attention": 1,
-                                 "window_attention_bwd": 1}
+                                 "window_attention_bwd": 1,
+                                 "varlen_fwd": 1, "varlen_bwd": 1,
+                                 "fused_norm": 1}
     K.reset_launches()
 
 
@@ -854,3 +872,198 @@ def test_tiny_vision_train_step_on_the_card_matches_cpu(name, kw, size, batch,
         if n.endswith(("_mean", "_variance")):
             err = ((a.cpu() - b).norm() / b.norm()).item()
             assert err <= 1e-2, (n, err)
+
+
+# --------------------------------------------- packed (varlen) attention
+def _packing(lens):
+    return torch.tensor([0] + np.cumsum(lens).tolist(), dtype=torch.int32,
+                        device="cuda")
+
+
+VARLEN_CASES = {
+    # (q lengths, k lengths or None for the same packing, H, D)
+    "ragged": ([1, 7, 64, 0, 100, 33], None, 4, 64),
+    "long_and_short": ([300, 1, 2, 45], None, 2, 128),
+    "unequal": ([5, 40, 17], [9, 3, 70], 3, 32),
+    "no_key_rows": ([3, 6, 4], [5, 0, 9], 2, 64),
+}
+
+
+def _varlen_inputs(case, dtype, seed=0):
+    lq, lk, h, d = VARLEN_CASES[case]
+    lk = lk or lq
+    g = torch.Generator(device="cuda").manual_seed(seed + len(lq))
+    q = _randn(g, sum(lq), h, d, dtype=dtype)
+    k = _randn(g, sum(lk), h, d, dtype=dtype)
+    v = _randn(g, sum(lk), h, d, dtype=dtype)
+    return q, k, v, _packing(lq), _packing(lk), lk
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("scale", [None, 0.17])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("case", sorted(VARLEN_CASES))
+def test_varlen_matches_plain(case, causal, scale, dtype):
+    q, k, v, cq, ck, _ = _varlen_inputs(case, dtype)
+    if causal and not torch.equal(cq, ck):
+        pytest.skip("causal needs equal packings (flash_attn_unpadded "
+                    "refuses the rest)")
+    out, lse = VA.varlen_fwd(q, k, v, cq, ck, scale=scale, causal=causal)
+    ref_out, ref_lse = VA.varlen_fwd_reference(q, k, v, cq, ck, scale,
+                                               causal)
+    _close(out, ref_out, dtype)
+    _close(lse, ref_lse, torch.float32)
+    dout = torch.randn_like(q)
+    got = VA.varlen_bwd(q, k, v, out, lse, dout, cq, ck, scale, causal)
+    want = VA.varlen_bwd_reference(q, k, v, out, lse, dout, cq, ck, scale,
+                                   causal)
+    _close_grads(got, want, dtype)
+
+
+def test_varlen_rows_with_no_key_are_zero_and_finite():
+    q, k, v, cq, ck, _ = _varlen_inputs("no_key_rows", torch.float32)
+    out, lse = VA.varlen_fwd(q, k, v, cq, ck)
+    assert torch.isfinite(lse).all()
+    assert out[3:9].abs().max().item() == 0.0      # segment 1 sees no key
+    dq, dk, dv = VA.varlen_bwd(q, k, v, out, lse, torch.randn_like(q), cq,
+                               ck)
+    assert dq[3:9].abs().max().item() == 0.0
+    assert all(torch.isfinite(t).all() for t in (dq, dk, dv))
+
+
+def test_varlen_matches_dense_flash_per_sequence():
+    """An independent check: each sequence of the packed batch through
+    the dense flash kernel equals its rows of the packed kernel."""
+    q, k, v, cq, _, _ = _varlen_inputs("ragged", torch.float32)
+    out, _ = VA.varlen_fwd(q, k, v, cq, cq, causal=True)
+    b = cq.tolist()
+    for i in range(len(b) - 1):
+        if b[i + 1] == b[i]:
+            continue
+        s = slice(b[i], b[i + 1])
+        dense, _ = FA.flash_fwd(q[None, s], k[None, s], v[None, s],
+                                causal=True)
+        _close(out[s], dense[0], torch.float32)
+
+
+def test_flash_attn_unpadded_grad_matches_autograd_of_plain():
+    from paddle_tpu_torch.nn.functional import flash_attn_unpadded
+
+    q, k, v, cq, ck, _ = _varlen_inputs("ragged", torch.float32, seed=3)
+    g = torch.randn_like(q)
+    grads = []
+    for dev in ("cuda", "cpu"):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (q, k, v)]
+        out, none = flash_attn_unpadded(*leaves, cq.to(dev), ck.to(dev),
+                                        64, 64, None, causal=True)
+        assert none is None
+        (out * g.to(dev)).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        _close(a.cpu(), b, torch.float32)
+
+
+# ------------------------------------------------------------ fused norm
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("kind", ["rms", "ln"])
+@pytest.mark.parametrize("rows,d,w,b,bias,res", [
+    (37, 768, True, True, False, False),     # ernie_base, odd rows
+    (8, 2048, True, True, True, True),       # gpt_1p3b width, all operands
+    (5, 1000, True, False, True, True),      # odd d, RMS with bias + res
+    (3, 1, False, False, False, True),       # one feature
+    (2, 20000, True, True, False, False),    # past 48 KB of shared memory
+    (4, 96, False, True, True, False),
+])
+def test_fused_norm_matches_plain(rows, d, w, b, bias, res, kind, dtype):
+    g = torch.Generator(device="cuda").manual_seed(rows * 13 + d)
+    x = _randn(g, rows, d, dtype=dtype) * 3 + 1
+    ops = dict(w=_randn(g, d, dtype=torch.float32) if w else None,
+               b=_randn(g, d, dtype=dtype) if b else None,
+               bias=_randn(g, d, dtype=dtype) if bias else None,
+               residual=_randn(g, rows, d, dtype=dtype) if res else None)
+    if ops["b"] is not None and ops["w"] is not None:
+        ops["b"] = ops["b"].float()
+    y, z = FN.fused_norm(x, **ops, eps=1e-5, kind=kind)
+    ry, rz = FN.fused_norm_reference(x, **ops, eps=1e-5, kind=kind)
+    _close(y, ry, dtype)
+    if bias or res:
+        assert torch.equal(z, rz)          # the same rounded adds
+    else:
+        assert z is None and rz is None
+
+
+@pytest.mark.parametrize("kind", ["rms", "ln"])
+def test_fused_norm_grad_is_the_plain_backward(kind):
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = _randn(g, 6, 256, dtype=torch.float32)
+    w, b, bias = (_randn(g, 256, dtype=torch.float32) for _ in range(3))
+    res = _randn(g, 6, 256, dtype=torch.float32)
+    gy, gz = _randn(g, 6, 256, dtype=torch.float32), \
+        _randn(g, 6, 256, dtype=torch.float32)
+    grads = []
+    for dev in ("cuda", "cpu"):
+        leaves = [t.detach().to(dev).requires_grad_()
+                  for t in (x, w, b, bias, res)]
+        y, z = FN.FusedNorm.apply(*leaves, 1e-6, kind)
+        ((y * gy.to(dev)).sum() + (z * gz.to(dev)).sum()).backward()
+        grads.append([t.grad for t in leaves])
+    for a, r in zip(*grads):
+        _close(a.cpu(), r, torch.float32)
+
+
+# ------------------------------------------ decode at GQA groups above 8
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("hq,hkv", [(32, 2), (12, 1)])
+def test_decode_kernels_serve_gqa_groups_above_eight(hq, hkv, dtype):
+    g = torch.Generator(device="cuda").manual_seed(hq)
+    b, s, d = 3, 200, 128
+    q = _randn(g, b, hq, d, dtype=dtype)
+    kc = _randn(g, b, hkv, s, d, dtype=dtype)
+    vc = _randn(g, b, hkv, s, d, dtype=dtype)
+    pos = torch.tensor([199, 7, 100], dtype=torch.int32, device="cuda")
+    start = torch.tensor([10, 0, 100], dtype=torch.int32, device="cuda")
+    _close(DA.decode_attention(q, kc, vc, pos, start),
+           DA.decode_attention_reference(q, kc, vc, pos, start), dtype)
+    ps, npool = 16, 40
+    kp = _randn(g, npool, hkv, ps, d, dtype=dtype)
+    vp = _randn(g, npool, hkv, ps, d, dtype=dtype)
+    pt = torch.randperm(npool - 1, generator=g, device="cuda")[:3 * 13] \
+        .reshape(3, 13).int() + 1
+    _close(PA.paged_attention(q, kp, vp, pt, pos),
+           PA.paged_attention_reference(q, kp, vp, pt, pos), dtype)
+
+
+# ------------------------------------------------ incubate fused layers
+@pytest.mark.parametrize("name", ["FusedMultiTransformer",
+                                  "FusedTransformerEncoderLayer"])
+def test_incubate_layers_on_the_card_match_cpu(name):
+    from paddle_tpu_torch.incubate import nn as inn
+
+    kw = dict(num_layers=2) if name == "FusedMultiTransformer" else \
+        dict(dropout_rate=0.0)
+    cpu = getattr(inn, name)(128, 4, 256, **kw, device="cpu", seed=1)
+    gpu = getattr(inn, name)(128, 4, 256, **kw, seed=1)
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.randn(2, 40, 128)
+    K.reset_launches()
+    if name == "FusedMultiTransformer":
+        gpu.eval(), cpu.eval()
+        _close(gpu(x.cuda()).cpu(), cpu(x), torch.float32)
+        assert K.launch_counts()["fused_norm"] == 4
+        assert K.launch_counts()["flash_fwd"] == 2
+    else:
+        gpu.train(), cpu.train()
+        outs = [m(x.to(dev)) for m, dev in ((gpu, "cuda"), (cpu, "cpu"))]
+        _close(outs[0].cpu(), outs[1], torch.float32)
+        gy = torch.randn(outs[1].shape)
+        for o in outs:
+            (o * gy.to(o.device)).mean().backward()
+        for (n, a), b in zip(gpu.named_parameters(), cpu.parameters()):
+            if b.grad is None:     # post-LN: the pre-LN scales are unread
+                assert a.grad is None, n
+                continue
+            err = (a.grad.cpu() - b.grad).abs().max().item()
+            assert err <= 1e-4 * max(1.0, b.grad.abs().max().item()), n
+        assert K.launch_counts()["fused_norm"] == 2
+        assert K.launch_counts()["flash_bwd"] == 1
+    K.reset_launches()

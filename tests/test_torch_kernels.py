@@ -124,7 +124,7 @@ def test_flash_fwd_left_pad_rows_stay_finite():
     assert torch.isfinite(out).all() and torch.isfinite(lse).all()
 
 
-@pytest.mark.parametrize("hq,hkv", [(8, 2), (4, 4)])
+@pytest.mark.parametrize("hq,hkv", [(8, 2), (4, 4), (32, 2)])
 def test_paged_attention_plain_matches_pallas(hq, hkv):
     rs = np.random.RandomState(1)
     b, d, ps, npool = 5, 16, 8, 12
@@ -154,7 +154,7 @@ def test_paged_attention_int8_pool_raises():
                         v_scales=torch.ones(2, 2, 8))
 
 
-@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2), (32, 2)])
 @pytest.mark.parametrize("with_start", [True, False])
 def test_decode_attention_plain_matches_pallas(hq, hkv, with_start):
     rs = np.random.RandomState(2)

@@ -55,6 +55,7 @@ def test_import_leaves_jax_and_paddle_tpu_out():
     code = textwrap.dedent("""
         import sys
         import paddle_tpu_torch
+        import paddle_tpu_torch.incubate
         import paddle_tpu_torch.inference.engine
         import paddle_tpu_torch.models
         import paddle_tpu_torch.ops.kernels
@@ -412,3 +413,53 @@ def test_window_attention_refuses_grad_on_cuda_before_any_work():
     called = _calls(swin.WindowAttention.forward)
     assert "window_attention" in called
     assert not any(c.endswith("_reference") for c in called), called
+
+
+def test_new_wrappers_refuse_non_cpu_tensors():
+    """The packed-attention and fused-norm wrappers: a tensor on any
+    device but the CPU raises before any work, and nothing counts."""
+    meta = dict(device="meta")
+    q = torch.empty(6, 2, 8, **meta)
+    cu = torch.empty(3, dtype=torch.int32, **meta)
+    with pytest.raises(ValueError, match="device"):
+        K.varlen_attention.varlen_fwd(q, q, q, cu, cu)
+    with pytest.raises(ValueError, match="device"):
+        K.varlen_attention.varlen_bwd(q, q, q, q, torch.empty(2, 6, **meta),
+                                      q, cu, cu)
+    with pytest.raises(ValueError, match="device"):
+        K.fused_norm.fused_norm(torch.empty(4, 8, **meta))
+    assert K.launch_counts() == {n: 0 for n in K.KERNELS}
+
+
+def test_varlen_and_fused_norm_autograd_reach_only_their_wrappers():
+    """`VarlenAttention` runs `varlen_fwd` forward and `varlen_bwd`
+    backward (the kernels on CUDA), `FusedNorm` runs `fused_norm`
+    forward; nothing caught, no plain version called.  The entry points
+    go through these functions only."""
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.nn.functional import attention as A
+
+    va = K.varlen_attention
+    for method, wrapper in ((va.VarlenAttention.forward, "varlen_fwd"),
+                            (va.VarlenAttention.backward, "varlen_bwd"),
+                            (K.fused_norm.FusedNorm.forward, "fused_norm")):
+        called = _calls(method)
+        assert wrapper in called, called
+        assert not any(c.endswith("_reference") for c in called), called
+    assert "VarlenAttention.apply" in _calls(A.flash_attn_unpadded)
+    for fn in (IF.fused_rms_norm, IF.fused_layer_norm):
+        called = _calls(fn)
+        assert "FusedNorm.apply" in called
+        assert not any(c.endswith("_reference") for c in called), called
+
+
+@pytest.mark.parametrize("wrapper", ["decode_attention", "paged_attention"])
+def test_decode_wrappers_take_any_gqa_group(wrapper):
+    """The kernels split a GQA group into chunks of at most 8 query heads
+    (a grid dimension), so the wrappers compare the group against no
+    bound: the `> 8` refusal is gone."""
+    fn = getattr(getattr(K, wrapper), wrapper)
+    tree = ast.parse(textwrap.dedent(inspect.getsource(fn)))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Compare):
+            assert "hq // hkv" not in ast.unparse(node), ast.unparse(node)

@@ -202,6 +202,28 @@ def test_cross_entropy_loss_matches_jax_layer(ignore_index):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 
 
+@pytest.mark.parametrize("ignore_index", [-100, 3])
+def test_cross_entropy_takes_paddle_column_labels(ignore_index):
+    """[N, 1] labels, Paddle's usual layout (the reference's datasets
+    yield ``np.array([label])``): the trailing size-1 axis is squeezed,
+    as JAX ``loss.py:50-51`` does, in the functional and the layer."""
+    rs = np.random.RandomState(6)
+    logits = (rs.randn(6, 11) * 3).astype(np.float32)
+    labels = rs.randint(0, 11, (6, 1)).astype(np.int32)
+    labels[4, 0] = ignore_index
+    ref = P.nn.CrossEntropyLoss(ignore_index=ignore_index)(
+        P.to_tensor(logits), P.to_tensor(labels, "int32")).numpy()
+    got = tnn.CrossEntropyLoss(ignore_index=ignore_index)(_t(logits),
+                                                          _t(labels))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+    fn = TF.cross_entropy(_t(logits), _t(labels), ignore_index=ignore_index)
+    np.testing.assert_allclose(fn.numpy(), np.asarray(ref), **TOL)
+    # the same loss as the [N] form
+    flat = TF.cross_entropy(_t(logits), _t(labels[:, 0]),
+                            ignore_index=ignore_index)
+    assert float(fn) == float(flat)
+
+
 def test_cross_entropy_loss_refuses_what_is_not_ported():
     for kw in (dict(weight=torch.ones(4)), dict(reduction="sum"),
                dict(soft_label=True), dict(axis=1), dict(use_softmax=False),
