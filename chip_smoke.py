@@ -13,7 +13,7 @@ non-zero and prints no result):
 
   1. device: `nvidia-smi` name and power limit, torch's device name;
   2. build: every CUDA kernel with nvcc for sm_90a, one nvcc per source
-     (nine), all started together;
+     (ten), all started together; registers and spills per source;
   3. kernels: each kernel against its plain PyTorch version at the main
      path's shapes, in bf16 and f32, with its time, the plain version's,
      one PyTorch library call's where one computes the same function,
@@ -48,14 +48,30 @@ non-zero and prints no result):
      `run_steps(repeat=10)` timed between synchronizes: tokens/s, ms per
      step, MFU against the 989 TFLOP/s bf16 peak, peak memory, launches
      per step.  The loss must stay finite and fall;
+ 8a. kv_layout_parity: GPT-125M widths at 2 layers in f32, batch 2 x
+     256: 3 AdamW steps under FLAGS_flash_layout=kv and 3 on the native
+     tier from the same weights; losses and every parameter after the
+     steps bit-identical; 2 + 2 relayout launches per layer per step;
+ 8b. train_kv_layout: phase 8 under FLAGS_flash_layout=kv (the `kv`
+     layout tier: relayouts around the head-major flash kernels), with
+     exactly 24 relayout_to_hm + 24 relayout_from_hm per step;
   9. llama_serve: llama_7b (hidden 4096, 32 layers, 32 heads of 128, ffn
      11008, vocab 32000, untied head) in bf16 with seeded weights, as
      phase 4: 8 requests x 32 tokens, >= 2 prefix hits, rope launched
      2 x 32 times per model forward (q and k of every layer);
+ 9a. llama_serve_int8: the same model and requests behind
+     EngineConfig(kv_precision="int8"): int8 page pools with f32 scales,
+     paged_attention_int8 launched 32 times per decode forward and the
+     bf16 paged_attention never; page bytes of both tiers;
  10. llama_generate: as phase 5 on llama_7b (the f32 copy at full depth);
  11. llama_parity: llama2_70b_shapes widths (hidden 8192, 64 heads over 8
      kv heads, ffn 28672) at 2 layers in f32, as phase 6: a GQA group of
      8 through paged_attention, decode_attention and flash_fwd;
+ 11a. int8_parity: the same widths under kv_precision="int8": two
+     engine runs bit-identical, every first token equal to the exact
+     engine's, the card's int8 codec bit for bit the CPU's on one dense
+     K buffer, and every page a 1000-token prefill packs, dequantized,
+     within absmax / 127 of its dense rows;
  12. llama_train_parity: llama_7b widths at 1 layer in f32, batch 1 x
      128: 3 AdamW steps with `LlamaPretrainingCriterion` on the card
      (rope and its adjoint, flash_fwd and flash_bwd at D=128) and on the
@@ -110,7 +126,11 @@ non-zero and prints no result):
      step, a profiler split of one step; the loss must fall over 10
      steps.
 
-Phase 3 also holds varlen_fwd / varlen_bwd on the packed batch of phase
+Phase 3 also holds paged_attention_int8 (the gpt_1p3b row's pool in
+int8, and a llama_7b decode step, 32 kv heads over ~1000 keys each) and
+relayout_to_hm / relayout_from_hm at the GPT-125M train shape [8, 1024,
+12, 64] (library: the same transpose on the card); varlen_fwd /
+varlen_bwd on the packed batch of phase
 17 (library yardstick: SDPA on `torch.nested` jagged tensors, or with a
 block-diagonal mask where this PyTorch cannot dispatch those; the form
 is logged), fused_norm at the norms of phases 19 and 20, an RMS norm
@@ -119,8 +139,8 @@ and paged_attention at a GQA group of 16 (32 query heads over 2 kv
 heads).
 
 Launch counters are reset just before the driven part of phases 4, 5,
-8, 9, 10, 12, 14, 15, 16, 17, 19 and 20 and read just after each; every
-kernel of each path must have launched.  The line before last is the
+8, 8a, 8b, 9, 9a, 10, 11a, 12, 14, 15, 16, 17, 19 and 20 and read just
+after each; every kernel of each path must have launched.  The line before last is the
 JSON kernel table (`launches` summed over those paths); the last line
 is the device JSON.
 """
@@ -130,6 +150,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -212,12 +233,17 @@ def phase_build():
     secs = _build.build(names)
     log(f"[build] {json.dumps({n: round(s, 1) for n, s in secs.items()})}"
         f" wall {time.perf_counter() - t0:.1f}s")
-    for n in names:
+    for n in dict.fromkeys(names):
+        # ptxas -v: one "Used N registers" and one spill line per kernel
         with open(os.path.join(_build.BUILD_DIR, f"{n}.log")) as f:
-            usage = [ln.strip() for ln in f if "registers" in ln
-                     or "spill" in ln]
-        for ln in usage[:4]:
-            log(f"[build] {n}: {ln}")
+            text = f.read()
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers", text)]
+        spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores",
+                                             text)]
+        log(f"[build] {n}: {len(regs)} kernels, registers max "
+            f"{max(regs, default=0)}, kernels spilling "
+            f"{sum(x > 0 for x in spills)} (max {max(spills, default=0)} "
+            "bytes of spill stores)")
 
 
 # ----------------------------------------------------------------- phase 3
@@ -397,7 +423,84 @@ def kernel_cases(torch, dtype, vision, train):
             + rope_cases(torch, dtype) + conv_cases(torch, dtype, vision)
             + window_cases(torch, dtype, vision)
             + window_bwd_cases(torch, dtype, train)
-            + varlen_cases(torch, dtype) + fused_norm_cases(torch, dtype))
+            + varlen_cases(torch, dtype) + fused_norm_cases(torch, dtype)
+            + int8_cases(torch, dtype) + relayout_cases(torch, dtype))
+
+
+def _paged_table(torch, g, pos, npool, p, ps):
+    """[B, p] page table over distinct random pages of a pool of npool
+    (page 0 the scratch page) for rows of pos[b] + 1 keys; rows with pos
+    0 keep the all-scratch row of a free slot."""
+    pt = torch.zeros(len(pos), p, dtype=torch.int32, device="cuda")
+    perm = torch.randperm(npool - 1, generator=g, device="cuda") + 1
+    used = 0
+    for r, n in enumerate(int(x) // ps + 1 for x in pos):
+        if int(pos[r]):
+            pt[r, :n] = perm[used:used + n].int()
+            used += n
+    return pt
+
+
+def int8_cases(torch, dtype):
+    """paged_attention_int8 (int8 pools, f32 scales per token and kv head,
+    q and out in `dtype`): the gpt_1p3b row's shape (B4 over the default
+    pool, 16 heads of 128) and a llama_7b decode step (B4, 32 kv heads of
+    128, ~1000 keys each).  Bound: each live row's codes and scales of K
+    and V once, q and out once."""
+    from paddle_tpu_torch.ops.kernels import paged_attention as PA
+    from paddle_tpu_torch.ops.quant import quantize_vectors
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    isz = torch.empty((), dtype=dtype).element_size()
+    dname = str(dtype).split(".")[1]
+    cases = []
+    for label, h, pos in (
+            ("B4 pool513x16x16x128", 16, (1031, 330, 551, 0)),
+            ("llama_7b B4 pool513x32x16x128", 32, (1040, 1000, 960, 1020))):
+        ps, npool, p, d = 16, 4 * 128 + 1, 128, 128
+        q = torch.randn(4, h, d, generator=g, device="cuda", dtype=dtype)
+        kq, ks = quantize_vectors(torch.randn(npool, h, ps, d, generator=g,
+                                              device="cuda"))
+        vq, vs = quantize_vectors(torch.randn(npool, h, ps, d, generator=g,
+                                              device="cuda"))
+        posd = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        pt = _paged_table(torch, g, pos, npool, p, ps)
+        keys = sum(x + 1 for x in pos)
+        cases.append((
+            "paged_attention_int8", label,
+            lambda q=q, kq=kq, vq=vq, pt=pt, pos=posd, ks=ks, vs=vs:
+                PA.paged_attention(q, kq, vq, pt, pos, k_scales=ks,
+                                   v_scales=vs),
+            lambda q=q, kq=kq, vq=vq, pt=pt, pos=posd, ks=ks, vs=vs:
+                PA.paged_attention_reference(q, kq, vq, pt, pos, ks, vs),
+            None,
+            keys * h * (2 * d + 2 * 4) + 2 * 4 * h * d * isz
+            + pt.numel() * 4 + 16, 4 * keys * h * d, "float32", 0))
+    return cases
+
+
+def relayout_cases(torch, dtype):
+    """relayout_to_hm / relayout_from_hm at the GPT-125M train shape
+    [8, 1024, 12, 64] (the kv tier's Q, O, dO and dQ).  Library: the same
+    `transpose(1, 2).contiguous()` on the card.  Bound: every element read
+    once and written once."""
+    from paddle_tpu_torch.ops.kernels import relayout as RL
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    isz = torch.empty((), dtype=dtype).element_size()
+    dname = str(dtype).split(".")[1]
+    b, s, h, d = 8, 1024, 12, 64
+    x = torch.randn(b, s, h, d, generator=g, device="cuda", dtype=dtype)
+    xt = torch.randn(b, h, s, d, generator=g, device="cuda", dtype=dtype)
+    nbytes = 2 * b * s * h * d * isz
+    return [("relayout_to_hm", f"[{b},{s},{h},{d}] -> head-major",
+             lambda: RL.to_head_major(x),
+             lambda: RL.to_head_major_reference(x),
+             lambda: x.transpose(1, 2).contiguous(), nbytes, 0, dname, 0),
+            ("relayout_from_hm", f"[{b},{h},{s},{d}] -> native",
+             lambda: RL.from_head_major(xt),
+             lambda: RL.from_head_major_reference(xt),
+             lambda: xt.transpose(1, 2).contiguous(), nbytes, 0, dname, 0)]
 
 
 def gqa16_cases(torch, dtype):
@@ -1168,7 +1271,10 @@ def _rope_launches_per_forward(counts, cfg, forwards, what):
           f"forwards, expected {want}")
 
 
-def phase_serve(model, cfg, name):
+def phase_serve(model, cfg, name, kv_precision=None):
+    """The engine with the default EngineConfig (and `kv_precision`):
+    8 requests x 32 tokens.  Every decode forward launches the tier's
+    paged kernel once per layer and the other tier's never."""
     import torch
 
     from paddle_tpu_torch.inference.engine import (
@@ -1177,7 +1283,7 @@ def phase_serve(model, cfg, name):
     from paddle_tpu_torch.ops import kernels as K
 
     prompts = _prompts(cfg.vocab_size)
-    eng = InferenceEngine(model, EngineConfig())
+    eng = InferenceEngine(model, EngineConfig(kv_precision=kv_precision))
     check((eng.config.page_size, eng.config.max_slots,
            eng.config.decode_chunk, eng.config.prefill_bucket,
            eng.config.prefix_cache) == (16, 4, 1, 16, True),
@@ -1229,19 +1335,31 @@ def phase_serve(model, cfg, name):
         check(((o >= 0) & (o < cfg.vocab_size)).all(), "token out of vocab")
     hits = eng.prefix_cache_stats()["hits"]
     check(hits >= 2, f"prefix cache hits {hits}: warm prefill did not run")
-    for k in ("flash_fwd", "paged_attention"):
-        check(counts[k] > 0, f"serving path never launched {k}")
+    paged, other = ("paged_attention_int8", "paged_attention") \
+        if kv_precision == "int8" else ("paged_attention",
+                                        "paged_attention_int8")
+    check(counts["flash_fwd"] > 0, "serving path never launched flash_fwd")
+    # decode_chunk 1: one model forward per decode step
+    check(counts[paged] == cfg.num_layers * len(step_ms),
+          f"serve: {paged} launched {counts[paged]} times in "
+          f"{len(step_ms)} decode forwards, expected {cfg.num_layers} "
+          "per forward")
+    check(counts[other] == 0, f"serve: {other} launched {counts[other]} "
+          f"times under kv_precision={kv_precision}")
     _rope_launches_per_forward(counts, cfg, len(forwards), "serve")
     gen = sum(len(o) - len(p) for p, o in zip(prompts, outs))
     ttft = sorted(first)
-    log(f"[serve] {name} bf16 {cfg.num_layers}L: {len(prompts)} requests "
-        f"x 32 tokens "
+    st = eng.stats()
+    log(f"[serve] {name} bf16 {cfg.num_layers}L kv {st['kv_precision']}: "
+        f"{len(prompts)} requests x 32 tokens "
         f"in {wall:.2f}s: {gen / wall:.1f} tokens/s, TTFT p50 "
         f"{1e3 * ttft[len(ttft) // 2]:.1f} ms (max "
         f"{1e3 * ttft[-1]:.1f}), mean decode step "
         f"{np.mean(step_ms):.2f} ms over {len(step_ms)} steps, prefix "
-        f"hits {hits}, {len(forwards)} forwards, launches "
-        f"{json.dumps(counts)}")
+        f"hits {hits}, page_bytes {st['page_bytes']} x "
+        f"{eng.config.num_pages} pages, {len(forwards)} forwards, "
+        f"{paged} {counts[paged] / max(1, len(step_ms)):.0f} per decode "
+        f"forward, launches {json.dumps(counts)}")
     return counts
 
 
@@ -1337,6 +1455,87 @@ def phase_parity(cls, cfg, name):
         f"{hits}")
 
 
+def phase_int8_parity(cls, cfg, name, new_tokens=8):
+    """`cls(cfg)` in f32 (depth cut by the caller) behind the engine with
+    kv_precision="int8": two runs bit-identical, every first token equal
+    to the exact engine's (it comes off the exact dense prefill, warm
+    ones off the exact sidecar), the int8 kernel only; the card's codec
+    bit for bit the CPU's on one dense K buffer; and every page a pack
+    writes, dequantized, within absmax / 127 of its dense rows."""
+    import torch
+
+    from paddle_tpu_torch.inference.engine import (
+        EngineConfig, InferenceEngine,
+    )
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.ops.quant import (
+        dequantize_vectors, quantize_vectors,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = cls(cfg, device="cuda", dtype=torch.float32, seed=SEED)
+    prompts = _prompts(cfg.vocab_size)
+    exact = InferenceEngine(model, EngineConfig()).generate(
+        prompts, max_new_tokens=new_tokens)
+    K.reset_launches()
+    runs = []
+    for _ in range(2):
+        eng = InferenceEngine(model, EngineConfig(kv_precision="int8"))
+        runs.append(eng.generate(prompts, max_new_tokens=new_tokens))
+        hits = eng.prefix_cache_stats()["hits"]
+        check(hits >= 2, f"int8_parity prefix cache hits {hits}: warm "
+              "prefill did not run")
+    counts = K.launch_counts()
+    check(counts["paged_attention_int8"] > 0
+          and counts["paged_attention"] == 0,
+          f"int8_parity launches {json.dumps(counts)}")
+    for a, b, e, p in zip(*runs, exact, prompts):
+        check(np.array_equal(a, b), f"int8 engine not bit-stable on a "
+              f"{p.size}-token prompt")
+        check(np.array_equal(a[:p.size + 1], e[:p.size + 1]),
+              f"int8 first token differs from the exact engine's on a "
+              f"{p.size}-token prompt")
+    same = sum(np.array_equal(a, e) for a, e in zip(runs[0], exact))
+    # one cold prefill packed by a fresh int8 engine into pages 1..n
+    eng = InferenceEngine(model, EngineConfig(kv_precision="int8"))
+    prompt = prompts[5]                           # 1000 tokens
+    s0, ps = prompt.size, eng.config.page_size
+    sb = eng._bucket(s0)
+    start = sb - s0
+    ids = np.zeros((1, sb), np.int32)
+    ids[0, start:] = prompt
+    worst = 0.0
+    with torch.inference_mode():
+        _, kbufs, vbufs = eng._run_prefill(sb, ids, start)
+        x = kbufs[0][0]
+        got, want = quantize_vectors(x), quantize_vectors(x.cpu())
+        check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
+              "int8_parity: the card's codec differs from the CPU's")
+        pages = np.arange(1, -(-sb // ps) + 1, dtype=np.int32)
+        eng._run_pack(kbufs, vbufs, pages, start)
+        pg = torch.from_numpy(pages).long().cuda()
+        for li in range(eng._layers):
+            for pools, scales, bufs in (
+                    (eng._k_pools, eng._k_scales, kbufs),
+                    (eng._v_pools, eng._v_scales, vbufs)):
+                deq = dequantize_vectors(pools[li][pg], scales[li][pg])
+                deq = deq.transpose(0, 1).reshape(
+                    eng._hkv, -1, eng._hd)[:, :s0]
+                dense = bufs[li][0, :, start:start + s0].float()
+                bound = dense.abs().amax(-1, keepdim=True) / 127.0
+                ratio = ((deq - dense).abs() / bound.clamp_min(1e-30)) \
+                    .max().item()
+                worst = max(worst, ratio)
+    check(worst <= 1.0, f"int8_parity: a packed page is {worst:.3g} x "
+          "absmax / 127 off its dense rows")
+    log(f"[int8_parity] f32 {name} widths {cfg.num_layers}L, kv int8: 2 "
+        f"runs bit-identical, first tokens equal the exact engine's, "
+        f"{same}/{len(prompts)} whole streams equal it ({new_tokens} "
+        f"tokens); codec card == cpu; packed pages within "
+        f"{worst:.3f} x absmax/127 of the dense rows; launches "
+        f"{json.dumps(counts)}")
+
+
 # ----------------------------------------------------------------- phase 7
 def _gpt125m(layers):
     from paddle_tpu_torch.models.gpt import GPTConfig
@@ -1357,6 +1556,52 @@ def _train_step(model, amp_dtype=None):
         else LlamaPretrainingCriterion()
     return build_train_step(model, AdamW(learning_rate=1e-4), crit,
                             amp_dtype=amp_dtype)
+
+
+def phase_kv_layout_parity(steps=3):
+    """GPT-125M widths at 2 layers in f32, batch 2 x 256: `steps` AdamW
+    steps under FLAGS_flash_layout=kv and the same steps on the native
+    tier, from the same weights and batch.  The losses and every
+    parameter after the steps must be bit-identical (the head-major
+    kernels differ from the native ones only in addressing)."""
+    import torch
+
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.ops import kernels as K
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _gpt125m(2)
+    rs = np.random.RandomState(SEED)
+    ids, labels = (torch.from_numpy(rs.randint(0, cfg.vocab_size, (2, 256))
+                                    .astype(np.int32)).cuda()
+                   for _ in range(2))
+    runs = {}
+    for layout in (None, "kv"):
+        with _layout(layout):
+            model = GPTForCausalLM(cfg, device="cuda", seed=SEED)
+            K.reset_launches()
+            losses = _train_step(model).run_steps(ids, labels, repeat=steps)
+            torch.cuda.synchronize()
+            runs[layout] = (losses.cpu(), K.launch_counts(),
+                            [p.detach().clone() for p in model.parameters()])
+            del model
+    (ln, cn, pn), (lk, ck, pk) = runs[None], runs["kv"]
+    check(torch.isfinite(ln).all().item(), f"kv_layout_parity losses {ln}")
+    check(torch.equal(ln, lk), f"kv_layout_parity: losses native "
+          f"{ln.tolist()} vs kv {lk.tolist()}")
+    diff = [i for i, (a, b) in enumerate(zip(pn, pk)) if not torch.equal(a, b)]
+    check(not diff, f"kv_layout_parity: {len(diff)} of {len(pn)} parameters "
+          f"differ after {steps} steps (first: #{diff[:1]})")
+    per = 2 * cfg.num_layers * steps
+    check(cn["relayout_to_hm"] == cn["relayout_from_hm"] == 0
+          and ck["relayout_to_hm"] == ck["relayout_from_hm"] == per
+          and cn["flash_fwd"] == ck["flash_fwd"] > 0,
+          f"kv_layout_parity launches native {json.dumps(cn)} kv "
+          f"{json.dumps(ck)}")
+    log(f"[kv_layout_parity] f32 GPT-125M widths 2L B2 S256, {steps} AdamW "
+        f"steps: losses {lk.tolist()} bit-identical on both tiers, "
+        f"{len(pk)} parameters bit-identical; kv launches {json.dumps(ck)}")
+    return ck
 
 
 def phase_train_parity(cls, cfg, name, batch, seq, kernels):
@@ -1394,7 +1639,33 @@ def phase_train_parity(cls, cfg, name, batch, seq, kernels):
 
 
 # ----------------------------------------------------------------- phase 8
-def phase_train(card):
+class _layout:
+    """FLAGS_flash_layout set for the body of a with-statement (None: the
+    default tier), restored after it."""
+
+    def __init__(self, value):
+        self.value = value
+
+    def __enter__(self):
+        self.prev = os.environ.pop("FLAGS_flash_layout", None)
+        if self.value is not None:
+            os.environ["FLAGS_flash_layout"] = self.value
+
+    def __exit__(self, *exc):
+        os.environ.pop("FLAGS_flash_layout", None)
+        if self.prev is not None:
+            os.environ["FLAGS_flash_layout"] = self.prev
+
+
+def phase_train(card, layout=None):
+    """bench.py's GPT-125M step; `layout` "kv" runs it under
+    FLAGS_flash_layout=kv (the relayouts around the head-major flash
+    kernels: 2 + 2 per layer per step)."""
+    with _layout(layout):
+        return _train_phase(card, layout)
+
+
+def _train_phase(card, layout):
     import torch
 
     from paddle_tpu_torch.models.gpt import GPTForCausalLM
@@ -1428,11 +1699,16 @@ def phase_train(card):
           f"train: non-finite loss {warm} {losses.tolist()}")
     check(losses[-1] < warm[0], f"train: loss did not fall ({warm[0]} -> "
           f"{losses[-1]})")
-    for k in ("flash_fwd", "flash_bwd"):
-        check(counts[k] == cfg.num_layers * iters,
+    want = {"flash_fwd": 1, "flash_bwd": 1, "relayout_to_hm": 0,
+            "relayout_from_hm": 0}
+    if layout == "kv":
+        want.update(relayout_to_hm=2, relayout_from_hm=2)
+    for k, per_layer in want.items():
+        check(counts[k] == per_layer * cfg.num_layers * iters,
               f"train: {k} launched {counts[k]} times in {iters} steps, "
-              f"expected {cfg.num_layers} per step")
-    log(f"[train] GPT-125M bf16 AMP 12L B{batch} S{seq} ({card}): "
+              f"expected {per_layer * cfg.num_layers} per step")
+    log(f"[train] GPT-125M bf16 AMP 12L B{batch} S{seq} flash layout "
+        f"{layout or 'native'} ({card}): "
         f"{tps:.1f} tokens/s, {1e3 * dt / iters:.2f} ms/step, MFU "
         f"{100 * mfu:.2f}% of {peak_flops / 1e12:.0f} TFLOP/s "
         f"(N={n_params}), peak memory {peak / 2**30:.2f} GiB; loss "
@@ -2110,7 +2386,8 @@ def _log_profile(prof, what, wall_ms, steps):
         kind = ("window bwd" if "window_attention_bwd" in name
                 else "window fwd" if "window_attention_kernel" in name
                 else "port kernels" if "flash_" in name or "_attention_kernel"
-                in name or "rope_" in name or "conv_dense" in name
+                in name or "_attention_q8" in name or "relayout_kernel" in name
+                or "rope_" in name or "conv_dense" in name
                 or "conv_depthwise" in name or "fused_norm_kernel" in name
                 else "gemm/conv" if "nvjet" in name or "gemm" in name
                 or "conv" in name or "cudnn" in name or "sm90" in name
@@ -2131,9 +2408,10 @@ def _log_profile(prof, what, wall_ms, steps):
             f"ms/step  x{e.count // steps:<5d} {e.key[:90]}")
 
 
-def phase_profile(model, cfg, steps=10):
+def phase_profile(model, cfg, steps=10, kv_precision=None):
     """torch.profiler over `steps` steady decode steps of the engine (4
-    slots busy): device busy share and the ops that hold the step."""
+    slots busy; `kv_precision` its KV tier): device busy share and the
+    ops that hold the step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2141,7 +2419,7 @@ def phase_profile(model, cfg, steps=10):
         EngineConfig, InferenceEngine,
     )
 
-    eng = InferenceEngine(model, EngineConfig())
+    eng = InferenceEngine(model, EngineConfig(kv_precision=kv_precision))
     for p in _prompts(cfg.vocab_size)[1:5]:
         eng.submit(p, max_new_tokens=steps + 8)
     for _ in range(3):            # prefills, then two decode steps
@@ -2154,7 +2432,8 @@ def phase_profile(model, cfg, steps=10):
             eng.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    _log_profile(prof, "engine decode step (4 slots)", wall_ms, steps)
+    _log_profile(prof, f"engine decode step (4 slots, kv "
+                 f"{kv_precision or 'full'})", wall_ms, steps)
 
 
 # ----------------------------------------------------------------- main
@@ -2226,17 +2505,36 @@ def main():
             run("profile_train", phase_profile_train, step, ids, labels)
         del step
         release()
+        paths.append(run("kv_layout_parity", phase_kv_layout_parity))
+        release()
+        train, step, ids, labels = run("train_kv_layout", phase_train, card,
+                                       "kv")
+        paths.append(train)
+        if profile:
+            with _layout("kv"):
+                run("profile_train_kv", phase_profile_train, step, ids,
+                    labels, 3, "train step, flash layout kv")
+        del step
+        release()
         lcfg = llama_7b()
         model = load(LlamaForCausalLM, lcfg, "llama_7b")
         paths += [run("llama_serve", phase_serve, model, lcfg, "llama_7b"),
+                  run("llama_serve_int8", phase_serve, model, lcfg,
+                      "llama_7b", "int8"),
                   run("llama_generate", phase_generate, model, lcfg,
                       "llama_7b")]
         if profile:
             run("llama_profile", phase_profile, model, lcfg)
+            run("llama_profile_int8", phase_profile, model, lcfg, 10,
+                "int8")
         del model
         release()
         run("llama_parity", phase_parity, LlamaForCausalLM,
             llama2_70b_shapes(num_layers=2), "llama2_70b_shapes")
+        release()
+        run("int8_parity", phase_int8_parity, LlamaForCausalLM,
+            llama2_70b_shapes(num_layers=2), "llama2_70b_shapes")
+        release()
         paths.append(run("llama_train_parity", phase_train_parity,
                          LlamaForCausalLM, llama_7b(num_layers=1),
                          "llama_7b", 1, 128,

@@ -55,6 +55,14 @@
 // exactly.  A row with no visible key (an empty k segment) gets zero dQ
 // and gives nothing to dK/dV.  Bound on this card: operations, 10 * D
 // flops per visible (query, key) pair of the segments.
+//
+// Head-major mode (the `kv` layout tier), the same kernels with HM = true:
+// Q, O, dO and dQ are [B, Hq, Sq, D]; K, V, dK, dV and the LSE keep their
+// layouts.  Replaces the Q/O/dO/dQ addressing of `_bwd_kv` (:1020,
+// pallas_call :1036 dQ, :1053 dK/dV) under `_flash_core_kv_bwd` (:1084).
+// Only the row offsets differ (the delta pass then walks [B, Hq, Sq] in
+// memory order), so its numbers are the native kernels' bit for bit; the
+// dense instantiations (HM = false) are unchanged.
 #include "common.cuh"
 
 #define FB_BQ 32
@@ -62,8 +70,9 @@
 #define FB_WARPS 8
 #define FB_RPW (FB_BQ / FB_WARPS)
 
-// (a) delta[b, h, i] over rows of [B, Sq, Hq] in memory order.
-template <typename T>
+// (a) delta[b, h, i] over rows of [B, Sq, Hq] in memory order ([B, Hq,
+// Sq], delta's own order, in head-major mode).
+template <typename T, bool HM>
 __global__ void __launch_bounds__(FB_WARPS * 32) flash_bwd_delta_kernel(
     const T* __restrict__ o, const T* __restrict__ dout,
     float* __restrict__ delta, long long rows, int Sq, int Hq, int D) {
@@ -75,6 +84,10 @@ __global__ void __launch_bounds__(FB_WARPS * 32) flash_bwd_delta_kernel(
   float s = 0.f;
   for (int d = lane; d < D; d += 32) s += to_f(orow[d]) * to_f(drow[d]);
   s = warp_sum(s);
+  if constexpr (HM) {
+    if (lane == 0) delta[row] = s;
+    return;
+  }
   if (lane == 0) {
     const int h = (int)(row % Hq);
     const long long bi = row / Hq;
@@ -84,9 +97,18 @@ __global__ void __launch_bounds__(FB_WARPS * 32) flash_bwd_delta_kernel(
   }
 }
 
-// Stage rows [r0, r0 + 32) of head `h` of a [B, S, H, D] tensor into a
-// [32][D + 1] f32 tile; rows past S read as 0.
-template <typename T>
+// Element offset of row (b, i, h) of a [B, S, H, D] tensor, or of a
+// [B, H, S, D] one in head-major mode.
+template <bool HM>
+__device__ __forceinline__ long long fb_row(int b, int i, int h, int S,
+                                            int H, int D) {
+  if constexpr (HM) return (((long long)b * H + h) * S + i) * D;
+  return (((long long)b * S + i) * H + h) * D;
+}
+
+// Stage rows [r0, r0 + 32) of head `h` of a [B, S, H, D] tensor ([B, H, S,
+// D] with HM) into a [32][D + 1] f32 tile; rows past S read as 0.
+template <bool HM, typename T>
 __device__ __forceinline__ void stage_rows(float* dst, const T* __restrict__ src,
                                            int b, int r0, int S, int H, int h,
                                            int D) {
@@ -94,12 +116,12 @@ __device__ __forceinline__ void stage_rows(float* dst, const T* __restrict__ src
   for (int i = threadIdx.x; i < 32 * D; i += blockDim.x) {
     const int r = i / D, d = i % D, ri = r0 + r;
     dst[r * DP + d] =
-        ri < S ? to_f(src[(((long long)b * S + ri) * H + h) * D + d]) : 0.f;
+        ri < S ? to_f(src[fb_row<HM>(b, ri, h, S, H, D) + d]) : 0.f;
   }
 }
 
 // (b) dQ for one (32-query tile, query head, batch).
-template <typename T, int NJ, bool PACKED>
+template <typename T, int NJ, bool PACKED, bool HM>
 __global__ void __launch_bounds__(FB_WARPS * 32) flash_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ bias, const float* __restrict__ lse,
@@ -120,8 +142,8 @@ __global__ void __launch_bounds__(FB_WARPS * 32) flash_bwd_dq_kernel(
   const int q0 = blockIdx.x * FB_BQ;
   const int off = Sk - Sq;
 
-  stage_rows(Qs, q, b, q0, Sq, Hq, h, D);
-  stage_rows(dOs, dout, b, q0, Sq, Hq, h, D);
+  stage_rows<HM>(Qs, q, b, q0, Sq, Hq, h, D);
+  stage_rows<HM>(dOs, dout, b, q0, Sq, Hq, h, D);
   float L[FB_RPW], Dl[FB_RPW], acc[FB_RPW][NJ];
 #pragma unroll
   for (int r = 0; r < FB_RPW; ++r) {
@@ -155,8 +177,8 @@ __global__ void __launch_bounds__(FB_WARPS * 32) flash_bwd_dq_kernel(
 
   for (int k0 = kbeg; k0 < kend; k0 += FB_BK) {
     __syncthreads();  // the previous tile is consumed; Q / dO are staged
-    stage_rows(Ks, k, b, k0, Sk, Hkv, hk, D);
-    stage_rows(Vs, v, b, k0, Sk, Hkv, hk, D);
+    stage_rows<false>(Ks, k, b, k0, Sk, Hkv, hk, D);
+    stage_rows<false>(Vs, v, b, k0, Sk, Hkv, hk, D);
     __syncthreads();
 
     float s[FB_RPW], dp[FB_RPW];
@@ -213,7 +235,7 @@ __global__ void __launch_bounds__(FB_WARPS * 32) flash_bwd_dq_kernel(
   for (int r = 0; r < FB_RPW; ++r) {
     const int qi = q0 + warp * FB_RPW + r;
     if (qi >= Sq) continue;
-    T* row = dq + (((long long)b * Sq + qi) * Hq + h) * D;
+    T* row = dq + fb_row<HM>(b, qi, h, Sq, Hq, D);
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int d = lane + 32 * j;
@@ -224,7 +246,7 @@ __global__ void __launch_bounds__(FB_WARPS * 32) flash_bwd_dq_kernel(
 
 // (c) dK and dV for one (32-key tile, kv head, batch), summed over the
 // kv head's group of query heads.
-template <typename T, int NJ, bool PACKED>
+template <typename T, int NJ, bool PACKED, bool HM>
 __global__ void __launch_bounds__(FB_WARPS * 32) flash_bwd_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ bias, const float* __restrict__ lse,
@@ -248,8 +270,8 @@ __global__ void __launch_bounds__(FB_WARPS * 32) flash_bwd_dkv_kernel(
   const int k0 = blockIdx.x * FB_BK;
   const int off = Sk - Sq;
 
-  stage_rows(Ks, k, b, k0, Sk, Hkv, hk, D);
-  stage_rows(Vs, v, b, k0, Sk, Hkv, hk, D);
+  stage_rows<false>(Ks, k, b, k0, Sk, Hkv, hk, D);
+  stage_rows<false>(Vs, v, b, k0, Sk, Hkv, hk, D);
   float acck[FB_RPW][NJ], accv[FB_RPW][NJ];
 #pragma unroll
   for (int r = 0; r < FB_RPW; ++r)
@@ -278,8 +300,8 @@ __global__ void __launch_bounds__(FB_WARPS * 32) flash_bwd_dkv_kernel(
     const float* brow = bias ? bias + b * bsb + h * bsh : nullptr;
     for (int q0 = qstart; q0 < qend; q0 += FB_BQ) {
       __syncthreads();  // the previous query tile is consumed
-      stage_rows(Qs, q, b, q0, Sq, Hq, h, D);
-      stage_rows(dOs, dout, b, q0, Sq, Hq, h, D);
+      stage_rows<HM>(Qs, q, b, q0, Sq, Hq, h, D);
+      stage_rows<HM>(dOs, dout, b, q0, Sq, Hq, h, D);
       if (threadIdx.x < FB_BQ) {
         const int qi = q0 + threadIdx.x;
         const long long at = ((long long)b * Hq + h) * Sq + qi;
@@ -369,7 +391,7 @@ static void allow_smem(K kern, size_t smem) {
                          (int)smem);
 }
 
-template <typename T, int NJ, bool PACKED>
+template <typename T, int NJ, bool PACKED, bool HM>
 static int launch(const void* q, const void* k, const void* v,
                   const float* bias, const void* o, const float* lse,
                   const void* dout, float* delta, void* dq, void* dk,
@@ -378,7 +400,7 @@ static int launch(const void* q, const void* k, const void* v,
                   float scale, const int* cu_q, const int* cu_k, int nseg,
                   cudaStream_t stream) {
   const long long rows = (long long)B * Sq * Hq;
-  flash_bwd_delta_kernel<T>
+  flash_bwd_delta_kernel<T, HM>
       <<<(unsigned)((rows + FB_WARPS - 1) / FB_WARPS), FB_WARPS * 32, 0,
          stream>>>((const T*)o, (const T*)dout, delta, rows, Sq, Hq, D);
   int err = (int)cudaGetLastError();
@@ -386,7 +408,7 @@ static int launch(const void* q, const void* k, const void* v,
 
   const size_t tile = sizeof(float) * (size_t)32 * (D + 1);
   const size_t smem_dq = 4 * tile;
-  auto dq_kern = flash_bwd_dq_kernel<T, NJ, PACKED>;
+  auto dq_kern = flash_bwd_dq_kernel<T, NJ, PACKED, HM>;
   allow_smem(dq_kern, smem_dq);
   dq_kern<<<dim3((Sq + FB_BQ - 1) / FB_BQ, Hq, B), FB_WARPS * 32, smem_dq,
             stream>>>((const T*)q, (const T*)k, (const T*)v, bias, lse, delta,
@@ -396,7 +418,7 @@ static int launch(const void* q, const void* k, const void* v,
   if (err) return err;
 
   const size_t smem_dkv = 4 * tile + sizeof(float) * 2 * FB_BQ;
-  auto dkv_kern = flash_bwd_dkv_kernel<T, NJ, PACKED>;
+  auto dkv_kern = flash_bwd_dkv_kernel<T, NJ, PACKED, HM>;
   allow_smem(dkv_kern, smem_dkv);
   dkv_kern<<<dim3((Sk + FB_BK - 1) / FB_BK, Hkv, B), FB_WARPS * 32, smem_dkv,
              stream>>>((const T*)q, (const T*)k, (const T*)v, bias, lse,
@@ -406,7 +428,7 @@ static int launch(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool PACKED>
+template <typename T, bool PACKED, bool HM = false>
 static int dispatch(const void* q, const void* k, const void* v,
                     const float* bias, const void* o, const float* lse,
                     const void* dout, float* delta, void* dq, void* dk,
@@ -415,10 +437,10 @@ static int dispatch(const void* q, const void* k, const void* v,
                     float scale, const int* cu_q, const int* cu_k, int nseg,
                     cudaStream_t s) {
   switch (pt_nj(D)) {
-    case 1: return launch<T, 1, PACKED>(q, k, v, bias, o, lse, dout, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
-    case 2: return launch<T, 2, PACKED>(q, k, v, bias, o, lse, dout, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
-    case 4: return launch<T, 4, PACKED>(q, k, v, bias, o, lse, dout, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
-    default: return launch<T, 8, PACKED>(q, k, v, bias, o, lse, dout, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
+    case 1: return launch<T, 1, PACKED, HM>(q, k, v, bias, o, lse, dout, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
+    case 2: return launch<T, 2, PACKED, HM>(q, k, v, bias, o, lse, dout, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
+    case 4: return launch<T, 4, PACKED, HM>(q, k, v, bias, o, lse, dout, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
+    default: return launch<T, 8, PACKED, HM>(q, k, v, bias, o, lse, dout, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
   }
 }
 
@@ -464,4 +486,24 @@ extern "C" int varlen_bwd(const void* q, const void* k, const void* v,
   return dispatch<float, true>(q, k, v, nullptr, o, (const float*)lse, dout,
                                (float*)delta, dq, dk, dv, 1, Tq, Tk, H, H, D,
                                0, 0, 0, causal, scale, cq, ck, nseg, s);
+}
+
+// Head-major mode: q / o / dout / dq [B, Hq, Sq, D]; k / v / dk / dv [B,
+// Sk, Hkv, D]; lse and delta (scratch) [B, Hq, Sq] f32; no bias.
+extern "C" int flash_bwd_hm(const void* q, const void* k, const void* v,
+                            const void* o, const void* lse, const void* dout,
+                            void* delta, void* dq, void* dk, void* dv, int B,
+                            int Sq, int Sk, int Hq, int Hkv, int D,
+                            int causal, float scale, int dtype,
+                            void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == PT_BF16)
+    return dispatch<__nv_bfloat16, false, true>(
+        q, k, v, nullptr, o, (const float*)lse, dout, (float*)delta, dq, dk,
+        dv, B, Sq, Sk, Hq, Hkv, D, 0, 0, 0, causal, scale, nullptr, nullptr,
+        0, s);
+  return dispatch<float, false, true>(
+      q, k, v, nullptr, o, (const float*)lse, dout, (float*)delta, dq, dk,
+      dv, B, Sq, Sk, Hq, Hkv, D, 0, 0, 0, causal, scale, nullptr, nullptr, 0,
+      s);
 }

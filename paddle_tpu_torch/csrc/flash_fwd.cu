@@ -46,6 +46,15 @@
 // LSE, where the JAX kernel averages its block's padded values.  Bound
 // on this card: operations, 4 * D flops per visible (query, key) pair
 // (only the segments' pairs: the work this packing needs).
+//
+// Head-major mode (the `kv` layout tier), the same kernel with HM = true:
+// Q and O are [B, Hq, Sq, D] instead of [B, Sq, Hq, D]; K, V and the LSE
+// keep their layouts.  Replaces the Q/O addressing of `_fwd_kv` (:913,
+// pallas_call :924) under `_flash_core_kv` (:1070), which reads the
+// head-major Q that `_to_hm` makes and writes the head-major O that
+// `_from_hm` undoes.  Only the row offsets differ, so its numbers are
+// the native kernel's bit for bit; the dense instantiations (HM = false)
+// are unchanged.
 #include "common.cuh"
 
 #define FA_BQ 32
@@ -53,7 +62,16 @@
 #define FA_WARPS 8
 #define FA_RPW (FA_BQ / FA_WARPS)
 
-template <typename T, int NJ, bool PACKED>
+// Element offset of row (b, i, h) of a [B, S, H, D] tensor, or of a
+// [B, H, S, D] one in head-major mode.
+template <bool HM>
+__device__ __forceinline__ long long fa_row(int b, int i, int h, int S,
+                                            int H, int D) {
+  if constexpr (HM) return (((long long)b * H + h) * S + i) * D;
+  return (((long long)b * S + i) * H + h) * D;
+}
+
+template <typename T, int NJ, bool PACKED, bool HM>
 __global__ void __launch_bounds__(FA_WARPS * 32) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ bias, T* __restrict__ o, float* __restrict__ lse,
@@ -75,7 +93,7 @@ __global__ void __launch_bounds__(FA_WARPS * 32) flash_fwd_kernel(
   for (int i = tid; i < FA_BQ * D; i += blockDim.x) {
     const int r = i / D, d = i % D, qi = q0 + r;
     Qs[r * DP + d] =
-        qi < Sq ? to_f(q[(((long long)b * Sq + qi) * Hq + h) * D + d]) : 0.f;
+        qi < Sq ? to_f(q[fa_row<HM>(b, qi, h, Sq, Hq, D) + d]) : 0.f;
   }
   int kbeg = 0, kend = Sk;
   // packed: row r of this warp sees keys [klo[r], khi[r])
@@ -179,7 +197,7 @@ __global__ void __launch_bounds__(FA_WARPS * 32) flash_fwd_kernel(
     const int qi = q0 + warp * FA_RPW + r;
     if (qi >= Sq) continue;
     const float ls = fmaxf(l[r], PT_L_MIN);
-    T* orow = o + (((long long)b * Sq + qi) * Hq + h) * D;
+    T* orow = o + fa_row<HM>(b, qi, h, Sq, Hq, D);
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int d = lane + 32 * j;
@@ -189,7 +207,7 @@ __global__ void __launch_bounds__(FA_WARPS * 32) flash_fwd_kernel(
   }
 }
 
-template <typename T, int NJ, bool PACKED>
+template <typename T, int NJ, bool PACKED, bool HM>
 static int launch(const void* q, const void* k, const void* v,
                   const float* bias, void* o, float* lse, int B, int Sq,
                   int Sk, int Hq, int Hkv, int D, long long bsb, long long bsh,
@@ -197,7 +215,7 @@ static int launch(const void* q, const void* k, const void* v,
                   const int* cu_k, int nseg, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)(FA_BQ + FA_BK) * (D + 1) + (size_t)FA_BK * D);
-  auto kern = flash_fwd_kernel<T, NJ, PACKED>;
+  auto kern = flash_fwd_kernel<T, NJ, PACKED, HM>;
   if (smem > 48 * 1024)
     cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
@@ -208,7 +226,7 @@ static int launch(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool PACKED>
+template <typename T, bool PACKED, bool HM = false>
 static int dispatch(const void* q, const void* k, const void* v,
                     const float* bias, void* o, float* lse, int B, int Sq,
                     int Sk, int Hq, int Hkv, int D, long long bsb,
@@ -216,10 +234,10 @@ static int dispatch(const void* q, const void* k, const void* v,
                     const int* cu_q, const int* cu_k, int nseg,
                     cudaStream_t s) {
   switch (pt_nj(D)) {
-    case 1: return launch<T, 1, PACKED>(q, k, v, bias, o, lse, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
-    case 2: return launch<T, 2, PACKED>(q, k, v, bias, o, lse, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
-    case 4: return launch<T, 4, PACKED>(q, k, v, bias, o, lse, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
-    default: return launch<T, 8, PACKED>(q, k, v, bias, o, lse, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
+    case 1: return launch<T, 1, PACKED, HM>(q, k, v, bias, o, lse, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
+    case 2: return launch<T, 2, PACKED, HM>(q, k, v, bias, o, lse, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
+    case 4: return launch<T, 4, PACKED, HM>(q, k, v, bias, o, lse, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
+    default: return launch<T, 8, PACKED, HM>(q, k, v, bias, o, lse, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
   }
 }
 
@@ -258,4 +276,20 @@ extern "C" int varlen_fwd(const void* q, const void* k, const void* v,
   return dispatch<float, true>(q, k, v, nullptr, o, (float*)lse, 1, Tq, Tk,
                                H, H, D, 0, 0, 0, causal, scale, cq, ck, nseg,
                                s);
+}
+
+// Head-major mode: q / o [B, Hq, Sq, D]; k / v [B, Sk, Hkv, D]; lse
+// [B, Hq, Sq] f32; no bias.
+extern "C" int flash_fwd_hm(const void* q, const void* k, const void* v,
+                            void* o, void* lse, int B, int Sq, int Sk,
+                            int Hq, int Hkv, int D, int causal, float scale,
+                            int dtype, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == PT_BF16)
+    return dispatch<__nv_bfloat16, false, true>(
+        q, k, v, nullptr, o, (float*)lse, B, Sq, Sk, Hq, Hkv, D, 0, 0, 0,
+        causal, scale, nullptr, nullptr, 0, s);
+  return dispatch<float, false, true>(q, k, v, nullptr, o, (float*)lse, B,
+                                      Sq, Sk, Hq, Hkv, D, 0, 0, 0, causal,
+                                      scale, nullptr, nullptr, 0, s);
 }

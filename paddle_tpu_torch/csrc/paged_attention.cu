@@ -17,9 +17,31 @@
 // what a latency-bound gather of 2-byte rows needs; f32 online softmax.
 // Free engine slots point at scratch page 0 with pos = 0 and compute one
 // row of garbage that the host discards.  Later work: split the key
-// range over more blocks (few sequences x kv heads do not fill 132 SMs),
-// and the int8 pool tier.
+// range over more blocks (few sequences x kv heads do not fill 132 SMs).
+//
+// int8 pools (the quantized KV tier), `paged_attention_int8`.  Replaces
+// the same kernel's int8 branch (`quantized=True`: the scale rows of each
+// page ride the page gather, :189-193, and dequantize inside the online
+// softmax, :104-106).  Pools hold int8 codes [num_pages, Hkv, PS, D] and
+// f32 scale tables [num_pages, Hkv, PS], one scale per token and kv
+// head.  Bound on this card: bytes, (pos + 1) * Hkv * (2 * D + 2 * 4)
+// per sequence (codes and scales of K and V), about half the bf16
+// pools' at D = 128.  Design: the same grid and GQA chunks as the exact
+// tier; each lane reads 16 codes with one 16-byte load and dequantizes
+// them in registers (decode_common.cuh, decode_rows_q8).  No page-size
+// gate (the Mosaic kernel needs pages of 32 for the int8 sublane tile):
+// any PS serves.
 #include "decode_common.cuh"
+
+// Row index of key t of one sequence's kv head in [num_pages * Hkv * PS]
+// rows: the int8 tier's codes sit at row * D, its scales at row.
+struct PagedRow {
+  const int* row;
+  int hk, Hkv, PS;
+  __device__ __forceinline__ long long operator()(int t) const {
+    return ((long long)row[t / PS] * Hkv + hk) * PS + t % PS;
+  }
+};
 
 // Element offset of key t of one sequence's kv head: the table names the
 // page, t % PS the slot in it.
@@ -92,4 +114,84 @@ extern "C" int paged_attention(const void* q, const void* kp, const void* vp,
                                    scale, s);
   return dispatch<float>(q, kp, vp, (const int*)table, (const int*)pos, out,
                          B, Hq, Hkv, PS, P, D, scale, s);
+}
+
+// ----------------------------------------------------------- int8 pools
+template <typename T, int LPR, int GM>
+__global__ void __launch_bounds__(DEC_WARPS * 32) paged_attention_q8_kernel(
+    const T* __restrict__ q, const int8_t* __restrict__ kp,
+    const int8_t* __restrict__ vp, const float* __restrict__ ks,
+    const float* __restrict__ vs, const int* __restrict__ table,
+    const int* __restrict__ pos, T* __restrict__ out, int Hq, int Hkv,
+    int PS, int P, int D, float scale) {
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int group = Hq / Hkv, g0 = blockIdx.z * DEC_MAXG;
+  const PagedRow row{table + (long long)b * P, hk, Hkv, PS};
+  const long long qo = ((long long)b * Hq + (long long)hk * group + g0) * D;
+  decode_rows_q8<T, LPR, GM>(q + qo, kp, vp, ks, vs, row, 0, pos[b],
+                             decode_chunk_rows(group, g0), D, scale,
+                             out + qo);
+}
+
+template <typename T, int LPR, int GM>
+static int launch_q8(const void* q, const void* kp, const void* vp,
+                     const float* ks, const float* vs, const int* table,
+                     const int* pos, void* out, int B, int Hq, int Hkv,
+                     int PS, int P, int D, float scale, cudaStream_t stream) {
+  const size_t smem = decode_q8_smem_bytes(Hq / Hkv, D);
+  auto kern = paged_attention_q8_kernel<T, LPR, GM>;
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+  kern<<<dim3(Hkv, B, decode_chunks(Hq / Hkv)), DEC_WARPS * 32, smem,
+         stream>>>((const T*)q, (const int8_t*)kp, (const int8_t*)vp, ks, vs,
+                   table, pos, (T*)out, Hq, Hkv, PS, P, D, scale);
+  return (int)cudaGetLastError();
+}
+
+// GM: the chunk's query rows rounded up to 1, 2, 4 or 8 (registers hold
+// GM accumulator rows of 16 floats per lane).
+template <typename T, int LPR>
+static int dispatch_q8_rows(const void* q, const void* kp, const void* vp,
+                            const float* ks, const float* vs, const int* table,
+                            const int* pos, void* out, int B, int Hq, int Hkv,
+                            int PS, int P, int D, float scale, cudaStream_t s) {
+  const int g = Hq / Hkv;
+  if (g == 1) return launch_q8<T, LPR, 1>(q, kp, vp, ks, vs, table, pos, out, B, Hq, Hkv, PS, P, D, scale, s);
+  if (g == 2) return launch_q8<T, LPR, 2>(q, kp, vp, ks, vs, table, pos, out, B, Hq, Hkv, PS, P, D, scale, s);
+  if (g <= 4) return launch_q8<T, LPR, 4>(q, kp, vp, ks, vs, table, pos, out, B, Hq, Hkv, PS, P, D, scale, s);
+  return launch_q8<T, LPR, 8>(q, kp, vp, ks, vs, table, pos, out, B, Hq, Hkv, PS, P, D, scale, s);
+}
+
+template <typename T>
+static int dispatch_q8(const void* q, const void* kp, const void* vp,
+                       const float* ks, const float* vs, const int* table,
+                       const int* pos, void* out, int B, int Hq, int Hkv,
+                       int PS, int P, int D, float scale, cudaStream_t s) {
+  switch (decode_q8_lanes(D)) {
+    case 4: return dispatch_q8_rows<T, 4>(q, kp, vp, ks, vs, table, pos, out, B, Hq, Hkv, PS, P, D, scale, s);
+    case 8: return dispatch_q8_rows<T, 8>(q, kp, vp, ks, vs, table, pos, out, B, Hq, Hkv, PS, P, D, scale, s);
+    default: return dispatch_q8_rows<T, 16>(q, kp, vp, ks, vs, table, pos, out, B, Hq, Hkv, PS, P, D, scale, s);
+  }
+}
+
+// q [B, Hq, D] (f32 or bf16); k_pages / v_pages int8 [num_pages, Hkv, PS,
+// D], D % 16 == 0 and <= 256, 16-byte aligned; k_scales / v_scales f32
+// [num_pages, Hkv, PS]; table [B, P] int32; pos [B] int32; out [B, Hq, D]
+// in q's dtype.
+extern "C" int paged_attention_int8(const void* q, const void* kp,
+                                    const void* vp, const void* ks,
+                                    const void* vs, const void* table,
+                                    const void* pos, void* out, int B, int Hq,
+                                    int Hkv, int PS, int P, int D, float scale,
+                                    int dtype, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == PT_BF16)
+    return dispatch_q8<__nv_bfloat16>(q, kp, vp, (const float*)ks,
+                                      (const float*)vs, (const int*)table,
+                                      (const int*)pos, out, B, Hq, Hkv, PS, P,
+                                      D, scale, s);
+  return dispatch_q8<float>(q, kp, vp, (const float*)ks, (const float*)vs,
+                            (const int*)table, (const int*)pos, out, B, Hq,
+                            Hkv, PS, P, D, scale, s);
 }

@@ -1,6 +1,7 @@
 """Continuous-batching inference engine over a paged KV cache.
 
-Counterpart of ``paddle_tpu/inference/engine/engine.py`` (exact tier).
+Counterpart of ``paddle_tpu/inference/engine/engine.py`` (the exact
+tier and the int8 KV tier).
 The engine keeps a FIXED batch of `max_slots` sequence slots and
 advances every in-flight sequence `decode_chunk` tokens per step,
 admitting new sequences into freed slots between steps.  Per sequence:
@@ -19,10 +20,21 @@ pools; here they are plain methods that update the pool tensors IN
 PLACE.  Free slots ride along pointing at scratch page 0 with length 0;
 their output is discarded on the host.
 
-Not ported yet (ROADMAP Queue B): the int8 weight tier
-(`weight_precision`), the int8 KV tier (`kv_precision`), draft-model
-speculative decoding (`spec_tokens`); setting any of them raises
-NotImplementedError.
+The int8 KV tier (``kv_precision="int8"``): the page pools hold int8
+codes with per-token, per-head f32 scale tables [num_pages, Hkv,
+page_size] (initialised to 1, so a never-written slot decodes to
+zeros).  Decode writes and the pack quantize each K/V head vector on its
+own (`ops.quant.quantize_vectors`), so a packed page is bit-identical to
+what token-by-token writes would store; `paged_attention` dequantizes
+inside its int8 kernel.  Prefill stays exact (dense, in the model's
+dtype), and a prefix-cache hit's warm prefill reads the radix node's
+commit-time exact copy of each page (the "sidecar"), not the int8 pools.
+A page costs one byte per element plus four per scale, so a
+``pool_hbm_mb`` budget admits about twice the pages of bf16.
+
+Not ported yet (ROADMAP Queue A4): the int8 weight tier
+(`weight_precision`) and draft-model speculative decoding
+(`spec_tokens`); setting either raises NotImplementedError.
 
 Env knobs (read when the matching ctor arg is None):
   PADDLE_TPU_ENGINE_PAGE_SIZE       tokens per KV page        (16)
@@ -48,6 +60,7 @@ import torch
 
 from ...core.flags import _env_num
 from ...models import generation as GEN
+from ...ops.quant import quantize_vectors
 from ...observability import metrics as _metrics
 from ...observability import tenant_ledger as _tledger
 from ...observability import trace as _trace
@@ -61,8 +74,8 @@ __all__ = ["EngineConfig", "InferenceEngine", "RequestHandle"]
 # completed-request timelines retained for request_debug()
 _TIMELINE_LRU = 128
 
-_NOT_PORTED = ("is not ported to paddle_tpu_torch yet (ROADMAP Queue B: "
-               "int8 weights, int8-KV tier, speculative decode)")
+_NOT_PORTED = ("is not ported to paddle_tpu_torch yet (ROADMAP Queue A4: "
+               "int8 weights, speculative decode)")
 
 
 def _precision_knob(explicit, env, valid):
@@ -206,11 +219,11 @@ class InferenceEngine:
         self.config = copy.copy(config) if config is not None \
             else EngineConfig()
         cfg = self.config
-        for knob in ("weight_precision", "kv_precision"):
-            if getattr(cfg, knob) is not None:
-                raise NotImplementedError(
-                    f"EngineConfig.{knob}={getattr(cfg, knob)!r} "
-                    + _NOT_PORTED)
+        self._quant = cfg.kv_precision == "int8"
+        if cfg.weight_precision is not None:
+            raise NotImplementedError(
+                f"EngineConfig.weight_precision={cfg.weight_precision!r} "
+                + _NOT_PORTED)
         if cfg.spec_tokens > 0 or draft_model is not None:
             raise NotImplementedError("speculative decoding (spec_tokens/"
                                       "draft_model) " + _NOT_PORTED)
@@ -259,13 +272,24 @@ class InferenceEngine:
                                    decision_ring=self.decisions,
                                    tenant_ledger=self.tenant_ledger)
         shape = (cfg.num_pages, self._hkv, cfg.page_size, self._hd)
+        pool_dtype = torch.int8 if self._quant else self._dtype
         with torch.inference_mode():
-            self._k_pools = [torch.zeros(shape, dtype=self._dtype,
+            self._k_pools = [torch.zeros(shape, dtype=pool_dtype,
                                          device=self._device)
                              for _ in range(self._layers)]
-            self._v_pools = [torch.zeros(shape, dtype=self._dtype,
+            self._v_pools = [torch.zeros(shape, dtype=pool_dtype,
                                          device=self._device)
                              for _ in range(self._layers)]
+            self._k_scales = self._v_scales = None
+            if self._quant:
+                # scale 1 everywhere: a never-written (scratch) slot
+                # decodes to exact zeros, like the bf16 pool's zeros
+                self._k_scales = [torch.ones(shape[:3], dtype=torch.float32,
+                                             device=self._device)
+                                  for _ in range(self._layers)]
+                self._v_scales = [torch.ones(shape[:3], dtype=torch.float32,
+                                             device=self._device)
+                                  for _ in range(self._layers)]
         self._handles = {}         # request_id -> RequestHandle
         self._lock = threading.RLock()
         self._work = threading.Condition()
@@ -273,14 +297,21 @@ class InferenceEngine:
         self._running = False
         self.steps = 0
         _metrics.set_gauge("engine.weight_precision", 1, precision="full")
-        _metrics.set_gauge("paged.pool_precision", 1, precision="full")
+        _metrics.set_gauge("paged.pool_precision", 1,
+                           precision=cfg.kv_precision or "full")
         _metrics.set_gauge("engine.spec_tokens", 0)
 
     def _page_bytes(self) -> int:
-        """Device bytes ONE page costs across all layers (K + V pools) —
-        the unit the ``pool_hbm_mb`` budget divides."""
-        item = torch.empty((), dtype=self._dtype).element_size()
-        per_pool = self._hkv * self.config.page_size * self._hd * item
+        """Device bytes ONE page costs across all layers (K + V pools,
+        plus the scale tables under the int8 KV tier) — the unit the
+        ``pool_hbm_mb`` budget divides."""
+        if self._quant:
+            item, scale_item = 1, 4
+        else:
+            item = torch.empty((), dtype=self._dtype).element_size()
+            scale_item = 0
+        slots = self._hkv * self.config.page_size
+        per_pool = slots * self._hd * item + slots * scale_item
         return max(1, self._layers * 2 * per_pool)
 
     def _tensor(self, a, dtype=torch.int32):
@@ -312,7 +343,10 @@ class InferenceEngine:
         writes garbage there, which nothing reads.  A chunk that would
         run past the buffer is clamped to its end, as
         `lax.dynamic_slice` does (only pages past the prompt's span,
-        whose slots decode overwrites before reading, can hit this)."""
+        whose slots decode overwrites before reading, can hit this).
+        Under the int8 KV tier each [Hkv, page_size, D] chunk quantizes
+        per vector, the codec of the decode write, so the packed pages
+        equal what token-by-token writes would have stored."""
         ps = self.config.page_size
         cap = kbufs[0].shape[2]
         live = [(i, int(p)) for i, p in enumerate(pages) if p != 0]
@@ -323,31 +357,35 @@ class InferenceEngine:
         idx = (torch.tensor(lows)[:, None] + torch.arange(ps)[None, :]
                ).reshape(-1).to(self._device)
         n = len(live)
-        for pools, bufs in ((self._k_pools, kbufs),
-                            (self._v_pools, vbufs)):
-            for pool, buf in zip(pools, bufs):
+        for pools, scales, bufs in ((self._k_pools, self._k_scales, kbufs),
+                                    (self._v_pools, self._v_scales, vbufs)):
+            for li, (pool, buf) in enumerate(zip(pools, bufs)):
                 chunk = buf[0].index_select(1, idx)          # [hkv, n*ps, d]
-                pool[dst] = chunk.reshape(self._hkv, n, ps, self._hd) \
-                    .transpose(0, 1).to(pool.dtype)
+                chunk = chunk.reshape(self._hkv, n, ps, self._hd) \
+                    .transpose(0, 1)                         # [n, hkv, ps, d]
+                if self._quant:
+                    pool[dst], scales[li][dst] = quantize_vectors(chunk)
+                else:
+                    pool[dst] = chunk.to(pool.dtype)
 
     def _run_cached_prefill(self, sb: int, npp: int, ids, start: int,
-                            pages, plen: int):
+                            plen: int, prefix_k, prefix_v):
         """`_cached_prefill_program`: warm tail prefill.  The cached
-        prefix pages gather into a dense buffer at [0, npp*ps), the tail
+        prefix, per layer [npp, Hkv, page_size, D] pages (`prefix_k`,
+        `prefix_v`), lays out as a dense buffer at [0, npp*ps); the tail
         (left-padded to bucket sb) runs under `warm_prefill_guard`, so
         each tail query attends prefix + causal tail."""
         ps = self.config.page_size
         pcap = npp * ps
-        pg = self._tensor(pages, torch.long)
 
-        def dense(pool):
-            g = pool[pg].transpose(0, 1).reshape(self._hkv, pcap, self._hd)
+        def dense(pages):
+            g = pages.transpose(0, 1).reshape(self._hkv, pcap, self._hd)
             return torch.cat(
                 [g[None], torch.zeros(1, self._hkv, sb + ps, self._hd,
                                       dtype=self._dtype,
                                       device=self._device)], dim=2)
 
-        caches = [(dense(self._k_pools[li]), dense(self._v_pools[li]))
+        caches = [(dense(prefix_k[li]), dense(prefix_v[li]))
                   for li in range(self._layers)]
         with GEN.warm_prefill_guard(plen):
             logits, new = self._model(self._tensor(ids), kv_caches=caches,
@@ -358,9 +396,15 @@ class InferenceEngine:
 
     def _run_decode(self, n: int, tok, pt, lengths):
         """`_decode_program`: n ragged decode steps at the fixed
-        [max_slots] batch.  The pools update in place.  Returns the
-        tokens [max_slots, n] as a host array."""
-        caches = [(k, v, pt) for k, v in zip(self._k_pools, self._v_pools)]
+        [max_slots] batch.  The pools (and scale tables) update in
+        place.  Returns the tokens [max_slots, n] as a host array."""
+        if self._quant:
+            caches = [(k, v, pt, ks, vs) for k, v, ks, vs in zip(
+                self._k_pools, self._v_pools, self._k_scales,
+                self._v_scales)]
+        else:
+            caches = [(k, v, pt)
+                      for k, v in zip(self._k_pools, self._v_pools)]
         toks = []
         for _ in range(n):
             logits, _ = self._model(tok[:, None], kv_caches=caches,
@@ -486,10 +530,11 @@ class InferenceEngine:
                          request=seq.request_id, tokens=s0,
                          shared=shared, pages=len(seq.pages)):
             if shared > 0:
-                t0 = self._warm_prefill(seq, prompt, shared)
+                t0, kbufs, vbufs, start = self._warm_prefill(seq, prompt,
+                                                             shared)
             else:
-                t0 = self._cold_prefill(seq, prompt)
-            self._commit_prefix(seq)
+                t0, kbufs, vbufs, start = self._cold_prefill(seq, prompt)
+            self._commit_prefix(seq, kbufs, vbufs, start)
             seq.length = s0
             seq.last_token = t0
         if seq.timeline is not None:
@@ -509,9 +554,10 @@ class InferenceEngine:
         _metrics.inc("engine.sequences", event="admitted")
         self._accept(seq, t0)
 
-    def _cold_prefill(self, seq, prompt) -> int:
-        """Dense prefill from token 0; prompt token t sits at buffer
-        offset pad_start + t, and packs from there."""
+    def _cold_prefill(self, seq, prompt):
+        """Dense prefill from token 0.  Returns (first token, dense K
+        bufs, dense V bufs, pad_start): prompt token t sits at buffer
+        offset pad_start + t, and packs (and commits) from there."""
         s0 = prompt.size
         sb = self._bucket(s0)
         start = sb - s0
@@ -523,7 +569,7 @@ class InferenceEngine:
         n_real = min(len(seq.pages), npb)
         pages[:n_real] = seq.pages[:n_real]
         self._run_pack(kbufs, vbufs, pages, start)
-        return tok
+        return tok, kbufs, vbufs, start
 
     @staticmethod
     def _prefix_bucket(n_pages: int) -> int:
@@ -534,11 +580,13 @@ class InferenceEngine:
             npp *= 2
         return npp
 
-    def _warm_prefill(self, seq, prompt, shared) -> int:
+    def _warm_prefill(self, seq, prompt, shared):
         """Prefill ONLY the tail [shared, s0): the cached prefix pages
         are already in the sequence's table.  The tail's K/V packs into
         the sequence's PRIVATE tail pages (the scheduler never shares
-        the boundary page), so no shared page is written."""
+        the boundary page), so no shared page is written.  The prefix
+        comes from the pools, or under the int8 KV tier from the
+        matched nodes' exact sidecar.  Returns as `_cold_prefill`."""
         ps = self.config.page_size
         tail = prompt[shared:]
         sb = self._bucket(tail.size)
@@ -547,10 +595,16 @@ class InferenceEngine:
         npp = self._prefix_bucket(npa)
         ids = np.zeros((1, sb), np.int32)
         ids[0, start:] = tail
-        pages = np.zeros((npp,), np.int32)
-        pages[:npa] = seq.pages[:npa]
+        if self._quant:
+            prefix_k, prefix_v = self._sidecar_prefix(seq, npa, npp)
+        else:
+            pages = np.zeros((npp,), np.int32)
+            pages[:npa] = seq.pages[:npa]
+            pg = self._tensor(pages, torch.long)
+            prefix_k = [pool[pg] for pool in self._k_pools]
+            prefix_v = [pool[pg] for pool in self._v_pools]
         tok, kbufs, vbufs = self._run_cached_prefill(
-            sb, npp, ids, start, pages, shared)
+            sb, npp, ids, start, shared, prefix_k, prefix_v)
         # the fresh span landed at [shared, shared+sb): tail token j at
         # shared + start + j
         npb = -(-sb // ps)
@@ -558,18 +612,64 @@ class InferenceEngine:
         n_tail = max(0, min(len(seq.pages) - npa, npb))
         tpages[:n_tail] = seq.pages[npa:npa + n_tail]
         self._run_pack(kbufs, vbufs, tpages, shared + start)
-        return tok
+        # commit offset: prompt token t sits at start + t in the returned
+        # buffers (tail token j, prompt token shared + j, landed at
+        # shared + start + j)
+        return tok, kbufs, vbufs, start
 
-    def _commit_prefix(self, seq) -> None:
+    def _sidecar_prefix(self, seq, npa, npp):
+        """int8 KV tier: stack the matched radix nodes' commit-time exact
+        page copies into per-layer prefix pages [npp, Hkv, page_size,
+        D], zero past npa."""
+        zero = torch.zeros(self._hkv, self.config.page_size, self._hd,
+                           dtype=self._dtype, device=self._device)
+        ek, ev = [], []
+        for li in range(self._layers):
+            ks, vs = [], []
+            for i in range(npa):
+                ex = seq.shared_nodes[i].exact
+                if ex is None:
+                    raise RuntimeError(
+                        "prefix-cache node without an exact sidecar "
+                        "under kv_precision=int8 (commit-path bug)")
+                ks.append(ex[li][0])
+                vs.append(ex[li][1])
+            pad = [zero] * (npp - npa)
+            ek.append(torch.stack(ks + pad))
+            ev.append(torch.stack(vs + pad))
+        return ek, ev
+
+    def _commit_prefix(self, seq, kbufs, vbufs, start) -> None:
         """Register the ORIGINAL prompt's full pages in the radix index
-        (the partial tail page stays private — decode still writes it)."""
+        (the partial tail page stays private — decode still writes it).
+        `start` is the buffer offset of prompt token 0 in the dense
+        buffers just returned (cold and warm alike), where the int8
+        tier's exact page copies are sliced from: one copy per layer of
+        the new full pages, [n, Hkv, page_size, D], each node holding a
+        page of it (not the whole prefill buffer)."""
         if self._prefix is None:
             return
         ps = self.config.page_size
         n_full = min(int(seq.prompt.size) // ps, len(seq.pages))
         if n_full <= 0:
             return
-        self._prefix.insert(seq.prompt[:n_full * ps], seq.pages[:n_full])
+        exact = None
+        if self._quant:
+            # the first sc nodes exist (matched at admission); insert
+            # never reads their slots
+            sc = min(int(seq.shared_len or 0) // ps, n_full)
+            lo, hi = start + sc * ps, start + n_full * ps
+
+            def pages(buf):          # [n_full - sc, Hkv, page_size, D]
+                return buf[0, :, lo:hi].reshape(
+                    self._hkv, n_full - sc, ps, self._hd) \
+                    .transpose(0, 1).contiguous()
+
+            copies = [(pages(kb), pages(vb)) for kb, vb in zip(kbufs, vbufs)]
+            exact = [None] * sc + [[(k[i], v[i]) for k, v in copies]
+                                   for i in range(n_full - sc)]
+        self._prefix.insert(seq.prompt[:n_full * ps], seq.pages[:n_full],
+                            exact=exact)
 
     def _batch_arrays(self, running):
         s_, p_ = self.config.max_slots, self.max_pages_per_seq
@@ -677,8 +777,11 @@ class InferenceEngine:
                 pressure=round(self.pool.utilization(), 4))
             # ascending-dst order is overwrite-safe: src > dst always,
             # and every src exceeds all earlier dsts
+            tables = self._k_pools + self._v_pools
+            if self._quant:
+                tables += self._k_scales + self._v_scales
             for src, dst in sorted(moves.items(), key=lambda kv: kv[1]):
-                for p in self._k_pools + self._v_pools:
+                for p in tables:
                     p[dst] = p[src]
             for seq in self.scheduler.running_seqs():
                 seq.pages = [moves.get(p, p) for p in seq.pages]
@@ -814,7 +917,7 @@ class InferenceEngine:
         st = self.scheduler.stats()
         st["pages"] = self.pool.stats()
         st["weight_precision"] = "full"
-        st["kv_precision"] = "full"
+        st["kv_precision"] = self.config.kv_precision or "full"
         st["spec_tokens"] = 0
         st["page_bytes"] = self._page_bytes()
         st["prefix_cache"] = self.prefix_cache_stats()

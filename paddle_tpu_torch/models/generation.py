@@ -9,7 +9,8 @@ token, and writes the caches IN PLACE (the JAX functions return updated
 buffers; here the returned buffers are the same tensors).  Attention
 runs through the port's kernels: `flash_fwd` for prefill (causal, with
 a pad-key bias for left-padded rows), `decode_attention` for the
-dense decode step, `paged_attention` for the engine's paged step.
+dense decode step, `paged_attention` for the engine's paged step (its
+int8 kernel under the quantized KV tier).
 
 Sampling and beam search are not ported yet (ROADMAP Queue B).
 """
@@ -24,6 +25,7 @@ import torch
 from ..nn import functional as F
 from ..ops.kernels.decode_attention import decode_attention
 from ..ops.kernels.paged_attention import paged_attention
+from ..ops.quant import quantize_vectors
 
 # finite mask value of the JAX package (generation.py:170): a fully
 # masked left-pad row stays finite instead of turning NaN
@@ -62,12 +64,10 @@ def _static_cache_attention(q, k, v, kv_cache, cache_pos, attn_start=None):
     attends the fresh K/V (causal, or through the pad mask); decode
     (S == 1) reads the cache through `decode_attention`, keys
     attn_start..cache_pos.  A 3-tuple cache ``(k_pages, v_pages,
-    page_table)`` with a [B] cache_pos routes to `_paged_cache_attention`.
-    Returns (out [B,S,Hq,D], kv_cache)."""
-    if isinstance(kv_cache, (tuple, list)) and len(kv_cache) == 5:
-        raise NotImplementedError(
-            "the int8 paged KV tier is not ported yet (ROADMAP Queue B)")
-    if isinstance(kv_cache, (tuple, list)) and len(kv_cache) == 3:
+    page_table)``, or the int8 tier's 5-tuple ``(k_pages, v_pages,
+    page_table, k_scales, v_scales)``, with a [B] cache_pos routes to
+    `_paged_cache_attention`.  Returns (out [B,S,Hq,D], kv_cache)."""
+    if isinstance(kv_cache, (tuple, list)) and len(kv_cache) in (3, 5):
         return _paged_cache_attention(q, k, v, kv_cache, cache_pos)
     b, s, hq, d = q.shape
     kb, vb = kv_cache
@@ -119,27 +119,49 @@ def _paged_cache_attention(q, k, v, kv_cache, cache_pos):
     int32, each row's write index.  The current token's K/V goes to
     (page_table[b, pos//ps], pos % ps) in place, then `paged_attention`
     attends keys 0..pos[b].  Free slots ride along with pos 0 and an
-    all-scratch table: they all write page 0, slot 0."""
+    all-scratch table: they all write page 0, slot 0.
+
+    Quantized KV tier: a 5-tuple ``(k_pages, v_pages, page_table,
+    k_scales, v_scales)`` with int8 pools and f32 scale tables
+    [num_pages,Hkv,page_size].  Each fresh K/V head vector quantizes on
+    its own (`quantize_vectors`: no neighbour is requantized, so a write
+    stays one slot), its codes and scale go to the same slot in place,
+    and `paged_attention` dequantizes inside the kernel."""
     b, s, hq, d = q.shape
     hkv = k.shape[2]
     if s != 1:
         raise ValueError(
             "paged KV cache serves single-token decode steps; prefill "
             "runs the dense path and packs into pages afterwards")
-    kp, vp, pt = kv_cache
+    quantized = len(kv_cache) == 5
+    if quantized:
+        kp, vp, pt, ks, vs = kv_cache
+    else:
+        kp, vp, pt = kv_cache
+        ks = vs = None
     ps = kp.shape[2]
     pos = cache_pos
     rows = torch.arange(b, device=q.device)
     page_ids = pt[rows, (pos // ps).long()].long()
     slots = (pos % ps).long()
+    k1, v1 = k.reshape(b, hkv, d), v.reshape(b, hkv, d)
     # plain indexed assignment, never accumulate=True: duplicate indices
     # (every free slot hits page 0, slot 0) then just leave one of the
     # writes — the scratch page's content is garbage by design
-    kp[page_ids, :, slots, :] = k.reshape(b, hkv, d).to(kp.dtype)
-    vp[page_ids, :, slots, :] = v.reshape(b, hkv, d).to(vp.dtype)
+    if quantized:
+        # K and V through one codec pass (each vector its own scale)
+        codes, sc = quantize_vectors(torch.stack((k1, v1)))
+        kp[page_ids, :, slots, :] = codes[0]        # [B,Hkv,D]
+        vp[page_ids, :, slots, :] = codes[1]
+        ks[page_ids, :, slots] = sc[0]              # [B,Hkv]
+        vs[page_ids, :, slots] = sc[1]
+    else:
+        kp[page_ids, :, slots, :] = k1.to(kp.dtype)
+        vp[page_ids, :, slots, :] = v1.to(vp.dtype)
     out = paged_attention(q.reshape(b, hq, d).contiguous(), kp, vp, pt,
-                          pos)
-    return out.reshape(b, 1, hq, d), (kp, vp, pt)
+                          pos, k_scales=ks, v_scales=vs)
+    new_cache = (kp, vp, pt, ks, vs) if quantized else (kp, vp, pt)
+    return out.reshape(b, 1, hq, d), new_cache
 
 
 def decode_position_ids(cache_pos, b, s, attn_start=None, device=None):

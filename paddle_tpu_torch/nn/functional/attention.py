@@ -7,8 +7,10 @@ Inputs are ``[batch, seq, heads, head_dim]`` as in the JAX package.  A
 CPU tensor runs the plain version, which autograd differentiates; a
 CUDA tensor runs `FlashAttention` (the `flash_fwd` kernel, differentiated
 by the `flash_bwd` kernel), with the mask as its stop-gradient additive
-bias when one is given (the JAX entry's grad-safe mask route, :92-97).
-There is no fallback from CUDA to the plain version.
+bias when one is given (the JAX entry's grad-safe mask route, :92-97),
+or, under ``FLAGS_flash_layout=kv``, `FlashAttentionKV` (the same kernels
+in head-major mode between the relayout kernels).  There is no fallback
+from CUDA to the plain version.
 """
 from __future__ import annotations
 
@@ -16,7 +18,9 @@ import math
 
 import torch
 
-from ...ops.kernels.flash_attention import FlashAttention
+from ...ops.kernels.flash_attention import (
+    FlashAttention, FlashAttentionKV, layout_flag,
+)
 from ...ops.kernels.rope import RoPE
 from ...ops.kernels.varlen_attention import VarlenAttention
 
@@ -47,6 +51,23 @@ def _sdpa_ref(q, k, v, attn_mask, is_causal, scale=None):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def flash_tier(query, key, attn_mask=None) -> str:
+    """Which flash path a CUDA call takes, in the order of the JAX
+    `flash_attention_fwd` (flash_attention.py:1793-1928): a mask goes to
+    the biased native kernel ("biased", :1808); lengths not divisible by
+    8 to the native kernel ("native"; JAX pads them through its
+    transpose core); then ``FLAGS_flash_layout=kv`` to `FlashAttentionKV`
+    ("kv").  Every other layout value (auto, flat, transpose, mh) only
+    chooses how Mosaic tiles the same numbers, so it runs the native
+    kernel.  The Mosaic VMEM gate of the kv tier (`_kv_native_ok`) has no
+    counterpart."""
+    if attn_mask is not None:
+        return "biased"
+    if query.shape[1] % 8 or key.shape[1] % 8:
+        return "native"
+    return "kv" if layout_flag() == "kv" else "native"
+
+
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  is_causal=False):
     """Attention dropout is not ported.  On CUDA a mask that requires
@@ -60,8 +81,10 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
             "scaled_dot_product_attention: a trainable attn_mask needs a "
             "bias gradient, which the flash kernels do not compute; "
             "detach the mask")
-    return FlashAttention.apply(query.contiguous(), key.contiguous(),
-                                value.contiguous(), attn_mask, is_causal)
+    q, k, v = query.contiguous(), key.contiguous(), value.contiguous()
+    if flash_tier(q, k, attn_mask) == "kv":
+        return FlashAttentionKV.apply(q, k, v, is_causal)
+    return FlashAttention.apply(q, k, v, attn_mask, is_causal)
 
 
 def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,

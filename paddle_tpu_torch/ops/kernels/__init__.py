@@ -9,7 +9,7 @@ from typing import NamedTuple
 
 from . import (
     conv_norm, decode_attention, flash_attention, fused_norm,
-    paged_attention, rope, varlen_attention, window_attention,
+    paged_attention, relayout, rope, varlen_attention, window_attention,
 )
 
 
@@ -63,6 +63,19 @@ KERNELS = {
                          varlen_attention.BWD_REPLACES),
     "fused_norm": Kernel(fused_norm, "fused_norm", "fused_norm_reference",
                          "launches", fused_norm.SOURCE, fused_norm.REPLACES),
+    # the int8 KV tier: one wrapper with the exact tier, a kernel and a
+    # counter of its own
+    "paged_attention_int8": Kernel(paged_attention, "paged_attention",
+                                   "paged_attention_reference",
+                                   "int8_launches", paged_attention.SOURCE,
+                                   paged_attention.INT8_REPLACES),
+    # the kv flash layout tier's relayouts: one source, a wrapper each
+    "relayout_to_hm": Kernel(relayout, "to_head_major",
+                             "to_head_major_reference", "to_launches",
+                             relayout.SOURCE, relayout.TO_REPLACES),
+    "relayout_from_hm": Kernel(relayout, "from_head_major",
+                               "from_head_major_reference", "from_launches",
+                               relayout.SOURCE, relayout.FROM_REPLACES),
 }
 
 

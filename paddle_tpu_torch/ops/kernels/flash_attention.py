@@ -7,19 +7,25 @@ Counterpart of ``paddle_tpu/ops/pallas/flash_attention.py``: the forward
 (`_dq_loop` :421, `_dkv_loop` :536 under `_bwd_flat` :1329, `_bwd_t`
 :720, `_bwd_mh` :672, `_bwd_kv` :1020 and `_bwd_tb` :1541; kernel
 ``csrc/flash_bwd.cu``).  The JAX package's Mosaic workarounds (the
-`_biased_flash_ok` ``sk % 128`` and MHA-only gate, the flat/kv/mh layout
+`_biased_flash_ok` ``sk % 128`` and MHA-only gate, the flat/mh layout
 tiers, block autotuning) have no counterpart: one kernel per direction
 takes every Sq/Sk, GQA and broadcast bias in the native ``[B, S, H, D]``
-layout.
+layout.  The `kv` layout tier (``FLAGS_flash_layout=kv``) is ported as
+`FlashAttentionKV`, the counterpart of `_flash_core_kv` (:1070): the same
+kernels in their head-major mode (``head_major=True``: Q, O, dO and dQ
+are ``[B, H, S, D]``), with Q and dO moved there and O and dQ back by the
+relayout kernels (`ops/kernels/relayout.py`).
 """
 from __future__ import annotations
 
 import ctypes
 import math
+import os
 
 import torch
 
 from . import _build
+from .relayout import from_head_major, to_head_major
 
 NEG_INF = -1e30
 SOURCE = "paddle_tpu_torch/csrc/flash_fwd.cu"
@@ -37,11 +43,26 @@ bwd_launches = 0    # flash_bwd
 
 _SIG = {"flash_fwd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
         + [ctypes.c_int64] * 3 + [ctypes.c_int, ctypes.c_float,
-                                  ctypes.c_int, ctypes.c_void_p]}
+                                  ctypes.c_int, ctypes.c_void_p],
+        "flash_fwd_hm": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]}
 _BWD_SIG = {"flash_bwd": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
             + [ctypes.c_int64] * 3 + [ctypes.c_int, ctypes.c_float,
-                                      ctypes.c_int, ctypes.c_void_p]}
+                                      ctypes.c_int, ctypes.c_void_p],
+            "flash_bwd_hm": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]}
+
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# the layout tiers of the JAX package's FLAGS_flash_layout; only "kv"
+# runs another path here
+DEFAULT_LAYOUT = "auto"
+
+
+def layout_flag() -> str:
+    """FLAGS_flash_layout, read at call time (default "auto"), as JAX's
+    `_layout_flag` (flash_attention.py:1485-1488)."""
+    return os.environ.get("FLAGS_flash_layout", DEFAULT_LAYOUT)
 
 
 def _as_bias(bias, b, hq, sq, sk):
@@ -82,9 +103,15 @@ def _scores(q, k, bias, causal):
     return s, k
 
 
-def flash_fwd_reference(q, k, v, bias=None, causal=False):
+def flash_fwd_reference(q, k, v, bias=None, causal=False, head_major=False):
     """Plain version: (out [B,Sq,Hq,D] in q's dtype, lse [B,Hq,Sq] f32).
-    Scores and softmax in f32."""
+    Scores and softmax in f32.  head_major: q and out are [B,Hq,Sq,D]
+    (the native arithmetic on the relaid q, so bit for bit the native
+    result)."""
+    if head_major:
+        out, lse = flash_fwd_reference(q.transpose(1, 2).contiguous(), k, v,
+                                       bias, causal)
+        return out.transpose(1, 2).contiguous(), lse
     hq, hkv = q.shape[2], k.shape[2]
     s, _ = _scores(q, k, bias, causal)
     v = v.float()
@@ -95,12 +122,20 @@ def flash_fwd_reference(q, k, v, bias=None, causal=False):
     return out.to(q.dtype), lse
 
 
-def flash_bwd_reference(q, k, v, out, lse, dout, bias=None, causal=False):
+def flash_bwd_reference(q, k, v, out, lse, dout, bias=None, causal=False,
+                        head_major=False):
     """Plain version of the backward: (dq, dk, dv) in the dtypes of q, k,
     v, everything in f32 between.  The math of `_dq_loop` / `_dkv_loop`:
     p = exp(scores - lse) from the saved LSE, delta = rowsum(dO * O),
     ds = p * (dO.v - delta) * scale; dK / dV summed over each GQA group.
-    The bias gets no gradient."""
+    The bias gets no gradient.  head_major: q, out, dout and dq are
+    [B,Hq,Sq,D]; k, v, dk, dv stay native."""
+    if head_major:
+        q, out, dout = (t.transpose(1, 2).contiguous()
+                        for t in (q, out, dout))
+        dq, dk, dv = flash_bwd_reference(q, k, v, out, lse, dout, bias,
+                                         causal)
+        return dq.transpose(1, 2).contiguous(), dk, dv
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     s, kf = _scores(q, k, bias, causal)
@@ -122,16 +157,20 @@ def flash_bwd_reference(q, k, v, out, lse, dout, bias=None, causal=False):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check_qkv(fn, q, k, v):
-    """What both kernels take: q [B,Sq,Hq,D], k/v [B,Sk,Hkv,D] with
-    Hq % Hkv == 0, D % 8 == 0 and D <= 256, f32 or bf16 alike,
-    contiguous, on q's CUDA device.  Returns (B, Sq, Sk, Hq, Hkv, D)."""
+def _check_qkv(fn, q, k, v, head_major=False):
+    """What both kernels take: q [B,Sq,Hq,D] ([B,Hq,Sq,D] head-major),
+    k/v [B,Sk,Hkv,D] with Hq % Hkv == 0, D % 8 == 0 and D <= 256, f32 or
+    bf16 alike, contiguous, on q's CUDA device.  Returns (B, Sq, Sk, Hq,
+    Hkv, D)."""
     if q.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {q.device}")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"{fn}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
-    b, sq, hq, d = q.shape
+    if head_major:
+        b, hq, sq, d = q.shape
+    else:
+        b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
     if k.shape[0] != b or k.shape[3] != d or hq % hkv:
         raise ValueError(f"{fn}: k {tuple(k.shape)} does not match "
@@ -164,18 +203,33 @@ def _bias_arg(fn, bias, q, b, hq, sq, sk):
     return bias, tuple(bias.stride(i) for i in range(3))
 
 
-def flash_fwd(q, k, v, bias=None, causal=False):
+def flash_fwd(q, k, v, bias=None, causal=False, head_major=False):
     """q [B,Sq,Hq,D]; k/v [B,Sk,Hkv,D] (Hq % Hkv == 0); bias optional,
     broadcastable to [B,Hq,Sq,Sk] (additive f32, or bool keep-mask).
-    Returns (out [B,Sq,Hq,D], lse [B,Hq,Sq] f32).  CPU tensors run the
-    plain version; CUDA tensors launch the kernel or raise."""
+    Returns (out [B,Sq,Hq,D], lse [B,Hq,Sq] f32).  head_major: q and out
+    are [B,Hq,Sq,D] (the kernel's head-major mode, `flash_fwd_hm`; no
+    bias).  CPU tensors run the plain version; CUDA tensors launch the
+    kernel or raise."""
     global launches
     if q.device.type == "cpu":
-        return flash_fwd_reference(q, k, v, bias, causal)
-    b, sq, sk, hq, hkv, d = _check_qkv("flash_fwd", q, k, v)
-    bias, strides = _bias_arg("flash_fwd", bias, q, b, hq, sq, sk)
+        return flash_fwd_reference(q, k, v, bias, causal, head_major)
+    b, sq, sk, hq, hkv, d = _check_qkv("flash_fwd", q, k, v, head_major)
     out = torch.empty_like(q)
     lse = torch.empty(b, hq, sq, device=q.device, dtype=torch.float32)
+    if head_major:
+        if bias is not None:
+            raise ValueError("flash_fwd: head_major takes no bias (the kv "
+                             "layout tier is unmasked)")
+        lib = _build.library("flash_fwd", _SIG)
+        err = lib.flash_fwd_hm(
+            _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
+            _build.ptr(lse), b, sq, sk, hq, hkv, d, int(bool(causal)),
+            1.0 / math.sqrt(d), _DTYPES[q.dtype],
+            _build.stream_ptr(q.device))
+        _build.check(err, "flash_fwd_hm")
+        launches += 1
+        return out, lse
+    bias, strides = _bias_arg("flash_fwd", bias, q, b, hq, sq, sk)
     lib = _build.library("flash_fwd", _SIG)
     err = lib.flash_fwd(
         _build.ptr(q), _build.ptr(k), _build.ptr(v),
@@ -188,16 +242,19 @@ def flash_fwd(q, k, v, bias=None, causal=False):
     return out, lse
 
 
-def flash_bwd(q, k, v, out, lse, dout, bias=None, causal=False):
+def flash_bwd(q, k, v, out, lse, dout, bias=None, causal=False,
+              head_major=False):
     """Gradients of flash_fwd: q/out/dout [B,Sq,Hq,D], k/v [B,Sk,Hkv,D],
     lse [B,Hq,Sq] f32 (flash_fwd's), bias and causal as given to it.
     Returns (dq, dk, dv) in the inputs' layouts and dtype; the bias gets
-    no gradient.  CPU tensors run the plain version; CUDA tensors launch
-    the kernel or raise."""
+    no gradient.  head_major: q/out/dout/dq are [B,Hq,Sq,D] (the kernels'
+    head-major mode, `flash_bwd_hm`; no bias).  CPU tensors run the plain
+    version; CUDA tensors launch the kernel or raise."""
     global bwd_launches
     if q.device.type == "cpu":
-        return flash_bwd_reference(q, k, v, out, lse, dout, bias, causal)
-    b, sq, sk, hq, hkv, d = _check_qkv("flash_bwd", q, k, v)
+        return flash_bwd_reference(q, k, v, out, lse, dout, bias, causal,
+                                   head_major)
+    b, sq, sk, hq, hkv, d = _check_qkv("flash_bwd", q, k, v, head_major)
     for name, t in (("out", out), ("dout", dout)):
         if t.shape != q.shape or t.dtype != q.dtype \
                 or t.device != q.device or not t.is_contiguous():
@@ -207,10 +264,24 @@ def flash_bwd(q, k, v, out, lse, dout, bias=None, causal=False):
             or lse.device != q.device or not lse.is_contiguous():
         raise ValueError(f"flash_bwd: lse must be a contiguous float32 "
                          f"{(b, hq, sq)} on {q.device}")
-    bias, strides = _bias_arg("flash_bwd", bias, q, b, hq, sq, sk)
     delta = torch.empty(b, hq, sq, device=q.device, dtype=torch.float32)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
+    if head_major:
+        if bias is not None:
+            raise ValueError("flash_bwd: head_major takes no bias (the kv "
+                             "layout tier is unmasked)")
+        lib = _build.library("flash_bwd", _BWD_SIG)
+        err = lib.flash_bwd_hm(
+            _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
+            _build.ptr(lse), _build.ptr(dout), _build.ptr(delta),
+            _build.ptr(dq), _build.ptr(dk), _build.ptr(dv), b, sq, sk, hq,
+            hkv, d, int(bool(causal)), 1.0 / math.sqrt(d), _DTYPES[q.dtype],
+            _build.stream_ptr(q.device))
+        _build.check(err, "flash_bwd_hm")
+        bwd_launches += 1
+        return dq, dk, dv
+    bias, strides = _bias_arg("flash_bwd", bias, q, b, hq, sq, sk)
     lib = _build.library("flash_bwd", _BWD_SIG)
     err = lib.flash_bwd(
         _build.ptr(q), _build.ptr(k), _build.ptr(v),
@@ -243,3 +314,29 @@ class FlashAttention(torch.autograd.Function):
         dq, dk, dv = flash_bwd(q, k, v, out, lse, dout.contiguous(),
                                bias=bias, causal=ctx.causal)
         return dq, dk, dv, None, None
+
+
+class FlashAttentionKV(torch.autograd.Function):
+    """The `kv` layout tier (``FLAGS_flash_layout=kv``), counterpart of
+    `_flash_core_kv` (:1070-1091): Q goes head-major through
+    `to_head_major`, the flash kernels run in their head-major mode, and
+    O comes back through `from_head_major`; the backward moves dO in and
+    dQ out the same way, with K, V, dK and dV native throughout.  Two
+    relayouts each way per call; the numbers equal `FlashAttention`'s bit
+    for bit (only the row addressing differs)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal=False):
+        q_t = to_head_major(q)
+        o_t, lse = flash_fwd(q_t, k, v, causal=causal, head_major=True)
+        ctx.save_for_backward(q_t, k, v, o_t, lse)
+        ctx.causal = causal
+        return from_head_major(o_t)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q_t, k, v, o_t, lse = ctx.saved_tensors
+        dq_t, dk, dv = flash_bwd(q_t, k, v, o_t, lse,
+                                 to_head_major(dout.contiguous()),
+                                 causal=ctx.causal, head_major=True)
+        return from_head_major(dq_t), dk, dv, None

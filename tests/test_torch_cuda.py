@@ -21,8 +21,13 @@ with their exact launches per forward; packed (varlen) attention forward
 and backward over empty sequences, one-token sequences, unequal q / k
 packings, rows that see no key and an explicit scale; the fused norm
 over every operand combination, odd and wide rows, and `FusedNorm`'s
-gradient; decode and paged attention at GQA groups of 16 and 12; and
-the incubate fused layers on the card against the CPU.
+gradient; decode and paged attention at GQA groups of 16 and 12; the
+incubate fused layers on the card against the CPU; the int8 paged kernel
+at page sizes 8 / 16 / 32, GQA groups 1 / 4 / 16, head_dims 64 / 128 /
+256, pos 0 and page crossings, and a tiny int8-KV engine on the card;
+the relayout kernels and their adjoints (vector, 4-byte and 2-byte
+copy units); the flash kernels' head-major mode bit for bit against the
+native kernels, and `FlashAttentionKV` against `FlashAttention`.
 Every test needs an NVIDIA card and skips without one.  On the card (no
 JAX needed, so the JAX test conftest is left out)::
 
@@ -45,6 +50,7 @@ from paddle_tpu_torch.ops.kernels import flash_attention as FA
 from paddle_tpu_torch.ops.kernels import fused_norm as FN
 from paddle_tpu_torch.ops.kernels import paged_attention as PA
 from paddle_tpu_torch.ops.kernels import conv_norm as CN
+from paddle_tpu_torch.ops.kernels import relayout as RL
 from paddle_tpu_torch.ops.kernels import rope as RP
 from paddle_tpu_torch.ops.kernels import varlen_attention as VA
 from paddle_tpu_torch.ops.kernels import window_attention as WA
@@ -412,6 +418,18 @@ def test_launch_counters_count_cuda_launches_only():
                   qp.cpu(), cu.cpu(), cu.cpu())
     FN.fused_norm(qp)
     FN.fused_norm(qp.cpu())
+    codes = torch.zeros(2, 2, 8, 64, dtype=torch.int8, device="cuda")
+    sc = torch.ones(2, 2, 8, device="cuda")
+    PA.paged_attention(q3, codes, codes,
+                       torch.ones(1, 1, dtype=torch.int32, device="cuda"),
+                       pos, k_scales=sc, v_scales=sc)
+    PA.paged_attention(q3.cpu(), codes.cpu(), codes.cpu(),
+                       torch.ones(1, 1, dtype=torch.int32), pos.cpu(),
+                       k_scales=sc.cpu(), v_scales=sc.cpu())
+    RL.to_head_major(q)
+    RL.to_head_major(q.cpu())
+    RL.from_head_major(q)
+    RL.from_head_major(q.cpu())
     torch.cuda.synchronize()
     assert K.launch_counts() == {"flash_fwd": 1, "flash_bwd": 1,
                                  "paged_attention": 1,
@@ -420,7 +438,9 @@ def test_launch_counters_count_cuda_launches_only():
                                  "window_attention": 1,
                                  "window_attention_bwd": 1,
                                  "varlen_fwd": 1, "varlen_bwd": 1,
-                                 "fused_norm": 1}
+                                 "fused_norm": 1, "paged_attention_int8": 1,
+                                 "relayout_to_hm": 1,
+                                 "relayout_from_hm": 1}
     K.reset_launches()
 
 
@@ -443,12 +463,34 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     q3 = torch.randn(1, 2, 64, device="cuda")
     pools = torch.zeros(2, 2, 8, 64, device="cuda", dtype=torch.int8)
     pos = torch.zeros(1, dtype=torch.int32, device="cuda")
-    with pytest.raises(NotImplementedError):
-        PA.paged_attention(q3, pools, pools,
-                           torch.zeros(1, 1, dtype=torch.int32,
-                                       device="cuda"), pos,
-                           k_scales=torch.ones(2, 2, 8, device="cuda"),
-                           v_scales=torch.ones(2, 2, 8, device="cuda"))
+    table = torch.zeros(1, 1, dtype=torch.int32, device="cuda")
+    sc = torch.ones(2, 2, 8, device="cuda")
+    with pytest.raises(TypeError):              # int8 pools, no scales
+        PA.paged_attention(q3, pools, pools, table, pos)
+    with pytest.raises(ValueError, match="together"):
+        PA.paged_attention(q3, pools, pools, table, pos, k_scales=sc)
+    with pytest.raises(ValueError, match="k_scales"):
+        PA.paged_attention(q3, pools, pools, table, pos,
+                           k_scales=sc.double(), v_scales=sc)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        PA.paged_attention(q3[..., :56].contiguous(), pools[..., :56]
+                           .contiguous(), pools[..., :56].contiguous(),
+                           table, pos, k_scales=sc, v_scales=sc)
+    with pytest.raises(TypeError):              # exact pools with scales
+        PA.paged_attention(q3, pools.float(), pools.float(), table, pos,
+                           k_scales=sc, v_scales=sc)
+    with pytest.raises(ValueError, match="contiguous"):
+        RL.to_head_major(torch.randn(1, 4, 2, 8, device="cuda")
+                         .transpose(1, 2))
+    with pytest.raises(TypeError):
+        RL.from_head_major(torch.zeros(1, 4, 2, 8, device="cuda",
+                                       dtype=torch.float16))
+    q_t = torch.randn(1, 2, 4, 64, device="cuda")       # [B, H, S, D]
+    kv = torch.randn(1, 4, 2, 64, device="cuda")        # [B, S, H, D]
+    with pytest.raises(ValueError, match="bias"):
+        FA.flash_fwd(q_t, kv, kv, bias=torch.zeros(1, 1, 4, 4,
+                                                   device="cuda"),
+                     head_major=True)
     with pytest.raises(TypeError, match="int32"):
         DA.decode_attention(q3, torch.randn(1, 2, 8, 64, device="cuda"),
                             torch.randn(1, 2, 8, 64, device="cuda"),
@@ -1066,4 +1108,178 @@ def test_incubate_layers_on_the_card_match_cpu(name):
             assert err <= 1e-4 * max(1.0, b.grad.abs().max().item()), n
         assert K.launch_counts()["fused_norm"] == 2
         assert K.launch_counts()["flash_bwd"] == 1
+    K.reset_launches()
+
+
+# ------------------------------------------------ int8 paged attention
+def _int8_pools(g, npool, hkv, ps, d):
+    from paddle_tpu_torch.ops.quant import quantize_vectors
+
+    kq, ks = quantize_vectors(_randn(g, npool, hkv, ps, d,
+                                     dtype=torch.float32) * 2)
+    vq, vs = quantize_vectors(_randn(g, npool, hkv, ps, d,
+                                     dtype=torch.float32))
+    return kq, vq, ks, vs
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("ps", [8, 16, 32])
+@pytest.mark.parametrize("hq,hkv,d", [(4, 4, 128), (8, 2, 64), (32, 2, 128),
+                                      (6, 2, 256), (3, 1, 48)])
+def test_paged_attention_int8_matches_plain(hq, hkv, d, ps, dtype):
+    """Groups 1, 4, 16 (two chunks of 8 query heads) and 3; head_dims 48
+    (three of four lanes per row), 64, 128, 256; a page crossing, an
+    exact page end, pos 0, the full table and a free slot on the scratch
+    page."""
+    g = torch.Generator(device="cuda").manual_seed(hq * 31 + d + ps)
+    npool, p = 24, 64 // ps + 1
+    q = _randn(g, 5, hq, d, dtype=dtype)
+    kq, vq, ks, vs = _int8_pools(g, npool, hkv, ps, d)
+    pt = torch.zeros(5, p, dtype=torch.int32, device="cuda")
+    perm = torch.randperm(npool - 1, generator=g, device="cuda") + 1
+    pos = torch.tensor([ps + 3, 2 * ps - 1, 0, p * ps - 1, 0],
+                       dtype=torch.int32, device="cuda")
+    used = 0
+    for r in range(4):
+        n = int(pos[r]) // ps + 1
+        pt[r, :n] = perm[used:used + n].int()
+        used += n
+    K.reset_launches()
+    got = PA.paged_attention(q, kq, vq, pt, pos, k_scales=ks, v_scales=vs)
+    assert K.launch_counts()["paged_attention_int8"] == 1
+    assert K.launch_counts()["paged_attention"] == 0
+    K.reset_launches()
+    assert got.dtype == dtype
+    _close(got, PA.paged_attention_reference(q, kq, vq, pt, pos, ks, vs),
+           dtype)
+
+
+def test_int8_codec_on_the_card_equals_cpu():
+    """quantize_vectors on the card bit for bit as on the CPU: codes and
+    scales (a true f32 division absmax / 127, not a reciprocal product),
+    all-zero vectors and saturation included."""
+    from paddle_tpu_torch.ops.quant import quantize_vectors
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    x = _randn(g, 64, 32, 128, dtype=torch.float32) * 3
+    x[0, 0] = 0
+    x[1, 1, 5] = 1e4
+    for dtype in DTYPES:
+        got = quantize_vectors(x.to(dtype))
+        want = quantize_vectors(x.to(dtype).cpu())
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+
+
+def test_tiny_int8_engine_on_the_card_matches_cpu():
+    """kv_precision="int8" on the card: streams bit-stable run to run and
+    equal to the CPU int8 engine's (the plain versions), first tokens
+    equal to greedy, the int8 kernel and never the bf16/f32 one."""
+    from paddle_tpu_torch.inference.engine import (
+        EngineConfig, InferenceEngine,
+    )
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+
+    cfg = GPTConfig(vocab_size=128, hidden_size=64, num_layers=2,
+                    num_heads=4, max_seq_len=64)        # head_dim 16
+    cpu = GPTForCausalLM(cfg, device="cpu", seed=2)
+    gpu = GPTForCausalLM(cfg, seed=2)
+    gpu.load_state_dict(cpu.state_dict())
+    rs = np.random.RandomState(1)
+    prompts = [rs.randint(0, 128, (n,)).astype(np.int32)
+               for n in (3, 9, 17, 5)]
+    ecfg = EngineConfig(page_size=8, max_slots=2, max_seq_len=64,
+                        kv_precision="int8")
+    want = InferenceEngine(cpu, ecfg).generate(prompts, max_new_tokens=8)
+    K.reset_launches()
+    runs = [InferenceEngine(gpu, ecfg).generate(prompts, max_new_tokens=8)
+            for _ in range(2)]
+    counts = K.launch_counts()
+    K.reset_launches()
+    assert counts["paged_attention_int8"] > 0
+    assert counts["paged_attention"] == 0
+    for w, a, b, p in zip(want, *runs, prompts):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, w)
+        ref = gpu.generate(p[None], max_new_tokens=1).cpu().numpy()[0]
+        np.testing.assert_array_equal(a[:p.size + 1], ref)
+
+
+# ------------------------------------------------ relayout and kv tier
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape", [(8, 1024, 12, 64), (2, 37, 3, 128),
+                                   (1, 5, 7, 12), (3, 9, 2, 9)])
+def test_relayout_matches_plain(shape, dtype):
+    """16-byte rows, 4-byte rows (D 12 in bf16 / f32 ... 24 / 48 bytes)
+    and 2-byte units (D 9 in bf16); both directions and the adjoints."""
+    g = torch.Generator(device="cuda").manual_seed(sum(shape))
+    x = _randn(g, *shape, dtype=dtype)
+    xt = _randn(g, shape[0], shape[2], shape[1], shape[3], dtype=dtype)
+    assert torch.equal(RL.to_head_major(x), RL.to_head_major_reference(x))
+    assert torch.equal(RL.from_head_major(xt),
+                       RL.from_head_major_reference(xt))
+    leaf = x.clone().requires_grad_()
+    (grad,) = torch.autograd.grad(RL.ToHeadMajor.apply(leaf), leaf, xt)
+    assert torch.equal(grad, RL.from_head_major_reference(xt))
+    leaf = xt.clone().requires_grad_()
+    (grad,) = torch.autograd.grad(RL.FromHeadMajor.apply(leaf), leaf, x)
+    assert torch.equal(grad, RL.to_head_major_reference(x))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,d", [
+    (2, 64, 64, 4, 4, 64), (1, 45, 70, 6, 2, 128), (2, 128, 128, 12, 4, 32),
+])
+def test_flash_head_major_bit_equal_to_native(b, sq, sk, hq, hkv, d, causal,
+                                              dtype):
+    g = torch.Generator(device="cuda").manual_seed(sq + hq + d)
+    q = _randn(g, b, sq, hq, d, dtype=dtype)
+    k = _randn(g, b, sk, hkv, d, dtype=dtype)
+    v = _randn(g, b, sk, hkv, d, dtype=dtype)
+    dout = _randn(g, b, sq, hq, d, dtype=dtype)
+    out, lse = FA.flash_fwd(q, k, v, causal=causal)
+    q_t = q.transpose(1, 2).contiguous()
+    out_t, lse_t = FA.flash_fwd(q_t, k, v, causal=causal, head_major=True)
+    assert torch.equal(out_t, out.transpose(1, 2))
+    assert torch.equal(lse_t, lse)
+    dq, dk, dv = FA.flash_bwd(q, k, v, out, lse, dout, causal=causal)
+    dq_t, dk_t, dv_t = FA.flash_bwd(q_t, k, v, out_t, lse_t,
+                                    dout.transpose(1, 2).contiguous(),
+                                    causal=causal, head_major=True)
+    assert torch.equal(dq_t, dq.transpose(1, 2))
+    assert torch.equal(dk_t, dk) and torch.equal(dv_t, dv)
+
+
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)])
+def test_flash_kv_tier_bit_equal_to_native_and_launches(hq, hkv,
+                                                        monkeypatch):
+    """`FlashAttentionKV` against `FlashAttention` bit for bit, forward
+    and gradients, with 2 + 2 relayout launches per call; and
+    scaled_dot_product_attention under FLAGS_flash_layout=kv takes it."""
+    from paddle_tpu_torch.nn import functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(hq * 10 + hkv)
+    q = _randn(g, 2, 96, hq, 64, dtype=torch.float32)
+    k = _randn(g, 2, 96, hkv, 64, dtype=torch.float32)
+    v = _randn(g, 2, 96, hkv, 64, dtype=torch.float32)
+    w = _randn(g, 2, 96, hq, 64, dtype=torch.float32)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    K.reset_launches()
+    out = FA.FlashAttentionKV.apply(*leaves, True)
+    grads = torch.autograd.grad((out * w).sum(), leaves)
+    counts = K.launch_counts()
+    assert (counts["relayout_to_hm"], counts["relayout_from_hm"],
+            counts["flash_fwd"], counts["flash_bwd"]) == (2, 2, 1, 1)
+    native = FA.FlashAttention.apply(*leaves, None, True)
+    ngrads = torch.autograd.grad((native * w).sum(), leaves)
+    assert torch.equal(out, native)
+    for a, b in zip(grads, ngrads):
+        assert torch.equal(a, b)
+    monkeypatch.setenv("FLAGS_flash_layout", "kv")
+    K.reset_launches()
+    assert torch.equal(F.scaled_dot_product_attention(q, k, v,
+                                                      is_causal=True),
+                       native.detach())
+    assert K.launch_counts()["relayout_to_hm"] == 1
     K.reset_launches()

@@ -242,8 +242,7 @@ def test_engine_request_debug_names_eviction_stall(models, monkeypatch):
     assert eng2.request_debug("req-off") is None
 
 
-@pytest.mark.parametrize("knob", [dict(kv_precision="int8"),
-                                  dict(weight_precision="int8"),
+@pytest.mark.parametrize("knob", [dict(weight_precision="int8"),
                                   dict(spec_tokens=2)])
 def test_engine_unported_tiers_raise(models, knob):
     _, tm = models

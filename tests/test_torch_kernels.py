@@ -145,13 +145,21 @@ def test_paged_attention_plain_matches_pallas(hq, hkv):
 
 
 def test_paged_attention_int8_pool_raises():
-    q = torch.zeros(1, 2, 8)
-    kp = torch.zeros(2, 2, 8, 8, dtype=torch.int8)
-    with pytest.raises(NotImplementedError):
-        paged_attention(q, kp, kp, torch.zeros(1, 1, dtype=torch.int32),
-                        torch.zeros(1, dtype=torch.int32),
-                        k_scales=torch.ones(2, 2, 8),
-                        v_scales=torch.ones(2, 2, 8))
+    """The int8 tier is served now (tests/test_torch_quant_kv.py holds it
+    against JAX); what still raises is an int8 pool with one scale table
+    only.  With both, the plain version dequantizes code * scale."""
+    q = torch.ones(1, 2, 8)
+    kp = torch.ones(2, 2, 8, 8, dtype=torch.int8)
+    table = torch.zeros(1, 1, dtype=torch.int32)
+    pos = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="together"):
+        paged_attention(q, kp, kp, table, pos, k_scales=torch.ones(2, 2, 8))
+    with pytest.raises(ValueError, match="together"):
+        paged_attention(q, kp, kp, table, pos, v_scales=torch.ones(2, 2, 8))
+    out = paged_attention(q, kp, kp, table, pos,
+                          k_scales=torch.ones(2, 2, 8),
+                          v_scales=torch.full((2, 2, 8), 0.5))
+    assert torch.equal(out, torch.full((1, 2, 8), 0.5))
 
 
 @pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2), (32, 2)])

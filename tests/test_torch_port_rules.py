@@ -243,6 +243,17 @@ def test_non_cpu_tensors_never_run_plain_versions():
         K.window_attention.window_attention_bwd(
             qkv.detach(), bias, None, torch.empty(1, 4, 4, 8, **meta), 4, 0,
             2)
+    codes = torch.empty(2, 2, 4, 16, dtype=torch.int8, **meta)
+    scales = torch.empty(2, 2, 4, **meta)
+    with pytest.raises(ValueError, match="device"):
+        K.paged_attention.paged_attention(
+            torch.empty(1, 2, 16, **meta), codes, codes, idx.reshape(1, 1),
+            idx, k_scales=scales, v_scales=scales)
+    for fn in (K.relayout.to_head_major, K.relayout.from_head_major):
+        with pytest.raises(ValueError, match="device"):
+            fn(q)
+    with pytest.raises(ValueError, match="device"):
+        K.flash_attention.flash_fwd(q, q, q, head_major=True)
     assert K.launch_counts() == {n: 0 for n in K.KERNELS}
 
 
@@ -292,6 +303,30 @@ def test_flash_attention_backward_reaches_only_flash_bwd():
         assert wrapper in called, called
         assert not any(c.endswith("_reference") or "_sdpa_ref" in c
                        for c in called), called
+
+
+def test_flash_kv_tier_reaches_only_kernels():
+    """The `kv` layout tier's autograd function: its forward runs the
+    to-head-major relayout, the head-major flash forward and the relayout
+    back; its backward the same with flash_bwd; the relayout functions'
+    forward and backward run the relayout wrappers (the kernels on CUDA),
+    each the other's adjoint.  No plain version, nothing caught."""
+    fa, rl = K.flash_attention, K.relayout
+    for method, want in (
+            (fa.FlashAttentionKV.forward,
+             {"to_head_major", "flash_fwd", "from_head_major"}),
+            (fa.FlashAttentionKV.backward,
+             {"to_head_major", "flash_bwd", "from_head_major"}),
+            (rl.ToHeadMajor.forward, {"to_head_major"}),
+            (rl.ToHeadMajor.backward, {"from_head_major"}),
+            (rl.FromHeadMajor.forward, {"from_head_major"}),
+            (rl.FromHeadMajor.backward, {"to_head_major"})):
+        called = _calls(method)
+        assert want <= called, (method, called)
+        assert not any(c.endswith("_reference") or "_sdpa_ref" in c
+                       for c in called), called
+    src = inspect.getsource(fa.FlashAttentionKV)
+    assert src.count("head_major=True") == 2
 
 
 def test_rope_backward_reaches_only_the_kernel():
