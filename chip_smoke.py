@@ -13,7 +13,9 @@ non-zero and prints no result):
 
   1. device: `nvidia-smi` name and power limit, torch's device name;
   2. build: every CUDA kernel with nvcc for sm_90a, one nvcc per source
-     (ten), all started together; registers and spills per source;
+     (ten), all started together; registers and spills per source, and
+     per bf16 tensor-core flash kernel (a spill at head dims up to 128
+     fails);
   3. kernels: each kernel against its plain PyTorch version at the main
      path's shapes, in bf16 and f32, with its time, the plain version's,
      one PyTorch library call's where one computes the same function,
@@ -129,7 +131,11 @@ non-zero and prints no result):
 Phase 3 also holds paged_attention_int8 (the gpt_1p3b row's pool in
 int8, and a llama_7b decode step, 32 kv heads over ~1000 keys each) and
 relayout_to_hm / relayout_from_hm at the GPT-125M train shape [8, 1024,
-12, 64] (library: the same transpose on the card); varlen_fwd /
+12, 64] (library: the same transpose on the card); flash_fwd and
+flash_bwd at the encoder step's shape (phase 20: full B32 S512 H12 D64)
+and flash_fwd at the fused serving block's (phase 19: full B8 S1024 H16
+D128); a check that two bf16 runs of flash_fwd / flash_bwd at the train
+shape and of varlen_bwd on the causal packing are bit-identical; varlen_fwd /
 varlen_bwd on the packed batch of phase
 17 (library yardstick: SDPA on `torch.nested` jagged tensors, or with a
 block-diagonal mask where this PyTorch cannot dispatch those; the form
@@ -244,6 +250,37 @@ def phase_build():
             f"{max(regs, default=0)}, kernels spilling "
             f"{sum(x > 0 for x in spills)} (max {max(spills, default=0)} "
             "bytes of spill stores)")
+        tc = _tc_kernels(text)
+        if tc:
+            log(f"[build] {n} bf16 tensor-core kernels (tile width, mode: "
+                "registers / spill bytes): " + ", ".join(
+                    f"{k} DT{dt} {mode}: {r}/{sp}"
+                    for k, dt, mode, r, sp in tc))
+            spilled = [(k, dt, mode) for k, dt, mode, _, sp in tc
+                       if sp and dt <= 128]
+            check(not spilled, f"{n}: bf16 kernels spill at head dims "
+                  f"<= 128: {spilled}")
+
+
+def _tc_kernels(text):
+    """[(kernel, DT, mode, registers, spill store bytes)] of the
+    tensor-core flash kernels in one source's `ptxas -v` log (entry
+    names demangled from their template arguments <DT, BIAS, PACKED,
+    HM>)."""
+    out = []
+    for part in text.split("Compiling entry function")[1:]:
+        m = re.search(r"(flash_\w+?_tc)ILi(\d+)ELb(\d)ELb(\d)ELb(\d)E",
+                      part)
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores", part)
+        if m and regs:
+            bias, packed, hm = (m.group(i) == "1" for i in (3, 4, 5))
+            mode = ("bias" if bias else "packed" if packed
+                    else "head-major" if hm else "dense")
+            out.append((m.group(1), int(m.group(2)), mode,
+                        int(regs.group(1)),
+                        int(spill.group(1)) if spill else 0))
+    return out
 
 
 # ----------------------------------------------------------------- phase 3
@@ -1051,11 +1088,13 @@ def rope_cases(torch, dtype):
 
 def bwd_cases(torch, dtype):
     """flash_fwd and flash_bwd at the train step's shape (GPT-125M: B8
-    S1024 H12 D64, causal), and flash_bwd at a GQA + pad-bias case (B2
+    S1024 H12 D64, causal), flash_bwd at a GQA + pad-bias case (B2
     S1024, 12 query heads over 4 kv heads, keys before each row's start
-    masked, causal).  Pad query rows, which see no key, get a zero
-    cotangent, as a loss that ignores pad positions gives them; then
-    every row is compared."""
+    masked, causal), both at the encoder step's shape (phase 20:
+    ernie_base, B32 S512 H12 D64, full) and flash_fwd at the fused
+    serving block's (phase 19: gpt_1p3b, B8 S1024 H16 D128, full).  Pad
+    query rows, which see no key, get a zero cotangent, as a loss that
+    ignores pad positions gives them; then every row is compared."""
     from paddle_tpu_torch.ops.kernels import flash_attention as FA
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -1063,17 +1102,22 @@ def bwd_cases(torch, dtype):
     isz = torch.empty((), dtype=dtype).element_size()
     dname = str(dtype).split(".")[1]
     cases = []
-    for label, b, s, hq, hkv, starts in (
-            ("causal B8 S1024 H12 D64 (train)", 8, 1024, 12, 12, None),
-            ("GQA 12/4 causal+pad B2 S1024 D64", 2, 1024, 12, 4, (0, 100))):
-        d = 64
+    for label, b, s, hq, hkv, d, causal, starts, bwd in (
+            ("causal B8 S1024 H12 D64 (train)", 8, 1024, 12, 12, 64, True,
+             None, True),
+            ("GQA 12/4 causal+pad B2 S1024 D64", 2, 1024, 12, 4, 64, True,
+             (0, 100), True),
+            ("full B32 S512 H12 D64 (encoder)", 32, 512, 12, 12, 64, False,
+             None, True),
+            ("full B8 S1024 H16 D128 (fused serve)", 8, 1024, 16, 16, 128,
+             False, None, False)):
         q, dout = (torch.randn(b, s, hq, d, generator=g, device=dev,
                                dtype=dtype) for _ in range(2))
         k, v = (torch.randn(b, s, hkv, d, generator=g, device=dev,
                             dtype=dtype) for _ in range(2))
         bias, bias_bytes = None, 0
         if starts is None:
-            pairs = b * s * (s + 1) // 2
+            pairs = b * s * (s + 1) // 2 if causal else b * s * s
         else:
             st = torch.tensor(starts, device=dev)
             valid = torch.arange(s, device=dev)[None] >= st[:, None]
@@ -1086,26 +1130,59 @@ def bwd_cases(torch, dtype):
         if starts is None:
             cases.append((
                 "flash_fwd", label,
-                lambda q=q, k=k, v=v: FA.flash_fwd(q, k, v, causal=True),
-                lambda q=q, k=k, v=v: FA.flash_fwd_reference(q, k, v,
-                                                             causal=True),
-                _sdpa_library(q, k, v, None, True),
+                lambda q=q, k=k, v=v, c=causal: FA.flash_fwd(q, k, v,
+                                                             causal=c),
+                lambda q=q, k=k, v=v, c=causal: FA.flash_fwd_reference(
+                    q, k, v, causal=c),
+                _sdpa_library(q, k, v, None, causal),
                 # q, k, v, o once each, lse
                 4 * b * s * hq * d * isz + b * hq * s * 4,
                 4 * pairs * hq * d, dname, 0))
-        out, lse = FA.flash_fwd(q, k, v, bias=bias, causal=True)
+        if not bwd:
+            continue
+        out, lse = FA.flash_fwd(q, k, v, bias=bias, causal=causal)
         cases.append((
             "flash_bwd", label,
-            lambda q=q, k=k, v=v, o=out, l=lse, g=dout, m=bias:
-                FA.flash_bwd(q, k, v, o, l, g, bias=m, causal=True),
-            lambda q=q, k=k, v=v, o=out, l=lse, g=dout, m=bias:
-                FA.flash_bwd_reference(q, k, v, o, l, g, bias=m,
-                                       causal=True),
-            _sdpa_bwd_library(q, k, v, dout, bias, True),
+            lambda q=q, k=k, v=v, o=out, l=lse, g=dout, m=bias, c=causal:
+                FA.flash_bwd(q, k, v, o, l, g, bias=m, causal=c),
+            lambda q=q, k=k, v=v, o=out, l=lse, g=dout, m=bias, c=causal:
+                FA.flash_bwd_reference(q, k, v, o, l, g, bias=m, causal=c),
+            _sdpa_bwd_library(q, k, v, dout, bias, causal),
             # q, o, dO, dq and k, v, dk, dv once each, lse, the bias
             4 * b * s * (hq + hkv) * d * isz + b * hq * s * 4 + bias_bytes,
             10 * pairs * hq * d, dname, 0))
     return cases
+
+
+def _reruns_bit_identical(torch):
+    """No atomics: two bf16 runs of flash_fwd and flash_bwd at the train
+    shape (causal B8 S1024 H12 D64) and of varlen_bwd on the packed batch
+    (causal) give the same bits."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as FA
+    from paddle_tpu_torch.ops.kernels import varlen_attention as VA
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    q, k, v, dout = (torch.randn(8, 1024, 12, 64, generator=g,
+                                 device="cuda", dtype=torch.bfloat16)
+                     for _ in range(4))
+    runs = []
+    for _ in range(2):
+        out, lse = FA.flash_fwd(q, k, v, causal=True)
+        runs.append((out, lse) + FA.flash_bwd(q, k, v, out, lse, dout,
+                                              causal=True))
+    same = [torch.equal(a, b) for a, b in zip(*runs)]
+    check(all(same), f"flash_fwd / flash_bwd reruns differ (out, lse, dq, "
+          f"dk, dv equal: {same})")
+    q, k, v, dout, cq, ck, _, _ = _varlen_batch(torch, torch.bfloat16)
+    out, lse = VA.varlen_fwd(q, k, v, cq, ck, causal=True)
+    runs = [VA.varlen_bwd(q, k, v, out, lse, dout, cq, ck, causal=True)
+            for _ in range(2)]
+    same_v = [torch.equal(a, b) for a, b in zip(*runs)]
+    check(all(same_v), f"varlen_bwd reruns differ (dq, dk, dv equal: "
+          f"{same_v})")
+    log("[kernels] bf16 reruns bit-identical: flash_fwd (out, lse), "
+        "flash_bwd (dq, dk, dv) at causal B8 S1024 H12 D64, varlen_bwd "
+        "on the causal T8192 packing")
 
 
 def phase_kernels():
@@ -1235,6 +1312,7 @@ def phase_kernels():
             f"{tot[2]:.3f} ms, bound {tot[3]:.4f} ms")
     for key, form in VARLEN_LIBRARY.items():
         log(f"[kernels] varlen library yardstick {key}: SDPA on {form}")
+    _reruns_bit_identical(torch)
     K.reset_launches()   # comparison launches do not count
     return table
 

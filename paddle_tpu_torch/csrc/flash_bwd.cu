@@ -15,35 +15,60 @@
 // query head h is h / (Hq / Hkv), and the optional f32 bias is read
 // through strides (stride 0 on broadcast dims), as flash_fwd.cu reads it.
 // The bias gets no gradient (the JAX core returns a zero cotangent).
+// Packed mode (below) replaces paddle_tpu/ops/pallas/varlen_attention.py
+// `_vl_bwd` (:139), and head-major mode the Q/O addressing of `_bwd_kv`.
 //
 // Bound on this card: operations at the training shape (B8 S1024 H12
-// D64, causal): 10 * D flops per visible (query, key) pair against
-// 4 * S * D bytes per head of inputs and 3 * S * D of outputs.  This
-// first version runs on the f32 CUDA cores, so its ceiling is the 67
-// TFLOP/s f32 peak, not the 989 TFLOP/s bf16 tensor-core peak, and it
-// recomputes the scores and dO.v in both passes (14 * D flops per pair).
+// D64, causal): 10 * D flops per visible (query, key) pair, 32.3 GFLOP,
+// 0.0326 ms at the 989 TFLOP/s bf16 tensor-core peak, against 4 * S * D
+// bytes per head of inputs and 3 * S * D of outputs.  Both passes below
+// recompute the scores and dO.v, so the kernels run 14 * D flops a pair.
 //
 // Design, three launches on the caller's stream:
-//   (a) delta[b, h, i] = sum_d dO * O in f32, one warp per query row;
-//   (b) dQ: one block of 8 warps per (32-query tile, query head, batch).
-//       It walks 32-key tiles up to the diagonal (bottom-right aligned,
-//       off = Sk - Sq); lane c owns key c of the tile, each warp owns 4
-//       query rows, and ds reaches the ds.K product by warp shuffle;
-//   (c) dK/dV: one block per (32-key tile, kv head, batch).  It walks the
-//       GQA group's query heads and, for each, the query tiles from the
-//       diagonal down, so the group sum stays in registers: no atomics.
-//       Lane c owns query c of the tile, each warp owns 4 keys.
-// Tiles are staged through shared memory as f32 with rows padded by one
-// float (the lanes' strided row reads hit distinct banks).  Everything
-// accumulates in f32; p and ds stay f32 (the JAX loops round them to the
-// input dtype before their dots, :459/:572/:578).  Masked scores get the
+//   (a) delta[b, h, i] = sum_d dO * O in f32, one warp per query row
+//       (both dtypes);
+//   (b) dQ, bf16 (`flash_bwd_dq_tc`): one block of 4 warps per (64-query
+//       tile, query head, batch), 16 query rows a warp.  Q and dO stay
+//       resident in XOR-swizzled shared memory (and, at head dims up to
+//       64, in registers); K and V tiles (64 keys, 32 above head dim 128)
+//       stream through a 2-stage cp.async ring up to the diagonal
+//       (bottom-right aligned, off = Sk - Sq).  S = Q K^T and dP = dO V^T
+//       by mma.sync m16n8k16 (bf16 operands, f32 accumulators); p =
+//       exp(S scale [+ bias] - L) and dS = p (dP - delta) scale in
+//       registers, dS rounded to bf16 into the A fragments of dQ += dS K
+//       (JAX rounds it there, :459), K read by ldmatrix.trans;
+//   (c) dK/dV, bf16 (`flash_bwd_dkv_tc`): one block per (64-key tile, 32
+//       above head dim 128, kv head, batch), 16 keys a warp (two warps
+//       share them, each with half the columns, above 128).  K and V stay
+//       resident; Q, dO, L and delta stream through the ring, over the GQA
+//       group's query heads inside the block, so the group sum stays in
+//       registers.  S^T = K Q^T and dP^T = V dO^T by mma; P^T and dS^T
+//       rounded to bf16 in registers (:572, :578) feed dV += P^T dO and
+//       dK += dS^T Q, dO and Q read by ldmatrix.trans.
+//   Only tiles that cross the diagonal, a sequence end or a segment edge
+//   run the masked body.  No atomics: SDPA's backward adds dQ with
+//   atomics from the dK/dV pass (10 * D flops a pair); keeping the two
+//   passes costs 14 * D, and in return a rerun is bit-identical, which
+//   the int8 tier's and the kv tier's tests rely on.  Next step (not
+//   taken here): wgmma on 64-row warpgroup tiles fed by TMA from a
+//   producer warp (warp specialisation).
+//
+// f32 keeps the first version's CUDA-core passes (b) and (c)
+// (`flash_bwd_dq_kernel`, `flash_bwd_dkv_kernel`), the port's oracle path
+// (TF32 tensor cores would keep ~3 digits): one block of 8 warps per
+// 32-query (32-key) tile, lane c owning query (key) c of the tile, each
+// warp 4 rows, ds and p reaching their products by warp shuffle; tiles
+// staged as f32 with rows padded by one float; p and ds stay f32.  Its
+// ceiling is the 67 TFLOP/s f32 peak.
+//
+// Both cores: everything accumulates in f32.  Masked scores get the
 // finite NEG_INF, as in the forward, so a fully masked (left-pad) row has
 // finite gradients, zero when its dO is zero; keys past Sk and queries
-// past Sq get p = 0 exactly.  Both passes visit the same (query tile, key
-// tile) pairs, so even a fully masked row's dQ and dK/dV agree with each
-// other.  Later work: mma.sync / wgmma on bf16 tiles with TMA staging.
+// past Sq get p = 0 exactly.  Where the two passes' tiles are equal (f32;
+// bf16 at head dims up to 64) they visit the same (query tile, key tile)
+// pairs, so even a fully masked row's dQ and dK/dV agree with each other.
 //
-// Packed (varlen) mode, the same kernels with PACKED = true.  Replaces:
+// Packed (varlen) mode, PACKED = true.  Replaces:
 // paddle_tpu/ops/pallas/varlen_attention.py `_vl_bwd` (:139): its dQ
 // pass (`_vl_dq_kernel` :71, pallas_call :158) and dK/dV pass
 // (`_vl_dkv_kernel` :87, pallas_call :171), the same recurrences with
@@ -56,14 +81,14 @@
 // and gives nothing to dK/dV.  Bound on this card: operations, 10 * D
 // flops per visible (query, key) pair of the segments.
 //
-// Head-major mode (the `kv` layout tier), the same kernels with HM = true:
-// Q, O, dO and dQ are [B, Hq, Sq, D]; K, V, dK, dV and the LSE keep their
-// layouts.  Replaces the Q/O/dO/dQ addressing of `_bwd_kv` (:1020,
-// pallas_call :1036 dQ, :1053 dK/dV) under `_flash_core_kv_bwd` (:1084).
-// Only the row offsets differ (the delta pass then walks [B, Hq, Sq] in
-// memory order), so its numbers are the native kernels' bit for bit; the
-// dense instantiations (HM = false) are unchanged.
+// Head-major mode (the `kv` layout tier), HM = true: Q, O, dO and dQ are
+// [B, Hq, Sq, D]; K, V, dK, dV and the LSE keep their layouts.  Replaces
+// the Q/O/dO/dQ addressing of `_bwd_kv` (:1020, pallas_call :1036 dQ,
+// :1053 dK/dV) under `_flash_core_kv_bwd` (:1084).  Only the row offsets
+// differ (the delta pass then walks [B, Hq, Sq] in memory order), so its
+// numbers are the native mode's bit for bit, in both cores.
 #include "common.cuh"
+#include "flash_tc.cuh"
 
 #define FB_BQ 32
 #define FB_BK 32
@@ -444,6 +469,468 @@ static int dispatch(const void* q, const void* k, const void* v,
   }
 }
 
+// ---------------------------------------------------------------- bf16
+// The tensor-core passes (b) and (c): every bf16 mode runs here.
+
+#define TC_BQ 64     // dQ pass: query rows per block, 16 per warp
+
+template <int DT>
+struct BwdTile {
+  static constexpr int BK = DT <= 128 ? 64 : 32;  // dQ: keys per tile
+  static constexpr bool QREG = DT <= 64;          // dQ: Q, dO in registers
+  static constexpr int NS = DT <= 128 ? 1 : 2;    // dK/dV: warps per 16 keys
+  static constexpr int KT = 64 / NS;              // dK/dV: keys per block
+  static constexpr int QT = DT <= 64 ? 64 : 32;   // dK/dV: queries per tile
+  // Q, dO, then the K and V rings of 2 stages
+  static constexpr size_t smem_dq =
+      sizeof(bf16) * (size_t)(2 * TC_BQ + 4 * BK) * DT;
+  // K, V, the Q and dO rings, then the L and delta rings
+  static constexpr size_t smem_dkv =
+      sizeof(bf16) * (size_t)(2 * KT + 4 * QT) * DT + sizeof(float) * 4 * QT;
+};
+
+// (b) dQ for one (64-query tile, query head, batch).
+template <int DT, bool BIAS, bool PACKED, bool HM>
+__global__ void __launch_bounds__(TC_THREADS) flash_bwd_dq_tc(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const float* __restrict__ bias,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const bf16* __restrict__ dout, bf16* __restrict__ dq, int Sq, int Sk,
+    int Hq, int Hkv, int D, long long bsb, long long bsh, long long bsq,
+    int causal, float scale, const int* __restrict__ cu_q,
+    const int* __restrict__ cu_k, int nseg) {
+  constexpr int BK = BwdTile<DT>::BK, NT = BK / 8, KS = DT / 16, ND = DT / 8;
+  constexpr bool QREG = BwdTile<DT>::QREG;
+  extern __shared__ __align__(128) unsigned char dq_smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(dq_smem);  // [TC_BQ][DT]
+  bf16* dOs = Qs + TC_BQ * DT;                  // [TC_BQ][DT]
+  bf16* Ks = dOs + TC_BQ * DT;                  // [2][BK][DT]
+  bf16* Vs = Ks + 2 * BK * DT;                  // [2][BK][DT]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / (Hq / Hkv);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * TC_BQ;  // longest first
+  const int qmax = min(q0 + TC_BQ, Sq) - 1;
+  const int off = Sk - Sq;
+  const int wr = warp * 16;
+  const int nk = (D + 15) >> 4, nd = 2 * nk;
+
+  int kbeg = 0, kend = Sk, kin_lo = 0, kin_hi = Sk;
+  int klo[2] = {0, 0}, khi[2] = {Sk, Sk};  // packed: rows g, g + 8
+  if constexpr (PACKED) {
+    const int s0 = pt_segment(cu_q, nseg, q0);
+    const int s1 = pt_segment(cu_q, nseg, qmax);
+    kbeg = pt_bound(cu_k, nseg, Sk, s0);
+    kend = pt_bound(cu_k, nseg, Sk, s1 + 1);
+    kin_lo = pt_bound(cu_k, nseg, Sk, s1);
+    kin_hi = pt_bound(cu_k, nseg, Sk, s0 + 1);
+    if (causal) kend = min(kend, qmax + off + 1);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int s = pt_segment(cu_q, nseg, min(q0 + wr + g + 8 * r, Sq - 1));
+      klo[r] = pt_bound(cu_k, nseg, Sk, s);
+      khi[r] = pt_bound(cu_k, nseg, Sk, s + 1);
+    }
+  } else if (causal) {
+    kend = max(0, min(Sk, qmax + off + 1));
+  }
+  const int ntiles = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
+
+  // row i of this (head, batch): q + qh + i * qs (dO, dQ alike); of its
+  // kv head: k + kh + i * ks (v alike)
+  const long long qh = fb_row<HM>(b, 0, h, Sq, Hq, D);
+  const long long qs = HM ? D : (long long)Hq * D;
+  const long long kh = ((long long)b * Sk * Hkv + hk) * D;
+  const long long ks = (long long)Hkv * D;
+  tc_zero_pad<DT>(Qs, 2 * TC_BQ + 4 * BK, D);
+  tc_load_rows<TC_BQ, DT>(Qs, q + qh, qs, q0, Sq, D);
+  tc_load_rows<TC_BQ, DT>(dOs, dout + qh, qs, q0, Sq, D);
+  if (ntiles > 0) {
+    tc_load_rows<BK, DT>(Ks, k + kh, ks, kbeg, Sk, D);
+    tc_load_rows<BK, DT>(Vs, v + kh, ks, kbeg, Sk, D);
+  }
+  tc_commit();
+  float L[2], Dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + wr + g + 8 * r;
+    const long long at = ((long long)b * Hq + h) * Sq + qi;
+    L[r] = qi < Sq ? lse[at] : 0.f;
+    Dl[r] = qi < Sq ? delta[at] : 0.f;
+  }
+  const float* brow = nullptr;
+  if constexpr (BIAS) brow = bias + b * bsb + h * bsh;
+
+  uint32_t qf[QREG ? KS : 1][4], of[QREG ? KS : 1][4];
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = kbeg + it * BK;
+    const bf16* Kt = Ks + (it & 1) * BK * DT;
+    const bf16* Vt = Vs + (it & 1) * BK * DT;
+    if (it + 1 < ntiles) {
+      const int nx = ((it + 1) & 1) * BK * DT;
+      tc_load_rows<BK, DT>(Ks + nx, k + kh, ks, k0 + BK, Sk, D);
+      tc_load_rows<BK, DT>(Vs + nx, v + kh, ks, k0 + BK, Sk, D);
+      tc_commit();
+      tc_wait<1>();
+    } else {
+      tc_wait<0>();
+    }
+    __syncthreads();
+    if constexpr (QREG) {
+      if (it == 0) {
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+          if (kk < nk) {
+            tc_frag_a<DT>(Qs, wr, kk, lane, qf[kk]);
+            tc_frag_a<DT>(dOs, wr, kk, lane, of[kk]);
+          }
+      }
+    }
+
+    // S = Q K^T, dP = dO V^T
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      if (kk >= nk) break;
+      uint32_t a[4], ao[4];
+      if constexpr (QREG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          a[e] = qf[kk][e];
+          ao[e] = of[kk][e];
+        }
+      } else {
+        tc_frag_a<DT>(Qs, wr, kk, lane, a);
+        tc_frag_a<DT>(dOs, wr, kk, lane, ao);
+      }
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        uint32_t bb[4];
+        tc_frag_b<DT>(Kt, j, kk, lane, bb);
+        tc_mma(s[j], a, bb[0], bb[1]);
+        tc_mma(s[j + 1], a, bb[2], bb[3]);
+        tc_frag_b<DT>(Vt, j, kk, lane, bb);
+        tc_mma(dp[j], ao, bb[0], bb[1]);
+        tc_mma(dp[j + 1], ao, bb[2], bb[3]);
+      }
+    }
+
+    // p from the saved LSE, dS = p (dP - delta) scale; dS overwrites s
+    const bool masked = k0 + BK > Sk || (causal && k0 + BK - 1 > q0 + off) ||
+                        (PACKED && (k0 < kin_lo || k0 + BK > kin_hi));
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const int qi = q0 + wr + g + 8 * r;
+        const int kj = k0 + 8 * j + 2 * t + (e & 1);
+        float x = s[j][e] * scale;
+        if constexpr (BIAS) {
+          if (kj < Sk && qi < Sq) x += brow[qi * bsq + kj];
+        }
+        bool valid = true;
+        if (masked) {
+          if constexpr (PACKED) {
+            valid = kj >= klo[r] && kj < khi[r] && !(causal && qi + off < kj);
+          } else {
+            if (causal && qi + off < kj) x = PT_NEG_INF;
+            valid = kj < Sk;
+          }
+        }
+        const float p = valid ? tc_exp2((x - L[r]) * TC_LOG2E) : 0.f;
+        s[j][e] = p * (dp[j][e] - Dl[r]) * scale;
+      }
+
+    // dQ += dS K, dS rounded to bf16 in registers
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t a[4];
+      tc_acc_to_a(s[2 * kk], s[2 * kk + 1], a);
+#pragma unroll
+      for (int n = 0; n < ND; n += 2) {
+        if (n >= nd) break;
+        uint32_t bb[4];
+        tc_frag_bt<DT>(Kt, n, kk, lane, bb);
+        tc_mma(acc[n], a, bb[0], bb[1]);
+        tc_mma(acc[n + 1], a, bb[2], bb[3]);
+      }
+    }
+    __syncthreads();  // this stage is consumed before its next copy
+  }
+
+  tc_wait<0>();
+  __syncthreads();
+  const float one[2] = {1.f, 1.f};
+  // the warp's own Q rows (no other warp reads them) stage its dQ rows
+  tc_acc_to_tile<DT, ND>(Qs, wr, 0, nd, acc, one, lane);
+  __syncwarp();
+  tc_store_rows<DT, 16, 32>(dq + qh, qs, Qs + wr * DT, q0 + wr, Sq, D,
+                            lane);
+}
+
+// (c) dK and dV for one (key tile, kv head, batch), summed over the kv
+// head's group of query heads.
+template <int DT, bool BIAS, bool PACKED, bool HM>
+__global__ void __launch_bounds__(TC_THREADS) flash_bwd_dkv_tc(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const float* __restrict__ bias,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const bf16* __restrict__ dout, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, int Sq, int Sk, int Hq, int Hkv, int D,
+    long long bsb, long long bsh, long long bsq, int causal, float scale,
+    const int* __restrict__ cu_q, const int* __restrict__ cu_k, int nseg) {
+  constexpr int NS = BwdTile<DT>::NS, KT = BwdTile<DT>::KT;
+  constexpr int QT = BwdTile<DT>::QT, NQ = QT / 8, KS = DT / 16;
+  constexpr int NC = DT / 8 / NS;  // dK / dV n-tiles per warp
+  extern __shared__ __align__(128) unsigned char dkv_smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(dkv_smem);  // [KT][DT]
+  bf16* Vs = Ks + KT * DT;                       // [KT][DT]
+  bf16* Qs = Vs + KT * DT;                       // [2][QT][DT]
+  bf16* dOs = Qs + 2 * QT * DT;                  // [2][QT][DT]
+  float* Ls = reinterpret_cast<float*>(dOs + 2 * QT * DT);  // [2][QT]
+  float* Ds = Ls + 2 * QT;                                  // [2][QT]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int hk = blockIdx.y, b = blockIdx.z, rep = Hq / Hkv;
+  const int k0 = blockIdx.x * KT;
+  const int kmax = min(k0 + KT, Sk) - 1;
+  const int off = Sk - Sq;
+  const int wr = (warp / NS) * 16;     // the warp's first key row
+  const int n0 = (warp % NS) * NC;     // its first dK / dV n-tile
+  const int nk = (D + 15) >> 4, nd = 2 * nk;
+
+  // causal: key k0 is first seen by query k0 - off; start at its tile
+  int qstart = causal ? max(0, k0 - off) / QT * QT : 0, qend = Sq;
+  int qin_lo = 0, qin_hi = Sq;  // queries every key of the tile may see
+  int qlo[2] = {0, 0}, qhi[2] = {Sq, Sq};  // packed: keys g, g + 8
+  if constexpr (PACKED) {
+    const int s0 = pt_segment(cu_k, nseg, k0);
+    const int s1 = pt_segment(cu_k, nseg, kmax);
+    qstart = pt_bound(cu_q, nseg, Sq, s0);
+    qend = pt_bound(cu_q, nseg, Sq, s1 + 1);
+    qin_lo = pt_bound(cu_q, nseg, Sq, s1);
+    qin_hi = pt_bound(cu_q, nseg, Sq, s0 + 1);
+    if (causal) qstart = max(qstart, k0 - off);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int s = pt_segment(cu_k, nseg, min(k0 + wr + g + 8 * r, Sk - 1));
+      qlo[r] = pt_bound(cu_q, nseg, Sq, s);
+      qhi[r] = pt_bound(cu_q, nseg, Sq, s + 1);
+    }
+  }
+  const int nqt = qend > qstart ? (qend - qstart + QT - 1) / QT : 0;
+  const int ntiles = rep * nqt;  // (query head of the group, query tile)
+
+  // row i of the kv head: k + kh + i * ks (v, dK, dV alike); of query
+  // head h: q + fb_row(b, 0, h) + i * qs (dO alike)
+  const long long kh = ((long long)b * Sk * Hkv + hk) * D;
+  const long long ks = (long long)Hkv * D;
+  const long long qs = HM ? D : (long long)Hq * D;
+  // Q, dO, L and delta of tile `it` into ring stage `st` (L and delta by
+  // plain loads: 2 * QT floats)
+  auto load_q = [&](int it, int st) {
+    const int h = hk * rep + it / nqt, q0 = qstart + (it % nqt) * QT;
+    const long long qh = fb_row<HM>(b, 0, h, Sq, Hq, D);
+    tc_load_rows<QT, DT>(Qs + st * QT * DT, q + qh, qs, q0, Sq, D);
+    tc_load_rows<QT, DT>(dOs + st * QT * DT, dout + qh, qs, q0, Sq, D);
+    for (int i = threadIdx.x; i < QT; i += TC_THREADS) {
+      const int qi = q0 + i;
+      const long long at = ((long long)b * Hq + h) * Sq + qi;
+      Ls[st * QT + i] = qi < Sq ? lse[at] : 0.f;
+      Ds[st * QT + i] = qi < Sq ? delta[at] : 0.f;
+    }
+  };
+  tc_zero_pad<DT>(Ks, 2 * KT + 4 * QT, D);
+  tc_load_rows<KT, DT>(Ks, k + kh, ks, k0, Sk, D);
+  tc_load_rows<KT, DT>(Vs, v + kh, ks, k0, Sk, D);
+  if (ntiles > 0) load_q(0, 0);
+  tc_commit();
+
+  float adk[NC][4], adv[NC][4];
+#pragma unroll
+  for (int n = 0; n < NC; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adk[n][e] = adv[n][e] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it & 1;
+    const int h = hk * rep + it / nqt, q0 = qstart + (it % nqt) * QT;
+    if (it + 1 < ntiles) {
+      load_q(it + 1, st ^ 1);
+      tc_commit();
+      tc_wait<1>();
+    } else {
+      tc_wait<0>();
+    }
+    __syncthreads();
+    const bf16* Qt = Qs + st * QT * DT;
+    const bf16* dOt = dOs + st * QT * DT;
+    const float* Lt = Ls + st * QT;
+    const float* Dt = Ds + st * QT;
+
+    // S^T = K Q^T, dP^T = V dO^T (rows: the warp's 16 keys)
+    float s[NQ][4], dp[NQ][4];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      if (kk >= nk) break;
+      uint32_t ak[4], av[4];
+      tc_frag_a<DT>(Ks, wr, kk, lane, ak);
+      tc_frag_a<DT>(Vs, wr, kk, lane, av);
+#pragma unroll
+      for (int j = 0; j < NQ; j += 2) {
+        uint32_t bb[4];
+        tc_frag_b<DT>(Qt, j, kk, lane, bb);
+        tc_mma(s[j], ak, bb[0], bb[1]);
+        tc_mma(s[j + 1], ak, bb[2], bb[3]);
+        tc_frag_b<DT>(dOt, j, kk, lane, bb);
+        tc_mma(dp[j], av, bb[0], bb[1]);
+        tc_mma(dp[j + 1], av, bb[2], bb[3]);
+      }
+    }
+
+    // P^T overwrites s, dS^T overwrites dp
+    const bool masked = q0 + QT > Sq || (causal && q0 + off < k0 + KT - 1) ||
+                        (PACKED && (q0 < qin_lo || q0 + QT > qin_hi));
+    const float* brow = nullptr;
+    if constexpr (BIAS) brow = bias + b * bsb + h * bsh;
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+      const float2 lq = *reinterpret_cast<const float2*>(Lt + 8 * j + 2 * t);
+      const float2 dq2 = *reinterpret_cast<const float2*>(Dt + 8 * j + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, c = e & 1;
+        const int kj = k0 + wr + g + 8 * r;
+        const int qi = q0 + 8 * j + 2 * t + c;
+        float x = s[j][e] * scale;
+        if constexpr (BIAS) {
+          if (kj < Sk && qi < Sq) x += brow[qi * bsq + kj];
+        }
+        bool valid = true;
+        if (masked) {
+          if constexpr (PACKED) {
+            valid = qi >= qlo[r] && qi < qhi[r] && qi < Sq &&
+                    !(causal && qi + off < kj);
+          } else {
+            if (causal && qi + off < kj) x = PT_NEG_INF;
+            valid = qi < Sq;
+          }
+        }
+        const float p =
+            valid ? tc_exp2((x - (c ? lq.y : lq.x)) * TC_LOG2E) : 0.f;
+        dp[j][e] = p * (dp[j][e] - (c ? dq2.y : dq2.x)) * scale;
+        s[j][e] = p;
+      }
+    }
+
+    // dV += P^T dO, dK += dS^T Q, P^T and dS^T rounded to bf16
+#pragma unroll
+    for (int kk = 0; kk < QT / 16; ++kk) {
+      uint32_t ap[4], ad[4];
+      tc_acc_to_a(s[2 * kk], s[2 * kk + 1], ap);
+      tc_acc_to_a(dp[2 * kk], dp[2 * kk + 1], ad);
+#pragma unroll
+      for (int n = 0; n < NC; n += 2) {
+        if (n0 + n >= nd) break;
+        uint32_t bb[4];
+        tc_frag_bt<DT>(dOt, n0 + n, kk, lane, bb);
+        tc_mma(adv[n], ap, bb[0], bb[1]);
+        tc_mma(adv[n + 1], ap, bb[2], bb[3]);
+        tc_frag_bt<DT>(Qt, n0 + n, kk, lane, bb);
+        tc_mma(adk[n], ad, bb[0], bb[1]);
+        tc_mma(adk[n + 1], ad, bb[2], bb[3]);
+      }
+    }
+    __syncthreads();  // this stage is consumed before its next copy
+  }
+
+  tc_wait<0>();
+  __syncthreads();  // every warp is done with K and V: they stage dK, dV
+  const float one[2] = {1.f, 1.f};
+  tc_acc_to_tile<DT, NC>(Ks, wr, n0, nd, adk, one, lane);
+  tc_acc_to_tile<DT, NC>(Vs, wr, n0, nd, adv, one, lane);
+  __syncthreads();
+  tc_store_rows<DT, KT, TC_THREADS>(dk + kh, ks, Ks, k0, Sk, D,
+                                    threadIdx.x);
+  tc_store_rows<DT, KT, TC_THREADS>(dv + kh, ks, Vs, k0, Sk, D,
+                                    threadIdx.x);
+}
+
+template <int DT, bool BIAS, bool PACKED, bool HM>
+static int launch_tc(const void* q, const void* k, const void* v,
+                     const float* bias, const void* o, const float* lse,
+                     const void* dout, float* delta, void* dq, void* dk,
+                     void* dv, int B, int Sq, int Sk, int Hq, int Hkv, int D,
+                     long long bsb, long long bsh, long long bsq, int causal,
+                     float scale, const int* cu_q, const int* cu_k, int nseg,
+                     cudaStream_t stream) {
+  const long long rows = (long long)B * Sq * Hq;
+  flash_bwd_delta_kernel<bf16, HM>
+      <<<(unsigned)((rows + FB_WARPS - 1) / FB_WARPS), FB_WARPS * 32, 0,
+         stream>>>((const bf16*)o, (const bf16*)dout, delta, rows, Sq, Hq,
+                   D);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+
+  auto dq_kern = flash_bwd_dq_tc<DT, BIAS, PACKED, HM>;
+  allow_smem(dq_kern, BwdTile<DT>::smem_dq);
+  dq_kern<<<dim3((Sq + TC_BQ - 1) / TC_BQ, Hq, B), TC_THREADS,
+            BwdTile<DT>::smem_dq, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, bias, lse, delta,
+      (const bf16*)dout, (bf16*)dq, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal,
+      scale, cu_q, cu_k, nseg);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+
+  constexpr int KT = BwdTile<DT>::KT;
+  auto dkv_kern = flash_bwd_dkv_tc<DT, BIAS, PACKED, HM>;
+  allow_smem(dkv_kern, BwdTile<DT>::smem_dkv);
+  dkv_kern<<<dim3((Sk + KT - 1) / KT, Hkv, B), TC_THREADS,
+             BwdTile<DT>::smem_dkv, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, bias, lse, delta,
+      (const bf16*)dout, (bf16*)dk, (bf16*)dv, Sq, Sk, Hq, Hkv, D, bsb, bsh,
+      bsq, causal, scale, cu_q, cu_k, nseg);
+  return (int)cudaGetLastError();
+}
+
+// bf16, any mode: the tile width DT is the head dim rounded up to 64,
+// 128 or 256.
+template <bool BIAS, bool PACKED, bool HM = false>
+static int dispatch_tc(const void* q, const void* k, const void* v,
+                       const float* bias, const void* o, const float* lse,
+                       const void* dout, float* delta, void* dq, void* dk,
+                       void* dv, int B, int Sq, int Sk, int Hq, int Hkv,
+                       int D, long long bsb, long long bsh, long long bsq,
+                       int causal, float scale, const int* cu_q,
+                       const int* cu_k, int nseg, cudaStream_t s) {
+  if (!tc_aligned(q) || !tc_aligned(k) || !tc_aligned(v) ||
+      !tc_aligned(dout) || !tc_aligned(dq) || !tc_aligned(dk) ||
+      !tc_aligned(dv))
+    return (int)cudaErrorMisalignedAddress;
+  if (D <= 64)
+    return launch_tc<64, BIAS, PACKED, HM>(q, k, v, bias, o, lse, dout, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
+  if (D <= 128)
+    return launch_tc<128, BIAS, PACKED, HM>(q, k, v, bias, o, lse, dout, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
+  return launch_tc<256, BIAS, PACKED, HM>(q, k, v, bias, o, lse, dout, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
+}
+
 // q / o / dout / dq [B, Sq, Hq, D]; k / v / dk / dv [B, Sk, Hkv, D];
 // bias f32 or null, element (b, h, i, j) at b * bsb + h * bsh + i * bsq
 // + j; lse and delta (scratch) [B, Hq, Sq] f32.  Returns the first
@@ -456,10 +943,14 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v,
                          int causal, float scale, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == PT_BF16)
-    return dispatch<__nv_bfloat16, false>(
-        q, k, v, (const float*)bias, o, (const float*)lse, dout,
-        (float*)delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq,
-        causal, scale, nullptr, nullptr, 0, s);
+    return bias ? dispatch_tc<true, false>(
+                      q, k, v, (const float*)bias, o, (const float*)lse,
+                      dout, (float*)delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D,
+                      bsb, bsh, bsq, causal, scale, nullptr, nullptr, 0, s)
+                : dispatch_tc<false, false>(
+                      q, k, v, nullptr, o, (const float*)lse, dout,
+                      (float*)delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, 0, 0,
+                      0, causal, scale, nullptr, nullptr, 0, s);
   return dispatch<float, false>(q, k, v, (const float*)bias, o,
                                 (const float*)lse, dout, (float*)delta, dq,
                                 dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq,
@@ -480,7 +971,7 @@ extern "C" int varlen_bwd(const void* q, const void* k, const void* v,
   const int* cq = (const int*)cu_q;
   const int* ck = (const int*)cu_k;
   if (dtype == PT_BF16)
-    return dispatch<__nv_bfloat16, true>(
+    return dispatch_tc<false, true>(
         q, k, v, nullptr, o, (const float*)lse, dout, (float*)delta, dq, dk,
         dv, 1, Tq, Tk, H, H, D, 0, 0, 0, causal, scale, cq, ck, nseg, s);
   return dispatch<float, true>(q, k, v, nullptr, o, (const float*)lse, dout,
@@ -498,7 +989,7 @@ extern "C" int flash_bwd_hm(const void* q, const void* k, const void* v,
                             void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == PT_BF16)
-    return dispatch<__nv_bfloat16, false, true>(
+    return dispatch_tc<false, false, true>(
         q, k, v, nullptr, o, (const float*)lse, dout, (float*)delta, dq, dk,
         dv, B, Sq, Sk, Hq, Hkv, D, 0, 0, 0, causal, scale, nullptr, nullptr,
         0, s);

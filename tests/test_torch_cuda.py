@@ -27,7 +27,11 @@ at page sizes 8 / 16 / 32, GQA groups 1 / 4 / 16, head_dims 64 / 128 /
 256, pos 0 and page crossings, and a tiny int8-KV engine on the card;
 the relayout kernels and their adjoints (vector, 4-byte and 2-byte
 copy units); the flash kernels' head-major mode bit for bit against the
-native kernels, and `FlashAttentionKV` against `FlashAttention`.
+native kernels, and `FlashAttentionKV` against `FlashAttention`; the
+bf16 tensor-core flash core at its tile edges (63, 64, 65 and 130 rows,
+Sq < Sk and Sq > Sk), head dims 8, 40, 72, 128 and 256 and GQA 12/4,
+dense, biased (causal + pad rows) and packed, forward and backward, and
+two runs of each mode bit for bit.
 Every test needs an NVIDIA card and skips without one.  On the card (no
 JAX needed, so the JAX test conftest is left out)::
 
@@ -111,6 +115,13 @@ def _bwd_pair(q, k, v, dout, bias=None, causal=False):
     (2, 1, 40, 4, 1, 32),       # one query row, GQA rep 4
     (1, 17, 17, 2, 2, 256),     # widest head_dim
     (3, 9, 9, 3, 3, 8),         # narrowest head_dim
+    # the bf16 core's 64-row tiles: one short, exact, one over, two + 2;
+    # head dims padded to 16 (40, 72), GQA 12/4
+    (1, 63, 63, 12, 4, 40),
+    (2, 64, 64, 4, 4, 72),
+    (1, 65, 130, 4, 2, 128),    # Sq < Sk, causal bottom-right
+    (1, 130, 130, 2, 1, 256),   # 32-key tiles at head_dim 256
+    (2, 64, 65, 3, 3, 8),
 ])
 def test_flash_fwd_matches_plain(b, sq, sk, hq, hkv, d, causal, dtype):
     g = torch.Generator(device="cuda").manual_seed(sq * 7 + d)
@@ -143,12 +154,21 @@ def test_flash_fwd_bias_matches_plain(bias_shape, kind, dtype):
     _close(lse, ref_lse, torch.float32)
 
 
-def test_flash_fwd_left_pad_rows_finite_and_equal():
+# (Sq, Sk, head_dim) of the causal + pad-bias cases: the first three at
+# 64; then the bf16 core's tile edges (63, 64, 65, 130 rows; Sq < Sk)
+# at head dims 40, 128, 8, 72 and 256
+PAD_BIAS_CASES = [(45, 45, 64), (70, 70, 64), (9, 40, 64), (63, 63, 40),
+                  (64, 130, 128), (65, 65, 8), (130, 130, 72),
+                  (65, 130, 256)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_flash_fwd_left_pad_rows_finite_and_equal(dtype):
     """Fully masked query rows (left pad) get the finite NEG_INF: their
     output is finite and equals the plain version's uniform average."""
     g = torch.Generator(device="cuda").manual_seed(3)
     b, s, h, d = 2, 45, 2, 64
-    q, k, v = (_randn(g, b, s, h, d, dtype=torch.float32) for _ in range(3))
+    q, k, v = (_randn(g, b, s, h, d, dtype=dtype) for _ in range(3))
     start = torch.tensor([37, 0], device="cuda")
     j = torch.arange(s, device="cuda")
     valid = (j[None, :] <= j[:, None])[None] & (
@@ -157,19 +177,19 @@ def test_flash_fwd_left_pad_rows_finite_and_equal():
     out, lse = FA.flash_fwd(q, k, v, bias=mask)
     assert torch.isfinite(out).all() and torch.isfinite(lse).all()
     ref_out, _ = FA.flash_fwd_reference(q, k, v, bias=mask)
-    _close(out, ref_out, torch.float32)
+    _close(out, ref_out, dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("sq,sk", [(45, 45), (70, 70), (9, 40)])
-def test_flash_fwd_causal_with_pad_bias(sq, sk, dtype):
+@pytest.mark.parametrize("sq,sk,d", PAD_BIAS_CASES)
+def test_flash_fwd_causal_with_pad_bias(sq, sk, d, dtype):
     """The prefill's form: causal plus a pad-only bias [B, 1, 1, Sk]
     (stride 0 over queries).  Real rows match the plain version; pad
     rows, which see no valid key, are finite (the kernel skips the key
     blocks past the diagonal, so it averages other keys there than the
     plain version does)."""
-    g = torch.Generator(device="cuda").manual_seed(sq + sk)
-    b, h, d = 2, 2, 64
+    g = torch.Generator(device="cuda").manual_seed(sq + sk + d)
+    b, h = 2, 2
     q = _randn(g, b, sq, h, d, dtype=dtype)
     k = _randn(g, b, sk, h, d, dtype=dtype)
     v = _randn(g, b, sk, h, d, dtype=dtype)
@@ -196,6 +216,14 @@ def test_flash_fwd_causal_with_pad_bias(sq, sk, dtype):
     (2, 45, 30, 6, 3, 64),      # Sq > Sk: causal rows with no key
     (1, 17, 17, 2, 2, 256),     # widest head_dim
     (3, 9, 9, 3, 3, 8),         # narrowest head_dim
+    # the bf16 core's tiles (64 rows; 64 / 32 keys): edges, padded head
+    # dims, GQA 12/4, Sq < Sk and Sq > Sk
+    (1, 63, 63, 12, 4, 40),
+    (2, 64, 64, 4, 4, 72),
+    (1, 65, 130, 4, 2, 128),
+    (1, 130, 130, 2, 1, 256),
+    (1, 130, 65, 12, 4, 64),
+    (2, 64, 65, 3, 3, 8),
 ])
 def test_flash_bwd_matches_plain(b, sq, sk, hq, hkv, d, causal, dtype):
     g = torch.Generator(device="cuda").manual_seed(sq * 11 + d)
@@ -229,14 +257,14 @@ def test_flash_bwd_bias_matches_plain(bias_shape, kind, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("sq,sk", [(45, 45), (70, 70), (9, 40)])
-def test_flash_bwd_causal_pad_rows(sq, sk, dtype):
+@pytest.mark.parametrize("sq,sk,d", PAD_BIAS_CASES)
+def test_flash_bwd_causal_pad_rows(sq, sk, d, dtype):
     """The prefill's mask form under grad: causal plus a pad-only bias.
     Pad rows (no visible key) get finite gradients whatever their
     cotangent; with a zero cotangent there (a loss that ignores pads)
     every gradient equals the plain version's, and pad rows get none."""
-    g = torch.Generator(device="cuda").manual_seed(sq * 3 + sk)
-    b, h, d = 2, 2, 64
+    g = torch.Generator(device="cuda").manual_seed(sq * 3 + sk + d)
+    b, h = 2, 2
     q, dout = (_randn(g, b, sq, h, d, dtype=dtype) for _ in range(2))
     k, v = (_randn(g, b, sk, h, d, dtype=dtype) for _ in range(2))
     pad = 5
@@ -928,6 +956,12 @@ VARLEN_CASES = {
     "long_and_short": ([300, 1, 2, 45], None, 2, 128),
     "unequal": ([5, 40, 17], [9, 3, 70], 3, 32),
     "no_key_rows": ([3, 6, 4], [5, 0, 9], 2, 64),
+    # the bf16 core's 64-row tiles straddled by segments, head dims
+    # padded to 16 and the widest
+    "tile_edges": ([63, 64, 65, 130], None, 3, 40),
+    "d72_unequal": ([65, 63], [130, 64], 2, 72),
+    "d8": ([64, 3, 65], None, 2, 8),
+    "d256": ([1, 130, 64], None, 2, 256),
 }
 
 
@@ -1283,3 +1317,29 @@ def test_flash_kv_tier_bit_equal_to_native_and_launches(hq, hkv,
                        native.detach())
     assert K.launch_counts()["relayout_to_hm"] == 1
     K.reset_launches()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_flash_kernels_rerun_bit_identical(dtype):
+    """No atomics in either core: two runs of the forward and the
+    backward give the same bits, dense and biased (GQA 12/4, causal,
+    ragged tiles) and packed."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, dout = (_randn(g, 2, 130, 12, 64, dtype=dtype) for _ in range(2))
+    k, v = (_randn(g, 2, 130, 4, 64, dtype=dtype) for _ in range(2))
+    bias = _randn(g, 2, 1, 130, 130, dtype=torch.float32)
+    for m in (None, bias):
+        runs = []
+        for _ in range(2):
+            out, lse = FA.flash_fwd(q, k, v, bias=m, causal=True)
+            runs.append((out, lse) + FA.flash_bwd(q, k, v, out, lse, dout,
+                                                  bias=m, causal=True))
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
+    q, k, v, cq, ck, _ = _varlen_inputs("tile_edges", dtype)
+    dout = torch.randn_like(q)
+    runs = []
+    for _ in range(2):
+        out, lse = VA.varlen_fwd(q, k, v, cq, ck, causal=True)
+        runs.append((out, lse) + VA.varlen_bwd(q, k, v, out, lse, dout, cq,
+                                               ck, causal=True))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))

@@ -26,6 +26,7 @@ from __future__ import annotations
 import ast
 import inspect
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -176,6 +177,45 @@ def test_kernel_has_plain_version_counter_and_source(name):
     # each kernel counts on a counter of its own
     assert sum(o.module is k.module and o.counter == k.counter
                for o in K.KERNELS.values()) == 1
+
+
+def _translation_unit(name):
+    """The code of ``csrc/<name>`` and of the csrc headers it includes,
+    recursively, with comments stripped."""
+    seen, parts = set(), []
+
+    def add(fn):
+        if fn in seen:
+            return
+        seen.add(fn)
+        with open(os.path.join(PKG, "csrc", fn)) as f:
+            text = f.read()
+        for inc in re.findall(r'#include "([^"]+)"', text):
+            add(inc)
+        parts.append(re.sub(r"//[^\n]*|/\*.*?\*/", "", text, flags=re.S))
+
+    add(name)
+    return "\n".join(parts)
+
+
+@pytest.mark.parametrize("name", ["flash_fwd.cu", "flash_bwd.cu"])
+def test_flash_sources_run_bf16_on_tensor_cores(name):
+    """Every bf16 entry of the two flash sources reaches the tensor-core
+    core (mma.sync on bf16 fragments, ldmatrix, cp.async staging): no
+    bf16 instantiation of the scalar f32 kernels is left.  No atomics
+    (reruns are bit-identical) and no library kernel: the sources include
+    only the CUDA toolkit's runtime and bf16 headers besides their own."""
+    code = _translation_unit(name)
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in code
+    assert "cp.async.cg.shared.global" in code and "ldmatrix" in code
+    assert "dispatch<__nv_bfloat16" not in code
+    assert "launch<__nv_bfloat16" not in code
+    assert code.count("dispatch_tc<") >= 3  # native / biased, packed, hm
+    assert "atomic" not in code
+    assert set(re.findall(r"#include <([^>]+)>", code)) <= {
+        "cuda_bf16.h", "cuda_runtime.h", "stdint.h"}
+    assert not re.search(r"cublas|cudnn|cutlass|cute::|scaled_dot_product",
+                         code, re.I)
 
 
 @pytest.mark.parametrize("name", sorted(K.KERNELS))
