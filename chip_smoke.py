@@ -14,8 +14,8 @@ non-zero and prints no result):
   1. device: `nvidia-smi` name and power limit, torch's device name;
   2. build: every CUDA kernel with nvcc for sm_90a, one nvcc per source
      (ten), all started together; registers and spills per source, and
-     per bf16 tensor-core flash kernel (a spill at head dims up to 128
-     fails);
+     per bf16 tensor-core kernel (a spill fails: flash at head dims up
+     to 128, every conv tile and window-backward tile);
   3. kernels: each kernel against its plain PyTorch version at the main
      path's shapes, in bf16 and f32, with its time, the plain version's,
      one PyTorch library call's where one computes the same function,
@@ -135,7 +135,9 @@ relayout_to_hm / relayout_from_hm at the GPT-125M train shape [8, 1024,
 flash_bwd at the encoder step's shape (phase 20: full B32 S512 H12 D64)
 and flash_fwd at the fused serving block's (phase 19: full B8 S1024 H16
 D128); a check that two bf16 runs of flash_fwd / flash_bwd at the train
-shape and of varlen_bwd on the causal packing are bit-identical; varlen_fwd /
+shape, of varlen_bwd on the causal packing, of conv_bn_act at ResNet-50's
+3x3/s1 256->256 @14 (B64) and of window_attention_bwd at Swin-T's stage 1
+(B128, no shift) are bit-identical; varlen_fwd /
 varlen_bwd on the packed batch of phase
 17 (library yardstick: SDPA on `torch.nested` jagged tensors, or with a
 block-diagonal mask where this PyTorch cannot dispatch those; the form
@@ -258,28 +260,46 @@ def phase_build():
                     for k, dt, mode, r, sp in tc))
             spilled = [(k, dt, mode) for k, dt, mode, _, sp in tc
                        if sp and dt <= 128]
-            check(not spilled, f"{n}: bf16 kernels spill at head dims "
-                  f"<= 128: {spilled}")
+            check(not spilled, f"{n}: bf16 tensor-core kernels spill "
+                  f"(flash at head dims <= 128, every conv and window "
+                  f"kernel): {spilled}")
 
 
 def _tc_kernels(text):
-    """[(kernel, DT, mode, registers, spill store bytes)] of the
-    tensor-core flash kernels in one source's `ptxas -v` log (entry
-    names demangled from their template arguments <DT, BIAS, PACKED,
-    HM>)."""
+    """[(kernel, DT, mode, registers, spill store bytes)] of the bf16
+    tensor-core kernels in one source's `ptxas -v` log, entry names
+    demangled from their template arguments: the flash kernels' <DT,
+    BIAS, PACKED, HM>, the conv's <BM, BN, WM, WN, KH, KW, BK, A16,
+    MINB> (DT: the tile's BM; mode: "BMxBN KHxKW bkBK", 0x0 for a kernel
+    size read at run time, "w-regs" where the weights go through
+    registers) and the window backward's <DT>."""
     out = []
     for part in text.split("Compiling entry function")[1:]:
-        m = re.search(r"(flash_\w+?_tc)ILi(\d+)ELb(\d)ELb(\d)ELb(\d)E",
-                      part)
         regs = re.search(r"Used (\d+) registers", part)
         spill = re.search(r"(\d+) bytes spill stores", part)
-        if m and regs:
+        if not regs:
+            continue
+        m = re.search(r"(flash_\w+?_tc)ILi(\d+)ELb(\d)ELb(\d)ELb(\d)E",
+                      part)
+        c = re.search(r"(conv_dense_tc)ILi(\d+)ELi(\d+)ELi\d+ELi\d+"
+                      r"ELi(\d+)ELi(\d+)ELi(\d+)ELb(\d)", part)
+        w = re.search(r"(window_attention_bwd_tc)ILi(\d+)E", part)
+        if m:
             bias, packed, hm = (m.group(i) == "1" for i in (3, 4, 5))
+            kernel, dt = m.group(1), int(m.group(2))
             mode = ("bias" if bias else "packed" if packed
                     else "head-major" if hm else "dense")
-            out.append((m.group(1), int(m.group(2)), mode,
-                        int(regs.group(1)),
-                        int(spill.group(1)) if spill else 0))
+        elif c:
+            kernel, dt = c.group(1), int(c.group(2))
+            mode = (f"{c.group(2)}x{c.group(3)} {c.group(4)}x{c.group(5)} "
+                    f"bk{c.group(6)}" + ("" if c.group(7) == "1"
+                                         else " w-regs"))
+        elif w:
+            kernel, dt, mode = w.group(1), int(w.group(2)), "window"
+        else:
+            continue
+        out.append((kernel, dt, mode, int(regs.group(1)),
+                    int(spill.group(1)) if spill else 0))
     return out
 
 
@@ -1156,10 +1176,14 @@ def bwd_cases(torch, dtype):
 
 def _reruns_bit_identical(torch):
     """No atomics: two bf16 runs of flash_fwd and flash_bwd at the train
-    shape (causal B8 S1024 H12 D64) and of varlen_bwd on the packed batch
-    (causal) give the same bits."""
+    shape (causal B8 S1024 H12 D64), of varlen_bwd on the packed batch
+    (causal), of conv_bn_act at ResNet-50's 3x3/s1 256->256 @14 (B64)
+    and of window_attention_bwd at Swin-T's stage 1 (B128 56x56 C96, 3
+    heads, no shift) give the same bits."""
+    from paddle_tpu_torch.ops.kernels import conv_norm as CN
     from paddle_tpu_torch.ops.kernels import flash_attention as FA
     from paddle_tpu_torch.ops.kernels import varlen_attention as VA
+    from paddle_tpu_torch.ops.kernels import window_attention as WA
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     q, k, v, dout = (torch.randn(8, 1024, 12, 64, generator=g,
@@ -1180,9 +1204,26 @@ def _reruns_bit_identical(torch):
     same_v = [torch.equal(a, b) for a, b in zip(*runs)]
     check(all(same_v), f"varlen_bwd reruns differ (dq, dk, dv equal: "
           f"{same_v})")
+    bf = dict(generator=g, device="cuda", dtype=torch.bfloat16)
+    x = torch.randn(64, 256, 14, 14, **bf)
+    w = torch.randn(256, 256, 3, 3, **bf) / 48
+    sc, sh = torch.rand(256, device="cuda") + 0.5, torch.zeros(
+        256, device="cuda")
+    same_c = torch.equal(CN.conv_bn_act(x, w, sc, sh, 1, 1, "relu"),
+                         CN.conv_bn_act(x, w, sc, sh, 1, 1, "relu"))
+    check(same_c, "conv_bn_act reruns differ (3x3/s1 256->256 @14 B64)")
+    qkv = torch.randn(128, 56, 56, 288, **bf)
+    dout = torch.randn(128, 56, 56, 96, **bf)
+    bias = torch.randn(3, 49, 49, generator=g, device="cuda")
+    runs = [WA.window_attention_bwd(qkv, bias, None, dout, 7, 0, 3)
+            for _ in range(2)]
+    same_w = [torch.equal(a, b) for a, b in zip(*runs)]
+    check(all(same_w), f"window_attention_bwd reruns differ (dqkv, dbias "
+          f"equal: {same_w})")
     log("[kernels] bf16 reruns bit-identical: flash_fwd (out, lse), "
         "flash_bwd (dq, dk, dv) at causal B8 S1024 H12 D64, varlen_bwd "
-        "on the causal T8192 packing")
+        "on the causal T8192 packing, conv_bn_act at 3x3/s1 256->256 @14 "
+        "B64, window_attention_bwd (dqkv, dbias) at stage 1 B128")
 
 
 def phase_kernels():

@@ -1,14 +1,18 @@
-// Tensor-core building blocks of the bf16 flash kernels (flash_fwd.cu,
-// flash_bwd.cu): inline PTX for `mma.sync` m16n8k16 on bf16 fragments
-// with f32 accumulators, `ldmatrix` (plain and transposed) and 16-byte
-// `cp.async` copies into XOR-swizzled shared-memory tiles.
+// Tensor-core building blocks of the bf16 kernels (flash_fwd.cu,
+// flash_bwd.cu, conv_bn_act.cu, window_attention_bwd.cu): inline PTX for
+// `mma.sync` m16n8k16 on bf16 fragments with f32 accumulators,
+// `ldmatrix` (plain and transposed) and 16-byte `cp.async` copies into
+// XOR-swizzled shared-memory tiles.
 //
-// Tiles hold rows of DT bf16 values (DT = 64, 128 or 256: the head dim
-// rounded up), as 16-byte chunks of 8 values.  Chunk c of row r lives
-// at chunk c ^ (r & 7) of that row, so the 8 rows an `ldmatrix` reads
-// for one 8x8 matrix (the same logical chunk of 8 consecutive rows) fall
-// on 8 different bank groups.  Tiles are stacked in multiples of 8 rows,
-// so a row's swizzle is the same whether it is counted from its tile or
+// Tiles hold rows of DT bf16 values (DT = 16, 32, 64, 128 or 256: a head
+// dim rounded up, or a conv's K step of 32), as 16-byte chunks of 8
+// values.  With 8 or more chunks a row, chunk c of row r lives at chunk
+// c ^ (r & 7) of that row; with NC = 2 or 4 chunks, at c ^ ((r / (8 /
+// NC)) & (NC - 1)), so that 8 consecutive rows still cover the 8 bank
+// groups of 128 bytes.  Either way the 8 rows an `ldmatrix` reads for
+// one 8x8 matrix (the same logical chunk of 8 consecutive rows) fall on
+// 8 different bank groups.  Tiles are stacked in multiples of 8 rows, so
+// a row's swizzle is the same whether it is counted from its tile or
 // from the start of shared memory.
 //
 // Fragment layouts of m16n8k16 (lane = 4 * g + t): A (16x16, row-major)
@@ -35,7 +39,10 @@ __device__ __forceinline__ uint32_t tc_smem(const void* p) {
 // Element offset of chunk c of row r in a swizzled tile of DT-wide rows.
 template <int DT>
 __device__ __forceinline__ int tc_swz(int r, int c) {
-  return r * DT + ((c ^ (r & 7)) << 3);
+  constexpr int NC = DT / 8;
+  static_assert(NC == 2 || NC == 4 || NC % 8 == 0, "DT: 16, 32 or 64k");
+  if constexpr (NC >= 8) return r * DT + ((c ^ (r & 7)) << 3);
+  else return r * DT + ((c ^ ((r / (8 / NC)) & (NC - 1))) << 3);
 }
 
 // 16-byte global -> shared copy; `full` false fills the 16 bytes with
@@ -44,6 +51,11 @@ __device__ __forceinline__ void tc_cp16(uint32_t dst, const void* src,
                                         bool full) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(full ? 16 : 0));
+}
+// 4-byte global -> shared copy (an f32 element at any 4-byte address).
+__device__ __forceinline__ void tc_cp4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(src));
 }
 __device__ __forceinline__ void tc_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -120,6 +132,19 @@ __device__ __forceinline__ void tc_frag_bt(const bf16* tile, int n, int kk,
                                           (((lane >> 3) & 1) << 3),
                                       n + (lane >> 4))),
             b);
+}
+
+// The A fragment of k-step kk of a product whose A is a swizzled tile
+// transposed: rows 16kk .. 16kk + 15 of the tile are the k index and its
+// columns 16m .. 16m + 15 the rows of A, through ldmatrix.trans
+// (window_attention_bwd.cu: dV = P^T G from the query-major P tile).
+template <int DT>
+__device__ __forceinline__ void tc_frag_at(const bf16* tile, int m, int kk,
+                                           int lane, uint32_t (&a)[4]) {
+  tc_ldsm_t(tc_smem(tile + tc_swz<DT>(16 * kk + (lane & 7) +
+                                          ((lane >> 4) << 3),
+                                      2 * m + ((lane >> 3) & 1))),
+            a);
 }
 
 // The A fragment of k-step i from the f32 values of n-tiles 2i, 2i+1 of

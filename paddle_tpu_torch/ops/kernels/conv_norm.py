@@ -5,8 +5,9 @@ Counterpart of ``paddle_tpu/ops/pallas/conv_norm.py`` (`_conv_kernel`
 :82, launched by `_conv_pallas` :255, under the custom VJP
 `_conv_pallas_vjp` :285-315).  The kernel is ``csrc/conv_bn_act.cu``:
 an implicit-GEMM direct conv for dense weights (padding as bounds math,
-no padded copy of x) and a per-channel loop for depthwise weights
-(``cin_g == 1 and cout == cin``), both with the epilogue
+no padded copy of x; bf16 on the tensor cores, f32 on CUDA cores) and a
+per-channel loop for depthwise weights (``cin_g == 1 and cout ==
+cin``), both with the epilogue
 ``act(acc * scale + shift)`` cast to x's dtype.  The JAX package's row
 band, VMEM gate and autotune (`_pick_rows`, `conv_bn_act_available`)
 are TPU tiling and have no counterpart: the kernel takes any dense or

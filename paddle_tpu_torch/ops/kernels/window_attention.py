@@ -9,9 +9,10 @@ Counterpart of ``paddle_tpu/ops/pallas/window_attention.py``
 `_heads_attention` :80).  The forward kernel is
 ``csrc/window_attention.cu``: one block per (batch, window, head).  The
 backward kernel is ``csrc/window_attention_bwd.cu``: one block per
-(batch, head) walking that batch's windows, which replays the scores
-and writes dqkv and a per-batch dbias partial, summed over the batch
-here as `_bwd_pallas` sums it.  Both read and write at image positions,
+(batch, head) walking that batch's windows (in bf16, on the tensor
+cores, per group of windows), which replays the scores and writes dqkv
+and a dbias partial per batch (and group), summed here as `_bwd_pallas`
+sums its per-batch partials.  Both read and write at image positions,
 so the cyclic shift and the partition / reverse move no data.  The JAX
 package's window-row band, VMEM gate and autotune (`_tuned_band`,
 `window_attention_available`) are TPU tiling and have no counterpart.
@@ -45,8 +46,11 @@ _SIG = {"window_attention": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]}
 _BWD_SIG = {"window_attention_bwd": [ctypes.c_void_p] * 6
             + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int,
-                                    ctypes.c_void_p]}
+                                    ctypes.c_void_p],
+            "window_attention_bwd_groups": [ctypes.c_int] * 6}
 MAX_TOKENS = 256              # ws * ws: keys per softmax row
+TC_MAX_TOKENS = 64            # bf16 backward: one 64 x 64 tensor-core tile
+TC_MAX_HEAD_DIM = 64          # ... over head_dim <= 64, a multiple of 8
 SMEM_LIMIT = 227 * 1024       # a block's shared memory on the H100
 
 
@@ -213,8 +217,10 @@ def window_attention_bwd(qkv, bias, mask, g, window_size, shift,
     """The backward of `window_attention`: g [B, H, W, C] in qkv's dtype
     -> (dqkv [B, H, W, 3C] in qkv's dtype, dbias [heads, P, P] f32).
     CPU tensors run the plain version; CUDA tensors launch the kernel,
-    whose per-batch dbias partials [B, heads, P, P] are summed here, or
-    raise."""
+    whose dbias partials [B * groups, heads, P, P] (one per batch and
+    group of windows) are summed here, or raise.  bf16 runs on the
+    tensor cores and takes windows of up to 64 tokens and head dims up
+    to 64, multiples of 8."""
     global bwd_launches
     if qkv.device.type == "cpu":
         return window_attention_bwd_reference(qkv, bias, mask, g,
@@ -228,11 +234,20 @@ def window_attention_bwd(qkv, bias, mask, g, window_size, shift,
         raise ValueError(f"window_attention_bwd: g {tuple(g.shape)} "
                          f"{g.dtype} on {g.device}, expected "
                          f"[{b}, {h}, {w}, {c3 // 3}] {qkv.dtype}")
+    if qkv.dtype == torch.bfloat16 and (ws * ws > TC_MAX_TOKENS
+                                        or hd > TC_MAX_HEAD_DIM or hd % 8):
+        raise ValueError(f"window_attention_bwd: bf16 takes windows of at "
+                         f"most {TC_MAX_TOKENS} tokens and head_dim <= "
+                         f"{TC_MAX_HEAD_DIM}, a multiple of 8; got window "
+                         f"{ws}, head_dim {hd}")
     g = g.contiguous()
     dqkv = torch.empty_like(qkv)
-    partial = torch.empty(b, num_heads, ws * ws, ws * ws,
-                          dtype=torch.float32, device=qkv.device)
     lib = _build.library("window_attention_bwd", _BWD_SIG)
+    # per-(batch, window group) partials, summed below
+    groups = lib.window_attention_bwd_groups(b, h, w, num_heads, ws,
+                                             _DTYPES[qkv.dtype])
+    partial = torch.empty(b * groups, num_heads, ws * ws, ws * ws,
+                          dtype=torch.float32, device=qkv.device)
     err = lib.window_attention_bwd(
         _build.ptr(qkv), _build.ptr(bias),
         None if mask is None else _build.ptr(mask), _build.ptr(g),

@@ -702,6 +702,45 @@ def test_conv_bn_act_matches_plain(b, cin, h, w, cout, k, st, pad, dw, act,
     _close(got, want, dtype)
 
 
+# the bf16 tensor-core conv's tiles and edges (csrc/conv_bn_act.cu)
+CONV_TC_CASES = [
+    (2, 16, 8, 8, 32, 1, 1, 0),        # 1x1/s1, H*W % 8 == 0 (64 pixels)
+    (2, 64, 7, 7, 96, 1, 1, 0),        # 1x1/s1 at 7x7: odd H*W, pairs split
+    (2, 16, 15, 15, 32, 3, 2, 1),      # 3x3/s2
+    (2, 3, 32, 32, 64, 7, 2, 3),       # the stem: 7x7/s2, Cin 3, K = 147
+    (3, 8, 10, 10, 16, 3, 1, 1),       # N tiles cross images (100 pixels)
+    (5, 8, 7, 7, 16, 3, 1, 1),         # ... at an odd 49 pixels
+    (2, 5, 15, 13, 70, 3, 2, 1),       # a Cout tail, K = 45
+    (8, 32, 28, 28, 768, 3, 1, 1),     # the 128 x 128 tile
+    (16, 64, 7, 7, 4900, 1, 1, 0),     # 128 x 128, odd pixels, Cout tail
+    (2, 48, 10, 10, 64, 3, 1, 1),      # 3x3, K = 432: a tail mid-channel
+    (2, 64, 14, 14, 256, 3, 2, 1),     # the 128 x 32 tile, stride 2
+    (2, 40, 9, 9, 24, 5, 1, 2),        # a run-time 5x5 over 40 channels
+    (64, 32, 14, 14, 256, 3, 1, 1),    # the 128 x 64 tile
+    (128, 32, 7, 7, 384, 1, 1, 0),     # 128 x 64 at odd pixels
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("b,cin,h,w,cout,k,st,pad", CONV_TC_CASES)
+def test_conv_bn_act_tensor_core_tiles(b, cin, h, w, cout, k, st, pad,
+                                       dtype):
+    """The dense conv at each tensor-core tile and edge (bf16; f32 runs
+    the CUDA-core kernel at the same shapes), against the plain version,
+    and two runs bit for bit."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    x = _randn(gen, b, cin, h, w, dtype=dtype)
+    wt = (_randn(gen, cout, cin, k, k, dtype=torch.float32)
+          / np.sqrt(cin * k * k)).to(dtype)
+    sc = 0.5 + 0.5 * torch.rand(cout, generator=gen, device="cuda")
+    sh = 0.1 * _randn(gen, cout, dtype=torch.float32)
+    got = CN.conv_bn_act(x, wt, sc, sh, st, pad, "relu")
+    want = CN.conv_bn_act_reference(x, wt, sc, sh, st, pad, "relu")
+    assert got.shape == want.shape and got.dtype == dtype
+    _close(got, want, dtype)
+    assert torch.equal(CN.conv_bn_act(x, wt, sc, sh, st, pad, "relu"), got)
+
+
 def test_conv_bn_act_grad_is_the_plain_versions():
     """`ConvBNAct`: the kernel forward, the plain version's autograd
     backward (the JAX custom VJP's contract)."""
@@ -751,6 +790,9 @@ WIN_BWD_CASES = [
     (2, 14, 14, 128, 2, 7, 3, True),       # hd 64
     (3, 7, 7, 96, 3, 7, 0, False),         # stage-4 form: one window, hd 32
     (1, 10, 10, 40, 5, 5, 0, False),       # P = 25, head_dim 8
+    (2, 14, 14, 96, 3, 7, 0, False),       # Swin's P = 49, hd 32
+    (2, 14, 14, 96, 3, 7, 3, True),        # ... shifted, with the mask
+    (2, 56, 56, 96, 3, 7, 3, True),        # stage 1: groups of windows
 ]
 
 
@@ -810,6 +852,18 @@ def test_window_attention_grad_matches_autograd_of_plain(masked):
     _close_grads(got[:2], want, torch.float32)
     if mask is not None:
         assert got[2] is None
+
+
+def test_window_attention_bwd_bf16_rejects_what_the_tile_cannot_take():
+    """The bf16 backward's tensor-core tile holds windows of up to 64
+    tokens and head dims up to 64, multiples of 8: it raises beyond."""
+    for b, h, w, c, heads, ws in ((1, 9, 9, 64, 2, 9),    # P = 81
+                                  (1, 7, 7, 24, 2, 7),    # hd 12
+                                  (1, 7, 7, 160, 2, 7)):  # hd 80
+        qkv, bias, mask, g = _win_bwd_inputs(b, h, w, c, heads, ws, 0,
+                                             False, torch.bfloat16)
+        with pytest.raises(ValueError, match="bf16"):
+            WA.window_attention_bwd(qkv, bias, mask, g, ws, 0, heads)
 
 
 def test_vision_wrappers_reject_what_the_kernels_do_not_take():

@@ -218,6 +218,34 @@ def test_flash_sources_run_bf16_on_tensor_cores(name):
                          code, re.I)
 
 
+@pytest.mark.parametrize("name,entry,dispatch", [
+    ("conv_bn_act.cu", "conv_dense_tc<",
+     r"if constexpr \(sizeof\(T\) == 2\) \{[^}]*launch_tc<KH_, KW_>"),
+    ("window_attention_bwd.cu", "window_attention_bwd_tc<",
+     r"if \(dtype == PT_BF16\) \{[^}]*launch_tc<D>"),
+])
+def test_vision_sources_run_bf16_on_tensor_cores(name, entry, dispatch):
+    """The bf16 dense conv and the bf16 window backward reach their
+    tensor-core kernels (mma.sync on bf16 fragments, ldmatrix): the
+    bf16 branch of each dispatch launches `launch_tc`, and the CUDA-core
+    dense conv and window backward are instantiated for f32 only.  No
+    atomics (reruns are bit-identical) and no library kernel."""
+    code = _translation_unit(name)
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in code
+    assert "ldmatrix" in code and entry in code
+    assert re.search(dispatch, code, re.S), dispatch
+    # the CUDA-core dense conv sits in the f32 branch only
+    assert re.search(r"\} else \{[^}]*conv_dense_kernel<T, KH_, KW_>",
+                     code) or name != "conv_bn_act.cu"
+    assert "launch<__nv_bfloat16" not in code \
+        or name == "conv_bn_act.cu"   # the conv's goes through launch_one
+    assert "atomic" not in code
+    assert set(re.findall(r"#include <([^>]+)>", code)) <= {
+        "cuda_bf16.h", "cuda_runtime.h", "stdint.h"}
+    assert not re.search(r"cublas|cudnn|cutlass|cute::|scaled_dot_product",
+                         code, re.I)
+
+
 @pytest.mark.parametrize("name", sorted(K.KERNELS))
 def test_wrapper_reaches_plain_only_for_cpu(name):
     k = K.KERNELS[name]

@@ -35,6 +35,45 @@ SHAPES = (("causal B8 S1024 H12 D64", 8, 1024, 12, 64, True),
           ("causal B1 S1008 H16 D128", 1, 1008, 16, 128, True))
 
 
+def build_variants(paths, package, sigs):
+    """Build each variant source in `paths` with the package's nvcc flags
+    (its own directory searched for headers first, then csrc/) while the
+    package's sources `package` build, print the tensor-core kernels of
+    every build, and load the variants: {file name: CDLL}, with the C
+    functions of `sigs` ({name: argtypes}) that each exports bound, or
+    None when a variant fails to build."""
+    import chip_smoke as C
+    from paddle_tpu_torch.ops.kernels import _build
+
+    procs = {}
+    for path in paths:
+        path = os.path.abspath(path)
+        so = os.path.splitext(path)[0] + ".so"
+        procs[path] = (so, subprocess.Popen(
+            [_build.nvcc_path()] + _build.ARCH_FLAGS + _build.NVCC_FLAGS
+            + ["-I", os.path.dirname(path), "-I", _build.CSRC, "-o", so,
+               path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    _build.build(package)
+    for n in package:
+        with open(os.path.join(_build.BUILD_DIR, f"{n}.log")) as f:
+            print(f"package {n}:", C._tc_kernels(f.read()))
+    libs = {}
+    for path, (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            print(f"nvcc failed for {path}:\n{log[-3000:]}",
+                  file=sys.stderr)
+            return None
+        print(f"{os.path.basename(path)}:", C._tc_kernels(log))
+        lib = ctypes.CDLL(so)
+        for fn, argtypes in sigs.items():
+            if hasattr(lib, fn):
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+        libs[os.path.basename(path)] = lib
+    return libs
+
 def main(paths):
     import torch
 
@@ -49,34 +88,10 @@ def main(paths):
                           "--format=csv,noheader"], capture_output=True,
                          text=True)
     print(smi.stdout.strip())
-    procs = {}
-    for path in paths:
-        path = os.path.abspath(path)
-        so = os.path.splitext(path)[0] + ".so"
-        procs[path] = (so, subprocess.Popen(
-            [_build.nvcc_path()] + _build.ARCH_FLAGS + _build.NVCC_FLAGS
-            + ["-I", os.path.dirname(path), "-I", _build.CSRC, "-o", so,
-               path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
-    _build.build(["flash_fwd", "flash_bwd"])
-    for n in ("flash_fwd", "flash_bwd"):
-        with open(os.path.join(_build.BUILD_DIR, f"{n}.log")) as f:
-            print(f"package {n}:", C._tc_kernels(f.read()))
-    libs = {}
-    for path, (so, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            print(f"flash_ab: nvcc failed for {path}:\n{log[-3000:]}",
-                  file=sys.stderr)
-            return 1
-        print(f"{os.path.basename(path)}:", C._tc_kernels(log))
-        lib = ctypes.CDLL(so)
-        for fn, sig in ((("flash_fwd", FA._SIG["flash_fwd"]),
-                         ("flash_bwd", FA._BWD_SIG["flash_bwd"]))):
-            if hasattr(lib, fn):
-                getattr(lib, fn).argtypes = sig
-                getattr(lib, fn).restype = ctypes.c_int
-        libs[os.path.basename(path)] = lib
+    libs = build_variants(paths, ["flash_fwd", "flash_bwd"],
+                          {**FA._SIG, **FA._BWD_SIG})
+    if libs is None:
+        return 1
 
     def stream():
         return torch.cuda.current_stream().cuda_stream
