@@ -13,9 +13,10 @@ non-zero and prints no result):
 
   1. device: `nvidia-smi` name and power limit, torch's device name;
   2. build: every CUDA kernel with nvcc for sm_90a, one nvcc per source
-     (ten), all started together; registers and spills per source, and
-     per bf16 tensor-core kernel (a spill fails: flash at head dims up
-     to 128, every conv tile and window-backward tile);
+     (ten), all started together; registers and spills per source, per
+     bf16 tensor-core kernel and per fused-norm vector kernel (a spill
+     fails: flash at head dims up to 128, every conv tile and window
+     tile, forward and backward, every register-held norm kernel);
   3. kernels: each kernel against its plain PyTorch version at the main
      path's shapes, in bf16 and f32, with its time, the plain version's,
      one PyTorch library call's where one computes the same function,
@@ -131,13 +132,16 @@ non-zero and prints no result):
 Phase 3 also holds paged_attention_int8 (the gpt_1p3b row's pool in
 int8, and a llama_7b decode step, 32 kv heads over ~1000 keys each) and
 relayout_to_hm / relayout_from_hm at the GPT-125M train shape [8, 1024,
-12, 64] (library: the same transpose on the card); flash_fwd and
+12, 64] (library: the same transpose on the card), each of their rows and
+each fused_norm row also with its profiled device time, the library
+call's, and the wrapper's host microseconds; flash_fwd and
 flash_bwd at the encoder step's shape (phase 20: full B32 S512 H12 D64)
 and flash_fwd at the fused serving block's (phase 19: full B8 S1024 H16
 D128); a check that two bf16 runs of flash_fwd / flash_bwd at the train
 shape, of varlen_bwd on the causal packing, of conv_bn_act at ResNet-50's
-3x3/s1 256->256 @14 (B64) and of window_attention_bwd at Swin-T's stage 1
-(B128, no shift) are bit-identical; varlen_fwd /
+3x3/s1 256->256 @14 (B64), of window_attention and window_attention_bwd
+at Swin-T's stage 1 (B128, no shift) and of fused_norm at [16384, 768]
+are bit-identical; varlen_fwd /
 varlen_bwd on the packed batch of phase
 17 (library yardstick: SDPA on `torch.nested` jagged tensors, or with a
 block-diagonal mask where this PyTorch cannot dispatch those; the form
@@ -206,6 +210,46 @@ def time_ms(fn, iters=10, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters=20, warmup=2):
+    """Mean device time of one call of `fn`: the self device time of every
+    CUDA kernel and copy it ran, summed by torch.profiler over `iters`
+    calls (as `_log_profile` reads device time).  Unlike `time_ms` it
+    leaves out the host's time between launches, which is what a CUDA
+    event pair measures when a short kernel's wrapper takes longer than
+    the kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) \
+        / iters / 1e3
+
+
+def host_us(fn, iters=50, warmup=2):
+    """Host microseconds of one call of `fn`: the wall time of `iters`
+    calls enqueued back to back (no synchronize between them), so the
+    wrapper's own Python and launch cost, not the kernel's."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def bound_ms(nbytes, flops, dtype):
     t_bytes = nbytes / PEAK_BYTES
     t_ops = flops / PEAK_FLOPS[dtype]
@@ -263,6 +307,15 @@ def phase_build():
             check(not spilled, f"{n}: bf16 tensor-core kernels spill "
                   f"(flash at head dims <= 128, every conv and window "
                   f"kernel): {spilled}")
+        rows = _row_kernels(text)
+        if rows:
+            log(f"[build] {n} register-held row kernels (x / w types, "
+                "kind, vectors a thread: registers / spill bytes): "
+                + ", ".join(f"{t} {k} NV{nv}: {r}/{sp}"
+                            for t, k, nv, r, sp in rows))
+            spilled = [(t, k, nv) for t, k, nv, _, sp in rows if sp]
+            check(not spilled, f"{n}: the vector kernels, which hold rows "
+                  f"in registers, spill: {spilled}")
 
 
 def _tc_kernels(text):
@@ -272,7 +325,7 @@ def _tc_kernels(text):
     BIAS, PACKED, HM>, the conv's <BM, BN, WM, WN, KH, KW, BK, A16,
     MINB> (DT: the tile's BM; mode: "BMxBN KHxKW bkBK", 0x0 for a kernel
     size read at run time, "w-regs" where the weights go through
-    registers) and the window backward's <DT>."""
+    registers) and the window forward's and backward's <DT>."""
     out = []
     for part in text.split("Compiling entry function")[1:]:
         regs = re.search(r"Used (\d+) registers", part)
@@ -283,7 +336,7 @@ def _tc_kernels(text):
                       part)
         c = re.search(r"(conv_dense_tc)ILi(\d+)ELi(\d+)ELi\d+ELi\d+"
                       r"ELi(\d+)ELi(\d+)ELi(\d+)ELb(\d)", part)
-        w = re.search(r"(window_attention_bwd_tc)ILi(\d+)E", part)
+        w = re.search(r"(window_attention(?:_bwd)?_tc)ILi(\d+)E", part)
         if m:
             bias, packed, hm = (m.group(i) == "1" for i in (3, 4, 5))
             kernel, dt = m.group(1), int(m.group(2))
@@ -295,10 +348,33 @@ def _tc_kernels(text):
                     f"bk{c.group(6)}" + ("" if c.group(7) == "1"
                                          else " w-regs"))
         elif w:
-            kernel, dt, mode = w.group(1), int(w.group(2)), "window"
+            kernel, dt = w.group(1), int(w.group(2))
+            mode = "window bwd" if "bwd" in kernel else "window fwd"
         else:
             continue
         out.append((kernel, dt, mode, int(regs.group(1)),
+                    int(spill.group(1)) if spill else 0))
+    return out
+
+
+def _row_kernels(text):
+    """[(x / w types, kind, NV, registers, spill store bytes)] of the
+    fused norm's vector kernels `fused_norm_rows<T, W, RMS, NV>` in one
+    source's `ptxas -v` log."""
+    bf = "13__nv_bfloat16"
+    out = []
+    for part in text.split("Compiling entry function")[1:]:
+        m = re.search(r"fused_norm_rowsI(\w+?)Lb(\d)ELi(\d+)E", part)
+        regs = re.search(r"Used (\d+) registers", part)
+        if not (m and regs):
+            continue
+        spill = re.search(r"(\d+) bytes spill stores", part)
+        tag = m.group(1)
+        t, rest = ("bf16", tag[len(bf):]) if tag.startswith(bf) \
+            else ("f32", tag[1:])
+        types = f"{t}/{'f32' if rest == 'f' else 'bf16'}"
+        out.append((types, "rms" if m.group(2) == "1" else "ln",
+                    int(m.group(3)), int(regs.group(1)),
                     int(spill.group(1)) if spill else 0))
     return out
 
@@ -1177,11 +1253,14 @@ def bwd_cases(torch, dtype):
 def _reruns_bit_identical(torch):
     """No atomics: two bf16 runs of flash_fwd and flash_bwd at the train
     shape (causal B8 S1024 H12 D64), of varlen_bwd on the packed batch
-    (causal), of conv_bn_act at ResNet-50's 3x3/s1 256->256 @14 (B64)
-    and of window_attention_bwd at Swin-T's stage 1 (B128 56x56 C96, 3
-    heads, no shift) give the same bits."""
+    (causal), of conv_bn_act at ResNet-50's 3x3/s1 256->256 @14 (B64),
+    of window_attention and window_attention_bwd at Swin-T's stage 1
+    (B128 56x56 C96, 3 heads, no shift) and of fused_norm at the
+    encoder's [16384, 768] (LayerNorm with bias and residual, y and z)
+    give the same bits."""
     from paddle_tpu_torch.ops.kernels import conv_norm as CN
     from paddle_tpu_torch.ops.kernels import flash_attention as FA
+    from paddle_tpu_torch.ops.kernels import fused_norm as FN
     from paddle_tpu_torch.ops.kernels import varlen_attention as VA
     from paddle_tpu_torch.ops.kernels import window_attention as WA
 
@@ -1220,10 +1299,25 @@ def _reruns_bit_identical(torch):
     same_w = [torch.equal(a, b) for a, b in zip(*runs)]
     check(all(same_w), f"window_attention_bwd reruns differ (dqkv, dbias "
           f"equal: {same_w})")
+    check(torch.equal(WA.window_attention(qkv, bias, None, 7, 0, 3),
+                      WA.window_attention(qkv, bias, None, 7, 0, 3)),
+          "window_attention reruns differ (stage 1 B128)")
+    x, res = (torch.randn(32 * 512, 768, **bf) for _ in range(2))
+    w, b, bi = (torch.randn(768, **bf) for _ in range(3))
+    runs = [FN.fused_norm(x, w, b, bi, res, eps=1e-5, kind="ln")
+            for _ in range(2)]
+    same_n = [torch.equal(a, b) for a, b in zip(*runs)]
+    check(all(same_n), f"fused_norm reruns differ (y, z equal: {same_n})")
     log("[kernels] bf16 reruns bit-identical: flash_fwd (out, lse), "
         "flash_bwd (dq, dk, dv) at causal B8 S1024 H12 D64, varlen_bwd "
         "on the causal T8192 packing, conv_bn_act at 3x3/s1 256->256 @14 "
-        "B64, window_attention_bwd (dqkv, dbias) at stage 1 B128")
+        "B64, window_attention and window_attention_bwd (dqkv, dbias) at "
+        "stage 1 B128, fused_norm (y, z) at LN + bias + residual "
+        "[16384,768]")
+
+
+# phase 3 rows that also get profiled device times and host times
+DEVICE_TIMED = ("fused_norm", "relayout_to_hm", "relayout_from_hm")
 
 
 def phase_kernels():
@@ -1264,6 +1358,10 @@ def phase_kernels():
                 if want[1] is not None:    # the same rounded adds
                     err = max(err, (got[1].float() - want[1].float())
                               .abs().max().item())
+                    if dtype == torch.bfloat16:
+                        check(torch.equal(got[1], want[1]),
+                              f"{name} [{label} {dname}] z differs from "
+                              "the plain version's bit for bit")
                 # held relative to the largest |y|: bf16 rounds values
                 # up to ~5 here, where one ulp exceeds 2e-2
                 ref_max = want[0].float().abs().max().item()
@@ -1302,6 +1400,14 @@ def phase_kernels():
             lms = time_ms(lib) if lib is not None else None
             bms, by = bound_ms(nbytes, flops, ops_dtype)
             times[(name, label, dname)] = (ms, pms, lms, bms)
+            if name in DEVICE_TIMED:
+                # short kernels: the CUDA events read the wrapper's host
+                # time, so the profiler's device time beside them
+                log(f"[kernels] {name:16s} {label:36s} {dname:8s} device_ms"
+                    f" kernel {device_ms(run):.4f} library "
+                    f"{device_ms(lib):.4f} (CUDA-event {ms:.4f} / "
+                    f"{lms:.4f}); wrapper host_us {host_us(run):.1f}, "
+                    f"library call host_us {host_us(lib):.1f}")
             log(f"[kernels] {name:16s} {label:36s} {dname:8s} max_abs_err "
                 f"{err:.3g}"
                 + ("" if rel is None else
@@ -2504,10 +2610,11 @@ def _log_profile(prof, what, wall_ms, steps):
         name = e.key.lower()
         kind = ("window bwd" if "window_attention_bwd" in name
                 else "window fwd" if "window_attention_kernel" in name
+                or "window_attention_tc" in name
                 else "port kernels" if "flash_" in name or "_attention_kernel"
                 in name or "_attention_q8" in name or "relayout_kernel" in name
                 or "rope_" in name or "conv_dense" in name
-                or "conv_depthwise" in name or "fused_norm_kernel" in name
+                or "conv_depthwise" in name or "fused_norm" in name
                 else "gemm/conv" if "nvjet" in name or "gemm" in name
                 or "conv" in name or "cudnn" in name or "sm90" in name
                 else "optimizer" if "multi_tensor" in name

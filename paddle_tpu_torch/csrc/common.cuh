@@ -57,6 +57,13 @@ static inline int pt_nj(int d) {
   return nj <= 1 ? 1 : nj <= 2 ? 2 : nj <= 4 ? 4 : 8;
 }
 
+// The 16-byte alignment that vector copies and stores need (a row of a
+// multiple of 16 bytes keeps every row aligned when the base is); checked
+// by the host launchers.  A null pointer passes: an absent operand.
+static inline bool tc_aligned(const void* p) {
+  return ((uintptr_t)p & 15) == 0;
+}
+
 // Packed (varlen) batches: cu [n + 1] holds cumulative lengths, and
 // position t of a packed axis belongs to segment
 // searchsorted(cu, t, side="right") - 1, in -1 .. n (JAX

@@ -229,9 +229,3 @@ __device__ __forceinline__ void tc_store_rows(bf16* dst, long long stride,
       *reinterpret_cast<uint4*>(g + u * RS * stride) =
           *reinterpret_cast<const uint4*>(tile + tc_swz<DT>(r + u * RS, c));
 }
-
-// The 16-byte alignment the copies and stores need (D % 8 == 0 keeps
-// every row aligned when the base is); checked by the host launchers.
-static inline bool tc_aligned(const void* p) {
-  return ((uintptr_t)p & 15) == 0;
-}

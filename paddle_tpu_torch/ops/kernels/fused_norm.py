@@ -28,7 +28,8 @@ _SIG = {"fused_norm": [ctypes.c_void_p] * 7
            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KINDS = ("rms", "ln")
-# the kernel keeps a row of z as f32 in shared memory (227 KB a block)
+# the scalar kernel keeps a row of z as f32 in shared memory (227 KB a
+# block); the vector kernel takes the rows it can hold in registers
 MAX_D = 227 * 1024 // 4
 
 
@@ -69,39 +70,45 @@ def fused_norm_reference(x, w=None, b=None, bias=None, residual=None,
 
 
 def _check(x, w, b, bias, residual, kind):
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_norm: unsupported device {x.device}")
+    """The kernel's refusals, in one pass over the operands (this runs on
+    every call, so it reads each attribute once).  Returns (d, the dtype
+    code of x, that of w / b)."""
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"fused_norm: unsupported device {dev}")
     if kind not in _KINDS:
         raise ValueError(f"fused_norm: kind {kind!r} not in {_KINDS}")
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"fused_norm: x dtype {x.dtype}; expected float32 "
+    xdt = x.dtype
+    code = _DTYPES.get(xdt)
+    if code is None:
+        raise TypeError(f"fused_norm: x dtype {xdt}; expected float32 "
                         "or bfloat16")
-    d = x.shape[-1] if x.dim() else 0
+    shape = x.shape
+    d = shape[-1] if shape else 0
     if not 1 <= d <= MAX_D:
         raise ValueError(f"fused_norm: last axis {d} must be in "
                          f"1..{MAX_D}")
     wdt = {t.dtype for t in (w, b) if t is not None}
-    if len(wdt) > 1 or not wdt <= {torch.float32, x.dtype}:
+    if len(wdt) > 1 or not wdt <= {torch.float32, xdt}:
         raise TypeError(f"fused_norm: w / b dtypes {sorted(map(str, wdt))};"
-                        f" expected one of float32 or {x.dtype}")
-    for name, t, shape in (("w", w, (d,)), ("b", b, (d,)),
-                           ("bias", bias, (d,)),
-                           ("residual", residual, tuple(x.shape))):
+                        f" expected one of float32 or {xdt}")
+    for name, t in (("w", w), ("b", b), ("bias", bias),
+                    ("residual", residual)):
         if t is None:
             continue
-        if tuple(t.shape) != shape:
+        want = shape if name == "residual" else (d,)
+        if t.shape != want:
             raise ValueError(f"fused_norm: {name} of shape "
-                             f"{tuple(t.shape)}, expected {shape}")
-        if name in ("bias", "residual") and t.dtype != x.dtype:
+                             f"{tuple(t.shape)}, expected {tuple(want)}")
+        if name in ("bias", "residual") and t.dtype != xdt:
             raise TypeError(f"fused_norm: {name} dtype {t.dtype} differs "
-                            f"from x's {x.dtype}")
+                            f"from x's {xdt}")
     for name, t in (("x", x), ("w", w), ("b", b), ("bias", bias),
                     ("residual", residual)):
-        if t is not None and (t.device != x.device
-                              or not t.is_contiguous()):
+        if t is not None and (t.device != dev or not t.is_contiguous()):
             raise ValueError(f"fused_norm: {name} must be contiguous on "
-                             f"{x.device}")
-    return d, (wdt.pop() if wdt else x.dtype)
+                             f"{dev}")
+    return d, code, (_DTYPES[wdt.pop()] if wdt else code)
 
 
 def fused_norm(x, w=None, b=None, bias=None, residual=None, eps=1e-6,
@@ -114,8 +121,7 @@ def fused_norm(x, w=None, b=None, bias=None, residual=None, eps=1e-6,
     global launches
     if x.device.type == "cpu":
         return fused_norm_reference(x, w, b, bias, residual, eps, kind)
-    d, wdtype = _check(x, w, b, bias, residual, kind)
-    rows = x.numel() // d
+    d, code, wcode = _check(x, w, b, bias, residual, kind)
     y = torch.empty_like(x)
     want_z = bias is not None or residual is not None
     z = torch.empty_like(x) if want_z else None
@@ -123,9 +129,9 @@ def fused_norm(x, w=None, b=None, bias=None, residual=None, eps=1e-6,
     opt = [None if t is None else _build.ptr(t)
            for t in (w, b, bias, residual)]
     err = lib.fused_norm(_build.ptr(x), *opt, _build.ptr(y),
-                         None if z is None else _build.ptr(z), rows, d,
-                         float(eps), int(kind == "rms"), _DTYPES[x.dtype],
-                         _DTYPES[wdtype], _build.stream_ptr(x.device))
+                         None if z is None else _build.ptr(z),
+                         x.numel() // d, d, float(eps), int(kind == "rms"),
+                         code, wcode, _build.stream_ptr(x.device))
     _build.check(err, "fused_norm")
     launches += 1
     return y, z

@@ -7,7 +7,9 @@ Counterpart of ``paddle_tpu/ops/pallas/window_attention.py``
 :201, launched by `_bwd_pallas` :290; the custom VJP of `_build_core`
 :337; the jnp reference `window_attention_ref` :106 with
 `_heads_attention` :80).  The forward kernel is
-``csrc/window_attention.cu``: one block per (batch, window, head).  The
+``csrc/window_attention.cu``: in bf16 one tensor-core tile per window, a
+block walking a group of a (batch, head)'s windows; in f32, and for bf16
+windows past that tile, one block per (batch, window, head).  The
 backward kernel is ``csrc/window_attention_bwd.cu``: one block per
 (batch, head) walking that batch's windows (in bf16, on the tensor
 cores, per group of windows), which replays the scores and writes dqkv
@@ -49,8 +51,11 @@ _BWD_SIG = {"window_attention_bwd": [ctypes.c_void_p] * 6
                                     ctypes.c_void_p],
             "window_attention_bwd_groups": [ctypes.c_int] * 6}
 MAX_TOKENS = 256              # ws * ws: keys per softmax row
-TC_MAX_TOKENS = 64            # bf16 backward: one 64 x 64 tensor-core tile
-TC_MAX_HEAD_DIM = 64          # ... over head_dim <= 64, a multiple of 8
+# bf16: one 64 x 64 tensor-core tile a window, head_dim <= 64 and a
+# multiple of 8 (the backward raises past it; the forward's launcher gives
+# such windows to its CUDA-core kernel)
+TC_MAX_TOKENS = 64
+TC_MAX_HEAD_DIM = 64
 SMEM_LIMIT = 227 * 1024       # a block's shared memory on the H100
 
 

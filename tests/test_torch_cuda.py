@@ -31,7 +31,13 @@ native kernels, and `FlashAttentionKV` against `FlashAttention`; the
 bf16 tensor-core flash core at its tile edges (63, 64, 65 and 130 rows,
 Sq < Sk and Sq > Sk), head dims 8, 40, 72, 128 and 256 and GQA 12/4,
 dense, biased (causal + pad rows) and packed, forward and backward, and
-two runs of each mode bit for bit.
+two runs of each mode bit for bit; the bf16 window forward's tensor-core
+tile at P = 16, 25, 49 and 64, head dims 8, 24, 32 and 64, shifted with
+and without a mask, wrap-around, stage 1's groups of windows, and the
+shapes it hands to the CUDA-core kernel (P = 144, an unaligned qkv);
+the fused norm's vector kernel at widths 768 to 8192 and the scalar one
+for rows of other sizes and unaligned slices (which kernel ran is read
+from the profiler).
 Every test needs an NVIDIA card and skips without one.  On the card (no
 JAX needed, so the JAX test conftest is left out)::
 
@@ -98,6 +104,20 @@ def _close_grads(got, want, dtype):
         assert torch.isfinite(a).all()
         err = (a.float() - r.float()).abs().max().item()
         assert err <= TOL[dtype] * r.float().abs().max().item(), err
+
+
+def _launched(fn):
+    """(fn(), the names of the CUDA kernels that call launched), read by
+    torch.profiler: which of a source's kernels the launcher chose."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, {e.key for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA}
 
 
 def _bwd_pair(q, k, v, dout, bias=None, causal=False):
@@ -828,6 +848,56 @@ def test_window_attention_bwd_matches_plain(b, h, w, c, heads, ws, shift,
     assert all(torch.equal(a, r) for a, r in zip(again, got))
 
 
+# the bf16 forward's tensor-core tile at the backward's cases, plus P =
+# 64, a shift without a mask, and a window past the tile (P = 144, the
+# CUDA-core kernel)
+WIN_FWD_CASES = WIN_BWD_CASES + [
+    (2, 16, 16, 64, 2, 8, 4, True),        # P = 64, the full tile, hd 32
+    (2, 14, 14, 24, 3, 7, 3, False),       # a shift without a mask, hd 8
+    (1, 24, 24, 64, 2, 12, 6, True),       # P = 144: past the tile
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("b,h,w,c,heads,ws,shift,masked", WIN_FWD_CASES)
+def test_window_attention_fwd_kernels_match_plain(b, h, w, c, heads, ws,
+                                                  shift, masked, dtype):
+    """The forward against its plain version: bf16 windows of up to 64
+    tokens at head dims <= 64 (multiples of 8) on the tensor-core tile
+    (`window_attention_tc`), f32 and wider bf16 windows on the CUDA-core
+    kernel (`window_attention_kernel`), as the profiler shows; twice, for
+    identical bits."""
+    qkv, bias, mask, _ = _win_bwd_inputs(b, h, w, c, heads, ws, shift,
+                                         masked, dtype, seed=12)
+    got, names = _launched(
+        lambda: WA.window_attention(qkv, bias, mask, ws, shift, heads))
+    want = WA.window_attention_reference(qkv, bias, mask, ws, shift, heads)
+    assert got.shape == (b, h, w, c) and got.dtype == dtype
+    _close(got, want, dtype)
+    tile = (dtype == torch.bfloat16 and ws * ws <= WA.TC_MAX_TOKENS
+            and c // heads <= WA.TC_MAX_HEAD_DIM and (c // heads) % 8 == 0)
+    kernel = "window_attention_tc" if tile else "window_attention_kernel"
+    assert any(kernel in n for n in names), names
+    assert torch.equal(
+        WA.window_attention(qkv, bias, mask, ws, shift, heads), got)
+
+
+def test_window_attention_fwd_bf16_off_alignment_takes_the_cuda_cores():
+    """A qkv that starts 2 bytes past 16-byte alignment cannot feed the
+    tile's 16-byte copies: the launcher gives it to the CUDA-core kernel,
+    with the same result as the plain version."""
+    qkv, bias, mask, _ = _win_bwd_inputs(2, 14, 14, 96, 3, 7, 3, True,
+                                         torch.bfloat16, seed=13)
+    flat = torch.empty(qkv.numel() + 1, dtype=qkv.dtype, device="cuda")
+    off = flat[1:].view(qkv.shape)
+    off.copy_(qkv)
+    got, names = _launched(
+        lambda: WA.window_attention(off, bias, mask, 7, 3, 3))
+    assert any("window_attention_kernel" in n for n in names), names
+    _close(got, WA.window_attention_reference(qkv, bias, mask, 7, 3, 3),
+           torch.bfloat16)
+
+
 @pytest.mark.parametrize("masked", [False, True])
 def test_window_attention_grad_matches_autograd_of_plain(masked):
     """On the card, `window_attention` on inputs that require grad runs
@@ -1103,6 +1173,10 @@ def test_flash_attn_unpadded_grad_matches_autograd_of_plain():
     (3, 1, False, False, False, True),       # one feature
     (2, 20000, True, True, False, False),    # past 48 KB of shared memory
     (4, 96, False, True, True, False),
+    (64, 768, True, True, False, False),     # a warp a row (vector path)
+    (19, 2048, True, True, True, True),      # 2 warps a row, all operands
+    (9, 4096, True, False, True, True),      # llama_7b width
+    (5, 8192, True, True, False, True),      # 70B width: 8 warps a row
 ])
 def test_fused_norm_matches_plain(rows, d, w, b, bias, res, kind, dtype):
     g = torch.Generator(device="cuda").manual_seed(rows * 13 + d)
@@ -1120,6 +1194,35 @@ def test_fused_norm_matches_plain(rows, d, w, b, bias, res, kind, dtype):
         assert torch.equal(z, rz)          # the same rounded adds
     else:
         assert z is None and rz is None
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("d,vector", [(768, True), (1000, True),
+                                      (2048, True), (3, False)])
+def test_fused_norm_dispatch_by_shape_and_alignment(d, vector, dtype):
+    """Rows of 16-byte multiples at aligned pointers go to the vector
+    kernel (`fused_norm_rows`); a row that is not (d = 3: 6 or 12 bytes),
+    or the same tensor read from a slice that starts one element past
+    alignment (still contiguous), goes to the scalar kernel
+    (`fused_norm_kernel`).  Both match the plain version, z bit for
+    bit."""
+    g = torch.Generator(device="cuda").manual_seed(d)
+    rows = 33
+    flat = _randn(g, rows * d + 1, dtype=dtype)
+    w, b = _randn(g, d, dtype=dtype), _randn(g, d, dtype=dtype)
+    res = _randn(g, rows, d, dtype=dtype)
+    aligned = flat[:rows * d].view(rows, d)
+    skewed = flat[1:].view(rows, d)       # a contiguous odd-offset slice
+    assert skewed.is_contiguous()
+    for x, want in ((aligned, vector), (skewed, False)):
+        (y, z), names = _launched(
+            lambda: FN.fused_norm(x, w, b, None, res, eps=1e-5, kind="ln"))
+        kernel = "fused_norm_rows" if want else "fused_norm_kernel"
+        assert any(kernel in n for n in names), names
+        ry, rz = FN.fused_norm_reference(x, w, b, None, res, eps=1e-5,
+                                         kind="ln")
+        _close(y, ry, dtype)
+        assert torch.equal(z, rz)
 
 
 @pytest.mark.parametrize("kind", ["rms", "ln"])

@@ -129,6 +129,39 @@ def test_fused_norm_plain_matches_pallas_kernel(ops, kind, dtype):
                                       np.asarray(z_j, np.float32))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [768, 1000, 2048])
+def test_fused_norm_plain_matches_pallas_at_the_model_widths(d, dtype):
+    """The widths the card's vector kernel splits differently (768: a
+    warp a row; 1000: the odd width; 2048: two warps a row), LayerNorm
+    with every operand, against the JAX kernel in interpret mode on its
+    own rounded z (see above): y within one bf16 ulp (f32: 2e-5), z bit
+    for bit."""
+    rs = np.random.RandomState(d)
+    x = (rs.randn(8, d) * 2 + 0.5).astype(np.float32)
+    w, b, bias = (rs.randn(d).astype(np.float32) for _ in range(3))
+    res = rs.randn(8, d).astype(np.float32)
+    jd = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    td = getattr(torch, dtype)
+    _, z_j = JFN._pallas_norm_fwd(
+        *(jnp.asarray(a, jd) for a in (x, w, b, bias, res)), 1e-5, "ln",
+        True, interpret=True)
+    y_j, _ = JFN._pallas_norm_fwd(z_j, jnp.asarray(w, jd),
+                                  jnp.asarray(b, jd), None, None, 1e-5,
+                                  "ln", False, interpret=True)
+    y, z = FN.fused_norm_reference(*(_t(a, td) for a in (x, w, b, bias,
+                                                          res)),
+                                   eps=1e-5, kind="ln")
+    got, want = y.float().numpy(), np.asarray(y_j, np.float32)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
+    else:
+        ulp = _bf16_ulp(np.maximum(np.abs(got), np.abs(want)))
+        assert (np.abs(got - want) <= ulp).all()
+    np.testing.assert_array_equal(z.float().numpy(),
+                                  np.asarray(z_j, np.float32))
+
+
 # ----------------------------------------------------- (b) the gradients
 @functools.lru_cache(maxsize=None)
 def _jax_norm_grads(ops, kind):

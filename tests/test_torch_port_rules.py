@@ -246,6 +246,43 @@ def test_vision_sources_run_bf16_on_tensor_cores(name, entry, dispatch):
                          code, re.I)
 
 
+@pytest.mark.parametrize("name,fast,general,dispatch", [
+    # the bf16 window forward: the tensor-core tile for the windows it
+    # holds, the CUDA-core kernel for other bf16 shapes and for f32
+    ("window_attention.cu", "window_attention_tc<",
+     "window_attention_kernel<",
+     r"if \(dtype == PT_BF16\) \{.*?if \(ws \* ws <= WF_T && hd <= 64 && "
+     r"hd % 8 == 0 && tc_aligned\(qkv\) &&\s*tc_aligned\(out\)\) \{"
+     r".*?launch_tc<D>.*?\}\s*return launch<__nv_bfloat16>"),
+    # the fused norm: rows held in registers when they are 16-byte
+    # multiples at aligned pointers, the scalar kernel otherwise
+    ("fused_norm.cu", "fused_norm_rows<", "fused_norm_kernel<",
+     r"const bool vec = d % EPV == 0 && tc_aligned\(x\).*?if \(vec\) \{"
+     r".*?launch_rows<T, W, R, N>.*?\}\s*if \(rms\)\s*return launch<"),
+])
+def test_redesigned_kernels_dispatch_by_shape(name, fast, general,
+                                              dispatch):
+    """The two kernels redesigned for this card keep their earlier kernel
+    for what the new one cannot take, chosen by the C launcher from the
+    shape and the pointers (a dispatch between two hand-written kernels,
+    not a fallback to a plain version); the window forward's tile is on
+    the tensor cores (mma.sync, ldmatrix, cp.async), the norm's rows move
+    as 16-byte vectors.  No atomics and no library kernel."""
+    code = _translation_unit(name)
+    assert fast in code and general in code
+    assert re.search(dispatch, code, re.S), dispatch
+    if name == "window_attention.cu":
+        assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in code
+        assert "ldmatrix" in code and "cp.async.cg.shared.global" in code
+    else:
+        assert "uint4" in code and "extern __shared__ float zs[]" in code
+    assert "atomic" not in code
+    assert set(re.findall(r"#include <([^>]+)>", code)) <= {
+        "cuda_bf16.h", "cuda_runtime.h", "stdint.h"}
+    assert not re.search(r"cublas|cudnn|cutlass|cute::|scaled_dot_product",
+                         code, re.I)
+
+
 @pytest.mark.parametrize("name", sorted(K.KERNELS))
 def test_wrapper_reaches_plain_only_for_cpu(name):
     k = K.KERNELS[name]

@@ -1,9 +1,9 @@
 """The vision plain versions against the JAX Pallas kernels in bf16, on
 the CPU.
 
-On the card the bf16 dense convs of ``csrc/conv_bn_act.cu`` and the bf16
-window backward of ``csrc/window_attention_bwd.cu`` run on the tensor
-cores: bf16 operands and f32 accumulators; the window backward also
+On the card the bf16 dense convs of ``csrc/conv_bn_act.cu``, the bf16
+window forward of ``csrc/window_attention.cu`` and the bf16 window
+backward of ``csrc/window_attention_bwd.cu`` run on the tensor cores: bf16 operands and f32 accumulators; the window backward also
 rounds P and dS to bf16 before its products, where the JAX kernel
 (``paddle_tpu/ops/pallas/window_attention.py`` `_bwd_kernel`) keeps them
 in f32.  ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold those
@@ -19,7 +19,11 @@ inputs, on the bf16 grid, go through
   * `window_attention_bwd` (plain) against `_bwd_pallas` (interpret
     mode) and ``jax.grad`` of `window_attention_ref`, at Swin-like
     shapes (7x7 windows, head_dim 32, shifted with the mask and not):
-    dqkv and dbias each within 2e-2 of its largest reference value.
+    dqkv and dbias each within 2e-2 of its largest reference value;
+  * `window_attention` (plain) against `_fwd_pallas` (interpret mode)
+    and `window_attention_ref` at the same shapes (the card's bf16
+    forward rounds P to bf16 too): within 2e-2 of the largest reference
+    value.
 
 Nothing here launches a kernel.
 """
@@ -142,3 +146,30 @@ def test_window_bwd_plain_matches_jax_in_bf16(case):
     for want in (pallas, grad):
         for a, r in zip(got, want):
             assert _rel(_np(a), r) <= BF16_REL
+
+
+# ------------------------------------------------------- window forward
+@pytest.mark.parametrize("case", sorted(WIN_CASES))
+def test_window_fwd_plain_matches_jax_in_bf16(case):
+    """The forward's other side of the contract: on the card the bf16
+    window forward rounds P to bf16 before P V (the JAX `_fwd_kernel`
+    keeps it f32); the plain version it is held to there agrees here with
+    `_fwd_pallas` (interpret mode) and `window_attention_ref` on the same
+    bf16 inputs, within 2e-2 of the largest reference value."""
+    b, h, w, c, heads, ws, shift = WIN_CASES[case]
+    rs = np.random.RandomState(40 + sorted(WIN_CASES).index(case))
+    qkv = _bf16(rs, b, h, w, 3 * c)
+    bias = rs.randn(heads, ws * ws, ws * ws).astype(np.float32)
+    mask = TSW._shift_mask((h, w), ws, shift) if shift else None
+    jq, jb = jnp.asarray(qkv, dtype=jnp.bfloat16), jnp.asarray(bias)
+    jmask = None if mask is None else jnp.asarray(mask)
+    pallas = JWA._fwd_pallas(jq, jb, jmask, ws, shift, heads, h // ws)
+    ref = JWA.window_attention_ref(jq, jb, jmask, window_size=ws,
+                                   shift=shift, num_heads=heads)
+    got = WA.window_attention(
+        torch.from_numpy(qkv).to(torch.bfloat16), torch.from_numpy(bias),
+        None if mask is None else torch.from_numpy(mask), ws, shift, heads)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, h, w, c)
+    for want in (pallas, ref):
+        assert want.dtype == jnp.bfloat16
+        assert _rel(_np(got), want) <= BF16_REL

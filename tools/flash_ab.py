@@ -35,15 +35,19 @@ SHAPES = (("causal B8 S1024 H12 D64", 8, 1024, 12, 64, True),
           ("causal B1 S1008 H16 D128", 1, 1008, 16, 128, True))
 
 
-def build_variants(paths, package, sigs):
+def build_variants(paths, package, sigs, parse=None):
     """Build each variant source in `paths` with the package's nvcc flags
     (its own directory searched for headers first, then csrc/) while the
-    package's sources `package` build, print the tensor-core kernels of
-    every build, and load the variants: {file name: CDLL}, with the C
-    functions of `sigs` ({name: argtypes}) that each exports bound, or
-    None when a variant fails to build."""
+    package's sources `package` build, print the kernels of every build
+    that `parse` reads from a `ptxas -v` log (default: the bf16
+    tensor-core kernels, `chip_smoke._tc_kernels`), and load the
+    variants: {file name: CDLL}, with the C functions of `sigs` ({name:
+    argtypes}) that each exports bound, or None when a variant fails to
+    build."""
     import chip_smoke as C
     from paddle_tpu_torch.ops.kernels import _build
+
+    parse = parse or C._tc_kernels
 
     procs = {}
     for path in paths:
@@ -57,7 +61,7 @@ def build_variants(paths, package, sigs):
     _build.build(package)
     for n in package:
         with open(os.path.join(_build.BUILD_DIR, f"{n}.log")) as f:
-            print(f"package {n}:", C._tc_kernels(f.read()))
+            print(f"package {n}:", parse(f.read()))
     libs = {}
     for path, (so, proc) in procs.items():
         log, _ = proc.communicate()
@@ -65,7 +69,7 @@ def build_variants(paths, package, sigs):
             print(f"nvcc failed for {path}:\n{log[-3000:]}",
                   file=sys.stderr)
             return None
-        print(f"{os.path.basename(path)}:", C._tc_kernels(log))
+        print(f"{os.path.basename(path)}:", parse(log))
         lib = ctypes.CDLL(so)
         for fn, argtypes in sigs.items():
             if hasattr(lib, fn):

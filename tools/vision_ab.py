@@ -5,22 +5,30 @@ the same C interface, on one CUDA card.
     python3 tools/vision_ab.py OTHER.cu [OTHER.cu ...]
 
 Each OTHER.cu is a variant of ``paddle_tpu_torch/csrc/conv_bn_act.cu``
-(exporting `conv_bn_act`) or of ``window_attention_bwd.cu`` (exporting
-`window_attention_bwd`, and `window_attention_bwd_groups` where its
-dbias partials are per group of windows; without it, per batch), with
+(exporting `conv_bn_act`), of ``window_attention.cu`` (exporting
+`window_attention`: an earlier copy, or a copy with another value of a
+constant such as ``WF_BLOCKS_PER_SM``) or of ``window_attention_bwd.cu``
+(exporting `window_attention_bwd`, and `window_attention_bwd_groups`
+where its dbias partials are per group of windows; without it, per
+batch), with
 the package's signature.  It is built with the package's nvcc flags (its
 own directory searched for headers first, then ``csrc/``).  Then, in
 bf16, at every dense `conv_bn_act` shape one batch-64 forward of
-ResNet-50 and MobileNetV2 gives it and at every `window_attention_bwd`
-shape one Swin-T train step at batch 128 gives it (both recorded from
+ResNet-50 and MobileNetV2 gives it, at every `window_attention` shape one
+batch-64 forward of Swin-T gives it and at every `window_attention_bwd`
+shape one Swin-T train step at batch 128 gives it (all recorded from
 those runs, as ``chip_smoke.py`` phase 3 records them), each variant is
 run in turns with the package's kernel (variant, package, package,
-variant; CUDA-event means of 20 calls after 2 warm-ups).  Printed: the
-card, the registers and spills of every tensor-core kernel of each
-build (``tools/flash_ab.py``'s `build_variants`), whether the variant's outputs equal the package's bit for bit
-(and their largest difference), the four times and the library call's
-(cuDNN `F.conv2d`; SDPA's backward on the partitioned windows), and each
-column summed over ResNet-50's 49 convs and Swin-T's 12 backward calls.
+variant; CUDA-event means of 20 calls after 2 warm-ups; for the window
+forward, whose stage-4 calls are short, the profiled device time of one
+launch, `chip_smoke.device_ms`).  Printed: the card, the registers and
+spills of every tensor-core kernel of each build (``tools/flash_ab.py``'s
+`build_variants`), whether the variant's outputs equal the package's bit
+for bit (and their largest difference), the four times and the library
+call's
+(cuDNN `F.conv2d`; SDPA, forward or backward, on the partitioned
+windows), and each column summed over ResNet-50's 49 convs, Swin-T's 12
+forward calls and its 12 backward calls.
 """
 from __future__ import annotations
 
@@ -49,8 +57,9 @@ def main(paths):
                           "--format=csv,noheader"], capture_output=True,
                          text=True)
     print(smi.stdout.strip())
-    libs = build_variants(paths, ["conv_bn_act", "window_attention_bwd"],
-                          {**CN._SIG, **WA._BWD_SIG})
+    libs = build_variants(paths, ["conv_bn_act", "window_attention",
+                                  "window_attention_bwd"],
+                          {**CN._SIG, **WA._SIG, **WA._BWD_SIG})
     if libs is None:
         return 1
 
@@ -72,6 +81,18 @@ def main(paths):
                               cout, kh, kw, st[0], st[1], pad[0], pad[1],
                               ho, wo, CN._ACTS[act], 0, 1, stream())
         _build.check(err, "conv_bn_act (variant)")
+        return out
+
+    def wfwd_with(lib, qkv, bias, mask, ws, shift, heads):
+        b, h, w, c3 = qkv.shape
+        out = torch.empty(b, h, w, c3 // 3, dtype=qkv.dtype,
+                          device=qkv.device)
+        err = lib.window_attention(
+            qkv.data_ptr(), bias.data_ptr(),
+            None if mask is None else mask.data_ptr(), out.data_ptr(), b, h,
+            w, c3 // 3, heads, ws, shift,
+            ctypes.c_float((c3 // 3 // heads) ** -0.5), 1, stream())
+        _build.check(err, "window_attention (variant)")
         return out
 
     def wbwd_with(lib, qkv, bias, mask, g, ws, shift, heads):
@@ -107,6 +128,10 @@ def main(paths):
     cases = {c[1]: c for c in C.conv_cases(torch, torch.bfloat16, vision)}
     resnet = {C._vision_label(k, sig): u.get("resnet50", 0)
               for k, sig, u in vision if k == "conv_bn_act"}
+    fcases = {c[1]: c for c in C.window_cases(torch, torch.bfloat16,
+                                              vision)}
+    fuses = {C._vision_label(k, sig): u.get("swin_t", 0)
+             for k, sig, u in vision if k == "window_attention"}
     wcases = {c[1]: c for c in C.window_bwd_cases(torch, torch.bfloat16,
                                                   train)}
     wuses = {C._vision_label("window_attention", sig): n
@@ -129,6 +154,23 @@ def main(paths):
             print(f"  {name} ResNet-50 B{C.VISION_BATCH} sum over 49 convs "
                   "(variant, package, package, variant, library): "
                   + " ".join(f"{x:.3f}" for x in tot))
+        if hasattr(lib, "window_attention"):
+            tot = [0.0] * 5
+            for label, case in fcases.items():
+                run, lib_call = case[2], case[4]
+                qkv, bias, mask, heads, ws, sh = run.__defaults__
+                def other(lib=lib, qkv=qkv, bias=bias, mask=mask, ws=ws,
+                          sh=sh, heads=heads):
+                    return wfwd_with(lib, qkv, bias, mask, ws, sh, heads)
+                t = [C.device_ms(other), C.device_ms(run),
+                     C.device_ms(run), C.device_ms(other)]
+                lms = C.device_ms(lib_call)
+                compare(name, other(), run(), label, t, lms, fuses[label])
+                for i, v in enumerate(t + [lms]):
+                    tot[i] += fuses[label] * v
+            print(f"  {name} Swin-T B{C.VISION_BATCH} forward, sum over 12 "
+                  "calls, device ms (variant, package, package, variant, "
+                  "library): " + " ".join(f"{x:.3f}" for x in tot))
         if hasattr(lib, "window_attention_bwd"):
             tot = [0.0] * 5
             for label, case in wcases.items():
