@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --profile  # + torch.profiler breakdowns of
-                                     #   the engine's decode step, of
+                                     #   the engine's decode step (and
+                                     #   its paged kernel's device ms a
+                                     #   launch and share), of
                                      #   one GPT train step, of one
                                      #   ResNet-50 and one Swin-T batch
                                      #   and of one Swin-T train step
@@ -14,9 +16,10 @@ non-zero and prints no result):
   1. device: `nvidia-smi` name and power limit, torch's device name;
   2. build: every CUDA kernel with nvcc for sm_90a, one nvcc per source
      (ten), all started together; registers and spills per source, per
-     bf16 tensor-core kernel and per fused-norm vector kernel (a spill
-     fails: flash at head dims up to 128, every conv tile and window
-     tile, forward and backward, every register-held norm kernel);
+     bf16 tensor-core kernel, per fused-norm vector kernel and per
+     exact-tier decode kernel (a spill fails: flash at head dims up to
+     128, every conv tile and window tile, forward and backward, every
+     register-held norm kernel, every paged / dense decode kernel);
   3. kernels: each kernel against its plain PyTorch version at the main
      path's shapes, in bf16 and f32, with its time, the plain version's,
      one PyTorch library call's where one computes the same function,
@@ -148,7 +151,15 @@ block-diagonal mask where this PyTorch cannot dispatch those; the form
 is logged), fused_norm at the norms of phases 19 and 20, an RMS norm
 with bias and residual and an odd width of 1000, and decode_attention
 and paged_attention at a GQA group of 16 (32 query heads over 2 kv
-heads).
+heads) and at llama_7b's decode width (B4, 32 kv heads of 128: the
+paged row at pos 1040 / 1000 / 960 / 1020, the dense row left-padded to
+~1000 keys a row), every paged_attention and decode_attention row with
+its profiled device time, the wrapper's host microseconds and, for
+decode, SDPA's; bf16 reruns of both at the llama_7b rows bit-identical;
+and, in bf16 and f32 at gpt_1p3b widths over a shuffled page table,
+paged_attention bit for bit decode_attention over the same keys gathered
+dense (start 0 and start 37) and each sequence alone bit for bit the
+same sequence in the batch of 4, for both kernels.
 
 Launch counters are reset just before the driven part of phases 4, 5,
 8, 8a, 8b, 9, 9a, 10, 11a, 12, 14, 15, 16, 17, 19 and 20 and read just
@@ -316,6 +327,15 @@ def phase_build():
             spilled = [(t, k, nv) for t, k, nv, _, sp in rows if sp]
             check(not spilled, f"{n}: the vector kernels, which hold rows "
                   f"in registers, spill: {spilled}")
+        dec = _split_kernels(text)
+        if dec:
+            log(f"[build] {n} exact-tier decode kernels on a cluster (type, "
+                "16-byte chunks a row, query rows: registers / spill "
+                "bytes): " + ", ".join(f"{t} CHP{chp} GM{gm}: {r}/{sp}"
+                                      for _, t, chp, gm, r, sp in dec))
+            spilled = [(t, chp, gm) for _, t, chp, gm, _, sp in dec if sp]
+            check(not spilled, f"{n}: the exact-tier decode kernels spill: "
+                  f"{spilled}")
 
 
 def _tc_kernels(text):
@@ -375,6 +395,25 @@ def _row_kernels(text):
         types = f"{t}/{'f32' if rest == 'f' else 'bf16'}"
         out.append((types, "rms" if m.group(2) == "1" else "ln",
                     int(m.group(3)), int(regs.group(1)),
+                    int(spill.group(1)) if spill else 0))
+    return out
+
+
+def _split_kernels(text):
+    """[(kernel, type, CHP, GM, registers, spill store bytes)] of the
+    exact-tier decode kernels `paged_attention_kernel<T, CHP, GM>` and
+    `decode_attention_kernel<T, CHP, GM>` (decode_common.cuh,
+    `decode_split`) in one source's `ptxas -v` log."""
+    out = []
+    for part in text.split("Compiling entry function")[1:]:
+        m = re.search(r"((?:paged|decode)_attention_kernel)I(13__nv_bfloat16"
+                      r"|f)Li(\d+)ELi(\d+)E", part)
+        regs = re.search(r"Used (\d+) registers", part)
+        if not (m and regs):
+            continue
+        spill = re.search(r"(\d+) bytes spill stores", part)
+        out.append((m.group(1), "f32" if m.group(2) == "f" else "bf16",
+                    int(m.group(3)), int(m.group(4)), int(regs.group(1)),
                     int(spill.group(1)) if spill else 0))
     return out
 
@@ -536,23 +575,15 @@ def kernel_cases(torch, dtype, vision, train):
     posd = torch.full((bd,), 150, dtype=torch.int32, device=dev)
     std = torch.tensor([0, 28, 64, 111], dtype=torch.int32, device=dev)
     keysd = int((posd - std + 1).sum())
-    ids = torch.arange(capd, device=dev)[None, :]
-    dmask = ((ids <= posd[:, None]) & (ids >= std[:, None]))[:, None, None]
-
-    def dec_library():
-        import torch.nn.functional as F
-
-        return F.scaled_dot_product_attention(qd[:, :, None], kc, vc,
-                                              attn_mask=dmask)
-
     cases.append(("decode_attention", f"B{bd} cap{capd} left-pad",
                   lambda: DA.decode_attention(qd, kc, vc, posd, std),
                   lambda: DA.decode_attention_reference(qd, kc, vc, posd,
                                                         std),
-                  dec_library,
+                  _dense_decode_library(qd, kc, vc, posd, std),
                   2 * keysd * h * d * isz + 2 * bd * h * d * isz + 32,
                   4 * keysd * h * d, dname, 0))
-    return (cases + gqa16_cases(torch, dtype) + bwd_cases(torch, dtype)
+    return (cases + gqa16_cases(torch, dtype)
+            + llama_decode_cases(torch, dtype) + bwd_cases(torch, dtype)
             + rope_cases(torch, dtype) + conv_cases(torch, dtype, vision)
             + window_cases(torch, dtype, vision)
             + window_bwd_cases(torch, dtype, train)
@@ -680,24 +711,129 @@ def gqa16_cases(torch, dtype):
     posd = torch.full((bd,), 150, dtype=torch.int32, device=dev)
     std = torch.tensor([0, 28, 64, 111], dtype=torch.int32, device=dev)
     keysd = int((posd - std + 1).sum())
-    ids = torch.arange(capd, device=dev)[None, :]
-    dmask = ((ids <= posd[:, None]) & (ids >= std[:, None]))[:, None, None]
-    kce, vce = (c.repeat_interleave(hq // hkv, dim=1) for c in (kc, vc))
-
-    def dec_library():
-        import torch.nn.functional as F
-
-        return F.scaled_dot_product_attention(qd[:, :, None], kce, vce,
-                                              attn_mask=dmask)
-
     cases.append(("decode_attention", f"GQA 32/2 B{bd} cap{capd} left-pad",
                   lambda: DA.decode_attention(qd, kc, vc, posd, std),
                   lambda: DA.decode_attention_reference(qd, kc, vc, posd,
                                                         std),
-                  dec_library,
+                  _dense_decode_library(qd, kc, vc, posd, std),
                   2 * keysd * hkv * d * isz + 2 * bd * hq * d * isz + 32,
                   4 * keysd * hq * d, dname, 0))
     return cases
+
+
+def _dense_decode_library(q, kc, vc, pos, start):
+    """One F.scaled_dot_product_attention call for decode_attention's
+    output (yardstick only): keys start..pos as a boolean mask, GQA kv
+    heads expanded first, both built here, outside the timed call."""
+    import torch
+    import torch.nn.functional as F
+
+    ids = torch.arange(kc.shape[2], device=q.device)[None, :]
+    mask = ((ids <= pos[:, None]) & (ids >= start[:, None]))[:, None, None]
+    rep = q.shape[1] // kc.shape[1]
+    kce, vce = (c.repeat_interleave(rep, dim=1) if rep > 1 else c
+                for c in (kc, vc))
+    return lambda: F.scaled_dot_product_attention(q[:, :, None], kce, vce,
+                                                  attn_mask=mask)
+
+
+def llama_decode_cases(torch, dtype):
+    """paged_attention and decode_attention at llama_7b's decode width (B4,
+    32 kv heads of 128): the paged row at the int8 row's lengths (pos 1040
+    / 1000 / 960 / 1020 over the default pool of 513 pages of 16, a
+    shuffled table), the dense row as `generate()` leaves a left-padded
+    batch (cap 1088, pos 1040, starts 0 / 40 / 80 / 20: 1041 / 1001 / 961
+    / 1021 keys).  Bound: each live row's K and V once, q and out once."""
+    from paddle_tpu_torch.ops.kernels import decode_attention as DA
+    from paddle_tpu_torch.ops.kernels import paged_attention as PA
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    h, d, ps, npool, p = 32, 128, 16, 4 * 128 + 1, 128
+    isz = torch.empty((), dtype=dtype).element_size()
+    dname = str(dtype).split(".")[1]
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda", dtype=dtype)
+
+    pos = (1040, 1000, 960, 1020)
+    qp = randn(4, h, d)
+    kp, vp = randn(npool, h, ps, d), randn(npool, h, ps, d)
+    posp = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    pt = _paged_table(torch, g, pos, npool, p, ps)
+    keys = sum(x + 1 for x in pos)
+    cases = [("paged_attention", "llama_7b B4 pool513x32x16x128",
+              lambda: PA.paged_attention(qp, kp, vp, pt, posp),
+              lambda: PA.paged_attention_reference(qp, kp, vp, pt, posp),
+              None,
+              2 * keys * h * d * isz + 2 * 4 * h * d * isz
+              + pt.numel() * 4 + 16, 4 * keys * h * d, dname, 0)]
+    cap = 1088
+    qd = randn(4, h, d)
+    kc, vc = randn(4, h, cap, d), randn(4, h, cap, d)
+    posd = torch.full((4,), 1040, dtype=torch.int32, device="cuda")
+    std = torch.tensor([0, 40, 80, 20], dtype=torch.int32, device="cuda")
+    keysd = int((posd - std + 1).sum())
+    cases.append(("decode_attention", f"llama_7b B4 cap{cap} left-pad",
+                  lambda: DA.decode_attention(qd, kc, vc, posd, std),
+                  lambda: DA.decode_attention_reference(qd, kc, vc, posd,
+                                                        std),
+                  _dense_decode_library(qd, kc, vc, posd, std),
+                  2 * keysd * h * d * isz + 2 * 4 * h * d * isz + 32,
+                  4 * keysd * h * d, dname, 0))
+    return cases
+
+
+def _decode_bits(torch):
+    """The exact-tier decode kernels' split depends on a sequence's own
+    keys only, counted from its first valid key: in bf16 and f32, at
+    gpt_1p3b's widths (16 heads of 128) over a shuffled page table, (a)
+    paged_attention equals decode_attention over the same keys gathered
+    into a dense cache, with start = 0 and with the keys shifted right by
+    start = 37, and (b) each sequence run alone equals the same sequence
+    inside the batch of 4, for both kernels.  All bit for bit."""
+    from paddle_tpu_torch.ops.kernels import decode_attention as DA
+    from paddle_tpu_torch.ops.kernels import paged_attention as PA
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    h, d, ps, npool, p, shift = 16, 128, 16, 4 * 128 + 1, 128, 37
+    pos = (1031, 330, 551, 0)
+    for dtype in (torch.bfloat16, torch.float32):
+        kw = dict(generator=g, device="cuda", dtype=dtype)
+        q = torch.randn(4, h, d, **kw)
+        kp, vp = (torch.randn(npool, h, ps, d, **kw) for _ in range(2))
+        posp = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        pt = _paged_table(torch, g, pos, npool, p, ps)
+        paged = PA.paged_attention(q, kp, vp, pt, posp)
+        # the same keys, gathered: [B, P, Hkv, PS, D] -> [B, Hkv, P*PS, D]
+        k, v = (x[pt.long()].transpose(1, 2).reshape(4, h, p * ps, d)
+                for x in (kp, vp))
+        same0 = torch.equal(DA.decode_attention(q, k, v, posp), paged)
+        ks, vs = (torch.cat([torch.randn(4, h, shift, d, **kw), x], 2)
+                  for x in (k, v))
+        st = torch.full((4,), shift, dtype=torch.int32, device="cuda")
+        dense = DA.decode_attention(q, ks, vs, posp + shift, st)
+        same1 = torch.equal(dense, paged)
+        check(same0 and same1, f"paged_attention != decode_attention on "
+              f"the same keys ({str(dtype)[6:]}; start 0: {same0}, start "
+              f"{shift}: {same1})")
+        alone = []
+        for i in range(4):
+            one = PA.paged_attention(q[i:i + 1].contiguous(), kp, vp,
+                                     pt[i:i + 1].contiguous(),
+                                     posp[i:i + 1].contiguous())
+            two = DA.decode_attention(q[i:i + 1].contiguous(),
+                                      ks[i:i + 1].contiguous(),
+                                      vs[i:i + 1].contiguous(),
+                                      posp[i:i + 1] + shift, st[i:i + 1])
+            alone.append((torch.equal(one[0], paged[i]),
+                          torch.equal(two[0], dense[i])))
+        check(all(a and b for a, b in alone), f"a sequence alone differs "
+              f"from the same sequence in the batch ({str(dtype)[6:]}; "
+              f"(paged, dense) equal per row: {alone})")
+    log("[kernels] exact decode split: paged_attention == decode_attention "
+        f"bit for bit on the same keys (start 0 and {shift}) and each "
+        "sequence alone == in the batch of 4, both kernels, bf16 and f32, "
+        "gpt_1p3b widths, pos 1031 / 330 / 551 / 0")
 
 
 # the packed batch of the varlen rows and phase: GPT-125M attention widths
@@ -1255,9 +1391,10 @@ def _reruns_bit_identical(torch):
     shape (causal B8 S1024 H12 D64), of varlen_bwd on the packed batch
     (causal), of conv_bn_act at ResNet-50's 3x3/s1 256->256 @14 (B64),
     of window_attention and window_attention_bwd at Swin-T's stage 1
-    (B128 56x56 C96, 3 heads, no shift) and of fused_norm at the
+    (B128 56x56 C96, 3 heads, no shift), of fused_norm at the
     encoder's [16384, 768] (LayerNorm with bias and residual, y and z)
-    give the same bits."""
+    and of paged_attention and decode_attention at the llama_7b decode
+    rows give the same bits."""
     from paddle_tpu_torch.ops.kernels import conv_norm as CN
     from paddle_tpu_torch.ops.kernels import flash_attention as FA
     from paddle_tpu_torch.ops.kernels import fused_norm as FN
@@ -1308,16 +1445,22 @@ def _reruns_bit_identical(torch):
             for _ in range(2)]
     same_n = [torch.equal(a, b) for a, b in zip(*runs)]
     check(all(same_n), f"fused_norm reruns differ (y, z equal: {same_n})")
+    dec = llama_decode_cases(torch, torch.bfloat16)
+    same_d = [torch.equal(run(), run()) for _, _, run, *_ in dec]
+    check(all(same_d), f"paged_attention / decode_attention reruns differ "
+          f"(llama_7b widths, equal: {same_d})")
     log("[kernels] bf16 reruns bit-identical: flash_fwd (out, lse), "
         "flash_bwd (dq, dk, dv) at causal B8 S1024 H12 D64, varlen_bwd "
         "on the causal T8192 packing, conv_bn_act at 3x3/s1 256->256 @14 "
         "B64, window_attention and window_attention_bwd (dqkv, dbias) at "
         "stage 1 B128, fused_norm (y, z) at LN + bias + residual "
-        "[16384,768]")
+        "[16384,768], paged_attention and decode_attention at the "
+        "llama_7b decode rows")
 
 
 # phase 3 rows that also get profiled device times and host times
-DEVICE_TIMED = ("fused_norm", "relayout_to_hm", "relayout_from_hm")
+DEVICE_TIMED = ("fused_norm", "relayout_to_hm", "relayout_from_hm",
+                "paged_attention", "decode_attention")
 
 
 def phase_kernels():
@@ -1403,11 +1546,15 @@ def phase_kernels():
             if name in DEVICE_TIMED:
                 # short kernels: the CUDA events read the wrapper's host
                 # time, so the profiler's device time beside them
+                lib_dev = "null" if lib is None else \
+                    f"{device_ms(lib):.4f}"
+                lib_host = "null" if lib is None else f"{host_us(lib):.1f}"
                 log(f"[kernels] {name:16s} {label:36s} {dname:8s} device_ms"
-                    f" kernel {device_ms(run):.4f} library "
-                    f"{device_ms(lib):.4f} (CUDA-event {ms:.4f} / "
-                    f"{lms:.4f}); wrapper host_us {host_us(run):.1f}, "
-                    f"library call host_us {host_us(lib):.1f}")
+                    f" kernel {device_ms(run):.4f} library {lib_dev} "
+                    f"(CUDA-event {ms:.4f} / "
+                    f"{'null' if lms is None else f'{lms:.4f}'}); wrapper "
+                    f"host_us {host_us(run):.1f}, library call host_us "
+                    f"{lib_host}")
             log(f"[kernels] {name:16s} {label:36s} {dname:8s} max_abs_err "
                 f"{err:.3g}"
                 + ("" if rel is None else
@@ -1460,6 +1607,7 @@ def phase_kernels():
     for key, form in VARLEN_LIBRARY.items():
         log(f"[kernels] varlen library yardstick {key}: SDPA on {form}")
     _reruns_bit_identical(torch)
+    _decode_bits(torch)
     K.reset_launches()   # comparison launches do not count
     return table
 
@@ -2638,21 +2786,32 @@ def phase_profile(model, cfg, steps=10, kv_precision=None):
     """torch.profiler over `steps` steady decode steps of the engine (4
     slots busy; `kv_precision` its KV tier): device busy share and the
     ops that hold the step."""
+    from unittest import mock
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from paddle_tpu_torch.inference.engine import (
         EngineConfig, InferenceEngine,
     )
+    from paddle_tpu_torch.models import generation as GEN
 
     eng = InferenceEngine(model, EngineConfig(kv_precision=kv_precision))
     for p in _prompts(cfg.vocab_size)[1:5]:
         eng.submit(p, max_new_tokens=steps + 8)
     for _ in range(3):            # prefills, then two decode steps
         eng.step()
+    # the paged calls' inputs, kept (no copy, no sync) for their bound
+    calls, paged = [], GEN.paged_attention
+
+    def rec(q, kp, vp, pt, pos, k_scales=None, v_scales=None):
+        calls.append((q, kp, pt, pos))
+        return paged(q, kp, vp, pt, pos, k_scales, v_scales)
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as prof, \
+            mock.patch.object(GEN, "paged_attention", rec):
         t = time.perf_counter()
         for _ in range(steps):
             eng.step()
@@ -2660,6 +2819,31 @@ def phase_profile(model, cfg, steps=10, kv_precision=None):
         wall_ms = (time.perf_counter() - t) * 1e3
     _log_profile(prof, f"engine decode step (4 slots, kv "
                  f"{kv_precision or 'full'})", wall_ms, steps)
+    # the paged kernel of the step's tier: device time a launch beside
+    # its bound (each live key's K and V rows once, int8 codes and f32
+    # scales in the int8 tier; q, out and the table once), its launches
+    # and its share of the step's device time
+    name = ("paged_attention_q8_kernel" if kv_precision == "int8"
+            else "paged_attention_kernel")
+    nbytes = 0
+    for q, kp, pt, pos in calls:
+        keys, (b, hq, d), hkv = int((pos + 1).sum()), q.shape, kp.shape[1]
+        row = 2 * d + 8 if kv_precision == "int8" else 2 * d * q.itemsize
+        nbytes += (keys * hkv * row + 2 * b * hq * d * q.itemsize
+                   + pt.numel() * 4 + 4 * b)
+    bms, _ = bound_ms(nbytes / max(len(calls), 1), 0, "bfloat16")
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows = [e for e in dev if name in e.key]
+    ms = sum(e.self_device_time_total for e in rows) / 1e3
+    n = sum(e.count for e in rows)
+    busy = sum(e.self_device_time_total for e in dev) / 1e3
+    check(n > 0, f"profile: no {name} launch in the decode steps")
+    log(f"[profile] {name}: device {ms / n:.4f} ms a launch (bound "
+        f"{bms:.5f} ms, bytes), {n / steps:.0f} launches a step, "
+        f"{ms / steps:.3f} of {busy / steps:.3f} ms of device time a step "
+        f"({100 * ms / busy:.1f}%); the step {100 * busy / wall_ms:.1f}% "
+        "busy")
 
 
 # ----------------------------------------------------------------- main

@@ -8,16 +8,19 @@
 // per kv head) and does 4 flops per element read, far below the ~295
 // flops/byte at which the H100 stops being bandwidth bound.
 //
-// Design: one block per (sequence, kv head, chunk of <= 8 heads of the GQA
-// group; decode_common.cuh) carrying the chunk's query rows; the
-// block walks keys 0..pos through the page table itself (the TPU grid's
-// scalar-prefetched index map becomes an in-kernel table read), so cost
-// is O(tokens in the cache), not O(pool).  Eight warps split the keys
-// and keep several rows' loads in flight (decode_common.cuh), which is
-// what a latency-bound gather of 2-byte rows needs; f32 online softmax.
-// Free engine slots point at scratch page 0 with pos = 0 and compute one
-// row of garbage that the host discards.  Later work: split the key
-// range over more blocks (few sequences x kv heads do not fill 132 SMs).
+// Design (decode_common.cuh, `decode_split`): one cluster of DEC_SPLIT
+// CTAs per (sequence, kv head, chunk of <= 8 heads of the GQA group), the
+// sequence's keys 0..pos split evenly among the cluster's CTAs and
+// merged by rank 0 through distributed shared memory, so cost is
+// O(tokens in the cache), not O(pool), and a batch of a few sequences
+// still fills the card.  The TPU grid's scalar-prefetched index map
+// becomes an in-kernel table read: each CTA stages its share's slice of
+// the table row in shared memory and resolves a page once per PS keys.
+// A page of one kv head is PS contiguous rows; each CTA streams its rows
+// with 16-byte `cp.async` copies through a 3-stage ring; f32 online
+// softmax, one rescale per tile.  The pools must be 16-byte aligned (the
+// wrapper checks).  Free engine slots point at scratch page 0 with pos =
+// 0 and compute one row of garbage that the host discards.
 //
 // int8 pools (the quantized KV tier), `paged_attention_int8`.  Replaces
 // the same kernel's int8 branch (`quantized=True`: the scale rows of each
@@ -26,9 +29,10 @@
 // f32 scale tables [num_pages, Hkv, PS], one scale per token and kv
 // head.  Bound on this card: bytes, (pos + 1) * Hkv * (2 * D + 2 * 4)
 // per sequence (codes and scales of K and V), about half the bf16
-// pools' at D = 128.  Design: the same grid and GQA chunks as the exact
-// tier; each lane reads 16 codes with one 16-byte load and dequantizes
-// them in registers (decode_common.cuh, decode_rows_q8).  No page-size
+// pools' at D = 128.  Design: one block of DEC_WARPS warps per
+// (sequence, kv head, GQA chunk), no cluster; each lane reads 16 codes
+// with one 16-byte load and dequantizes them in registers
+// (decode_common.cuh, decode_rows_q8).  No page-size
 // gate (the Mosaic kernel needs pages of 32 for the int8 sublane tile):
 // any PS serves.
 #include "decode_common.cuh"
@@ -43,71 +47,84 @@ struct PagedRow {
   }
 };
 
-// Element offset of key t of one sequence's kv head: the table names the
-// page, t % PS the slot in it.
-struct PagedAddr {
-  const int* row;
-  long long page_elems;
-  int hk, PS, D;
-  __device__ __forceinline__ long long operator()(int t) const {
-    return (long long)row[t / PS] * page_elems +
-           ((long long)hk * PS + t % PS) * D;
-  }
-};
-
-template <typename T, int NJ>
-__global__ void __launch_bounds__(DEC_WARPS * 32) paged_attention_kernel(
+// min blocks 1: ptxas keeps every register the kernel asks for (its
+// default register-usage heuristics trade a few for small spills)
+template <typename T, int CHP, int GM>
+__global__ void __launch_bounds__(DEC_THREADS, 1) paged_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ kp,
     const T* __restrict__ vp, const int* __restrict__ table,
     const int* __restrict__ pos, T* __restrict__ out, int Hq, int Hkv,
     int PS, int P, int D, float scale) {
-  const int hk = blockIdx.x, b = blockIdx.y;
+  // cluster rank = blockIdx.x % DEC_SPLIT (clusters run along x)
+  const int hk = blockIdx.x / DEC_SPLIT, b = blockIdx.y;
   const int group = Hq / Hkv, g0 = blockIdx.z * DEC_MAXG;
-  const int* row = table + (long long)b * P;
-  const long long page_elems = (long long)Hkv * PS * D;
-  const PagedAddr addr{row, page_elems, hk, PS, D};
+  DecPagedRows rows{table + (long long)b * P, (long long)Hkv * PS * D,
+                    (long long)hk * PS * D, PS, D, nullptr, 0, 0, 0};
   const long long qo = ((long long)b * Hq + (long long)hk * group + g0) * D;
-  decode_rows<T, NJ>(q + qo, kp, vp, addr, 0, pos[b],
-                     decode_chunk_rows(group, g0), D, scale, out + qo);
+  // keys 0..pos[b]; the table row holds P * PS of them
+  const int n = min(pos[b] + 1, P * PS);
+  decode_split<T, CHP, GM>(q + qo, kp, vp, rows, n,
+                           decode_chunk_rows(group, g0), D, scale,
+                           out + qo);
 }
 
-template <typename T, int NJ>
+template <typename T, int CHP, int GM>
 static int launch(const void* q, const void* kp, const void* vp,
                   const int* table, const int* pos, void* out, int B,
                   int Hq, int Hkv, int PS, int P, int D, float scale,
                   cudaStream_t stream) {
-  const size_t smem = decode_smem_bytes(Hq / Hkv, D);
-  auto kern = paged_attention_kernel<T, NJ>;
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-  kern<<<dim3(Hkv, B, decode_chunks(Hq / Hkv)), DEC_WARPS * 32, smem,
-         stream>>>(
-      (const T*)q, (const T*)kp, (const T*)vp, table, pos, (T*)out, Hq, Hkv,
-      PS, P, D, scale);
-  return (int)cudaGetLastError();
+  const int group = Hq / Hkv, G = group < DEC_MAXG ? group : DEC_MAXG;
+  // the table entries one CTA stages: its share's pages, one more where
+  // the share straddles a page
+  const int tbl = dec_share(P * PS, DecTile<T, CHP>::TK) / PS + 2;
+  return decode_cluster_launch(
+      paged_attention_kernel<T, CHP, GM>,
+      dim3(Hkv * DEC_SPLIT, B, decode_chunks(group)),
+      decode_split_smem<T, CHP>(G, D, tbl), stream, (const T*)q,
+      (const T*)kp, (const T*)vp, table, pos, (T*)out, Hq, Hkv, PS, P, D,
+      scale);
 }
 
+// GM: the chunk's query rows rounded up to 1, 2, 4 or 8.
+template <typename T, int CHP>
+static int dispatch_rows(const void* q, const void* kp, const void* vp,
+                         const int* table, const int* pos, void* out, int B,
+                         int Hq, int Hkv, int PS, int P, int D, float scale,
+                         cudaStream_t s) {
+  const int g = Hq / Hkv;
+  if (g == 1) return launch<T, CHP, 1>(q, kp, vp, table, pos, out, B, Hq, Hkv, PS, P, D, scale, s);
+  if (g == 2) return launch<T, CHP, 2>(q, kp, vp, table, pos, out, B, Hq, Hkv, PS, P, D, scale, s);
+  if (g <= 4) return launch<T, CHP, 4>(q, kp, vp, table, pos, out, B, Hq, Hkv, PS, P, D, scale, s);
+  return launch<T, CHP, 8>(q, kp, vp, table, pos, out, B, Hq, Hkv, PS, P, D, scale, s);
+}
+
+// CHP: 16-byte chunks a row rounded up to a power of two; bf16 rows hold
+// 1 .. 32 chunks, f32 rows 2 .. 64, at head dims 8 .. 256.
 template <typename T>
 static int dispatch(const void* q, const void* kp, const void* vp,
                     const int* table, const int* pos, void* out, int B,
                     int Hq, int Hkv, int PS, int P, int D, float scale,
                     cudaStream_t s) {
-  switch (pt_nj(D)) {
-    case 1: return launch<T, 1>(q, kp, vp, table, pos, out, B, Hq, Hkv, PS, P, D, scale, s);
-    case 2: return launch<T, 2>(q, kp, vp, table, pos, out, B, Hq, Hkv, PS, P, D, scale, s);
-    case 4: return launch<T, 4>(q, kp, vp, table, pos, out, B, Hq, Hkv, PS, P, D, scale, s);
-    default: return launch<T, 8>(q, kp, vp, table, pos, out, B, Hq, Hkv, PS, P, D, scale, s);
+  switch (decode_chunks_pow2(D, (int)sizeof(T))) {
+    case 1: return dispatch_rows<T, 1>(q, kp, vp, table, pos, out, B, Hq, Hkv, PS, P, D, scale, s);
+    case 2: return dispatch_rows<T, 2>(q, kp, vp, table, pos, out, B, Hq, Hkv, PS, P, D, scale, s);
+    case 4: return dispatch_rows<T, 4>(q, kp, vp, table, pos, out, B, Hq, Hkv, PS, P, D, scale, s);
+    case 8: return dispatch_rows<T, 8>(q, kp, vp, table, pos, out, B, Hq, Hkv, PS, P, D, scale, s);
+    case 16: return dispatch_rows<T, 16>(q, kp, vp, table, pos, out, B, Hq, Hkv, PS, P, D, scale, s);
+    case 32: return dispatch_rows<T, 32>(q, kp, vp, table, pos, out, B, Hq, Hkv, PS, P, D, scale, s);
+    default: return dispatch_rows<T, 64>(q, kp, vp, table, pos, out, B, Hq, Hkv, PS, P, D, scale, s);
   }
 }
 
-// q [B, Hq, D]; k_pages/v_pages [num_pages, Hkv, PS, D]; table [B, P]
-// int32; pos [B] int32 (valid keys 0..pos[b]); out [B, Hq, D].
+// q [B, Hq, D]; k_pages/v_pages [num_pages, Hkv, PS, D], 16-byte
+// aligned; table [B, P] int32; pos [B] int32 (valid keys 0..pos[b]); out
+// [B, Hq, D].
 extern "C" int paged_attention(const void* q, const void* kp, const void* vp,
                                const void* table, const void* pos, void* out,
                                int B, int Hq, int Hkv, int PS, int P, int D,
                                float scale, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (!tc_aligned(kp) || !tc_aligned(vp)) return (int)cudaErrorInvalidValue;
   if (dtype == PT_BF16)
     return dispatch<__nv_bfloat16>(q, kp, vp, (const int*)table,
                                    (const int*)pos, out, B, Hq, Hkv, PS, P, D,

@@ -12,7 +12,7 @@ a pad-key bias for left-padded rows), `decode_attention` for the
 dense decode step, `paged_attention` for the engine's paged step (its
 int8 kernel under the quantized KV tier).
 
-Sampling and beam search are not ported yet (ROADMAP Queue B).
+Sampling and beam search are not ported yet (ROADMAP Queue A5).
 """
 from __future__ import annotations
 
@@ -234,7 +234,7 @@ class GenerationMixin:
         if do_sample or num_beams > 1:
             raise NotImplementedError(
                 "sampling and beam search are not ported yet (ROADMAP "
-                "Queue B); paddle_tpu_torch generate() is greedy")
+                "Queue A5); paddle_tpu_torch generate() is greedy")
         dev = self.device
         with torch.inference_mode():
             ids = torch.as_tensor(np.asarray(input_ids.cpu())

@@ -72,6 +72,10 @@ def decode_attention(q, kcache, vcache, pos, start=None):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"decode_attention: {name} must be contiguous "
                              f"on {q.device}")
+    for name, t in (("kcache", kcache), ("vcache", vcache)):
+        if t.data_ptr() % 16:    # the kernel copies rows 16 bytes a lane
+            raise ValueError(f"decode_attention: {name} must start on a "
+                             "16-byte boundary")
     out = torch.empty_like(q)
     lib = _build.library("decode_attention", _SIG)
     err = lib.decode_attention(

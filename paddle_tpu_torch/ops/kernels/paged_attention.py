@@ -6,7 +6,8 @@ Counterpart of ``paddle_tpu/ops/pallas/paged_attention.py``
 ``csrc/paged_attention.cu``: `paged_attention` for bf16 / f32 pools (the
 exact tier) and `paged_attention_int8` for the quantized KV tier's int8
 pools with per-token, per-head f32 scale tables.  One wrapper serves
-both; each kernel counts on its own counter.
+both; each kernel counts on its own counter.  Both kernels read the
+pools 16 bytes a lane, so the pools must start on a 16-byte boundary.
 """
 from __future__ import annotations
 
@@ -118,6 +119,10 @@ def paged_attention(q, k_pages, v_pages, page_table, pos, k_scales=None,
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"paged_attention: {name} must be contiguous "
                              f"on {q.device}")
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.data_ptr() % 16:    # both kernels copy rows 16 bytes a lane
+            raise ValueError(f"paged_attention: {name} must start on a "
+                             "16-byte boundary")
     out = torch.empty_like(q)
     if quantized:
         return _launch_int8(q, k_pages, v_pages, k_scales, v_scales,
@@ -148,10 +153,6 @@ def _launch_int8(q, k_pages, v_pages, k_scales, v_scales, page_table, pos,
             raise ValueError(f"paged_attention: {name} must be float32 "
                              f"{(npool, hkv, ps)}, got {t.dtype} "
                              f"{tuple(t.shape)}")
-    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"paged_attention: {name} must start on a "
-                             "16-byte boundary")
     lib = _build.library("paged_attention", _INT8_SIG)
     err = lib.paged_attention_int8(
         _build.ptr(q), _build.ptr(k_pages), _build.ptr(v_pages),

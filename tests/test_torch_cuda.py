@@ -37,7 +37,13 @@ and without a mask, wrap-around, stage 1's groups of windows, and the
 shapes it hands to the CUDA-core kernel (P = 144, an unaligned qkv);
 the fused norm's vector kernel at widths 768 to 8192 and the scalar one
 for rows of other sizes and unaligned slices (which kernel ran is read
-from the profiler).
+from the profiler); the exact-tier paged and dense decode kernels (keys
+split across a thread-block cluster) at key counts at, under and just
+over the split's tiles and shares and the pages (pos 0 and fewer keys
+than the cluster's CTAs among them), a free slot on scratch page 0, GQA
+12/1 and 32/2, head dims 64, 128 and 256, paged == dense bit for bit,
+a sequence alone == in a batch, reruns bit for bit, and the refusal of
+pools and caches that start off a 16-byte boundary.
 Every test needs an NVIDIA card and skips without one.  On the card (no
 JAX needed, so the JAX test conftest is left out)::
 
@@ -1500,3 +1506,181 @@ def test_flash_kernels_rerun_bit_identical(dtype):
         runs.append((out, lse) + VA.varlen_bwd(q, k, v, out, lse, dout, cq,
                                                ck, causal=True))
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+# ----------------------------- exact-tier decode: keys split on a cluster
+def _dec_split():
+    """DEC_SPLIT and DEC_STAGE_BYTES / DEC_THREADS of csrc/decode_common.cuh,
+    read from the source (the kernels' compile-time constants)."""
+    import os
+    import re
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "paddle_tpu_torch", "csrc",
+        "decode_common.cuh")
+    with open(path) as f:
+        return {n: int(v) for n, v in re.findall(
+            r"constexpr int (DEC_\w+) = (\d+);", f.read())}
+
+
+def _dec_tile(dtype, d):
+    """Keys a tile of `DecTile` at head dim d."""
+    c = _dec_split()
+    chp = 1
+    while chp < d * torch.empty((), dtype=dtype).element_size() // 16:
+        chp *= 2
+    rpw = 32 // min(chp, 32)
+    return max(min(c["DEC_STAGE_BYTES"] // (2 * 16 * chp), 64),
+               c["DEC_THREADS"] // 32 * rpw)
+
+
+def _edge_lengths(dtype, d, ps):
+    """Key counts at, under and just over the split's and the pages'
+    boundaries: one key (every split but the first empty), fewer keys
+    than CTAs, a tile, a share of whole tiles per CTA, pages."""
+    split, tk = _dec_split()["DEC_SPLIT"], _dec_tile(dtype, d)
+    return sorted({1, 2, split - 1, split, split + 1, tk - 1, tk, tk + 1,
+                   split * tk - 1, split * tk, split * tk + 1, ps - 1, ps,
+                   ps + 1, 3 * ps, 3 * ps + 1, 2 * split * tk + 5})
+
+
+def _shuffled_pages(g, lens, hkv, d, ps, dtype, free_slots=1):
+    """Pools over distinct shuffled pages for rows of `lens` keys, plus
+    `free_slots` rows on scratch page 0 with pos 0."""
+    p = max(-(-n // ps) for n in lens)
+    npool = len(lens) * p + 1
+    kp = _randn(g, npool, hkv, ps, d, dtype=dtype)
+    vp = _randn(g, npool, hkv, ps, d, dtype=dtype)
+    pt = torch.zeros(len(lens) + free_slots, p, dtype=torch.int32,
+                     device="cuda")
+    perm = torch.randperm(npool - 1, generator=g, device="cuda") + 1
+    used = 0
+    for r, n in enumerate(lens):
+        k = -(-n // ps)
+        pt[r, :k] = perm[used:used + k].int()
+        used += k
+    pos = torch.tensor(list(lens) + [1] * free_slots, dtype=torch.int32,
+                       device="cuda") - 1
+    return kp, vp, pt, pos
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (12, 1), (32, 2)])
+def test_paged_attention_split_edges_match_plain(hq, hkv, d, dtype):
+    g = torch.Generator(device="cuda").manual_seed(hq + d)
+    ps = 16
+    lens = _edge_lengths(dtype, d, ps)
+    kp, vp, pt, pos = _shuffled_pages(g, lens, hkv, d, ps, dtype)
+    q = _randn(g, len(pos), hq, d, dtype=dtype)
+    before = PA.launches
+    _close(PA.paged_attention(q, kp, vp, pt, pos),
+           PA.paged_attention_reference(q, kp, vp, pt, pos), dtype)
+    assert PA.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (12, 1), (32, 2)])
+def test_decode_attention_split_edges_match_plain(hq, hkv, d, dtype):
+    """The same key counts as rows start..pos of a dense cache, left
+    padded (start > 0) and not, and pos 0."""
+    g = torch.Generator(device="cuda").manual_seed(hq * 3 + d)
+    lens = _edge_lengths(dtype, d, 16)
+    s = max(lens) + 24
+    b = len(lens)
+    q = _randn(g, b, hq, d, dtype=dtype)
+    kc = _randn(g, b, hkv, s, d, dtype=dtype)
+    vc = _randn(g, b, hkv, s, d, dtype=dtype)
+    start = torch.tensor([(7 * i) % (s - n + 1) for i, n in enumerate(lens)],
+                         dtype=torch.int32, device="cuda")
+    pos = start + torch.tensor(lens, dtype=torch.int32, device="cuda") - 1
+    for st in (start, None):
+        p = pos if st is not None else pos - start
+        _close(DA.decode_attention(q, kc, vc, p, st),
+               DA.decode_attention_reference(q, kc, vc, p, st), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("hq,hkv", [(32, 32), (32, 4)])
+def test_paged_equals_dense_decode_bit_for_bit(hq, hkv, d, dtype):
+    """The split counts keys from the first valid one and depends on
+    nothing else, and both kernels share every step after the copy: the
+    paged kernel over a shuffled page table and the dense kernel over the
+    same keys gathered into a cache give the same bits, with start = 0
+    and with the keys shifted right (start > 0)."""
+    g = torch.Generator(device="cuda").manual_seed(d + hkv)
+    ps = 16
+    lens = _edge_lengths(dtype, d, ps)
+    kp, vp, pt, pos = _shuffled_pages(g, lens, hkv, d, ps, dtype,
+                                      free_slots=0)
+    q = _randn(g, len(lens), hq, d, dtype=dtype)
+    paged = PA.paged_attention(q, kp, vp, pt, pos)
+    b, p = pt.shape
+    k = kp[pt.long()].transpose(1, 2).reshape(b, hkv, p * ps, d)
+    v = vp[pt.long()].transpose(1, 2).reshape(b, hkv, p * ps, d)
+    assert torch.equal(DA.decode_attention(q, k.contiguous(), v.contiguous(),
+                                           pos), paged)
+    shift = 13
+    ks = torch.cat([_randn(g, b, hkv, shift, d, dtype=dtype), k], 2)
+    vs = torch.cat([_randn(g, b, hkv, shift, d, dtype=dtype), v], 2)
+    start = torch.full((b,), shift, dtype=torch.int32, device="cuda")
+    assert torch.equal(DA.decode_attention(q, ks, vs, pos + shift, start),
+                       paged)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_decode_kernels_alone_equal_in_a_batch_and_rerun(dtype):
+    """A sequence's output does not depend on the rest of the batch (the
+    split is its own), and two runs give the same bits (no atomics)."""
+    g = torch.Generator(device="cuda").manual_seed(21)
+    hq, hkv, d, ps = 32, 8, 128, 16
+    lens = [1041, 3, 520, 77]
+    kp, vp, pt, pos = _shuffled_pages(g, lens, hkv, d, ps, dtype,
+                                      free_slots=0)
+    q = _randn(g, 4, hq, d, dtype=dtype)
+    batch = PA.paged_attention(q, kp, vp, pt, pos)
+    assert torch.equal(PA.paged_attention(q, kp, vp, pt, pos), batch)
+    for i in range(4):
+        one = PA.paged_attention(q[i:i + 1].contiguous(), kp, vp,
+                                 pt[i:i + 1].contiguous(),
+                                 pos[i:i + 1].contiguous())
+        assert torch.equal(one[0], batch[i])
+    s = 1100
+    kc, vc = (_randn(g, 4, hkv, s, d, dtype=dtype) for _ in range(2))
+    start = torch.tensor([0, 30, 7, 500], dtype=torch.int32, device="cuda")
+    dpos = torch.tensor([1040, 32, 526, 576], dtype=torch.int32,
+                        device="cuda")
+    batch = DA.decode_attention(q, kc, vc, dpos, start)
+    assert torch.equal(DA.decode_attention(q, kc, vc, dpos, start), batch)
+    for i in range(4):
+        one = DA.decode_attention(q[i:i + 1].contiguous(),
+                                  kc[i:i + 1].contiguous(),
+                                  vc[i:i + 1].contiguous(),
+                                  dpos[i:i + 1].contiguous(),
+                                  start[i:i + 1].contiguous())
+        assert torch.equal(one[0], batch[i])
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_exact_decode_wrappers_refuse_misaligned_caches(dtype):
+    """The kernels copy K / V rows 16 bytes a lane: a pool or cache that
+    does not start on a 16-byte boundary (a contiguous view at an odd
+    offset) is refused before any launch."""
+    d = 64
+    flat = torch.zeros(2 * 2 * 16 * d + 1, device="cuda", dtype=dtype)
+    bad = flat[1:].view(2, 2, 16, d)
+    good = torch.zeros(2, 2, 16, d, device="cuda", dtype=dtype)
+    q = torch.zeros(1, 2, d, device="cuda", dtype=dtype)
+    table = torch.ones(1, 1, dtype=torch.int32, device="cuda")
+    pos = torch.zeros(1, dtype=torch.int32, device="cuda")
+    before = (PA.launches, DA.launches)
+    with pytest.raises(ValueError, match="16-byte"):
+        PA.paged_attention(q, bad, good, table, pos)
+    with pytest.raises(ValueError, match="16-byte"):
+        PA.paged_attention(q, good, bad, table, pos)
+    cache = flat[1:1 + 2 * 16 * d].view(1, 2, 16, d)
+    with pytest.raises(ValueError, match="16-byte"):
+        DA.decode_attention(q, cache, good[:1].contiguous(), pos)
+    assert (PA.launches, DA.launches) == before

@@ -144,9 +144,10 @@ def test_unported_options_raise():
                     tie_embeddings=False, dropout=0.0, **CFG)
     assert cfg.ffn_hidden == 128        # SwiGLU: 8/3 of 32, rounded to 128
     tm = GPTForCausalLM(GPTConfig(**CFG), device="cpu")
-    with pytest.raises(NotImplementedError):
+    # the message sends readers to the queue that ports them
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A5"):
         tm.generate(np.zeros((1, 3), np.int32), do_sample=True)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A5"):
         tm.generate(np.zeros((1, 3), np.int32), num_beams=2)
 
 

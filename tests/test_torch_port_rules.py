@@ -603,3 +603,42 @@ def test_decode_wrappers_take_any_gqa_group(wrapper):
     for node in ast.walk(tree):
         if isinstance(node, ast.Compare):
             assert "hq // hkv" not in ast.unparse(node), ast.unparse(node)
+
+
+@pytest.mark.parametrize("name,kernel", [
+    ("paged_attention.cu", "paged_attention_kernel<T, CHP, GM>"),
+    ("decode_attention.cu", "decode_attention_kernel<T, CHP, GM>"),
+])
+def test_exact_decode_kernels_split_keys_across_a_cluster(name, kernel):
+    """The exact-tier decode kernels run `decode_split`: K / V rows copied
+    16 bytes a lane (`cp.async` into a ring of shared-memory tiles, read
+    back as 16-byte vectors), one launch on clusters of DEC_SPLIT CTAs
+    whose partials rank 0 merges through distributed shared memory.  The
+    split is a plain compile-time constant, never derived from the batch:
+    the grid is Hkv x DEC_SPLIT along x.  No atomics, no library kernel,
+    only the toolkit's headers; the 2-byte-lane core is gone from the
+    exact path, and the int8 tier keeps its own kernel."""
+    code = _translation_unit(name)
+    assert "cp.async.cg.shared.global [%0], [%1], 16, %2;" in code
+    assert "reinterpret_cast<const uint4*>" in code
+    assert f"decode_cluster_launch(\n      {kernel}" in code
+    assert "cudaLaunchAttributeClusterDimension" in code
+    assert "attr[0].val.clusterDim.x = DEC_SPLIT;" in code
+    assert "cudaLaunchKernelEx" in code
+    assert "mapa.shared::cluster.u32" in code
+    assert "ld.shared::cluster.f32" in code
+    assert code.count("dec_cluster_sync();") == 2
+    assert re.search(r"decode_split<T, CHP, GM>\(", code)
+    split = re.findall(r"constexpr int DEC_SPLIT = (\w+);", code)
+    assert split in (["2"], ["4"], ["8"]), split
+    assert "dim3(Hkv * DEC_SPLIT, B, decode_chunks(group))" in code
+    assert not re.search(r"DEC_SPLIT\s*=|#\s*define\s+DEC_SPLIT",
+                         code.replace("constexpr int DEC_SPLIT = "
+                                      f"{split[0]};", ""))
+    assert "decode_rows<" not in code and "pt_nj(D)" not in code
+    assert ("decode_rows_q8<" in code) == (name == "paged_attention.cu")
+    assert "atomic" not in code
+    assert set(re.findall(r"#include <([^>]+)>", code)) <= {
+        "cuda_bf16.h", "cuda_runtime.h", "stdint.h"}
+    assert not re.search(r"cublas|cudnn|cutlass|cute::|scaled_dot_product",
+                         code, re.I)
