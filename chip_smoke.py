@@ -17,14 +17,18 @@ non-zero and prints no result):
   2. build: every CUDA kernel with nvcc for sm_90a, one nvcc per source
      (ten), all started together; registers and spills per source, per
      bf16 tensor-core kernel, per fused-norm vector kernel and per
-     exact-tier decode kernel (a spill fails: flash at head dims up to
+     decode kernel on a cluster (a spill fails: flash at head dims up to
      128, every conv tile and window tile, forward and backward, every
-     register-held norm kernel, every paged / dense decode kernel);
+     register-held norm kernel, every paged / dense / int8 decode
+     kernel);
   3. kernels: each kernel against its plain PyTorch version at the main
      path's shapes, in bf16 and f32, with its time, the plain version's,
      one PyTorch library call's where one computes the same function,
      and the roofline bound (rope and its adjoint at the llama_7b
-     prefill q, a ragged per-row-phase decode and the 70B-width GQA k;
+     prefill q, a ragged per-row-phase decode, the 70B-width GQA k and
+     q and k of a llama_7b layer in one call at the prefill and the
+     decode step, each bit for bit its plain version, with profiled
+     device times;
      conv_bn_act and window_attention at every distinct shape that one
      bf16 forward of ResNet-50, MobileNetV2 and Swin-T at batch 64 gives
      them, recorded from that forward, and each kernel's summed time per
@@ -64,7 +68,7 @@ non-zero and prints no result):
   9. llama_serve: llama_7b (hidden 4096, 32 layers, 32 heads of 128, ffn
      11008, vocab 32000, untied head) in bf16 with seeded weights, as
      phase 4: 8 requests x 32 tokens, >= 2 prefix hits, rope launched
-     2 x 32 times per model forward (q and k of every layer);
+     32 times per model forward (q and k of a layer in one launch);
  9a. llama_serve_int8: the same model and requests behind
      EngineConfig(kv_precision="int8"): int8 page pools with f32 scales,
      paged_attention_int8 launched 32 times per decode forward and the
@@ -133,7 +137,9 @@ non-zero and prints no result):
      steps.
 
 Phase 3 also holds paged_attention_int8 (the gpt_1p3b row's pool in
-int8, and a llama_7b decode step, 32 kv heads over ~1000 keys each) and
+int8, and a llama_7b decode step, 32 kv heads over ~1000 keys each, with
+profiled device times; two runs bit-identical and each sequence alone
+bit for bit in the batch, bf16 and f32) and
 relayout_to_hm / relayout_from_hm at the GPT-125M train shape [8, 1024,
 12, 64] (library: the same transpose on the card), each of their rows and
 each fused_norm row also with its profiled device time, the library
@@ -329,13 +335,13 @@ def phase_build():
                   f"in registers, spill: {spilled}")
         dec = _split_kernels(text)
         if dec:
-            log(f"[build] {n} exact-tier decode kernels on a cluster (type, "
-                "16-byte chunks a row, query rows: registers / spill "
-                "bytes): " + ", ".join(f"{t} CHP{chp} GM{gm}: {r}/{sp}"
-                                      for _, t, chp, gm, r, sp in dec))
+            log(f"[build] {n} decode kernels on a cluster (type, 16-byte "
+                "chunks a row, query rows: registers / spill bytes): "
+                + ", ".join(f"{t} CHP{chp} GM{gm}: {r}/{sp}"
+                            for _, t, chp, gm, r, sp in dec))
             spilled = [(t, chp, gm) for _, t, chp, gm, _, sp in dec if sp]
-            check(not spilled, f"{n}: the exact-tier decode kernels spill: "
-                  f"{spilled}")
+            check(not spilled, f"{n}: the decode kernels on a cluster "
+                  f"spill: {spilled}")
 
 
 def _tc_kernels(text):
@@ -401,18 +407,21 @@ def _row_kernels(text):
 
 def _split_kernels(text):
     """[(kernel, type, CHP, GM, registers, spill store bytes)] of the
-    exact-tier decode kernels `paged_attention_kernel<T, CHP, GM>` and
+    decode kernels on a cluster, `paged_attention_kernel<T, CHP, GM>`,
+    `paged_attention_int8_kernel<T, CHP, GM>` and
     `decode_attention_kernel<T, CHP, GM>` (decode_common.cuh,
-    `decode_split`) in one source's `ptxas -v` log."""
+    `decode_split`), in one source's `ptxas -v` log; the int8 tier's
+    types read "int8/bf16" and "int8/f32" (codes / q and out)."""
     out = []
     for part in text.split("Compiling entry function")[1:]:
-        m = re.search(r"((?:paged|decode)_attention_kernel)I(13__nv_bfloat16"
-                      r"|f)Li(\d+)ELi(\d+)E", part)
+        m = re.search(r"((?:paged|decode)_attention(?:_int8)?_kernel)I"
+                      r"(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E", part)
         regs = re.search(r"Used (\d+) registers", part)
         if not (m and regs):
             continue
         spill = re.search(r"(\d+) bytes spill stores", part)
-        out.append((m.group(1), "f32" if m.group(2) == "f" else "bf16",
+        t = "f32" if m.group(2) == "f" else "bf16"
+        out.append((m.group(1), ("int8/" + t) if "int8" in m.group(1) else t,
                     int(m.group(3)), int(m.group(4)), int(regs.group(1)),
                     int(spill.group(1)) if spill else 0))
     return out
@@ -834,6 +843,42 @@ def _decode_bits(torch):
         f"bit for bit on the same keys (start 0 and {shift}) and each "
         "sequence alone == in the batch of 4, both kernels, bf16 and f32, "
         "gpt_1p3b widths, pos 1031 / 330 / 551 / 0")
+
+
+def _int8_bits(torch):
+    """paged_attention_int8 at the llama_7b decode row (B4, 32 kv heads of
+    128, pos 1040 / 3 / 520 / 0 over a shuffled table of the default
+    pool), bf16 and f32: two runs bit-identical, and each sequence alone
+    bit for bit the same sequence in the batch."""
+    from paddle_tpu_torch.ops.kernels import paged_attention as PA
+    from paddle_tpu_torch.ops.quant import quantize_vectors
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    h, d, ps, npool, p = 32, 128, 16, 4 * 128 + 1, 128
+    pos = (1040, 3, 520, 0)
+    kq, ks = quantize_vectors(torch.randn(npool, h, ps, d, generator=g,
+                                          device="cuda"))
+    vq, vs = quantize_vectors(torch.randn(npool, h, ps, d, generator=g,
+                                          device="cuda"))
+    posp = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    pt = _paged_table(torch, g, pos, npool, p, ps)
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn(4, h, d, generator=g, device="cuda", dtype=dtype)
+        batch = PA.paged_attention(q, kq, vq, pt, posp, k_scales=ks,
+                                   v_scales=vs)
+        again = torch.equal(PA.paged_attention(q, kq, vq, pt, posp,
+                                               k_scales=ks, v_scales=vs),
+                            batch)
+        alone = [torch.equal(PA.paged_attention(
+            q[i:i + 1].contiguous(), kq, vq, pt[i:i + 1].contiguous(),
+            posp[i:i + 1].contiguous(), k_scales=ks, v_scales=vs)[0],
+            batch[i]) for i in range(4)]
+        check(again and all(alone), f"paged_attention_int8 "
+              f"({str(dtype)[6:]}): rerun bit-identical {again}, alone == "
+              f"in the batch per row {alone}")
+    log("[kernels] int8 decode split: paged_attention_int8 reruns bit for "
+        "bit and each sequence alone == in the batch of 4, bf16 and f32, "
+        "llama_7b widths, pos 1040 / 3 / 520 / 0")
 
 
 # the packed batch of the varlen rows and phase: GPT-125M attention widths
@@ -1279,9 +1324,12 @@ def rope_cases(torch, dtype):
     """rope and its adjoint at the LLaMA path's shapes: the llama_7b
     prefill q [1, 1008, 32, 128] as the attention gives it (a strided
     view of the fused qkv projection, phases broadcast over the batch),
-    a ragged decode step [4, 1, 32, 128] with per-row phases, and the
-    70B-width GQA k [1, 1008, 8, 128].  Bytes: x read and the output
-    written once, the phases once; operations: 3 per element."""
+    a ragged decode step [4, 1, 32, 128] with per-row phases, the
+    70B-width GQA k [1, 1008, 8, 128], and q and k of a llama_7b layer
+    together, as the model launches them (one call, 32 + 32 heads of the
+    fused qkv views): at the prefill and at the ragged decode step.
+    Bytes: x read and the output written once, the phases once;
+    operations: 3 per element."""
     from paddle_tpu_torch.nn.functional.attention import _rope_phases
     from paddle_tpu_torch.ops.kernels import rope as RP
 
@@ -1292,28 +1340,39 @@ def rope_cases(torch, dtype):
     qkv = torch.randn(1, sb, 3 * 32 * d, generator=g, device=dev,
                       dtype=dtype)
     q = qkv[..., :32 * d].reshape(1, sb, 32, d)
+    k = qkv[..., 32 * d:64 * d].reshape(1, sb, 32, d)
     kv70 = torch.randn(1, sb, (64 + 16) * d, generator=g, device=dev,
                        dtype=dtype)
     k70 = kv70[..., 64 * d:72 * d].reshape(1, sb, 8, d)
     xd = torch.randn(4, 1, 32, d, generator=g, device=dev, dtype=dtype)
+    qkvd = torch.randn(4, 1, 3 * 32 * d, generator=g, device=dev,
+                       dtype=dtype)
+    qd = qkvd[..., :32 * d].reshape(4, 1, 32, d)
+    kd = qkvd[..., 32 * d:64 * d].reshape(4, 1, 32, d)
     start = 8                       # the bucket's 8 left-pad rows
     pos = torch.clamp(torch.arange(sb, device=dev) - start, min=0)[None]
     ragged = torch.tensor([[1031], [330], [551], [0]], device=dev)
     cases = []
-    for label, x, ids in (("prefill q B1 S1008 H32 D128 (qkv view)", q, pos),
-                          ("decode B4 S1 H32 D128 per-row", xd, ragged),
-                          ("70B GQA k B1 S1008 H8 D128 (qkv view)", k70,
-                           pos)):
+    for label, x, second, ids in (
+            ("prefill q B1 S1008 H32 D128 (qkv view)", q, None, pos),
+            ("decode B4 S1 H32 D128 per-row", xd, None, ragged),
+            ("70B GQA k B1 S1008 H8 D128 (qkv view)", k70, None, pos),
+            ("q+k prefill B1 S1008 H32+32 D128 (qkv views)", q, k, pos),
+            ("q+k decode B4 S1 H32+32 D128 per-row (qkv views)", qd, kd,
+             ragged)):
         cos, sin = (p.to(dtype) for p in _rope_phases(d, x.shape[1], 1e4,
                                                       ids, dev))
-        n = x.numel()
+        n = x.numel() + (0 if second is None else second.numel())
         nbytes = 2 * n * isz + 2 * cos.numel() * isz
         for name, adj in (("rope", False), ("rope_bwd", True)):
             cases.append((
                 name, label,
-                lambda x=x, c=cos, s=sin, a=adj: RP.rope(x, c, s, adjoint=a),
-                lambda x=x, c=cos, s=sin, a=adj: RP.rope_reference(
-                    x, c, s, adjoint=a),
+                lambda x=x, c=cos, s=sin, a=adj, k=second: RP.rope(
+                    x, c, s, adjoint=a, k=k),
+                lambda x=x, c=cos, s=sin, a=adj, k=second: (
+                    RP.rope_reference(x, c, s, adjoint=a) if k is None
+                    else (RP.rope_reference(x, c, s, adjoint=a),
+                          RP.rope_reference(k, c, s, adjoint=a))),
                 None, nbytes, 3 * n, "float32", 0))
     return cases
 
@@ -1460,7 +1519,8 @@ def _reruns_bit_identical(torch):
 
 # phase 3 rows that also get profiled device times and host times
 DEVICE_TIMED = ("fused_norm", "relayout_to_hm", "relayout_from_hm",
-                "paged_attention", "decode_attention")
+                "paged_attention", "decode_attention",
+                "paged_attention_int8", "rope", "rope_bwd")
 
 
 def phase_kernels():
@@ -1517,6 +1577,15 @@ def phase_kernels():
                 # held relative to the largest reference gradient
                 ref_max = max(r.float().abs().max().item() for r in want)
                 rel = err / ref_max
+            elif name in ("rope", "rope_bwd"):   # a tensor or (q, k)
+                pairs = list(zip(got, want)) if isinstance(got, tuple) \
+                    else [(got, want)]
+                err = max((a.float() - r.float()).abs().max().item()
+                          for a, r in pairs)
+                # f32 math rounded once, in the plain version's order
+                check(all(torch.equal(a, r) for a, r in pairs),
+                      f"{name} [{label} {dname}] differs from the plain "
+                      f"version bit for bit (max_abs_err {err:.3g})")
             elif isinstance(got, tuple):   # flash / varlen: (out, lse)
                 check(bool(torch.isfinite(got[0]).all())
                       and bool(torch.isfinite(got[1]).all()),
@@ -1608,6 +1677,7 @@ def phase_kernels():
         log(f"[kernels] varlen library yardstick {key}: SDPA on {form}")
     _reruns_bit_identical(torch)
     _decode_bits(torch)
+    _int8_bits(torch)
     K.reset_launches()   # comparison launches do not count
     return table
 
@@ -1635,10 +1705,10 @@ def _count_forwards(model):
 
 
 def _rope_launches_per_forward(counts, cfg, forwards, what):
-    """rope runs on q and k of every layer of every forward; a model
-    without rope launches it never."""
+    """rope rotates q and k of every layer of every forward in one launch
+    a layer; a model without rope launches it never."""
     uses_rope = getattr(cfg, "use_rope", True)
-    want = 2 * cfg.num_layers * forwards if uses_rope else 0
+    want = cfg.num_layers * forwards if uses_rope else 0
     check(counts["rope"] == want,
           f"{what}: rope launched {counts['rope']} times in {forwards} "
           f"forwards, expected {want}")
@@ -2760,9 +2830,10 @@ def _log_profile(prof, what, wall_ms, steps):
                 else "window fwd" if "window_attention_kernel" in name
                 or "window_attention_tc" in name
                 else "port kernels" if "flash_" in name or "_attention_kernel"
-                in name or "_attention_q8" in name or "relayout_kernel" in name
-                or "rope_" in name or "conv_dense" in name
-                or "conv_depthwise" in name or "fused_norm" in name
+                in name or "_attention_int8" in name
+                or "relayout_kernel" in name or "rope_" in name
+                or "conv_dense" in name or "conv_depthwise" in name
+                or "fused_norm" in name
                 else "gemm/conv" if "nvjet" in name or "gemm" in name
                 or "conv" in name or "cudnn" in name or "sm90" in name
                 else "optimizer" if "multi_tensor" in name
@@ -2823,7 +2894,7 @@ def phase_profile(model, cfg, steps=10, kv_precision=None):
     # its bound (each live key's K and V rows once, int8 codes and f32
     # scales in the int8 tier; q, out and the table once), its launches
     # and its share of the step's device time
-    name = ("paged_attention_q8_kernel" if kv_precision == "int8"
+    name = ("paged_attention_int8_kernel" if kv_precision == "int8"
             else "paged_attention_kernel")
     nbytes = 0
     for q, kp, pt, pos in calls:
@@ -2844,6 +2915,14 @@ def phase_profile(model, cfg, steps=10, kv_precision=None):
         f"{ms / steps:.3f} of {busy / steps:.3f} ms of device time a step "
         f"({100 * ms / busy:.1f}%); the step {100 * busy / wall_ms:.1f}% "
         "busy")
+    # the rope kernel of a rope model: its launches and device time a step
+    rope = [e for e in dev if "rope_" in e.key]
+    if rope:
+        rms = sum(e.self_device_time_total for e in rope) / 1e3
+        rn = sum(e.count for e in rope)
+        log(f"[profile] rope: device {rms / rn:.4f} ms a launch, "
+            f"{rn / steps:.0f} launches a step, {rms / steps:.3f} ms of "
+            "device time a step")
 
 
 # ----------------------------------------------------------------- main

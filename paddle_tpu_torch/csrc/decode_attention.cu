@@ -34,9 +34,9 @@ __global__ void __launch_bounds__(DEC_THREADS, 1) decode_attention_kernel(
   const int t0 = start ? start[b] : 0, t1 = min(pos[b], S - 1);
   const DecDenseRows rows{((long long)b * Hkv + hk) * S * D, t0, D};
   const long long qo = ((long long)b * Hq + (long long)hk * group + g0) * D;
-  decode_split<T, CHP, GM>(q + qo, kc, vc, rows, t1 - t0 + 1,
-                           decode_chunk_rows(group, g0), D, scale,
-                           out + qo);
+  decode_split<T, T, CHP, GM>(q + qo, kc, vc, nullptr, nullptr, false, rows,
+                              t1 - t0 + 1, decode_chunk_rows(group, g0), D,
+                              scale, out + qo);
 }
 
 template <typename T, int CHP, int GM>

@@ -1,9 +1,10 @@
 // One-query-token attention over a KV sequence, shared by the paged
-// (paged_attention.cu) and dense (decode_attention.cu) decode kernels.
+// (paged_attention.cu) and dense (decode_attention.cu) decode kernels,
+// for both KV tiers: bf16 / f32 rows (the exact tier) and int8 codes
+// with one f32 scale per row (the quantized tier, paged only).
 //
-// Exact tier (bf16 / f32 K and V), `decode_split`.  Bound by device
-// memory: 4 flops per element read.  So the design moves bytes and keeps
-// many of them in flight:
+// `decode_split` is bound by device memory: 4 flops per element read.
+// So the design moves bytes and keeps many of them in flight:
 //
 // * Keys split across a thread-block cluster.  Each (sequence, kv head,
 //   chunk of <= DEC_MAXG query heads of the GQA group) is one cluster of
@@ -20,12 +21,22 @@
 //   pool page is PS rows of one kv head, contiguous; a dense cache's rows
 //   are contiguous), DEC_STAGES - 1 tiles in flight while one is used.
 //   Per-row copies, not bulk copies: a tile's rows may come from several
-//   pages, and a row is a multiple of 16 bytes for every head dim.
-// * A lane reads 16 bytes of a staged row: LPR = D * sizeof(T) / 16
-//   lanes (rounded up to a power of two, at most 32; a lane takes two
-//   chunks at f32 head dims above 128) cover a row, so one warp load
-//   brings 32 / LPR keys; the q.k dot reduces over the row's lanes only.
-//   q sits pre-scaled in f32 in shared memory.
+//   pages, and a row is a multiple of 16 bytes for every head dim.  The
+//   int8 tier's rows are D bytes of codes; the tile's K and V scales
+//   ride the same stage behind them, four rows in one 16-byte copy where
+//   four consecutive keys share a page (PS % 4 == 0, aligned tables),
+//   else one 4-byte copy a row.
+// * A lane reads 16 bytes of a staged row (8 bytes of int8 codes, so
+//   that it holds as many f32 accumulators as in the exact tier): LPR =
+//   D * sizeof(KV) / 16 (or / 8) lanes, rounded up to a power of two, at
+//   most 32 (a lane takes two chunks at f32 head dims above 128), cover a
+//   row, so one warp load brings 32 / LPR keys; the q.k dot reduces over
+//   the row's lanes only.  q sits pre-scaled in f32 in shared memory.
+//   int8 codes turn into f32 in registers exactly (a byte permute and an
+//   add, not the slower integer conversion), and each key's f32
+//   scale multiplies its score and its softmax weight once: the JAX
+//   kernel's code * scale (paged_attention.py:104-106) summed over the
+//   row, within f32 rounding.
 // * Softmax per tile: a warp scores its keys of the tile, takes one max
 //   (all lane groups of a warp share it), rescales its accumulators once
 //   and takes one exponential per key (`ex2.approx` on log2-scaled
@@ -43,7 +54,6 @@
 
 #include "common.cuh"
 
-#define DEC_WARPS 8   // warps of an int8-tier block
 #define DEC_MAXG 8    // query heads a block or cluster serves at most
 
 constexpr int DEC_SPLIT = 8;        // CTAs a cluster: the key split
@@ -51,24 +61,44 @@ constexpr int DEC_STAGES = 3;       // shared-memory tiles of the ring
 constexpr int DEC_THREADS = 128;    // 4 warps a CTA
 constexpr int DEC_W = DEC_THREADS / 32;
 constexpr int DEC_STAGE_BYTES = 8192;   // K and V rows of one tile
+constexpr int DEC_Q8_STAGE_BYTES = 4096;  // int8 codes of K and V a tile
+constexpr int DEC_Q8_MIN_CTAS = 9;      // int8, one query row: CTAs an SM
 
-// Tile geometry of the exact tier for element type T and CHP 16-byte
-// chunks a row (D * sizeof(T) / 16 rounded up to a power of two).
+// Tile geometry for K / V elements of type T (bf16, f32, or int8 codes)
+// and CHP 16-byte chunks a row (D * sizeof(T) / 16 rounded up to a power
+// of two), which the copies move.  A lane reads RB bytes of a staged row
+// at once: 16 (8 bf16 or 4 f32 values), or 8 int8 codes, so that an int8
+// row's lane keeps as many f32 accumulators as an exact row's (16 codes
+// a lane would double them and halve the CTAs an SM holds).  A tile
+// holds DEC_STAGE_BYTES of K and V rows, or DEC_Q8_STAGE_BYTES of int8
+// codes: as many keys as a bf16 tile of the same head dim, so that a warp
+// takes as many lane-group steps a tile (U = 2) and as many registers (a
+// tile of 8 KB of codes, U = 4, took 91 registers a thread and ran
+// slower).
 template <typename T, int CHP>
 struct DecTile {
-  static constexpr int EPC = 16 / (int)sizeof(T);   // elements a chunk
-  static constexpr int LPR = CHP < 32 ? CHP : 32;   // lanes a row
-  static constexpr int NCH = CHP / LPR;             // chunks a lane
+  static constexpr int CPE = 16 / (int)sizeof(T);   // elements a copy
+  static constexpr int RB = sizeof(T) == 1 ? 8 : 16;  // bytes a lane read
+  static constexpr int RCHP = CHP * 16 / RB;        // read chunks a row
+  static constexpr int EPC = RB / (int)sizeof(T);   // elements a chunk
+  static constexpr int LPR = RCHP < 32 ? RCHP : 32; // lanes a row
+  static constexpr int NCH = RCHP / LPR;            // chunks a lane
   static constexpr int RPW = 32 / LPR;              // rows a warp load
-  static constexpr int TK0 = DEC_STAGE_BYTES / (2 * 16 * CHP) < 64
-                                 ? DEC_STAGE_BYTES / (2 * 16 * CHP) : 64;
-  static constexpr int TK = TK0 > DEC_W * RPW ? TK0 : DEC_W * RPW;  // keys
+  static constexpr int SB =                          // row bytes a tile
+      sizeof(T) == 1 ? DEC_Q8_STAGE_BYTES : DEC_STAGE_BYTES;
+  static constexpr int TK0 = SB / (2 * 16 * CHP) < 64 ? SB / (2 * 16 * CHP)
+                                                       : 64;
+  static constexpr int TK1 = TK0 > DEC_W * RPW ? TK0 : DEC_W * RPW;
+  // keys a tile: at least a warp load a warp and a copy pass
+  static constexpr int TK = TK1 > DEC_THREADS / CHP ? TK1 : DEC_THREADS / CHP;
   static constexpr int KPW = TK / DEC_W;            // keys a warp a tile
   static constexpr int U = KPW / RPW;               // keys a lane group
   static constexpr int RPP = DEC_THREADS / CHP;     // rows a copy pass
   static constexpr int NP = TK / RPP;               // copy passes a tile
   static constexpr int ROWB = CHP * 16;             // bytes a staged row
-  static constexpr int STAGE = 2 * TK * ROWB;       // K rows, then V rows
+  // int8 codes: the tile's K scales, then its V scales, f32, after the rows
+  static constexpr int SCB = sizeof(T) == 1 ? 2 * TK * 4 : 0;
+  static constexpr int STAGE = 2 * TK * ROWB + SCB; // K rows, then V rows
 };
 
 // Bytes of the ring, which the warps' partials reuse after the last tile.
@@ -98,6 +128,14 @@ __device__ __forceinline__ void dec_cp16(uint32_t dst, const void* src,
   // src-size 0 reads nothing and fills the 16 bytes with zeros
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(full ? 16 : 0));
+}
+
+// The 4-byte copy of one f32 scale (int8 rows whose four scales do not
+// share a page or a 16-byte boundary); src-size 0 writes a zero.
+__device__ __forceinline__ void dec_cp4(uint32_t dst, const void* src,
+                                        bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(full ? 4 : 0));
 }
 
 // 2^x with the SFU's one-instruction approximation (relative error ~2^-22;
@@ -140,6 +178,24 @@ __device__ __forceinline__ void dec_unpack(const unsigned char* p,
   f[1] = w.y;
   f[2] = w.z;
   f[3] = w.w;
+}
+
+// The 8 int8 codes at p as f32, exactly: each code c, biased to c + 128
+// (its sign bit flipped), becomes the low byte of the f32 2^23 + c + 128
+// (one byte permute) and 2^23 + 128 is subtracted (one add), in place of
+// a sign extension and an integer-to-float conversion, which the SM
+// issues at a fraction of the rate of an add.
+__device__ __forceinline__ void dec_codes8(const unsigned char* p,
+                                          float* f) {
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
+  const unsigned int word[2] = {w.x ^ 0x80808080u, w.y ^ 0x80808080u};
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      f[4 * i + j] = __uint_as_float(__byte_perm(word[i], 0x4B000000u,
+                                                 0x7650 + j)) -
+                     8388736.f;
 }
 
 // Thread-block cluster primitives (PTX): this CTA's rank, a barrier of
@@ -189,17 +245,21 @@ struct DecDenseRows {
 };
 
 // Rows of one (sequence, kv head) of a page pool [num_pages, Hkv, PS, D]:
-// key i sits in slot i % PS of page table[i / PS].  `stage` resolves the
-// pages of keys [lo, hi) once, into shared memory as the element offsets
-// of their kv head's rows; a cursor then walks pages and slots by a
-// fixed step with no division and no global load in front of a row's
-// copy.
+// key i sits in slot i % PS of page table[i / PS], row (page * Hkv + hk)
+// * PS + slot of the pool, its elements at row * D.  `stage` resolves the
+// pages of keys [lo, hi) once, into shared memory: the element offsets
+// of their kv head's slot 0 (page_unit = Hkv * PS * D, head_unit = hk *
+// PS * D), or, BY_ROW (the int8 tier, whose scales sit at the row index
+// of the scale tables), the rows of slot 0 (page_unit = Hkv * PS,
+// head_unit = hk * PS).  A cursor then walks pages and slots by a fixed
+// step with no division and no global load in front of a row's copy.
+template <bool BY_ROW>
 struct DecPagedRows {
-  const int* row;         // the sequence's page-table row
-  long long page_elems;   // Hkv * PS * D
-  long long head_off;     // hk * PS * D
+  const int* pages;       // the sequence's page-table row
+  long long page_unit;    // a page's offset unit: elements, or rows
+  long long head_unit;    // the kv head's, likewise
   int PS, D;
-  const long long* tbl;   // offsets of pages pg0 ..
+  const long long* tbl;   // slot 0 of pages pg0 .., in those units
   int pg0, sq, sr;        // first staged page; a step in pages and slots
   struct Cursor {
     int pg, slot;
@@ -210,7 +270,7 @@ struct DecPagedRows {
     sr = step % PS;
     const int np = hi > lo ? (hi - 1) / PS - pg0 + 1 : 0;
     for (int i = threadIdx.x; i < np; i += blockDim.x)
-      sm[i] = (long long)row[pg0 + i] * page_elems + head_off;
+      sm[i] = (long long)pages[pg0 + i] * page_unit + head_unit;
     tbl = sm;
   }
   __device__ Cursor at(int i) const { return {i / PS, i % PS}; }
@@ -222,30 +282,40 @@ struct DecPagedRows {
       ++c.pg;
     }
   }
+  __device__ long long row(const Cursor& c) const {   // BY_ROW only
+    return tbl[c.pg - pg0] + c.slot;
+  }
   __device__ long long offset(const Cursor& c) const {
+    if constexpr (BY_ROW) return row(c) * D;
     return tbl[c.pg - pg0] + (long long)c.slot * D;
   }
 };
 
 // The CTA's share of keys 0..n-1 of one (sequence, kv head, chunk): q
-// [G, D] and out [G, D] at the chunk's rows, K / V rows through `rows`.
-// Runs in every CTA of the cluster; rank 0 writes out.
-template <typename T, int CHP, int GM, typename Rows>
+// [G, D] and out [G, D] at the chunk's rows, K / V rows of type KV
+// through `rows`.  KV = T: the exact tier (ks, vs unused).  KV = int8_t:
+// codes with f32 scale tables ks / vs at the rows' indices (`rows.row`),
+// their four-row 16-byte copies taken when `scales16`.  Runs in every CTA
+// of the cluster; rank 0 writes out.
+template <typename T, typename KV, int CHP, int GM, typename Rows>
 __device__ __forceinline__ void decode_split(
-    const T* __restrict__ q, const T* __restrict__ kb,
-    const T* __restrict__ vb, Rows rows, int n, int G, int D, float scale,
-    T* __restrict__ out) {
-  using L = DecTile<T, CHP>;
+    const T* __restrict__ q, const KV* __restrict__ kb,
+    const KV* __restrict__ vb, const float* __restrict__ ks,
+    const float* __restrict__ vs, bool scales16, Rows rows, int n, int G,
+    int D, float scale, T* __restrict__ out) {
+  using L = DecTile<KV, CHP>;
+  constexpr bool Q8 = sizeof(KV) == 1;  // int8 codes and scales
   constexpr int E = L::NCH * L::EPC;    // elements a lane holds a row
   const int rank = dec_cluster_rank();
   extern __shared__ __align__(16) unsigned char dec_smem[];
   unsigned char* ring = dec_smem;
   float* q_s = reinterpret_cast<float*>(dec_smem +
-                                        dec_ring_bytes<T, CHP>(G, D));
+                                        dec_ring_bytes<KV, CHP>(G, D));
   float* part = q_s + G * D;            // m [G], l [G], acc [G][D]
   long long* tbl_s = reinterpret_cast<long long*>(part + G * (D + 2));
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int CH = D * (int)sizeof(T) / 16;
+  const int CH = D * (int)sizeof(KV) / 16;      // 16-byte copies a row
+  const int RCH = D * (int)sizeof(KV) / L::RB;  // lane reads a row
 
   const float qscale = scale * DEC_LOG2E;          // scores in log2 units
   for (int i = tid; i < G * D; i += DEC_THREADS)   // ahead of n's use
@@ -269,10 +339,26 @@ __device__ __forceinline__ void decode_split(
       const int row = rr + p * L::RPP;
       const bool ok = lo + j * L::TK + row < hi;
       if (cc < CH) {
-        const long long off = ok ? rows.offset(cur[p]) + cc * L::EPC : 0;
+        const long long off = ok ? rows.offset(cur[p]) + cc * L::CPE : 0;
         const uint32_t dst = st + row * L::ROWB + cc * 16;
         dec_cp16(dst, kb + off, ok);
         dec_cp16(dst + L::TK * L::ROWB, vb + off, ok);
+      }
+      if constexpr (Q8) {
+        // the row's K and V scales behind the tile's rows: rows 4i ..
+        // 4i + 3 in one 16-byte copy (one page: the tile starts on a
+        // multiple of 4 keys and PS % 4 == 0), else a 4-byte copy a row
+        if (cc == 0 && (!scales16 || row % 4 == 0)) {
+          const long long ri = ok ? rows.row(cur[p]) : 0;
+          const uint32_t dst = st + 2 * L::TK * L::ROWB + row * 4;
+          if (scales16) {
+            dec_cp16(dst, ks + ri, ok);
+            dec_cp16(dst + L::TK * 4, vs + ri, ok);
+          } else {
+            dec_cp4(dst, ks + ri, ok);
+            dec_cp4(dst + L::TK * 4, vs + ri, ok);
+          }
+        }
       }
       rows.step(cur[p], L::TK);
     }
@@ -300,24 +386,35 @@ __device__ __forceinline__ void decode_split(
     dec_commit();
     const unsigned char* kt = ring + (j % DEC_STAGES) * L::STAGE;
     const unsigned char* vt = kt + L::TK * L::ROWB;
+    // int8 tier: the tile's scales.  A key's K scale multiplies its
+    // score and its V scale its weight, once each: code * scale summed
+    // over the row, as the dequantized row's dot (within f32 rounding).
+    // A masked row's scales are not read (its slot may hold anything):
+    // its score is the mask and its weight 0.
+    const float* kst = reinterpret_cast<const float*>(vt + L::TK * L::ROWB);
+    const float* vst = kst + L::TK;
     const int k0 = lo + j * L::TK + warp * L::KPW + r;  // key of u = 0
 
     float s[L::U][GM];
 #pragma unroll
     for (int u = 0; u < L::U; ++u) {
       const int row = warp * L::KPW + u * L::RPW + r;
+      const bool valid = k0 + u * L::RPW < hi;
       float kf[E];
 #pragma unroll
       for (int h = 0; h < L::NCH; ++h) {
         const int ch = c + h * L::LPR;
-        if (ch < CH) {
-          dec_unpack(kt + row * L::ROWB + ch * 16, kf + h * L::EPC, T());
+        if (ch < RCH) {
+          const unsigned char* src = kt + row * L::ROWB + ch * L::RB;
+          if constexpr (Q8)
+            dec_codes8(src, kf + h * L::EPC);
+          else
+            dec_unpack(src, kf + h * L::EPC, KV());
         } else {
 #pragma unroll
           for (int e = 0; e < L::EPC; ++e) kf[h * L::EPC + e] = 0.f;
         }
       }
-      const bool valid = k0 + u * L::RPW < hi;
 #pragma unroll
       for (int g = 0; g < GM; ++g) {
         if (g >= G) break;
@@ -325,7 +422,7 @@ __device__ __forceinline__ void decode_split(
 #pragma unroll
         for (int h = 0; h < L::NCH; ++h) {
           const int ch = c + h * L::LPR;
-          if (ch < CH) {
+          if (ch < RCH) {
             const float4* qv =
                 reinterpret_cast<const float4*>(q_s + g * D + ch * L::EPC);
 #pragma unroll
@@ -339,6 +436,7 @@ __device__ __forceinline__ void decode_split(
 #pragma unroll
         for (int o = L::LPR / 2; o > 0; o >>= 1)
           dot += __shfl_xor_sync(PT_FULL_MASK, dot, o);
+        if constexpr (Q8) dot *= kst[row];
         s[u][g] = valid ? dot : PT_NEG_INF;
       }
     }
@@ -367,20 +465,26 @@ __device__ __forceinline__ void decode_split(
 #pragma unroll
       for (int h = 0; h < L::NCH; ++h) {
         const int ch = c + h * L::LPR;
-        if (ch < CH) {
-          dec_unpack(vt + row * L::ROWB + ch * 16, vf + h * L::EPC, T());
+        if (ch < RCH) {
+          const unsigned char* src = vt + row * L::ROWB + ch * L::RB;
+          if constexpr (Q8)
+            dec_codes8(src, vf + h * L::EPC);
+          else
+            dec_unpack(src, vf + h * L::EPC, KV());
         } else {
 #pragma unroll
           for (int e = 0; e < L::EPC; ++e) vf[h * L::EPC + e] = 0.f;
         }
       }
+      const float vsc = Q8 && valid ? vst[row] : 1.f;   // int8: V scale
 #pragma unroll
       for (int g = 0; g < GM; ++g) {
         if (g >= G) break;
         const float p = valid ? dec_exp2(s[u][g] - m[g]) : 0.f;
         l[g] += p;
+        const float pv = Q8 ? p * vsc : p;
 #pragma unroll
-        for (int e = 0; e < E; ++e) acc[g][e] += p * vf[e];
+        for (int e = 0; e < E; ++e) acc[g][e] += pv * vf[e];
       }
     }
   }
@@ -409,7 +513,7 @@ __device__ __forceinline__ void decode_split(
 #pragma unroll
       for (int h = 0; h < L::NCH; ++h) {
         const int ch = c + h * L::LPR;
-        if (ch < CH) {
+        if (ch < RCH) {
 #pragma unroll
           for (int e = 0; e < L::EPC; ++e)
             wacc[(warp * G + g) * D + ch * L::EPC + e] =
@@ -490,7 +594,8 @@ static int decode_cluster_launch(void (*kern)(P...), dim3 grid, size_t smem,
 }
 
 // 16-byte chunks a row, rounded up to a power of two (the kernels'
-// CHP): 1 .. 32 for bf16, 2 .. 64 for f32 at head dims 8 .. 256.
+// CHP): 1 .. 32 for bf16, 2 .. 64 for f32 at head dims 8 .. 256, 1 .. 16
+// for int8 codes at head dims 16 .. 256.
 static inline int decode_chunks_pow2(int D, int elem) {
   const int ch = D * elem / 16;
   int p = 1;
@@ -506,169 +611,4 @@ static inline int decode_chunks(int group) {
 
 __device__ __forceinline__ int decode_chunk_rows(int group, int g0) {
   return min(DEC_MAXG, group - g0);
-}
-
-// ---------------------------------------------------------------------
-// int8 pools (the quantized KV tier): key / value rows of int8 codes with
-// one f32 scale per row (per token and kv head).  A lane owns 16
-// consecutive codes of a row and reads them with one 16-byte load, so
-// LPR lanes cover a row (LPR = D / 16 rounded up to 4, 8 or 16; lanes
-// past D idle) and a warp reads 32 / LPR rows per load instruction, each
-// lane group its own key.  Each code is dequantized in registers as
-// code * scale, the f32 multiply of the JAX kernel (paged_attention.py
-// :104-106), before the q.k dot and the p.v update.  The chunk's G <= GM
-// query rows (pre-scaled, f32) sit in shared memory, the accumulators in
-// registers.  Each lane group keeps its own online-softmax state; the
-// groups of a warp merge by shuffles, the warps through shared memory.
-// Masking, the -1e30 start and the 1e-30 clamp are the exact tier's.
-#define DEC_Q8_UNROLL 2
-
-// Sign-extend the 16 int8 codes of w and scale them: f[e] = code_e * s.
-__device__ __forceinline__ void dec_unpack16(uint4 w, float s, float* f) {
-  const unsigned int word[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      f[4 * i + j] = (float)(((int)(word[i] << (24 - 8 * j))) >> 24) * s;
-}
-
-// row(t) -> index of key t's row: its codes sit at row(t) * D in the K
-// and V arrays and its scales at row(t) in the scale tables.
-template <typename T, int LPR, int GM, typename Row>
-__device__ __forceinline__ void decode_rows_q8(
-    const T* __restrict__ q, const int8_t* __restrict__ kbase,
-    const int8_t* __restrict__ vbase, const float* __restrict__ kscale,
-    const float* __restrict__ vscale, Row row, int t0, int t1, int G, int D,
-    float scale, T* __restrict__ out) {
-  constexpr int RPW = 32 / LPR;                 // rows per warp load
-  constexpr int STEP = RPW * DEC_Q8_UNROLL;     // keys per warp iteration
-  extern __shared__ float dsm[];
-  float* sm_m = dsm;                            // [DEC_WARPS][G]
-  float* sm_l = sm_m + DEC_WARPS * G;           // [DEC_WARPS][G]
-  float* sm_acc = sm_l + DEC_WARPS * G;         // [DEC_WARPS][G][D]
-  float* sm_q = sm_acc + DEC_WARPS * G * D;     // [G][D], times scale
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int r = lane / LPR, c = lane % LPR;
-  const bool active = 16 * c < D;
-
-  for (int i = threadIdx.x; i < G * D; i += blockDim.x)
-    sm_q[i] = to_f(q[i]) * scale;
-  __syncthreads();
-
-  float acc[GM][16], m[GM], l[GM];
-#pragma unroll
-  for (int g = 0; g < GM; ++g) {
-    m[g] = PT_NEG_INF;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < 16; ++e) acc[g][e] = 0.f;
-  }
-
-  for (int base = t0 + warp * STEP; base <= t1; base += DEC_WARPS * STEP) {
-    uint4 kr[DEC_Q8_UNROLL], vr[DEC_Q8_UNROLL];
-    float ks[DEC_Q8_UNROLL], vs[DEC_Q8_UNROLL];
-#pragma unroll
-    for (int u = 0; u < DEC_Q8_UNROLL; ++u) {
-      const int t = base + u * RPW + r;
-      kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
-      ks[u] = vs[u] = 0.f;
-      if (t <= t1 && active) {
-        const long long i = row(t);
-        kr[u] = __ldg(reinterpret_cast<const uint4*>(kbase + i * D + 16 * c));
-        vr[u] = __ldg(reinterpret_cast<const uint4*>(vbase + i * D + 16 * c));
-        ks[u] = kscale[i];
-        vs[u] = vscale[i];
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < DEC_Q8_UNROLL; ++u) {
-      const bool valid = base + u * RPW + r <= t1;
-      float kf[16], vf[16];
-      dec_unpack16(kr[u], ks[u], kf);
-      dec_unpack16(vr[u], vs[u], vf);
-#pragma unroll
-      for (int g = 0; g < GM; ++g) {
-        if (g >= G) break;                      // G is the block's own
-        float s = 0.f;
-        if (active) {
-          const float4* qg =
-              reinterpret_cast<const float4*>(sm_q + g * D + 16 * c);
-#pragma unroll
-          for (int e4 = 0; e4 < 4; ++e4) {
-            const float4 qv = qg[e4];
-            s += qv.x * kf[4 * e4] + qv.y * kf[4 * e4 + 1] +
-                 qv.z * kf[4 * e4 + 2] + qv.w * kf[4 * e4 + 3];
-          }
-        }
-#pragma unroll
-        for (int o = LPR / 2; o > 0; o >>= 1)
-          s += __shfl_xor_sync(PT_FULL_MASK, s, o);
-        if (valid) {
-          const float m_new = fmaxf(m[g], s);
-          const float alpha = expf(m[g] - m_new);
-          const float p = expf(s - m_new);
-          l[g] = alpha * l[g] + p;
-#pragma unroll
-          for (int e = 0; e < 16; ++e)
-            acc[g][e] = acc[g][e] * alpha + p * vf[e];
-          m[g] = m_new;
-        }
-      }
-    }
-  }
-
-  // merge the warp's lane groups (lanes c, c + LPR, ... hold one slice)
-#pragma unroll
-  for (int g = 0; g < GM; ++g) {
-    if (g >= G) break;
-#pragma unroll
-    for (int o = LPR; o < 32; o <<= 1) {
-      const float m2 = __shfl_xor_sync(PT_FULL_MASK, m[g], o);
-      const float l2 = __shfl_xor_sync(PT_FULL_MASK, l[g], o);
-      const float mx = fmaxf(m[g], m2);
-      const float a1 = expf(m[g] - mx), a2 = expf(m2 - mx);
-      l[g] = l[g] * a1 + l2 * a2;
-#pragma unroll
-      for (int e = 0; e < 16; ++e) {
-        const float a = __shfl_xor_sync(PT_FULL_MASK, acc[g][e], o);
-        acc[g][e] = acc[g][e] * a1 + a * a2;
-      }
-      m[g] = mx;
-    }
-    if (r == 0) {
-      if (c == 0) {
-        sm_m[warp * G + g] = m[g];
-        sm_l[warp * G + g] = l[g];
-      }
-      if (active) {
-#pragma unroll
-        for (int e = 0; e < 16; ++e)
-          sm_acc[(warp * G + g) * D + 16 * c + e] = acc[g][e];
-      }
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
-    const int g = i / D, d = i % D;
-    float mx = PT_NEG_INF;
-    for (int w = 0; w < DEC_WARPS; ++w) mx = fmaxf(mx, sm_m[w * G + g]);
-    float lsum = 0.f, a = 0.f;
-    for (int w = 0; w < DEC_WARPS; ++w) {
-      const float cw = expf(sm_m[w * G + g] - mx);
-      lsum += sm_l[w * G + g] * cw;
-      a += sm_acc[(w * G + g) * D + d] * cw;
-    }
-    out[g * D + d] = from_f<T>(a / fmaxf(lsum, PT_L_MIN));
-  }
-}
-
-// Lanes per row of the int8 rows: D / 16 rounded up to 4, 8 or 16.
-static inline int decode_q8_lanes(int D) {
-  return D <= 64 ? 4 : D <= 128 ? 8 : 16;
-}
-
-static inline size_t decode_q8_smem_bytes(int group, int D) {
-  const int G = group < DEC_MAXG ? group : DEC_MAXG;
-  return sizeof(float) * ((size_t)DEC_WARPS * G * (2 + D) + (size_t)G * D);
 }

@@ -29,23 +29,18 @@
 // f32 scale tables [num_pages, Hkv, PS], one scale per token and kv
 // head.  Bound on this card: bytes, (pos + 1) * Hkv * (2 * D + 2 * 4)
 // per sequence (codes and scales of K and V), about half the bf16
-// pools' at D = 128.  Design: one block of DEC_WARPS warps per
-// (sequence, kv head, GQA chunk), no cluster; each lane reads 16 codes
-// with one 16-byte load and dequantizes them in registers
-// (decode_common.cuh, decode_rows_q8).  No page-size
-// gate (the Mosaic kernel needs pages of 32 for the int8 sublane tile):
-// any PS serves.
+// pools' at D = 128.  Design: the exact tier's `decode_split` over int8
+// rows (KV = int8_t): the same cluster of DEC_SPLIT CTAs, split, staged
+// page table, ring and merge; a row is D bytes of codes, copied 16 bytes
+// a lane, and its K and V scales ride the same ring stage (the scales of
+// a page's kv head are PS contiguous f32, so four keys of one page come
+// in one 16-byte copy when PS % 4 == 0 and the tables are 16-byte
+// aligned, else one 4-byte copy a row).  A lane reads 8 codes of a
+// staged row and turns them into f32 exactly in registers; a key's
+// scales multiply its score and its weight.  No page-size gate (the
+// Mosaic kernel needs pages of 32 for the int8 sublane tile): any PS
+// serves.
 #include "decode_common.cuh"
-
-// Row index of key t of one sequence's kv head in [num_pages * Hkv * PS]
-// rows: the int8 tier's codes sit at row * D, its scales at row.
-struct PagedRow {
-  const int* row;
-  int hk, Hkv, PS;
-  __device__ __forceinline__ long long operator()(int t) const {
-    return ((long long)row[t / PS] * Hkv + hk) * PS + t % PS;
-  }
-};
 
 // min blocks 1: ptxas keeps every register the kernel asks for (its
 // default register-usage heuristics trade a few for small spills)
@@ -58,14 +53,14 @@ __global__ void __launch_bounds__(DEC_THREADS, 1) paged_attention_kernel(
   // cluster rank = blockIdx.x % DEC_SPLIT (clusters run along x)
   const int hk = blockIdx.x / DEC_SPLIT, b = blockIdx.y;
   const int group = Hq / Hkv, g0 = blockIdx.z * DEC_MAXG;
-  DecPagedRows rows{table + (long long)b * P, (long long)Hkv * PS * D,
-                    (long long)hk * PS * D, PS, D, nullptr, 0, 0, 0};
+  DecPagedRows<false> rows{table + (long long)b * P, (long long)Hkv * PS * D,
+                           (long long)hk * PS * D, PS, D, nullptr, 0, 0, 0};
   const long long qo = ((long long)b * Hq + (long long)hk * group + g0) * D;
   // keys 0..pos[b]; the table row holds P * PS of them
   const int n = min(pos[b] + 1, P * PS);
-  decode_split<T, CHP, GM>(q + qo, kp, vp, rows, n,
-                           decode_chunk_rows(group, g0), D, scale,
-                           out + qo);
+  decode_split<T, T, CHP, GM>(q + qo, kp, vp, nullptr, nullptr, false, rows,
+                              n, decode_chunk_rows(group, g0), D, scale,
+                              out + qo);
 }
 
 template <typename T, int CHP, int GM>
@@ -134,68 +129,82 @@ extern "C" int paged_attention(const void* q, const void* kp, const void* vp,
 }
 
 // ----------------------------------------------------------- int8 pools
-template <typename T, int LPR, int GM>
-__global__ void __launch_bounds__(DEC_WARPS * 32) paged_attention_q8_kernel(
+// The exact kernel over int8 codes: the same grid and core, the scale
+// tables beside the pools.  One query row a chunk (no GQA: llama_7b)
+// asks ptxas for DEC_Q8_MIN_CTAS CTAs an SM, 56 registers a thread with
+// no spill, which took 2% off the profiled engine step's launch.
+template <typename T, int CHP, int GM>
+__global__ void __launch_bounds__(DEC_THREADS, GM == 1 ? DEC_Q8_MIN_CTAS : 1)
+    paged_attention_int8_kernel(
     const T* __restrict__ q, const int8_t* __restrict__ kp,
     const int8_t* __restrict__ vp, const float* __restrict__ ks,
     const float* __restrict__ vs, const int* __restrict__ table,
     const int* __restrict__ pos, T* __restrict__ out, int Hq, int Hkv,
-    int PS, int P, int D, float scale) {
-  const int hk = blockIdx.x, b = blockIdx.y;
+    int PS, int P, int D, float scale, int scales16) {
+  // cluster rank = blockIdx.x % DEC_SPLIT (clusters run along x)
+  const int hk = blockIdx.x / DEC_SPLIT, b = blockIdx.y;
   const int group = Hq / Hkv, g0 = blockIdx.z * DEC_MAXG;
-  const PagedRow row{table + (long long)b * P, hk, Hkv, PS};
+  DecPagedRows<true> rows{table + (long long)b * P, (long long)Hkv * PS,
+                          (long long)hk * PS, PS, D, nullptr, 0, 0, 0};
   const long long qo = ((long long)b * Hq + (long long)hk * group + g0) * D;
-  decode_rows_q8<T, LPR, GM>(q + qo, kp, vp, ks, vs, row, 0, pos[b],
-                             decode_chunk_rows(group, g0), D, scale,
-                             out + qo);
+  const int n = min(pos[b] + 1, P * PS);
+  decode_split<T, int8_t, CHP, GM>(q + qo, kp, vp, ks, vs, scales16 != 0,
+                                   rows, n, decode_chunk_rows(group, g0), D,
+                                   scale, out + qo);
 }
 
-template <typename T, int LPR, int GM>
-static int launch_q8(const void* q, const void* kp, const void* vp,
-                     const float* ks, const float* vs, const int* table,
-                     const int* pos, void* out, int B, int Hq, int Hkv,
-                     int PS, int P, int D, float scale, cudaStream_t stream) {
-  const size_t smem = decode_q8_smem_bytes(Hq / Hkv, D);
-  auto kern = paged_attention_q8_kernel<T, LPR, GM>;
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-  kern<<<dim3(Hkv, B, decode_chunks(Hq / Hkv)), DEC_WARPS * 32, smem,
-         stream>>>((const T*)q, (const int8_t*)kp, (const int8_t*)vp, ks, vs,
-                   table, pos, (T*)out, Hq, Hkv, PS, P, D, scale);
-  return (int)cudaGetLastError();
-}
-
-// GM: the chunk's query rows rounded up to 1, 2, 4 or 8 (registers hold
-// GM accumulator rows of 16 floats per lane).
-template <typename T, int LPR>
-static int dispatch_q8_rows(const void* q, const void* kp, const void* vp,
-                            const float* ks, const float* vs, const int* table,
-                            const int* pos, void* out, int B, int Hq, int Hkv,
-                            int PS, int P, int D, float scale, cudaStream_t s) {
-  const int g = Hq / Hkv;
-  if (g == 1) return launch_q8<T, LPR, 1>(q, kp, vp, ks, vs, table, pos, out, B, Hq, Hkv, PS, P, D, scale, s);
-  if (g == 2) return launch_q8<T, LPR, 2>(q, kp, vp, ks, vs, table, pos, out, B, Hq, Hkv, PS, P, D, scale, s);
-  if (g <= 4) return launch_q8<T, LPR, 4>(q, kp, vp, ks, vs, table, pos, out, B, Hq, Hkv, PS, P, D, scale, s);
-  return launch_q8<T, LPR, 8>(q, kp, vp, ks, vs, table, pos, out, B, Hq, Hkv, PS, P, D, scale, s);
-}
-
-template <typename T>
-static int dispatch_q8(const void* q, const void* kp, const void* vp,
+template <typename T, int CHP, int GM>
+static int launch_int8(const void* q, const void* kp, const void* vp,
                        const float* ks, const float* vs, const int* table,
                        const int* pos, void* out, int B, int Hq, int Hkv,
-                       int PS, int P, int D, float scale, cudaStream_t s) {
-  switch (decode_q8_lanes(D)) {
-    case 4: return dispatch_q8_rows<T, 4>(q, kp, vp, ks, vs, table, pos, out, B, Hq, Hkv, PS, P, D, scale, s);
-    case 8: return dispatch_q8_rows<T, 8>(q, kp, vp, ks, vs, table, pos, out, B, Hq, Hkv, PS, P, D, scale, s);
-    default: return dispatch_q8_rows<T, 16>(q, kp, vp, ks, vs, table, pos, out, B, Hq, Hkv, PS, P, D, scale, s);
+                       int PS, int P, int D, float scale, int scales16,
+                       cudaStream_t stream) {
+  const int group = Hq / Hkv, G = group < DEC_MAXG ? group : DEC_MAXG;
+  const int tbl = dec_share(P * PS, DecTile<int8_t, CHP>::TK) / PS + 2;
+  return decode_cluster_launch(
+      paged_attention_int8_kernel<T, CHP, GM>,
+      dim3(Hkv * DEC_SPLIT, B, decode_chunks(group)),
+      decode_split_smem<int8_t, CHP>(G, D, tbl), stream, (const T*)q,
+      (const int8_t*)kp, (const int8_t*)vp, ks, vs, table, pos, (T*)out, Hq,
+      Hkv, PS, P, D, scale, scales16);
+}
+
+// GM: the chunk's query rows rounded up to 1, 2, 4 or 8.
+template <typename T, int CHP>
+static int dispatch_int8_rows(const void* q, const void* kp, const void* vp,
+                              const float* ks, const float* vs,
+                              const int* table, const int* pos, void* out,
+                              int B, int Hq, int Hkv, int PS, int P, int D,
+                              float scale, int v16, cudaStream_t s) {
+  const int g = Hq / Hkv;
+  if (g == 1) return launch_int8<T, CHP, 1>(q, kp, vp, ks, vs, table, pos, out, B, Hq, Hkv, PS, P, D, scale, v16, s);
+  if (g == 2) return launch_int8<T, CHP, 2>(q, kp, vp, ks, vs, table, pos, out, B, Hq, Hkv, PS, P, D, scale, v16, s);
+  if (g <= 4) return launch_int8<T, CHP, 4>(q, kp, vp, ks, vs, table, pos, out, B, Hq, Hkv, PS, P, D, scale, v16, s);
+  return launch_int8<T, CHP, 8>(q, kp, vp, ks, vs, table, pos, out, B, Hq, Hkv, PS, P, D, scale, v16, s);
+}
+
+// CHP: a row's D bytes of codes in 16-byte chunks, rounded up to a power
+// of two (1 .. 16 at head dims 16 .. 256).
+template <typename T>
+static int dispatch_int8(const void* q, const void* kp, const void* vp,
+                         const float* ks, const float* vs, const int* table,
+                         const int* pos, void* out, int B, int Hq, int Hkv,
+                         int PS, int P, int D, float scale, int v16,
+                         cudaStream_t s) {
+  switch (decode_chunks_pow2(D, 1)) {
+    case 1: return dispatch_int8_rows<T, 1>(q, kp, vp, ks, vs, table, pos, out, B, Hq, Hkv, PS, P, D, scale, v16, s);
+    case 2: return dispatch_int8_rows<T, 2>(q, kp, vp, ks, vs, table, pos, out, B, Hq, Hkv, PS, P, D, scale, v16, s);
+    case 4: return dispatch_int8_rows<T, 4>(q, kp, vp, ks, vs, table, pos, out, B, Hq, Hkv, PS, P, D, scale, v16, s);
+    case 8: return dispatch_int8_rows<T, 8>(q, kp, vp, ks, vs, table, pos, out, B, Hq, Hkv, PS, P, D, scale, v16, s);
+    default: return dispatch_int8_rows<T, 16>(q, kp, vp, ks, vs, table, pos, out, B, Hq, Hkv, PS, P, D, scale, v16, s);
   }
 }
 
 // q [B, Hq, D] (f32 or bf16); k_pages / v_pages int8 [num_pages, Hkv, PS,
 // D], D % 16 == 0 and <= 256, 16-byte aligned; k_scales / v_scales f32
 // [num_pages, Hkv, PS]; table [B, P] int32; pos [B] int32; out [B, Hq, D]
-// in q's dtype.
+// in q's dtype.  The scales move four rows a 16-byte copy when four
+// consecutive keys share a page and the tables are 16-byte aligned.
 extern "C" int paged_attention_int8(const void* q, const void* kp,
                                     const void* vp, const void* ks,
                                     const void* vs, const void* table,
@@ -203,12 +212,15 @@ extern "C" int paged_attention_int8(const void* q, const void* kp,
                                     int Hkv, int PS, int P, int D, float scale,
                                     int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (!tc_aligned(kp) || !tc_aligned(vp) || D % 16)
+    return (int)cudaErrorInvalidValue;
+  const int v16 = PS % 4 == 0 && tc_aligned(ks) && tc_aligned(vs);
   if (dtype == PT_BF16)
-    return dispatch_q8<__nv_bfloat16>(q, kp, vp, (const float*)ks,
-                                      (const float*)vs, (const int*)table,
-                                      (const int*)pos, out, B, Hq, Hkv, PS, P,
-                                      D, scale, s);
-  return dispatch_q8<float>(q, kp, vp, (const float*)ks, (const float*)vs,
-                            (const int*)table, (const int*)pos, out, B, Hq,
-                            Hkv, PS, P, D, scale, s);
+    return dispatch_int8<__nv_bfloat16>(q, kp, vp, (const float*)ks,
+                                        (const float*)vs, (const int*)table,
+                                        (const int*)pos, out, B, Hq, Hkv, PS,
+                                        P, D, scale, v16, s);
+  return dispatch_int8<float>(q, kp, vp, (const float*)ks, (const float*)vs,
+                              (const int*)table, (const int*)pos, out, B, Hq,
+                              Hkv, PS, P, D, scale, v16, s);
 }

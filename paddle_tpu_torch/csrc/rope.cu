@@ -11,20 +11,29 @@
 // once and written once with three flops; the phases add 2 * D elements
 // per (b, s) row.
 //
-// Design: one block per (b, s) row.  The row's cos and sin (D values
-// each) are read once into shared memory as f32 and serve every head of
-// the row, as the TPU kernel keeps the phases per row block.  Neox style:
-// a work item is VEC pairs (d, d + D/2) of one head, so every element is
-// read and written once; VEC = 16 / sizeof(T) (16-byte loads) when the
-// wrapper finds the pointer, the strides and D/2 aligned to it, else 1.
-// Interleaved style (off the main path): a work item is one pair
-// (2i, 2i + 1).  Math in f32 with one rounding to the output type, as
-// `_rope_kernel` :41-53; the products and the sum are rounded one by one
-// (`__fmul_rn` / `__fadd_rn`, which nvcc never contracts into an FMA) in
-// the plain version's order, so the kernel equals it bit for bit and a
-// bf16 output cannot land one ulp away.  x is read through its batch,
-// token and head strides, so the q and k views of the fused qkv
-// projection need no copy; the output is contiguous [B, S, H, D].
+// Design: one launch rotates the queries and the keys of a layer (x1
+// [B, S, H1, D] and x2 [B, S, H2, D], the two views of the fused qkv
+// projection, under the same phases; or x1 alone with H2 = 0), since
+// both share the row's phases and a decode step's launch is pure fixed
+// cost.  A block serves one (b, s) row and a run of the row's H1 + H2
+// heads: the row's cos and sin (D values each) are read once into shared
+// memory as f32 and serve every head of the run, as the TPU kernel keeps
+// the phases per row block.  When the rows alone give the card fewer
+// than ROPE_MIN_BLOCKS blocks (a decode step's B rows), each row's heads
+// are split across blocks, down to ROPE_MIN_ITEMS work items a block.
+// Neox style: a work item is VEC pairs (d, d + D/2) of one head, so
+// every element is read and written once; VEC = 16 / sizeof(T) (16-byte
+// loads) when the wrapper finds the pointers, the strides and D/2
+// aligned to it, else 1.  Interleaved style (off the main path): a work
+// item is one pair (2i, 2i + 1).  Math in f32 with one rounding to the
+// output type, as `_rope_kernel` :41-53; the products and the sum are
+// rounded one by one (`__fmul_rn` / `__fadd_rn`, which nvcc never
+// contracts into an FMA) in the plain version's order, so the kernel
+// equals it bit for bit, whichever block computes an element, and a
+// bf16 output cannot land one ulp away.  x1 and x2 are read through
+// their batch, token and head strides, so the q and k views of the
+// fused qkv projection need no copy; the outputs are contiguous [B, S,
+// H1, D] and [B, S, H2, D].
 //
 // Adjoint: neox uses the JAX formula, rot = concat(x2, -x1) times the
 // same-index sin (:50-52), the exact VJP when both halves of sin are
@@ -32,6 +41,9 @@
 // is the exact VJP of x*cos + rot(x)*sin, which the JAX package gets by
 // differentiating its jnp path: g*cos + rot^T(g*sin).
 #include "common.cuh"
+
+constexpr int ROPE_MIN_BLOCKS = 264;   // two blocks an SM of the H100
+constexpr int ROPE_MIN_ITEMS = 128;    // work items a block, at least
 
 template <typename T, int VEC>
 struct alignas(sizeof(T) * VEC) Pack {
@@ -50,120 +62,129 @@ __device__ __forceinline__ void load_phases(float* ph, const T* cs,
   __syncthreads();
 }
 
-template <typename T, int VEC>
-__global__ void rope_neox_kernel(const T* __restrict__ x,
-                                 const T* __restrict__ cs,
-                                 const T* __restrict__ sn,
-                                 T* __restrict__ out, int S, int H, int D,
-                                 long long sxb, long long sxs, long long sxh,
-                                 long long spb, int adjoint) {
+// One of the two tensors of a launch: its base, strides and head count.
+template <typename T>
+struct RopeIn {
+  const T* x;
+  T* out;
+  long long sb, ss, sh;
+  int H;
+};
+
+// Neox pairs (d, d + D/2) of VEC elements, or (INTER) one interleaved
+// pair (2i, 2i + 1), of heads h0 .. h0 + hpb - 1 of the row's H1 + H2.
+template <typename T, int VEC, bool INTER>
+__global__ void rope_kernel(RopeIn<T> a, RopeIn<T> k, const T* __restrict__ cs,
+                            const T* __restrict__ sn, int S, int D,
+                            long long spb, int hpb, int adjoint) {
   extern __shared__ float ph[];
   const int row = blockIdx.x;
   const int b = row / S, s = row - b * S;
   load_phases(ph, cs, sn, (long long)b * spb + (long long)s * D, D);
   const float* c = ph;
   const float* sv = ph + D;
-  const int half = D / 2, P = half / VEC;
-  const T* xr = x + (long long)b * sxb + (long long)s * sxs;
-  T* orow = out + (long long)row * H * D;
-  for (int w = threadIdx.x; w < H * P; w += blockDim.x) {
-    const int h = w / P, d0 = (w - h * P) * VEC;
-    const T* xp = xr + (long long)h * sxh + d0;
-    const Pack<T, VEC> a = *reinterpret_cast<const Pack<T, VEC>*>(xp);
-    const Pack<T, VEC> e = *reinterpret_cast<const Pack<T, VEC>*>(xp + half);
-    Pack<T, VEC> o1, o2;
+  const int half = D / 2, P = INTER ? half : half / VEC;  // items a head
+  const int h0 = blockIdx.y * hpb;
+  const int nh = min(hpb, a.H + k.H - h0);
+  for (int w = threadIdx.x; w < nh * P; w += blockDim.x) {
+    const int hw = w / P, h = h0 + hw;
+    // the head's tensor, field by field (no copy of the parameters)
+    const bool first = h < a.H;
+    const int ht = first ? h : h - a.H;
+    const T* xh = (first ? a.x : k.x) +
+                  (long long)b * (first ? a.sb : k.sb) +
+                  (long long)s * (first ? a.ss : k.ss) +
+                  (long long)ht * (first ? a.sh : k.sh);
+    T* oh = (first ? a.out : k.out) +
+            ((long long)row * (first ? a.H : k.H) + ht) * D;
+    if constexpr (INTER) {
+      const int d = 2 * (w - hw * P);
+      const float x1 = to_f(xh[d]), x2 = to_f(xh[d + 1]);
+      const float c1 = __fmul_rn(x1, c[d]), c2 = __fmul_rn(x2, c[d + 1]);
+      float o1, o2;
+      if (!adjoint) {   // rot = (-x2, x1) per pair
+        o1 = __fsub_rn(c1, __fmul_rn(x2, sv[d]));
+        o2 = __fadd_rn(c2, __fmul_rn(x1, sv[d + 1]));
+      } else {          // g*cos + rot^T(g*sin)
+        o1 = __fadd_rn(c1, __fmul_rn(x2, sv[d + 1]));
+        o2 = __fsub_rn(c2, __fmul_rn(x1, sv[d]));
+      }
+      oh[d] = from_f<T>(o1);
+      oh[d + 1] = from_f<T>(o2);
+    } else {
+      const int d0 = (w - hw * P) * VEC;
+      const Pack<T, VEC> e1 = *reinterpret_cast<const Pack<T, VEC>*>(xh + d0);
+      const Pack<T, VEC> e2 =
+          *reinterpret_cast<const Pack<T, VEC>*>(xh + d0 + half);
+      Pack<T, VEC> o1, o2;
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) {
-      const int d = d0 + j;
-      const float x1 = to_f(a.v[j]), x2 = to_f(e.v[j]);
-      const float c1 = __fmul_rn(x1, c[d]), s1 = __fmul_rn(x2, sv[d]);
-      const float c2 = __fmul_rn(x2, c[d + half]);
-      const float s2 = __fmul_rn(x1, sv[d + half]);
-      // forward rot = (-x2, x1); adjoint rot = (x2, -x1)
-      o1.v[j] = from_f<T>(adjoint ? __fadd_rn(c1, s1) : __fsub_rn(c1, s1));
-      o2.v[j] = from_f<T>(adjoint ? __fsub_rn(c2, s2) : __fadd_rn(c2, s2));
+      for (int j = 0; j < VEC; ++j) {
+        const int d = d0 + j;
+        const float x1 = to_f(e1.v[j]), x2 = to_f(e2.v[j]);
+        const float c1 = __fmul_rn(x1, c[d]), s1 = __fmul_rn(x2, sv[d]);
+        const float c2 = __fmul_rn(x2, c[d + half]);
+        const float s2 = __fmul_rn(x1, sv[d + half]);
+        // forward rot = (-x2, x1); adjoint rot = (x2, -x1)
+        o1.v[j] = from_f<T>(adjoint ? __fadd_rn(c1, s1) : __fsub_rn(c1, s1));
+        o2.v[j] = from_f<T>(adjoint ? __fsub_rn(c2, s2) : __fadd_rn(c2, s2));
+      }
+      *reinterpret_cast<Pack<T, VEC>*>(oh + d0) = o1;
+      *reinterpret_cast<Pack<T, VEC>*>(oh + d0 + half) = o2;
     }
-    T* op = orow + (long long)h * D + d0;
-    *reinterpret_cast<Pack<T, VEC>*>(op) = o1;
-    *reinterpret_cast<Pack<T, VEC>*>(op + half) = o2;
   }
 }
 
 template <typename T>
-__global__ void rope_interleaved_kernel(const T* __restrict__ x,
-                                        const T* __restrict__ cs,
-                                        const T* __restrict__ sn,
-                                        T* __restrict__ out, int S, int H,
-                                        int D, long long sxb, long long sxs,
-                                        long long sxh, long long spb,
-                                        int adjoint) {
-  extern __shared__ float ph[];
-  const int row = blockIdx.x;
-  const int b = row / S, s = row - b * S;
-  load_phases(ph, cs, sn, (long long)b * spb + (long long)s * D, D);
-  const float* c = ph;
-  const float* sv = ph + D;
-  const int half = D / 2;
-  const T* xr = x + (long long)b * sxb + (long long)s * sxs;
-  T* orow = out + (long long)row * H * D;
-  for (int w = threadIdx.x; w < H * half; w += blockDim.x) {
-    const int h = w / half, d = 2 * (w - h * half);
-    const T* xp = xr + (long long)h * sxh + d;
-    const float x1 = to_f(xp[0]), x2 = to_f(xp[1]);
-    const float c1 = __fmul_rn(x1, c[d]), c2 = __fmul_rn(x2, c[d + 1]);
-    float o1, o2;
-    if (!adjoint) {   // rot = (-x2, x1) per pair
-      o1 = __fsub_rn(c1, __fmul_rn(x2, sv[d]));
-      o2 = __fadd_rn(c2, __fmul_rn(x1, sv[d + 1]));
-    } else {          // g*cos + rot^T(g*sin)
-      o1 = __fadd_rn(c1, __fmul_rn(x2, sv[d + 1]));
-      o2 = __fsub_rn(c2, __fmul_rn(x1, sv[d]));
-    }
-    T* op = orow + (long long)h * D + d;
-    op[0] = from_f<T>(o1);
-    op[1] = from_f<T>(o2);
-  }
-}
-
-template <typename T>
-static int launch(const void* x, const void* cs, const void* sn, void* out,
-                  int B, int S, int H, int D, long long sxb, long long sxs,
-                  long long sxh, long long spb, int adjoint, int interleaved,
-                  int vec, cudaStream_t stream) {
-  const int items = interleaved ? H * (D / 2) : H * (D / 2 / vec);
-  int threads = ((items + 31) / 32) * 32;
-  threads = threads < 32 ? 32 : threads > 256 ? 256 : threads;
+static int launch(RopeIn<T> a, RopeIn<T> k, const void* cs, const void* sn,
+                  int B, int S, int D, long long spb, int adjoint,
+                  int interleaved, int vec, cudaStream_t stream) {
+  const int H = a.H + k.H, rows = B * S;
+  const int per_head = interleaved ? D / 2 : D / 2 / vec;
+  // heads a block: all of the row's, or a run of them when the rows give
+  // fewer than ROPE_MIN_BLOCKS blocks, down to ROPE_MIN_ITEMS items
+  int split = (ROPE_MIN_BLOCKS + rows - 1) / rows;
+  const int most = H * per_head / ROPE_MIN_ITEMS;
+  split = split < most ? split : most;
+  split = split < 1 ? 1 : split > H ? H : split;
+  const int hpb = (H + split - 1) / split;
+  const dim3 grid(rows, (H + hpb - 1) / hpb);
+  int threads = ((hpb * per_head + 31) / 32) * 32;
+  threads = threads > 256 ? 256 : threads;
   const size_t smem = 2 * (size_t)D * sizeof(float);
-  const dim3 grid(B * S);
-  const T* xp = (const T*)x;
   const T* cp = (const T*)cs;
   const T* sp = (const T*)sn;
-  T* op = (T*)out;
   constexpr int V = 16 / sizeof(T);
   if (interleaved)
-    rope_interleaved_kernel<T><<<grid, threads, smem, stream>>>(
-        xp, cp, sp, op, S, H, D, sxb, sxs, sxh, spb, adjoint);
+    rope_kernel<T, 1, true><<<grid, threads, smem, stream>>>(
+        a, k, cp, sp, S, D, spb, hpb, adjoint);
   else if (vec == V)
-    rope_neox_kernel<T, V><<<grid, threads, smem, stream>>>(
-        xp, cp, sp, op, S, H, D, sxb, sxs, sxh, spb, adjoint);
+    rope_kernel<T, V, false><<<grid, threads, smem, stream>>>(
+        a, k, cp, sp, S, D, spb, hpb, adjoint);
   else
-    rope_neox_kernel<T, 1><<<grid, threads, smem, stream>>>(
-        xp, cp, sp, op, S, H, D, sxb, sxs, sxh, spb, adjoint);
+    rope_kernel<T, 1, false><<<grid, threads, smem, stream>>>(
+        a, k, cp, sp, S, D, spb, hpb, adjoint);
   return (int)cudaGetLastError();
 }
 
-// x [B, S, H, D] read through element strides (sxb, sxs, sxh; unit last
-// stride); cos / sin [B or 1, S, D] contiguous in x's dtype, batch stride
-// spb (0 when broadcast); out [B, S, H, D] contiguous.  vec: 1, or
-// 16 / sizeof(T) for 16-byte loads (neox only).
-extern "C" int rope(const void* x, const void* cs, const void* sn, void* out,
-                    int B, int S, int H, int D, long long sxb, long long sxs,
-                    long long sxh, long long spb, int adjoint,
+// x1 [B, S, H1, D] and, when H2 > 0, x2 [B, S, H2, D], each read through
+// its element strides (batch, token, head; unit last stride); cos / sin
+// [B or 1, S, D] contiguous in their dtype, batch stride spb (0 when
+// broadcast); out1 [B, S, H1, D] and out2 [B, S, H2, D] contiguous.  vec:
+// 1, or 16 / sizeof(T) for 16-byte loads (neox only), for both tensors.
+extern "C" int rope(const void* x1, const void* x2, const void* cs,
+                    const void* sn, void* out1, void* out2, int B, int S,
+                    int H1, int H2, int D, long long s1b, long long s1s,
+                    long long s1h, long long s2b, long long s2s,
+                    long long s2h, long long spb, int adjoint,
                     int interleaved, int vec, int dtype, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == PT_BF16)
-    return launch<__nv_bfloat16>(x, cs, sn, out, B, S, H, D, sxb, sxs, sxh,
-                                 spb, adjoint, interleaved, vec, s);
-  return launch<float>(x, cs, sn, out, B, S, H, D, sxb, sxs, sxh, spb,
-                       adjoint, interleaved, vec, s);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == PT_BF16) {
+    using T = __nv_bfloat16;
+    return launch<T>({(const T*)x1, (T*)out1, s1b, s1s, s1h, H1},
+                     {(const T*)x2, (T*)out2, s2b, s2s, s2h, H2}, cs, sn, B,
+                     S, D, spb, adjoint, interleaved, vec, st);
+  }
+  return launch<float>({(const float*)x1, (float*)out1, s1b, s1s, s1h, H1},
+                       {(const float*)x2, (float*)out2, s2b, s2s, s2h, H2},
+                       cs, sn, B, S, D, spb, adjoint, interleaved, vec, st);
 }

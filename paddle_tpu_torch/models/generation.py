@@ -177,6 +177,20 @@ def decode_position_ids(cache_pos, b, s, attn_start=None, device=None):
     return shift_positions(position_ids, attn_start)
 
 
+def forward_phases(x, head_dim, kv_caches=None, cache_pos=None,
+                   attn_start=None, base=10000.0):
+    """The rotary (cos, sin) of one model forward of embeddings x [B, S,
+    H], in x's dtype, computed once and handed to every layer (the rope
+    families' attention rotates q and k by them).  Cached forwards
+    continue from cache_pos (an int, or a [B] vector on the paged path);
+    left-padded rows put their first real token at rotary position 0."""
+    b, s, _ = x.shape
+    position_ids = None if kv_caches is None else decode_position_ids(
+        cache_pos, b, s, attn_start, device=x.device)
+    return F.rotary_phases(head_dim, s, position_ids, base, x.device,
+                           x.dtype)
+
+
 def shift_positions(position_ids, attn_start):
     """Left-padded rows: each row's first real token sits at position 0
     (pad positions clip to 0)."""

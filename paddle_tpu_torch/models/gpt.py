@@ -23,7 +23,7 @@ from ..nn import Embedding, LayerNorm, Linear, RMSNorm
 from ..nn import functional as F
 from .generation import (
     GenerationMixin, _static_cache_attention, decode_position_ids,
-    init_kv_caches,
+    forward_phases, init_kv_caches,
 )
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM",
@@ -93,19 +93,16 @@ class GPTAttention(nn.Module):
         self.qkv_proj = Linear(cfg.hidden_size, 3 * cfg.hidden_size, **kw)
         self.out_proj = Linear(cfg.hidden_size, cfg.hidden_size, **kw)
 
-    def forward(self, x, kv_cache=None, cache_pos=None, attn_start=None):
+    def forward(self, x, rope=None, kv_cache=None, cache_pos=None,
+                attn_start=None):
+        """`rope`: the forward's (cos, sin) under ``use_rope``
+        (`GPTModel.forward`), else None."""
         b, s, h = x.shape
         qkv = self.qkv_proj(x).reshape(b, s, 3, self.num_heads,
                                        self.head_dim)
         q, k, v = qkv.unbind(dim=2)
         if self.cfg.use_rope:
-            # cached forwards continue from cache_pos; left-padded rows
-            # put their first real token at rotary position 0
-            position_ids = None if kv_cache is None else \
-                decode_position_ids(cache_pos, b, s, attn_start,
-                                    device=x.device)
-            q, k, _ = F.fused_rotary_position_embedding(
-                q, k, None, position_ids=position_ids)
+            q, k = F.rotate_qk(q, k, rope)
         if kv_cache is not None:
             out, new_cache = _static_cache_attention(
                 q, k, v, kv_cache, cache_pos, attn_start)
@@ -140,15 +137,16 @@ class GPTBlock(nn.Module):
         self.ln_2 = _norm(cfg, device, dtype)
         self.mlp = GPTMLP(cfg, **kw)
 
-    def forward(self, x, kv_cache=None, cache_pos=None, attn_start=None):
+    def forward(self, x, rope=None, kv_cache=None, cache_pos=None,
+                attn_start=None):
         if kv_cache is not None:
-            a, new_cache = self.attn(self.ln_1(x), kv_cache=kv_cache,
+            a, new_cache = self.attn(self.ln_1(x), rope, kv_cache=kv_cache,
                                      cache_pos=cache_pos,
                                      attn_start=attn_start)
             x = x + a
             x = x + self.mlp(self.ln_2(x))
             return x, new_cache
-        x = x + self.attn(self.ln_1(x))
+        x = x + self.attn(self.ln_1(x), rope)
         return x + self.mlp(self.ln_2(x))
 
 
@@ -168,7 +166,11 @@ class GPTModel(nn.Module):
                 attn_start=None):
         b, s = input_ids.shape
         x = self.wte(input_ids.long())
-        if not self.cfg.use_rope:
+        cfg, rope = self.cfg, None
+        if cfg.use_rope:
+            rope = forward_phases(x, cfg.hidden_size // cfg.num_heads,
+                                  kv_caches, cache_pos, attn_start)
+        else:
             if kv_caches is not None:
                 pos = decode_position_ids(cache_pos, b, s, attn_start,
                                           device=input_ids.device)
@@ -178,12 +180,12 @@ class GPTModel(nn.Module):
         if kv_caches is not None:
             new_caches = []
             for block, kc in zip(self.h, kv_caches):
-                x, nc = block(x, kv_cache=kc, cache_pos=cache_pos,
+                x, nc = block(x, rope, kv_cache=kc, cache_pos=cache_pos,
                               attn_start=attn_start)
                 new_caches.append(nc)
             return self.ln_f(x), new_caches
         for block in self.h:
-            x = block(x)
+            x = block(x, rope)
         return self.ln_f(x)
 
 

@@ -21,8 +21,7 @@ from ..core.device import resolve_device
 from ..nn import Embedding, Linear, RMSNorm
 from ..nn import functional as F
 from .generation import (
-    GenerationMixin, _static_cache_attention, decode_position_ids,
-    init_kv_caches,
+    GenerationMixin, _static_cache_attention, forward_phases, init_kv_caches,
 )
 from .gpt import refuse_unported
 
@@ -66,7 +65,9 @@ class LlamaAttention(nn.Module):
                                bias=False, **kw)
         self.out_proj = Linear(q_size, cfg.hidden_size, bias=False, **kw)
 
-    def forward(self, x, kv_cache=None, cache_pos=None, attn_start=None):
+    def forward(self, x, rope, kv_cache=None, cache_pos=None,
+                attn_start=None):
+        """`rope`: the forward's (cos, sin) (`LlamaModel.forward`)."""
         b, s, _ = x.shape
         hd = self.head_dim
         q_size = self.num_heads * hd
@@ -77,14 +78,7 @@ class LlamaAttention(nn.Module):
         q = q.reshape(b, s, self.num_heads, hd)
         k = k.reshape(b, s, self.num_kv_heads, hd)
         v = v.reshape(b, s, self.num_kv_heads, hd)
-        # cached forwards continue from cache_pos (an int, or a [B]
-        # vector on the paged path); left-padded rows put their first
-        # real token at rotary position 0
-        position_ids = None if kv_cache is None else decode_position_ids(
-            cache_pos, b, s, attn_start, device=x.device)
-        q, k, _ = F.fused_rotary_position_embedding(
-            q, k, None, position_ids=position_ids,
-            rotary_emb_base=self.cfg.rope_theta)
+        q, k = F.rotate_qk(q, k, rope)
         if kv_cache is not None:
             out, new_cache = _static_cache_attention(q, k, v, kv_cache,
                                                      cache_pos, attn_start)
@@ -116,14 +110,15 @@ class LlamaBlock(nn.Module):
                                  device=device, dtype=dtype)
         self.mlp = LlamaMLP(cfg, **kw)
 
-    def forward(self, x, kv_cache=None, cache_pos=None, attn_start=None):
+    def forward(self, x, rope, kv_cache=None, cache_pos=None,
+                attn_start=None):
         if kv_cache is not None:
-            a, new_cache = self.attn(self.input_norm(x), kv_cache=kv_cache,
-                                     cache_pos=cache_pos,
+            a, new_cache = self.attn(self.input_norm(x), rope,
+                                     kv_cache=kv_cache, cache_pos=cache_pos,
                                      attn_start=attn_start)
             x = x + a
             return x + self.mlp(self.post_norm(x)), new_cache
-        x = x + self.attn(self.input_norm(x))
+        x = x + self.attn(self.input_norm(x), rope)
         return x + self.mlp(self.post_norm(x))
 
 
@@ -141,15 +136,18 @@ class LlamaModel(nn.Module):
     def forward(self, input_ids, kv_caches=None, cache_pos=None,
                 attn_start=None):
         x = self.embed_tokens(input_ids.long())
+        cfg = self.cfg
+        rope = forward_phases(x, cfg.hidden_size // cfg.num_heads, kv_caches,
+                              cache_pos, attn_start, cfg.rope_theta)
         if kv_caches is not None:
             new_caches = []
             for blk, kc in zip(self.layers, kv_caches):
-                x, nc = blk(x, kv_cache=kc, cache_pos=cache_pos,
+                x, nc = blk(x, rope, kv_cache=kc, cache_pos=cache_pos,
                             attn_start=attn_start)
                 new_caches.append(nc)
             return self.norm(x), new_caches
         for blk in self.layers:
-            x = blk(x)
+            x = blk(x, rope)
         return self.norm(x)
 
 

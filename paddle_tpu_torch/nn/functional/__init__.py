@@ -4,7 +4,8 @@ from __future__ import annotations
 from .activation import gelu, relu, relu6, swiglu  # noqa: F401
 from .attention import (  # noqa: F401
     apply_rotary_pos_emb, flash_attn_unpadded,
-    fused_rotary_position_embedding, scaled_dot_product_attention,
+    fused_rotary_position_embedding, rotary_phases, rotate_qk,
+    scaled_dot_product_attention,
 )
 from .conv import conv2d  # noqa: F401
 from .loss import cross_entropy  # noqa: F401

@@ -140,6 +140,25 @@ def _rope_phases(d, s, base, position_ids, device):
     return torch.cos(emb)[:, :, None], torch.sin(emb)[:, :, None]
 
 
+def rotary_phases(head_dim, seq_len, position_ids=None,
+                  rotary_emb_base=10000.0, device=None, dtype=torch.float32):
+    """(cos, sin) [B|1, S, 1, D] in `dtype`: the neox phases that
+    `fused_rotary_position_embedding` computes when given none, the same
+    ops on the same inputs.  A model computes them once a forward and
+    hands them to every layer's `rotate_qk`."""
+    cos, sin = _rope_phases(head_dim, seq_len, rotary_emb_base,
+                            position_ids, device)
+    return cos.to(dtype), sin.to(dtype)
+
+
+def rotate_qk(q, k, phases):
+    """q [B, S, Hq, D] and k [B, S, Hkv, D] rotated (neox style) by the
+    (cos, sin) of `rotary_phases`: one `RoPE` launch for both, forward
+    and backward."""
+    cos, sin = phases
+    return RoPE.apply(q, cos, sin, False, k)
+
+
 def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
                                     position_ids=None,
                                     use_neox_rotary_style=True,
@@ -152,7 +171,8 @@ def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
     any leading shape) are gathered by `position_ids`.  The f32 phases
     are cast to q's dtype first, as the JAX package does (:245-246).
     Both styles run through the rope kernel on CUDA (`RoPE`, which the
-    backward sends through the kernel's adjoint)."""
+    backward sends through the kernel's adjoint); q and k rotate in one
+    launch, v in its own."""
     if time_major:
         raise NotImplementedError(
             "fused_rotary_position_embedding: time_major=True ([S, B, ...]"
@@ -171,8 +191,13 @@ def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
             cos, sin = (p[0, :, 0][ids][:, :, None] for p in (cos, sin))
     cos, sin = cos.to(q.dtype), sin.to(q.dtype)
     interleaved = not use_neox_rotary_style
-    return tuple(None if x is None else
-                 RoPE.apply(x, cos, sin, interleaved) for x in (q, k, v))
+    if k is None:
+        q = RoPE.apply(q, cos, sin, interleaved)
+    else:
+        q, k = RoPE.apply(q, cos, sin, interleaved, k)
+    if v is not None:
+        v = RoPE.apply(v, cos, sin, interleaved)
+    return q, k, v
 
 
 def apply_rotary_pos_emb(q, k, cos, sin, position_ids=None):

@@ -6,8 +6,10 @@ Counterpart of ``paddle_tpu/ops/pallas/paged_attention.py``
 ``csrc/paged_attention.cu``: `paged_attention` for bf16 / f32 pools (the
 exact tier) and `paged_attention_int8` for the quantized KV tier's int8
 pools with per-token, per-head f32 scale tables.  One wrapper serves
-both; each kernel counts on its own counter.  Both kernels read the
-pools 16 bytes a lane, so the pools must start on a 16-byte boundary.
+both; each kernel counts on its own counter.  Both kernels run the same
+cluster-split core and copy the pools' rows 16 bytes a lane, so the
+pools must start on a 16-byte boundary; the int8 kernel's scale tables
+need no alignment (off a 16-byte boundary they move 4 bytes a row).
 """
 from __future__ import annotations
 

@@ -5,8 +5,10 @@ Counterpart of ``paddle_tpu/ops/pallas/rope.py`` (`_rope_kernel` :40,
 `_rope_call` :56, the custom VJP of `rope_pallas` :80-95).  The kernel
 is ``csrc/rope.cu``; one wrapper launches it for the forward and, with
 ``adjoint=True``, for the backward, each direction on its own launch
-counter.  The JAX package's ``(h * d) % 128`` gate (:35) is a TPU layout
-rule: the kernel takes any even head_dim and any head count.  The
+counter.  Given a second tensor `k` under the same phases (the keys
+beside the queries), one launch rotates both and counts once.  The JAX
+package's ``(h * d) % 128`` gate (:35) is a TPU layout rule: the kernel
+takes any even head_dim and any head count.  The
 interleaved style, which the JAX package computes in jnp, runs through
 the same kernel, so no CUDA tensor takes a plain rotation.
 """
@@ -28,8 +30,8 @@ BWD_REPLACES = ("paddle_tpu/ops/pallas/rope.py:90 (_rope_bwd: _rope_call "
 launches = 0        # rope, forward
 bwd_launches = 0    # rope, adjoint
 
-_SIG = {"rope": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-        + [ctypes.c_int64] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]}
+_SIG = {"rope": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+        + [ctypes.c_int64] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 1024
 
@@ -69,43 +71,66 @@ def _phases(name, p, b, s, d, x):
     return p, (s * d if p.shape[0] > 1 else 0)
 
 
-def rope(x, cos, sin, adjoint=False, interleaved=False):
+def _unit_last(name, t, b, s, d, x):
+    """t as a [B, S, H, D] tensor of x's batch, tokens, head_dim, dtype and
+    device, with a unit last stride (copied when it has none)."""
+    if t.dim() != 4 or t.shape[0] != b or t.shape[1] != s \
+            or t.shape[3] != d:
+        raise ValueError(f"rope: {name} {tuple(t.shape)} is not "
+                         f"[{b}, {s}, H, {d}]")
+    if t.dtype != x.dtype or t.device != x.device:
+        raise TypeError(f"rope: {name} must be {x.dtype} on {x.device}, "
+                        f"got {t.dtype} on {t.device}")
+    if t.numel() == 0:
+        raise ValueError(f"rope: empty input {name} {tuple(t.shape)}")
+    return t if t.stride(3) == 1 else t.contiguous()
+
+
+def rope(x, cos, sin, adjoint=False, interleaved=False, k=None):
     """x [B,S,H,D] (any batch / token / head strides, unit last stride);
     cos/sin [B|1,S,1,D] in x's dtype.  Returns the rotation (or, with
-    `adjoint`, its adjoint) as a contiguous [B,S,H,D] tensor.  CPU
-    tensors run the plain version; CUDA tensors launch the kernel or
+    `adjoint`, its adjoint) as a contiguous [B,S,H,D] tensor; with `k`
+    ([B,S,Hk,D], the same phases) the pair (x's, k's), from one launch.
+    CPU tensors run the plain version; CUDA tensors launch the kernel or
     raise."""
     global launches, bwd_launches
     if x.device.type == "cpu":
-        return rope_reference(x, cos, sin, adjoint, interleaved)
+        out = rope_reference(x, cos, sin, adjoint, interleaved)
+        return out if k is None else (
+            out, rope_reference(k, cos, sin, adjoint, interleaved))
     if x.device.type != "cuda":
         raise ValueError(f"rope: unsupported device {x.device}")
     if x.dim() != 4:
         raise ValueError(f"rope: x must be [B, S, H, D], got "
                          f"{tuple(x.shape)}")
-    b, s, h, d = x.shape
+    b, s, _, d = x.shape
     if d % 2 or d > MAX_HEAD_DIM:
         raise ValueError(f"rope: head_dim {d} must be even and <= "
                          f"{MAX_HEAD_DIM}")
-    if x.numel() == 0:
-        raise ValueError(f"rope: empty input {tuple(x.shape)}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"rope: dtype {x.dtype}; expected float32 or "
                         "bfloat16")
+    xs = [_unit_last("x", x, b, s, d, x)]
+    if k is not None:
+        xs.append(_unit_last("k", k, b, s, d, x))
     cos, spb = _phases("cos", cos, b, s, d, x)
     sin, _ = _phases("sin", sin, b, s, d, x)
-    if x.stride(3) != 1:
-        x = x.contiguous()
-    strides = [x.stride(i) for i in range(3)]
+    strides = [t.stride(i) for t in xs for i in range(3)]
     vec = 16 // x.element_size()
-    if interleaved or (d // 2) % vec or x.data_ptr() % 16 \
+    if interleaved or (d // 2) % vec or any(t.data_ptr() % 16 for t in xs) \
             or any(st % vec for st in strides):
         vec = 1
-    out = torch.empty(b, s, h, d, dtype=x.dtype, device=x.device)
+    outs = [torch.empty(t.shape, dtype=x.dtype, device=x.device)
+            for t in xs]
+    # without k the second tensor's slots are null, with no heads
+    pad = 2 - len(xs)
+    ins = [_build.ptr(t) for t in xs] + [None] * pad
+    ptrs = [_build.ptr(t) for t in outs] + [None] * pad
+    heads = [t.shape[2] for t in xs] + [0] * pad
     lib = _build.library("rope", _SIG)
     err = lib.rope(
-        _build.ptr(x), _build.ptr(cos), _build.ptr(sin), _build.ptr(out),
-        b, s, h, d, *strides, spb, int(bool(adjoint)),
+        *ins, _build.ptr(cos), _build.ptr(sin), *ptrs, b, s, *heads, d,
+        *strides, *[0] * (3 * pad), spb, int(bool(adjoint)),
         int(bool(interleaved)), vec, _DTYPES[x.dtype],
         _build.stream_ptr(x.device))
     _build.check(err, "rope")
@@ -113,22 +138,26 @@ def rope(x, cos, sin, adjoint=False, interleaved=False):
         bwd_launches += 1
     else:
         launches += 1
-    return out
+    return outs[0] if k is None else tuple(outs)
 
 
 class RoPE(torch.autograd.Function):
     """out = rope(x, cos, sin) through the kernel, differentiated by the
-    same kernel's adjoint (`rope_pallas`'s custom VJP, :86-95).  The
-    phases get no gradient."""
+    same kernel's adjoint (`rope_pallas`'s custom VJP, :86-95).  With
+    `k` (the keys beside the queries x) both rotate in one launch each
+    way and the outputs are (x's, k's).  The phases get no gradient."""
 
     @staticmethod
-    def forward(ctx, x, cos, sin, interleaved=False):
+    def forward(ctx, x, cos, sin, interleaved=False, k=None):
         ctx.save_for_backward(cos, sin)
         ctx.interleaved = interleaved
-        return rope(x, cos, sin, interleaved=interleaved)
+        ctx.paired = k is not None
+        return rope(x, cos, sin, interleaved=interleaved, k=k)
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, gk=None):
         cos, sin = ctx.saved_tensors
-        return (rope(g, cos, sin, adjoint=True,
-                     interleaved=ctx.interleaved), None, None, None)
+        out = rope(g, cos, sin, adjoint=True, interleaved=ctx.interleaved,
+                   k=gk)
+        dx, dk = out if ctx.paired else (out, None)
+        return dx, None, None, None, dk

@@ -43,7 +43,15 @@ over the split's tiles and shares and the pages (pos 0 and fewer keys
 than the cluster's CTAs among them), a free slot on scratch page 0, GQA
 12/1 and 32/2, head dims 64, 128 and 256, paged == dense bit for bit,
 a sequence alone == in a batch, reruns bit for bit, and the refusal of
-pools and caches that start off a 16-byte boundary.
+pools and caches that start off a 16-byte boundary; the int8 decode
+kernel (the same cluster split over int8 codes and f32 scales) at the
+same edges with pages of 8, 16, 32 and 6 and scale tables off a 16-byte
+boundary (both scale copies give the same bits), alone == in a batch
+and reruns bit for bit; rope over q and k in one launch (decode rows
+whose heads split across blocks, GQA and MQA prefill rows, strided qkv
+views, both styles, forward and adjoint) bit for bit two single calls
+and the plain version, counting one launch, and `RoPE`'s paired
+gradients bit for bit the single-tensor ones.
 Every test needs an NVIDIA card and skips without one.  On the card (no
 JAX needed, so the JAX test conftest is left out)::
 
@@ -687,7 +695,8 @@ def test_tiny_llama_on_the_card_matches_cpu_engine_and_train_step():
             model(torch.from_numpy(ids).to(dev)),
             torch.from_numpy(labels).to(dev))
         grads.append(torch.autograd.grad(loss, list(model.parameters())))
-    assert K.launch_counts()["rope_bwd"] == 2 * cfg.num_layers
+    # one adjoint launch a layer: q's and k's gradients together
+    assert K.launch_counts()["rope_bwd"] == cfg.num_layers
     assert K.launch_counts()["flash_bwd"] == cfg.num_layers
     top = max(g.abs().max().item() for g in grads[1])
     for n, a, b in zip(dict(cpu.named_parameters()), *grads):
@@ -1524,14 +1533,17 @@ def _dec_split():
 
 
 def _dec_tile(dtype, d):
-    """Keys a tile of `DecTile` at head dim d."""
+    """Keys a tile of `DecTile` at head dim d (a lane reads 16 bytes of a
+    row, 8 of int8 codes)."""
     c = _dec_split()
+    elem = torch.empty((), dtype=dtype).element_size()
     chp = 1
-    while chp < d * torch.empty((), dtype=dtype).element_size() // 16:
+    while chp < d * elem // 16:
         chp *= 2
-    rpw = 32 // min(chp, 32)
-    return max(min(c["DEC_STAGE_BYTES"] // (2 * 16 * chp), 64),
-               c["DEC_THREADS"] // 32 * rpw)
+    rpw = 32 // min(chp * (2 if elem == 1 else 1), 32)
+    stage = c["DEC_Q8_STAGE_BYTES" if elem == 1 else "DEC_STAGE_BYTES"]
+    return max(min(stage // (2 * 16 * chp), 64), c["DEC_THREADS"] // 32 * rpw,
+               c["DEC_THREADS"] // chp)
 
 
 def _edge_lengths(dtype, d, ps):
@@ -1684,3 +1696,121 @@ def test_exact_decode_wrappers_refuse_misaligned_caches(dtype):
     with pytest.raises(ValueError, match="16-byte"):
         DA.decode_attention(q, cache, good[:1].contiguous(), pos)
     assert (PA.launches, DA.launches) == before
+
+
+# ------------------------------ int8 decode: the same cluster split
+def _int8_shuffled_pages(g, lens, hkv, d, ps, free_slots=1):
+    """`_shuffled_pages`'s table and positions over int8 pools (codes and
+    f32 scales from the codec), plus the scale tables copied to views
+    that start 4 bytes off a 16-byte boundary (the 4-byte scale copies)."""
+    kp, vp, pt, pos = _shuffled_pages(g, lens, hkv, d, ps, torch.float32,
+                                      free_slots)
+    kq, vq, ks, vs = _int8_pools(g, kp.shape[0], hkv, ps, d)
+    off = []
+    for t in (ks, vs):
+        flat = torch.empty(t.numel() + 1, device="cuda")
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16
+        off.append(view)
+    return kq, vq, ks, vs, off, pt, pos
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("ps", [8, 16, 32, 6])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (12, 1), (32, 2)])
+def test_paged_attention_int8_split_edges_match_plain(hq, hkv, d, ps, dtype):
+    """Key counts at, under and just over the int8 tiles, the shares and
+    the pages (pos 0 and fewer keys than the cluster's CTAs among them)
+    and a free slot on scratch page 0; pages of 8, 16, 32 and 6 (whose
+    scales cannot move four rows a copy), and scale tables off a 16-byte
+    boundary: both scale copies give the same bits."""
+    g = torch.Generator(device="cuda").manual_seed(hq + d + ps)
+    split, tk = _dec_split()["DEC_SPLIT"], _dec_tile(torch.int8, d)
+    lens = sorted({1, 2, split - 1, split + 1, tk - 1, tk, tk + 1,
+                   split * tk, split * tk + 1, ps - 1, ps, ps + 1, 3 * ps + 1,
+                   2 * split * tk + 5} - {0})
+    kq, vq, ks, vs, off, pt, pos = _int8_shuffled_pages(g, lens, hkv, d, ps)
+    q = _randn(g, len(pos), hq, d, dtype=dtype)
+    before = (PA.launches, PA.int8_launches)
+    got = PA.paged_attention(q, kq, vq, pt, pos, k_scales=ks, v_scales=vs)
+    assert (PA.launches, PA.int8_launches) == (before[0], before[1] + 1)
+    _close(got, PA.paged_attention_reference(q, kq, vq, pt, pos, ks, vs),
+           dtype)
+    assert torch.equal(PA.paged_attention(q, kq, vq, pt, pos,
+                                          k_scales=off[0], v_scales=off[1]),
+                       got)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_paged_attention_int8_alone_equal_in_a_batch_and_rerun(dtype):
+    """A sequence's int8 output does not depend on the rest of the batch
+    (its split is its own), and two runs give the same bits."""
+    g = torch.Generator(device="cuda").manual_seed(23)
+    hq, hkv, d, ps = 32, 8, 128, 16
+    lens = [1041, 3, 520, 77]
+    kq, vq, ks, vs, _, pt, pos = _int8_shuffled_pages(g, lens, hkv, d, ps,
+                                                      free_slots=0)
+    q = _randn(g, 4, hq, d, dtype=dtype)
+    batch = PA.paged_attention(q, kq, vq, pt, pos, k_scales=ks, v_scales=vs)
+    assert torch.equal(PA.paged_attention(q, kq, vq, pt, pos, k_scales=ks,
+                                          v_scales=vs), batch)
+    for i in range(4):
+        one = PA.paged_attention(q[i:i + 1].contiguous(), kq, vq,
+                                 pt[i:i + 1].contiguous(),
+                                 pos[i:i + 1].contiguous(), k_scales=ks,
+                                 v_scales=vs)
+        assert torch.equal(one[0], batch[i])
+
+
+# ------------------------------------- rope: q and k in one launch
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("b,s,hq,hkv,d", [
+    (4, 1, 32, 32, 128),     # llama_7b decode: heads split across blocks
+    (1, 67, 32, 8, 128),     # GQA prefill rows
+    (3, 5, 12, 1, 64),       # MQA
+    (2, 9, 4, 2, 12),        # scalar pairs (D/2 off the 16-byte vector)
+])
+def test_paired_rope_equals_two_single_calls(b, s, hq, hkv, d, dtype):
+    """One launch for q and k (strided views of a fused qkv projection,
+    per-row phases) equals the two single-tensor launches and the plain
+    version bit for bit, neox and interleaved, forward and adjoint, and
+    counts one launch."""
+    g = torch.Generator(device="cuda").manual_seed(b * s + hq + d)
+    qkv = _randn(g, b, s, (hq + 2 * hkv) * d, dtype=dtype)
+    q, k, _ = qkv.split([hq * d, hkv * d, hkv * d], dim=-1)
+    q, k = q.reshape(b, s, hq, d), k.reshape(b, s, hkv, d)
+    cos, sin = _phases(g, b, s, d, dtype)
+    for adjoint in (False, True):
+        for inter in (False, True):
+            K.reset_launches()
+            pq, pk = RP.rope(q, cos, sin, adjoint, inter, k=k)
+            counts = K.launch_counts()
+            assert (counts["rope"], counts["rope_bwd"]) == (
+                (0, 1) if adjoint else (1, 0))
+            for x, got in ((q, pq), (k, pk)):
+                assert got.is_contiguous() and got.shape == x.shape
+                assert torch.equal(got, RP.rope(x, cos, sin, adjoint, inter))
+                assert torch.equal(got, RP.rope_reference(x, cos, sin,
+                                                          adjoint, inter))
+    K.reset_launches()
+
+
+def test_paired_rope_grads_are_the_single_tensor_grads():
+    """`RoPE` over q and k: one forward and one adjoint launch, gradients
+    bit for bit those of `RoPE` on each tensor alone."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    b, s, hq, hkv, d = 2, 11, 8, 2, 64
+    q = _randn(g, b, s, hq, d, dtype=torch.float32).requires_grad_()
+    k = _randn(g, b, s, hkv, d, dtype=torch.float32).requires_grad_()
+    cos, sin = _phases(g, b, s, d, torch.float32)
+    dq, dk = (_randn(g, *x.shape, dtype=torch.float32) for x in (q, k))
+    K.reset_launches()
+    oq, ok = RP.RoPE.apply(q, cos, sin, False, k)
+    got = torch.autograd.grad((oq, ok), (q, k), (dq, dk))
+    assert K.launch_counts()["rope"] == K.launch_counts()["rope_bwd"] == 1
+    for x, gx, want in ((q, dq, got[0]), (k, dk, got[1])):
+        (one,) = torch.autograd.grad(RP.RoPE.apply(x, cos, sin), x, gx)
+        assert torch.equal(one, want)
+    K.reset_launches()

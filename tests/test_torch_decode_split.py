@@ -1,5 +1,6 @@
-"""The exact-tier decode kernels' split-and-merge arithmetic, modelled in
-plain PyTorch and held against the JAX package's Pallas kernels.
+"""The decode kernels' split-and-merge arithmetic, modelled in plain
+PyTorch and held against the JAX package's Pallas kernels: the exact
+tier (bf16 / f32 rows) and the int8 tier (int8 codes with f32 scales).
 
 ``paddle_tpu_torch/csrc/decode_common.cuh`` (`decode_split`) splits a
 sequence's valid keys across a cluster of DEC_SPLIT CTAs (shares of
@@ -16,7 +17,14 @@ themselves are held against their plain versions on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``).  The model runs at
 key counts that leave splits empty, short tiles and key counts just
 over a share, against `paged_attention` and `decode_attention` run in
-interpret mode, at atol = rtol = 2e-5 (f32 reduction order).
+interpret mode, at atol = rtol = 2e-5 (f32 reduction order).  The int8
+tier runs the same core over rows of int8 codes (elements of 1 byte,
+read 8 a lane: `DecTile<int8_t, CHP>`'s tiles), with each key's scale
+applied to its score and to its weight, which is code * scale summed
+over the row within f32 rounding; its model is `split_merge_model` on
+the rows dequantized as the JAX kernel dequantizes them, held against
+`paged_attention(..., k_scales=, v_scales=, interpret=True)` at the same
+tolerance.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ from paddle_tpu.ops.pallas.decode_attention import (
 from paddle_tpu.ops.pallas.paged_attention import (
     paged_attention as j_paged_attention,
 )
+from paddle_tpu_torch.ops.quant import dequantize_vectors, quantize_vectors
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HEADER = os.path.join(REPO, "paddle_tpu_torch", "csrc", "decode_common.cuh")
@@ -56,13 +65,15 @@ WARPS = CONST["DEC_THREADS"] // 32
 
 def tile_keys(elem, d):
     """(keys a tile, keys a warp a tile) of `DecTile` for elements of
-    `elem` bytes at head dim d."""
+    `elem` bytes at head dim d (a lane reads 16 bytes of a row, 8 of int8
+    codes, whose tile holds half the bytes)."""
     chp = 1
     while chp < d * elem // 16:
         chp *= 2
-    rpw = 32 // min(chp, 32)
-    tk = max(min(CONST["DEC_STAGE_BYTES"] // (2 * 16 * chp), 64),
-             WARPS * rpw)
+    rpw = 32 // min(chp * (2 if elem == 1 else 1), 32)
+    stage = CONST["DEC_Q8_STAGE_BYTES" if elem == 1 else "DEC_STAGE_BYTES"]
+    tk = max(min(stage // (2 * 16 * chp), 64), WARPS * rpw,
+             CONST["DEC_THREADS"] // chp)
     return tk, tk // WARPS
 
 
@@ -121,7 +132,8 @@ def split_merge_model(q, k, v, elem):
     return acc / torch.clamp(l, min=1e-30)[:, None], splits
 
 
-@pytest.mark.parametrize("elem", [2, 4], ids=["bf16-tiles", "f32-tiles"])
+@pytest.mark.parametrize("elem", [2, 4, 1],
+                         ids=["bf16-tiles", "f32-tiles", "int8-tiles"])
 @pytest.mark.parametrize("d", [16, 64])
 def test_shares_cover_the_keys_and_leave_late_ranks_empty(d, elem):
     tk, _ = tile_keys(elem, d)
@@ -229,4 +241,77 @@ def test_one_key_merges_to_its_value_row_exactly():
     ref = np.asarray(j_decode_attention(
         jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
         jnp.zeros(1, jnp.int32), block_k=8, interpret=True))
+    assert np.array_equal(ref[0], out.numpy())
+
+
+def _int8_pages(rs, lens, hq, hkv, d, ps):
+    """`_paged_case`'s pools quantized by the port's int8 codec (bit for
+    bit the JAX package's): (q, codes, scales of K and V, table, pos)."""
+    q, kp, vp, pt, pos = _paged_case(rs, lens, hq, hkv, d, ps)
+    kq, ks = quantize_vectors(torch.from_numpy(kp))
+    vq, vs = quantize_vectors(torch.from_numpy(vp))
+    return q, kq, ks, vq, vs, pt, pos
+
+
+def _int8_rows(codes, scales, pages, h, n):
+    """One (sequence, kv head)'s first n keys, dequantized in f32 as the
+    kernel does: each key's 16-code chunks times its scale."""
+    d = codes.shape[-1]
+    return dequantize_vectors(codes[pages, h], scales[pages, h]).reshape(
+        -1, d)[:n]
+
+
+@pytest.mark.parametrize("ps", [16, 6])
+@pytest.mark.parametrize("lens", ["pages", "tiles", "shares"])
+@pytest.mark.parametrize("hq,hkv", [(2, 2), (8, 2)])
+def test_int8_split_model_matches_pallas_paged_attention(hq, hkv, lens, ps):
+    """The int8 tier (G 1 and 4, D 64, pages of 16 and of 6, whose scales
+    the kernel copies 4 bytes a row): key counts at and across the page
+    boundaries with pos 0 ("pages"), at and across a tile ("tiles") and
+    one key over a whole share a CTA ("shares"), with shares left empty;
+    the split model on the dequantized rows against the Pallas kernel's
+    int8 branch in interpret mode."""
+    rs = np.random.RandomState(14)
+    d = 64
+    tk, _ = tile_keys(1, d)
+    lens = {"pages": [1, ps, ps + 1], "tiles": [tk - 1, tk, tk + 1],
+            "shares": [SPLIT * tk + 1]}[lens]
+    q, kq, ks, vq, vs, pt, pos = _int8_pages(rs, lens, hq, hkv, d, ps)
+    ref = np.asarray(j_paged_attention(
+        jnp.asarray(q), jnp.asarray(kq.numpy()), jnp.asarray(vq.numpy()),
+        jnp.asarray(pt), jnp.asarray(pos), interpret=True,
+        k_scales=jnp.asarray(ks.numpy()), v_scales=jnp.asarray(vs.numpy())))
+    g = hq // hkv
+    scale = 1.0 / d ** 0.5
+    empty = 0
+    for b, n in enumerate(lens):
+        pages = torch.from_numpy(pt[b]).long()
+        for h in range(hkv):
+            k = _int8_rows(kq, ks, pages, h, n)
+            v = _int8_rows(vq, vs, pages, h, n)
+            qg = torch.from_numpy(q[b, h * g:(h + 1) * g]) * scale
+            out, splits = split_merge_model(qg, k, v, 1)
+            empty += sum(lo == hi for lo, hi in splits)
+            np.testing.assert_allclose(out.numpy(),
+                                       ref[b, h * g:(h + 1) * g], **TOL)
+    assert empty > 0
+
+
+def test_int8_one_key_merges_to_its_dequantized_row_exactly():
+    """pos 0 in the int8 tier: the one key's weight is exactly 1 and the
+    empty shares' exactly 0, so the output is the key's value codes times
+    their scale, bit for bit, as the JAX kernel's is."""
+    rs = np.random.RandomState(15)
+    q, kq, ks, vq, vs, pt, pos = _int8_pages(rs, [1], 4, 1, 128, 16)
+    pages = torch.from_numpy(pt[0]).long()
+    out, splits = split_merge_model(
+        torch.from_numpy(q[0]) / 128 ** 0.5, _int8_rows(kq, ks, pages, 0, 1),
+        _int8_rows(vq, vs, pages, 0, 1), 1)
+    assert sum(lo < hi for lo, hi in splits) == 1
+    row = _int8_rows(vq, vs, pages, 0, 1).numpy()
+    assert np.array_equal(out.numpy(), np.repeat(row, 4, 0))
+    ref = np.asarray(j_paged_attention(
+        jnp.asarray(q), jnp.asarray(kq.numpy()), jnp.asarray(vq.numpy()),
+        jnp.asarray(pt), jnp.asarray(pos), interpret=True,
+        k_scales=jnp.asarray(ks.numpy()), v_scales=jnp.asarray(vs.numpy())))
     assert np.array_equal(ref[0], out.numpy())

@@ -254,6 +254,96 @@ def test_rope_grad_matches_jax_grad_of_rope_pallas():
     assert tc.grad is None and ts.grad is None
 
 
+def _qk_views(rs, b, s, hq, hkv, d, dtype=torch.float32):
+    """q [B,S,Hq,D] and k [B,S,Hkv,D] as the attention takes them: strided
+    views of one fused qkv projection."""
+    qkv = torch.from_numpy(rs.randn(b, s, (hq + 2 * hkv) * d).astype(
+        np.float32)).to(dtype)
+    q, k, _ = qkv.split([hq * d, hkv * d, hkv * d], dim=-1)
+    return q.reshape(b, s, hq, d), k.reshape(b, s, hkv, d)
+
+
+@pytest.mark.parametrize("adjoint", [False, True])
+@pytest.mark.parametrize("hq,hkv,pb", [(4, 2, 1), (6, 1, 2), (3, 3, 2)])
+def test_paired_rope_plain_matches_pallas_kernel(hq, hkv, pb, adjoint):
+    """One `rope` call for q and k of different head counts (GQA 4/2,
+    6/1, 3/3), per-row and broadcast phases, forward and adjoint: each
+    output against `_rope_call` in interpret mode on that tensor, and bit
+    for bit the two single-tensor calls, in f32 and bf16."""
+    rs = np.random.RandomState(hq * 10 + hkv + pb)
+    b, s, d = 2, 4, 16
+    q, k = _qk_views(rs, b, s, hq, hkv, d)
+    assert not q.is_contiguous() and not k.is_contiguous()
+    cos = rs.randn(pb, s, 1, d).astype(np.float32)
+    sin = rs.randn(pb, s, 1, d).astype(np.float32)
+    tc, ts = torch.from_numpy(cos), torch.from_numpy(sin)
+    oq, ok = rope(q, tc, ts, adjoint=adjoint, k=k)
+    for x, out in ((q, oq), (k, ok)):
+        ref = JR._rope_call(jnp.asarray(x.numpy()), jnp.asarray(cos),
+                            jnp.asarray(sin), adjoint, interpret=True)
+        assert out.shape == x.shape and out.is_contiguous()
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), **ROPE_TOL)
+    for dtype in (torch.float32, torch.bfloat16):
+        qd, kd, cd, sd = (t.to(dtype) for t in (q, k, tc, ts))
+        for inter in (False, True):
+            pair = rope(qd, cd, sd, adjoint, inter, k=kd)
+            assert torch.equal(pair[0], rope(qd, cd, sd, adjoint, inter))
+            assert torch.equal(pair[1], rope(kd, cd, sd, adjoint, inter))
+
+
+@pytest.mark.parametrize("interleaved", [False, True])
+def test_paired_rope_grads_match_jax_grad(interleaved):
+    """`RoPE` over q and k together: both gradients from one adjoint call,
+    against ``jax.grad`` through the JAX functional (the Pallas
+    `rope_pallas` custom VJP for neox, the jnp path for interleaved) on
+    the same GQA q [2,4,4,16] and k [2,4,2,16], and bit for bit the
+    single-tensor `RoPE`'s."""
+    rs = np.random.RandomState(9)
+    b, s, hq, hkv, d = 2, 4, 4, 2, 16
+    q, k = (rs.randn(b, s, h, d).astype(np.float32) for h in (hq, hkv))
+    gq, gk = (rs.randn(b, s, h, d).astype(np.float32) for h in (hq, hkv))
+
+    def jloss(q_, k_):
+        oq, ok, _ = P.nn.functional.fused_rotary_position_embedding(
+            P.Tensor(q_), P.Tensor(k_), None,
+            use_neox_rotary_style=not interleaved)
+        return (oq._value * gq).sum() + (ok._value * gk).sum()
+
+    want = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(q), jnp.asarray(k))
+    tq, tk = (torch.from_numpy(a).requires_grad_() for a in (q, k))
+    cos, sin = (p.to(torch.float32) for p in TF.rotary_phases(d, s))
+    oq, ok = RoPE.apply(tq, cos, sin, interleaved, tk)
+    ((oq * torch.from_numpy(gq)).sum()
+     + (ok * torch.from_numpy(gk)).sum()).backward()
+    for got, w in zip((tq.grad, tk.grad), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), atol=1e-5,
+                                   rtol=1e-5)
+    for x, g, got in ((q, gq, tq.grad), (k, gk, tk.grad)):
+        tx = torch.from_numpy(x).requires_grad_()
+        (RoPE.apply(tx, cos, sin, interleaved)
+         * torch.from_numpy(g)).sum().backward()
+        assert torch.equal(tx.grad, got)
+
+
+def test_fused_rope_rotates_q_k_and_v_as_jax():
+    """q and k go through one `RoPE` call and v through its own; all
+    three equal the JAX functional's, with per-row position ids."""
+    rs = np.random.RandomState(12)
+    b, s, hq, hkv, d = 2, 6, 4, 2, 16
+    q = rs.randn(b, s, hq, d).astype(np.float32)
+    k, v = (rs.randn(b, s, hkv, d).astype(np.float32) for _ in range(2))
+    ids = np.clip(np.arange(s)[None] - np.asarray([[0], [2]]), 0,
+                  None).astype(np.int32)
+    want = P.nn.functional.fused_rotary_position_embedding(
+        *(P.to_tensor(a) for a in (q, k, v)), position_ids=ids)
+    got = TF.fused_rotary_position_embedding(
+        *(torch.from_numpy(a) for a in (q, k, v)),
+        position_ids=torch.from_numpy(ids))
+    for a, r in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r._value),
+                                   atol=1e-5, rtol=1e-5)
+
+
 def test_rope_adjoint_is_the_transpose():
     """<rope(x), g> == <x, rope_adjoint(g)> for neox phases (both halves
     of sin equal) and, in the interleaved style, for any phases (to the

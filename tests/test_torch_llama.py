@@ -213,6 +213,54 @@ def test_engine_matches_generate_and_jax_engine(models, prompts):
     assert eng.prefix_cache_stats()["hits"] >= 1   # warm prefill ran
 
 
+def test_rope_phases_once_per_forward(models, ids, prompts, monkeypatch):
+    """A model forward computes its rotary phases once and hands them to
+    every layer: `_rope_phases` runs once per forward of llama_tiny (2
+    layers) and of the GPT class's rope variant, plain, cached prefill
+    and decode, and every engine forward; the logits and the engine's
+    tokens still equal the JAX model's."""
+    from paddle_tpu_torch.nn.functional import attention as A
+
+    calls = []
+    orig = A._rope_phases
+
+    def counted(*a):
+        calls.append(1)
+        return orig(*a)
+
+    monkeypatch.setattr(A, "_rope_phases", counted)
+    jm, tm = models
+    jl = np.asarray(jm(P.to_tensor(ids, "int32"))._value)
+    with torch.inference_mode():
+        tl = tm(torch.from_numpy(ids)).numpy()
+        assert len(calls) == 1
+        b, s0 = ids.shape
+        tc = tm.init_kv_caches(b, s0 + 4)
+        _, tc = tm(torch.from_numpy(ids), kv_caches=tc, cache_pos=0)
+        tm(torch.from_numpy(ids[:, :1]), kv_caches=tc, cache_pos=s0)
+        assert len(calls) == 3
+    np.testing.assert_allclose(tl, jl, atol=1e-4, rtol=0)
+    cfg = dict(page_size=4, max_slots=2, max_seq_len=64)
+    jouts = JEngine(jm, JEngineConfig(**cfg)).generate(prompts[:3],
+                                                       max_new_tokens=6)
+    forwards = []
+    hook = tm.register_forward_hook(lambda *a: forwards.append(1))
+    try:
+        del calls[:]
+        outs = InferenceEngine(tm, EngineConfig(**cfg)).generate(
+            prompts[:3], max_new_tokens=6)
+    finally:
+        hook.remove()
+    assert len(calls) == len(forwards) > 0
+    for o, j in zip(outs, jouts):
+        np.testing.assert_array_equal(o, j)
+    gpt = TG.GPTForCausalLM(TG.GPTConfig(**GPT_LLAMA), device="cpu")
+    del calls[:]
+    with torch.inference_mode():
+        gpt(torch.from_numpy(ids % 96))
+    assert len(calls) == 1
+
+
 @pytest.mark.parametrize("page_size,slots,chunk", [(8, 3, 4), (16, 5, 1)])
 def test_engine_matches_generate_other_pages(models, prompts, page_size,
                                              slots, chunk):

@@ -435,25 +435,38 @@ def test_flash_kv_tier_reaches_only_kernels():
 
 
 def test_rope_backward_reaches_only_the_kernel():
-    """`RoPE`'s forward and backward run the rope wrapper (the kernel on
-    CUDA; the backward with ``adjoint=True``) and no plain version, with
-    nothing caught; the functional rotates every style through `RoPE`."""
+    """`RoPE`'s forward and backward each run the rope wrapper once (the
+    kernel on CUDA; the backward with ``adjoint=True``), for q and k
+    together (the second tensor rides the same call), and no plain
+    version, with nothing caught.  The functional rotates every style
+    through `RoPE`, q with k in one call; both model families rotate a
+    layer's q and k through `rotate_qk`, one `RoPE` call."""
+    from paddle_tpu_torch.models import gpt as G
+    from paddle_tpu_torch.models import llama as L
     from paddle_tpu_torch.nn.functional import attention as A
 
-    for method, adjoint in ((K.rope.RoPE.forward, False),
-                            (K.rope.RoPE.backward, True)):
+    for method, adjoint, second in ((K.rope.RoPE.forward, False, "k"),
+                                    (K.rope.RoPE.backward, True, "gk")):
         fn = ast.parse(textwrap.dedent(inspect.getsource(method)))
         assert not any(isinstance(n, ast.Try) for n in ast.walk(fn))
         calls = [n for n in ast.walk(fn) if isinstance(n, ast.Call)]
         called = {ast.unparse(n.func) for n in calls}
         assert "rope" in called, called
         assert not any(c.endswith("_reference") for c in called), called
-        flags = [ast.unparse(kw.value) for n in calls
-                 if ast.unparse(n.func) == "rope" for kw in n.keywords
-                 if kw.arg == "adjoint"]
-        assert flags == (["True"] if adjoint else []), flags
+        ropes = [n for n in calls if ast.unparse(n.func) == "rope"]
+        assert len(ropes) == 1, [ast.unparse(n) for n in ropes]
+        kw = {k.arg: ast.unparse(k.value) for k in ropes[0].keywords}
+        assert kw.get("adjoint") == ("True" if adjoint else None), kw
+        assert kw.get("k") == second, kw
     src = inspect.getsource(A.fused_rotary_position_embedding)
     assert "RoPE.apply" in src and "_reference" not in src
+    assert "q, k = RoPE.apply(q, cos, sin, interleaved, k)" in src
+    assert "return RoPE.apply(q, cos, sin, False, k)" in inspect.getsource(
+        A.rotate_qk)
+    for attn in (L.LlamaAttention.forward, G.GPTAttention.forward):
+        src = inspect.getsource(attn)
+        assert src.count("F.rotate_qk(q, k, rope)") == 1, src
+        assert "fused_rotary_position_embedding" not in src
 
 
 def test_serving_entries_run_under_inference_mode():
@@ -610,15 +623,22 @@ def test_decode_wrappers_take_any_gqa_group(wrapper):
     ("decode_attention.cu", "decode_attention_kernel<T, CHP, GM>"),
 ])
 def test_exact_decode_kernels_split_keys_across_a_cluster(name, kernel):
-    """The exact-tier decode kernels run `decode_split`: K / V rows copied
-    16 bytes a lane (`cp.async` into a ring of shared-memory tiles, read
-    back as 16-byte vectors), one launch on clusters of DEC_SPLIT CTAs
-    whose partials rank 0 merges through distributed shared memory.  The
-    split is a plain compile-time constant, never derived from the batch:
-    the grid is Hkv x DEC_SPLIT along x.  No atomics, no library kernel,
-    only the toolkit's headers; the 2-byte-lane core is gone from the
-    exact path, and the int8 tier keeps its own kernel."""
+    """Both KV tiers' decode kernels run the one core `decode_split`: K /
+    V rows copied 16 bytes a lane (`cp.async` into a ring of
+    shared-memory tiles, read back as 16-byte vectors), one launch on
+    clusters of DEC_SPLIT CTAs whose partials rank 0 merges through
+    distributed shared memory, between the core's two cluster barriers.
+    The split is a plain compile-time constant, never derived from the
+    batch: the grid is Hkv x DEC_SPLIT along x.  The exact tier calls the
+    core with KV = T; the int8 tier (the paged source only) with KV =
+    int8_t, its codes copied as the exact rows are, and its scales four
+    rows a 16-byte copy where the launcher finds PS % 4 == 0 and aligned
+    tables, else 4 bytes a row.  The old cores are gone: the 2-byte-lane
+    exact core and the int8 tier's block-per-head kernel
+    (`decode_rows_q8`).  No atomics, no library kernel, only the
+    toolkit's headers."""
     code = _translation_unit(name)
+    paged = name == "paged_attention.cu"
     assert "cp.async.cg.shared.global [%0], [%1], 16, %2;" in code
     assert "reinterpret_cast<const uint4*>" in code
     assert f"decode_cluster_launch(\n      {kernel}" in code
@@ -627,16 +647,44 @@ def test_exact_decode_kernels_split_keys_across_a_cluster(name, kernel):
     assert "cudaLaunchKernelEx" in code
     assert "mapa.shared::cluster.u32" in code
     assert "ld.shared::cluster.f32" in code
+    # one core for both tiers, with exactly two cluster barriers
     assert code.count("dec_cluster_sync();") == 2
-    assert re.search(r"decode_split<T, CHP, GM>\(", code)
+    assert code.count("__device__ __forceinline__ void decode_split(") == 1
+    assert re.search(r"decode_split<T, T, CHP, GM>\(q \+ qo, k\w, v\w, "
+                     r"nullptr, nullptr, false, rows,", code)
     split = re.findall(r"constexpr int DEC_SPLIT = (\w+);", code)
     assert split in (["2"], ["4"], ["8"]), split
-    assert "dim3(Hkv * DEC_SPLIT, B, decode_chunks(group))" in code
+    assert code.count("dim3(Hkv * DEC_SPLIT, B, decode_chunks(group))") \
+        == (2 if paged else 1)
     assert not re.search(r"DEC_SPLIT\s*=|#\s*define\s+DEC_SPLIT",
                          code.replace("constexpr int DEC_SPLIT = "
                                       f"{split[0]};", ""))
-    assert "decode_rows<" not in code and "pt_nj(D)" not in code
-    assert ("decode_rows_q8<" in code) == (name == "paged_attention.cu")
+    assert "decode_rows" not in code and "pt_nj(D)" not in code
+    assert "DEC_WARPS" not in code and "paged_attention_q8_kernel" not in code
+    # the int8 tier: the same cluster launch and core over int8 codes
+    assert ("decode_cluster_launch(\n      paged_attention_int8_kernel<T, "
+            "CHP, GM>" in code) == paged
+    assert bool(re.search(r"decode_split<T, int8_t, CHP, GM>\(q \+ qo, kp, "
+                          r"vp, ks, vs, scales16 != 0,", code)) == paged
+    assert ("__launch_bounds__(DEC_THREADS, GM == 1 ? DEC_Q8_MIN_CTAS : 1)\n"
+            "    paged_attention_int8_kernel(" in code) == paged
+    assert ("const int v16 = PS % 4 == 0 && tc_aligned(ks) && "
+            "tc_aligned(vs);" in code) == paged
+    # its rows through the exact tier's 16-byte copy, its scales in the
+    # same ring stage: 16 bytes for four rows, else 4 bytes a row
+    assert "dec_cp16(dst, kb + off, ok);" in code
+    assert "dec_cp16(dst, ks + ri, ok);" in code
+    assert "dec_cp16(dst + L::TK * 4, vs + ri, ok);" in code
+    assert "cp.async.ca.shared.global [%0], [%1], 4, %2;" in code
+    assert "if (cc == 0 && (!scales16 || row % 4 == 0)) {" in code
+    # int8 codes read 8 a lane, turned into f32 by a byte permute and an
+    # add (no integer-to-float conversion), the key's scales applied to
+    # its score and its weight
+    assert code.count("dec_codes8(src, ") == 2
+    assert "static constexpr int RB = sizeof(T) == 1 ? 8 : 16;" in code
+    assert "__byte_perm(word[i], 0x4B000000u," in code
+    assert "if constexpr (Q8) dot *= kst[row];" in code
+    assert "const float pv = Q8 ? p * vsc : p;" in code
     assert "atomic" not in code
     assert set(re.findall(r"#include <([^>]+)>", code)) <= {
         "cuda_bf16.h", "cuda_runtime.h", "stdint.h"}

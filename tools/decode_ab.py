@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""A/B timing of the port's exact-tier decode kernels (`paged_attention`,
-`decode_attention`) against other builds of the same C interface, on one
-CUDA card.
+"""A/B timing of the port's decode kernels (`paged_attention` over bf16 /
+f32 pools and over int8 pools, `decode_attention`) and of its rope kernel
+against other builds of the same C interfaces, on one CUDA card.
 
     python3 tools/decode_ab.py [--set NAME=V[,NAME=V ...] ...] [OLD_DIR ...]
 
 Each OLD_DIR holds another copy of ``paddle_tpu_torch/csrc``'s
-``paged_attention.cu`` and ``decode_attention.cu`` with the headers they
-include (an earlier commit's decode core, say); each ``--set`` adds a
+``paged_attention.cu``, ``decode_attention.cu`` and ``rope.cu`` with the
+headers they include (an earlier commit's decode core, say); each
+``--set`` adds a
 copy of the package's two sources whose ``decode_common.cuh`` gives the
 named ``constexpr int`` constants other values: ``--set DEC_SPLIT=4``
 (the CTAs a cluster), ``DEC_STAGES`` (the ring's tiles),
@@ -25,10 +26,18 @@ dense rows (B4, 32 kv heads of 128, ~1000 keys a row) -- at the lengths
 of the llama_7b engine decode step that ``chip_smoke.py --profile``
 profiles (prompts of 37 / 128 / 300 / 517 tokens, ~8 generated), and at
 rows that part a launch's cost: one key a row (the fixed cost) and one
-llama_7b row of 129 or 1041 keys alone (one sequence's rate).  Printed:
-the card, each build's registers and spills, whether each variant's
-output equals the package's bit for bit (else its largest difference),
-the four device times and the byte bound.
+llama_7b row of 129 or 1041 keys alone (one sequence's rate).  The int8
+tier's kernel (`paged_attention_int8`, codes and f32 scales from the
+codec) runs at phase 3's gpt_1p3b and llama_7b int8 rows, at the
+profiled int8 step's lengths and at one key a row.  rope runs at q and k
+of a llama_7b layer (32 + 32 heads of 128, views of the fused qkv
+projection) at the ragged decode step (B4 S1, per-row phases) and at the
+prefill (B1 S1008): the package rotates both in one launch; a variant
+whose ``rope`` C function takes one tensor (the earlier interface) runs
+two launches, q then k, and its device time is the pair's.  Printed: the
+card, each build's registers and spills, whether each variant's output
+equals the package's bit for bit (else its largest difference), the four
+device times and the byte bound.
 """
 from __future__ import annotations
 
@@ -43,7 +52,7 @@ import tempfile
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
-SOURCES = ("paged_attention", "decode_attention")
+SOURCES = ("paged_attention", "decode_attention", "rope")
 
 
 def _variant_dirs(olds, sets, root):
@@ -143,6 +152,40 @@ def _rows(torch, dtype):
                      2 * keys * hkv * d * isz
                      + 2 * len(pos) * hq * d * isz + pt.numel() * 4
                      + 4 * len(pos)))
+    from paddle_tpu_torch.ops.quant import quantize_vectors
+
+    for label, hq, hkv, pos in (
+            ("gpt_1p3b int8 B4 pool513x16x16x128", 16, 16,
+             (1031, 330, 551, 0)),
+            ("llama_7b int8 B4 pool513x32x16x128", 32, 32,
+             (1040, 1000, 960, 1020)),
+            ("llama_7b int8 B4 at the profiled engine step", 32, 32,
+             (45, 136, 308, 525)),
+            ("llama_7b int8 B4, one key a row (fixed cost)", 32, 32,
+             (0, 0, 0, 0))):
+        q = randn(len(pos), hq, d)
+        kq, ks = quantize_vectors(torch.randn(npool, hkv, ps, d, generator=g,
+                                              device="cuda"))
+        vq, vs = quantize_vectors(torch.randn(npool, hkv, ps, d, generator=g,
+                                              device="cuda"))
+        pt = C._paged_table(torch, g, pos, npool, p, ps)
+        keys = sum(x + 1 for x in pos)
+        rows.append((label, "paged_attention_int8",
+                     (q, kq, vq, pt, i32(pos), ks, vs),
+                     keys * hkv * (2 * d + 2 * 4)
+                     + 2 * len(pos) * hq * d * isz + pt.numel() * 4
+                     + 4 * len(pos)))
+    for label, b, s_, per_row in (
+            ("rope q+k decode B4 S1 H32+32 D128 per-row", 4, 1, True),
+            ("rope q+k prefill B1 S1008 H32+32 D128", 1, 1008, False)):
+        qkv = randn(b, s_, 3 * 32 * d)
+        q = qkv[..., :32 * d].reshape(b, s_, 32, d)
+        k = qkv[..., 32 * d:64 * d].reshape(b, s_, 32, d)
+        ang = torch.rand(b if per_row else 1, s_, 1, d, generator=g,
+                         device="cuda") * 6
+        cos, sin = torch.cos(ang).to(dtype), torch.sin(ang).to(dtype)
+        rows.append((label, "rope", (q, k, cos, sin),
+                     2 * 2 * q.numel() * isz + 2 * cos.numel() * isz))
     for label, hq, hkv, cap, pos, start in (
             ("gpt_1p3b dense B4 cap256 left-pad", 16, 16, 256, 150,
              (0, 28, 64, 111)),
@@ -166,6 +209,7 @@ def main(argv):
     from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import decode_attention as DA
     from paddle_tpu_torch.ops.kernels import paged_attention as PA
+    from paddle_tpu_torch.ops.kernels import rope as RP
     from tools.flash_ab import build_variants
 
     sets, olds = [], []
@@ -188,20 +232,69 @@ def main(argv):
     try:
         variants = _variant_dirs(olds, sets, root)
         paths = [p for v in variants.values() for p in v.values()]
-        sigs = {**PA._SIG, **DA._SIG}
+        sigs = {**PA._SIG, **PA._INT8_SIG, **DA._SIG}
         libs = build_variants(paths, list(SOURCES), sigs, _regs)
         if libs is None:
             return 1
+        # `rope`: the package's paired interface, or the earlier one of a
+        # single tensor (x, cos, sin, out, B, S, H, D, 4 strides, flags)
+        for v in variants.values():
+            with open(v["rope"]) as f:
+                paired = "const void* x2" in f.read()
+            lib = libs[os.path.basename(v["rope"])]
+            lib.paired = paired
+            lib.rope.argtypes = RP._SIG["rope"] if paired else (
+                [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                + [ctypes.c_int64] * 4 + [ctypes.c_int] * 4
+                + [ctypes.c_void_p])
+            lib.rope.restype = ctypes.c_int
 
         def stream():
             return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
+        def rope_with(lib, a):
+            """One launch for q and k (the package's interface), or two
+            (a variant whose `rope` takes one tensor)."""
+            q, k, cos, sin = a
+            b, s_, h, d = q.shape
+            spb = s_ * d if cos.shape[0] > 1 else 0
+            cs, sn = (t.reshape(t.shape[0], s_, d) for t in (cos, sin))
+            vec = 16 // q.element_size()
+            outs = [torch.empty(x.shape, dtype=q.dtype, device=q.device)
+                    for x in (q, k)]
+            st = [[x.stride(i) for i in range(3)] for x in (q, k)]
+            dt = RP._DTYPES[q.dtype]
+            if lib.paired:
+                err = lib.rope(q.data_ptr(), k.data_ptr(), cs.data_ptr(),
+                               sn.data_ptr(), outs[0].data_ptr(),
+                               outs[1].data_ptr(), b, s_, h, k.shape[2], d,
+                               *st[0], *st[1], spb, 0, 0, vec, dt, stream())
+            else:
+                for x, o, sx in zip((q, k), outs, st):
+                    err = lib.rope(x.data_ptr(), cs.data_ptr(),
+                                   sn.data_ptr(), o.data_ptr(), b, s_,
+                                   x.shape[2], d, *sx, spb, 0, 0, vec, dt,
+                                   stream())
+                    _build.check(err, "rope (variant)")
+            _build.check(err, "rope (variant)")
+            return tuple(outs)
+
         def with_lib(lib, kernel, a):
+            if kernel == "rope":
+                return rope_with(lib, a)
             q = a[0]
             b, hq, d = q.shape
             out = torch.empty_like(q)
             ptrs = [x.data_ptr() for x in a] + [out.data_ptr()]
-            if kernel == "paged_attention":
+            if kernel == "paged_attention_int8":
+                q, kq, vq, pt, pos, ks, vs = a
+                err = lib.paged_attention_int8(
+                    q.data_ptr(), kq.data_ptr(), vq.data_ptr(),
+                    ks.data_ptr(), vs.data_ptr(), pt.data_ptr(),
+                    pos.data_ptr(), out.data_ptr(), b, hq, kq.shape[1],
+                    kq.shape[2], pt.shape[1], d, 1.0 / d ** 0.5,
+                    PA._DTYPES[q.dtype], stream())
+            elif kernel == "paged_attention":
                 err = lib.paged_attention(
                     *ptrs, b, hq, a[1].shape[1], a[1].shape[2],
                     a[3].shape[1], d, 1.0 / d ** 0.5, PA._DTYPES[q.dtype],
@@ -213,22 +306,36 @@ def main(argv):
             _build.check(err, f"{kernel} (variant)")
             return out
 
+        def paired_rope(q, k, cos, sin):
+            return RP.rope(q, cos, sin, k=k)
+
+        def flat(x):       # rope's (q, k) as one tensor, for the compare
+            return torch.cat([o.flatten() for o in x]) \
+                if isinstance(x, tuple) else x
+
         wrappers = {"paged_attention": PA.paged_attention,
-                    "decode_attention": DA.decode_attention}
+                    "paged_attention_int8": lambda q, kq, vq, pt, pos, ks,
+                    vs: PA.paged_attention(q, kq, vq, pt, pos, k_scales=ks,
+                                           v_scales=vs),
+                    "decode_attention": DA.decode_attention,
+                    "rope": paired_rope}
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[1]
             for label, kernel, a, nbytes in _rows(torch, dtype):
                 def run(kernel=kernel, a=a):
                     return wrappers[kernel](*a)
-                ref = run()
+                ref = flat(run())
                 bms, _ = C.bound_ms(nbytes, 0, dname)
                 print(f"{label} {dname}: bound {bms:.5f} ms")
+                source = "rope" if kernel == "rope" else \
+                    "paged_attention" if kernel.startswith("paged") \
+                    else kernel
                 for tag, srcs in variants.items():
-                    lib = libs[os.path.basename(srcs[kernel])]
+                    lib = libs[os.path.basename(srcs[source])]
 
                     def other(lib=lib, kernel=kernel, a=a):
                         return with_lib(lib, kernel, a)
-                    got = other()
+                    got = flat(other())
                     same = torch.equal(got, ref)
                     diff = (got.float() - ref.float()).abs().max().item()
                     t = [C.device_ms(other), C.device_ms(run),
