@@ -39,7 +39,11 @@ non-zero and prints no result):
   4. serve: gpt_1p3b (full width, 24 layers, bf16, seeded random
      weights) behind `InferenceEngine` with the default EngineConfig;
      8 requests at once, three sharing a 512-token prefix (warm
-     prefill); every request must finish with 32 tokens;
+     prefill); every request must finish with 32 tokens; the decode
+     step replays one captured CUDA graph (the model's forward runs only
+     for the prefills); then 4 decode steps of every slot through the
+     replay and through the eager body from equal copies of the pools
+     give equal tokens and bit-identical pools;
   5. generate: greedy `generate()` on the same model, an equal-length
      batch (causal flash_fwd) and a left-padded one (causal flash_fwd
      with a pad bias, then decode_attention); bf16 logits against the
@@ -47,17 +51,23 @@ non-zero and prints no result):
   6. parity: gpt_1p3b widths at 2 layers in f32, the 8 prompts of phase
      4 (two warm prefills) — engine streams must equal generate()
      streams (a divergence passes only at a top-2 logit margin below
-     1e-3, and is reported);
+     1e-3, and is reported); the replay against the eager body as in
+     phase 4, in f32;
   7. train_parity: GPT-125M widths (hidden 768, 12 heads, vocab 50304)
      at 2 layers in f32, batch 2 x 256, one seed: 3 AdamW steps on the
      card through the kernels and the same 3 on the CPU through the
-     plain versions; the losses agree within 1e-3;
+     plain versions; the losses agree within 1e-3; then 3 more steps
+     replayed against 3 eager bodies from equal copies of the state:
+     losses, parameters, slots and buffers bit for bit (f32);
   8. train: GPT-125M at full width and depth (12 layers, seq 1024),
      f32 master weights, bf16 AMP, fused head + CE, AdamW lr 1e-4, batch
      8 on one fixed batch (bench.py's step): 2 warm-up steps, then
      `run_steps(repeat=10)` timed between synchronizes: tokens/s, ms per
      step, MFU against the 989 TFLOP/s bf16 peak, peak memory, launches
-     per step.  The loss must stay finite and fall;
+     per step.  The loss must stay finite and fall; the first call ran
+     the model's forward and every later one replayed the step's graph;
+     then `run_steps(repeat=10)` replayed against 10 eager bodies from
+     equal copies of the state, bit for bit (bf16);
  8a. kv_layout_parity: GPT-125M widths at 2 layers in f32, batch 2 x
      256: 3 AdamW steps under FLAGS_flash_layout=kv and 3 on the native
      tier from the same weights; losses and every parameter after the
@@ -72,13 +82,15 @@ non-zero and prints no result):
  9a. llama_serve_int8: the same model and requests behind
      EngineConfig(kv_precision="int8"): int8 page pools with f32 scales,
      paged_attention_int8 launched 32 times per decode forward and the
-     bf16 paged_attention never; page bytes of both tiers;
+     bf16 paged_attention never; page bytes of both tiers; phase 4's
+     graph checks;
  10. llama_generate: as phase 5 on llama_7b (the f32 copy at full depth);
  11. llama_parity: llama2_70b_shapes widths (hidden 8192, 64 heads over 8
      kv heads, ffn 28672) at 2 layers in f32, as phase 6: a GQA group of
      8 through paged_attention, decode_attention and flash_fwd;
  11a. int8_parity: the same widths under kv_precision="int8": two
-     engine runs bit-identical, every first token equal to the exact
+     engine runs bit-identical, the replay against the eager body as in
+     phase 4 (f32), every first token equal to the exact
      engine's, the card's int8 codec bit for bit the CPU's on one dense
      K buffer, and every page a 1000-token prefill packs, dequantized,
      within absmax / 127 of its dense rows;
@@ -111,7 +123,8 @@ non-zero and prints no result):
      then `run_steps(repeat=10)` timed between synchronizes: images/s,
      ms per step, MFU (bench.py's flops per image over 989 TFLOP/s),
      peak memory, exact launches per step.  The loss must stay finite
-     and fall.
+     and fall; the graph replayed and equal to the eager body bit for
+     bit, as in phase 8.
 
  17. varlen: `nn.functional.flash_attn_unpadded` forward and backward on
      one packed batch at GPT-125M attention widths (12 heads of 64, 8192
@@ -169,7 +182,11 @@ same sequence in the batch of 4, for both kernels.
 
 Launch counters are reset just before the driven part of phases 4, 5,
 8, 8a, 8b, 9, 9a, 10, 11a, 12, 14, 15, 16, 17, 19 and 20 and read just
-after each; every kernel of each path must have launched.  The line before last is the
+after each; every kernel of each path must have launched.  A replayed
+CUDA graph (the engine's decode step, the train step) adds the launches
+its capture recorded to the counters, once a replay.  Under --profile
+each profiled path also prints its host launch calls a step
+(cudaLaunchKernel and cudaGraphLaunch, count and host ms).  The line before last is the
 JSON kernel table (`launches` summed over those paths); the last line
 is the device JSON.
 """
@@ -1135,7 +1152,7 @@ def _swin_train_launches(batch):
 
     step, imgs, labels = _vision_train_step("swin_t", batch)
     with mock.patch.object(WA, "window_attention_bwd", rec):
-        step(imgs, labels)
+        step._step(step._place((imgs, labels)))     # the eager body
     torch.cuda.synchronize()
     calls = sum(seen.values())
     check(calls == 12, f"kernels: one Swin-T train step called "
@@ -1744,6 +1761,7 @@ def phase_serve(model, cfg, name, kv_precision=None):
     eng.generate([prompts[1][:16]], max_new_tokens=2)
     eng.clear_prefix_cache()
     step_ms.clear()
+    warm_prefills = eng._prefix_hits + eng._prefix_misses
     torch.cuda.synchronize()
     forwards, hook = _count_forwards(model)
     K.reset_launches()
@@ -1789,7 +1807,15 @@ def phase_serve(model, cfg, name, kv_precision=None):
           "per forward")
     check(counts[other] == 0, f"serve: {other} launched {counts[other]} "
           f"times under kv_precision={kv_precision}")
-    _rope_launches_per_forward(counts, cfg, len(forwards), "serve")
+    # the decode forwards replay the captured program: the model's
+    # forward hook sees only the prefills
+    prefills = eng._prefix_hits + eng._prefix_misses - warm_prefills
+    check(len(forwards) == prefills and len(eng._programs) == 1,
+          f"serve: {len(forwards)} model calls for {prefills} prefills, "
+          f"{len(eng._programs)} decode programs: the decode step did not "
+          "replay one graph")
+    _rope_launches_per_forward(counts, cfg, prefills + len(step_ms)
+                               * eng.config.decode_chunk, "serve")
     gen = sum(len(o) - len(p) for p, o in zip(prompts, outs))
     ttft = sorted(first)
     st = eng.stats()
@@ -1803,7 +1829,68 @@ def phase_serve(model, cfg, name, kv_precision=None):
         f"{eng.config.num_pages} pages, {len(forwards)} forwards, "
         f"{paged} {counts[paged] / max(1, len(step_ms)):.0f} per decode "
         f"forward, launches {json.dumps(counts)}")
+    _engine_replay_equals_eager(eng, f"serve {name} bf16 kv "
+                                f"{st['kv_precision']}")
     return counts
+
+
+def _engine_replay_equals_eager(eng, what, steps=4):
+    """`steps` decode steps of every slot through the engine's captured
+    program (`_run_decode`, a graph replay each) and the same steps
+    through its eager body (`_decode_body`) from equal copies of the
+    pools: the tokens, and every pool and scale table after the steps,
+    bit for bit.  Every slot is live on pages of its own, so no two rows
+    write one pool slot (free slots share scratch page 0, where the last
+    of several writes is not defined)."""
+    import torch
+
+    s_, p_ = eng.config.max_slots, eng.max_pages_per_seq
+    n = eng.config.decode_chunk
+    check(s_ * p_ < eng.config.num_pages, f"{what}: the pool cannot hold "
+          f"{s_} slots of {p_} pages")
+    rs = np.random.RandomState(SEED + 5)
+    pt = (1 + np.arange(s_ * p_, dtype=np.int32)).reshape(s_, p_)
+    lengths0 = rs.randint(0, eng.config.max_seq_len - steps * n,
+                          s_).astype(np.int32)
+    tok0 = rs.randint(0, eng._model.cfg.vocab_size, s_).astype(np.int32)
+    pools = eng._pool_tensors()
+    dev = eng._device
+
+    def run(one):
+        out, tok, lengths = [], tok0, lengths0
+        for _ in range(steps):
+            toks = one(tok, lengths)
+            out.append(toks)
+            tok, lengths = toks[:, -1].copy(), lengths + n
+        return np.stack(out)
+
+    def eager(tok, lengths):
+        toks = torch.zeros(s_, n, dtype=torch.int32, device=dev)
+        eng._decode_body(n, *(torch.from_numpy(a).to(dev)
+                              for a in (tok, pt, lengths)), toks)
+        return toks.cpu().numpy()
+
+    with torch.inference_mode():
+        start = [p.clone() for p in pools]
+        replayed = run(lambda tok, lengths: eng._run_decode(n, tok, pt,
+                                                            lengths))
+        after = [p.clone() for p in pools]
+        for p, s in zip(pools, start):
+            p.copy_(s)
+        del start
+        direct = run(eager)
+        torch.cuda.synchronize()
+        diff = [i for i, (a, p) in enumerate(zip(after, pools))
+                if not torch.equal(a, p)]
+    check(np.array_equal(replayed, direct), f"{what}: replayed decode "
+          f"tokens {replayed[:, :, -1].tolist()} differ from the eager "
+          f"body's {direct[:, :, -1].tolist()}")
+    check(not diff, f"{what}: {len(diff)} of {len(pools)} pools and scale "
+          f"tables differ between the replay and the eager body (first "
+          f"#{diff[:1]})")
+    log(f"[graphs] {what}: {steps} decode steps x {s_} slots, replay == "
+        f"eager body bit for bit (tokens and {len(pools)} pools / scale "
+        "tables)")
 
 
 # ----------------------------------------------------------------- phase 5
@@ -1892,6 +1979,7 @@ def phase_parity(cls, cfg, name):
               f"{at - len(p)} of a {len(p)}-token prompt, top-2 margin "
               f"{margin:.3g} >= 1e-3")
         near.append((len(p), at - len(p), margin))
+    _engine_replay_equals_eager(eng, f"parity f32 {name} widths")
     log(f"[parity] f32 {name} widths {cfg.num_layers}L: {same}/"
         f"{len(prompts)} engine "
         f"streams identical to generate(); near-ties {near}; prefix hits "
@@ -1939,6 +2027,7 @@ def phase_int8_parity(cls, cfg, name, new_tokens=8):
               f"int8 first token differs from the exact engine's on a "
               f"{p.size}-token prompt")
     same = sum(np.array_equal(a, e) for a, e in zip(runs[0], exact))
+    _engine_replay_equals_eager(eng, f"int8_parity f32 {name} widths")
     # one cold prefill packed by a fresh int8 engine into pages 1..n
     eng = InferenceEngine(model, EngineConfig(kv_precision="int8"))
     prompt = prompts[5]                           # 1000 tokens
@@ -2063,10 +2152,13 @@ def phase_train_parity(cls, cfg, name, batch, seq, kernels):
     gpu = cls(cfg, device="cuda")
     gpu.load_state_dict(cpu.state_dict())
     K.reset_launches()
-    lg = _train_step(gpu).run_steps(ids, labels, repeat=3).cpu().numpy()
+    step = _train_step(gpu)
+    lg = step.run_steps(ids, labels, repeat=3).cpu().numpy()
     torch.cuda.synchronize()
     counts = K.launch_counts()
-    del gpu
+    _train_replay_equals_eager(step, ids, labels, 3,
+                               f"train_parity f32 {name} widths")
+    del gpu, step
     lc = _train_step(cpu).run_steps(ids, labels, repeat=3).numpy()
     gap = float(np.abs(lg - lc).max())
     check(np.isfinite(lg).all() and np.isfinite(lc).all(),
@@ -2079,6 +2171,40 @@ def phase_train_parity(cls, cfg, name, batch, seq, kernels):
         f"S{seq}, 3 AdamW steps: card {lg.tolist()} cpu {lc.tolist()} max "
         f"gap {gap:.3g} (tol 1e-3); launches {json.dumps(counts)}")
     return counts
+
+
+def _train_replay_equals_eager(step, ids, labels, steps, what):
+    """`run_steps(repeat=steps)` through the train step's captured graph
+    against `steps` calls of its eager body (`_step`) from equal copies
+    of the state: the losses, and every parameter, optimizer slot, the
+    step count and every buffer after the steps, bit for bit."""
+    import torch
+
+    batch = step._place((ids, labels))
+    key = tuple((b.shape, b.dtype) for b in batch)
+    check(key in step._graphs, f"{what}: no graph captured for the batch")
+    state = step._state_tensors()
+    with torch.no_grad():
+        start = [t.clone() for t in state]
+    replayed = step.run_steps(ids, labels, repeat=steps)
+    with torch.no_grad():
+        after = [t.clone() for t in state]
+        for t, s in zip(state, start):
+            t.copy_(s)
+    del start
+    direct = torch.stack([step._step(batch) for _ in range(steps)])
+    torch.cuda.synchronize()
+    diff = [i for i, (a, t) in enumerate(zip(after, state))
+            if not torch.equal(a, t)]
+    check(torch.equal(replayed, direct), f"{what}: replayed losses "
+          f"{replayed.tolist()} differ from the eager body's "
+          f"{direct.tolist()}")
+    check(not diff, f"{what}: {len(diff)} of {len(state)} state tensors "
+          f"differ between the replay and the eager body (first "
+          f"#{diff[:1]})")
+    log(f"[graphs] {what}: run_steps(repeat={steps}) replay == {steps} "
+        f"eager bodies bit for bit (losses and {len(state)} parameters, "
+        "slots, step and buffers)")
 
 
 # ----------------------------------------------------------------- phase 8
@@ -2098,6 +2224,15 @@ class _layout:
         os.environ.pop("FLAGS_flash_layout", None)
         if self.prev is not None:
             os.environ["FLAGS_flash_layout"] = self.prev
+
+
+def _graph_replayed(step, forwards, steps, what):
+    """The train step's `steps` calls ran the model's forward in Python
+    twice, for the eager first step of the batch's signature and for the
+    capture, and replayed one graph for the rest."""
+    check(len(forwards) == 2 and len(step._graphs) == 1,
+          f"{what}: {len(forwards)} model forwards in {steps} steps and "
+          f"{len(step._graphs)} graphs: the step did not replay one graph")
 
 
 def phase_train(card, layout=None):
@@ -2124,6 +2259,7 @@ def _train_phase(card, layout):
         for _ in range(2))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    forwards, hook = _count_forwards(model)
     warm = [float(step(ids, labels)) for _ in range(2)]
     torch.cuda.synchronize()
     K.reset_launches()
@@ -2132,8 +2268,12 @@ def _train_phase(card, layout):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = K.launch_counts()
+    hook.remove()
     losses = losses.cpu().numpy()
     peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    steady = torch.cuda.memory_allocated()
+    _graph_replayed(step, forwards, 2 + iters, "train")
     n_params = sum(p.numel() for p in model.parameters())  # bench.py:174
     tps = batch * seq * iters / dt
     peak_flops = PEAK_FLOPS["bfloat16"]
@@ -2154,9 +2294,14 @@ def _train_phase(card, layout):
         f"{layout or 'native'} ({card}): "
         f"{tps:.1f} tokens/s, {1e3 * dt / iters:.2f} ms/step, MFU "
         f"{100 * mfu:.2f}% of {peak_flops / 1e12:.0f} TFLOP/s "
-        f"(N={n_params}), peak memory {peak / 2**30:.2f} GiB; loss "
+        f"(N={n_params}), peak memory {peak / 2**30:.2f} GiB (reserved "
+        f"{reserved / 2**30:.2f}, allocated after the steps "
+        f"{steady / 2**30:.2f}); loss "
         f"{warm[0]:.4f} -> {losses[-1]:.4f}; launches per step "
         f"{json.dumps({k: v / iters for k, v in counts.items()})}")
+    _train_replay_equals_eager(step, ids, labels, iters,
+                               f"train GPT-125M bf16 layout "
+                               f"{layout or 'native'}")
     return counts, step, ids, labels
 
 
@@ -2434,6 +2579,7 @@ def phase_vision_train(card, iters=10, profile=False):
         step, imgs, labels = _vision_train_step(name, batch)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        forwards, hook = _count_forwards(step.model)
         warm = [float(step(imgs, labels)) for _ in range(2)]
         torch.cuda.synchronize()
         K.reset_launches()
@@ -2442,8 +2588,12 @@ def phase_vision_train(card, iters=10, profile=False):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         counts = K.launch_counts()
+        hook.remove()
         losses = losses.cpu().numpy()
         peak = torch.cuda.max_memory_allocated()
+        reserved = torch.cuda.max_memory_reserved()
+        steady = torch.cuda.memory_allocated()
+        _graph_replayed(step, forwards, 2 + iters, f"vision_train {name}")
         ips = batch * iters / dt
         mfu = ips * flops_per_image / PEAK_FLOPS["bfloat16"]
         check(np.isfinite(warm).all() and np.isfinite(losses).all(),
@@ -2458,9 +2608,13 @@ def phase_vision_train(card, iters=10, profile=False):
             f"{ips:.1f} images/s, {1e3 * dt / iters:.2f} ms/step over "
             f"{iters} steps, MFU {100 * mfu:.2f}% of "
             f"{PEAK_FLOPS['bfloat16'] / 1e12:.0f} TFLOP/s ({flops_per_image:.4g}"
-            f" flops/image), peak memory {peak / 2**30:.2f} GiB; loss "
+            f" flops/image), peak memory {peak / 2**30:.2f} GiB (reserved "
+            f"{reserved / 2**30:.2f}, allocated after the steps "
+            f"{steady / 2**30:.2f}); loss "
             f"{warm[0]:.4f} -> {losses[-1]:.4f}; launches per step "
             f"{json.dumps({k: v / iters for k, v in counts.items() if v})}")
+        _train_replay_equals_eager(step, imgs, labels, iters,
+                                   f"vision_train {name} bf16 O2 B{batch}")
         if profile and name == "swin_t":
             phase_profile_train(step, imgs, labels, steps=1,
                                 what=f"swin_t bf16 B{batch} train step")
@@ -2818,6 +2972,17 @@ def _log_profile(prof, what, wall_ms, steps):
         f"device busy {busy / steps:.3f} ms/step "
         f"({100 * busy / wall_ms:.1f}% busy), {launches / steps:.0f} device"
         f" ops/step")
+    # the host's launch calls: kernels one by one, or graphs
+    api = {}
+    for e in rows:
+        if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                     "cuLaunchKernel", "cuLaunchKernelEx",
+                     "cudaGraphLaunch"):
+            api[e.key] = (e.count / steps,
+                          e.self_cpu_time_total / 1e3 / steps)
+    log("[profile] host launch calls a step: " + (", ".join(
+        f"{k} {n:.0f} ({ms:.3f} ms)" for k, (n, ms) in sorted(api.items()))
+        or "none recorded"))
     # device time by kind: the window kernels, the port's other kernels,
     # cuBLAS GEMMs and cuDNN convs, the optimizer's foreach kernels,
     # norms / activations / reductions, copies and casts, the rest
@@ -2855,34 +3020,33 @@ def _log_profile(prof, what, wall_ms, steps):
 
 def phase_profile(model, cfg, steps=10, kv_precision=None):
     """torch.profiler over `steps` steady decode steps of the engine (4
-    slots busy; `kv_precision` its KV tier): device busy share and the
-    ops that hold the step."""
-    from unittest import mock
-
+    slots busy; `kv_precision` its KV tier), each a replay of the
+    captured decode program: device busy share and the ops that hold
+    the step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from paddle_tpu_torch.inference.engine import (
         EngineConfig, InferenceEngine,
     )
-    from paddle_tpu_torch.models import generation as GEN
 
     eng = InferenceEngine(model, EngineConfig(kv_precision=kv_precision))
     for p in _prompts(cfg.vocab_size)[1:5]:
         eng.submit(p, max_new_tokens=steps + 8)
     for _ in range(3):            # prefills, then two decode steps
         eng.step()
-    # the paged calls' inputs, kept (no copy, no sync) for their bound
-    calls, paged = [], GEN.paged_attention
+    # each step's host lengths, for the paged kernel's bound (the
+    # replayed forwards call no wrapper whose inputs could be kept)
+    calls, run = [], eng._run_decode
 
-    def rec(q, kp, vp, pt, pos, k_scales=None, v_scales=None):
-        calls.append((q, kp, pt, pos))
-        return paged(q, kp, vp, pt, pos, k_scales, v_scales)
+    def rec(n, tok, pt, lengths):
+        calls.append((n, lengths.copy()))
+        return run(n, tok, pt, lengths)
 
+    eng._run_decode = rec
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof, \
-            mock.patch.object(GEN, "paged_attention", rec):
+                             ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         for _ in range(steps):
             eng.step()
@@ -2896,13 +3060,14 @@ def phase_profile(model, cfg, steps=10, kv_precision=None):
     # and its share of the step's device time
     name = ("paged_attention_int8_kernel" if kv_precision == "int8"
             else "paged_attention_kernel")
-    nbytes = 0
-    for q, kp, pt, pos in calls:
-        keys, (b, hq, d), hkv = int((pos + 1).sum()), q.shape, kp.shape[1]
-        row = 2 * d + 8 if kv_precision == "int8" else 2 * d * q.itemsize
-        nbytes += (keys * hkv * row + 2 * b * hq * d * q.itemsize
-                   + pt.numel() * 4 + 4 * b)
-    bms, _ = bound_ms(nbytes / max(len(calls), 1), 0, "bfloat16")
+    b, hq, hkv = eng.config.max_slots, cfg.num_heads, eng._hkv
+    d, item = eng._hd, torch.empty((), dtype=eng._dtype).element_size()
+    row = 2 * d + 8 if kv_precision == "int8" else 2 * d * item
+    forwards = [lengths + j for n, lengths in calls for j in range(n)]
+    nbytes = sum(int((pos + 1).sum()) * hkv * row + 2 * b * hq * d * item
+                 + b * eng.max_pages_per_seq * 4 + 4 * b
+                 for pos in forwards)
+    bms, _ = bound_ms(nbytes / max(len(forwards), 1), 0, "bfloat16")
     dev = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     rows = [e for e in dev if name in e.key]

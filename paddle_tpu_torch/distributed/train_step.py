@@ -15,17 +15,38 @@ Buffers are not swapped: a batch norm in training mode updates the
 model's own f32 running statistics in place during the forward, where
 the JAX step threads them through as `new_buffers` (:327).
 
+The JAX step is one compiled program (`jax.jit` with donated state,
+:429), and `run_steps` one `lax.scan` of it (:433-467).  Here, on a CUDA
+device, the step is a CUDA graph (`core.graphs`), one per batch
+signature (the shapes and dtypes of the placed leaves): the first step
+of a signature runs the body eagerly on a side stream, as a real step
+whose loss it returns, and is followed by the capture; every later step
+copies its batch into the graph's static batch tensors and replays it.
+`run_steps` replays once a step and gathers the losses into one [n_steps]
+tensor.  The learning rate is a device tensor that each call refills
+from the optimizer (the JAX step passes ``get_lr()`` in), and the
+optimizer's step count lives on the device, so a replay computes what
+the eager body computes.  A graph holds the addresses of the parameters,
+the optimizer state and the model's buffers: loading a state must copy
+into them (`load_state_dict` and `load_reference_state` do), and a
+tensor rebound or reshaped drops every graph, so the next step captures
+again rather than replay stale addresses.  On the CPU every step runs
+the body.
+
 The rest of the JAX step is not ported: the multi-device half (ZeRO
 stages, quantized collectives), its resilience hooks (guard, checkpoint
 manager, preemption guard), gradient clipping and recompute.  Asking for
-one raises NotImplementedError.  `run_steps` is a plain loop: the JAX
-step's one-program scan has no counterpart yet.
+one raises NotImplementedError.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch import nn
 from torch.func import functional_call
+
+from ..core import graphs as GR
 
 __all__ = ["DistributedTrainStep", "build_train_step"]
 
@@ -81,6 +102,9 @@ class DistributedTrainStep:
                             "in float32 and pass amp_dtype)")
         self._device = next(iter(self._params.values())).device
         self._state = optimizer.init_state(self._params)
+        self._lr = torch.zeros((), dtype=torch.float32, device=self._device)
+        self._graphs = {}     # batch signature -> (static batch, Graph)
+        self._bound = None    # the state's addresses the graphs hold
 
     def _place(self, batch):
         """Batch leaves (images or token ids, labels) onto the model's
@@ -97,6 +121,7 @@ class DistributedTrainStep:
         return tuple(placed)
 
     def _step(self, batch):
+        """The body: one optimizer step on `batch`; the loss, f32."""
         self.model.train()
         run = self._params
         if self.amp_dtype is not None:
@@ -112,11 +137,12 @@ class DistributedTrainStep:
         grads = torch.autograd.grad(loss, list(self._params.values()),
                                     allow_unused=True, materialize_grads=True)
         self.optimizer.apply_gradients(
-            self._params, dict(zip(self._params, grads)), self._state)
+            self._params, dict(zip(self._params, grads)), self._state,
+            lr=self._lr)
         return loss.detach()
 
     def __call__(self, inputs, labels):
-        return self._step(self._place((inputs, labels)))
+        return self._run([self._place((inputs, labels))])[0]
 
     def run_steps(self, inputs, labels, repeat=None):
         """One step per leading-axis slice of `inputs` / `labels` (shaped
@@ -130,7 +156,60 @@ class DistributedTrainStep:
             if int(repeat) < 1:
                 raise ValueError(f"repeat must be >= 1, got {repeat}")
             steps = [placed] * int(repeat)
-        return torch.stack([self._step(b) for b in steps])
+        return self._run(steps)
+
+    def _run(self, batches):
+        """One step per placed batch; the losses, f32 [len(batches)]."""
+        self._lr.fill_(self.optimizer.get_lr())
+        if self._device.type == "cpu":
+            return torch.stack([self._step(b) for b in batches])
+        return self._replay(batches)
+
+    def _state_tensors(self) -> list:
+        """Every tensor the step reads or updates in place besides its
+        batch: the masters, the optimizer's slots and step, the learning
+        rate, the model's (and the loss's) buffers."""
+        ts = list(self._params.values())
+        for slots in self._state["slots"].values():
+            ts.extend(slots.values())
+        ts += [self._state["step"], self._lr]
+        ts.extend(self._objective.buffers())
+        return ts
+
+    def _replay(self, batches):
+        """The CUDA path of `_run`: each batch's signature's graph
+        replayed, captured after an eager first step of the signature."""
+        losses = torch.empty(len(batches), dtype=torch.float32,
+                             device=self._device)
+        if GR.addresses(self._state_tensors()) != self._bound:
+            self._graphs.clear()
+        loaded = None
+        for i, batch in enumerate(batches):
+            key = tuple((b.shape, b.dtype) for b in batch)
+            if key not in self._graphs:
+                static = tuple(torch.empty_like(b) for b in batch)
+                for dst, src in zip(static, batch):
+                    dst.copy_(src)
+                body = functools.partial(self._step, static)
+                stream = torch.cuda.Stream(self._device)
+                losses[i] = GR.warm_up(body, stream)
+                # the first step may turn an int step into a tensor:
+                # graphs captured before it hold other addresses
+                bound = GR.addresses(self._state_tensors())
+                if bound != self._bound:
+                    self._graphs.clear()
+                    self._bound = bound
+                self._graphs[key] = (static, GR.Graph(body, stream))
+                loaded = batch
+                continue
+            static, graph = self._graphs[key]
+            if batch is not loaded:          # `repeat`: one copy
+                for dst, src in zip(static, batch):
+                    dst.copy_(src)
+                loaded = batch
+            graph.replay()
+            losses[i] = graph.outputs
+        return losses
 
 
 def build_train_step(model, optimizer, loss_fn, amp_dtype=None, **kw):

@@ -16,8 +16,16 @@ admitting new sequences into freed slots between steps.  Per sequence:
     through `paged_attention` with per-slot lengths.
 
 The JAX package compiles these as `jax.jit` programs with donated
-pools; here they are plain methods that update the pool tensors IN
-PLACE.  Free slots ride along pointing at scratch page 0 with length 0;
+pools; here they are methods that update the pool tensors IN PLACE.
+The decode step is a fixed-shape program as in the JAX package: one per
+(decode_chunk, KV tier), over static device buffers (the tokens, page
+table and lengths in, the tokens out) and the pools, which nothing ever
+rebinds.  On a CUDA device it is a CUDA graph (`core.graphs`): at its
+first step the body runs once eagerly on all-scratch inputs, touching
+only scratch page 0, and is then captured on the thread that steps the
+engine; every step copies the host arrays into the buffers and replays
+it.  On the CPU the same body runs eagerly.  Prefill and the pack stay
+eager.  Free slots ride along pointing at scratch page 0 with length 0;
 their output is discarded on the host.
 
 The int8 KV tier (``kv_precision="int8"``): the page pools hold int8
@@ -50,6 +58,7 @@ Env knobs (read when the matching ctor arg is None):
 from __future__ import annotations
 
 import copy
+import functools
 import os
 import queue
 import threading
@@ -58,6 +67,7 @@ import time
 import numpy as np
 import torch
 
+from ...core import graphs as GR
 from ...core.flags import _env_num
 from ...models import generation as GEN
 from ...ops.quant import quantize_vectors
@@ -206,6 +216,23 @@ class RequestHandle:
         return self._seq.cache_state or "miss"
 
 
+class _DecodeProgram:
+    """The static int32 device buffers of a decode program: tok
+    [max_slots], pt [max_slots, max_pages_per_seq] and lengths
+    [max_slots] in, toks [max_slots, n] out.  On a CUDA device `graph`
+    replays the n steps over them and `bound` is what it holds of the
+    pools.  It keeps no reference to the engine, so a dropped engine
+    frees its pools at once."""
+
+    def __init__(self, slots, pages, n, device):
+        def buf(*shape):
+            return torch.zeros(shape, dtype=torch.int32, device=device)
+
+        self.tok, self.pt = buf(slots), buf(slots, pages)
+        self.lengths, self.toks = buf(slots), buf(slots, n)
+        self.graph = self.bound = None
+
+
 class InferenceEngine:
     """Continuous-batching greedy engine over one model with the
     `GPTForCausalLM` cached-forward contract, on the model's device.
@@ -290,6 +317,7 @@ class InferenceEngine:
                 self._v_scales = [torch.ones(shape[:3], dtype=torch.float32,
                                              device=self._device)
                                   for _ in range(self._layers)]
+        self._programs = {}        # (n, kv tier) -> _DecodeProgram
         self._handles = {}         # request_id -> RequestHandle
         self._lock = threading.RLock()
         self._work = threading.Condition()
@@ -394,10 +422,12 @@ class InferenceEngine:
         tok = int(logits[0, -1].float().argmax())
         return tok, [c[0] for c in new], [c[1] for c in new]
 
-    def _run_decode(self, n: int, tok, pt, lengths):
-        """`_decode_program`: n ragged decode steps at the fixed
-        [max_slots] batch.  The pools (and scale tables) update in
-        place.  Returns the tokens [max_slots, n] as a host array."""
+    def _decode_body(self, n: int, tok, pt, lengths, toks):
+        """The body of `_decode_program`: n ragged decode steps at the
+        fixed [max_slots] batch from tok [max_slots] at lengths
+        [max_slots] over page table pt, each step's greedy tokens
+        written into toks [max_slots, n] (all int32, on the device).  The
+        pools (and scale tables) update in place."""
         if self._quant:
             caches = [(k, v, pt, ks, vs) for k, v, ks, vs in zip(
                 self._k_pools, self._v_pools, self._k_scales,
@@ -405,14 +435,66 @@ class InferenceEngine:
         else:
             caches = [(k, v, pt)
                       for k, v in zip(self._k_pools, self._v_pools)]
-        toks = []
-        for _ in range(n):
+        for j in range(n):
             logits, _ = self._model(tok[:, None], kv_caches=caches,
                                     cache_pos=lengths)
             tok = logits[:, -1].float().argmax(-1).to(torch.int32)
-            toks.append(tok)
+            toks[:, j] = tok
             lengths = lengths + 1
-        return torch.stack(toks, dim=1).cpu().numpy()
+        return toks
+
+    def _pool_tensors(self) -> list:
+        """The pools and scale tables a decode graph writes."""
+        return self._k_pools + self._v_pools + (
+            self._k_scales + self._v_scales if self._quant else [])
+
+    def _decode_program(self, n: int) -> "_DecodeProgram":
+        """`_decode_program`: the static buffers of n decode steps, and
+        on a CUDA device their graph, built at the first step of the key
+        (n, KV tier)."""
+        key = (n, self.config.kv_precision)
+        prog = self._programs.get(key)
+        if prog is None:
+            prog = _DecodeProgram(self.config.max_slots,
+                                  self.max_pages_per_seq, n, self._device)
+            if self._device.type == "cuda":
+                self._capture_decode(n, prog)
+            self._programs[key] = prog
+        return prog
+
+    def _capture_decode(self, n: int, prog) -> None:
+        """Warm the body up on the program's zero buffers (every slot on
+        scratch page 0 at length 0: it writes nothing else), then capture
+        it into the program's graph.  A failure raises."""
+        body = functools.partial(self._decode_body, n, prog.tok, prog.pt,
+                                 prog.lengths, prog.toks)
+        stream = torch.cuda.Stream(self._device)
+        GR.warm_up(body, stream)
+        prog.graph = GR.Graph(body, stream)
+        prog.bound = GR.addresses(self._pool_tensors())
+
+    def _run_decode(self, n: int, tok, pt, lengths):
+        """n decode steps from host arrays tok [max_slots], pt
+        [max_slots, max_pages_per_seq] and lengths [max_slots] (int32).
+        Returns the tokens [max_slots, n] as a host array."""
+        prog = self._decode_program(n)
+        for dst, src in ((prog.tok, tok), (prog.pt, pt),
+                         (prog.lengths, lengths)):
+            # on the current stream, so ordered before the replay
+            dst.copy_(torch.from_numpy(src), non_blocking=True)
+        if self._device.type == "cpu":
+            self._decode_body(n, prog.tok, prog.pt, prog.lengths, prog.toks)
+        else:
+            self._replay_decode(prog)
+        # a copy: the next step rewrites the buffer
+        return prog.toks.to("cpu", copy=True).numpy()
+
+    def _replay_decode(self, prog) -> None:
+        if GR.addresses(self._pool_tensors()) != prog.bound:
+            raise RuntimeError(
+                "the engine's page pools were rebound after the decode "
+                "graph captured them; pools must be updated in place")
+        prog.graph.replay()
 
     # --- intake -------------------------------------------------------------
     def submit(self, input_ids, max_new_tokens=32, eos_token_id=None,
@@ -672,6 +754,7 @@ class InferenceEngine:
                             exact=exact)
 
     def _batch_arrays(self, running):
+        """The decode program's host inputs: tok, pt, lengths (int32)."""
         s_, p_ = self.config.max_slots, self.max_pages_per_seq
         tok = np.zeros((s_,), np.int32)
         pt = np.zeros((s_, p_), np.int32)
@@ -680,7 +763,7 @@ class InferenceEngine:
             tok[seq.slot] = seq.last_token
             pt[seq.slot, :len(seq.pages)] = seq.pages
             lengths[seq.slot] = seq.length
-        return self._tensor(tok), self._tensor(pt), self._tensor(lengths)
+        return tok, pt, lengths
 
     def _decode(self, running) -> None:
         cfg = self.config

@@ -87,3 +87,12 @@ def reset_launches() -> None:
 def launch_counts() -> dict:
     return {name: getattr(k.module, k.counter)
             for name, k in KERNELS.items()}
+
+
+def add_launches(counts: dict) -> None:
+    """Add `counts` (kernel name -> launches) to the kernels' counters:
+    a replayed CUDA graph launches its kernels without calling their
+    wrappers (`core.graphs.Graph`)."""
+    for name, n in counts.items():
+        k = KERNELS[name]
+        setattr(k.module, k.counter, getattr(k.module, k.counter) + n)

@@ -6,10 +6,20 @@ optimizer/optimizer.py`` (`Optimizer.init_state` / `apply_gradients`
 State is a dict ``{"slots": {name: slots}, "step": t}`` with f32 slots
 (Momentum's `velocity`, Adam's `moment1` and `moment2`), as in the JAX
 package.  Where the JAX rule returns new arrays, `apply_gradients` here
-updates the parameters and the slots in place (``torch._foreach_*``),
-which saves a copy of both; it returns them for symmetry.  A
-learning-rate scheduler, amsgrad, gradient clipping, parameter groups
-and the other optimizers are not ported.
+updates the parameters, the slots and the step in place
+(``torch._foreach_*``), which saves a copy of both; it returns them for
+symmetry.
+
+The step count is an int32 device tensor and `apply_gradients(...,
+lr=)` takes the learning rate as an f32 device tensor (the JAX
+`apply_gradients` takes ``lr`` too); the bias corrections are computed
+from the step on the device, in f32 as the JAX rule computes them.  So
+an update captured into a CUDA graph reads the step and the rate each
+time it is replayed, where host values would be frozen at the capture
+(`distributed/train_step.py`).  A plain int step is still accepted, and
+becomes a tensor at its first update.  A learning-rate scheduler,
+amsgrad, gradient clipping, parameter groups and the other optimizers
+are not ported.
 """
 from __future__ import annotations
 
@@ -22,6 +32,35 @@ def _float_lr(learning_rate) -> float:
             "learning-rate schedulers are not ported yet (ROADMAP "
             "Queue A); pass a float")
     return float(learning_rate)
+
+
+def _device(params) -> torch.device:
+    return next(iter(params.values())).device if params \
+        else torch.device("cpu")
+
+
+def _zero_step(params):
+    return torch.zeros((), dtype=torch.int32, device=_device(params))
+
+
+def _advance(state, device):
+    """t = step + 1, in place on the state's int32 device tensor (a
+    plain int becomes one first); returns t."""
+    t = state["step"]
+    if not isinstance(t, torch.Tensor):
+        t = torch.full((), int(t), dtype=torch.int32, device=device)
+        state["step"] = t
+    return t.add_(1)
+
+
+def _lr_tensor(lr, default, device):
+    """The learning rate as a 0-dim f32 tensor: a tensor is used as it
+    is (the train step's, which a graph reads); a float, or None for the
+    optimizer's own rate, is put on `device`."""
+    if isinstance(lr, torch.Tensor):
+        return lr
+    return torch.full((), default if lr is None else float(lr),
+                      dtype=torch.float32, device=device)
 
 
 def _with_grads(params, grads):
@@ -57,12 +96,15 @@ class Momentum:
         slots = {n: {"velocity": torch.zeros(p.shape, dtype=torch.float32,
                                              device=p.device)}
                  for n, p in params.items()}
-        return {"slots": slots, "step": 0}
+        return {"slots": slots, "step": _zero_step(params)}
 
     @torch.no_grad()
-    def apply_gradients(self, params: dict, grads: dict, state: dict):
-        """One step on f32 parameters, in place.  A name whose gradient
-        is None is skipped.  Returns (params, state)."""
+    def apply_gradients(self, params: dict, grads: dict, state: dict,
+                        lr=None):
+        """One step on f32 parameters, in place: p -= lr * v.  A name
+        whose gradient is None is skipped.  Returns (params, state)."""
+        dev = _device(params)
+        lr = _lr_tensor(lr, self._learning_rate, dev)
         names, ps, gs = _with_grads(params, grads)
         if self._coeff:
             gs = torch._foreach_add(gs, ps, alpha=self._coeff)
@@ -73,8 +115,8 @@ class Momentum:
             step = torch._foreach_add(gs, v, alpha=self._momentum)
         else:
             step = v
-        torch._foreach_add_(ps, step, alpha=-self._learning_rate)
-        state["step"] = state["step"] + 1
+        torch._foreach_sub_(ps, torch._foreach_mul(step, lr))
+        _advance(state, dev)
         return params, state
 
 
@@ -101,7 +143,7 @@ class Adam:
                      "moment2": torch.zeros(p.shape, dtype=torch.float32,
                                             device=p.device)}
                  for n, p in params.items()}
-        return {"slots": slots, "step": 0}
+        return {"slots": slots, "step": _zero_step(params)}
 
     def _decay(self, ps, gs, lr):
         """Weight decay before the moment update: L2 into the gradient."""
@@ -110,13 +152,15 @@ class Adam:
         return gs
 
     @torch.no_grad()
-    def apply_gradients(self, params: dict, grads: dict, state: dict):
+    def apply_gradients(self, params: dict, grads: dict, state: dict,
+                        lr=None):
         """One step on f32 parameters, in place: p -= lr * m_hat /
         (sqrt(v_hat) + eps), with m_hat = m / (1 - beta1^t) and v_hat =
         v / (1 - beta2^t).  A name whose gradient is None is skipped.
         Returns (params, state)."""
-        lr = self._learning_rate
-        t = state["step"] + 1
+        dev = _device(params)
+        lr = _lr_tensor(lr, self._learning_rate, dev)
+        t = _advance(state, dev).float()
         names, ps, gs = _with_grads(params, grads)
         m = [state["slots"][n]["moment1"] for n in names]
         v = [state["slots"][n]["moment2"] for n in names]
@@ -128,9 +172,10 @@ class Adam:
         torch._foreach_addcmul_(v, gs, gs, value=1 - b2)
         denom = torch._foreach_sqrt(torch._foreach_div(v, 1 - b2 ** t))
         torch._foreach_add_(denom, self._epsilon)
-        torch._foreach_addcdiv_(ps, torch._foreach_div(m, 1 - b1 ** t),
-                                denom, value=-lr)
-        state["step"] = t
+        upd = torch._foreach_div(m, 1 - b1 ** t)
+        torch._foreach_mul_(upd, lr)
+        torch._foreach_div_(upd, denom)
+        torch._foreach_sub_(ps, upd)
         return params, state
 
 

@@ -1814,3 +1814,159 @@ def test_paired_rope_grads_are_the_single_tensor_grads():
         (one,) = torch.autograd.grad(RP.RoPE.apply(x, cos, sin), x, gx)
         assert torch.equal(one, want)
     K.reset_launches()
+
+
+# ------------------------------- CUDA graphs: the fixed-shape programs
+def _tiny_gpt(dtype, fused_head_ce=False, seed=3):
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+
+    cfg = GPTConfig(vocab_size=128, hidden_size=64, num_layers=2,
+                    num_heads=4, max_seq_len=64, fused_head_ce=fused_head_ce)
+    return GPTForCausalLM(cfg, dtype=dtype, seed=seed)
+
+
+@pytest.mark.parametrize("kv", [None, "int8"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_engine_decode_graph_replays_its_eager_body(kv, dtype):
+    """The engine's decode program: one graph per (chunk, tier), its
+    replays bit for bit its eager body from equal pools (the tokens and
+    every pool and scale table), the paged kernel of the tier counted
+    once a layer a replayed forward, and a rebound pool refused."""
+    from paddle_tpu_torch.inference.engine import (
+        EngineConfig, InferenceEngine,
+    )
+
+    model = _tiny_gpt(dtype)
+    eng = InferenceEngine(model, EngineConfig(
+        page_size=4, max_slots=3, max_seq_len=64, decode_chunk=2,
+        kv_precision=kv))
+    rs = np.random.RandomState(0)
+    eng.generate([rs.randint(0, 128, (n,)).astype(np.int32)
+                  for n in (3, 9)], max_new_tokens=5)
+    assert list(eng._programs) == [(2, kv)]
+    prog = eng._programs[(2, kv)]
+    assert prog.graph is not None
+    s_, p_ = 3, eng.max_pages_per_seq
+    pt = (1 + np.arange(s_ * p_, dtype=np.int32)).reshape(s_, p_)
+    tok0 = rs.randint(0, 128, s_).astype(np.int32)
+    len0 = np.array([0, 17, 50], np.int32)
+    pools = eng._pool_tensors()
+    paged = "paged_attention_int8" if kv else "paged_attention"
+    with torch.inference_mode():
+        start = [p.clone() for p in pools]
+        K.reset_launches()
+        got = eng._run_decode(2, tok0, pt, len0)
+        got = np.concatenate([got, eng._run_decode(2, got[:, -1].copy(),
+                                                   pt, len0 + 2)], 1)
+        counts = K.launch_counts()
+        assert counts[paged] == 2 * 2 * 2 and sum(counts.values()) == \
+            counts[paged]
+        after = [p.clone() for p in pools]
+        for p, s in zip(pools, start):
+            p.copy_(s)
+        want = []
+        tok, lengths = tok0, len0
+        for _ in range(2):
+            toks = torch.zeros(s_, 2, dtype=torch.int32, device="cuda")
+            eng._decode_body(2, *(torch.from_numpy(a).cuda()
+                                  for a in (tok, pt, lengths)), toks)
+            want.append(toks.cpu().numpy())
+            tok, lengths = want[-1][:, -1].copy(), lengths + 2
+        np.testing.assert_array_equal(got, np.concatenate(want, 1))
+        assert all(torch.equal(a, p) for a, p in zip(after, pools))
+        eng._k_pools[0] = eng._k_pools[0].clone()
+        with pytest.raises(RuntimeError, match="rebound"):
+            eng._run_decode(2, tok0, pt, len0)
+    K.reset_launches()
+
+
+def _train_state(step):
+    with torch.no_grad():
+        return [t.clone() for t in step._state_tensors()]
+
+
+@pytest.mark.parametrize("amp", [None, "bfloat16"])
+def test_train_step_graph_replays_its_eager_body(amp):
+    """The train step: the first call of a batch signature runs the body
+    and captures it (two model forwards in Python); `__call__` and
+    `run_steps` then replay (none), bit for bit the eager body from an
+    equal state
+    (losses, parameters, slots, the step count), with the flash kernels
+    counted once a layer a replay."""
+    from paddle_tpu_torch.distributed import build_train_step
+    from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = _tiny_gpt(torch.float32, fused_head_ce=True)
+    step = build_train_step(model, AdamW(learning_rate=1e-3),
+                            GPTPretrainingCriterion(model=model),
+                            amp_dtype=amp)
+    rs = np.random.RandomState(1)
+    ids, labels = (torch.from_numpy(rs.randint(0, 128, (2, 40)).astype(
+        np.int32)).cuda() for _ in range(2))
+    calls = []
+    hook = model.register_forward_hook(lambda *a: calls.append(1))
+    step(ids, labels)
+    step(ids, labels)
+    start = _train_state(step)
+    K.reset_launches()
+    got = step.run_steps(ids, labels, repeat=3)
+    counts = K.launch_counts()
+    hook.remove()
+    assert len(calls) == 2 and len(step._graphs) == 1
+    assert counts["flash_fwd"] == counts["flash_bwd"] == 2 * 3
+    after = _train_state(step)
+    with torch.no_grad():
+        for t, s in zip(step._state_tensors(), start):
+            t.copy_(s)
+    batch = step._place((ids, labels))
+    want = torch.stack([step._step(batch) for _ in range(3)])
+    assert torch.equal(got, want)
+    assert all(torch.equal(a, t) for a, t in zip(after,
+                                                 step._state_tensors()))
+    K.reset_launches()
+
+
+def test_train_step_captures_again_after_a_rebound_slot():
+    """A slot rebound between steps drops the graph: the next step runs
+    the body on the new tensor and captures again, and the steps equal
+    those of a step whose slot was copied in place."""
+    from paddle_tpu_torch.distributed import build_train_step
+    from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+
+    rs = np.random.RandomState(2)
+    ids, labels = (torch.from_numpy(rs.randint(0, 128, (2, 40)).astype(
+        np.int32)).cuda() for _ in range(2))
+    losses = []
+    for rebind in (False, True):
+        model = _tiny_gpt(torch.float32, fused_head_ce=True)
+        step = build_train_step(model, AdamW(learning_rate=1e-3),
+                                GPTPretrainingCriterion(model=model))
+        run = [step(ids, labels), step(ids, labels)]
+        slots = step._state["slots"]["gpt.wte.weight"]
+        if rebind:
+            slots["moment1"] = slots["moment1"] * 0.5
+        else:
+            with torch.no_grad():
+                slots["moment1"].mul_(0.5)
+        graph = step._graphs[next(iter(step._graphs))][1]
+        run += [step(ids, labels), step(ids, labels)]
+        assert (step._graphs[next(iter(step._graphs))][1] is graph) \
+            == (not rebind)
+        losses.append(torch.stack(run))
+    assert torch.equal(losses[0], losses[1])
+    K.reset_launches()
+
+
+def test_a_failed_capture_raises():
+    """A body that waits on the host cannot be captured: the capture
+    raises, and nothing runs the body instead."""
+    from paddle_tpu_torch.core import graphs as GR
+
+    x = torch.ones(4, device="cuda")
+    stream = torch.cuda.Stream()
+    GR.warm_up(lambda: x.sum().item(), stream)
+    with pytest.raises(RuntimeError):
+        GR.Graph(lambda: x.sum().item(), stream)
+    torch.cuda.synchronize()
