@@ -5,10 +5,12 @@
     python3 chip_smoke.py --profile  # + torch.profiler breakdowns of
                                      #   the engine's decode step (and
                                      #   its paged kernel's device ms a
-                                     #   launch and share), of
+                                     #   launch and share), of cold
+                                     #   prefills at S1008 and S48, of
                                      #   one GPT train step, of one
-                                     #   ResNet-50 and one Swin-T batch
-                                     #   and of one Swin-T train step
+                                     #   batch of each vision model
+                                     #   (under to_static) and of one
+                                     #   Swin-T train step
 
 Phases (one line per phase, seconds included; any failure exits
 non-zero and prints no result):
@@ -39,15 +41,27 @@ non-zero and prints no result):
   4. serve: gpt_1p3b (full width, 24 layers, bf16, seeded random
      weights) behind `InferenceEngine` with the default EngineConfig;
      8 requests at once, three sharing a 512-token prefix (warm
-     prefill); every request must finish with 32 tokens; the decode
-     step replays one captured CUDA graph (the model's forward runs only
-     for the prefills); then 4 decode steps of every slot through the
+     prefill), served twice with the prefix cache cleared in between;
+     every request must finish with 32 tokens and both rounds give the
+     same streams; the decode step replays one captured CUDA graph, and
+     each prefill bucket's program (cold, or warm per prefix bucket:
+     the prefill and its pack) runs eagerly at its first prefill in the
+     first round, is captured then and replayed after it (the model's
+     forward runs only for that first run and the capture); TTFT p50 and max, tokens/s and the
+     mean prefill wall by bucket of each round, the engine's peak and
+     reserved memory; then 4 decode steps of every slot through the
      replay and through the eager body from equal copies of the pools
-     give equal tokens and bit-identical pools;
+     give equal tokens and bit-identical pools, and each prefill program
+     replayed and run eagerly on the same inputs gives the same first
+     token and pools (scratch page 0 left out: garbage by design);
   5. generate: greedy `generate()` on the same model, an equal-length
      batch (causal flash_fwd) and a left-padded one (causal flash_fwd
-     with a pad bias, then decode_attention); bf16 logits against the
-     f32 upcast of the same weights;
+     with a pad bias, then decode_attention), each call a prefill and a
+     31-step decode-chunk program (a CUDA graph, captured at its first
+     run); a second call replays it, equal bit for bit to the first and
+     to the per-token eager loop at host positions; tokens/s and decode
+     ms a step on a call after a warm-up; bf16 logits against the f32
+     upcast of the same weights;
   6. parity: gpt_1p3b widths at 2 layers in f32, the 8 prompts of phase
      4 (two warm prefills) — engine streams must equal generate()
      streams (a divergence passes only at a top-2 logit margin below
@@ -77,13 +91,15 @@ non-zero and prints no result):
      exactly 24 relayout_to_hm + 24 relayout_from_hm per step;
   9. llama_serve: llama_7b (hidden 4096, 32 layers, 32 heads of 128, ffn
      11008, vocab 32000, untied head) in bf16 with seeded weights, as
-     phase 4: 8 requests x 32 tokens, >= 2 prefix hits, rope launched
-     32 times per model forward (q and k of a layer in one launch);
+     phase 4: 8 requests x 32 tokens, twice, >= 2 prefix hits a round,
+     rope launched 32 times per model forward (q and k of a layer in
+     one launch);
  9a. llama_serve_int8: the same model and requests behind
      EngineConfig(kv_precision="int8"): int8 page pools with f32 scales,
      paged_attention_int8 launched 32 times per decode forward and the
      bf16 paged_attention never; page bytes of both tiers; phase 4's
-     graph checks;
+     graph checks (the prefill programs' staging buffers of the exact
+     page copies too);
  10. llama_generate: as phase 5 on llama_7b (the f32 copy at full depth);
  11. llama_parity: llama2_70b_shapes widths (hidden 8192, 64 heads over 8
      kv heads, ffn 28672) at 2 layers in f32, as phase 6: a GQA group of
@@ -104,10 +120,12 @@ non-zero and prints no result):
      forward within 1e-3 relative L2; conv_bn_act 49 / 35 and
      window_attention 12 launches per forward;
  14. vision_serve: the same three in bf16 at batch 64 under
-     inference_mode: images/s over 10 batches after 2 warm-ups, ms per
-     batch, peak memory, exact launches per forward; the logits against
-     the CPU port's plain f32 forward of the same weights within 5%
-     relative L2;
+     inference_mode, eager and then through `jit.to_static(model)` (one
+     CUDA graph of the forward, replayed per call): images/s of each
+     over 10 batches after 2 warm-ups, ms per batch, peak memory, exact
+     launches per to_static call; the replayed logits equal the eager
+     ones bit for bit, and against the CPU port's plain f32 forward of
+     the same weights within 5% relative L2;
  15. vision_train_parity: Swin-T and ResNet-50 (224x224, 1000 classes,
      full depth) in f32 at batch 2: 3 Momentum steps with
      CrossEntropyLoss on the card through the kernels (TF32 off) and on
@@ -1731,10 +1749,103 @@ def _rope_launches_per_forward(counts, cfg, forwards, what):
           f"forwards, expected {want}")
 
 
+def _serve_passes(eng, prompts, passes=2, new_tokens=32):
+    """`passes` rounds of the same requests, all submitted at once to the
+    engine's loop thread, the prefix cache cleared before each round (so
+    every round makes the same prefills: the first captures their
+    programs, the later ones replay them).  Per round: the wall time,
+    each request's time to its first token, the outputs and handles, the
+    wall ms of each prefill (`engine._prefill`, which ends reading the
+    first token back) by (cold / warm, bucket), the decode steps' wall
+    ms, the prefix-cache hits, and the prefill programs the engine holds
+    after it (0 where the engine keeps none)."""
+    import torch
+
+    rounds, decode, prefill = [], eng._decode, eng._prefill
+    step_ms, prefill_ms = [], {}
+
+    def timed_decode(running):
+        t = time.perf_counter()
+        decode(running)           # ends in a device->host token copy
+        step_ms.append((time.perf_counter() - t) * 1e3)
+
+    def timed_prefill(seq):
+        shared = int(seq.shared_len or 0)
+        key = ("warm" if shared else "cold",
+               eng._bucket(seq.resume_prompt().size - shared))
+        t = time.perf_counter()
+        prefill(seq)
+        prefill_ms.setdefault(key, []).append(
+            (time.perf_counter() - t) * 1e3)
+
+    eng._decode, eng._prefill = timed_decode, timed_prefill
+    try:
+        for _ in range(passes):
+            eng.clear_prefix_cache()
+            step_ms.clear()
+            prefill_ms.clear()
+            hits0 = eng.prefix_cache_stats()["hits"]
+            torch.cuda.synchronize()
+            eng.start()
+            try:
+                t0 = time.perf_counter()
+                handles = [eng.submit(p, max_new_tokens=new_tokens)
+                           for p in prompts]
+                first = [None] * len(handles)
+
+                def watch(i, h):
+                    for _ in h.stream(timeout=600):
+                        if first[i] is None:
+                            first[i] = time.perf_counter() - t0
+
+                threads = [threading.Thread(target=watch, args=(i, h),
+                                            daemon=True)
+                           for i, h in enumerate(handles)]
+                for t in threads:
+                    t.start()
+                outs = [h.result(timeout=600) for h in handles]
+                for t in threads:
+                    t.join(timeout=60)
+                wall = time.perf_counter() - t0
+            finally:
+                eng.stop()
+            torch.cuda.synchronize()
+            rounds.append(dict(
+                wall=wall, ttft=sorted(first), outs=outs, handles=handles,
+                gen=sum(len(o) - len(p) for p, o in zip(prompts, outs)),
+                step_ms=list(step_ms),
+                prefill_ms={k: list(v) for k, v in prefill_ms.items()},
+                hits=eng.prefix_cache_stats()["hits"] - hits0,
+                programs=len(getattr(eng, "_prefills", {}))))
+    finally:
+        eng._decode, eng._prefill = decode, prefill
+    return rounds
+
+
+def _round_line(r):
+    """One serving round as text: tokens/s, TTFT p50 and max, the mean
+    decode step, the mean prefill wall by (kind, bucket)."""
+    ttft = r["ttft"]
+    pre = ", ".join(f"{kind} S{sb} {np.mean(v):.2f} (x{len(v)})"
+                    for (kind, sb), v in sorted(r["prefill_ms"].items(),
+                                                key=lambda kv: kv[0][1]))
+    return (f"{r['gen'] / r['wall']:.1f} tokens/s in {r['wall']:.3f}s, TTFT "
+            f"p50 {1e3 * ttft[len(ttft) // 2]:.1f} ms (max "
+            f"{1e3 * ttft[-1]:.1f}), mean decode step "
+            f"{np.mean(r['step_ms']):.2f} ms over {len(r['step_ms'])} steps,"
+            f" prefix hits {r['hits']}; prefill wall ms by bucket: {pre}")
+
+
 def phase_serve(model, cfg, name, kv_precision=None):
     """The engine with the default EngineConfig (and `kv_precision`):
-    8 requests x 32 tokens.  Every decode forward launches the tier's
-    paged kernel once per layer and the other tier's never."""
+    the 8 requests x 32 tokens served twice, the prefix cache cleared in
+    between (the first round captures the prefill programs of its
+    buckets, the second replays them): TTFT and tokens/s of each round,
+    the mean prefill wall by bucket, the engine's peak and reserved
+    memory.  Every decode forward launches the tier's paged kernel once
+    per layer and the other tier's never; the model's forward runs only
+    for the first run and the capture of each new prefill program (every
+    decode step and every later prefill replays a graph)."""
     import torch
 
     from paddle_tpu_torch.inference.engine import (
@@ -1743,95 +1854,139 @@ def phase_serve(model, cfg, name, kv_precision=None):
     from paddle_tpu_torch.ops import kernels as K
 
     prompts = _prompts(cfg.vocab_size)
+    base = torch.cuda.memory_allocated()
     eng = InferenceEngine(model, EngineConfig(kv_precision=kv_precision))
     check((eng.config.page_size, eng.config.max_slots,
            eng.config.decode_chunk, eng.config.prefill_bucket,
            eng.config.prefix_cache) == (16, 4, 1, 16, True),
           "EngineConfig defaults changed")
-    step_ms = []
-    decode = eng._decode
-
-    def timed_decode(running):
-        t = time.perf_counter()
-        decode(running)           # ends in a device->host token copy
-        step_ms.append((time.perf_counter() - t) * 1e3)
-
-    eng._decode = timed_decode
-    # warm-up request (allocator, cuBLAS handles), not measured
+    # warm-up request (allocator, cuBLAS handles, the decode program and
+    # the 16-token bucket's prefill program), not measured
     eng.generate([prompts[1][:16]], max_new_tokens=2)
-    eng.clear_prefix_cache()
-    step_ms.clear()
-    warm_prefills = eng._prefix_hits + eng._prefix_misses
+    programs0 = len(eng._prefills)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     forwards, hook = _count_forwards(model)
     K.reset_launches()
-    eng.start()
-    try:
-        t0 = time.perf_counter()
-        handles = [eng.submit(p, max_new_tokens=32) for p in prompts]
-        first = [None] * len(handles)
-
-        def watch(i, h):
-            for _ in h.stream(timeout=600):
-                if first[i] is None:
-                    first[i] = time.perf_counter() - t0
-
-        threads = [threading.Thread(target=watch, args=(i, h), daemon=True)
-                   for i, h in enumerate(handles)]
-        for t in threads:
-            t.start()
-        outs = [h.result(timeout=600) for h in handles]
-        for t in threads:
-            t.join(timeout=60)
-        wall = time.perf_counter() - t0
-    finally:
-        eng.stop()
-    torch.cuda.synchronize()
+    rounds = _serve_passes(eng, prompts)
     counts = K.launch_counts()
     hook.remove()
-    for p, o, h in zip(prompts, outs, handles):
-        check(len(o) == len(p) + 32 and h.finish_reason == "length",
-              f"request {h.request_id} finished {h.finish_reason} with "
-              f"{len(o) - len(p)} tokens")
-        check(((o >= 0) & (o < cfg.vocab_size)).all(), "token out of vocab")
-    hits = eng.prefix_cache_stats()["hits"]
-    check(hits >= 2, f"prefix cache hits {hits}: warm prefill did not run")
+    peak, reserved = (torch.cuda.max_memory_allocated(),
+                      torch.cuda.memory_reserved())
+    for r in rounds:
+        for p, o, h in zip(prompts, r["outs"], r["handles"]):
+            check(len(o) == len(p) + 32 and h.finish_reason == "length",
+                  f"request {h.request_id} finished {h.finish_reason} with "
+                  f"{len(o) - len(p)} tokens")
+            check(((o >= 0) & (o < cfg.vocab_size)).all(),
+                  "token out of vocab")
+        check(r["hits"] >= 2, f"prefix cache hits {r['hits']}: warm "
+              "prefill did not run")
+    for a, b in zip(*(r["outs"] for r in rounds)):
+        check(np.array_equal(a, b), "serve: the replayed round's streams "
+              "differ from the capturing round's")
     paged, other = ("paged_attention_int8", "paged_attention") \
         if kv_precision == "int8" else ("paged_attention",
                                         "paged_attention_int8")
+    steps = sum(len(r["step_ms"]) for r in rounds)
+    prefills = sum(len(v) for r in rounds for v in r["prefill_ms"].values())
+    new = len(eng._prefills) - programs0
     check(counts["flash_fwd"] > 0, "serving path never launched flash_fwd")
     # decode_chunk 1: one model forward per decode step
-    check(counts[paged] == cfg.num_layers * len(step_ms),
+    check(counts[paged] == cfg.num_layers * steps,
           f"serve: {paged} launched {counts[paged]} times in "
-          f"{len(step_ms)} decode forwards, expected {cfg.num_layers} "
+          f"{steps} decode forwards, expected {cfg.num_layers} "
           "per forward")
     check(counts[other] == 0, f"serve: {other} launched {counts[other]} "
           f"times under kv_precision={kv_precision}")
-    # the decode forwards replay the captured program: the model's
-    # forward hook sees only the prefills
-    prefills = eng._prefix_hits + eng._prefix_misses - warm_prefills
-    check(len(forwards) == prefills and len(eng._programs) == 1,
-          f"serve: {len(forwards)} model calls for {prefills} prefills, "
-          f"{len(eng._programs)} decode programs: the decode step did not "
-          "replay one graph")
-    _rope_launches_per_forward(counts, cfg, prefills + len(step_ms)
+    # the model's forward hook fires for the first run and the capture of
+    # each new prefill program, never for a replay
+    check(len(forwards) == 2 * new and len(eng._programs) == 1
+          and rounds[1]["programs"] == rounds[0]["programs"],
+          f"serve: {len(forwards)} model calls for {new} new prefill "
+          f"programs ({rounds[0]['programs']} after the first round, "
+          f"{rounds[1]['programs']} after the second), "
+          f"{len(eng._programs)} decode programs: a step did not replay")
+    # a new program's first prefill runs eagerly before its capture (the
+    # capture launches nothing); every later one is a replay
+    check(counts["flash_fwd"] == cfg.num_layers * prefills,
+          f"serve: flash_fwd launched {counts['flash_fwd']} times for "
+          f"{prefills} prefills")
+    _rope_launches_per_forward(counts, cfg, prefills + steps
                                * eng.config.decode_chunk, "serve")
-    gen = sum(len(o) - len(p) for p, o in zip(prompts, outs))
-    ttft = sorted(first)
     st = eng.stats()
     log(f"[serve] {name} bf16 {cfg.num_layers}L kv {st['kv_precision']}: "
-        f"{len(prompts)} requests x 32 tokens "
-        f"in {wall:.2f}s: {gen / wall:.1f} tokens/s, TTFT p50 "
-        f"{1e3 * ttft[len(ttft) // 2]:.1f} ms (max "
-        f"{1e3 * ttft[-1]:.1f}), mean decode step "
-        f"{np.mean(step_ms):.2f} ms over {len(step_ms)} steps, prefix "
-        f"hits {hits}, page_bytes {st['page_bytes']} x "
-        f"{eng.config.num_pages} pages, {len(forwards)} forwards, "
-        f"{paged} {counts[paged] / max(1, len(step_ms)):.0f} per decode "
+        f"{len(prompts)} requests x 32 tokens, twice; page_bytes "
+        f"{st['page_bytes']} x {eng.config.num_pages} pages, "
+        f"{len(forwards)} forwards ({new} prefill programs captured), "
+        f"{paged} {counts[paged] / max(1, steps):.0f} per decode "
         f"forward, launches {json.dumps(counts)}")
-    _engine_replay_equals_eager(eng, f"serve {name} bf16 kv "
-                                f"{st['kv_precision']}")
+    for i, r in enumerate(rounds):
+        log(f"[serve] {name} kv {st['kv_precision']} round {i + 1} "
+            f"({'captures' if i == 0 else 'replays'}): {_round_line(r)}")
+    log(f"[serve] {name} kv {st['kv_precision']} memory: peak allocated "
+        f"{peak / 2**30:.2f} GiB, reserved {reserved / 2**30:.2f} GiB, "
+        f"{base / 2**30:.2f} GiB allocated before the engine")
+    what = f"serve {name} bf16 kv {st['kv_precision']}"
+    _engine_replay_equals_eager(eng, what)
+    _prefill_replay_equals_eager(eng, what)
     return counts
+
+
+def _prefill_replay_equals_eager(eng, what):
+    """Each prefill program of the engine replayed on seeded inputs and
+    its eager body run on the same static inputs from equal pools: the
+    first token, every pool and scale table without scratch page 0
+    (garbage by design: the pack writes it once per scratch entry, in no
+    defined order) and the int8 tier's staging buffers, bit for bit."""
+    import torch
+
+    rs = np.random.RandomState(SEED + 9)
+    ps = eng.config.page_size
+    state = eng._prefill_tensors()
+    n_pools = len(eng._pool_tensors())
+    n = 0
+    with torch.inference_mode():
+        for prog in eng._prefills.values():
+            sb, npp = prog.sb, prog.npp
+            npb = prog.pages.numel()
+            ids = rs.randint(0, eng._model.cfg.vocab_size, (1, sb)).astype(
+                np.int32)
+            pages = np.append(rs.permutation(npb - 1) + 1, 0).astype(np.int32)
+            plen, prefix = 0, None
+            if npp is not None:
+                plen = npp * ps - ps // 2
+                prefix = np.append(np.arange(npb, npb + npp - 1), 0).astype(
+                    np.int32)
+                if eng._quant:
+                    for t in eng._stage_k + eng._stage_v:
+                        t[:npp].normal_()
+            start = [t.clone() for t in state]
+            eng._load_prefill(prog, ids, min(3, sb - 1), pages, plen,
+                              None if eng._quant else prefix)
+            eng._replay_prefill(prog)
+            tok, after = int(prog.tok[0]), [t.clone() for t in state]
+            for t, s in zip(state, start):
+                t.copy_(s)
+            del start
+            eng._prefill_body(prog)
+            torch.cuda.synchronize()
+            check(tok == int(prog.tok[0]), f"{what}: prefill S{sb} p{npp} "
+                  f"replayed first token {tok} != the eager body's "
+                  f"{int(prog.tok[0])}")
+            diff = [i for i, (a, t) in enumerate(zip(after, state))
+                    if not (torch.equal(a[1:], t[1:]) if i < n_pools
+                            else torch.equal(a, t))]
+            del after
+            check(not diff, f"{what}: prefill S{sb} p{npp}: {len(diff)} of "
+                  f"{len(state)} pools / scale tables / staging buffers "
+                  f"differ between the replay and the eager body (first "
+                  f"#{diff[:1]}; page 0 left out)")
+            n += 1
+    log(f"[graphs] {what}: {n} prefill programs (cold and warm), replay == "
+        f"eager body bit for bit (first token, {n_pools} pools / scale "
+        f"tables without scratch page 0, {len(state) - n_pools} staging "
+        "buffers)")
 
 
 def _engine_replay_equals_eager(eng, what, steps=4):
@@ -1894,13 +2049,54 @@ def _engine_replay_equals_eager(eng, what, steps=4):
 
 
 # ----------------------------------------------------------------- phase 5
+def _generate_loop(model, ids, max_new, start=None):
+    """The per-token eager decode loop at host int positions over fresh
+    caches (what `generate()` ran before its decode became chunk
+    programs), greedy, no eos."""
+    import torch
+
+    b, s0 = ids.shape
+    caches = model.init_kv_caches(b, s0 + max_new)
+    logits, caches = model(ids, kv_caches=caches, cache_pos=0,
+                           attn_start=start)
+    tok = logits[:, -1].float().argmax(-1).to(torch.int32)
+    out = [tok]
+    for i in range(1, max_new):
+        logits, caches = model(tok[:, None], kv_caches=caches,
+                               cache_pos=s0 + i - 1, attn_start=start)
+        tok = logits[:, -1].float().argmax(-1).to(torch.int32)
+        out.append(tok)
+    return torch.cat([ids, torch.stack(out, dim=1)], dim=1)
+
+
+def _generate_rate(model, ids, new_tokens=32):
+    """`generate()` timed on a call after a warm-up call of the same
+    shapes: tokens/s of the whole call (prefill included), the call's
+    wall ms, and the decode ms a step (the call's wall less that of a
+    prefill-only call, over new_tokens - 1 steps)."""
+    import torch
+
+    walls = {}
+    for n in (new_tokens, 1):
+        model.generate(ids, max_new_tokens=n)          # warm-up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model.generate(ids, max_new_tokens=n)
+        torch.cuda.synchronize()
+        walls[n] = time.perf_counter() - t
+    b = ids.shape[0]
+    return dict(tokens_per_s=b * new_tokens / walls[new_tokens],
+                wall_ms=1e3 * walls[new_tokens],
+                decode_ms=1e3 * (walls[new_tokens] - walls[1])
+                / (new_tokens - 1))
+
+
 def phase_generate(model, cfg, name):
     import torch
 
     from paddle_tpu_torch.ops import kernels as K
 
     rs = np.random.RandomState(SEED + 1)
-    forwards, hook = _count_forwards(model)
     K.reset_launches()
     ids = rs.randint(0, cfg.vocab_size, (4, 128)).astype(np.int32)
     out = model.generate(ids, max_new_tokens=32).cpu().numpy()
@@ -1916,12 +2112,40 @@ def phase_generate(model, cfg, name):
     check(out_p.shape == (4, 160), f"padded generate shape {out_p.shape}")
     torch.cuda.synchronize()
     counts = K.launch_counts()
-    hook.remove()
     for k in ("flash_fwd", "decode_attention"):
         check(counts[k] > 0, f"generate path never launched {k}")
     check(counts["flash_fwd"] > causal_counts["flash_fwd"],
           "the left-padded prefill did not launch flash_fwd")
-    _rope_launches_per_forward(counts, cfg, len(forwards), "generate")
+    # each call: one prefill and a chunk program of 31 steps, whose first
+    # run (the warm-up before its capture) is eager: 32 forwards
+    forwards = 2 * 32
+    check(counts["decode_attention"] == cfg.num_layers * 2 * 31,
+          f"generate: decode_attention launched "
+          f"{counts['decode_attention']} times in 62 decode forwards")
+    _rope_launches_per_forward(counts, cfg, forwards, "generate")
+    # the chunk programs replayed (a second call of each) against the
+    # per-token eager loop at host positions, bit for bit
+    start = torch.as_tensor(128 - np.array(lens), dtype=torch.int32).cuda()
+    K.reset_launches()
+    with torch.inference_mode():
+        for x, st, first in ((ids, None, out), (ids_p, start, out_p)):
+            again = model.generate(x, max_new_tokens=32,
+                                   attention_mask=None if st is None
+                                   else mask).cpu().numpy()
+            loop = _generate_loop(model, torch.from_numpy(x).cuda(), 32,
+                                  st).cpu().numpy()
+            check(np.array_equal(again, first) and np.array_equal(again,
+                                                                  loop),
+                  f"generate {name}: the replayed chunk's tokens differ "
+                  "from the first call's or the per-token eager loop's")
+    replayed = K.launch_counts()["decode_attention"]
+    check(replayed == 2 * 2 * 31 * cfg.num_layers,
+          f"generate: {replayed} decode_attention launches in two replays "
+          f"and two eager loops of 31 steps")
+    log(f"[graphs] generate {name}: the chunk program (31 steps) replayed "
+        "== the first call == the per-token eager loop, bit for bit, "
+        "equal-length and left-padded")
+    rate = _generate_rate(model, ids)
     # bf16 logits against the f32 upcast of the same weights, copied one
     # parameter at a time (no second full-size copy in flight)
     f32 = type(model)(cfg, device="cuda", dtype=torch.float32)
@@ -1939,7 +2163,10 @@ def phase_generate(model, cfg, name):
           f"bf16 logits relative L2 error {rel:.3g} >= 0.05 vs f32")
     log(f"[generate] {name}: equal-length 4x128 and left-padded {lens} "
         f"+32 tokens ok; bf16 vs f32 logits rel L2 {rel:.4f} (tol 0.05); "
-        f"{len(forwards)} forwards, launches {json.dumps(counts)}")
+        f"{forwards} forwards, launches {json.dumps(counts)}")
+    log(f"[generate] {name} B4 x 128 +32 (second call): "
+        f"{rate['tokens_per_s']:.1f} tokens/s, {rate['wall_ms']:.2f} ms a "
+        f"call, decode {rate['decode_ms']:.3f} ms a step")
     return counts
 
 
@@ -2383,13 +2610,34 @@ def phase_vision_parity(batch=2):
         del cpu, gpu
 
 
-def phase_vision_serve(card, batch=VISION_BATCH, iters=10, profile=False):
-    """bf16 serving of the three models: images/s over `iters` batches
-    after 2 warm-ups; exact launches per forward; the card's bf16 logits
-    against the CPU port's plain f32 forward of the same weights and
-    batch (no kernel on that side)."""
+def _vision_rate(model, x, iters):
+    """images/s and ms a batch of `model(x)` over `iters` calls after 2
+    warm-ups (inside inference mode), timed between synchronizes; the
+    last call's logits."""
     import torch
 
+    for _ in range(2):
+        model(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        logits = model(x)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return x.shape[0] * iters / dt, 1e3 * dt / iters, logits
+
+
+def phase_vision_serve(card, batch=VISION_BATCH, iters=10, profile=False):
+    """bf16 serving of the three models, eager and then through
+    `jit.to_static(model)` (a CUDA graph of the forward, replayed per
+    call): images/s of each over `iters` batches after 2 warm-ups; the
+    replayed logits equal the eager ones bit for bit; exact launches per
+    `StaticFunction` call (a replay calls no forward hook); the card's
+    bf16 logits against the CPU port's plain f32 forward of the same
+    weights and batch (no kernel on that side)."""
+    import torch
+
+    from paddle_tpu_torch.jit import to_static
     from paddle_tpu_torch.ops import kernels as K
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2401,27 +2649,26 @@ def phase_vision_serve(card, batch=VISION_BATCH, iters=10, profile=False):
     for name, kernel, per_fwd in VISION:
         model = _vision_model(name, "cuda", torch.bfloat16)
         with torch.inference_mode():
-            for _ in range(2):
-                model(x)
+            eager, eager_ms, eager_logits = _vision_rate(model, x, iters)
+            to_static(model)
+            model(x)                          # warm-up, capture, replay
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            forwards, hook = _count_forwards(model)
             K.reset_launches()
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                logits = model(x)
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
+            rate, ms, logits = _vision_rate(model, x, iters)
             counts = K.launch_counts()
-            hook.remove()
             peak = torch.cuda.max_memory_allocated()
+            calls = iters + 2
             check(logits.shape == (batch, 1000)
                   and bool(torch.isfinite(logits).all()),
                   f"vision_serve {name}: bad logits")
-            check(counts[kernel] == per_fwd * len(forwards),
+            check(torch.equal(logits, eager_logits),
+                  f"vision_serve {name}: the replayed logits differ from "
+                  "the eager forward's")
+            check(counts[kernel] == per_fwd * calls,
                   f"vision_serve {name}: {kernel} launched {counts[kernel]} "
-                  f"times in {len(forwards)} forwards, expected {per_fwd} "
-                  "per forward")
+                  f"times in {calls} to_static calls, expected {per_fwd} "
+                  "per call")
             others = {k: v for k, v in counts.items() if k != kernel and v}
             check(not others, f"vision_serve {name}: other kernels {others}")
             cpu = _vision_model(name, "cpu", torch.float32)
@@ -2431,18 +2678,20 @@ def phase_vision_serve(card, batch=VISION_BATCH, iters=10, profile=False):
             t_cpu = time.perf_counter() - t_cpu
             del cpu
             if profile:
-                _profile_forward(model, x, f"{name} bf16 B{batch} forward")
+                _profile_forward(model, x, f"{name} bf16 B{batch} forward "
+                                 "(to_static)")
         check(math.isfinite(rel) and rel < 0.05,
               f"vision_serve {name}: bf16 card vs f32 cpu logits rel L2 "
               f"{rel:.3g} >= 0.05")
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
-        log(f"[vision_serve] {name} bf16 B{batch} 224 ({card}): "
-            f"{batch * iters / dt:.1f} images/s, {1e3 * dt / iters:.2f} "
-            f"ms/batch over {iters} batches, peak memory "
+        log(f"[vision_serve] {name} bf16 B{batch} 224 ({card}): to_static "
+            f"{rate:.1f} images/s, {ms:.2f} ms/batch; eager {eager:.1f} "
+            f"images/s, {eager_ms:.2f} ms/batch, over {iters} batches; "
+            f"replay == eager logits bit for bit; peak memory "
             f"{peak / 2**30:.2f} GiB; bf16 card vs f32 cpu plain logits rel "
             f"L2 {rel:.4f} (tol 0.05, cpu forward {t_cpu:.1f}s); {kernel} "
-            f"{counts[kernel] // iters} launches per forward")
+            f"{counts[kernel] // calls} launches per call")
         del model
         torch.cuda.empty_cache()
     return total
@@ -3090,6 +3339,45 @@ def phase_profile(model, cfg, steps=10, kv_precision=None):
             "device time a step")
 
 
+def _profile_cold_prefill(model, cfg, n_tokens, steps=3):
+    """torch.profiler over `steps` cold prefills of one `n_tokens` prompt
+    (`generate([prompt], max_new_tokens=1)` on a fresh engine, the
+    prefix cache cleared between them; the bucket warmed up first):
+    wall, device busy share, host launch calls.  Returns the mean wall
+    ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.inference.engine import (
+        EngineConfig, InferenceEngine,
+    )
+
+    prompt = np.random.RandomState(SEED + 8).randint(
+        0, cfg.vocab_size, (n_tokens,)).astype(np.int32)
+    eng = InferenceEngine(model, EngineConfig())
+    eng.generate([prompt], max_new_tokens=1)
+    eng.clear_prefix_cache()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(steps):
+            eng.generate([prompt], max_new_tokens=1)
+            eng.clear_prefix_cache()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    _log_profile(prof, f"engine cold prefill S{eng._bucket(n_tokens)} "
+                 f"({n_tokens} tokens, one request)", wall_ms, steps)
+    return wall_ms / steps
+
+
+def phase_profile_prefill(model, cfg):
+    """`_profile_cold_prefill` at the 1008-token bucket and the 48-token
+    one."""
+    for n in (1000, 37):
+        _profile_cold_prefill(model, cfg, n)
+
+
 # ----------------------------------------------------------------- main
 def main():
     try:
@@ -3146,6 +3434,7 @@ def main():
                  run("generate", phase_generate, model, cfg, "gpt_1p3b")]
         if profile:
             run("profile", phase_profile, model, cfg)
+            run("profile_prefill", phase_profile_prefill, model, cfg)
         del model
         release()
         cut = gpt_1p3b()
@@ -3181,6 +3470,7 @@ def main():
             run("llama_profile", phase_profile, model, lcfg)
             run("llama_profile_int8", phase_profile, model, lcfg, 10,
                 "int8")
+            run("llama_profile_prefill", phase_profile_prefill, model, lcfg)
         del model
         release()
         run("llama_parity", phase_parity, LlamaForCausalLM,

@@ -21,9 +21,11 @@ and trained through the same entry points (slice 3); vision inference,
 `vision.models` ResNet / MobileNetV2 / Swin (slice 4), and their train
 step (slice 5); packed attention, `nn.functional.flash_attn_unpadded`,
 and the fused transformer blocks of `incubate.nn` over the fused norm
-(slice 6).
+(slice 6); the role of `jax.jit` as CUDA graphs (`core.graphs`: the
+engine's decode and prefill programs, the train step, `generate()`'s
+decode chunks, and `jit.to_static`; slices 15-16).
 """
 from __future__ import annotations
 
-__all__ = ["core", "incubate", "inference", "models", "nn", "observability",
-           "ops", "vision"]
+__all__ = ["core", "incubate", "inference", "jit", "models", "nn",
+           "observability", "ops", "vision"]

@@ -17,8 +17,28 @@ The kernels launch on torch's current stream (`ops/kernels/_build.py`,
 when Python calls them, which a capture does once and a replay never
 does, so `Graph` takes the capture's counts back off the counters and
 adds them again on every replay.
+
+Every capture and warm-up runs on one side stream per device and
+thread (`capture_stream`): cuBLAS keeps a workspace for each stream it
+ran on, for the life of the process, so a stream per capture would grow
+the device memory with the number of captures.  It is per thread
+because a capture is `thread_local`: two threads capturing on one
+stream would fail each other's capture.
+
+The graphs that one owner holds (an engine, one model's `generate()`,
+one `StaticFunction`) share the owner's memory pool
+(`torch.cuda.graph_pool_handle()`, passed as `Graph(..., pool=)`): the
+pool then holds about the largest graph's temporaries, not the sum over
+the graphs.  The rule that makes the sharing safe: a graph's
+temporaries may overlap the outputs of a graph captured later in the
+same pool, so the outputs of a graph are dead once another graph of the
+pool replays.  An owner's programs therefore write their results into
+static tensors allocated outside the capture, or their caller clones or
+consumes a result before the next replay of any graph of the pool.
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -34,6 +54,21 @@ from ..ops import kernels as K
 # legal under capture: launches, and allocations the caching allocator
 # routes into the graph's pool.
 CAPTURE_MODE = "thread_local"
+
+
+_THREAD = threading.local()
+
+
+def capture_stream(device) -> "torch.cuda.Stream":
+    """This thread's side stream on CUDA `device`, made at its first use;
+    every capture and warm-up of the thread runs on it."""
+    device = torch.device(device)
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    streams = _THREAD.__dict__.setdefault("streams", {})
+    if index not in streams:
+        streams[index] = torch.cuda.Stream(index)
+    return streams[index]
 
 
 def warm_up(body, stream):
@@ -58,14 +93,16 @@ def addresses(tensors) -> tuple:
 
 class Graph:
     """`body` captured into one CUDA graph on `stream`, the stream it was
-    warmed up on.  `outputs` is what `body` returned during the capture:
-    tensors in the graph's memory pool that every replay rewrites.
+    warmed up on, in the memory pool `pool` (a private pool when None).
+    `outputs` is what `body` returned during the capture: tensors in the
+    graph's memory pool that every replay rewrites (and, in a shared
+    pool, that the replay of another of its graphs may overwrite).
     `launches` maps each kernel to its launches in one replay."""
 
-    def __init__(self, body, stream):
+    def __init__(self, body, stream, pool=None):
         self.graph = torch.cuda.CUDAGraph()
         before = K.launch_counts()
-        with torch.cuda.graph(self.graph, stream=stream,
+        with torch.cuda.graph(self.graph, pool=pool, stream=stream,
                               capture_error_mode=CAPTURE_MODE):
             self.outputs = body()
         after = K.launch_counts()

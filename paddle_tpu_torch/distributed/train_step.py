@@ -191,7 +191,7 @@ class DistributedTrainStep:
                 for dst, src in zip(static, batch):
                     dst.copy_(src)
                 body = functools.partial(self._step, static)
-                stream = torch.cuda.Stream(self._device)
+                stream = GR.capture_stream(self._device)
                 losses[i] = GR.warm_up(body, stream)
                 # the first step may turn an int step into a tensor:
                 # graphs captured before it hold other addresses

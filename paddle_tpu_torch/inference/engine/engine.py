@@ -16,17 +16,41 @@ admitting new sequences into freed slots between steps.  Per sequence:
     through `paged_attention` with per-slot lengths.
 
 The JAX package compiles these as `jax.jit` programs with donated
-pools; here they are methods that update the pool tensors IN PLACE.
-The decode step is a fixed-shape program as in the JAX package: one per
-(decode_chunk, KV tier), over static device buffers (the tokens, page
-table and lengths in, the tokens out) and the pools, which nothing ever
-rebinds.  On a CUDA device it is a CUDA graph (`core.graphs`): at its
-first step the body runs once eagerly on all-scratch inputs, touching
-only scratch page 0, and is then captured on the thread that steps the
-engine; every step copies the host arrays into the buffers and replays
-it.  On the CPU the same body runs eagerly.  Prefill and the pack stay
-eager.  Free slots ride along pointing at scratch page 0 with length 0;
-their output is discarded on the host.
+pools; here they are fixed-shape programs that update the pool tensors
+IN PLACE, each over static device buffers and the pools, which nothing
+ever rebinds:
+
+  * the decode step, one per (decode_chunk, KV tier): the tokens, page
+    table and lengths in, the tokens out;
+  * the cold prefill and its pack as ONE program per (bucket sb, KV
+    tier): the left-padded ids [1, sb], the pad start and the span's
+    pages [npb] in, the first token out (int32, read after the run);
+  * the warm prefill and its pack, one per (sb, npp, KV tier), npp the
+    power-of-two prefix bucket: as the cold one, plus the prefix length
+    plen (a 0-dim device tensor) and, on the exact tier, the prefix
+    pages [npp].  The tail writes at the fixed offset npp * page_size
+    of the dense buffers; the prefix keys [plen, npp * page_size) and
+    the tail's pad keys are hidden by the pad bias, so the key count
+    and the causal offset depend on (sb, npp) only.
+
+The dense K/V buffers of a prefill are temporaries of its program.  On
+a CUDA device each program is a CUDA graph (`core.graphs`), and all of
+an engine's graphs share one memory pool, so the pool holds about the
+largest bucket's buffers.  The decode program's body runs once eagerly
+at its first step on all-zero (all-scratch) inputs, touching only
+scratch page 0; a prefill program's first run is its first real prefill
+(a made-up one would overwrite the staging rows a warm int8 prefill
+reads its prefix from).  Either is then captured on the thread that
+steps the engine, and every later use copies the host arrays into the
+buffers and replays the graph.  On the CPU the same bodies run eagerly.  Free slots ride along pointing at scratch
+page 0 with length 0; their output is discarded on the host.
+
+The pack writes every one of a bucket's npb page chunks by device
+index, as the JAX pack does: entries past the prompt's pages point at
+scratch page 0, which takes their garbage.  Page 0's content (and under
+the int8 tier its scale rows) is garbage by design and may differ from
+run to run where indices repeat; only free slots and entries past a
+sequence's span read it, and their outputs are discarded or masked.
 
 The int8 KV tier (``kv_precision="int8"``): the page pools hold int8
 codes with per-token, per-head f32 scale tables [num_pages, Hkv,
@@ -40,7 +64,7 @@ commit-time exact copy of each page (the "sidecar"), not the int8 pools.
 A page costs one byte per element plus four per scale, so a
 ``pool_hbm_mb`` budget admits about twice the pages of bf16.
 
-Not ported yet (ROADMAP Queue A4): the int8 weight tier
+Not ported yet (ROADMAP Queue A5): the int8 weight tier
 (`weight_precision`) and draft-model speculative decoding
 (`spec_tokens`); setting either raises NotImplementedError.
 
@@ -84,7 +108,7 @@ __all__ = ["EngineConfig", "InferenceEngine", "RequestHandle"]
 # completed-request timelines retained for request_debug()
 _TIMELINE_LRU = 128
 
-_NOT_PORTED = ("is not ported to paddle_tpu_torch yet (ROADMAP Queue A4: "
+_NOT_PORTED = ("is not ported to paddle_tpu_torch yet (ROADMAP Queue A5: "
                "int8 weights, speculative decode)")
 
 
@@ -233,6 +257,30 @@ class _DecodeProgram:
         self.graph = self.bound = None
 
 
+class _PrefillProgram:
+    """The static device buffers of a prefill program at bucket sb (and,
+    warm, prefix bucket npp): ids [1, sb] int32, start [1] int32 (the
+    pad length) and pages [npb] int64 in, and for the warm program plen
+    (0-dim int32) and on the exact tier prefix_pages [npp] int64; tok
+    [1] int32 out.  On a CUDA device `graph` replays the prefill and its
+    pack over them and `bound` is what it holds of the pools and the
+    staging buffers.  It keeps no reference to the engine."""
+
+    def __init__(self, sb, npp, npb, exact, device):
+        def buf(*shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        self.sb, self.npp = sb, npp
+        self.ids, self.start, self.tok = buf(1, sb), buf(1), buf(1)
+        self.pages = buf(npb, dtype=torch.long)
+        self.plen = self.prefix_pages = None
+        if npp is not None:
+            self.plen = buf()
+            if exact:
+                self.prefix_pages = buf(npp, dtype=torch.long)
+        self.graph = self.bound = None
+
+
 class InferenceEngine:
     """Continuous-batching greedy engine over one model with the
     `GPTForCausalLM` cached-forward contract, on the model's device.
@@ -317,7 +365,28 @@ class InferenceEngine:
                 self._v_scales = [torch.ones(shape[:3], dtype=torch.float32,
                                              device=self._device)
                                   for _ in range(self._layers)]
+            # int8 tier with prefix caching: per layer [P, Hkv,
+            # page_size, D] in the model's dtype, P the most pages a
+            # prefill spans or a prefix bucket holds.  A prefill program
+            # writes its span's exact page chunks here (the commit clones
+            # the new full pages into the radix nodes' sidecar), and a
+            # warm one reads its prefix pages from here (filled from the
+            # sidecar before it runs).
+            self._stage_k = self._stage_v = None
+            if self._quant and self._prefix is not None:
+                rows = max(-(-self._bucket(cfg.max_seq_len)
+                             // cfg.page_size),
+                           self._prefix_bucket(self.max_pages_per_seq))
+                stage = (rows, self._hkv, cfg.page_size, self._hd)
+                self._stage_k = [torch.zeros(stage, dtype=self._dtype,
+                                             device=self._device)
+                                 for _ in range(self._layers)]
+                self._stage_v = [torch.zeros(stage, dtype=self._dtype,
+                                             device=self._device)
+                                 for _ in range(self._layers)]
         self._programs = {}        # (n, kv tier) -> _DecodeProgram
+        self._prefills = {}        # (sb, npp, kv tier) -> _PrefillProgram
+        self._mempool = None       # the graphs' shared memory pool
         self._handles = {}         # request_id -> RequestHandle
         self._lock = threading.RLock()
         self._work = threading.Condition()
@@ -347,80 +416,203 @@ class InferenceEngine:
             self._device, non_blocking=True)
 
     # --- model steps (counterparts of the JAX engine's jitted programs) -----
-    def _run_prefill(self, sb: int, ids, start: int):
-        """`_prefill_program`: one left-padded sequence at bucket sb.
-        Returns (greedy first token, dense K bufs, dense V bufs); the
-        dense capacity is sb + page_size so the pack's last page slice
-        never runs past the buffer."""
+    def _dense_prefill(self, sb: int, ids, start):
+        """`_prefill_program`'s forward on device inputs: ids [1, sb]
+        int32, start [1] int32.  Returns (greedy first token [1] int32,
+        dense K bufs, dense V bufs); the dense capacity is sb + page_size
+        so the pack's last page slice never runs past the buffer."""
         cap = sb + self.config.page_size
         caches = [(torch.zeros(1, self._hkv, cap, self._hd,
                                dtype=self._dtype, device=self._device),
                    torch.zeros(1, self._hkv, cap, self._hd,
                                dtype=self._dtype, device=self._device))
                   for _ in range(self._layers)]
-        logits, new = self._model(self._tensor(ids), kv_caches=caches,
-                                  cache_pos=0,
-                                  attn_start=self._tensor([start]))
-        tok = int(logits[0, -1].float().argmax())
+        logits, new = self._model(ids, kv_caches=caches, cache_pos=0,
+                                  attn_start=start)
+        tok = logits[:, -1].float().argmax(-1).to(torch.int32)
         return tok, [c[0] for c in new], [c[1] for c in new]
 
-    def _run_pack(self, kbufs, vbufs, pages, start: int) -> None:
-        """`_pack_program`: copy page-size chunks of the dense buffers,
-        from offset start + i * page_size, into pages[i] (in place).
-        Entries equal to the scratch page 0 are skipped: the JAX program
-        writes garbage there, which nothing reads.  A chunk that would
-        run past the buffer is clamped to its end, as
-        `lax.dynamic_slice` does (only pages past the prompt's span,
-        whose slots decode overwrites before reading, can hit this).
-        Under the int8 KV tier each [Hkv, page_size, D] chunk quantizes
-        per vector, the codec of the decode write, so the packed pages
-        equal what token-by-token writes would have stored."""
-        ps = self.config.page_size
-        cap = kbufs[0].shape[2]
-        live = [(i, int(p)) for i, p in enumerate(pages) if p != 0]
-        if not live:
-            return
-        lows = [min(start + i * ps, cap - ps) for i, _ in live]
-        dst = self._tensor([p for _, p in live], torch.long)
-        idx = (torch.tensor(lows)[:, None] + torch.arange(ps)[None, :]
-               ).reshape(-1).to(self._device)
-        n = len(live)
-        for pools, scales, bufs in ((self._k_pools, self._k_scales, kbufs),
-                                    (self._v_pools, self._v_scales, vbufs)):
-            for li, (pool, buf) in enumerate(zip(pools, bufs)):
-                chunk = buf[0].index_select(1, idx)          # [hkv, n*ps, d]
-                chunk = chunk.reshape(self._hkv, n, ps, self._hd) \
-                    .transpose(0, 1)                         # [n, hkv, ps, d]
-                if self._quant:
-                    pool[dst], scales[li][dst] = quantize_vectors(chunk)
-                else:
-                    pool[dst] = chunk.to(pool.dtype)
-
-    def _run_cached_prefill(self, sb: int, npp: int, ids, start: int,
-                            plen: int, prefix_k, prefix_v):
-        """`_cached_prefill_program`: warm tail prefill.  The cached
-        prefix, per layer [npp, Hkv, page_size, D] pages (`prefix_k`,
-        `prefix_v`), lays out as a dense buffer at [0, npp*ps); the tail
-        (left-padded to bucket sb) runs under `warm_prefill_guard`, so
-        each tail query attends prefix + causal tail."""
+    def _dense_cached_prefill(self, sb: int, npp: int, ids, start, plen,
+                              prefix_k, prefix_v):
+        """`_cached_prefill_program`'s forward: the cached prefix, per
+        layer [npp, Hkv, page_size, D] pages (`prefix_k`, `prefix_v`),
+        lays out as a dense buffer at [0, npp * page_size), of which the
+        first `plen` tokens are real (an int or a 0-dim device tensor);
+        the tail (left-padded to bucket sb) writes at npp * page_size
+        under `warm_prefill_guard`, so each tail query attends the real
+        prefix + causal tail.  Returns as `_dense_prefill`."""
         ps = self.config.page_size
         pcap = npp * ps
 
         def dense(pages):
             g = pages.transpose(0, 1).reshape(self._hkv, pcap, self._hd)
             return torch.cat(
-                [g[None], torch.zeros(1, self._hkv, sb + ps, self._hd,
-                                      dtype=self._dtype,
-                                      device=self._device)], dim=2)
+                [g[None].to(self._dtype),
+                 torch.zeros(1, self._hkv, sb + ps, self._hd,
+                             dtype=self._dtype, device=self._device)], dim=2)
 
         caches = [(dense(prefix_k[li]), dense(prefix_v[li]))
                   for li in range(self._layers)]
-        with GEN.warm_prefill_guard(plen):
-            logits, new = self._model(self._tensor(ids), kv_caches=caches,
-                                      cache_pos=plen,
-                                      attn_start=self._tensor([start]))
-        tok = int(logits[0, -1].float().argmax())
+        with GEN.warm_prefill_guard(pcap):
+            logits, new = self._model(ids, kv_caches=caches, cache_pos=plen,
+                                      attn_start=start)
+        tok = logits[:, -1].float().argmax(-1).to(torch.int32)
         return tok, [c[0] for c in new], [c[1] for c in new]
+
+    def _pack_pages(self, kbufs, vbufs, pages, offset) -> None:
+        """`_pack_program` on device inputs: copy page-size chunks of the
+        dense buffers, from offset[0] + i * page_size, into pages[i] (in
+        place) for every i, scratch entries included (page 0 takes their
+        garbage, as in the JAX program).  A chunk that would run past the
+        buffer is clamped to its end, as `lax.dynamic_slice` does (only
+        entries past the prompt's span, whose slots decode overwrites
+        before reading, can hit this).  Under the int8 KV tier each
+        [Hkv, page_size, D] chunk quantizes per vector, the codec of the
+        decode write, so the packed pages equal what token-by-token
+        writes would have stored; with prefix caching the exact chunks
+        also land in the staging buffers, chunk i in row i."""
+        ps = self.config.page_size
+        cap = kbufs[0].shape[2]
+        npb = pages.shape[0]
+        ar = torch.arange(max(npb, ps), device=self._device)
+        lows = torch.clamp(offset.long() + ps * ar[:npb], max=cap - ps)
+        idx = (lows[:, None] + ar[None, :ps]).reshape(-1)
+        for pools, scales, bufs, stage in (
+                (self._k_pools, self._k_scales, kbufs, self._stage_k),
+                (self._v_pools, self._v_scales, vbufs, self._stage_v)):
+            for li, (pool, buf) in enumerate(zip(pools, bufs)):
+                chunk = buf[0].index_select(1, idx)          # [hkv, n*ps, d]
+                chunk = chunk.reshape(self._hkv, npb, ps, self._hd) \
+                    .transpose(0, 1)                         # [n, hkv, ps, d]
+                if stage is not None:
+                    stage[li][:npb].copy_(chunk)
+                if self._quant:
+                    pool[pages], scales[li][pages] = quantize_vectors(chunk)
+                else:
+                    pool[pages] = chunk.to(pool.dtype)
+
+    def _run_prefill(self, sb: int, ids, start: int):
+        """The cold prefill alone, eagerly, from host inputs (ids [1, sb]
+        int32, start the pad length): (first token, dense K bufs, dense V
+        bufs)."""
+        tok, kbufs, vbufs = self._dense_prefill(sb, self._tensor(ids),
+                                                self._tensor([start]))
+        return int(tok[0]), kbufs, vbufs
+
+    def _run_pack(self, kbufs, vbufs, pages, start: int) -> None:
+        """The pack alone, eagerly, from host inputs: pages [npb] int32
+        from buffer offset `start` (`_pack_pages`)."""
+        self._pack_pages(kbufs, vbufs, self._tensor(pages, torch.long),
+                         self._tensor([start]))
+
+    def _run_cached_prefill(self, sb: int, npp: int, ids, start: int,
+                            plen: int, prefix_k, prefix_v):
+        """The warm prefill alone, eagerly, from host inputs: returns as
+        `_run_prefill`, the tail at npp * page_size + start of the
+        returned buffers."""
+        tok, kbufs, vbufs = self._dense_cached_prefill(
+            sb, npp, self._tensor(ids), self._tensor([start]),
+            self._tensor(plen), prefix_k, prefix_v)
+        return int(tok[0]), kbufs, vbufs
+
+    def _prefill_body(self, prog) -> None:
+        """The body of a prefill program: the cold or warm prefill of
+        `prog`'s static inputs, its first token into prog.tok, and the
+        pack of its span's pages.  The warm program's prefix comes from
+        the pools (exact tier) or the staging buffers (int8 tier)."""
+        if prog.npp is None:
+            tok, kbufs, vbufs = self._dense_prefill(prog.sb, prog.ids,
+                                                    prog.start)
+            offset = prog.start
+        else:
+            if self._quant:
+                prefix_k = [st[:prog.npp] for st in self._stage_k]
+                prefix_v = [st[:prog.npp] for st in self._stage_v]
+            else:
+                prefix_k = [pool[prog.prefix_pages] for pool in self._k_pools]
+                prefix_v = [pool[prog.prefix_pages] for pool in self._v_pools]
+            tok, kbufs, vbufs = self._dense_cached_prefill(
+                prog.sb, prog.npp, prog.ids, prog.start, prog.plen,
+                prefix_k, prefix_v)
+            offset = prog.start + prog.npp * self.config.page_size
+        self._pack_pages(kbufs, vbufs, prog.pages, offset)
+        prog.tok.copy_(tok)
+
+    def _prefill_tensors(self) -> list:
+        """The pools, scale tables and staging buffers a prefill graph
+        reads and writes."""
+        return self._pool_tensors() + (
+            self._stage_k + self._stage_v if self._stage_k else [])
+
+    def _prefill_program(self, sb: int, npp=None) -> "_PrefillProgram":
+        """`_prefill_program` + `_pack_program` (cold, npp None) or
+        `_cached_prefill_program` + `_pack_program` (warm): the static
+        buffers of the key (sb, npp, KV tier), made at its first
+        prefill; on a CUDA device `_replay_prefill` captures their graph
+        then."""
+        key = (sb, npp, self.config.kv_precision)
+        if key not in self._prefills:
+            self._prefills[key] = _PrefillProgram(
+                sb, npp, -(-sb // self.config.page_size), not self._quant,
+                self._device)
+        return self._prefills[key]
+
+    def _graph_pool(self):
+        """The memory pool every graph of this engine is captured in."""
+        if self._mempool is None:
+            self._mempool = torch.cuda.graph_pool_handle()
+        return self._mempool
+
+    def _capture_prefill(self, prog) -> None:
+        """Run the body eagerly on the capture stream over the inputs
+        loaded into `prog` (the first prefill of the program: a real
+        one, whose results it leaves in the pools, the staging buffers
+        and prog.tok), then capture it into the program's graph.  A
+        failure raises."""
+        body = functools.partial(self._prefill_body, prog)
+        stream = GR.capture_stream(self._device)
+        GR.warm_up(body, stream)
+        prog.graph = GR.Graph(body, stream, pool=self._graph_pool())
+        prog.bound = GR.addresses(self._prefill_tensors())
+
+    def _run_prefill_program(self, prog, ids, start: int, pages, plen=0,
+                             prefix_pages=None) -> int:
+        """One prefill and its pack from host arrays: ids [1, sb], the pad
+        length `start`, the span's pages [npb]; warm also the prefix
+        length `plen` and on the exact tier its pages [npp].  Returns the
+        first token."""
+        self._load_prefill(prog, ids, start, pages, plen, prefix_pages)
+        if self._device.type == "cpu":
+            self._prefill_body(prog)
+        else:
+            self._replay_prefill(prog)
+        return int(prog.tok[0])
+
+    @staticmethod
+    def _load_prefill(prog, ids, start, pages, plen, prefix_pages) -> None:
+        """Copy a prefill's host inputs into `prog`'s static buffers."""
+        for dst, src in ((prog.ids, ids), (prog.start, [start]),
+                         (prog.pages, pages), (prog.plen, plen),
+                         (prog.prefix_pages, prefix_pages)):
+            if dst is not None:
+                # on the current stream, so ordered before the replay
+                dst.copy_(torch.as_tensor(np.asarray(src)),
+                          non_blocking=True)
+
+    def _replay_prefill(self, prog) -> None:
+        """The CUDA path of `_run_prefill_program`: the program's graph
+        replayed, or at its first prefill the body run and captured.  A
+        warm-up on made-up inputs would write the staging rows the warm
+        int8 program reads its prefix from, so the first run is the
+        real one, as a train step's first step is."""
+        if prog.graph is None:
+            self._capture_prefill(prog)
+            return
+        if GR.addresses(self._prefill_tensors()) != prog.bound:
+            raise RuntimeError(
+                "the engine's page pools were rebound after a prefill "
+                "graph captured them; pools must be updated in place")
+        prog.graph.replay()
 
     def _decode_body(self, n: int, tok, pt, lengths, toks):
         """The body of `_decode_program`: n ragged decode steps at the
@@ -468,9 +660,9 @@ class InferenceEngine:
         it into the program's graph.  A failure raises."""
         body = functools.partial(self._decode_body, n, prog.tok, prog.pt,
                                  prog.lengths, prog.toks)
-        stream = torch.cuda.Stream(self._device)
+        stream = GR.capture_stream(self._device)
         GR.warm_up(body, stream)
-        prog.graph = GR.Graph(body, stream)
+        prog.graph = GR.Graph(body, stream, pool=self._graph_pool())
         prog.bound = GR.addresses(self._pool_tensors())
 
     def _run_decode(self, n: int, tok, pt, lengths):
@@ -612,11 +804,10 @@ class InferenceEngine:
                          request=seq.request_id, tokens=s0,
                          shared=shared, pages=len(seq.pages)):
             if shared > 0:
-                t0, kbufs, vbufs, start = self._warm_prefill(seq, prompt,
-                                                             shared)
+                t0 = self._warm_prefill(seq, prompt, shared)
             else:
-                t0, kbufs, vbufs, start = self._cold_prefill(seq, prompt)
-            self._commit_prefix(seq, kbufs, vbufs, start)
+                t0 = self._cold_prefill(seq, prompt)
+            self._commit_prefix(seq)
             seq.length = s0
             seq.last_token = t0
         if seq.timeline is not None:
@@ -636,22 +827,21 @@ class InferenceEngine:
         _metrics.inc("engine.sequences", event="admitted")
         self._accept(seq, t0)
 
-    def _cold_prefill(self, seq, prompt):
-        """Dense prefill from token 0.  Returns (first token, dense K
-        bufs, dense V bufs, pad_start): prompt token t sits at buffer
-        offset pad_start + t, and packs (and commits) from there."""
+    def _cold_prefill(self, seq, prompt) -> int:
+        """Dense prefill from token 0 and its pack; returns the first
+        token.  Prompt token t sits at buffer offset pad_start + t and
+        packs from there."""
         s0 = prompt.size
         sb = self._bucket(s0)
         start = sb - s0
         ids = np.zeros((1, sb), np.int32)
         ids[0, start:] = prompt
-        tok, kbufs, vbufs = self._run_prefill(sb, ids, start)
         npb = -(-sb // self.config.page_size)
         pages = np.zeros((npb,), np.int32)
         n_real = min(len(seq.pages), npb)
         pages[:n_real] = seq.pages[:n_real]
-        self._run_pack(kbufs, vbufs, pages, start)
-        return tok, kbufs, vbufs, start
+        return self._run_prefill_program(self._prefill_program(sb), ids,
+                                         start, pages)
 
     @staticmethod
     def _prefix_bucket(n_pages: int) -> int:
@@ -662,13 +852,13 @@ class InferenceEngine:
             npp *= 2
         return npp
 
-    def _warm_prefill(self, seq, prompt, shared):
+    def _warm_prefill(self, seq, prompt, shared) -> int:
         """Prefill ONLY the tail [shared, s0): the cached prefix pages
         are already in the sequence's table.  The tail's K/V packs into
         the sequence's PRIVATE tail pages (the scheduler never shares
         the boundary page), so no shared page is written.  The prefix
         comes from the pools, or under the int8 KV tier from the
-        matched nodes' exact sidecar.  Returns as `_cold_prefill`."""
+        matched nodes' exact sidecar.  Returns the first token."""
         ps = self.config.page_size
         tail = prompt[shared:]
         sb = self._bucket(tail.size)
@@ -677,58 +867,41 @@ class InferenceEngine:
         npp = self._prefix_bucket(npa)
         ids = np.zeros((1, sb), np.int32)
         ids[0, start:] = tail
+        prefix_pages = None
         if self._quant:
-            prefix_k, prefix_v = self._sidecar_prefix(seq, npa, npp)
+            self._sidecar_prefix(seq, npa)
         else:
-            pages = np.zeros((npp,), np.int32)
-            pages[:npa] = seq.pages[:npa]
-            pg = self._tensor(pages, torch.long)
-            prefix_k = [pool[pg] for pool in self._k_pools]
-            prefix_v = [pool[pg] for pool in self._v_pools]
-        tok, kbufs, vbufs = self._run_cached_prefill(
-            sb, npp, ids, start, shared, prefix_k, prefix_v)
-        # the fresh span landed at [shared, shared+sb): tail token j at
-        # shared + start + j
+            prefix_pages = np.zeros((npp,), np.int32)
+            prefix_pages[:npa] = seq.pages[:npa]
+        # tail page i takes tail tokens [i * ps, (i + 1) * ps)
         npb = -(-sb // ps)
         tpages = np.zeros((npb,), np.int32)
         n_tail = max(0, min(len(seq.pages) - npa, npb))
         tpages[:n_tail] = seq.pages[npa:npa + n_tail]
-        self._run_pack(kbufs, vbufs, tpages, shared + start)
-        # commit offset: prompt token t sits at start + t in the returned
-        # buffers (tail token j, prompt token shared + j, landed at
-        # shared + start + j)
-        return tok, kbufs, vbufs, start
+        return self._run_prefill_program(self._prefill_program(sb, npp), ids,
+                                         start, tpages, shared, prefix_pages)
 
-    def _sidecar_prefix(self, seq, npa, npp):
-        """int8 KV tier: stack the matched radix nodes' commit-time exact
-        page copies into per-layer prefix pages [npp, Hkv, page_size,
-        D], zero past npa."""
-        zero = torch.zeros(self._hkv, self.config.page_size, self._hd,
-                           dtype=self._dtype, device=self._device)
-        ek, ev = [], []
+    def _sidecar_prefix(self, seq, npa) -> None:
+        """int8 KV tier: copy the matched radix nodes' commit-time exact
+        page copies into rows [0, npa) of the staging buffers, the warm
+        program's prefix (rows past npa are hidden keys)."""
+        nodes = seq.shared_nodes[:npa]
+        if any(node.exact is None for node in nodes):
+            raise RuntimeError(
+                "prefix-cache node without an exact sidecar "
+                "under kv_precision=int8 (commit-path bug)")
         for li in range(self._layers):
-            ks, vs = [], []
-            for i in range(npa):
-                ex = seq.shared_nodes[i].exact
-                if ex is None:
-                    raise RuntimeError(
-                        "prefix-cache node without an exact sidecar "
-                        "under kv_precision=int8 (commit-path bug)")
-                ks.append(ex[li][0])
-                vs.append(ex[li][1])
-            pad = [zero] * (npp - npa)
-            ek.append(torch.stack(ks + pad))
-            ev.append(torch.stack(vs + pad))
-        return ek, ev
+            for stage, kv in ((self._stage_k, 0), (self._stage_v, 1)):
+                torch.stack([node.exact[li][kv] for node in nodes],
+                            out=stage[li][:npa])
 
-    def _commit_prefix(self, seq, kbufs, vbufs, start) -> None:
+    def _commit_prefix(self, seq) -> None:
         """Register the ORIGINAL prompt's full pages in the radix index
         (the partial tail page stays private — decode still writes it).
-        `start` is the buffer offset of prompt token 0 in the dense
-        buffers just returned (cold and warm alike), where the int8
-        tier's exact page copies are sliced from: one copy per layer of
-        the new full pages, [n, Hkv, page_size, D], each node holding a
-        page of it (not the whole prefill buffer)."""
+        Under the int8 tier each new full page also keeps an exact copy
+        per layer (the sidecar), cloned from the staging buffers that the
+        prefill just filled: the prefilled span's page chunk i (cold: the
+        prompt's page i; warm: page shared / page_size + i) in row i."""
         if self._prefix is None:
             return
         ps = self.config.page_size
@@ -740,14 +913,9 @@ class InferenceEngine:
             # the first sc nodes exist (matched at admission); insert
             # never reads their slots
             sc = min(int(seq.shared_len or 0) // ps, n_full)
-            lo, hi = start + sc * ps, start + n_full * ps
-
-            def pages(buf):          # [n_full - sc, Hkv, page_size, D]
-                return buf[0, :, lo:hi].reshape(
-                    self._hkv, n_full - sc, ps, self._hd) \
-                    .transpose(0, 1).contiguous()
-
-            copies = [(pages(kb), pages(vb)) for kb, vb in zip(kbufs, vbufs)]
+            # clones: the next prefill rewrites the staging buffers
+            copies = [(sk[:n_full - sc].clone(), sv[:n_full - sc].clone())
+                      for sk, sv in zip(self._stage_k, self._stage_v)]
             exact = [None] * sc + [[(k[i], v[i]) for k, v in copies]
                                    for i in range(n_full - sc)]
         self._prefix.insert(seq.prompt[:n_full * ps], seq.pages[:n_full],

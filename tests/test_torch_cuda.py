@@ -1970,3 +1970,219 @@ def test_a_failed_capture_raises():
     with pytest.raises(RuntimeError):
         GR.Graph(lambda: x.sum().item(), stream)
     torch.cuda.synchronize()
+
+
+def _prefill_inputs(eng, prog, rs):
+    """Random host inputs of a prefill program: ids, a pad of 3, its
+    pages (distinct, the last the scratch page 0), and for a warm one a
+    prefix 4 tokens short of its bucket on distinct pages."""
+    ps, sb, npp = eng.config.page_size, prog.sb, prog.npp
+    ids = rs.randint(0, 128, (1, sb)).astype(np.int32)
+    npb = prog.pages.numel()
+    pages = np.append(rs.permutation(npb - 1) + 1, 0).astype(np.int32)
+    plen, prefix = 0, None
+    if npp is not None:
+        plen = npp * ps - 4
+        prefix = np.append(np.arange(20, 20 + npp - 1), 0).astype(np.int32)
+    return ids, 3, pages, plen, prefix
+
+
+@pytest.mark.parametrize("kv", [None, "int8"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_engine_prefill_graphs_replay_their_eager_bodies(kv, dtype):
+    """The engine's prefill programs, cold and warm: one graph per
+    (bucket, prefix bucket, tier), each replay bit for bit its eager
+    body on the same static inputs from equal state: the first token,
+    every pool and scale table without scratch page 0 (garbage by
+    design: the pack writes it once per scratch entry), the int8 tier's
+    staging buffers whole; flash_fwd counted once a layer a replay."""
+    from paddle_tpu_torch.inference.engine import (
+        EngineConfig, InferenceEngine,
+    )
+
+    model = _tiny_gpt(dtype)
+    eng = InferenceEngine(model, EngineConfig(
+        page_size=4, max_slots=2, max_seq_len=64, kv_precision=kv))
+    rs = np.random.RandomState(4)
+    shared = rs.randint(0, 128, (16,)).astype(np.int32)
+    a, b = (np.concatenate([shared, rs.randint(0, 128, (n,)).astype(
+        np.int32)]) for n in (3, 5))
+    # b is admitted after a has committed its prefix: a warm prefill
+    eng.generate([a, rs.randint(0, 128, (9,)).astype(np.int32), b],
+                 max_new_tokens=3)
+    assert eng.prefix_cache_stats()["hits"] >= 1
+    assert {(sb, npp) for sb, npp, _ in eng._prefills} == \
+        {(32, None), (16, None), (16, 4)}
+    n_pools = len(eng._pool_tensors())
+    state = eng._prefill_tensors()
+    with torch.inference_mode():
+        for prog in eng._prefills.values():
+            assert prog.graph is not None
+            inputs = _prefill_inputs(eng, prog, rs)
+            if kv and prog.npp is not None:      # the sidecar's prefix
+                for st in eng._stage_k + eng._stage_v:
+                    st[:prog.npp].copy_(torch.randn_like(
+                        st[:prog.npp], dtype=torch.float32))
+            start = [t.clone() for t in state]
+            eng._load_prefill(prog, *inputs)
+            K.reset_launches()
+            eng._replay_prefill(prog)
+            assert K.launch_counts()["flash_fwd"] == 2
+            got_tok, got = int(prog.tok[0]), [t.clone() for t in state]
+            for t, s in zip(state, start):
+                t.copy_(s)
+            eng._prefill_body(prog)
+            assert got_tok == int(prog.tok[0])
+            for i, (a, t) in enumerate(zip(got, state)):
+                assert torch.equal(a[1:], t[1:]) if i < n_pools else \
+                    torch.equal(a, t), (prog.sb, prog.npp, i)
+        eng._k_pools[0] = eng._k_pools[0].clone()
+        prog = next(iter(eng._prefills.values()))
+        with pytest.raises(RuntimeError, match="rebound"):
+            eng._replay_prefill(prog)
+    K.reset_launches()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_engine_prefill_and_decode_graphs_share_one_pool(dtype):
+    """Prefills of three buckets (cold and warm) interleaved with decode
+    replays, every graph captured in the engine's one pool on one
+    capture stream: the streams equal those of the same engine whose
+    programs run their eager bodies (replays swapped for the bodies), bit
+    for bit, in both KV tiers."""
+    from paddle_tpu_torch.core import graphs as GR
+    from paddle_tpu_torch.inference.engine import (
+        EngineConfig, InferenceEngine,
+    )
+
+    model = _tiny_gpt(dtype)
+    rs = np.random.RandomState(5)
+    shared = rs.randint(0, 128, (24,)).astype(np.int32)
+    prompts = [rs.randint(0, 128, (n,)).astype(np.int32) for n in (5, 20)]
+    prompts += [np.concatenate([shared, rs.randint(0, 128, (n,)).astype(
+        np.int32)]) for n in (7, 2, 11)] + [rs.randint(0, 128, (40,))
+                                            .astype(np.int32)]
+    made, real = [], GR.Graph
+
+    def graph(body, stream, pool=None):
+        made.append((stream, pool))
+        return real(body, stream, pool=pool)
+
+    for kv in (None, "int8"):
+        cfg = EngineConfig(page_size=4, max_slots=2, max_seq_len=64,
+                           kv_precision=kv)
+        eager = InferenceEngine(model, cfg)
+        eager._capture_decode = lambda *a: None
+        eager._replay_prefill = eager._prefill_body
+        eager._replay_decode = lambda prog, e=eager: e._decode_body(
+            e.config.decode_chunk, prog.tok, prog.pt, prog.lengths,
+            prog.toks)
+        want = eager.generate(prompts, max_new_tokens=6)
+        GR.Graph = graph
+        try:
+            eng = InferenceEngine(model, cfg)
+            got = eng.generate(prompts, max_new_tokens=6)
+        finally:
+            GR.Graph = real
+        assert eng.prefix_cache_stats()["hits"] >= 1
+        assert len({sb for sb, _, _ in eng._prefills}) >= 3
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    # one stream for every capture; one pool per engine
+    assert len({id(s) for s, _ in made}) == 1 and len(made) >= 8
+    assert len({p for _, p in made}) == 2
+    K.reset_launches()
+
+
+def _generate_loop(model, ids, max_new, eos=None, start=None):
+    """The per-token eager loop at host int positions, fresh caches."""
+    b, s0 = ids.shape
+    caches = model.init_kv_caches(b, s0 + max_new)
+    logits, caches = model(ids, kv_caches=caches, cache_pos=0,
+                           attn_start=start)
+    tok = logits[:, -1].float().argmax(-1).to(torch.int32)
+    finished = None if eos is None else tok == eos
+    out = [tok]
+    for i in range(1, max_new):
+        if finished is not None and bool(finished.all()):
+            break
+        logits, caches = model(tok[:, None], kv_caches=caches,
+                               cache_pos=s0 + i - 1, attn_start=start)
+        tok = logits[:, -1].float().argmax(-1).to(torch.int32)
+        if finished is not None:
+            tok = torch.where(finished, eos, tok)
+            finished = finished | (tok == eos)
+        out.append(tok)
+    return torch.cat([ids, torch.stack(out, dim=1)], dim=1)
+
+
+@pytest.mark.parametrize("mode", ["plain", "eos_pad"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_generate_chunk_graphs_replay_their_eager_body(mode, dtype):
+    """`generate()`'s decode chunks: the first call of a chunk key runs
+    the body and captures it, the second call replays; both equal the
+    per-token eager loop bit for bit (device positions give the host
+    ints' bits), decode_attention counted once a layer a decode step."""
+    model = _tiny_gpt(dtype)
+    rs = np.random.RandomState(6)
+    ids = torch.from_numpy(rs.randint(0, 128, (3, 9)).astype(
+        np.int32)).cuda()
+    kw, start = {}, None
+    if mode == "eos_pad":
+        mask = np.ones((3, 9), np.int32)
+        mask[1, :4] = 0
+        kw["attention_mask"] = mask
+        start = torch.tensor([0, 4, 0], dtype=torch.int32, device="cuda")
+        probe = model.generate(ids, max_new_tokens=40, **kw)
+        kw["eos_token_id"] = int(probe[0, 9 + 34])
+    with torch.inference_mode():
+        want = _generate_loop(model, ids, 40, kw.get("eos_token_id"), start)
+    K.reset_launches()
+    runs = [model.generate(ids, max_new_tokens=40, **kw) for _ in range(2)]
+    counts = K.launch_counts()
+    for got in runs:
+        assert torch.equal(got, want)
+    if mode == "plain":         # a warm-up's steps, then a replay's
+        assert counts["decode_attention"] == 2 * 2 * 39
+    K.reset_launches()
+
+
+def test_static_function_replays_its_eager_forward():
+    """`to_static` on the card: one graph per input signature, each call
+    a replay equal to the eager forward bit for bit (bf16 ResNet-18 and
+    a small Swin), returned as a clone; conv_bn_act / window_attention
+    counted per call; a rebound parameter captures again."""
+    from paddle_tpu_torch.jit import to_static
+    from paddle_tpu_torch.vision import models as TV
+
+    for ctor, kw, size, kernel in (
+            ("resnet18", dict(num_classes=10), 64, "conv_bn_act"),
+            ("SwinTransformer", dict(img_size=56, embed_dim=24,
+                                     depths=(2, 2), num_heads=(1, 2),
+                                     window_size=7, num_classes=10), 56,
+             "window_attention")):
+        model = getattr(TV, ctor)(**kw, dtype=torch.bfloat16)
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        xs = [torch.randn(4, 3, size, size, generator=gen, device="cuda",
+                          dtype=torch.bfloat16) for _ in range(2)]
+        with torch.inference_mode():
+            K.reset_launches()
+            want = [model(x) for x in xs]
+            per_fwd = K.launch_counts()[kernel] // 2
+            sf = to_static(model).forward
+            sf(xs[0])                          # warm-up, capture, replay
+            K.reset_launches()
+            got = [model(x) for x in xs]
+            assert K.launch_counts()[kernel] == 2 * per_fwd > 0
+            g = next(iter(sf._cache.values())).graph
+            assert got[1] is not g.outputs
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
+        head = model.fc if ctor == "resnet18" else model.head
+        with torch.no_grad():
+            head.weight = torch.nn.Parameter(head.weight * 0.5)
+        with torch.inference_mode():
+            assert torch.equal(model(xs[0]), sf._fn(xs[0]))
+            assert next(iter(sf._cache.values())).graph is not g
+        assert len(sf._cache) == 1
+    K.reset_launches()

@@ -246,7 +246,8 @@ def test_engine_request_debug_names_eviction_stall(models, monkeypatch):
                                   dict(spec_tokens=2)])
 def test_engine_unported_tiers_raise(models, knob):
     _, tm = models
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # int8 weights and speculative decode are the serving extras of A5
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A5"):
         InferenceEngine(tm, EngineConfig(**knob))
 
 

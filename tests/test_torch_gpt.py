@@ -114,6 +114,72 @@ def test_generate_streams_identical(models, ids, mode):
     np.testing.assert_array_equal(tg, jg)
 
 
+def _per_token_loop(tm, ids, max_new, eos=None, mask=None):
+    """The decode loop the chunk programs replaced: one eager model call
+    per token at an int position, fresh caches."""
+    from paddle_tpu_torch.models.generation import _left_pad_starts
+
+    b, s0 = ids.shape
+    x = torch.from_numpy(ids)
+    start = None if mask is None else torch.from_numpy(
+        _left_pad_starts(mask, b, s0).astype(np.int32))
+    with torch.inference_mode():
+        caches = tm.init_kv_caches(b, s0 + max_new)
+        logits, caches = tm(x, kv_caches=caches, cache_pos=0,
+                            attn_start=start)
+        tok = logits[:, -1].float().argmax(-1).to(torch.int32)
+        finished = None if eos is None else tok == eos
+        out = [tok]
+        for i in range(1, max_new):
+            if finished is not None and bool(finished.all()):
+                break
+            logits, caches = tm(tok[:, None], kv_caches=caches,
+                                cache_pos=s0 + i - 1, attn_start=start)
+            tok = logits[:, -1].float().argmax(-1).to(torch.int32)
+            if finished is not None:
+                tok = torch.where(finished, eos, tok)
+                finished = finished | (tok == eos)
+            out.append(tok)
+    return torch.cat([x, torch.stack(out, dim=1)], dim=1).numpy()
+
+
+@pytest.mark.parametrize("mode", ["plain", "left_pad", "eos_mid_chunk",
+                                  "eos_pad"])
+def test_chunked_generate_equals_jax_and_the_per_token_loop(models, ids,
+                                                            mode):
+    """45 new tokens: one chunk program of 44 steps without an eos; with
+    one, chunks of 32 and 12 with a host check between them and the trim
+    to the per-token loop's stop point.  eos_mid_chunk: one row whose
+    eos is its 36th generated token (or the first earlier emission of
+    it), so it finishes inside a chunk and the output is trimmed there.
+    Tokens exactly equal to JAX `generate()` and to the per-token loop
+    (whose positions are host ints)."""
+    jm, tm = models
+    kw = {}
+    x = ids[:1] if mode == "eos_mid_chunk" else ids
+    if "pad" in mode:
+        mask = np.ones(x.shape, np.int32)
+        mask[0, :3] = 0
+        mask[2, :6] = 0
+        kw["attention_mask"] = mask
+    if "eos" in mode:
+        probe = tm.generate(x, max_new_tokens=45, **kw).numpy()
+        kw["eos_token_id"] = int(probe[0, x.shape[1] + 35])
+    jkw = dict(kw)
+    if "attention_mask" in jkw:
+        jkw["attention_mask"] = P.to_tensor(jkw["attention_mask"], "int32")
+    jg = np.asarray(jm.generate(P.to_tensor(x, "int32"), max_new_tokens=45,
+                                **jkw)._value)
+    tg = tm.generate(x, max_new_tokens=45, **kw).numpy()
+    loop = _per_token_loop(tm, x, 45, kw.get("eos_token_id"),
+                           kw.get("attention_mask"))
+    np.testing.assert_array_equal(tg, jg)
+    np.testing.assert_array_equal(tg, loop)
+    if mode == "eos_mid_chunk":
+        n = tg.shape[1] - x.shape[1]
+        assert n <= 36 and n % 32 != 1 and tg[0, -1] == kw["eos_token_id"]
+
+
 def test_load_reference_state_checks_names_and_shapes(models):
     jm, _ = models
     params = {k: np.asarray(v) for k, v in jm.functional_state()[0].items()}

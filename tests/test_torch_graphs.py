@@ -1,7 +1,8 @@
 """The port's fixed-shape programs (``paddle_tpu_torch/core/graphs.py``),
 on the CPU: what a CUDA graph of them captures and replays.
 
-The engine's decode program and the train step run as CUDA graphs on
+The engine's decode and prefill programs, the train step,
+`generate()`'s decode chunks and `jit.to_static` run as CUDA graphs on
 the card (held there bit for bit against their eager bodies by
 ``chip_smoke.py`` and ``tests/test_torch_cuda.py``).  A graph replays
 the reads and writes of its capture, so here:
@@ -21,14 +22,25 @@ the reads and writes of its capture, so here:
     the captured body): losses equal the eager steps', `repeat` copies
     its batch once, and a rebound optimizer slot drops the graph, so no
     stale address is replayed;
+  * the prefill programs (cold and warm, exact and int8 tiers), the
+    decode-chunk program and `StaticFunction` replayed through the
+    stand-in graph read only their static buffers: a second input
+    copied into them gives what the eager body gives on fresh tensors
+    (tokens exactly; the pools without scratch page 0, whose content
+    is garbage by design);
+  * the dense decode path, the warm prefill and `decode_position_ids`
+    take a 0-dim device position and give the int path's bits;
+  * every capture of a thread runs on one side stream per device;
   * rules: the capture and replay path holds no try/except and no CPU
     or eager branch, and nothing turns the graphs off.
 """
 from __future__ import annotations
 
 import ast
+import contextlib
 import inspect
 import textwrap
+import threading
 
 import jax.numpy as jnp
 import numpy as np
@@ -47,6 +59,8 @@ from paddle_tpu_torch.inference.engine import (
     EngineConfig, InferenceEngine,
 )
 from paddle_tpu_torch.inference.engine import engine as EN
+from paddle_tpu_torch.jit import api as JA
+from paddle_tpu_torch.models import generation as GEN
 from paddle_tpu_torch.models import gpt as TG
 from paddle_tpu_torch.ops import kernels as K
 from paddle_tpu_torch.ops.kernels import paged_attention as PA
@@ -267,7 +281,8 @@ class _FakeCUDAGraph:
 class _FakeCapture:
     """Stands in for the torch.cuda.graph context manager."""
 
-    def __init__(self, graph, stream=None, capture_error_mode=None):
+    def __init__(self, graph, pool=None, stream=None,
+                 capture_error_mode=None):
         assert capture_error_mode == "thread_local"
 
     def __enter__(self):
@@ -338,24 +353,26 @@ def test_programs_hold_no_reference_cycle(monkeypatch, models):
 # ------------------------------------------- the train step's replay path
 class _BodyGraph:
     """Stands in for `GR.Graph` on the CPU: the capture runs nothing, a
-    replay runs the captured body and writes its result to `outputs`."""
+    replay runs the captured body and keeps its result as `outputs`."""
 
     made = []
 
-    def __init__(self, body, stream):
+    def __init__(self, body, stream, pool=None):
         self.body, self.outputs, self.replays = body, torch.zeros(()), 0
+        self.stream, self.pool = stream, pool
         _BodyGraph.made.append(self)
 
     def replay(self):
         self.replays += 1
-        self.outputs.copy_(self.body())
+        self.outputs = self.body()
 
 
 def _cpu_replay(monkeypatch):
     _BodyGraph.made = []
     monkeypatch.setattr(GR, "Graph", _BodyGraph)
     monkeypatch.setattr(GR, "warm_up", lambda body, stream: body())
-    monkeypatch.setattr(torch.cuda, "Stream", lambda *a, **k: None)
+    monkeypatch.setattr(GR, "capture_stream", lambda device: "stream")
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: "pool")
 
 
 def _tiny_step(seed=4):
@@ -443,6 +460,289 @@ def test_train_step_drops_its_graph_when_state_is_rebound(monkeypatch):
     assert int(graphed._state["step"]) == int(eager._state["step"]) == 5
 
 
+# ----------------------------------------------- device positions
+def _rand(rs, *shape):
+    return torch.from_numpy(rs.randn(*shape).astype(np.float32))
+
+
+def test_device_position_gives_the_int_paths_bits():
+    """`_static_cache_attention` (the dense decode write and read, the
+    warm prefill) and `decode_position_ids` with cache_pos a 0-dim int32
+    tensor equal the int path bit for bit (f32, GQA 4/2); the warm
+    prefill's hidden prefix rows do not reach its output."""
+    rs = np.random.RandomState(11)
+    b, hq, hkv, d, cap = 3, 4, 2, 8, 32
+    start = torch.tensor([0, 2, 5], dtype=torch.int32)
+    caches = (_rand(rs, b, hkv, cap, d), _rand(rs, b, hkv, cap, d))
+
+    def run(s, pos, kv=caches, guard=None):
+        q = _rand(np.random.RandomState(s), b, s, hq, d)
+        k = _rand(np.random.RandomState(s + 1), b, s, hkv, d)
+        v = _rand(np.random.RandomState(s + 2), b, s, hkv, d)
+        kv = tuple(c.clone() for c in kv)
+        with GEN.warm_prefill_guard(guard) if guard else \
+                contextlib.nullcontext():
+            out, kv = GEN._static_cache_attention(q, k, v, kv, pos, start)
+        return out, kv
+
+    for s, p, guard in ((1, 9, None), (6, 12, 16)):
+        host = run(s, p, guard=guard)
+        dev = run(s, torch.tensor(p, dtype=torch.int32), guard=guard)
+        assert torch.equal(host[0], dev[0])
+        assert all(torch.equal(x, y) for x, y in zip(host[1], dev[1]))
+    # the warm prefill: rows [12, 16) are hidden keys
+    other = tuple(c.clone() for c in caches)
+    for c in other:
+        c[:, :, 12:16] = 1e3
+    hidden = run(6, torch.tensor(12, dtype=torch.int32), other, 16)
+    assert torch.equal(hidden[0], dev[0])
+    for s in (1, 5):
+        want = GEN.decode_position_ids(7, b, s, start)
+        got = GEN.decode_position_ids(torch.tensor(7, dtype=torch.int32), b,
+                                      s, start)
+        assert torch.equal(want, got) and want.dtype == got.dtype
+
+
+# ------------------------------------------------ the prefill programs
+def _prefill_inputs(prompt, sb):
+    start = sb - prompt.size
+    ids = np.zeros((1, sb), np.int32)
+    ids[0, start:] = prompt
+    return ids, start
+
+
+@pytest.mark.parametrize("tier", ["exact", "int8"])
+def test_prefill_programs_read_only_their_buffers(monkeypatch, request,
+                                                  prompts, tier):
+    """A cold and a warm prefill program captured with the stand-in graph
+    (the warm-up on zero buffers first), then replayed on two inputs
+    each: the first token, the pools without scratch page 0 and the
+    staging buffers equal the eager prefill and pack on the same inputs
+    (`_run_prefill` / `_run_cached_prefill`, `_run_pack`), exactly."""
+    jm, tm = request.getfixturevalue("models" if tier == "exact"
+                                     else "gpt")
+    kv = None if tier == "exact" else "int8"
+    eng = InferenceEngine(tm, EngineConfig(page_size=4, max_slots=2,
+                                           max_seq_len=64, kv_precision=kv))
+    _cpu_replay(monkeypatch)
+    n_pools = len(eng._pool_tensors())
+    state = eng._prefill_tensors()
+    rs = np.random.RandomState(12)
+    with torch.inference_mode():
+        for t in state:       # every page and staging row distinct
+            t.copy_(torch.from_numpy(rs.randn(*t.shape) * 3).to(t.dtype))
+        start_state = [t.clone() for t in state]
+        cold = EN._PrefillProgram(16, None, 4, tier == "exact", eng._device)
+        warm = EN._PrefillProgram(8, 4, 2, tier == "exact", eng._device)
+        for prog in (cold, warm):
+            eng._capture_prefill(prog)
+        assert all(torch.equal(a[1:], b[1:]) for a, b in
+                   zip(state[:n_pools], start_state[:n_pools]))
+        cases = [(cold, prompts[1], [3, 5, 7, 0], 0),
+                 (cold, prompts[4], [2, 4, 6, 0], 0),
+                 (warm, prompts[0], [9, 0], 16),
+                 (warm, prompts[3], [8, 10], 12)]
+        for prog, prompt, pages, plen in cases:
+            sb, npp = prog.sb, prog.npp
+            ids, start = _prefill_inputs(prompt, sb)
+            pages = np.array(pages, np.int32)
+            prefix = None if npp is None else np.array(
+                [11, 12, 13, 14][:plen // 4] + [0] * (npp - plen // 4),
+                np.int32)
+            for t, s0 in zip(state, start_state):
+                t.copy_(s0)
+            eng._load_prefill(prog, ids, start, pages, plen,
+                              prefix if kv is None else None)
+            eng._replay_prefill(prog)
+            got_tok, got = int(prog.tok[0]), [t.clone() for t in state]
+            for t, s0 in zip(state, start_state):
+                t.copy_(s0)
+            if npp is None:
+                tok, kb, vb = eng._run_prefill(sb, ids, start)
+                offset = start
+            else:
+                pg = torch.from_numpy(prefix).long()
+                pk = [st[:npp].clone() for st in eng._stage_k] if kv else \
+                    [pool[pg] for pool in eng._k_pools]
+                pv = [st[:npp].clone() for st in eng._stage_v] if kv else \
+                    [pool[pg] for pool in eng._v_pools]
+                tok, kb, vb = eng._run_cached_prefill(sb, npp, ids, start,
+                                                      plen, pk, pv)
+                offset = npp * 4 + start
+            eng._run_pack(kb, vb, pages, offset)
+            assert got_tok == tok
+            for i, (a, b) in enumerate(zip(got, state)):
+                # scratch page 0 of a pool: garbage by design
+                assert torch.equal(a[1:], b[1:]) if i < n_pools \
+                    else torch.equal(a, b)
+    assert len(_BodyGraph.made) == 2
+    assert [g.replays for g in _BodyGraph.made] == [2, 2]
+
+
+@pytest.mark.parametrize("tier", ["exact", "int8"])
+def test_engine_streams_through_the_prefill_replay_path(monkeypatch, request,
+                                                        prompts, tier):
+    """The engine's prefills through the CUDA path with the stand-in
+    graph: each program's first prefill runs its body before the capture
+    (a real prefill, after its inputs and the int8 sidecar's prefix are
+    loaded), later ones replay.  Two runs of the prompts (warm prefills
+    included) give the CPU path's streams exactly, and the first its
+    pools too (scratch page 0 left out; the second run's pages come off
+    a free list in another order)."""
+    _, tm = request.getfixturevalue("models" if tier == "exact" else "gpt")
+    cfg = EngineConfig(page_size=4, max_slots=2, max_seq_len=64,
+                       kv_precision=None if tier == "exact" else "int8")
+    ref = InferenceEngine(tm, cfg)
+    want = ref.generate(prompts, max_new_tokens=6)
+    _cpu_replay(monkeypatch)
+    eng = InferenceEngine(tm, cfg)
+
+    def cuda_path(prog, ids, start, pages, plen=0, prefix_pages=None):
+        # `_run_prefill_program`'s branch for a device other than the CPU
+        eng._load_prefill(prog, ids, start, pages, plen, prefix_pages)
+        eng._replay_prefill(prog)
+        return int(prog.tok[0])
+
+    eng._run_prefill_program = cuda_path
+    for run in range(2):
+        for g, w in zip(eng.generate(prompts, max_new_tokens=6), want):
+            np.testing.assert_array_equal(g, w)
+        if run == 0:
+            for a, b in zip(eng._pool_tensors(), ref._pool_tensors()):
+                assert torch.equal(a[1:], b[1:])
+        eng.clear_prefix_cache()
+    assert eng.prefix_cache_stats()["hits"] >= 2
+    progs = list(eng._prefills.values())
+    assert any(p.npp for p in progs) and len(_BodyGraph.made) == len(progs)
+    assert all(g.replays >= 1 for g in _BodyGraph.made)
+
+
+def test_int8_commit_clones_the_staging_buffers(gpt, prompts):
+    """The int8 tier's exact sidecar is a copy: the next prefill rewrites
+    the staging buffers and leaves the committed pages as they were."""
+    _, tm = gpt
+    eng = InferenceEngine(tm, EngineConfig(page_size=4, max_slots=1,
+                                           max_seq_len=64,
+                                           kv_precision="int8"))
+    eng.generate([prompts[5]], max_new_tokens=2)
+    nodes = list(eng._prefix._children.values())
+    kept = [[(k.clone(), v.clone()) for k, v in n.exact] for n in nodes]
+    eng.generate([prompts[2]], max_new_tokens=2)
+    stage = eng._stage_k[0].untyped_storage().data_ptr()
+    for node, was in zip(nodes, kept):
+        for (k, v), (k0, v0) in zip(node.exact, was):
+            assert torch.equal(k, k0) and torch.equal(v, v0)
+            assert k.untyped_storage().data_ptr() != stage
+
+
+# --------------------------------------------- generate()'s decode chunk
+@pytest.mark.parametrize("eos", [False, True])
+def test_decode_chunk_replay_reads_only_its_buffers(monkeypatch, models,
+                                                    eos):
+    """Two chunks of 4 steps of one program key through the stand-in
+    graph: the first is the warm-up's real run and the capture, the
+    second a replay; the tokens equal `generate()` on the CPU path (the
+    eager body), whose stream equals the per-token loop's
+    (`test_torch_gpt.py`); with eos a row finishes mid-chunk."""
+    _, tm = models
+    ids = np.random.RandomState(13).randint(0, 128, (2, 5)).astype(np.int32)
+    full = tm.generate(ids, max_new_tokens=9)
+    e = int(full[0, 5 + 3]) if eos else None
+    want = tm.generate(ids, max_new_tokens=9, eos_token_id=e)
+    _cpu_replay(monkeypatch)
+    with torch.inference_mode():
+        st = tm._chunk_state(GEN._generation(tm), 2, 14)
+        logits, _ = tm(torch.from_numpy(ids), kv_caches=st.caches,
+                       cache_pos=0)
+        tok = logits[:, -1].float().argmax(-1).to(torch.int32)
+        st.tok.copy_(tok)
+        st.finished.copy_(tok == e if eos else torch.zeros_like(st.finished))
+        out = [tok[:, None]]
+        prog = st.programs.setdefault((4, False, e),
+                                      GEN._ChunkProgram(2, 4, "cpu"))
+        for i in (1, 5):
+            st.pos0.fill_(5 + i - 1)
+            tm._replay_chunk(st, prog, False, e)
+            out.append(prog.toks.clone())
+    got = torch.cat([torch.from_numpy(ids)] + out, dim=1)
+    assert torch.equal(got[:, :want.shape[1]], want)
+    assert len(_BodyGraph.made) == 1 and _BodyGraph.made[0].replays == 1
+
+
+# ------------------------------------------------------ StaticFunction
+def test_static_function_replay_reads_only_its_buffers(monkeypatch):
+    """`StaticFunction._replay` through the stand-in graph: each call's
+    input is copied into the signature's static input, the replay equals
+    the eager forward bit for bit and is a clone; a rebound parameter
+    captures again; a new signature captures its own graph on the same
+    stream and pool."""
+    from paddle_tpu_torch.vision import models as TV
+
+    _cpu_replay(monkeypatch)
+    model = TV.resnet18(num_classes=10, device="cpu")
+    sf = JA.StaticFunction(model)
+    rs = np.random.RandomState(14)
+    xs = [torch.from_numpy(rs.randn(2, 3, 32, 32).astype(np.float32))
+          for _ in range(3)]
+    cuda = torch.device("cuda", 0)
+    with torch.no_grad():
+        for x in xs[:2]:
+            got = sf._replay((x,), {}, cuda)
+            assert torch.equal(got, model(x))
+            assert got is not _BodyGraph.made[0].outputs
+        assert len(_BodyGraph.made) == 1 and _BodyGraph.made[0].replays == 2
+        model.fc.weight = torch.nn.Parameter(model.fc.weight * 0.5)
+        assert torch.equal(sf._replay((xs[0],), {}, cuda), model(xs[0]))
+        assert len(_BodyGraph.made) == 2
+        x3 = xs[2][:1]
+        assert torch.equal(sf._replay((x3,), {}, cuda), model(x3))
+    first, _, third = _BodyGraph.made
+    assert (first.stream, first.pool) == (third.stream, third.pool) \
+        == ("stream", "pool")
+
+
+# ------------------------------------------------------ capture stream
+def test_one_capture_stream_per_device_and_thread(monkeypatch, models):
+    """`capture_stream` makes one stream per (device, thread); the
+    engine's two prefill captures on one thread share it and the
+    engine's memory pool."""
+    made = []
+
+    def stream(index):
+        made.append(index)
+        return object()
+
+    monkeypatch.setattr(torch.cuda, "Stream", stream)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(GR, "_THREAD", threading.local())
+    a = GR.capture_stream("cuda")
+    assert GR.capture_stream(torch.device("cuda", 0)) is a
+    assert GR.capture_stream("cuda:1") is not a
+    other = []
+    th = threading.Thread(
+        target=lambda: other.append(GR.capture_stream("cuda:0")))
+    th.start()
+    th.join(timeout=10)
+    assert not th.is_alive() and other[0] is not a
+    assert made == [0, 1, 0]
+    _BodyGraph.made = []
+    monkeypatch.setattr(GR, "Graph", _BodyGraph)
+    monkeypatch.setattr(GR, "warm_up", lambda body, stream: body())
+    pools = iter(["pool", "another"])
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle",
+                        lambda: next(pools))
+    _, tm = models
+    eng = InferenceEngine(tm, EngineConfig(page_size=4, max_slots=2,
+                                           max_seq_len=64))
+    with torch.inference_mode():
+        for sb in (8, 16):
+            eng._capture_prefill(EN._PrefillProgram(sb, None, sb // 4, True,
+                                                    eng._device))
+    g1, g2 = _BodyGraph.made
+    assert g1.stream is g2.stream is GR.capture_stream("cpu")
+    assert g1.pool == g2.pool == "pool"
+
+
 # ------------------------------------------------------------------ rules
 def _tree(fn):
     return ast.parse(textwrap.dedent(inspect.getsource(fn)))
@@ -454,50 +754,83 @@ def _mentions_cpu_or_env(tree):
 
 
 def test_capture_and_replay_path_never_falls_back():
-    """The CUDA path: `core.graphs`, the engine's capture and replay and
-    the train step's replay hold no try/except, test no device and read
-    no environment; the entries branch once, a CPU device to the body,
-    everything else to the replay; no constructor can turn graphs off."""
-    mod = ast.parse(inspect.getsource(GR))
-    assert not any(isinstance(n, ast.Try) for n in ast.walk(mod))
-    assert "environ" not in inspect.getsource(GR)
+    """The CUDA path: `core.graphs`, `jit.api`, the engine's decode and
+    prefill captures and replays, the train step's replay, `generate()`'s
+    chunk replay and `StaticFunction`'s replay hold no try/except, test
+    no device and read no environment; each entry branches once, a CPU
+    device to the body, everything else to the replay; every capture
+    runs on `capture_stream` (the engine's, `generate()`'s and
+    `StaticFunction`'s in their owner's shared pool); no constructor can
+    turn graphs off."""
+    GM = GEN.GenerationMixin
+    SF = JA.StaticFunction
+    for module in (GR, JA):
+        mod = ast.parse(inspect.getsource(module))
+        assert not any(isinstance(n, ast.Try) for n in ast.walk(mod))
+        assert "environ" not in inspect.getsource(module)
+    makers = (InferenceEngine._decode_program,
+                InferenceEngine._prefill_program)
     for fn in (GR.warm_up, GR.Graph.__init__, GR.Graph.replay,
-               InferenceEngine._decode_program,
+               GR.capture_stream, *makers,
                InferenceEngine._capture_decode,
                InferenceEngine._replay_decode,
-               TS.DistributedTrainStep._replay):
+               InferenceEngine._capture_prefill,
+               InferenceEngine._replay_prefill,
+               TS.DistributedTrainStep._replay, GM._replay_chunk,
+               SF._replay):
         tree = _tree(fn)
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), fn
-        if fn is not InferenceEngine._decode_program:
+        if fn not in makers:
             assert not _mentions_cpu_or_env(tree), fn
-    # the program builder captures on CUDA and never runs the body itself;
-    # the capture reaches it only through the partial it records
-    build = _tree(InferenceEngine._decode_program)
-    assert "_decode_body" not in ast.unparse(build)
-    for fn in (InferenceEngine._capture_decode,
-               TS.DistributedTrainStep._replay):
+    # the functions that make the programs never run a body themselves;
+    # a capture reaches its body only through the partial it records
+    for fn in makers:
+        assert "_body" not in ast.unparse(_tree(fn)), fn
+    for fn, body in ((InferenceEngine._capture_decode, "self._decode_body"),
+                     (InferenceEngine._capture_prefill, "self._prefill_body"),
+                     (TS.DistributedTrainStep._replay, "self._step"),
+                     (GM._replay_chunk, "self._decode_chunk_body"),
+                     (SF._replay, "self._fn")):
         tree = _tree(fn)
         partials = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
                     and ast.unparse(n.func) == "functools.partial"]
         assert len(partials) == 1, fn
-        body = ast.unparse(partials[0].args[0])
-        assert body in ("self._decode_body", "self._step"), fn
+        assert ast.unparse(partials[0].args[0]) == body, fn
         assert ast.unparse(tree).count(body) == 1, fn
-    for fn, body, replayed in (
-            (InferenceEngine._run_decode, "self._decode_body",
-             "self._replay_decode"),
-            (TS.DistributedTrainStep._run, "self._step", "self._replay")):
+        text = ast.unparse(tree)
+        assert "GR.capture_stream(" in text and "torch.cuda.Stream" not in \
+            text, fn
+        graphs = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+                  and ast.unparse(n.func) == "GR.Graph"]
+        assert len(graphs) == 1, fn
+        if fn is not TS.DistributedTrainStep._replay:
+            assert "pool" in [k.arg for k in graphs[0].keywords], fn
+    for module in (EN, TS, GEN, JA):
+        assert "torch.cuda.Stream" not in inspect.getsource(module), module
+    for fn, test, body, replayed in (
+            (InferenceEngine._run_decode, "self._device.type == 'cpu'",
+             "self._decode_body", "self._replay_decode"),
+            (InferenceEngine._run_prefill_program,
+             "self._device.type == 'cpu'", "self._prefill_body",
+             "self._replay_prefill"),
+            (TS.DistributedTrainStep._run, "self._device.type == 'cpu'",
+             "self._step", "self._replay"),
+            (GM._run_decode_chunk, "self.device.type == 'cpu'",
+             "self._decode_chunk_body", "self._replay_chunk"),
+            (SF.__call__, "device.type == 'cpu'", "self._fn",
+             "self._replay")):
         tree = _tree(fn)
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
         ifs = [n for n in ast.walk(tree) if isinstance(n, ast.If)]
         assert len(ifs) == 1, fn
-        assert ast.unparse(ifs[0].test) == "self._device.type == 'cpu'"
+        assert ast.unparse(ifs[0].test) == test, fn
         cpu_side = ast.unparse(ast.Module(ifs[0].body, []))
         rest = ast.unparse(tree).replace(cpu_side, "")
         assert body in cpu_side and body not in rest, fn
         assert replayed in rest and replayed not in cpu_side, fn
     for ctor in (EngineConfig.__init__, InferenceEngine.__init__,
-                 TS.DistributedTrainStep.__init__, build_train_step):
+                 TS.DistributedTrainStep.__init__, build_train_step,
+                 GM.generate, SF.__init__, JA.to_static):
         names = list(inspect.signature(ctor).parameters)
         assert not any("graph" in n or "eager" in n for n in names), ctor
-    assert EN.GR is GR and TS.GR is GR
+    assert EN.GR is GR and TS.GR is GR and GEN.GR is GR and JA.GR is GR

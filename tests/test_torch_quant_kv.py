@@ -289,6 +289,33 @@ def test_int8_engine_llama_gqa_equals_jax(prompts):
     _drained(eng)
 
 
+def test_int8_engine_llama_one_kv_head_equals_jax(prompts):
+    """One kv head (MQA 4/1): the exact page copies the commit takes out
+    of the prefill are contiguous views of the dense buffers' layout, so
+    a copy that aliased graph memory would go unnoticed; the warm
+    prefills read the sidecar, and the streams equal the JAX int8
+    engine's token for token."""
+    P.seed(4)
+    cfg = dict(LLAMA_CFG, num_kv_heads=1)
+    jm = JL.LlamaForCausalLM(JL.llama_tiny(**cfg))
+    jm.eval()
+    params, _ = jm.functional_state()
+    tm = TL.LlamaForCausalLM(TL.llama_tiny(**cfg), device="cpu")
+    TM.load_reference_state(tm, {k: np.asarray(v)
+                                 for k, v in params.items()})
+    ecfg = dict(page_size=4, max_slots=2, max_seq_len=64,
+                kv_precision="int8")
+    jouts = JEngine(jm, JEngineConfig(**ecfg)).generate(prompts,
+                                                        max_new_tokens=8)
+    eng = InferenceEngine(tm, EngineConfig(**ecfg))
+    assert eng._k_pools[0].shape[1] == 1
+    outs = eng.generate(prompts, max_new_tokens=8)
+    assert eng.prefix_cache_stats()["hits"] >= 1
+    for j, o in zip(jouts, outs):
+        np.testing.assert_array_equal(o, j)
+    _drained(eng)
+
+
 def test_int8_pack_bit_equal_to_token_by_token_writes(gpt, prompts):
     """The pack quantizes each page chunk per vector: the pools after a
     cold prefill hold exactly what one decode write per prompt token
