@@ -126,17 +126,21 @@ non-zero and prints no result):
      launches per to_static call; the replayed logits equal the eager
      ones bit for bit, and against the CPU port's plain f32 forward of
      the same weights within 5% relative L2;
- 15. vision_train_parity: Swin-T and ResNet-50 (224x224, 1000 classes,
-     full depth) in f32 at batch 2: 3 Momentum steps with
+ 15. vision_train_parity: Swin-T, ResNet-50 and ViT-B/16 (224x224, 1000
+     classes, full depth) in f32 at batch 2: 3 Momentum steps with
      CrossEntropyLoss on the card through the kernels (TF32 off) and on
      the CPU through the plain versions, each step from the CPU's state
      (free-running ResNet-50 trajectories part after one step; that gap
      is logged); the losses agree within 1e-3, ResNet-50's running
      statistics within 1e-3 relative L2; window forward and backward
      12 + 12 launches per Swin-T step, conv_bn_act 0 per ResNet-50 step
-     (training batch norm is not folded);
- 16. vision_train: bench.py's vision rows, Swin-T at batch 128 and
-     ResNet-50 at batch 256, f32 masters, bf16 O2, Momentum(1e-3, 0.9),
+     (training batch norm is not folded), flash_fwd and flash_bwd 12 +
+     12 per ViT-B/16 step;
+ 16. vision_train: bench.py's vision rows, Swin-T at batch 128,
+     ResNet-50 at batch 256 and ViT-B/16 at batch 128 (S = 197: the
+     native flash tier at a length that is not a multiple of 8; a
+     profiler split of one of its steps), f32 masters, bf16 O2,
+     Momentum(1e-3, 0.9),
      CrossEntropyLoss, seeded numpy images and labels: 2 warm-up steps,
      then `run_steps(repeat=10)` timed between synchronizes: images/s,
      ms per step, MFU (bench.py's flops per image over 989 TFLOP/s),
@@ -165,41 +169,56 @@ non-zero and prints no result):
      loss against a seeded target: tokens/s, ms per step, MFU, peak
      memory, 24 fused_norm + 12 flash_fwd + 12 flash_bwd launches per
      step, a profiler split of one step; the loss must fall over 10
-     steps.
+     steps;
+ 21. ernie_train: ERNIE-base MLM + NSP pretraining as its recipe runs it
+     (`ernie_base` widths, vocab 40000, 12 layers, dropout 0.1), f32
+     masters under bf16 O2, batch 32 x 512 with real lengths 256-512
+     (the pad bias: the biased flash tier forward and backward), MLM
+     labels on 15% of the real tokens, NSP labels,
+     AdamW(LinearWarmup(PolynomialDecay), weight decay 0.01) with
+     grad_clip_norm 1.0, through `build_train_step(loss_fn=None)`: 2
+     warm-up steps, then `run_steps(repeat=10)`: tokens/s, ms per step,
+     MFU, peak memory, exactly 12 flash_fwd + 12 flash_bwd launches per
+     step, a profiler split of one step; the loss finite and falling;
+     the replays equal the eager body bit for bit from the same state
+     and dropout generator state, and two replays from one state and two
+     generator states give different updates.
 
 Phase 3 also holds paged_attention_int8 (the gpt_1p3b row's pool in
 int8, and a llama_7b decode step, 32 kv heads over ~1000 keys each, with
 profiled device times; two runs bit-identical and each sequence alone
-bit for bit in the batch, bf16 and f32) and
-relayout_to_hm / relayout_from_hm at the GPT-125M train shape [8, 1024,
-12, 64] (library: the same transpose on the card), each of their rows and
-each fused_norm row also with its profiled device time, the library
-call's, and the wrapper's host microseconds; flash_fwd and
-flash_bwd at the encoder step's shape (phase 20: full B32 S512 H12 D64)
-and flash_fwd at the fused serving block's (phase 19: full B8 S1024 H16
-D128); a check that two bf16 runs of flash_fwd / flash_bwd at the train
-shape, of varlen_bwd on the causal packing, of conv_bn_act at ResNet-50's
+bit for bit in the batch, bf16 and f32) and relayout_to_hm /
+relayout_from_hm at the GPT-125M train shape [8, 1024, 12, 64] (library:
+the same transpose on the card), each of their rows and each fused_norm
+row also with its profiled device time, the library call's, and the
+wrapper's host microseconds; flash_fwd and flash_bwd at the encoder
+step's shape (phase 20: full B32 S512 H12 D64) and flash_fwd at the
+fused serving block's (phase 19: full B8 S1024 H16 D128); flash_fwd and
+flash_bwd at ERNIE-base's shape with its pad bias (phase 21: full B32
+S512 H12 D64, [B, 1, 1, S] f32, lengths 256-512; library: SDPA with the
+bias as its mask) and at ViT-B/16's (phase 16: full B128 S197 H12 D64);
+a check that two bf16 runs of flash_fwd / flash_bwd at the train shape,
+of varlen_bwd on the causal packing, of conv_bn_act at ResNet-50's
 3x3/s1 256->256 @14 (B64), of window_attention and window_attention_bwd
 at Swin-T's stage 1 (B128, no shift) and of fused_norm at [16384, 768]
-are bit-identical; varlen_fwd /
-varlen_bwd on the packed batch of phase
+are bit-identical; varlen_fwd / varlen_bwd on the packed batch of phase
 17 (library yardstick: SDPA on `torch.nested` jagged tensors, or with a
 block-diagonal mask where this PyTorch cannot dispatch those; the form
 is logged), fused_norm at the norms of phases 19 and 20, an RMS norm
 with bias and residual and an odd width of 1000, and decode_attention
 and paged_attention at a GQA group of 16 (32 query heads over 2 kv
-heads) and at llama_7b's decode width (B4, 32 kv heads of 128: the
-paged row at pos 1040 / 1000 / 960 / 1020, the dense row left-padded to
-~1000 keys a row), every paged_attention and decode_attention row with
-its profiled device time, the wrapper's host microseconds and, for
-decode, SDPA's; bf16 reruns of both at the llama_7b rows bit-identical;
-and, in bf16 and f32 at gpt_1p3b widths over a shuffled page table,
+heads) and at llama_7b's decode width (B4, 32 kv heads of 128: the paged
+row at pos 1040 / 1000 / 960 / 1020, the dense row left-padded to ~1000
+keys a row), every paged_attention and decode_attention row with its
+profiled device time, the wrapper's host microseconds and, for decode,
+SDPA's; bf16 reruns of both at the llama_7b rows bit-identical; and, in
+bf16 and f32 at gpt_1p3b widths over a shuffled page table,
 paged_attention bit for bit decode_attention over the same keys gathered
 dense (start 0 and start 37) and each sequence alone bit for bit the
 same sequence in the batch of 4, for both kernels.
 
 Launch counters are reset just before the driven part of phases 4, 5,
-8, 8a, 8b, 9, 9a, 10, 11a, 12, 14, 15, 16, 17, 19 and 20 and read just
+8, 8a, 8b, 9, 9a, 10, 11a, 12, 14, 15, 16, 17, 19, 20 and 21 and read just
 after each; every kernel of each path must have launched.  A replayed
 CUDA graph (the engine's decode step, the train step) adds the launches
 its capture recorded to the counters, once a replay.  Under --profile
@@ -628,6 +647,7 @@ def kernel_cases(torch, dtype, vision, train):
                   4 * keysd * h * d, dname, 0))
     return (cases + gqa16_cases(torch, dtype)
             + llama_decode_cases(torch, dtype) + bwd_cases(torch, dtype)
+            + encoder_cases(torch, dtype)
             + rope_cases(torch, dtype) + conv_cases(torch, dtype, vision)
             + window_cases(torch, dtype, vision)
             + window_bwd_cases(torch, dtype, train)
@@ -1477,6 +1497,67 @@ def bwd_cases(torch, dtype):
             # q, o, dO, dq and k, v, dk, dv once each, lse, the bias
             4 * b * s * (hq + hkv) * d * isz + b * hq * s * 4 + bias_bytes,
             10 * pairs * hq * d, dname, 0))
+    return cases
+
+
+ERNIE_BATCH, ERNIE_SEQ = 32, 512     # phase 21's batch
+VIT_BATCH, VIT_SEQ = 128, 197         # phase 16's ViT-B/16 row
+
+
+def _ernie_lengths(rs, batch, seq):
+    """Real lengths of an ERNIE batch: uniform in [seq / 2, seq], the
+    tail padded."""
+    return rs.randint(seq // 2, seq + 1, batch)
+
+
+def encoder_cases(torch, dtype):
+    """flash_fwd and flash_bwd at the encoder family's training shapes:
+    ERNIE-base's (phase 21: full B32 S512 H12 D64 with the model's pad
+    bias, (1 - mask) * -1e4 as [B, 1, 1, S] f32, real lengths 256-512:
+    the biased tier, `_fwd_tb` / `_bwd_tb`) and ViT-B/16's (phase 16:
+    full B128 S197 H12 D64, no mask: the native tier at a length that
+    is not a multiple of 8).  Every key is read (a finite bias masks
+    nothing out of the work), so the bound counts every pair; the
+    library yardstick is SDPA with the bias as its `attn_mask`."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as FA
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    isz = torch.empty((), dtype=dtype).element_size()
+    dname = str(dtype).split(".")[1]
+    h, d = 12, 64
+    lens = torch.from_numpy(_ernie_lengths(np.random.RandomState(SEED),
+                                           ERNIE_BATCH, ERNIE_SEQ)).cuda()
+    mask = (torch.arange(ERNIE_SEQ, device="cuda")[None]
+            < lens[:, None]).float()
+    ernie_bias = ((1.0 - mask) * -1e4)[:, None, None, :]
+    cases = []
+    for label, b, s, bias in (
+            (f"ernie full+pad B{ERNIE_BATCH} S{ERNIE_SEQ} H12 D64",
+             ERNIE_BATCH, ERNIE_SEQ, ernie_bias),
+            (f"vit full B{VIT_BATCH} S{VIT_SEQ} H12 D64", VIT_BATCH,
+             VIT_SEQ, None)):
+        q, k, v, dout = (torch.randn(b, s, h, d, generator=g, device="cuda",
+                                     dtype=dtype) for _ in range(4))
+        pairs = b * s * s
+        bias_bytes = 0 if bias is None else b * s * 4
+        cases.append((
+            "flash_fwd", label,
+            lambda q=q, k=k, v=v, m=bias: FA.flash_fwd(q, k, v, bias=m),
+            lambda q=q, k=k, v=v, m=bias: FA.flash_fwd_reference(
+                q, k, v, bias=m),
+            _sdpa_library(q, k, v, bias, False),
+            4 * b * s * h * d * isz + b * h * s * 4 + bias_bytes,
+            4 * pairs * h * d, dname, 0))
+        out, lse = FA.flash_fwd(q, k, v, bias=bias)
+        cases.append((
+            "flash_bwd", label,
+            lambda q=q, k=k, v=v, o=out, l=lse, g=dout, m=bias:
+                FA.flash_bwd(q, k, v, o, l, g, bias=m),
+            lambda q=q, k=k, v=v, o=out, l=lse, g=dout, m=bias:
+                FA.flash_bwd_reference(q, k, v, o, l, g, bias=m),
+            _sdpa_bwd_library(q, k, v, dout, bias, False),
+            8 * b * s * h * d * isz + b * h * s * 4 + bias_bytes,
+            10 * pairs * h * d, dname, 0))
     return cases
 
 
@@ -2383,7 +2464,7 @@ def phase_train_parity(cls, cfg, name, batch, seq, kernels):
     lg = step.run_steps(ids, labels, repeat=3).cpu().numpy()
     torch.cuda.synchronize()
     counts = K.launch_counts()
-    _train_replay_equals_eager(step, ids, labels, 3,
+    _train_replay_equals_eager(step, (ids, labels), 3,
                                f"train_parity f32 {name} widths")
     del gpu, step
     lc = _train_step(cpu).run_steps(ids, labels, repeat=3).numpy()
@@ -2400,26 +2481,37 @@ def phase_train_parity(cls, cfg, name, batch, seq, kernels):
     return counts
 
 
-def _train_replay_equals_eager(step, ids, labels, steps, what):
-    """`run_steps(repeat=steps)` through the train step's captured graph
-    against `steps` calls of its eager body (`_step`) from equal copies
-    of the state: the losses, and every parameter, optimizer slot, the
-    step count and every buffer after the steps, bit for bit."""
+def _train_replay_equals_eager(step, batch, steps, what):
+    """`run_steps(*batch, repeat=steps)` through the train step's captured
+    graph against `steps` calls of its eager body (`_step`) from equal
+    copies of the state and of the dropout generator's state: the
+    losses, every parameter, optimizer slot, the step count and every
+    buffer after the steps, and the generator's state, bit for bit."""
     import torch
 
-    batch = step._place((ids, labels))
-    key = tuple((b.shape, b.dtype) for b in batch)
+    placed = step._place(batch)
+    key = tuple((b.shape, b.dtype) for b in placed)
     check(key in step._graphs, f"{what}: no graph captured for the batch")
     state = step._state_tensors()
     with torch.no_grad():
         start = [t.clone() for t in state]
-    replayed = step.run_steps(ids, labels, repeat=steps)
+    gen_start = step.generator.get_state()
+    # the optimizer's current rate for every step (a scheduler is left
+    # where it is), refilled before each eager body as `run_steps` does
+    rates = [step.optimizer.get_lr()] * steps
+    replayed = step.run_steps(*batch, repeat=steps, lrs=rates)
+    gen_after = step.generator.get_state()
     with torch.no_grad():
         after = [t.clone() for t in state]
         for t, s in zip(state, start):
             t.copy_(s)
     del start
-    direct = torch.stack([step._step(batch) for _ in range(steps)])
+    step.generator.set_state(gen_start)
+    direct = []
+    for rate in rates:
+        step._lr.fill_(rate)
+        direct.append(step._step(placed))
+    direct = torch.stack(direct)
     torch.cuda.synchronize()
     diff = [i for i, (a, t) in enumerate(zip(after, state))
             if not torch.equal(a, t)]
@@ -2429,9 +2521,12 @@ def _train_replay_equals_eager(step, ids, labels, steps, what):
     check(not diff, f"{what}: {len(diff)} of {len(state)} state tensors "
           f"differ between the replay and the eager body (first "
           f"#{diff[:1]})")
+    check(torch.equal(gen_after, step.generator.get_state()),
+          f"{what}: the replays and the eager bodies left the dropout "
+          "generator in different states")
     log(f"[graphs] {what}: run_steps(repeat={steps}) replay == {steps} "
-        f"eager bodies bit for bit (losses and {len(state)} parameters, "
-        "slots, step and buffers)")
+        f"eager bodies bit for bit (losses, {len(state)} parameters, "
+        "slots, step and buffers, and the dropout generator's state)")
 
 
 # ----------------------------------------------------------------- phase 8
@@ -2526,7 +2621,7 @@ def _train_phase(card, layout):
         f"{steady / 2**30:.2f}); loss "
         f"{warm[0]:.4f} -> {losses[-1]:.4f}; launches per step "
         f"{json.dumps({k: v / iters for k, v in counts.items()})}")
-    _train_replay_equals_eager(step, ids, labels, iters,
+    _train_replay_equals_eager(step, (ids, labels), iters,
                                f"train GPT-125M bf16 layout "
                                f"{layout or 'native'}")
     return counts, step, ids, labels
@@ -2544,7 +2639,9 @@ VISION_BATCH = 64   # served batch; phase 3's vision rows take its shapes
 # :1322-1340): (model, batch, flops per image, launches per step)
 VISION_TRAIN = (("swin_t", 128, 3 * 4.5e9,
                  {"window_attention": 12, "window_attention_bwd": 12}),
-                ("resnet50", 256, 3 * 4.09e9, {}))
+                ("resnet50", 256, 3 * 4.09e9, {}),
+                ("vit_b_16", VIT_BATCH, 3 * 17.6e9,
+                 {"flash_fwd": 12, "flash_bwd": 12}))
 SWIN_TRAIN_BATCH = VISION_TRAIN[0][1]  # phase 3's backward rows take it
 
 
@@ -2732,10 +2829,10 @@ def _launches_per_step(counts, want, steps, what):
 
 
 def phase_vision_train_parity(batch=2, steps=3):
-    """f32 at full width and depth: `steps` Momentum steps of Swin-T and
-    ResNet-50 on the card through the kernels (TF32 off in cuBLAS and
-    cuDNN) and on the CPU through the plain versions, from the same
-    weights, batch-norm statistics and batch.
+    """f32 at full width and depth: `steps` Momentum steps of Swin-T,
+    ResNet-50 and ViT-B/16 on the card through the kernels (TF32 off in
+    cuBLAS and cuDNN) and on the CPU through the plain versions, from
+    the same weights, batch-norm statistics and batch.
 
     Free-running, ResNet-50's trajectories part after the first step
     whatever computes them: at batch 2 its loss falls from 8.3 by more
@@ -2813,8 +2910,9 @@ def phase_vision_train_parity(batch=2, steps=3):
 
 
 def phase_vision_train(card, iters=10, profile=False):
-    """bench.py's vision rows on the card: Swin-T at batch 128 and
-    ResNet-50 at batch 256, bf16 O2 over f32 masters, 2 warm-up steps,
+    """bench.py's vision rows on the card: Swin-T at batch 128,
+    ResNet-50 at batch 256 and ViT-B/16 at batch 128 (a profiler split
+    of one ViT step), bf16 O2 over f32 masters, 2 warm-up steps,
     then `run_steps(repeat=iters)` timed between synchronizes: images/s,
     ms per step, MFU (images/s x bench.py's flops per image / 989
     TFLOP/s), peak memory, exact launches per step.  The loss must stay
@@ -2862,11 +2960,11 @@ def phase_vision_train(card, iters=10, profile=False):
             f"{steady / 2**30:.2f}); loss "
             f"{warm[0]:.4f} -> {losses[-1]:.4f}; launches per step "
             f"{json.dumps({k: v / iters for k, v in counts.items() if v})}")
-        _train_replay_equals_eager(step, imgs, labels, iters,
+        _train_replay_equals_eager(step, (imgs, labels), iters,
                                    f"vision_train {name} bf16 O2 B{batch}")
-        if profile and name == "swin_t":
-            phase_profile_train(step, imgs, labels, steps=1,
-                                what=f"swin_t bf16 B{batch} train step")
+        if name == "vit_b_16" or (profile and name == "swin_t"):
+            phase_profile_train(step, (imgs, labels), steps=1,
+                                what=f"{name} bf16 B{batch} train step")
         del step, imgs, labels
         gc.collect()
         torch.cuda.empty_cache()
@@ -3163,9 +3261,156 @@ def phase_fused_encoder_train(card, iters=10):
         f"memory {peak / 2**30:.2f} GiB; loss {warm[0]:.4f} -> "
         f"{losses[-1]:.4f}; launches per step "
         f"{json.dumps({k: v / iters for k, v in counts.items() if v})}")
-    phase_profile_train(step, x, target, steps=1,
+    phase_profile_train(step, (x, target), steps=1,
                         what=f"fused_encoder_train step (B{c['batch']} "
                         f"S{c['seq']} bf16 O2)")
+    del step, model
+    return counts
+
+
+def _ernie_objective(model):
+    """ERNIE pretraining as a model that returns its own loss (the train
+    step's ``loss_fn=None``): MLM and NSP logits into
+    `ErniePretrainingCriterion`."""
+    import torch
+
+    from paddle_tpu_torch.models.ernie import ErniePretrainingCriterion
+
+    class Objective(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.model = model
+            self.crit = ErniePretrainingCriterion()
+
+        def forward(self, ids, token_types, mlm_labels, nsp_labels):
+            logits, nsp_logits = self.model(ids, token_types)
+            return self.crit(logits, nsp_logits, mlm_labels, nsp_labels)
+
+    return Objective()
+
+
+def _ernie_batch(cfg, batch, seq, seed):
+    """An MLM + NSP batch: real lengths 256-512 (the tail padded with
+    id 0), two segments (token type 1 from the middle of the real
+    tokens), MLM labels on 15% of the real positions (-100 elsewhere),
+    NSP labels 0 / 1; numpy from `seed`."""
+    rs = np.random.RandomState(seed)
+    lens = _ernie_lengths(rs, batch, seq)
+    pos = np.arange(seq)[None]
+    real = pos < lens[:, None]
+    ids = np.where(real, rs.randint(1, cfg.vocab_size, (batch, seq)), 0)
+    types = ((pos >= lens[:, None] // 2) & real).astype(np.int32)
+    picked = real & (rs.rand(batch, seq) < 0.15)
+    mlm = np.where(picked, rs.randint(1, cfg.vocab_size, (batch, seq)),
+                   -100).astype(np.int64)
+    nsp = rs.randint(0, 2, batch).astype(np.int64)
+    return ids.astype(np.int32), types, mlm, nsp, int(picked.sum())
+
+
+def phase_ernie_train(card, iters=10):
+    """ERNIE-base pretraining as its recipe trains it: `ernie_base`
+    widths (vocab 40000, hidden 768, 12 layers of 12 heads, ffn 3072,
+    max position 2048), dropout 0.1, f32 masters under bf16 O2, batch 32
+    x 512 with real lengths 256-512 (the pad bias runs the biased flash
+    tier), MLM labels on 15% of the real tokens and NSP labels,
+    AdamW(LinearWarmup(PolynomialDecay)) with weight decay 0.01 and
+    ``grad_clip_norm=1.0``, through `build_train_step(loss_fn=None)` on a
+    model that returns the criterion: 2 warm-up steps (the scheduler
+    stepped after each), then `run_steps(repeat=iters)` timed between
+    synchronizes: tokens/s (every position, pad included), ms per step,
+    MFU (6 N tokens/s over 989 TFLOP/s, N with the tied word embedding
+    counted once), peak memory, exactly 12 flash_fwd and 12 flash_bwd
+    launches a step (each replay counted), a profiler split of one
+    step.  The loss must stay finite and fall; the replays equal the
+    eager body bit for bit from the same state and generator state, and
+    a replay from the same state but the generator where the last one
+    left it gives another loss (other masks).  Returns the launch counts
+    of the timed steps."""
+    import torch
+
+    from paddle_tpu_torch.distributed import build_train_step
+    from paddle_tpu_torch.models.ernie import ErnieForPretraining, ernie_base
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer import lr as L
+
+    cfg = ernie_base(dropout=0.1)
+    model = ErnieForPretraining(cfg, device="cuda", seed=SEED)
+    sched = L.LinearWarmup(L.PolynomialDecay(1e-4, decay_steps=1000,
+                                             end_lr=0.0),
+                           warmup_steps=2, start_lr=0.0, end_lr=1e-4)
+    step = build_train_step(_ernie_objective(model),
+                            AdamW(learning_rate=sched, weight_decay=0.01),
+                            amp_dtype="bfloat16", grad_clip_norm=1.0)
+    *batch, n_mlm = _ernie_batch(cfg, ERNIE_BATCH, ERNIE_SEQ, SEED + 21)
+    batch = tuple(torch.from_numpy(b).cuda() for b in batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    forwards, hook = _count_forwards(model)
+    warm = []
+    for _ in range(2):
+        warm.append(float(step(*batch)))
+        sched.step()
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    losses = step.run_steps(*batch, repeat=iters)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = K.launch_counts()
+    hook.remove()
+    losses = losses.cpu().numpy()
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    _graph_replayed(step, forwards, 2 + iters, "ernie_train")
+    n_params = sum(p.numel() for p in model.parameters())
+    tps = ERNIE_BATCH * ERNIE_SEQ * iters / dt
+    mfu = 6 * n_params * tps / PEAK_FLOPS["bfloat16"]
+    check(np.isfinite(warm).all() and np.isfinite(losses).all(),
+          f"ernie_train: non-finite loss {warm} {losses.tolist()}")
+    check(losses[-1] < warm[0], f"ernie_train: loss did not fall "
+          f"({warm[0]} -> {losses[-1]})")
+    _launches_per_step(counts, {"flash_fwd": cfg.num_layers,
+                                "flash_bwd": cfg.num_layers}, iters,
+                       "ernie_train")
+    log(f"[ernie_train] ERNIE-base MLM+NSP dropout {cfg.dropout} bf16 O2 "
+        f"B{ERNIE_BATCH} S{ERNIE_SEQ} ({n_mlm} MLM labels), AdamW + "
+        f"LinearWarmup(PolynomialDecay), grad_clip_norm 1.0 ({card}): "
+        f"{tps:.1f} tokens/s, {1e3 * dt / iters:.2f} ms/step over {iters} "
+        f"steps, MFU {100 * mfu:.2f}% of "
+        f"{PEAK_FLOPS['bfloat16'] / 1e12:.0f} TFLOP/s (N={n_params}, the "
+        f"tied embedding once), peak memory {peak / 2**30:.2f} GiB "
+        f"(reserved {reserved / 2**30:.2f}); loss {warm[0]:.4f} -> "
+        f"{losses[-1]:.4f} (rate {sched():.3g} after the steps); "
+        f"launches per step "
+        f"{json.dumps({k: v / iters for k, v in counts.items() if v})}")
+    _train_replay_equals_eager(step, batch, iters,
+                               "ernie_train ERNIE-base dropout 0.1 bf16")
+    # the same state twice, the generator where the last replay left it:
+    # other masks, so other gradients and another update (the bf16 loss
+    # itself may round to one value)
+    state = step._state_tensors()
+    with torch.no_grad():
+        start = [t.clone() for t in state]
+    rate = [step.optimizer.get_lr()]
+    first = step.run_steps(*batch, repeat=1, lrs=rate)
+    with torch.no_grad():
+        updated = [t.clone() for t in state]
+        for t, s in zip(state, start):
+            t.copy_(s)
+    del start
+    second = step.run_steps(*batch, repeat=1, lrs=rate)
+    moved = sum(not torch.equal(a, t) for a, t in zip(updated, state))
+    del updated
+    check(moved > 0, "ernie_train: two replays from one state and two "
+          "generator states updated every tensor alike: the masks did not "
+          "change")
+    log(f"[graphs] ernie_train: one state, two generator states: {moved} "
+        f"of {len(state)} state tensors differ after the step (losses "
+        f"{first.item():.4f} / {second.item():.4f})")
+    phase_profile_train(step, batch, steps=1,
+                        what=f"ernie_train step (B{ERNIE_BATCH} "
+                        f"S{ERNIE_SEQ} bf16 O2, dropout {cfg.dropout})")
     del step, model
     return counts
 
@@ -3187,9 +3432,10 @@ def _profile_forward(model, x, what, steps=3):
 
 
 # ------------------------------------------------- optional: --profile
-def phase_profile_train(step, ids, labels, steps=3, what="train step"):
-    """torch.profiler over `steps` train steps: device busy share and
-    the device rows that hold the step."""
+def phase_profile_train(step, batch, steps=3, what="train step"):
+    """torch.profiler over `steps` train steps on `batch` (the step's
+    leaves): device busy share and the device rows that hold the
+    step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3197,7 +3443,7 @@ def phase_profile_train(step, ids, labels, steps=3, what="train step"):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        step.run_steps(ids, labels, repeat=steps)
+        step.run_steps(*batch, repeat=steps)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     _log_profile(prof, what, wall_ms, steps)
@@ -3445,7 +3691,7 @@ def main():
         train, step, ids, labels = run("train", phase_train, card)
         paths.append(train)
         if profile:
-            run("profile_train", phase_profile_train, step, ids, labels)
+            run("profile_train", phase_profile_train, step, (ids, labels))
         del step
         release()
         paths.append(run("kv_layout_parity", phase_kv_layout_parity))
@@ -3455,8 +3701,8 @@ def main():
         paths.append(train)
         if profile:
             with _layout("kv"):
-                run("profile_train_kv", phase_profile_train, step, ids,
-                    labels, 3, "train step, flash layout kv")
+                run("profile_train_kv", phase_profile_train, step,
+                    (ids, labels), 3, "train step, flash layout kv")
         del step
         release()
         lcfg = llama_7b()
@@ -3500,6 +3746,8 @@ def main():
         release()
         paths.append(run("fused_encoder_train", phase_fused_encoder_train,
                          card))
+        release()
+        paths.append(run("ernie_train", phase_ernie_train, card))
         rows = []
         for name, k in K.KERNELS.items():
             row = table[(name, "bfloat16")]

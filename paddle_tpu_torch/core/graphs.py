@@ -97,10 +97,15 @@ class Graph:
     `outputs` is what `body` returned during the capture: tensors in the
     graph's memory pool that every replay rewrites (and, in a shared
     pool, that the replay of another of its graphs may overwrite).
-    `launches` maps each kernel to its launches in one replay."""
+    `launches` maps each kernel to its launches in one replay.
+    `generators`: the CUDA generators `body` draws from (`core.rng`),
+    registered with the graph so that each replay draws the next Philox
+    offsets and advances them, as running `body` would."""
 
-    def __init__(self, body, stream, pool=None):
+    def __init__(self, body, stream, pool=None, generators=()):
         self.graph = torch.cuda.CUDAGraph()
+        for gen in generators:
+            self.graph.register_generator_state(gen)
         before = K.launch_counts()
         with torch.cuda.graph(self.graph, pool=pool, stream=stream,
                               capture_error_mode=CAPTURE_MODE):

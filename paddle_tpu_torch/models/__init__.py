@@ -1,6 +1,10 @@
 """Model families of the port (``paddle_tpu/models`` counterpart)."""
 from __future__ import annotations
 
+from .ernie import (  # noqa: F401
+    ErnieConfig, ErnieForPretraining, ErnieModel, ErniePretrainingCriterion,
+    ernie_3_0_medium, ernie_base, ernie_tiny,
+)
 from .gpt import (  # noqa: F401
     GPTConfig, GPTForCausalLM, GPTPretrainingCriterion, gpt_1p3b, gpt_tiny,
     load_reference_state,

@@ -7,6 +7,9 @@ from .attention import (  # noqa: F401
     fused_rotary_position_embedding, rotary_phases, rotate_qk,
     scaled_dot_product_attention,
 )
+from .common import (  # noqa: F401
+    alpha_dropout, dropout, dropout2d, dropout3d,
+)
 from .conv import conv2d  # noqa: F401
 from .loss import cross_entropy  # noqa: F401
 from .norm import batch_norm, layer_norm, rms_norm  # noqa: F401

@@ -69,10 +69,16 @@ def flash_tier(query, key, attn_mask=None) -> str:
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
-                                 is_causal=False):
-    """Attention dropout is not ported.  On CUDA a mask that requires
-    grad raises: the kernel gives the bias no gradient (the JAX entry
-    sends such masks to its reference path instead)."""
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True, name=None):
+    """Attention over [B, S, H, D] inputs (JAX :80).  `dropout_p` and
+    `training` are accepted and applied to nothing, on either device: the
+    JAX entry passes no dropout to its flash kernels (:96-98) and its
+    plain `_sdpa_ref` takes the rate and ignores it (:51-77), so the port
+    keeps one function on the CPU and the card (ROADMAP C2.6).  On CUDA a
+    mask that requires grad raises: the kernel gives the bias no
+    gradient (the JAX entry sends such masks to its reference path
+    instead)."""
     if query.device.type == "cpu":
         return _sdpa_ref(query, key, value, attn_mask, is_causal)
     if attn_mask is not None and attn_mask.requires_grad \

@@ -1,4 +1,4 @@
-"""Linear / Embedding / Dropout / LayerNorm / RMSNorm / Sequential /
+"""Linear / Embedding / the dropouts / LayerNorm / RMSNorm / Sequential /
 LayerList (counterparts of
 ``paddle_tpu/nn/layers_common.py`` and ``layers_norm.py``).
 
@@ -16,7 +16,7 @@ import math
 import torch
 from torch import nn
 
-from .functional import layer_norm, rms_norm
+from .functional import dropout, dropout2d, dropout3d, layer_norm, rms_norm
 
 
 def _param(t):
@@ -60,20 +60,46 @@ class Embedding(nn.Module):
 
 
 class Dropout(nn.Module):
-    """Identity in eval mode and at p == 0.  Dropout with p > 0 in
-    training mode is not ported yet (ROADMAP Queue A): it raises rather
-    than silently acting as the identity."""
+    """``layers_common.py:64``: `dropout` in training mode, with the
+    layer's `axis` and `mode`; in eval mode the identity, or the scaling
+    by 1 - p of ``downscale_in_infer``."""
 
-    def __init__(self, p=0.0):
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train",
+                 name=None):
         super().__init__()
         self.p = p
+        self.axis = axis
+        self.mode = mode
 
     def forward(self, x):
-        if self.training and self.p > 0:
-            raise NotImplementedError(
-                f"Dropout(p={self.p}) in training mode is not ported yet "
-                "(ROADMAP Queue A); train with p=0")
-        return x
+        return dropout(x, self.p, axis=self.axis, training=self.training,
+                       mode=self.mode)
+
+
+class Dropout2D(nn.Module):
+    """``layers_common.py:76``: whole channels dropped."""
+
+    def __init__(self, p=0.5, data_format="NCHW", name=None):
+        super().__init__()
+        self.p = p
+        self.data_format = data_format
+
+    def forward(self, x):
+        return dropout2d(x, self.p, training=self.training,
+                         data_format=self.data_format)
+
+
+class Dropout3D(nn.Module):
+    """``layers_common.py:87``."""
+
+    def __init__(self, p=0.5, data_format="NCDHW", name=None):
+        super().__init__()
+        self.p = p
+        self.data_format = data_format
+
+    def forward(self, x):
+        return dropout3d(x, self.p, training=self.training,
+                         data_format=self.data_format)
 
 
 class LayerNorm(nn.Module):

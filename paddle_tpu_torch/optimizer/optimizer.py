@@ -17,21 +17,40 @@ from the step on the device, in f32 as the JAX rule computes them.  So
 an update captured into a CUDA graph reads the step and the rate each
 time it is replayed, where host values would be frozen at the capture
 (`distributed/train_step.py`).  A plain int step is still accepted, and
-becomes a tensor at its first update.  A learning-rate scheduler,
-amsgrad, gradient clipping, parameter groups and the other optimizers
-are not ported.
+becomes a tensor at its first update.  ``learning_rate`` is a number
+or an `LRScheduler` (`optimizer/lr.py`), as in the JAX package
+(:79-91): `get_lr()` reads the scheduler, `set_lr` raises while one is
+set, `set_lr_scheduler` sets one.  Amsgrad, parameter groups and the
+other optimizers are not ported; gradient clipping is the train step's
+``grad_clip_norm``.
 """
 from __future__ import annotations
 
 import torch
 
+from .lr import LRScheduler
 
-def _float_lr(learning_rate) -> float:
-    if not isinstance(learning_rate, (int, float)):
-        raise NotImplementedError(
-            "learning-rate schedulers are not ported yet (ROADMAP "
-            "Queue A); pass a float")
-    return float(learning_rate)
+
+class _Rate:
+    """The learning rate of an optimizer: a number or a scheduler (JAX
+    `Optimizer.get_lr` / `set_lr` / `set_lr_scheduler`, :79-91)."""
+
+    def __init__(self, learning_rate):
+        self._learning_rate = learning_rate if isinstance(
+            learning_rate, LRScheduler) else float(learning_rate)
+
+    def get_lr(self) -> float:
+        if isinstance(self._learning_rate, LRScheduler):
+            return self._learning_rate()
+        return float(self._learning_rate)
+
+    def set_lr(self, value) -> None:
+        if isinstance(self._learning_rate, LRScheduler):
+            raise RuntimeError("cannot set_lr when using an LRScheduler")
+        self._learning_rate = float(value)
+
+    def set_lr_scheduler(self, scheduler) -> None:
+        self._learning_rate = scheduler
 
 
 def _device(params) -> torch.device:
@@ -74,7 +93,7 @@ def _with_grads(params, grads):
     return names, ps, [grads[n].float() for n in names]
 
 
-class Momentum:
+class Momentum(_Rate):
     """SGD with momentum: v = mu * v + g, then p -= lr * v, or with
     Nesterov p -= lr * (g + mu * v); weight decay, when given, is L2
     added to the gradient first.  `parameters` is accepted for the
@@ -83,13 +102,10 @@ class Momentum:
 
     def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
                  use_nesterov=False, weight_decay=None):
-        self._learning_rate = _float_lr(learning_rate)
+        super().__init__(learning_rate)
         self._momentum = float(momentum)
         self._nesterov = bool(use_nesterov)
         self._coeff = float(weight_decay or 0.0)
-
-    def get_lr(self) -> float:
-        return self._learning_rate
 
     def init_state(self, params: dict) -> dict:
         """params: name -> tensor.  Zero f32 velocities and step 0."""
@@ -104,7 +120,7 @@ class Momentum:
         """One step on f32 parameters, in place: p -= lr * v.  A name
         whose gradient is None is skipped.  Returns (params, state)."""
         dev = _device(params)
-        lr = _lr_tensor(lr, self._learning_rate, dev)
+        lr = _lr_tensor(lr, self.get_lr(), dev)
         names, ps, gs = _with_grads(params, grads)
         if self._coeff:
             gs = torch._foreach_add(gs, ps, alpha=self._coeff)
@@ -120,21 +136,18 @@ class Momentum:
         return params, state
 
 
-class Adam:
+class Adam(_Rate):
     """Adam; weight decay, when given, is L2 added to the gradient.
     `parameters` is accepted for the reference's signature; the train
     step passes the parameters to `apply_gradients` itself."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=None):
-        self._learning_rate = _float_lr(learning_rate)
+        super().__init__(learning_rate)
         self._beta1 = beta1
         self._beta2 = beta2
         self._epsilon = epsilon
         self._coeff = float(weight_decay or 0.0)
-
-    def get_lr(self) -> float:
-        return self._learning_rate
 
     def init_state(self, params: dict) -> dict:
         """params: name -> tensor.  Zero f32 moments and step 0."""
@@ -159,7 +172,7 @@ class Adam:
         v / (1 - beta2^t).  A name whose gradient is None is skipped.
         Returns (params, state)."""
         dev = _device(params)
-        lr = _lr_tensor(lr, self._learning_rate, dev)
+        lr = _lr_tensor(lr, self.get_lr(), dev)
         t = _advance(state, dev).float()
         names, ps, gs = _with_grads(params, grads)
         m = [state["slots"][n]["moment1"] for n in names]

@@ -9,10 +9,10 @@ constant of `_bias_onehot`, as in the JAX package; the shift
 mask is built in numpy exactly as there (-100.0 across regions, no
 shift when the window covers the feature map).  Both constants are
 non-persistent buffers: ``functional_state()`` has no buffers for Swin.
-Names and shapes equal the JAX model's.  In training (``model.train()``,
-`drop_rate` 0) the window attention differentiates through the
-backward kernel on the card (`WindowAttentionCore`, 12 launches per
-Swin-T step), and through the plain version on the CPU; under the train
+Names and shapes equal the JAX model's.  In training (``model.train()``)
+the window attention differentiates through the backward kernel on
+the card (`WindowAttentionCore`, 12 launches per Swin-T step), and
+through the plain version on the CPU; under the train
 step's O2 cast the dense bias is still formed in f32 from the bf16
 table, and the mask stays an f32 constant with no gradient.
 """
@@ -26,6 +26,7 @@ import torch
 
 from ... import nn
 from ...core.device import resolve_device
+from ...nn import functional as F
 from ...ops.kernels.window_attention import window_attention
 
 __all__ = ["SwinTransformer", "swin_t", "swin_s", "swin_b"]
@@ -68,9 +69,12 @@ class WindowAttention(torch.nn.Module):
     """`forward(x_img, mask, shift)`: the normed features [B, H, W, C] ->
     qkv projection -> the window kernel -> output projection."""
 
-    def __init__(self, dim, window_size, num_heads, *, kw):
+    def __init__(self, dim, window_size, num_heads, attn_drop=0.0,
+                 proj_drop=0.0, *, kw):
         super().__init__()
         self.ws = window_size
+        self.attn_drop = attn_drop
+        self.proj_drop = proj_drop
         self.num_heads = num_heads
         self.qkv = nn.Linear(dim, 3 * dim, **kw)
         self.proj = nn.Linear(dim, dim, **kw)
@@ -94,12 +98,18 @@ class WindowAttention(torch.nn.Module):
     def forward(self, x_img, mask=None, shift=0):
         out = window_attention(self.qkv(x_img), self.dense_bias(), mask,
                                self.ws, int(shift), self.num_heads)
-        return self.proj(out)
+        if self.attn_drop and self.training:
+            # on the attention output, as the JAX model applies it (:136)
+            out = F.dropout(out, self.attn_drop, training=True)
+        out = self.proj(out)
+        if self.proj_drop and self.training:
+            out = F.dropout(out, self.proj_drop, training=True)
+        return out
 
 
 class SwinBlock(torch.nn.Module):
     def __init__(self, dim, input_resolution, num_heads, window_size=7,
-                 shift_size=0, mlp_ratio=4.0, *, kw):
+                 shift_size=0, mlp_ratio=4.0, drop=0.0, *, kw):
         super().__init__()
         nkw = dict(device=kw["device"], dtype=kw["dtype"])
         self.resolution = input_resolution
@@ -107,13 +117,14 @@ class SwinBlock(torch.nn.Module):
         # a window covering the whole feature map needs no shift
         self.shift = 0 if min(input_resolution) <= self.ws else shift_size
         self.norm1 = nn.LayerNorm(dim, **nkw)
-        self.attn = WindowAttention(dim, self.ws, num_heads, kw=kw)
+        self.attn = WindowAttention(dim, self.ws, num_heads, attn_drop=drop,
+                                    proj_drop=drop, kw=kw)
         self.norm2 = nn.LayerNorm(dim, **nkw)
         hidden = int(dim * mlp_ratio)
         self.mlp = nn.Sequential(nn.Linear(dim, hidden, **kw), nn.GELU(),
-                                 nn.Dropout(0.0),
+                                 nn.Dropout(drop),
                                  nn.Linear(hidden, dim, **kw),
-                                 nn.Dropout(0.0))
+                                 nn.Dropout(drop))
         mask = None if self.shift == 0 else torch.from_numpy(
             _shift_mask(input_resolution, self.ws, self.shift)).to(
                 kw["device"])
@@ -149,18 +160,15 @@ class PatchMerging(torch.nn.Module):
 
 class SwinTransformer(torch.nn.Module):
     """Built in eval mode on `device` (``None`` = CUDA), parameters drawn
-    from a generator seeded with `seed`; ``.train()`` trains it.  Dropout
-    is not ported (`drop_rate` > 0 raises)."""
+    from a generator seeded with `seed`; ``.train()`` trains it, with
+    `drop_rate` dropout on each block's attention output, projection and
+    MLP as in the JAX model."""
 
     def __init__(self, img_size=224, patch_size=4, in_ch=3, num_classes=1000,
                  embed_dim=96, depths=(2, 2, 6, 2), num_heads=(3, 6, 12, 24),
                  window_size=7, mlp_ratio=4.0, drop_rate=0.0, *, device=None,
                  dtype=torch.float32, seed=0):
         super().__init__()
-        if drop_rate:
-            raise NotImplementedError(
-                f"SwinTransformer(drop_rate={drop_rate}): dropout is not "
-                "ported yet (ROADMAP Queue A); use drop_rate=0")
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(seed))
@@ -176,7 +184,7 @@ class SwinTransformer(torch.nn.Module):
                 layers.append(SwinBlock(
                     dim, (res, res), heads, window_size,
                     shift_size=0 if d % 2 == 0 else window_size // 2,
-                    mlp_ratio=mlp_ratio, kw=kw))
+                    mlp_ratio=mlp_ratio, drop=drop_rate, kw=kw))
             if i != self.num_layers - 1:
                 layers.append(PatchMerging((res, res), dim, kw=kw))
                 dim *= 2

@@ -51,7 +51,12 @@ and reruns bit for bit; rope over q and k in one launch (decode rows
 whose heads split across blocks, GQA and MQA prefill rows, strided qkv
 views, both styles, forward and adjoint) bit for bit two single calls
 and the plain version, counting one launch, and `RoPE`'s paired
-gradients bit for bit the single-tensor ones.
+gradients bit for bit the single-tensor ones; flash at ViT-B/16's
+S = 197 and ERNIE-base's biased pair against their plain versions,
+dropout inside a captured graph (new masks each replay, the eager body
+from the same generator state, `seed()` reproducible; a capture
+without its generator raises) and a tiny ERNIE train step with dropout
+replayed against its eager body.
 Every test needs an NVIDIA card and skips without one.  On the card (no
 JAX needed, so the JAX test conftest is left out)::
 
@@ -2186,3 +2191,167 @@ def test_static_function_replays_its_eager_forward():
             assert next(iter(sf._cache.values())).graph is not g
         assert len(sf._cache) == 1
     K.reset_launches()
+
+
+# ------------------------------------------- the encoder family (slice 17)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_at_vit_length_matches_plain(dtype):
+    """ViT-B/16's attention: S = 197 (196 patches and the class token),
+    not a multiple of 8, full, 12 heads of 64: `flash_tier` sends it to
+    the native kernels; forward (O and LSE) and backward against their
+    plain versions."""
+    from paddle_tpu_torch.nn.functional.attention import flash_tier
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    q, k, v, dout = (_randn(gen, 4, 197, 12, 64, dtype=dtype)
+                     for _ in range(4))
+    assert flash_tier(q, k) == "native"
+    out, lse = FA.flash_fwd(q, k, v)
+    want, wlse = FA.flash_fwd_reference(q, k, v)
+    _close(out, want, dtype)
+    assert (lse - wlse).abs().max().item() <= 1e-4
+    got, ref = _bwd_pair(q, k, v, dout)
+    _close_grads(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_ernie_biased_pair_matches_plain(dtype):
+    """ERNIE-base's attention: full, 12 heads of 64, S = 512, real lengths
+    drawn from 256-512 and the tail padded, the pad as the model builds
+    it, a [B, 1, 1, S] f32 bias of (1 - mask) * -1e4 that gets no
+    gradient: `flash_fwd` and `flash_bwd` with that bias (the biased
+    tier) against their plain versions."""
+    from paddle_tpu_torch.nn.functional.attention import flash_tier
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    b, s = 8, 512
+    lens = torch.randint(256, s + 1, (b,), generator=gen, device="cuda")
+    mask = (torch.arange(s, device="cuda")[None] < lens[:, None]).float()
+    bias = ((1.0 - mask) * -1e4)[:, None, None, :]
+    q, k, v, dout = (_randn(gen, b, s, 12, 64, dtype=dtype)
+                     for _ in range(4))
+    assert flash_tier(q, k, bias) == "biased"
+    out, lse = FA.flash_fwd(q, k, v, bias=bias)
+    want, wlse = FA.flash_fwd_reference(q, k, v, bias=bias)
+    _close(out, want, dtype)
+    assert (lse - wlse).abs().max().item() <= 1e-4
+    got, ref = _bwd_pair(q, k, v, dout, bias=bias)
+    _close_grads(got, ref, dtype)
+
+
+def test_dropout_in_a_captured_graph_draws_per_replay():
+    """`core.rng`'s generator registered with the graph: two replays draw
+    different masks, a replay equals the eager body run from the same
+    generator state bit for bit, and `seed()` makes a replay
+    reproducible."""
+    from paddle_tpu_torch.core import graphs as GR
+    from paddle_tpu_torch.core import rng
+    from paddle_tpu_torch.nn import functional as TF
+
+    gen = rng.generator("cuda")
+    x = torch.randn(64, 1024, device="cuda") + 3.0
+    out = torch.empty_like(x)
+
+    def body():
+        out.copy_(TF.dropout(x, 0.3))
+        return out
+
+    stream = GR.capture_stream("cuda")
+    GR.warm_up(body, stream)
+    graph = GR.Graph(body, stream, generators=(gen,))
+    state = gen.get_state()
+    graph.replay()
+    first = out.clone()
+    after = gen.get_state()
+    graph.replay()
+    assert not torch.equal(out, first)
+    gen.set_state(state)
+    eager = body().clone()
+    assert torch.equal(eager, first)
+    assert torch.equal(gen.get_state(), after)
+    rng.seed(5)
+    graph.replay()
+    again = out.clone()
+    rng.seed(5)
+    graph.replay()
+    assert torch.equal(out, again)
+    keep = (first != 0).float().mean().item()
+    assert abs(keep - 0.7) < 0.01
+
+
+def test_train_step_with_dropout_replays_its_eager_body():
+    """A tiny ERNIE at dropout 0.1 through `build_train_step(loss_fn=
+    None)` with AdamW under a scheduler and `grad_clip_norm`: replays
+    equal the eager body from the same state and generator state bit for
+    bit, two replays from one state but different generator states
+    differ, and the biased flash kernels run once a layer a step."""
+    from paddle_tpu_torch.distributed import build_train_step
+    from paddle_tpu_torch.models import ernie as TE
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer import lr as TL
+
+    cfg = TE.ernie_tiny(dropout=0.1)
+    model = TE.ErnieForPretraining(cfg, device="cuda")
+
+    class Loss(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.model = model
+            self.crit = TE.ErniePretrainingCriterion()
+
+        def forward(self, ids, labels, nsp):
+            logits, nsp_logits = self.model(ids)
+            return self.crit(logits, nsp_logits, labels, nsp)
+
+    sched = TL.LinearWarmup(TL.PolynomialDecay(1e-3, decay_steps=20),
+                            warmup_steps=2, start_lr=0.0, end_lr=1e-3)
+    step = build_train_step(Loss(), AdamW(learning_rate=sched),
+                            grad_clip_norm=1.0, amp_dtype="bfloat16")
+    rs = np.random.RandomState(0)
+    ids = rs.randint(1, cfg.vocab_size, (4, 48)).astype(np.int32)
+    ids[:, 40:] = 0
+    labels = np.full((4, 48), -100, np.int64)
+    labels[:, 3:9] = rs.randint(1, cfg.vocab_size, (4, 6))
+    nsp = rs.randint(0, 2, (4,)).astype(np.int64)
+    step(ids, labels, nsp)
+    start = _train_state(step)
+    gstate = step.generator.get_state()
+    K.reset_launches()
+    got = step.run_steps(ids, labels, nsp, repeat=3, lrs=[1e-3] * 3)
+    counts = K.launch_counts()
+    assert counts["flash_fwd"] == counts["flash_bwd"] == 2 * 3
+    after = _train_state(step)
+    gafter = step.generator.get_state()
+    with torch.no_grad():
+        for t, s in zip(step._state_tensors(), start):
+            t.copy_(s)
+    step.generator.set_state(gstate)
+    step._lr.fill_(1e-3)                 # what `run_steps(lrs=)` set
+    batch = step._place((ids, labels, nsp))
+    want = torch.stack([step._step(batch) for _ in range(3)])
+    assert torch.equal(got, want)
+    assert all(torch.equal(a, t) for a, t in zip(after,
+                                                 step._state_tensors()))
+    assert torch.equal(gafter, step.generator.get_state())
+    # the same state, the generator where the last replay left it: other
+    # masks, another loss
+    with torch.no_grad():
+        for t, s in zip(step._state_tensors(), start):
+            t.copy_(s)
+    other = step.run_steps(ids, labels, nsp, repeat=1, lrs=[1e-3])
+    assert not torch.equal(other[0], got[0])
+    K.reset_launches()
+
+
+def test_dropout_capture_without_its_generator_raises():
+    """A graph that draws from a CUDA generator it was not told of fails
+    its capture (the replays would otherwise repeat one mask)."""
+    from paddle_tpu_torch.core import graphs as GR
+    from paddle_tpu_torch.nn import functional as TF
+
+    x = torch.randn(8, 64, device="cuda")
+    stream = GR.capture_stream("cuda")
+    GR.warm_up(lambda: TF.dropout(x, 0.5), stream)
+    with pytest.raises(RuntimeError):
+        GR.Graph(lambda: TF.dropout(x, 0.5), stream)
+    torch.cuda.synchronize()

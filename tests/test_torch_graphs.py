@@ -357,9 +357,9 @@ class _BodyGraph:
 
     made = []
 
-    def __init__(self, body, stream, pool=None):
+    def __init__(self, body, stream, pool=None, generators=()):
         self.body, self.outputs, self.replays = body, torch.zeros(()), 0
-        self.stream, self.pool = stream, pool
+        self.stream, self.pool, self.generators = stream, pool, generators
         _BodyGraph.made.append(self)
 
     def replay(self):
@@ -396,16 +396,15 @@ def test_train_step_replay_path_reads_its_static_batch(monkeypatch):
     eager = torch.cat([steps[0].run_steps(ids, labels),
                        steps[0].run_steps(ids[0], labels[0], repeat=3)])
     placed = steps[1]._place((ids, labels))
-    steps[1]._lr.fill_(1e-3)          # what `_run` does before `_replay`
     copies = []
     real_copy = torch.Tensor.copy_
     monkeypatch.setattr(torch.Tensor, "copy_", lambda t, s, *a, **k: (
         copies.append(t.shape), real_copy(t, s, *a, **k))[1])
     first = steps[1]._replay([tuple(b[i] for b in placed)
-                              for i in range(3)])
+                              for i in range(3)], [1e-3] * 3)
     copies.clear()
     one = steps[1]._place((ids[0], labels[0]))
-    again = steps[1]._replay([one] * 3)
+    again = steps[1]._replay([one] * 3, [1e-3] * 3)
     batch_copies = [c for c in copies if c == (2, 16)]
     assert len(batch_copies) == 2    # ids and labels, once
     monkeypatch.undo()
@@ -426,13 +425,12 @@ def test_train_step_drops_its_graph_when_state_is_rebound(monkeypatch):
     batch = [rs.randint(0, 64, (2, 16)).astype(np.int32) for _ in range(2)]
     eager, graphed = _tiny_step(), _tiny_step()
     placed = graphed._place(batch)
-    graphed._lr.fill_(1e-3)           # what `_run` does before `_replay`
 
     def both(edit):
         for s in (eager, graphed):
             edit(s)
         want = eager.run_steps(*batch, repeat=2)
-        return want, graphed._replay([placed, placed])
+        return want, graphed._replay([placed, placed], [1e-3] * 2)
 
     def slot(s):
         return s._state["slots"]["gpt.wte.weight"]

@@ -14,6 +14,10 @@
     kernels only, and every serving entry runs under
     ``torch.inference_mode()`` (the parameters are trainable, so serving
     must build no graph);
+  * dropout and the train step's clipping: dropout is plain ops on every
+    device (no try/except, no test of the device, no identity on CUDA),
+    and nothing on the clipped step's path reads a device value back to
+    the host;
   * the vision path: the fused conv reaches only the `conv_bn_act`
     wrapper (the kernel on CUDA), Swin's attention only the
     `window_attention` wrapper, which on CUDA sends inputs that require
@@ -59,8 +63,14 @@ def test_import_leaves_jax_and_paddle_tpu_out():
         import paddle_tpu_torch.incubate
         import paddle_tpu_torch.inference.engine
         import paddle_tpu_torch.models
+        import paddle_tpu_torch.models.ernie
+        import paddle_tpu_torch.nn.clip
+        import paddle_tpu_torch.nn.layers_transformer
         import paddle_tpu_torch.ops.kernels
         import paddle_tpu_torch.observability
+        import paddle_tpu_torch.optimizer.lr
+        import paddle_tpu_torch.core.rng
+        import paddle_tpu_torch.vision.models.vit
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
         print(bad)
@@ -690,3 +700,71 @@ def test_exact_decode_kernels_split_keys_across_a_cluster(name, kernel):
         "cuda_bf16.h", "cuda_runtime.h", "stdint.h"}
     assert not re.search(r"cublas|cudnn|cutlass|cute::|scaled_dot_product",
                          code, re.I)
+
+
+_HOST_READS = ("item", "tolist", "cpu", "numpy")
+
+
+def _host_reads(fn):
+    """The calls in `fn` that read a tensor back to the host: `.item()`,
+    `.tolist()`, `.cpu()`, `.numpy()`, and `float` / `int` / `bool` of a
+    value; a `torch.tensor(...)` made on the host and read there is
+    left out."""
+    tree = ast.parse(textwrap.dedent(inspect.getsource(fn)))
+    out = []
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Call):
+            continue
+        f = node.func
+        if isinstance(f, ast.Attribute) and f.attr in _HOST_READS:
+            recv = ast.unparse(f.value)
+            if recv.startswith("torch.tensor(") and "device" not in recv:
+                continue
+            out.append(ast.unparse(node))
+        elif isinstance(f, ast.Name) and f.id in ("float", "int", "bool") \
+                and node.args and not isinstance(node.args[0], ast.Constant):
+            out.append(ast.unparse(node))
+    return out
+
+
+def test_dropout_is_plain_ops_on_every_device():
+    """The JAX package computes dropout outside Pallas, and so does the
+    port, on the CPU and the card alike: no try/except, no branch on the
+    device (which could turn into the identity on CUDA), the mask drawn
+    from `core.rng`'s generator of the tensor's device, and no host read
+    of a device value (a CUDA graph replays it)."""
+    from paddle_tpu_torch.nn import layers_common as LC
+    from paddle_tpu_torch.nn.functional import common as C
+
+    for fn in (C.dropout, C.alpha_dropout, C._keep, C.dropout2d,
+               C.dropout3d, LC.Dropout.forward, LC.Dropout2D.forward,
+               LC.Dropout3D.forward):
+        tree = ast.parse(textwrap.dedent(inspect.getsource(fn)))
+        text = ast.unparse(tree)
+        assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), fn
+        assert "device.type" not in text and "is_cuda" not in text, fn
+        assert "NotImplementedError" not in text, fn
+        assert not _host_reads(fn), (fn, _host_reads(fn))
+    assert "generator=rng.generator(x.device)" in inspect.getsource(C._keep)
+
+
+def test_clipped_train_step_reads_nothing_back_to_the_host():
+    """`grad_clip_norm` stays on the device: the step body, the norm and
+    the scale hold no host read, and the scale is a tensor (a `min` on
+    the device, no Python branch on the norm)."""
+    from paddle_tpu_torch.distributed import train_step as TS
+    from paddle_tpu_torch.nn import clip
+
+    for fn in (TS.DistributedTrainStep._step, clip.global_norm_sq,
+               clip.global_norm_scale):
+        assert not _host_reads(fn), (fn, _host_reads(fn))
+        tree = ast.parse(textwrap.dedent(inspect.getsource(fn)))
+        assert not any(isinstance(n, (ast.If, ast.IfExp)) and
+                       "gsq" in ast.unparse(n.test) for n in ast.walk(tree))
+    src = inspect.getsource(TS.DistributedTrainStep._step)
+    assert "global_norm_scale(" in src and "global_norm_sq(" in src
+    assert "grad_clip_norm" not in TS._UNPORTED
+    gsq = clip.global_norm_sq([torch.ones(3), torch.ones(2, 2)])
+    scale = clip.global_norm_scale(gsq, 1.0)
+    assert isinstance(scale, torch.Tensor) and scale.dim() == 0
+    assert torch.allclose(scale, torch.tensor(1 / 7 ** 0.5))

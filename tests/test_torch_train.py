@@ -406,9 +406,13 @@ def test_train_step_refuses_what_is_not_ported():
     for kw in (dict(sharding_stage=1), dict(guard=True),
                dict(checkpoint_manager=object()),
                dict(preemption_guard=object()),
-               dict(collective_precision="int8"), dict(grad_clip_norm=1.0)):
+               dict(collective_precision="int8"), dict(recompute=True)):
         with pytest.raises(NotImplementedError, match=next(iter(kw))):
             build_train_step(tm, AdamW(), crit, **kw)
+    # ported: global-norm clipping (tests/test_torch_encoder.py holds it
+    # against the JAX step)
+    assert build_train_step(tm, AdamW(), crit,
+                            grad_clip_norm=1.0).grad_clip_norm == 1.0
     with pytest.raises(TypeError, match="bogus"):
         build_train_step(tm, AdamW(), crit, bogus=1)
     build_train_step(tm, AdamW(), crit, sharding_stage=0)   # single device

@@ -308,8 +308,10 @@ def test_load_reference_state_checks_buffers_strictly():
 
 
 def test_training_mode_is_refused():
-    """What training mode refuses, and what it runs.  Swin's dropout
-    (`drop_rate` > 0) raises.  Batch norm in training mode takes batch
+    """What training mode runs.  Swin's dropout (`drop_rate` > 0) is
+    ported: it acts in training mode only, so the eval forward equals
+    that of the same weights at `drop_rate` 0, and the train forward of
+    `drop_rate` 0 equals both.  Batch norm in training mode takes batch
     statistics: `_fusable` refuses to fold it, so a ResNet in train mode
     runs the composed conv, batch norm and act (no `conv_bn_act` call)
     and updates the running statistics, with logits equal to the JAX
@@ -317,8 +319,14 @@ def test_training_mode_is_refused():
     from paddle_tpu_torch.vision.models import _fused
 
     kw = dict(device="cpu")
-    with pytest.raises(NotImplementedError, match="drop_rate"):
-        TV.SwinTransformer(**SWIN_SMALL, drop_rate=0.1, **kw)
+    x = torch.randn(2, 3, 56, 56, generator=torch.Generator().manual_seed(3))
+    dropped = TV.SwinTransformer(**SWIN_SMALL, drop_rate=0.1, **kw)
+    plain = TV.SwinTransformer(**SWIN_SMALL, **kw)
+    with torch.no_grad():
+        want = plain(x)
+        assert torch.equal(dropped(x), want)
+        assert torch.equal(plain.train()(x), want)
+        assert not torch.equal(dropped.train()(x), want)
     bn = tnn.BatchNorm2D(4, **kw).eval()
     conv = tnn.Conv2D(3, 4, 3, padding=1, bias_attr=False, **kw)
     assert _fused._fusable(conv, bn, "relu")
