@@ -54,6 +54,25 @@ non-zero and prints no result):
      give equal tokens and bit-identical pools, and each prefill program
      replayed and run eagerly on the same inputs gives the same first
      token and pools (scratch page 0 left out: garbage by design);
+ 4b. http_serve: the same model behind `InferenceServer` (POST
+     /generate over HTTP on 127.0.0.1): (a) with the prefix cache off,
+     the 8 requests x 32 tokens through `engine.submit` in the process
+     and as 8 concurrent `InferenceClient` streams, bit for bit, each
+     stream its final record; (b) with the default config, after a
+     round that captures the prefill programs, the 8 requests in the
+     process and over HTTP, twice in turns: client-side TTFT p50 / p95,
+     inter-token gap p50 / p99, tokens/s; (c) `tools/loadgen.py` (loaded
+     by its path) fires an open-loop Poisson schedule, 4 tenants over
+     512-token system prompts and 16-488-token suffixes, 32-token
+     streams, 4 a second for 10 s: no admitted failure, 32 tokens in
+     every ok stream; (d) /health and /ready carry the engine's stats,
+     /metrics renders, 20 polls of /metrics and /ready launch no kernel,
+     the lifecycle record names the captured programs (decode_n1,
+     prefill_s*, cprefill_s*_p*) with their warm-up and capture ms, a
+     queue_depth=0 server with 4 streams running sheds a fifth with 429
+     and Retry-After, a client that disconnects mid-stream is cancelled,
+     and the engine ends drained; flash_fwd, paged_attention (and rope)
+     launched once a layer per prefill and decode step;
   5. generate: greedy `generate()` on the same model, an equal-length
      batch (causal flash_fwd) and a left-padded one (causal flash_fwd
      with a pad bias, then decode_attention), each call a prefill and a
@@ -100,6 +119,8 @@ non-zero and prints no result):
      bf16 paged_attention never; page bytes of both tiers; phase 4's
      graph checks (the prefill programs' staging buffers of the exact
      page copies too);
+ 9b. llama_http_serve: (a) and (b) of phase 4b on llama_7b, the exact
+     tier, rope launched once a layer per prefill and decode step;
  10. llama_generate: as phase 5 on llama_7b (the f32 copy at full depth);
  11. llama_parity: llama2_70b_shapes widths (hidden 8192, 64 heads over 8
      kv heads, ffn 28672) at 2 layers in f32, as phase 6: a GQA group of
@@ -183,6 +204,21 @@ non-zero and prints no result):
      the replays equal the eager body bit for bit from the same state
      and dropout generator state, and two replays from one state and two
      generator states give different updates.
+ 22. fleet: `ReplicaFleet(num_replicas=2, kind="gpt")` behind the port's
+     `Router`, both replicas on the card (each the fleet's seeded small
+     GPT, `_build_gpt_engine`): every replica announces after its
+     warm-up, and its lifecycle record names the captured programs
+     (decode_n2, prefill_s16); streams through the router equal an
+     in-process engine's tokens on the card, and each replica's own
+     launch counters (reset at its announce, read from its
+     /debug/telemetry) hold flash_fwd to its prefills x layers and
+     paged_attention to its decode steps x chunk x layers; the replica
+     serving a stream is killed with 3 tokens through the router (the
+     stream completes on the survivor or is resumable from
+     StreamInterrupted, an exact prefix of the true sequence either
+     way), the monitor relaunches it, and a replica drained with a
+     stream in flight finishes it and exits 0; the fleet lifecycle's
+     spawn -> announce -> first-routable ms.
 
 Phase 3 also holds paged_attention_int8 (the gpt_1p3b row's pool in
 int8, and a llama_7b decode step, 32 kv heads over ~1000 keys each, with
@@ -217,9 +253,11 @@ paged_attention bit for bit decode_attention over the same keys gathered
 dense (start 0 and start 37) and each sequence alone bit for bit the
 same sequence in the batch of 4, for both kernels.
 
-Launch counters are reset just before the driven part of phases 4, 5,
-8, 8a, 8b, 9, 9a, 10, 11a, 12, 14, 15, 16, 17, 19, 20 and 21 and read just
-after each; every kernel of each path must have launched.  A replayed
+Launch counters are reset just before the driven part of phases 4, 4b,
+5, 8, 8a, 8b, 9, 9a, 9b, 10, 11a, 12, 14, 15, 16, 17, 19, 20, 21 and 22
+(its in-process engine: the replicas count theirs in their own
+processes) and read just after each; every kernel of each path must
+have launched.  A replayed
 CUDA graph (the engine's decode step, the train step) adds the launches
 its capture recorded to the counters, once a replay.  Under --profile
 each profiled path also prints its host launch calls a step
@@ -3625,6 +3663,640 @@ def phase_profile_prefill(model, cfg):
 
 
 # ----------------------------------------------------------------- main
+# ------------------------------------------- phases 4b, 9b, 22: serving
+def _load_loadgen():
+    """`tools/loadgen.py`, loaded by its path (it imports nothing of the
+    repo: it drives a server from outside, as traffic does)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "loadgen", os.path.join(HERE, "tools", "loadgen.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _pct(vals, q):
+    """The q-quantile of `vals`, linearly interpolated."""
+    v = sorted(vals)
+    pos = q * (len(v) - 1)
+    i = int(pos)
+    return v[i] if i + 1 >= len(v) else v[i] + (pos - i) * (v[i + 1] - v[i])
+
+
+def _stream_round(prompts, new_tokens, start):
+    """`prompts` streamed at once, one thread each: `start(i, on_token)`
+    submits request i and blocks until it is done, returning (streamed
+    tokens, output ids, finish reason).  Per request: the time to its
+    first token and the gaps between tokens, from the moment its thread
+    submits.  Returns the per-request results and the round's wall."""
+    res = [None] * len(prompts)
+    errors = []
+
+    def one(i):
+        times = []
+        try:
+            t0 = time.perf_counter()
+            toks, out, reason = start(
+                i, lambda tok: times.append(time.perf_counter()))
+            res[i] = dict(tokens=toks, out=out, reason=reason,
+                          ttft=times[0] - t0 if times else None,
+                          gaps=list(np.diff(times)))
+        except Exception as e:      # reported by the caller's check
+            errors.append(f"request {i}: {type(e).__name__}: {e}")
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=one, args=(i,), daemon=True)
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    check(not errors and all(r is not None for r in res),
+          f"a stream failed: {errors}")
+    return res, wall
+
+
+def _inprocess_round(eng, prompts, new_tokens=32):
+    """The requests through `engine.submit` in this process (the engine's
+    loop thread running): tokens as the handle streams them."""
+    def start(i, on_token):
+        h = eng.submit(prompts[i], max_new_tokens=new_tokens)
+        toks = []
+        for tok in h.stream(timeout=600):
+            on_token(tok)
+            toks.append(int(tok))
+        return toks, h.result(timeout=600), h.finish_reason
+
+    return _stream_round(prompts, new_tokens, start)
+
+
+def _http_round(address, prompts, new_tokens=32):
+    """The same requests as concurrent `InferenceClient.generate`
+    streams over HTTP (`on_token` per streamed token)."""
+    from paddle_tpu_torch.inference.serving import InferenceClient
+
+    def start(i, on_token):
+        toks = []
+
+        def got(tok):
+            on_token(tok)
+            toks.append(int(tok))
+
+        r = InferenceClient(address, timeout=600).generate(
+            prompts[i], max_new_tokens=new_tokens, on_token=got)
+        return toks, r["output_ids"], r["finish_reason"]
+
+    return _stream_round(prompts, new_tokens, start)
+
+
+def _round_stats(res, wall):
+    ttft = [1e3 * r["ttft"] for r in res]
+    gaps = [1e3 * g for r in res for g in r["gaps"]]
+    toks = sum(len(r["tokens"]) for r in res)
+    return (f"TTFT p50 {_pct(ttft, 0.5):.1f} p95 {_pct(ttft, 0.95):.1f} ms, "
+            f"inter-token gap p50 {_pct(gaps, 0.5):.2f} p99 "
+            f"{_pct(gaps, 0.99):.2f} ms, {toks / wall:.1f} tokens/s "
+            f"({toks} tokens in {wall:.3f}s)")
+
+
+def _count_engine_steps(eng):
+    """Counts of the engine's prefills and decode steps from now on (the
+    loop thread looks both up on the instance), and a restore."""
+    n = {"prefill": 0, "decode": 0}
+    prefill, decode = eng._prefill, eng._decode
+
+    def counted_prefill(seq):
+        n["prefill"] += 1
+        prefill(seq)
+
+    def counted_decode(running):
+        n["decode"] += 1
+        decode(running)
+
+    eng._prefill, eng._decode = counted_prefill, counted_decode
+
+    def restore():
+        eng._prefill, eng._decode = prefill, decode
+    return n, restore
+
+
+def _check_path_launches(counts, n, cfg, what):
+    """Every prefill launches flash_fwd once per layer, every decode step
+    (decode_chunk 1) the exact tier's paged kernel once per layer, rope
+    (where the model has it) once per layer of each forward."""
+    check(counts["flash_fwd"] == cfg.num_layers * n["prefill"],
+          f"{what}: flash_fwd launched {counts['flash_fwd']} times for "
+          f"{n['prefill']} prefills")
+    check(counts["paged_attention"] == cfg.num_layers * n["decode"],
+          f"{what}: paged_attention launched {counts['paged_attention']} "
+          f"times in {n['decode']} decode steps")
+    check(counts["paged_attention_int8"] == 0,
+          f"{what}: the int8 kernel launched on the exact tier")
+    _rope_launches_per_forward(counts, cfg, n["prefill"] + n["decode"], what)
+
+
+def _drained(eng, timeout=60.0):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        st, pages = eng.stats(), eng.pool.stats()
+        if st["running"] == 0 and st["waiting"] == 0 \
+                and pages["logical_pages"] == pages["used"]:
+            return True
+        time.sleep(0.02)
+    return False
+
+
+def phase_http_serve(model, cfg, name, traffic=True):
+    """`POST /generate` over HTTP through `InferenceServer` and the
+    engine: (a) with the prefix cache off, the 8 requests of phase 4 x
+    32 tokens in the process and then as 8 concurrent HTTP streams, bit
+    for bit; (b) with the default config, the same requests in the
+    process and over HTTP, twice in turns after a round that captures
+    the prefill programs: TTFT, inter-token gap and tokens/s at the
+    client; with `traffic`, (c) an open-loop Poisson schedule from
+    `tools/loadgen.py` and (d) the plane's contracts.  Returns the
+    launches of the driven parts."""
+    import torch
+
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.inference.engine import (
+        EngineConfig, InferenceEngine,
+    )
+    from paddle_tpu_torch.inference.serving import InferenceServer
+    from paddle_tpu_torch.ops import kernels as K
+
+    prompts = _prompts(cfg.vocab_size)
+    total = {k: 0 for k in K.KERNELS}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    obs.attach(crash_hook=False)
+    try:
+        # (a) exactness, prefix cache off
+        eng = InferenceEngine(model, EngineConfig(prefix_cache=False))
+        eng.generate([prompts[1][:16]], max_new_tokens=2)
+        srv = InferenceServer(engine=eng, request_timeout=600.0).start()
+        try:
+            n, restore = _count_engine_steps(eng)
+            K.reset_launches()
+            local, _ = _inprocess_round(eng, prompts)
+            http, _ = _http_round(srv.address, prompts)
+            counts = K.launch_counts()
+            restore()
+        finally:
+            srv.shutdown()
+        add(counts)
+        _check_path_launches(counts, n, cfg, f"http_serve {name} (a)")
+        for i, (p, a, b) in enumerate(zip(prompts, local, http)):
+            check(b["tokens"] == a["tokens"]
+                  and np.array_equal(b["out"], a["out"]),
+                  f"http_serve {name}: request {i}'s HTTP stream differs "
+                  f"from its in-process tokens")
+            check(b["tokens"] == [int(t) for t in b["out"][len(p):]]
+                  and len(b["tokens"]) == 32 and b["reason"] == "length",
+                  f"http_serve {name}: request {i}'s stream does not equal "
+                  f"its final record ({b['reason']})")
+        log(f"[http_serve] {name} (a) prefix cache off: 8 HTTP streams x 32 "
+            f"tokens equal the in-process tokens bit for bit "
+            f"({n['prefill']} prefills, {n['decode']} decode steps)")
+        del eng, srv
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) the plane's cost, default config
+        eng = InferenceEngine(model, EngineConfig())
+        eng.generate([prompts[1][:16]], max_new_tokens=2)
+        srv = InferenceServer(engine=eng, request_timeout=600.0).start()
+        try:
+            eng.clear_prefix_cache()
+            _inprocess_round(eng, prompts)        # captures the buckets
+            n, restore = _count_engine_steps(eng)
+            K.reset_launches()
+            for turn in range(2):
+                for how in ("in-process", "HTTP"):
+                    eng.clear_prefix_cache()
+                    res, wall = (_inprocess_round(eng, prompts)
+                                 if how == "in-process"
+                                 else _http_round(srv.address, prompts))
+                    check(all(len(r["tokens"]) == 32 for r in res),
+                          f"http_serve {name} (b): a stream fell short")
+                    log(f"[http_serve] {name} (b) turn {turn + 1} {how}: "
+                        f"{_round_stats(res, wall)}")
+            counts = K.launch_counts()
+            restore()
+            add(counts)
+            _check_path_launches(counts, n, cfg, f"http_serve {name} (b)")
+            if traffic:
+                add(_open_loop(srv, eng, cfg, name))
+                _plane_contracts(srv, eng, name)
+        finally:
+            srv.shutdown()
+        if traffic:
+            _saturation_and_disconnect(eng, prompts, name)
+            check(_drained(eng), f"http_serve {name}: the engine is not "
+                  f"drained at the end: {eng.stats()}")
+            eng.clear_prefix_cache()
+            check(eng.pool.used_pages == 0, f"http_serve {name}: "
+                  f"{eng.pool.used_pages} pages in use after the cache "
+                  "was cleared")
+            log(f"[http_serve] {name} (d) drained: no running or waiting "
+                "sequence, every page free but the prefix cache's")
+    finally:
+        obs.detach()
+    return total
+
+
+def _open_loop(srv, eng, cfg, name):
+    """(c) `tools/loadgen.py`'s open-loop Poisson schedule at the server:
+    4 tenants sharing 512-token system prompts, suffixes of 16-488
+    tokens, every request a 32-token stream, 4 a second for 10 s."""
+    from paddle_tpu_torch.ops import kernels as K
+
+    lg = _load_loadgen()
+    wl = lg.SharedPrefixWorkload(
+        seed=0, tenants=4, system_prompt_tokens=512, suffix_tokens=(16, 488),
+        vocab=cfg.vocab_size, generate_frac=1.0, max_new_tokens=32)
+    runner = lg.OpenLoopRunner(srv.address, wl,
+                               phases=[lg.Phase("steady", 10.0, 4.0)],
+                               timeout=120.0)
+    K.reset_launches()
+    report = runner.run()
+    counts = K.launch_counts()
+    s = report.summary()
+    check(s["admitted_failures"] == 0, f"http_serve {name} (c): admitted "
+          f"failures {s['failure_detail']}")
+    short = [r for r in report.rows
+             if r["status"] == "ok" and r.get("tokens") != 32]
+    check(not short and s["ok"] > 0, f"http_serve {name} (c): {len(short)} "
+          f"ok streams without 32 tokens, {s['ok']} ok")
+    counts_line = {k: s[k] for k in (
+        "requests", "status", "ok", "shed", "admitted_failures", "tokens",
+        "tokens_per_sec", "wall_s")}
+    log(f"[http_serve] {name} (c) open loop 4 req/s x 10 s: "
+        f"{json.dumps(counts_line)}"
+        f"; latency_ms {json.dumps(s['latency_ms'])}; itl_ms "
+        f"{json.dumps(s['itl_ms'])}; tpot_ms {json.dumps(s['tpot_ms'])}; "
+        f"prefix hit rate {eng.prefix_cache_stats().get('hit_rate')}")
+    return counts
+
+
+def _get_json(url):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=60) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def _plane_contracts(srv, eng, name):
+    """(d) on the idle server: /health and /ready carry the engine's
+    stats, /metrics renders, polling /metrics and /ready alone launches
+    no kernel, and the lifecycle record names the captured programs with
+    their warm-up and capture ms."""
+    import urllib.request
+
+    from paddle_tpu_torch.ops import kernels as K
+
+    check(_drained(eng), f"http_serve {name}: not idle before (d)")
+    code, health = _get_json(srv.address + "/health")
+    check(code == 200 and health["engine"]["max_slots"] == 4
+          and "pages" in health["engine"], f"/health: {code} {health}")
+    code, ready = _get_json(srv.address + "/ready")
+    check(code == 200 and ready["engine"]["max_slots"] == 4
+          and ready["engine"]["prefix_cache"]["enabled"]
+          and ready["engine"]["kv_precision"] == "full",
+          f"/ready: {code} {ready}")
+    K.reset_launches()
+    for _ in range(20):
+        with urllib.request.urlopen(srv.address + "/metrics",
+                                    timeout=60) as r:
+            text = r.read().decode()
+        _get_json(srv.address + "/ready")
+    moved = {k: v for k, v in K.launch_counts().items() if v}
+    check(not moved, f"polling /metrics and /ready launched {moved}")
+    check("serving_requests" in text and "engine_tokens" in text,
+          "/metrics lacks the serving and engine series")
+    code, snap = _get_json(srv.address + "/debug/telemetry")
+    comp = snap["lifecycle"]["compiles"]
+    check(code == 200 and "decode_n1" in comp
+          and any(k.startswith("prefill_s") for k in comp)
+          and any(k.startswith("cprefill_s") for k in comp)
+          and all(c["lower_ms"] > 0 and c["compile_ms"] > 0
+                  for c in comp.values()),
+          f"the lifecycle record's captured programs: {comp}")
+    shown = {k: (round(c["lower_ms"], 1), round(c["compile_ms"], 1))
+             for k, c in sorted(comp.items())}
+    log(f"[http_serve] {name} (d) /health, /ready and /metrics render; 20 "
+        f"polls of /metrics + /ready launched no kernel; lifecycle compiles "
+        f"(warm-up ms, capture ms): {json.dumps(shown)}")
+
+
+def _saturation_and_disconnect(eng, prompts, name):
+    """(d) a queue_depth=0 server with its 4 slots streaming sheds the
+    next request with 429 and Retry-After; a client that disconnects
+    mid-stream gets its sequence cancelled."""
+    import socket
+    import urllib.error
+    import urllib.request
+
+    from paddle_tpu_torch.inference.serving import (
+        InferenceClient, InferenceServer,
+    )
+
+    srv = InferenceServer(engine=eng, request_timeout=600.0,
+                          queue_depth=0).start()
+    cancelled, cancel = [], eng.cancel
+    eng.cancel = lambda rid: cancelled.append(rid) or cancel(rid)
+    try:
+        done = []
+        threads = [threading.Thread(target=lambda p=p: done.append(
+            InferenceClient(srv.address, timeout=600).generate(
+                p[:64], max_new_tokens=512)), daemon=True)
+            for p in prompts[:4]]
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + 120
+        while srv.gen_admission.stats()["inflight"] < 4:
+            check(time.monotonic() < deadline, "the 4 streams never ran")
+            time.sleep(0.005)
+        req = urllib.request.Request(
+            srv.address + "/generate", headers={
+                "Content-Type": "application/json"},
+            data=json.dumps({"input_ids": [1, 2, 3],
+                             "max_new_tokens": 4}).encode())
+        try:
+            urllib.request.urlopen(req, timeout=60)
+            shed = None
+        except urllib.error.HTTPError as e:
+            shed = (e.code, e.headers.get("Retry-After"))
+        check(shed is not None and shed[0] == 429 and shed[1] is not None,
+              f"saturated queue_depth=0 server answered {shed}")
+        for t in threads:
+            t.join(timeout=600)
+        check(len(done) == 4 and all(len(r["tokens"]) == 512 for r in done),
+              "the saturating streams did not finish")
+        host, port = srv.address[len("http://"):].split(":")
+        body = json.dumps({"input_ids": [int(x) for x in prompts[2][:64]],
+                           "max_new_tokens": 1024}).encode()
+        with socket.create_connection((host, int(port)), timeout=60) as s:
+            s.sendall(b"POST /generate HTTP/1.1\r\nHost: x\r\n"
+                      b"Content-Type: application/json\r\n"
+                      + f"Content-Length: {len(body)}\r\n\r\n".encode()
+                      + body)
+            got = b""
+            while b'{"token"' not in got:
+                chunk = s.recv(4096)
+                check(chunk, "the stream closed before its first token")
+                got += chunk
+        deadline = time.monotonic() + 60
+        while not cancelled:
+            check(time.monotonic() < deadline, "a client that disconnected "
+                  "mid-stream was never cancelled")
+            time.sleep(0.01)
+        check(_drained(eng), f"after the disconnect: {eng.stats()}")
+        log(f"[http_serve] {name} (d) 5th request on a saturated "
+            f"queue_depth=0 server: {shed[0]} Retry-After {shed[1]}; a "
+            "client that disconnected mid-stream was cancelled and its "
+            "slot and pages freed")
+    finally:
+        eng.cancel = cancel
+        srv.shutdown()
+
+
+class _PausedStreams:
+    """Wraps a router's transport: the next streamed response pauses
+    after its third line until `release`, with `paused` set, so a
+    replica can be killed or drained with a stream in flight."""
+
+    def __init__(self, router):
+        self.router, self.real = router, router.transport.stream
+        self.armed, self.paused = threading.Event(), threading.Event()
+        self.release, self.address = threading.Event(), None
+        router.transport.stream = self.stream
+
+    def stream(self, address, path, body, headers=None, timeout=30.0):
+        resp = self.real(address, path, body, headers=headers,
+                         timeout=timeout)
+        if not self.armed.is_set():
+            return resp
+        self.armed.clear()
+        self.address, lines = address, resp.lines
+
+        def paused_lines():
+            for i, line in enumerate(lines()):
+                yield line
+                if i == 2:
+                    self.paused.set()
+                    self.release.wait(timeout=120)
+
+        resp.lines = paused_lines
+        return resp
+
+    def arm(self):
+        self.paused.clear()
+        self.release.clear()
+        self.armed.set()
+
+    def restore(self):
+        self.release.set()
+        self.router.transport.stream = self.real
+
+
+def phase_fleet():
+    """A `ReplicaFleet` of two `gpt` replicas (the fleet's seeded small
+    GPT, `_build_gpt_engine`) on the card behind the port's `Router`:
+    each replica announces after its warm-up captured its programs (its
+    lifecycle record names them), the router's streams equal an
+    in-process engine's tokens, a replica killed mid-stream holds the
+    failover contract (the stream an exact prefix of the true sequence,
+    completed or resumable), the monitor relaunches it, and a drained
+    replica finishes its in-flight stream and exits 0.  Returns the
+    launches the replicas report for the routed round: each resets its
+    counters when it announces and serves them, beside its prefill and
+    decode-step counts, on /debug/telemetry."""
+    import torch
+
+    from paddle_tpu_torch.inference import fleet as FL
+    from paddle_tpu_torch.inference.serving import (
+        InferenceClient, StreamInterrupted,
+    )
+    from paddle_tpu_torch.ops import kernels as K
+
+    rs = np.random.RandomState(SEED)
+    prompts = [rs.randint(0, 256, (n,)).astype(np.int32)
+               for n in (5, 12, 23, 30)]
+    long_prompt, long_new = prompts[0], 88            # 93 of 96 positions
+    # the reference tokens only: its launches are not the fleet's
+    ref = FL._build_gpt_engine(seed=0)
+    want = [ref.generate([p], max_new_tokens=48)[0] for p in prompts]
+    true = ref.generate([long_prompt], max_new_tokens=long_new)[0][
+        len(long_prompt):].tolist()
+    mcfg, chunk = ref._model.cfg, ref.config.decode_chunk
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fleet = FL.ReplicaFleet(num_replicas=2, kind="gpt", launch_timeout=300)
+    fleet.start(ready_timeout=300)
+    paused = _PausedStreams(fleet.router)
+    try:
+        log(f"[fleet] 2 gpt replicas on the card routable in "
+            f"{time.perf_counter() - t0:.1f}s")
+        for rec in fleet.lifecycle.fleet_view()["records"]:
+            rep = rec.get("replica") or {}
+            comp, ph = rep.get("compiles", {}), rep.get("phases", {})
+            check({"decode_n2", "prefill_s16"} <= set(comp)
+                  and all(c["compile_ms"] > 0 for c in comp.values())
+                  and ph["warmup"]["mono_ms"] <= ph["announce"]["mono_ms"],
+                  f"replica {rec['rid']}: lifecycle {rep}")
+        def replica_kernels():
+            out = {}
+            for h in list(fleet._handles.values()):
+                code, snap = _get_json(h.address + "/debug/telemetry")
+                check(code == 200 and "kernels" in snap,
+                      f"replica {h.rid}: /debug/telemetry {code}")
+                out[h.rid] = snap["kernels"]
+            return out
+
+        before = replica_kernels()
+        check(all(r["prefills"] == r["decode_steps"] == 0
+                  and not any(r["launches"].values())
+                  for r in before.values()),
+              f"fleet: the replicas launched before the routed round: "
+              f"{before}")
+        cli = InferenceClient(fleet.router.address, timeout=300, retries=2)
+        outs, _ = _stream_round(prompts, 48, lambda i, cb: (
+            lambda r: (r["tokens"], r["output_ids"], r["finish_reason"]))(
+                cli.generate(prompts[i], max_new_tokens=48, on_token=cb)))
+        for i, (r, w) in enumerate(zip(outs, want)):
+            check(np.array_equal(r["out"], w), f"fleet: request {i} through "
+                  "the router differs from the in-process engine's tokens")
+        after = replica_kernels()
+        counts = {k: 0 for k in K.KERNELS}
+        for rid, r in sorted(after.items()):
+            check(r["decode_chunk"] == chunk, f"replica {rid}: decode_chunk "
+                  f"{r['decode_chunk']}")
+            _check_path_launches(
+                r["launches"], {"prefill": r["prefills"],
+                                "decode": r["decode_steps"] * chunk},
+                mcfg, f"fleet replica {rid}")
+            for k, v in r["launches"].items():
+                counts[k] += v
+            log(f"[fleet] replica {rid}: {r['prefills']} prefills, "
+                f"{r['decode_steps']} decode steps of {chunk}: "
+                f"flash_fwd {r['launches']['flash_fwd']}, paged_attention "
+                f"{r['launches']['paged_attention']}")
+        check(sum(r["prefills"] for r in after.values()) == len(prompts),
+              f"fleet: {len(prompts)} routed requests, prefills {after}")
+
+        def stream(out, got):
+            try:
+                out["r"] = cli.generate(long_prompt, max_new_tokens=long_new,
+                                        on_token=got.append)
+            except StreamInterrupted as e:
+                out["e"] = e
+
+        # kill the serving replica with 3 tokens through the router
+        out, got = {}, []
+        paused.arm()
+        th = threading.Thread(target=stream, args=(out, got), daemon=True)
+        th.start()
+        check(paused.paused.wait(timeout=120), "the stream never started")
+        victim = next(h for h in list(fleet._handles.values())
+                      if h.address == paused.address)
+        proc = victim.proc
+        fleet.kill_replica(victim.rank)
+        t1 = time.perf_counter()
+        proc.wait(timeout=60)
+        paused.release.set()
+        th.join(timeout=300)
+        check(not th.is_alive(), "the killed stream hung")
+        if "r" in out:
+            check(out["r"]["tokens"] == true and out["r"]["resumed"] >= 1,
+                  f"fleet: the failed-over stream {out['r']['tokens']} "
+                  f"(resumed {out['r']['resumed']}) is not the true one")
+            how = f"completed on the survivor (resumed {out['r']['resumed']})"
+        else:
+            e = out["e"]
+            check(e.tokens == true[:len(e.tokens)]
+                  and list(e.output_ids) == long_prompt.tolist() + e.tokens,
+                  "fleet: the interrupted stream is not an exact prefix")
+            rest = cli.generate(e.output_ids,
+                                max_new_tokens=long_new - len(e.tokens))
+            check(e.tokens + rest["tokens"] == true,
+                  "fleet: the resumed stream is not the true sequence")
+            how = (f"interrupted after {len(e.tokens)} tokens, resumed "
+                   "through StreamInterrupted's output_ids")
+        check(got == true[:len(got)], "fleet: delivered tokens are not a "
+              "prefix of the true sequence")
+        log(f"[fleet] replica r{victim.rank} killed mid-stream: {how}; "
+            f"{len(got)} tokens delivered, an exact prefix")
+        deadline = time.monotonic() + 300
+        while not any(ev["kind"] == "replica_relaunched"
+                      for ev in fleet.events):
+            check(time.monotonic() < deadline, f"fleet: the killed replica "
+                  f"was not relaunched: {fleet.describe()}")
+            time.sleep(0.05)
+        check(fleet.wait_ready(n=2, timeout=300), f"fleet: the relaunched "
+              f"replica is not routable: {fleet.describe()}")
+        log(f"[fleet] the monitor relaunched r{victim.rank}: routable again "
+            f"{time.perf_counter() - t1:.1f}s after the kill")
+
+        # drain the serving replica with a stream in flight
+        out, got = {}, []
+        paused.arm()
+        th = threading.Thread(target=stream, args=(out, got), daemon=True)
+        th.start()
+        check(paused.paused.wait(timeout=120), "the stream never started")
+        busy = next(h for h in list(fleet._handles.values())
+                    if h.address == paused.address)
+        drain = threading.Thread(target=fleet.drain_replica,
+                                 args=(busy.rank,), kwargs={"grace": 120.0},
+                                 daemon=True)
+        drain.start()
+        deadline = time.monotonic() + 30
+        while fleet.router.replica_summary().get(busy.rid) != "draining":
+            check(time.monotonic() < deadline, "the drain never began")
+            time.sleep(0.01)
+        paused.release.set()
+        th.join(timeout=300)
+        drain.join(timeout=300)
+        check(out.get("r") is not None and out["r"]["tokens"] == true,
+              f"fleet: the drained replica's in-flight stream {out}")
+        deadline = time.monotonic() + 120
+        while not any(ev["kind"] == "replica_exit" and ev.get("drained")
+                      for ev in fleet.events):
+            check(time.monotonic() < deadline, "the drained replica never "
+                  "exited")
+            time.sleep(0.05)
+        rc = [ev["rc"] for ev in fleet.events
+              if ev["kind"] == "replica_exit" and ev.get("drained")]
+        check(rc == [0], f"fleet: the drained replica exited {rc}")
+        log(f"[fleet] r{busy.rank} drained with a stream in flight: the "
+            f"stream finished ({len(true)} tokens), the replica exited 0")
+        for rec in fleet.lifecycle.fleet_view()["records"]:
+            sup = rec.get("supervisor_ms", {})
+            phases = {k: round(v, 1) for k, v in (
+                rec.get("replica") or {}).get("durations_ms", {}).items()}
+            log(f"[fleet] lifecycle {rec['rid']}: spawn -> announce "
+                f"{sup.get('announce', float('nan')):.1f} ms -> first probe "
+                f"up {sup.get('first_probe_up', float('nan')):.1f} ms -> "
+                f"first routable request "
+                f"{sup.get('first_routable_request', float('nan')):.1f} ms; "
+                f"replica phases {json.dumps(phases)}")
+    finally:
+        paused.restore()
+        fleet.stop()
+    return counts
+
+
 def main():
     try:
         import torch
@@ -3678,6 +4350,9 @@ def main():
         model = load(GPTForCausalLM, cfg, "gpt_1p3b")
         paths = [run("serve", phase_serve, model, cfg, "gpt_1p3b"),
                  run("generate", phase_generate, model, cfg, "gpt_1p3b")]
+        release()
+        paths.append(run("http_serve", phase_http_serve, model, cfg,
+                         "gpt_1p3b"))
         if profile:
             run("profile", phase_profile, model, cfg)
             run("profile_prefill", phase_profile_prefill, model, cfg)
@@ -3712,6 +4387,9 @@ def main():
                       "llama_7b", "int8"),
                   run("llama_generate", phase_generate, model, lcfg,
                       "llama_7b")]
+        release()
+        paths.append(run("llama_http_serve", phase_http_serve, model, lcfg,
+                         "llama_7b", False))
         if profile:
             run("llama_profile", phase_profile, model, lcfg)
             run("llama_profile_int8", phase_profile, model, lcfg, 10,
@@ -3748,6 +4426,8 @@ def main():
                          card))
         release()
         paths.append(run("ernie_train", phase_ernie_train, card))
+        release()
+        paths.append(run("fleet", phase_fleet))
         rows = []
         for name, k in K.KERNELS.items():
             row = table[(name, "bfloat16")]

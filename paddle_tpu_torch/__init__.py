@@ -23,7 +23,9 @@ step (slice 5); packed attention, `nn.functional.flash_attn_unpadded`,
 and the fused transformer blocks of `incubate.nn` over the fused norm
 (slice 6); the role of `jax.jit` as CUDA graphs (`core.graphs`: the
 engine's decode and prefill programs, the train step, `generate()`'s
-decode chunks, and `jit.to_static`; slices 15-16).
+decode chunks, and `jit.to_static`; slices 15-16); the serving plane
+(`inference.serving`, `inference.router`, `inference.fleet`,
+`inference.autoscaler`, `resilience`; slice 18).
 """
 from __future__ import annotations
 

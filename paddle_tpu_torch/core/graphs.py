@@ -11,6 +11,10 @@ and set their launch attributes there), is then captured into one
 `torch.cuda.CUDAGraph` on that stream (`Graph`), and every later run
 replays the graph.  On the CPU the caller runs the body itself.
 
+`capture` runs both steps of one program under its label and times
+them (`observability.capture_cost`: the lifecycle ledger's compile
+record of the JAX program whose role the graph takes).
+
 A capture that fails raises; nothing here falls back to the eager body.
 The kernels launch on torch's current stream (`ops/kernels/_build.py`,
 `stream_ptr`), so a capture records them.  Their wrappers count a launch
@@ -42,6 +46,7 @@ import threading
 
 import torch
 
+from ..observability import capture_cost as CC
 from ..ops import kernels as K
 
 # cudaStreamCaptureModeThreadLocal: only this thread's unsafe calls (a
@@ -73,13 +78,28 @@ def capture_stream(device) -> "torch.cuda.Stream":
 
 def warm_up(body, stream):
     """Run `body()` eagerly on `stream`, after the current stream's work
-    and before its later work; returns what `body` returns."""
+    and before its later work; returns what `body` returns, once the
+    body has run on the device (so the wall time of a call is the
+    warm-up's, kernel builds included)."""
     cur = torch.cuda.current_stream(stream.device)
     stream.wait_stream(cur)
     with torch.cuda.stream(stream):
         out = body()
     cur.wait_stream(stream)
+    stream.synchronize()
     return out
+
+
+def capture(body, stream, label, pool=None, generators=()):
+    """`warm_up(body, stream)`, then `Graph(body, stream, pool,
+    generators)`, timed under `label` (`capture_cost`).  Returns what
+    the warm-up's body returned and the graph.  A failure in either
+    step raises and records nothing."""
+    with CC.CaptureTiming(label) as timing:
+        out = warm_up(body, stream)
+        timing.warmed()
+        graph = Graph(body, stream, pool=pool, generators=generators)
+    return out, graph
 
 
 def addresses(tensors) -> tuple:

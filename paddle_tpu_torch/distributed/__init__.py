@@ -1,5 +1,6 @@
-"""Training step of the port (``paddle_tpu/distributed`` counterpart):
-single device so far."""
+"""``paddle_tpu/distributed`` counterpart: the training step (single
+device so far), the rendezvous `store` and `fleet.elastic`'s heartbeats
+(the serving fleet's liveness plane)."""
 from __future__ import annotations
 
 from .train_step import DistributedTrainStep, build_train_step  # noqa: F401

@@ -247,15 +247,15 @@ class DistributedTrainStep:
                     dst.copy_(src)
                 body = functools.partial(self._step, static)
                 stream = GR.capture_stream(self._device)
-                losses[i] = GR.warm_up(body, stream)
+                losses[i], graph = GR.capture(
+                    body, stream, "train_step", generators=(self.generator,))
                 # the first step may turn an int step into a tensor:
                 # graphs captured before it hold other addresses
                 bound = GR.addresses(self._state_tensors())
                 if bound != self._bound:
                     self._graphs.clear()
                     self._bound = bound
-                self._graphs[key] = (static, GR.Graph(
-                    body, stream, generators=(self.generator,)))
+                self._graphs[key] = (static, graph)
                 loaded = batch
                 continue
             static, graph = self._graphs[key]

@@ -393,6 +393,11 @@ class InferenceEngine:
         self._thread = None
         self._running = False
         self.steps = 0
+        # programs run: each prefill launches every layer's attention
+        # once, each decode step `decode_chunk` times (a replica's
+        # launch counts are checked against these from outside it)
+        self.prefill_count = 0
+        self.decode_steps = 0
         _metrics.set_gauge("engine.weight_precision", 1, precision="full")
         _metrics.set_gauge("paged.pool_precision", 1,
                            precision=cfg.kv_precision or "full")
@@ -567,13 +572,25 @@ class InferenceEngine:
         """Run the body eagerly on the capture stream over the inputs
         loaded into `prog` (the first prefill of the program: a real
         one, whose results it leaves in the pools, the staging buffers
-        and prog.tok), then capture it into the program's graph.  A
-        failure raises."""
+        and prog.tok), then capture it into the program's graph, timed
+        under the JAX label of the prefill (`_prefill_label`).  A failure
+        raises."""
         body = functools.partial(self._prefill_body, prog)
         stream = GR.capture_stream(self._device)
-        GR.warm_up(body, stream)
-        prog.graph = GR.Graph(body, stream, pool=self._graph_pool())
+        _, prog.graph = GR.capture(body, stream, self._prefill_label(prog),
+                                   pool=self._graph_pool())
         prog.bound = GR.addresses(self._prefill_tensors())
+
+    def _prefill_label(self, prog) -> str:
+        """The label of the JAX program whose role `prog`'s graph takes:
+        ``prefill_s{sb}`` (cold) or ``cprefill_s{sb}_p{npp}`` (warm;
+        ``_q`` on the int8 tier).  One graph holds the prefill and its
+        pack, two programs in the JAX package, and takes the prefill's
+        label."""
+        if prog.npp is None:
+            return f"prefill_s{prog.sb}"
+        return f"cprefill_s{prog.sb}_p{prog.npp}" + (
+            "_q" if self._quant else "")
 
     def _run_prefill_program(self, prog, ids, start: int, pages, plen=0,
                              prefix_pages=None) -> int:
@@ -657,12 +674,13 @@ class InferenceEngine:
     def _capture_decode(self, n: int, prog) -> None:
         """Warm the body up on the program's zero buffers (every slot on
         scratch page 0 at length 0: it writes nothing else), then capture
-        it into the program's graph.  A failure raises."""
+        it into the program's graph, timed as ``decode_n{n}``.  A failure
+        raises."""
         body = functools.partial(self._decode_body, n, prog.tok, prog.pt,
                                  prog.lengths, prog.toks)
         stream = GR.capture_stream(self._device)
-        GR.warm_up(body, stream)
-        prog.graph = GR.Graph(body, stream, pool=self._graph_pool())
+        _, prog.graph = GR.capture(body, stream, f"decode_n{n}",
+                                   pool=self._graph_pool())
         prog.bound = GR.addresses(self._pool_tensors())
 
     def _run_decode(self, n: int, tok, pt, lengths):
@@ -793,6 +811,7 @@ class InferenceEngine:
         return -(-s0 // b) * b
 
     def _prefill(self, seq: Sequence) -> None:
+        self.prefill_count += 1
         prompt = seq.resume_prompt()
         s0 = prompt.size
         shared = int(seq.shared_len or 0)
@@ -934,6 +953,7 @@ class InferenceEngine:
         return tok, pt, lengths
 
     def _decode(self, running) -> None:
+        self.decode_steps += 1
         cfg = self.config
         t_step = time.perf_counter()
         tok, pt, lengths = self._batch_arrays(running)

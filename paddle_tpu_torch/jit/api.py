@@ -73,6 +73,9 @@ class StaticFunction:
         self._input_spec = input_spec
         self._cache = {}          # call signature -> _Program
         self._pool = None         # the memory pool its graphs share
+        # the JAX package's compile label (`jit::<fn>`): its captures
+        # are timed under it
+        self._label = f"jit::{getattr(self._fn, '__name__', 'fn')}"
         functools.update_wrapper(self, self._fn)
 
     @property
@@ -130,11 +133,10 @@ class StaticFunction:
                 dst.copy_(src)
             body = functools.partial(self._fn, *args, **kwargs)
             stream = GR.capture_stream(device)
-            GR.warm_up(body, stream)
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
-            prog = _Program(inputs, GR.Graph(body, stream, pool=self._pool),
-                            bound)
+            _, graph = GR.capture(body, stream, self._label, pool=self._pool)
+            prog = _Program(inputs, graph, bound)
             self._cache[key] = prog
         else:
             for dst, src in zip(prog.inputs, tensors):

@@ -463,14 +463,15 @@ class GenerationMixin:
         """The CUDA path of `_run_decode_chunk`: the program's graph
         replayed, or at the first chunk of its key the body run eagerly
         on the capture stream (this chunk's result) and then captured in
-        the state's pool.  A failed capture raises."""
+        the state's pool, timed as `decode_chunk_n{n}` (the JAX package
+        does not time its chunk programs).  A failed capture raises."""
         if prog.graph is not None:
             prog.graph.replay()
             return
         body = functools.partial(self._decode_chunk_body, st, prog, has_mask,
                                  eos_token_id)
         stream = GR.capture_stream(self.device)
-        GR.warm_up(body, stream)
         if st.pool is None:
             st.pool = torch.cuda.graph_pool_handle()
-        prog.graph = GR.Graph(body, stream, pool=st.pool)
+        _, prog.graph = GR.capture(body, stream, f"decode_chunk_n{prog.n}",
+                                   pool=st.pool)

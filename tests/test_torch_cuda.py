@@ -2069,9 +2069,9 @@ def test_engine_prefill_and_decode_graphs_share_one_pool(dtype):
                                             .astype(np.int32)]
     made, real = [], GR.Graph
 
-    def graph(body, stream, pool=None):
+    def graph(body, stream, pool=None, generators=()):
         made.append((stream, pool))
-        return real(body, stream, pool=pool)
+        return real(body, stream, pool=pool, generators=generators)
 
     for kv in (None, "int8"):
         cfg = EngineConfig(page_size=4, max_slots=2, max_seq_len=64,
@@ -2355,3 +2355,154 @@ def test_dropout_capture_without_its_generator_raises():
     with pytest.raises(RuntimeError):
         GR.Graph(lambda: TF.dropout(x, 0.5), stream)
     torch.cuda.synchronize()
+
+
+# ------------------------------------------------------ the serving plane
+def _serving_prompts():
+    rs = np.random.RandomState(0)
+    return [rs.randint(0, 128, (n,)).astype(np.int32)
+            for n in (3, 9, 17, 30)]
+
+
+def _http_streams(address, prompts, new):
+    """Every prompt as its own concurrent `InferenceClient` stream:
+    (streamed tokens, final record) each."""
+    import threading
+
+    from paddle_tpu_torch.inference.serving import InferenceClient
+
+    out = [None] * len(prompts)
+
+    def one(i):
+        got = []
+        r = InferenceClient(address, timeout=120).generate(
+            prompts[i], max_new_tokens=new, on_token=got.append)
+        out[i] = (got, r)
+
+    threads = [threading.Thread(target=one, args=(i,), daemon=True)
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert all(o is not None for o in out), "a stream failed or hung"
+    return out
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_http_streams_equal_in_process_tokens(dtype):
+    """A tiny engine on the card behind `InferenceServer`: concurrent
+    HTTP streams equal its in-process tokens bit for bit (prefix cache
+    off), each stream its final record; /debug/telemetry's launch
+    counters hold flash_fwd to the HTTP round's prefills x layers and
+    paged_attention to its decode steps x chunk x layers."""
+    import json
+    import urllib.request
+
+    from paddle_tpu_torch.inference.engine import (
+        EngineConfig, InferenceEngine,
+    )
+    from paddle_tpu_torch.inference.serving import InferenceServer
+
+    prompts = _serving_prompts()
+    model = _tiny_gpt(dtype)
+    eng = InferenceEngine(model, EngineConfig(
+        page_size=8, max_slots=2, max_seq_len=64, prefix_cache=False))
+    want = eng.generate(prompts, max_new_tokens=12)
+    srv = InferenceServer(engine=eng, request_timeout=120.0).start()
+    try:
+        K.reset_launches()
+        eng.prefill_count = eng.decode_steps = 0
+        for p, w, (got, r) in zip(prompts, want,
+                                  _http_streams(srv.address, prompts, 12)):
+            np.testing.assert_array_equal(r["output_ids"], w)
+            assert got == r["tokens"] == [int(t) for t in w[len(p):]]
+            assert r["finish_reason"] == "length"
+        with urllib.request.urlopen(srv.address + "/debug/telemetry",
+                                    timeout=60) as resp:
+            kern = json.loads(resp.read())["kernels"]
+        layers = model.cfg.num_layers
+        assert kern["prefills"] == len(prompts)
+        assert kern["launches"]["flash_fwd"] == layers * len(prompts)
+        assert kern["decode_steps"] > 0
+        assert kern["launches"]["paged_attention"] == (
+            layers * kern["decode_chunk"] * kern["decode_steps"])
+    finally:
+        srv.shutdown()
+
+
+def test_capture_timing_lands_in_the_lifecycle_ledger():
+    """The engine's first prefill and decode programs on the card are
+    timed under the JAX labels: warm-up and capture ms, both > 0."""
+    from paddle_tpu_torch.inference.engine import (
+        EngineConfig, InferenceEngine,
+    )
+    from paddle_tpu_torch.observability import lifecycle
+
+    lifecycle.reset()
+    try:
+        eng = InferenceEngine(_tiny_gpt(torch.float32), EngineConfig(
+            page_size=8, max_slots=2, max_seq_len=64, decode_chunk=2))
+        eng.generate([np.arange(1, 5, dtype=np.int32)], max_new_tokens=3)
+        comp = lifecycle.get_ledger().record()["compiles"]
+        assert set(comp) == {"prefill_s16", "decode_n2"}, comp
+        for label, c in comp.items():
+            assert c["count"] == 1 and c["lower_ms"] > 0 \
+                and c["compile_ms"] > 0, (label, c)
+    finally:
+        lifecycle.reset()
+
+
+def test_metrics_polled_during_captures_do_not_fail_them():
+    """Handler threads scraping /metrics and /ready while the engine's
+    loop thread captures new prefill buckets (thread-local capture): every
+    capture and every request succeeds, every poll answers 200."""
+    import threading
+    import urllib.request
+
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.inference.engine import (
+        EngineConfig, InferenceEngine,
+    )
+    from paddle_tpu_torch.inference.serving import InferenceServer
+    from paddle_tpu_torch.observability import lifecycle
+
+    lifecycle.reset()
+    obs.attach(crash_hook=False)
+    eng = InferenceEngine(_tiny_gpt(torch.float32), EngineConfig(
+        page_size=8, max_slots=4, max_seq_len=64, prefix_cache=False))
+    srv = InferenceServer(engine=eng, request_timeout=120.0).start()
+    stop, polls, errors = threading.Event(), [], []
+
+    def poll():
+        while not stop.is_set():
+            for path in ("/metrics", "/ready"):
+                try:
+                    with urllib.request.urlopen(srv.address + path,
+                                                timeout=60) as r:
+                        polls.append(r.status)
+                except Exception as e:      # reported below
+                    errors.append(repr(e))
+
+    pollers = [threading.Thread(target=poll, daemon=True) for _ in range(2)]
+    try:
+        for t in pollers:
+            t.start()
+        rs = np.random.RandomState(1)
+        # four prompt buckets (16, 32, 48) and the decode program: each
+        # captured on the loop thread while the pollers scrape
+        prompts = [rs.randint(0, 128, (n,)).astype(np.int32)
+                   for n in (5, 20, 40, 45)]
+        outs = _http_streams(srv.address, prompts, 6)
+        assert all(len(got) == 6 for got, _ in outs)
+    finally:
+        stop.set()
+        for t in pollers:
+            t.join(timeout=60)
+        srv.shutdown()
+        obs.detach()
+    comp = lifecycle.get_ledger().record()["compiles"]
+    lifecycle.reset()
+    assert not errors and polls and set(polls) == {200}, errors[:3]
+    assert {"prefill_s16", "prefill_s32", "prefill_s48",
+            "decode_n1"} <= set(comp), comp

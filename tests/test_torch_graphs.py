@@ -762,13 +762,15 @@ def test_capture_and_replay_path_never_falls_back():
     turn graphs off."""
     GM = GEN.GenerationMixin
     SF = JA.StaticFunction
-    for module in (GR, JA):
+    from paddle_tpu_torch.observability import capture_cost as CC
+
+    for module in (GR, JA, CC):
         mod = ast.parse(inspect.getsource(module))
         assert not any(isinstance(n, ast.Try) for n in ast.walk(mod))
         assert "environ" not in inspect.getsource(module)
     makers = (InferenceEngine._decode_program,
                 InferenceEngine._prefill_program)
-    for fn in (GR.warm_up, GR.Graph.__init__, GR.Graph.replay,
+    for fn in (GR.warm_up, GR.capture, GR.Graph.__init__, GR.Graph.replay,
                GR.capture_stream, *makers,
                InferenceEngine._capture_decode,
                InferenceEngine._replay_decode,
@@ -798,9 +800,14 @@ def test_capture_and_replay_path_never_falls_back():
         text = ast.unparse(tree)
         assert "GR.capture_stream(" in text and "torch.cuda.Stream" not in \
             text, fn
+        # one capture, through `GR.capture` (warm-up and graph, timed
+        # under the program's label)
         graphs = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
-                  and ast.unparse(n.func) == "GR.Graph"]
+                  and ast.unparse(n.func) in ("GR.Graph", "GR.capture",
+                                              "GR.warm_up")]
         assert len(graphs) == 1, fn
+        assert ast.unparse(graphs[0].func) == "GR.capture", fn
+        assert len(graphs[0].args) == 3, fn           # body, stream, label
         if fn is not TS.DistributedTrainStep._replay:
             assert "pool" in [k.arg for k in graphs[0].keywords], fn
     for module in (EN, TS, GEN, JA):

@@ -5,7 +5,11 @@
     of every module and of ``chip_smoke.py``);
   * the JAX-free modules the port copies equal their reference sources;
   * entry points run on the CUDA device by default and raise, naming
-    ``device="cpu"``, on a host without CUDA;
+    ``device="cpu"``, on a host without CUDA; the serving fleet spawns
+    the port's replica module, whose `gpt` replicas run on the card
+    unless told otherwise;
+  * a CUDA graph capture that fails raises through its timing
+    (`core.graphs.capture`), which records nothing for it;
   * every kernel wrapper has a plain version and a launch counter, and
     only a CPU tensor reaches the plain version: the wrappers hold no
     try/except, the plain call sits under the CPU test, and a tensor on
@@ -71,6 +75,13 @@ def test_import_leaves_jax_and_paddle_tpu_out():
         import paddle_tpu_torch.optimizer.lr
         import paddle_tpu_torch.core.rng
         import paddle_tpu_torch.vision.models.vit
+        import paddle_tpu_torch.inference.serving
+        import paddle_tpu_torch.inference.router
+        import paddle_tpu_torch.inference.fleet
+        import paddle_tpu_torch.inference.autoscaler
+        import paddle_tpu_torch.distributed.store
+        import paddle_tpu_torch.distributed.fleet.elastic
+        import paddle_tpu_torch.resilience
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
         print(bad)
@@ -104,7 +115,13 @@ COPIES = ["observability/metrics.py", "observability/trace.py",
           "observability/flight.py", "observability/tenant_ledger.py",
           "observability/timeseries.py", "inference/qos.py",
           "inference/engine/paging.py", "inference/engine/prefix.py",
-          "inference/engine/scheduler.py"]
+          "inference/engine/scheduler.py",
+          "resilience/overload.py", "resilience/retry.py",
+          "resilience/faults.py", "resilience/preemption.py",
+          "observability/lifecycle.py", "observability/request_trace.py",
+          "observability/slo.py", "observability/export.py",
+          "inference/router.py", "inference/autoscaler.py",
+          "distributed/fleet/elastic.py"]
 
 
 def _code(path):
@@ -768,3 +785,68 @@ def test_clipped_train_step_reads_nothing_back_to_the_host():
     scale = clip.global_norm_scale(gsq, 1.0)
     assert isinstance(scale, torch.Tensor) and scale.dim() == 0
     assert torch.allclose(scale, torch.tensor(1 / 7 ** 0.5))
+
+
+def test_fleet_replicas_run_the_port_on_the_card_by_default(tmp_path,
+                                                           monkeypatch):
+    """The fleet spawns the port's replica module, whose `--device`
+    defaults to cuda; a `gpt` fleet resolves its device at construction
+    and, on a host without CUDA, raises naming device="cpu"."""
+    from paddle_tpu_torch.inference import fleet as FL
+
+    fleet = FL.ReplicaFleet(num_replicas=1, kind="echo", heartbeat=False,
+                            workdir=str(tmp_path))
+    handle = fleet._handles[0]
+    handle.announce = str(tmp_path / "r0.addr")
+    cmd = fleet._replica_cmd(handle)
+    assert cmd[1:3] == ["-m", "paddle_tpu_torch.inference.fleet"]
+    assert cmd[cmd.index("--device") + 1] == "cuda"
+    monkeypatch.delenv("JAX_PLATFORMS", raising=False)
+    assert "JAX_PLATFORMS" not in fleet._replica_environ(handle)
+    args = FL._replica_parser().parse_args(
+        ["--replica", "--rank", "0", "--announce", "a", "--kind", "gpt"])
+    assert args.device == "cuda"
+    fleet.router._httpd.server_close()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            FL.ReplicaFleet(num_replicas=1, kind="gpt", heartbeat=False)
+        ok = FL.ReplicaFleet(num_replicas=1, kind="gpt", device="cpu",
+                             heartbeat=False)
+        assert ok.device == "cpu"
+        ok.router._httpd.server_close()
+
+
+def test_a_failed_capture_raises_through_its_timing(monkeypatch):
+    """`core.graphs.capture` times the warm-up and the capture, and a
+    capture that fails raises through the timing: nothing catches it,
+    nothing is recorded for it, and the span it opened is closed."""
+    from paddle_tpu_torch.core import graphs as GR
+    from paddle_tpu_torch.observability import capture_cost as CC
+    from paddle_tpu_torch.observability import lifecycle, trace
+
+    class Boom(RuntimeError):
+        pass
+
+    def failing_graph(body, stream, pool=None, generators=()):
+        raise Boom("operation not permitted when stream is capturing")
+
+    monkeypatch.setattr(GR, "warm_up", lambda body, stream: body())
+    monkeypatch.setattr(GR, "Graph", failing_graph)
+    lifecycle.reset()
+    trace.enable()
+    try:
+        with pytest.raises(Boom):
+            GR.capture(lambda: 1, "stream", "decode_n1")
+        assert lifecycle.get_ledger().record()["compiles"] == {}
+        assert trace.current_span() is None
+        assert not any(isinstance(n, ast.Try) for n in ast.walk(
+            ast.parse(inspect.getsource(CC))))
+        # a capture that succeeds records under its label
+        monkeypatch.setattr(GR, "Graph", lambda body, stream, pool=None,
+                            generators=(): "graph")
+        assert GR.capture(lambda: 7, "stream", "decode_n1") == (7, "graph")
+        assert lifecycle.get_ledger().record()["compiles"]["decode_n1"][
+            "count"] == 1
+    finally:
+        trace.disable()
+        lifecycle.reset()
