@@ -81,11 +81,40 @@ non-zero and prints no result):
      to the per-token eager loop at host positions; tokens/s and decode
      ms a step on a call after a warm-up; bf16 logits against the f32
      upcast of the same weights;
+ 5a. sample_beam: `generate()` sampling and beam search on gpt_1p3b at
+     full width with an untied head (a random model with the preset's
+     tied N(0, 1) embedding repeats its last token), bf16: do_sample,
+     temperature 0.8, top_k 50, one seed, B4 x 128 + 64 twice (the same
+     tokens, tokens/s of the second call, decode_attention 24 a step);
+     top_k=1 against greedy (equal, or apart only at an exact tie at the
+     top of that step's logits); num_beams=4 at B2 x 128 + 32 twice
+     (tokens/s; the beam step a CUDA graph, its replay == its eager body
+     bit for bit over 57 state tensors); at 2 layers in f32: every
+     sampled token in the top-50 of its step's teacher-forced logits,
+     ties included, and the card's beams (with an eos) equal to the
+     CPU port's on the same weights (or the two winners' CPU scores
+     within 1e-3);
+ 5b. spec_serve: speculative decoding at gpt_1p3b full width, bf16,
+     spec_tokens=4, the 8 requests of phase 4 x 64 tokens served twice:
+     an agreeing 2-layer draft (bench.py's: the target's first two
+     layers, its other blocks' out_proj / down_proj zeroed; >= 90% of the
+     proposals accepted, its spec graph replay == eager body bit for
+     bit) and an independent seeded 2-layer draft with an untied head;
+     acceptance, tokens/s, ms a pass, paged_attention exactly 2 * (k +
+     1) + 24 a pass; the non-spec engine's tokens/s beside them;
   6. parity: gpt_1p3b widths at 2 layers in f32, the 8 prompts of phase
      4 (two warm prefills) — engine streams must equal generate()
      streams (a divergence passes only at a top-2 logit margin below
      1e-3, and is reported); the replay against the eager body as in
      phase 4, in f32;
+ 6a. tiers_parity: the same widths and prompts in f32: the int8-weight
+     engine against `generate()` over its `effective_params()`, the spec
+     engine (k=3; a tied 1-layer draft, accepted, and an untied one,
+     rejected) against the non-spec engine on both KV tiers, by phase
+     6's near-tie rule; the int8-weight decode and prefill graphs, the
+     spec graphs and the draft's prefill graphs replayed == their eager
+     bodies bit for bit; int8 weights + int8 KV + spec run twice, bit
+     for bit;
   7. train_parity: GPT-125M widths (hidden 768, 12 heads, vocab 50304)
      at 2 layers in f32, batch 2 x 256, one seed: 3 AdamW steps on the
      card through the kernels and the same 3 on the CPU through the
@@ -121,6 +150,15 @@ non-zero and prints no result):
      page copies too);
  9b. llama_http_serve: (a) and (b) of phase 4b on llama_7b, the exact
      tier, rope launched once a layer per prefill and decode step;
+ 9c. weight_tiers: llama_7b bf16 behind the exact tier,
+     weight_precision="int8" and "bf16" in turns, phase 9's requests
+     twice each: tokens/s and TTFT p50 of the replayed round, the decode
+     step's profiled device time (4 live slots); the int8 store (codes
+     and scales) against the same weights in bf16; the peak memory the
+     decode graph's warm-up and capture add (int8: under a quarter of
+     the model's bf16 weights: each weight is dequantized where it is
+     used); the bf16 tier's streams equal the exact tier's; the int8
+     decode and prefill graphs replayed == their eager bodies;
  10. llama_generate: as phase 5 on llama_7b (the f32 copy at full depth);
  11. llama_parity: llama2_70b_shapes widths (hidden 8192, 64 heads over 8
      kv heads, ffn 28672) at 2 layers in f32, as phase 6: a GQA group of
@@ -254,7 +292,8 @@ dense (start 0 and start 37) and each sequence alone bit for bit the
 same sequence in the batch of 4, for both kernels.
 
 Launch counters are reset just before the driven part of phases 4, 4b,
-5, 8, 8a, 8b, 9, 9a, 9b, 10, 11a, 12, 14, 15, 16, 17, 19, 20, 21 and 22
+5, 5a (its sampled and its beam calls), 5b (each engine), 8, 8a, 8b, 9,
+9a, 9b, 9c (each tier), 10, 11a, 12, 14, 15, 16, 17, 19, 20, 21 and 22
 (its in-process engine: the replicas count theirs in their own
 processes) and read just after each; every kernel of each path must
 have launched.  A replayed
@@ -262,11 +301,12 @@ CUDA graph (the engine's decode step, the train step) adds the launches
 its capture recorded to the counters, once a replay.  Under --profile
 each profiled path also prints its host launch calls a step
 (cudaLaunchKernel and cudaGraphLaunch, count and host ms).  The line before last is the
-JSON kernel table (`launches` summed over those paths); the last line
-is the device JSON.
+JSON kernel table (`launches` summed over those paths, `paths` each
+path's own count); the last line is the device JSON.
 """
 from __future__ import annotations
 
+import copy
 import gc
 import json
 import math
@@ -1875,18 +1915,22 @@ def _serve_passes(eng, prompts, passes=2, new_tokens=32):
     programs, the later ones replay them).  Per round: the wall time,
     each request's time to its first token, the outputs and handles, the
     wall ms of each prefill (`engine._prefill`, which ends reading the
-    first token back) by (cold / warm, bucket), the decode steps' wall
-    ms, the prefix-cache hits, and the prefill programs the engine holds
-    after it (0 where the engine keeps none)."""
+    first token back) by (cold / warm, bucket), the decode steps' (or
+    spec passes') wall ms, the prefix-cache hits, and the prefill
+    programs the engine holds after it (0 where the engine keeps
+    none)."""
     import torch
 
-    rounds, decode, prefill = [], eng._decode, eng._prefill
+    rounds, prefill = [], eng._prefill
+    decode, spec = eng._decode, eng._spec_decode
     step_ms, prefill_ms = [], {}
 
-    def timed_decode(running):
-        t = time.perf_counter()
-        decode(running)           # ends in a device->host token copy
-        step_ms.append((time.perf_counter() - t) * 1e3)
+    def timed(step):
+        def run(running):
+            t = time.perf_counter()
+            step(running)         # ends in a device->host token copy
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        return run
 
     def timed_prefill(seq):
         shared = int(seq.shared_len or 0)
@@ -1897,7 +1941,8 @@ def _serve_passes(eng, prompts, passes=2, new_tokens=32):
         prefill_ms.setdefault(key, []).append(
             (time.perf_counter() - t) * 1e3)
 
-    eng._decode, eng._prefill = timed_decode, timed_prefill
+    eng._decode, eng._spec_decode = timed(decode), timed(spec)
+    eng._prefill = timed_prefill
     try:
         for _ in range(passes):
             eng.clear_prefix_cache()
@@ -1937,7 +1982,7 @@ def _serve_passes(eng, prompts, passes=2, new_tokens=32):
                 hits=eng.prefix_cache_stats()["hits"] - hits0,
                 programs=len(getattr(eng, "_prefills", {}))))
     finally:
-        eng._decode, eng._prefill = decode, prefill
+        eng._decode, eng._spec_decode, eng._prefill = decode, spec, prefill
     return rounds
 
 
@@ -2057,7 +2102,9 @@ def _prefill_replay_equals_eager(eng, what):
     its eager body run on the same static inputs from equal pools: the
     first token, every pool and scale table without scratch page 0
     (garbage by design: the pack writes it once per scratch entry, in no
-    defined order) and the int8 tier's staging buffers, bit for bit."""
+    defined order) and the int8 tier's staging buffers, bit for bit.  With
+    a draft model, its prefill graph (replayed after the target's) and
+    its body too, and its pools."""
     import torch
 
     rs = np.random.RandomState(SEED + 9)
@@ -2082,13 +2129,13 @@ def _prefill_replay_equals_eager(eng, what):
                         t[:npp].normal_()
             start = [t.clone() for t in state]
             eng._load_prefill(prog, ids, min(3, sb - 1), pages, plen,
-                              None if eng._quant else prefix)
+                              None if prog.prefix_pages is None else prefix)
             eng._replay_prefill(prog)
             tok, after = int(prog.tok[0]), [t.clone() for t in state]
             for t, s in zip(state, start):
                 t.copy_(s)
             del start
-            eng._prefill_body(prog)
+            eng._prefill_body_all(prog)
             torch.cuda.synchronize()
             check(tok == int(prog.tok[0]), f"{what}: prefill S{sb} p{npp} "
                   f"replayed first token {tok} != the eager body's "
@@ -2102,7 +2149,8 @@ def _prefill_replay_equals_eager(eng, what):
                   f"differ between the replay and the eager body (first "
                   f"#{diff[:1]}; page 0 left out)")
             n += 1
-    log(f"[graphs] {what}: {n} prefill programs (cold and warm), replay == "
+    log(f"[graphs] {what}: {n} prefill programs (cold and warm"
+        f"{', each with its draft graph' if eng._draft else ''}), replay == "
         f"eager body bit for bit (first token, {n_pools} pools / scale "
         f"tables without scratch page 0, {len(state) - n_pools} staging "
         "buffers)")
@@ -2290,6 +2338,32 @@ def phase_generate(model, cfg, name):
 
 
 # ----------------------------------------------------------------- phase 6
+def _near_ties(model, prompts, outs, refs, what, against):
+    """Streams `outs` against reference streams `refs` of the same
+    prompts: equal, or the first different token at a near-tie, where
+    the top-2 logits of `model`'s full forward over the reference prefix
+    differ by less than 1e-3 (f32).  Returns the count of equal streams
+    and the near-ties as (prompt length, token, margin)."""
+    import torch
+
+    near, same = [], 0
+    for p, o, ref in zip(prompts, outs, refs):
+        diff = np.flatnonzero(ref != o)
+        if not diff.size:
+            same += 1
+            continue
+        at = int(diff[0])
+        with torch.inference_mode():
+            logits = model(torch.from_numpy(ref[None, :at]).cuda())[0, -1]
+        top = torch.topk(logits.float(), 2).values
+        margin = (top[0] - top[1]).item()
+        check(margin < 1e-3, f"{what} diverged from {against} at token "
+              f"{at - len(p)} of a {len(p)}-token prompt, top-2 margin "
+              f"{margin:.3g} >= 1e-3")
+        near.append((len(p), at - len(p), margin))
+    return same, near
+
+
 def phase_parity(cls, cfg, name):
     """`cls(cfg)` in f32 (depth cut by the caller): engine streams
     against generate() streams."""
@@ -2309,22 +2383,10 @@ def phase_parity(cls, cfg, name):
     # its streams are held against generate() too
     check(hits >= 2, f"parity prefix cache hits {hits}: warm prefill did "
           "not run")
-    near, same = [], 0
-    for p, o in zip(prompts, outs):
-        ref = model.generate(p[None], max_new_tokens=16).cpu().numpy()[0]
-        diff = np.flatnonzero(ref != o)
-        if not diff.size:
-            same += 1
-            continue
-        at = int(diff[0])
-        with torch.inference_mode():
-            logits = model(torch.from_numpy(ref[None, :at]).cuda())[0, -1]
-        top = torch.topk(logits.float(), 2).values
-        margin = (top[0] - top[1]).item()
-        check(margin < 1e-3, f"engine diverged from generate() at token "
-              f"{at - len(p)} of a {len(p)}-token prompt, top-2 margin "
-              f"{margin:.3g} >= 1e-3")
-        near.append((len(p), at - len(p), margin))
+    refs = [model.generate(p[None], max_new_tokens=16).cpu().numpy()[0]
+            for p in prompts]
+    same, near = _near_ties(model, prompts, outs, refs, "engine",
+                            "generate()")
     _engine_replay_equals_eager(eng, f"parity f32 {name} widths")
     log(f"[parity] f32 {name} widths {cfg.num_layers}L: {same}/"
         f"{len(prompts)} engine "
@@ -2412,6 +2474,612 @@ def phase_int8_parity(cls, cfg, name, new_tokens=8):
         f"tokens); codec card == cpu; packed pages within "
         f"{worst:.3f} x absmax/127 of the dense rows; launches "
         f"{json.dumps(counts)}")
+
+
+# ---------------------------------------- the weight and speculative tiers
+def _live_decode_inputs(eng, lengths):
+    """Host inputs of a decode step with every slot live on pages of its
+    own at `lengths` (for timing a step on garbage pools)."""
+    s_, p_ = eng.config.max_slots, eng.max_pages_per_seq
+    pt = (1 + np.arange(s_ * p_, dtype=np.int32)).reshape(s_, p_)
+    tok = np.arange(s_, dtype=np.int32) + 1
+    return tok, pt, np.asarray(lengths, np.int32)
+
+
+def _weight_store(eng, model):
+    """(bytes the engine stores for its narrow weights: codes and
+    scales, or a cast that is not the weight itself; bytes of the same
+    weights in bf16; bytes of every model parameter in bf16)."""
+    stored = sum(t.numel() * t.element_size()
+                 for w, (q, scales, _) in eng._wq.items()
+                 for t in (q, scales)
+                 if t is not None and t.data_ptr() != w.data_ptr())
+    same = sum(w.numel() * 2 for w in eng._wq)
+    whole = sum(p.numel() * 2 for p in model.parameters())
+    return stored, same, whole
+
+
+def phase_weight_tiers(model, cfg, name):
+    """The weight tiers at full width: the 8 requests x 32 tokens of
+    phase 9 served twice (the first round captures the prefill programs,
+    the second replays them) by the exact tier and by
+    weight_precision="int8" and "bf16" in turns: tokens/s and TTFT p50
+    of the replayed round, the decode step's profiled device time (every
+    slot live, ~730-token contexts); the int8 store against the bf16
+    weights; the peak memory the decode graph's warm-up and capture add,
+    which under int8 must stay below a quarter of the model's bf16
+    weights (each weight is dequantized where it is used); the bf16 tier
+    of a bf16 model stores nothing new, so its streams equal the exact
+    tier's; replay == eager body bit for bit for the int8 decode and
+    prefill graphs."""
+    import torch
+
+    from paddle_tpu_torch.inference.engine import (
+        EngineConfig, InferenceEngine,
+    )
+    from paddle_tpu_torch.ops import kernels as K
+
+    prompts = _prompts(cfg.vocab_size)
+    counts, rows, capture, outs = {}, {}, {}, {}
+    for prec in (None, "int8", "bf16"):
+        tier = prec or "exact"
+        torch.cuda.synchronize()
+        eng = InferenceEngine(model, EngineConfig(weight_precision=prec))
+        if prec == "int8":
+            stored, same, whole = _weight_store(eng, model)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():            # as the engine's step
+            eng._decode_program(1)              # warm-up and capture
+        torch.cuda.synchronize()
+        capture[tier] = torch.cuda.max_memory_allocated() - base
+        eng.generate([prompts[1][:16]], max_new_tokens=2)     # warm-up
+        K.reset_launches()
+        rounds = _serve_passes(eng, prompts)
+        counts[tier] = K.launch_counts()
+        for r in rounds:
+            for p, o, h in zip(prompts, r["outs"], r["handles"]):
+                check(len(o) == len(p) + 32 and h.finish_reason == "length",
+                      f"weight_tiers {tier}: request {h.request_id} "
+                      f"finished {h.finish_reason}")
+        for a, b in zip(*(r["outs"] for r in rounds)):
+            check(np.array_equal(a, b), f"weight_tiers {tier}: the "
+                  "replayed round's streams differ from the first's")
+        steps = sum(len(r["step_ms"]) for r in rounds)
+        check(counts[tier]["paged_attention"] == cfg.num_layers * steps,
+              f"weight_tiers {tier}: paged_attention launched "
+              f"{counts[tier]['paged_attention']} times in {steps} steps")
+        if prec == "int8":
+            what = f"weight_tiers {name} bf16 weights int8"
+            _engine_replay_equals_eager(eng, what)
+            _prefill_replay_equals_eager(eng, what)
+        with torch.inference_mode():
+            prog = eng._decode_program(1)
+            for dst, src in zip((prog.tok, prog.pt, prog.lengths),
+                                _live_decode_inputs(eng, (1040, 560, 330,
+                                                          1000))):
+                dst.copy_(torch.from_numpy(src))
+            step_dev = device_ms(prog.graph.replay, iters=10)
+        r = rounds[1]
+        outs[tier] = r["outs"]
+        rows[tier] = dict(tps=r["gen"] / r["wall"],
+                          ttft=1e3 * r["ttft"][len(r["ttft"]) // 2],
+                          step_wall=float(np.mean(r["step_ms"])),
+                          step_dev=step_dev)
+        del eng, prog
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(all(np.array_equal(a, b) for a, b in zip(outs["bf16"],
+                                                   outs["exact"])),
+          "weight_tiers: the bf16 tier of a bf16 model changed the streams")
+    same_int8 = sum(np.array_equal(a, b) for a, b in zip(outs["int8"],
+                                                         outs["exact"]))
+    check(capture["int8"] < whole / 4, f"weight_tiers: the int8 decode "
+          f"graph's capture added {capture['int8'] / 2**30:.2f} GiB, over a "
+          f"quarter of the {whole / 2**30:.2f} GiB of bf16 weights")
+    for tier, r in rows.items():
+        log(f"[weight_tiers] {name} bf16 weights {tier}: {r['tps']:.1f} "
+            f"tokens/s, TTFT p50 {r['ttft']:.1f} ms (replayed round), "
+            f"decode step {r['step_wall']:.2f} ms wall, "
+            f"{r['step_dev']:.3f} ms device (4 slots, ~730-token contexts)")
+    log(f"[weight_tiers] {name} weight store: int8 {stored / 2**30:.3f} GiB "
+        f"(codes + scales) for {same / 2**30:.3f} GiB of the same weights "
+        f"in bf16 ({stored / same:.3f}), model {whole / 2**30:.3f} GiB in "
+        f"bf16; the decode graph's warm-up and capture added at peak "
+        + ", ".join(f"{t} {c / 2**20:.1f} MiB" for t, c in capture.items())
+        + f" (int8: {capture['int8'] / whole:.4f} of the model)")
+    log(f"[weight_tiers] {name} decode step device ms int8 / exact "
+        f"{rows['int8']['step_dev'] / rows['exact']['step_dev']:.3f}, bf16 /"
+        f" exact {rows['bf16']['step_dev'] / rows['exact']['step_dev']:.3f};"
+        f" streams: bf16 == exact 8/8, int8 == exact {same_int8}/8")
+    return {k: sum(c[k] for c in counts.values()) for k in counts["exact"]}
+
+
+def _agreeing_draft(cfg, layers=2):
+    """bench.py's agreeing pair at the widths of `cfg` in bf16: a target
+    whose blocks past the first `layers` have their out_proj and
+    down_proj (weight and bias) zeroed, so each is the identity, and a
+    `layers`-layer draft holding the target's weights of those layers."""
+    import torch
+
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+
+    target = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                            seed=SEED)
+    dcfg = copy.copy(cfg)
+    dcfg.num_layers = layers
+    draft = GPTForCausalLM(dcfg, device="cuda", dtype=torch.bfloat16,
+                           seed=SEED)
+    own = dict(target.named_parameters())
+    with torch.no_grad():
+        for n, p in draft.named_parameters():
+            p.copy_(own[n])
+        for blk in target.gpt.h[layers:]:
+            for lin in (blk.attn.out_proj, blk.mlp.down_proj):
+                lin.weight.zero_()
+                lin.bias.zero_()
+    return target, draft
+
+
+def _acceptance(eng):
+    """Wrap the engine's spec pass: the committed counts of every live
+    slot, for the acceptance rate (accepted over proposed)."""
+    seen, run = [], eng._run_spec
+
+    def rec(k, tok, pt, lengths, limits):
+        g, counts = run(k, tok, pt, lengths, limits)
+        seen.extend((counts[limits > 0] - 1).tolist())
+        return g, counts
+
+    eng._run_spec = rec
+    return seen
+
+
+def phase_spec_serve(model, cfg, name, k=4, new_tokens=64):
+    """Speculative decoding at full width: the 8 requests of phase 4 x 64
+    tokens, served twice, with spec_tokens=k and two 2-layer drafts, an
+    agreeing one (bench.py's: the target's first two layers, its other
+    blocks' residual projections zeroed; at least 90% of the proposals
+    accepted) and an independent seeded one over `model` with an untied
+    head (a random model with the preset's tied N(0, 1) embedding repeats
+    its last token, its own logit ~hidden_size above the rest, so any
+    tied draft would agree); the non-spec engine beside them.  Every spec
+    pass launches paged_attention 2 * (k + 1) times for the draft and
+    once a layer for the target."""
+    import torch
+
+    from paddle_tpu_torch.inference.engine import (
+        EngineConfig, InferenceEngine,
+    )
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.ops import kernels as K
+
+    prompts = _prompts(cfg.vocab_size)
+    total, lines = None, []
+    agree_t, agree_d = _agreeing_draft(cfg)
+    dcfg = copy.copy(cfg)
+    dcfg.num_layers, dcfg.tie_embeddings = 2, False
+    indep = GPTForCausalLM(dcfg, device="cuda", dtype=torch.bfloat16,
+                           seed=SEED + 1)
+    for label, target, draft in (("none", model, None),
+                                 ("agreeing", agree_t, agree_d),
+                                 ("independent", model, indep)):
+        spec = draft is not None
+        eng = InferenceEngine(target, EngineConfig(
+            spec_tokens=k if spec else None), draft_model=draft)
+        eng.generate([prompts[1][:16]], max_new_tokens=2)     # warm-up
+        accepted = _acceptance(eng) if spec else []
+        passes0 = eng.spec_passes
+        K.reset_launches()
+        rounds = _serve_passes(eng, prompts, new_tokens=new_tokens)
+        counts = K.launch_counts()
+        total = counts if total is None else {
+            n: total[n] + counts[n] for n in total}
+        for r in rounds:
+            for p, o, h in zip(prompts, r["outs"], r["handles"]):
+                check(len(o) == len(p) + new_tokens
+                      and h.finish_reason == "length",
+                      f"spec_serve {label}: request {h.request_id} finished "
+                      f"{h.finish_reason} with {len(o) - len(p)} tokens")
+        for a, b in zip(*(r["outs"] for r in rounds)):
+            check(np.array_equal(a, b), f"spec_serve {label}: the replayed "
+                  "round's streams differ from the first's")
+        r = rounds[1]
+        line = (f"{label} draft: {r['gen'] / r['wall']:.1f} tokens/s, "
+                f"TTFT p50 {1e3 * r['ttft'][len(r['ttft']) // 2]:.1f} ms, "
+                f"{np.mean(r['step_ms']):.2f} ms a "
+                f"{'pass' if spec else 'step'} (replayed round)")
+        if spec:
+            passes = eng.spec_passes - passes0
+            want = passes * (2 * (k + 1) + cfg.num_layers)
+            check(counts["paged_attention"] == want,
+                  f"spec_serve {label}: paged_attention launched "
+                  f"{counts['paged_attention']} times in {passes} passes, "
+                  f"expected {want}")
+            rate = sum(accepted) / max(1, k * len(accepted))
+            if label == "agreeing":
+                check(rate >= 0.9, f"spec_serve: the agreeing draft's "
+                      f"acceptance {rate:.3f} < 0.9")
+            per_pass = counts["paged_attention"] / passes
+            line += (f", acceptance {rate:.3f} ({sum(accepted)} of "
+                     f"{k * len(accepted)}), {passes} passes, "
+                     f"paged_attention {per_pass:.0f} a pass, "
+                     f"{np.mean(accepted) + 1:.2f} tokens a slot a pass")
+            if label == "agreeing":
+                _spec_replay_equals_eager(eng, f"spec_serve {name} bf16")
+        lines.append(line)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    del agree_t, agree_d, indep
+    gc.collect()
+    torch.cuda.empty_cache()
+    for line in lines:
+        log(f"[spec_serve] {name} bf16 k={k}, 8 requests x {new_tokens} "
+            f"tokens: {line}")
+    return total
+
+
+def _spec_replay_equals_eager(eng, what, passes=3):
+    """`passes` spec passes of every slot through the engine's captured
+    program (`_run_spec`, a graph replay each) and through its eager
+    body (`_spec_body`) from equal copies of the pools (the draft's
+    included): the tokens, the counts and every pool, bit for bit.  Each
+    slot lives on pages of its own; its limit cuts its last pass short,
+    so the limit mask runs too."""
+    import torch
+
+    cfg = eng.config
+    s_, p_, k = cfg.max_slots, eng.max_pages_per_seq, cfg.spec_tokens
+    check(s_ * p_ < cfg.num_pages, f"{what}: the pool cannot hold {s_} "
+          f"slots of {p_} pages")
+    rs = np.random.RandomState(SEED + 7)
+    pt = (1 + np.arange(s_ * p_, dtype=np.int32)).reshape(s_, p_)
+    lengths0 = rs.randint(16, cfg.max_seq_len // 2, s_).astype(np.int32)
+    limits = (lengths0 + passes * (k + 1) - 2).astype(np.int32)
+    tok0 = rs.randint(0, eng._model.cfg.vocab_size, s_).astype(np.int32)
+    pools = eng._pool_tensors()
+    prog = eng._spec_program(k)
+
+    def eager(tok, pt_, lengths, limits_):
+        for dst, src in ((prog.tok, tok), (prog.pt, pt_),
+                         (prog.lengths, lengths), (prog.limits, limits_)):
+            dst.copy_(torch.from_numpy(src))
+        eng._spec_body(prog)
+        return prog.g.cpu().numpy(), prog.counts.cpu().numpy()
+
+    def run(one):
+        out, tok, lengths = [], tok0, lengths0
+        for _ in range(passes):
+            g, counts = one(tok, pt, lengths, limits)
+            out.append(np.concatenate([g, counts[:, None]], axis=1))
+            tok = g[np.arange(s_), counts - 1].astype(np.int32)
+            lengths = (lengths + counts).astype(np.int32)
+        return np.stack(out)
+
+    with torch.inference_mode():
+        start = [p.clone() for p in pools]
+        replayed = run(lambda *a: eng._run_spec(k, *a))
+        after = [p.clone() for p in pools]
+        for p, s in zip(pools, start):
+            p.copy_(s)
+        del start
+        direct = run(eager)
+        torch.cuda.synchronize()
+        diff = [i for i, (a, p) in enumerate(zip(after, pools))
+                if not torch.equal(a[1:], p[1:])]
+    check(np.array_equal(replayed, direct), f"{what}: replayed spec passes "
+          f"{replayed[:, :, -1].tolist()} differ from the eager body's "
+          f"{direct[:, :, -1].tolist()}")
+    check(not diff, f"{what}: {len(diff)} of {len(pools)} pools differ "
+          f"between the spec replay and the eager body (first #{diff[:1]};"
+          " page 0 left out)")
+    log(f"[graphs] {what}: {passes} spec passes (k={k}) x {s_} slots, "
+        f"replay == eager body bit for bit (tokens, counts and {len(pools)} "
+        "pools, the draft's included, without scratch page 0)")
+
+
+def phase_tiers_parity(cls, cfg, name, new_tokens=16):
+    """`cls(cfg)` in f32 (depth cut by the caller): the int8-weight
+    engine's streams against `generate()` of a copy of the model holding
+    the engine's `effective_params()`; the spec engine (k=3) against the
+    non-spec engine on both KV tiers with two seeded 1-layer drafts, one
+    tied (it repeats the last token, as the random tied target does: its
+    proposals are accepted) and one untied (rejected); a divergence only
+    at a near-tie (top-2 margin < 1e-3); the int8-weight
+    decode and prefill graphs, the spec graph and the draft's prefill
+    graphs replayed against their eager bodies bit for bit; all tiers
+    composed (int8 weights, int8 KV, spec) twice, bit for bit."""
+    import torch
+
+    from paddle_tpu_torch.inference.engine import (
+        EngineConfig, InferenceEngine,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = cls(cfg, device="cuda", dtype=torch.float32, seed=SEED)
+    drafts = {}
+    for tied in (True, False):
+        dcfg = copy.copy(cfg)
+        dcfg.num_layers, dcfg.tie_embeddings = 1, tied
+        drafts["tied" if tied else "untied"] = cls(
+            dcfg, device="cuda", dtype=torch.float32, seed=SEED + 1)
+    prompts = _prompts(cfg.vocab_size)
+    notes = []
+    # the int8 weight tier against generate() over its weights
+    eng = InferenceEngine(model, EngineConfig(weight_precision="int8"))
+    outs = eng.generate(prompts, max_new_tokens=new_tokens)
+    ref = cls(cfg, device="cuda", dtype=torch.float32, seed=SEED)
+    eff = eng.effective_params()
+    with torch.no_grad():
+        for n, p in ref.named_parameters():
+            p.copy_(eff[n])
+    del eff
+    refs = [ref.generate(p[None], max_new_tokens=new_tokens).cpu().numpy()[0]
+            for p in prompts]
+    same, near = _near_ties(ref, prompts, outs, refs, "int8-weight engine",
+                            "generate() over effective_params()")
+    notes.append(f"int8 weights == generate(effective_params) {same}/"
+                 f"{len(prompts)}, near-ties {near}")
+    what = f"tiers_parity f32 {name} widths int8 weights"
+    _engine_replay_equals_eager(eng, what)
+    _prefill_replay_equals_eager(eng, what)
+    del eng, ref
+    gc.collect()
+    # spec against non-spec, both KV tiers, both drafts
+    for kv in (None, "int8"):
+        base = InferenceEngine(model, EngineConfig(kv_precision=kv)) \
+            .generate(prompts, max_new_tokens=new_tokens)
+        for label, draft in drafts.items():
+            eng = InferenceEngine(model, EngineConfig(kv_precision=kv,
+                                                      spec_tokens=3),
+                                  draft_model=draft)
+            accepted = _acceptance(eng)
+            outs = eng.generate(prompts, max_new_tokens=new_tokens)
+            check(eng.prefix_cache_stats()["hits"] >= 2, "tiers_parity: "
+                  "the spec engine's warm prefills did not run")
+            what = f"spec engine kv {kv or 'full'}, {label} draft"
+            same, near = _near_ties(model, prompts, outs, base, what,
+                                    "the non-spec engine")
+            rate = sum(accepted) / max(1, 3 * len(accepted))
+            notes.append(f"{what} == non-spec {same}/{len(prompts)}, "
+                         f"near-ties {near}, acceptance {rate:.3f}")
+            what = f"tiers_parity f32 {name} widths {what}"
+            _spec_replay_equals_eager(eng, what)
+            _prefill_replay_equals_eager(eng, what)
+            del eng
+            gc.collect()
+    # every tier at once, twice
+    runs = [InferenceEngine(model, EngineConfig(
+        weight_precision="int8", kv_precision="int8", spec_tokens=3),
+        draft_model=drafts["untied"]).generate(prompts,
+                                               max_new_tokens=new_tokens)
+        for _ in range(2)]
+    for a, b in zip(*runs):
+        check(np.array_equal(a, b), "tiers_parity: int8 weights + int8 KV "
+              "+ spec not bit-stable run to run")
+    notes.append("all tiers composed: 2 runs bit-identical")
+    for n in notes:
+        log(f"[tiers_parity] f32 {name} widths {cfg.num_layers}L: {n}")
+
+
+def _teacher_logits(model, ids, toks):
+    """f32 logits [steps, B, V] of the eager per-token decode loop fed
+    `toks` [B, steps] (what the chunk programs compute at each step: the
+    prefill's last row, then each step's)."""
+    import torch
+
+    b, s0 = ids.shape
+    steps = toks.shape[1]
+    with torch.inference_mode():
+        caches = model.init_kv_caches(b, s0 + steps)
+        logits, _ = model(ids, kv_caches=caches, cache_pos=0)
+        out = [logits[:, -1].float()]
+        for i in range(1, steps):
+            logits, _ = model(toks[:, i - 1:i], kv_caches=caches,
+                              cache_pos=s0 + i - 1)
+            out.append(logits[:, -1].float())
+    return torch.stack(out)
+
+
+def _beam_replay_equals_eager(model, what, steps=3):
+    """After a beam call: `steps` beam steps through the graph the call
+    captured and through the eager body from equal copies of the beam
+    state: every state tensor (caches included) bit for bit."""
+    import torch
+
+    from paddle_tpu_torch.models import generation as GEN
+
+    st = GEN._generation(model).beam
+    (eos, lp), graph = next(iter(st.programs.items()))
+    state = [t for c in st.caches for t in c] + [
+        st.tok, st.parent, st.scores, st.lengths, st.fin_norm, st.fin_step,
+        st.fin_beam, st.pos, st.step]
+    with torch.inference_mode():
+        start = [t.clone() for t in state]
+        for _ in range(steps):
+            graph.replay()
+        after = [t.clone() for t in state]
+        for t, s in zip(state, start):
+            t.copy_(s)
+        del start
+        for _ in range(steps):
+            model._beam_step_body(st, eos, lp)
+        torch.cuda.synchronize()
+        diff = [i for i, (a, t) in enumerate(zip(after, state))
+                if not torch.equal(a, t)]
+    check(not diff, f"{what}: {len(diff)} of {len(state)} beam state "
+          f"tensors differ between the replay and the eager body (first "
+          f"#{diff[:1]})")
+    log(f"[graphs] {what}: {steps} beam steps replayed == eager body bit "
+        f"for bit ({len(state)} state tensors)")
+
+
+def _untied(cfg):
+    """`cfg` with an untied LM head: seeded at random, the preset's tied
+    N(0, 1) embedding makes the model repeat its last token (its own
+    logit ~hidden_size above the rest), so sampling and beam search
+    would choose among nothing; an untied head spreads the logits."""
+    out = copy.copy(cfg)
+    out.tie_embeddings = False
+    return out
+
+
+def phase_sample_beam(cfg, name, cut):
+    """Sampling and beam search through `generate()` at the full width of
+    `cfg` with an untied head (`_untied`), bf16:
+    do_sample=True, temperature 0.8, top_k 50, one seed, B4 x 128 + 64
+    tokens twice (the same tokens; tokens/s of the second call), top_k=1
+    against greedy (equal, or different only where the step's logits tie
+    at the top); num_beams=4 at B2 x 128 + 32 (tokens/s), its step graph
+    against the eager body.  At f32 and `cut` depth: every sampled token
+    in the top-50 of its step's teacher-forced logits, ties included, and
+    the card's beams equal to the port's CPU run on the same weights (or
+    a near-tie: the two winners' CPU scores within 1e-3)."""
+    import torch
+
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.ops import kernels as K
+
+    model = GPTForCausalLM(_untied(cfg), device="cuda", dtype=torch.bfloat16,
+                           seed=SEED)
+    rs = np.random.RandomState(SEED + 3)
+    ids = torch.from_numpy(rs.randint(0, cfg.vocab_size, (4, 128)).astype(
+        np.int32)).cuda()
+    kw = dict(do_sample=True, temperature=0.8, top_k=50, seed=SEED + 5)
+    K.reset_launches()
+    outs, walls = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        outs.append(model.generate(ids, max_new_tokens=64, **kw).cpu().numpy())
+        walls.append(time.perf_counter() - t)
+    counts = K.launch_counts()
+    check(np.array_equal(*outs), "sample_beam: one seed gave two streams")
+    check(outs[0].shape == (4, 192) and ((outs[0] >= 0)
+                                         & (outs[0] < cfg.vocab_size)).all(),
+          f"sample_beam: sampled shape {outs[0].shape} or token range")
+    check(counts["decode_attention"] == 2 * 63 * cfg.num_layers,
+          f"sample_beam: decode_attention {counts['decode_attention']} in 2 "
+          "sampled calls of 63 steps")
+    sample_counts = dict(counts)
+    for _ in range(2):            # the second call timed, as the sampled
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        greedy = model.generate(ids, max_new_tokens=64).cpu().numpy()
+        greedy_wall = time.perf_counter() - t
+    one = model.generate(ids, max_new_tokens=64, do_sample=True,
+                         temperature=0.8, top_k=1, seed=SEED).cpu().numpy()
+    ties = []
+    rows = np.flatnonzero((greedy != one).any(axis=1))
+    if rows.size:
+        # each row's logits depend on its own history only: the greedy
+        # stream's, up to the row's first difference
+        logits = _teacher_logits(model, ids,
+                                 torch.from_numpy(greedy[:, 128:]).cuda())
+    for r in rows:
+        t = int(np.flatnonzero(greedy[r] != one[r])[0]) - 128
+        row = logits[t, r]
+        check(row[int(greedy[r, 128 + t])] == row[int(one[r, 128 + t])],
+              f"sample_beam: top_k=1 left greedy at row {r} step {t} "
+              "without a tie at the top")
+        ties.append((int(r), t))
+    K.reset_launches()
+    bids = ids[:2]
+    beams, bwalls = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        beams.append(model.generate(bids, max_new_tokens=32,
+                                    num_beams=4).cpu().numpy())
+        bwalls.append(time.perf_counter() - t)
+    bcounts = K.launch_counts()
+    check(np.array_equal(*beams) and beams[0].shape == (2, 160),
+          "sample_beam: two beam calls differ")
+    check(bcounts["decode_attention"] == 2 * 31 * cfg.num_layers,
+          f"sample_beam: decode_attention {bcounts['decode_attention']} in 2 "
+          "beam calls of 31 steps")
+    _beam_replay_equals_eager(model, f"sample_beam {name} bf16 beam B2 N4")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[sample_beam] {name} untied bf16 sampled T0.8 top_k50 B4 x 128 +64: "
+        f"{4 * 64 / walls[1]:.1f} tokens/s ({1e3 * walls[1]:.1f} ms a call, "
+        f"second call; greedy {4 * 64 / greedy_wall:.1f} tokens/s, "
+        f"{1e3 * greedy_wall:.1f} ms), same seed same tokens; top_k=1 == "
+        f"greedy but at "
+        f"{len(ties)} exact ties {ties}; decode_attention "
+        f"{sample_counts['decode_attention']} in 2 calls")
+    log(f"[sample_beam] {name} untied bf16 beam N4 B2 x 128 +32: "
+        f"{2 * 32 / bwalls[1]:.1f} tokens/s ({1e3 * bwalls[1]:.1f} ms a call,"
+        f" second call); decode_attention {bcounts['decode_attention']} in 2 "
+        "calls")
+    _sample_beam_parity(_untied(cut), name)
+    return {n: sample_counts[n] + bcounts[n] for n in bcounts}
+
+
+def _sample_beam_parity(cfg, name):
+    """f32 at the depth of `cfg`: sampled tokens in their steps' top-50,
+    and beams (with an eos) against the CPU port."""
+    import torch
+
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.float32, seed=SEED)
+    rs = np.random.RandomState(SEED + 4)
+    ids = torch.from_numpy(rs.randint(0, cfg.vocab_size, (4, 128)).astype(
+        np.int32)).cuda()
+    out = model.generate(ids, max_new_tokens=64, do_sample=True,
+                         temperature=0.8, top_k=50, seed=SEED + 6)
+    toks = out[:, 128:]
+    logits = _teacher_logits(model, ids, toks)            # [64, B, V]
+    # the order the filter sees: logits / T, as `_sample` divides
+    logits = logits / torch.full_like(logits, 0.8)
+    kth = torch.sort(logits, dim=-1).values[..., -50]
+    picked = logits.gather(-1, toks.T.long()[..., None])[..., 0]
+    ranks = (logits > picked[..., None]).sum(-1)
+    check(bool((picked >= kth).all()), f"sample_beam: a sampled token "
+          f"outside its step's top-50 (worst rank {int(ranks.max())})")
+    greedy = model.generate(ids[:2], max_new_tokens=8).cpu().numpy()
+    eos = int(greedy[0, 128 + 3])
+    card = model.generate(ids[:2], max_new_tokens=32, num_beams=4,
+                          eos_token_id=eos).cpu().numpy()
+    cpu = GPTForCausalLM(cfg, device="cpu", dtype=torch.float32, seed=SEED)
+    with torch.no_grad():
+        for pc, pg in zip(cpu.parameters(), model.parameters()):
+            pc.copy_(pg)
+    want = cpu.generate(ids[:2].cpu(), max_new_tokens=32, num_beams=4,
+                        eos_token_id=eos).numpy()
+    near = []
+    for r in np.flatnonzero((card != want).any(axis=1)):
+        got_s, want_s = (_beam_score(cpu, seq, 128, eos)
+                         for seq in (card[r], want[r]))
+        check(abs(got_s - want_s) < 1e-3, f"sample_beam: the card's beam "
+              f"winner of row {r} scores {got_s:.6f} on the CPU, the CPU's "
+              f"{want_s:.6f}")
+        near.append((int(r), round(got_s - want_s, 7)))
+    del cpu
+    log(f"[sample_beam] f32 {name} widths {cfg.num_layers}L untied: 64 "
+        f"sampled tokens x 4 rows in their steps' top-50 (worst rank "
+        f"{int(ranks.max())}); beams N4 (eos {eos}) card == CPU for "
+        f"{2 - len(near)}/2 rows, near-ties {near}")
+
+
+def _beam_score(model, seq, s0, eos):
+    """The length-normalised (penalty 1) log-prob of `seq`'s generated
+    tokens under `model` (CPU), up to and with its first eos."""
+    import torch
+
+    gen = seq[s0:]
+    hit = np.flatnonzero(gen == eos)
+    n = int(hit[0]) + 1 if hit.size else gen.size
+    with torch.inference_mode():
+        logp = torch.log_softmax(model(torch.from_numpy(
+            seq[None, :s0 + n - 1]))[0].float(), dim=-1)
+    rows = torch.arange(s0 - 1, s0 + n - 1)
+    return float(logp[rows, torch.from_numpy(gen[:n]).long()].sum()) / n
 
 
 # ----------------------------------------------------------------- phase 7
@@ -4342,38 +5010,53 @@ def main():
         return model
 
     profile = "--profile" in sys.argv[1:]
+    # each driven path's launch counts (reset just before it, read just
+    # after), by phase
+    paths = {}
+
+    def path(name, fn, *a):
+        paths[name] = run(name, fn, *a)
+        return paths[name]
+
     try:
         card, kind = run("device", phase_device)
         run("build", phase_build)
         table = run("kernels", phase_kernels)
         cfg = gpt_1p3b()
+        cut = gpt_1p3b()
+        cut.num_layers = 2          # the preset fixes the depth; cut it
         model = load(GPTForCausalLM, cfg, "gpt_1p3b")
-        paths = [run("serve", phase_serve, model, cfg, "gpt_1p3b"),
-                 run("generate", phase_generate, model, cfg, "gpt_1p3b")]
+        path("serve", phase_serve, model, cfg, "gpt_1p3b")
+        path("generate", phase_generate, model, cfg, "gpt_1p3b")
         release()
-        paths.append(run("http_serve", phase_http_serve, model, cfg,
-                         "gpt_1p3b"))
+        path("sample_beam", phase_sample_beam, cfg, "gpt_1p3b", cut)
+        release()
+        path("spec_serve", phase_spec_serve, model, cfg, "gpt_1p3b")
+        release()
+        path("http_serve", phase_http_serve, model, cfg, "gpt_1p3b")
         if profile:
             run("profile", phase_profile, model, cfg)
             run("profile_prefill", phase_profile_prefill, model, cfg)
         del model
         release()
-        cut = gpt_1p3b()
-        cut.num_layers = 2          # the preset fixes the depth; cut it
         run("parity", phase_parity, GPTForCausalLM, cut, "gpt_1p3b")
+        release()
+        run("tiers_parity", phase_tiers_parity, GPTForCausalLM, cut,
+            "gpt_1p3b")
+        release()
         run("train_parity", phase_train_parity, GPTForCausalLM,
             _gpt125m(2), "GPT-125M", 2, 256, ("flash_fwd", "flash_bwd"))
         train, step, ids, labels = run("train", phase_train, card)
-        paths.append(train)
+        paths["train"] = train
         if profile:
             run("profile_train", phase_profile_train, step, (ids, labels))
         del step
         release()
-        paths.append(run("kv_layout_parity", phase_kv_layout_parity))
+        path("kv_layout_parity", phase_kv_layout_parity)
         release()
         train, step, ids, labels = run("train_kv_layout", phase_train, card,
                                        "kv")
-        paths.append(train)
+        paths["train_kv_layout"] = train
         if profile:
             with _layout("kv"):
                 run("profile_train_kv", phase_profile_train, step,
@@ -4382,14 +5065,15 @@ def main():
         release()
         lcfg = llama_7b()
         model = load(LlamaForCausalLM, lcfg, "llama_7b")
-        paths += [run("llama_serve", phase_serve, model, lcfg, "llama_7b"),
-                  run("llama_serve_int8", phase_serve, model, lcfg,
-                      "llama_7b", "int8"),
-                  run("llama_generate", phase_generate, model, lcfg,
-                      "llama_7b")]
+        path("llama_serve", phase_serve, model, lcfg, "llama_7b")
+        path("llama_serve_int8", phase_serve, model, lcfg, "llama_7b", "int8")
         release()
-        paths.append(run("llama_http_serve", phase_http_serve, model, lcfg,
-                         "llama_7b", False))
+        path("weight_tiers", phase_weight_tiers, model, lcfg, "llama_7b")
+        release()
+        path("llama_generate", phase_generate, model, lcfg, "llama_7b")
+        release()
+        path("llama_http_serve", phase_http_serve, model, lcfg, "llama_7b",
+             False)
         if profile:
             run("llama_profile", phase_profile, model, lcfg)
             run("llama_profile_int8", phase_profile, model, lcfg, 10,
@@ -4403,37 +5087,34 @@ def main():
         run("int8_parity", phase_int8_parity, LlamaForCausalLM,
             llama2_70b_shapes(num_layers=2), "llama2_70b_shapes")
         release()
-        paths.append(run("llama_train_parity", phase_train_parity,
-                         LlamaForCausalLM, llama_7b(num_layers=1),
-                         "llama_7b", 1, 128,
-                         ("flash_fwd", "flash_bwd", "rope", "rope_bwd")))
+        path("llama_train_parity", phase_train_parity, LlamaForCausalLM,
+             llama_7b(num_layers=1), "llama_7b", 1, 128,
+             ("flash_fwd", "flash_bwd", "rope", "rope_bwd"))
         release()
         run("vision_parity", phase_vision_parity)
-        paths.append(run("vision_serve", phase_vision_serve, card,
-                         VISION_BATCH, 10, profile))
+        path("vision_serve", phase_vision_serve, card, VISION_BATCH, 10,
+             profile)
         release()
         run("vision_train_parity", phase_vision_train_parity)
-        paths.append(run("vision_train", phase_vision_train, card, 10,
-                         profile))
+        path("vision_train", phase_vision_train, card, 10, profile)
         release()
-        paths.append(run("varlen", phase_varlen, card))
+        path("varlen", phase_varlen, card)
         run("fused_transformer_parity", phase_fused_transformer_parity)
         release()
-        paths.append(run("fused_transformer_serve",
-                         phase_fused_transformer_serve, card))
+        path("fused_transformer_serve", phase_fused_transformer_serve, card)
         release()
-        paths.append(run("fused_encoder_train", phase_fused_encoder_train,
-                         card))
+        path("fused_encoder_train", phase_fused_encoder_train, card)
         release()
-        paths.append(run("ernie_train", phase_ernie_train, card))
+        path("ernie_train", phase_ernie_train, card)
         release()
-        paths.append(run("fleet", phase_fleet))
+        path("fleet", phase_fleet)
         rows = []
         for name, k in K.KERNELS.items():
             row = table[(name, "bfloat16")]
             errs = [table[(name, d)]["max_abs_err"]
                     for d in ("bfloat16", "float32")]
-            launched = sum(counts[name] for counts in paths)
+            by_path = {p: c[name] for p, c in paths.items() if c[name]}
+            launched = sum(by_path.values())
             check(launched > 0, f"{name} never launched on the main paths")
             rows.append(dict(
                 name=name, route="cuda", source=k.source,
@@ -4441,7 +5122,7 @@ def main():
                 max_abs_err=max(errs), ms=row["ms"],
                 plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                 bound_by=row["bound_by"], library_ms=row["library_ms"],
-                shape=row["case"]))
+                shape=row["case"], paths=by_path))
     except Fail as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

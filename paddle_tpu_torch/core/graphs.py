@@ -42,6 +42,7 @@ consumes a result before the next replay of any graph of the pool.
 """
 from __future__ import annotations
 
+import gc
 import threading
 
 import torch
@@ -111,6 +112,24 @@ def addresses(tensors) -> tuple:
                  if isinstance(t, torch.Tensor) else t for t in tensors)
 
 
+class _CollectorPaused:
+    """Python's cyclic garbage collector off for the duration of a
+    capture.  A collection inside it could free an unreachable owner's
+    CUDA graph (an engine dropped with a reference cycle, say), and
+    destroying a graph is a call that a capture on this thread does not
+    permit: the capture fails.  `torch.cuda.graph` no longer collects on
+    entry.  The collector's earlier state comes back at the end."""
+
+    def __enter__(self):
+        self.was = gc.isenabled()
+        gc.disable()
+
+    def __exit__(self, *exc):
+        if self.was:
+            gc.enable()
+        return False
+
+
 class Graph:
     """`body` captured into one CUDA graph on `stream`, the stream it was
     warmed up on, in the memory pool `pool` (a private pool when None).
@@ -127,8 +146,9 @@ class Graph:
         for gen in generators:
             self.graph.register_generator_state(gen)
         before = K.launch_counts()
-        with torch.cuda.graph(self.graph, pool=pool, stream=stream,
-                              capture_error_mode=CAPTURE_MODE):
+        with _CollectorPaused(), torch.cuda.graph(
+                self.graph, pool=pool, stream=stream,
+                capture_error_mode=CAPTURE_MODE):
             self.outputs = body()
         after = K.launch_counts()
         self.launches = {k: after[k] - before[k] for k in after

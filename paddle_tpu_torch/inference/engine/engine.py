@@ -1,7 +1,8 @@
 """Continuous-batching inference engine over a paged KV cache.
 
-Counterpart of ``paddle_tpu/inference/engine/engine.py`` (the exact
-tier and the int8 KV tier).
+Counterpart of ``paddle_tpu/inference/engine/engine.py``: the exact
+tier, the int8 KV tier, the bf16 and int8 weight tiers and draft-model
+speculative decoding.
 The engine keeps a FIXED batch of `max_slots` sequence slots and
 advances every in-flight sequence `decode_chunk` tokens per step,
 admitting new sequences into freed slots between steps.  Per sequence:
@@ -64,9 +65,35 @@ commit-time exact copy of each page (the "sidecar"), not the int8 pools.
 A page costs one byte per element plus four per scale, so a
 ``pool_hbm_mb`` budget admits about twice the pages of bf16.
 
-Not ported yet (ROADMAP Queue A5): the int8 weight tier
-(`weight_precision`) and draft-model speculative decoding
-(`spec_tokens`); setting either raises NotImplementedError.
+The weight tiers (``weight_precision="int8"`` or ``"bf16"``): at
+construction every 2-D floating weight of a `Linear` (``[in, out]``,
+per-output-channel scales over axis 0) and, when the embedding doubles
+as the LM head, the tied embedding (per-row scales over axis 1) are
+stored as int8 codes with f32 scales (`ops.quant.quantize_channels`),
+or as a bf16 cast.  The caller's model keeps its own weights.  Every
+model call of the engine runs under `nn.weights_in_use`, so each
+weight is dequantized back to its own dtype where it is used, just
+before its matmul or lookup, inside the bodies the graphs capture: a
+graph's pool holds one weight's temporary at a time, never a copy of
+the model.  `effective_params()` returns the weights the engine
+computes with; loaded into the model, plain `generate()` gives the
+engine's streams.
+
+Speculative decoding (``spec_tokens=k`` with ``draft_model=``): the
+draft keeps full-precision pools of its own geometry under either KV
+tier, at the same page ids as the target's (one page table, one
+allocator), and its own prefill programs (labels ``prefill_s{sb}_draft``
+and ``cprefill_s{sb}_p{npp}_draft``: the same bucket into its pools).
+A step is one pass of the spec program (one per (k, KV tier), label
+``spec_k{k}``): the draft takes k + 1 single-token steps at
+``[max_slots, 1]``, then the target scores all k + 1 positions in one
+ragged paged pass of ``max_slots * (k + 1)`` rows, each row at its own
+cache position over its slot's page-table row, and the greedy accept
+runs on the device; the host reads the tokens g and the counts.  Rows at
+or past a slot's limit (prompt + max_new_tokens) go to scratch page 0 at
+position 0, so an overflow row never writes a committed position that a
+row of the same pass attends (every row writes before any row attends).
+The committed stream equals sequential greedy decoding with any draft.
 
 Env knobs (read when the matching ctor arg is None):
   PADDLE_TPU_ENGINE_PAGE_SIZE       tokens per KV page        (16)
@@ -76,6 +103,9 @@ Env knobs (read when the matching ctor arg is None):
   PADDLE_TPU_ENGINE_PREFILL_BUCKET prompt padding granule     (16)
   PADDLE_TPU_ENGINE_MAX_SEQ_LEN    per-sequence token cap     (model's)
   PADDLE_TPU_ENGINE_POOL_HBM_MB    pool byte budget, MiB      (0 = unset)
+  PADDLE_TPU_ENGINE_WEIGHT_PRECISION  int8 / bf16 weight tier  (exact)
+  PADDLE_TPU_ENGINE_KV_PRECISION   int8 KV tier               (exact)
+  PADDLE_TPU_ENGINE_SPEC_TOKENS    draft proposals per pass   (0 = off)
   PADDLE_TPU_ENGINE_PREFIX_CACHE   prefix caching on/off      (1)
   PADDLE_TPU_ENGINE_PREFIX_CACHE_MAX_TOKENS  cache bound      (0=pool)
 """
@@ -94,7 +124,10 @@ import torch
 from ...core import graphs as GR
 from ...core.flags import _env_num
 from ...models import generation as GEN
-from ...ops.quant import quantize_vectors
+from ...nn import Embedding, Linear, weights_in_use
+from ...ops.quant import (
+    dequantize_channels, quantize_channels, quantize_vectors,
+)
 from ...observability import metrics as _metrics
 from ...observability import tenant_ledger as _tledger
 from ...observability import trace as _trace
@@ -107,10 +140,6 @@ __all__ = ["EngineConfig", "InferenceEngine", "RequestHandle"]
 
 # completed-request timelines retained for request_debug()
 _TIMELINE_LRU = 128
-
-_NOT_PORTED = ("is not ported to paddle_tpu_torch yet (ROADMAP Queue A5: "
-               "int8 weights, speculative decode)")
-
 
 def _precision_knob(explicit, env, valid):
     raw = explicit if explicit is not None else os.environ.get(env, "")
@@ -240,6 +269,30 @@ class RequestHandle:
         return self._seq.cache_state or "miss"
 
 
+def _matmul_weights(model) -> dict:
+    """``{name: (weight, contraction axis)}`` of the weights the weight
+    tiers store narrow (JAX `_matmul_weight_names`): every 2-D floating
+    `Linear` weight (``[in, out]``: axis 0), and the embedding when the
+    model ties it to the LM head (``x @ w.T``: its output channels are
+    vocab rows, so axis 1; the lookup dequantizes the same rows with the
+    same scales)."""
+    cfg = getattr(model, "cfg", None)
+    vocab = int(getattr(cfg, "vocab_size", 0))
+    tied = bool(getattr(cfg, "tie_embeddings", False))
+    out = {}
+    for prefix, layer in model.named_modules():
+        w = getattr(layer, "weight", None)
+        if not isinstance(w, torch.Tensor) or w.dim() != 2 \
+                or not w.is_floating_point():
+            continue
+        name = f"{prefix}.weight" if prefix else "weight"
+        if isinstance(layer, Linear):
+            out[name] = (w, 0)
+        elif tied and isinstance(layer, Embedding) and w.shape[0] == vocab:
+            out[name] = (w, 1)
+    return out
+
+
 class _DecodeProgram:
     """The static int32 device buffers of a decode program: tok
     [max_slots], pt [max_slots, max_pages_per_seq] and lengths
@@ -261,10 +314,12 @@ class _PrefillProgram:
     """The static device buffers of a prefill program at bucket sb (and,
     warm, prefix bucket npp): ids [1, sb] int32, start [1] int32 (the
     pad length) and pages [npb] int64 in, and for the warm program plen
-    (0-dim int32) and on the exact tier prefix_pages [npp] int64; tok
+    (0-dim int32) and, where the prefix is read from pools (the exact
+    tier, or any tier with a draft model), prefix_pages [npp] int64; tok
     [1] int32 out.  On a CUDA device `graph` replays the prefill and its
-    pack over them and `bound` is what it holds of the pools and the
-    staging buffers.  It keeps no reference to the engine."""
+    pack over them (`dgraph` the draft's) and `bound` is what they hold
+    of the pools and the staging buffers.  It keeps no reference to the
+    engine."""
 
     def __init__(self, sb, npp, npb, exact, device):
         def buf(*shape, dtype=torch.int32):
@@ -278,6 +333,25 @@ class _PrefillProgram:
             self.plen = buf()
             if exact:
                 self.prefix_pages = buf(npp, dtype=torch.long)
+        # the target's graph and the draft's (speculative decoding)
+        self.graph = self.dgraph = self.bound = None
+
+
+class _SpecProgram:
+    """The static int32 device buffers of the spec program of k
+    proposals: tok, lengths and limits [max_slots] and pt [max_slots,
+    max_pages_per_seq] in, the target's tokens g [max_slots, k + 1] and
+    the committed counts [max_slots] out; on a CUDA device its graph and
+    what it holds of the pools."""
+
+    def __init__(self, slots, pages, k, device):
+        def buf(*shape):
+            return torch.zeros(shape, dtype=torch.int32, device=device)
+
+        self.k = k
+        self.tok, self.pt = buf(slots), buf(slots, pages)
+        self.lengths, self.limits = buf(slots), buf(slots)
+        self.g, self.counts = buf(slots, k + 1), buf(slots)
         self.graph = self.bound = None
 
 
@@ -295,13 +369,6 @@ class InferenceEngine:
             else EngineConfig()
         cfg = self.config
         self._quant = cfg.kv_precision == "int8"
-        if cfg.weight_precision is not None:
-            raise NotImplementedError(
-                f"EngineConfig.weight_precision={cfg.weight_precision!r} "
-                + _NOT_PORTED)
-        if cfg.spec_tokens > 0 or draft_model is not None:
-            raise NotImplementedError("speculative decoding (spec_tokens/"
-                                      "draft_model) " + _NOT_PORTED)
         self._model = model
         model.eval()
         self._device = model.device
@@ -314,6 +381,23 @@ class InferenceEngine:
         if cfg.max_seq_len <= 0:
             cfg.max_seq_len = int(getattr(model.cfg, "max_seq_len", 0)) \
                 or 2048
+        # {weight: (stored, scales or None, dtype)}, `weights_in_use`'s map
+        self._wq = {}
+        self._wq_names = {}
+        if cfg.weight_precision is not None:
+            self._quantize_weights()
+        self._draft = None
+        if cfg.spec_tokens > 0:
+            if draft_model is None:
+                raise ValueError(
+                    "spec_tokens > 0 needs a draft_model at engine "
+                    "construction")
+            self._init_draft(draft_model)
+        elif draft_model is not None:
+            raise ValueError(
+                "draft_model given but config.spec_tokens == 0 — set "
+                "spec_tokens (or PADDLE_TPU_ENGINE_SPEC_TOKENS) to the "
+                "draft proposal length")
         self.max_pages_per_seq = -(-cfg.max_seq_len // cfg.page_size)
         if cfg.num_pages <= 0:
             if cfg.pool_hbm_mb > 0:
@@ -384,7 +468,10 @@ class InferenceEngine:
                 self._stage_v = [torch.zeros(stage, dtype=self._dtype,
                                              device=self._device)
                                  for _ in range(self._layers)]
+            if self._draft is not None:
+                self._init_draft_pools()
         self._programs = {}        # (n, kv tier) -> _DecodeProgram
+        self._specs = {}           # (k, kv tier) -> _SpecProgram
         self._prefills = {}        # (sb, npp, kv tier) -> _PrefillProgram
         self._mempool = None       # the graphs' shared memory pool
         self._handles = {}         # request_id -> RequestHandle
@@ -398,47 +485,135 @@ class InferenceEngine:
         # launch counts are checked against these from outside it)
         self.prefill_count = 0
         self.decode_steps = 0
-        _metrics.set_gauge("engine.weight_precision", 1, precision="full")
+        self.spec_passes = 0
+        _metrics.set_gauge("engine.weight_precision", 1,
+                           precision=cfg.weight_precision or "full")
         _metrics.set_gauge("paged.pool_precision", 1,
                            precision=cfg.kv_precision or "full")
-        _metrics.set_gauge("engine.spec_tokens", 0)
+        _metrics.set_gauge("engine.spec_tokens", cfg.spec_tokens)
 
     def _page_bytes(self) -> int:
         """Device bytes ONE page costs across all layers (K + V pools,
-        plus the scale tables under the int8 KV tier) — the unit the
-        ``pool_hbm_mb`` budget divides."""
+        plus the scale tables under the int8 KV tier, plus the draft's
+        pools) — the unit the ``pool_hbm_mb`` budget divides."""
         if self._quant:
             item, scale_item = 1, 4
         else:
             item = torch.empty((), dtype=self._dtype).element_size()
             scale_item = 0
-        slots = self._hkv * self.config.page_size
+        ps = self.config.page_size
+        slots = self._hkv * ps
         per_pool = slots * self._hd * item + slots * scale_item
-        return max(1, self._layers * 2 * per_pool)
+        total = self._layers * 2 * per_pool
+        if self._draft is not None:
+            d = self._draft
+            total += d["layers"] * 2 * d["hkv"] * ps * d["hd"] * torch.empty(
+                (), dtype=d["dtype"]).element_size()
+        return max(1, total)
+
+    # --- weight tiers and the draft (built once, at construction) -----------
+    def _quantize_weights(self) -> None:
+        """Store every weight of `_matmul_weights` narrow: int8 codes and
+        f32 per-channel scales, or a bf16 cast (JAX `_quantize_weights`).
+        The model's own weights stay as they are."""
+        prec = self.config.weight_precision
+        with torch.inference_mode():
+            for name, (w, axis) in _matmul_weights(self._model).items():
+                if prec == "int8":
+                    q, scales = quantize_channels(w, axis=axis)
+                else:
+                    q, scales = w.to(torch.bfloat16), None
+                self._wq[w] = (q, scales, w.dtype)
+                self._wq_names[name] = w
+
+    def effective_params(self) -> dict:
+        """``{name: tensor}`` of every parameter of the model as the
+        engine computes with it: the stored weights dequantized, the rest
+        the model's own.  Loaded into the model (`load_reference_state`),
+        plain `generate()` gives the engine's streams."""
+        with torch.inference_mode():
+            out = {name: p.detach()
+                   for name, p in self._model.named_parameters()}
+            for name, w in self._wq_names.items():
+                q, scales, dtype = self._wq[w]
+                out[name] = q.to(dtype) if scales is None \
+                    else dequantize_channels(q, scales, dtype)
+        return out
+
+    def _init_draft(self, draft_model) -> None:
+        draft_model.eval()
+        with torch.inference_mode():
+            probe = draft_model.init_kv_caches(1, 1)
+        tv = int(getattr(getattr(self._model, "cfg", None), "vocab_size", 0))
+        dv = int(getattr(getattr(draft_model, "cfg", None), "vocab_size", 0))
+        if tv and dv and tv != dv:
+            raise ValueError(
+                f"draft vocab_size {dv} != target vocab_size {tv} — "
+                f"proposals would index a different token space")
+        self._draft = {
+            "model": draft_model,
+            "layers": len(probe),
+            "hkv": probe[0][0].shape[1],
+            "hd": probe[0][0].shape[3],
+            "dtype": probe[0][0].dtype,
+        }
+
+    def _init_draft_pools(self) -> None:
+        """The draft's pools: the target's page ids, its own geometry, its
+        own dtype under either KV tier (the draft is small)."""
+        d, cfg = self._draft, self.config
+        shape = (cfg.num_pages, d["hkv"], cfg.page_size, d["hd"])
+        for key in ("k_pools", "v_pools"):
+            d[key] = [torch.zeros(shape, dtype=d["dtype"],
+                                  device=self._device)
+                      for _ in range(d["layers"])]
+
+    def _forward(self, draft, *args, **kwargs):
+        """One call of the target model (under its stored weights) or of
+        the draft."""
+        if draft:
+            return self._draft["model"](*args, **kwargs)
+        with weights_in_use(self._wq):
+            return self._model(*args, **kwargs)
+
+    def _sides(self) -> tuple:
+        """The `draft` flags of the models a prefill runs: the target,
+        then the draft when there is one."""
+        return (False, True) if self._draft is not None else (False,)
+
+    def _geometry(self, draft):
+        """(layers, kv heads, head dim, dtype) of the target or the
+        draft."""
+        if draft:
+            d = self._draft
+            return d["layers"], d["hkv"], d["hd"], d["dtype"]
+        return self._layers, self._hkv, self._hd, self._dtype
 
     def _tensor(self, a, dtype=torch.int32):
         return torch.as_tensor(np.asarray(a), dtype=dtype).to(
             self._device, non_blocking=True)
 
     # --- model steps (counterparts of the JAX engine's jitted programs) -----
-    def _dense_prefill(self, sb: int, ids, start):
+    def _dense_prefill(self, sb: int, ids, start, draft=False):
         """`_prefill_program`'s forward on device inputs: ids [1, sb]
         int32, start [1] int32.  Returns (greedy first token [1] int32,
         dense K bufs, dense V bufs); the dense capacity is sb + page_size
-        so the pack's last page slice never runs past the buffer."""
+        so the pack's last page slice never runs past the buffer.  The
+        target's, or with `draft` the draft's."""
+        layers, hkv, hd, dtype = self._geometry(draft)
         cap = sb + self.config.page_size
-        caches = [(torch.zeros(1, self._hkv, cap, self._hd,
-                               dtype=self._dtype, device=self._device),
-                   torch.zeros(1, self._hkv, cap, self._hd,
-                               dtype=self._dtype, device=self._device))
-                  for _ in range(self._layers)]
-        logits, new = self._model(ids, kv_caches=caches, cache_pos=0,
-                                  attn_start=start)
+        caches = [(torch.zeros(1, hkv, cap, hd, dtype=dtype,
+                               device=self._device),
+                   torch.zeros(1, hkv, cap, hd, dtype=dtype,
+                               device=self._device))
+                  for _ in range(layers)]
+        logits, new = self._forward(draft, ids, kv_caches=caches,
+                                    cache_pos=0, attn_start=start)
         tok = logits[:, -1].float().argmax(-1).to(torch.int32)
         return tok, [c[0] for c in new], [c[1] for c in new]
 
     def _dense_cached_prefill(self, sb: int, npp: int, ids, start, plen,
-                              prefix_k, prefix_v):
+                              prefix_k, prefix_v, draft=False):
         """`_cached_prefill_program`'s forward: the cached prefix, per
         layer [npp, Hkv, page_size, D] pages (`prefix_k`, `prefix_v`),
         lays out as a dense buffer at [0, npp * page_size), of which the
@@ -446,25 +621,26 @@ class InferenceEngine:
         the tail (left-padded to bucket sb) writes at npp * page_size
         under `warm_prefill_guard`, so each tail query attends the real
         prefix + causal tail.  Returns as `_dense_prefill`."""
+        layers, hkv, hd, dtype = self._geometry(draft)
         ps = self.config.page_size
         pcap = npp * ps
 
         def dense(pages):
-            g = pages.transpose(0, 1).reshape(self._hkv, pcap, self._hd)
+            g = pages.transpose(0, 1).reshape(hkv, pcap, hd)
             return torch.cat(
-                [g[None].to(self._dtype),
-                 torch.zeros(1, self._hkv, sb + ps, self._hd,
-                             dtype=self._dtype, device=self._device)], dim=2)
+                [g[None].to(dtype),
+                 torch.zeros(1, hkv, sb + ps, hd, dtype=dtype,
+                             device=self._device)], dim=2)
 
         caches = [(dense(prefix_k[li]), dense(prefix_v[li]))
-                  for li in range(self._layers)]
+                  for li in range(layers)]
         with GEN.warm_prefill_guard(pcap):
-            logits, new = self._model(ids, kv_caches=caches, cache_pos=plen,
-                                      attn_start=start)
+            logits, new = self._forward(draft, ids, kv_caches=caches,
+                                        cache_pos=plen, attn_start=start)
         tok = logits[:, -1].float().argmax(-1).to(torch.int32)
         return tok, [c[0] for c in new], [c[1] for c in new]
 
-    def _pack_pages(self, kbufs, vbufs, pages, offset) -> None:
+    def _pack_pages(self, kbufs, vbufs, pages, offset, draft=False) -> None:
         """`_pack_program` on device inputs: copy page-size chunks of the
         dense buffers, from offset[0] + i * page_size, into pages[i] (in
         place) for every i, scratch entries included (page 0 takes their
@@ -475,23 +651,30 @@ class InferenceEngine:
         [Hkv, page_size, D] chunk quantizes per vector, the codec of the
         decode write, so the packed pages equal what token-by-token
         writes would have stored; with prefix caching the exact chunks
-        also land in the staging buffers, chunk i in row i."""
+        also land in the staging buffers, chunk i in row i.  With `draft`
+        the draft's buffers into its own (exact) pools."""
+        _, hkv, hd, _ = self._geometry(draft)
         ps = self.config.page_size
         cap = kbufs[0].shape[2]
         npb = pages.shape[0]
         ar = torch.arange(max(npb, ps), device=self._device)
         lows = torch.clamp(offset.long() + ps * ar[:npb], max=cap - ps)
         idx = (lows[:, None] + ar[None, :ps]).reshape(-1)
-        for pools, scales, bufs, stage in (
-                (self._k_pools, self._k_scales, kbufs, self._stage_k),
-                (self._v_pools, self._v_scales, vbufs, self._stage_v)):
+        if draft:
+            d = self._draft
+            sides = ((d["k_pools"], None, kbufs, None),
+                     (d["v_pools"], None, vbufs, None))
+        else:
+            sides = ((self._k_pools, self._k_scales, kbufs, self._stage_k),
+                     (self._v_pools, self._v_scales, vbufs, self._stage_v))
+        for pools, scales, bufs, stage in sides:
             for li, (pool, buf) in enumerate(zip(pools, bufs)):
                 chunk = buf[0].index_select(1, idx)          # [hkv, n*ps, d]
-                chunk = chunk.reshape(self._hkv, npb, ps, self._hd) \
+                chunk = chunk.reshape(hkv, npb, ps, hd) \
                     .transpose(0, 1)                         # [n, hkv, ps, d]
                 if stage is not None:
                     stage[li][:npb].copy_(chunk)
-                if self._quant:
+                if scales is not None:
                     pool[pages], scales[li][pages] = quantize_vectors(chunk)
                 else:
                     pool[pages] = chunk.to(pool.dtype)
@@ -520,17 +703,24 @@ class InferenceEngine:
             self._tensor(plen), prefix_k, prefix_v)
         return int(tok[0]), kbufs, vbufs
 
-    def _prefill_body(self, prog) -> None:
+    def _prefill_body(self, prog, draft=False) -> None:
         """The body of a prefill program: the cold or warm prefill of
         `prog`'s static inputs, its first token into prog.tok, and the
         pack of its span's pages.  The warm program's prefix comes from
-        the pools (exact tier) or the staging buffers (int8 tier)."""
+        the pools (exact tier) or the staging buffers (int8 tier).  With
+        `draft` the draft's prefill of the same inputs into its own pools
+        (its prefix always from them); its token is not used."""
         if prog.npp is None:
             tok, kbufs, vbufs = self._dense_prefill(prog.sb, prog.ids,
-                                                    prog.start)
+                                                    prog.start, draft)
             offset = prog.start
         else:
-            if self._quant:
+            if draft:
+                prefix_k = [pool[prog.prefix_pages]
+                            for pool in self._draft["k_pools"]]
+                prefix_v = [pool[prog.prefix_pages]
+                            for pool in self._draft["v_pools"]]
+            elif self._quant:
                 prefix_k = [st[:prog.npp] for st in self._stage_k]
                 prefix_v = [st[:prog.npp] for st in self._stage_v]
             else:
@@ -538,10 +728,17 @@ class InferenceEngine:
                 prefix_v = [pool[prog.prefix_pages] for pool in self._v_pools]
             tok, kbufs, vbufs = self._dense_cached_prefill(
                 prog.sb, prog.npp, prog.ids, prog.start, prog.plen,
-                prefix_k, prefix_v)
+                prefix_k, prefix_v, draft)
             offset = prog.start + prog.npp * self.config.page_size
-        self._pack_pages(kbufs, vbufs, prog.pages, offset)
-        prog.tok.copy_(tok)
+        self._pack_pages(kbufs, vbufs, prog.pages, offset, draft)
+        if not draft:
+            prog.tok.copy_(tok)
+
+    def _prefill_body_all(self, prog) -> None:
+        """The eager run of a prefill: the target's body, then the
+        draft's."""
+        for draft in self._sides():
+            self._prefill_body(prog, draft)
 
     def _prefill_tensors(self) -> list:
         """The pools, scale tables and staging buffers a prefill graph
@@ -557,9 +754,10 @@ class InferenceEngine:
         then."""
         key = (sb, npp, self.config.kv_precision)
         if key not in self._prefills:
+            # the draft's warm prefill reads its prefix from its pools
             self._prefills[key] = _PrefillProgram(
-                sb, npp, -(-sb // self.config.page_size), not self._quant,
-                self._device)
+                sb, npp, -(-sb // self.config.page_size),
+                not self._quant or self._draft is not None, self._device)
         return self._prefills[key]
 
     def _graph_pool(self):
@@ -568,29 +766,35 @@ class InferenceEngine:
             self._mempool = torch.cuda.graph_pool_handle()
         return self._mempool
 
-    def _capture_prefill(self, prog) -> None:
+    def _capture_prefill(self, prog, draft=False) -> None:
         """Run the body eagerly on the capture stream over the inputs
         loaded into `prog` (the first prefill of the program: a real
         one, whose results it leaves in the pools, the staging buffers
-        and prog.tok), then capture it into the program's graph, timed
-        under the JAX label of the prefill (`_prefill_label`).  A failure
-        raises."""
-        body = functools.partial(self._prefill_body, prog)
+        and prog.tok), then capture it into the program's graph (with
+        `draft`, the draft's graph), timed under the JAX label of the
+        prefill (`_prefill_label`).  A failure raises."""
+        body = functools.partial(self._prefill_body, prog, draft)
         stream = GR.capture_stream(self._device)
-        _, prog.graph = GR.capture(body, stream, self._prefill_label(prog),
-                                   pool=self._graph_pool())
+        _, graph = GR.capture(body, stream, self._prefill_label(prog, draft),
+                              pool=self._graph_pool())
+        if draft:
+            prog.dgraph = graph
+        else:
+            prog.graph = graph
         prog.bound = GR.addresses(self._prefill_tensors())
 
-    def _prefill_label(self, prog) -> str:
+    def _prefill_label(self, prog, draft=False) -> str:
         """The label of the JAX program whose role `prog`'s graph takes:
         ``prefill_s{sb}`` (cold) or ``cprefill_s{sb}_p{npp}`` (warm;
-        ``_q`` on the int8 tier).  One graph holds the prefill and its
-        pack, two programs in the JAX package, and takes the prefill's
-        label."""
+        ``_q`` on the int8 tier), ``_draft`` appended for the draft's.
+        One graph holds the prefill and its pack, two programs in the
+        JAX package, and takes the prefill's label."""
         if prog.npp is None:
-            return f"prefill_s{prog.sb}"
-        return f"cprefill_s{prog.sb}_p{prog.npp}" + (
-            "_q" if self._quant else "")
+            label = f"prefill_s{prog.sb}"
+        else:
+            label = f"cprefill_s{prog.sb}_p{prog.npp}" + (
+                "_q" if self._quant and not draft else "")
+        return label + ("_draft" if draft else "")
 
     def _run_prefill_program(self, prog, ids, start: int, pages, plen=0,
                              prefix_pages=None) -> int:
@@ -600,7 +804,7 @@ class InferenceEngine:
         first token."""
         self._load_prefill(prog, ids, start, pages, plen, prefix_pages)
         if self._device.type == "cpu":
-            self._prefill_body(prog)
+            self._prefill_body_all(prog)
         else:
             self._replay_prefill(prog)
         return int(prog.tok[0])
@@ -618,18 +822,34 @@ class InferenceEngine:
 
     def _replay_prefill(self, prog) -> None:
         """The CUDA path of `_run_prefill_program`: the program's graph
-        replayed, or at its first prefill the body run and captured.  A
-        warm-up on made-up inputs would write the staging rows the warm
-        int8 program reads its prefix from, so the first run is the
-        real one, as a train step's first step is."""
+        replayed (then the draft's), or at its first prefill the body run
+        and captured.  A warm-up on made-up inputs would write the
+        staging rows the warm int8 program reads its prefix from, so the
+        first run is the real one, as a train step's first step is."""
         if prog.graph is None:
-            self._capture_prefill(prog)
+            for draft in self._sides():
+                self._capture_prefill(prog, draft)
             return
         if GR.addresses(self._prefill_tensors()) != prog.bound:
             raise RuntimeError(
                 "the engine's page pools were rebound after a prefill "
                 "graph captured them; pools must be updated in place")
         prog.graph.replay()
+        if self._draft is not None:
+            prog.dgraph.replay()
+
+    def _caches(self, pt, draft=False) -> list:
+        """The per-layer paged caches over page table pt: 5-tuples with
+        the scale tables under the int8 KV tier, else 3-tuples (the
+        draft's always)."""
+        if draft:
+            return [(k, v, pt) for k, v in zip(self._draft["k_pools"],
+                                               self._draft["v_pools"])]
+        if self._quant:
+            return [(k, v, pt, ks, vs) for k, v, ks, vs in zip(
+                self._k_pools, self._v_pools, self._k_scales,
+                self._v_scales)]
+        return [(k, v, pt) for k, v in zip(self._k_pools, self._v_pools)]
 
     def _decode_body(self, n: int, tok, pt, lengths, toks):
         """The body of `_decode_program`: n ragged decode steps at the
@@ -637,25 +857,22 @@ class InferenceEngine:
         [max_slots] over page table pt, each step's greedy tokens
         written into toks [max_slots, n] (all int32, on the device).  The
         pools (and scale tables) update in place."""
-        if self._quant:
-            caches = [(k, v, pt, ks, vs) for k, v, ks, vs in zip(
-                self._k_pools, self._v_pools, self._k_scales,
-                self._v_scales)]
-        else:
-            caches = [(k, v, pt)
-                      for k, v in zip(self._k_pools, self._v_pools)]
+        caches = self._caches(pt)
         for j in range(n):
-            logits, _ = self._model(tok[:, None], kv_caches=caches,
-                                    cache_pos=lengths)
+            logits, _ = self._forward(False, tok[:, None], kv_caches=caches,
+                                      cache_pos=lengths)
             tok = logits[:, -1].float().argmax(-1).to(torch.int32)
             toks[:, j] = tok
             lengths = lengths + 1
         return toks
 
     def _pool_tensors(self) -> list:
-        """The pools and scale tables a decode graph writes."""
+        """The pools and scale tables the engine's graphs write (the
+        draft's pools last)."""
         return self._k_pools + self._v_pools + (
-            self._k_scales + self._v_scales if self._quant else [])
+            self._k_scales + self._v_scales if self._quant else []) + (
+            self._draft["k_pools"] + self._draft["v_pools"]
+            if self._draft is not None else [])
 
     def _decode_program(self, n: int) -> "_DecodeProgram":
         """`_decode_program`: the static buffers of n decode steps, and
@@ -700,11 +917,95 @@ class InferenceEngine:
         return prog.toks.to("cpu", copy=True).numpy()
 
     def _replay_decode(self, prog) -> None:
+        """Replay a decode or spec program's graph, which holds the
+        pools' addresses."""
         if GR.addresses(self._pool_tensors()) != prog.bound:
             raise RuntimeError(
                 "the engine's page pools were rebound after the decode "
                 "graph captured them; pools must be updated in place")
         prog.graph.replay()
+
+    def _spec_body(self, prog) -> None:
+        """The body of the spec program (JAX `_spec_program`): one pass
+        of k = prog.k proposals at the fixed [max_slots] batch from
+        prog's tok, lengths, limits and page table.  The draft takes
+        k + 1 single-token steps (the last writes the last proposal's K/V,
+        so a fully accepted pass leaves its cache complete); the target
+        then scores the k + 1 positions of every slot in one ragged paged
+        pass of max_slots * (k + 1) rows, row (s, i) at position
+        lengths[s] + i over slot s's page-table row.  A row at or past
+        limits[s] goes to scratch page 0 at position 0: unmasked, its
+        page lookup would hit a live page and its write a committed
+        position that the pass's valid rows attend (all rows write before
+        any row attends).  Writes the target's tokens into prog.g and
+        1 + the accepted prefix (proposal i kept while it equals the
+        target's token i) into prog.counts."""
+        k, n = prog.k, prog.k + 1
+        tok, pt, lengths, limits = prog.tok, prog.pt, prog.lengths, \
+            prog.limits
+        cur, pos, props = tok, lengths, []
+        for _ in range(n):
+            ok = pos < limits
+            logits, _ = self._forward(
+                True, cur[:, None],
+                kv_caches=self._caches(torch.where(ok[:, None], pt, 0),
+                                       draft=True),
+                cache_pos=torch.where(ok, pos, 0))
+            cur = logits[:, -1].float().argmax(-1).to(torch.int32)
+            props.append(cur)
+            pos = pos + 1
+        props = torch.stack(props[:k], dim=1)                    # [S, k]
+        ids = torch.cat([tok[:, None], props], dim=1).reshape(-1, 1)
+        steps = torch.arange(n, dtype=torch.int32, device=tok.device)
+        pos_f = (lengths[:, None] + steps[None, :]).reshape(-1)
+        ok_f = pos_f < limits.repeat_interleave(n)
+        pt_f = torch.where(ok_f[:, None], pt.repeat_interleave(n, dim=0), 0)
+        logits, _ = self._forward(False, ids, kv_caches=self._caches(pt_f),
+                                  cache_pos=torch.where(ok_f, pos_f, 0))
+        g = logits[:, -1].float().argmax(-1).to(torch.int32).reshape(-1, n)
+        match = (props == g[:, :k]).to(torch.int32)
+        prog.g.copy_(g)
+        prog.counts.copy_(match.cumprod(dim=1).sum(dim=1) + 1)
+
+    def _spec_program(self, k: int) -> "_SpecProgram":
+        """`_spec_program`: the static buffers of a pass of k proposals,
+        and on a CUDA device its graph, built at the first pass of the
+        key (k, KV tier).  The graph's warm-up runs on the zero buffers:
+        every limit 0, so every row goes to scratch page 0."""
+        key = (k, self.config.kv_precision)
+        prog = self._specs.get(key)
+        if prog is None:
+            prog = _SpecProgram(self.config.max_slots,
+                                self.max_pages_per_seq, k, self._device)
+            if self._device.type == "cuda":
+                self._capture_spec(prog)
+            self._specs[key] = prog
+        return prog
+
+    def _capture_spec(self, prog) -> None:
+        """Warm the spec body up on the program's zero buffers, then
+        capture it, timed as ``spec_k{k}``.  A failure raises."""
+        body = functools.partial(self._spec_body, prog)
+        stream = GR.capture_stream(self._device)
+        _, prog.graph = GR.capture(body, stream, f"spec_k{prog.k}",
+                                   pool=self._graph_pool())
+        prog.bound = GR.addresses(self._pool_tensors())
+
+    def _run_spec(self, k: int, tok, pt, lengths, limits):
+        """One spec pass from host arrays (int32: tok, lengths, limits
+        [max_slots], pt [max_slots, max_pages_per_seq]).  Returns the
+        target's tokens [max_slots, k + 1] and the counts [max_slots] as
+        host arrays."""
+        prog = self._spec_program(k)
+        for dst, src in ((prog.tok, tok), (prog.pt, pt),
+                         (prog.lengths, lengths), (prog.limits, limits)):
+            dst.copy_(torch.from_numpy(src), non_blocking=True)
+        if self._device.type == "cpu":
+            self._spec_body(prog)
+        else:
+            self._replay_decode(prog)
+        return (prog.g.to("cpu", copy=True).numpy(),
+                prog.counts.to("cpu", copy=True).numpy())
 
     # --- intake -------------------------------------------------------------
     def submit(self, input_ids, max_new_tokens=32, eos_token_id=None,
@@ -781,8 +1082,12 @@ class InferenceEngine:
         ragged decode chunk -> deliver.  Returns True when any work
         happened."""
         with self._lock, torch.inference_mode():
+            # a spec pass writes up to spec_tokens + 1 positions: the
+            # scheduler provisions pages for the whole pass
+            chunk = (self.config.spec_tokens + 1 if self._draft is not None
+                     else self.config.decode_chunk)
             with _trace.span("engine.schedule", cat="engine"):
-                out = self.scheduler.schedule(self.config.decode_chunk)
+                out = self.scheduler.schedule(chunk)
             for seq in out.evicted:
                 _metrics.inc("engine.sequences", event="evicted")
             for seq in out.finished:
@@ -796,7 +1101,10 @@ class InferenceEngine:
             running = [s for s in out.running
                        if not s.done and s.slot is not None]
             if running:
-                self._decode(running)
+                if self._draft is not None:
+                    self._spec_decode(running)
+                else:
+                    self._decode(running)
                 did = True
             # free completed sequences' slots/pages NOW: a drained
             # engine must hold zero pages
@@ -889,7 +1197,8 @@ class InferenceEngine:
         prefix_pages = None
         if self._quant:
             self._sidecar_prefix(seq, npa)
-        else:
+        if not self._quant or self._draft is not None:
+            # the exact target's prefix, and the draft's, in the pools
             prefix_pages = np.zeros((npp,), np.int32)
             prefix_pages[:npa] = seq.pages[:npa]
         # tail page i takes tail tokens [i * ps, (i + 1) * ps)
@@ -975,6 +1284,42 @@ class InferenceEngine:
                 seq.last_token = int(row[n - 1])
         self._bill_decode_slots(running, t_step)
 
+    def _spec_decode(self, running) -> None:
+        """One spec pass over the running sequences: each commits the
+        target's tokens g[:count] (stopping at an eos inside them)."""
+        self.spec_passes += 1
+        cfg = self.config
+        k = cfg.spec_tokens
+        t_step = time.perf_counter()
+        tok, pt, lengths = self._batch_arrays(running)
+        # each slot's lifetime cap in cache positions; free slots keep 0,
+        # so every row of theirs is masked
+        limits = np.zeros((cfg.max_slots,), np.int32)
+        for seq in running:
+            limits[seq.slot] = seq.prompt.size + seq.max_new_tokens
+        with _trace.span("engine.decode", cat="engine", batch=len(running),
+                         chunk=k + 1, spec=True,
+                         occupancy=len(running) / cfg.max_slots):
+            g, counts = self._run_spec(k, tok, pt, lengths, limits)
+        with _trace.span("engine.detokenize", cat="engine",
+                         batch=len(running), chunk=k + 1):
+            for seq in running:
+                row, cnt = g[seq.slot], int(counts[seq.slot])
+                # cnt - 1 proposals accepted, the rest of the k rejected
+                # (their cache slots are rewritten before anything
+                # attends them)
+                _metrics.inc("engine.spec_decode", cnt - 1,
+                             result="accepted")
+                _metrics.inc("engine.spec_decode", k - (cnt - 1),
+                             result="rejected")
+                for j in range(cnt):
+                    if seq.done:
+                        break  # mid-pass finish (eos): the rest is not output
+                    self._accept(seq, int(row[j]))
+                seq.length += cnt
+                seq.last_token = int(row[cnt - 1])
+        self._bill_decode_slots(running, t_step)
+
     def _bill_decode_slots(self, running, t_step) -> None:
         """Decode-slot occupancy billing: every sequence in the pass
         occupied one batch slot for the step's wall time."""
@@ -1048,9 +1393,8 @@ class InferenceEngine:
                 pressure=round(self.pool.utilization(), 4))
             # ascending-dst order is overwrite-safe: src > dst always,
             # and every src exceeds all earlier dsts
-            tables = self._k_pools + self._v_pools
-            if self._quant:
-                tables += self._k_scales + self._v_scales
+            # the draft's pools move with the target's
+            tables = self._pool_tensors()
             for src, dst in sorted(moves.items(), key=lambda kv: kv[1]):
                 for p in tables:
                     p[dst] = p[src]
@@ -1187,9 +1531,9 @@ class InferenceEngine:
     def stats(self) -> dict:
         st = self.scheduler.stats()
         st["pages"] = self.pool.stats()
-        st["weight_precision"] = "full"
+        st["weight_precision"] = self.config.weight_precision or "full"
         st["kv_precision"] = self.config.kv_precision or "full"
-        st["spec_tokens"] = 0
+        st["spec_tokens"] = self.config.spec_tokens if self._draft else 0
         st["page_bytes"] = self._page_bytes()
         st["prefix_cache"] = self.prefix_cache_stats()
         st["steps"] = self.steps

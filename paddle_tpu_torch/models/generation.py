@@ -2,21 +2,30 @@
 
 Counterpart of ``paddle_tpu/models/generation.py``: the attention bodies
 the model families call with a cache (`_static_cache_attention`,
-`_paged_cache_attention`), position helpers, `init_kv_caches`, and greedy
-`generate()`.  The caches are written IN PLACE (the JAX functions
-return updated buffers; here the returned buffers are the same
-tensors).  `generate()` runs its prefill eagerly and its decode as the
-JAX package's `_decode_chunk_program`: chunks of up to `DECODE_CHUNK`
-steps, each one fixed-shape program per (n, batch, capacity, mask,
-eos) over caches and carried tensors that the model keeps for its last
-(batch, capacity); on a CUDA device each program is a CUDA graph
-(`core.graphs`).  Attention
-runs through the port's kernels: `flash_fwd` for prefill (causal, with
-a pad-key bias for left-padded rows), `decode_attention` for the
-dense decode step, `paged_attention` for the engine's paged step (its
-int8 kernel under the quantized KV tier).
+`_paged_cache_attention`), position helpers, `init_kv_caches`, the
+token rule `_sample`, and `generate()`: greedy, sampled and beam search.
+The caches are written IN PLACE (the JAX functions return updated
+buffers; here the returned buffers are the same tensors).  `generate()`
+runs its prefill eagerly and its decode as the JAX package's
+`_decode_chunk_program`: chunks of up to `DECODE_CHUNK` steps, each one
+fixed-shape program per (n, mask, eos, sampling rule) over caches and
+carried tensors that the model keeps for its last (batch, capacity); on
+a CUDA device each program is a CUDA graph (`core.graphs`).  Beam search
+(JAX `_beam_search`) runs its prefill eagerly and then one fixed-shape
+beam step per token, a CUDA graph on the card, over caches of B x
+num_beams rows that each step reorders by parent.  Attention runs through
+the port's kernels: `flash_fwd` for prefill (causal, with a pad-key bias
+for left-padded rows), `decode_attention` for the dense decode step,
+`paged_attention` for the engine's paged step (its int8 kernel under the
+quantized KV tier).
 
-Sampling and beam search are not ported yet (ROADMAP Queue A5).
+Sampling draws its Gumbel noise from a `torch.Generator`: `seed=n`
+seeds the model's own generator with n for the call, `seed=None` draws
+from `core.rng.generator(device)`.  The JAX package threads a PRNG key
+instead, so a seed gives other tokens than there; the rule that maps
+logits and noise to a token is JAX's (`_sample`), and a sampling chunk
+graph registers its generator with the capture, so a replay draws the
+next numbers as the eager steps would.
 """
 from __future__ import annotations
 
@@ -29,6 +38,7 @@ import numpy as np
 import torch
 
 from ..core import graphs as GR
+from ..core import rng
 from ..nn import functional as F
 from ..ops.kernels.decode_attention import decode_attention
 from ..ops.kernels.paged_attention import paged_attention
@@ -254,6 +264,54 @@ def init_kv_caches(num_layers, batch, num_heads, head_dim, max_len,
             for _ in range(num_layers)]
 
 
+def gumbel_noise(shape, generator, device):
+    """f32 Gumbel(0, 1) noise as `jax.random.gumbel` draws it: uniforms on
+    [tiny, 1) (so no value is infinite), then -log(-log(u))."""
+    u = torch.rand(shape, generator=generator, dtype=torch.float32,
+                   device=device)
+    u = u.clamp_min(torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
+
+
+def _sample(logits, noise, do_sample, temperature, top_k):
+    """JAX `_sample` as a function of the logits [B, V] and f32 Gumbel
+    noise [B, V] (None when greedy): [B] int32 next tokens.  The logits
+    go to f32; greedy takes their argmax.  Sampling divides by max(T,
+    1e-6) where T != 1, keeps every logit >= the k-th largest (ties
+    included; top_k clamped to V, 0 keeps all) and sets the rest to
+    -1e30, then takes argmax(logits + noise), which is what
+    `jax.random.categorical` computes from its own Gumbel draw."""
+    logits = logits.float()
+    if not do_sample:
+        return logits.argmax(-1).to(torch.int32)
+    if temperature != 1.0:
+        # a tensor divisor: PyTorch's CUDA division by a Python scalar
+        # multiplies by the reciprocal instead
+        logits = logits / torch.full_like(logits,
+                                          max(float(temperature), 1e-6))
+    if top_k:
+        k = min(int(top_k), logits.shape[-1])
+        kth = torch.sort(logits, dim=-1).values[:, -k][:, None]
+        logits = torch.where(logits < kth, NEG_INF, logits)
+    return (logits + noise).argmax(-1).to(torch.int32)
+
+
+def sample(logits, do_sample, temperature, top_k, generator):
+    """`_sample` with the noise drawn from `generator` ([B, V] f32,
+    one draw a call; none when greedy)."""
+    noise = gumbel_noise(logits.shape, generator, logits.device) \
+        if do_sample else None
+    return _sample(logits, noise, do_sample, temperature, top_k)
+
+
+def _top(x, n):
+    """The n largest of each row of x [B, M] and their indices, equal
+    values in index order (as `jax.lax.top_k`): a stable descending
+    sort, not `torch.topk`, which fixes no order for ties."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[:, :n], idx[:, :n]
+
+
 def _left_pad_starts(attention_mask, b, s0):
     """[B] first real position per row of a LEFT-padded 0/1 mask."""
     mh = np.asarray(attention_mask.cpu() if isinstance(
@@ -275,12 +333,14 @@ def _left_pad_starts(attention_mask, b, s0):
 
 
 class _Generation:
-    """A model's `generate()` state: the lock that serializes its calls
-    and its current `_ChunkState` (None before the first call)."""
+    """A model's `generate()` state: the lock that serializes its calls,
+    its current `_ChunkState` and its current `_BeamState` (None before
+    the first call of each)."""
 
     def __init__(self):
         self.lock = threading.Lock()
         self.state = None
+        self.beam = None
 
 
 # model -> its _Generation; weak, so a dropped model frees its caches
@@ -299,9 +359,10 @@ class _ChunkState:
     of a model hold, at fixed addresses on its device: the KV caches,
     the carried token `tok` [B], the left-pad starts `start` [B], the
     `finished` flags [B] and the chunk's first position `pos0` (0-dim),
-    the programs by (n, has_mask, eos), and on a CUDA device the memory
-    pool their graphs share.  `bound` is what the graphs hold of the
-    model's parameters and buffers."""
+    the programs by (n, has_mask, eos, sampling rule, generator), the
+    generator that `seed=n` seeds (made at the first seeded call), and on
+    a CUDA device the memory pool their graphs share.  `bound` is what
+    the graphs hold of the model's parameters and buffers."""
 
     def __init__(self, key, caches, b, bound, device):
         self.key, self.caches, self.bound = key, caches, bound
@@ -310,19 +371,47 @@ class _ChunkState:
         self.finished = torch.zeros(b, dtype=torch.bool, device=device)
         self.pos0 = torch.zeros((), dtype=torch.int32, device=device)
         self.programs = {}
+        self.generator = None
         self.pool = None
 
 
 class _ChunkProgram:
-    """One decode chunk of n steps: its outputs toks [B, n] (int32) and
-    fin [n] (every row finished after step j), and on a CUDA device its
-    graph."""
+    """One decode chunk of n steps under a sampling rule (do_sample,
+    temperature, top_k) and the generator it draws from (None when
+    greedy): its outputs toks [B, n] (int32) and fin [n] (every row
+    finished after step j), and on a CUDA device its graph."""
 
-    def __init__(self, b, n, device):
-        self.n = n
+    def __init__(self, b, n, device, rule=(False, 1.0, 0), generator=None):
+        self.n, self.rule, self.generator = n, rule, generator
         self.toks = torch.zeros(b, n, dtype=torch.int32, device=device)
         self.fin = torch.zeros(n, dtype=torch.bool, device=device)
         self.graph = None
+
+
+class _BeamState:
+    """What the beam step of one (batch, beams, capacity) signature of a
+    model holds at fixed addresses: the caches of B * N rows (beam i of
+    row b at b * N + i), the live beams' tokens `tok`, running log-prob
+    `scores`, generated `lengths` (f32) and the step's `parent` [B, N],
+    the finished pool `fin_norm` / `fin_step` / `fin_beam` [B], the
+    step's cache position `pos` and index `step` (0-dim, advanced by the
+    step itself), the step graphs by (eos, length_penalty), and on a
+    CUDA device their memory pool.  `bound` as `_ChunkState`'s."""
+
+    def __init__(self, key, caches, b, n, bound, device):
+        self.key, self.caches, self.bound = key, caches, bound
+
+        def zeros(*shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        self.tok, self.parent = zeros(b, n), zeros(b, n)
+        self.scores = zeros(b, n, dtype=torch.float32)
+        self.lengths = zeros(b, n, dtype=torch.float32)
+        self.fin_norm = zeros(b, dtype=torch.float32)
+        self.fin_step, self.fin_beam = zeros(b), zeros(b)
+        self.pos, self.step = zeros(), zeros()
+        self.programs = {}
+        self.pool = None
 
 
 class GenerationMixin:
@@ -332,22 +421,23 @@ class GenerationMixin:
     caches)`, and expose `device`.
 
     `generate()` keeps one (batch, capacity) signature's caches and
-    decode-chunk programs per model (a call at another signature frees
-    them first), so calls of one model do not overlap: a lock of the
-    model's serializes them."""
+    decode-chunk programs per model, and one beam signature's (a call at
+    another signature frees the older one's first), so calls of one
+    model do not overlap: a lock of the model's serializes them."""
 
     def generate(self, input_ids, max_new_tokens=32, do_sample=False,
-                 eos_token_id=None, attention_mask=None, num_beams=1):
-        """Greedy decoding.  input_ids [B, S0] ints (tensor or array).
-        Returns int32 [B, S0 + n_generated] on the model's device.  With
-        eos_token_id, finished rows repeat eos and the loop stops once
-        every row has finished (checked once per chunk, then trimmed to
-        the step where it happened).  attention_mask: optional [B, S0]
-        0/1 mask for LEFT-padded prompts."""
-        if do_sample or num_beams > 1:
-            raise NotImplementedError(
-                "sampling and beam search are not ported yet (ROADMAP "
-                "Queue A5); paddle_tpu_torch generate() is greedy")
+                 temperature=1.0, top_k=0, eos_token_id=None, seed=None,
+                 attention_mask=None, num_beams=1, length_penalty=1.0):
+        """input_ids [B, S0] ints (tensor or array).  Returns int32 [B, S0
+        + n_generated] on the model's device.  Greedy unless `do_sample`
+        (`_sample`: temperature, top_k, noise from the generator of
+        `seed`).  With eos_token_id, finished rows repeat eos and the loop
+        stops once every row has finished (checked once per chunk, then
+        trimmed to the step where it happened).  attention_mask: optional
+        [B, S0] 0/1 mask for LEFT-padded prompts.  num_beams > 1 is beam
+        search (greedy scoring; finished hypotheses kept in a pool, the
+        best length_penalty-normalised one wins; not with do_sample or
+        attention_mask)."""
         dev = self.device
         gen = _generation(self)
         with gen.lock, torch.inference_mode():
@@ -358,6 +448,14 @@ class GenerationMixin:
             b, s0 = ids.shape
             if max_new_tokens <= 0:
                 return ids
+            if num_beams > 1:
+                if do_sample:
+                    raise ValueError("beam search with do_sample is not "
+                                     "supported; use num_beams=1 for "
+                                     "sampling")
+                if attention_mask is not None:
+                    raise ValueError("beam search over left-padded ragged "
+                                     "batches is not supported yet")
             start = None
             if attention_mask is not None:
                 start = torch.as_tensor(
@@ -366,47 +464,74 @@ class GenerationMixin:
             was_training = self.training
             self.eval()
             try:
-                st = self._chunk_state(gen, b, s0 + max_new_tokens)
-                # the prefill runs eagerly, once a call (JAX
-                # `_gen_programs`), into the programs' caches
-                logits, _ = self(ids, kv_caches=st.caches, cache_pos=0,
-                                 attn_start=start)
-                tok = logits[:, -1].float().argmax(-1).to(torch.int32)
-                st.tok.copy_(tok)
-                if start is not None:
-                    st.start.copy_(start)
-                if eos_token_id is None:
-                    st.finished.zero_()
-                    chunk = max(1, min(max_new_tokens - 1, 128))
-                else:
-                    st.finished.copy_(tok == eos_token_id)
-                    chunk = DECODE_CHUNK
-                out, fins = [tok[:, None]], [st.finished.all()[None]]
-                i = 1
-                while i < max_new_tokens:
-                    if eos_token_id is not None and bool(st.finished.all()):
-                        break
-                    n = min(chunk, max_new_tokens - i)
-                    st.pos0.fill_(s0 + i - 1)
-                    prog = self._chunk_program(st, n, start is not None,
-                                               eos_token_id)
-                    self._run_decode_chunk(st, prog, start is not None,
-                                           eos_token_id)
-                    # clones: the next chunk rewrites the buffers
-                    out.append(prog.toks.clone())
-                    fins.append(prog.fin.clone())
-                    i += n
-                gen = torch.cat(out, dim=1)
-                if eos_token_id is not None and gen.shape[1] > 1:
-                    # the per-token loop stops BEFORE step j + 1 when every
-                    # row had finished after step j: keep j + 1 tokens
-                    hits = np.flatnonzero(torch.cat(fins).cpu().numpy())
-                    if hits.size:
-                        gen = gen[:, :int(hits[0]) + 1]
-                return torch.cat([ids, gen], dim=1)
+                if num_beams > 1:
+                    return self._beam_search(gen, ids, max_new_tokens,
+                                             num_beams, eos_token_id,
+                                             float(length_penalty))
+                rule = (bool(do_sample), float(temperature), int(top_k))
+                return self._generate(gen, ids, max_new_tokens, rule, seed,
+                                      eos_token_id, start)
             finally:
                 if was_training:
                     self.train()
+
+    def _generate(self, gen, ids, max_new_tokens, rule, seed, eos_token_id,
+                  start):
+        """Greedy or sampled decoding (rule = (do_sample, temperature,
+        top_k)): the prefill eagerly, then the chunk programs."""
+        b, s0 = ids.shape
+        st = self._chunk_state(gen, b, s0 + max_new_tokens)
+        generator = None
+        if rule[0]:
+            if seed is None:
+                generator = rng.generator(self.device)
+            else:
+                if st.generator is None:
+                    st.generator = torch.Generator(device=self.device)
+                generator = st.generator
+                generator.manual_seed(int(seed))
+        # the prefill runs eagerly, once a call (JAX `_gen_programs`),
+        # into the programs' caches
+        logits, _ = self(ids, kv_caches=st.caches, cache_pos=0,
+                         attn_start=start)
+        tok = sample(logits[:, -1], *rule, generator)
+        st.tok.copy_(tok)
+        if start is not None:
+            st.start.copy_(start)
+        if eos_token_id is None:
+            st.finished.zero_()
+            chunk = max(1, min(max_new_tokens - 1, 128))
+        else:
+            st.finished.copy_(tok == eos_token_id)
+            chunk = DECODE_CHUNK
+        out, fins = [tok[:, None]], [st.finished.all()[None]]
+        i = 1
+        while i < max_new_tokens:
+            if eos_token_id is not None and bool(st.finished.all()):
+                break
+            n = min(chunk, max_new_tokens - i)
+            st.pos0.fill_(s0 + i - 1)
+            prog = self._chunk_program(st, n, start is not None,
+                                       eos_token_id, rule, generator)
+            self._run_decode_chunk(st, prog, start is not None,
+                                   eos_token_id)
+            # clones: the next chunk rewrites the buffers
+            out.append(prog.toks.clone())
+            fins.append(prog.fin.clone())
+            i += n
+        gen_toks = torch.cat(out, dim=1)
+        if eos_token_id is not None and gen_toks.shape[1] > 1:
+            # the per-token loop stops BEFORE step j + 1 when every row
+            # had finished after step j: keep j + 1 tokens
+            hits = np.flatnonzero(torch.cat(fins).cpu().numpy())
+            if hits.size:
+                gen_toks = gen_toks[:, :int(hits[0]) + 1]
+        return torch.cat([ids, gen_toks], dim=1)
+
+    def _bound(self) -> tuple:
+        """What a graph of `generate()` holds of the model's parameters
+        and buffers."""
+        return GR.addresses(list(self.parameters()) + list(self.buffers()))
 
     def _chunk_state(self, gen, b, max_len) -> "_ChunkState":
         """The caches and carried tensors of the (b, capacity) signature
@@ -415,7 +540,7 @@ class GenerationMixin:
         buffers rebound since the state was made drop it too: its graphs
         hold their addresses."""
         cap = -(-int(max_len) // 128) * 128
-        bound = GR.addresses(list(self.parameters()) + list(self.buffers()))
+        bound = self._bound()
         st = gen.state
         if st is None or st.key != (b, cap) or st.bound != bound:
             gen.state = st = None
@@ -424,17 +549,18 @@ class GenerationMixin:
         return gen.state
 
     def _decode_chunk_body(self, st, prog, has_mask, eos_token_id):
-        """The body of `_decode_chunk_program`: prog.n greedy steps from
-        st.tok at positions st.pos0 + j over st.caches (in place), each
-        step's tokens into prog.toks[:, j] and whether every row has
-        finished into prog.fin[j]; st.tok and st.finished carry the last
-        step's.  Finished rows keep emitting eos."""
+        """The body of `_decode_chunk_program`: prog.n steps from st.tok
+        at positions st.pos0 + j over st.caches (in place), each step's
+        tokens (`sample` under prog's rule and generator) into
+        prog.toks[:, j] and whether every row has finished into
+        prog.fin[j]; st.tok and st.finished carry the last step's.
+        Finished rows keep emitting eos."""
         tok, finished = st.tok, st.finished
         start = st.start if has_mask else None
         for j in range(prog.n):
             logits, _ = self(tok[:, None], kv_caches=st.caches,
                              cache_pos=st.pos0 + j, attn_start=start)
-            tok = logits[:, -1].float().argmax(-1).to(torch.int32)
+            tok = sample(logits[:, -1], *prog.rule, prog.generator)
             if eos_token_id is not None:
                 tok = torch.where(finished, eos_token_id, tok)
                 finished = finished | (tok == eos_token_id)
@@ -443,12 +569,15 @@ class GenerationMixin:
         st.tok.copy_(tok)
         st.finished.copy_(finished)
 
-    def _chunk_program(self, st, n, has_mask, eos_token_id):
+    def _chunk_program(self, st, n, has_mask, eos_token_id,
+                       rule=(False, 1.0, 0), generator=None):
         """`_decode_chunk_program`: st's program of the key (n, has_mask,
-        eos) (the batch and capacity are st's), made at its first use."""
-        key = (n, has_mask, eos_token_id)
+        eos, rule, generator) (the batch and capacity are st's), made at
+        its first use."""
+        key = (n, has_mask, eos_token_id, rule, generator)
         if key not in st.programs:
-            st.programs[key] = _ChunkProgram(st.tok.shape[0], n, self.device)
+            st.programs[key] = _ChunkProgram(st.tok.shape[0], n,
+                                             self.device, rule, generator)
         return st.programs[key]
 
     def _run_decode_chunk(self, st, prog, has_mask, eos_token_id) -> None:
@@ -463,8 +592,10 @@ class GenerationMixin:
         """The CUDA path of `_run_decode_chunk`: the program's graph
         replayed, or at the first chunk of its key the body run eagerly
         on the capture stream (this chunk's result) and then captured in
-        the state's pool, timed as `decode_chunk_n{n}` (the JAX package
-        does not time its chunk programs).  A failed capture raises."""
+        the state's pool, timed as `decode_chunk_n{n}` (``_sample`` added
+        for a sampling one; the JAX package does not time its chunk
+        programs).  A sampling graph registers its generator, so every
+        replay draws the next numbers.  A failed capture raises."""
         if prog.graph is not None:
             prog.graph.replay()
             return
@@ -473,5 +604,154 @@ class GenerationMixin:
         stream = GR.capture_stream(self.device)
         if st.pool is None:
             st.pool = torch.cuda.graph_pool_handle()
-        _, prog.graph = GR.capture(body, stream, f"decode_chunk_n{prog.n}",
-                                   pool=st.pool)
+        label = f"decode_chunk_n{prog.n}" + ("_sample" if prog.rule[0]
+                                             else "")
+        _, prog.graph = GR.capture(
+            body, stream, label, pool=st.pool,
+            generators=() if prog.generator is None else (prog.generator,))
+
+    # ---- beam search ----
+    def _beam_state(self, gen, b, n, max_len) -> "_BeamState":
+        """The beam step's tensors of the (b, n, capacity) signature of
+        `max_len` tokens: `gen`'s current ones or new ones, as
+        `_chunk_state`."""
+        cap = -(-int(max_len) // 128) * 128
+        bound = self._bound()
+        st = gen.beam
+        if st is None or st.key != (b, n, cap) or st.bound != bound:
+            gen.beam = st = None
+            gen.beam = _BeamState((b, n, cap),
+                                  self.init_kv_caches(b * n, cap), b, n,
+                                  bound, self.device)
+        return gen.beam
+
+    @staticmethod
+    def _beam_pool_update(st, step, tok, scores, length_penalty, eos_id):
+        """JAX `pool_update`: each row's best hypothesis that just emitted
+        eos (by score / max(length, 1) ** length_penalty) replaces the
+        row's finished one where it is better, and its beam leaves the
+        search (score -1e30).  Returns the new scores."""
+        done = tok == eos_id
+        norm = scores / st.lengths.clamp(min=1.0) ** length_penalty
+        cand = torch.where(done, norm, float("-inf"))
+        best_c = cand.argmax(dim=1)
+        best_v = cand.gather(1, best_c[:, None])[:, 0]
+        better = best_v > st.fin_norm
+        st.fin_norm.copy_(torch.where(better, best_v, st.fin_norm))
+        st.fin_step.copy_(torch.where(better, step, st.fin_step))
+        st.fin_beam.copy_(torch.where(better, best_c.to(torch.int32),
+                                      st.fin_beam))
+        return torch.where(done, NEG_INF, scores)
+
+    def _beam_step_body(self, st, eos_id, length_penalty) -> None:
+        """One beam step (JAX `beam_step`) at st.pos: score every
+        continuation of every live beam, keep the N best of each row
+        (`_top`), reorder the caches by parent, extend the lengths, move
+        what emitted eos into the pool, and advance st.pos and st.step.
+        Everything in place, at fixed shapes."""
+        b, n = st.tok.shape
+        logits, _ = self(st.tok.reshape(b * n, 1), kv_caches=st.caches,
+                         cache_pos=st.pos)
+        logp = torch.log_softmax(logits[:, -1].float(), dim=-1)
+        v = logp.shape[-1]
+        total = st.scores[:, :, None] + logp.reshape(b, n, v)
+        scores, flat = _top(total.reshape(b, n * v), n)
+        parent = torch.div(flat, v, rounding_mode="floor")
+        tok = (flat % v).to(torch.int32)
+        rows = (torch.arange(b, device=flat.device)[:, None] * n
+                + parent).reshape(-1)
+        for kb, vb in st.caches:
+            kb.copy_(kb.index_select(0, rows))
+            vb.copy_(vb.index_select(0, rows))
+        st.lengths.copy_(st.lengths.gather(1, parent) + 1.0)
+        if eos_id is not None:
+            scores = self._beam_pool_update(st, st.step, tok, scores,
+                                            length_penalty, eos_id)
+        st.tok.copy_(tok)
+        st.scores.copy_(scores)
+        st.parent.copy_(parent)
+        st.pos.add_(1)
+        st.step.add_(1)
+
+    def _run_beam_step(self, st, eos_id, length_penalty) -> None:
+        """One beam step from st's tensors, in place."""
+        if self.device.type == "cpu":
+            self._beam_step_body(st, eos_id, length_penalty)
+        else:
+            self._replay_beam(st, eos_id, length_penalty)
+
+    def _replay_beam(self, st, eos_id, length_penalty) -> None:
+        """The CUDA path of `_run_beam_step`: the graph of (eos,
+        length_penalty) replayed, or at its first step the body run on
+        the capture stream (this step's result) and captured in the
+        state's pool, as ``beam_step_b{b}_n{n}``.  A failed capture
+        raises."""
+        graph = st.programs.get((eos_id, length_penalty))
+        if graph is not None:
+            graph.replay()
+            return
+        b, n = st.tok.shape
+        body = functools.partial(self._beam_step_body, st, eos_id,
+                                 length_penalty)
+        stream = GR.capture_stream(self.device)
+        if st.pool is None:
+            st.pool = torch.cuda.graph_pool_handle()
+        _, st.programs[(eos_id, length_penalty)] = GR.capture(
+            body, stream, f"beam_step_b{b}_n{n}", pool=st.pool)
+
+    def _beam_search(self, gen, ids, max_new_tokens, num_beams, eos_id,
+                     length_penalty):
+        """JAX `_beam_search`: the prefill at batch B, its N best first
+        tokens, then max_new_tokens - 1 beam steps; the host backtracks
+        each row's winner (the best finished hypothesis, or the best live
+        beam where it scores at least as well)."""
+        b, s0 = ids.shape
+        n, steps = num_beams, max_new_tokens
+        st = self._beam_state(gen, b, n, s0 + max_new_tokens)
+        caches = self.init_kv_caches(b, st.key[2])
+        logits, caches = self(ids, kv_caches=caches, cache_pos=0)
+        logp = torch.log_softmax(logits[:, -1].float(), dim=-1)
+        scores, tok = _top(logp, n)
+        for (kb, vb), (k1, v1) in zip(st.caches, caches):
+            kb.copy_(k1.repeat_interleave(n, dim=0))
+            vb.copy_(v1.repeat_interleave(n, dim=0))
+        del caches
+        st.lengths.fill_(1.0)                 # one generated token so far
+        st.fin_norm.fill_(float("-inf"))
+        st.fin_step.zero_()
+        st.fin_beam.zero_()
+        tok = tok.to(torch.int32)
+        if eos_id is not None:
+            scores = self._beam_pool_update(st, 0, tok, scores,
+                                            length_penalty, eos_id)
+        st.tok.copy_(tok)
+        st.scores.copy_(scores)
+        st.pos.fill_(s0)
+        st.step.fill_(1)
+        toks = [tok]
+        parents = [torch.arange(n, dtype=torch.int32,
+                                device=tok.device).expand(b, n)]
+        for _ in range(steps - 1):
+            self._run_beam_step(st, eos_id, length_penalty)
+            # clones: the next step rewrites the buffers
+            toks.append(st.tok.clone())
+            parents.append(st.parent.clone())
+        live_norm = st.scores / st.lengths.clamp(min=1.0) ** length_penalty
+        live_best = live_norm.argmax(dim=1)
+        live_val = live_norm.gather(1, live_best[:, None])[:, 0]
+        use_fin = st.fin_norm >= live_val
+        sel_step = torch.where(use_fin, st.fin_step, steps - 1).cpu().numpy()
+        sel_beam = torch.where(use_fin, st.fin_beam,
+                               live_best.to(torch.int32)).cpu().numpy()
+        toks_all = torch.stack(toks).cpu().numpy()          # [steps, B, N]
+        parents_all = torch.stack(parents).cpu().numpy()
+        # rows whose winner finished at sel_step keep an eos-filled tail
+        out = np.full((b, steps), eos_id if eos_id is not None else 0,
+                      np.int32)
+        beam = sel_beam.copy()
+        rows = np.arange(b)
+        for t in range(steps - 1, -1, -1):
+            take = t <= sel_step
+            out[take, t] = toks_all[t][rows[take], beam[take]]
+            beam[take] = parents_all[t][rows[take], beam[take]]
+        return torch.cat([ids, torch.from_numpy(out).to(ids.device)], dim=1)

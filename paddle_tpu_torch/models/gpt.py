@@ -19,7 +19,7 @@ import torch
 from torch import nn
 
 from ..core.device import resolve_device
-from ..nn import Embedding, LayerNorm, Linear, RMSNorm
+from ..nn import Embedding, LayerNorm, Linear, RMSNorm, weight_in_use
 from ..nn import functional as F
 from .generation import (
     GenerationMixin, _static_cache_attention, decode_position_ids,
@@ -230,7 +230,8 @@ class GPTForCausalLM(nn.Module, GenerationMixin):
             x.fused_head_hidden = True
             return x
         if self.lm_head is None:
-            logits = torch.matmul(x, self.gpt.wte.weight.t())   # tied head
+            # tied head
+            logits = torch.matmul(x, weight_in_use(self.gpt.wte.weight).t())
         else:
             logits = self.lm_head(x)
         if kv_caches is not None:

@@ -18,7 +18,7 @@ import torch
 from torch import nn
 
 from ..core.device import resolve_device
-from ..nn import Embedding, Linear, RMSNorm
+from ..nn import Embedding, Linear, RMSNorm, weight_in_use
 from ..nn import functional as F
 from .generation import (
     GenerationMixin, _static_cache_attention, forward_phases, init_kv_caches,
@@ -187,7 +187,8 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
         else:
             h = self.model(input_ids)
         if self.lm_head is None:
-            logits = torch.matmul(h, self.model.embed_tokens.weight.t())
+            logits = torch.matmul(
+                h, weight_in_use(self.model.embed_tokens.weight).t())
         else:
             logits = self.lm_head(h)
         if kv_caches is not None:

@@ -12,7 +12,7 @@ from .clip import (  # noqa: F401
 from .layers_activation import GELU, ReLU, ReLU6  # noqa: F401
 from .layers_common import (  # noqa: F401
     Dropout, Dropout2D, Dropout3D, Embedding, LayerList, LayerNorm, Linear,
-    RMSNorm, Sequential,
+    RMSNorm, Sequential, weight_in_use, weights_in_use,
 )
 from .layers_conv_pool import (  # noqa: F401
     AdaptiveAvgPool2D, Conv2D, MaxPool2D,

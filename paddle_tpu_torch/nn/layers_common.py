@@ -8,15 +8,62 @@ with the JAX package's ``functional_state()``: `Linear.weight` is
 (Xavier-uniform Linear weights, N(0, 1) embeddings, zero biases, unit
 norm weights), drawn from the caller's `torch.Generator` on the
 parameter's device.
+
+`Linear`, `Embedding` and the tied LM heads of the model families read
+their weight through `weight_in_use`: inside `weights_in_use(stored)`
+a weight that `stored` holds in a narrow form (the serving engine's
+int8 and bf16 weight tiers) is dequantized where it is used, just
+before its matmul or lookup, so no full-precision copy of the model is
+ever made at once.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 from torch import nn
 
+from ..ops.quant import dequantize_channels
 from .functional import dropout, dropout2d, dropout3d, layer_norm, rms_norm
+
+# {parameter: (stored, scales or None, dtype)} of the current thread's
+# `weights_in_use`, or None.  Thread-local, as `warm_prefill_guard`: a
+# CUDA graph's capture records the dequantization of the body it runs.
+_IN_USE = threading.local()
+
+
+@contextlib.contextmanager
+def weights_in_use(stored):
+    """Layers called inside read each parameter that `stored` maps to
+    ``(q, scales, dtype)`` as `dequantize_channels(q, scales, dtype)`
+    (int8 codes with per-channel f32 scales), or as ``q.to(dtype)`` when
+    scales is None (a plain cast).  An embedding's scales are per row
+    ([num_embeddings, 1]).  An empty `stored` changes nothing."""
+    prev = getattr(_IN_USE, "value", None)
+    _IN_USE.value = stored or None
+    try:
+        yield
+    finally:
+        _IN_USE.value = prev
+
+
+def weight_in_use(param, rows=None):
+    """The weight a layer computes with: `param`, or its stored form
+    dequantized here under `weights_in_use`.  With `rows` (a lookup's
+    ids) only those rows, dequantized after the gather."""
+    stored = getattr(_IN_USE, "value", None)
+    entry = None if stored is None else stored.get(param)
+    if entry is None:
+        return param if rows is None else param[rows]
+    q, scales, dtype = entry
+    if rows is not None:
+        q = q[rows]
+        scales = None if scales is None else scales[rows]
+    if scales is None:
+        return q.to(dtype)
+    return dequantize_channels(q, scales, dtype)
 
 
 def _param(t):
@@ -42,7 +89,7 @@ class Linear(nn.Module):
                                        dtype=dtype)) if bias else None
 
     def forward(self, x):
-        y = torch.matmul(x, self.weight)
+        y = torch.matmul(x, weight_in_use(self.weight))
         return y if self.bias is None else y + self.bias
 
 
@@ -56,7 +103,7 @@ class Embedding(nn.Module):
         self.weight = _param(w)
 
     def forward(self, ids):
-        return self.weight[ids]
+        return weight_in_use(self.weight, ids)
 
 
 class Dropout(nn.Module):

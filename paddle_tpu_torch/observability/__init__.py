@@ -73,6 +73,9 @@ _SCHEMA_COUNTERS = tuple(
        for e in ("submitted", "admitted", "completed", "cancelled",
                  "evicted")]
     + [("engine.tokens", {})]
+    # speculative decoding: committed and discarded draft proposals
+    + [("engine.spec_decode", {"result": r})
+       for r in ("accepted", "rejected")]
     # the router: failovers, ejections, outcomes, mid-stream resumes
     + [("router.failovers", {}), ("router.ejections", {}),
        ("router.readmissions", {})]
@@ -115,7 +118,8 @@ _SCHEMA_GAUGES = ("serving.inflight", "serving.queue_depth",
             for ep in ("predict", "generate")) \
     + tuple(("autoscaler.replicas", {"state": s})
             for s in ("target", "actual")) \
-    + (("engine.weight_precision", {"precision": "full"}),) \
+    + tuple(("engine.weight_precision", {"precision": p})
+            for p in ("full", "bf16", "int8")) \
     + tuple(("paged.pool_precision", {"precision": p})
             for p in ("full", "int8")) \
     + tuple(("lifecycle.phase_ms", {"phase": p})

@@ -56,7 +56,13 @@ S = 197 and ERNIE-base's biased pair against their plain versions,
 dropout inside a captured graph (new masks each replay, the eager body
 from the same generator state, `seed()` reproducible; a capture
 without its generator raises) and a tiny ERNIE train step with dropout
-replayed against its eager body.
+replayed against its eager body; the engine's int8 weights with
+speculative decoding (an accepting and a rejecting draft, both KV
+tiers) equal to the CPU engine's streams and to greedy over
+`effective_params()`, with exact launches a pass; sampled `generate()`
+replaying its generator (== a per-step loop on a card generator of the
+same seed); beams equal to the CPU port's (-k "spec or sampled or
+beam").
 Every test needs an NVIDIA card and skips without one.  On the card (no
 JAX needed, so the JAX test conftest is left out)::
 
@@ -2506,3 +2512,114 @@ def test_metrics_polled_during_captures_do_not_fail_them():
     assert not errors and polls and set(polls) == {200}, errors[:3]
     assert {"prefill_s16", "prefill_s32", "prefill_s48",
             "decode_n1"} <= set(comp), comp
+
+
+# ------------------- the weight and speculative tiers, sampling, beams
+def _tiny_pair(seed, layers=2, hidden=64, tied=False):
+    """A tiny GPT on the CPU and its copy on the card.  Untied by
+    default: a seeded tied model repeats its last token (the token's
+    own logit dominates), so its streams would test little."""
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+
+    cfg = GPTConfig(vocab_size=128, hidden_size=hidden, num_layers=layers,
+                    num_heads=4, max_seq_len=64, tie_embeddings=tied)
+    cpu = GPTForCausalLM(cfg, device="cpu", seed=seed)
+    gpu = GPTForCausalLM(cfg, seed=seed)
+    gpu.load_state_dict(cpu.state_dict())
+    return cpu, gpu
+
+
+@pytest.mark.parametrize("kv", [None, "int8"])
+@pytest.mark.parametrize("draft_tied", [True, False])
+def test_tiny_spec_and_weight_tiers_on_the_card_match_cpu(kv, draft_tied):
+    """int8 weights + spec_tokens=3 on the card: streams equal to the
+    CPU engine's (the plain versions) and to sequential greedy over the
+    engine's `effective_params()` on the card, bit-stable run to run;
+    every pass launches the KV tier's paged kernel twice for the target
+    and the exact one 4 times for the 1-layer draft (its pools stay
+    exact), and so does the spec graph's warm-up on its zero buffers."""
+    from paddle_tpu_torch.inference.engine import (
+        EngineConfig, InferenceEngine,
+    )
+    from paddle_tpu_torch.models.gpt import load_reference_state
+
+    cpu, gpu = _tiny_pair(3)
+    dcpu, dgpu = _tiny_pair(4, layers=1, hidden=32, tied=draft_tied)
+    rs = np.random.RandomState(2)
+    prompts = [rs.randint(0, 128, (n,)).astype(np.int32)
+               for n in (3, 9, 17, 5, 12)]
+    ecfg = EngineConfig(page_size=8, max_slots=3, max_seq_len=64,
+                        spec_tokens=3, weight_precision="int8",
+                        kv_precision=kv)
+    want = InferenceEngine(cpu, ecfg, draft_model=dcpu).generate(
+        prompts, max_new_tokens=10)
+    K.reset_launches()
+    eng = InferenceEngine(gpu, ecfg, draft_model=dgpu)
+    got = eng.generate(prompts, max_new_tokens=10)
+    counts = K.launch_counts()
+    runs = eng.spec_passes + 1                 # + the capture's warm-up
+    if kv:
+        assert counts["paged_attention_int8"] == 2 * runs
+        assert counts["paged_attention"] == 4 * runs
+    else:
+        assert counts["paged_attention"] == 6 * runs
+    again = InferenceEngine(gpu, ecfg, draft_model=dgpu).generate(
+        prompts, max_new_tokens=10)
+    for w, a, b in zip(want, got, again):
+        np.testing.assert_array_equal(a, w)
+        np.testing.assert_array_equal(a, b)
+    if kv is None:
+        _, ref = _tiny_pair(3)
+        load_reference_state(ref, {k: v.cpu().numpy() for k, v
+                                   in eng.effective_params().items()})
+        for p, a in zip(prompts, got):
+            np.testing.assert_array_equal(
+                a, ref.generate(p[None], max_new_tokens=10).cpu().numpy()[0])
+
+
+def test_sampled_generate_on_the_card_replays_its_generator():
+    """A seed on the card: the first call (eager warm-up, then the
+    capture) and the second (a replay, the generator registered with
+    the graph) give the same tokens, equal to a per-step eager loop
+    drawing from a card generator seeded alike; another seed gives
+    others; top_k=1 is greedy."""
+    from paddle_tpu_torch.models import generation as GEN
+
+    _, gpu = _tiny_pair(5)
+    ids = np.random.RandomState(3).randint(0, 128, (3, 7)).astype(np.int32)
+    kw = dict(do_sample=True, temperature=0.9, top_k=10)
+    a = gpu.generate(ids, max_new_tokens=20, seed=5, **kw).cpu().numpy()
+    b = gpu.generate(ids, max_new_tokens=20, seed=5, **kw).cpu().numpy()
+    np.testing.assert_array_equal(a, b)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    with torch.inference_mode():
+        x = torch.from_numpy(ids).cuda()
+        caches = gpu.init_kv_caches(3, 27)
+        logits, _ = gpu(x, kv_caches=caches, cache_pos=0)
+        out = [GEN.sample(logits[:, -1], True, 0.9, 10, g)]
+        for i in range(1, 20):
+            logits, _ = gpu(out[-1][:, None], kv_caches=caches,
+                            cache_pos=7 + i - 1)
+            out.append(GEN.sample(logits[:, -1], True, 0.9, 10, g))
+    loop = torch.cat([x, torch.stack(out, dim=1)], dim=1).cpu().numpy()
+    np.testing.assert_array_equal(a, loop)
+    assert not np.array_equal(
+        a, gpu.generate(ids, max_new_tokens=20, seed=6, **kw).cpu().numpy())
+    np.testing.assert_array_equal(
+        gpu.generate(ids, max_new_tokens=20).cpu().numpy(),
+        gpu.generate(ids, max_new_tokens=20, do_sample=True, top_k=1,
+                     seed=7).cpu().numpy())
+
+
+@pytest.mark.parametrize("num_beams,eos", [(2, None), (4, 5), (3, 9)])
+def test_beam_search_on_the_card_matches_cpu(num_beams, eos):
+    """Beams on the card (a CUDA graph a step, replayed from the second
+    step on) equal the CPU port's, twice in a row."""
+    cpu, gpu = _tiny_pair(6)
+    ids = np.random.RandomState(4).randint(0, 128, (2, 9)).astype(np.int32)
+    want = cpu.generate(ids, max_new_tokens=12, num_beams=num_beams,
+                        eos_token_id=eos, length_penalty=0.6).numpy()
+    for _ in range(2):
+        got = gpu.generate(ids, max_new_tokens=12, num_beams=num_beams,
+                           eos_token_id=eos, length_penalty=0.6)
+        np.testing.assert_array_equal(got.cpu().numpy(), want)

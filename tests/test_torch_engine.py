@@ -242,13 +242,50 @@ def test_engine_request_debug_names_eviction_stall(models, monkeypatch):
     assert eng2.request_debug("req-off") is None
 
 
-@pytest.mark.parametrize("knob", [dict(weight_precision="int8"),
-                                  dict(spec_tokens=2)])
+def _tiny_gpt_pair(seed, vocab):
+    """A JAX GPT of width 16 and the port's copy of it (draft models)."""
+    cfg = dict(vocab_size=vocab, hidden_size=16, num_layers=1, num_heads=2,
+               max_seq_len=64)
+    P.seed(seed)
+    jm = JGPT(JGPTConfig(**cfg))
+    params, _ = jm.functional_state()
+    tm = GPTForCausalLM(GPTConfig(**cfg), device="cpu")
+    load_reference_state(tm, {k: np.asarray(v) for k, v in params.items()})
+    return jm, tm
+
+
+@pytest.mark.parametrize("knob", [
+    dict(config=dict(weight_precision="int7"), match="int7"),
+    dict(config=dict(spec_tokens=2), match="needs a draft_model"),
+    dict(config={}, draft=128, match="spec_tokens == 0"),
+    dict(config=dict(spec_tokens=2), draft=64, match="vocab_size"),
+    dict(generate=dict(num_beams=2, do_sample=True), match="do_sample"),
+    dict(generate=dict(num_beams=2, attention_mask=np.ones((1, 3))),
+         match="left-padded"),
+])
 def test_engine_unported_tiers_raise(models, knob):
-    _, tm = models
-    # int8 weights and speculative decode are the serving extras of A5
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A5"):
-        InferenceEngine(tm, EngineConfig(**knob))
+    """The weight tiers, speculative decoding, sampling and beam search
+    are ported; what stays refused is what the JAX package refuses, with
+    its ValueErrors: an unknown weight precision, spec_tokens without a
+    draft, a draft without spec_tokens, a draft of another vocabulary,
+    beam search with sampling or over left-padded prompts."""
+    jm, tm = models
+    match = knob["match"]
+    if "generate" in knob:
+        ids = np.zeros((1, 3), np.int32)
+        with pytest.raises(ValueError, match=match):
+            jm.generate(P.to_tensor(ids, "int32"), max_new_tokens=2,
+                        **knob["generate"])
+        with pytest.raises(ValueError, match=match):
+            tm.generate(ids, max_new_tokens=2, **knob["generate"])
+        return
+    jd = td = None
+    if "draft" in knob:
+        jd, td = _tiny_gpt_pair(7, knob["draft"])
+    with pytest.raises(ValueError, match=match):
+        JEngine(jm, JEngineConfig(**knob["config"]), draft_model=jd)
+    with pytest.raises(ValueError, match=match):
+        InferenceEngine(tm, EngineConfig(**knob["config"]), draft_model=td)
 
 
 def test_engine_config_not_mutated_and_sizes(models):
