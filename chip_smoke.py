@@ -257,6 +257,32 @@ non-zero and prints no result):
      way), the monitor relaunches it, and a replica drained with a
      stream in flight finishes it and exits 0; the fleet lifecycle's
      spawn -> announce -> first-routable ms.
+ 23. recompute_parity: GPT-125M widths at 2 layers in f32, batch 2 x
+     256, dropout 0.1: 3 AdamW steps without recompute and under each
+     policy (full, dots, dots_no_batch) from the same weights and
+     generator state, losses and parameters within 1e-5 (bit for bit is
+     logged), the dropout generator where the plain run left it,
+     flash_fwd twice a layer a step; a guarded step (and a guarded
+     recomputed one) bit for bit the unguarded; every such graph's
+     replay == its eager body bit for bit;
+ 24. train_resilient: phase 8's GPT-125M step with dropout 0.1, timed
+     in the four combinations of recompute and guard (tokens/s, ms per
+     step, peak memory, 24 / 12 flash launches a step with recompute,
+     12 / 12 without); on the step with both and a CheckpointManager:
+     a NaN injected at one step (`train.step`) skipped with the state
+     bit-equal, the next loss equal to a step from the pre-fault state;
+     save, 3 steps, rollback: the state bit-equal to the save; save,
+     3 steps, and a freshly built step resumed from the save with the
+     generator set back gives the same 3 losses bit for bit; save and
+     restore ms;
+ 25. train_1p3b_recompute: `gpt_1p3b(fused_head_ce=True,
+     recompute=True)` bf16 O2 at B8 x 2048, and the same model without
+     recompute (B halved while it does not fit): tokens/s, MFU, peak
+     memory, 48 / 24 flash_fwd a step;
+ 26. train_llama_recompute: LLaMA at llama_7b widths with 2 layers, B1
+     x 2048, bf16 O2, recompute_policy="dots_no_batch" against no
+     recompute: the losses (within 1e-3; bit for bit is logged), flash
+     and rope twice a layer forward with recompute, their adjoints once.
 
 Phase 3 also holds paged_attention_int8 (the gpt_1p3b row's pool in
 int8, and a llama_7b decode step, 32 kv heads over ~1000 keys each, with
@@ -293,9 +319,10 @@ same sequence in the batch of 4, for both kernels.
 
 Launch counters are reset just before the driven part of phases 4, 4b,
 5, 5a (its sampled and its beam calls), 5b (each engine), 8, 8a, 8b, 9,
-9a, 9b, 9c (each tier), 10, 11a, 12, 14, 15, 16, 17, 19, 20, 21 and 22
+9a, 9b, 9c (each tier), 10, 11a, 12, 14, 15, 16, 17, 19, 20, 21, 22
 (its in-process engine: the replicas count theirs in their own
-processes) and read just after each; every kernel of each path must
+processes), 24, 25 and 26 (their timed steps with recompute) and read
+just after each; every kernel of each path must
 have launched.  A replayed
 CUDA graph (the engine's decode step, the train step) adds the launches
 its capture recorded to the counters, once a replay.  Under --profile
@@ -3083,15 +3110,18 @@ def _beam_score(model, seq, s0, eos):
 
 
 # ----------------------------------------------------------------- phase 7
-def _gpt125m(layers):
+def _gpt125m(layers, **kw):
     from paddle_tpu_torch.models.gpt import GPTConfig
 
     # bench.py:66-68; the port's GPTConfig defaults are these widths
     return GPTConfig(vocab_size=50304, hidden_size=768, num_layers=layers,
-                     num_heads=12, max_seq_len=1024, fused_head_ce=True)
+                     num_heads=12, max_seq_len=1024, fused_head_ce=True,
+                     **kw)
 
 
-def _train_step(model, amp_dtype=None):
+def _train_step(model, amp_dtype=None, **kw):
+    """AdamW(1e-4) on the model's pretraining criterion; `kw` goes to
+    `build_train_step` (guard, checkpoint_manager, ...)."""
     from paddle_tpu_torch.distributed import build_train_step
     from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
     from paddle_tpu_torch.models.llama import LlamaPretrainingCriterion
@@ -3101,7 +3131,7 @@ def _train_step(model, amp_dtype=None):
         if getattr(model.cfg, "fused_head_ce", False) \
         else LlamaPretrainingCriterion()
     return build_train_step(model, AdamW(learning_rate=1e-4), crit,
-                            amp_dtype=amp_dtype)
+                            amp_dtype=amp_dtype, **kw)
 
 
 def phase_kv_layout_parity(steps=3):
@@ -4121,6 +4151,384 @@ def phase_ernie_train(card, iters=10):
     return counts
 
 
+# ------------------------------------------------------- phases 23-26
+RESILIENT_DROPOUT = 0.1
+RESILIENT_STEPS = 10
+
+
+def _state_clone(step):
+    import torch
+
+    with torch.no_grad():
+        return [t.clone() for t in step.train_state_dict().values()]
+
+
+def _state_equal(step, saved):
+    import torch
+
+    return [i for i, (a, t) in enumerate(
+        zip(saved, step.train_state_dict().values()))
+        if not torch.equal(a, t)]
+
+
+def _release_card():
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _timed_steps(step, batch, iters):
+    """2 warm-up calls (the eager first step and its capture, one
+    replay), then `run_steps(repeat=iters)` between synchronizes, its
+    launch counts read around it: (warm losses, losses, seconds,
+    counts)."""
+    import torch
+
+    from paddle_tpu_torch.ops import kernels as K
+
+    warm = [float(step(*batch)) for _ in range(2)]
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    losses = step.run_steps(*batch, repeat=iters)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return warm, losses.cpu().numpy(), dt, K.launch_counts()
+
+
+def phase_recompute_parity(steps=3):
+    """GPT-125M widths at 2 layers in f32 (TF32 off), batch 2 x 256,
+    dropout 0.1, AdamW: `steps` steps (the eager first step, then
+    replays) without recompute and under each policy (full, dots,
+    dots_no_batch) from the same weights, batch and generator state.
+    Each policy's losses and parameters within 1e-5 of the
+    no-recompute run's (relative to the largest value), the dropout
+    generator left where the no-recompute run left it (the replays drew
+    from the step's replay generators), flash_fwd launched twice a layer
+    a step and flash_bwd once.  A guarded step (guard=True) with and
+    without recompute equals the unguarded one bit for bit.  Every such
+    graph (recompute, guarded, both) replayed equals its eager body bit
+    for bit from the same state and generator state."""
+    import torch
+
+    from paddle_tpu_torch.core import rng
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.ops import kernels as K
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rs = np.random.RandomState(SEED)
+    ids, labels = (torch.from_numpy(rs.randint(0, 50304, (2, 256))
+                                    .astype(np.int32)).cuda()
+                   for _ in range(2))
+    layers, tol = 2, 1e-5
+    runs = {}
+    for name, policy, guard in (("none", None, False),
+                                ("full", "full", False),
+                                ("dots", "dots", False),
+                                ("dots_no_batch", "dots_no_batch", False),
+                                ("guard", None, True),
+                                ("guard+full", "full", True)):
+        cfg = _gpt125m(layers, dropout=RESILIENT_DROPOUT,
+                       recompute=policy is not None,
+                       recompute_policy=policy)
+        model = GPTForCausalLM(cfg, device="cuda", seed=SEED)
+        step = _train_step(model, guard=guard or None)
+        rng.seed(SEED)
+        K.reset_launches()
+        losses = step.run_steps(ids, labels, repeat=steps)
+        torch.cuda.synchronize()
+        runs[name] = (losses.cpu(), K.launch_counts(),
+                      [p.detach().clone() for p in model.parameters()],
+                      step.generator.get_state())
+        if name != "none" and name != "dots":
+            _train_replay_equals_eager(step, (ids, labels), steps,
+                                       f"recompute_parity {name} f32 "
+                                       f"dropout {RESILIENT_DROPOUT}")
+        del model, step
+        _release_card()
+    base_l, base_c, base_p, base_g = runs["none"]
+    check(torch.isfinite(base_l).all().item(),
+          f"recompute_parity: non-finite losses {base_l.tolist()}")
+    report = {}
+    for name, (l, c, p, g) in runs.items():
+        if name == "none":
+            continue
+        ref_l, ref_p = (runs["full"][0], runs["full"][2]) \
+            if name == "guard+full" else (base_l, base_p)
+        if name.startswith("guard"):
+            check(torch.equal(l, ref_l) and all(
+                torch.equal(a, b) for a, b in zip(p, ref_p)),
+                f"recompute_parity: the fault-free {name} step differs "
+                f"from the unguarded one: {l.tolist()} vs {ref_l.tolist()}")
+            report[name] = "bit for bit"
+            continue
+        lgap = float((l - base_l).abs().max() / base_l.abs().max())
+        pgap = max(float((a - b).abs().max() / b.abs().max().clamp(
+            min=1e-30)) for a, b in zip(p, base_p))
+        check(lgap <= tol and pgap <= tol,
+              f"recompute_parity {name}: losses {l.tolist()} vs "
+              f"{base_l.tolist()} (gap {lgap:.3g}), parameters gap "
+              f"{pgap:.3g} > {tol}")
+        check(torch.equal(g, base_g), f"recompute_parity {name}: the "
+              "replays advanced the dropout generator")
+        check(c["flash_fwd"] == 2 * layers * steps
+              and c["flash_bwd"] == layers * steps,
+              f"recompute_parity {name}: launches {json.dumps(c)}")
+        report[name] = (f"loss gap {lgap:.3g}, parameter gap {pgap:.3g}, "
+                        f"bit for bit {torch.equal(l, base_l)}")
+    check(base_c["flash_fwd"] == base_c["flash_bwd"] == layers * steps,
+          f"recompute_parity none: launches {json.dumps(base_c)}")
+    log(f"[recompute_parity] f32 GPT-125M widths {layers}L B2 S256 dropout "
+        f"{RESILIENT_DROPOUT}, {steps} AdamW steps: losses "
+        f"{base_l.tolist()}; against no recompute (tol {tol}): "
+        f"{json.dumps(report)}; flash_fwd / flash_bwd launches "
+        f"{runs['full'][1]['flash_fwd']} / {runs['full'][1]['flash_bwd']} "
+        f"with recompute, {base_c['flash_fwd']} / {base_c['flash_bwd']} "
+        "without")
+
+
+def phase_train_resilient(card, iters=RESILIENT_STEPS):
+    """GPT-125M as phase 8 trains it (12 layers, B8 x 1024, bf16 O2,
+    AdamW, fused head + CE) with dropout 0.1, in the four combinations
+    of recompute=True and guard=True, each timed as phase 8 (2 warm-up
+    calls, `run_steps(repeat=iters)`): tokens/s, peak memory, flash
+    launches a step (24 / 12 with recompute, 12 / 12 without).  On the
+    step with both, and a `CheckpointManager` in a temporary directory:
+    a NaN injected at one step (`faults.inject("train.step",
+    kind="nan")`) is skipped (state bit-equal to before it) and the next
+    loss equals a step from the pre-fault state with the generator where
+    the fault left it; a checkpoint saved, 3 steps, `rollback()`: the
+    state bit-equal to the save; `save_train_state`, 3 steps, then
+    `load_train_state` into a freshly built step with the generator set
+    back: its 3 losses equal the original's bit for bit.  Save and
+    restore ms.  Returns the launch counts of the timed steps of the
+    step with both."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from paddle_tpu_torch.distributed.checkpoint import CheckpointManager
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.resilience import StepGuard, faults
+
+    batch, seq = 8, 1024
+    rs = np.random.RandomState(0)                 # bench.py:87
+    data = tuple(torch.from_numpy(rs.randint(0, 50304, (batch, seq))
+                                  .astype(np.int32)).cuda()
+                 for _ in range(2))
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+
+    def build(recompute, guard, seed=SEED):
+        cfg = _gpt125m(12, dropout=RESILIENT_DROPOUT, recompute=recompute)
+        model = GPTForCausalLM(cfg, device="cuda", seed=seed)
+        g = StepGuard(name="chip_smoke") if guard else None
+        return model, _train_step(
+            model, amp_dtype="bfloat16", guard=g,
+            checkpoint_manager=CheckpointManager(root) if guard else None)
+
+    rates, step = {}, None
+    try:
+        for recompute, guard in ((False, False), (True, False),
+                                 (False, True), (True, True)):
+            _release_card()
+            model, step = build(recompute, guard)
+            warm, losses, dt, counts = _timed_steps(step, data, iters)
+            peak = torch.cuda.max_memory_allocated()
+            check(np.isfinite(warm).all() and np.isfinite(losses).all()
+                  and losses[-1] < warm[0],
+                  f"train_resilient recompute={recompute} guard={guard}: "
+                  f"losses {warm} {losses.tolist()}")
+            fwd = 24 if recompute else 12
+            _launches_per_step(counts, {"flash_fwd": fwd, "flash_bwd": 12},
+                               iters, f"train_resilient recompute="
+                               f"{recompute} guard={guard}")
+            rates[(recompute, guard)] = (batch * seq * iters / dt,
+                                         1e3 * dt / iters, peak)
+            if not (recompute and guard):
+                del model, step
+        n_params = sum(p.numel() for p in model.parameters())
+        # a NaN at one step: skipped, the state kept
+        guard = step.guard
+        before = _state_clone(step)
+        with faults.inject("train.step", kind="nan", at=1):
+            bad = float(step(*data))
+        gen_after = step.generator.get_state()
+        diff = _state_equal(step, before)
+        check(math.isnan(bad) and not diff and guard.total_bad == 1,
+              f"train_resilient: the poisoned step gave {bad}, changed "
+              f"{len(diff)} state tensors, guard {guard.state_dict()}")
+        after = float(step(*data))
+        with torch.no_grad():
+            for t, s in zip(step.train_state_dict().values(), before):
+                t.copy_(s)
+        step.generator.set_state(gen_after)
+        ref = float(step(*data))
+        check(after == ref, f"train_resilient: the step after the skipped "
+              f"one gave {after}, a step from the pre-fault state {ref}")
+        del before
+        # save, 3 steps, rollback
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = step.save_checkpoint()
+        save_ms = 1e3 * (time.perf_counter() - t0)
+        saved = _state_clone(step)
+        step.run_steps(*data, repeat=3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored = step.rollback()
+        torch.cuda.synchronize()
+        restore_ms = 1e3 * (time.perf_counter() - t0)
+        diff = _state_equal(step, saved)
+        check(not diff, f"train_resilient: rollback to {path} left "
+              f"{len(diff)} state tensors apart from the save")
+        del saved
+        # exact resume in a fresh step
+        state_dir = os.path.join(root, "resume")
+        step.save_train_state(state_dir)
+        gen = step.generator.get_state()
+        ahead = step.run_steps(*data, repeat=3).cpu()
+        del model, step
+        _release_card()
+        model, fresh = build(True, True, seed=SEED + 1)
+        t0 = time.perf_counter()
+        fresh.load_train_state(state_dir)
+        torch.cuda.synchronize()
+        load_ms = 1e3 * (time.perf_counter() - t0)
+        fresh.generator.set_state(gen)
+        resumed = torch.stack([fresh(*data) for _ in range(3)]).cpu()
+        check(torch.equal(ahead, resumed), f"train_resilient: resumed "
+              f"losses {resumed.tolist()} vs the original's "
+              f"{ahead.tolist()}")
+        line = "; ".join(
+            f"recompute={r} guard={g}: {tps:.1f} tokens/s, {ms:.2f} "
+            f"ms/step, peak {peak / 2**30:.2f} GiB"
+            for (r, g), (tps, ms, peak) in rates.items())
+        log(f"[train_resilient] GPT-125M 12L bf16 O2 B{batch} S{seq} dropout "
+            f"{RESILIENT_DROPOUT} ({card}), {iters} replayed steps each "
+            f"(N={n_params}): {line}; flash_fwd / flash_bwd a step 24 / 12 "
+            f"with recompute, 12 / 12 without; NaN at one step skipped "
+            f"(state bit-equal, guard {guard.state_dict()}), next loss "
+            f"{after:.6f} == {ref:.6f}; checkpoint save {save_ms:.0f} ms, "
+            f"rollback {restore_ms:.0f} ms (checkpoint {restored}), "
+            f"load_train_state {load_ms:.0f} ms; resumed losses "
+            f"{resumed.tolist()} == the original's bit for bit")
+        del model, fresh
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return counts
+
+
+def phase_train_1p3b_recompute(card, iters=5, seq=2048):
+    """`gpt_1p3b(fused_head_ce=True, recompute=True)` (the configuration
+    `tools/memory_report.py` sizes), bf16 O2, AdamW, at B8 x 2048 (B
+    halved while a step does not fit), and the same model without
+    recompute at the largest batch from 8 down that fits: tokens/s, ms
+    per step, peak memory of each, timed as phase 8 over `iters`
+    replayed steps.  Returns the recomputed run's launch counts."""
+    import torch
+
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_1p3b
+
+    out = {}
+    for recompute in (True, False):
+        batch = 8
+        while True:
+            _release_card()
+            model = step = None
+            try:
+                model = GPTForCausalLM(
+                    gpt_1p3b(fused_head_ce=True, recompute=recompute),
+                    device="cuda", seed=SEED)
+                step = _train_step(model, amp_dtype="bfloat16")
+                rs = np.random.RandomState(SEED)
+                data = tuple(torch.from_numpy(rs.randint(
+                    0, 50304, (batch, seq)).astype(np.int32)).cuda()
+                    for _ in range(2))
+                warm, losses, dt, counts = _timed_steps(step, data, iters)
+                break
+            except torch.cuda.OutOfMemoryError:
+                del model, step
+                log(f"[train_1p3b_recompute] recompute={recompute} B{batch} "
+                    f"S{seq} does not fit on the card; halving the batch")
+                batch //= 2
+                check(batch >= 1, "train_1p3b_recompute: B1 does not fit")
+        peak = torch.cuda.max_memory_allocated()
+        check(np.isfinite(warm).all() and np.isfinite(losses).all(),
+              f"train_1p3b_recompute: losses {warm} {losses.tolist()}")
+        fwd = 2 * 24 if recompute else 24
+        _launches_per_step(counts, {"flash_fwd": fwd, "flash_bwd": 24},
+                           iters, f"train_1p3b_recompute recompute="
+                           f"{recompute}")
+        n_params = sum(p.numel() for p in model.parameters())
+        out[recompute] = (batch, batch * seq * iters / dt, 1e3 * dt / iters,
+                          peak, counts, n_params, losses[-1])
+        del model, step
+    _release_card()
+    line = "; ".join(
+        f"recompute={r}: B{b} S{seq}, {tps:.1f} tokens/s, {ms:.1f} ms/step, "
+        f"MFU {100 * 6 * n * tps / PEAK_FLOPS['bfloat16']:.2f}%, peak "
+        f"{peak / 2**30:.2f} GiB, last loss {last:.4f}"
+        for r, (b, tps, ms, peak, _, n, last) in out.items())
+    log(f"[train_1p3b_recompute] gpt_1p3b fused head + CE bf16 O2 AdamW "
+        f"({card}), {iters} replayed steps (N={out[True][5]}): {line}; "
+        f"flash_fwd a step {out[True][4]['flash_fwd'] / iters:.0f} with "
+        f"recompute, {out[False][4]['flash_fwd'] / iters:.0f} without")
+    return out[True][4]
+
+
+def phase_train_llama_recompute(card, iters=5, seq=2048):
+    """LLaMA at `llama_7b` widths with 2 layers, B1 x 2048, bf16 O2,
+    AdamW, `recompute_policy="dots_no_batch"` against the same step
+    without recompute from the same weights and batch: the losses of 2
+    warm-up calls and `iters` replayed steps (within 1e-3 relative;
+    bit for bit is logged), launches a step: flash_fwd and rope twice a
+    layer with recompute (the forward and the replay), flash_bwd and
+    rope_bwd once.  Returns the recomputed run's launch counts."""
+    import torch
+
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
+
+    out = {}
+    for recompute in (True, False):
+        _release_card()
+        cfg = llama_7b(num_layers=2, recompute=recompute,
+                       recompute_policy="dots_no_batch" if recompute
+                       else None)
+        model = LlamaForCausalLM(cfg, device="cuda", seed=SEED)
+        step = _train_step(model, amp_dtype="bfloat16")
+        rs = np.random.RandomState(SEED)
+        data = tuple(torch.from_numpy(rs.randint(
+            0, cfg.vocab_size, (1, seq)).astype(np.int32)).cuda()
+            for _ in range(2))
+        warm, losses, dt, counts = _timed_steps(step, data, iters)
+        per = 2 if recompute else 1
+        _launches_per_step(counts, {"flash_fwd": per * 2, "rope": per * 2,
+                                    "flash_bwd": 2, "rope_bwd": 2}, iters,
+                           f"train_llama_recompute recompute={recompute}")
+        out[recompute] = (np.array(warm + losses.tolist()), counts,
+                          seq * iters / dt,
+                          torch.cuda.max_memory_allocated())
+        del model, step
+    _release_card()
+    (lr, cr, tr, pr), (ln, _, tn, pn) = out[True], out[False]
+    check(np.isfinite(lr).all() and np.isfinite(ln).all(),
+          f"train_llama_recompute: losses {lr} {ln}")
+    gap = float(np.abs(lr - ln).max() / np.abs(ln).max())
+    check(gap <= 1e-3, f"train_llama_recompute: losses with recompute "
+          f"{lr.tolist()} vs without {ln.tolist()} (gap {gap:.3g})")
+    log(f"[train_llama_recompute] llama_7b widths 2L B1 S{seq} bf16 O2 "
+        f"AdamW ({card}): dots_no_batch losses {lr.tolist()}, without "
+        f"recompute {ln.tolist()} (gap {gap:.3g}, bit for bit "
+        f"{bool(np.array_equal(lr, ln))}); {tr:.1f} / {tn:.1f} tokens/s, "
+        f"peak {pr / 2**30:.2f} / {pn / 2**30:.2f} GiB; launches a step "
+        f"with recompute {json.dumps({k: v / iters for k, v in cr.items() if v})}")
+    return cr
+
+
 def _profile_forward(model, x, what, steps=3):
     """torch.profiler over `steps` forwards (inside inference mode)."""
     import torch
@@ -5106,6 +5514,14 @@ def main():
         path("fused_encoder_train", phase_fused_encoder_train, card)
         release()
         path("ernie_train", phase_ernie_train, card)
+        release()
+        run("recompute_parity", phase_recompute_parity)
+        release()
+        path("train_resilient", phase_train_resilient, card)
+        release()
+        path("train_1p3b_recompute", phase_train_1p3b_recompute, card)
+        release()
+        path("train_llama_recompute", phase_train_llama_recompute, card)
         release()
         path("fleet", phase_fleet)
         rows = []

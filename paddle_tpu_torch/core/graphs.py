@@ -93,12 +93,16 @@ def warm_up(body, stream):
 
 def capture(body, stream, label, pool=None, generators=()):
     """`warm_up(body, stream)`, then `Graph(body, stream, pool,
-    generators)`, timed under `label` (`capture_cost`).  Returns what
-    the warm-up's body returned and the graph.  A failure in either
-    step raises and records nothing."""
+    generators)`, timed under `label` (`capture_cost`).  `generators`
+    may be a callable, called after the warm-up (a body whose warm-up
+    makes generators, as a train step's recomputed blocks do).  Returns
+    what the warm-up's body returned and the graph.  A failure in
+    either step raises and records nothing."""
     with CC.CaptureTiming(label) as timing:
         out = warm_up(body, stream)
         timing.warmed()
+        if callable(generators):
+            generators = generators()
         graph = Graph(body, stream, pool=pool, generators=generators)
     return out, graph
 

@@ -16,13 +16,22 @@ the capture (`CUDAGraph.register_generator_state`), so every replay
 draws the next offsets and advances the generator as the eager body
 would.  A generator not registered with a graph that draws from it
 fails the capture.
+
+`drawing_from(gen)` makes `generator(gen.device)` return `gen` on this
+thread for the duration of a block: the replay of a recomputed block
+draws its dropout masks from a generator placed where the block's
+forward drew (`distributed/recompute.py`).
 """
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 
 _GENERATORS: dict = {}    # torch.device -> torch.Generator
 _SEED = 0
+_DRAWING = threading.local()   # this thread's `drawing_from` generator
 
 
 def _key(device) -> torch.device:
@@ -36,6 +45,9 @@ def generator(device) -> torch.Generator:
     """The dropout generator of `device`, made (and seeded) at first
     use."""
     key = _key(device)
+    held = getattr(_DRAWING, "gen", None)
+    if held is not None and _key(held.device) == key:
+        return held
     gen = _GENERATORS.get(key)
     if gen is None:
         gen = torch.Generator(device=key)
@@ -59,3 +71,15 @@ def get_rng_state(device) -> torch.Tensor:
 
 def set_rng_state(state, device) -> None:
     generator(device).set_state(state)
+
+
+@contextlib.contextmanager
+def drawing_from(gen):
+    """Inside the block, on this thread, `generator(gen.device)` is
+    `gen`."""
+    prev = getattr(_DRAWING, "gen", None)
+    _DRAWING.gen = gen
+    try:
+        yield gen
+    finally:
+        _DRAWING.gen = prev

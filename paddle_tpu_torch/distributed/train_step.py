@@ -49,10 +49,53 @@ the body run from the same generator state bit for bit.  The generator
 is not one of `_state_tensors` (its state is not a tensor that `copy_`
 restores): `generator.get_state()` / `set_state()` save and restore it.
 
-The rest of the JAX step is not ported: the multi-device half (ZeRO
-stages, quantized collectives), its resilience hooks (guard, checkpoint
-manager, preemption guard) and recompute.  Asking for one raises
-NotImplementedError.
+Recompute is the model's option (``GPTConfig(recompute=...)``,
+`distributed.recompute`); ``recompute=`` here is taken and, as in the
+JAX step, changes nothing.  A recomputed block's replay draws its
+dropout from a generator of the step's `ReplayGenerators`, placed
+before every graph replay where the device generator stands plus the
+block's offset in the eager run the graph was captured after; those
+generators are registered with the graph too.
+
+``guard`` (True or a `resilience.StepGuard`; JAX :174-182, :407-419):
+one finiteness reduction over the loss and every gradient on the
+device, ``ok``.  The optimizer updates in place, so the body first
+copies the parameters, the slots, the step and the buffers into
+persistent backup tensors (one more copy of the parameters and slots
+in device memory), and after the update selects ``where(ok, new,
+backup)`` into the live tensors: a bad step keeps them all, and a
+fault-free guarded step equals the unguarded one bit for bit.  The
+host reads one ``ok`` a `__call__` and one [n_steps] vector a
+`run_steps`, and feeds `guard.observe`, whose rollback restores the
+newest good checkpoint through the attached `CheckpointManager`.
+With ``guard=None`` the body has none of these ops.
+
+The ``train.step`` fault point (JAX `_maybe_poison` :608): kind
+"error" raises at dispatch; kind "nan" poisons the first floating
+batch leaf, as JAX does, and in a guarded step also multiplies the loss
+by a device flag set to NaN for that dispatch (1 otherwise), so a
+token-id batch goes non-finite too and the replayed graph sees it with
+no new capture.
+
+Exact resume (JAX :64-116, :666-806): `train_state_dict` holds the
+live tensors under the JAX keys (``param.<name>``,
+``slot.<slot>.<name>``, ``opt.step``, ``buffer.<name>``) in the dtypes
+JAX writes them in (f32, int32 for the step); `save_train_state` /
+`load_train_state` write and read them in the JAX package's checkpoint
+format (`distributed.checkpoint`) with the LR scheduler's sidecar, and
+`attach_checkpoint_manager`, `save_checkpoint` and `rollback` go
+through a `CheckpointManager`.  Loading copies into the live tensors,
+so the graphs keep replaying.  As in JAX (:675-676), the dropout
+generator is not part of that state: a resumed run with dropout draws
+other masks than the run that saved, unless the caller saves and
+restores `generator.get_state()` alongside.  Preemption (JAX
+:727-772): the attached `PreemptionGuard` is checked before and after
+each dispatch; a trip writes an emergency checkpoint through the
+manager and raises `TrainingPreempted`, then the same exception again
+on every later call, without saving again.
+
+The multi-device half of the JAX step (ZeRO stages, quantized
+collectives) is not ported: asking for it raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -60,18 +103,86 @@ import functools
 
 import torch
 from torch import nn
-from torch.func import functional_call
+from torch.nn.utils.stateless import _reparametrize_module
 
 from ..core import graphs as GR
 from ..core import rng
 from ..nn.clip import global_norm_scale, global_norm_sq
 from ..optimizer.lr import LRScheduler
+from ..resilience import faults as _faults
+from ..resilience import guards as _guards
+from .recompute import ReplayGenerators
 
-__all__ = ["DistributedTrainStep", "build_train_step"]
+__all__ = ["DistributedTrainStep", "build_train_step",
+           "save_train_checkpoint", "load_train_checkpoint"]
+
+_LR_SIDECAR = "lr_scheduler.json"
 
 # keywords of the JAX step that the port accepts only at their off value
-_UNPORTED = ("sharding_stage", "guard", "checkpoint_manager",
-             "preemption_guard", "collective_precision", "recompute")
+_UNPORTED = ("sharding_stage", "collective_precision")
+
+
+def save_train_checkpoint(tensors, path, lr_sched=None):
+    """Shared writer for both training tiers (hybrid step + pipeline):
+    distributed checkpoint of the flat leaf dict, plus a host-side LR
+    scheduler sidecar JSON when one is attached."""
+    import json as _json
+    import os as _os
+
+    from ..optimizer.lr import LRScheduler
+    from .checkpoint import save_state_dict
+
+    save_state_dict(tensors, path)
+    if isinstance(lr_sched, LRScheduler):
+        with open(_os.path.join(path, _LR_SIDECAR), "w") as f:
+            _json.dump(lr_sched.state_dict(), f)
+
+
+def load_train_checkpoint(tensors, path, lr_sched=None):
+    """Shared strict loader: every leaf in `tensors` must exist in the
+    checkpoint (a partial match would silently mix loaded and fresh
+    state), and when the caller trains under an LRScheduler its sidecar
+    must be present too (restoring the step counter but restarting the
+    warmup/decay schedule is the same silent divergence). Loads in place
+    (each leaf copied into its target tensor)."""
+    import json as _json
+    import os as _os
+
+    from ..optimizer.lr import LRScheduler
+    from .checkpoint import load_state_dict
+    from .checkpoint.api import _load_metadata
+
+    meta = _load_metadata(path)
+    if meta is None:
+        raise ValueError(f"no checkpoint metadata found under {path!r}")
+    missing = sorted(set(tensors) - set(meta.state_dict_metadata))
+    if missing:
+        raise ValueError(
+            f"checkpoint at {path!r} is missing {len(missing)} of "
+            f"{len(tensors)} training-state leaves (first: "
+            f"{missing[:5]}) — refusing a partial resume (wrong model "
+            "config or corrupt checkpoint?)")
+    sched_file = _os.path.join(path, _LR_SIDECAR)
+    if isinstance(lr_sched, LRScheduler):
+        if not _os.path.exists(sched_file):
+            raise ValueError(
+                f"checkpoint at {path!r} has no {_LR_SIDECAR} but this "
+                "run trains under an LRScheduler — resuming would "
+                "restart the schedule at step 0 (was the checkpoint "
+                "saved with a float learning rate?)")
+        with open(sched_file) as f:
+            state = _json.load(f)
+    load_state_dict(tensors, path)
+    if isinstance(lr_sched, LRScheduler):
+        lr_sched.set_state_dict(state)
+
+
+def _swapped(module, tensors):
+    """`module` computing with `tensors` (name -> tensor) in place of its
+    own parameters inside the block: what `torch.func.functional_call`
+    does for one call, held open here for the backward too (tied
+    weights stay tied)."""
+    return _reparametrize_module(module, tensors, tie_weights=True)
 
 
 class _Objective(nn.Module):
@@ -99,7 +210,9 @@ class DistributedTrainStep:
     f32 scalar on the model's device."""
 
     def __init__(self, model, optimizer, loss_fn=None, amp_dtype=None,
-                 grad_clip_norm=None, **unported):
+                 grad_clip_norm=None, recompute=False, guard=None,
+                 checkpoint_manager=None, preemption_guard=None,
+                 **unported):
         for key, value in unported.items():
             if key not in _UNPORTED:
                 raise TypeError(f"DistributedTrainStep got an unexpected "
@@ -107,8 +220,8 @@ class DistributedTrainStep:
             if value not in (None, 0, False):
                 raise NotImplementedError(
                     f"DistributedTrainStep({key}={value!r}) is not ported "
-                    "yet (ROADMAP Queue A): the port's train step runs on "
-                    "one device, unguarded, without recompute")
+                    "yet (ROADMAP Queue A7): the port's train step runs on "
+                    "one device")
         self.model = model
         self.optimizer = optimizer
         self.loss_fn = loss_fn
@@ -126,10 +239,28 @@ class DistributedTrainStep:
                             "in float32 and pass amp_dtype)")
         self._device = next(iter(self._params.values())).device
         self.generator = rng.generator(self._device)
+        self._replay_gens = ReplayGenerators(self._device)
         self._state = optimizer.init_state(self._params)
         self._lr = torch.zeros((), dtype=torch.float32, device=self._device)
         self._graphs = {}     # batch signature -> (static batch, Graph)
+        self._offsets = {}    # batch signature -> its replay offsets
         self._bound = None    # the state's addresses the graphs hold
+        # --- resilience ---
+        if guard is True:
+            guard = _guards.StepGuard(name="train_step")
+        self.guard = guard or None
+        self._ok = self._poison = self._backup = None
+        if self.guard is not None:
+            # written by the body; a graph writes into them on replay
+            self._ok = torch.ones((), dtype=torch.bool, device=self._device)
+            self._poison = torch.ones((), dtype=torch.float32,
+                                      device=self._device)
+        self._ckpt_mgr = checkpoint_manager
+        if self.guard is not None and self._ckpt_mgr is not None \
+                and self.guard.on_rollback is None:
+            self.guard.set_rollback(self.rollback)
+        self._preemption_guard = preemption_guard
+        self._preemption_handled = None  # TrainingPreempted once raised
 
     def _place(self, batch):
         """Batch leaves (images or token ids, labels, ...) onto the model's
@@ -145,34 +276,83 @@ class DistributedTrainStep:
             placed.append(b)
         return tuple(placed)
 
+    def _buffers(self) -> dict:
+        """The model's persistent buffers by name (JAX
+        ``functional_state()``'s second dict)."""
+        state = self.model.state_dict(keep_vars=True)
+        return {n: b for n, b in self.model.named_buffers() if n in state}
+
+    def _guarded_tensors(self) -> list:
+        """What a bad step must leave as it was: the masters, the
+        optimizer's slots and step, the buffers (the loss's too)."""
+        ts = list(self._params.values())
+        for slots in self._state["slots"].values():
+            ts.extend(slots.values())
+        ts.append(self._state["step"])
+        ts.extend(self._objective.buffers())
+        return ts
+
+    def _backed_up(self, live):
+        """The backup tensors of `live`, made at the first guarded step
+        (and again if the state was rebound), filled with `live`."""
+        bk = self._backup
+        if bk is None or len(bk) != len(live) or any(
+                b.shape != t.shape or b.dtype != t.dtype
+                for b, t in zip(bk, live)):
+            bk = self._backup = [torch.empty_like(t) for t in live]
+        torch._foreach_copy_(bk, live)
+        return bk
+
     def _step(self, batch):
         """The body: one optimizer step on `batch`; the loss, f32."""
         self.model.train()
+        guarded = self.guard is not None
+        if guarded:
+            live = self._guarded_tensors()
+            backup = self._backed_up(live)
         run = self._params
         if self.amp_dtype is not None:
             run = {n: p.to(self.amp_dtype) for n, p in run.items()}
-        loss = functional_call(self._objective,
-                               {"model." + n: v for n, v in run.items()},
-                               batch)
-        loss = loss.float()
-        if loss.dim():
-            loss = loss.mean()
-        # a parameter the forward does not read (a post-LN layer's unused
-        # pre-LN scale) gets a zero gradient, as jax.grad gives it
-        grads = torch.autograd.grad(loss, list(self._params.values()),
-                                    allow_unused=True, materialize_grads=True)
+        # the backward runs under the swapped parameters too: a
+        # recomputed block replays its forward there
+        with _swapped(self._objective,
+                      {"model." + n: v for n, v in run.items()}), \
+                self._replay_gens.running():
+            loss = self._objective(*batch).float()
+            if loss.dim():
+                loss = loss.mean()
+            if guarded:
+                loss = loss * self._poison     # 1, or NaN for a fault
+            # a parameter the forward does not read (a post-LN layer's
+            # unused pre-LN scale) gets a zero gradient, as jax.grad
+            # gives it
+            grads = torch.autograd.grad(loss, list(self._params.values()),
+                                        allow_unused=True,
+                                        materialize_grads=True)
         if self.grad_clip_norm is not None:
             # out of place: autograd may hand two parameters one tensor
             grads = torch._foreach_mul(grads, global_norm_scale(
                 global_norm_sq(grads), self.grad_clip_norm))
+        if guarded:
+            ok = _guards.tree_finite(loss, grads)
+            self._ok.copy_(ok)
         self.optimizer.apply_gradients(
             self._params, dict(zip(self._params, grads)), self._state,
             lr=self._lr)
+        if guarded:
+            with torch.no_grad():
+                for t, b in zip(live, backup):
+                    torch.where(ok, t, b, out=t)
         return loss.detach()
 
     def __call__(self, *batch):
-        return self._run([self._place(batch)],
-                         [self.optimizer.get_lr()])[0]
+        """One step; the loss.  A guarded step reads its ``ok`` back and
+        feeds the guard."""
+        self._check_preemption()                 # safe point: pre-dispatch
+        placed = self._maybe_poison(self._place(batch))
+        losses = self._dispatch([placed], [self.optimizer.get_lr()])
+        self._check_preemption()                 # safe point: post-step
+        return losses[0]
 
     def run_steps(self, *batch, lrs=None, repeat=None):
         """One step per leading-axis slice of the batch leaves (each
@@ -181,15 +361,11 @@ class DistributedTrainStep:
         scheduler's next rates (the scheduler steps once a step) or the
         optimizer's fixed rate.  Returns the per-step losses, f32
         [n_steps]."""
+        self._check_preemption()       # don't start steps we can't keep
+        if repeat is not None and int(repeat) < 1:
+            raise ValueError(f"repeat must be >= 1, got {repeat}")
         placed = self._place(batch)
-        if repeat is None:
-            steps = [tuple(b[i] for b in placed)
-                     for i in range(placed[0].shape[0])]
-        else:
-            if int(repeat) < 1:
-                raise ValueError(f"repeat must be >= 1, got {repeat}")
-            steps = [placed] * int(repeat)
-        n = len(steps)
+        n = int(repeat) if repeat is not None else placed[0].shape[0]
         if lrs is None:
             sched = self.optimizer._learning_rate
             lrs = []
@@ -203,43 +379,93 @@ class DistributedTrainStep:
                 raise ValueError(f"lrs must have shape ({n},), got "
                                  f"{tuple(lrs.shape)}")
             lrs = lrs.tolist()
-        return self._run(steps, lrs)
+        placed = self._maybe_poison(placed, n_steps=n)
+        if repeat is None:
+            steps = [tuple(b[i] for b in placed) for i in range(n)]
+        else:
+            steps = [placed] * n
+        losses = self._dispatch(steps, lrs)
+        self._check_preemption()       # signal landed mid-run: save now
+        return losses
 
-    def _run(self, batches, lrs):
+    def _maybe_poison(self, placed, n_steps=1):
+        """The ``train.step`` fault point, once a dispatch: kind "error"
+        raises here; kind "nan" poisons the first floating leaf (JAX
+        :608-625) and, in a guarded step, sets the loss flag to NaN
+        for this dispatch."""
+        action = _faults.fire("train.step", n_steps=n_steps)
+        if action is None or action.kind != "nan":
+            return placed
+        placed = list(placed)
+        for i, b in enumerate(placed):
+            if b.is_floating_point():
+                # 0 * nan propagates NaN elementwise
+                placed[i] = b + float("nan") * torch.zeros_like(b)
+                break
+        if self._poison is not None:
+            self._poison.fill_(float("nan"))
+        return tuple(placed)
+
+    def _dispatch(self, batches, lrs):
+        """`_run`, then for a guarded step the one host read of the
+        steps' ok flags, fed to the guard; the poison flag is cleared
+        whatever happens."""
+        oks = None if self.guard is None else torch.ones(
+            len(batches), dtype=torch.bool, device=self._device)
+        try:
+            losses = self._run(batches, lrs, oks)
+        finally:
+            if self._poison is not None:
+                self._poison.fill_(1.0)
+        if oks is not None:
+            for ok in oks.tolist():
+                self.guard.observe(bool(ok))
+        return losses
+
+    def _run(self, batches, lrs, oks=None):
         """One step per placed batch, at the rates `lrs` (floats); the
-        losses, f32 [len(batches)]."""
+        losses, f32 [len(batches)].  `oks`: where each step's ok flag
+        goes (a guarded step)."""
         if self._device.type == "cpu":
             return torch.stack([self._step(b)
-                                for b in self._at_rates(batches, lrs)])
-        return self._replay(batches, lrs)
+                                for b in self._at_rates(batches, lrs, oks)])
+        return self._replay(batches, lrs, oks)
 
-    def _at_rates(self, batches, lrs):
+    def _at_rates(self, batches, lrs, oks=None):
         """`batches`, each yielded once the device rate holds its step's
-        rate (an asynchronous fill, no host sync)."""
-        for batch, lr in zip(batches, lrs):
+        rate (an asynchronous fill, no host sync); with `oks`, the ok
+        flag of each step, once it has run, copied into its entry."""
+        for i, (batch, lr) in enumerate(zip(batches, lrs)):
             self._lr.fill_(lr)
             yield batch
+            if oks is not None:
+                oks[i] = self._ok
 
     def _state_tensors(self) -> list:
         """Every tensor the step reads or updates in place besides its
         batch: the masters, the optimizer's slots and step, the learning
-        rate, the model's (and the loss's) buffers."""
+        rate, the model's (and the loss's) buffers, and in a guarded
+        step its flags and backups."""
         ts = list(self._params.values())
         for slots in self._state["slots"].values():
             ts.extend(slots.values())
         ts += [self._state["step"], self._lr]
         ts.extend(self._objective.buffers())
+        if self.guard is not None:
+            ts += [self._ok, self._poison] + list(self._backup or ())
         return ts
 
-    def _replay(self, batches, lrs):
+    def _replay(self, batches, lrs, oks=None):
         """The CUDA path of `_run`: each batch's signature's graph
-        replayed, captured after an eager first step of the signature."""
+        replayed, captured after an eager first step of the signature.
+        `oks`: where each step's ok flag goes (a guarded step)."""
         losses = torch.empty(len(batches), dtype=torch.float32,
                              device=self._device)
         if GR.addresses(self._state_tensors()) != self._bound:
             self._graphs.clear()
         loaded = None
-        for i, batch in enumerate(self._at_rates(batches, lrs)):
+        gens = self._replay_gens
+        for i, batch in enumerate(self._at_rates(batches, lrs, oks)):
             key = tuple((b.shape, b.dtype) for b in batch)
             if key not in self._graphs:
                 static = tuple(torch.empty_like(b) for b in batch)
@@ -247,25 +473,131 @@ class DistributedTrainStep:
                     dst.copy_(src)
                 body = functools.partial(self._step, static)
                 stream = GR.capture_stream(self._device)
+                # the replay generators the warm-up made are registered
+                # with the graph too
                 losses[i], graph = GR.capture(
-                    body, stream, "train_step", generators=(self.generator,))
-                # the first step may turn an int step into a tensor:
-                # graphs captured before it hold other addresses
+                    body, stream, "train_step",
+                    generators=lambda: (self.generator, *gens.generators))
+                # the first step may turn an int step into a tensor, and
+                # a guarded one makes its backups: graphs captured
+                # before it hold other addresses
                 bound = GR.addresses(self._state_tensors())
                 if bound != self._bound:
                     self._graphs.clear()
                     self._bound = bound
                 self._graphs[key] = (static, graph)
+                self._offsets[key] = list(gens.offsets)
                 loaded = batch
-                continue
-            static, graph = self._graphs[key]
-            if batch is not loaded:          # `repeat`: one copy
-                for dst, src in zip(static, batch):
-                    dst.copy_(src)
-                loaded = batch
-            graph.replay()
-            losses[i] = graph.outputs
+            else:
+                static, graph = self._graphs[key]
+                if batch is not loaded:          # `repeat`: one copy
+                    for dst, src in zip(static, batch):
+                        dst.copy_(src)
+                    loaded = batch
+                if gens.generators:
+                    gens.place(self._offsets[key])
+                graph.replay()
+                losses[i] = graph.outputs
         return losses
+
+    # --- exact training resume ----------------------------------------------
+    def train_state_dict(self) -> dict:
+        """The complete resumable state as a flat dict of the live
+        tensors under the JAX step's keys (:666): ``param.<name>``,
+        ``slot.<slot>.<name>``, ``opt.step``, ``buffer.<name>``.  The
+        dropout generator is not in it (JAX :675-676)."""
+        out = {f"param.{n}": p for n, p in self._params.items()}
+        for n, slots in self._state["slots"].items():
+            for k, v in slots.items():
+                out[f"slot.{k}.{n}"] = v
+        out["opt.step"] = self._state["step"]
+        for n, b in self._buffers().items():
+            out[f"buffer.{n}"] = b
+        return out
+
+    def save_train_state(self, path):
+        """The whole training state in the JAX package's checkpoint
+        format, with the LR scheduler's position beside it (JAX
+        :691)."""
+        save_train_checkpoint(self.train_state_dict(), path,
+                              self.optimizer._learning_rate)
+
+    def load_train_state(self, path):
+        """Resume exactly from a `save_train_state` checkpoint of either
+        package: every leaf of this step's state must be in it, and the
+        scheduler's sidecar when one drives the rate (JAX :700).  The
+        leaves are copied into the live tensors."""
+        load_train_checkpoint(self.train_state_dict(), path,
+                              self.optimizer._learning_rate)
+
+    # --- resilience: preemption safe points ----------------------------------
+    def attach_preemption_guard(self, guard):
+        """Consult `guard` (a `resilience.PreemptionGuard`) at this
+        step's safe points (JAX :727)."""
+        self._preemption_guard = guard
+        return self
+
+    def _check_preemption(self):
+        """Safe point, between dispatches: the live state is a whole
+        post-step state here, which the emergency checkpoint saves (JAX
+        :734).  A second call after a trip raises the same exception
+        without saving again."""
+        g = self._preemption_guard
+        if g is None or not g.check():
+            return
+        if self._preemption_handled is not None:
+            raise self._preemption_handled
+        from ..resilience.preemption import TrainingPreempted
+
+        ckpt_dir = step_no = None
+        if self._ckpt_mgr is not None:
+            step_no = int(self._state["step"])
+            ckpt_dir = self.save_checkpoint(step=step_no)
+            try:
+                from ..observability import flight as _flight
+                from ..observability import metrics as _metrics
+
+                _metrics.inc("preemption.checkpoints")
+                _flight.record("preemption.checkpoint_saved",
+                               path=ckpt_dir, step=step_no,
+                               reason=g.reason)
+            except Exception:  # pt-lint: ok[PT005]
+                pass           # (the checkpoint landed; telemetry must
+                # not turn a clean preemption exit into a crash)
+        exit_code = getattr(g, "exit_code", 0)
+        self._preemption_handled = TrainingPreempted(
+            g.reason, checkpoint_dir=ckpt_dir, step=step_no,
+            exit_code=exit_code)
+        raise self._preemption_handled
+
+    # --- resilience: rotation checkpointing + guard rollback -----------------
+    def attach_checkpoint_manager(self, manager):
+        """Use a `distributed.checkpoint.CheckpointManager` as this
+        step's save target and, with a guard that has no rollback of its
+        own, the guard's rollback source (JAX :775)."""
+        self._ckpt_mgr = manager
+        if self.guard is not None and self.guard.on_rollback is None:
+            self.guard.set_rollback(self.rollback)
+        return self
+
+    def save_checkpoint(self, step=None, async_save=False):
+        """The whole training state through the attached manager (atomic,
+        CRC'd, rotated); returns the checkpoint's directory (JAX
+        :784)."""
+        if self._ckpt_mgr is None:
+            raise ValueError("no CheckpointManager attached "
+                             "(attach_checkpoint_manager first)")
+        return self._ckpt_mgr.save(self.train_state_dict(), step=step,
+                                   async_save=async_save)
+
+    def rollback(self):
+        """Restore the newest checkpoint that verifies from the attached
+        manager into the live state (corrupt ones are quarantined);
+        returns the step restored (JAX :793)."""
+        if self._ckpt_mgr is None:
+            raise ValueError("no CheckpointManager attached "
+                             "(attach_checkpoint_manager first)")
+        return self._ckpt_mgr.restore(self.train_state_dict())
 
 
 def build_train_step(model, optimizer, loss_fn=None, amp_dtype=None,

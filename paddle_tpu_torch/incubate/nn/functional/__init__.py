@@ -8,7 +8,9 @@ kernel on CUDA, its plain version on the CPU; the backward plain, as the
 JAX VJP's jnp backward).  Attention runs the port's
 `scaled_dot_product_attention` (the flash kernels on CUDA); the large
 matmuls are `torch.matmul`, as the JAX package leaves them to XLA.
-Dropout with p > 0 in training raises, as the port's `nn.Dropout` does.
+Dropout is the port's `nn.functional.dropout`; the attention dropout
+rate reaches the attention call, which applies it to nothing (ROADMAP
+C2.6).
 
 Not ported yet (ROADMAP Queue A): `masked_multihead_attention`,
 `block_multihead_attention`, `variable_length_memory_efficient_attention`,
@@ -93,17 +95,8 @@ def fused_matmul_bias(x, y, bias=None, transpose_x=False, transpose_y=False,
     return fused_linear(x, y, bias, transpose_weight=transpose_y)
 
 
-def _dropout(x, p, training=True, mode="upscale_in_train"):
-    """The JAX `dropout` where it draws no random bits: the identity
-    when not training or p == 0, and the (1 - p) scale of
-    ``downscale_in_infer`` at inference.  p > 0 in training raises."""
-    if not training or p == 0.0:
-        if training or mode != "downscale_in_infer" or p == 0.0:
-            return x
-        return x * (1.0 - p)
-    raise NotImplementedError(
-        f"dropout(p={p}) in training mode is not ported yet (ROADMAP "
-        "Queue A); train with p=0")
+# the JAX functionals call `nn.functional.dropout` as `_dropout`
+_dropout = F.dropout
 
 
 def fused_dropout_add(x, y, p=0.0, training=True, mode="upscale_in_train",
@@ -112,12 +105,13 @@ def fused_dropout_add(x, y, p=0.0, training=True, mode="upscale_in_train",
 
 
 def _attention(q, k, v, attn_mask, dropout_p, training):
-    if dropout_p and training:
-        raise NotImplementedError(
-            f"attention dropout (p={dropout_p}) in training mode is not "
-            "ported yet (ROADMAP Queue A); train with p=0")
+    """The JAX `_sdpa` call (:295-296): the attention dropout rate goes
+    to `scaled_dot_product_attention`, which applies it to nothing on
+    either package (ROADMAP C2.6)."""
     return F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
-                                          is_causal=False)
+                                          dropout_p=dropout_p,
+                                          is_causal=False,
+                                          training=training)
 
 
 def _first(out):

@@ -8,9 +8,17 @@ Parameter names and shapes equal the JAX package's
 ``functional_state()`` names (``gpt.h.0.attn.qkv_proj.weight`` is
 ``[in, out]``), so `load_reference_state` carries weights across
 one to one.  The JAX model's ``mpu.*ParallelLinear`` layers are plain
-`Linear` here under the same attribute names.  Dropout, recompute and
-the sequence / context parallel flags are not ported: setting one
-raises NotImplementedError.
+`Linear` here under the same attribute names.
+
+Dropout sits where the JAX model puts it (:176-206): after the
+embeddings and on both residual branches of every block, drawn from
+the device's generator (`core.rng`).  ``attn_dropout`` reaches the
+attention call, which applies it to nothing on either package (ROADMAP
+C2.6).  ``recompute`` replays each block in the backward in training
+(`distributed.recompute`, under ``recompute_policy``); the dropout
+masks of the replay are the forward's.  The sequence and context
+parallel flags are not ported: setting one raises
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -19,7 +27,9 @@ import torch
 from torch import nn
 
 from ..core.device import resolve_device
-from ..nn import Embedding, LayerNorm, Linear, RMSNorm, weight_in_use
+from ..distributed.recompute import _resolve_policy
+from ..distributed.recompute import recompute as _recompute
+from ..nn import Dropout, Embedding, LayerNorm, Linear, RMSNorm, weight_in_use
 from ..nn import functional as F
 from .generation import (
     GenerationMixin, _static_cache_attention, decode_position_ids,
@@ -49,13 +59,12 @@ class GPTConfig:
                  num_heads=12, max_seq_len=1024, ffn_hidden=None,
                  dropout=0.0, attn_dropout=0.0, use_rope=False,
                  use_rmsnorm=False, use_swiglu=False, tie_embeddings=True,
-                 recompute=False, sequence_parallel=False,
-                 context_parallel=False,
+                 recompute=False, recompute_policy=None,
+                 sequence_parallel=False, context_parallel=False,
                  layer_norm_eps=1e-5, fused_head_ce=False):
-        refuse_unported("GPTConfig", dropout=dropout,
-                        attn_dropout=attn_dropout, recompute=recompute,
-                        sequence_parallel=sequence_parallel,
+        refuse_unported("GPTConfig", sequence_parallel=sequence_parallel,
                         context_parallel=context_parallel)
+        _resolve_policy(recompute_policy)
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
@@ -65,10 +74,15 @@ class GPTConfig:
         self.ffn_hidden = ffn_hidden or (
             int(8 * hidden_size / 3 / 128 + 1) * 128 if use_swiglu
             else 4 * hidden_size)
+        self.dropout = dropout
+        self.attn_dropout = attn_dropout
         self.use_rope = use_rope
         self.use_rmsnorm = use_rmsnorm
         self.use_swiglu = use_swiglu
         self.tie_embeddings = tie_embeddings
+        self.recompute = recompute
+        # named policy: None / "full" | "dots" | "dots_no_batch"
+        self.recompute_policy = recompute_policy
         self.layer_norm_eps = layer_norm_eps
         # training returns hidden states; GPTPretrainingCriterion fuses
         # the LM-head projection into the chunked CE (the [B,S,V] logits
@@ -107,7 +121,10 @@ class GPTAttention(nn.Module):
             out, new_cache = _static_cache_attention(
                 q, k, v, kv_cache, cache_pos, attn_start)
             return self.out_proj(out.reshape(b, s, h)), new_cache
-        out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        out = F.scaled_dot_product_attention(
+            q, k, v, is_causal=True,
+            dropout_p=self.cfg.attn_dropout if self.training else 0.0,
+            training=self.training)
         return self.out_proj(out.reshape(b, s, h))
 
 
@@ -136,6 +153,12 @@ class GPTBlock(nn.Module):
         self.attn = GPTAttention(cfg, **kw)
         self.ln_2 = _norm(cfg, device, dtype)
         self.mlp = GPTMLP(cfg, **kw)
+        self.drop = Dropout(cfg.dropout)
+        self.cfg = cfg
+
+    def _body(self, x, rope):
+        x = x + self.drop(self.attn(self.ln_1(x), rope))
+        return x + self.drop(self.mlp(self.ln_2(x)))
 
     def forward(self, x, rope=None, kv_cache=None, cache_pos=None,
                 attn_start=None):
@@ -146,8 +169,10 @@ class GPTBlock(nn.Module):
             x = x + a
             x = x + self.mlp(self.ln_2(x))
             return x, new_cache
-        x = x + self.attn(self.ln_1(x), rope)
-        return x + self.mlp(self.ln_2(x))
+        if self.cfg.recompute and self.training:
+            return _recompute(self._body, x, rope,
+                              policy=self.cfg.recompute_policy)
+        return self._body(x, rope)
 
 
 class GPTModel(nn.Module):
@@ -158,6 +183,7 @@ class GPTModel(nn.Module):
         self.wte = Embedding(cfg.vocab_size, cfg.hidden_size, **kw)
         if not cfg.use_rope:
             self.wpe = Embedding(cfg.max_seq_len, cfg.hidden_size, **kw)
+        self.drop = Dropout(cfg.dropout)
         self.h = nn.ModuleList([GPTBlock(cfg, **kw)
                                 for _ in range(cfg.num_layers)])
         self.ln_f = _norm(cfg, device, dtype)
@@ -177,6 +203,7 @@ class GPTModel(nn.Module):
             else:
                 pos = torch.arange(s, device=input_ids.device)
             x = x + self.wpe(pos.long())
+        x = self.drop(x)
         if kv_caches is not None:
             new_caches = []
             for block, kc in zip(self.h, kv_caches):

@@ -7,9 +7,14 @@ Parameter names and shapes equal the JAX package's ``functional_state()``
 ``lm_head.weight`` is ``[hidden, vocab]``), so `load_reference_state`
 carries weights across one to one.  K and V keep ``num_kv_heads`` heads
 everywhere: the flash, decode and paged kernels group the query heads
-per kv head, and the KV caches are sized by ``num_kv_heads``.  The
-pipeline stages (`llama_pipe_layers`) are not ported yet (ROADMAP Queue
-A), nor are dropout, recompute and the sequence / context parallel
+per kv head, and the KV caches are sized by ``num_kv_heads``.
+
+``dropout`` is the attention's rate, as in the JAX model (:132), which
+applies it to nothing on either package (ROADMAP C2.6).
+``recompute`` replays each block in the backward in training
+(`distributed.recompute`, under ``recompute_policy``), rope and flash
+kernels included.  The pipeline stages (`llama_pipe_layers`) are not
+ported yet (ROADMAP Queue A), nor are the sequence / context parallel
 flags: setting one raises NotImplementedError.
 """
 from __future__ import annotations
@@ -18,6 +23,8 @@ import torch
 from torch import nn
 
 from ..core.device import resolve_device
+from ..distributed.recompute import _resolve_policy
+from ..distributed.recompute import recompute as _recompute
 from ..nn import Embedding, Linear, RMSNorm, weight_in_use
 from ..nn import functional as F
 from .generation import (
@@ -35,10 +42,11 @@ class LlamaConfig:
                  num_heads=32, num_kv_heads=None, max_seq_len=2048,
                  ffn_hidden=11008, rope_theta=10000.0, rms_eps=1e-6,
                  dropout=0.0, tie_embeddings=False, recompute=False,
-                 sequence_parallel=False, context_parallel=False):
-        refuse_unported("LlamaConfig", dropout=dropout, recompute=recompute,
-                        sequence_parallel=sequence_parallel,
+                 recompute_policy=None, sequence_parallel=False,
+                 context_parallel=False):
+        refuse_unported("LlamaConfig", sequence_parallel=sequence_parallel,
                         context_parallel=context_parallel)
+        _resolve_policy(recompute_policy)
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
@@ -48,7 +56,11 @@ class LlamaConfig:
         self.ffn_hidden = ffn_hidden
         self.rope_theta = rope_theta
         self.rms_eps = rms_eps
+        self.dropout = dropout
         self.tie_embeddings = tie_embeddings
+        self.recompute = recompute
+        # named policy: None / "full" | "dots" | "dots_no_batch"
+        self.recompute_policy = recompute_policy
 
 
 class LlamaAttention(nn.Module):
@@ -83,7 +95,10 @@ class LlamaAttention(nn.Module):
             out, new_cache = _static_cache_attention(q, k, v, kv_cache,
                                                      cache_pos, attn_start)
             return self.out_proj(out.reshape(b, s, q_size)), new_cache
-        out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        out = F.scaled_dot_product_attention(
+            q, k, v, is_causal=True,
+            dropout_p=self.cfg.dropout if self.training else 0.0,
+            training=self.training)
         return self.out_proj(out.reshape(b, s, q_size))
 
 
@@ -109,6 +124,11 @@ class LlamaBlock(nn.Module):
         self.post_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps,
                                  device=device, dtype=dtype)
         self.mlp = LlamaMLP(cfg, **kw)
+        self.cfg = cfg
+
+    def _body(self, x, rope):
+        x = x + self.attn(self.input_norm(x), rope)
+        return x + self.mlp(self.post_norm(x))
 
     def forward(self, x, rope, kv_cache=None, cache_pos=None,
                 attn_start=None):
@@ -118,8 +138,10 @@ class LlamaBlock(nn.Module):
                                      attn_start=attn_start)
             x = x + a
             return x + self.mlp(self.post_norm(x)), new_cache
-        x = x + self.attn(self.input_norm(x), rope)
-        return x + self.mlp(self.post_norm(x))
+        if self.cfg.recompute and self.training:
+            return _recompute(self._body, x, rope,
+                              policy=self.cfg.recompute_policy)
+        return self._body(x, rope)
 
 
 class LlamaModel(nn.Module):

@@ -1,5 +1,6 @@
 """Runtime telemetry of the port (``paddle_tpu/observability``
-counterpart).  Relative imports only; no module here imports torch.
+counterpart).  Relative imports only; no module here imports torch at
+its top level.
 
 Stdlib copies of the JAX package's modules:
   * `metrics`, `trace`, `flight` — counters / gauges / histograms, the
@@ -10,6 +11,10 @@ Stdlib copies of the JAX package's modules:
     per-program compile sub-ledger;
   * `request_trace`, `slo`, `export` — request identity across hops,
     the SLO ledger, the telemetry exporter of a fleet's replicas.
+
+  * `step_stats` — `StepTimer`: step records, the JSONL stream, the
+    record hooks the watchdog beats from; its device peak memory is the
+    CUDA allocator's (`torch`, imported when a record reads it).
 
 The port's own:
   * `capture_cost` — the role of ``observability/xla_cost.py``: each
@@ -26,12 +31,13 @@ from __future__ import annotations
 
 from . import (  # noqa: F401
     capture_cost, export, flight, lifecycle, metrics, request_trace, slo,
-    tenant_ledger, timeseries, trace,
+    step_stats, tenant_ledger, timeseries, trace,
 )
+from .step_stats import StepTimer  # noqa: F401
 
 __all__ = ["metrics", "flight", "trace", "capture_cost", "request_trace",
            "slo", "export", "tenant_ledger", "timeseries", "lifecycle",
-           "attach", "detach"]
+           "step_stats", "StepTimer", "attach", "detach"]
 
 # The snapshot-schema floor `attach()` guarantees: these counters exist
 # (at 0) in every telemetry snapshot even when the path never fired in
@@ -39,18 +45,23 @@ __all__ = ["metrics", "flight", "trace", "capture_cost", "request_trace",
 # increment site uses, so the declared key is the key that counts.
 _SCHEMA_COUNTERS = tuple(
     # fault injections and retry traffic at the fault points and
-    # policies of the serving plane
+    # policies of the serving plane and the train step
     [("resilience.faults", {"point": p})
-     for p in ("serving.request", "store.op", "router.forward",
-               "router.stream_read", "router.resume_verify",
-               "replica.crash")]
+     for p in ("checkpoint.write", "train.step", "serving.request",
+               "store.op", "router.forward", "router.stream_read",
+               "router.resume_verify", "replica.crash")]
     + [("resilience.retries", {"policy": p})
        for p in ("elastic.heartbeat", "serving")]
     + [("resilience.giveups", {"policy": p})
        for p in ("elastic.heartbeat", "serving")]
     + [("resilience.circuit_open", {"policy": p})
        for p in ("elastic.heartbeat", "serving")]
-    + [("resilience.degraded_batches", {})]
+    # the train step's guard (skips by source, rollbacks of the guard
+    # and of the checkpoint manager) and the watchdog
+    + [("resilience.skipped_steps", {"source": s})
+       for s in ("guard", "amp", "amp_floor")]
+    + [("resilience.rollbacks", {}), ("resilience.watchdog_trips", {}),
+       ("resilience.degraded_batches", {})]
     # admission sheds by reason, QoS sheds and preemptions by class,
     # preemption signals and serving drains
     + [("resilience.shed_requests", {"reason": r})
@@ -61,7 +72,8 @@ _SCHEMA_COUNTERS = tuple(
        for c in ("paid", "free", "batch")]
     + [("preemption.signals", {"signal": s})
        for s in ("SIGTERM", "SIGINT")]
-    + [("preemption.maintenance_events", {}), ("preemption.drains", {}),
+    + [("preemption.maintenance_events", {}),
+       ("preemption.checkpoints", {}), ("preemption.drains", {}),
        ("preemption.callback_errors", {})]
     # request outcomes on both sides of a hop
     + [("serving.requests", {"status": s})

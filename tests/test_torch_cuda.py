@@ -62,7 +62,12 @@ tiers) equal to the CPU engine's streams and to greedy over
 `effective_params()`, with exact launches a pass; sampled `generate()`
 replaying its generator (== a per-step loop on a card generator of the
 same seed); beams equal to the CPU port's (-k "spec or sampled or
-beam").
+beam"); the long job's train step (-k "guarded or resumes or
+recompute"): a guarded tiny GPT with dropout skipping a NaN step and
+rolling back inside its captured graph, the JAX package's checkpoint
+(``tests/data/jax_gpt_train_state``) resumed on the card, and each
+recompute policy with dropout equal to the plain step and replaying its
+eager body.
 Every test needs an NVIDIA card and skips without one.  On the card (no
 JAX needed, so the JAX test conftest is left out)::
 
@@ -2623,3 +2628,160 @@ def test_beam_search_on_the_card_matches_cpu(num_beams, eos):
         got = gpu.generate(ids, max_new_tokens=12, num_beams=num_beams,
                            eos_token_id=eos, length_penalty=0.6)
         np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+# ------------------------------------------- the long job's train step
+def _resilient_gpt(guard=None, recompute=None, dropout=0.1, seed=2):
+    from paddle_tpu_torch.distributed import build_train_step
+    from paddle_tpu_torch.models.gpt import (
+        GPTConfig, GPTForCausalLM, GPTPretrainingCriterion,
+    )
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = GPTConfig(vocab_size=128, hidden_size=64, num_layers=2,
+                    num_heads=4, max_seq_len=64, fused_head_ce=True,
+                    dropout=dropout, recompute=recompute is not None,
+                    recompute_policy=recompute)
+    model = GPTForCausalLM(cfg, seed=seed)
+    return model, build_train_step(model, AdamW(learning_rate=1e-3),
+                                   GPTPretrainingCriterion(model=model),
+                                   guard=guard)
+
+
+def _resilient_batch():
+    rs = np.random.RandomState(5)
+    return tuple(rs.randint(0, 128, (2, 48)).astype(np.int32)
+                 for _ in range(2))
+
+
+def _live(step):
+    with torch.no_grad():
+        return [t.clone() for t in step.train_state_dict().values()]
+
+
+def test_guarded_step_skips_and_rolls_back_in_its_graph(tmp_path):
+    """A guarded tiny GPT with dropout 0.1 on the card: fault-free replays
+    equal the unguarded step's bit for bit; a NaN step (the device flag,
+    in the graph already captured) is skipped with the state kept; two
+    in a row roll back to the saved checkpoint; one graph throughout,
+    the model's forward run only for the eager step and the capture."""
+    from paddle_tpu_torch.core import rng
+    from paddle_tpu_torch.distributed.checkpoint import CheckpointManager
+    from paddle_tpu_torch.resilience import StepGuard, faults
+
+    ids, labels = _resilient_batch()
+    rng.seed(3)
+    plain = _resilient_gpt()[1].run_steps(ids, labels, repeat=4)
+    guard = StepGuard(max_consecutive_bad=2)
+    model, step = _resilient_gpt(guard)
+    step.attach_checkpoint_manager(CheckpointManager(str(tmp_path)))
+    forwards = []
+    hook = model.register_forward_hook(lambda *a: forwards.append(1))
+    rng.seed(3)
+    assert torch.equal(step.run_steps(ids, labels, repeat=4), plain)
+    (graph,) = [g for _, g in step._graphs.values()]
+    before = _live(step)
+    faults.clear()
+    try:
+        with faults.inject("train.step", kind="nan", at=1):
+            bad = step(ids, labels)
+        assert torch.isnan(bad) and guard.total_bad == 1
+        assert all(torch.equal(a, b) for a, b in zip(before, _live(step)))
+        assert torch.isfinite(step(ids, labels))
+        step.save_checkpoint()
+        saved = _live(step)
+        with faults.inject("train.step", kind="nan", times=2):
+            step(ids, labels)
+            step(ids, labels)
+    finally:
+        faults.clear()
+    assert guard.rollbacks == 1
+    assert all(torch.equal(a, b) for a, b in zip(saved, _live(step)))
+    assert torch.isfinite(step(ids, labels))
+    hook.remove()
+    assert len(forwards) == 2
+    assert [g for _, g in step._graphs.values()] == [graph]
+
+
+def test_jax_train_state_resumes_on_the_card():
+    """The checkpoint the JAX package's train step wrote
+    (``tests/data/jax_gpt_train_state``) resumes in the port's step on
+    the card: the next 2 losses are the JAX step's within 1e-4; the
+    card's state saved again loads into the CPU port bit for bit."""
+    import json
+    import os
+    import tempfile
+
+    from paddle_tpu_torch.distributed import build_train_step
+    from paddle_tpu_torch.models.gpt import (
+        GPTConfig, GPTForCausalLM, GPTPretrainingCriterion,
+    )
+    from paddle_tpu_torch.optimizer import AdamW
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                        "jax_gpt_train_state")
+    with open(os.path.join(path, "expected.json")) as f:
+        want = json.load(f)
+    steps = []
+    for device in ("cuda", "cpu"):
+        model = GPTForCausalLM(GPTConfig(**want["config"]), device=device,
+                               seed=9)
+        steps.append(build_train_step(
+            model, AdamW(learning_rate=want["learning_rate"]),
+            GPTPretrainingCriterion(model=model)))
+    card, cpu = steps
+    card.load_train_state(path)
+    rs = np.random.RandomState(want["batch_seed"])
+    ids, labels = (rs.randint(0, 64, (2, 8)).astype(np.int32)
+                   for _ in range(2))
+    got = [float(card(ids, labels)) for _ in range(2)]
+    np.testing.assert_allclose(got, want["next_losses"], rtol=1e-4)
+    with tempfile.TemporaryDirectory() as tmp:
+        card.save_train_state(tmp)
+        cpu.load_train_state(tmp)
+    for a, b in zip(card.train_state_dict().values(),
+                    cpu.train_state_dict().values()):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("policy", ["full", "dots", "dots_no_batch"])
+def test_recompute_with_dropout_on_the_card(policy):
+    """Dropout 0.1, 3 AdamW steps in f32 from one generator state: under
+    each recompute policy the losses and parameters are the plain
+    step's (1e-6 of the largest value; bit for bit where the kernels
+    are), the device generator ends where the plain step left it, flash
+    runs twice a layer forward and once backward; the recomputed graph
+    replays its eager body bit for bit."""
+    from paddle_tpu_torch.core import rng
+
+    ids, labels = _resilient_batch()
+    runs = []
+    for rc in (None, policy):
+        model, step = _resilient_gpt(recompute=rc)
+        rng.seed(7)
+        K.reset_launches()
+        losses = step.run_steps(ids, labels, repeat=3)
+        runs.append((losses, [p.detach().clone() for p in
+                              model.parameters()],
+                     step.generator.get_state(), K.launch_counts()))
+    (l0, p0, g0, c0), (l1, p1, g1, c1) = runs
+    assert (l1 - l0).abs().max() <= 1e-6 * l0.abs().max()
+    for a, b in zip(p0, p1):
+        assert (a - b).abs().max() <= 1e-6 * a.abs().max()
+    assert torch.equal(g0, g1)
+    assert (c0["flash_fwd"], c1["flash_fwd"]) == (2 * 3, 4 * 3)
+    assert c0["flash_bwd"] == c1["flash_bwd"] == 2 * 3
+    start, gstate = _train_state(step), step.generator.get_state()
+    got = step.run_steps(ids, labels, repeat=2, lrs=[1e-3] * 2)
+    after = _train_state(step)
+    with torch.no_grad():
+        for t, s in zip(step._state_tensors(), start):
+            t.copy_(s)
+    step.generator.set_state(gstate)
+    step._lr.fill_(1e-3)
+    batch = step._place((ids, labels))
+    want = torch.stack([step._step(batch) for _ in range(2)])
+    assert torch.equal(got, want)
+    assert all(torch.equal(a, t) for a, t in zip(after,
+                                                 step._state_tensors()))
+    K.reset_launches()

@@ -45,6 +45,11 @@ from paddle_tpu.ops.pallas.paged_attention import (
 )
 from paddle_tpu_torch.ops.quant import dequantize_vectors, quantize_vectors
 
+# one intra-op thread a worker: the tier-1 run's xdist workers share
+# the host's cores, and torch's default pool (a thread a core in each
+# worker) oversubscribes them
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HEADER = os.path.join(REPO, "paddle_tpu_torch", "csrc", "decode_common.cuh")
 TOL = dict(atol=2e-5, rtol=2e-5)

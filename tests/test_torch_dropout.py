@@ -25,6 +25,11 @@ from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch.core import rng
 from paddle_tpu_torch.nn import functional as TF
 
+# one intra-op thread a worker: the tier-1 run's xdist workers share
+# the host's cores, and torch's default pool (a thread a core in each
+# worker) oversubscribes them
+torch.set_num_threads(1)
+
 
 def _x(*shape, seed=0, dtype=torch.float32):
     g = torch.Generator().manual_seed(seed)

@@ -36,6 +36,11 @@ from paddle_tpu_torch.ops import kernels as K
 from paddle_tpu_torch.optimizer import AdamW, lr as tlr
 from paddle_tpu_torch.vision.models import vit as TV
 
+# one intra-op thread a worker: the tier-1 run's xdist workers share
+# the host's cores, and torch's default pool (a thread a core in each
+# worker) oversubscribes them
+torch.set_num_threads(1)
+
 REL = 1e-5
 WIDTH, HEADS = 32, 4
 

@@ -35,6 +35,11 @@ from paddle_tpu.ops.pallas import flash_attention as JFA
 from paddle_tpu_torch.ops import kernels as K
 from paddle_tpu_torch.ops.kernels.flash_attention import flash_bwd, flash_fwd
 
+# one intra-op thread a worker: the tier-1 run's xdist workers share
+# the host's cores, and torch's default pool (a thread a core in each
+# worker) oversubscribes them
+torch.set_num_threads(1)
+
 BF16_REL = 2e-2     # of the largest reference value: bf16 keeps 8 bits
 LSE_TOL = 1e-4      # f32 scores from the same bf16 inputs
 

@@ -39,6 +39,12 @@ from paddle_tpu_torch.inference.serving import (
 from paddle_tpu_torch.observability import metrics
 from paddle_tpu_torch.observability import request_trace as rtrace
 from paddle_tpu_torch.resilience.overload import ShedError
+import torch
+
+# one intra-op thread a worker: the tier-1 run's xdist workers share
+# the host's cores, and torch's default pool (a thread a core in each
+# worker) oversubscribes them
+torch.set_num_threads(1)
 
 
 @pytest.fixture(autouse=True)

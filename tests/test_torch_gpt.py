@@ -23,6 +23,11 @@ from paddle_tpu_torch.models.gpt import (
     GPTConfig, GPTForCausalLM, load_reference_state,
 )
 
+# one intra-op thread a worker: the tier-1 run's xdist workers share
+# the host's cores, and torch's default pool (a thread a core in each
+# worker) oversubscribes them
+torch.set_num_threads(1)
+
 CFG = dict(vocab_size=128, hidden_size=32, num_layers=2, num_heads=4,
            max_seq_len=64)
 
@@ -200,12 +205,18 @@ def test_load_reference_state_checks_names_and_shapes(models):
 
 
 def test_unported_options_raise():
-    # the LLaMA variant's fields are ported; dropout, recompute and the
-    # parallel flags raise when set
-    for field in ("dropout", "attn_dropout", "recompute",
-                  "sequence_parallel", "context_parallel"):
+    # the LLaMA variant's fields, dropout and recompute are ported; the
+    # parallel flags raise when set, and an unknown recompute policy
+    # raises as JAX's `_resolve_policy` does
+    for field in ("sequence_parallel", "context_parallel"):
         with pytest.raises(NotImplementedError, match=field):
             GPTConfig(**{field: True}, **CFG)
+    with pytest.raises(ValueError, match="recompute policy"):
+        GPTConfig(recompute=True, recompute_policy="dot", **CFG)
+    cfg = GPTConfig(dropout=0.1, attn_dropout=0.1, recompute=True,
+                    recompute_policy="dots_no_batch", **CFG)
+    assert (cfg.dropout, cfg.attn_dropout, cfg.recompute,
+            cfg.recompute_policy) == (0.1, 0.1, True, "dots_no_batch")
     cfg = GPTConfig(use_rope=True, use_rmsnorm=True, use_swiglu=True,
                     tie_embeddings=False, dropout=0.0, **CFG)
     assert cfg.ffn_hidden == 128        # SwiGLU: 8/3 of 32, rounded to 128

@@ -69,6 +69,11 @@ from paddle_tpu_torch.optimizer import Adam, AdamW, Momentum
 from test_torch_engine import models, prompts  # noqa: F401  (fixtures)
 from test_torch_quant_kv import gpt  # noqa: F401  (fixture)
 
+# one intra-op thread a worker: the tier-1 run's xdist workers share
+# the host's cores, and torch's default pool (a thread a core in each
+# worker) oversubscribes them
+torch.set_num_threads(1)
+
 
 # ------------------------------------------------------ the decode program
 def _two_batches(eng, n):

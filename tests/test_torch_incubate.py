@@ -47,6 +47,11 @@ from paddle_tpu_torch.models import load_reference_state
 from paddle_tpu_torch.ops import kernels as K
 from paddle_tpu_torch.ops.kernels import fused_norm as FN
 
+# one intra-op thread a worker: the tier-1 run's xdist workers share
+# the host's cores, and torch's default pool (a thread a core in each
+# worker) oversubscribes them
+torch.set_num_threads(1)
+
 REL = 1e-5
 WIDTH, HEADS, FFN = 128, 4, 256
 
@@ -451,12 +456,22 @@ def test_fused_multi_transformer_attends_without_a_causal_mask():
 
 
 def test_incubate_layers_refuse_dropout_in_training():
+    """Dropout in training is ported: the layer's default rates (JAX's
+    0.1) drop elements in training, drawn from the device generator,
+    and nothing in eval."""
+    from paddle_tpu_torch.core import rng
+
     layer = tinn.FusedFeedForward(16, 32, device="cpu")   # JAX's 0.1
-    layer.train()
-    with pytest.raises(NotImplementedError, match="dropout"):
-        layer(torch.zeros(1, 2, 16))
+    x = torch.randn(4, 8, 16, generator=torch.Generator().manual_seed(0))
     layer.eval()
-    assert layer(torch.zeros(1, 2, 16)).shape == (1, 2, 16)
+    ref = layer(x)
+    assert ref.shape == (4, 8, 16)
+    layer.train()
+    rng.seed(3)
+    a = layer(x)
+    rng.seed(3)
+    assert torch.equal(a, layer(x))       # one generator state, one mask
+    assert not torch.equal(a, ref) and torch.isfinite(a).all()
 
 
 def test_incubate_layers_default_to_cuda():

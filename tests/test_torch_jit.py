@@ -27,6 +27,11 @@ from paddle_tpu_torch.models import load_reference_state
 from paddle_tpu_torch.vision import models as TV
 from test_torch_vision import MODELS, _seed_bn_stats
 
+# one intra-op thread a worker: the tier-1 run's xdist workers share
+# the host's cores, and torch's default pool (a thread a core in each
+# worker) oversubscribes them
+torch.set_num_threads(1)
+
 
 def _pair(name):
     ctor, kw, size = MODELS[name]

@@ -34,6 +34,11 @@ from paddle_tpu_torch.ops.kernels.paged_attention import paged_attention
 from paddle_tpu_torch.ops.kernels.rope import RoPE, rope, rope_reference
 from paddle_tpu_torch.nn import functional as TF
 
+# one intra-op thread a worker: the tier-1 run's xdist workers share
+# the host's cores, and torch's default pool (a thread a core in each
+# worker) oversubscribes them
+torch.set_num_threads(1)
+
 TOL = dict(atol=2e-5, rtol=2e-5)
 
 

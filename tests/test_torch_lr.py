@@ -29,6 +29,11 @@ from paddle_tpu_torch.distributed import build_train_step
 from paddle_tpu_torch.optimizer import Adam, AdamW, Momentum
 from paddle_tpu_torch.optimizer import lr as TL
 
+# one intra-op thread a worker: the tier-1 run's xdist workers share
+# the host's cores, and torch's default pool (a thread a core in each
+# worker) oversubscribes them
+torch.set_num_threads(1)
+
 SCHEDULERS = {
     "NoamDecay": lambda L: L.NoamDecay(d_model=64, warmup_steps=10,
                                        learning_rate=2.0),

@@ -45,6 +45,11 @@ from paddle_tpu_torch.observability import metrics as tmetrics
 from paddle_tpu_torch.ops import quant as Q
 from paddle_tpu_torch.ops.kernels import paged_attention as PA
 
+# one intra-op thread a worker: the tier-1 run's xdist workers share
+# the host's cores, and torch's default pool (a thread a core in each
+# worker) oversubscribes them
+torch.set_num_threads(1)
+
 # the module (the package re-exports a function of the same name)
 JPA = importlib.import_module("paddle_tpu.ops.pallas.paged_attention")
 

@@ -24,6 +24,11 @@ from paddle_tpu_torch.ops import kernels as K
 from paddle_tpu_torch.ops.kernels import flash_attention as FA
 from paddle_tpu_torch.ops.kernels import relayout as RL
 
+# one intra-op thread a worker: the tier-1 run's xdist workers share
+# the host's cores, and torch's default pool (a thread a core in each
+# worker) oversubscribes them
+torch.set_num_threads(1)
+
 
 @pytest.fixture(autouse=True)
 def _no_launches():

@@ -41,6 +41,11 @@ from paddle_tpu_torch.models.gpt import (
 )
 from paddle_tpu_torch.observability import flight, lifecycle, metrics, trace
 
+# one intra-op thread a worker: the tier-1 run's xdist workers share
+# the host's cores, and torch's default pool (a thread a core in each
+# worker) oversubscribes them
+torch.set_num_threads(1)
+
 CFG = dict(vocab_size=128, hidden_size=32, num_layers=2, num_heads=4,
            max_seq_len=64)
 ENGINE = dict(page_size=8, max_slots=2, max_seq_len=64)

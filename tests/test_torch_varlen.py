@@ -44,6 +44,11 @@ from paddle_tpu_torch.nn.functional import flash_attn_unpadded
 from paddle_tpu_torch.ops import kernels as K
 from paddle_tpu_torch.ops.kernels import varlen_attention as VA
 
+# one intra-op thread a worker: the tier-1 run's xdist workers share
+# the host's cores, and torch's default pool (a thread a core in each
+# worker) oversubscribes them
+torch.set_num_threads(1)
+
 F32_TOL = 3e-5
 BF16_REL = 2e-2
 

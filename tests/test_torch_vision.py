@@ -47,6 +47,11 @@ from paddle_tpu_torch.ops.kernels import window_attention as WA
 from paddle_tpu_torch.vision import models as TV
 from paddle_tpu_torch.vision.models import swin as TSW
 
+# one intra-op thread a worker: the tier-1 run's xdist workers share
+# the host's cores, and torch's default pool (a thread a core in each
+# worker) oversubscribes them
+torch.set_num_threads(1)
+
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 
@@ -262,8 +267,18 @@ def _pair(name):
     return jm, tm, size
 
 
-@pytest.mark.parametrize("name", sorted(MODELS))
+# the other models' cases are in tests/test_torch_vision_models.py
+SPLIT_MODELS = ("resnet50", "resnext50_32x4d", "swin_2stage")
+
+
+@pytest.mark.parametrize("name", sorted(set(MODELS) - set(SPLIT_MODELS)))
 def test_model_eval_logits_match_jax(name):
+    check_eval_logits(name)
+
+
+def check_eval_logits(name):
+    """The model's eval logits against the JAX model's on the same
+    weights and seeded batch-norm statistics, 1e-4 of the largest."""
     jm, tm, size = _pair(name)
     x = np.random.RandomState(2).randn(2, 3, size, size).astype(np.float32)
     ref = np.asarray(jm(P.to_tensor(x)).numpy())

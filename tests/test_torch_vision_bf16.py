@@ -42,6 +42,11 @@ from paddle_tpu_torch.ops.kernels import conv_norm as CN
 from paddle_tpu_torch.ops.kernels import window_attention as WA
 from paddle_tpu_torch.vision.models import swin as TSW
 
+# one intra-op thread a worker: the tier-1 run's xdist workers share
+# the host's cores, and torch's default pool (a thread a core in each
+# worker) oversubscribes them
+torch.set_num_threads(1)
+
 BF16_REL = 2e-2     # of the largest reference value: bf16 keeps 8 bits
 
 
