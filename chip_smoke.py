@@ -282,7 +282,35 @@ non-zero and prints no result):
  26. train_llama_recompute: LLaMA at llama_7b widths with 2 layers, B1
      x 2048, bf16 O2, recompute_policy="dots_no_batch" against no
      recompute: the losses (within 1e-3; bit for bit is logged), flash
-     and rope twice a layer forward with recompute, their adjoints once.
+     and rope twice a layer forward with recompute, their adjoints once;
+ 27. train_eager_amp: GPT-125M (12 layers, B8 x 1024, the fused head +
+     CE) in the eager loop under bf16 O2: `amp.decorate(model,
+     AdamW(multi_precision=True), level="O2")`, ClipGradByGlobalNorm(1.0),
+     `auto_cast`, ``loss.backward(); opt.step(); opt.clear_grad()`` for
+     20 steps; the same loop from the same weights through
+     `jit.to_static(model)` in training for 10 steps (one program, its
+     forward and backward graphs replayed from the second call: losses
+     bit for bit the eager loop's); phase 8's graphed step from the same
+     weights (the bf16 casts `decorate` starts the eager loop's masters
+     from; clip 1.0): its first 3 losses within 2e-2 relative of the
+     eager loop's; tokens/s and peak memory of the three, 12 + 12 flash
+     launches a step;
+ 28. train_fp16_scaler: the same model in float16 O1 (f32 parameters,
+     `auto_cast(dtype="float16")`), AdamW + clip behind
+     `GradScaler(init_loss_scaling=2**16)` attached to a StepGuard, 20
+     eager steps, the loss times inf at step 7: that step leaves the
+     parameters, the slots and the step count bit for bit, halves the
+     scale, one "amp" skip and no escalation; tokens/s against phase
+     27's eager loop, the scale's trajectory, the last loss against the
+     bf16 run's, 12 + 12 f16 flash launches a step;
+ 29. optimizer_zoo: SGD, Momentum, Adagrad, Adam (amsgrad), AdamW,
+     Adamax, RMSProp (centered), Lamb, Adadelta and Rprop each in
+     GPT-125M's graphed train step at B8 x 1024, bf16 AMP: 5 replayed
+     steps timed (tokens/s), the rule's profiled device ms a step (its
+     `apply_gradients` over the 12-layer model's f32 masters) and its
+     slot memory; and in f32 at 2 layers (batch 2 x 256, lr 1e-5) 4 steps
+     of the graphed step (3 of them replays) against 4 eager `.step()`s
+     of the same rule: losses and parameters within 1e-4.
 
 Phase 3 also holds paged_attention_int8 (the gpt_1p3b row's pool in
 int8, and a llama_7b decode step, 32 kv heads over ~1000 keys each, with
@@ -301,7 +329,10 @@ a check that two bf16 runs of flash_fwd / flash_bwd at the train shape,
 of varlen_bwd on the causal packing, of conv_bn_act at ResNet-50's
 3x3/s1 256->256 @14 (B64), of window_attention and window_attention_bwd
 at Swin-T's stage 1 (B128, no shift) and of fused_norm at [16384, 768]
-are bit-identical; varlen_fwd / varlen_bwd on the packed batch of phase
+are bit-identical; flash_fwd and flash_bwd in float16 at the train
+shape (causal B8 S1024 H12 D64: phase 28's) against their plain versions
+within 1e-2, beside SDPA in f16 (the JSON row's "float16" entry);
+varlen_fwd / varlen_bwd on the packed batch of phase
 17 (library yardstick: SDPA on `torch.nested` jagged tensors, or with a
 block-diagonal mask where this PyTorch cannot dispatch those; the form
 is logged), fused_norm at the norms of phases 19 and 20, an RMS norm
@@ -321,8 +352,9 @@ Launch counters are reset just before the driven part of phases 4, 4b,
 5, 5a (its sampled and its beam calls), 5b (each engine), 8, 8a, 8b, 9,
 9a, 9b, 9c (each tier), 10, 11a, 12, 14, 15, 16, 17, 19, 20, 21, 22
 (its in-process engine: the replicas count theirs in their own
-processes), 24, 25 and 26 (their timed steps with recompute) and read
-just after each; every kernel of each path must
+processes), 24, 25 and 26 (their timed steps with recompute), 27 (the timed
+eager steps), 28 (the timed f16 steps) and 29 (each rule's timed
+replays) and read just after each; every kernel of each path must
 have launched.  A replayed
 CUDA graph (the engine's decode step, the train step) adds the launches
 its capture recorded to the counters, once a replay.  Under --profile
@@ -351,8 +383,10 @@ sys.path.insert(0, HERE)
 
 F32_TOL = 1e-4      # f32 kernel vs plain: reduction-order noise
 BF16_TOL = 2e-2     # bf16: both round the f32 result to bf16 (8 bits)
+F16_TOL = 1e-2      # f16: both round the f32 result to f16 (11 bits)
 PEAK_BYTES = 3.35e12                      # H100 SXM HBM3, bytes/s
 PEAK_FLOPS = {"bfloat16": 989e12,         # dense tensor-core bf16
+              "float16": 989e12,          # dense tensor-core f16
               "float32": 67e12}           # f32 outside the tensor cores
 SEED = 0
 
@@ -1758,11 +1792,17 @@ def phase_kernels():
     vision = _vision_launches(VISION_BATCH)
     train = _swin_train_launches(SWIN_TRAIN_BATCH)
     table, worst, times = {}, {}, {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         dname = str(dtype).split(".")[1]
-        tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+        tol = {torch.float32: F32_TOL, torch.bfloat16: BF16_TOL,
+               torch.float16: F16_TOL}[dtype]
+        # float16: the flash kernels at the train shape, where phase 28's
+        # O1 loop runs them
+        cases = kernel_cases(torch, dtype, vision, train) \
+            if dtype != torch.float16 else \
+            [c for c in bwd_cases(torch, dtype) if "(train)" in c[1]]
         for name, label, run, plain, lib, nbytes, flops, ops_dtype, real \
-                in kernel_cases(torch, dtype, vision, train):
+                in cases:
             got, want = run(), plain()
             rel = None
             if name == "window_attention_bwd":    # (dqkv, dbias)
@@ -1861,7 +1901,7 @@ def phase_kernels():
             row = dict(name=name, case=label, dtype=dname, ms=ms,
                        plain_ms=pms, library_ms=lms, bound_ms=bms,
                        bound_by=by)
-            if name == "flash_fwd":
+            if name == "flash_fwd" and dname != "float16":
                 if "pad B1" in label:
                     table[key] = row
             else:
@@ -5373,6 +5413,405 @@ def phase_fleet():
     return counts
 
 
+# ------------------------------------------------------- phases 27 - 29
+EAGER_STEPS = 20         # the bf16 eager loop (phase 27)
+STATIC_STEPS = 10        # its to_static run
+FP16_STEPS = 20          # phase 28
+FP16_OVERFLOW_STEP = 7   # the step whose loss is multiplied by inf
+ZOO_STEPS = 5            # phase 29: replayed steps of each rule
+
+
+def _gpt125m_batch(cfg, batch, seq):
+    """Phase 8's batch (bench.py:87's seed)."""
+    import torch
+
+    rs = np.random.RandomState(0)
+    return tuple(torch.from_numpy(rs.randint(
+        0, cfg.vocab_size, (batch, seq)).astype(np.int32)).cuda()
+        for _ in range(2))
+
+
+def _eager_loop(model, opt, crit, batch, steps, cast):
+    """`steps` iterations of ``loss.backward(); opt.step();
+    opt.clear_grad()`` under ``amp.auto_cast(**cast)``.  Returns (the
+    losses, the seconds of the steps after the first, the launch counts
+    of those steps)."""
+    import torch
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.ops import kernels as K
+
+    ids, labels = batch
+    losses, t0 = [], None
+    for i in range(steps):
+        if i == 1:
+            torch.cuda.synchronize()
+            K.reset_launches()
+            t0 = time.perf_counter()
+        with amp.auto_cast(**cast):
+            loss = crit(model(ids), labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.detach())
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return torch.stack(losses).float().cpu().numpy(), dt, K.launch_counts()
+
+
+def _o2_model(cfg, lr):
+    """GPT at `cfg`, seeded, with AdamW(lr, multi_precision, clip 1.0)
+    under `amp.decorate` O2 bf16, in training mode."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = GPTForCausalLM(cfg, device="cuda", seed=SEED)
+    opt = AdamW(learning_rate=lr, parameters=model.parameters(),
+                multi_precision=True, grad_clip=ClipGradByGlobalNorm(1.0))
+    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    return model.train(), opt
+
+
+def phase_train_eager_amp(card, batch=8, seq=1024, lr=1e-4):
+    """27. GPT-125M in the eager loop under bf16 O2: `amp.decorate`,
+    AdamW(multi_precision) with ClipGradByGlobalNorm(1.0),
+    `auto_cast`, ``loss.backward(); opt.step(); opt.clear_grad()``;
+    then the same loop from the same weights through
+    `jit.to_static(model)` in training (its losses bit for bit the
+    eager loop's), and phase 8's graphed step from the same weights (the
+    bf16 casts `decorate` gives the eager loop, from which its masters
+    start) with the same clip: its first 3 losses within BF16_TOL,
+    relative, of the eager loop's.  Tokens/s and peak memory of the three; flash
+    launches a step.  Returns the eager loop's launch counts."""
+    import torch
+
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.distributed import build_train_step
+    from paddle_tpu_torch.models.gpt import (
+        GPTForCausalLM, GPTPretrainingCriterion,
+    )
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = _gpt125m(12)
+    ids, labels = _gpt125m_batch(cfg, batch, seq)
+    cast = dict(level="O2", dtype="bfloat16")
+    rows = {}
+    _release_card()
+    model, opt = _o2_model(cfg, lr)
+    crit = GPTPretrainingCriterion(model=model)
+    eager, dt, counts = _eager_loop(model, opt, crit, (ids, labels),
+                                       EAGER_STEPS, cast)
+    rows["eager"] = (batch * seq * (EAGER_STEPS - 1) / dt,
+                     torch.cuda.max_memory_allocated())
+    per = {k: v / (EAGER_STEPS - 1) for k, v in counts.items() if v}
+    check(per.get("flash_fwd") == cfg.num_layers
+          and per.get("flash_bwd") == cfg.num_layers,
+          f"train_eager_amp: launches a step {json.dumps(per)}, expected "
+          f"{cfg.num_layers} flash_fwd and flash_bwd")
+    check(np.isfinite(eager).all() and eager[-1] < eager[0],
+          f"train_eager_amp: eager losses {eager.tolist()}")
+    del model, opt, crit
+    _release_card()
+    model, opt = _o2_model(cfg, lr)
+    jit.to_static(model)
+    crit = GPTPretrainingCriterion(model=model)
+    static, sdt, scounts = _eager_loop(model, opt, crit, (ids, labels),
+                                          STATIC_STEPS, cast)
+    rows["to_static"] = (batch * seq * (STATIC_STEPS - 1) / sdt,
+                         torch.cuda.max_memory_allocated())
+    progs = list(model.forward._cache.values())
+    check(len(progs) == 1 and progs[0].calls == STATIC_STEPS - 1,
+          f"train_eager_amp: to_static kept {len(progs)} programs "
+          f"({[p.calls for p in progs]} replays); expected one replayed "
+          f"{STATIC_STEPS - 1} times")
+    check(np.array_equal(static, eager[:STATIC_STEPS]),
+          f"train_eager_amp: to_static losses {static.tolist()} differ "
+          f"from the eager loop's {eager[:STATIC_STEPS].tolist()}")
+    sper = {k: v / (STATIC_STEPS - 1) for k, v in scounts.items() if v}
+    del model, opt, crit
+    _release_card()
+    model = GPTForCausalLM(cfg, device="cuda", seed=SEED)
+    with torch.no_grad():
+        # the eager loop's weights: `decorate` cast them to bf16, and its
+        # f32 masters start from those casts
+        for p in model.parameters():
+            p.copy_(p.to(torch.bfloat16))
+    step = build_train_step(model, AdamW(learning_rate=lr),
+                            GPTPretrainingCriterion(model=model),
+                            amp_dtype="bfloat16", grad_clip_norm=1.0)
+    first = [float(step(ids, labels)) for _ in range(3)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step.run_steps(ids, labels, repeat=STATIC_STEPS)
+    torch.cuda.synchronize()
+    rows["graphed train step"] = (
+        batch * seq * STATIC_STEPS / (time.perf_counter() - t0),
+        torch.cuda.max_memory_allocated())
+    gap = max(abs(a - b) / abs(b) for a, b in zip(eager[:3], first))
+    check(gap <= BF16_TOL, f"train_eager_amp: eager losses "
+          f"{eager[:3].tolist()} vs the graphed step's {first}: relative "
+          f"gap {gap:.3g} > {BF16_TOL}")
+    del model, step
+    _release_card()
+    for what, (tps, peak) in rows.items():
+        log(f"[train_eager_amp] GPT-125M bf16 O2 12L B{batch} S{seq} "
+            f"({card}) {what}: {tps:.1f} tokens/s, "
+            f"{batch * seq / tps * 1e3:.2f} ms/step, peak memory "
+            f"{peak / 2**30:.2f} GiB")
+    log(f"[train_eager_amp] eager losses {eager.tolist()}; to_static "
+        f"losses == the first {STATIC_STEPS} bit for bit; graphed step's "
+        f"first 3 {first} (max relative gap {gap:.3g}, tol {BF16_TOL}); "
+        f"launches a step eager {json.dumps(per)} to_static "
+        f"{json.dumps(sper)}; eager / graphed tokens/s "
+        f"{rows['eager'][0] / rows['graphed train step'][0]:.3f}")
+    return counts, rows["eager"][0], eager
+
+
+def _opt_state(model, opt):
+    """Clones of the parameters, the optimizer's slots and its step."""
+    import torch
+
+    with torch.no_grad():
+        return ([p.detach().clone() for p in model.parameters()],
+                [v.clone() for v in opt.state_dict().values()
+                 if isinstance(v, torch.Tensor)], opt._step_count)
+
+
+def phase_train_fp16_scaler(card, bf16_tps, bf16_losses, batch=8,
+                            seq=1024, lr=1e-4):
+    """28. The same model in float16 O1 (f32 parameters,
+    ``auto_cast(dtype="float16")``), AdamW(1e-4) with
+    ClipGradByGlobalNorm(1.0) behind ``GradScaler(init_loss_scaling=
+    2**16)`` attached to a StepGuard, FP16_STEPS eager steps, the loss
+    times inf at FP16_OVERFLOW_STEP: that step leaves the parameters,
+    the AdamW slots and the step count bit for bit, halves the scale
+    and counts one "amp" skip without escalating.  Tokens/s against the
+    bf16 eager loop's, the scale's trajectory, the loss at the last step
+    against the bf16 run's, and 12 + 12 f16 flash launches a step (each
+    step's backward runs, the skipped one's too).  Returns the launch
+    counts."""
+    import torch
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.models.gpt import (
+        GPTForCausalLM, GPTPretrainingCriterion,
+    )
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.resilience import StepGuard
+
+    cfg = _gpt125m(12)
+    ids, labels = _gpt125m_batch(cfg, batch, seq)
+    _release_card()
+    model = GPTForCausalLM(cfg, device="cuda", seed=SEED).train()
+    opt = AdamW(learning_rate=lr, parameters=model.parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    guard = StepGuard(max_consecutive_bad=3, raise_without_rollback=False)
+    scaler = GradScaler(init_loss_scaling=2.0 ** 16).attach_guard(guard)
+    crit = GPTPretrainingCriterion(model=model)
+    losses, scales, overflowed = [], [], []
+    forced = FP16_OVERFLOW_STEP
+    for i in range(FP16_STEPS):
+        if i == 1:
+            torch.cuda.synchronize()
+            K.reset_launches()
+            t0 = time.perf_counter()
+        with amp.auto_cast(dtype="float16"):
+            loss = crit(model(ids), labels)
+        scales.append(scaler._scale)
+        if i == forced:
+            loss = loss * float("inf")
+            before = _opt_state(model, opt)
+            bad_before = guard.total_bad
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        if scaler._found_inf:
+            overflowed.append(i)
+        scaler.update()
+        opt.clear_grad()
+        losses.append(loss.detach())
+        if i == forced:
+            after = _opt_state(model, opt)
+            check(i in overflowed, f"train_fp16_scaler: step {i} (loss x "
+                  "inf) did not overflow")
+            check(after[2] == before[2] and all(
+                torch.equal(a, b) for a, b in zip(before[0] + before[1],
+                                                  after[0] + after[1])),
+                  f"train_fp16_scaler: the overflow step {i} changed the "
+                  "parameters, the AdamW slots or the step count")
+            check(scaler._scale == scales[i] / 2,
+                  f"train_fp16_scaler: scale {scales[i]} -> "
+                  f"{scaler._scale} at the overflow, expected halved")
+            check(guard.total_bad == bad_before + 1
+                  and guard.consecutive_bad == 0 and guard.rollbacks == 0,
+                  f"train_fp16_scaler: guard total_bad {guard.total_bad} "
+                  f"consecutive {guard.consecutive_bad} rollbacks "
+                  f"{guard.rollbacks} after the overflow")
+            del before, after
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = K.launch_counts()
+    tps = batch * seq * (FP16_STEPS - 1) / dt
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.stack(losses).float().cpu().numpy()
+    good = [j for j in range(FP16_STEPS) if j not in overflowed]
+    check(np.isfinite(losses[good]).all() and losses[-1] < losses[0],
+          f"train_fp16_scaler: losses {losses.tolist()}")
+    check(guard.rollbacks == 0, f"train_fp16_scaler: the guard escalated "
+          f"({guard.rollbacks} rollbacks)")
+    per = {k: v / (FP16_STEPS - 1) for k, v in counts.items() if v}
+    check(per.get("flash_fwd") == cfg.num_layers
+          and per.get("flash_bwd") == cfg.num_layers,
+          f"train_fp16_scaler: launches a step {json.dumps(per)}")
+    log(f"[train_fp16_scaler] GPT-125M f16 O1 12L B{batch} S{seq} ({card}):"
+        f" {tps:.1f} tokens/s ({tps / bf16_tps:.3f}x the bf16 O2 eager "
+        f"loop's {bf16_tps:.1f}), {batch * seq / tps * 1e3:.2f} ms/step, "
+        f"peak memory {peak / 2**30:.2f} GiB; scale before each step "
+        f"{scales} (after the last {scaler._scale}); overflowing steps "
+        f"{overflowed} (forced: {forced}, the state bit for bit, the scale "
+        f"halved, one amp skip, no escalation); loss at step {FP16_STEPS} "
+        f"{losses[-1]:.4f} vs bf16 O2 {bf16_losses[FP16_STEPS - 1]:.4f}; "
+        f"f16 launches a step {json.dumps(per)}; guard total_bad "
+        f"{guard.total_bad} rollbacks {guard.rollbacks}")
+    del model, opt, crit
+    _release_card()
+    return counts
+
+
+def _zoo():
+    """Phase 29's rules: (label, optimizer class name, kwargs)."""
+    return (("SGD", "SGD", {}),
+            ("Momentum", "Momentum", dict(momentum=0.9)),
+            ("Adagrad", "Adagrad", dict(initial_accumulator_value=0.1)),
+            ("Adam amsgrad", "Adam", dict(amsgrad=True)),
+            ("AdamW", "AdamW", {}),
+            ("Adamax", "Adamax", {}),
+            ("RMSProp centered", "RMSProp", dict(centered=True,
+                                                 momentum=0.5)),
+            ("Lamb", "Lamb", {}),
+            ("Adadelta", "Adadelta", {}),
+            ("Rprop", "Rprop", {}))
+
+
+def _zoo_equivalence(cls, kw, label, steps=4, lr=1e-5):
+    """A 2-layer GPT-125M-width model in f32, batch 2 x 256: `steps`
+    steps of the graphed train step (the eager first step and its
+    capture, then replays) against `steps` eager ``.step()``s of the
+    same rule from the same weights.  Losses and parameters within
+    F32_TOL (relative to the largest value); returns the largest
+    parameter gap."""
+    import torch
+
+    from paddle_tpu_torch.distributed import build_train_step
+    from paddle_tpu_torch.models.gpt import (
+        GPTForCausalLM, GPTPretrainingCriterion,
+    )
+
+    cfg = _gpt125m(2)
+    ids, labels = _gpt125m_batch(cfg, 2, 256)
+    graphed = GPTForCausalLM(cfg, device="cuda", seed=SEED)
+    step = build_train_step(graphed, cls(learning_rate=lr, **kw),
+                            GPTPretrainingCriterion(model=graphed))
+    lg = torch.cat([step(ids, labels)[None],
+                    step.run_steps(ids, labels, repeat=steps - 1)])
+    check(len(step._graphs) == 1, f"optimizer_zoo {label}: the step did "
+          "not replay one graph")
+    eager = GPTForCausalLM(cfg, device="cuda", seed=SEED).train()
+    opt = cls(learning_rate=lr, parameters=eager.parameters(), **kw)
+    crit = GPTPretrainingCriterion(model=eager)
+    le = []
+    for _ in range(steps):
+        loss = crit(eager(ids), labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        le.append(loss.detach())
+    le = torch.stack(le)
+    lgap = ((lg - le).abs() / le.abs()).max().item()
+    gap = max(((a - b).abs().max() / a.abs().max().clamp(min=1.0)).item()
+              for a, b in zip(graphed.parameters(), eager.parameters()))
+    check(lgap <= F32_TOL and gap <= F32_TOL,
+          f"optimizer_zoo {label}: {steps} replayed steps vs eager "
+          f".step()s: losses {lg.tolist()} / {le.tolist()}, parameter gap "
+          f"{gap:.3g} (tol {F32_TOL})")
+    return gap, bool(torch.equal(lg, le))
+
+
+def phase_optimizer_zoo(card, batch=8, seq=1024, lr=1e-4):
+    """29. Each functional rule in GPT-125M's graphed train step at B8 x
+    1024, bf16 AMP: the eager first step and its capture, then
+    ZOO_STEPS replayed steps timed (tokens/s), the rule's device ms a
+    step (torch.profiler over its `apply_gradients` on the model's f32
+    masters with the step's gradient sizes) and its slot memory; the
+    loss must fall.  Then, per rule, `_zoo_equivalence` in f32.  Returns
+    the launch counts of the timed replays of all the rules."""
+    import torch
+
+    from paddle_tpu_torch.distributed import build_train_step
+    from paddle_tpu_torch.models.gpt import (
+        GPTForCausalLM, GPTPretrainingCriterion,
+    )
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.optimizer import optimizer as O
+
+    cfg = _gpt125m(12)
+    ids, labels = _gpt125m_batch(cfg, batch, seq)
+    total = {}
+    for label, name, kw in _zoo():
+        _release_card()
+        cls = getattr(O, name)
+        model = GPTForCausalLM(cfg, device="cuda", seed=SEED)
+        rule = cls(learning_rate=lr, **kw)
+        step = build_train_step(model, rule,
+                                GPTPretrainingCriterion(model=model),
+                                amp_dtype="bfloat16")
+        first = float(step(ids, labels))
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        losses = step.run_steps(ids, labels, repeat=ZOO_STEPS)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = K.launch_counts()
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        losses = losses.cpu().numpy()
+        check(np.isfinite(losses).all() and losses[-1] < first,
+              f"optimizer_zoo {label}: losses {first} -> {losses.tolist()}")
+        check(counts["flash_fwd"] == cfg.num_layers * ZOO_STEPS,
+              f"optimizer_zoo {label}: launches {json.dumps(counts)}")
+        slot_bytes = sum(t.numel() * t.element_size()
+                         for s in step._state["slots"].values()
+                         for t in s.values())
+        params = step._params
+        grads = {n: torch.randn_like(p) * 1e-3 for n, p in params.items()}
+        with torch.no_grad():
+            saved = [p.clone() for p in params.values()]
+        state = rule.init_state(params)
+        opt_ms = device_ms(lambda: rule.apply_gradients(
+            params, grads, state, lr=step._lr), iters=5, warmup=1)
+        with torch.no_grad():
+            for p, s in zip(params.values(), saved):
+                p.copy_(s)
+        del grads, state, saved
+        gap, bits = _zoo_equivalence(cls, kw, label)
+        log(f"[optimizer_zoo] {label:16s} GPT-125M bf16 12L B{batch} "
+            f"S{seq} ({card}): {batch * seq * ZOO_STEPS / dt:.1f} tokens/s, "
+            f"{1e3 * dt / ZOO_STEPS:.2f} ms/step, optimizer device_ms "
+            f"{opt_ms:.3f} a step, slots {slot_bytes / 2**20:.1f} MiB; loss "
+            f"{first:.4f} -> {losses[-1]:.4f}; f32 2L: 4 replayed steps vs "
+            f"4 eager .step()s max parameter gap {gap:.3g} (tol {F32_TOL}"
+            f"{', losses bit for bit' if bits else ''})")
+        del model, step, rule
+    _release_card()
+    return total
+
+
 def main():
     try:
         import torch
@@ -5523,6 +5962,15 @@ def main():
         release()
         path("train_llama_recompute", phase_train_llama_recompute, card)
         release()
+        eager_counts, bf16_tps, bf16_losses = run(
+            "train_eager_amp", phase_train_eager_amp, card)
+        paths["train_eager_amp"] = eager_counts
+        release()
+        path("train_fp16_scaler", phase_train_fp16_scaler, card, bf16_tps,
+             bf16_losses)
+        release()
+        path("optimizer_zoo", phase_optimizer_zoo, card)
+        release()
         path("fleet", phase_fleet)
         rows = []
         for name, k in K.KERNELS.items():
@@ -5539,6 +5987,12 @@ def main():
                 plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                 bound_by=row["bound_by"], library_ms=row["library_ms"],
                 shape=row["case"], paths=by_path))
+            f16 = table.get((name, "float16"))
+            if f16 is not None:     # the flash kernels' f16 rows
+                rows[-1]["float16"] = {
+                    k: f16[k] for k in ("case", "ms", "plain_ms",
+                                        "library_ms", "bound_ms",
+                                        "bound_by", "max_abs_err")}
     except Fail as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

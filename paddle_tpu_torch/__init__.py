@@ -25,9 +25,17 @@ and the fused transformer blocks of `incubate.nn` over the fused norm
 engine's decode and prefill programs, the train step, `generate()`'s
 decode chunks, and `jit.to_static`; slices 15-16); the serving plane
 (`inference.serving`, `inference.router`, `inference.fleet`,
-`inference.autoscaler`, `resilience`; slice 18).
+`inference.autoscaler`, `resilience`; slice 18); the engine's
+quantized-weight and speculative tiers, sampling and beam search
+(slice 19); the long job's train step: dropout, recompute, the step
+guard, checkpoints, exact resume, watchdog and preemption (slice 20);
+the eager training loop (slice 21): `optimizer` (the whole zoo, eager
+``.step()`` and functional, parameter groups, ``grad_clip``,
+``multi_precision``), `regularizer`, `amp` (`auto_cast` through a cast
+gate, `decorate`, `GradScaler`; float16 through the flash kernels),
+`cross_entropy`'s options, and `jit.to_static` in training.
 """
 from __future__ import annotations
 
-__all__ = ["core", "incubate", "inference", "jit", "models", "nn",
-           "observability", "ops", "vision"]
+__all__ = ["amp", "core", "incubate", "inference", "jit", "models", "nn",
+           "observability", "ops", "optimizer", "regularizer", "vision"]

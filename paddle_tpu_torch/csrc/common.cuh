@@ -1,5 +1,6 @@
 // Shared device helpers of the port's attention kernels: dtype codes,
-// f32 conversion, warp reductions, and the finite mask constant.
+// f32 conversion (f32, bf16 and f16), warp reductions, and the finite
+// mask constant.
 //
 // NEG_INF is the JAX package's finite -1e30 (flash_attention.py:69),
 // not -inf: a fully masked row (a left-pad query) then gets finite,
@@ -10,6 +11,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -17,7 +19,7 @@
 #define PT_L_MIN (1e-30f)
 #define PT_FULL_MASK 0xffffffffu
 
-enum PtDtype { PT_F32 = 0, PT_BF16 = 1 };
+enum PtDtype { PT_F32 = 0, PT_BF16 = 1, PT_F16 = 2 };
 
 template <typename T>
 __device__ __forceinline__ float to_f(T x);
@@ -27,6 +29,10 @@ template <>
 __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+template <>
+__device__ __forceinline__ float to_f<__half>(__half x) {
+  return __half2float(x);
+}
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
@@ -35,6 +41,10 @@ __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half(x);
 }
 
 __device__ __forceinline__ float warp_sum(float x) {

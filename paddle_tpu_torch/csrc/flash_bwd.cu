@@ -469,8 +469,11 @@ static int dispatch(const void* q, const void* k, const void* v,
   }
 }
 
-// ---------------------------------------------------------------- bf16
-// The tensor-core passes (b) and (c): every bf16 mode runs here.
+// ------------------------------------------------------------ bf16, f16
+// The tensor-core passes (b) and (c): every bf16 mode and the dense f16
+// modes (causal / full, with or without a bias) run here, on 16-bit
+// elements E: the f16 passes round P and dS to f16 where the bf16 ones
+// round them to bf16.
 
 #define TC_BQ 64     // dQ pass: query rows per block, 16 per warp
 
@@ -490,22 +493,22 @@ struct BwdTile {
 };
 
 // (b) dQ for one (64-query tile, query head, batch).
-template <int DT, bool BIAS, bool PACKED, bool HM>
+template <typename E, int DT, bool BIAS, bool PACKED, bool HM>
 __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dq_tc(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const float* __restrict__ bias,
+    const E* __restrict__ q, const E* __restrict__ k,
+    const E* __restrict__ v, const float* __restrict__ bias,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    const bf16* __restrict__ dout, bf16* __restrict__ dq, int Sq, int Sk,
+    const E* __restrict__ dout, E* __restrict__ dq, int Sq, int Sk,
     int Hq, int Hkv, int D, long long bsb, long long bsh, long long bsq,
     int causal, float scale, const int* __restrict__ cu_q,
     const int* __restrict__ cu_k, int nseg) {
   constexpr int BK = BwdTile<DT>::BK, NT = BK / 8, KS = DT / 16, ND = DT / 8;
   constexpr bool QREG = BwdTile<DT>::QREG;
   extern __shared__ __align__(128) unsigned char dq_smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(dq_smem);  // [TC_BQ][DT]
-  bf16* dOs = Qs + TC_BQ * DT;                  // [TC_BQ][DT]
-  bf16* Ks = dOs + TC_BQ * DT;                  // [2][BK][DT]
-  bf16* Vs = Ks + 2 * BK * DT;                  // [2][BK][DT]
+  E* Qs = reinterpret_cast<E*>(dq_smem);  // [TC_BQ][DT]
+  E* dOs = Qs + TC_BQ * DT;                  // [TC_BQ][DT]
+  E* Ks = dOs + TC_BQ * DT;                  // [2][BK][DT]
+  E* Vs = Ks + 2 * BK * DT;                  // [2][BK][DT]
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -571,8 +574,8 @@ __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dq_tc(
 
   for (int it = 0; it < ntiles; ++it) {
     const int k0 = kbeg + it * BK;
-    const bf16* Kt = Ks + (it & 1) * BK * DT;
-    const bf16* Vt = Vs + (it & 1) * BK * DT;
+    const E* Kt = Ks + (it & 1) * BK * DT;
+    const E* Vt = Vs + (it & 1) * BK * DT;
     if (it + 1 < ntiles) {
       const int nx = ((it + 1) & 1) * BK * DT;
       tc_load_rows<BK, DT>(Ks + nx, k + kh, ks, k0 + BK, Sk, D);
@@ -618,11 +621,11 @@ __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dq_tc(
       for (int j = 0; j < NT; j += 2) {
         uint32_t bb[4];
         tc_frag_b<DT>(Kt, j, kk, lane, bb);
-        tc_mma(s[j], a, bb[0], bb[1]);
-        tc_mma(s[j + 1], a, bb[2], bb[3]);
+        tc_mma<E>(s[j], a, bb[0], bb[1]);
+        tc_mma<E>(s[j + 1], a, bb[2], bb[3]);
         tc_frag_b<DT>(Vt, j, kk, lane, bb);
-        tc_mma(dp[j], ao, bb[0], bb[1]);
-        tc_mma(dp[j + 1], ao, bb[2], bb[3]);
+        tc_mma<E>(dp[j], ao, bb[0], bb[1]);
+        tc_mma<E>(dp[j + 1], ao, bb[2], bb[3]);
       }
     }
 
@@ -653,18 +656,18 @@ __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dq_tc(
         s[j][e] = p * (dp[j][e] - Dl[r]) * scale;
       }
 
-    // dQ += dS K, dS rounded to bf16 in registers
+    // dQ += dS K, dS rounded to E in registers
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       uint32_t a[4];
-      tc_acc_to_a(s[2 * kk], s[2 * kk + 1], a);
+      tc_acc_to_a<E>(s[2 * kk], s[2 * kk + 1], a);
 #pragma unroll
       for (int n = 0; n < ND; n += 2) {
         if (n >= nd) break;
         uint32_t bb[4];
         tc_frag_bt<DT>(Kt, n, kk, lane, bb);
-        tc_mma(acc[n], a, bb[0], bb[1]);
-        tc_mma(acc[n + 1], a, bb[2], bb[3]);
+        tc_mma<E>(acc[n], a, bb[0], bb[1]);
+        tc_mma<E>(acc[n + 1], a, bb[2], bb[3]);
       }
     }
     __syncthreads();  // this stage is consumed before its next copy
@@ -682,23 +685,23 @@ __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dq_tc(
 
 // (c) dK and dV for one (key tile, kv head, batch), summed over the kv
 // head's group of query heads.
-template <int DT, bool BIAS, bool PACKED, bool HM>
+template <typename E, int DT, bool BIAS, bool PACKED, bool HM>
 __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dkv_tc(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const float* __restrict__ bias,
+    const E* __restrict__ q, const E* __restrict__ k,
+    const E* __restrict__ v, const float* __restrict__ bias,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    const bf16* __restrict__ dout, bf16* __restrict__ dk,
-    bf16* __restrict__ dv, int Sq, int Sk, int Hq, int Hkv, int D,
+    const E* __restrict__ dout, E* __restrict__ dk,
+    E* __restrict__ dv, int Sq, int Sk, int Hq, int Hkv, int D,
     long long bsb, long long bsh, long long bsq, int causal, float scale,
     const int* __restrict__ cu_q, const int* __restrict__ cu_k, int nseg) {
   constexpr int NS = BwdTile<DT>::NS, KT = BwdTile<DT>::KT;
   constexpr int QT = BwdTile<DT>::QT, NQ = QT / 8, KS = DT / 16;
   constexpr int NC = DT / 8 / NS;  // dK / dV n-tiles per warp
   extern __shared__ __align__(128) unsigned char dkv_smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(dkv_smem);  // [KT][DT]
-  bf16* Vs = Ks + KT * DT;                       // [KT][DT]
-  bf16* Qs = Vs + KT * DT;                       // [2][QT][DT]
-  bf16* dOs = Qs + 2 * QT * DT;                  // [2][QT][DT]
+  E* Ks = reinterpret_cast<E*>(dkv_smem);  // [KT][DT]
+  E* Vs = Ks + KT * DT;                       // [KT][DT]
+  E* Qs = Vs + KT * DT;                       // [2][QT][DT]
+  E* dOs = Qs + 2 * QT * DT;                  // [2][QT][DT]
   float* Ls = reinterpret_cast<float*>(dOs + 2 * QT * DT);  // [2][QT]
   float* Ds = Ls + 2 * QT;                                  // [2][QT]
 
@@ -776,8 +779,8 @@ __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dkv_tc(
       tc_wait<0>();
     }
     __syncthreads();
-    const bf16* Qt = Qs + st * QT * DT;
-    const bf16* dOt = dOs + st * QT * DT;
+    const E* Qt = Qs + st * QT * DT;
+    const E* dOt = dOs + st * QT * DT;
     const float* Lt = Ls + st * QT;
     const float* Dt = Ds + st * QT;
 
@@ -797,11 +800,11 @@ __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dkv_tc(
       for (int j = 0; j < NQ; j += 2) {
         uint32_t bb[4];
         tc_frag_b<DT>(Qt, j, kk, lane, bb);
-        tc_mma(s[j], ak, bb[0], bb[1]);
-        tc_mma(s[j + 1], ak, bb[2], bb[3]);
+        tc_mma<E>(s[j], ak, bb[0], bb[1]);
+        tc_mma<E>(s[j + 1], ak, bb[2], bb[3]);
         tc_frag_b<DT>(dOt, j, kk, lane, bb);
-        tc_mma(dp[j], av, bb[0], bb[1]);
-        tc_mma(dp[j + 1], av, bb[2], bb[3]);
+        tc_mma<E>(dp[j], av, bb[0], bb[1]);
+        tc_mma<E>(dp[j + 1], av, bb[2], bb[3]);
       }
     }
 
@@ -840,22 +843,22 @@ __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dkv_tc(
       }
     }
 
-    // dV += P^T dO, dK += dS^T Q, P^T and dS^T rounded to bf16
+    // dV += P^T dO, dK += dS^T Q, P^T and dS^T rounded to E
 #pragma unroll
     for (int kk = 0; kk < QT / 16; ++kk) {
       uint32_t ap[4], ad[4];
-      tc_acc_to_a(s[2 * kk], s[2 * kk + 1], ap);
-      tc_acc_to_a(dp[2 * kk], dp[2 * kk + 1], ad);
+      tc_acc_to_a<E>(s[2 * kk], s[2 * kk + 1], ap);
+      tc_acc_to_a<E>(dp[2 * kk], dp[2 * kk + 1], ad);
 #pragma unroll
       for (int n = 0; n < NC; n += 2) {
         if (n0 + n >= nd) break;
         uint32_t bb[4];
         tc_frag_bt<DT>(dOt, n0 + n, kk, lane, bb);
-        tc_mma(adv[n], ap, bb[0], bb[1]);
-        tc_mma(adv[n + 1], ap, bb[2], bb[3]);
+        tc_mma<E>(adv[n], ap, bb[0], bb[1]);
+        tc_mma<E>(adv[n + 1], ap, bb[2], bb[3]);
         tc_frag_bt<DT>(Qt, n0 + n, kk, lane, bb);
-        tc_mma(adk[n], ad, bb[0], bb[1]);
-        tc_mma(adk[n + 1], ad, bb[2], bb[3]);
+        tc_mma<E>(adk[n], ad, bb[0], bb[1]);
+        tc_mma<E>(adk[n + 1], ad, bb[2], bb[3]);
       }
     }
     __syncthreads();  // this stage is consumed before its next copy
@@ -873,7 +876,7 @@ __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dkv_tc(
                                     threadIdx.x);
 }
 
-template <int DT, bool BIAS, bool PACKED, bool HM>
+template <typename E, int DT, bool BIAS, bool PACKED, bool HM>
 static int launch_tc(const void* q, const void* k, const void* v,
                      const float* bias, const void* o, const float* lse,
                      const void* dout, float* delta, void* dq, void* dk,
@@ -882,37 +885,37 @@ static int launch_tc(const void* q, const void* k, const void* v,
                      float scale, const int* cu_q, const int* cu_k, int nseg,
                      cudaStream_t stream) {
   const long long rows = (long long)B * Sq * Hq;
-  flash_bwd_delta_kernel<bf16, HM>
+  flash_bwd_delta_kernel<E, HM>
       <<<(unsigned)((rows + FB_WARPS - 1) / FB_WARPS), FB_WARPS * 32, 0,
-         stream>>>((const bf16*)o, (const bf16*)dout, delta, rows, Sq, Hq,
+         stream>>>((const E*)o, (const E*)dout, delta, rows, Sq, Hq,
                    D);
   int err = (int)cudaGetLastError();
   if (err) return err;
 
-  auto dq_kern = flash_bwd_dq_tc<DT, BIAS, PACKED, HM>;
+  auto dq_kern = flash_bwd_dq_tc<E, DT, BIAS, PACKED, HM>;
   allow_smem(dq_kern, BwdTile<DT>::smem_dq);
   dq_kern<<<dim3((Sq + TC_BQ - 1) / TC_BQ, Hq, B), TC_THREADS,
             BwdTile<DT>::smem_dq, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, bias, lse, delta,
-      (const bf16*)dout, (bf16*)dq, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal,
+      (const E*)q, (const E*)k, (const E*)v, bias, lse, delta,
+      (const E*)dout, (E*)dq, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal,
       scale, cu_q, cu_k, nseg);
   err = (int)cudaGetLastError();
   if (err) return err;
 
   constexpr int KT = BwdTile<DT>::KT;
-  auto dkv_kern = flash_bwd_dkv_tc<DT, BIAS, PACKED, HM>;
+  auto dkv_kern = flash_bwd_dkv_tc<E, DT, BIAS, PACKED, HM>;
   allow_smem(dkv_kern, BwdTile<DT>::smem_dkv);
   dkv_kern<<<dim3((Sk + KT - 1) / KT, Hkv, B), TC_THREADS,
              BwdTile<DT>::smem_dkv, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, bias, lse, delta,
-      (const bf16*)dout, (bf16*)dk, (bf16*)dv, Sq, Sk, Hq, Hkv, D, bsb, bsh,
+      (const E*)q, (const E*)k, (const E*)v, bias, lse, delta,
+      (const E*)dout, (E*)dk, (E*)dv, Sq, Sk, Hq, Hkv, D, bsb, bsh,
       bsq, causal, scale, cu_q, cu_k, nseg);
   return (int)cudaGetLastError();
 }
 
-// bf16, any mode: the tile width DT is the head dim rounded up to 64,
-// 128 or 256.
-template <bool BIAS, bool PACKED, bool HM = false>
+// bf16 (any mode) or f16 (the dense modes), E: the tile width DT is the
+// head dim rounded up to 64, 128 or 256.
+template <typename E, bool BIAS, bool PACKED, bool HM = false>
 static int dispatch_tc(const void* q, const void* k, const void* v,
                        const float* bias, const void* o, const float* lse,
                        const void* dout, float* delta, void* dq, void* dk,
@@ -925,16 +928,17 @@ static int dispatch_tc(const void* q, const void* k, const void* v,
       !tc_aligned(dv))
     return (int)cudaErrorMisalignedAddress;
   if (D <= 64)
-    return launch_tc<64, BIAS, PACKED, HM>(q, k, v, bias, o, lse, dout, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
+    return launch_tc<E, 64, BIAS, PACKED, HM>(q, k, v, bias, o, lse, dout, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
   if (D <= 128)
-    return launch_tc<128, BIAS, PACKED, HM>(q, k, v, bias, o, lse, dout, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
-  return launch_tc<256, BIAS, PACKED, HM>(q, k, v, bias, o, lse, dout, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
+    return launch_tc<E, 128, BIAS, PACKED, HM>(q, k, v, bias, o, lse, dout, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
+  return launch_tc<E, 256, BIAS, PACKED, HM>(q, k, v, bias, o, lse, dout, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
 }
 
 // q / o / dout / dq [B, Sq, Hq, D]; k / v / dk / dv [B, Sk, Hkv, D];
 // bias f32 or null, element (b, h, i, j) at b * bsb + h * bsh + i * bsq
-// + j; lse and delta (scratch) [B, Hq, Sq] f32.  Returns the first
-// launch error, 0 when all three launches were accepted.
+// + j; lse and delta (scratch) [B, Hq, Sq] f32; dtype PT_F32, PT_BF16
+// or PT_F16.  Returns the first launch error, 0 when all three launches
+// were accepted.
 extern "C" int flash_bwd(const void* q, const void* k, const void* v,
                          const void* bias, const void* o, const void* lse,
                          const void* dout, void* delta, void* dq, void* dk,
@@ -943,11 +947,20 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v,
                          int causal, float scale, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == PT_BF16)
-    return bias ? dispatch_tc<true, false>(
+    return bias ? dispatch_tc<bf16, true, false>(
                       q, k, v, (const float*)bias, o, (const float*)lse,
                       dout, (float*)delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D,
                       bsb, bsh, bsq, causal, scale, nullptr, nullptr, 0, s)
-                : dispatch_tc<false, false>(
+                : dispatch_tc<bf16, false, false>(
+                      q, k, v, nullptr, o, (const float*)lse, dout,
+                      (float*)delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, 0, 0,
+                      0, causal, scale, nullptr, nullptr, 0, s);
+  if (dtype == PT_F16)
+    return bias ? dispatch_tc<f16, true, false>(
+                      q, k, v, (const float*)bias, o, (const float*)lse,
+                      dout, (float*)delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D,
+                      bsb, bsh, bsq, causal, scale, nullptr, nullptr, 0, s)
+                : dispatch_tc<f16, false, false>(
                       q, k, v, nullptr, o, (const float*)lse, dout,
                       (float*)delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, 0, 0,
                       0, causal, scale, nullptr, nullptr, 0, s);
@@ -971,9 +984,10 @@ extern "C" int varlen_bwd(const void* q, const void* k, const void* v,
   const int* cq = (const int*)cu_q;
   const int* ck = (const int*)cu_k;
   if (dtype == PT_BF16)
-    return dispatch_tc<false, true>(
+    return dispatch_tc<bf16, false, true>(
         q, k, v, nullptr, o, (const float*)lse, dout, (float*)delta, dq, dk,
         dv, 1, Tq, Tk, H, H, D, 0, 0, 0, causal, scale, cq, ck, nseg, s);
+  if (dtype != PT_F32) return (int)cudaErrorInvalidValue;  // no f16 here
   return dispatch<float, true>(q, k, v, nullptr, o, (const float*)lse, dout,
                                (float*)delta, dq, dk, dv, 1, Tq, Tk, H, H, D,
                                0, 0, 0, causal, scale, cq, ck, nseg, s);
@@ -989,10 +1003,11 @@ extern "C" int flash_bwd_hm(const void* q, const void* k, const void* v,
                             void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == PT_BF16)
-    return dispatch_tc<false, false, true>(
+    return dispatch_tc<bf16, false, false, true>(
         q, k, v, nullptr, o, (const float*)lse, dout, (float*)delta, dq, dk,
         dv, B, Sq, Sk, Hq, Hkv, D, 0, 0, 0, causal, scale, nullptr, nullptr,
         0, s);
+  if (dtype != PT_F32) return (int)cudaErrorInvalidValue;  // no f16 here
   return dispatch<float, false, true>(
       q, k, v, nullptr, o, (const float*)lse, dout, (float*)delta, dq, dk,
       dv, B, Sq, Sk, Hq, Hkv, D, 0, 0, 0, causal, scale, nullptr, nullptr, 0,

@@ -42,6 +42,13 @@
 // wgmma on 64-row warpgroup tiles fed by TMA from a producer warp (warp
 // specialisation), which mma.sync cannot reach.
 //
+// f16, in the dense modes (causal / full, with or without a bias): the
+// same tensor-core core instantiated on f16 elements (`E`): mma.sync
+// m16n8k16 on f16 operands with f32 accumulators, P rounded to f16 where
+// the bf16 kernel rounds it to bf16, the f32 LSE kept.  The packed and
+// head-major modes take no f16 (their entries refuse it; the wrappers
+// raise TypeError naming the mode).
+//
 // f32 keeps the first version's CUDA-core kernel (`flash_fwd_kernel`),
 // the port's oracle path (TF32 tensor cores would keep ~3 digits): one
 // block of 8 warps per (32-query tile, head, batch) walks 32-key tiles
@@ -268,8 +275,8 @@ static int dispatch(const void* q, const void* k, const void* v,
   }
 }
 
-// ---------------------------------------------------------------- bf16
-// The tensor-core core: every bf16 mode runs here.
+// ------------------------------------------------------------ bf16, f16
+// The tensor-core core: every bf16 mode and the dense f16 modes run here.
 
 // MASKS: the mode reads a bias or segment bounds per element.
 template <int DT, bool MASKS>
@@ -289,11 +296,11 @@ struct FwdTile {
   static constexpr size_t smem = sizeof(bf16) * (size_t)(BQ + 4 * BK) * DT;
 };
 
-template <int DT, bool BIAS, bool PACKED, bool HM>
+template <typename E, int DT, bool BIAS, bool PACKED, bool HM>
 __global__ void __launch_bounds__(TC_THREADS) flash_fwd_tc(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const float* __restrict__ bias,
-    bf16* __restrict__ o, float* __restrict__ lse, int Sq, int Sk, int Hq,
+    const E* __restrict__ q, const E* __restrict__ k,
+    const E* __restrict__ v, const float* __restrict__ bias,
+    E* __restrict__ o, float* __restrict__ lse, int Sq, int Sk, int Hq,
     int Hkv, int D, long long bsb, long long bsh, long long bsq, int causal,
     float scale, const int* __restrict__ cu_q, const int* __restrict__ cu_k,
     int nseg) {
@@ -302,9 +309,9 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_tc(
   constexpr int BK = Tile::BK, NT = BK / 8, KS = DT / 16, ND = DT / 8;
   constexpr bool QREG = Tile::QREG;
   extern __shared__ __align__(128) unsigned char fwd_smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(fwd_smem);  // [BQ][DT]
-  bf16* Ks = Qs + BQ * DT;                       // [2][BK][DT]
-  bf16* Vs = Ks + 2 * BK * DT;                   // [2][BK][DT]
+  E* Qs = reinterpret_cast<E*>(fwd_smem);  // [BQ][DT]
+  E* Ks = Qs + BQ * DT;                    // [2][BK][DT]
+  E* Vs = Ks + 2 * BK * DT;                // [2][BK][DT]
   const float ninf = __int_as_float(0xff800000);
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -377,8 +384,8 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_tc(
 
   for (int it = 0; it < ntiles; ++it) {
     const int k0 = kbeg + it * BK;
-    const bf16* Kt = Ks + (it & 1) * BK * DT;
-    const bf16* Vt = Vs + (it & 1) * BK * DT;
+    const E* Kt = Ks + (it & 1) * BK * DT;
+    const E* Vt = Vs + (it & 1) * BK * DT;
     if (it + 1 < ntiles) {  // the next tile's copy overlaps this tile
       const int nx = ((it + 1) & 1) * BK * DT;
       tc_load_rows<BK, DT>(Ks + nx, k + kh, ks, k0 + BK, Sk, D);
@@ -426,8 +433,8 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_tc(
         tc_frag_b<DT>(Kt, j, kk, lane, bb);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          tc_mma(s[mt][j], a[mt], bb[0], bb[1]);
-          tc_mma(s[mt][j + 1], a[mt], bb[2], bb[3]);
+          tc_mma<E>(s[mt][j], a[mt], bb[0], bb[1]);
+          tc_mma<E>(s[mt][j + 1], a[mt], bb[2], bb[3]);
         }
       }
     }
@@ -498,14 +505,14 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_tc(
       }
     }
 
-    // O += P V, P rounded to bf16 in registers; each V fragment feeds
+    // O += P V, P rounded to E (bf16 or f16) in registers; each V fragment feeds
     // the warp's MT m-tiles
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       uint32_t a[MT][4];
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
-        tc_acc_to_a(s[mt][2 * kk], s[mt][2 * kk + 1], a[mt]);
+        tc_acc_to_a<E>(s[mt][2 * kk], s[mt][2 * kk + 1], a[mt]);
 #pragma unroll
       for (int n = 0; n < ND; n += 2) {
         if (n >= nd) break;
@@ -513,8 +520,8 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_tc(
         tc_frag_bt<DT>(Vt, n, kk, lane, bb);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          tc_mma(acc[mt][n], a[mt], bb[0], bb[1]);
-          tc_mma(acc[mt][n + 1], a[mt], bb[2], bb[3]);
+          tc_mma<E>(acc[mt][n], a[mt], bb[0], bb[1]);
+          tc_mma<E>(acc[mt][n + 1], a[mt], bb[2], bb[3]);
         }
       }
     }
@@ -545,7 +552,7 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_tc(
                                  lane);
 }
 
-template <int DT, bool BIAS, bool PACKED, bool HM>
+template <typename E, int DT, bool BIAS, bool PACKED, bool HM>
 static int launch_tc(const void* q, const void* k, const void* v,
                      const float* bias, void* o, float* lse, int B, int Sq,
                      int Sk, int Hq, int Hkv, int D, long long bsb,
@@ -554,20 +561,20 @@ static int launch_tc(const void* q, const void* k, const void* v,
                      cudaStream_t stream) {
   using Tile = FwdTile<DT, BIAS || PACKED>;
   const size_t smem = Tile::smem;
-  auto kern = flash_fwd_tc<DT, BIAS, PACKED, HM>;
+  auto kern = flash_fwd_tc<E, DT, BIAS, PACKED, HM>;
   if (smem > 48 * 1024)
     cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
   dim3 grid((Sq + Tile::BQ - 1) / Tile::BQ, Hq, B);
   kern<<<grid, TC_THREADS, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, bias, (bf16*)o, lse, Sq,
+      (const E*)q, (const E*)k, (const E*)v, bias, (E*)o, lse, Sq,
       Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg);
   return (int)cudaGetLastError();
 }
 
-// bf16, any mode: the tile width DT is the head dim rounded up to 64,
-// 128 or 256.
-template <bool BIAS, bool PACKED, bool HM = false>
+// bf16 (any mode) or f16 (the dense modes), E: the tile width DT is the
+// head dim rounded up to 64, 128 or 256.
+template <typename E, bool BIAS, bool PACKED, bool HM = false>
 static int dispatch_tc(const void* q, const void* k, const void* v,
                        const float* bias, void* o, float* lse, int B, int Sq,
                        int Sk, int Hq, int Hkv, int D, long long bsb,
@@ -577,15 +584,16 @@ static int dispatch_tc(const void* q, const void* k, const void* v,
   if (!tc_aligned(q) || !tc_aligned(k) || !tc_aligned(v) || !tc_aligned(o))
     return (int)cudaErrorMisalignedAddress;
   if (D <= 64)
-    return launch_tc<64, BIAS, PACKED, HM>(q, k, v, bias, o, lse, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
+    return launch_tc<E, 64, BIAS, PACKED, HM>(q, k, v, bias, o, lse, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
   if (D <= 128)
-    return launch_tc<128, BIAS, PACKED, HM>(q, k, v, bias, o, lse, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
-  return launch_tc<256, BIAS, PACKED, HM>(q, k, v, bias, o, lse, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
+    return launch_tc<E, 128, BIAS, PACKED, HM>(q, k, v, bias, o, lse, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
+  return launch_tc<E, 256, BIAS, PACKED, HM>(q, k, v, bias, o, lse, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
 }
 
 // q [B, Sq, Hq, D]; k/v [B, Sk, Hkv, D]; bias f32 or null, element
 // (b, h, i, j) at b * bsb + h * bsh + i * bsq + j; o [B, Sq, Hq, D];
-// lse [B, Hq, Sq] f32.
+// lse [B, Hq, Sq] f32.  dtype PT_F32, PT_BF16 or PT_F16 (the last two on
+// the tensor cores).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const void* bias, void* o, void* lse, int B, int Sq,
                          int Sk, int Hq, int Hkv, int D, long long bsb,
@@ -593,14 +601,21 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == PT_BF16)
-    return bias ? dispatch_tc<true, false>(q, k, v, (const float*)bias, o,
-                                           (float*)lse, B, Sq, Sk, Hq, Hkv,
-                                           D, bsb, bsh, bsq, causal, scale,
-                                           nullptr, nullptr, 0, s)
-                : dispatch_tc<false, false>(q, k, v, nullptr, o, (float*)lse,
-                                            B, Sq, Sk, Hq, Hkv, D, 0, 0, 0,
-                                            causal, scale, nullptr, nullptr,
-                                            0, s);
+    return bias ? dispatch_tc<bf16, true, false>(
+                      q, k, v, (const float*)bias, o, (float*)lse, B, Sq, Sk,
+                      Hq, Hkv, D, bsb, bsh, bsq, causal, scale, nullptr,
+                      nullptr, 0, s)
+                : dispatch_tc<bf16, false, false>(
+                      q, k, v, nullptr, o, (float*)lse, B, Sq, Sk, Hq, Hkv, D,
+                      0, 0, 0, causal, scale, nullptr, nullptr, 0, s);
+  if (dtype == PT_F16)
+    return bias ? dispatch_tc<f16, true, false>(
+                      q, k, v, (const float*)bias, o, (float*)lse, B, Sq, Sk,
+                      Hq, Hkv, D, bsb, bsh, bsq, causal, scale, nullptr,
+                      nullptr, 0, s)
+                : dispatch_tc<f16, false, false>(
+                      q, k, v, nullptr, o, (float*)lse, B, Sq, Sk, Hq, Hkv, D,
+                      0, 0, 0, causal, scale, nullptr, nullptr, 0, s);
   return dispatch<float, false>(q, k, v, (const float*)bias, o, (float*)lse,
                                 B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal,
                                 scale, nullptr, nullptr, 0, s);
@@ -616,9 +631,10 @@ extern "C" int varlen_fwd(const void* q, const void* k, const void* v,
   const int* cq = (const int*)cu_q;
   const int* ck = (const int*)cu_k;
   if (dtype == PT_BF16)
-    return dispatch_tc<false, true>(q, k, v, nullptr, o, (float*)lse, 1, Tq,
-                                    Tk, H, H, D, 0, 0, 0, causal, scale, cq,
-                                    ck, nseg, s);
+    return dispatch_tc<bf16, false, true>(q, k, v, nullptr, o, (float*)lse,
+                                          1, Tq, Tk, H, H, D, 0, 0, 0, causal,
+                                          scale, cq, ck, nseg, s);
+  if (dtype != PT_F32) return (int)cudaErrorInvalidValue;  // no f16 here
   return dispatch<float, true>(q, k, v, nullptr, o, (float*)lse, 1, Tq, Tk,
                                H, H, D, 0, 0, 0, causal, scale, cq, ck, nseg,
                                s);
@@ -632,10 +648,10 @@ extern "C" int flash_fwd_hm(const void* q, const void* k, const void* v,
                             int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == PT_BF16)
-    return dispatch_tc<false, false, true>(q, k, v, nullptr, o, (float*)lse,
-                                           B, Sq, Sk, Hq, Hkv, D, 0, 0, 0,
-                                           causal, scale, nullptr, nullptr,
-                                           0, s);
+    return dispatch_tc<bf16, false, false, true>(
+        q, k, v, nullptr, o, (float*)lse, B, Sq, Sk, Hq, Hkv, D, 0, 0, 0,
+        causal, scale, nullptr, nullptr, 0, s);
+  if (dtype != PT_F32) return (int)cudaErrorInvalidValue;  // no f16 here
   return dispatch<float, false, true>(q, k, v, nullptr, o, (float*)lse, B,
                                       Sq, Sk, Hq, Hkv, D, 0, 0, 0, causal,
                                       scale, nullptr, nullptr, 0, s);

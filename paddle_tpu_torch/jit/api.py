@@ -1,27 +1,49 @@
-"""`to_static`: a function or a layer's forward as one fixed-shape
-program per input signature (``paddle_tpu/jit/api.py`` counterpart:
-`to_static` :223, `StaticFunction` :64, `_sig_of` :52).
+"""`to_static`: a function or a layer's forward as fixed-shape programs
+per input signature (``paddle_tpu/jit/api.py`` counterpart: `to_static`
+:223, `StaticFunction` :64, `_sig_of` :52).
 
 The JAX package traces the function once per signature of its arguments
-(the shapes and dtypes of its tensors, the `repr` of everything else)
-into one XLA program and replays that.  Here, on a CUDA device, in eval
-mode and with grad off, each signature's first call copies its tensor
+(the shapes and dtypes of its tensors, the `repr` of everything else,
+and the layer's ``training`` flag, :151-156) into one XLA program and
+puts that program on the tape as one op, so `backward()` runs through
+it (:150-222).  Here, on a CUDA device, programs are CUDA graphs in the
+`StaticFunction`'s memory pool, cached by the signature, the layer's
+``training`` flag, whether grad is on and the `amp.auto_cast` state.
+On the CPU the function runs eagerly.
+
+With grad off (serving): each signature's first call copies its tensor
 arguments into static tensors, runs the function eagerly once on them
 on the capture stream (`core.graphs.warm_up`), captures it into one
-CUDA graph in the `StaticFunction`'s memory pool and replays it; every
-later call copies its tensors into the static ones and replays.  The
-outputs come back as clones, as the JAX program returns fresh arrays:
-the next replay of any graph of the pool rewrites the graph's own.  A
-layer's parameters or buffers rebound since a capture (a
-`load_state_dict` copies in place; `.to()` rebinds) drop every graph,
-and the next call captures again.  A replay calls no forward hook of
-the layer or of its modules.  On the CPU the function runs eagerly.
+graph and replays it; every later call copies its tensors into the
+static ones and replays.  The outputs come back as clones, as the JAX
+program returns fresh arrays: the next replay of any graph of the pool
+rewrites the graph's own.
 
-Not ported: training through a compiled program (the JAX program is one
-op on the tape, so `backward()` works through it: ROADMAP Queue A6) and
-the `backend="sot"` capture tier, `save` and `load` (Queue A9).  Training
-mode, grad enabled and `backend="sot"` raise NotImplementedError; none
-runs the function eagerly instead.
+With grad on (training, `_TrainProgram`): a signature's program is two
+graphs, the forward and the backward, run through one autograd
+function (`_Replayed`), so `loss.backward()` replays the backward graph
+and the gradients of the parameters (and of any argument that requires
+grad) reach autograd, which accumulates them into ``.grad`` as in eager
+mode: gradient accumulation over micro-batches holds.  The first call
+of a signature is eager: its forward runs on the capture stream, its
+backward is warmed up once there (zero cotangents: every kernel of both
+directions is built before a capture), the two graphs are captured, and
+this call's own backward runs eagerly through the warm-up's tape.  Every
+later call replays.  Dropout draws from the device's generator
+(`core.rng`), registered with the forward graph, so each replay draws
+new masks and advances it as an eager call would (JAX threads its key,
+:109-127); buffers such as batch norm's running statistics are updated
+in place by the forward graph (JAX writes them back, :201-207).  A
+replay's saved activations belong to its program: the backward of a call
+must run before the next forward of the same signature (the standard
+forward / backward alternation of micro-batches); otherwise it raises.
+
+A layer's parameters or buffers rebound since a capture (`amp.decorate`
+or a ``.to()``; a `load_state_dict` copies in place) drop every graph,
+and the next call captures again.  A replay calls no forward hook of the
+layer or of its modules.  A capture that fails raises; nothing runs the
+function eagerly instead.  The `backend="sot"` capture tier, `save` and
+`load` are not ported (Queue A9): `backend="sot"` raises.
 """
 from __future__ import annotations
 
@@ -31,7 +53,10 @@ import torch
 from torch import nn
 from torch.utils import _pytree
 
+from ..amp import gate as _amp
 from ..core import graphs as GR
+from ..core import rng
+from ..observability import capture_cost as CC
 
 __all__ = ["StaticFunction", "to_static"]
 
@@ -55,6 +80,94 @@ class _Program:
 
     def __init__(self, inputs, graph, bound):
         self.inputs, self.graph, self.bound = inputs, graph, bound
+
+
+def _amp_key():
+    """The `amp.auto_cast` state a capture is taken under."""
+    st = _amp.state
+    return (st.enabled, str(st.dtype), tuple(sorted(st.custom_white)),
+            tuple(sorted(st.custom_black))) if st.enabled else None
+
+
+def _flat(out) -> list:
+    return [x for x in _pytree.tree_flatten(out)[0]
+            if isinstance(x, torch.Tensor)]
+
+
+def _differentiable(outs) -> list:
+    return [o for o in outs if o.requires_grad]
+
+
+class _TrainProgram:
+    """One signature's training program: the static tensors the graphs
+    read (the call's tensor leaves), the differentiable inputs of the
+    backward (the static leaves that require grad, then the layer's
+    parameters that do), the forward graph (its outputs: the function's
+    output structure, tensors in the pool), the static cotangents of the
+    forward's differentiable outputs, the backward graph (its outputs:
+    one gradient or None per differentiable input), the output structure
+    and each output tensor's attributes as the first call gave them,
+    and `calls`, the count of forward replays (a backward checks that
+    its call is the newest)."""
+
+    def __init__(self, inputs, diff, bound):
+        self.inputs, self.diff, self.bound = inputs, diff, bound
+        self.fwd = self.bwd = None
+        self.gouts = []
+        self.leaves = self.spec = None
+        self.attrs = []
+        self.calls = 0
+
+    def flat_outputs(self):
+        return _flat(self.fwd.outputs)
+
+
+class _Replayed(torch.autograd.Function):
+    """A training call as one op on the tape: the forward replays the
+    program's forward graph (or, at the signature's first call, is the
+    eager warm-up, `eager` its flat outputs with their tape), the
+    backward replays its backward graph (or runs the warm-up's tape).
+    Inputs: the program, the eager outputs or None, then the call's
+    differentiable tensors (the arguments that require grad, then the
+    parameters), to which the gradients go."""
+
+    @staticmethod
+    def forward(ctx, prog, eager, *diff):
+        ctx.prog, ctx.eager, ctx.call = prog, eager, prog.calls
+        outs = eager if eager is not None else prog.flat_outputs()
+        ctx.diff_out = [i for i, o in enumerate(outs) if o.requires_grad]
+        made = tuple(o.detach() if eager is not None
+                     else o.detach().clone() for o in outs)
+        ctx.mark_non_differentiable(*[m for m, o in zip(made, outs)
+                                      if not o.requires_grad])
+        return made
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *grads):
+        prog = ctx.prog
+        cot = [grads[i] for i in ctx.diff_out]
+        if ctx.eager is not None:
+            outs = [ctx.eager[i] for i in ctx.diff_out]
+            got = torch.autograd.grad(
+                outs, prog.diff, [torch.zeros_like(o) if g is None else g
+                                  for o, g in zip(outs, cot)],
+                allow_unused=True)
+        else:
+            if ctx.call != prog.calls:
+                raise RuntimeError(
+                    "to_static: a later call of this signature replayed "
+                    "its forward graph before this call's backward; run "
+                    "each call's backward before the next call")
+            for dst, g in zip(prog.gouts, cot):
+                if g is None:
+                    dst.zero_()
+                else:
+                    dst.copy_(g)
+            prog.bwd.replay()
+            got = [None if g is None else g.clone()
+                   for g in prog.bwd.outputs]
+        return (None, None) + tuple(got)
 
 
 class StaticFunction:
@@ -87,22 +200,10 @@ class StaticFunction:
             return []
         return list(self._layer.parameters()) + list(self._layer.buffers())
 
-    def _refuse(self) -> None:
-        """Training and grad enabled are not ported; neither runs eagerly
-        instead."""
-        if self._layer is not None and self._layer.training:
-            raise NotImplementedError(
-                "to_static in training mode is not ported yet (ROADMAP "
-                "Queue A6: training through a compiled program); call "
-                ".eval() to serve")
-        if torch.is_grad_enabled():
-            raise NotImplementedError(
-                "to_static with grad enabled is not ported yet (ROADMAP "
-                "Queue A6: backward through a compiled program); call it "
-                "under torch.no_grad() or torch.inference_mode()")
+    def _training(self) -> bool:
+        return self._layer.training if self._layer is not None else True
 
     def __call__(self, *args, **kwargs):
-        self._refuse()
         leaves, _ = _pytree.tree_flatten((args, kwargs))
         tensors = [x for x in leaves if isinstance(x, torch.Tensor)]
         device = tensors[0].device if tensors else next(
@@ -117,10 +218,18 @@ class StaticFunction:
         cloned."""
         leaves, spec = _pytree.tree_flatten((args, kwargs))
         tensors = [x for x in leaves if isinstance(x, torch.Tensor)]
-        key = (str(device), _sig_of(args), _sig_of(kwargs))
+        # with grad on, which arguments require grad is part of the key:
+        # they are the backward's inputs
+        key = (str(device), _sig_of(args), _sig_of(kwargs), self._training(),
+               torch.is_grad_enabled() and tuple(t.requires_grad
+                                                 for t in tensors),
+               _amp_key())
         bound = GR.addresses(self._state())
         if any(p.bound != bound for p in self._cache.values()):
             self._cache.clear()
+        if torch.is_grad_enabled():
+            return self._replay_train(key, leaves, spec, tensors, bound,
+                                      device)
         prog = self._cache.get(key)
         if prog is None:
             with torch.inference_mode(False):
@@ -145,6 +254,96 @@ class StaticFunction:
         return _pytree.tree_map(
             lambda x: x.clone() if isinstance(x, torch.Tensor) else x,
             prog.graph.outputs)
+
+
+    def _replay_train(self, key, leaves, spec, tensors, bound, device):
+        """The CUDA path with grad on: the signature's `_TrainProgram`
+        (made and captured at its first call, which runs eagerly) run
+        through `_Replayed`; the outputs in the function's structure."""
+        prog = self._cache.get(key)
+        eager = None
+        if prog is None:
+            prog, eager = self._capture_train(leaves, spec, tensors, bound,
+                                              device)
+            self._cache[key] = prog
+        else:
+            with torch.no_grad():
+                for dst, src in zip(prog.inputs, tensors):
+                    dst.copy_(src)
+            prog.fwd.replay()
+            prog.calls += 1
+        wanted = [t for t in tensors if t.requires_grad]
+        params = prog.diff[len(wanted):]
+        made = iter(_Replayed.apply(prog, eager, *wanted, *params))
+        attrs = iter(prog.attrs)
+        out = []
+        for x in prog.leaves:
+            if isinstance(x, torch.Tensor):
+                x = next(made)
+                # markers the function sets on its outputs (the GPT
+                # fused head's `fused_head_hidden`) come along
+                x.__dict__.update(next(attrs))
+            out.append(x)
+        return _pytree.tree_unflatten(out, prog.spec)
+
+    def _capture_train(self, leaves, spec, tensors, bound, device):
+        """The first call of a training signature: the forward run
+        eagerly on the capture stream on static copies of the call's
+        tensors (this call's outputs, with their tape), the backward
+        warmed up there with zero cotangents, then the forward and the
+        backward captured into the pool.  Returns the program and the
+        eager call's flat outputs."""
+        with torch.no_grad():
+            inputs = [torch.empty_like(t) for t in tensors]
+            for dst, src in zip(inputs, tensors):
+                dst.copy_(src)
+        for dst, src in zip(inputs, tensors):
+            dst.requires_grad_(src.requires_grad)
+        it = iter(inputs)
+        static = [next(it) if isinstance(x, torch.Tensor) else x
+                  for x in leaves]
+        args, kwargs = _pytree.tree_unflatten(static, spec)
+        params = [p for p in self._state()
+                  if isinstance(p, nn.Parameter) and p.requires_grad]
+        prog = _TrainProgram(inputs, [t for t in inputs if t.requires_grad]
+                             + params, bound)
+        fn = self._fn
+
+        def forward():
+            with torch.enable_grad():
+                return fn(*args, **kwargs)
+
+        def warm():
+            out = forward()
+            prog.leaves, prog.spec = _pytree.tree_flatten(out)
+            outs = _flat(out)
+            diff = _differentiable(outs)
+            if diff and prog.diff:
+                torch.autograd.grad(diff, prog.diff,
+                                    [torch.zeros_like(o) for o in diff],
+                                    allow_unused=True, retain_graph=True)
+            return outs
+
+        def backward():
+            return torch.autograd.grad(
+                _differentiable(prog.flat_outputs()), prog.diff, prog.gouts,
+                allow_unused=True, retain_graph=True)
+
+        stream = GR.capture_stream(device)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        with CC.CaptureTiming(self._label) as timing:
+            eager = GR.warm_up(warm, stream)
+            timing.warmed()
+            prog.attrs = [dict(o.__dict__) for o in eager]
+            prog.fwd = GR.Graph(forward, stream, pool=self._pool,
+                                generators=(rng.generator(device),))
+            with torch.no_grad():
+                prog.gouts = [torch.empty_like(o)
+                              for o in _differentiable(eager)]
+            if prog.gouts and prog.diff:
+                prog.bwd = GR.Graph(backward, stream, pool=self._pool)
+        return prog, eager
 
 
 def to_static(function=None, input_spec=None, build_strategy=None,

@@ -31,6 +31,7 @@ from ..distributed.recompute import _resolve_policy
 from ..distributed.recompute import recompute as _recompute
 from ..nn import Dropout, Embedding, LayerNorm, Linear, RMSNorm, weight_in_use
 from ..nn import functional as F
+from ..ops.linalg import matmul
 from .generation import (
     GenerationMixin, _static_cache_attention, decode_position_ids,
     forward_phases, init_kv_caches,
@@ -258,7 +259,8 @@ class GPTForCausalLM(nn.Module, GenerationMixin):
             return x
         if self.lm_head is None:
             # tied head
-            logits = torch.matmul(x, weight_in_use(self.gpt.wte.weight).t())
+            logits = matmul(x, weight_in_use(self.gpt.wte.weight),
+                            transpose_y=True)
         else:
             logits = self.lm_head(x)
         if kv_caches is not None:
@@ -441,9 +443,15 @@ class GPTPretrainingCriterion(nn.Module):
                 f"fused={self.fused})")
         n = logits.shape[:-1].numel()
         if is_hidden:
+            h, w = logits, self._model.gpt.wte.weight
+            if h.dtype != w.dtype:
+                # `amp.auto_cast` over a cast model: f32 hidden states
+                # (the final norm is black-listed) meet the bf16 / f16
+                # head; the JAX product promotes both to f32
+                dt = torch.promote_types(h.dtype, w.dtype)
+                h, w = h.to(dt), w.to(dt)
             total, count = _fused_linear_ce(
-                logits.reshape(n, logits.shape[-1]),
-                self._model.gpt.wte.weight, labels.reshape(n),
+                h.reshape(n, h.shape[-1]), w, labels.reshape(n),
                 self.ignore_index)
             return total / count.clamp(min=1.0)
         if self.fused and logits.shape[-1] >= 8192:

@@ -11,6 +11,6 @@ from .common import (  # noqa: F401
     alpha_dropout, dropout, dropout2d, dropout3d,
 )
 from .conv import conv2d  # noqa: F401
-from .loss import cross_entropy  # noqa: F401
+from .loss import cross_entropy, softmax_with_cross_entropy  # noqa: F401
 from .norm import batch_norm, layer_norm, rms_norm  # noqa: F401
 from .pooling import adaptive_avg_pool2d, max_pool2d  # noqa: F401

@@ -18,6 +18,7 @@ import math
 
 import torch
 
+from ...amp import gate as _amp
 from ...ops.kernels.flash_attention import (
     FlashAttention, FlashAttentionKV, layout_flag,
 )
@@ -78,9 +79,14 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     keeps one function on the CPU and the card (ROADMAP C2.6).  On CUDA a
     mask that requires grad raises: the kernel gives the bias no
     gradient (the JAX entry sends such masks to its reference path
-    instead)."""
+    instead).  Under `amp.auto_cast` the op runs in the AMP dtype (its
+    floating mask too, as the JAX gate casts it)."""
+    op = "scaled_dot_product_attention"
+    query, key, value, attn_mask = _amp.cast(op, query, key, value,
+                                             attn_mask)
     if query.device.type == "cpu":
-        return _sdpa_ref(query, key, value, attn_mask, is_causal)
+        return _amp.seen(op, _sdpa_ref(query, key, value, attn_mask,
+                                         is_causal))
     if attn_mask is not None and attn_mask.requires_grad \
             and torch.is_grad_enabled():
         raise NotImplementedError(
@@ -89,8 +95,9 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
             "detach the mask")
     q, k, v = query.contiguous(), key.contiguous(), value.contiguous()
     if flash_tier(q, k, attn_mask) == "kv":
-        return FlashAttentionKV.apply(q, k, v, is_causal)
-    return FlashAttention.apply(q, k, v, attn_mask, is_causal)
+        return _amp.seen(op, FlashAttentionKV.apply(q, k, v, is_causal))
+    return _amp.seen(op, FlashAttention.apply(q, k, v, attn_mask,
+                                                is_causal))
 
 
 def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,

@@ -12,9 +12,14 @@ from __future__ import annotations
 
 import torch.nn.functional as F
 
+from ...amp import gate as _amp
+
 
 def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1,
            groups=1):
     """x [B, Cin, H, W], weight [Cout, Cin/groups, kh, kw]; int or pair
-    stride / padding / dilation (symmetric padding)."""
-    return F.conv2d(x, weight, bias, stride, padding, dilation, groups)
+    stride / padding / dilation (symmetric padding).  In the AMP dtype
+    under `amp.auto_cast`."""
+    x, weight, bias = _amp.cast("conv2d", x, weight, bias)
+    return _amp.seen("conv2d", F.conv2d(x, weight, bias, stride, padding,
+                                        dilation, groups))

@@ -25,6 +25,7 @@ import threading
 import torch
 from torch import nn
 
+from ..amp import gate as _amp
 from ..ops.quant import dequantize_channels
 from .functional import dropout, dropout2d, dropout3d, layer_norm, rms_norm
 
@@ -89,8 +90,10 @@ class Linear(nn.Module):
                                        dtype=dtype)) if bias else None
 
     def forward(self, x):
-        y = torch.matmul(x, weight_in_use(self.weight))
-        return y if self.bias is None else y + self.bias
+        x, w, b = _amp.cast("linear", x, weight_in_use(self.weight),
+                            self.bias)
+        y = torch.matmul(x, w)
+        return _amp.seen("linear", y if b is None else y + b)
 
 
 class Embedding(nn.Module):

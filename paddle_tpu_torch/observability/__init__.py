@@ -30,14 +30,14 @@ is left out).
 from __future__ import annotations
 
 from . import (  # noqa: F401
-    capture_cost, export, flight, lifecycle, metrics, request_trace, slo,
-    step_stats, tenant_ledger, timeseries, trace,
+    capture_cost, export, flight, goodput, lifecycle, metrics,
+    request_trace, slo, step_stats, tenant_ledger, timeseries, trace,
 )
 from .step_stats import StepTimer  # noqa: F401
 
 __all__ = ["metrics", "flight", "trace", "capture_cost", "request_trace",
-           "slo", "export", "tenant_ledger", "timeseries", "lifecycle",
-           "step_stats", "StepTimer", "attach", "detach"]
+           "slo", "export", "goodput", "tenant_ledger", "timeseries",
+           "lifecycle", "step_stats", "StepTimer", "attach", "detach"]
 
 # The snapshot-schema floor `attach()` guarantees: these counters exist
 # (at 0) in every telemetry snapshot even when the path never fired in

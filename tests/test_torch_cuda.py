@@ -97,7 +97,7 @@ from paddle_tpu_torch.ops.kernels import window_attention as WA
 
 pytestmark = pytest.mark.cuda
 
-TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 1e-2}
 DTYPES = [torch.float32, torch.bfloat16]
 
 
@@ -331,6 +331,80 @@ def test_flash_bwd_causal_pad_rows(sq, sk, d, dtype):
     assert not got[0][0, :pad].any()
 
 
+# float16 (the dense modes: causal / full, with or without a bias) on the
+# same tensor-core core as bf16: tile edges, padded head dims, GQA
+F16_CASES = [(2, 13, 21, 4, 2, 64), (1, 63, 63, 12, 4, 40),
+             (2, 64, 64, 4, 4, 72), (1, 65, 130, 4, 2, 128),
+             (1, 130, 130, 2, 1, 256), (2, 64, 65, 3, 3, 8),
+             (8, 256, 256, 12, 12, 64)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,d", F16_CASES)
+def test_flash_f16_fwd_bwd_match_plain(b, sq, sk, hq, hkv, d, causal):
+    """f16 forward and backward against the plain versions on the same
+    f16 inputs, within 1e-2 (of the largest reference gradient), the
+    LSE within 1e-4; the kernels ran (launch counters)."""
+    dtype = torch.float16
+    g = torch.Generator(device="cuda").manual_seed(sq * 5 + d)
+    q, dout = (_randn(g, b, sq, hq, d, dtype=dtype) for _ in range(2))
+    k, v = (_randn(g, b, sk, hkv, d, dtype=dtype) for _ in range(2))
+    K.reset_launches()
+    out, lse = FA.flash_fwd(q, k, v, causal=causal)
+    ref_out, ref_lse = FA.flash_fwd_reference(q, k, v, causal=causal)
+    assert out.dtype == dtype
+    _close(out, ref_out, dtype)
+    _close(lse, ref_lse, torch.float32)
+    got, want = _bwd_pair(q, k, v, dout, causal=causal)
+    _close_grads(got, want, dtype)
+    counts = K.launch_counts()
+    assert counts["flash_fwd"] == 2 and counts["flash_bwd"] == 1
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bias_shape", [(1, 1, 24, 40), (2, 6, 24, 40),
+                                        (2, 1, 1, 40)])
+def test_flash_f16_bias_matches_plain(bias_shape, causal):
+    """The biased mode in f16, GQA 6/3, forward and backward."""
+    dtype = torch.float16
+    g = torch.Generator(device="cuda").manual_seed(17)
+    q, dout = (_randn(g, 2, 24, 6, 64, dtype=dtype) for _ in range(2))
+    k, v = (_randn(g, 2, 40, 3, 64, dtype=dtype) for _ in range(2))
+    bias = _randn(g, *bias_shape, dtype=torch.float32)
+    out, lse = FA.flash_fwd(q, k, v, bias=bias, causal=causal)
+    ref_out, ref_lse = FA.flash_fwd_reference(q, k, v, bias=bias,
+                                              causal=causal)
+    _close(out, ref_out, dtype)
+    _close(lse, ref_lse, torch.float32)
+    got, want = _bwd_pair(q, k, v, dout, bias=bias, causal=causal)
+    _close_grads(got, want, dtype)
+
+
+def test_flash_f16_reruns_bit_identical_and_other_modes_raise():
+    """Two f16 runs of each direction are bit-identical (no atomics);
+    the head-major (kv tier) and packed modes raise TypeError naming
+    the mode rather than compute in another dtype."""
+    dtype = torch.float16
+    g = torch.Generator(device="cuda").manual_seed(23)
+    q, k, v, dout = (_randn(g, 2, 128, 4, 64, dtype=dtype)
+                     for _ in range(4))
+    runs = []
+    for _ in range(2):
+        out, lse = FA.flash_fwd(q, k, v, causal=True)
+        runs.append((out, lse) + FA.flash_bwd(q, k, v, out, lse, dout,
+                                              causal=True))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    with pytest.raises(TypeError, match="head-major"):
+        FA.flash_fwd(q.transpose(1, 2).contiguous(), k, v, causal=True,
+                     head_major=True)
+    with pytest.raises(TypeError, match="float16|Half"):
+        VA.varlen_fwd(q[0], k[0], v[0],
+                      torch.tensor([0, 128], dtype=torch.int32,
+                                   device="cuda"),
+                      torch.tensor([0, 128], dtype=torch.int32,
+                                   device="cuda"), causal=True)
+
+
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2)])
 def test_flash_attention_grad_matches_autograd_of_plain(hq, hkv, causal):
@@ -529,9 +603,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     q = torch.randn(1, 2, 4, 64, device="cuda").transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         FA.flash_fwd(q, q, q)
-    q = torch.randn(1, 4, 2, 64, device="cuda", dtype=torch.float16)
+    q = torch.randn(1, 4, 2, 64, device="cuda", dtype=torch.float64)
     with pytest.raises(TypeError):
         FA.flash_fwd(q, q, q)
+    q = torch.randn(1, 2, 4, 64, device="cuda", dtype=torch.float16)
+    kv16 = torch.randn(1, 4, 2, 64, device="cuda", dtype=torch.float16)
+    with pytest.raises(TypeError, match="head-major"):
+        FA.flash_fwd(q, kv16, kv16, head_major=True)
     q = torch.randn(1, 4, 2, 64, device="cuda")
     out, lse = FA.flash_fwd(q, q, q)
     with pytest.raises(ValueError, match="lse"):
@@ -2785,3 +2863,218 @@ def test_recompute_with_dropout_on_the_card(policy):
     assert all(torch.equal(a, t) for a, t in zip(after,
                                                  step._state_tensors()))
     K.reset_launches()
+
+
+# ------------------------------------ the eager training loop (-k eager)
+def _train_gpt(seed=2, **kw):
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+
+    cfg = GPTConfig(**dict(dict(vocab_size=300, hidden_size=64,
+                                num_layers=2, num_heads=4, max_seq_len=64,
+                                fused_head_ce=True), **kw))
+    return GPTForCausalLM(cfg, seed=seed).train()
+
+
+def _train_batch(seed=0, b=2, s=40):
+    rs = np.random.RandomState(seed)
+    return tuple(torch.from_numpy(rs.randint(0, 300, (b, s)).astype(
+        np.int32)).cuda() for _ in range(2))
+
+
+ZOO = (("SGD", {}), ("Momentum", dict(momentum=0.9)),
+       ("Adagrad", dict(initial_accumulator_value=0.1)),
+       ("Adam", dict(amsgrad=True)), ("AdamW", {}), ("Adamax", {}),
+       ("RMSProp", dict(centered=True, momentum=0.5)), ("Lamb", {}),
+       ("Adadelta", {}), ("Rprop", {}))
+
+
+@pytest.mark.parametrize("name,kw", ZOO, ids=[z[0] for z in ZOO])
+def test_eager_zoo_step_equals_graphed_replay(name, kw):
+    """Each rule: 4 steps of the graphed train step (the eager first
+    step and its capture, then 3 replays) against 4 eager ``.step()``s
+    of the same rule from the same weights, f32: losses and parameters
+    within 1e-5 of the largest value (lr 1e-5, so that a sign flip of a
+    rounding-level gradient stays within it)."""
+    from paddle_tpu_torch.distributed import build_train_step
+    from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import optimizer as O
+
+    cls = getattr(O, name)
+    ids, labels = _train_batch(3)
+    graphed, eager = _train_gpt(), _train_gpt()
+    step = build_train_step(graphed, cls(learning_rate=1e-5, **kw),
+                            GPTPretrainingCriterion(model=graphed))
+    lg = torch.cat([step(ids, labels)[None],
+                    step.run_steps(ids, labels, repeat=3)])
+    assert len(step._graphs) == 1
+    opt = cls(learning_rate=1e-5, parameters=eager.parameters(), **kw)
+    crit = GPTPretrainingCriterion(model=eager)
+    le = []
+    for _ in range(4):
+        loss = crit(eager(ids), labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        le.append(loss.detach())
+    assert (lg - torch.stack(le)).abs().max() <= 1e-5 * lg.abs().max()
+    for (n, a), b in zip(graphed.named_parameters(), eager.parameters()):
+        assert (a - b).abs().max() <= 1e-5 * max(1.0, a.abs().max()), n
+
+
+def test_eager_amp_loop_tracks_the_graphed_step():
+    """The bf16 O2 eager loop (`decorate`, multi_precision AdamW, clip
+    1.0, `auto_cast`) against the graphed bf16 AMP step with the same
+    clip, 3 steps from the same weights (the bf16 casts the eager loop's
+    masters start from): losses within 2e-2 relative;
+    one flash launch of each direction a layer a step."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.distributed import build_train_step
+    from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    ids, labels = _train_batch(4)
+    ref = _train_gpt()
+    with torch.no_grad():
+        # the weights `decorate` gives the eager loop's masters
+        for p in ref.parameters():
+            p.copy_(p.to(torch.bfloat16))
+    step = build_train_step(ref, AdamW(learning_rate=1e-3),
+                            GPTPretrainingCriterion(model=ref),
+                            amp_dtype="bfloat16", grad_clip_norm=1.0)
+    want = step.run_steps(ids, labels, repeat=3)
+    model = _train_gpt()
+    opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                multi_precision=True, grad_clip=ClipGradByGlobalNorm(1.0))
+    model, opt = amp.decorate(model, opt, level="O2")
+    crit = GPTPretrainingCriterion(model=model)
+    K.reset_launches()
+    got = []
+    for _ in range(3):
+        with amp.auto_cast(level="O2"):
+            loss = crit(model(ids), labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        got.append(loss.detach())
+    got = torch.stack(got)
+    assert ((got - want).abs() / want.abs()).max() <= 2e-2
+    counts = K.launch_counts()
+    assert counts["flash_fwd"] == counts["flash_bwd"] == 2 * 3
+    assert all(p.dtype == torch.bfloat16 for p in model.parameters())
+
+
+def test_to_static_training_replay_equals_eager_bit_for_bit():
+    """`jit.to_static(model)` in training with dropout 0.1, 4 calls
+    (gradients accumulated over the first two, then an AdamW step each)
+    against the eager model from the same weights and the same
+    generator state: losses, gradients, parameters and the generator's
+    state bit for bit; one program, its forward and backward graphs
+    replayed from the second call."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.core import rng
+    from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+
+    runs = []
+    for static in (False, True):
+        model = _train_gpt(dropout=0.1)
+        if static:
+            jit.to_static(model)
+        opt = AdamW(learning_rate=1e-3, parameters=model.parameters())
+        crit = GPTPretrainingCriterion(model=model)
+        rng.seed(11)
+        losses, grads = [], []
+        for i in range(4):
+            ids, labels = _train_batch(20 + i)
+            loss = crit(model(ids), labels)
+            loss.backward()
+            losses.append(loss.detach())
+            if i >= 1:
+                grads.append([p.grad.clone() for p in model.parameters()])
+                opt.step()
+                opt.clear_grad()
+        runs.append((torch.stack(losses), grads,
+                     [p.detach().clone() for p in model.parameters()],
+                     rng.generator("cuda").get_state(), model))
+    (l0, g0, p0, s0, _), (l1, g1, p1, s1, m1) = runs
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(a, b) for x, y in zip(g0, g1)
+               for a, b in zip(x, y))
+    assert all(torch.equal(a, b) for a, b in zip(p0, p1))
+    assert torch.equal(s0, s1)
+    (prog,) = m1.forward._cache.values()
+    assert prog.calls == 3 and prog.bwd is not None
+
+
+def test_grad_scaler_skip_on_the_card():
+    """A forced overflow (the loss times inf) in f16 O1: the step leaves
+    the parameters, the Adam slots and the step count bit for bit and
+    halves the scale; the next steps train."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = _train_gpt()
+    opt = AdamW(learning_rate=1e-3, parameters=model.parameters())
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 10)
+    crit = GPTPretrainingCriterion(model=model)
+    ids, labels = _train_batch(5)
+    K.reset_launches()
+    for i in range(4):
+        with amp.auto_cast(dtype="float16"):
+            loss = crit(model(ids), labels)
+        if i == 2:
+            loss = loss * float("inf")
+            before = ([p.detach().clone() for p in model.parameters()],
+                      [v.clone() for v in opt.state_dict().values()
+                       if isinstance(v, torch.Tensor)], opt._step_count)
+            scale = scaler._scale
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        skipped = scaler._found_inf
+        scaler.update()
+        opt.clear_grad()
+        if i == 2:
+            assert skipped and scaler._scale == scale / 2
+            assert opt._step_count == before[2] == 2
+            after = [p.detach() for p in model.parameters()] + [
+                v for v in opt.state_dict().values()
+                if isinstance(v, torch.Tensor)]
+            assert all(torch.equal(a, b) for a, b in
+                       zip(before[0] + before[1], after))
+        else:
+            assert not skipped
+    assert opt._step_count == 3
+    assert K.launch_counts()["flash_fwd"] == 2 * 4
+
+
+def test_lbfgs_on_the_card():
+    """`LBFGS.step(closure)` converges on the card, its iterates within
+    1e-4 of the same run on the CPU."""
+    from paddle_tpu_torch.nn import Linear
+    from paddle_tpu_torch.optimizer import LBFGS
+
+    rs = np.random.RandomState(0)
+    xs = rs.randn(32, 3).astype(np.float32)
+    ys = xs @ np.array([[1.5], [-2.0], [0.5]], np.float32)
+    finals = []
+    for dev in ("cuda", "cpu"):
+        lin = Linear(3, 1, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(0))
+        if dev == "cpu":
+            lin.load_state_dict({k: v.cpu() for k, v in first.items()})
+        else:
+            first = {k: v.clone() for k, v in lin.state_dict().items()}
+        opt = LBFGS(parameters=lin.parameters(), max_iter=10)
+        x, y = torch.from_numpy(xs).to(dev), torch.from_numpy(ys).to(dev)
+
+        def closure():
+            loss = ((lin(x) - y) ** 2).mean()
+            loss.backward()
+            return loss
+
+        finals.append((opt.step(closure), lin.weight.detach().cpu()))
+    (lg, wg), (lc, wc) = finals
+    assert lg < 1e-3 and abs(lg - lc) <= 1e-4
+    assert (wg - wc).abs().max() <= 1e-4

@@ -9,8 +9,9 @@ Covered: `to_static(model)` equals the eager forward bit for bit and the
 JAX `paddle_tpu.jit.to_static` of the same model with the same weights
 within 1e-4 of the largest reference logit (``test_torch_vision.py``'s
 model tolerance: f32 reduction order); the signature keys have the JAX
-`_sig_of`'s classes; the decorator forms; training mode, grad enabled
-and ``backend="sot"`` raise.
+`_sig_of`'s classes; the decorator forms; training mode with grad
+enabled runs (``tests/test_torch_jit_train.py`` covers it); and
+``backend="sot"`` raises.
 """
 from __future__ import annotations
 
@@ -99,16 +100,25 @@ def test_decorator_forms_and_plain_functions():
 
 
 def test_training_grad_and_sot_raise():
-    """Not ported (ROADMAP A6, A9), and nothing runs eagerly instead."""
+    """Training and grad enabled are ported (on the CPU the function
+    runs eagerly: the eager model's outputs and gradients, bit for bit;
+    tests/test_torch_jit_train.py holds the graph path); the "sot"
+    backend is not (ROADMAP A9) and raises."""
     model = TV.resnet18(num_classes=10, device="cpu")
+    eager = TV.resnet18(num_classes=10, device="cpu")
     TJ.to_static(model)
-    x = torch.zeros(1, 3, 32, 32)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A6"):
-        model(x)                                   # grad enabled
+    x = torch.from_numpy(np.random.RandomState(5).randn(
+        2, 3, 32, 32).astype(np.float32))
     model.train()
-    with torch.no_grad(), pytest.raises(NotImplementedError,
-                                        match="ROADMAP Queue A6"):
-        model(x)                                   # training mode
+    eager.train()
+    out, want = model(x), eager(x)                 # training, grad on
+    assert torch.equal(out, want)
+    out.square().mean().backward()
+    want.square().mean().backward()
+    for a, b in zip(model.parameters(), eager.parameters()):
+        assert torch.equal(a.grad, b.grad)
+    for a, b in zip(model.buffers(), eager.buffers()):
+        assert torch.equal(a, b)                   # BN running statistics
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A9"):
         TJ.to_static(TV.resnet18(num_classes=10, device="cpu"),
                      backend="sot")

@@ -135,6 +135,7 @@ COPIES = ["observability/metrics.py", "observability/trace.py",
           "distributed/fleet/elastic.py", "resilience/watchdog.py",
           "distributed/checkpoint/metadata.py",
           "distributed/checkpoint/__init__.py",
+          "observability/goodput.py",
           # modules copied but for the top-level definitions named after
           # "-", which the port replaces with its own (torch in place of
           # jax, the CUDA allocator in place of PJRT's, the metadata
@@ -296,13 +297,18 @@ def test_flash_sources_run_bf16_on_tensor_cores(name):
     only the CUDA toolkit's runtime and bf16 headers besides their own."""
     code = _translation_unit(name)
     assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in code
+    # float16 (the dense modes) on the same tensor-core core
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32" in code
+    assert "dispatch_tc<f16, true, false>" in code \
+        and "dispatch_tc<f16, false, false>" in code
+    assert "dispatch<__half" not in code and "launch<__half" not in code
     assert "cp.async.cg.shared.global" in code and "ldmatrix" in code
     assert "dispatch<__nv_bfloat16" not in code
     assert "launch<__nv_bfloat16" not in code
     assert code.count("dispatch_tc<") >= 3  # native / biased, packed, hm
     assert "atomic" not in code
     assert set(re.findall(r"#include <([^>]+)>", code)) <= {
-        "cuda_bf16.h", "cuda_runtime.h", "stdint.h"}
+        "cuda_bf16.h", "cuda_fp16.h", "cuda_runtime.h", "stdint.h"}
     assert not re.search(r"cublas|cudnn|cutlass|cute::|scaled_dot_product",
                          code, re.I)
 
@@ -330,7 +336,7 @@ def test_vision_sources_run_bf16_on_tensor_cores(name, entry, dispatch):
         or name == "conv_bn_act.cu"   # the conv's goes through launch_one
     assert "atomic" not in code
     assert set(re.findall(r"#include <([^>]+)>", code)) <= {
-        "cuda_bf16.h", "cuda_runtime.h", "stdint.h"}
+        "cuda_bf16.h", "cuda_fp16.h", "cuda_runtime.h", "stdint.h"}
     assert not re.search(r"cublas|cudnn|cutlass|cute::|scaled_dot_product",
                          code, re.I)
 
@@ -367,7 +373,7 @@ def test_redesigned_kernels_dispatch_by_shape(name, fast, general,
         assert "uint4" in code and "extern __shared__ float zs[]" in code
     assert "atomic" not in code
     assert set(re.findall(r"#include <([^>]+)>", code)) <= {
-        "cuda_bf16.h", "cuda_runtime.h", "stdint.h"}
+        "cuda_bf16.h", "cuda_fp16.h", "cuda_runtime.h", "stdint.h"}
     assert not re.search(r"cublas|cudnn|cutlass|cute::|scaled_dot_product",
                          code, re.I)
 
@@ -776,7 +782,7 @@ def test_exact_decode_kernels_split_keys_across_a_cluster(name, kernel):
     assert "const float pv = Q8 ? p * vsc : p;" in code
     assert "atomic" not in code
     assert set(re.findall(r"#include <([^>]+)>", code)) <= {
-        "cuda_bf16.h", "cuda_runtime.h", "stdint.h"}
+        "cuda_bf16.h", "cuda_fp16.h", "cuda_runtime.h", "stdint.h"}
     assert not re.search(r"cublas|cudnn|cutlass|cute::|scaled_dot_product",
                          code, re.I)
 

@@ -232,13 +232,28 @@ def test_cross_entropy_takes_paddle_column_labels(ignore_index):
 
 
 def test_cross_entropy_loss_refuses_what_is_not_ported():
-    for kw in (dict(weight=torch.ones(4)), dict(reduction="sum"),
-               dict(soft_label=True), dict(axis=1), dict(use_softmax=False),
-               dict(label_smoothing=0.1)):
-        with pytest.raises(NotImplementedError, match=next(iter(kw))):
-            tnn.CrossEntropyLoss(**kw)
-    with pytest.raises(NotImplementedError, match="soft"):
-        tnn.CrossEntropyLoss()(torch.randn(2, 4), torch.rand(2, 4))
+    """Nothing of the layer is refused any more: each option that once
+    raised builds, runs and gives the JAX layer's loss (every option and
+    combination is held to JAX in tests/test_torch_cross_entropy.py)."""
+    rs = np.random.RandomState(9)
+    logits = rs.rand(2, 4).astype(np.float32) + 0.1
+    soft = rs.rand(2, 4).astype(np.float32)
+    soft /= soft.sum(-1, keepdims=True)
+    hard = np.array([1, 3], np.int32)
+    w = np.array([0.5, 1.0, 1.5, 2.0], np.float32)
+    for kw, label in ((dict(weight=w), hard), (dict(reduction="sum"), hard),
+                      (dict(soft_label=True), soft), (dict(axis=1), hard),
+                      (dict(use_softmax=False), hard),
+                      (dict(label_smoothing=0.1), hard), ({}, soft)):
+        tkw = {k: _t(v) if isinstance(v, np.ndarray) else v
+               for k, v in kw.items()}
+        jkw = {k: P.to_tensor(v) if isinstance(v, np.ndarray) else v
+               for k, v in kw.items()}
+        jlab = P.to_tensor(label, "int32") if label.dtype == np.int32 \
+            else P.to_tensor(label)
+        ref = P.nn.CrossEntropyLoss(**jkw)(P.to_tensor(logits), jlab).numpy()
+        got = tnn.CrossEntropyLoss(**tkw)(_t(logits), _t(label))
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 
 
 # --------------------------------------------- (d) batch norm in training
