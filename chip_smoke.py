@@ -311,6 +311,33 @@ non-zero and prints no result):
      slot memory; and in f32 at 2 layers (batch 2 x 256, lr 1e-5) 4 steps
      of the graphed step (3 of them replays) against 4 eager `.step()`s
      of the same rule: losses and parameters within 1e-4.
+ 30. gpt6p7b_serve: `gpt_6p7b` (hidden 4096, 32 layers, 32 heads of 128,
+     vocab 50304, learned positions, LayerNorm, GELU, a tied head) in
+     bf16 with seeded weights, full depth: phases 4 and 5 on it (their
+     checks and launches per layer: flash_fwd 32 a prefill, paged 32 a
+     decode step, decode_attention 32 a `generate()` step), then the
+     engine's decode step at 4 live slots: wall and profiled device ms,
+     its bound, and the peak memory;
+ 31. incubate_decode: `masked_multihead_attention` at gpt_6p7b's
+     attention width (B8, 32 heads of 128, a 2048-slot cache), 64 steps
+     from mixed starts, bf16 and f32: decode_attention once a step, each
+     step against the einsum route (a zero mask) within 2e-2 / 1e-5,
+     both caches equal; `block_multihead_attention` over the same
+     contents in shuffled 64-token blocks within 1e-5 of the f32 run;
+     ms a call of each at the last step;
+     `variable_length_memory_efficient_attention` at B8 H32 S1024 D128,
+     bf16, causal, key lengths 256-1024: flash_fwd once, flash_bwd once
+     under a backward, output and gradients within 2e-2 of `_sdpa_ref`
+     in f32 on the card;
+ 32. incubate_moe: `FusedEcMoe` at hidden 1024, inter 4096, 8 experts, B8
+     x 512, bf16 against its f32 forward within 5% relative L2; ms a
+     forward;
+ 33. incubate_train: phase 27's GPT-125M eager bf16 O2 loop with its 48
+     projection weights pruned 2:4, `asp.decorate(LookAhead(AdamW, k=5))`
+     and a `ModelAverage` beside it, 10 steps: the loss falls, 2:4
+     sparsity holds after every step, `apply()` / `restore()` gives the
+     live weights back bit for bit, 12 + 12 flash launches a step;
+     tokens/s beside phase 27's.
 
 Phase 3 also holds paged_attention_int8 (the gpt_1p3b row's pool in
 int8, and a llama_7b decode step, 32 kv heads over ~1000 keys each, with
@@ -342,7 +369,8 @@ heads) and at llama_7b's decode width (B4, 32 kv heads of 128: the paged
 row at pos 1040 / 1000 / 960 / 1020, the dense row left-padded to ~1000
 keys a row), every paged_attention and decode_attention row with its
 profiled device time, the wrapper's host microseconds and, for decode,
-SDPA's; bf16 reruns of both at the llama_7b rows bit-identical; and, in
+SDPA's (decode_attention also at phase 31's masked-MHA shape, B8 cap
+2048, its last step's keys); bf16 reruns of both at the llama_7b rows bit-identical; and, in
 bf16 and f32 at gpt_1p3b widths over a shuffled page table,
 paged_attention bit for bit decode_attention over the same keys gathered
 dense (start 0 and start 37) and each sequence alone bit for bit the
@@ -354,7 +382,9 @@ Launch counters are reset just before the driven part of phases 4, 4b,
 (its in-process engine: the replicas count theirs in their own
 processes), 24, 25 and 26 (their timed steps with recompute), 27 (the timed
 eager steps), 28 (the timed f16 steps) and 29 (each rule's timed
-replays) and read just after each; every kernel of each path must
+replays), 30 (as 4 and 5), 31 (its kernel-route loops and its
+variable-length call) and 33 (the timed steps) and read just after
+each; every kernel of each path must
 have launched.  A replayed
 CUDA graph (the engine's decode step, the train step) adds the launches
 its capture recorded to the counters, once a replay.  Under --profile
@@ -946,7 +976,9 @@ def llama_decode_cases(torch, dtype):
     / 1000 / 960 / 1020 over the default pool of 513 pages of 16, a
     shuffled table), the dense row as `generate()` leaves a left-padded
     batch (cap 1088, pos 1040, starts 0 / 40 / 80 / 20: 1041 / 1001 / 961
-    / 1021 keys).  Bound: each live row's K and V once, q and out once."""
+    / 1021 keys), and a dense row at phase 31's masked-MHA shape (B8, cap
+    2048, its last step's positions).  Bound: each live row's K and V
+    once, q and out once."""
     from paddle_tpu_torch.ops.kernels import decode_attention as DA
     from paddle_tpu_torch.ops.kernels import paged_attention as PA
 
@@ -983,6 +1015,21 @@ def llama_decode_cases(torch, dtype):
                   _dense_decode_library(qd, kc, vc, posd, std),
                   2 * keysd * h * d * isz + 2 * 4 * h * d * isz + 32,
                   4 * keysd * h * d, dname, 0))
+    # the dense row at phase 31's masked-MHA shape, its last decode step
+    # (B8, cap 2048, 32 heads of 128; bound: the valid keys)
+    mb, mcap = MMHA["batch"], MMHA["cap"]
+    qm = randn(mb, h, d)
+    km, vm = randn(mb, h, mcap, d), randn(mb, h, mcap, d)
+    posm = torch.tensor(MMHA_STARTS, dtype=torch.int32, device="cuda") \
+        + MMHA["steps"] - 1
+    stm = torch.zeros_like(posm)
+    keysm = int((posm + 1).sum())
+    cases.append(("decode_attention", f"masked-MHA B{mb} cap{mcap} H{h}",
+                  lambda: DA.decode_attention(qm, km, vm, posm),
+                  lambda: DA.decode_attention_reference(qm, km, vm, posm),
+                  _dense_decode_library(qm, km, vm, posm, stm),
+                  2 * keysm * h * d * isz + 2 * mb * h * d * isz + 4 * mb,
+                  4 * keysm * h * d, dname, 0))
     return cases
 
 
@@ -5812,6 +5859,375 @@ def phase_optimizer_zoo(card, batch=8, seq=1024, lr=1e-4):
     return total
 
 
+# ---------------------------------------------------------- phases 30-33
+# phase 31's decode loop: gpt_6p7b's attention width over a dense cache
+MMHA = dict(batch=8, heads=32, head_dim=128, cap=2048, steps=64, block=64)
+MMHA_STARTS = (100, 1900, 1000, 37, 1500, 250, 1983, 640)
+# phase 31 (c): variable_length_memory_efficient_attention's batch
+VLMEA = dict(batch=8, heads=32, seq=1024, head_dim=128, lens=(1024, 256))
+# phase 32: FusedEcMoe's block
+EC_MOE = dict(hidden=1024, inter=4096, experts=8, batch=8, seq=512)
+INCUBATE_STEPS = 10      # phase 33's eager steps
+
+
+def _sum_counts(*counts):
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def phase_gpt6p7b_serve(model, cfg, name="gpt_6p7b"):
+    """30. gpt_6p7b (hidden 4096, 32 layers, 32 heads of 128, learned
+    positions, LayerNorm, GELU, a tied head) in bf16 with seeded weights
+    on the card: phase 4 (the engine, its launches per layer and replays
+    included) and phase 5 (`generate()`, against the per-token loop and
+    the f32 upcast) on it, then the engine's decode step at 4 live slots
+    (~730-token contexts): wall ms of the replayed graph and its profiled
+    device ms, and the phase's peak memory.  Returns both phases' launch
+    counts."""
+    import torch
+
+    from paddle_tpu_torch.inference.engine import (
+        EngineConfig, InferenceEngine,
+    )
+
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    torch.cuda.reset_peak_memory_stats()
+    counts = _sum_counts(phase_serve(model, cfg, name),
+                         phase_generate(model, cfg, name))
+    peak = torch.cuda.max_memory_allocated()
+    eng = InferenceEngine(model, EngineConfig())
+    with torch.inference_mode():
+        prog = eng._decode_program(1)
+        for dst, src in zip((prog.tok, prog.pt, prog.lengths),
+                            _live_decode_inputs(eng, (1040, 560, 330,
+                                                      1000))):
+            dst.copy_(torch.from_numpy(src))
+        wall = time_ms(prog.graph.replay, iters=20)
+        dev = device_ms(prog.graph.replay, iters=10)
+    # the step's least work: every weight and live K/V row read once, 2
+    # operations a parameter a token for 4 tokens
+    keys = 1041 + 561 + 331 + 1001
+    kv_bytes = 2 * keys * cfg.num_layers * cfg.hidden_size * 2
+    bms, by = bound_ms(weights + kv_bytes, 2 * (weights // 2) * 4,
+                       "bfloat16")
+    log(f"[gpt6p7b_serve] {name} bf16 {cfg.num_layers}L: weights "
+        f"{weights / 2**30:.2f} GiB; decode step (4 live slots, "
+        f"1041/561/331/1001 keys) {wall:.3f} ms wall (graph replay, CUDA "
+        f"events), {dev:.3f} ms device; bound {bms:.3f} ms ({by}: the "
+        f"weights and the live KV once); peak allocated over phases 4 and "
+        f"5 {peak / 2**30:.2f} GiB (phase 5's f32 copy included)")
+    del eng, prog
+    return counts
+
+
+def _mmha_loop(IF, cache, xs, starts, mask=None):
+    """`masked_multihead_attention` over the steps of `xs` from `starts`
+    on `cache` (written in place): the outputs."""
+    return [IF.masked_multihead_attention(x, cache_kv=cache, src_mask=mask,
+                                          sequence_lengths=starts + i)[0]
+            for i, x in enumerate(xs)]
+
+
+def _rel_max(got, want):
+    """Largest |got - want| over the largest |want|."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def _to_blocks(dense, table, bs):
+    """A block pool [num_blocks, H, bs, D] holding the dense cache
+    [B, H, S, D] at the blocks `table` [B, S / bs] names."""
+    import torch
+
+    b, h, s, d = dense.shape
+    pool = torch.empty(table.numel(), h, bs, d, device=dense.device,
+                       dtype=dense.dtype)
+    pool[table.reshape(-1).long()] = dense.reshape(b, h, s // bs, bs, d) \
+        .movedim(2, 1).reshape(-1, h, bs, d)
+    return pool
+
+
+def phase_incubate_decode(card):
+    """31. The incubate decode functionals at gpt_6p7b's attention width
+    (B8, 32 heads of 128, a 2048-slot cache), 64 steps from starts
+    `MMHA_STARTS`: (a) `masked_multihead_attention` in bf16 and in f32:
+    decode_attention launched once a step, each step's output against
+    the einsum route of the same inputs (a zero `src_mask`) within
+    BF16_TOL (bf16) or 1e-5 (f32) of its largest value, both routes'
+    caches equal bit for bit; (b) `block_multihead_attention` over the
+    same contents in 64-token blocks of a shuffled f32 pool: each step
+    within 1e-5 of (a)'s f32 output; the last step of each timed; (c)
+    `variable_length_memory_efficient_attention` at B8 H32 S1024 D128,
+    bf16, causal, key lengths 256-1024: flash_fwd once and flash_bwd
+    once under a backward, output and gradients within BF16_TOL of
+    `_sdpa_ref` in f32 on the card.  Returns the launch counts."""
+    import torch
+
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.nn.functional.attention import _sdpa_ref
+    from paddle_tpu_torch.ops import kernels as K
+
+    b, h, d, cap = (MMHA[k] for k in ("batch", "heads", "head_dim", "cap"))
+    steps, bs = MMHA["steps"], MMHA["block"]
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(SEED + 31)
+    starts = torch.tensor(MMHA_STARTS, dtype=torch.int32, device=dev)
+    last = starts + steps - 1
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    total, outs, ms = [], {}, {}
+    try:
+        with torch.no_grad():
+            filled = torch.arange(cap, device=dev)[None, :] < starts[:, None]
+            dense = torch.randn(2, b, h, cap, d, generator=g, device=dev) \
+                * filled[None, :, None, :, None]
+            xs32 = torch.randn(steps, b, 3 * h * d, generator=g, device=dev)
+            for dtype in (torch.bfloat16, torch.float32):
+                dname = str(dtype).split(".")[1]
+                tol = BF16_TOL if dtype == torch.bfloat16 else 1e-5
+                ck, xs = dense.to(dtype), xs32.to(dtype)
+                ce = ck.clone()
+                zero = torch.zeros(b, 1, 1, cap, device=dev)
+                K.reset_launches()
+                got = _mmha_loop(IF, ck, xs, starts)
+                counts = K.launch_counts()
+                want = _mmha_loop(IF, ce, xs, starts, zero)
+                check(K.launch_counts() == counts
+                      and counts["decode_attention"] == steps,
+                      f"incubate_decode {dname}: decode_attention launched "
+                      f"{counts['decode_attention']} times in {steps} "
+                      "steps (the einsum route must launch none)")
+                total.append(counts)
+                worst = max(_rel_max(a, w) for a, w in zip(got, want))
+                check(worst <= tol, f"incubate_decode {dname}: the kernel "
+                      f"route vs the einsum route {worst:.3g} > {tol}")
+                check(torch.equal(ck, ce), f"incubate_decode {dname}: the "
+                      "two routes wrote different caches")
+                outs[dname] = (got, worst)
+                ms[f"mmha kernel {dname}"] = time_ms(
+                    lambda: IF.masked_multihead_attention(
+                        xs[-1], cache_kv=ck, sequence_lengths=last))
+                ms[f"mmha einsum {dname}"] = time_ms(
+                    lambda: IF.masked_multihead_attention(
+                        xs[-1], cache_kv=ce, src_mask=zero,
+                        sequence_lengths=last))
+                del ck, ce
+            # (b) the same contents in a shuffled pool of 64-token blocks
+            nblk = cap // bs
+            perm = torch.randperm(b * nblk,
+                                  generator=torch.Generator().manual_seed(
+                                      SEED))
+            table = perm.reshape(b, nblk).to(device=dev, dtype=torch.int32)
+            kc, vc = _to_blocks(dense[0], table, bs), \
+                _to_blocks(dense[1], table, bs)
+            enc = torch.zeros(b, dtype=torch.int32, device=dev)
+            this = torch.ones(b, dtype=torch.int32, device=dev)
+
+            def block(x, lens):
+                return IF.block_multihead_attention(
+                    x, kc, vc, enc, lens, this, block_tables=table,
+                    block_size=bs)[0]
+
+            bworst = max(_rel_max(block(x, starts + i), w) for i, (x, w)
+                         in enumerate(zip(xs32, outs["float32"][0])))
+            check(bworst <= 1e-5, f"incubate_decode: block_multihead_"
+                  f"attention vs masked_multihead_attention (f32) "
+                  f"{bworst:.3g} > 1e-5")
+            ms["block f32"] = time_ms(lambda: block(xs32[-1], last))
+            del kc, vc, dense
+        # (c) variable-length attention through the biased flash kernels
+        vb, vh, vs, vd = (VLMEA[k] for k in ("batch", "heads", "seq",
+                                             "head_dim"))
+        hi, lo = VLMEA["lens"]
+        lens = torch.linspace(hi, lo, vb, device=dev).round().int()
+        q, k, v, dout = (torch.randn(vb, vh, vs, vd, generator=g, device=dev,
+                                     dtype=torch.bfloat16)
+                         for _ in range(4))
+        qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+        K.reset_launches()
+        out = IF.variable_length_memory_efficient_attention(
+            *qkv, kv_seq_lens=lens, causal=True)
+        fwd = K.launch_counts()
+        out.backward(dout)
+        counts = K.launch_counts()
+        check((fwd["flash_fwd"], fwd["flash_bwd"], counts["flash_fwd"],
+               counts["flash_bwd"]) == (1, 0, 1, 1),
+              f"incubate_decode (c): launches forward "
+              f"{ {k: v for k, v in fwd.items() if v} }, with the backward "
+              f"{ {k: v for k, v in counts.items() if v} }")
+        total.append(counts)
+        refs = [t.float().requires_grad_() for t in (q, k, v)]
+        pad = torch.where(torch.arange(vs, device=dev)[None, :]
+                          < lens[:, None], 0.0, IF._KV_PAD)[:, None, None]
+        ref = _sdpa_ref(*(t.transpose(1, 2) for t in refs), pad,
+                        True).transpose(1, 2)
+        ref.backward(dout.float())
+        verr = [_rel_max(out, ref)] + [_rel_max(a.grad, r.grad)
+                                       for a, r in zip(qkv, refs)]
+        check(max(verr) <= BF16_TOL, f"incubate_decode (c): output, dq, dk,"
+              f" dv vs _sdpa_ref in f32 {[f'{e:.3g}' for e in verr]} > "
+              f"{BF16_TOL}")
+        del refs, ref
+        with torch.no_grad():
+            ms["vlmea fwd bf16"] = time_ms(
+                lambda: IF.variable_length_memory_efficient_attention(
+                    q, k, v, kv_seq_lens=lens, causal=True))
+
+        def fwd_bwd():
+            o = IF.variable_length_memory_efficient_attention(
+                *qkv, kv_seq_lens=lens, causal=True)
+            o.backward(dout)
+
+        ms["vlmea fwd+bwd bf16"] = time_ms(fwd_bwd, iters=5)
+        K.reset_launches()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    keys = int((last + 1).sum())
+    kv_bytes = 2 * keys * h * d * 2
+    log(f"[incubate_decode] masked_multihead_attention B{b} H{h} D{d} cap"
+        f"{cap}, {steps} steps from {list(MMHA_STARTS)} ({card}): "
+        f"decode_attention {steps} launches a run; kernel vs einsum route "
+        f"bf16 {outs['bfloat16'][1]:.3g} (tol {BF16_TOL}), f32 "
+        f"{outs['float32'][1]:.3g} (tol 1e-5) of the largest output; "
+        f"block_multihead_attention (blocks of {bs}, shuffled) vs the f32 "
+        f"run {bworst:.3g} (tol 1e-5)")
+    log(f"[incubate_decode] ms a call at the last step ({keys} valid keys, "
+        f"bf16 K+V {kv_bytes / 1e6:.1f} MB, bound "
+        f"{kv_bytes / PEAK_BYTES * 1e3:.4f} ms): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in ms.items() if "vlmea" not in k))
+    log(f"[incubate_decode] variable_length_memory_efficient_attention "
+        f"B{vb} H{vh} S{vs} D{vd} bf16 causal, kv lengths "
+        f"{lens.tolist()}: flash_fwd 1 + flash_bwd 1; output, dq, dk, dv "
+        f"vs _sdpa_ref f32 {[float(f'{e:.3g}') for e in verr]} (tol "
+        f"{BF16_TOL}); fwd {ms['vlmea fwd bf16']:.4f} ms, fwd+bwd "
+        f"{ms['vlmea fwd+bwd bf16']:.4f} ms")
+    return _sum_counts(*total)
+
+
+def phase_incubate_moe(card):
+    """32. `FusedEcMoe` at hidden 1024, inter 4096, 8 experts, B8 x 512:
+    bf16 against the f32 forward of the same weights within 5% relative
+    L2 (TF32 off), ms a forward of each (CUDA events) and the achieved
+    TFLOP/s of the bf16 one (every expert sees every token)."""
+    import torch
+
+    from paddle_tpu_torch.incubate.nn import FusedEcMoe
+
+    hid, inter, e, b, s = (EC_MOE[k] for k in ("hidden", "inter",
+                                               "experts", "batch", "seq"))
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        m32 = FusedEcMoe(hid, inter, e, device="cuda", seed=SEED)
+        m16 = FusedEcMoe(hid, inter, e, device="cuda",
+                         dtype=torch.bfloat16, seed=SEED)
+        m16.load_state_dict({n: t.to(torch.bfloat16)
+                             for n, t in m32.state_dict().items()})
+        g = torch.Generator(device="cuda").manual_seed(SEED + 32)
+        x = torch.randn(b, s, hid, generator=g, device="cuda")
+        xb = x.to(torch.bfloat16)
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            ref, out = m32(x), m16(xb)
+            rel = ((out.float() - ref).norm() / ref.norm()).item()
+            ms16 = time_ms(lambda: m16(xb))
+            ms32 = time_ms(lambda: m32(x), iters=3)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    check(bool(torch.isfinite(out).all()) and rel <= 0.05,
+          f"incubate_moe: bf16 vs f32 relative L2 {rel:.4g} > 0.05")
+    flops = 2 * e * b * s * (2 * hid * inter + hid) + 2 * b * s * hid * e
+    log(f"[incubate_moe] FusedEcMoe H{hid} I{inter} E{e} B{b} x {s} "
+        f"({card}): bf16 vs f32 rel L2 {rel:.4g} (tol 0.05); bf16 "
+        f"{ms16:.3f} ms a forward ({flops / ms16 / 1e9:.1f} TFLOP/s), f32 "
+        f"{ms32:.3f} ms; peak {peak / 2**30:.2f} GiB")
+
+
+def phase_incubate_train(card, bf16_tps, batch=8, seq=1024, lr=1e-4):
+    """33. GPT-125M (12 layers, B8 x 1024) in the eager bf16 O2 loop of
+    phase 27 under the incubate extras: its 48 projection weights pruned
+    2:4 (`asp.prune_model`), `asp.decorate(LookAhead(AdamW, alpha 0.5,
+    k 5))`, and a `ModelAverage` (window 4) stepped beside it, for
+    INCUBATE_STEPS steps.  The loss falls; `check_sparsity` holds on
+    every pruned weight after every step; `apply()` changes the weights
+    and `restore()` gives back the live ones bit for bit; flash_fwd and
+    flash_bwd launch 12 each a step.  Tokens/s (the steps after the
+    first, the sparsity reads left out) beside phase 27's AdamW eager
+    loop.  Returns the launch counts of the timed steps."""
+    import torch
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.incubate import asp
+    from paddle_tpu_torch.incubate.optimizer import LookAhead, ModelAverage
+    from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
+    from paddle_tpu_torch.ops import kernels as K
+
+    cfg = _gpt125m(12)
+    ids, labels = _gpt125m_batch(cfg, batch, seq)
+    _release_card()
+    model, adamw = _o2_model(cfg, lr)
+    asp.reset_excluded_layers()
+    pruned = asp.prune_model(model)
+    weights = asp._prunable_params(model)
+    check(len(pruned) == len(weights) == 4 * cfg.num_layers
+          and all(asp.check_sparsity(w) for w in weights),
+          f"incubate_train: {len(pruned)} weights pruned 2:4")
+    opt = asp.decorate(LookAhead(adamw, alpha=0.5, k=5))
+    ma = ModelAverage(0.15, parameters=list(model.parameters()),
+                      max_average_window=4)
+    crit = GPTPretrainingCriterion(model=model)
+    losses, dt = [], 0.0
+    for i in range(INCUBATE_STEPS):
+        torch.cuda.synchronize()
+        if i == 1:
+            K.reset_launches()
+        t = time.perf_counter()
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            loss = crit(model(ids), labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        ma.step()
+        losses.append(loss.detach())
+        torch.cuda.synchronize()
+        if i:
+            dt += time.perf_counter() - t
+            counts = K.launch_counts()
+        check(all(asp.check_sparsity(w) for w in weights),
+              f"incubate_train: 2:4 sparsity lost after step {i}")
+    losses = torch.stack(losses).float().cpu().numpy()
+    check(np.isfinite(losses).all() and losses[-1] < losses[0],
+          f"incubate_train: losses {losses.tolist()}")
+    per = {k: v / (INCUBATE_STEPS - 1) for k, v in counts.items() if v}
+    check(per.get("flash_fwd") == cfg.num_layers
+          and per.get("flash_bwd") == cfg.num_layers,
+          f"incubate_train: launches a step {json.dumps(per)}")
+    with torch.no_grad():
+        live = [p.detach().clone() for p in model.parameters()]
+        ma.apply()
+        moved = sum(not torch.equal(p, q)
+                    for p, q in zip(model.parameters(), live))
+        ma.restore()
+        back = all(torch.equal(p, q)
+                   for p, q in zip(model.parameters(), live))
+    check(moved > 0 and back, f"incubate_train: ModelAverage apply moved "
+          f"{moved} tensors, restore bit for bit {back}")
+    tps = batch * seq * (INCUBATE_STEPS - 1) / dt
+    log(f"[incubate_train] GPT-125M bf16 O2 12L B{batch} S{seq} ({card}): "
+        f"{len(weights)} weights 2:4 (density "
+        f"{asp.calculate_density(weights[0]):.3f}), LookAhead(AdamW, k 5) "
+        f"through asp.decorate, ModelAverage(window 4): {tps:.1f} tokens/s "
+        f"({tps / bf16_tps:.3f}x phase 27's AdamW eager loop "
+        f"{bf16_tps:.1f}), {dt / (INCUBATE_STEPS - 1) * 1e3:.2f} ms/step; "
+        f"losses {losses.tolist()}; sparsity held after every step; "
+        f"apply moved {moved} tensors, restore bit for bit; launches a "
+        f"step {json.dumps(per)}")
+    asp.reset_excluded_layers()
+    del model, opt, adamw, ma, crit
+    _release_card()
+    return counts
+
+
 def main():
     try:
         import torch
@@ -5824,7 +6240,9 @@ def main():
         return 2
     try:
         import paddle_tpu_torch  # noqa: F401
-        from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_1p3b
+        from paddle_tpu_torch.models.gpt import (
+            GPTForCausalLM, gpt_1p3b, gpt_6p7b,
+        )
         from paddle_tpu_torch.models.llama import (
             LlamaForCausalLM, llama2_70b_shapes, llama_7b,
         )
@@ -5970,6 +6388,17 @@ def main():
              bf16_losses)
         release()
         path("optimizer_zoo", phase_optimizer_zoo, card)
+        release()
+        c6 = gpt_6p7b()
+        model = load(GPTForCausalLM, c6, "gpt_6p7b")
+        path("gpt6p7b_serve", phase_gpt6p7b_serve, model, c6)
+        del model
+        release()
+        path("incubate_decode", phase_incubate_decode, card)
+        release()
+        run("incubate_moe", phase_incubate_moe, card)
+        release()
+        path("incubate_train", phase_incubate_train, card, bf16_tps)
         release()
         path("fleet", phase_fleet)
         rows = []

@@ -1,10 +1,10 @@
 """incubate.nn (``paddle_tpu/incubate/nn/__init__.py``): the fused
-transformer layers ported so far and their functionals."""
+transformer layers, `FusedEcMoe` and their functionals."""
 from __future__ import annotations
 
 from . import functional  # noqa: F401
 from .layers import (  # noqa: F401
-    FusedBiasDropoutResidualLayerNorm, FusedDropoutAdd, FusedFeedForward,
-    FusedLinear, FusedMultiHeadAttention, FusedMultiTransformer,
-    FusedTransformerEncoderLayer,
+    FusedBiasDropoutResidualLayerNorm, FusedDropoutAdd, FusedEcMoe,
+    FusedFeedForward, FusedLinear, FusedMultiHeadAttention,
+    FusedMultiTransformer, FusedTransformerEncoderLayer,
 )

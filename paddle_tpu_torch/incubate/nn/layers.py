@@ -1,8 +1,8 @@
 """incubate.nn fused layers (``paddle_tpu/incubate/nn/layers.py``
 counterpart): `FusedLinear` :31, `FusedDropoutAdd` :50,
 `FusedBiasDropoutResidualLayerNorm` :64, `FusedMultiHeadAttention` :90,
-`FusedFeedForward` :160, `FusedTransformerEncoderLayer` :212 and
-`FusedMultiTransformer` :233.
+`FusedFeedForward` :160, `FusedTransformerEncoderLayer` :212,
+`FusedMultiTransformer` :233 and `FusedEcMoe` :270.
 
 Parameter names and shapes are the JAX layers', so `load_reference_state`
 moves ``functional_state()`` across without transposes: `qkv_weight` is
@@ -26,12 +26,13 @@ import torch
 from torch import nn
 
 from ...core.device import resolve_device
+from ...nn import Linear
 from . import functional as IF
 
 __all__ = [
     "FusedLinear", "FusedDropoutAdd", "FusedBiasDropoutResidualLayerNorm",
     "FusedMultiHeadAttention", "FusedFeedForward",
-    "FusedTransformerEncoderLayer", "FusedMultiTransformer",
+    "FusedTransformerEncoderLayer", "FusedMultiTransformer", "FusedEcMoe",
 ]
 
 
@@ -304,3 +305,34 @@ class FusedMultiTransformer(_Fused):
             x = blk.attn(x, attn_mask=attn_mask)
             x = blk.ffn(x)
         return x
+
+
+class FusedEcMoe(_Fused):
+    """Expert-choice MoE block (JAX :270): a gate `Linear(hidden,
+    num_experts)` ([in, out], as every `Linear` of the port), then each
+    expert's two-layer FFN batched over experts with einsums, weighted by
+    the softmax of the gate.  Parameters `e_w1` [E, H, I], `e_b1` [E, 1,
+    I], `e_w2` [E, I, H], `e_b2` [E, 1, H]; the biases are added per
+    expert (``b[:, None]``).  gelu is the tanh form; an `act_type` other
+    than gelu / relu raises ValueError."""
+
+    def __init__(self, hidden_size, inter_size, num_experts, act_type="gelu",
+                 weight_attr=None, bias_attr=None, *, device=None,
+                 dtype=torch.float32, seed=0, kw=None):
+        super().__init__(_options(device, dtype, seed, kw))
+        if act_type not in ("gelu", "relu"):
+            raise ValueError(f"unsupported act_type {act_type}")
+        self.act_type = act_type
+        kw = self._kw
+        self.gate = Linear(hidden_size, num_experts, device=kw["device"],
+                           dtype=kw["dtype"], generator=kw["generator"])
+        self.e_w1 = self.param([num_experts, hidden_size, inter_size])
+        self.e_b1 = self.param([num_experts, 1, inter_size], is_bias=True)
+        self.e_w2 = self.param([num_experts, inter_size, hidden_size])
+        self.e_b2 = self.param([num_experts, 1, hidden_size], is_bias=True)
+
+    def forward(self, x, gate=None):
+        gate_logits = self.gate(x) if gate is None else gate
+        return IF._moe(x, gate_logits, self.e_w1, self.e_b1[:, None],
+                       self.e_w2, self.e_b2[:, None], self.act_type,
+                       "FusedEcMoe")

@@ -6,8 +6,8 @@ from .ernie import (  # noqa: F401
     ernie_3_0_medium, ernie_base, ernie_tiny,
 )
 from .gpt import (  # noqa: F401
-    GPTConfig, GPTForCausalLM, GPTPretrainingCriterion, gpt_1p3b, gpt_tiny,
-    load_reference_state,
+    GPTConfig, GPTForCausalLM, GPTPretrainingCriterion, gpt_1p3b, gpt_6p7b,
+    gpt_tiny, load_reference_state,
 )
 from .gpt import llama_7b as gpt_llama_7b  # noqa: F401 (legacy alias)
 from .llama import (  # noqa: F401

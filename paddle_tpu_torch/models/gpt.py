@@ -38,8 +38,8 @@ from .generation import (
 )
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM",
-           "GPTPretrainingCriterion", "gpt_tiny", "gpt_1p3b", "llama_7b",
-           "load_reference_state"]
+           "GPTPretrainingCriterion", "gpt_tiny", "gpt_1p3b", "gpt_6p7b",
+           "llama_7b", "load_reference_state"]
 
 
 def refuse_unported(owner, **options):
@@ -506,6 +506,13 @@ def gpt_tiny(**kw):
 def gpt_1p3b(**kw):
     return GPTConfig(vocab_size=50304, hidden_size=2048, num_layers=24,
                      num_heads=16, max_seq_len=2048, **kw)
+
+
+def gpt_6p7b(**kw):
+    """GPT-3 6.7B widths (JAX :589): hidden 4096, 32 layers, 32 heads of
+    128, learned positions, LayerNorm, GELU and a tied head."""
+    return GPTConfig(vocab_size=50304, hidden_size=4096, num_layers=32,
+                     num_heads=32, max_seq_len=2048, **kw)
 
 
 def llama_7b(**kw):

@@ -3078,3 +3078,129 @@ def test_lbfgs_on_the_card():
     (lg, wg), (lc, wc) = finals
     assert lg < 1e-3 and abs(lg - lc) <= 1e-4
     assert (wg - wc).abs().max() <= 1e-4
+
+
+# ------------------------------------------- incubate decode functionals
+def _mmha_case(dtype, b=3, h=4, d=64, s=128, seed=21):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    cache = _randn(g, 2, b, h, s, d, dtype=dtype)
+    steps = [_randn(g, b, 3 * h * d, dtype=dtype) for _ in range(4)]
+    return cache, steps, torch.tensor([5, 99, 0], dtype=torch.int32,
+                                      device="cuda")[:b]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_masked_mha_kernel_route_matches_einsum_route(dtype):
+    """`masked_multihead_attention` with equal q and kv heads (JAX's
+    [B, 3, H, D] reshape): the decode_attention route (no mask) against
+    the einsum route (a zero mask) over 4 steps; each step launches the
+    kernel once, the caches of both routes equal bit for bit."""
+    from paddle_tpu_torch.incubate.nn import functional as IF
+
+    cache, steps, pos = _mmha_case(dtype)
+    ck, ce = cache.clone(), cache.clone()
+    zero = torch.zeros(3, 1, 1, cache.shape[3], device="cuda")
+    for i, x in enumerate(steps):
+        K.reset_launches()
+        got, ck2 = IF.masked_multihead_attention(x, cache_kv=ck,
+                                                 sequence_lengths=pos + i)
+        assert K.launch_counts()["decode_attention"] == 1 and ck2 is ck
+        want, _ = IF.masked_multihead_attention(
+            x, cache_kv=ce, src_mask=zero, sequence_lengths=pos + i)
+        assert K.launch_counts()["decode_attention"] == 1
+        _close(got, want, dtype)
+        assert torch.equal(ck, ce)
+
+
+def test_block_mha_equals_masked_mha_on_the_card():
+    """`block_multihead_attention` over 16-token blocks of a shuffled
+    pool equals `masked_multihead_attention` (the kernel) over the dense
+    copy of the same keys, f32."""
+    from paddle_tpu_torch.incubate.nn import functional as IF
+
+    b, h, d, s, bs = 3, 4, 64, 128, 16
+    g = torch.Generator(device="cuda").manual_seed(22)
+    dense = _randn(g, 2, b, h, s, d, dtype=torch.float32)
+    nblk = s // bs
+    perm = torch.randperm(b * nblk, generator=torch.Generator().manual_seed(0))
+    bt = perm.reshape(b, nblk).to(device="cuda", dtype=torch.int32)
+    kc = torch.empty(b * nblk, h, bs, d, device="cuda")
+    vc = torch.empty_like(kc)
+    for i in range(b):
+        for j in range(nblk):
+            blk = dense[:, i, :, j * bs:(j + 1) * bs]
+            kc[bt[i, j]], vc[bt[i, j]] = blk[0], blk[1]
+    x = _randn(g, b, 3 * h * d, dtype=torch.float32)
+    lens = torch.tensor([5, 99, 64], dtype=torch.int32, device="cuda")
+    out, kc2, _ = IF.block_multihead_attention(
+        x, kc, vc, lens * 0, lens, lens * 0 + 1, block_tables=bt,
+        block_size=bs)
+    want, _ = IF.masked_multihead_attention(x, cache_kv=dense,
+                                            sequence_lengths=lens)
+    assert kc2 is kc
+    _close(out, want, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("causal", [False, True])
+def test_varlen_mem_eff_flash_route_matches_sdpa_ref(causal, dtype):
+    """`variable_length_memory_efficient_attention` on the card (the
+    biased flash kernels, one launch each way) against the plain
+    `_sdpa_ref` over the same additive key-length mask in f32, forward
+    and backward; a row with no valid key against JAX's average of the
+    causally visible value rows."""
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.nn.functional.attention import _sdpa_ref
+
+    b, h, s, d = 3, 4, 256, 64
+    g = torch.Generator(device="cuda").manual_seed(23)
+    q, k, v, dout = (_randn(g, b, h, s, d, dtype=dtype) for _ in range(4))
+    kvl = torch.tensor([256, 77, 0], dtype=torch.int32, device="cuda")
+    qs = [t.clone().requires_grad_() for t in (q, k, v)]
+    K.reset_launches()
+    out = IF.variable_length_memory_efficient_attention(
+        *qs, kv_seq_lens=kvl, causal=causal)
+    out.backward(dout)
+    counts = K.launch_counts()
+    assert (counts["flash_fwd"], counts["flash_bwd"]) == (1, 1), counts
+    refs = [t.float().clone().requires_grad_() for t in (q, k, v)]
+    pad = torch.where(torch.arange(s, device="cuda")[None, :]
+                      < kvl[:, None], 0.0, IF._KV_PAD)[:, None, None]
+    want = _sdpa_ref(*(t.transpose(1, 2) for t in refs), pad, causal)
+    want = want.transpose(1, 2)
+    want.backward(dout.float())
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert (out[:2].float() - want[:2]).abs().max().item() <= \
+        tol * want[:2].abs().max().item()
+    visible = torch.arange(1, s + 1, device="cuda")[:, None] if causal \
+        else torch.full((s, 1), s, device="cuda")
+    mean = (v[2].float().cumsum(1) / visible if causal
+            else v[2].float().mean(1, keepdim=True).expand(h, s, d))
+    assert (out[2].float() - mean).abs().max().item() <= \
+        tol * mean.abs().max().item()
+    for a, r in zip(qs, refs):
+        err = (a.grad[:2].float() - r.grad[:2]).abs().max().item()
+        assert err <= tol * r.grad[:2].abs().max().item(), err
+
+
+def test_fused_ec_moe_layer_card_matches_cpu():
+    """`FusedEcMoe` built on the card and on the CPU from one seed's
+    weights: forward and gradients within 1e-4 of the largest (f32)."""
+    from paddle_tpu_torch.incubate.nn import FusedEcMoe
+
+    rs = np.random.RandomState(24)
+    x = rs.randn(4, 32, 64).astype(np.float32)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        m = FusedEcMoe(64, 256, 8, device=dev, seed=3)
+        if dev == "cpu":
+            m.load_state_dict({n: t.cpu() for n, t in state.items()})
+        else:
+            state = m.state_dict()
+        xt = torch.from_numpy(x).to(dev).requires_grad_()
+        out = m(xt)
+        out.square().sum().backward()
+        outs[dev] = [out.detach().cpu(), xt.grad.cpu()] + [
+            p.grad.cpu() for p in m.parameters()]
+    for a, r in zip(outs["cuda"], outs["cpu"]):
+        assert (a - r).abs().max().item() <= 1e-4 * r.abs().max().item()

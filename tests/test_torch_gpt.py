@@ -235,3 +235,24 @@ def test_bf16_forward_runs_close_to_f32(models, ids):
         lb = tb(torch.from_numpy(ids)).float()
     assert torch.isfinite(lb).all()
     assert (lb - lf).abs().max() < 0.5
+
+
+@pytest.mark.parametrize("preset", ["gpt_tiny", "gpt_1p3b", "gpt_6p7b"])
+def test_presets_equal_the_jax_configs_field_by_field(preset):
+    """Each GPT-family preset of the port holds every field of the JAX
+    preset of the same name (`gpt_6p7b`: JAX models/gpt.py:589); the
+    parallel flags, which the port refuses when set, are off in JAX's."""
+    from paddle_tpu.models import gpt as jgpt
+    from paddle_tpu_torch.models import gpt as tgpt
+
+    want, got = vars(getattr(jgpt, preset)()), vars(getattr(tgpt, preset)())
+    unported = {"sequence_parallel", "context_parallel"}
+    assert set(want) - set(got) == unported and set(got) <= set(want)
+    assert not any(want[k] for k in unported)
+    assert got == {k: v for k, v in want.items() if k not in unported}
+    if preset == "gpt_6p7b":
+        assert (got["hidden_size"], got["num_layers"], got["num_heads"],
+                got["vocab_size"], got["max_seq_len"]) == (4096, 32, 32,
+                                                           50304, 2048)
+        assert (got["use_rope"], got["use_rmsnorm"], got["use_swiglu"],
+                got["tie_embeddings"]) == (False, False, False, True)

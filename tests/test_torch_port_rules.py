@@ -701,6 +701,58 @@ def test_varlen_and_fused_norm_autograd_reach_only_their_wrappers():
         assert not any(c.endswith("_reference") for c in called), called
 
 
+def test_masked_mha_reaches_only_decode_attention_on_kernel_shapes():
+    """A `masked_multihead_attention` with no mask and a shape the kernel
+    takes calls `decode_attention` (the kernel on CUDA) and returns: the
+    branch holds that one call, its test is JAX's condition, nothing is
+    caught.  On a tensor that is not on the CPU the call reaches the
+    wrapper's device check: the plain version never runs."""
+    from paddle_tpu_torch.incubate.nn import functional as IF
+
+    fn = ast.parse(textwrap.dedent(
+        inspect.getsource(IF.masked_multihead_attention)))
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(fn))
+    branches = [n for n in ast.walk(fn) if isinstance(n, ast.If) and any(
+        "decode_attention(" in ast.unparse(s) for s in n.body)]
+    assert len(branches) == 1
+    test = ast.unparse(branches[0].test)
+    assert test == "src_mask is None and decode_kernel_takes(cache_kv.shape)"
+    called = {ast.unparse(c.func) for s in branches[0].body
+              for c in ast.walk(s) if isinstance(c, ast.Call)}
+    assert called <= {"decode_attention", "q.contiguous", "out.reshape"}, \
+        called
+    assert isinstance(branches[0].body[-1], ast.Return)
+    meta = dict(device="meta")
+    with pytest.raises(ValueError, match="decode_attention: unsupported "
+                       "device meta"):
+        IF.masked_multihead_attention(
+            torch.empty(2, 3 * 4 * 16, **meta),
+            cache_kv=torch.empty(2, 2, 4, 32, 16, **meta),
+            sequence_lengths=torch.zeros(2, dtype=torch.int32, **meta))
+    assert K.launch_counts() == {n: 0 for n in K.KERNELS}
+
+
+def test_varlen_mem_eff_reaches_only_flash_attention():
+    """`variable_length_memory_efficient_attention` runs
+    `FlashAttention.apply` (the biased flash kernels on CUDA) on every
+    device, with no plain attention of its own, no branch on the device
+    and nothing caught; a tensor that is not on the CPU reaches the
+    flash wrapper's device check."""
+    from paddle_tpu_torch.incubate.nn import functional as IF
+
+    fn = IF.variable_length_memory_efficient_attention
+    called = _calls(fn)
+    assert "FlashAttention.apply" in called
+    assert not any(c.endswith("_reference") or "_sdpa_ref" in c
+                   or c.startswith("torch.softmax") or "einsum" in c
+                   for c in called), called
+    assert "device.type" not in inspect.getsource(fn)
+    meta = torch.empty(1, 2, 8, 16, device="meta")
+    with pytest.raises(ValueError, match="flash_fwd: unsupported device"):
+        fn(meta, meta, meta, kv_seq_lens=torch.ones(1, device="meta"))
+    assert K.launch_counts() == {n: 0 for n in K.KERNELS}
+
+
 @pytest.mark.parametrize("wrapper", ["decode_attention", "paged_attention"])
 def test_decode_wrappers_take_any_gqa_group(wrapper):
     """The kernels split a GQA group into chunks of at most 8 query heads
