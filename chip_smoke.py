@@ -18,13 +18,14 @@ non-zero and prints no result):
   1. device: `nvidia-smi` name and power limit, torch's device name;
   2. build: every CUDA kernel with nvcc for sm_90a, one nvcc per source
      (ten), all started together; registers and spills per source, per
-     bf16 tensor-core kernel, per fused-norm vector kernel and per
-     decode kernel on a cluster (a spill fails: flash at head dims up to
-     128, every conv tile and window tile, forward and backward, every
-     register-held norm kernel, every paged / dense / int8 decode
-     kernel);
+     bf16 and f16 tensor-core kernel, per fused-norm vector kernel and
+     per decode kernel on a cluster, each with its element type (a spill
+     fails: flash at head dims up to 128, every conv tile and window
+     tile, forward and backward, every register-held norm kernel, every
+     paged / dense / int8 decode kernel, in every type);
   3. kernels: each kernel against its plain PyTorch version at the main
-     path's shapes, in bf16 and f32, with its time, the plain version's,
+     path's shapes, in bf16 and f32 (and in float16 at its main shape:
+     `f16_cases`, within 1e-2), with its time, the plain version's,
      one PyTorch library call's where one computes the same function,
      and the roofline bound (rope and its adjoint at the llama_7b
      prefill q, a ragged per-row-phase decode, the 70B-width GQA k and
@@ -134,6 +135,9 @@ non-zero and prints no result):
      256: 3 AdamW steps under FLAGS_flash_layout=kv and 3 on the native
      tier from the same weights; losses and every parameter after the
      steps bit-identical; 2 + 2 relayout launches per layer per step;
+     then (kv_layout_parity_f16) the same with amp_dtype="float16": the
+     f16 relayouts and head-major flash kernels, bit for bit the native
+     tier's f16 steps;
  8b. train_kv_layout: phase 8 under FLAGS_flash_layout=kv (the `kv`
      layout tier: relayouts around the head-major flash kernels), with
      exactly 24 relayout_to_hm + 24 relayout_from_hm per step;
@@ -160,6 +164,19 @@ non-zero and prints no result):
      used); the bf16 tier's streams equal the exact tier's; the int8
      decode and prefill graphs replayed == their eager bodies;
  10. llama_generate: as phase 5 on llama_7b (the f32 copy at full depth);
+ 10a. llama_f16: the same llama_7b cast in place to float16 (`_cast16`):
+     each of phase 4's prompts alone through greedy generate()
+     (llama_f16_refs); over those streams, the largest |logit| and its
+     f16 ulp at each step, the smallest top-2 margin, and the largest
+     gap between generate()'s decode route's logits and one full
+     forward's, in ulps, which must stay under half NEAR_TIE_ULPS
+     (llama_f16_ties); then phase 9 (llama_f16_serve) and phase 9a
+     (llama_f16_serve_int8: f16 queries over int8 pages) on it, the
+     replayed round's streams held to those sequential streams by the
+     near-tie rule, NEAR_TIE_ULPS ulps of the step's largest |logit|
+     (every token on the exact tier, the first on the int8 tier, where
+     each stream's equal length is logged), and phase 10
+     (llama_f16_generate); every kernel of the path in float16;
  11. llama_parity: llama2_70b_shapes widths (hidden 8192, 64 heads over 8
      kv heads, ffn 28672) at 2 layers in f32, as phase 6: a GQA group of
      8 through paged_attention, decode_attention and flash_fwd;
@@ -184,7 +201,9 @@ non-zero and prints no result):
      over 10 batches after 2 warm-ups, ms per batch, peak memory, exact
      launches per to_static call; the replayed logits equal the eager
      ones bit for bit, and against the CPU port's plain f32 forward of
-     the same weights within 5% relative L2;
+     the same weights and batch within 5% relative L2; then each model
+     cast in place to float16 and served the same way, held to the same
+     f32 forward (vision_serve_f16: the f16 conv and window kernels);
  15. vision_train_parity: Swin-T, ResNet-50 and ViT-B/16 (224x224, 1000
      classes, full depth) in f32 at batch 2: 3 Momentum steps with
      CrossEntropyLoss on the card through the kernels (TF32 off) and on
@@ -205,14 +224,17 @@ non-zero and prints no result):
      ms per step, MFU (bench.py's flops per image over 989 TFLOP/s),
      peak memory, exact launches per step.  The loss must stay finite
      and fall; the graph replayed and equal to the eager body bit for
-     bit, as in phase 8.
+     bit, as in phase 8; then (vision_train_f16) Swin-T's model in a
+     second step, O2 in float16: images/s, launches a step, the loss
+     finite and falling;
 
  17. varlen: `nn.functional.flash_attn_unpadded` forward and backward on
      one packed batch at GPT-125M attention widths (12 heads of 64, 8192
      tokens in 9 sequences of 1 to 4180 and an empty one): causal, not
      causal, and not causal over keys packed twice as long (16384), in
      bf16 and f32; one varlen_fwd and one varlen_bwd launch each, held
-     against the dense flash kernels run on each sequence alone;
+     against the dense flash kernels run on each sequence alone; 17a
+     (varlen_f16): the same in float16;
  18. fused_transformer_parity: `FusedMultiTransformer` (eval) and a
      stack of two `FusedTransformerEncoderLayer`s (training, every
      gradient) at width 256, 4 heads, 2 layers, f32: the card against
@@ -222,6 +244,8 @@ non-zero and prints no result):
      8 x 1024: ms per forward, tokens/s, peak memory, 48 fused_norm and
      24 flash_fwd launches per forward, a profiler split of one forward;
      the output against the f32 forward of the same weights within 5%;
+     then the model cast to float16 (fused_transformer_serve_f16: f16 x,
+     w and b through the fused norm);
  20. fused_encoder_train: 12 `FusedTransformerEncoderLayer`s at
      ernie_base widths (768, 12 heads, ffn 3072, gelu, post-LN), batch
      32 x 512, bf16 O2 over f32 masters, AdamW, a mean-squared-error
@@ -303,6 +327,12 @@ non-zero and prints no result):
      scale, one "amp" skip and no escalation; tokens/s against phase
      27's eager loop, the scale's trajectory, the last loss against the
      bf16 run's, 12 + 12 f16 flash launches a step;
+ 28a. llama_o1_f16: LLaMA at llama_7b widths, 2 layers, B1 x 2048, in
+     float16 O1 behind GradScaler(2**16, incr_every_n_steps=2), 8 eager
+     AdamW steps, the loss times inf at step 3 (the state bit for bit),
+     the scale before every step the scaler's rule for the steps that
+     overflowed; tokens/s; rope, rope_bwd, flash_fwd and flash_bwd in
+     f16 once a layer a step;
  29. optimizer_zoo: SGD, Momentum, Adagrad, Adam (amsgrad), AdamW,
      Adamax, RMSProp (centered), Lamb, Adadelta and Rprop each in
      GPT-125M's graphed train step at B8 x 1024, bf16 AMP: 5 replayed
@@ -377,21 +407,23 @@ dense (start 0 and start 37) and each sequence alone bit for bit the
 same sequence in the batch of 4, for both kernels.
 
 Launch counters are reset just before the driven part of phases 4, 4b,
-5, 5a (its sampled and its beam calls), 5b (each engine), 8, 8a, 8b, 9,
-9a, 9b, 9c (each tier), 10, 11a, 12, 14, 15, 16, 17, 19, 20, 21, 22
+5, 5a (its sampled and its beam calls), 5b (each engine), 8, 8a (each
+dtype), 8b, 9, 9a, 9b, 9c (each tier), 10, 10a (each of its phases),
+11a, 12, 14 and 16 (each dtype), 17, 17a, 19 (each dtype), 20, 21, 22
 (its in-process engine: the replicas count theirs in their own
 processes), 24, 25 and 26 (their timed steps with recompute), 27 (the timed
-eager steps), 28 (the timed f16 steps) and 29 (each rule's timed
+eager steps), 28 and 28a (the timed f16 steps) and 29 (each rule's timed
 replays), 30 (as 4 and 5), 31 (its kernel-route loops and its
 variable-length call) and 33 (the timed steps) and read just after
 each; every kernel of each path must
-have launched.  A replayed
+have launched, every kernel on a float16 path too.  A replayed
 CUDA graph (the engine's decode step, the train step) adds the launches
 its capture recorded to the counters, once a replay.  Under --profile
 each profiled path also prints its host launch calls a step
 (cudaLaunchKernel and cudaGraphLaunch, count and host ms).  The line before last is the
 JSON kernel table (`launches` summed over those paths, `paths` each
-path's own count); the last line is the device JSON.
+path's own count, `float16` the kernel's f16 row of phase 3 with its
+launches on the f16 paths); the last line is the device JSON.
 """
 from __future__ import annotations
 
@@ -414,6 +446,11 @@ sys.path.insert(0, HERE)
 F32_TOL = 1e-4      # f32 kernel vs plain: reduction-order noise
 BF16_TOL = 2e-2     # bf16: both round the f32 result to bf16 (8 bits)
 F16_TOL = 1e-2      # f16: both round the f32 result to f16 (11 bits)
+# a 16-bit engine stream may leave sequential generate()'s at a step whose
+# top-2 logits lie within this many ulps of its largest |logit|: twice
+# the largest difference measured between two routes' logits
+# (`_tie_readings`), with room
+NEAR_TIE_ULPS = 8
 PEAK_BYTES = 3.35e12                      # H100 SXM HBM3, bytes/s
 PEAK_FLOPS = {"bfloat16": 989e12,         # dense tensor-core bf16
               "float16": 989e12,          # dense tensor-core f16
@@ -490,6 +527,12 @@ def host_us(fn, iters=50, warmup=2):
     return us
 
 
+def _dn(dtype):
+    """torch.bfloat16 -> "bf16" (f16, f32): the dtype's name in a log."""
+    return {"bfloat16": "bf16", "float16": "f16", "float32": "f32"}[
+        str(dtype).split(".")[1]]
+
+
 def bound_ms(nbytes, flops, dtype):
     t_bytes = nbytes / PEAK_BYTES
     t_ops = flops / PEAK_FLOPS[dtype]
@@ -538,13 +581,13 @@ def phase_build():
             "bytes of spill stores)")
         tc = _tc_kernels(text)
         if tc:
-            log(f"[build] {n} bf16 tensor-core kernels (tile width, mode: "
-                "registers / spill bytes): " + ", ".join(
-                    f"{k} DT{dt} {mode}: {r}/{sp}"
-                    for k, dt, mode, r, sp in tc))
-            spilled = [(k, dt, mode) for k, dt, mode, _, sp in tc
+            log(f"[build] {n} bf16 / f16 tensor-core kernels (type, tile "
+                "width, mode: registers / spill bytes): " + ", ".join(
+                    f"{k} {t} DT{dt} {mode}: {r}/{sp}"
+                    for k, t, dt, mode, r, sp in tc))
+            spilled = [(k, t, dt, mode) for k, t, dt, mode, _, sp in tc
                        if sp and dt <= 128]
-            check(not spilled, f"{n}: bf16 tensor-core kernels spill "
+            check(not spilled, f"{n}: bf16 / f16 tensor-core kernels spill "
                   f"(flash at head dims <= 128, every conv and window "
                   f"kernel): {spilled}")
         rows = _row_kernels(text)
@@ -567,41 +610,48 @@ def phase_build():
                   f"spill: {spilled}")
 
 
+# element types as they appear in the mangled kernel names of `ptxas -v`
+_MANGLED = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32"}
+_T16 = "(13__nv_bfloat16|6__half)"     # a 16-bit tensor-core element type
+
+
 def _tc_kernels(text):
-    """[(kernel, DT, mode, registers, spill store bytes)] of the bf16
-    tensor-core kernels in one source's `ptxas -v` log, entry names
-    demangled from their template arguments: the flash kernels' <DT,
-    BIAS, PACKED, HM>, the conv's <BM, BN, WM, WN, KH, KW, BK, A16,
-    MINB> (DT: the tile's BM; mode: "BMxBN KHxKW bkBK", 0x0 for a kernel
-    size read at run time, "w-regs" where the weights go through
-    registers) and the window forward's and backward's <DT>."""
+    """[(kernel, type, DT, mode, registers, spill store bytes)] of the
+    16-bit (bf16 and f16) tensor-core kernels in one source's `ptxas -v`
+    log, entry names demangled from their template arguments: the flash
+    kernels' <E, DT, BIAS, PACKED, HM>, the conv's <E, BM, BN, WM, WN,
+    KH, KW, BK, A16, MINB> (DT: the tile's BM; mode: "BMxBN KHxKW bkBK",
+    0x0 for a kernel size read at run time, "w-regs" where the weights go
+    through registers) and the window forward's and backward's <DT,
+    E>."""
     out = []
     for part in text.split("Compiling entry function")[1:]:
         regs = re.search(r"Used (\d+) registers", part)
         spill = re.search(r"(\d+) bytes spill stores", part)
         if not regs:
             continue
-        m = re.search(r"(flash_\w+?_tc)ILi(\d+)ELb(\d)ELb(\d)ELb(\d)E",
+        m = re.search(r"(flash_\w+?_tc)I" + _T16
+                      + r"Li(\d+)ELb(\d)ELb(\d)ELb(\d)E", part)
+        c = re.search(r"(conv_dense_tc)I" + _T16 + r"Li(\d+)ELi(\d+)"
+                      r"ELi\d+ELi\d+ELi(\d+)ELi(\d+)ELi(\d+)ELb(\d)", part)
+        w = re.search(r"(window_attention(?:_bwd)?_tc)ILi(\d+)E" + _T16,
                       part)
-        c = re.search(r"(conv_dense_tc)ILi(\d+)ELi(\d+)ELi\d+ELi\d+"
-                      r"ELi(\d+)ELi(\d+)ELi(\d+)ELb(\d)", part)
-        w = re.search(r"(window_attention(?:_bwd)?_tc)ILi(\d+)E", part)
         if m:
-            bias, packed, hm = (m.group(i) == "1" for i in (3, 4, 5))
-            kernel, dt = m.group(1), int(m.group(2))
+            bias, packed, hm = (m.group(i) == "1" for i in (4, 5, 6))
+            kernel, t, dt = m.group(1), m.group(2), int(m.group(3))
             mode = ("bias" if bias else "packed" if packed
                     else "head-major" if hm else "dense")
         elif c:
-            kernel, dt = c.group(1), int(c.group(2))
-            mode = (f"{c.group(2)}x{c.group(3)} {c.group(4)}x{c.group(5)} "
-                    f"bk{c.group(6)}" + ("" if c.group(7) == "1"
+            kernel, t, dt = c.group(1), c.group(2), int(c.group(3))
+            mode = (f"{c.group(3)}x{c.group(4)} {c.group(5)}x{c.group(6)} "
+                    f"bk{c.group(7)}" + ("" if c.group(8) == "1"
                                          else " w-regs"))
         elif w:
-            kernel, dt = w.group(1), int(w.group(2))
+            kernel, dt, t = w.group(1), int(w.group(2)), w.group(3)
             mode = "window bwd" if "bwd" in kernel else "window fwd"
         else:
             continue
-        out.append((kernel, dt, mode, int(regs.group(1)),
+        out.append((kernel, _MANGLED[t], dt, mode, int(regs.group(1)),
                     int(spill.group(1)) if spill else 0))
     return out
 
@@ -609,21 +659,21 @@ def _tc_kernels(text):
 def _row_kernels(text):
     """[(x / w types, kind, NV, registers, spill store bytes)] of the
     fused norm's vector kernels `fused_norm_rows<T, W, RMS, NV>` in one
-    source's `ptxas -v` log."""
-    bf = "13__nv_bfloat16"
+    source's `ptxas -v` log (W mangled as a substitution, S0_, when it
+    is T)."""
     out = []
     for part in text.split("Compiling entry function")[1:]:
-        m = re.search(r"fused_norm_rowsI(\w+?)Lb(\d)ELi(\d+)E", part)
+        m = re.search(r"fused_norm_rowsI(13__nv_bfloat16|6__half|f)"
+                      r"(13__nv_bfloat16|6__half|f|S\d*_)Lb(\d)ELi(\d+)E",
+                      part)
         regs = re.search(r"Used (\d+) registers", part)
         if not (m and regs):
             continue
         spill = re.search(r"(\d+) bytes spill stores", part)
-        tag = m.group(1)
-        t, rest = ("bf16", tag[len(bf):]) if tag.startswith(bf) \
-            else ("f32", tag[1:])
-        types = f"{t}/{'f32' if rest == 'f' else 'bf16'}"
-        out.append((types, "rms" if m.group(2) == "1" else "ln",
-                    int(m.group(3)), int(regs.group(1)),
+        t = _MANGLED[m.group(1)]
+        w = _MANGLED.get(m.group(2), t)
+        out.append((f"{t}/{w}", "rms" if m.group(3) == "1" else "ln",
+                    int(m.group(4)), int(regs.group(1)),
                     int(spill.group(1)) if spill else 0))
     return out
 
@@ -634,16 +684,17 @@ def _split_kernels(text):
     `paged_attention_int8_kernel<T, CHP, GM>` and
     `decode_attention_kernel<T, CHP, GM>` (decode_common.cuh,
     `decode_split`), in one source's `ptxas -v` log; the int8 tier's
-    types read "int8/bf16" and "int8/f32" (codes / q and out)."""
+    types read "int8/bf16", "int8/f16" and "int8/f32" (codes / q and
+    out)."""
     out = []
     for part in text.split("Compiling entry function")[1:]:
         m = re.search(r"((?:paged|decode)_attention(?:_int8)?_kernel)I"
-                      r"(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E", part)
+                      r"(13__nv_bfloat16|6__half|f)Li(\d+)ELi(\d+)E", part)
         regs = re.search(r"Used (\d+) registers", part)
         if not (m and regs):
             continue
         spill = re.search(r"(\d+) bytes spill stores", part)
-        t = "f32" if m.group(2) == "f" else "bf16"
+        t = _MANGLED[m.group(2)]
         out.append((m.group(1), ("int8/" + t) if "int8" in m.group(1) else t,
                     int(m.group(3)), int(m.group(4)), int(regs.group(1)),
                     int(spill.group(1)) if spill else 0))
@@ -716,11 +767,14 @@ def _causal_pairs(torch, sq, valid):
     return int((keep & valid[None]).sum())
 
 
-def kernel_cases(torch, dtype, vision, train):
+def kernel_cases(torch, dtype, vision, train, main=False):
     """(name, label, run_kernel, run_plain, library_fn, nbytes, flops,
     ops_dtype, real) at the main path's shapes: gpt_1p3b heads 16 x
     head_dim 128, then the other paths' (`vision`: the launches recorded
-    by `_vision_launches`; `train`: those of `_swin_train_launches`).  `ops_dtype` names the peak rate that bounds
+    by `_vision_launches`; `train`: those of `_swin_train_launches`).
+    Each kernel's first case is its main-path row (each builder's
+    `first` keeps only that one); with `main`, only those are built,
+    flash's left out (`f16_cases` takes the train step's).  `ops_dtype` names the peak rate that bounds
     the operations (float32 where they cannot run on the tensor cores,
     whatever the storage type).
     `real` is the first query row that sees a valid key: rows before it
@@ -741,45 +795,47 @@ def kernel_cases(torch, dtype, vision, train):
         return torch.randn(*shape, generator=g, device=dev, dtype=dtype)
 
     cases = []
-    # flash_fwd, causal: generate() prefill of an equal-length batch
-    b, s = 4, 128
-    q, k, v = randn(b, s, h, d), randn(b, s, h, d), randn(b, s, h, d)
-    pairs = b * s * (s + 1) // 2
-    cases.append(("flash_fwd", f"causal B{b} S{s}",
-                  lambda: FA.flash_fwd(q, k, v, causal=True),
-                  lambda: FA.flash_fwd_reference(q, k, v, causal=True),
-                  _sdpa_library(q, k, v, None, True),
-                  4 * b * s * h * d * isz + b * h * s * 4,
-                  4 * pairs * h * d, dname, 0))
-    # flash_fwd, causal + pad bias: the engine's cold prefill of a
-    # 1000-token prompt (bucket 1008, 8 pad rows)
-    sb, start = 1008, 8
-    qb, kb, vb = randn(1, sb, h, d), randn(1, sb, h, d), randn(1, sb, h, d)
-    valid = torch.arange(sb, device=dev) >= start
-    bias = _pad_bias(torch, valid)
-    cases.append(("flash_fwd", f"causal+pad B1 S{sb}",
-                  lambda: FA.flash_fwd(qb, kb, vb, bias=bias, causal=True),
-                  lambda: FA.flash_fwd_reference(qb, kb, vb, bias=bias,
-                                                 causal=True),
-                  _sdpa_library(qb, kb, vb, bias, True),
-                  4 * sb * h * d * isz + sb * 4 + h * sb * 4,
-                  4 * _causal_pairs(torch, sb, valid) * h * d, dname,
-                  start))
-    # flash_fwd, warm tail prefill: a 48-token bucket (8 pad rows) over a
-    # 512-token cached prefix, keys cut to prefix + tail (560)
-    sq, plen, tstart = 48, 512, 8
-    sk = plen + sq
-    qw, kw, vw = randn(1, sq, h, d), randn(1, sk, h, d), randn(1, sk, h, d)
-    jw = torch.arange(sk, device=dev)
-    wvalid = (jw < plen) | (jw - plen >= tstart)
-    wbias = _pad_bias(torch, wvalid)
-    cases.append(("flash_fwd", f"causal+pad-warm Sq{sq} Sk{sk}",
-                  lambda: FA.flash_fwd(qw, kw, vw, bias=wbias, causal=True),
-                  lambda: FA.flash_fwd_reference(qw, kw, vw, bias=wbias,
-                                                 causal=True),
-                  _sdpa_library(qw, kw, vw, wbias, True),
-                  (2 * sq + 2 * sk) * h * d * isz + sk * 4 + h * sq * 4,
-                  4 * _causal_pairs(torch, sq, wvalid) * h * d, dname, 0))
+    if not main:
+        # flash_fwd, causal: generate() prefill of an equal-length batch
+        b, s = 4, 128
+        q, k, v = randn(b, s, h, d), randn(b, s, h, d), randn(b, s, h, d)
+        pairs = b * s * (s + 1) // 2
+        cases.append(("flash_fwd", f"causal B{b} S{s}",
+                      lambda: FA.flash_fwd(q, k, v, causal=True),
+                      lambda: FA.flash_fwd_reference(q, k, v, causal=True),
+                      _sdpa_library(q, k, v, None, True),
+                      4 * b * s * h * d * isz + b * h * s * 4,
+                      4 * pairs * h * d, dname, 0))
+        # flash_fwd, causal + pad bias: the engine's cold prefill of a
+        # 1000-token prompt (bucket 1008, 8 pad rows)
+        sb, start = 1008, 8
+        qb, kb, vb = randn(1, sb, h, d), randn(1, sb, h, d), randn(1, sb, h, d)
+        valid = torch.arange(sb, device=dev) >= start
+        bias = _pad_bias(torch, valid)
+        cases.append(("flash_fwd", f"causal+pad B1 S{sb}",
+                      lambda: FA.flash_fwd(qb, kb, vb, bias=bias, causal=True),
+                      lambda: FA.flash_fwd_reference(qb, kb, vb, bias=bias,
+                                                     causal=True),
+                      _sdpa_library(qb, kb, vb, bias, True),
+                      4 * sb * h * d * isz + sb * 4 + h * sb * 4,
+                      4 * _causal_pairs(torch, sb, valid) * h * d, dname,
+                      start))
+        # flash_fwd, warm tail prefill: a 48-token bucket (8 pad rows) over a
+        # 512-token cached prefix, keys cut to prefix + tail (560)
+        sq, plen, tstart = 48, 512, 8
+        sk = plen + sq
+        qw, kw, vw = randn(1, sq, h, d), randn(1, sk, h, d), randn(1, sk, h, d)
+        jw = torch.arange(sk, device=dev)
+        wvalid = (jw < plen) | (jw - plen >= tstart)
+        wbias = _pad_bias(torch, wvalid)
+        cases.append(("flash_fwd", f"causal+pad-warm Sq{sq} Sk{sk}",
+                      lambda: FA.flash_fwd(qw, kw, vw, bias=wbias,
+                                           causal=True),
+                      lambda: FA.flash_fwd_reference(qw, kw, vw, bias=wbias,
+                                                     causal=True),
+                      _sdpa_library(qw, kw, vw, wbias, True),
+                      (2 * sq + 2 * sk) * h * d * isz + sk * 4 + h * sq * 4,
+                      4 * _causal_pairs(torch, sq, wvalid) * h * d, dname, 0))
     # paged_attention: a serving decode step, 4 slots, page 16, the pool
     # of the default EngineConfig (4 * 128 + 1 pages)
     ps, npool, p = 16, 4 * 128 + 1, 128
@@ -814,14 +870,16 @@ def kernel_cases(torch, dtype, vision, train):
                   _dense_decode_library(qd, kc, vc, posd, std),
                   2 * keysd * h * d * isz + 2 * bd * h * d * isz + 32,
                   4 * keysd * h * d, dname, 0))
-    return (cases + gqa16_cases(torch, dtype)
-            + llama_decode_cases(torch, dtype) + bwd_cases(torch, dtype)
-            + encoder_cases(torch, dtype)
-            + rope_cases(torch, dtype) + conv_cases(torch, dtype, vision)
-            + window_cases(torch, dtype, vision)
-            + window_bwd_cases(torch, dtype, train)
-            + varlen_cases(torch, dtype) + fused_norm_cases(torch, dtype)
-            + int8_cases(torch, dtype) + relayout_cases(torch, dtype))
+    if not main:
+        cases += (gqa16_cases(torch, dtype) + llama_decode_cases(torch, dtype)
+                  + bwd_cases(torch, dtype) + encoder_cases(torch, dtype))
+    return (cases + rope_cases(torch, dtype, main)
+            + conv_cases(torch, dtype, vision, main)
+            + window_cases(torch, dtype, vision, main)
+            + window_bwd_cases(torch, dtype, train, main)
+            + varlen_cases(torch, dtype, main)
+            + fused_norm_cases(torch, dtype, first=main)
+            + int8_cases(torch, dtype, main) + relayout_cases(torch, dtype))
 
 
 def _paged_table(torch, g, pos, npool, p, ps):
@@ -838,7 +896,7 @@ def _paged_table(torch, g, pos, npool, p, ps):
     return pt
 
 
-def int8_cases(torch, dtype):
+def int8_cases(torch, dtype, first=False):
     """paged_attention_int8 (int8 pools, f32 scales per token and kv head,
     q and out in `dtype`): the gpt_1p3b row's shape (B4 over the default
     pool, 16 heads of 128) and a llama_7b decode step (B4, 32 kv heads of
@@ -853,7 +911,8 @@ def int8_cases(torch, dtype):
     cases = []
     for label, h, pos in (
             ("B4 pool513x16x16x128", 16, (1031, 330, 551, 0)),
-            ("llama_7b B4 pool513x32x16x128", 32, (1040, 1000, 960, 1020))):
+            ("llama_7b B4 pool513x32x16x128", 32,
+             (1040, 1000, 960, 1020)))[:1 if first else None]:
         ps, npool, p, d = 16, 4 * 128 + 1, 128, 128
         q = torch.randn(4, h, d, generator=g, device="cuda", dtype=dtype)
         kq, ks = quantize_vectors(torch.randn(npool, h, ps, d, generator=g,
@@ -1213,7 +1272,7 @@ def _varlen_library(torch, q, k, v, dout, cu_q, cu_k, causal):
                                              retain_graph=True))
 
 
-def varlen_cases(torch, dtype):
+def varlen_cases(torch, dtype, first=False):
     """varlen_fwd and varlen_bwd on the packed batch: causal and not,
     and not causal over keys packed twice as long (cu_q != cu_k).
     Bytes: q, k, v, o (and dO, dq, dk, dv) once each, the LSE; operations:
@@ -1224,9 +1283,9 @@ def varlen_cases(torch, dtype):
     dname = str(dtype).split(".")[1]
     h, d = VARLEN_H, VARLEN_D
     cases = []
-    for label, causal, unequal in (("causal T8192", True, False),
-                                   ("full T8192", False, False),
-                                   ("full Tq8192 Tk16384", False, True)):
+    for label, causal, unequal in (
+            ("causal T8192", True, False), ("full T8192", False, False),
+            ("full Tq8192 Tk16384", False, True))[:1 if first else None]:
         q, k, v, dout, cq, ck, lq, lk = _varlen_batch(torch, dtype, unequal)
         pairs = _varlen_pairs(lq, lk, causal)
         tq, tk = sum(lq), sum(lk)
@@ -1253,11 +1312,12 @@ def varlen_cases(torch, dtype):
     return cases
 
 
-def fused_norm_cases(torch, dtype):
+def fused_norm_cases(torch, dtype, wdtype=None, first=False):
     """fused_norm at the fused paths' shapes: the gpt_1p3b serving block's
     LayerNorm [8 * 1024, 2048] (weight and shift, no residual), the
     ernie_base encoder's [32 * 512, 768], an RMS norm with bias and
-    residual at [8192, 2048] (z written too) and an odd width of 1000.
+    residual at [8192, 2048] (z written too) and an odd width of 1000;
+    w and b in x's dtype, or in `wdtype` (f32: the labels say so).
     Bytes: x (and residual) read, y (and z) written, the vectors once;
     the f32 statistics bound nothing.  Library: F.layer_norm / F.rms_norm
     on the precomputed sum."""
@@ -1267,18 +1327,20 @@ def fused_norm_cases(torch, dtype):
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 40)
     isz = torch.empty((), dtype=dtype).element_size()
-    dname = str(dtype).split(".")[1]
+    wd = dtype if wdtype is None else wdtype
+    tag = "" if wdtype is None else f" w/b {str(wd).split('.')[1]}"
     cases = []
     for label, rows, d, kind, with_res in (
             ("ln gpt_1p3b [8192,2048]", 8 * 1024, 2048, "ln", False),
             ("ln ernie_base [16384,768]", 32 * 512, 768, "ln", False),
             ("rms+bias+res [8192,2048]", 8192, 2048, "rms", True),
-            ("ln odd d [4096,1000]", 4096, 1000, "ln", False)):
+            ("ln odd d [4096,1000]", 4096, 1000, "ln",
+             False))[:1 if first else None]:
+        label += tag
         x = torch.randn(rows, d, generator=g, device="cuda", dtype=dtype)
-        w = 1 + 0.1 * torch.randn(d, generator=g, device="cuda",
-                                  dtype=dtype)
+        w = 1 + 0.1 * torch.randn(d, generator=g, device="cuda", dtype=wd)
         b = None if kind == "rms" else 0.1 * torch.randn(
-            d, generator=g, device="cuda", dtype=dtype)
+            d, generator=g, device="cuda", dtype=wd)
         bias = res = None
         if with_res:
             bias = torch.randn(d, generator=g, device="cuda", dtype=dtype)
@@ -1287,11 +1349,15 @@ def fused_norm_cases(torch, dtype):
         z = FN.fused_norm_reference(x, None, None, bias, res, kind=kind)[1]
         z = x if z is None else z
         eps = 1e-5
-        lib = (lambda z=z, w=w, b=b, d=d: F.layer_norm(z, (d,), w, b, eps)) \
+        # the library call takes w / b in z's dtype
+        wl, bl = (None if t is None else t.to(dtype) for t in (w, b))
+        lib = (lambda z=z, w=wl, b=bl, d=d: F.layer_norm(z, (d,), w, b,
+                                                        eps)) \
             if kind == "ln" else \
-            (lambda z=z, w=w, d=d: F.rms_norm(z, (d,), w, eps))
+            (lambda z=z, w=wl, d=d: F.rms_norm(z, (d,), w, eps))
         nbytes = (2 + 2 * with_res) * rows * d * isz \
-            + (2 + with_res) * d * isz
+            + (2 * torch.empty((), dtype=wd).element_size()
+               + with_res * isz) * d
         cases.append((
             "fused_norm", label,
             lambda x=x, w=w, b=b, bi=bias, r=res, k=kind:
@@ -1383,7 +1449,9 @@ def _swin_train_launches(batch):
           f"window_attention_bwd {calls} times, expected 12")
     del step
     torch.cuda.empty_cache()
-    return list(seen.items())
+    # in the forward's order (the backward records stage 4 first): stage
+    # 1 unshifted, the main row, comes first
+    return sorted(seen.items(), key=lambda kv: (-kv[0][0][1], kv[0][3]))
 
 
 def _vision_label(kernel, sig):
@@ -1396,7 +1464,7 @@ def _vision_label(kernel, sig):
             + (" mask" if masked else ""))
 
 
-def conv_cases(torch, dtype, vision):
+def conv_cases(torch, dtype, vision, first=False):
     """conv_bn_act at every shape `vision` recorded (ResNet-50's and
     MobileNetV2's at the served batch).  Weights scaled by 1/sqrt(fan_in),
     scale near 1 and shift near 0, so outputs stay below 4 (a bf16
@@ -1415,7 +1483,7 @@ def conv_cases(torch, dtype, vision):
     dname = str(dtype).split(".")[1]
     cases = []
     for kernel, sig, _ in vision:
-        if kernel != "conv_bn_act":
+        if kernel != "conv_bn_act" or first and cases:
             continue
         xs, wsh, st, pad, act = sig
         b, cin = xs[:2]
@@ -1446,7 +1514,7 @@ def conv_cases(torch, dtype, vision):
     return cases
 
 
-def window_cases(torch, dtype, vision):
+def window_cases(torch, dtype, vision, first=False):
     """window_attention at every shape `vision` recorded (Swin-T's four
     stages at the served batch, shifted with the mask and not, stage 4
     one window with no shift); a seeded bias.  Bytes: qkv, bias, mask
@@ -1466,7 +1534,7 @@ def window_cases(torch, dtype, vision):
     dname = str(dtype).split(".")[1]
     cases = []
     for kernel, sig, _ in vision:
-        if kernel != "window_attention":
+        if kernel != "window_attention" or first and cases:
             continue
         (b, h, w, c3), heads, ws, shift, masked = sig
         c, p = c3 // 3, ws * ws
@@ -1499,7 +1567,7 @@ def window_cases(torch, dtype, vision):
     return cases
 
 
-def window_bwd_cases(torch, dtype, train):
+def window_bwd_cases(torch, dtype, train, first=False):
     """window_attention_bwd at every shape `train` recorded (Swin-T's
     four stages in one bf16 train step at batch 128, shifted with the
     mask and not, stage 4 one window with no shift); a seeded bias and
@@ -1520,7 +1588,7 @@ def window_bwd_cases(torch, dtype, train):
     isz = torch.empty((), dtype=dtype).element_size()
     dname = str(dtype).split(".")[1]
     cases = []
-    for sig, _ in train:
+    for sig, _ in train[:1 if first else None]:
         (b, h, w, c3), heads, ws, shift, masked = sig
         c, p, hd = c3 // 3, ws * ws, c3 // 3 // heads
         qkv = torch.randn(b, h, w, c3, generator=g, device=dev, dtype=dtype)
@@ -1561,7 +1629,7 @@ def window_bwd_cases(torch, dtype, train):
     return cases
 
 
-def rope_cases(torch, dtype):
+def rope_cases(torch, dtype, first=False):
     """rope and its adjoint at the LLaMA path's shapes: the llama_7b
     prefill q [1, 1008, 32, 128] as the attention gives it (a strided
     view of the fused qkv projection, phases broadcast over the batch),
@@ -1600,7 +1668,7 @@ def rope_cases(torch, dtype):
             ("70B GQA k B1 S1008 H8 D128 (qkv view)", k70, None, pos),
             ("q+k prefill B1 S1008 H32+32 D128 (qkv views)", q, k, pos),
             ("q+k decode B4 S1 H32+32 D128 per-row (qkv views)", qd, kd,
-             ragged)):
+             ragged))[:1 if first else None]:
         cos, sin = (p.to(dtype) for p in _rope_phases(d, x.shape[1], 1e4,
                                                       ids, dev))
         n = x.numel() + (0 if second is None else second.numel())
@@ -1618,7 +1686,7 @@ def rope_cases(torch, dtype):
     return cases
 
 
-def bwd_cases(torch, dtype):
+def bwd_cases(torch, dtype, first=False):
     """flash_fwd and flash_bwd at the train step's shape (GPT-125M: B8
     S1024 H12 D64, causal), flash_bwd at a GQA + pad-bias case (B2
     S1024, 12 query heads over 4 kv heads, keys before each row's start
@@ -1642,7 +1710,7 @@ def bwd_cases(torch, dtype):
             ("full B32 S512 H12 D64 (encoder)", 32, 512, 12, 12, 64, False,
              None, True),
             ("full B8 S1024 H16 D128 (fused serve)", 8, 1024, 16, 16, 128,
-             False, None, False)):
+             False, None, False))[:1 if first else None]:
         q, dout = (torch.randn(b, s, hq, d, generator=g, device=dev,
                                dtype=dtype) for _ in range(2))
         k, v = (torch.randn(b, s, hkv, d, generator=g, device=dev,
@@ -1819,6 +1887,18 @@ def _reruns_bit_identical(torch):
         "llama_7b decode rows")
 
 
+def f16_cases(torch, vision, train):
+    """The float16 rows of phase 3: flash_fwd and flash_bwd at the train
+    shape (phase 28's O1 loop), then every other kernel at its main
+    path's shape (its bf16 JSON row's), forward and backward; fused_norm
+    also with w / b in f32 beside the first case's f16 (the fused
+    serving block's)."""
+    f16 = torch.float16
+    return (bwd_cases(torch, f16, first=True)
+            + kernel_cases(torch, f16, vision, train, main=True)
+            + fused_norm_cases(torch, f16, wdtype=torch.float32, first=True))
+
+
 # phase 3 rows that also get profiled device times and host times
 DEVICE_TIMED = ("fused_norm", "relayout_to_hm", "relayout_from_hm",
                 "paged_attention", "decode_attention",
@@ -1843,11 +1923,8 @@ def phase_kernels():
         dname = str(dtype).split(".")[1]
         tol = {torch.float32: F32_TOL, torch.bfloat16: BF16_TOL,
                torch.float16: F16_TOL}[dtype]
-        # float16: the flash kernels at the train shape, where phase 28's
-        # O1 loop runs them
         cases = kernel_cases(torch, dtype, vision, train) \
-            if dtype != torch.float16 else \
-            [c for c in bwd_cases(torch, dtype) if "(train)" in c[1]]
+            if dtype != torch.float16 else f16_cases(torch, vision, train)
         for name, label, run, plain, lib, nbytes, flops, ops_dtype, real \
                 in cases:
             got, want = run(), plain()
@@ -1869,7 +1946,7 @@ def phase_kernels():
                 if want[1] is not None:    # the same rounded adds
                     err = max(err, (got[1].float() - want[1].float())
                               .abs().max().item())
-                    if dtype == torch.bfloat16:
+                    if dtype != torch.float32:
                         check(torch.equal(got[1], want[1]),
                               f"{name} [{label} {dname}] z differs from "
                               "the plain version's bit for bit")
@@ -2114,7 +2191,7 @@ def _round_line(r):
             f" prefix hits {r['hits']}; prefill wall ms by bucket: {pre}")
 
 
-def phase_serve(model, cfg, name, kv_precision=None):
+def phase_serve(model, cfg, name, kv_precision=None, refs=None):
     """The engine with the default EngineConfig (and `kv_precision`):
     the 8 requests x 32 tokens served twice, the prefix cache cleared in
     between (the first round captures the prefill programs of its
@@ -2123,7 +2200,12 @@ def phase_serve(model, cfg, name, kv_precision=None):
     memory.  Every decode forward launches the tier's paged kernel once
     per layer and the other tier's never; the model's forward runs only
     for the first run and the capture of each new prefill program (every
-    decode step and every later prefill replays a graph)."""
+    decode step and every later prefill replays a graph).  With `refs`
+    (each prompt's sequential greedy `generate()` stream, 32 tokens) the
+    streams are held to them by the near-tie rule, relative to the
+    step's largest logit (`_near_ties`, NEAR_TIE_ULPS): every token on
+    the exact tier, the first (the prefill's, before any int8 page is
+    read) on the int8 tier, whose streams' equal lengths are logged."""
     import torch
 
     from paddle_tpu_torch.inference.engine import (
@@ -2193,7 +2275,8 @@ def phase_serve(model, cfg, name, kv_precision=None):
     _rope_launches_per_forward(counts, cfg, prefills + steps
                                * eng.config.decode_chunk, "serve")
     st = eng.stats()
-    log(f"[serve] {name} bf16 {cfg.num_layers}L kv {st['kv_precision']}: "
+    dn = _dn(model.dtype)
+    log(f"[serve] {name} {dn} {cfg.num_layers}L kv {st['kv_precision']}: "
         f"{len(prompts)} requests x 32 tokens, twice; page_bytes "
         f"{st['page_bytes']} x {eng.config.num_pages} pages, "
         f"{len(forwards)} forwards ({new} prefill programs captured), "
@@ -2205,7 +2288,21 @@ def phase_serve(model, cfg, name, kv_precision=None):
     log(f"[serve] {name} kv {st['kv_precision']} memory: peak allocated "
         f"{peak / 2**30:.2f} GiB, reserved {reserved / 2**30:.2f} GiB, "
         f"{base / 2**30:.2f} GiB allocated before the engine")
-    what = f"serve {name} bf16 kv {st['kv_precision']}"
+    what = f"serve {name} {dn} kv {st['kv_precision']}"
+    if refs is not None:
+        same, near = _near_ties(
+            model, prompts, rounds[1]["outs"], refs, what, "generate()",
+            ulps=NEAR_TIE_ULPS, first=1 if kv_precision else None)
+        # how far each stream runs equal to generate() (the int8 tier's
+        # later tokens read quantized pages: a reading, not a check)
+        agree = [int(np.argmax(np.append(o[len(p):] != r[len(p):], True)))
+                 for p, o, r in zip(prompts, rounds[1]["outs"], refs)]
+        log(f"[serve] {what}: {same}/{len(prompts)} streams equal to "
+            f"sequential greedy generate() "
+            f"({'first tokens' if kv_precision else 'every token'}); "
+            f"near-ties (prompt length, token, top-2 margin; limit "
+            f"{NEAR_TIE_ULPS} ulps of the step's max |logit|) {near}; "
+            f"tokens equal before the first difference, per stream {agree}")
     _engine_replay_equals_eager(eng, what)
     _prefill_replay_equals_eager(eng, what)
     return counts
@@ -2427,7 +2524,7 @@ def phase_generate(model, cfg, name):
         "== the first call == the per-token eager loop, bit for bit, "
         "equal-length and left-padded")
     rate = _generate_rate(model, ids)
-    # bf16 logits against the f32 upcast of the same weights, copied one
+    # 16-bit logits against the f32 upcast of the same weights, copied one
     # parameter at a time (no second full-size copy in flight)
     f32 = type(model)(cfg, device="cuda", dtype=torch.float32)
     with torch.no_grad():
@@ -2441,9 +2538,11 @@ def phase_generate(model, cfg, name):
     del f32
     torch.cuda.empty_cache()
     check(math.isfinite(rel) and rel < 0.05,
-          f"bf16 logits relative L2 error {rel:.3g} >= 0.05 vs f32")
+          f"{_dn(model.dtype)} logits relative L2 error {rel:.3g} >= 0.05 "
+          "vs f32")
     log(f"[generate] {name}: equal-length 4x128 and left-padded {lens} "
-        f"+32 tokens ok; bf16 vs f32 logits rel L2 {rel:.4f} (tol 0.05); "
+        f"+32 tokens ok; {_dn(model.dtype)} vs f32 logits rel L2 "
+        f"{rel:.4f} (tol 0.05); "
         f"{forwards} forwards, launches {json.dumps(counts)}")
     log(f"[generate] {name} B4 x 128 +32 (second call): "
         f"{rate['tokens_per_s']:.1f} tokens/s, {rate['wall_ms']:.2f} ms a "
@@ -2452,30 +2551,114 @@ def phase_generate(model, cfg, name):
 
 
 # ----------------------------------------------------------------- phase 6
-def _near_ties(model, prompts, outs, refs, what, against):
+def _ulp(v, dtype):
+    """One ulp of a value of magnitude `v` (> 0, normal) in `dtype`."""
+    import torch
+
+    return torch.finfo(dtype).eps * 2.0 ** math.floor(math.log2(v))
+
+
+def _near_ties(model, prompts, outs, refs, what, against, tol=1e-3,
+               ulps=None, first=None):
     """Streams `outs` against reference streams `refs` of the same
-    prompts: equal, or the first different token at a near-tie, where
-    the top-2 logits of `model`'s full forward over the reference prefix
-    differ by less than 1e-3 (f32).  Returns the count of equal streams
-    and the near-ties as (prompt length, token, margin)."""
+    prompts (their first `first` new tokens, or all): equal, or the
+    first different token at a near-tie, where the top-2 logits of
+    `model`'s full forward over the reference prefix differ by less than
+    `tol` (f32), or with `ulps` by less than that many ulps, in the
+    model's dtype, of the step's largest |logit| (a 16-bit model's
+    logits carry rounding of that order, cuBLAS rounding a row of the
+    batched engine otherwise than the sequential call's; `_tie_readings`
+    measures it).  Returns the count of equal streams and the near-ties
+    as (prompt length, token, margin)."""
     import torch
 
     near, same = [], 0
     for p, o, ref in zip(prompts, outs, refs):
-        diff = np.flatnonzero(ref != o)
+        n = len(ref) if first is None else len(p) + first
+        diff = np.flatnonzero(ref[:n] != o[:n])
         if not diff.size:
             same += 1
             continue
         at = int(diff[0])
         with torch.inference_mode():
             logits = model(torch.from_numpy(ref[None, :at]).cuda())[0, -1]
-        top = torch.topk(logits.float(), 2).values
+        logits = logits.float()
+        top = torch.topk(logits, 2).values
         margin = (top[0] - top[1]).item()
-        check(margin < 1e-3, f"{what} diverged from {against} at token "
+        limit = tol if ulps is None else \
+            ulps * _ulp(logits.abs().max().item(), model.dtype)
+        check(margin < limit, f"{what} diverged from {against} at token "
               f"{at - len(p)} of a {len(p)}-token prompt, top-2 margin "
-              f"{margin:.3g} >= 1e-3")
-        near.append((len(p), at - len(p), margin))
+              f"{margin:.3g} >= {limit:.3g}")
+        near.append((len(p), at - len(p), round(margin, 5)))
     return same, near
+
+
+def _tie_readings(model, prompts, refs):
+    """How near sequential greedy `generate()`'s streams `refs` came to
+    a tie, and how far two routes' rounding moves a 16-bit model's
+    logits.  Each stream is replayed over its own tokens by generate()'s
+    route (an eager prefill into dense caches, then one decode forward
+    a token: the decode kernel) and by one full forward over the stream
+    (flash); at each new token's step: the largest |logit|, its ulp in
+    the model's dtype, the top-2 margin of the full forward in those
+    ulps, and the largest difference between the two routes' logits in
+    those ulps.  Returns a dict of the extremes over every step."""
+    import torch
+
+    dt = model.dtype
+    r = dict(steps=0, max_logit=[math.inf, 0.0], ulp=[math.inf, 0.0],
+             min_margin_ulps=math.inf, max_gap_ulps=0.0, argmax_equal=0)
+    with torch.inference_mode():
+        for p, ref in zip(prompts, refs):
+            lp, ids = len(p), torch.from_numpy(ref).cuda()[None]
+            full = model(ids[:, :-1])[0, lp - 1:].float()
+            caches = model.init_kv_caches(1, ids.shape[1])
+            step, _ = model(ids[:, :lp], kv_caches=caches, cache_pos=0)
+            dec = [step[0, -1]]
+            for j in range(lp, ids.shape[1] - 1):
+                step, _ = model(ids[:, j:j + 1], kv_caches=caches,
+                                cache_pos=j)
+                dec.append(step[0, -1])
+            dec = torch.stack(dec).float()
+            big = full.abs().amax(-1)
+            ulp = torch.finfo(dt).eps * torch.exp2(torch.floor(
+                torch.log2(big)))
+            top = torch.topk(full, 2, dim=-1).values
+            margin = (top[:, 0] - top[:, 1]) / ulp
+            gap = ((dec - full).abs().amax(-1) / ulp)
+            r["steps"] += full.shape[0]
+            r["max_logit"] = [min(r["max_logit"][0], big.min().item()),
+                              max(r["max_logit"][1], big.max().item())]
+            r["ulp"] = [min(r["ulp"][0], ulp.min().item()),
+                        max(r["ulp"][1], ulp.max().item())]
+            r["min_margin_ulps"] = min(r["min_margin_ulps"],
+                                       margin.min().item())
+            r["max_gap_ulps"] = max(r["max_gap_ulps"], gap.max().item())
+            r["argmax_equal"] += int((dec.argmax(-1) == ids[0, lp:]).sum())
+    return r
+
+
+def phase_tie_readings(model, cfg, name, refs):
+    """`_tie_readings` of the sequential streams `refs` of phase 4's
+    prompts, logged; the near-tie limit must cover twice the largest
+    difference between the two routes' logits (a tie flips only where
+    the margin is under the two logits' differences together)."""
+    r = _tie_readings(model, _prompts(cfg.vocab_size), refs)
+    dn = _dn(model.dtype)
+    log(f"[ties] {name} {dn}: {r['steps']} steps of generate()'s streams: "
+        f"max |logit| {r['max_logit'][0]:.4g} to {r['max_logit'][1]:.4g}, "
+        f"one ulp {r['ulp'][0]:.4g} to {r['ulp'][1]:.4g}; smallest top-2 "
+        f"margin {r['min_margin_ulps']:.4g} ulps; largest gap between the "
+        f"decode route's and the full forward's logits "
+        f"{r['max_gap_ulps']:.4g} ulps; decode-route argmax equal to the "
+        f"stream {r['argmax_equal']}/{r['steps']}; near-tie limit "
+        f"{NEAR_TIE_ULPS} ulps")
+    check(2 * r["max_gap_ulps"] <= NEAR_TIE_ULPS,
+          f"ties {name} {dn}: two routes' logits differ by "
+          f"{r['max_gap_ulps']:.4g} ulps, more than half the near-tie "
+          f"limit of {NEAR_TIE_ULPS}")
+    return r
 
 
 def phase_parity(cls, cfg, name):
@@ -3221,12 +3404,14 @@ def _train_step(model, amp_dtype=None, **kw):
                             amp_dtype=amp_dtype, **kw)
 
 
-def phase_kv_layout_parity(steps=3):
-    """GPT-125M widths at 2 layers in f32, batch 2 x 256: `steps` AdamW
-    steps under FLAGS_flash_layout=kv and the same steps on the native
-    tier, from the same weights and batch.  The losses and every
-    parameter after the steps must be bit-identical (the head-major
-    kernels differ from the native ones only in addressing)."""
+def phase_kv_layout_parity(steps=3, amp_dtype=None):
+    """GPT-125M widths at 2 layers in f32 (or with `amp_dtype`, f32
+    masters: float16 runs the f16 relayouts and head-major flash
+    kernels), batch 2 x 256: `steps` AdamW steps under
+    FLAGS_flash_layout=kv and the same steps on the native tier, from the
+    same weights and batch.  The losses and every parameter after the
+    steps must be bit-identical (the head-major kernels differ from the
+    native ones only in addressing)."""
     import torch
 
     from paddle_tpu_torch.models.gpt import GPTForCausalLM
@@ -3243,7 +3428,8 @@ def phase_kv_layout_parity(steps=3):
         with _layout(layout):
             model = GPTForCausalLM(cfg, device="cuda", seed=SEED)
             K.reset_launches()
-            losses = _train_step(model).run_steps(ids, labels, repeat=steps)
+            losses = _train_step(model, amp_dtype=amp_dtype).run_steps(
+                ids, labels, repeat=steps)
             torch.cuda.synchronize()
             runs[layout] = (losses.cpu(), K.launch_counts(),
                             [p.detach().clone() for p in model.parameters()])
@@ -3261,7 +3447,8 @@ def phase_kv_layout_parity(steps=3):
           and cn["flash_fwd"] == ck["flash_fwd"] > 0,
           f"kv_layout_parity launches native {json.dumps(cn)} kv "
           f"{json.dumps(ck)}")
-    log(f"[kv_layout_parity] f32 GPT-125M widths 2L B2 S256, {steps} AdamW "
+    log(f"[kv_layout_parity] {amp_dtype or 'f32'} GPT-125M widths 2L B2 "
+        f"S256, {steps} AdamW "
         f"steps: losses {lk.tolist()} bit-identical on both tiers, "
         f"{len(pk)} parameters bit-identical; kv launches {json.dumps(ck)}")
     return ck
@@ -3547,6 +3734,57 @@ def _vision_rate(model, x, iters):
     return x.shape[0] * iters / dt, 1e3 * dt / iters, logits
 
 
+def _serve_vision(model, x, name, kernel, per_fwd, iters):
+    """`model` served eager and then through `jit.to_static(model)`
+    (inside inference mode): (to_static images/s, ms a batch, eager
+    images/s, ms a batch, the replayed logits, the launch counts of the
+    to_static calls, their peak memory).  The replayed logits equal the
+    eager ones bit for bit, with `per_fwd` launches of `kernel` a call
+    (a replay calls no forward hook) and no other kernel."""
+    import torch
+
+    from paddle_tpu_torch.jit import to_static
+    from paddle_tpu_torch.ops import kernels as K
+
+    eager, eager_ms, eager_logits = _vision_rate(model, x, iters)
+    to_static(model)
+    model(x)                          # warm-up, capture, replay
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    rate, ms, logits = _vision_rate(model, x, iters)
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    calls = iters + 2
+    dn = _dn(x.dtype)
+    check(logits.shape == (x.shape[0], 1000)
+          and bool(torch.isfinite(logits).all()),
+          f"vision_serve {name} {dn}: bad logits")
+    check(torch.equal(logits, eager_logits),
+          f"vision_serve {name} {dn}: the replayed logits differ from the "
+          "eager forward's")
+    check(counts[kernel] == per_fwd * calls,
+          f"vision_serve {name} {dn}: {kernel} launched {counts[kernel]} "
+          f"times in {calls} to_static calls, expected {per_fwd} per call")
+    others = {k: v for k, v in counts.items() if k != kernel and v}
+    check(not others, f"vision_serve {name} {dn}: other kernels {others}")
+    return rate, ms, eager, eager_ms, logits, counts, peak
+
+
+def _cast16(model, dtype):
+    """Cast `model`'s bf16 parameters and buffers to `dtype` in place
+    (f32 ones, such as batch-norm statistics, stay f32, as in a model
+    built in `dtype`); its graphs and generate() programs see new
+    addresses and capture again."""
+    import torch
+
+    with torch.no_grad():
+        for t in list(model.parameters()) + list(model.buffers()):
+            if t.dtype == torch.bfloat16:
+                t.data = t.data.to(dtype)
+    torch.cuda.empty_cache()
+
+
 def phase_vision_serve(card, batch=VISION_BATCH, iters=10, profile=False):
     """bf16 serving of the three models, eager and then through
     `jit.to_static(model)` (a CUDA graph of the forward, replayed per
@@ -3554,47 +3792,29 @@ def phase_vision_serve(card, batch=VISION_BATCH, iters=10, profile=False):
     replayed logits equal the eager ones bit for bit; exact launches per
     `StaticFunction` call (a replay calls no forward hook); the card's
     bf16 logits against the CPU port's plain f32 forward of the same
-    weights and batch (no kernel on that side)."""
+    weights and batch (no kernel on that side).  Then each model cast in
+    place to float16 (`_cast16`) and served again the same way, its
+    logits held to the same f32 CPU forward (the bf16 weights and batch
+    are f16 values too, but for the tiniest weights' bits).  Returns the
+    launch counts of the bf16 and of the f16 to_static calls."""
     import torch
-
-    from paddle_tpu_torch.jit import to_static
-    from paddle_tpu_torch.ops import kernels as K
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(SEED + 7)
     x = torch.randn(batch, 3, 224, 224, generator=g, device="cuda",
                     dtype=torch.bfloat16)
-    total = {}
+    totals = ({}, {})
     for name, kernel, per_fwd in VISION:
         model = _vision_model(name, "cuda", torch.bfloat16)
         with torch.inference_mode():
-            eager, eager_ms, eager_logits = _vision_rate(model, x, iters)
-            to_static(model)
-            model(x)                          # warm-up, capture, replay
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            K.reset_launches()
-            rate, ms, logits = _vision_rate(model, x, iters)
-            counts = K.launch_counts()
-            peak = torch.cuda.max_memory_allocated()
-            calls = iters + 2
-            check(logits.shape == (batch, 1000)
-                  and bool(torch.isfinite(logits).all()),
-                  f"vision_serve {name}: bad logits")
-            check(torch.equal(logits, eager_logits),
-                  f"vision_serve {name}: the replayed logits differ from "
-                  "the eager forward's")
-            check(counts[kernel] == per_fwd * calls,
-                  f"vision_serve {name}: {kernel} launched {counts[kernel]} "
-                  f"times in {calls} to_static calls, expected {per_fwd} "
-                  "per call")
-            others = {k: v for k, v in counts.items() if k != kernel and v}
-            check(not others, f"vision_serve {name}: other kernels {others}")
+            rate, ms, eager, eager_ms, logits, counts, peak = \
+                _serve_vision(model, x, name, kernel, per_fwd, iters)
             cpu = _vision_model(name, "cpu", torch.float32)
             cpu.load_state_dict(model.state_dict())
             t_cpu = time.perf_counter()
-            rel = _rel_l2(logits.cpu(), cpu(x.float().cpu()))
+            ref = cpu(x.float().cpu())
+            rel = _rel_l2(logits.cpu(), ref)
             t_cpu = time.perf_counter() - t_cpu
             del cpu
             if profile:
@@ -3604,7 +3824,8 @@ def phase_vision_serve(card, batch=VISION_BATCH, iters=10, profile=False):
               f"vision_serve {name}: bf16 card vs f32 cpu logits rel L2 "
               f"{rel:.3g} >= 0.05")
         for k, v in counts.items():
-            total[k] = total.get(k, 0) + v
+            totals[0][k] = totals[0].get(k, 0) + v
+        calls = iters + 2
         log(f"[vision_serve] {name} bf16 B{batch} 224 ({card}): to_static "
             f"{rate:.1f} images/s, {ms:.2f} ms/batch; eager {eager:.1f} "
             f"images/s, {eager_ms:.2f} ms/batch, over {iters} batches; "
@@ -3612,9 +3833,28 @@ def phase_vision_serve(card, batch=VISION_BATCH, iters=10, profile=False):
             f"{peak / 2**30:.2f} GiB; bf16 card vs f32 cpu plain logits rel "
             f"L2 {rel:.4f} (tol 0.05, cpu forward {t_cpu:.1f}s); {kernel} "
             f"{counts[kernel] // calls} launches per call")
-        del model
+        del model.forward            # the eager forward again
+        _cast16(model, torch.float16)
+        x16 = x.to(torch.float16)
+        with torch.inference_mode():
+            rate, ms, eager, eager_ms, logits, counts, peak = \
+                _serve_vision(model, x16, name, kernel, per_fwd, iters)
+        rel = _rel_l2(logits.cpu(), ref)
+        check(math.isfinite(rel) and rel < 0.05,
+              f"vision_serve {name}: f16 card vs f32 cpu logits rel L2 "
+              f"{rel:.3g} >= 0.05")
+        for k, v in counts.items():
+            totals[1][k] = totals[1].get(k, 0) + v
+        log(f"[vision_serve] {name} f16 B{batch} 224 ({card}): to_static "
+            f"{rate:.1f} images/s, {ms:.2f} ms/batch; eager {eager:.1f} "
+            f"images/s, {eager_ms:.2f} ms/batch, over {iters} batches; "
+            f"replay == eager logits bit for bit; peak memory "
+            f"{peak / 2**30:.2f} GiB; f16 card vs f32 cpu plain logits rel "
+            f"L2 {rel:.4f} (tol 0.05); {kernel} "
+            f"{counts[kernel] // calls} launches per call")
+        del model, ref
         torch.cuda.empty_cache()
-    return total
+    return totals
 
 
 def _vision_train_step(name, batch, amp_dtype="bfloat16", device="cuda"):
@@ -3788,20 +4028,72 @@ def phase_vision_train(card, iters=10, profile=False):
         if name == "vit_b_16" or (profile and name == "swin_t"):
             phase_profile_train(step, (imgs, labels), steps=1,
                                 what=f"{name} bf16 B{batch} train step")
+        if name == "swin_t":
+            f16 = _vision_train_f16(card, step.model, imgs, labels,
+                                    flops_per_image, want, iters)
         del step, imgs, labels
         gc.collect()
         torch.cuda.empty_cache()
-    return total
+    return total, f16
+
+
+def _vision_train_f16(card, model, imgs, labels, flops_per_image, want,
+                      iters):
+    """The same model (its f32 masters where the bf16 steps left them)
+    in a second train step, O2 in float16 (the f16 window kernels,
+    forward and backward): 2 warm-up steps, then `run_steps(repeat=
+    iters)` timed: images/s, ms per step, peak memory, the launches a
+    step of the bf16 step; finite losses that fall; every later call a
+    replay.  Returns the timed steps' launch counts."""
+    import torch
+
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed import build_train_step
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.optimizer import Momentum
+
+    batch = imgs.shape[0]
+    step = build_train_step(model, Momentum(learning_rate=1e-3,
+                                            momentum=0.9),
+                            nn.CrossEntropyLoss(), amp_dtype="float16")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    forwards, hook = _count_forwards(model)
+    warm = [float(step(imgs, labels)) for _ in range(2)]
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    losses = step.run_steps(imgs, labels, repeat=iters)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = K.launch_counts()
+    hook.remove()
+    losses = losses.cpu().numpy()
+    peak = torch.cuda.max_memory_allocated()
+    _graph_replayed(step, forwards, 2 + iters, "vision_train swin_t f16")
+    check(np.isfinite(warm).all() and np.isfinite(losses).all()
+          and losses[-1] < warm[0],
+          f"vision_train swin_t f16: losses {warm} {losses.tolist()}")
+    _launches_per_step(counts, want, iters, "vision_train swin_t f16")
+    ips = batch * iters / dt
+    log(f"[vision_train] swin_t f16 O2 B{batch} 224 ({card}): {ips:.1f} "
+        f"images/s, {1e3 * dt / iters:.2f} ms/step over {iters} steps, MFU "
+        f"{100 * ips * flops_per_image / PEAK_FLOPS['float16']:.2f}%, peak "
+        f"memory {peak / 2**30:.2f} GiB; loss {warm[0]:.4f} -> "
+        f"{losses[-1]:.4f}; launches per step "
+        f"{json.dumps({k: v / iters for k, v in counts.items() if v})}")
+    del step
+    return counts
 
 
 # ------------------------------------------------------ phases 17 to 20
-def phase_varlen(card):
+def phase_varlen(card, dtypes=None):
     """`flash_attn_unpadded` forward and backward on the packed batch
     (causal and not, and not causal over keys packed twice as long), in
-    bf16 and f32: exactly one varlen_fwd and one varlen_bwd launch each,
-    held against the port's dense `FlashAttention` run on each sequence
-    alone (the dense kernels: an independent check of the packed
-    indexing).  Returns the launch counts of the packed calls."""
+    bf16 and f32 (or `dtypes`: phase 17a runs float16): exactly one
+    varlen_fwd and one varlen_bwd launch each, held against the port's
+    dense `FlashAttention` run on each sequence alone (the dense
+    kernels: an independent check of the packed indexing).  Returns the launch counts of the packed calls."""
     import torch
 
     from paddle_tpu_torch.nn.functional import flash_attn_unpadded
@@ -3809,7 +4101,7 @@ def phase_varlen(card):
     from paddle_tpu_torch.ops.kernels.flash_attention import FlashAttention
 
     total = {}
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes or (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
         for label, causal, unequal in (("causal", True, False),
                                        ("full", False, False),
@@ -3853,7 +4145,8 @@ def phase_varlen(card):
                                   .max().item())
                     tops[j] = max(tops[j], b.float().abs().max().item())
             # out absolute, gradients relative to the largest, as phase 3
-            tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+            tol = {torch.float32: F32_TOL, torch.bfloat16: BF16_TOL,
+                   torch.float16: F16_TOL}[dtype]
             held = [errs[0]] + [e / t for e, t in zip(errs[1:], tops[1:])]
             check(all(math.isfinite(h) and h <= tol for h in held),
                   f"varlen {label} {dname}: packed vs per-sequence dense "
@@ -3970,18 +4263,64 @@ SERVE_BLOCK = dict(embed=2048, heads=16, ffn=8192, layers=24, batch=8,
 ENCODER = dict(width=768, heads=12, ffn=3072, layers=12, batch=32, seq=512)
 
 
+def _fused_serve_run(model, x, ref, card, iters, profile):
+    """`iters` timed forwards of the fused block at x's dtype after 2
+    warm-ups (inference mode), held to the f32 output `ref` within 5%
+    relative L2 and to exactly 2 fused_norm and 1 flash_fwd launches a
+    layer a forward.  Returns the launch counts."""
+    import torch
+
+    from paddle_tpu_torch.ops import kernels as K
+
+    c = SERVE_BLOCK
+    dn = _dn(x.dtype)
+    with torch.inference_mode():
+        for _ in range(2):
+            model(x)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            out = model(x)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = K.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        rel = _rel_l2(out, ref)
+        if profile:
+            _profile_forward(model, x, "fused_transformer_serve forward "
+                             f"(B{c['batch']} S{c['seq']} {dn})", steps=1)
+    check(out.shape == x.shape and bool(torch.isfinite(out).all()),
+          f"fused_transformer_serve {dn}: non-finite output")
+    check(math.isfinite(rel) and rel < 0.05,
+          f"fused_transformer_serve: {dn} vs f32 rel L2 {rel:.3g} >= 0.05")
+    _launches_per_step(counts, {"fused_norm": 2 * c["layers"],
+                                "flash_fwd": c["layers"]}, iters,
+                       f"fused_transformer_serve {dn}")
+    tokens = c["batch"] * c["seq"] * iters
+    log(f"[fused_transformer_serve] FusedMultiTransformer gpt_1p3b widths "
+        f"{c['layers']}L {dn} B{c['batch']} S{c['seq']} ({card}): "
+        f"{1e3 * dt / iters:.2f} ms/forward, {tokens / dt:.1f} tokens/s "
+        f"over {iters} forwards, peak memory {peak / 2**30:.2f} GiB; {dn} "
+        f"vs f32 rel L2 {rel:.4f} (tol 0.05); launches per forward "
+        f"{json.dumps({k: v / iters for k, v in counts.items() if v})}")
+    return counts
+
+
 def phase_fused_transformer_serve(card, iters=10):
     """`FusedMultiTransformer` at gpt_1p3b widths (embed 2048, 16 heads,
     ffn 8192, 24 layers, gelu, pre-LN) in bf16, eval, batch 8 x 1024:
     ms per forward and tokens/s over `iters` forwards after 2 warm-ups,
     peak memory, exactly 48 fused_norm and 24 flash_fwd launches per
     forward, a profiler split of one forward; the output against the f32
-    forward of the same weights on the card within 5% relative L2.
-    Returns the launch counts of the timed forwards."""
+    forward of the same weights on the card within 5% relative L2.  Then
+    the same model cast to float16 in place (its norms' w and b too: the
+    f16 fused-norm and flash kernels), the same checks.  Returns the
+    launch counts of the bf16 and of the f16 timed forwards."""
     import torch
 
     from paddle_tpu_torch.incubate.nn import FusedMultiTransformer
-    from paddle_tpu_torch.ops import kernels as K
 
     c = SERVE_BLOCK
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3993,40 +4332,13 @@ def phase_fused_transformer_serve(card, iters=10):
                     device="cuda")
     with torch.inference_mode():
         ref = model(x)                      # f32 through the kernels
-    model.to(torch.bfloat16)
-    xb = x.to(torch.bfloat16)
-    with torch.inference_mode():
-        for _ in range(2):
-            model(xb)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        K.reset_launches()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            out = model(xb)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        counts = K.launch_counts()
-        peak = torch.cuda.max_memory_allocated()
-        rel = _rel_l2(out, ref)
-        _profile_forward(model, xb, "fused_transformer_serve forward "
-                         f"(B{c['batch']} S{c['seq']} bf16)", steps=1)
-    check(out.shape == x.shape and bool(torch.isfinite(out).all()),
-          "fused_transformer_serve: non-finite output")
-    check(math.isfinite(rel) and rel < 0.05,
-          f"fused_transformer_serve: bf16 vs f32 rel L2 {rel:.3g} >= 0.05")
-    _launches_per_step(counts, {"fused_norm": 2 * c["layers"],
-                                "flash_fwd": c["layers"]}, iters,
-                       "fused_transformer_serve")
-    tokens = c["batch"] * c["seq"] * iters
-    log(f"[fused_transformer_serve] FusedMultiTransformer gpt_1p3b widths "
-        f"{c['layers']}L bf16 B{c['batch']} S{c['seq']} ({card}): "
-        f"{1e3 * dt / iters:.2f} ms/forward, {tokens / dt:.1f} tokens/s "
-        f"over {iters} forwards, peak memory {peak / 2**30:.2f} GiB; bf16 "
-        f"vs f32 rel L2 {rel:.4f} (tol 0.05); launches per forward "
-        f"{json.dumps({k: v / iters for k, v in counts.items() if v})}")
-    del model, ref, out
-    return counts
+    out = []
+    for dtype in (torch.bfloat16, torch.float16):
+        model.to(dtype)
+        out.append(_fused_serve_run(model, x.to(dtype), ref, card, iters,
+                                    dtype == torch.bfloat16))
+    del model, ref
+    return tuple(out)
 
 
 def phase_fused_encoder_train(card, iters=10):
@@ -5627,6 +5939,54 @@ def _opt_state(model, opt):
                  if isinstance(v, torch.Tensor)], opt._step_count)
 
 
+def _scaler_steps(model, opt, crit, scaler, batch, steps, forced, what):
+    """`steps` eager f16 O1 steps of ``scaler.scale(loss).backward();
+    scaler.step(opt); scaler.update(); opt.clear_grad()`` under
+    ``auto_cast(dtype="float16")``, the loss of step `forced` times inf:
+    that step must overflow and leave the parameters, the optimizer's
+    slots and its step count bit for bit.  Returns (the losses, the scale
+    before each step, the steps that overflowed, the seconds of the steps
+    after the first, the launch counts of those steps)."""
+    import torch
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.ops import kernels as K
+
+    ids, labels = batch
+    losses, scales, overflowed = [], [], []
+    for i in range(steps):
+        if i == 1:
+            torch.cuda.synchronize()
+            K.reset_launches()
+            t0 = time.perf_counter()
+        with amp.auto_cast(dtype="float16"):
+            loss = crit(model(ids), labels)
+        scales.append(scaler._scale)
+        if i == forced:
+            loss = loss * float("inf")
+            before = _opt_state(model, opt)
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        if scaler._found_inf:
+            overflowed.append(i)
+        scaler.update()
+        opt.clear_grad()
+        losses.append(loss.detach())
+        if i == forced:
+            after = _opt_state(model, opt)
+            check(i in overflowed and after[2] == before[2] and all(
+                torch.equal(a, b) for a, b in zip(before[0] + before[1],
+                                                  after[0] + after[1])),
+                  f"{what}: the overflow step {i} (loss x inf) did not "
+                  "overflow or changed the parameters, the optimizer's "
+                  "slots or its step count")
+            del before, after
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return (torch.stack(losses).float().cpu().numpy(), scales, overflowed,
+            dt, K.launch_counts())
+
+
 def phase_train_fp16_scaler(card, bf16_tps, bf16_losses, batch=8,
                             seq=1024, lr=1e-4):
     """28. The same model in float16 O1 (f32 parameters,
@@ -5642,13 +6002,11 @@ def phase_train_fp16_scaler(card, bf16_tps, bf16_losses, batch=8,
     counts."""
     import torch
 
-    from paddle_tpu_torch import amp
     from paddle_tpu_torch.amp import GradScaler
     from paddle_tpu_torch.models.gpt import (
         GPTForCausalLM, GPTPretrainingCriterion,
     )
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
-    from paddle_tpu_torch.ops import kernels as K
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.resilience import StepGuard
 
@@ -5661,51 +6019,20 @@ def phase_train_fp16_scaler(card, bf16_tps, bf16_losses, batch=8,
     guard = StepGuard(max_consecutive_bad=3, raise_without_rollback=False)
     scaler = GradScaler(init_loss_scaling=2.0 ** 16).attach_guard(guard)
     crit = GPTPretrainingCriterion(model=model)
-    losses, scales, overflowed = [], [], []
     forced = FP16_OVERFLOW_STEP
-    for i in range(FP16_STEPS):
-        if i == 1:
-            torch.cuda.synchronize()
-            K.reset_launches()
-            t0 = time.perf_counter()
-        with amp.auto_cast(dtype="float16"):
-            loss = crit(model(ids), labels)
-        scales.append(scaler._scale)
-        if i == forced:
-            loss = loss * float("inf")
-            before = _opt_state(model, opt)
-            bad_before = guard.total_bad
-        scaler.scale(loss).backward()
-        scaler.step(opt)
-        if scaler._found_inf:
-            overflowed.append(i)
-        scaler.update()
-        opt.clear_grad()
-        losses.append(loss.detach())
-        if i == forced:
-            after = _opt_state(model, opt)
-            check(i in overflowed, f"train_fp16_scaler: step {i} (loss x "
-                  "inf) did not overflow")
-            check(after[2] == before[2] and all(
-                torch.equal(a, b) for a, b in zip(before[0] + before[1],
-                                                  after[0] + after[1])),
-                  f"train_fp16_scaler: the overflow step {i} changed the "
-                  "parameters, the AdamW slots or the step count")
-            check(scaler._scale == scales[i] / 2,
-                  f"train_fp16_scaler: scale {scales[i]} -> "
-                  f"{scaler._scale} at the overflow, expected halved")
-            check(guard.total_bad == bad_before + 1
-                  and guard.consecutive_bad == 0 and guard.rollbacks == 0,
-                  f"train_fp16_scaler: guard total_bad {guard.total_bad} "
-                  f"consecutive {guard.consecutive_bad} rollbacks "
-                  f"{guard.rollbacks} after the overflow")
-            del before, after
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    counts = K.launch_counts()
+    losses, scales, overflowed, dt, counts = _scaler_steps(
+        model, opt, crit, scaler, (ids, labels), FP16_STEPS, forced,
+        "train_fp16_scaler")
+    check(scales[forced + 1] == scales[forced] / 2,
+          f"train_fp16_scaler: scale {scales[forced]} -> "
+          f"{scales[forced + 1]} at the overflow, expected halved")
+    # every overflow, the forced one's too, is one "amp" skip of the guard
+    check(guard.total_bad == len(overflowed) and guard.consecutive_bad == 0,
+          f"train_fp16_scaler: guard total_bad {guard.total_bad} "
+          f"consecutive {guard.consecutive_bad} for overflows at "
+          f"{overflowed}")
     tps = batch * seq * (FP16_STEPS - 1) / dt
     peak = torch.cuda.max_memory_allocated()
-    losses = torch.stack(losses).float().cpu().numpy()
     good = [j for j in range(FP16_STEPS) if j not in overflowed]
     check(np.isfinite(losses[good]).all() and losses[-1] < losses[0],
           f"train_fp16_scaler: losses {losses.tolist()}")
@@ -5728,6 +6055,96 @@ def phase_train_fp16_scaler(card, bf16_tps, bf16_losses, batch=8,
     del model, opt, crit
     _release_card()
     return counts
+
+
+LLAMA_O1_STEPS = 8       # phase 28a's eager steps
+LLAMA_O1_OVERFLOW = 3    # ... the one whose loss is multiplied by inf
+
+
+def _scale_rule(scale, overflowed, steps, incr_every):
+    """The scale before each of `steps` steps under GradScaler's rule
+    (halved at each overflowing step, doubled after `incr_every` clean
+    ones in a row) from `scale`, given the steps that overflowed."""
+    out, good = [], 0
+    for i in range(steps):
+        out.append(scale)
+        if i in overflowed:
+            scale, good = max(scale * 0.5, 1.0), 0
+        else:
+            good += 1
+            if good >= incr_every:
+                scale, good = scale * 2.0, 0
+    return out, scale
+
+
+def phase_llama_o1_f16(card, seq=2048, lr=1e-4, incr_every=2):
+    """28a. LLaMA at `llama_7b` widths with 2 layers, B1 x 2048, in
+    float16 O1 (f32 parameters, ``auto_cast(dtype="float16")``), AdamW
+    behind ``GradScaler(init_loss_scaling=2**16, incr_every_n_steps=2)``
+    in the eager loop, LLAMA_O1_STEPS steps, the loss times inf at step
+    LLAMA_O1_OVERFLOW: that step leaves the parameters, the AdamW slots
+    and the step count bit for bit; the scale before every step follows
+    the scaler's rule from the steps that overflowed (halved, doubled
+    after 2 clean steps); the losses of the other steps finite; rope,
+    flash_fwd, flash_bwd and rope_bwd in f16 once a layer a step (q and
+    k in one rope launch each way).  Tokens/s of the steps after the
+    first.  Returns the launch counts of those steps."""
+    import torch
+
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.models.llama import (
+        LlamaForCausalLM, LlamaPretrainingCriterion, llama_7b,
+    )
+    from paddle_tpu_torch.optimizer import AdamW
+
+    _release_card()
+    cfg = llama_7b(num_layers=2)
+    model = LlamaForCausalLM(cfg, device="cuda", seed=SEED).train()
+    opt = AdamW(learning_rate=lr, parameters=model.parameters())
+    scaler = GradScaler(init_loss_scaling=2.0 ** 16,
+                        incr_every_n_steps=incr_every)
+    crit = LlamaPretrainingCriterion()
+    rs = np.random.RandomState(SEED)
+    batch = tuple(torch.from_numpy(rs.randint(
+        0, cfg.vocab_size, (1, seq)).astype(np.int32)).cuda()
+        for _ in range(2))
+    forced = LLAMA_O1_OVERFLOW
+    losses, scales, overflowed, dt, counts = _scaler_steps(
+        model, opt, crit, scaler, batch, LLAMA_O1_STEPS, forced,
+        "llama_o1_f16")
+    tps = seq * (LLAMA_O1_STEPS - 1) / dt
+    peak = torch.cuda.max_memory_allocated()
+    want, last = _scale_rule(2.0 ** 16, set(overflowed), LLAMA_O1_STEPS,
+                             incr_every)
+    check(scales == want and scaler._scale == last,
+          f"llama_o1_f16: scales {scales} (then {scaler._scale}), the rule "
+          f"gives {want} (then {last}) for overflows at {overflowed}")
+    good = [j for j in range(LLAMA_O1_STEPS) if j not in overflowed]
+    check(len(good) >= LLAMA_O1_STEPS - 2
+          and np.isfinite(losses[good]).all(),
+          f"llama_o1_f16: losses {losses.tolist()}, overflows {overflowed}")
+    per = {k: v / (LLAMA_O1_STEPS - 1) for k, v in counts.items() if v}
+    check(all(per.get(k) == cfg.num_layers for k in
+              ("flash_fwd", "flash_bwd", "rope", "rope_bwd")),
+          f"llama_o1_f16: launches a step {json.dumps(per)}")
+    log(f"[llama_o1_f16] llama_7b widths 2L f16 O1 B1 S{seq} AdamW + "
+        f"GradScaler ({card}): {tps:.1f} tokens/s, "
+        f"{seq / tps * 1e3:.2f} ms/step over {LLAMA_O1_STEPS - 1} eager "
+        f"steps, peak memory {peak / 2**30:.2f} GiB; losses "
+        f"{[round(float(x), 4) for x in losses]}; scale before each step "
+        f"{scales} (after the last {scaler._scale}), the rule's for "
+        f"overflows at {overflowed} (forced: {forced}, the state bit for "
+        f"bit); f16 launches a step {json.dumps(per)}")
+    del model, opt, crit
+    _release_card()
+    return counts
+
+
+def _generate_refs(model, cfg, new_tokens=32):
+    """Each of phase 4's prompts alone through greedy `generate()`:
+    the sequential streams the engine's must equal."""
+    return [model.generate(p[None], max_new_tokens=new_tokens)
+            .cpu().numpy()[0] for p in _prompts(cfg.vocab_size)]
 
 
 def _zoo():
@@ -6319,6 +6736,8 @@ def main():
         release()
         path("kv_layout_parity", phase_kv_layout_parity)
         release()
+        path("kv_layout_parity_f16", phase_kv_layout_parity, 3, "float16")
+        release()
         train, step, ids, labels = run("train_kv_layout", phase_train, card,
                                        "kv")
         paths["train_kv_layout"] = train
@@ -6344,7 +6763,21 @@ def main():
             run("llama_profile_int8", phase_profile, model, lcfg, 10,
                 "int8")
             run("llama_profile_prefill", phase_profile_prefill, model, lcfg)
-        del model
+        release()
+        # the same llama_7b cast in place to float16: both KV tiers and
+        # generate(), the engine's streams held to sequential generate()
+        _cast16(model, torch.float16)
+        refs = run("llama_f16_refs", _generate_refs, model, lcfg)
+        run("llama_f16_ties", phase_tie_readings, model, lcfg, "llama_7b",
+            refs)
+        path("llama_f16_serve", phase_serve, model, lcfg, "llama_7b", None,
+             refs)
+        path("llama_f16_serve_int8", phase_serve, model, lcfg, "llama_7b",
+             "int8", refs)
+        release()
+        path("llama_f16_generate", phase_generate, model, lcfg,
+             "llama_7b f16")
+        del model, refs
         release()
         run("llama_parity", phase_parity, LlamaForCausalLM,
             llama2_70b_shapes(num_layers=2), "llama2_70b_shapes")
@@ -6357,16 +6790,21 @@ def main():
              ("flash_fwd", "flash_bwd", "rope", "rope_bwd"))
         release()
         run("vision_parity", phase_vision_parity)
-        path("vision_serve", phase_vision_serve, card, VISION_BATCH, 10,
-             profile)
+        paths["vision_serve"], paths["vision_serve_f16"] = run(
+            "vision_serve", phase_vision_serve, card, VISION_BATCH, 10,
+            profile)
         release()
         run("vision_train_parity", phase_vision_train_parity)
-        path("vision_train", phase_vision_train, card, 10, profile)
+        paths["vision_train"], paths["vision_train_f16"] = run(
+            "vision_train", phase_vision_train, card, 10, profile)
         release()
         path("varlen", phase_varlen, card)
+        path("varlen_f16", phase_varlen, card, (torch.float16,))
         run("fused_transformer_parity", phase_fused_transformer_parity)
         release()
-        path("fused_transformer_serve", phase_fused_transformer_serve, card)
+        (paths["fused_transformer_serve"],
+         paths["fused_transformer_serve_f16"]) = run(
+            "fused_transformer_serve", phase_fused_transformer_serve, card)
         release()
         path("fused_encoder_train", phase_fused_encoder_train, card)
         release()
@@ -6386,6 +6824,8 @@ def main():
         release()
         path("train_fp16_scaler", phase_train_fp16_scaler, card, bf16_tps,
              bf16_losses)
+        release()
+        path("llama_o1_f16", phase_llama_o1_f16, card)
         release()
         path("optimizer_zoo", phase_optimizer_zoo, card)
         release()
@@ -6409,6 +6849,8 @@ def main():
             by_path = {p: c[name] for p, c in paths.items() if c[name]}
             launched = sum(by_path.values())
             check(launched > 0, f"{name} never launched on the main paths")
+            f16_paths = sum(n for p, n in by_path.items() if "f16" in p)
+            check(f16_paths > 0, f"{name} never launched on a float16 path")
             rows.append(dict(
                 name=name, route="cuda", source=k.source,
                 replaces=k.replaces, launches=launched,
@@ -6416,12 +6858,12 @@ def main():
                 plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                 bound_by=row["bound_by"], library_ms=row["library_ms"],
                 shape=row["case"], paths=by_path))
-            f16 = table.get((name, "float16"))
-            if f16 is not None:     # the flash kernels' f16 rows
-                rows[-1]["float16"] = {
-                    k: f16[k] for k in ("case", "ms", "plain_ms",
-                                        "library_ms", "bound_ms",
-                                        "bound_by", "max_abs_err")}
+            f16 = table[(name, "float16")]
+            rows[-1]["float16"] = dict(
+                {k: f16[k] for k in ("case", "ms", "plain_ms", "library_ms",
+                                     "bound_ms", "bound_by",
+                                     "max_abs_err")},
+                launches=f16_paths)
     except Fail as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -32,13 +32,16 @@
 // per output element sums its kh * kw taps in f32; no GEMM.
 // The dense kernel above runs on CUDA cores in f32 and serves f32
 // inputs only: the port's oracle path.  Depthwise convs run the loop
-// above in both dtypes.
+// above in every dtype.
 //
 // bf16 dense convs: the same implicit GEMM on the tensor cores
 // (`conv_dense_tc`, mma.sync m16n8k16, bf16 operands, f32
 // accumulators).  bf16 products are exact in f32, so this is the same
 // sum as `_conv_kernel`'s widened f32 dot (:97-106) in another order;
 // the epilogue is the one above (`epilogue`), then one rounding to bf16.
+// f16 dense convs run the same tile on f16 operands (`conv_dense_tc<f16,
+// ...>`: tc_mma<f16>, f16 products are exact in f32 too), rounding the
+// epilogue once to f16; f16 depthwise convs take the loop above.
 // A block computes a BM x BN tile of (channel, pixel) in K steps of BK
 // = 32 or 64: 128 x 128, 128 x 64, 128 x 32 or 64 x 64, chosen by the
 // grid (`launch_tc`).  Both operands sit in shared memory as rows of BK k
@@ -235,18 +238,19 @@ conv_depthwise_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-// bf16 dense conv on the tensor cores (see the note at the top).  A
+// bf16 or f16 (E) dense conv on the tensor cores (see the note at the
+// top).  A
 // block of (BM / WM) x (BN / WN) warps computes a BM x BN tile, each
 // warp a WM x WN one.  Each K step a thread gathers BSEG k values of
 // one pixel column, and stages ACP 16-byte weight copies (or, through
 // registers when not A16, ASEG weights of one row), for K steps of BK.
 // MINB: the blocks an SM must hold (the register cap).
-template <int BM, int BN, int WM, int WN, int KH_, int KW_, int BK,
-          bool A16, int MINB>
+template <typename E, int BM, int BN, int WM, int WN, int KH_, int KW_,
+          int BK, bool A16, int MINB>
 __global__ void __launch_bounds__((BM / WM) * (BN / WN) * 32, MINB)
-conv_dense_tc(const bf16* __restrict__ x, const bf16* __restrict__ w,
+conv_dense_tc(const E* __restrict__ x, const E* __restrict__ w,
               const float* __restrict__ scale,
-              const float* __restrict__ shift, bf16* __restrict__ out,
+              const float* __restrict__ shift, E* __restrict__ out,
               int B, int Cin, int H, int W, int Cout, int kh, int kw,
               int SH, int SW, int PH, int PW, int Hout, int Wout, int act) {
   constexpr int WARPS_M = BM / WM, THREADS = WARPS_M * (BN / WN) * 32;
@@ -256,8 +260,8 @@ conv_dense_tc(const bf16* __restrict__ x, const bf16* __restrict__ w,
   static_assert(BSEG % 8 == 0 && ASEG % 8 == 0 && ACP >= 1, "tile split");
   static_assert(BSEG <= 16, "the 3x3 gather's bounds bits fit 16 k");
   static_assert(NT % 2 == 0, "B fragments come in pairs of n-tiles");
-  __shared__ __align__(128) bf16 As[2][BM * BK];
-  __shared__ __align__(128) bf16 Bs[2][BN * BK];
+  __shared__ __align__(128) E As[2][BM * BK];
+  __shared__ __align__(128) E Bs[2][BN * BK];
   const int KH = KH_ > 0 ? KH_ : kh;
   const int KW = KW_ > 0 ? KW_ : kw;
   const int KHW = KH * KW, K = Cin * KHW, HW = H * W;
@@ -431,8 +435,8 @@ conv_dense_tc(const bf16* __restrict__ x, const bf16* __restrict__ w,
         tc_frag_b<BK>(Bs[st] + wn * BK, j, kk, lane, bb);
 #pragma unroll
         for (int i = 0; i < MT; ++i) {
-          tc_mma(acc[i][j], af[i], bb[0], bb[1]);
-          tc_mma(acc[i][j + 1], af[i], bb[2], bb[3]);
+          tc_mma<E>(acc[i][j], af[i], bb[0], bb[1]);
+          tc_mma<E>(acc[i][j + 1], af[i], bb[2], bb[3]);
         }
       }
     }
@@ -467,13 +471,13 @@ conv_dense_tc(const bf16* __restrict__ x, const bf16* __restrict__ w,
         const float y1 = epilogue(acc[i][j][2 * r + 1], sc, sh, act);
         if (pairs) {
           *reinterpret_cast<uint32_t*>(out + col[j] + co * P) =
-              tc_pack(y0, y1);
+              tc_pack<E>(y0, y1);
         } else {
-          out[col[j] + co * P] = __float2bfloat16(y0);
+          out[col[j] + co * P] = from_f<E>(y0);
           const int nn = n0 + wn + 8 * j + 2 * t + 1;
           if (nn < N) {
             const int b = nn / P, p = nn - b * P;
-            out[b * Cout * P + p + co * P] = __float2bfloat16(y1);
+            out[b * Cout * P + p + co * P] = from_f<E>(y1);
           }
         }
       }
@@ -493,9 +497,9 @@ conv_dense_tc(const bf16* __restrict__ x, const bf16* __restrict__ w,
 // the gathers' latency: 64 x 64 holds 4 (<= 128 registers), 128 x 64
 // and 128 x 32 hold 3 (<= 170), 128 x 128 holds 2 (<= 128), with no
 // spill.
-template <int KH_, int KW_>
-static void launch_tc(const bf16* x, const bf16* w, const float* sc,
-                      const float* sh, bf16* out, int B, int Cin, int H,
+template <int KH_, int KW_, typename E>
+static void launch_tc(const E* x, const E* w, const float* sc,
+                      const float* sh, E* out, int B, int Cin, int H,
                       int W, int Cout, int kh, int kw, int SH, int SW,
                       int PH, int PW, int Hout, int Wout, int act,
                       cudaStream_t stream) {
@@ -507,19 +511,19 @@ static void launch_tc(const bf16* x, const bf16* w, const float* sc,
 #define CT_ARGS x, w, sc, sh, out, B, Cin, H, W, Cout, kh, kw, SH, SW, PH, \
                 PW, Hout, Wout, act
   if (!a16)
-    conv_dense_tc<64, 64, 32, 32, KH_, KW_, 32, false, 4>
+    conv_dense_tc<E, 64, 64, 32, 32, KH_, KW_, 32, false, 4>
         <<<blocks(64, 64), 128, 0, stream>>>(CT_ARGS);
   else if (Cout < 128)
-    conv_dense_tc<64, 64, 32, 32, KH_, KW_, 32, true, 4>
+    conv_dense_tc<E, 64, 64, 32, 32, KH_, KW_, 32, true, 4>
         <<<blocks(64, 64), 128, 0, stream>>>(CT_ARGS);
   else if (blocks(128, 128) >= 2 * 132)
-    conv_dense_tc<128, 128, 64, 32, KH_, KW_, 32, true, 2>
+    conv_dense_tc<E, 128, 128, 64, 32, KH_, KW_, 32, true, 2>
         <<<blocks(128, 128), 256, 0, stream>>>(CT_ARGS);
   else if (blocks(128, 64) >= 2 * 132)
-    conv_dense_tc<128, 64, 64, 32, KH_, KW_, 32, true, 3>
+    conv_dense_tc<E, 128, 64, 64, 32, KH_, KW_, 32, true, 3>
         <<<blocks(128, 64), 128, 0, stream>>>(CT_ARGS);
   else
-    conv_dense_tc<128, 32, 32, 32, KH_, KW_, 64, true, 3>
+    conv_dense_tc<E, 128, 32, 32, 32, KH_, KW_, 64, true, 3>
         <<<blocks(128, 32), 128, 0, stream>>>(CT_ARGS);
 #undef CT_ARGS
 }
@@ -539,7 +543,7 @@ static void launch_one(const T* x, const T* w, const float* sc,
         Wout, act);
     return;
   }
-  if constexpr (sizeof(T) == 2) {      // bf16: the tensor cores
+  if constexpr (sizeof(T) == 2) {      // bf16 or f16: the tensor cores
     launch_tc<KH_, KW_>(x, w, sc, sh, out, B, Cin, H, W, Cout, kh, kw, SH,
                         SW, PH, PW, Hout, Wout, act, stream);
   } else {                             // f32: the CUDA-core oracle
@@ -574,8 +578,8 @@ static int launch(const void* x, const void* w, const void* sc,
 
 // x [B, Cin, H, W], out [B, Cout, Hout, Wout] contiguous in one dtype;
 // w [Cout, Cin, kh, kw] (dense) or [Cout == Cin, 1, kh, kw] (depthwise)
-// in that dtype; scale / shift [Cout] f32.  act: 0 none, 1 relu,
-// 2 relu6.  Symmetric padding (PH, PW).
+// in that dtype (f32, bf16 or f16); scale / shift [Cout] f32.  act: 0
+// none, 1 relu, 2 relu6.  Symmetric padding (PH, PW).
 extern "C" int conv_bn_act(const void* x, const void* w, const void* scale,
                            const void* shift, void* out, int B, int Cin,
                            int H, int W, int Cout, int kh, int kw, int SH,
@@ -586,6 +590,10 @@ extern "C" int conv_bn_act(const void* x, const void* w, const void* scale,
     return launch<__nv_bfloat16>(x, w, scale, shift, out, B, Cin, H, W,
                                  Cout, kh, kw, SH, SW, PH, PW, Hout, Wout,
                                  act, depthwise, s);
+  if (dtype == PT_F16)
+    return launch<__half>(x, w, scale, shift, out, B, Cin, H, W, Cout, kh,
+                          kw, SH, SW, PH, PW, Hout, Wout, act, depthwise, s);
+  if (dtype != PT_F32) return (int)cudaErrorInvalidValue;
   return launch<float>(x, w, scale, shift, out, B, Cin, H, W, Cout, kh, kw,
                        SH, SW, PH, PW, Hout, Wout, act, depthwise, s);
 }

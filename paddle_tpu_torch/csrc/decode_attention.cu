@@ -65,8 +65,8 @@ static int dispatch_rows(const void* q, const void* kc, const void* vc,
   return launch<T, CHP, 8>(q, kc, vc, pos, start, out, B, Hq, Hkv, S, D, scale, s);
 }
 
-// CHP: 16-byte chunks a row rounded up to a power of two; bf16 rows hold
-// 1 .. 32 chunks, f32 rows 2 .. 64, at head dims 8 .. 256.
+// CHP: 16-byte chunks a row rounded up to a power of two; bf16 and f16
+// rows hold 1 .. 32 chunks, f32 rows 2 .. 64, at head dims 8 .. 256.
 template <typename T>
 static int dispatch(const void* q, const void* kc, const void* vc,
                     const int* pos, const int* start, void* out, int B,
@@ -85,7 +85,7 @@ static int dispatch(const void* q, const void* kc, const void* vc,
 
 // q [B, Hq, D]; kcache/vcache [B, Hkv, S, D], 16-byte aligned; pos [B]
 // int32; start [B] int32 or null (valid keys start[b]..pos[b]); out [B,
-// Hq, D].
+// Hq, D]; all of one dtype, f32, bf16 or f16.
 extern "C" int decode_attention(const void* q, const void* kc, const void* vc,
                                 const void* pos, const void* start, void* out,
                                 int B, int Hq, int Hkv, int S, int D,
@@ -96,6 +96,10 @@ extern "C" int decode_attention(const void* q, const void* kc, const void* vc,
     return dispatch<__nv_bfloat16>(q, kc, vc, (const int*)pos,
                                    (const int*)start, out, B, Hq, Hkv, S, D,
                                    scale, s);
+  if (dtype == PT_F16)
+    return dispatch<__half>(q, kc, vc, (const int*)pos, (const int*)start,
+                            out, B, Hq, Hkv, S, D, scale, s);
+  if (dtype != PT_F32) return (int)cudaErrorInvalidValue;
   return dispatch<float>(q, kc, vc, (const int*)pos, (const int*)start, out,
                          B, Hq, Hkv, S, D, scale, s);
 }

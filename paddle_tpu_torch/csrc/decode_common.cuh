@@ -1,7 +1,8 @@
 // One-query-token attention over a KV sequence, shared by the paged
 // (paged_attention.cu) and dense (decode_attention.cu) decode kernels,
-// for both KV tiers: bf16 / f32 rows (the exact tier) and int8 codes
-// with one f32 scale per row (the quantized tier, paged only).
+// for both KV tiers: bf16 / f16 / f32 rows (the exact tier) and int8
+// codes with one f32 scale per row (the quantized tier, paged only; its
+// query and output bf16, f16 or f32).
 //
 // `decode_split` is bound by device memory: 4 flops per element read.
 // So the design moves bytes and keeps many of them in flight:
@@ -64,10 +65,11 @@ constexpr int DEC_STAGE_BYTES = 8192;   // K and V rows of one tile
 constexpr int DEC_Q8_STAGE_BYTES = 4096;  // int8 codes of K and V a tile
 constexpr int DEC_Q8_MIN_CTAS = 9;      // int8, one query row: CTAs an SM
 
-// Tile geometry for K / V elements of type T (bf16, f32, or int8 codes)
+// Tile geometry for K / V elements of type T (bf16, f16, f32, or int8
+// codes)
 // and CHP 16-byte chunks a row (D * sizeof(T) / 16 rounded up to a power
 // of two), which the copies move.  A lane reads RB bytes of a staged row
-// at once: 16 (8 bf16 or 4 f32 values), or 8 int8 codes, so that an int8
+// at once: 16 (8 bf16 or f16, or 4 f32 values), or 8 int8 codes, so that an int8
 // row's lane keeps as many f32 accumulators as an exact row's (16 codes
 // a lane would double them and halve the CTAs an SM holds).  A tile
 // holds DEC_STAGE_BYTES of K and V rows, or DEC_Q8_STAGE_BYTES of int8
@@ -158,7 +160,8 @@ __device__ __forceinline__ void dec_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// The 16 bytes of a staged row at p as f32: 8 bf16 or 4 f32 values.
+// The 16 bytes of a staged row at p as f32: 8 bf16, 8 f16 or 4 f32
+// values (each exact in f32).
 __device__ __forceinline__ void dec_unpack(const unsigned char* p,
                                            float* f, __nv_bfloat16) {
   const uint4 w = *reinterpret_cast<const uint4*>(p);
@@ -166,6 +169,18 @@ __device__ __forceinline__ void dec_unpack(const unsigned char* p,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float2 x = __bfloat1622float2(h[i]);
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
+  }
+}
+
+__device__ __forceinline__ void dec_unpack(const unsigned char* p,
+                                           float* f, __half) {
+  const uint4 w = *reinterpret_cast<const uint4*>(p);
+  const __half2* h = reinterpret_cast<const __half2*>(&w);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __half22float2(h[i]);
     f[2 * i] = x.x;
     f[2 * i + 1] = x.y;
   }
@@ -594,7 +609,7 @@ static int decode_cluster_launch(void (*kern)(P...), dim3 grid, size_t smem,
 }
 
 // 16-byte chunks a row, rounded up to a power of two (the kernels'
-// CHP): 1 .. 32 for bf16, 2 .. 64 for f32 at head dims 8 .. 256, 1 .. 16
+// CHP): 1 .. 32 for bf16 and f16, 2 .. 64 for f32 at head dims 8 .. 256, 1 .. 16
 // for int8 codes at head dims 16 .. 256.
 static inline int decode_chunks_pow2(int D, int elem) {
   const int ch = D * elem / 16;

@@ -470,8 +470,8 @@ static int dispatch(const void* q, const void* k, const void* v,
 }
 
 // ------------------------------------------------------------ bf16, f16
-// The tensor-core passes (b) and (c): every bf16 mode and the dense f16
-// modes (causal / full, with or without a bias) run here, on 16-bit
+// The tensor-core passes (b) and (c): every bf16 and every f16 mode
+// (dense causal / full, biased, packed, head-major) runs here, on 16-bit
 // elements E: the f16 passes round P and dS to f16 where the bf16 ones
 // round them to bf16.
 
@@ -913,7 +913,7 @@ static int launch_tc(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// bf16 (any mode) or f16 (the dense modes), E: the tile width DT is the
+// bf16 or f16 (any mode), E: the tile width DT is the
 // head dim rounded up to 64, 128 or 256.
 template <typename E, bool BIAS, bool PACKED, bool HM = false>
 static int dispatch_tc(const void* q, const void* k, const void* v,
@@ -987,7 +987,11 @@ extern "C" int varlen_bwd(const void* q, const void* k, const void* v,
     return dispatch_tc<bf16, false, true>(
         q, k, v, nullptr, o, (const float*)lse, dout, (float*)delta, dq, dk,
         dv, 1, Tq, Tk, H, H, D, 0, 0, 0, causal, scale, cq, ck, nseg, s);
-  if (dtype != PT_F32) return (int)cudaErrorInvalidValue;  // no f16 here
+  if (dtype == PT_F16)
+    return dispatch_tc<f16, false, true>(
+        q, k, v, nullptr, o, (const float*)lse, dout, (float*)delta, dq, dk,
+        dv, 1, Tq, Tk, H, H, D, 0, 0, 0, causal, scale, cq, ck, nseg, s);
+  if (dtype != PT_F32) return (int)cudaErrorInvalidValue;
   return dispatch<float, true>(q, k, v, nullptr, o, (const float*)lse, dout,
                                (float*)delta, dq, dk, dv, 1, Tq, Tk, H, H, D,
                                0, 0, 0, causal, scale, cq, ck, nseg, s);
@@ -1007,7 +1011,12 @@ extern "C" int flash_bwd_hm(const void* q, const void* k, const void* v,
         q, k, v, nullptr, o, (const float*)lse, dout, (float*)delta, dq, dk,
         dv, B, Sq, Sk, Hq, Hkv, D, 0, 0, 0, causal, scale, nullptr, nullptr,
         0, s);
-  if (dtype != PT_F32) return (int)cudaErrorInvalidValue;  // no f16 here
+  if (dtype == PT_F16)
+    return dispatch_tc<f16, false, false, true>(
+        q, k, v, nullptr, o, (const float*)lse, dout, (float*)delta, dq, dk,
+        dv, B, Sq, Sk, Hq, Hkv, D, 0, 0, 0, causal, scale, nullptr, nullptr,
+        0, s);
+  if (dtype != PT_F32) return (int)cudaErrorInvalidValue;
   return dispatch<float, false, true>(
       q, k, v, nullptr, o, (const float*)lse, dout, (float*)delta, dq, dk,
       dv, B, Sq, Sk, Hq, Hkv, D, 0, 0, 0, causal, scale, nullptr, nullptr, 0,

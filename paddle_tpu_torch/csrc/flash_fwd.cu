@@ -42,12 +42,10 @@
 // wgmma on 64-row warpgroup tiles fed by TMA from a producer warp (warp
 // specialisation), which mma.sync cannot reach.
 //
-// f16, in the dense modes (causal / full, with or without a bias): the
-// same tensor-core core instantiated on f16 elements (`E`): mma.sync
+// f16, in every mode (dense causal / full, biased, packed, head-major):
+// the same tensor-core core instantiated on f16 elements (`E`): mma.sync
 // m16n8k16 on f16 operands with f32 accumulators, P rounded to f16 where
-// the bf16 kernel rounds it to bf16, the f32 LSE kept.  The packed and
-// head-major modes take no f16 (their entries refuse it; the wrappers
-// raise TypeError naming the mode).
+// the bf16 kernel rounds it to bf16, the f32 LSE kept.
 //
 // f32 keeps the first version's CUDA-core kernel (`flash_fwd_kernel`),
 // the port's oracle path (TF32 tensor cores would keep ~3 digits): one
@@ -276,7 +274,7 @@ static int dispatch(const void* q, const void* k, const void* v,
 }
 
 // ------------------------------------------------------------ bf16, f16
-// The tensor-core core: every bf16 mode and the dense f16 modes run here.
+// The tensor-core core: every bf16 and every f16 mode runs here.
 
 // MASKS: the mode reads a bias or segment bounds per element.
 template <int DT, bool MASKS>
@@ -572,7 +570,7 @@ static int launch_tc(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// bf16 (any mode) or f16 (the dense modes), E: the tile width DT is the
+// bf16 or f16 (any mode), E: the tile width DT is the
 // head dim rounded up to 64, 128 or 256.
 template <typename E, bool BIAS, bool PACKED, bool HM = false>
 static int dispatch_tc(const void* q, const void* k, const void* v,
@@ -634,7 +632,11 @@ extern "C" int varlen_fwd(const void* q, const void* k, const void* v,
     return dispatch_tc<bf16, false, true>(q, k, v, nullptr, o, (float*)lse,
                                           1, Tq, Tk, H, H, D, 0, 0, 0, causal,
                                           scale, cq, ck, nseg, s);
-  if (dtype != PT_F32) return (int)cudaErrorInvalidValue;  // no f16 here
+  if (dtype == PT_F16)
+    return dispatch_tc<f16, false, true>(q, k, v, nullptr, o, (float*)lse,
+                                         1, Tq, Tk, H, H, D, 0, 0, 0, causal,
+                                         scale, cq, ck, nseg, s);
+  if (dtype != PT_F32) return (int)cudaErrorInvalidValue;
   return dispatch<float, true>(q, k, v, nullptr, o, (float*)lse, 1, Tq, Tk,
                                H, H, D, 0, 0, 0, causal, scale, cq, ck, nseg,
                                s);
@@ -651,7 +653,11 @@ extern "C" int flash_fwd_hm(const void* q, const void* k, const void* v,
     return dispatch_tc<bf16, false, false, true>(
         q, k, v, nullptr, o, (float*)lse, B, Sq, Sk, Hq, Hkv, D, 0, 0, 0,
         causal, scale, nullptr, nullptr, 0, s);
-  if (dtype != PT_F32) return (int)cudaErrorInvalidValue;  // no f16 here
+  if (dtype == PT_F16)
+    return dispatch_tc<f16, false, false, true>(
+        q, k, v, nullptr, o, (float*)lse, B, Sq, Sk, Hq, Hkv, D, 0, 0, 0,
+        causal, scale, nullptr, nullptr, 0, s);
+  if (dtype != PT_F32) return (int)cudaErrorInvalidValue;
   return dispatch<float, false, true>(q, k, v, nullptr, o, (float*)lse, B,
                                       Sq, Sk, Hq, Hkv, D, 0, 0, 0, causal,
                                       scale, nullptr, nullptr, 0, s);

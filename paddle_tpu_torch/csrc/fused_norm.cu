@@ -47,7 +47,9 @@
 // accesses; the first pass keeps the rounded z as f32 in dynamic shared
 // memory ([d] floats per block) for the centred moment and the output.
 //
-// Both: any row count; w and b are f32 or x's dtype.  Multiplies and adds
+// Both: any row count; x is f32, bf16 or f16 (f16 moves as bf16 does:
+// 8 values a 16-byte vector, f32 sums, one rounding of each add and of
+// y to f16); w and b are f32 or x's dtype.  Multiplies and adds
 // are __fmul_rn / __fadd_rn in the plain version's order, so no FMA
 // contraction parts the kernels from it; only the order of the row sums
 // differs.
@@ -137,7 +139,7 @@ static int launch(const void* x, const void* w, const void* b,
 // A vector is held as 32-bit words: 4 for 16 bytes of x's dtype, and
 // 2, 4 or 8 for the w / b values beside them (8, 16 or 32 bytes, the 32
 // as two 16-byte loads).  Value i of a word array of E (f32: one a word;
-// bf16: two, value 2k in the low half of word k):
+// bf16 or f16: two, value 2k in the low half of word k):
 template <typename E>
 __device__ __forceinline__ float fv_get(const uint32_t* u, int i);
 template <>
@@ -150,6 +152,12 @@ __device__ __forceinline__ float fv_get<__nv_bfloat16>(const uint32_t* u,
   const uint32_t w = u[i >> 1];
   return __uint_as_float((i & 1) ? (w & 0xffff0000u) : (w << 16));
 }
+template <>
+__device__ __forceinline__ float fv_get<__half>(const uint32_t* u, int i) {
+  const uint32_t w = u[i >> 1];
+  return __half2float(__ushort_as_half(
+      (unsigned short)((i & 1) ? (w >> 16) : (w & 0xffffu))));
+}
 // ... and set to f rounded to E (as from_f<E>)
 template <typename E>
 __device__ __forceinline__ void fv_set(uint32_t* u, int i, float f);
@@ -161,6 +169,12 @@ template <>
 __device__ __forceinline__ void fv_set<__nv_bfloat16>(uint32_t* u, int i,
                                                       float f) {
   const uint32_t h = __bfloat16_as_ushort(__float2bfloat16(f));
+  uint32_t& w = u[i >> 1];
+  w = (i & 1) ? ((w & 0xffffu) | (h << 16)) : ((w & 0xffff0000u) | h);
+}
+template <>
+__device__ __forceinline__ void fv_set<__half>(uint32_t* u, int i, float f) {
+  const uint32_t h = __half_as_ushort(__float2half(f));
   uint32_t& w = u[i >> 1];
   w = (i & 1) ? ((w & 0xffffu) | (h << 16)) : ((w & 0xffff0000u) | h);
 }
@@ -429,6 +443,14 @@ extern "C" int fused_norm(const void* x, const void* w, const void* b,
                           long long rows, int d, float eps, int rms,
                           int dtype, int wdtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == PT_F16) {
+    if (wdtype == PT_F16)
+      return dispatch<__half, __half>(x, w, b, bias, res, y, z, rows, d, eps,
+                                      rms, s);
+    if (wdtype != PT_F32) return (int)cudaErrorInvalidValue;
+    return dispatch<__half, float>(x, w, b, bias, res, y, z, rows, d, eps,
+                                   rms, s);
+  }
   if (dtype == PT_BF16) {
     if (wdtype == PT_BF16)
       return dispatch<__nv_bfloat16, __nv_bfloat16>(x, w, b, bias, res, y, z,

@@ -93,8 +93,8 @@ static int dispatch_rows(const void* q, const void* kp, const void* vp,
   return launch<T, CHP, 8>(q, kp, vp, table, pos, out, B, Hq, Hkv, PS, P, D, scale, s);
 }
 
-// CHP: 16-byte chunks a row rounded up to a power of two; bf16 rows hold
-// 1 .. 32 chunks, f32 rows 2 .. 64, at head dims 8 .. 256.
+// CHP: 16-byte chunks a row rounded up to a power of two; bf16 and f16
+// rows hold 1 .. 32 chunks, f32 rows 2 .. 64, at head dims 8 .. 256.
 template <typename T>
 static int dispatch(const void* q, const void* kp, const void* vp,
                     const int* table, const int* pos, void* out, int B,
@@ -113,7 +113,7 @@ static int dispatch(const void* q, const void* kp, const void* vp,
 
 // q [B, Hq, D]; k_pages/v_pages [num_pages, Hkv, PS, D], 16-byte
 // aligned; table [B, P] int32; pos [B] int32 (valid keys 0..pos[b]); out
-// [B, Hq, D].
+// [B, Hq, D]; q, pools and out of one dtype, f32, bf16 or f16.
 extern "C" int paged_attention(const void* q, const void* kp, const void* vp,
                                const void* table, const void* pos, void* out,
                                int B, int Hq, int Hkv, int PS, int P, int D,
@@ -124,6 +124,10 @@ extern "C" int paged_attention(const void* q, const void* kp, const void* vp,
     return dispatch<__nv_bfloat16>(q, kp, vp, (const int*)table,
                                    (const int*)pos, out, B, Hq, Hkv, PS, P, D,
                                    scale, s);
+  if (dtype == PT_F16)
+    return dispatch<__half>(q, kp, vp, (const int*)table, (const int*)pos,
+                            out, B, Hq, Hkv, PS, P, D, scale, s);
+  if (dtype != PT_F32) return (int)cudaErrorInvalidValue;
   return dispatch<float>(q, kp, vp, (const int*)table, (const int*)pos, out,
                          B, Hq, Hkv, PS, P, D, scale, s);
 }
@@ -200,7 +204,7 @@ static int dispatch_int8(const void* q, const void* kp, const void* vp,
   }
 }
 
-// q [B, Hq, D] (f32 or bf16); k_pages / v_pages int8 [num_pages, Hkv, PS,
+// q [B, Hq, D] (f32, bf16 or f16); k_pages / v_pages int8 [num_pages, Hkv, PS,
 // D], D % 16 == 0 and <= 256, 16-byte aligned; k_scales / v_scales f32
 // [num_pages, Hkv, PS]; table [B, P] int32; pos [B] int32; out [B, Hq, D]
 // in q's dtype.  The scales move four rows a 16-byte copy when four
@@ -220,6 +224,12 @@ extern "C" int paged_attention_int8(const void* q, const void* kp,
                                         (const float*)vs, (const int*)table,
                                         (const int*)pos, out, B, Hq, Hkv, PS,
                                         P, D, scale, v16, s);
+  if (dtype == PT_F16)
+    return dispatch_int8<__half>(q, kp, vp, (const float*)ks,
+                                 (const float*)vs, (const int*)table,
+                                 (const int*)pos, out, B, Hq, Hkv, PS, P, D,
+                                 scale, v16, s);
+  if (dtype != PT_F32) return (int)cudaErrorInvalidValue;
   return dispatch_int8<float>(q, kp, vp, (const float*)ks, (const float*)vs,
                               (const int*)table, (const int*)pos, out, B, Hq,
                               Hkv, PS, P, D, scale, v16, s);

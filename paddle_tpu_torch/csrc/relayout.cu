@@ -19,7 +19,8 @@
 // coalesced and no shared-memory tile is needed.  The grid's y index is
 // the (batch, head) pair, its x index walks that head's S * (row vectors).
 // The copy does not look at the values, so one kernel per unit width
-// serves bf16 and f32 alike.  CUDA rather than Triton: this is a strided
+// serves f32, bf16 and f16 alike (a 16-bit row moves as a bf16 row does,
+// with no conversion).  CUDA rather than Triton: this is a strided
 // copy that Triton would serve as well, but the port builds every kernel
 // through the one nvcc -> C interface -> ctypes route.
 #include <cuda_runtime.h>

@@ -30,7 +30,9 @@
 // rounded one by one (`__fmul_rn` / `__fadd_rn`, which nvcc never
 // contracts into an FMA) in the plain version's order, so the kernel
 // equals it bit for bit, whichever block computes an element, and a
-// bf16 output cannot land one ulp away.  x1 and x2 are read through
+// bf16 or f16 output cannot land one ulp away.  f32, bf16 and f16
+// elements (f16: the bf16 code on __half, 8 values a 16-byte load; the
+// same f32 math and one rounding to f16).  x1 and x2 are read through
 // their batch, token and head strides, so the q and k views of the
 // fused qkv projection need no copy; the outputs are contiguous [B, S,
 // H1, D] and [B, S, H2, D].
@@ -168,7 +170,7 @@ static int launch(RopeIn<T> a, RopeIn<T> k, const void* cs, const void* sn,
 
 // x1 [B, S, H1, D] and, when H2 > 0, x2 [B, S, H2, D], each read through
 // its element strides (batch, token, head; unit last stride); cos / sin
-// [B or 1, S, D] contiguous in their dtype, batch stride spb (0 when
+// [B or 1, S, D] contiguous in their dtype (f32, bf16 or f16, x's), batch stride spb (0 when
 // broadcast); out1 [B, S, H1, D] and out2 [B, S, H2, D] contiguous.  vec:
 // 1, or 16 / sizeof(T) for 16-byte loads (neox only), for both tensors.
 extern "C" int rope(const void* x1, const void* x2, const void* cs,
@@ -184,6 +186,13 @@ extern "C" int rope(const void* x1, const void* x2, const void* cs,
                      {(const T*)x2, (T*)out2, s2b, s2s, s2h, H2}, cs, sn, B,
                      S, D, spb, adjoint, interleaved, vec, st);
   }
+  if (dtype == PT_F16) {
+    using T = __half;
+    return launch<T>({(const T*)x1, (T*)out1, s1b, s1s, s1h, H1},
+                     {(const T*)x2, (T*)out2, s2b, s2s, s2h, H2}, cs, sn, B,
+                     S, D, spb, adjoint, interleaved, vec, st);
+  }
+  if (dtype != PT_F32) return (int)cudaErrorInvalidValue;
   return launch<float>({(const float*)x1, (float*)out1, s1b, s1s, s1h, H1},
                        {(const float*)x2, (float*)out2, s2b, s2s, s2h, H2},
                        cs, sn, B, S, D, spb, adjoint, interleaved, vec, st);

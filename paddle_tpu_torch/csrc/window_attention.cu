@@ -63,6 +63,12 @@
 // (the JAX kernel keeps it f32), as in the flash kernels and the window
 // backward: the output moves by up to ~2^-9 of its size before its own
 // rounding to bf16.
+//
+// f16 takes the same two kernels at the same gate: the tile on f16
+// operands (`window_attention_tc<DT, f16>`: tc_mma<f16>, P and the
+// output rounded to f16 where bf16 rounds to bf16; f16 keeps 11 bits, so
+// P's rounding moves the output by up to ~2^-12 of its size), and the
+// CUDA-core kernel for the windows the tile cannot take.
 #include "flash_tc.cuh"
 
 #define WA_THREADS 128
@@ -182,16 +188,16 @@ static int launch(const void* qkv, const void* bias, const void* mask,
 // bf16 window forward on the tensor cores (see the note at the top).
 // grid (heads * groups, B); windows [grp * wpb, min(nwin, (grp + 1) *
 // wpb)) of batch b for head h.
-template <int DT>
+template <int DT, typename E>
 __global__ void __launch_bounds__(TC_THREADS, DT <= 32 ? 4 : 3)
-window_attention_tc(const bf16* __restrict__ qkv,
+window_attention_tc(const E* __restrict__ qkv,
                     const float* __restrict__ bias,
-                    const float* __restrict__ mask, bf16* __restrict__ out,
+                    const float* __restrict__ mask, E* __restrict__ out,
                     int H, int W, int C, int heads, int hd, int ws,
                     int shift, float scale, int wpb) {
   constexpr int NC = DT / 8, KS = DT / 16, ND = DT / 8, TILE = WF_T * DT;
   extern __shared__ __align__(128) unsigned char wf_smem[];
-  bf16* in = reinterpret_cast<bf16*>(wf_smem);  // [2][q, k, v][64][DT]
+  E* in = reinterpret_cast<E*>(wf_smem);  // [2][q, k, v][64][DT]
   float* Bsm = reinterpret_cast<float*>(in + 6 * TILE);  // [P][P] bias
   float* Ms = Bsm + ws * ws * ws * ws;                   // [2][P][P] masks
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -219,13 +225,13 @@ window_attention_tc(const bf16* __restrict__ qkv,
     return img + (long long)y * W + x;
   };
   auto load_win = [&](int win, int st) {
-    bf16* base = in + st * 3 * TILE;
+    E* base = in + st * 3 * TILE;
     const int c = tid % NC;
     if (c >= hc) return;
     for (int r = tid / NC; r < WF_T; r += TC_THREADS / NC) {
       const bool ok = r < P;
       const long long pix = ok ? pixel(win, r) : 0;
-      const bf16* src = qkv + pix * row3 + h * hd + c * 8;
+      const E* src = qkv + pix * row3 + h * hd + c * 8;
       const int at = tc_swz<DT>(r, c);
       tc_cp16(tc_smem(base + at), ok ? src : qkv, ok);
       tc_cp16(tc_smem(base + TILE + at), ok ? src + C : qkv, ok);
@@ -256,9 +262,9 @@ window_attention_tc(const bf16* __restrict__ qkv,
       tc_wait<0>();
     }
     __syncthreads();
-    bf16* Qs = in + st * 3 * TILE;
-    const bf16* Ks = Qs + TILE;
-    const bf16* Vs = Ks + TILE;
+    E* Qs = in + st * 3 * TILE;
+    const E* Ks = Qs + TILE;
+    const E* Vs = Ks + TILE;
 
     // 2. S = q k^T for the warp's 16 rows
     float s[8][4];
@@ -274,8 +280,8 @@ window_attention_tc(const bf16* __restrict__ qkv,
       for (int j = 0; j < 8; j += 2) {
         uint32_t bb[4];
         tc_frag_b<DT>(Ks, j, kk, lane, bb);
-        tc_mma(s[j], aq, bb[0], bb[1]);
-        tc_mma(s[j + 1], aq, bb[2], bb[3]);
+        tc_mma<E>(s[j], aq, bb[0], bb[1]);
+        tc_mma<E>(s[j + 1], aq, bb[2], bb[3]);
       }
     }
 
@@ -327,13 +333,13 @@ window_attention_tc(const bf16* __restrict__ qkv,
 #pragma unroll
     for (int kk = 0; kk < WF_T / 16; ++kk) {
       uint32_t a[4];
-      tc_acc_to_a(s[2 * kk], s[2 * kk + 1], a);
+      tc_acc_to_a<E>(s[2 * kk], s[2 * kk + 1], a);
 #pragma unroll
       for (int n = 0; n < ND; n += 2) {
         uint32_t bb[4];
         tc_frag_bt<DT>(Vs, n, kk, lane, bb);
-        tc_mma(o[n], a, bb[0], bb[1]);
-        tc_mma(o[n + 1], a, bb[2], bb[3]);
+        tc_mma<E>(o[n], a, bb[0], bb[1]);
+        tc_mma<E>(o[n + 1], a, bb[2], bb[3]);
       }
     }
 
@@ -364,17 +370,17 @@ static int wf_groups(int B, int H, int W, int heads, int ws) {
   return (nwin + wpb - 1) / wpb;
 }
 
-template <int DT>
+template <int DT, typename E>
 static int launch_tc(const void* qkv, const void* bias, const void* mask,
                      void* out, int B, int H, int W, int C, int heads,
                      int ws, int shift, float scale, cudaStream_t stream) {
   const int nwin = (H / ws) * (W / ws);
   const int groups = wf_groups(B, H, W, heads, ws);
   const int wpb = (nwin + groups - 1) / groups;
-  const size_t smem = (size_t)6 * WF_T * DT * sizeof(bf16) +
+  const size_t smem = (size_t)6 * WF_T * DT * sizeof(E) +
                       (mask ? 3 : 1) * (size_t)ws * ws * ws * ws *
                           sizeof(float);
-  auto kern = window_attention_tc<DT>;
+  auto kern = window_attention_tc<DT, E>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -382,35 +388,47 @@ static int launch_tc(const void* qkv, const void* bias, const void* mask,
   }
   const dim3 grid(heads * groups, B);
   kern<<<grid, TC_THREADS, smem, stream>>>(
-      (const bf16*)qkv, (const float*)bias, (const float*)mask, (bf16*)out,
-      H, W, C, heads, C / heads, ws, shift, scale, wpb);
+      (const E*)qkv, (const float*)bias, (const float*)mask, (E*)out, H, W,
+      C, heads, C / heads, ws, shift, scale, wpb);
   return (int)cudaGetLastError();
+}
+
+// bf16 or f16 elements (E): windows of P <= 64 tokens at hd <= 64, hd % 8
+// == 0, with 16-byte-aligned qkv and out, on the tensor-core tile; other
+// shapes on the CUDA-core kernel.
+template <typename E>
+static int dispatch16(const void* qkv, const void* bias, const void* mask,
+                      void* out, int B, int H, int W, int C, int heads,
+                      int ws, int shift, float scale, cudaStream_t s) {
+  const int hd = C / heads;
+  if (ws * ws <= WF_T && hd <= 64 && hd % 8 == 0 && tc_aligned(qkv) &&
+      tc_aligned(out)) {
+    const int dt = hd <= 16 ? 16 : hd <= 32 ? 32 : 64;
+#define WF_TC(D) launch_tc<D, E>(qkv, bias, mask, out, B, H, W, C, heads, \
+                                 ws, shift, scale, s)
+    return dt == 16 ? WF_TC(16) : dt == 32 ? WF_TC(32) : WF_TC(64);
+#undef WF_TC
+  }
+  return launch<E>(qkv, bias, mask, out, B, H, W, C, heads, ws, shift, scale,
+                   s);
 }
 
 // qkv [B, H, W, 3C] contiguous (channels [q | k | v], each [heads, hd]);
 // bias [heads, P, P] f32; mask [nW, P, P] f32 or null; out [B, H, W, C]
-// in qkv's dtype.  H and W are multiples of ws; shift >= 0.  bf16 windows
-// of P <= 64 tokens at hd <= 64, hd % 8 == 0, with 16-byte-aligned qkv
-// and out run on the tensor cores; other bf16 shapes and f32 on the
-// CUDA-core kernel (P <= 256).
+// in qkv's dtype.  H and W are multiples of ws; shift >= 0.  bf16 and
+// f16 take `dispatch16`; f32 the CUDA-core kernel (P <= 256).
 extern "C" int window_attention(const void* qkv, const void* bias,
                                 const void* mask, void* out, int B, int H,
                                 int W, int C, int heads, int ws, int shift,
                                 float scale, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == PT_BF16) {
-    const int hd = C / heads;
-    if (ws * ws <= WF_T && hd <= 64 && hd % 8 == 0 && tc_aligned(qkv) &&
-        tc_aligned(out)) {
-      const int dt = hd <= 16 ? 16 : hd <= 32 ? 32 : 64;
-#define WF_TC(D) launch_tc<D>(qkv, bias, mask, out, B, H, W, C, heads, ws, \
-                              shift, scale, s)
-      return dt == 16 ? WF_TC(16) : dt == 32 ? WF_TC(32) : WF_TC(64);
-#undef WF_TC
-    }
-    return launch<__nv_bfloat16>(qkv, bias, mask, out, B, H, W, C, heads, ws,
-                                 shift, scale, s);
-  }
+  if (dtype == PT_BF16)
+    return dispatch16<bf16>(qkv, bias, mask, out, B, H, W, C, heads, ws,
+                            shift, scale, s);
+  if (dtype == PT_F16)
+    return dispatch16<f16>(qkv, bias, mask, out, B, H, W, C, heads, ws,
+                           shift, scale, s);
+  if (dtype != PT_F32) return (int)cudaErrorInvalidValue;
   return launch<float>(qkv, bias, mask, out, B, H, W, C, heads, ws, shift,
                        scale, s);
 }

@@ -85,6 +85,10 @@
 //     keeps them f32); dbias sums the f32 dS;
 //   - registers: capped for 3 blocks an SM at DT <= 32 (<= 170), 2 at 64,
 //     with no spill; chip_smoke.py's [build] gate fails on a spill.
+// f16 runs the same tile on f16 operands (`window_attention_bwd_tc<DT,
+// f16>`), with the bf16 gate (P <= 64, hd <= 64, hd % 8 == 0) and the
+// bf16 window groups and dbias partials: P and dS are rounded to f16
+// where bf16 rounds them to bf16; dbias still sums the f32 dS.
 #include "flash_tc.cuh"
 
 #define WB_THREADS 256
@@ -256,21 +260,21 @@ static int launch(const void* qkv, const void* bias, const void* mask,
 // bf16 window backward on the tensor cores (see the note at the top).
 // grid (heads * groups, B); windows [grp * wpb, min(nwin, (grp + 1) *
 // wpb)) of batch b for head h.
-template <int DT>
+template <int DT, typename E>
 __global__ void __launch_bounds__(TC_THREADS, DT <= 32 ? 3 : 2)
-window_attention_bwd_tc(const bf16* __restrict__ qkv,
+window_attention_bwd_tc(const E* __restrict__ qkv,
                         const float* __restrict__ bias,
                         const float* __restrict__ mask,
-                        const bf16* __restrict__ g, bf16* __restrict__ dqkv,
+                        const E* __restrict__ g, E* __restrict__ dqkv,
                         float* __restrict__ dbias, int H, int W, int C,
                         int heads, int hd, int ws, int shift, float scale,
                         int groups, int wpb) {
   constexpr int NC = DT / 8, KS = DT / 16, ND = DT / 8, TILE = WB_T * DT;
   extern __shared__ __align__(128) unsigned char wb_smem[];
-  bf16* in = reinterpret_cast<bf16*>(wb_smem);  // [2][q, k, v, g][64][DT]
-  bf16* Ps = in + 8 * TILE;                     // [64][64]: P
-  bf16* dSs = Ps + WB_T * WB_T;                 // [64][64]: dS
-  bf16* outs = Ps;          // [dq, dk, dv][64][DT], once P and dS are read
+  E* in = reinterpret_cast<E*>(wb_smem);  // [2][q, k, v, g][64][DT]
+  E* Ps = in + 8 * TILE;                  // [64][64]: P
+  E* dSs = Ps + WB_T * WB_T;              // [64][64]: dS
+  E* outs = Ps;       // [dq, dk, dv][64][DT], once P and dS are read
   float* Bsm = reinterpret_cast<float*>(Ps + WB_PS(DT));  // [P][P] bias
   float* DBs = Bsm + ws * ws * ws * ws;         // [P][P] dbias partial
   float* Ms = DBs + ws * ws * ws * ws;          // [2][P][P] masks
@@ -303,13 +307,13 @@ window_attention_bwd_tc(const bf16* __restrict__ qkv,
     return img + (long long)y * W + x;
   };
   auto load_win = [&](int win, int st) {
-    bf16* base = in + st * 4 * TILE;
+    E* base = in + st * 4 * TILE;
     const int c = tid % NC;
     if (c >= hc) return;
     for (int r = tid / NC; r < WB_T; r += TC_THREADS / NC) {
       const bool ok = r < P;
       const long long pix = ok ? pixel(win, r) : 0;
-      const bf16* src = qkv + pix * row3 + h * hd + c * 8;
+      const E* src = qkv + pix * row3 + h * hd + c * 8;
       const int at = tc_swz<DT>(r, c);
       tc_cp16(tc_smem(base + at), ok ? src : qkv, ok);
       tc_cp16(tc_smem(base + TILE + at), ok ? src + C : qkv, ok);
@@ -343,10 +347,10 @@ window_attention_bwd_tc(const bf16* __restrict__ qkv,
       tc_wait<0>();
     }
     __syncthreads();
-    const bf16* Qs = in + st * 4 * TILE;
-    const bf16* Ks = Qs + TILE;
-    const bf16* Vs = Ks + TILE;
-    const bf16* Gs = Vs + TILE;
+    const E* Qs = in + st * 4 * TILE;
+    const E* Ks = Qs + TILE;
+    const E* Vs = Ks + TILE;
+    const E* Gs = Vs + TILE;
 
     // 2. S = q k^T, dP = g v^T for the warp's 16 rows
     float s[8][4], dp[8][4];
@@ -363,11 +367,11 @@ window_attention_bwd_tc(const bf16* __restrict__ qkv,
       for (int j = 0; j < 8; j += 2) {
         uint32_t bb[4];
         tc_frag_b<DT>(Ks, j, kk, lane, bb);
-        tc_mma(s[j], aq, bb[0], bb[1]);
-        tc_mma(s[j + 1], aq, bb[2], bb[3]);
+        tc_mma<E>(s[j], aq, bb[0], bb[1]);
+        tc_mma<E>(s[j + 1], aq, bb[2], bb[3]);
         tc_frag_b<DT>(Vs, j, kk, lane, bb);
-        tc_mma(dp[j], ag, bb[0], bb[1]);
-        tc_mma(dp[j + 1], ag, bb[2], bb[3]);
+        tc_mma<E>(dp[j], ag, bb[0], bb[1]);
+        tc_mma<E>(dp[j + 1], ag, bb[2], bb[3]);
       }
     }
 
@@ -437,13 +441,13 @@ window_attention_bwd_tc(const bf16* __restrict__ qkv,
 #pragma unroll
     for (int kk = 0; kk < WB_T / 16; ++kk) {
       uint32_t a[4];
-      tc_acc_to_a(dp[2 * kk], dp[2 * kk + 1], a);
+      tc_acc_to_a<E>(dp[2 * kk], dp[2 * kk + 1], a);
 #pragma unroll
       for (int n = 0; n < ND; n += 2) {
         uint32_t bb[4];
         tc_frag_bt<DT>(Ks, n, kk, lane, bb);
-        tc_mma(dq[n], a, bb[0], bb[1]);
-        tc_mma(dq[n + 1], a, bb[2], bb[3]);
+        tc_mma<E>(dq[n], a, bb[0], bb[1]);
+        tc_mma<E>(dq[n + 1], a, bb[2], bb[3]);
       }
     }
     // 4. P and dS to shared memory (dq stays in registers)
@@ -466,11 +470,11 @@ window_attention_bwd_tc(const bf16* __restrict__ qkv,
       for (int n = 0; n < ND; n += 2) {
         uint32_t bb[4];
         tc_frag_bt<DT>(Gs, n, kk, lane, bb);
-        tc_mma(dv[n], ap, bb[0], bb[1]);
-        tc_mma(dv[n + 1], ap, bb[2], bb[3]);
+        tc_mma<E>(dv[n], ap, bb[0], bb[1]);
+        tc_mma<E>(dv[n + 1], ap, bb[2], bb[3]);
         tc_frag_bt<DT>(Qs, n, kk, lane, bb);
-        tc_mma(dk[n], ad, bb[0], bb[1]);
-        tc_mma(dk[n + 1], ad, bb[2], bb[3]);
+        tc_mma<E>(dk[n], ad, bb[0], bb[1]);
+        tc_mma<E>(dk[n + 1], ad, bb[2], bb[3]);
       }
     }
     __syncthreads();   // P and dS are read: their space stages the outputs
@@ -497,11 +501,11 @@ window_attention_bwd_tc(const bf16* __restrict__ qkv,
   for (int i = tid; i < P * P; i += TC_THREADS) out[i] = DBs[i];
 }
 
-// Window groups per (batch, head) of the bf16 kernel: about 8 blocks per
-// SM (132 SMs), at least 4 windows a block; 1 for f32.
+// Window groups per (batch, head) of the bf16 / f16 kernel: about 8
+// blocks per SM (132 SMs), at least 4 windows a block; 1 for f32.
 static int wb_groups(int B, int H, int W, int heads, int ws, int dtype) {
   const int nwin = (H / ws) * (W / ws);
-  if (dtype != PT_BF16 || nwin <= 4) return 1;
+  if (dtype == PT_F32 || nwin <= 4) return 1;
   const long long pairs = (long long)B * heads;
   const long long want = (8 * 132 + pairs - 1) / pairs;
   const int groups = (int)(want < nwin ? want : nwin);
@@ -510,18 +514,19 @@ static int wb_groups(int B, int H, int W, int heads, int ws, int dtype) {
   return (nwin + wpb - 1) / wpb;
 }
 
-template <int DT>
+template <int DT, typename E>
 static int launch_tc(const void* qkv, const void* bias, const void* mask,
                      const void* g, void* dqkv, void* dbias, int B, int H,
                      int W, int C, int heads, int ws, int shift, float scale,
                      cudaStream_t stream) {
   const int nwin = (H / ws) * (W / ws);
-  const int groups = wb_groups(B, H, W, heads, ws, PT_BF16);
+  const int groups = wb_groups(B, H, W, heads, ws,
+                               tc_is_f16<E>::value ? PT_F16 : PT_BF16);
   const int wpb = (nwin + groups - 1) / groups;
-  const size_t smem = (size_t)(8 * WB_T * DT + WB_PS(DT)) * sizeof(bf16) +
+  const size_t smem = (size_t)(8 * WB_T * DT + WB_PS(DT)) * sizeof(E) +
                       (mask ? 4 : 2) * (size_t)ws * ws * ws * ws *
                           sizeof(float);
-  auto kern = window_attention_bwd_tc<DT>;
+  auto kern = window_attention_bwd_tc<DT, E>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -529,8 +534,8 @@ static int launch_tc(const void* qkv, const void* bias, const void* mask,
   }
   const dim3 grid(heads * groups, B);
   kern<<<grid, TC_THREADS, smem, stream>>>(
-      (const bf16*)qkv, (const float*)bias, (const float*)mask,
-      (const bf16*)g, (bf16*)dqkv, (float*)dbias, H, W, C, heads, C / heads,
+      (const E*)qkv, (const float*)bias, (const float*)mask, (const E*)g,
+      (E*)dqkv, (float*)dbias, H, W, C, heads, C / heads,
       ws, shift, scale, groups, wpb);
   return (int)cudaGetLastError();
 }
@@ -542,13 +547,30 @@ extern "C" int window_attention_bwd_groups(int B, int H, int W, int heads,
   return wb_groups(B, H, W, heads, ws, dtype);
 }
 
+// bf16 or f16 elements (E) on the tensor-core tile, which takes P <= 64,
+// hd <= 64 with hd % 8 == 0, and 16-byte aligned qkv, g and dqkv.
+template <typename E>
+static int dispatch16(const void* qkv, const void* bias, const void* mask,
+                      const void* g, void* dqkv, void* dbias, int B, int H,
+                      int W, int C, int heads, int ws, int shift, float scale,
+                      cudaStream_t s) {
+  const int hd = C / heads;
+  if (ws * ws > WB_T || hd > 64 || hd % 8 || !tc_aligned(qkv) ||
+      !tc_aligned(g) || !tc_aligned(dqkv))
+    return (int)cudaErrorInvalidValue;
+  const int dt = hd <= 16 ? 16 : hd <= 32 ? 32 : 64;
+#define WB_TC(D) launch_tc<D, E>(qkv, bias, mask, g, dqkv, dbias, B, H, W, \
+                                 C, heads, ws, shift, scale, s)
+  return dt == 16 ? WB_TC(16) : dt == 32 ? WB_TC(32) : WB_TC(64);
+#undef WB_TC
+}
+
 // qkv [B, H, W, 3C] contiguous (channels [q | k | v], each [heads, hd]);
 // bias [heads, P, P] f32; mask [nW, P, P] f32 or null; g [B, H, W, C]
 // in qkv's dtype; dqkv [B, H, W, 3C] in qkv's dtype; dbias [B * groups,
 // heads, P, P] f32, the partials (groups: window_attention_bwd_groups).
-// H and W are multiples of ws; shift >= 0.  bf16 runs on the tensor
-// cores and takes P <= 64, hd <= 64 with hd % 8 == 0, and 16-byte
-// aligned qkv, g and dqkv; f32 takes P <= 256.
+// H and W are multiples of ws; shift >= 0.  bf16 and f16 run on the
+// tensor cores (`dispatch16`); f32 takes P <= 256.
 extern "C" int window_attention_bwd(const void* qkv, const void* bias,
                                     const void* mask, const void* g,
                                     void* dqkv, void* dbias, int B, int H,
@@ -556,17 +578,13 @@ extern "C" int window_attention_bwd(const void* qkv, const void* bias,
                                     int shift, float scale, int dtype,
                                     void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == PT_BF16) {
-    const int hd = C / heads;
-    if (ws * ws > WB_T || hd > 64 || hd % 8 || !tc_aligned(qkv) ||
-        !tc_aligned(g) || !tc_aligned(dqkv))
-      return (int)cudaErrorInvalidValue;
-    const int dt = hd <= 16 ? 16 : hd <= 32 ? 32 : 64;
-#define WB_TC(D) launch_tc<D>(qkv, bias, mask, g, dqkv, dbias, B, H, W, C, \
-                              heads, ws, shift, scale, s)
-    return dt == 16 ? WB_TC(16) : dt == 32 ? WB_TC(32) : WB_TC(64);
-#undef WB_TC
-  }
+  if (dtype == PT_BF16)
+    return dispatch16<bf16>(qkv, bias, mask, g, dqkv, dbias, B, H, W, C,
+                            heads, ws, shift, scale, s);
+  if (dtype == PT_F16)
+    return dispatch16<f16>(qkv, bias, mask, g, dqkv, dbias, B, H, W, C,
+                           heads, ws, shift, scale, s);
+  if (dtype != PT_F32) return (int)cudaErrorInvalidValue;
   return launch<float>(qkv, bias, mask, g, dqkv, dbias, B, H, W, C, heads,
                        ws, shift, scale, s);
 }

@@ -167,8 +167,14 @@ def rotary_phases(head_dim, seq_len, position_ids=None,
 def rotate_qk(q, k, phases):
     """q [B, S, Hq, D] and k [B, S, Hkv, D] rotated (neox style) by the
     (cos, sin) of `rotary_phases`: one `RoPE` launch for both, forward
-    and backward."""
+    and backward.  The phases are cast to q's dtype first where they
+    differ, as `fused_rotary_position_embedding` casts them (JAX
+    :245-246): under `auto_cast` the forward's phases follow the f32
+    hidden state while q and k leave their projection in the AMP
+    dtype."""
     cos, sin = phases
+    if cos.dtype != q.dtype:
+        cos, sin = cos.to(q.dtype), sin.to(q.dtype)
     return RoPE.apply(q, cos, sin, False, k)
 
 

@@ -5,10 +5,10 @@ Counterpart of ``paddle_tpu/ops/pallas/conv_norm.py`` (`_conv_kernel`
 :82, launched by `_conv_pallas` :255, under the custom VJP
 `_conv_pallas_vjp` :285-315).  The kernel is ``csrc/conv_bn_act.cu``:
 an implicit-GEMM direct conv for dense weights (padding as bounds math,
-no padded copy of x; bf16 on the tensor cores, f32 on CUDA cores) and a
-per-channel loop for depthwise weights (``cin_g == 1 and cout ==
-cin``), both with the epilogue
-``act(acc * scale + shift)`` cast to x's dtype.  The JAX package's row
+no padded copy of x; bf16 and f16 on the tensor cores, f32 on CUDA
+cores) and a per-channel loop for depthwise weights (``cin_g == 1 and
+cout == cin``), both with the epilogue ``act(acc * scale + shift)`` cast
+to x's dtype.  The JAX package's row
 band, VMEM gate and autotune (`_pick_rows`, `conv_bn_act_available`)
 are TPU tiling and have no counterpart: the kernel takes any dense or
 depthwise shape.  As in JAX there is no backward kernel: `ConvBNAct`
@@ -31,7 +31,7 @@ REPLACES = ("paddle_tpu/ops/pallas/conv_norm.py:82 (_conv_kernel, via "
 launches = 0
 
 _ACTS = {None: 0, "relu": 1, "relu6": 2}
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _SIG = {"conv_bn_act": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 16
         + [ctypes.c_void_p]}
 
@@ -99,7 +99,7 @@ def conv_bn_act(x, w, scale, shift, stride=1, padding=0, act="relu"):
                          f"{x.device}")
     if x.dtype not in _DTYPES or w.dtype != x.dtype:
         raise TypeError(f"conv_bn_act: x {x.dtype} and w {w.dtype}; "
-                        "expected both float32 or both bfloat16")
+                        "expected both float32, bfloat16 or float16")
     for name, t in (("scale", scale), ("shift", shift)):
         if t.shape != (cout,) or t.dtype != torch.float32 \
                 or t.device != x.device:

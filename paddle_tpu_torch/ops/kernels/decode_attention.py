@@ -20,7 +20,7 @@ launches = 0
 
 _SIG = {"decode_attention": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]}
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def decode_attention_reference(q, kcache, vcache, pos, start=None):
@@ -62,8 +62,8 @@ def decode_attention(q, kcache, vcache, pos, start=None):
     if q.dtype not in _DTYPES or kcache.dtype != q.dtype \
             or vcache.dtype != q.dtype:
         raise TypeError(f"decode_attention: dtypes {q.dtype}/"
-                        f"{kcache.dtype}/{vcache.dtype}; expected float32 "
-                        "or bfloat16, all alike")
+                        f"{kcache.dtype}/{vcache.dtype}; expected float32, "
+                        "bfloat16 or float16, all alike")
     idx = [("pos", pos)] + ([("start", start)] if start is not None else [])
     for name, t in idx:
         if t.dtype != torch.int32 or t.shape != (b,):

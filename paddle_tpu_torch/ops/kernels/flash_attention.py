@@ -160,8 +160,7 @@ def flash_bwd_reference(q, k, v, out, lse, dout, bias=None, causal=False,
 def _check_qkv(fn, q, k, v, head_major=False):
     """What both kernels take: q [B,Sq,Hq,D] ([B,Hq,Sq,D] head-major),
     k/v [B,Sk,Hkv,D] with Hq % Hkv == 0, D % 8 == 0 and D <= 256, f32,
-    bf16 or f16 alike (f16 in the native modes, causal / full / biased,
-    only), contiguous, on q's CUDA device.  Returns (B, Sq, Sk, Hq, Hkv,
+    bf16 or f16 alike (every mode), contiguous, on q's CUDA device.  Returns (B, Sq, Sk, Hq, Hkv,
     D)."""
     if q.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {q.device}")
@@ -182,9 +181,6 @@ def _check_qkv(fn, q, k, v, head_major=False):
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{fn}: dtypes {q.dtype}/{k.dtype}/{v.dtype}; "
                         "expected float32, bfloat16 or float16, all alike")
-    if head_major and q.dtype == torch.float16:
-        raise TypeError(f"{fn}: the head-major mode (the kv layout tier) "
-                        "does not take float16")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"{fn}: {name} must be contiguous on "

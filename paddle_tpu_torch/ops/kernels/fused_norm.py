@@ -26,7 +26,7 @@ launches = 0
 _SIG = {"fused_norm": [ctypes.c_void_p] * 7
         + [ctypes.c_int64, ctypes.c_int, ctypes.c_float, ctypes.c_int,
            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _KINDS = ("rms", "ln")
 # the scalar kernel keeps a row of z as f32 in shared memory (227 KB a
 # block); the vector kernel takes the rows it can hold in registers
@@ -81,8 +81,8 @@ def _check(x, w, b, bias, residual, kind):
     xdt = x.dtype
     code = _DTYPES.get(xdt)
     if code is None:
-        raise TypeError(f"fused_norm: x dtype {xdt}; expected float32 "
-                        "or bfloat16")
+        raise TypeError(f"fused_norm: x dtype {xdt}; expected float32, "
+                        "bfloat16 or float16")
     shape = x.shape
     d = shape[-1] if shape else 0
     if not 1 <= d <= MAX_D:

@@ -3,9 +3,10 @@
 Counterpart of ``paddle_tpu/ops/pallas/paged_attention.py``
 (`_paged_kernel` :68, `paged_attention` :134,
 `paged_attention_reference` :217).  The kernels are in
-``csrc/paged_attention.cu``: `paged_attention` for bf16 / f32 pools (the
-exact tier) and `paged_attention_int8` for the quantized KV tier's int8
-pools with per-token, per-head f32 scale tables.  One wrapper serves
+``csrc/paged_attention.cu``: `paged_attention` for f32 / bf16 / f16
+pools (the exact tier) and `paged_attention_int8` for the quantized KV
+tier's int8 pools with per-token, per-head f32 scale tables (q and the
+output f32, bf16 or f16).  One wrapper serves
 both; each kernel counts on its own counter.  Both kernels run the same
 cluster-split core and copy the pools' rows 16 bytes a lane, so the
 pools must start on a 16-byte boundary; the int8 kernel's scale tables
@@ -26,7 +27,7 @@ REPLACES = "paddle_tpu/ops/pallas/paged_attention.py:68 (_paged_kernel)"
 INT8_REPLACES = ("paddle_tpu/ops/pallas/paged_attention.py:68 (_paged_kernel,"
                  " int8 branch: dequant :104-106, scale rows :189-193)")
 
-launches = 0        # paged_attention (bf16 / f32 pools)
+launches = 0        # paged_attention (f32 / bf16 / f16 pools)
 int8_launches = 0   # paged_attention_int8 (int8 pools + scale tables)
 
 _SIG = {"paged_attention": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
@@ -34,7 +35,7 @@ _SIG = {"paged_attention": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
 _INT8_SIG = {"paged_attention_int8": [ctypes.c_void_p] * 8
              + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
                                      ctypes.c_void_p]}
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def _scales_pair(k_scales, v_scales):
@@ -109,7 +110,8 @@ def paged_attention(q, k_pages, v_pages, page_table, pos, k_scales=None,
             or v_pages.dtype != pool_dtype:
         raise TypeError(f"paged_attention: dtypes {q.dtype}/"
                         f"{k_pages.dtype}/{v_pages.dtype}; expected "
-                        "float32 or bfloat16 q with pools of its dtype, "
+                        "float32, bfloat16 or float16 q with pools of its "
+                        "dtype, "
                         "or int8 pools with scale tables")
     if page_table.dtype != torch.int32 or pos.dtype != torch.int32:
         raise TypeError("paged_attention: page_table and pos must be int32")

@@ -26,7 +26,7 @@ from_launches = 0   # relayout_from_hm
 
 _SIG = {fn: [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         for fn in ("relayout_to_hm", "relayout_from_hm")}
-_DTYPES = (torch.float32, torch.bfloat16)
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def to_head_major_reference(x):
@@ -40,7 +40,7 @@ def from_head_major_reference(x):
 
 
 def _launch(fn, x):
-    """Check x (4-d, f32 or bf16, contiguous, on CUDA) and run `fn` of
+    """Check x (4-d, f32, bf16 or f16, contiguous, on CUDA) and run `fn` of
     the relayout library into a new tensor with dims 1 and 2 swapped."""
     if x.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {x.device}")
@@ -48,8 +48,8 @@ def _launch(fn, x):
         raise ValueError(f"{fn}: expected a 4-d tensor, got "
                          f"{tuple(x.shape)}")
     if x.dtype not in _DTYPES:
-        raise TypeError(f"{fn}: dtype {x.dtype}; expected float32 or "
-                        "bfloat16")
+        raise TypeError(f"{fn}: dtype {x.dtype}; expected float32, "
+                        "bfloat16 or float16")
     if not x.is_contiguous():
         raise ValueError(f"{fn}: x must be contiguous")
     b, s1, s2, d = x.shape

@@ -32,7 +32,7 @@ bwd_launches = 0    # rope, adjoint
 
 _SIG = {"rope": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
         + [ctypes.c_int64] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]}
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_HEAD_DIM = 1024
 
 
@@ -108,8 +108,8 @@ def rope(x, cos, sin, adjoint=False, interleaved=False, k=None):
         raise ValueError(f"rope: head_dim {d} must be even and <= "
                          f"{MAX_HEAD_DIM}")
     if x.dtype not in _DTYPES:
-        raise TypeError(f"rope: dtype {x.dtype}; expected float32 or "
-                        "bfloat16")
+        raise TypeError(f"rope: dtype {x.dtype}; expected float32, "
+                        "bfloat16 or float16")
     xs = [_unit_last("x", x, b, s, d, x)]
     if k is not None:
         xs.append(_unit_last("k", k, b, s, d, x))

@@ -46,7 +46,7 @@ _SIG = {"varlen_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]}
 _BWD_SIG = {"varlen_bwd": [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]}
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def _bounds(cu, total):
@@ -145,7 +145,7 @@ def varlen_bwd_reference(q, k, v, out, lse, dout, cu_q, cu_k, scale=None,
 
 def _check(fn, q, k, v, cu_q, cu_k):
     """What the packed kernels take: q [Tq,H,D], k/v [Tk,H,D] with D % 8
-    == 0 and D <= 256, f32 or bf16 alike, contiguous; cu_seqlens int32
+    == 0 and D <= 256, f32, bf16 or f16 alike, contiguous; cu_seqlens int32
     [n + 1] each, contiguous, all on q's CUDA device."""
     if q.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {q.device}")
@@ -156,7 +156,8 @@ def _check(fn, q, k, v, cu_q, cu_k):
                          "and <= 256")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{fn}: dtypes {q.dtype}/{k.dtype}/{v.dtype}; "
-                        "expected float32 or bfloat16, all alike")
+                        "expected float32, bfloat16 or float16, all "
+                        "alike")
     if cu_q.dtype != torch.int32 or cu_k.dtype != torch.int32:
         raise TypeError(f"{fn}: cu_seqlens must be int32")
     for name, t in (("q", q), ("k", k), ("v", v), ("cu_seqlens_q", cu_q),

@@ -7,12 +7,12 @@ Counterpart of ``paddle_tpu/ops/pallas/window_attention.py``
 :201, launched by `_bwd_pallas` :290; the custom VJP of `_build_core`
 :337; the jnp reference `window_attention_ref` :106 with
 `_heads_attention` :80).  The forward kernel is
-``csrc/window_attention.cu``: in bf16 one tensor-core tile per window, a
-block walking a group of a (batch, head)'s windows; in f32, and for bf16
-windows past that tile, one block per (batch, window, head).  The
-backward kernel is ``csrc/window_attention_bwd.cu``: one block per
-(batch, head) walking that batch's windows (in bf16, on the tensor
-cores, per group of windows), which replays the scores and writes dqkv
+``csrc/window_attention.cu``: in bf16 and f16 one tensor-core tile per
+window, a block walking a group of a (batch, head)'s windows; in f32, and
+for bf16 / f16 windows past that tile, one block per (batch, window,
+head).  The backward kernel is ``csrc/window_attention_bwd.cu``: one
+block per (batch, head) walking that batch's windows (in bf16 and f16,
+on the tensor cores, per group of windows), which replays the scores and writes dqkv
 and a dbias partial per batch (and group), summed here as `_bwd_pallas`
 sums its per-batch partials.  Both read and write at image positions,
 so the cyclic shift and the partition / reverse move no data.  The JAX
@@ -43,7 +43,7 @@ BWD_REPLACES = ("paddle_tpu/ops/pallas/window_attention.py:201 "
 launches = 0        # forward
 bwd_launches = 0    # backward
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _SIG = {"window_attention": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]}
 _BWD_SIG = {"window_attention_bwd": [ctypes.c_void_p] * 6
@@ -51,9 +51,10 @@ _BWD_SIG = {"window_attention_bwd": [ctypes.c_void_p] * 6
                                     ctypes.c_void_p],
             "window_attention_bwd_groups": [ctypes.c_int] * 6}
 MAX_TOKENS = 256              # ws * ws: keys per softmax row
-# bf16: one 64 x 64 tensor-core tile a window, head_dim <= 64 and a
-# multiple of 8 (the backward raises past it; the forward's launcher gives
-# such windows to its CUDA-core kernel)
+# bf16 and f16: one 64 x 64 tensor-core tile a window, head_dim <= 64
+# and a multiple of 8 (the backward raises past it; the forward's launcher
+# gives such windows to its CUDA-core kernel)
+TC_DTYPES = (torch.bfloat16, torch.float16)
 TC_MAX_TOKENS = 64
 TC_MAX_HEAD_DIM = 64
 SMEM_LIMIT = 227 * 1024       # a block's shared memory on the H100
@@ -172,8 +173,8 @@ def _checked(what, qkv, bias, mask, window_size, shift, num_heads, tiles):
         raise ValueError(f"{what}: window {ws}, head_dim {hd}, batch {b} "
                          "exceed the kernel's limits")
     if qkv.dtype not in _DTYPES:
-        raise TypeError(f"{what}: dtype {qkv.dtype}; expected float32 or "
-                        "bfloat16")
+        raise TypeError(f"{what}: dtype {qkv.dtype}; expected float32, "
+                        "bfloat16 or float16")
     nw = (h // ws) * (w // ws)
     bias = bias.to(torch.float32).contiguous()
     if bias.shape != (num_heads, p, p) or bias.device != qkv.device:
@@ -223,9 +224,9 @@ def window_attention_bwd(qkv, bias, mask, g, window_size, shift,
     -> (dqkv [B, H, W, 3C] in qkv's dtype, dbias [heads, P, P] f32).
     CPU tensors run the plain version; CUDA tensors launch the kernel,
     whose dbias partials [B * groups, heads, P, P] (one per batch and
-    group of windows) are summed here, or raise.  bf16 runs on the
-    tensor cores and takes windows of up to 64 tokens and head dims up
-    to 64, multiples of 8."""
+    group of windows) are summed here, or raise.  bf16 and f16 run on
+    the tensor cores and take windows of up to 64 tokens and head dims
+    up to 64, multiples of 8."""
     global bwd_launches
     if qkv.device.type == "cpu":
         return window_attention_bwd_reference(qkv, bias, mask, g,
@@ -239,12 +240,12 @@ def window_attention_bwd(qkv, bias, mask, g, window_size, shift,
         raise ValueError(f"window_attention_bwd: g {tuple(g.shape)} "
                          f"{g.dtype} on {g.device}, expected "
                          f"[{b}, {h}, {w}, {c3 // 3}] {qkv.dtype}")
-    if qkv.dtype == torch.bfloat16 and (ws * ws > TC_MAX_TOKENS
-                                        or hd > TC_MAX_HEAD_DIM or hd % 8):
-        raise ValueError(f"window_attention_bwd: bf16 takes windows of at "
-                         f"most {TC_MAX_TOKENS} tokens and head_dim <= "
-                         f"{TC_MAX_HEAD_DIM}, a multiple of 8; got window "
-                         f"{ws}, head_dim {hd}")
+    if qkv.dtype in TC_DTYPES and (ws * ws > TC_MAX_TOKENS
+                                   or hd > TC_MAX_HEAD_DIM or hd % 8):
+        raise ValueError(f"window_attention_bwd: bf16 and f16 take windows "
+                         f"of at most {TC_MAX_TOKENS} tokens and head_dim "
+                         f"<= {TC_MAX_HEAD_DIM}, a multiple of 8; got "
+                         f"window {ws}, head_dim {hd}")
     g = g.contiguous()
     dqkv = torch.empty_like(qkv)
     lib = _build.library("window_attention_bwd", _BWD_SIG)

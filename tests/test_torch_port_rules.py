@@ -14,6 +14,9 @@
     only a CPU tensor reaches the plain version: the wrappers hold no
     try/except, the plain call sits under the CPU test, and a tensor on
     any other device raises instead of running it;
+  * every wrapper takes float16 (its dtype table, and the source's
+    `PT_F16` branch) and converts no input to another floating dtype on
+    its way to the kernel;
   * attention's and rope's gradients on the card go through their
     kernels only, and every serving entry runs under
     ``torch.inference_mode()`` (the parameters are trainable, so serving
@@ -317,7 +320,7 @@ def test_flash_sources_run_bf16_on_tensor_cores(name):
     ("conv_bn_act.cu", "conv_dense_tc<",
      r"if constexpr \(sizeof\(T\) == 2\) \{[^}]*launch_tc<KH_, KW_>"),
     ("window_attention_bwd.cu", "window_attention_bwd_tc<",
-     r"if \(dtype == PT_BF16\) \{[^}]*launch_tc<D>"),
+     r"launch_tc<D, E>.*?if \(dtype == PT_BF16\)\s*return dispatch16<bf16>"),
 ])
 def test_vision_sources_run_bf16_on_tensor_cores(name, entry, dispatch):
     """The bf16 dense conv and the bf16 window backward reach their
@@ -342,13 +345,15 @@ def test_vision_sources_run_bf16_on_tensor_cores(name, entry, dispatch):
 
 
 @pytest.mark.parametrize("name,fast,general,dispatch", [
-    # the bf16 window forward: the tensor-core tile for the windows it
-    # holds, the CUDA-core kernel for other bf16 shapes and for f32
+    # the bf16 (and f16) window forward: the tensor-core tile for the
+    # windows it holds, the CUDA-core kernel for other 16-bit shapes and
+    # for f32
     ("window_attention.cu", "window_attention_tc<",
      "window_attention_kernel<",
-     r"if \(dtype == PT_BF16\) \{.*?if \(ws \* ws <= WF_T && hd <= 64 && "
+     r"if \(ws \* ws <= WF_T && hd <= 64 && "
      r"hd % 8 == 0 && tc_aligned\(qkv\) &&\s*tc_aligned\(out\)\) \{"
-     r".*?launch_tc<D>.*?\}\s*return launch<__nv_bfloat16>"),
+     r".*?launch_tc<D, E>.*?\}\s*return launch<E>.*?"
+     r"if \(dtype == PT_BF16\)\s*return dispatch16<bf16>"),
     # the fused norm: rows held in registers when they are 16-byte
     # multiples at aligned pointers, the scalar kernel otherwise
     ("fused_norm.cu", "fused_norm_rows<", "fused_norm_kernel<",
@@ -404,6 +409,69 @@ def test_wrapper_reaches_plain_only_for_cpu(name):
                   and any(call in ast.walk(s) for s in p.body)]
         assert guards and all("device.type == 'cpu'" in ast.unparse(g.test)
                               for g in guards), ast.unparse(call)
+
+
+@pytest.mark.parametrize("name", sorted(K.KERNELS))
+def test_wrapper_takes_float16(name):
+    """Every kernel's wrapper lists float16 in its dtype table: a CUDA
+    float16 tensor launches the kernel's own f16 instantiation (the C
+    launchers' PT_F16 branch, dtype code 2) instead of raising.  The
+    relayouts take no dtype code: they move 16-bit rows as bf16 rows,
+    by width."""
+    k = K.KERNELS[name]
+    table = k.module._DTYPES
+    assert torch.float16 in table, f"{k.module.__name__}._DTYPES"
+    if isinstance(table, dict):
+        assert table[torch.float16] == 2     # PT_F16 in csrc/common.cuh
+        src = _translation_unit(os.path.basename(k.source))
+        assert re.search(r"dtype == PT_F16\)", src), k.source
+
+
+def _module_helpers(fn, module, seen=None):
+    """`fn` and the functions of its own module that it calls, by name,
+    recursively (the wrapper's checks and launch helpers)."""
+    seen = [] if seen is None else seen
+    if fn in seen:
+        return seen
+    seen.append(fn)
+    tree = ast.parse(textwrap.dedent(inspect.getsource(fn)))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call) and isinstance(node.func, ast.Name):
+            f = getattr(module, node.func.id, None)
+            if inspect.isfunction(f) and f.__module__ == module.__name__ \
+                    and not f.__name__.endswith("_reference"):
+                _module_helpers(f, module, seen)
+    return seen
+
+
+@pytest.mark.parametrize("name", sorted(K.KERNELS))
+def test_wrapper_converts_no_cuda_tensor_before_its_launch(name):
+    """No wrapper changes a tensor's floating dtype on its way to the
+    kernel (no `.float()`, `.half()`, `.bfloat16()`, `.double()`, and no
+    `.to(<dtype>)` of an input): a float16 input reaches an f16
+    instantiation as float16 bits.  The one exception is an f32 operand
+    by contract, the attention bias and the shift mask (`.to(torch.
+    float32)`), which every dtype's kernel reads in f32.  The CPU branch
+    (the plain version) is left out."""
+    k = K.KERNELS[name]
+    for fn in _module_helpers(getattr(k.module, k.wrapper), k.module):
+        tree = ast.parse(textwrap.dedent(inspect.getsource(fn)))
+        for node in ast.walk(tree):   # drop the plain versions' CPU branch
+            if isinstance(node, ast.If) and \
+                    "device.type == 'cpu'" in ast.unparse(node.test):
+                node.body = [ast.Pass()]
+        for node in ast.walk(tree):
+            if not (isinstance(node, ast.Call)
+                    and isinstance(node.func, ast.Attribute)):
+                continue
+            attr, text = node.func.attr, ast.unparse(node)
+            assert attr not in ("float", "half", "bfloat16", "double"), \
+                f"{fn.__name__}: {text}"
+            if attr == "to":
+                receiver = ast.unparse(node.func.value)
+                assert receiver in ("bias", "mask") and \
+                    [ast.unparse(a) for a in node.args] == [
+                        "torch.float32"], f"{fn.__name__}: {text}"
 
 
 def test_non_cpu_tensors_never_run_plain_versions():
