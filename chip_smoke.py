@@ -367,7 +367,27 @@ non-zero and prints no result):
      and a `ModelAverage` beside it, 10 steps: the loss falls, 2:4
      sparsity holds after every step, `apply()` / `restore()` gives the
      live weights back bit for bit, 12 + 12 flash launches a step;
-     tokens/s beside phase 27's.
+     tokens/s beside phase 27's;
+ 34. save_load: `paddle_tpu_torch.save` of a GPT-125M bf16 state (12
+     layers) to a `.pdparams` file in the JAX package's format and `load`
+     back onto the card, bit for bit; seconds and the file's size;
+ 35. hapi_fit: `Model(GPT-125M)` prepared with AdamW, CrossEntropyLoss,
+     `metric.Accuracy` and ``amp_configs={"level": "O2", "dtype":
+     "bfloat16"}``, `.fit` for 8 steps at B8 x 1024 through
+     `DataLoader(num_workers=2)` on the shared-memory route (asserted):
+     losses bit for bit the eager O2 loop's on the same batches from the
+     same weights, 12 flash_fwd + 12 flash_bwd a step, tokens/s of both;
+     `Model.save` -> a new `Model` -> `load` -> `evaluate` equal;
+ 36. hapi_vision: `Model(resnet50())` f32 `.evaluate` and `.predict` over
+     2 x 64 images of 224² through a `DataLoader`: 49 conv_bn_act a
+     forward, predictions and loss bit for bit the eager model's;
+ 37. jit_save: `jit.save` -> `jit.load` of ResNet-50 (f32, [8, 3, 224,
+     224]) and a GPT-125M forward (bf16, [1, 1024] int64), then
+     `llama_tiny` and a narrow Swin-T: each loaded program bit for bit
+     the eager forward, its graph holding the ``paddle_tpu_torch::``
+     nodes (conv_bn_act, flash_fwd, rope, window_attention) and
+     launching them (49, 12, 2 + 2, 4 a call); ms a call of the loaded
+     program beside the eager forward's.
 
 Phase 3 also holds paged_attention_int8 (the gpt_1p3b row's pool in
 int8, and a llama_7b decode step, 32 kv heads over ~1000 keys each, with
@@ -414,8 +434,9 @@ dtype), 8b, 9, 9a, 9b, 9c (each tier), 10, 10a (each of its phases),
 processes), 24, 25 and 26 (their timed steps with recompute), 27 (the timed
 eager steps), 28 and 28a (the timed f16 steps) and 29 (each rule's timed
 replays), 30 (as 4 and 5), 31 (its kernel-route loops and its
-variable-length call) and 33 (the timed steps) and read just after
-each; every kernel of each path must
+variable-length call), 33 (the timed steps), 35 (the fit), 36 (evaluate
+and predict) and 37 (each loaded program's checked call) and read just
+after each; every kernel of each path must
 have launched, every kernel on a float16 path too.  A replayed
 CUDA graph (the engine's decode step, the train step) adds the launches
 its capture recorded to the counters, once a replay.  Under --profile
@@ -6645,6 +6666,429 @@ def phase_incubate_train(card, bf16_tps, batch=8, seq=1024, lr=1e-4):
     return counts
 
 
+# ------------------------------------------------------------ phases 34-37
+HAPI_STEPS = 8           # phase 35: Model.fit's steps, and the eager loop's
+HAPI_EVAL_BATCHES = 2    # phase 35: batches of the evaluation set
+VISION_EVAL_BATCHES = 2  # phase 36: batches of 64 images
+# phase 37's narrow Swin-T: 2 stages of 2 blocks at 56²
+SWIN_NARROW = dict(img_size=56, embed_dim=24, depths=(2, 2), num_heads=(1, 2),
+                   window_size=7, num_classes=10)
+
+
+def _tmpdir(what):
+    """A scratch directory for the files a phase writes, under the
+    checkout (removed by the phase)."""
+    import tempfile
+
+    return tempfile.mkdtemp(prefix=f"chip_smoke_{what}_", dir=HERE)
+
+
+def _dir_bytes(d):
+    return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+
+
+def _tensors_equal(a, b):
+    """Two dicts of tensors: the same names, each bit for bit."""
+    import torch
+
+    return list(a) == list(b) and all(
+        a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]) for k in a)
+
+
+def phase_save_load(card):
+    """34. save_load: `paddle_tpu_torch.save` of a GPT-125M state in bf16
+    (bench.py's widths, 12 layers, seeded) to a `.pdparams` file in the
+    JAX package's format, and `load` back onto the card: every tensor bit
+    for bit, its dtype and shape kept.  Seconds of each and the file's
+    size."""
+    import shutil
+
+    import torch
+
+    import paddle_tpu_torch as PT
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+
+    model = GPTForCausalLM(_gpt125m(12), device="cuda",
+                           dtype=torch.bfloat16, seed=SEED)
+    state = model.state_dict()
+    d = _tmpdir("save")
+    try:
+        path = os.path.join(d, "gpt125m.pdparams")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        PT.save(state, path)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = PT.load(path)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        size = os.path.getsize(path)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    check(all(t.device.type == "cuda" for t in back.values()),
+          "save_load: load() put a tensor off the card")
+    check(_tensors_equal(state, back),
+          "save_load: the loaded GPT-125M state differs from the saved one")
+    n = sum(t.numel() for t in state.values())
+    log(f"[save_load] GPT-125M bf16 state ({len(state)} tensors, {n} "
+        f"values, {card}): save {t_save:.3f} s, load to the card "
+        f"{t_load:.3f} s, file {size / 2**20:.1f} MiB; bit for bit")
+    del model, state, back
+    _release_card()
+
+
+def _hapi_cfg():
+    """GPT-125M (bench.py's widths, 12 layers) with the LM head's logits
+    out: no fused head."""
+    from paddle_tpu_torch.models.gpt import GPTConfig
+
+    return GPTConfig(vocab_size=50304, hidden_size=768, num_layers=12,
+                     num_heads=12, max_seq_len=1024, fused_head_ce=False)
+
+
+def _hapi_gpt(seed):
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+
+    cfg = _hapi_cfg()
+    return GPTForCausalLM(cfg, device="cuda", seed=seed), cfg
+
+
+def _hapi_tokens(cfg, n, seq, seed):
+    rs = np.random.RandomState(seed)
+    toks = rs.randint(0, cfg.vocab_size, (n, seq + 1)).astype(np.int64)
+    return toks[:, :-1].copy(), toks[:, 1:].copy()
+
+
+def _hapi_model(net, lr):
+    from paddle_tpu_torch import Model, metric, nn
+    from paddle_tpu_torch.optimizer import AdamW
+
+    m = Model(net)
+    m.prepare(AdamW(learning_rate=lr, parameters=net.parameters()),
+              nn.CrossEntropyLoss(), metric.Accuracy(),
+              amp_configs={"level": "O2", "dtype": "bfloat16"})
+    return m
+
+
+def phase_hapi_fit(card, batch=8, seq=1024, lr=1e-4):
+    """35. hapi_fit: `Model(GPT-125M, fused_head_ce=False)` prepared with
+    AdamW, `nn.CrossEntropyLoss`, `metric.Accuracy` and ``amp_configs=
+    {"level": "O2", "dtype": "bfloat16"}``, `.fit` for HAPI_STEPS steps
+    over a seeded in-memory token `TensorDataset` at B8 x 1024 through
+    `DataLoader(num_workers=2)`, which must take the shared-memory route
+    (spawned workers, the native ring).  Its per-step losses equal, bit
+    for bit, the eager O2 loop's (`amp.decorate`, `auto_cast`,
+    ``loss.backward(); opt.step(); opt.clear_grad()``) on the same
+    batches from the same seeded weights; flash_fwd and flash_bwd launch
+    12 each a step.  Tokens/s of both (steps 3 on; the fit runs first, so
+    it meets the colder allocator).  Then
+    `Model.save` -> a new `Model` of other weights -> `load` ->
+    `evaluate` on HAPI_EVAL_BATCHES other batches equals the first
+    model's `evaluate`.  Returns the fit's launch counts."""
+    import shutil
+
+    import torch
+
+    from paddle_tpu_torch import amp, metric, nn
+    from paddle_tpu_torch.hapi.callbacks import Callback
+    from paddle_tpu_torch.io import DataLoader, TensorDataset
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.optimizer import AdamW
+
+    class Steps(Callback):
+        def __init__(self):
+            super().__init__()
+            self.losses, self.times, self.first = [], [], None
+
+        def on_train_batch_begin(self, step, logs=None):
+            if self.first is None:       # the first batch has arrived
+                self.first = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            self.losses.append(logs["loss"][0])   # a host read: synced
+            self.times.append(time.perf_counter())
+
+    _release_card()
+    net, cfg = _hapi_gpt(SEED)
+    x, y = _hapi_tokens(cfg, batch * HAPI_STEPS, seq, SEED)
+    loader = DataLoader(TensorDataset([x, y]), batch_size=batch,
+                        num_workers=2)
+    model = _hapi_model(net, lr)
+    rec = Steps()
+    K.reset_launches()
+    t_start = time.perf_counter()
+    model.fit(loader, epochs=1, callbacks=[rec])
+    t_fit = time.perf_counter() - t_start
+    counts = K.launch_counts()
+    check(loader.route == "shm", f"hapi_fit: the DataLoader took the "
+          f"{loader.route!r} route, not the shared-memory workers")
+    check(len(rec.losses) == HAPI_STEPS, f"hapi_fit: {len(rec.losses)} "
+          f"steps, expected {HAPI_STEPS}")
+    per = {k: v / HAPI_STEPS for k, v in counts.items() if v}
+    check(per == {"flash_fwd": cfg.num_layers, "flash_bwd": cfg.num_layers},
+          f"hapi_fit: launches a step {json.dumps(per)}, expected "
+          f"{cfg.num_layers} flash_fwd and flash_bwd")
+    # steps 3 on: the first two grow the allocator's pools
+    fit_tps = batch * seq * (HAPI_STEPS - 2) / (rec.times[-1] - rec.times[1])
+    peak = torch.cuda.max_memory_allocated()
+    # Model.save -> a new Model -> load -> evaluate
+    ex, ey = _hapi_tokens(cfg, batch * HAPI_EVAL_BATCHES, seq, SEED + 1)
+    evals = TensorDataset([ex, ey])
+    want = model.evaluate(evals, batch_size=batch)
+    d = _tmpdir("hapi")
+    try:
+        path = os.path.join(d, "gpt125m")
+        t0 = time.perf_counter()
+        model.save(path)
+        t_save = time.perf_counter() - t0
+        size = _dir_bytes(d)
+        del model, net
+        _release_card()
+        other, _ = _hapi_gpt(SEED + 7)
+        model2 = _hapi_model(other, lr)
+        t0 = time.perf_counter()
+        model2.load(path)
+        t_load = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    got = model2.evaluate(evals, batch_size=batch)
+    check(got == want, f"hapi_fit: the loaded Model's evaluate {got} "
+          f"differs from the saved one's {want}")
+    del model2, other
+    _release_card()
+    # the eager O2 loop on the same batches from the same weights
+    net, _ = _hapi_gpt(SEED)
+    opt = AdamW(learning_rate=lr, parameters=net.parameters())
+    net, opt = amp.decorate(net, opt, level="O2", dtype="bfloat16")
+    net.train()
+    crit = nn.CrossEntropyLoss()
+    losses, times = [], []
+    for i in range(HAPI_STEPS):
+        ids = torch.from_numpy(x[i * batch:(i + 1) * batch]).cuda()
+        labels = torch.from_numpy(y[i * batch:(i + 1) * batch]).cuda()
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            loss = crit(net(ids), labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss))
+        times.append(time.perf_counter())
+    eager_tps = batch * seq * (HAPI_STEPS - 2) / (times[-1] - times[1])
+    # what the fit's step does beside the eager loop's: the metric's
+    # top-1 over [B * S, vocab] bf16 logits and its host read
+    with torch.no_grad():
+        logits = net(ids)
+    acc = metric.Accuracy()
+    acc_ms = time_ms(lambda: acc.update(acc.compute(logits, labels)))
+    check(losses == rec.losses, f"hapi_fit: Model.fit losses "
+          f"{rec.losses} differ from the eager O2 loop's {losses}")
+    check(np.isfinite(losses).all() and losses[-1] < losses[0],
+          f"hapi_fit: losses {losses}")
+    del net, opt, logits
+    _release_card()
+    log(f"[hapi_fit] GPT-125M bf16 O2 12L B{batch} S{seq} ({card}): "
+        f"Model.fit {fit_tps:.1f} tokens/s (the fit call {t_fit:.2f} s, "
+        f"{rec.first - t_start:.2f} s of it to the first batch through the "
+        f"workers, {rec.times[0] - rec.first:.2f} s the first step), eager "
+        f"O2 loop {eager_tps:.1f} tokens/s "
+        f"(fit / eager {fit_tps / eager_tps:.3f}; Accuracy's compute + "
+        f"update {acc_ms:.2f} ms a step); peak memory "
+        f"{peak / 2**30:.2f} GiB; losses bit for bit the eager loop's "
+        f"{losses}; launches a step {json.dumps(per)}; DataLoader route "
+        f"{loader.route}")
+    log(f"[hapi_fit] Model.save {t_save:.3f} s ({size / 2**20:.1f} MiB: "
+        f".pdparams + .pdopt), a new Model's load {t_load:.3f} s; evaluate "
+        f"equal: {json.dumps(want)}")
+    return counts
+
+
+def phase_hapi_vision(card, batch=VISION_BATCH):
+    """36. hapi_vision: `Model(resnet50())` (seeded weights and batch-norm
+    statistics, f32, eval mode) with `nn.CrossEntropyLoss` and
+    `metric.Accuracy(topk=(1, 5))`: `.evaluate` and `.predict` over
+    VISION_EVAL_BATCHES seeded batches of 64 x 3 x 224² through a
+    `DataLoader`.  conv_bn_act launches 49 a forward; the predictions and
+    the evaluation loss equal the eager model's on the same batches bit
+    for bit.  Returns the launch counts of evaluate and predict."""
+    import torch
+
+    from paddle_tpu_torch import Model, metric, nn
+    from paddle_tpu_torch.io import DataLoader, TensorDataset
+    from paddle_tpu_torch.ops import kernels as K
+
+    net = _vision_model("resnet50", "cuda", torch.float32)
+    rs = np.random.RandomState(SEED + 3)
+    n = batch * VISION_EVAL_BATCHES
+    imgs = rs.randn(n, 3, 224, 224).astype(np.float32)
+    labels = rs.randint(0, 1000, (n,)).astype(np.int64)
+    loader = DataLoader(TensorDataset([imgs, labels]), batch_size=batch)
+    model = Model(net)
+    model.prepare(loss=nn.CrossEntropyLoss(),
+                  metrics=metric.Accuracy(topk=(1, 5)))
+    K.reset_launches()
+    t0 = time.perf_counter()
+    res = model.evaluate(loader)
+    pred = model.predict(loader, stack_outputs=True)[0]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    per = {k: v / (2 * VISION_EVAL_BATCHES) for k, v in counts.items()
+           if v}
+    check(per == {"conv_bn_act": 49}, f"hapi_vision: launches a forward "
+          f"{json.dumps(per)}, expected 49 conv_bn_act")
+    crit = nn.CrossEntropyLoss()
+    eager, loss = [], 0.0
+    with torch.no_grad():
+        for i in range(VISION_EVAL_BATCHES):
+            sl = slice(i * batch, (i + 1) * batch)
+            out = net(torch.from_numpy(imgs[sl]).cuda())
+            loss += float(crit(out, torch.from_numpy(labels[sl]).cuda()))
+            eager.append(out.cpu().numpy())
+    eager = np.concatenate(eager)
+    check(pred.shape == (n, 1000) and np.array_equal(pred, eager),
+          f"hapi_vision: predict differs from the eager forward (max "
+          f"{float(np.abs(pred - eager).max()):.3g})")
+    check(res["loss"] == loss / VISION_EVAL_BATCHES,
+          f"hapi_vision: evaluate loss {res['loss']} vs the eager "
+          f"{loss / VISION_EVAL_BATCHES}")
+    log(f"[hapi_vision] ResNet-50 f32 B{batch} x {VISION_EVAL_BATCHES} "
+        f"({card}): evaluate + predict {wall:.2f} s, "
+        f"{2 * n / wall:.1f} images/s through the DataLoader; "
+        f"{json.dumps(res)}; predictions and loss bit for bit the eager "
+        f"model's; launches a forward {json.dumps(per)}")
+    del net, model
+    _release_card()
+    return counts
+
+
+def _program_ops(layer):
+    return sorted({str(n.target).split(".")[1]
+                   for n in layer._exported.graph.nodes
+                   if str(n.target).startswith("paddle_tpu_torch.")})
+
+
+def _jit_round_trip(card, what, net, x, want_ops, per_call, iters=10,
+                    exact=True):
+    """`jit.save` of `net` at `x`'s shape, `jit.load` onto the card, one
+    call: its output bit for bit the eager forward's (`exact`; else
+    within F32_TOL of the largest |output|, the eager forward run twice
+    and the gap logged), its program holding `want_ops` nodes, launching
+    `per_call` a call.  Times both.  Returns the call's launch counts."""
+    import shutil
+
+    import torch
+
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.ops import kernels as K
+
+    d = _tmpdir("jit")
+    try:
+        path = os.path.join(d, what)
+        t0 = time.perf_counter()
+        jit.save(net, path, input_spec=[x])
+        t_save = time.perf_counter() - t0
+        size = _dir_bytes(d)
+        t0 = time.perf_counter()
+        loaded = jit.load(path)
+        t_load = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    ops = _program_ops(loaded)
+    check(set(want_ops) <= set(ops), f"jit_save: {what}'s program holds "
+          f"{ops}, expected {want_ops}")
+    with torch.no_grad():
+        want = net(x)
+        torch.cuda.synchronize()
+        K.reset_launches()
+        got = loaded(x)
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        per = {k: v for k, v in counts.items() if v}
+        check(per == per_call, f"jit_save: {what}'s loaded program "
+              f"launched {json.dumps(per)}, expected {per_call}")
+        gap = (got.float() - want.float()).abs().max().item()
+        if exact:
+            check(torch.equal(got, want), f"jit_save: {what}'s loaded "
+                  f"program differs from the eager forward (max {gap:.3g})")
+            held = "output bit for bit"
+        else:
+            scale = want.float().abs().max().item()
+            check(gap <= F32_TOL * scale, f"jit_save: {what}'s loaded "
+                  f"program is {gap:.3g} from the eager forward (largest "
+                  f"|output| {scale:.3g}, tol {F32_TOL} of it)")
+            again = net(x)
+            held = (f"output within {gap:.3g} of the eager forward's "
+                    f"(largest |output| {scale:.3g}; eager twice bit for "
+                    f"bit: {torch.equal(again, want)}, loaded twice: "
+                    f"{torch.equal(loaded(x), got)})")
+        ms_loaded = time_ms(lambda: loaded(x), iters)
+        ms_eager = time_ms(lambda: net(x), iters)
+    log(f"[jit_save] {what} {tuple(x.shape)} {str(x.dtype)[6:]} ({card}): "
+        f"save {t_save:.2f} s ({size / 2**20:.1f} MiB), load "
+        f"{t_load:.2f} s; program ops {ops}; loaded {ms_loaded:.3f} ms a "
+        f"call, eager forward {ms_eager:.3f} ms; {held}; launches a call "
+        f"{json.dumps(per)}")
+    return counts
+
+
+def phase_jit_save(card):
+    """37. jit_save: `jit.save` -> `jit.load` of ResNet-50 (f32, input
+    spec [8, 3, 224, 224]) and of a GPT-125M forward (bf16, [1, 1024]
+    int64), both at full width, then of `llama_tiny` and a narrow Swin-T
+    (SWIN_NARROW, 56²): each loaded program's output equals the eager
+    model's bit for bit on the card (Swin's within F32_TOL of its largest
+    output, the gap logged), its exported graph holds the
+    ``paddle_tpu_torch::`` nodes (conv_bn_act, flash_fwd, rope,
+    window_attention) and launches them (ResNet-50 49 conv_bn_act, GPT
+    12 flash_fwd, llama_tiny 2 rope, Swin 4 window_attention a call);
+    the loaded program's ms a call beside the eager forward's.  Returns
+    the summed launch counts of the loaded programs' checked calls."""
+    import torch
+
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_tiny
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.vision import models as V
+
+    total = dict.fromkeys(K.KERNELS, 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    rs = np.random.RandomState(SEED + 4)
+    net = _vision_model("resnet50", "cuda", torch.float32)
+    x = torch.from_numpy(rs.randn(8, 3, 224, 224).astype(np.float32)).cuda()
+    add(_jit_round_trip(card, "resnet50", net, x, ["conv_bn_act"],
+                        {"conv_bn_act": 49}))
+    del net
+    _release_card()
+    net = GPTForCausalLM(_hapi_cfg(), device="cuda", dtype=torch.bfloat16,
+                         seed=SEED)
+    ids = torch.from_numpy(rs.randint(0, 50304, (1, 1024)).astype(
+        np.int64)).cuda()
+    add(_jit_round_trip(card, "gpt125m", net, ids, ["flash_fwd"],
+                        {"flash_fwd": 12}))
+    del net
+    _release_card()
+    net = LlamaForCausalLM(llama_tiny(), device="cuda", seed=SEED)
+    ids = torch.from_numpy(rs.randint(0, net.cfg.vocab_size, (2, 64))
+                           .astype(np.int64)).cuda()
+    add(_jit_round_trip(card, "llama_tiny", net, ids, ["flash_fwd", "rope"],
+                        {"flash_fwd": net.cfg.num_layers,
+                         "rope": net.cfg.num_layers}))
+    net = V.SwinTransformer(**SWIN_NARROW, device="cuda", seed=SEED)
+    x = torch.from_numpy(rs.randn(2, 3, 56, 56).astype(np.float32)).cuda()
+    # the patch embedding is a cuDNN convolution, outside the kernels:
+    # held to the f32 tolerance, its gap logged
+    add(_jit_round_trip(card, "swin_narrow", net, x, ["window_attention"],
+                        {"window_attention": sum(SWIN_NARROW["depths"])},
+                        exact=False))
+    del net
+    _release_card()
+    return total
+
+
 def main():
     try:
         import torch
@@ -6839,6 +7283,11 @@ def main():
         run("incubate_moe", phase_incubate_moe, card)
         release()
         path("incubate_train", phase_incubate_train, card, bf16_tps)
+        release()
+        run("save_load", phase_save_load, card)
+        path("hapi_fit", phase_hapi_fit, card)
+        path("hapi_vision", phase_hapi_vision, card)
+        path("jit_save", phase_jit_save, card)
         release()
         path("fleet", phase_fleet)
         rows = []

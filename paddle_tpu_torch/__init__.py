@@ -33,9 +33,33 @@ the eager training loop (slice 21): `optimizer` (the whole zoo, eager
 ``.step()`` and functional, parameter groups, ``grad_clip``,
 ``multi_precision``), `regularizer`, `amp` (`auto_cast` through a cast
 gate, `decorate`, `GradScaler`; float16 through the flash kernels),
-`cross_entropy`'s options, and `jit.to_static` in training.
+`cross_entropy`'s options, and `jit.to_static` in training; the
+high-level loop and its files (slice 24): `save` / `load` in the JAX
+package's format (`framework.io_utils`), `io` (datasets, samplers, the
+`DataLoader` with shared-memory workers), `metric`, `hapi` (`Model`,
+`summary`, `flops`) and `jit.save` / `jit.load` through `torch.export`,
+with the kernels as custom ops inside the saved program.
 """
 from __future__ import annotations
 
-__all__ = ["amp", "core", "incubate", "inference", "jit", "models", "nn",
-           "observability", "ops", "optimizer", "regularizer", "vision"]
+import importlib
+
+__all__ = ["Model", "amp", "core", "flops", "framework", "hapi",
+           "incubate", "inference", "io", "jit", "load", "metric", "models",
+           "nn", "observability", "ops", "optimizer", "regularizer", "save",
+           "summary", "vision"]
+
+# top-level names, imported at first use (the package's import stays
+# light: the DataLoader's worker processes import it)
+_LAZY = {"save": "framework.io_utils", "load": "framework.io_utils",
+         "Model": "hapi.model", "summary": "hapi.summary",
+         "flops": "hapi.summary"}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        return getattr(importlib.import_module(f".{_LAZY[name]}", __name__),
+                       name)
+    if name in __all__:
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -48,6 +48,8 @@ function eagerly instead.  The `backend="sot"` capture tier, `save` and
 from __future__ import annotations
 
 import functools
+import os
+import pickle
 
 import torch
 from torch import nn
@@ -56,9 +58,12 @@ from torch.utils import _pytree
 from ..amp import gate as _amp
 from ..core import graphs as GR
 from ..core import rng
+from ..core.device import resolve_device
+from ..framework.io_utils import load as fload, save as fsave
 from ..observability import capture_cost as CC
 
-__all__ = ["StaticFunction", "to_static"]
+__all__ = ["StaticFunction", "TranslatedLayer", "load", "save",
+           "to_static"]
 
 
 def _sig_of(x):
@@ -365,3 +370,129 @@ def to_static(function=None, input_spec=None, build_strategy=None,
     if function is not None:
         return decorate(function)
     return decorate
+
+
+def _spec_tensor(spec, device):
+    """An example input of the spec's fixed shape and dtype: a tensor
+    (its own shape and dtype), or anything with ``.shape`` and
+    ``.dtype`` (a torch, numpy or dtype-name dtype)."""
+    if isinstance(spec, torch.Tensor):
+        return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
+    if not hasattr(spec, "shape"):
+        return spec
+    dtype = spec.dtype if isinstance(spec.dtype, torch.dtype) else \
+        getattr(torch, str(spec.dtype).replace("torch.", ""))
+    return torch.zeros(tuple(spec.shape), dtype=dtype, device=device)
+
+
+class _Pure(nn.Module):
+    """The layer's forward as a pure function of (params, buffers,
+    *inputs).  The layer is held outside the module tree, so the
+    exported program lifts none of its tensors as state."""
+
+    def __init__(self, layer):
+        super().__init__()
+        object.__setattr__(self, "_layer", layer)
+
+    def forward(self, params, buffers, *inputs):
+        return torch.func.functional_call(self._layer, (params, buffers),
+                                          inputs, strict=False)
+
+
+class _ExportMode:
+    """The layer as it is exported, and back as it was on exit: eval
+    mode (JAX :293-308), and its own forward in place of a `to_static`
+    wrapper (JAX :275-280: trace the function, not its graph
+    replays)."""
+
+    def __init__(self, layer):
+        self.layer = layer
+        self.training = layer.training
+        static = layer.__dict__.get("forward")
+        self.static = static if isinstance(static, StaticFunction) else None
+
+    def __enter__(self):
+        if self.static is not None:
+            del self.layer.forward
+        self.layer.eval()
+
+    def __exit__(self, *exc):
+        self.layer.train(self.training)
+        if self.static is not None:
+            self.layer.forward = self.static
+        return False
+
+
+def save(layer, path, input_spec=None, **configs):
+    """Write `layer` (a layer, or a `StaticFunction` of one) for
+    deployment: ``path.pdparams``, ``path.pdmeta`` and, with an
+    `input_spec`, the exported program ``path.pdmodel``."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    target = layer.layer if isinstance(layer, StaticFunction) else layer
+    is_layer = isinstance(target, nn.Module)
+    state = target.state_dict() if is_layer else {}
+    fsave(state, path + ".pdparams")
+    exported = False
+    if input_spec is not None and is_layer:
+        params = {n: p.detach() for n, p in target.named_parameters()}
+        buffers = {n: b for n, b in target.named_buffers() if n in state}
+        device = next(iter(state.values()), torch.empty(())).device
+        inputs = tuple(_spec_tensor(s, device) for s in input_spec)
+        with _ExportMode(target), torch.no_grad():
+            program = torch.export.export(
+                _Pure(target), (params, buffers, *inputs), strict=False)
+        with open(path + ".pdmodel", "wb") as f:
+            torch.export.save(program, f)
+        exported = True
+    meta = {"exported": exported, "class": type(target).__name__}
+    if is_layer:
+        meta["param_names"] = [n for n, _ in target.named_parameters()]
+        meta["buffer_names"] = [n for n, _ in target.named_buffers()
+                                if n in state]
+    with open(path + ".pdmeta", "wb") as f:
+        pickle.dump(meta, f)
+
+
+class TranslatedLayer(nn.Module):
+    """Deployment-side loaded model (parity: paddle.jit.TranslatedLayer /
+    C++ jit::Layer): the exported program, called with the saved state
+    bound at each call."""
+
+    def __init__(self, exported, state, param_names=(), buffer_names=()):
+        super().__init__()
+        self._exported = exported
+        self._program = exported.module()
+        self._state = state
+        self._param_names = list(param_names)
+        self._buffer_names = list(buffer_names)
+
+    def forward(self, *inputs):
+        p = {k: self._state[k] for k in self._param_names
+             if k in self._state}
+        b = {k: self._state[k] for k in self._buffer_names
+             if k in self._state}
+        return self._program(p, b, *inputs)
+
+
+def load(path, device=None, **configs):
+    """A `TranslatedLayer` of what `save` wrote at `path`, on `device`
+    (default: the CUDA device): the program moved there
+    (`move_to_device_pass`) with its state."""
+    from torch.export.passes import move_to_device_pass
+
+    dev = resolve_device(device)
+    state = fload(path + ".pdparams", device=dev) \
+        if os.path.exists(path + ".pdparams") else {}
+    meta_path = path + ".pdmeta"
+    meta = {}
+    if os.path.exists(meta_path):
+        with open(meta_path, "rb") as f:
+            meta = pickle.load(f)
+    if meta.get("exported") and os.path.exists(path + ".pdmodel"):
+        with open(path + ".pdmodel", "rb") as f:
+            program = move_to_device_pass(torch.export.load(f), dev)
+        return TranslatedLayer(program, state, meta.get("param_names", ()),
+                               meta.get("buffer_names", ()))
+    raise FileNotFoundError(
+        f"no exported program at {path}.pdmodel; load params with "
+        f"paddle_tpu_torch.load({path!r} + '.pdparams') instead")

@@ -47,13 +47,14 @@ _SCHEMA_COUNTERS = tuple(
     # fault injections and retry traffic at the fault points and
     # policies of the serving plane and the train step
     [("resilience.faults", {"point": p})
-     for p in ("checkpoint.write", "train.step", "serving.request",
-               "store.op", "router.forward", "router.stream_read",
-               "router.resume_verify", "replica.crash")]
+     for p in ("checkpoint.write", "dataloader.batch", "train.step",
+               "serving.request", "store.op", "router.forward",
+               "router.stream_read", "router.resume_verify",
+               "replica.crash")]
     + [("resilience.retries", {"policy": p})
-       for p in ("elastic.heartbeat", "serving")]
+       for p in ("elastic.heartbeat", "serving", "dataloader")]
     + [("resilience.giveups", {"policy": p})
-       for p in ("elastic.heartbeat", "serving")]
+       for p in ("elastic.heartbeat", "serving", "dataloader")]
     + [("resilience.circuit_open", {"policy": p})
        for p in ("elastic.heartbeat", "serving")]
     # the train step's guard (skips by source, rollbacks of the guard

@@ -21,7 +21,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, _op
 
 SOURCE = "paddle_tpu_torch/csrc/conv_bn_act.cu"
 REPLACES = ("paddle_tpu/ops/pallas/conv_norm.py:82 (_conv_kernel, via "
@@ -74,17 +74,26 @@ def conv_bn_act(x, w, scale, shift, stride=1, padding=0, act="relu"):
     H, W]; w [Cout, Cin, kh, kw] (dense) or [Cin, 1, kh, kw]
     (depthwise), in x's dtype; scale / shift [Cout] f32 (the folded
     norm); int or pair stride and symmetric padding; act 'relu',
-    'relu6' or None.  CPU tensors run the plain version; CUDA tensors
-    launch the kernel or raise."""
-    global launches
+    'relu6' or None.  The op ``paddle_tpu_torch::conv_bn_act``: CPU
+    tensors run the plain version; CUDA tensors launch the kernel or
+    raise."""
     if act not in _ACTS:
         raise ValueError(f"conv_bn_act: act {act!r}; expected 'relu', "
                          "'relu6' or None")
-    if x.device.type == "cpu":
-        return conv_bn_act_reference(x, w, scale, shift, stride, padding,
-                                     act, is_depthwise(x, w))
-    if x.device.type != "cuda":
-        raise ValueError(f"conv_bn_act: unsupported device {x.device}")
+    _op.check_device("conv_bn_act", x)
+    return _conv_bn_act_op(x, w, scale, shift, list(_pair(stride)),
+                           list(_pair(padding)), act)
+
+
+def _conv_bn_act_cpu(x, w, scale, shift, stride, padding, act):
+    """The CPU implementation of ``paddle_tpu_torch::conv_bn_act``."""
+    return conv_bn_act_reference(x, w, scale, shift, stride, padding, act,
+                                 is_depthwise(x, w))
+
+
+def _conv_bn_act_cuda(x, w, scale, shift, stride, padding, act):
+    """The CUDA implementation of ``paddle_tpu_torch::conv_bn_act``."""
+    global launches
     if x.dim() != 4 or w.dim() != 4:
         raise ValueError(f"conv_bn_act: x {tuple(x.shape)} and w "
                          f"{tuple(w.shape)} must be 4-D (NCHW, OIHW)")
@@ -128,6 +137,18 @@ def conv_bn_act(x, w, scale, shift, stride=1, padding=0, act="relu"):
     _build.check(err, "conv_bn_act")
     launches += 1
     return out
+
+
+def _conv_bn_act_fake(x, w, scale, shift, stride, padding, act):
+    ho = _out_dim(x.shape[2], w.shape[2], stride[0], padding[0])
+    wo = _out_dim(x.shape[3], w.shape[3], stride[1], padding[1])
+    return x.new_empty((x.shape[0], w.shape[0], ho, wo))
+
+
+_conv_bn_act_op = _op.define(
+    "conv_bn_act", "(Tensor x, Tensor w, Tensor scale, Tensor shift, "
+    "int[] stride, int[] padding, str? act) -> Tensor", _conv_bn_act_cpu,
+    _conv_bn_act_cuda, _conv_bn_act_fake)
 
 
 class ConvBNAct(torch.autograd.Function):

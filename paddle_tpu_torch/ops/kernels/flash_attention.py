@@ -24,7 +24,7 @@ import os
 
 import torch
 
-from . import _build
+from . import _build, _op
 from .relayout import from_head_major, to_head_major
 
 NEG_INF = -1e30
@@ -208,11 +208,15 @@ def flash_fwd(q, k, v, bias=None, causal=False, head_major=False):
     broadcastable to [B,Hq,Sq,Sk] (additive f32, or bool keep-mask).
     Returns (out [B,Sq,Hq,D], lse [B,Hq,Sq] f32).  head_major: q and out
     are [B,Hq,Sq,D] (the kernel's head-major mode, `flash_fwd_hm`; no
-    bias).  CPU tensors run the plain version; CUDA tensors launch the
-    kernel or raise."""
+    bias).  The op ``paddle_tpu_torch::flash_fwd``: CPU tensors run the
+    plain version; CUDA tensors launch the kernel or raise."""
+    _op.check_device("flash_fwd", q)
+    return _flash_fwd_op(q, k, v, bias, bool(causal), bool(head_major))
+
+
+def _flash_fwd_cuda(q, k, v, bias, causal, head_major):
+    """The CUDA implementation of ``paddle_tpu_torch::flash_fwd``."""
     global launches
-    if q.device.type == "cpu":
-        return flash_fwd_reference(q, k, v, bias, causal, head_major)
     b, sq, sk, hq, hkv, d = _check_qkv("flash_fwd", q, k, v, head_major)
     out = torch.empty_like(q)
     lse = torch.empty(b, hq, sq, device=q.device, dtype=torch.float32)
@@ -240,6 +244,19 @@ def flash_fwd(q, k, v, bias=None, causal=False, head_major=False):
     _build.check(err, "flash_fwd")
     launches += 1
     return out, lse
+
+
+def _flash_fwd_fake(q, k, v, bias, causal, head_major):
+    b, hq, sq = (q.shape[:3] if head_major
+                 else (q.shape[0], q.shape[2], q.shape[1]))
+    return torch.empty_like(q), q.new_empty((b, hq, sq),
+                                            dtype=torch.float32)
+
+
+_flash_fwd_op = _op.define(
+    "flash_fwd", "(Tensor q, Tensor k, Tensor v, Tensor? bias, bool causal, "
+    "bool head_major) -> (Tensor, Tensor)", flash_fwd_reference,
+    _flash_fwd_cuda, _flash_fwd_fake)
 
 
 def flash_bwd(q, k, v, out, lse, dout, bias=None, causal=False,

@@ -15,7 +15,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, _op
 
 SOURCE = "paddle_tpu_torch/csrc/fused_norm.cu"
 REPLACES = ("paddle_tpu/ops/pallas/fused_norm.py:58 (_norm_kernel, via "
@@ -74,8 +74,6 @@ def _check(x, w, b, bias, residual, kind):
     every call, so it reads each attribute once).  Returns (d, the dtype
     code of x, that of w / b)."""
     dev = x.device
-    if dev.type != "cuda":
-        raise ValueError(f"fused_norm: unsupported device {dev}")
     if kind not in _KINDS:
         raise ValueError(f"fused_norm: kind {kind!r} not in {_KINDS}")
     xdt = x.dtype
@@ -116,11 +114,22 @@ def fused_norm(x, w=None, b=None, bias=None, residual=None, eps=1e-6,
     """x [..., d]; w, b, bias [d]; residual like x.  Returns (y, z): y
     the norm of z = x + bias + residual over the last axis, in x's
     dtype; z None unless bias or residual is given.  `kind` "rms" or
-    "ln".  CPU tensors run the plain version; CUDA tensors launch the
-    kernel or raise."""
+    "ln".  The op ``paddle_tpu_torch::fused_norm``: CPU tensors run the
+    plain version; CUDA tensors launch the kernel or raise."""
+    _op.check_device("fused_norm", x)
+    outs = _fused_norm_op(x, w, b, bias, residual, float(eps), kind)
+    return outs[0], (outs[1] if len(outs) > 1 else None)
+
+
+def _fused_norm_cpu(x, w, b, bias, residual, eps, kind):
+    """The CPU implementation of ``paddle_tpu_torch::fused_norm``."""
+    y, z = fused_norm_reference(x, w, b, bias, residual, eps, kind)
+    return [y] if z is None else [y, z]
+
+
+def _fused_norm_cuda(x, w, b, bias, residual, eps, kind):
+    """The CUDA implementation of ``paddle_tpu_torch::fused_norm``."""
     global launches
-    if x.device.type == "cpu":
-        return fused_norm_reference(x, w, b, bias, residual, eps, kind)
     d, code, wcode = _check(x, w, b, bias, residual, kind)
     y = torch.empty_like(x)
     want_z = bias is not None or residual is not None
@@ -134,7 +143,18 @@ def fused_norm(x, w=None, b=None, bias=None, residual=None, eps=1e-6,
                          code, wcode, _build.stream_ptr(x.device))
     _build.check(err, "fused_norm")
     launches += 1
-    return y, z
+    return [y] if z is None else [y, z]
+
+
+def _fused_norm_fake(x, w, b, bias, residual, eps, kind):
+    want_z = bias is not None or residual is not None
+    return [torch.empty_like(x) for _ in range(2 if want_z else 1)]
+
+
+_fused_norm_op = _op.define(
+    "fused_norm", "(Tensor x, Tensor? w, Tensor? b, Tensor? bias, "
+    "Tensor? residual, float eps, str kind) -> Tensor[]", _fused_norm_cpu,
+    _fused_norm_cuda, _fused_norm_fake)
 
 
 class FusedNorm(torch.autograd.Function):

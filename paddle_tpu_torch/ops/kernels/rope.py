@@ -18,7 +18,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, _op
 
 SOURCE = "paddle_tpu_torch/csrc/rope.cu"
 REPLACES = ("paddle_tpu/ops/pallas/rope.py:40 (_rope_kernel, via "
@@ -91,15 +91,24 @@ def rope(x, cos, sin, adjoint=False, interleaved=False, k=None):
     cos/sin [B|1,S,1,D] in x's dtype.  Returns the rotation (or, with
     `adjoint`, its adjoint) as a contiguous [B,S,H,D] tensor; with `k`
     ([B,S,Hk,D], the same phases) the pair (x's, k's), from one launch.
-    CPU tensors run the plain version; CUDA tensors launch the kernel or
-    raise."""
+    The op ``paddle_tpu_torch::rope``: CPU tensors run the plain
+    version; CUDA tensors launch the kernel or raise."""
+    _op.check_device("rope", x)
+    outs = _rope_op(x, cos, sin, bool(adjoint), bool(interleaved), k)
+    return outs[0] if k is None else tuple(outs)
+
+
+def _rope_cpu(x, cos, sin, adjoint, interleaved, k):
+    """The CPU implementation of ``paddle_tpu_torch::rope``: the plain
+    version of x (and of k)."""
+    return [rope_reference(t, cos, sin, adjoint, interleaved)
+            for t in ((x,) if k is None else (x, k))]
+
+
+def _rope_cuda(x, cos, sin, adjoint, interleaved, k):
+    """The CUDA implementation of ``paddle_tpu_torch::rope``: one launch
+    for x (and k), counted by direction."""
     global launches, bwd_launches
-    if x.device.type == "cpu":
-        out = rope_reference(x, cos, sin, adjoint, interleaved)
-        return out if k is None else (
-            out, rope_reference(k, cos, sin, adjoint, interleaved))
-    if x.device.type != "cuda":
-        raise ValueError(f"rope: unsupported device {x.device}")
     if x.dim() != 4:
         raise ValueError(f"rope: x must be [B, S, H, D], got "
                          f"{tuple(x.shape)}")
@@ -138,7 +147,18 @@ def rope(x, cos, sin, adjoint=False, interleaved=False, k=None):
         bwd_launches += 1
     else:
         launches += 1
-    return outs[0] if k is None else tuple(outs)
+    return outs
+
+
+def _rope_fake(x, cos, sin, adjoint, interleaved, k):
+    return [torch.empty(t.shape, dtype=t.dtype, device=t.device)
+            for t in ((x,) if k is None else (x, k))]
+
+
+_rope_op = _op.define(
+    "rope", "(Tensor x, Tensor cos, Tensor sin, bool adjoint, "
+    "bool interleaved, Tensor? k) -> Tensor[]", _rope_cpu, _rope_cuda,
+    _rope_fake)
 
 
 class RoPE(torch.autograd.Function):

@@ -29,7 +29,7 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, _op
 
 NEG_INF = -1e30
 SOURCE = "paddle_tpu_torch/csrc/flash_fwd.cu"
@@ -172,11 +172,18 @@ def _check(fn, q, k, v, cu_q, cu_k):
 
 def varlen_fwd(q, k, v, cu_q, cu_k, scale=None, causal=False):
     """q [Tq,H,D]; k/v [Tk,H,D]; cu_q / cu_k [n + 1] cumulative lengths.
-    Returns (out [Tq,H,D], lse [H,Tq] f32).  CPU tensors run the plain
-    version; CUDA tensors launch the kernel or raise."""
+    Returns (out [Tq,H,D], lse [H,Tq] f32).  The op
+    ``paddle_tpu_torch::varlen_fwd``: CPU tensors run the plain version;
+    CUDA tensors launch the kernel or raise."""
+    _op.check_device("varlen_fwd", q)
+    return _varlen_fwd_op(q, k, v, cu_q, cu_k,
+                          None if scale is None else float(scale),
+                          bool(causal))
+
+
+def _varlen_fwd_cuda(q, k, v, cu_q, cu_k, scale, causal):
+    """The CUDA implementation of ``paddle_tpu_torch::varlen_fwd``."""
     global launches
-    if q.device.type == "cpu":
-        return varlen_fwd_reference(q, k, v, cu_q, cu_k, scale, causal)
     tq, tk, h, d = _check("varlen_fwd", q, k, v, cu_q, cu_k)
     out = torch.empty_like(q)
     lse = torch.empty(h, tq, device=q.device, dtype=torch.float32)
@@ -190,6 +197,17 @@ def varlen_fwd(q, k, v, cu_q, cu_k, scale=None, causal=False):
     _build.check(err, "varlen_fwd")
     launches += 1
     return out, lse
+
+
+def _varlen_fwd_fake(q, k, v, cu_q, cu_k, scale, causal):
+    return torch.empty_like(q), q.new_empty((q.shape[1], q.shape[0]),
+                                            dtype=torch.float32)
+
+
+_varlen_fwd_op = _op.define(
+    "varlen_fwd", "(Tensor q, Tensor k, Tensor v, Tensor cu_q, Tensor cu_k, "
+    "float? scale, bool causal) -> (Tensor, Tensor)", varlen_fwd_reference,
+    _varlen_fwd_cuda, _varlen_fwd_fake)
 
 
 def varlen_bwd(q, k, v, out, lse, dout, cu_q, cu_k, scale=None,

@@ -19,10 +19,11 @@ so the cyclic shift and the partition / reverse move no data.  The JAX
 package's window-row band, VMEM gate and autotune (`_tuned_band`,
 `window_attention_available`) are TPU tiling and have no counterpart.
 
-On a CUDA tensor, `window_attention` with a `qkv` or `bias` that
-requires grad runs through `WindowAttentionCore`: the forward kernel,
-then the backward kernel.  On the CPU the plain version runs, and
-autograd differentiates it.
+`window_attention` with a `qkv` or `bias` that requires grad runs
+through `WindowAttentionCore`: on CUDA the forward kernel, then the
+backward kernel; on the CPU their plain versions.  Without grad it is
+the op ``paddle_tpu_torch::window_attention`` (`_op.py`), which an
+exported program holds.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, _op
 
 SOURCE = "paddle_tpu_torch/csrc/window_attention.cu"
 REPLACES = ("paddle_tpu/ops/pallas/window_attention.py:173 (_fwd_kernel, "
@@ -192,16 +193,22 @@ def window_attention(qkv, bias, mask, window_size, shift, num_heads):
     """Shifted-window attention over the post-projection image qkv [B, H,
     W, 3C] with the dense rel-pos bias [heads, ws², ws²] and the shift
     mask [nW, ws², ws²] (or None).  Returns [B, H, W, C] in qkv's dtype.
-    CPU tensors run the plain version; CUDA tensors launch the kernel or
-    raise, through `WindowAttentionCore` when `qkv` or `bias` requires
-    grad."""
-    global launches
-    if qkv.device.type == "cpu":
-        return window_attention_reference(qkv, bias, mask, window_size,
-                                          shift, num_heads)
+    When `qkv` or `bias` requires grad, through `WindowAttentionCore`
+    (the forward and backward kernels on CUDA, their plain versions on
+    the CPU); else the op ``paddle_tpu_torch::window_attention``: CPU
+    tensors run the plain version; CUDA tensors launch the kernel or
+    raise."""
+    _op.check_device("window_attention", qkv)
     if torch.is_grad_enabled() and (qkv.requires_grad or bias.requires_grad):
         return WindowAttentionCore.apply(qkv, bias, mask, window_size,
                                          shift, num_heads)
+    return _window_attention_op(qkv, bias, mask, int(window_size),
+                                int(shift), int(num_heads))
+
+
+def _window_attention_cuda(qkv, bias, mask, window_size, shift, num_heads):
+    """The CUDA implementation of ``paddle_tpu_torch::window_attention``."""
+    global launches
     ws, hd, bias, mask, qkv = _checked(
         "window_attention", qkv, bias, mask, window_size, shift, num_heads,
         lambda p, hd: 3 * p * (hd + 1) + p * p)
@@ -216,6 +223,18 @@ def window_attention(qkv, bias, mask, window_size, shift, num_heads):
     _build.check(err, "window_attention")
     launches += 1
     return out
+
+
+def _window_attention_fake(qkv, bias, mask, window_size, shift, num_heads):
+    b, h, w, c3 = qkv.shape
+    return qkv.new_empty((b, h, w, c3 // 3))
+
+
+_window_attention_op = _op.define(
+    "window_attention", "(Tensor qkv, Tensor bias, Tensor? mask, "
+    "int window_size, int shift, int num_heads) -> Tensor",
+    window_attention_reference, _window_attention_cuda,
+    _window_attention_fake)
 
 
 def window_attention_bwd(qkv, bias, mask, g, window_size, shift,

@@ -13,7 +13,10 @@
   * every kernel wrapper has a plain version and a launch counter, and
     only a CPU tensor reaches the plain version: the wrappers hold no
     try/except, the plain call sits under the CPU test, and a tensor on
-    any other device raises instead of running it;
+    any other device raises instead of running it; the forward wrappers
+    that are custom ops (``paddle_tpu_torch::<kernel>``, `_op.py`) call
+    their op, whose CPU implementation registered with torch is the
+    plain version and whose CUDA implementation never reaches one;
   * every wrapper takes float16 (its dtype table, and the source's
     `PT_F16` branch) and converts no input to another floating dtype on
     its way to the kernel;
@@ -27,8 +30,8 @@
     the host;
   * the vision path: the fused conv reaches only the `conv_bn_act`
     wrapper (the kernel on CUDA), Swin's attention only the
-    `window_attention` wrapper, which on CUDA sends inputs that require
-    grad through `WindowAttentionCore` before it could run anything;
+    `window_attention` wrapper, which sends inputs that require grad
+    through `WindowAttentionCore` before it could run anything;
     that function's forward and backward reach only the two window
     wrappers (the kernels on CUDA), never a plain version.
 """
@@ -47,6 +50,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.ops import kernels as K
+from paddle_tpu_torch.ops.kernels import _op
 
 # one intra-op thread a worker: the tier-1 run's xdist workers share
 # the host's cores, and torch's default pool (a thread a core in each
@@ -95,6 +99,15 @@ def test_import_leaves_jax_and_paddle_tpu_out():
         import paddle_tpu_torch.distributed.recompute
         import paddle_tpu_torch.distributed.checkpoint
         import paddle_tpu_torch.observability.step_stats
+        import paddle_tpu_torch.framework
+        import paddle_tpu_torch.io
+        import paddle_tpu_torch.io.shm_queue
+        import paddle_tpu_torch.native
+        import paddle_tpu_torch.metric
+        import paddle_tpu_torch.hapi
+        import paddle_tpu_torch.jit
+        import paddle_tpu_torch.distributed.env
+        paddle_tpu_torch.Model, paddle_tpu_torch.save, paddle_tpu_torch.flops
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu",
                                             "ml_dtypes"))
@@ -139,6 +152,9 @@ COPIES = ["observability/metrics.py", "observability/trace.py",
           "distributed/checkpoint/metadata.py",
           "distributed/checkpoint/__init__.py",
           "observability/goodput.py",
+          "io/dataset.py", "io/sampler.py", "hapi/callbacks.py",
+          # the ring's C++ source, compared byte for byte
+          "native/src/shm_ring.cc",
           # modules copied but for the top-level definitions named after
           # "-", which the port replaces with its own (torch in place of
           # jax, the CUDA allocator in place of PJRT's, the metadata
@@ -147,7 +163,13 @@ COPIES = ["observability/metrics.py", "observability/trace.py",
           "resilience/guards.py -tree_finite -tree_select",
           "observability/step_stats.py -_device_peak_bytes",
           "distributed/checkpoint/api.py -_proc_id -_np_dtype "
-          "-_snapshot_host -load_state_dict -_owned_copy"]
+          "-_snapshot_host -load_state_dict -_owned_copy",
+          # the rank and world size from torch.distributed, not jax; the
+          # ring's workers spawned without the TPU environment, their
+          # batches as torch tensors
+          "distributed/env.py -get_rank -get_world_size",
+          "io/shm_queue.py -run_process_workers -_to_numpy_tree "
+          "-_from_numpy_tree"]
 # the port's train step carries these functions of the JAX module as
 # copies
 COPIED_DEFS = {"distributed/train_step.py": ("save_train_checkpoint",
@@ -191,6 +213,11 @@ def _defs(path):
 def test_copied_module_matches_reference(rel):
     rel, *skip = rel.split(" -")
     port, ref = os.path.join(PKG, rel), os.path.join(REPO, "paddle_tpu", rel)
+    if not rel.endswith(".py"):
+        with open(port, "rb") as a, open(ref, "rb") as b:
+            assert a.read() == b.read(), \
+                f"paddle_tpu_torch/{rel} drifted from paddle_tpu/{rel}"
+        return
     if not skip:
         assert _code(port) == _code(ref), \
             f"paddle_tpu_torch/{rel} drifted from paddle_tpu/{rel}"
@@ -253,6 +280,33 @@ def test_entry_points_default_to_cuda():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='device="cpu"'):
             resolve_device(None)
+
+
+def test_file_and_loop_entry_points_default_to_cuda(tmp_path):
+    """`DataLoader`, `load`, `jit.load` and `Model` (for a network
+    without parameters) target the CUDA device unless told otherwise."""
+    import paddle_tpu_torch as PT
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.io import DataLoader, TensorDataset
+
+    ds = TensorDataset([np.arange(4, dtype=np.float32)])
+    path = str(tmp_path / "m")
+    net = torch.nn.Linear(2, 2)
+    jit.save(net, path, input_spec=[torch.zeros(1, 2)])
+    entries = [lambda **kw: DataLoader(ds, **kw).device,
+               lambda **kw: next(iter(PT.load(path + ".pdparams",
+                                              **kw).values())).device,
+               lambda **kw: next(iter(jit.load(path, **kw)._state.values()))
+               .device,
+               lambda **kw: PT.Model(torch.nn.ReLU(), **kw).device]
+    for entry in entries:
+        if torch.cuda.is_available():
+            assert entry().type == "cuda"
+            continue
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            entry()
+        assert entry(device="cpu").type == "cpu"
+    assert PT.Model(net).device == next(net.parameters()).device
 
 
 @pytest.mark.parametrize("name", sorted(K.KERNELS))
@@ -383,16 +437,39 @@ def test_redesigned_kernels_dispatch_by_shape(name, fast, general,
                          code, re.I)
 
 
-@pytest.mark.parametrize("name", sorted(K.KERNELS))
-def test_wrapper_reaches_plain_only_for_cpu(name):
-    k = K.KERNELS[name]
-    plain = k.plain
-    fn = ast.parse(textwrap.dedent(inspect.getsource(getattr(k.module,
-                                                              k.wrapper))))
-    assert not any(isinstance(n, ast.Try) for n in ast.walk(fn)), \
-        f"{k.wrapper} must not catch and fall back"
-    # every call of the plain version sits in the body of an
-    # `if <tensor>.device.type == "cpu":` branch
+def _registered(op):
+    """The Python functions torch runs for ``paddle_tpu_torch::<op>``:
+    the dispatcher has kernels on the CPU and CUDA keys (and the fake
+    one) and on no composite or autograd key that could take the call
+    first; a call on CPU tensors runs the registered CPU function (read
+    from the interpreter's call events) and never the CUDA one."""
+    qual = f"{_op.NAMESPACE}::{op}"
+    for key, want in (("CPU", True), ("CUDA", True), ("Meta", True),
+                      ("CompositeImplicitAutograd", False),
+                      ("CompositeExplicitAutograd", False),
+                      ("Autograd", False), ("AutogradCUDA", False)):
+        assert torch._C._dispatch_has_kernel_for_dispatch_key(qual, key) \
+            is want, (qual, key)
+    calls = []
+
+    def profile(frame, event, arg):
+        if event == "call":
+            calls.append(frame.f_code)
+
+    args = _op_cases()[op][0]
+    sys.setprofile(profile)
+    try:
+        getattr(torch.ops.paddle_tpu_torch, op).default(*args)
+    finally:
+        sys.setprofile(None)
+    impls = _op.IMPLS[op]
+    assert impls["cpu"].__code__ in calls
+    assert impls["cuda"].__code__ not in calls
+    return impls
+
+
+def _plain_calls(fn, plain):
+    """(call, enclosing nodes) of every call of `plain` in `fn`."""
     calls = []
 
     def visit(node, parents):
@@ -403,12 +480,110 @@ def test_wrapper_reaches_plain_only_for_cpu(name):
             visit(child, parents + [node])
 
     visit(fn, [])
+    return calls
+
+
+@pytest.mark.parametrize("name", sorted(K.KERNELS))
+def test_wrapper_reaches_plain_only_for_cpu(name):
+    """A wrapper that launches through `ctypes` itself: every call of
+    its plain version sits in the body of an `if <tensor>.device.type ==
+    "cpu":` branch.  A wrapper that is a custom op: it calls no plain
+    version, checks the device first, then calls its op; torch
+    dispatches the op's CPU tensors to the implementation that is (or
+    calls) the plain version and its CUDA tensors to the one that, with
+    the module's helpers it calls, never reaches a plain version.  None
+    of them catches and falls back."""
+    k = K.KERNELS[name]
+    plain = k.plain
+    fn = ast.parse(textwrap.dedent(inspect.getsource(getattr(k.module,
+                                                              k.wrapper))))
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(fn)), \
+        f"{k.wrapper} must not catch and fall back"
+    if k.wrapper in _op.IMPLS:
+        impls = _registered(k.wrapper)
+        assert not _plain_calls(fn, "_reference"), k.wrapper
+        body = fn.body[0].body
+        calls = [ast.unparse(n) for n in body]
+        check = next(i for i, c in enumerate(calls)
+                     if "_op.check_device(" in c)
+        call = next(i for i, c in enumerate(calls)
+                    if f"_{k.wrapper}_op(" in c)
+        assert check < call, calls
+        cpu = impls["cpu"]
+        assert cpu is getattr(k.module, plain) or _plain_calls(
+            ast.parse(textwrap.dedent(inspect.getsource(cpu))), plain)
+        for helper in _module_helpers(impls["cuda"], k.module):
+            tree = ast.parse(textwrap.dedent(inspect.getsource(helper)))
+            assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
+            assert not _plain_calls(tree, "_reference"), helper.__name__
+        return
+    calls = _plain_calls(fn, plain)
     assert calls, f"{k.wrapper} never calls {plain}"
     for call, parents in calls:
         guards = [p for p in parents if isinstance(p, ast.If)
                   and any(call in ast.walk(s) for s in p.body)]
         assert guards and all("device.type == 'cpu'" in ast.unparse(g.test)
                               for g in guards), ast.unparse(call)
+
+
+def _op_cases():
+    """Small CPU arguments of each custom op, in its schema's order."""
+    g = torch.Generator().manual_seed(0)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g)
+
+    cu = torch.tensor([0, 2, 6], dtype=torch.int32)
+    return {
+        "flash_fwd": [(r(1, 8, 2, 16), r(1, 8, 1, 16), r(1, 8, 1, 16),
+                       None, True, False),
+                      (r(1, 2, 8, 16), r(1, 8, 2, 16), r(1, 8, 2, 16),
+                       None, False, True),
+                      (r(2, 4, 2, 8), r(2, 6, 2, 8), r(2, 6, 2, 8),
+                       torch.ones(2, 1, 1, 6, dtype=torch.bool), False,
+                       False)],
+        "rope": [(r(1, 8, 2, 16), r(1, 8, 1, 16), r(1, 8, 1, 16), False,
+                  False, r(1, 8, 1, 16)),
+                 (r(2, 4, 3, 8), r(1, 4, 1, 8), r(1, 4, 1, 8), True, True,
+                  None)],
+        "conv_bn_act": [(r(2, 4, 7, 7), r(8, 4, 3, 3), r(8), r(8), [2, 2],
+                         [1, 1], "relu"),
+                        (r(1, 4, 5, 5), r(4, 1, 3, 3), r(4), r(4), [1, 1],
+                         [1, 1], None)],
+        "window_attention": [(r(1, 4, 4, 24), r(2, 16, 16), None, 4, 0, 2),
+                             (r(1, 8, 8, 24), r(2, 16, 16), r(4, 16, 16), 4,
+                              2, 2)],
+        "fused_norm": [(r(4, 8), r(8), None, None, r(4, 8), 1e-6, "rms"),
+                       (r(3, 6), r(6), r(6), None, None, 1e-5, "ln")],
+        "varlen_fwd": [(r(6, 2, 8), r(6, 2, 8), r(6, 2, 8), cu, cu, None,
+                        True)],
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_op.IMPLS))
+def test_kernel_ops_trace_with_their_output_shapes(name):
+    """Each custom op is ``paddle_tpu_torch::<name>``; its fake
+    implementation gives the shapes and dtypes its CPU implementation
+    returns (what `torch.export` traces is what runs); a CPU call counts
+    no launch; its CUDA implementation adds one to a launch counter of
+    its module, which is how a loaded program's launches are counted."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    op = getattr(torch.ops.paddle_tpu_torch, name).default
+    assert op.name() == f"paddle_tpu_torch::{name}"
+    K.reset_launches()
+    for args in _op_cases()[name]:
+        real = op(*args)
+        with FakeTensorMode() as mode:
+            fake = op(*[mode.from_tensor(a) if isinstance(a, torch.Tensor)
+                        else a for a in args])
+        real = list(real) if isinstance(real, (list, tuple)) else [real]
+        fake = list(fake) if isinstance(fake, (list, tuple)) else [fake]
+        assert [(tuple(t.shape), t.dtype) for t in fake] == \
+            [(tuple(t.shape), t.dtype) for t in real]
+    assert K.launch_counts() == {n: 0 for n in K.KERNELS}
+    src = inspect.getsource(_op.IMPLS[name]["cuda"])
+    assert re.search(r"\b(bwd_)?launches \+= 1", src), src
 
 
 @pytest.mark.parametrize("name", sorted(K.KERNELS))
@@ -452,9 +627,13 @@ def test_wrapper_converts_no_cuda_tensor_before_its_launch(name):
     instantiation as float16 bits.  The one exception is an f32 operand
     by contract, the attention bias and the shift mask (`.to(torch.
     float32)`), which every dtype's kernel reads in f32.  The CPU branch
-    (the plain version) is left out."""
+    (the plain version) is left out; for a custom op, its CUDA
+    implementation and its helpers are read too."""
     k = K.KERNELS[name]
-    for fn in _module_helpers(getattr(k.module, k.wrapper), k.module):
+    fns = _module_helpers(getattr(k.module, k.wrapper), k.module)
+    if k.wrapper in _op.IMPLS:     # and the op's CUDA implementation
+        fns = _module_helpers(_op.IMPLS[k.wrapper]["cuda"], k.module, fns)
+    for fn in fns:
         tree = ast.parse(textwrap.dedent(inspect.getsource(fn)))
         for node in ast.walk(tree):   # drop the plain versions' CPU branch
             if isinstance(node, ast.If) and \
@@ -695,11 +874,12 @@ def test_conv_bn_act_reaches_only_the_kernel():
 
 
 def test_window_attention_refuses_grad_on_cuda_before_any_work():
-    """Inputs that require grad on CUDA leave the wrapper for the
-    autograd function before any work: in the wrapper the CPU branch
-    comes first, then the grad check, whose branch returns
-    `WindowAttentionCore.apply`, then the input checks and the library.
-    The function's forward calls only the wrapper and its backward only
+    """Inputs that require grad leave the wrapper for the autograd
+    function before any work: in the wrapper the device check comes
+    first, then the grad check, whose branch returns
+    `WindowAttentionCore.apply`, then the op; in the op's CUDA
+    implementation the input checks come before the library.  The
+    function's forward calls only the wrapper and its backward only
     `window_attention_bwd` (the kernels on CUDA), with nothing caught
     and no plain version; Swin's attention calls only the wrapper."""
     from paddle_tpu_torch.vision.models import swin
@@ -707,18 +887,24 @@ def test_window_attention_refuses_grad_on_cuda_before_any_work():
     wa = K.window_attention
     fn = ast.parse(textwrap.dedent(inspect.getsource(
         wa.window_attention))).body[0]
+    stmts = [ast.unparse(n) for n in fn.body]
     tests = [ast.unparse(n.test) if isinstance(n, ast.If) else None
              for n in fn.body]
-    cpu = tests.index("qkv.device.type == 'cpu'")
+    dev = next(i for i, t in enumerate(stmts) if "check_device" in t)
     grad = next(i for i, t in enumerate(tests) if t and "requires_grad" in t)
-    work = next(i for i, n in enumerate(fn.body)
-                if "_checked" in ast.unparse(n))
-    lib = next(i for i, n in enumerate(fn.body)
-               if "_build.library" in ast.unparse(n))
-    assert cpu < grad < work < lib
+    op = next(i for i, t in enumerate(stmts)
+              if "_window_attention_op(" in t)
+    assert dev < grad < op
     routed = fn.body[grad].body[0]
     assert isinstance(routed, ast.Return) and \
         ast.unparse(routed.value.func) == "WindowAttentionCore.apply"
+    cuda = ast.parse(textwrap.dedent(inspect.getsource(
+        _op.IMPLS["window_attention"]["cuda"]))).body[0]
+    work = next(i for i, n in enumerate(cuda.body)
+                if "_checked" in ast.unparse(n))
+    lib = next(i for i, n in enumerate(cuda.body)
+               if "_build.library" in ast.unparse(n))
+    assert work < lib
     for method, wrapper in ((wa.WindowAttentionCore.forward,
                              "window_attention"),
                             (wa.WindowAttentionCore.backward,
