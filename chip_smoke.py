@@ -387,7 +387,28 @@ non-zero and prints no result):
      the eager forward, its graph holding the ``paddle_tpu_torch::``
      nodes (conv_bn_act, flash_fwd, rope, window_attention) and
      launching them (49, 12, 2 + 2, 4 a call); ms a call of the loaded
-     program beside the eager forward's.
+     program beside the eager forward's;
+ 38. static_program: gpt_1p3b (bf16, 24 layers, [8, 1024] ids) and
+     ResNet-50 (f32 and bf16, [8, 3, 224, 224]) recorded as static
+     Programs (no launch while recording) and run by `static.Executor()`
+     on the card: the first run (eager) and the graph replays bit for
+     bit the eager forward, 24 flash_fwd / 49 conv_bn_act a call; ms a
+     call of the eager forward, the first run and a replay;
+ 39. saved_model: `save_inference_model` -> `create_predictor` of each:
+     `Predictor.run` bit for bit `Executor.run` with the same launches;
+     file sizes, save / load seconds, ms a call; ResNet-50 f32 saved on
+     [-1, 3, 224, 224] run at batches 1, 8 and 32 bit for bit the eager
+     forward; the C ABI (`PD_PredictorCreate` / `PD_PredictorRun` via
+     ctypes) bit for bit the Predictor;
+ 40. saved_model_serve: `InferenceServer(model_path=)` of the ResNet-50
+     f32 program over HTTP: 32 `/predict` requests of batch 8 bit for
+     bit `Predictor.run`; p50 / p99 request ms and the server's added ms;
+ 41. fleet_model: two `kind="model"` replicas of a gpt_1p3b program
+     saved on [1, 128] ids (fetch: the last position's logits in f32)
+     behind the `Router`: routed `/predict` bit for bit the in-process
+     predictor, 24 flash_fwd a run; lifecycle phases and spawn ->
+     routable ms; a replica killed with SIGKILL relaunched (heal ms); a
+     drained replica exits 0.
 
 Phase 3 also holds paged_attention_int8 (the gpt_1p3b row's pool in
 int8, and a llama_7b decode step, 32 kv heads over ~1000 keys each, with
@@ -7089,6 +7110,464 @@ def phase_jit_save(card):
     return total
 
 
+
+# ------------------------------------------------------- phases 38 - 41
+SERVE_REQUESTS = 32      # phase 40: /predict requests of a batch of 8
+FLEET_SEQ = 128          # phase 41: the replicas' saved ids [1, 128]
+
+
+def _counts_add(total, counts):
+    for k, v in counts.items():
+        total[k] += v
+
+
+def _record(model, shape, dtype, tail=None):
+    """`model` recorded as a static Program on `static.data("x", shape,
+    dtype)` (then `tail` of its output, recorded too): (program, feed
+    Variable, fetch Variable, record seconds).  Recording launches
+    nothing."""
+    import paddle_tpu_torch as PT
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.ops import kernels as K
+
+    prog = static.Program()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    PT.enable_static()
+    try:
+        with static.program_guard(prog):
+            x = static.data("x", shape, dtype)
+            y = model(x)
+            if tail is not None:
+                y = tail(y)
+    finally:
+        PT.disable_static()
+    t = time.perf_counter() - t0
+    check(not any(K.launch_counts().values()),
+          f"static_program: recording launched {K.launch_counts()}")
+    return prog, x, y, t
+
+
+def _per_call(counts, calls, want, what):
+    per = {k: v / calls for k, v in counts.items() if v}
+    check(per == want, f"{what}: launches a call {json.dumps(per)}, "
+          f"expected {want}")
+    return per
+
+
+def _static_cases(torch):
+    """(name, model, the fed tensor, its declared shape and dtype name,
+    the launches one call makes) of phases 38-40: gpt_1p3b bf16 on
+    [8, 1024] ids, ResNet-50 f32 and bf16 on [8, 3, 224, 224]."""
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_1p3b
+
+    rs = np.random.RandomState(SEED + 6)
+    cfg = gpt_1p3b()
+    gpt = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                         seed=SEED)
+    ids = torch.from_numpy(rs.randint(0, cfg.vocab_size, (8, 1024))
+                           .astype(np.int64)).cuda()
+    imgs = torch.from_numpy(rs.randn(8, 3, 224, 224).astype(
+        np.float32)).cuda()
+    out = [("gpt_1p3b bf16", gpt, ids, "int64",
+            {"flash_fwd": cfg.num_layers})]
+    for dtype in (torch.float32, torch.bfloat16):
+        net = _vision_model("resnet50", "cuda", dtype)
+        out.append((f"resnet50 {_dn(dtype)}", net, imgs.to(dtype),
+                    str(dtype).split(".")[1], {"conv_bn_act": 49}))
+    return out
+
+
+def phase_static_program(card, cases):
+    """38. static_program: each case (gpt_1p3b bf16 at full width, 24
+    layers, seeded, on `static.data("x", [8, 1024], "int64")`; ResNet-50
+    f32 and bf16 on [8, 3, 224, 224]) recorded as a static Program (no
+    launch while recording), then `static.Executor()` on the card: its
+    first run (the eager warm-up of the capture) and two graph replays
+    each equal the eager forward bit for bit, 24 flash_fwd or 49
+    conv_bn_act launches a call; ms a call of the eager forward, the
+    Executor's first run and its replay.  Returns the programs (for
+    phases 39-40) and the launch counts of the checked runs."""
+    import torch
+
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.ops import kernels as K
+
+    total = dict.fromkeys(K.KERNELS, 0)
+    programs = []
+    exe = static.Executor()
+    for name, model, x, dtype, want in cases:
+        with torch.no_grad():
+            eager = model(x)
+            ms_eager = time_ms(lambda: model(x), iters=5)
+        prog, fx, fy, t_rec = _record(model, list(x.shape), dtype)
+        feed = {"x": x}
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        (first,) = exe.run(prog, feed=feed, fetch_list=[fy],
+                           return_numpy=False)
+        torch.cuda.synchronize()
+        ms_first = (time.perf_counter() - t0) * 1e3
+        outs = [first]
+        for _ in range(2):
+            outs += exe.run(prog, feed=feed, fetch_list=[fy],
+                            return_numpy=False)
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        _per_call(counts, 3, want, f"static_program {name}")
+        _counts_add(total, counts)
+        for i, o in enumerate(outs):
+            check(torch.equal(o, eager), f"static_program {name}: run {i} "
+                  f"(0 eager, then replays) differs from the eager forward "
+                  f"(max {(o.float() - eager.float()).abs().max().item():.3g})")
+        ms_replay = time_ms(lambda: exe.run(prog, feed=feed, fetch_list=[fy],
+                                            return_numpy=False), iters=5)
+        log(f"[static_program] {name} {tuple(x.shape)} ({card}): "
+            f"{len(prog.ops)} recorded ops, {len(prog.captures)} captures, "
+            f"recorded in {t_rec:.2f} s with no launch; eager forward "
+            f"{ms_eager:.3f} ms, Executor first run (eager warm-up + "
+            f"capture) {ms_first:.1f} ms, replay {ms_replay:.3f} ms a call; "
+            f"first run and replays bit for bit the eager forward; "
+            f"launches a call {json.dumps(want)}")
+        programs.append((name, model, x, prog, fx, fy, want, ms_eager))
+        del eager, outs, first
+    del exe
+    _release_card()
+    return programs, total
+
+
+def _saved(prefix, prog, fx, fy):
+    """save_inference_model of `prog`: (seconds, .pdmodel and .pdiparams
+    bytes)."""
+    from paddle_tpu_torch import static
+
+    t0 = time.perf_counter()
+    static.save_inference_model(prefix, [fx], [fy], program=prog)
+    t = time.perf_counter() - t0
+    return t, os.path.getsize(prefix + ".pdmodel"), \
+        os.path.getsize(prefix + ".pdiparams")
+
+
+def phase_saved_model(card, programs):
+    """39. saved_model: `save_inference_model` -> `create_predictor(
+    Config(prefix))` of each phase-38 program: `Predictor.run` (its first
+    run, the capture's warm-up, and a replay) equals `Executor.run` bit
+    for bit, with the same launches; `.pdmodel` / `.pdiparams` bytes, save
+    and load seconds, the predictor's ms a call beside the eager
+    forward's.  Then ResNet-50 f32 recorded on [-1, 3, 224, 224] and
+    saved with a dynamic batch: the predictor at batches 1, 8 and 32
+    (each a graph of its own) equals the eager forward bit for bit, 49
+    conv_bn_act a call; and the C ABI (`PD_PredictorCreate` /
+    `PD_PredictorRun` through ctypes, the library built with g++) on the
+    ResNet-50 f32 program equals the Predictor bit for bit.  Returns the
+    ResNet-50 f32 prefix's directory and prefix, and the launch
+    counts."""
+    import ctypes
+
+    import torch
+
+    from paddle_tpu_torch import inference as TI
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.native import capi
+    from paddle_tpu_torch.ops import kernels as K
+
+    total = dict.fromkeys(K.KERNELS, 0)
+    d = _tmpdir("saved")
+    exe = static.Executor()
+    keep = None
+    for name, model, x, prog, fx, fy, want, ms_eager in programs:
+        prefix = os.path.join(d, name.replace(" ", "_"))
+        t_save, n_model, n_params = _saved(prefix, prog, fx, fy)
+        (ref,) = exe.run(prog, feed={"x": x}, fetch_list=[fy],
+                         return_numpy=False)
+        t0 = time.perf_counter()
+        pred = TI.create_predictor(TI.Config(prefix))
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        (fin,) = pred.get_input_names()
+        (fout,) = pred.get_output_names()
+        pred.get_input_handle(fin).copy_from_cpu(x)
+        K.reset_launches()
+        outs = []
+        for _ in range(2):
+            pred.run()
+            outs.append(pred.get_output_handle(fout)._value)
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        _per_call(counts, 2, want, f"saved_model {name}")
+        _counts_add(total, counts)
+        for i, o in enumerate(outs):
+            check(torch.equal(o, ref), f"saved_model {name}: Predictor run "
+                  f"{i} differs from Executor.run")
+        ms_pred = time_ms(pred.run, iters=5)
+        log(f"[saved_model] {name} ({card}): .pdmodel "
+            f"{n_model / 2**20:.2f} MiB, .pdiparams {n_params / 2**20:.1f} "
+            f"MiB, save {t_save:.2f} s, create_predictor {t_load:.2f} s; "
+            f"Predictor.run {ms_pred:.3f} ms a call beside the eager "
+            f"forward's {ms_eager:.3f} ms; first run and replay bit for bit "
+            f"Executor.run; launches a call {json.dumps(want)}")
+        if name == "resnet50 f32":
+            keep = (prefix, model, x, pred)
+        else:
+            del pred
+        del ref, outs
+        _release_card()
+    # the dynamic batch
+    prefix, model, x, pred = keep
+    dprog, dx, dy, _ = _record(model, [-1, 3, 224, 224], "float32")
+    dprefix = prefix + "_dyn"
+    t_save, n_model, _ = _saved(dprefix, dprog, dx, dy)
+    dpred = TI.create_predictor(TI.Config(dprefix))
+    check(dpred.input_specs()["x"][0] == [-1, 3, 224, 224],
+          f"saved_model: the dynamic program takes "
+          f"{dpred.input_specs()['x']}")
+    rs = np.random.RandomState(SEED + 7)
+    sizes = []
+    for b in (1, 8, 32):
+        xb = torch.from_numpy(rs.randn(b, 3, 224, 224).astype(
+            np.float32)).cuda()
+        with torch.no_grad():
+            eager = model(xb)
+        K.reset_launches()
+        (o,) = dpred._prog.run_tensors([xb])
+        (o2,) = dpred._prog.run_tensors([xb])
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        _per_call(counts, 2, {"conv_bn_act": 49}, f"saved_model batch {b}")
+        _counts_add(total, counts)
+        check(torch.equal(o, eager) and torch.equal(o2, eager),
+              f"saved_model: the dynamic-batch program at batch {b} differs "
+              f"from the eager forward (max "
+              f"{(o - eager).abs().max().item():.3g})")
+        sizes.append((b, time_ms(lambda: dpred._prog.run_tensors([xb]),
+                                 iters=5)))
+    log(f"[saved_model] resnet50 f32 [-1, 3, 224, 224] ({card}): saved in "
+        f"{t_save:.2f} s (.pdmodel {n_model / 2**20:.2f} MiB, one Dim); "
+        f"batches 1 / 8 / 32 each bit for bit the eager forward, 49 "
+        f"conv_bn_act a call; ms a call "
+        + ", ".join(f"B{b} {ms:.3f}" for b, ms in sizes))
+    del dpred
+    # the C ABI on the f32 program
+    lib = capi.load()
+    h = lib.PD_PredictorCreate(prefix.encode())
+    check(h > 0, f"capi: PD_PredictorCreate: {lib.PD_LastError()}")
+    xs = x.cpu().numpy()
+    (want_np,) = pred.run([xs])
+    td = capi.np_to_td(xs)
+    outs = (capi.PD_TensorData * 2)()
+    K.reset_launches()
+    got = []
+    for _ in range(2):
+        n = lib.PD_PredictorRun(h, ctypes.byref(td), 1, outs, 2)
+        check(n == 1, f"capi: PD_PredictorRun gave {n}: "
+              f"{lib.PD_LastError()}")
+        got.append(capi.td_to_np(outs[0]))
+        lib.PD_ReleaseOutputs(outs, n)
+    counts = K.launch_counts()
+    _per_call(counts, 2, {"conv_bn_act": 49}, "saved_model C ABI")
+    _counts_add(total, counts)
+    for i, g in enumerate(got):
+        check(g.dtype == want_np.dtype and np.array_equal(g, want_np),
+              f"capi: run {i} differs from Predictor.run")
+    t0 = time.perf_counter()
+    for _ in range(5):
+        lib.PD_PredictorRun(h, ctypes.byref(td), 1, outs, 2)
+        lib.PD_ReleaseOutputs(outs, 1)
+    ms_c = (time.perf_counter() - t0) / 5 * 1e3
+    check(lib.PD_PredictorDestroy(h) == 1, "capi: PD_PredictorDestroy")
+    log(f"[saved_model] C ABI on resnet50 f32 ({card}): PD_PredictorRun "
+        f"bit for bit Predictor.run ({want_np.shape} {want_np.dtype}), "
+        f"{ms_c:.3f} ms a call host to host; 49 conv_bn_act a call")
+    del pred, exe
+    _release_card()
+    return (d, prefix), total
+
+
+def phase_saved_model_serve(card, saved):
+    """40. saved_model_serve: `InferenceServer(model_path=)` of phase 39's
+    ResNet-50 f32 program over HTTP on 127.0.0.1: SERVE_REQUESTS
+    `/predict` requests of a seeded batch of 8 each equal an in-process
+    `Predictor.run` of the same batch bit for bit, 49 conv_bn_act a
+    request; p50 / p99 request ms, the in-process call's ms and the
+    server's added ms.  Returns the launch counts."""
+    import torch
+
+    from paddle_tpu_torch import inference as TI
+    from paddle_tpu_torch.inference import serving as S
+    from paddle_tpu_torch.ops import kernels as K
+
+    _, prefix = saved
+    rs = np.random.RandomState(SEED + 8)
+    batches = [rs.randn(8, 3, 224, 224).astype(np.float32)
+               for _ in range(SERVE_REQUESTS)]
+    pred = TI.create_predictor(TI.Config(prefix))
+    want = [pred.run([b])[0] for b in batches]
+    inproc = []
+    for b in batches[:8]:
+        t0 = time.perf_counter()
+        pred.run([b])
+        inproc.append((time.perf_counter() - t0) * 1e3)
+    srv = S.InferenceServer(model_path=prefix)
+    srv.start()
+    try:
+        cli = S.InferenceClient(srv.address, timeout=120, retries=0)
+        cli.predict(x=batches[0])     # the server's predictor captures
+        torch.cuda.synchronize()
+        K.reset_launches()
+        ms = []
+        for i, b in enumerate(batches):
+            t0 = time.perf_counter()
+            got = cli.predict(x=b)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            (out,) = got.values()
+            check(np.array_equal(out, want[i]), f"saved_model_serve: "
+                  f"request {i} differs from Predictor.run")
+        counts = K.launch_counts()
+    finally:
+        srv.shutdown()
+    _per_call(counts, SERVE_REQUESTS, {"conv_bn_act": 49},
+              "saved_model_serve")
+    p50, p99 = _pct(ms, 0.5), _pct(ms, 0.99)
+    base = float(np.median(inproc))
+    log(f"[saved_model_serve] resnet50 f32 B8 over HTTP ({card}): "
+        f"{SERVE_REQUESTS} /predict requests bit for bit Predictor.run; "
+        f"request p50 {p50:.2f} ms, p99 {p99:.2f} ms; in-process "
+        f"Predictor.run (numpy in and out) {base:.2f} ms; the server adds "
+        f"{p50 - base:.2f} ms at p50; 49 conv_bn_act a request")
+    del pred
+    _release_card()
+    return counts
+
+
+def phase_fleet_model(card, saved):
+    """41. fleet_model: gpt_1p3b (full width, 24 layers, bf16, seeded)
+    recorded on [1, FLEET_SEQ] ids with the last position's logits in f32
+    as its fetch (``logits[:, -1].float()``, recorded in the Program) and
+    saved; a `ReplicaFleet` of two ``kind="model"`` replicas on the card
+    behind the `Router`: each warms up at the saved signature before it
+    announces (lifecycle phases logged, spawn -> routable ms); `/predict`
+    through the router equals an in-process predictor bit for bit; one
+    replica killed with SIGKILL is relaunched by the monitor (kill ->
+    routable again: the heal ms); a drained replica exits 0.  Returns the
+    replicas' launch counts over the routed requests (24 flash_fwd a
+    run, from their /debug/telemetry)."""
+    import shutil
+
+    import torch
+
+    from paddle_tpu_torch import inference as TI
+    from paddle_tpu_torch.inference import fleet as FL
+    from paddle_tpu_torch.inference.serving import InferenceClient
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_1p3b
+    from paddle_tpu_torch.ops import kernels as K
+
+    d, _ = saved
+    cfg = gpt_1p3b()
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                           seed=SEED)
+    prog, fx, fy, _ = _record(model, [1, FLEET_SEQ], "int64",
+                              tail=lambda y: y[:, -1].float())
+    prefix = os.path.join(d, "gpt_1p3b_last")
+    t_save, n_model, n_params = _saved(prefix, prog, fx, fy)
+    del model, prog, fx, fy
+    _release_card()
+    rs = np.random.RandomState(SEED + 9)
+    reqs = [rs.randint(0, cfg.vocab_size, (1, FLEET_SEQ)).astype(np.int64)
+            for _ in range(4)]
+    pred = TI.create_predictor(TI.Config(prefix))
+    want = [pred.run([r])[0] for r in reqs]
+    check(want[0].shape == (1, cfg.vocab_size)
+          and want[0].dtype == np.float32
+          and all(np.isfinite(w).all() for w in want),
+          f"fleet_model: in-process fetch {want[0].shape} {want[0].dtype}")
+    del pred
+    _release_card()
+    t0 = time.perf_counter()
+    fleet = FL.ReplicaFleet(num_replicas=2, kind="model", model_path=prefix,
+                            launch_timeout=300)
+    counts = dict.fromkeys(K.KERNELS, 0)
+    try:
+        fleet.start(ready_timeout=300)
+        t_up = time.perf_counter() - t0
+        cli = InferenceClient(fleet.router.address, timeout=120, retries=2)
+        for rnd in range(2):
+            for i, r in enumerate(reqs):
+                (out,) = cli.predict(x=r).values()
+                check(np.array_equal(out, want[i]), f"fleet_model: round "
+                      f"{rnd} request {i} through the router differs from "
+                      "the in-process predictor")
+        runs = 0
+        for h in list(fleet._handles.values()):
+            code, snap = _get_json(h.address + "/debug/telemetry")
+            check(code == 200 and "kernels" in snap,
+                  f"replica {h.rid}: /debug/telemetry {code}")
+            k = snap["kernels"]
+            check(k["launches"]["flash_fwd"] == cfg.num_layers
+                  * k["predictor_runs"]
+                  and sum(k["launches"].values())
+                  == k["launches"]["flash_fwd"],
+                  f"replica {h.rid}: launches {k}")
+            runs += k["predictor_runs"]
+            _counts_add(counts, k["launches"])
+        check(runs == 2 * len(reqs), f"fleet_model: {runs} replica runs")
+        view = fleet.lifecycle.fleet_view()["records"]
+        for rec in view:
+            rep = rec.get("replica") or {}
+            ph = rep.get("phases", {})
+            check(ph["warmup"]["mono_ms"] <= ph["announce"]["mono_ms"],
+                  f"replica {rec['rid']}: lifecycle {rep}")
+            sup = rec.get("supervisor_ms", {})
+            log(f"[fleet_model] replica {rec['rid']} ({card}): spawn -> "
+                f"announce {sup.get('announce', float('nan')):.1f} ms, -> "
+                f"first probe up "
+                f"{sup.get('first_probe_up', float('nan')):.1f} ms; "
+                f"phases (ms) " + json.dumps(
+                    {k: round(v, 1) for k, v in
+                     rep.get("durations_ms", {}).items()}))
+        # kill -9 one replica: the monitor relaunches it
+        victim = fleet._handles[0]
+        proc = victim.proc
+        t1 = time.perf_counter()
+        fleet.kill_replica(victim.rank)
+        proc.wait(timeout=60)
+        deadline = time.monotonic() + 300
+        while not any(ev["kind"] == "replica_relaunched"
+                      for ev in fleet.events):
+            check(time.monotonic() < deadline, f"fleet_model: the killed "
+                  f"replica was not relaunched: {fleet.describe()}")
+            time.sleep(0.05)
+        check(fleet.wait_ready(n=2, timeout=300), f"fleet_model: the "
+              f"relaunched replica is not routable: {fleet.describe()}")
+        t_heal = time.perf_counter() - t1
+        (out,) = cli.predict(x=reqs[0]).values()
+        check(np.array_equal(out, want[0]), "fleet_model: after the heal "
+              "the router's answer differs")
+        # drain the other replica: it exits 0
+        fleet.drain_replica(fleet._handles[1].rank, grace=60.0)
+        deadline = time.monotonic() + 120
+        while not any(ev["kind"] == "replica_exit" and ev.get("drained")
+                      for ev in fleet.events):
+            check(time.monotonic() < deadline, "fleet_model: the drained "
+                  "replica never exited")
+            time.sleep(0.05)
+        rc = [ev["rc"] for ev in fleet.events
+              if ev["kind"] == "replica_exit" and ev.get("drained")]
+        check(rc == [0], f"fleet_model: the drained replica exited {rc}")
+    finally:
+        fleet.stop()
+        shutil.rmtree(d, ignore_errors=True)
+    log(f"[fleet_model] gpt_1p3b bf16 saved on [1, {FLEET_SEQ}] ids, fetch "
+        f"logits[:, -1] f32 ({card}): save {t_save:.1f} s (.pdmodel "
+        f"{n_model / 2**20:.2f} MiB, .pdiparams {n_params / 2**20:.0f} MiB); "
+        f"2 model replicas spawn -> routable {t_up * 1e3:.1f} ms; "
+        f"{2 * len(reqs)} routed /predict bit for bit the in-process "
+        f"predictor, {cfg.num_layers} flash_fwd a run; kill -9 -> routable "
+        f"again (heal) {t_heal * 1e3:.1f} ms; the drained replica exited 0")
+    _release_card()
+    return counts
+
+
 def main():
     try:
         import torch
@@ -7288,6 +7767,16 @@ def main():
         path("hapi_fit", phase_hapi_fit, card)
         path("hapi_vision", phase_hapi_vision, card)
         path("jit_save", phase_jit_save, card)
+        release()
+        programs, paths["static_program"] = run(
+            "static_program", phase_static_program, card,
+            _static_cases(torch))
+        saved, paths["saved_model"] = run("saved_model", phase_saved_model,
+                                          card, programs)
+        del programs
+        release()
+        path("saved_model_serve", phase_saved_model_serve, card, saved)
+        path("fleet_model", phase_fleet_model, card, saved)
         release()
         path("fleet", phase_fleet)
         rows = []

@@ -38,22 +38,31 @@ high-level loop and its files (slice 24): `save` / `load` in the JAX
 package's format (`framework.io_utils`), `io` (datasets, samplers, the
 `DataLoader` with shared-memory workers), `metric`, `hapi` (`Model`,
 `summary`, `flops`) and `jit.save` / `jit.load` through `torch.export`,
-with the kernels as custom ops inside the saved program.
+with the kernels as custom ops inside the saved program; static programs
+and saved-model serving (slice 25): `enable_static`, `static` (`data`,
+`Program`, `Executor`, `save_inference_model` / `load_inference_model`,
+the layer builders of `static.nn`), `inference.Config` /
+`create_predictor` / `Predictor` and the C inference ABI
+(`native/capi.py`), `InferenceServer(model_path=)` and fleet replicas of
+kind ``model``.
 """
 from __future__ import annotations
 
 import importlib
 
-__all__ = ["Model", "amp", "core", "flops", "framework", "hapi",
-           "incubate", "inference", "io", "jit", "load", "metric", "models",
-           "nn", "observability", "ops", "optimizer", "regularizer", "save",
-           "summary", "vision"]
+__all__ = ["Model", "amp", "core", "disable_static", "enable_static",
+           "flops", "framework", "hapi", "in_dynamic_mode", "incubate",
+           "inference", "io", "jit", "load", "metric", "models", "nn",
+           "observability", "ops", "optimizer", "regularizer", "save",
+           "static", "summary", "vision"]
 
 # top-level names, imported at first use (the package's import stays
 # light: the DataLoader's worker processes import it)
 _LAZY = {"save": "framework.io_utils", "load": "framework.io_utils",
          "Model": "hapi.model", "summary": "hapi.summary",
-         "flops": "hapi.summary"}
+         "flops": "hapi.summary", "enable_static": "static.recorder",
+         "disable_static": "static.recorder",
+         "in_dynamic_mode": "static.recorder"}
 
 
 def __getattr__(name):

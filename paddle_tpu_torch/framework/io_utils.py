@@ -35,14 +35,27 @@ def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).replace("torch.", "")
 
 
+def to_numpy(t) -> np.ndarray:
+    """A tensor on the host as numpy; bfloat16 as its uint16 words."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def from_numpy(data, bfloat16=False) -> torch.Tensor:
+    """A CPU tensor of a copy of `data` (an unpickled array may be a
+    read-only view of its bytes); with `bfloat16`, `data` holds the
+    uint16 words of a bfloat16 tensor."""
+    data = np.array(data)
+    if bfloat16:
+        return torch.from_numpy(data.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(data)
+
+
 def _to_storable(obj):
     if isinstance(obj, torch.Tensor):
-        t = obj.detach().cpu()
-        if t.dtype == torch.bfloat16:
-            data = t.view(torch.int16).numpy().view(np.uint16)
-        else:
-            data = t.numpy()
-        return _TensorPayload(data, _dtype_name(obj.dtype))
+        return _TensorPayload(to_numpy(obj), _dtype_name(obj.dtype))
     if isinstance(obj, dict):
         return {k: _to_storable(v) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
@@ -52,13 +65,7 @@ def _to_storable(obj):
 
 def _from_storable(obj, device):
     if isinstance(obj, _TensorPayload):
-        # a copy: an unpickled array may be a read-only view of its bytes
-        data = np.array(obj.data)
-        if obj.dtype == "bfloat16":
-            t = torch.from_numpy(data.view(np.int16)).view(torch.bfloat16)
-        else:
-            t = torch.from_numpy(data)
-        return t.to(device)
+        return from_numpy(obj.data, obj.dtype == "bfloat16").to(device)
     if isinstance(obj, dict):
         return {k: _from_storable(v, device) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):

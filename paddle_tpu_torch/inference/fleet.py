@@ -36,23 +36,25 @@ fast startup, the unit/chaos workhorse), `toy` (echo predict + the
 deterministic `ToyEngine` token streamer, for /generate failover
 proofs without a model), `gpt` (the port's paged-KV `InferenceEngine`
 over a small seeded GPT), `model` (a saved-model predictor via
-`--model-path`; saved models are not ported yet, ROADMAP Queue A9, so
-such a replica exits with NotImplementedError).
+`--model-path`: a prefix `static.save_inference_model` wrote, served as
+`InferenceServer(model_path=)` does, as JAX does at :876-881).
 
 Where the port departs from the JAX fleet:
-  * a `gpt` replica runs on the CUDA device by default, as every entry
-    point of the port does: `ReplicaFleet(device=None)` and the
-    replica's `--device` default to ``cuda`` and resolve through
+  * `gpt` and `model` replicas run on the CUDA device by default, as
+    every entry point of the port does: `ReplicaFleet(device=None)` and
+    the replica's `--device` default to ``cuda`` and resolve through
     `core.device.resolve_device`, which raises on a host without CUDA
     (the CPU tests pass ``device="cpu"``).  Several replicas on one card
     are several CUDA contexts; each builds (or loads) the kernels at
     first use under the build lock (`ops/kernels/_build.py`);
   * a `gpt` replica warms up (a two-token generate: its first prefill
-    and decode programs captured as CUDA graphs) before its server
-    starts and before it announces, and a warm-up that fails exits the
-    replica non-zero: the supervisor sees a crash, not a replica whose
-    first client request would meet the failed capture.  The JAX
-    replica logs a failed warm-up and announces anyway.
+    and decode programs captured as CUDA graphs), a `model` replica
+    runs one predict at the saved signature (zeros; a dynamic dim 1:
+    its program captured as a CUDA graph), before its server starts and
+    before it announces, and a warm-up that fails exits the replica
+    non-zero: the supervisor sees a crash, not a replica whose first
+    client request would meet the failed capture (ROADMAP C2.8).  The
+    JAX replica logs a failed warm-up and announces anyway.
 
 Env knobs:
   PADDLE_TPU_FLEET_REPLICAS     default replica count           (2)
@@ -322,10 +324,11 @@ class ReplicaFleet:
         self.workdir = workdir
         self.replica_env = dict(replica_env or {})
         self.telemetry_dir = telemetry_dir
-        # the device of a `gpt` replica's engine (the other kinds run
-        # no model): cuda unless the caller names another
+        # the device of a `gpt` replica's engine or a `model` replica's
+        # predictor (the other kinds run no model): cuda unless the
+        # caller names another
         self.device = "cuda" if device is None else str(device)
-        if self.kind == "gpt":
+        if self.kind in ("gpt", "model"):
             from ..core.device import resolve_device
 
             resolve_device(self.device)
@@ -862,7 +865,8 @@ def _replica_parser():
     ap.add_argument("--rank", type=int, required=True)
     ap.add_argument("--kind", default="echo",
                     choices=("echo", "toy", "gpt", "model"))
-    # a gpt replica's device: the card unless the caller names another
+    # a gpt or model replica's device: the card unless the caller names
+    # another
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--announce", required=True)
     ap.add_argument("--job-id", default="fleet")
@@ -902,11 +906,12 @@ def _replica_main(argv=None):
         engine = _build_gpt_engine(seed=0, max_slots=args.max_slots,
                                    device=args.device)
     elif args.kind == "model":
-        pass  # model_path below builds the predictor inside the server
+        from .serving import saved_model_predictor
+
+        predictor = saved_model_predictor(args.model_path, args.device)
     led.stamp("weight_load")
 
     srv = InferenceServer(
-        model_path=args.model_path if args.kind == "model" else None,
         predictor=predictor, engine=engine,
         request_timeout=args.request_timeout)
     guard = srv.install_preemption()
@@ -957,16 +962,23 @@ def _replica_main(argv=None):
     # observability.capture_cost) instead of the first client request.
     # A failure raises: the replica exits non-zero and the supervisor
     # sees a crash.  PADDLE_TPU_REPLICA_WARMUP=0 announces unwarmed.
-    if os.environ.get("PADDLE_TPU_REPLICA_WARMUP", "1") != "0" \
-            and args.kind == "gpt" and engine is not None:
+    warm = os.environ.get("PADDLE_TPU_REPLICA_WARMUP", "1") != "0"
+    if warm and args.kind == "gpt" and engine is not None:
         engine.generate([np.arange(1, 5, dtype=np.int32)],
                         max_new_tokens=2)
-    if args.kind == "gpt":
+    if warm and args.kind == "model":
+        import torch
+
+        predictor.run([torch.zeros([1 if d == -1 else d for d in shape],
+                                   dtype=dtype)
+                       for shape, dtype in predictor.input_specs().values()])
+    if args.kind in ("gpt", "model"):
         # the counts /debug/telemetry reports start at announce: what
         # is launched after it, was launched for the replica's clients
         from ..ops import kernels as _kernels
 
         _kernels.reset_launches()
+    if args.kind == "gpt":
         engine.prefill_count = engine.decode_steps = 0
     srv.start()
     led.stamp("warmup")

@@ -1,15 +1,18 @@
 """HTTP inference server (``paddle_tpu/inference/serving.py``
 counterpart): `POST /generate` over the port's continuous-batching
-engine, `POST /predict` over a duck-typed predictor.
+engine, `POST /predict` over a predictor.
 
-The module is the JAX package's, with one departure: the JAX server can
-load a saved StableHLO model (`model_path=`, `serve(model_path)`,
-through `inference.create_predictor`); saved models of the port come
-with `torch.export` (ROADMAP Queue A9), so both raise
-NotImplementedError here.  A server takes `engine=` (an
+The module is the JAX package's.  A server takes `model_path=` (a
+prefix `static.save_inference_model` wrote: the server builds
+`create_predictor(Config(model_path))`, on the card unless `device=`
+names another, as JAX does at :172-173), `engine=` (an
 `inference.engine.InferenceEngine`, or any engine with its `submit` /
 `cancel` / `stats` surface) and / or `predictor=` (anything with
 `get_input_names`, `get_output_names` and `run(list of arrays)`).
+`serve(model_path)` is the blocking saved-model entry point
+(``python -m paddle_tpu_torch.inference.serving PREFIX [HOST PORT]``).
+A bfloat16 output of `/predict` travels in the npz as its uint16 words
+(ROADMAP C2.32).
 
 Threads and the device: the engine runs every device operation (its
 prefills, decode steps and CUDA graph captures) on its own loop thread.
@@ -41,7 +44,8 @@ Protocol (stdlib-only, zero heavy deps):
                   readiness, recent flight events; over the port's
                   engine also `kernels`: this process's kernel launch
                   counters beside the engine's prefill and decode-step
-                  counts.
+                  counts; over a predictor, the counters beside the
+                  predictor's runs.
   GET  /debug/tenants     per-tenant metering: the bounded
                   top-K tenant table + `~other` overflow bucket from the
                   `TenantLedger` — requests by status, prefill tokens
@@ -97,7 +101,9 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from . import Config, create_predictor
 from . import qos as _qos
+from ..core.device import resolve_device
 from ..observability import lifecycle as _lifecycle
 from ..observability import metrics as _metrics
 from ..observability import request_trace as _rtrace
@@ -193,14 +199,14 @@ class InferenceServer:
                  port: int = 0, request_retries: int = 2,
                  request_timeout: float = 30.0, max_inflight=None,
                  queue_depth=None, drain_timeout=None, ready_window=8,
-                 predictor=None, engine=None):
+                 predictor=None, engine=None, device=None):
         from ..resilience.overload import AdmissionController, ShedError
         from ..resilience.retry import RetryPolicy
 
-        if model_path is not None:
-            _saved_models_unported()
         if predictor is not None:
             self._predictor = predictor
+        elif model_path is not None:
+            self._predictor = saved_model_predictor(model_path, device)
         elif engine is None:
             raise ValueError("InferenceServer needs a model_path, a "
                              "predictor, or an engine")
@@ -227,6 +233,7 @@ class InferenceServer:
                 max_inflight=engine.config.max_slots,
                 queue_depth=queue_depth, name="generate")
         self._plock = threading.Lock()
+        self.predictor_runs = 0    # runs of the predictor (under _plock)
         self._request_timeout = (None if request_timeout is None
                                  else float(request_timeout))
         self._retry = RetryPolicy(
@@ -882,6 +889,11 @@ class InferenceServer:
                 snap["request_timelines"] = tls()
             if hasattr(self.engine, "decode_steps"):
                 snap["kernels"] = _kernel_launches(self.engine)
+        elif self._predictor is not None:
+            from ..ops import kernels as _kernels
+
+            snap["kernels"] = {"launches": _kernels.launch_counts(),
+                               "predictor_runs": self.predictor_runs}
         return snap
 
     # --- request path --------------------------------------------------------
@@ -944,7 +956,9 @@ class InferenceServer:
                      batch=int(np.shape(inputs[0])[0])
                      if inputs and np.ndim(inputs[0]) else 0)
         with self._plock:
-            return self._predictor.run(inputs)
+            out = self._predictor.run(inputs)
+            self.predictor_runs += 1
+            return out
 
     def _run_resilient(self, inputs, _depth=0, _deadline=None):
         """Retry, then degrade-to-smaller-batch: split the batch in half
@@ -1488,17 +1502,49 @@ class InferenceClient:
                 return {k: z[k] for k in z.files}
 
 
-def _saved_models_unported():
-    raise NotImplementedError(
-        "serving a saved model (model_path=, serve(model_path)) is not "
-        "ported yet (ROADMAP Queue A9: saved models through torch.export);"
-        " pass engine= or predictor= to InferenceServer")
+def saved_model_predictor(model_path, device=None):
+    """`create_predictor(Config(model_path))` on `device` (the card when
+    None)."""
+    cfg = Config(model_path)
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        cfg.disable_gpu()
+    else:
+        cfg.enable_use_gpu(device_id=dev.index or 0)
+    return create_predictor(cfg)
 
 
-def serve(model_path: str, host: str = "127.0.0.1", port: int = 8866):
-    """Blocking entry point of the JAX package's saved-model server.
-    Raises NotImplementedError: saved models of the port come with
-    `torch.export` (ROADMAP Queue A9).  To serve an engine, build
-    `InferenceServer(engine=...)` or run a fleet replica
-    (`python -m paddle_tpu_torch.inference.fleet --replica ...`)."""
-    _saved_models_unported()
+def serve(model_path: str, host: str = "127.0.0.1", port: int = 8866,
+          device=None):
+    """Blocking entry point: `python -m paddle_tpu_torch.inference.serving
+    PREFIX [HOST [PORT]]`, the saved model on the card unless `device`
+    names another.  SIGTERM/SIGINT drain gracefully (finish in-flight,
+    close the socket) instead of killing requests mid-predict.  With env
+    `PADDLE_TPU_TELEMETRY_DIR` set, a `TelemetryExporter` dumps this
+    replica's telemetry (SLO report included) periodically for
+    `tools/telemetry_agg.py` to merge across the fleet."""
+    srv = InferenceServer(model_path, host, int(port), device=device)
+    guard = srv.install_preemption()
+    srv.start()
+    exporter = None
+    if os.environ.get("PADDLE_TPU_TELEMETRY_DIR"):
+        from ..observability.export import TelemetryExporter
+
+        exporter = TelemetryExporter(
+            slo=srv.slo.report,
+            tenants=(srv.tenant_ledger.snapshot
+                     if srv.tenant_ledger is not None else None),
+            timelines=getattr(srv.engine, "recent_timelines",
+                              None)).start()
+    print(f"serving {model_path} at {srv.address}")
+    guard.wait()           # parked until preemption/Ctrl-C
+    srv.shutdown()         # idempotent with the guard's drain thread
+    if exporter is not None:
+        exporter.stop()    # final dump records the drained end state
+    print(f"drained and stopped ({guard.reason})")
+
+
+if __name__ == "__main__":
+    import sys
+
+    serve(sys.argv[1], *(sys.argv[2:] or []))

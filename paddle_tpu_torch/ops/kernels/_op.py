@@ -45,6 +45,9 @@ def define(name, schema, cpu, cuda, fake):
 
 def check_device(fn, t):
     """A wrapper's first check: the ops run on the CPU (plain) and on
-    CUDA (the kernel); a tensor anywhere else raises before any work."""
-    if t.device.type not in ("cpu", "cuda"):
+    CUDA (the kernel); a tensor anywhere else raises before any work.
+    A `static.Variable` (a ``meta`` tensor of a Program being recorded)
+    passes: the op's call is recorded there, not run."""
+    if t.device.type not in ("cpu", "cuda") \
+            and not getattr(type(t), "_symbolic", False):
         raise ValueError(f"{fn}: unsupported device {t.device}")

@@ -107,7 +107,12 @@ def test_import_leaves_jax_and_paddle_tpu_out():
         import paddle_tpu_torch.hapi
         import paddle_tpu_torch.jit
         import paddle_tpu_torch.distributed.env
+        import paddle_tpu_torch.static
+        import paddle_tpu_torch.static.nn
+        import paddle_tpu_torch.inference.capi_bridge
+        import paddle_tpu_torch.native.capi
         paddle_tpu_torch.Model, paddle_tpu_torch.save, paddle_tpu_torch.flops
+        paddle_tpu_torch.enable_static, paddle_tpu_torch.in_dynamic_mode
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu",
                                             "ml_dtypes"))
@@ -153,8 +158,10 @@ COPIES = ["observability/metrics.py", "observability/trace.py",
           "distributed/checkpoint/__init__.py",
           "observability/goodput.py",
           "io/dataset.py", "io/sampler.py", "hapi/callbacks.py",
-          # the ring's C++ source, compared byte for byte
-          "native/src/shm_ring.cc",
+          # the ring's C++ source and the C ABI's header, compared byte
+          # for byte (capi.cc differs in its bridge module's name only:
+          # test_capi_source_is_the_reference_but_the_bridge_name)
+          "native/src/shm_ring.cc", "native/src/paddle_tpu_capi.h",
           # modules copied but for the top-level definitions named after
           # "-", which the port replaces with its own (torch in place of
           # jax, the CUDA allocator in place of PJRT's, the metadata
@@ -169,7 +176,19 @@ COPIES = ["observability/metrics.py", "observability/trace.py",
           # batches as torch tensors
           "distributed/env.py -get_rank -get_world_size",
           "io/shm_queue.py -run_process_workers -_to_numpy_tree "
-          "-_from_numpy_tree"]
+          "-_from_numpy_tree",
+          # the static and predictor modules: the defaults, the guard,
+          # the scope, the pool and the constants are copies; the
+          # Variable (a meta tensor), the recorded calls and their
+          # replay, the predictor on its device, the bridge's bfloat16
+          # words and its device knob are the port's own
+          "static/framework.py -Variable -OpRecord -Program -data "
+          "-InputSpec",
+          "static/executor.py -_replay -_apply_grad_clip -_backward_reach "
+          "-_build -Executor",
+          "inference/__init__.py -Config -PredictorTensor -Predictor "
+          "-convert_to_mixed_precision -get_version -XpuConfig",
+          "inference/capi_bridge.py -create -_decode -_encode -run"]
 # the port's train step carries these functions of the JAX module as
 # copies
 COPIED_DEFS = {"distributed/train_step.py": ("save_train_checkpoint",
@@ -1224,3 +1243,149 @@ def test_a_failed_capture_raises_through_its_timing(monkeypatch):
     finally:
         trace.disable()
         lifecycle.reset()
+
+
+# ------------------------------------------------ static programs (PR 25)
+def test_capi_source_is_the_reference_but_the_bridge_name():
+    with open(os.path.join(REPO, "paddle_tpu", "native", "src",
+                           "capi.cc")) as f:
+        ref = f.read()
+    with open(os.path.join(PKG, "native", "src", "capi.cc")) as f:
+        mine = f.read()
+    assert "paddle_tpu.inference.capi_bridge" in ref
+    assert mine == ref.replace("paddle_tpu.inference.capi_bridge",
+                               "paddle_tpu_torch.inference.capi_bridge")
+
+
+def test_saved_model_entry_points_default_to_cuda(tmp_path):
+    """`inference.Config()`, `static.Executor()`, `load_inference_model`,
+    `create_predictor`, `InferenceServer(model_path=)`, the `static.nn`
+    builders and `ReplicaFleet(kind="model")` target the CUDA device
+    unless told otherwise; a `model` replica's `--device` defaults to
+    cuda."""
+    import paddle_tpu_torch as PT
+    from paddle_tpu_torch import inference as TI
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.inference import fleet as FL
+    from paddle_tpu_torch.inference import serving as S
+
+    prefix = str(tmp_path / "m")
+    static.reset_default_programs()
+    PT.enable_static()
+    try:
+        x = static.data("x", [-1, 2], "float32")
+        static.save_inference_model(prefix, [x], [x * 2])
+    finally:
+        PT.disable_static()
+        static.reset_default_programs()
+    args = FL._replica_parser().parse_args(
+        ["--replica", "--rank", "0", "--announce", "a", "--kind", "model"])
+    assert args.device == "cuda"
+    assert TI.Config(prefix).use_gpu()
+    if torch.cuda.is_available():
+        assert TI.Config(prefix).device().type == "cuda"
+        assert static.Executor().device.type == "cuda"
+        return
+    entries = [lambda: TI.Config(prefix).device(),
+               lambda: static.Executor(),
+               lambda: static.load_inference_model(prefix),
+               lambda: TI.create_predictor(TI.Config(prefix)),
+               lambda: S.InferenceServer(model_path=prefix),
+               lambda: static.create_parameter([2], "float32"),
+               lambda: FL.ReplicaFleet(num_replicas=1, kind="model",
+                                       model_path=prefix, heartbeat=False)]
+    for entry in entries:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            entry()
+    assert static.Executor("cpu").device.type == "cpu"
+    assert static.Executor(static.cpu_places()).device.type == "cpu"
+    ok = FL.ReplicaFleet(num_replicas=1, kind="model", model_path=prefix,
+                         device="cpu", heartbeat=False)
+    assert ok.device == "cpu"
+    ok.router._httpd.server_close()
+
+
+def _recorded_gpt_and_resnet():
+    """The recorded programs of a tiny GPT and a small ResNet (the fused
+    conv route), and the launch counts the recording left."""
+    import paddle_tpu_torch as PT
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.vision import models as TV
+
+    gpt = GPTForCausalLM(GPTConfig(vocab_size=64, hidden_size=16,
+                                   num_layers=2, num_heads=2,
+                                   max_seq_len=16), device="cpu")
+    res = TV.resnet18(num_classes=4, device="cpu")
+    K.reset_launches()
+    progs = []
+    PT.enable_static()
+    try:
+        for build in (lambda: gpt(static.data("ids", [2, 8], "int64")),
+                      lambda: res(static.data("img", [-1, 3, 16, 16],
+                                              "float32"))):
+            prog = static.Program()
+            with static.program_guard(prog):
+                progs.append((prog, build()))
+    finally:
+        PT.disable_static()
+    return progs, K.launch_counts()
+
+
+def test_recording_counts_no_launch_and_records_the_ops():
+    """A Program records the kernels at their op boundary: the GPT's
+    attention as ``paddle_tpu_torch::flash_fwd`` (one a layer), the fused
+    convs as ``paddle_tpu_torch::conv_bn_act``, never a plain version
+    (`flash_fwd_reference`, `_sdpa_ref`'s einsum, `conv_bn_act_reference`);
+    recording runs and counts no kernel."""
+    from paddle_tpu_torch.nn.functional import attention as A
+
+    progs, counts = _recorded_gpt_and_resnet()
+    assert counts == {k: 0 for k in K.KERNELS}
+    plain = {K.flash_attention.flash_fwd_reference, A._sdpa_ref,
+             K.conv_norm.conv_bn_act_reference, torch.einsum}
+    flash = torch.ops.paddle_tpu_torch.flash_fwd.default
+    conv = torch.ops.paddle_tpu_torch.conv_bn_act.default
+    (gpt, _), (res, _) = progs
+    assert [op.fn for op in gpt.ops].count(flash) == 2
+    # ResNet-18: the stem and two convs in each of its eight blocks
+    assert [op.fn for op in res.ops].count(conv) == 1 + 8 * 2
+    for prog in (gpt, res):
+        assert not plain & {op.fn for op in prog.ops}
+        assert not any("einsum" in op.name for op in prog.ops)
+
+
+def test_static_replays_reach_the_ops_only(tmp_path):
+    """On a CUDA tensor the Executor's and the Predictor's replays reach
+    the ``paddle_tpu_torch::`` ops and never a plain version: a replay
+    calls the recorded functions (the ops, whose CUDA implementation
+    launches the kernel or raises), the saved program holds the ops as
+    nodes, and the replay paths hold no try/except and no test of the
+    device beyond the CPU's eager branch."""
+    import paddle_tpu_torch as PT
+    from paddle_tpu_torch import inference as TI
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.static import executor as EX
+    from paddle_tpu_torch.static import io as SIO
+
+    progs, _ = _recorded_gpt_and_resnet()
+    for (prog, out), op in zip(progs, ("flash_fwd", "conv_bn_act")):
+        prefix = str(tmp_path / op)
+        PT.enable_static()
+        try:
+            with static.program_guard(prog):
+                static.save_inference_model(
+                    prefix, list(prog.feed_vars.values()), [out],
+                    program=prog)
+        finally:
+            PT.disable_static()
+        loaded, _, _ = static.load_inference_model(prefix, device="cpu")
+        targets = {str(n.target) for n in loaded.exported.graph.nodes}
+        assert f"paddle_tpu_torch.{op}.default" in targets
+        assert not any("einsum" in t for t in targets)
+    for fn in (EX.Executor._run_at, EX._build, EX._replay,
+               SIO._ExportedInferenceProgram.run_tensors,
+               SIO._ExportedInferenceProgram.call, TI.Predictor.run):
+        tree = ast.parse(textwrap.dedent(inspect.getsource(fn)))
+        assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), fn
+        assert "reference" not in ast.unparse(tree), fn

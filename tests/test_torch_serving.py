@@ -6,10 +6,10 @@ Covered: concurrent streams equal the JAX server's and the in-process
 engine's tokens; the JAX server's `/health` and `/ready` keys; a bad body
 gives 400 with the request id echoed; a shed retries under the same
 request id; a client that disconnects mid-stream frees its slot and
-pages; `model_path=` and `serve()` refuse, naming ROADMAP A9; capture
-timing (`observability.capture_cost`) reaches the lifecycle ledger, a
-span and a flight event under the JAX programs' labels, through the
-stand-in graph of `tests/test_torch_graphs.py`.  Every server is shut
+pages; capture timing (`observability.capture_cost`) reaches the
+lifecycle ledger, a span and a flight event under the JAX programs'
+labels, through the stand-in graph of `tests/test_torch_graphs.py`.
+Saved-model serving (`model_path=`) is `tests/test_torch_saved_serving.py`.  Every server is shut
 down in a `finally` and every wait has a timeout of its own.
 """
 from __future__ import annotations
@@ -321,13 +321,6 @@ def test_disconnect_mid_stream_frees_slot_and_pages(models, prompts):
         assert len(r["tokens"]) == 3
     finally:
         srv.shutdown()
-
-
-def test_saved_model_serving_refuses_naming_a9():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A9"):
-        S.InferenceServer(model_path="/nonexistent/model")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A9"):
-        S.serve("/nonexistent/model")
 
 
 # ------------------------------------------------------- capture timing
