@@ -409,43 +409,88 @@ non-zero and prints no result):
      predictor, 24 flash_fwd a run; lifecycle phases and spawn ->
      routable ms; a replica killed with SIGKILL relaunched (heal ms); a
      drained replica exits 0.
+ 42. transformer_train: Transformer-base built from the port's `nn` (a
+     shared `nn.Embedding(37000, 512)` scaled by sqrt(512), sinusoid
+     positions, `nn.Transformer()` at its defaults, a 37000-way
+     `nn.Linear`): the model cut to 2 + 2 layers in f32 (no dropout), 3
+     AdamW steps on the card and on the CPU from one set of weights,
+     losses within 1e-5, every parameter's first gradient within 2e-5
+     of its largest CPU value (the key biases', zero in exact
+     arithmetic, under 1e-6 of the largest gradient), 6 + 6 flash
+     launches a step; then full depth, dropout 0.1, bf16 O2 through
+     `amp.decorate`,
+     `CrossEntropyLoss(ignore_index=pad, label_smoothing=0.1)`, B64,
+     sources of 128-256 tokens under a [B, 1, 1, 256] pad mask, targets
+     of 96-192 under `generate_square_subsequent_mask(192)`: 5 timed
+     steps on one batch, tokens/s, ms/step, peak memory, exactly 18
+     flash_fwd + 18 flash_bwd a step (the biased tier), the loss finite
+     and falling;
+ 43. transformer_decode: 8 seeded sources, 64 greedy steps in f32 through
+     `TransformerDecoder.gen_cache` against a loop that recomputes the
+     full decoder each step: equal tokens (a divergence passes only at a
+     top-2 margin below 1e-4), 12 flash_fwd a cached step, tokens/s of
+     each;
+ 44. nn_layers_card: every `nn` class and the functionals of
+     `_functional_cases` (with the in-place forms and
+     `class_center_sample`) at small seeded shapes, forward and backward
+     on the card against the CPU (f32, TF32 off) within 1e-4 relative; how
+     many ran and the largest error per family;
+ 45. c1_card: a trainable mask's gradient through
+     `scaled_dot_product_attention` (the flash backward's dBias mode) and
+     `variable_length_memory_efficient_attention` on the card against
+     the CPU; a CPU-built static program run by `Executor()` on the card
+     after `set_program_state` / `static.load`, and fed at a new batch;
+     `jit.save` of gpt_1p3b: the `.pdmodel`'s size (no weights in it).
 
-Phase 3 also holds paged_attention_int8 (the gpt_1p3b row's pool in
-int8, and a llama_7b decode step, 32 kv heads over ~1000 keys each, with
-profiled device times; two runs bit-identical and each sequence alone
-bit for bit in the batch, bf16 and f32) and relayout_to_hm /
-relayout_from_hm at the GPT-125M train shape [8, 1024, 12, 64] (library:
-the same transpose on the card), each of their rows and each fused_norm
-row also with its profiled device time, the library call's, and the
-wrapper's host microseconds; flash_fwd and flash_bwd at the encoder
-step's shape (phase 20: full B32 S512 H12 D64) and flash_fwd at the
-fused serving block's (phase 19: full B8 S1024 H16 D128); flash_fwd and
-flash_bwd at ERNIE-base's shape with its pad bias (phase 21: full B32
-S512 H12 D64, [B, 1, 1, S] f32, lengths 256-512; library: SDPA with the
-bias as its mask) and at ViT-B/16's (phase 16: full B128 S197 H12 D64);
-a check that two bf16 runs of flash_fwd / flash_bwd at the train shape,
-of varlen_bwd on the causal packing, of conv_bn_act at ResNet-50's
-3x3/s1 256->256 @14 (B64), of window_attention and window_attention_bwd
-at Swin-T's stage 1 (B128, no shift) and of fused_norm at [16384, 768]
-are bit-identical; flash_fwd and flash_bwd in float16 at the train
-shape (causal B8 S1024 H12 D64: phase 28's) against their plain versions
-within 1e-2, beside SDPA in f16 (the JSON row's "float16" entry);
-varlen_fwd / varlen_bwd on the packed batch of phase
-17 (library yardstick: SDPA on `torch.nested` jagged tensors, or with a
-block-diagonal mask where this PyTorch cannot dispatch those; the form
-is logged), fused_norm at the norms of phases 19 and 20, an RMS norm
-with bias and residual and an odd width of 1000, and decode_attention
-and paged_attention at a GQA group of 16 (32 query heads over 2 kv
-heads) and at llama_7b's decode width (B4, 32 kv heads of 128: the paged
-row at pos 1040 / 1000 / 960 / 1020, the dense row left-padded to ~1000
-keys a row), every paged_attention and decode_attention row with its
-profiled device time, the wrapper's host microseconds and, for decode,
-SDPA's (decode_attention also at phase 31's masked-MHA shape, B8 cap
-2048, its last step's keys); bf16 reruns of both at the llama_7b rows bit-identical; and, in
-bf16 and f32 at gpt_1p3b widths over a shuffled page table,
-paged_attention bit for bit decode_attention over the same keys gathered
-dense (start 0 and start 37) and each sequence alone bit for bit the
-same sequence in the batch of 4, for both kernels.
+Phase 3 also holds flash_bwd's dBias mode (a mask that requires grad)
+at ERNIE-base's shape with [B, 1, 1, S] and [B, H, S, S] masks and at
+Transformer-base's cross attention with a [1, H, Sq, Sk] mask, each
+beside the same backward without dBias and SDPA's backward with a
+trainable `attn_mask` (library), in f32, bf16 and f16 (`dbias_cases`;
+the rows ride on flash_bwd's JSON row as "dbias").
+It holds flash_fwd and flash_bwd at the shapes and masks of phases 42
+and 43 too (`transformer_cases`): Transformer-base's encoder
+self-attention (B64 S256 under the [B, 1, 1, 256] pad mask), decoder
+self-attention (B64 S192 under the [192, 192] -inf causal mask) and
+cross attention (Sq192 Sk256 under the pad mask), and the cached decode
+step's flash_fwd at Sq 1 (self-attention with no mask over 1, 37 and 64
+keys; cross attention over 128 keys under an [8, 1, 1, 128] pad mask).
+It also holds paged_attention_int8 (the gpt_1p3b row's pool in int8, and
+a llama_7b decode step, 32 kv heads over ~1000 keys each, with profiled
+device times; two runs bit-identical and each sequence alone bit for bit
+in the batch, bf16 and f32) and relayout_to_hm / relayout_from_hm at the
+GPT-125M train shape [8, 1024, 12, 64] (library: the same transpose on
+the card), each of their rows and each fused_norm row also with its
+profiled device time, the library call's, and the wrapper's host
+microseconds; flash_fwd and flash_bwd at the encoder step's shape (phase
+20: full B32 S512 H12 D64) and flash_fwd at the fused serving block's
+(phase 19: full B8 S1024 H16 D128); flash_fwd and flash_bwd at ERNIE-
+base's shape with its pad bias (phase 21: full B32 S512 H12 D64, [B, 1,
+1, S] f32, lengths 256-512; library: SDPA with the bias as its mask) and
+at ViT-B/16's (phase 16: full B128 S197 H12 D64); a check that two bf16
+runs of flash_fwd / flash_bwd at the train shape, of varlen_bwd on the
+causal packing, of conv_bn_act at ResNet-50's 3x3/s1 256->256 @14 (B64),
+of window_attention and window_attention_bwd at Swin-T's stage 1 (B128,
+no shift) and of fused_norm at [16384, 768] are bit-identical; flash_fwd
+and flash_bwd in float16 at the train shape (causal B8 S1024 H12 D64:
+phase 28's) against their plain versions within 1e-2, beside SDPA in f16
+(the JSON row's "float16" entry); varlen_fwd / varlen_bwd on the packed
+batch of phase 17 (library yardstick: SDPA on `torch.nested` jagged
+tensors, or with a block-diagonal mask where this PyTorch cannot
+dispatch those; the form is logged), fused_norm at the norms of phases
+19 and 20, an RMS norm with bias and residual and an odd width of 1000,
+and decode_attention and paged_attention at a GQA group of 16 (32 query
+heads over 2 kv heads) and at llama_7b's decode width (B4, 32 kv heads
+of 128: the paged row at pos 1040 / 1000 / 960 / 1020, the dense row
+left-padded to ~1000 keys a row), every paged_attention and
+decode_attention row with its profiled device time, the wrapper's host
+microseconds and, for decode, SDPA's (decode_attention also at phase
+31's masked-MHA shape, B8 cap 2048, its last step's keys); bf16 reruns
+of both at the llama_7b rows bit-identical; and, in bf16 and f32 at
+gpt_1p3b widths over a shuffled page table, paged_attention bit for bit
+decode_attention over the same keys gathered dense (start 0 and start
+37) and each sequence alone bit for bit the same sequence in the batch
+of 4, for both kernels.
 
 Launch counters are reset just before the driven part of phases 4, 4b,
 5, 5a (its sampled and its beam calls), 5b (each engine), 8, 8a (each
@@ -456,8 +501,9 @@ processes), 24, 25 and 26 (their timed steps with recompute), 27 (the timed
 eager steps), 28 and 28a (the timed f16 steps) and 29 (each rule's timed
 replays), 30 (as 4 and 5), 31 (its kernel-route loops and its
 variable-length call), 33 (the timed steps), 35 (the fit), 36 (evaluate
-and predict) and 37 (each loaded program's checked call) and read just
-after each; every kernel of each path must
+and predict), 37 (each loaded program's checked call), 42 (the timed
+bf16 steps), 43 (the cached decoding) and 45 (the trainable-mask
+backwards) and read just after each; every kernel of each path must
 have launched, every kernel on a float16 path too.  A replayed
 CUDA graph (the engine's decode step, the train step) adds the launches
 its capture recorded to the counters, once a replay.  Under --profile
@@ -469,12 +515,15 @@ launches on the f16 paths); the last line is the device JSON.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
+import functools
 import gc
 import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -661,7 +710,7 @@ def _tc_kernels(text):
     """[(kernel, type, DT, mode, registers, spill store bytes)] of the
     16-bit (bf16 and f16) tensor-core kernels in one source's `ptxas -v`
     log, entry names demangled from their template arguments: the flash
-    kernels' <E, DT, BIAS, PACKED, HM>, the conv's <E, BM, BN, WM, WN,
+    kernels' <E, DT, BIAS, PACKED, HM[, DBIAS]>, the conv's <E, BM, BN, WM, WN,
     KH, KW, BK, A16, MINB> (DT: the tile's BM; mode: "BMxBN KHxKW bkBK",
     0x0 for a kernel size read at run time, "w-regs" where the weights go
     through registers) and the window forward's and backward's <DT,
@@ -673,7 +722,7 @@ def _tc_kernels(text):
         if not regs:
             continue
         m = re.search(r"(flash_\w+?_tc)I" + _T16
-                      + r"Li(\d+)ELb(\d)ELb(\d)ELb(\d)E", part)
+                      + r"Li(\d+)ELb(\d)ELb(\d)ELb(\d)E(?:Lb(\d)E)?", part)
         c = re.search(r"(conv_dense_tc)I" + _T16 + r"Li(\d+)ELi(\d+)"
                       r"ELi\d+ELi\d+ELi(\d+)ELi(\d+)ELi(\d+)ELb(\d)", part)
         w = re.search(r"(window_attention(?:_bwd)?_tc)ILi(\d+)E" + _T16,
@@ -683,6 +732,8 @@ def _tc_kernels(text):
             kernel, t, dt = m.group(1), m.group(2), int(m.group(3))
             mode = ("bias" if bias else "packed" if packed
                     else "head-major" if hm else "dense")
+            if m.group(7) == "1":
+                mode += "+dbias"
         elif c:
             kernel, t, dt = c.group(1), c.group(2), int(c.group(3))
             mode = (f"{c.group(3)}x{c.group(4)} {c.group(5)}x{c.group(6)} "
@@ -1857,6 +1908,155 @@ def encoder_cases(torch, dtype):
     return cases
 
 
+def _sdpa_dbias_library(q, k, v, dout, bias):
+    """The backward of one F.scaled_dot_product_attention call whose
+    `attn_mask` requires grad (yardstick only): dq, dk, dv and the
+    mask's gradient from the kept graph (the mask in q's dtype, as SDPA
+    takes it)."""
+    import torch
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    mt = bias.to(q.dtype).detach().requires_grad_()
+    out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mt)
+    dt = dout.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (qt, kt, vt, mt), dt,
+                                       retain_graph=True)
+
+
+TRANSFORMER_BATCH, TRANSFORMER_SRC, TRANSFORMER_TGT = 64, 256, 192
+
+
+def dbias_cases(torch, dtype):
+    """flash_bwd's dBias mode (a mask that requires grad, ROADMAP C1.2)
+    at ERNIE-base's shape (B32 S512 H12 D64, full) with a [B, 1, 1, S]
+    key-pad mask (-1e4 past each row's length, small trainable values
+    elsewhere) and a [B, H, S, S] mask, and at Transformer-base's cross
+    attention (B64 Sq192 Sk256 H8 D64) with a [1, H, Sq, Sk] mask; each
+    beside the same backward without dBias ("no dBias": the mask as a
+    constant bias).  The bound adds the mask's f32 read and its f32
+    gradient's write to the backward's bytes; the yardstick is SDPA's
+    backward with a `requires_grad` `attn_mask`."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as FA
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 26)
+    isz = torch.empty((), dtype=dtype).element_size()
+    dname = str(dtype).split(".")[1]
+    lens = torch.from_numpy(_ernie_lengths(np.random.RandomState(SEED),
+                                           ERNIE_BATCH, ERNIE_SEQ)).cuda()
+    keep = torch.arange(ERNIE_SEQ, device="cuda")[None] < lens[:, None]
+    pad = torch.where(keep, 0.1 * torch.randn(
+        keep.shape, generator=g, device="cuda"), -1e4)[:, None, None]
+    b, s, h = ERNIE_BATCH, ERNIE_SEQ, 12
+    tb, tq, tk = TRANSFORMER_BATCH, TRANSFORMER_TGT, TRANSFORMER_SRC
+    cases = []
+    for label, b, sq, sk, h, mask in (
+            (f"ernie [B,1,1,S] B{b} S{s} H12 D64", b, s, s, h, pad),
+            (f"ernie [B,H,S,S] B{b} S{s} H12 D64", b, s, s, h,
+             0.5 * torch.randn(b, h, s, s, generator=g, device="cuda")),
+            (f"transformer [1,H,Sq,Sk] B{tb} Sq{tq} Sk{tk} H8 D64", tb, tq,
+             tk, 8, 0.5 * torch.randn(1, 8, tq, tk, generator=g,
+                                      device="cuda"))):
+        q, dout = (torch.randn(b, sq, h, 64, generator=g, device="cuda",
+                               dtype=dtype) for _ in range(2))
+        k, v = (torch.randn(b, sk, h, 64, generator=g, device="cuda",
+                            dtype=dtype) for _ in range(2))
+        out, lse = FA.flash_fwd(q, k, v, bias=mask)
+        io = (4 * b * (sq + sk) * h * 64 * isz + b * h * sq * 4
+              + mask.numel() * 4)
+        for dbias in (True, False):
+            cases.append((
+                "flash_bwd", f"{'dBias' if dbias else 'no dBias'} {label}",
+                lambda q=q, k=k, v=v, o=out, l=lse, d=dout, m=mask,
+                dbias=dbias: FA.flash_bwd(q, k, v, o, l, d, bias=m,
+                                          bias_grad=dbias),
+                lambda q=q, k=k, v=v, o=out, l=lse, d=dout, m=mask,
+                dbias=dbias: FA.flash_bwd_reference(q, k, v, o, l, d,
+                                                    bias=m, bias_grad=dbias),
+                _sdpa_dbias_library(q, k, v, dout, mask) if dbias
+                else _sdpa_bwd_library(q, k, v, dout, mask, False),
+                io + (mask.numel() * 4 if dbias else 0),
+                10 * b * sq * sk * h * 64, dname, 0))
+    return cases
+
+
+def transformer_cases(torch, dtype):
+    """flash_fwd and flash_bwd at the shapes and masks that phases 42 and
+    43 give them, the mask in the inputs' dtype as the AMP gate casts
+    it.  Phase 42 (B64 H8 D64, `_seq2seq_batch`'s lengths): the encoder
+    self-attention (S256, the [B, 1, 1, 256] pad mask, -1e9 past each
+    source), the decoder self-attention (S192,
+    `generate_square_subsequent_mask(192)`: [192, 192], -inf above the
+    diagonal, batch and head strides 0) and the cross attention (Sq192
+    Sk256, the pad mask).  Phase 43's cached step (B8 H8 D64, Sq 1):
+    flash_fwd of the self-attention with no mask over the first, a
+    middle and the last step's keys (1, 37, 64) and of the cross
+    attention over the 128 source keys under its [8, 1, 1, 128] pad
+    mask.  A bias masks nothing out of the work, so the bound counts
+    every pair; the yardstick is SDPA with the mask as its
+    `attn_mask`."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as FA
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 42)
+    isz = torch.empty((), dtype=dtype).element_size()
+    dname = str(dtype).split(".")[1]
+    h, d = 8, 64
+    b, sl, tl = TRANSFORMER_BATCH, TRANSFORMER_SRC, TRANSFORMER_TGT
+    pad = torch.from_numpy(_seq2seq_batch(b, sl, tl)[3]).cuda().to(dtype)
+    causal = torch.triu(torch.full((tl, tl), float("-inf"), device="cuda"),
+                        1).to(dtype)
+    dpad = torch.from_numpy(_seq2seq_batch(DECODE_SOURCES, DECODE_SRC, 8,
+                                           seed=SEED + 3)[3]).cuda().to(dtype)
+    cases = []
+    for label, b, sq, sk, mask, bwd in (
+            (f"transformer enc self [B,1,1,S] B{b} S{sl} H8 D64", b, sl, sl,
+             pad, True),
+            (f"transformer dec self [S,S] -inf B{b} S{tl} H8 D64", b, tl,
+             tl, causal, True),
+            (f"transformer cross [B,1,1,Sk] B{b} Sq{tl} Sk{sl} H8 D64", b,
+             tl, sl, pad, True),
+            (f"decode self B{DECODE_SOURCES} Sq1 Sk1 H8 D64", DECODE_SOURCES,
+             1, 1, None, False),
+            (f"decode self B{DECODE_SOURCES} Sq1 Sk37 H8 D64",
+             DECODE_SOURCES, 1, 37, None, False),
+            (f"decode self B{DECODE_SOURCES} Sq1 Sk{DECODE_STEPS} H8 D64",
+             DECODE_SOURCES, 1, DECODE_STEPS, None, False),
+            (f"decode cross [B,1,1,Sk] B{DECODE_SOURCES} Sq1 "
+             f"Sk{DECODE_SRC} H8 D64", DECODE_SOURCES, 1, DECODE_SRC, dpad,
+             False)):
+        q, dout = (torch.randn(b, sq, h, d, generator=g, device="cuda",
+                               dtype=dtype) for _ in range(2))
+        k, v = (torch.randn(b, sk, h, d, generator=g, device="cuda",
+                            dtype=dtype) for _ in range(2))
+        pairs = b * sq * sk
+        # the kernels read the mask as f32
+        mask_bytes = 0 if mask is None else mask.numel() * 4
+        cases.append((
+            "flash_fwd", label,
+            lambda q=q, k=k, v=v, m=mask: FA.flash_fwd(q, k, v, bias=m),
+            lambda q=q, k=k, v=v, m=mask: FA.flash_fwd_reference(
+                q, k, v, bias=m),
+            _sdpa_library(q, k, v, mask, False),
+            # q, k, v, o once each, lse, the mask
+            2 * b * (sq + sk) * h * d * isz + b * h * sq * 4 + mask_bytes,
+            4 * pairs * h * d, dname, 0))
+        if not bwd:
+            continue
+        out, lse = FA.flash_fwd(q, k, v, bias=mask)
+        cases.append((
+            "flash_bwd", label,
+            lambda q=q, k=k, v=v, o=out, l=lse, g=dout, m=mask:
+                FA.flash_bwd(q, k, v, o, l, g, bias=m),
+            lambda q=q, k=k, v=v, o=out, l=lse, g=dout, m=mask:
+                FA.flash_bwd_reference(q, k, v, o, l, g, bias=m),
+            _sdpa_bwd_library(q, k, v, dout, mask, False),
+            # q, o, dO, dq and k, v, dk, dv once each, lse, the mask
+            4 * b * (sq + sk) * h * d * isz + b * h * sq * 4 + mask_bytes,
+            10 * pairs * h * d, dname, 0))
+    return cases
+
+
 def _reruns_bit_identical(torch):
     """No atomics: two bf16 runs of flash_fwd and flash_bwd at the train
     shape (causal B8 S1024 H12 D64), of varlen_bwd on the packed batch
@@ -1965,8 +2165,10 @@ def phase_kernels():
         dname = str(dtype).split(".")[1]
         tol = {torch.float32: F32_TOL, torch.bfloat16: BF16_TOL,
                torch.float16: F16_TOL}[dtype]
-        cases = kernel_cases(torch, dtype, vision, train) \
-            if dtype != torch.float16 else f16_cases(torch, vision, train)
+        cases = (kernel_cases(torch, dtype, vision, train)
+                 if dtype != torch.float16 else
+                 f16_cases(torch, vision, train)) \
+            + dbias_cases(torch, dtype) + transformer_cases(torch, dtype)
         for name, label, run, plain, lib, nbytes, flops, ops_dtype, real \
                 in cases:
             got, want = run(), plain()
@@ -1996,6 +2198,19 @@ def phase_kernels():
                 # up to ~5 here, where one ulp exceeds 2e-2
                 ref_max = want[0].float().abs().max().item()
                 rel = err / ref_max
+            elif name in ("flash_bwd", "varlen_bwd") and len(got) == 4:
+                # the dBias mode: (dq, dk, dv, dbias), each held relative
+                # to its largest reference gradient
+                check(all(bool(torch.isfinite(x).all()) for x in got),
+                      f"{name} [{label} {dname}] non-finite gradient")
+                check(got[3].shape == want[3].shape,
+                      f"{name} [{label} {dname}] dbias shape")
+                errs = [(a.float() - r.float()).abs().max().item()
+                        for a, r in zip(got, want)]
+                refs = [r.float().abs().max().item() for r in want]
+                err = max(errs)
+                i = max(range(4), key=lambda i: errs[i] / refs[i])
+                rel, ref_max = errs[i] / refs[i], refs[i]
             elif name in ("flash_bwd", "varlen_bwd"):   # (dq, dk, dv)
                 check(all(bool(torch.isfinite(x).all()) for x in got),
                       f"{name} [{label} {dname}] non-finite gradient")
@@ -2070,10 +2285,16 @@ def phase_kernels():
             if name == "flash_fwd" and dname != "float16":
                 if "pad B1" in label:
                     table[key] = row
+            elif "dBias" in label:
+                # the dBias rows ride on flash_bwd's JSON row
+                table.setdefault(("flash_bwd dbias", dname), []).append(
+                    dict(row, max_abs_err=err))
+                continue
             else:
                 table.setdefault(key, row)
     for key, row in table.items():
-        row["max_abs_err"] = worst[key]
+        if key in worst:
+            row["max_abs_err"] = worst[key]
     # each vision kernel's time in one forward: its rows weighted by the
     # calls each model makes at that shape
     for model, kernel, per_fwd in VISION:
@@ -7568,6 +7789,837 @@ def phase_fleet_model(card, saved):
     return counts
 
 
+# ------------------------------------------------------ phases 42-46
+TRANSFORMER_VOCAB, TRANSFORMER_PAD, TRANSFORMER_BOS = 37000, 0, 1
+TRANSFORMER_STEPS = 5
+DECODE_SOURCES, DECODE_SRC, DECODE_STEPS = 8, 128, 64
+
+
+def _seq2seq(layers=(6, 6), dropout=0.1, device="cuda", seed=SEED,
+             max_len=512):
+    """Transformer-base as the port's `nn` builds it (Vaswani et al. 2017,
+    WMT14 En-De, shared BPE): one `nn.Embedding(37000, 512)` for source
+    and target (N(0, 512^-0.5) through a `ParamAttr`, the pad row zero)
+    scaled by sqrt(512), sinusoid positions, `nn.Transformer` at its
+    defaults (`layers` cut for the parity and the CPU), and a 37000-way
+    `nn.Linear`."""
+    import torch
+
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import initializer as I
+
+    class Seq2Seq(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            gen = torch.Generator(device=device).manual_seed(seed)
+            kw = dict(device=device, generator=gen)
+            d = 512
+            self.embed = nn.Embedding(
+                TRANSFORMER_VOCAB, d, padding_idx=TRANSFORMER_PAD,
+                weight_attr=nn.ParamAttr(initializer=I.Normal(0.0,
+                                                              d ** -0.5)),
+                **kw)
+            self.transformer = nn.Transformer(
+                d, 8, layers[0], layers[1], 2048, dropout, **kw)
+            self.out = nn.Linear(d, TRANSFORMER_VOCAB, **kw)
+            pos = torch.arange(max_len, dtype=torch.float32)[:, None]
+            inv = torch.exp(torch.arange(0, d, 2, dtype=torch.float32)
+                            * (-math.log(10000.0) / d))
+            table = torch.zeros(max_len, d)
+            table[:, 0::2], table[:, 1::2] = (torch.sin(pos * inv),
+                                              torch.cos(pos * inv))
+            self.register_buffer("pos", table.to(device), persistable=False)
+            self.scale = d ** 0.5
+
+        def _embed(self, ids, start=0):
+            x = self.embed(ids) * self.scale
+            return x + self.pos[start:start + ids.shape[1]].to(x.dtype)
+
+        def encode(self, src, src_mask):
+            return self.transformer.encoder(self._embed(src), src_mask)
+
+        def forward(self, src, tgt, src_mask, tgt_mask):
+            memory = self.encode(src, src_mask)
+            h = self.transformer.decoder(self._embed(tgt), memory, tgt_mask,
+                                         src_mask)
+            return self.out(h)
+
+    return Seq2Seq()
+
+
+def _seq2seq_batch(batch, src, tgt, seed=SEED):
+    """Seeded token ids: source lengths in [src / 2, src], target
+    lengths in [tgt / 2, tgt], padded with the pad id; the labels are
+    the next target tokens (pad past each length: ignored).  Returns
+    (src, tgt, labels, [B, 1, 1, src] pad mask) as numpy."""
+    rs = np.random.RandomState(seed)
+    v, pad = TRANSFORMER_VOCAB, TRANSFORMER_PAD
+    sl = rs.randint(src // 2, src + 1, batch)
+    tl = rs.randint(tgt // 2, tgt + 1, batch)
+    s = rs.randint(2, v, (batch, src)).astype(np.int64)
+    t = rs.randint(2, v, (batch, tgt + 1)).astype(np.int64)
+    s[np.arange(src)[None] >= sl[:, None]] = pad
+    t[np.arange(tgt + 1)[None] > tl[:, None]] = pad
+    mask = np.where(np.arange(src)[None] < sl[:, None], 0.0, -1e9) \
+        .astype(np.float32).reshape(batch, 1, 1, src)
+    return s, t[:, :-1].copy(), t[:, 1:].copy(), mask
+
+
+def _seq2seq_steps(model, opt, batch, steps, cast, device, grads=None):
+    """`steps` AdamW steps of label-smoothed CE (ignore the pad) on one
+    batch under ``amp.auto_cast(**cast)`` (none: f32); `grads`, a list,
+    receives the first step's gradients on the CPU by parameter name.
+    Returns (the losses, the seconds of the steps after the first, the
+    launch counts of those steps)."""
+    import torch
+
+    from paddle_tpu_torch import amp, nn
+    from paddle_tpu_torch.ops import kernels as K
+
+    src, tgt, labels, mask = (torch.from_numpy(a).to(device) for a in batch)
+    tmask = nn.Transformer.generate_square_subsequent_mask(
+        tgt.shape[1], device=device)
+    crit = nn.CrossEntropyLoss(ignore_index=TRANSFORMER_PAD,
+                               label_smoothing=0.1)
+    losses, t0 = [], None
+    for i in range(steps):
+        if i == 1 and device != "cpu":
+            torch.cuda.synchronize()
+            K.reset_launches()
+            t0 = time.perf_counter()
+        with amp.auto_cast(**cast) if cast else contextlib.nullcontext():
+            loss = crit(model(src, tgt, mask, tmask), labels)
+        loss.backward()
+        if i == 0 and grads is not None:
+            grads.append({n: p.grad.detach().cpu()
+                          for n, p in model.named_parameters()
+                          if p.grad is not None})
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.detach())
+    if device != "cpu":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0 if t0 is not None else 0.0
+    return (torch.stack(losses).float().cpu().numpy(), dt,
+            K.launch_counts())
+
+
+def phase_transformer_train(card, steps=TRANSFORMER_STEPS):
+    """42. Transformer-base built from the port's `nn` (`_seq2seq`):
+    first the same model cut to 2 + 2 layers in f32 (TF32 off, no
+    dropout), 3 AdamW steps on the card and on the CPU from one set of
+    weights at B2, sources 32 / targets 24 (losses within 1e-5, every
+    parameter's first gradient within 2e-5 of its largest CPU value, the
+    key biases' under 1e-6 of the largest gradient, 6 + 6 flash
+    launches a step); then full depth (6 + 6), dropout 0.1, bf16
+    O2 through `amp.decorate` (AdamW multi_precision, lr 3e-4),
+    `CrossEntropyLoss(ignore_index=pad, label_smoothing=0.1)`, B64 with
+    source lengths 128-256 under a [B, 1, 1, 256] pad mask and target
+    lengths 96-192 under `generate_square_subsequent_mask(192)`: `steps`
+    timed steps after one warm-up on a repeated batch, tokens/s (source
+    and target slots, and the real tokens), ms/step, peak memory;
+    exactly 18 flash_fwd and 18 flash_bwd a step (6 encoder self, 6
+    decoder self, 6 cross attentions, all on the biased tier); the loss
+    finite and falling.  Returns the full run's launch counts."""
+    import torch
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.optimizer import AdamW
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch = _seq2seq_batch(2, 32, 24, seed=SEED + 1)
+    cpu = _seq2seq((2, 2), 0.0, "cpu")
+    gpu = _seq2seq((2, 2), 0.0, "cuda")
+    gpu.set_state_dict(cpu.state_dict())
+    g_card, g_cpu = [], []
+    lg, _, counts = _seq2seq_steps(
+        gpu, AdamW(learning_rate=1e-4, parameters=gpu.parameters()), batch,
+        3, None, "cuda", g_card)
+    lc, _, _ = _seq2seq_steps(
+        cpu, AdamW(learning_rate=1e-4, parameters=cpu.parameters()), batch,
+        3, None, "cpu", g_cpu)
+    gap = float(np.abs(lg - lc).max())
+    check(np.isfinite(lg).all() and gap <= 1e-5,
+          f"transformer parity: card {lg.tolist()} cpu {lc.tolist()}, gap "
+          f"{gap:.3g} > 1e-5")
+    # every parameter's first gradient, relative to its largest CPU
+    # value: a wrong dQ, dK or dV in any attention shows here.  The key
+    # projections' biases have a zero gradient in exact arithmetic (a
+    # softmax over keys ignores a shift shared by all of them), so they
+    # are held to rounding noise against the largest gradient instead
+    check(g_card[0].keys() == g_cpu[0].keys(),
+          "transformer parity: the card and the CPU differ in which "
+          "parameters have gradients")
+    top = max(c.abs().max().item() for c in g_cpu[0].values())
+    kbias = {n: max(g_card[0][n].abs().max().item(),
+                    c.abs().max().item()) / top
+             for n, c in g_cpu[0].items() if n.endswith("k_proj.bias")}
+    check(kbias and max(kbias.values()) <= 1e-6,
+          f"transformer parity: key-bias gradients not at noise "
+          f"{json.dumps(kbias)}")
+    rel = {n: ((g_card[0][n] - c).abs().max() / c.abs().max()).item()
+           for n, c in g_cpu[0].items() if n not in kbias}
+    worst = max(rel, key=rel.get)
+    check(rel[worst] <= 2e-5, f"transformer parity: gradient {worst} card "
+          f"vs CPU {rel[worst]:.3g} > 2e-5")
+    attn = max(v for n, v in rel.items() if "attn" in n)
+    per = {k: v / 2 for k, v in counts.items() if v}
+    check(per.get("flash_fwd") == 6 and per.get("flash_bwd") == 6,
+          f"transformer parity: launches a step {json.dumps(per)}")
+    log(f"[transformer_train] parity f32 2+2 layers B2 S32/24, 3 AdamW "
+        f"steps: card {lg.tolist()} cpu {lc.tolist()} max gap {gap:.3g} "
+        f"(tol 1e-5); first-step gradients of {len(rel)} parameters, "
+        f"largest relative gap {rel[worst]:.3g} ({worst}; attention "
+        f"projections {attn:.3g}; tol 2e-5), the {len(kbias)} key "
+        f"biases' (zero in exact arithmetic) at most "
+        f"{max(kbias.values()):.3g} of the largest gradient (tol 1e-6); "
+        f"launches a step {json.dumps(per)}")
+    del cpu, gpu
+    _release_card()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    b, sl, tl = TRANSFORMER_BATCH, TRANSFORMER_SRC, TRANSFORMER_TGT
+    batch = _seq2seq_batch(b, sl, tl)
+    model = _seq2seq()
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = AdamW(learning_rate=3e-4, parameters=model.parameters(),
+                multi_precision=True)
+    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    model.train()
+    losses, dt, counts = _seq2seq_steps(
+        model, opt, batch, steps + 1, dict(level="O2", dtype="bfloat16"),
+        "cuda")
+    peak = torch.cuda.max_memory_allocated()
+    per = {k: v / steps for k, v in counts.items() if v}
+    check(per.get("flash_fwd") == 18 and per.get("flash_bwd") == 18,
+          f"transformer_train: launches a step {json.dumps(per)}, expected "
+          f"18 flash_fwd and 18 flash_bwd")
+    check(np.isfinite(losses).all() and losses[-1] < losses[0],
+          f"transformer_train: losses {losses.tolist()}")
+    slots = b * (sl + tl)
+    real = int((batch[0] != TRANSFORMER_PAD).sum()
+               + (batch[1] != TRANSFORMER_PAD).sum())
+    log(f"[transformer_train] Transformer-base 6+6 d512 h8 ffn2048 vocab "
+        f"{TRANSFORMER_VOCAB} ({n_params / 1e6:.1f}M parameters) bf16 O2 "
+        f"B{b} src {sl} tgt {tl} ({card}): {slots * steps / dt:.1f} token "
+        f"slots/s ({real * steps / dt:.1f} real tokens/s), "
+        f"{dt / steps * 1e3:.2f} ms/step, peak memory "
+        f"{peak / 2**30:.2f} GiB; losses {losses.tolist()}; launches a "
+        f"step {json.dumps(per)}")
+    del model, opt
+    _release_card()
+    return counts
+
+
+def _greedy(model, src, mask, steps, cached):
+    """Greedy decoding from BOS for `steps` tokens: through
+    `TransformerDecoder.gen_cache` (one position a step, the memory's
+    `StaticCache`), or recomputing the full decoder on the prefix under
+    the causal mask each step.  Returns (tokens [B, steps], the last
+    step's top-2 logit margins [steps, B], seconds)."""
+    import torch
+
+    from paddle_tpu_torch import nn
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        memory = model.encode(src, mask)
+        dec = model.transformer.decoder
+        seq = torch.full((src.shape[0], 1), TRANSFORMER_BOS,
+                         device=src.device)
+        cache = dec.gen_cache(memory) if cached else None
+        margins = []
+        for t in range(steps):
+            if cached:
+                y = model._embed(seq[:, -1:], t)
+                h, cache = dec(y, memory, None, mask, cache)
+            else:
+                h = dec(model._embed(seq), memory,
+                        nn.Transformer.generate_square_subsequent_mask(
+                            t + 1, device=src.device), mask)
+            logits = model.out(h[:, -1])
+            top = logits.topk(2, dim=-1).values
+            margins.append(top[:, 0] - top[:, 1])
+            seq = torch.cat([seq, logits.argmax(-1, keepdim=True)], 1)
+    torch.cuda.synchronize()
+    return (seq[:, 1:].cpu().numpy(), torch.stack(margins).cpu().numpy(),
+            time.perf_counter() - t0)
+
+
+def phase_transformer_decode(card):
+    """43. Greedy incremental decoding of 8 seeded sources (lengths
+    64-128 under a [8, 1, 1, 128] pad mask) for 64 steps through
+    `TransformerDecoder.gen_cache` on the Transformer-base of phase 42
+    (full depth, seeded, eval) in f32 (TF32 off), against a greedy loop
+    that recomputes the full decoder each step: the tokens must be
+    equal (a divergence passes only at a top-2 margin below 1e-4 in the
+    recomputed loop's logits, and is reported).  12 flash_fwd a cached
+    step (6 self-attentions on the unmasked tier, 6 cross-attentions on
+    the biased one).  Tokens/s of each.  Returns the cached loop's
+    launch counts."""
+    import torch
+
+    from paddle_tpu_torch.ops import kernels as K
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = _seq2seq(dropout=0.0).eval()
+    s, _, _, m = _seq2seq_batch(DECODE_SOURCES, DECODE_SRC, 8,
+                                seed=SEED + 3)
+    src, mask = torch.from_numpy(s).cuda(), torch.from_numpy(m).cuda()
+    _greedy(model, src, mask, 2, True)        # builds and loads
+    K.reset_launches()
+    toks, _, dt = _greedy(model, src, mask, DECODE_STEPS, True)
+    counts = K.launch_counts()
+    full, margins, fdt = _greedy(model, src, mask, DECODE_STEPS, False)
+    # the encoder's 6 launches once, then the cached steps'
+    per = (counts["flash_fwd"] - 6) / DECODE_STEPS
+    check(per == 12, f"transformer_decode: {per} flash_fwd a cached step")
+    diverged = np.argwhere(toks != full)
+    if len(diverged):
+        i, t = (int(x) for x in diverged[0])
+        check(margins[t, i] < 1e-4,
+              f"transformer_decode: cached tokens leave the recomputed "
+              f"ones at source {i} step {t} (margin {margins[t, i]:.3g})")
+        log(f"[transformer_decode] near tie: source {i} step {t} margin "
+            f"{margins[t, i]:.3g}")
+    n = DECODE_SOURCES * DECODE_STEPS
+    log(f"[transformer_decode] Transformer-base 6+6 f32 ({card}), "
+        f"{DECODE_SOURCES} sources x {DECODE_STEPS} greedy steps: cached "
+        f"{n / dt:.1f} tokens/s, recomputed {n / fdt:.1f} tokens/s; "
+        f"tokens equal: {not len(diverged)}; launches "
+        f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    del model
+    _release_card()
+    return counts
+
+
+def _randn(torch, rs, *shape):
+    return torch.from_numpy(rs.randn(*shape).astype(np.float32))
+
+
+def _ints(torch, a):
+    return torch.from_numpy(np.asarray(a).astype(np.int64))
+
+
+def _layer_cases(torch, nn):
+    """(family, name, layer builder, inputs builder) for
+    `phase_nn_layers_card`: every layer class of the port's `nn` at a
+    small shape; the inputs builder makes the seeded CPU inputs from a
+    `np.random.RandomState`."""
+    X, SEQ, VOL = (2, 4, 5, 6), (2, 3, 9), (2, 2, 4, 5, 3)
+    ids = np.array([[0, 3, 9, 0], [5, 0, 1, 2]])
+    lab = np.array([0, 4, 2, 1])
+
+    def randn(rs, *shape):
+        return _randn(torch, rs, *shape)
+
+    def shapes(*ss):
+        return lambda rs: [randn(rs, *sh) for sh in ss]
+
+    def bits(rs, *shape):
+        return torch.from_numpy((rs.rand(*shape) > 0.5).astype(np.float32))
+
+    def signs(rs, *shape):
+        return torch.from_numpy(np.sign(rs.randn(*shape)).astype(np.float32))
+
+    def unpool(shape, n):
+        # distinct flat positions of the unpooled output per (n, c)
+        def build(rs):
+            k = int(np.prod(shape[2:]))
+            idx = np.stack([rs.choice(n, k, replace=False)
+                            for _ in range(shape[0] * shape[1])])
+            return [randn(rs, *shape), _ints(torch, idx.reshape(shape))]
+        return build
+
+    cases = [("activation", n, (lambda n=n: getattr(nn, n)()), shapes(X))
+             for n in ("ReLU", "ReLU6", "LeakyReLU", "ELU", "SELU", "CELU",
+                       "GELU", "Silu", "Swish", "Mish", "Hardswish",
+                       "Hardsigmoid", "Hardtanh", "Hardshrink", "Softshrink",
+                       "Tanhshrink", "Softsign", "Softplus", "Softmax",
+                       "LogSoftmax", "LogSigmoid", "Sigmoid", "Tanh", "GLU",
+                       "Maxout", "ThresholdedReLU", "Softmax2D")]
+    cases += [
+        ("activation", "PReLU", lambda: nn.PReLU(4), shapes(X)),
+        ("common", "Linear", lambda: nn.Linear(6, 3), shapes(X)),
+        ("common", "Embedding", lambda: nn.Embedding(10, 4, padding_idx=0),
+         lambda rs: [_ints(torch, ids)]),
+        ("common", "Bilinear", lambda: nn.Bilinear(3, 4, 2),
+         shapes((5, 3), (5, 4))),
+        ("common", "Flatten", lambda: nn.Flatten(), shapes(X)),
+        ("common", "Unflatten", lambda: nn.Unflatten(1, [2, 2]), shapes(X)),
+        ("common", "Identity", lambda: nn.Identity(), shapes(X)),
+        ("common", "Upsample", lambda: nn.Upsample(size=[7, 9],
+                                                   mode="bilinear"),
+         shapes(X)),
+        ("common", "UpsamplingBilinear2D",
+         lambda: nn.UpsamplingBilinear2D(scale_factor=2), shapes(X)),
+        ("common", "UpsamplingNearest2D",
+         lambda: nn.UpsamplingNearest2D(scale_factor=2), shapes(X)),
+        ("common", "Pad1D", lambda: nn.Pad1D(2, mode="reflect"),
+         shapes(SEQ)),
+        ("common", "Pad2D", lambda: nn.Pad2D([1, 0, 2, 1],
+                                             mode="replicate"), shapes(X)),
+        ("common", "Pad3D", lambda: nn.Pad3D(1, mode="circular"),
+         shapes(VOL)),
+        ("common", "ZeroPad2D", lambda: nn.ZeroPad2D([1, 1, 0, 2]),
+         shapes(X)),
+        ("common", "CosineSimilarity", lambda: nn.CosineSimilarity(2),
+         shapes(X, X)),
+        ("common", "PairwiseDistance", lambda: nn.PairwiseDistance(),
+         shapes(X, X)),
+        ("common", "PixelShuffle", lambda: nn.PixelShuffle(2), shapes(X)),
+        ("common", "PixelUnshuffle", lambda: nn.PixelUnshuffle(2),
+         shapes((2, 3, 4, 6))),
+        ("common", "ChannelShuffle", lambda: nn.ChannelShuffle(2),
+         shapes(X)),
+        ("common", "Unfold", lambda: nn.Unfold([2, 3], paddings=1),
+         shapes(X)),
+        ("common", "Fold", lambda: nn.Fold([5, 6], 2), shapes((2, 16, 20))),
+        ("common", "Dropout", lambda: nn.Dropout(0.3), shapes(X)),
+        ("common", "Dropout2D", lambda: nn.Dropout2D(0.3), shapes(X)),
+        ("common", "Dropout3D", lambda: nn.Dropout3D(0.3), shapes(VOL)),
+        ("common", "AlphaDropout", lambda: nn.AlphaDropout(0.3), shapes(X)),
+        ("common", "Sequential", lambda: nn.Sequential(
+            nn.Linear(6, 4), nn.ReLU(), nn.Linear(4, 2)), shapes(X)),
+        ("common", "LayerList", lambda: nn.Sequential(*nn.LayerList(
+            [nn.Linear(6, 4), nn.Tanh()])), shapes(X)),
+        ("common", "LayerDict", lambda: nn.Sequential(*nn.LayerDict(
+            {"a": nn.Linear(6, 2)}).values()), shapes(X)),
+        ("pool", "MaxUnPool1D", lambda: nn.MaxUnPool1D(2),
+         unpool((2, 3, 4), 8)),
+        ("pool", "MaxUnPool2D", lambda: nn.MaxUnPool2D(2),
+         unpool((2, 3, 2, 3), 24)),
+        ("pool", "MaxUnPool3D", lambda: nn.MaxUnPool3D(2),
+         unpool((1, 2, 1, 2, 2), 32)),
+        ("norm", "LayerNorm", lambda: nn.LayerNorm([5, 6]), shapes(X)),
+        ("norm", "RMSNorm", lambda: nn.RMSNorm(6), shapes(X)),
+        ("norm", "GroupNorm", lambda: nn.GroupNorm(3, 6,
+                                                   data_format="NHWC"),
+         shapes(X)),
+        ("norm", "InstanceNorm1D", lambda: nn.InstanceNorm1D(3),
+         shapes(SEQ)),
+        ("norm", "InstanceNorm2D", lambda: nn.InstanceNorm2D(4), shapes(X)),
+        ("norm", "InstanceNorm3D", lambda: nn.InstanceNorm3D(2),
+         shapes(VOL)),
+        ("norm", "LocalResponseNorm", lambda: nn.LocalResponseNorm(3),
+         shapes(X)),
+        ("norm", "SpectralNorm", lambda: nn.SpectralNorm([4, 5, 6], 1, 2),
+         shapes((4, 5, 6))),
+        ("norm", "BatchNorm1D", lambda: nn.BatchNorm1D(3), shapes(SEQ)),
+        ("norm", "BatchNorm2D", lambda: nn.BatchNorm2D(
+            6, data_format="NHWC"), shapes(X)),
+        ("norm", "BatchNorm3D", lambda: nn.BatchNorm3D(2), shapes(VOL)),
+        ("norm", "BatchNorm", lambda: nn.BatchNorm(4), shapes(X)),
+        ("norm", "SyncBatchNorm", lambda: nn.SyncBatchNorm(4), shapes(X)),
+        ("conv", "Conv1D", lambda: nn.Conv1D(3, 4, 3, 2, 1), shapes(SEQ)),
+        ("conv", "Conv2D", lambda: nn.Conv2D(6, 4, 3, padding=1, groups=2,
+                                             data_format="NHWC"),
+         shapes(X)),
+        ("conv", "Conv3D", lambda: nn.Conv3D(2, 3, 2, padding=1),
+         shapes(VOL)),
+        ("conv", "Conv1DTranspose", lambda: nn.Conv1DTranspose(
+            3, 2, 3, stride=2, output_padding=1), shapes(SEQ)),
+        ("conv", "Conv2DTranspose", lambda: nn.Conv2DTranspose(
+            4, 6, 3, stride=2, padding=1, groups=2), shapes(X)),
+        ("conv", "Conv3DTranspose", lambda: nn.Conv3DTranspose(2, 2, 2,
+                                                               stride=2),
+         shapes(VOL)),
+    ]
+    for n, args in (("AvgPool1D", (3, 2, 1)), ("AvgPool2D", (2, 1, 1)),
+                    ("AvgPool3D", (2,)), ("MaxPool1D", (2,)),
+                    ("MaxPool2D", (3, 2, 1)), ("MaxPool3D", (2, 1)),
+                    ("AdaptiveAvgPool1D", (4,)), ("AdaptiveAvgPool2D",
+                                                  ([3, 4],)),
+                    ("AdaptiveAvgPool3D", (2,)), ("AdaptiveMaxPool1D", (4,)),
+                    ("AdaptiveMaxPool2D", (2,)), ("AdaptiveMaxPool3D",
+                                                  ([3, 2, 1],))):
+        shape = SEQ if "1D" in n else VOL if "3D" in n else X
+        cases.append(("pool", n, lambda n=n, a=args: getattr(nn, n)(*a),
+                      shapes(shape)))
+    pair = shapes((4, 3), (4, 3))
+    for n, ins in (
+            ("MSELoss", pair), ("L1Loss", pair), ("SmoothL1Loss", pair),
+            ("CrossEntropyLoss", lambda rs: [randn(rs, 4, 5),
+                                             _ints(torch, lab)]),
+            ("NLLLoss", lambda rs: [randn(rs, 4, 5), _ints(torch, lab)]),
+            ("BCEWithLogitsLoss", lambda rs: [randn(rs, 4, 3),
+                                              bits(rs, 4, 3)]),
+            ("BCELoss", lambda rs: [torch.sigmoid(randn(rs, 4, 3)),
+                                    bits(rs, 4, 3)]),
+            ("KLDivLoss", lambda rs: [torch.log_softmax(randn(rs, 4, 3), -1),
+                                      torch.softmax(randn(rs, 4, 3), -1)]),
+            ("MarginRankingLoss", lambda rs: [randn(rs, 5), randn(rs, 5),
+                                              signs(rs, 5)]),
+            ("CosineEmbeddingLoss", lambda rs: [randn(rs, 4, 6),
+                                                randn(rs, 4, 6),
+                                                signs(rs, 4)]),
+            ("TripletMarginLoss", shapes((3, 5), (3, 5), (3, 5))),
+            ("TripletMarginWithDistanceLoss", shapes((3, 5), (3, 5),
+                                                     (3, 5))),
+            ("SoftMarginLoss", lambda rs: [randn(rs, 4, 3),
+                                           signs(rs, 4, 3)]),
+            ("MultiLabelSoftMarginLoss", lambda rs: [randn(rs, 4, 3),
+                                                     bits(rs, 4, 3)]),
+            ("MultiMarginLoss", lambda rs: [randn(rs, 4, 5),
+                                            _ints(torch, lab)]),
+            ("HingeEmbeddingLoss", lambda rs: [randn(rs, 4, 3),
+                                               signs(rs, 4, 3)]),
+            ("PoissonNLLLoss", lambda rs: [randn(rs, 4, 3), torch.from_numpy(
+                rs.poisson(2.0, (4, 3)).astype(np.float32))]),
+            ("GaussianNLLLoss", lambda rs: [randn(rs, 4, 3), randn(rs, 4, 3),
+                                            torch.from_numpy(rs.rand(4, 3)
+                                                             .astype(
+                                                                 np.float32)
+                                                             + 0.1)]),
+            ("HSigmoidLoss", lambda rs: [randn(rs, 5, 4),
+                                         _ints(torch, [0, 5, 3, 2, 1])]),
+            ("CTCLoss", lambda rs: [torch.log_softmax(randn(rs, 8, 2, 5), -1),
+                                    _ints(torch, [[1, 2, 3], [4, 4, 1]]),
+                                    _ints(torch, [8, 6]),
+                                    _ints(torch, [3, 2])]),
+            ("RNNTLoss", lambda rs: [randn(rs, 2, 4, 3, 5),
+                                     _ints(torch, [[1, 2], [3, 0]]),
+                                     _ints(torch, [4, 3]),
+                                     _ints(torch, [2, 1])])):
+        args = {"HSigmoidLoss": (4, 6)}.get(n, ())
+        kw = {"RNNTLoss": dict(fastemit_lambda=0.0)}.get(n, {})
+        cases.append(("loss", n, lambda n=n, a=args, k=kw:
+                      getattr(nn, n)(*a, **k), ins))
+    cases += [
+        ("transformer", "MultiHeadAttention",
+         lambda: nn.MultiHeadAttention(32, 4), shapes((2, 5, 32))),
+        ("transformer", "TransformerEncoderLayer",
+         lambda: nn.TransformerEncoderLayer(32, 4, 64, 0.0),
+         shapes((2, 5, 32))),
+        ("transformer", "TransformerEncoder",
+         lambda: nn.TransformerEncoder(nn.TransformerEncoderLayer(
+             32, 4, 64, 0.0), 2), shapes((2, 5, 32))),
+        ("transformer", "TransformerDecoderLayer",
+         lambda: nn.TransformerDecoderLayer(32, 4, 64, 0.0),
+         shapes((2, 5, 32), (2, 7, 32))),
+        ("transformer", "TransformerDecoder",
+         lambda: nn.TransformerDecoder(nn.TransformerDecoderLayer(
+             32, 4, 64, 0.0), 2), shapes((2, 5, 32), (2, 7, 32))),
+        ("transformer", "Transformer",
+         lambda: nn.Transformer(32, 4, 1, 1, 64, 0.0),
+         shapes((2, 7, 32), (2, 5, 32))),
+    ]
+    return cases
+
+
+def _functional_cases(torch):
+    """(name, inputs builder, kwargs) for `phase_nn_layers_card`: the
+    functionals that no layer of `_layer_cases` calls with these options,
+    and the in-place forms (a trailing `_`)."""
+    def randn(rs, *shape):
+        return _randn(torch, rs, *shape)
+
+    def shapes(*ss, then=()):
+        return lambda rs: [randn(rs, *sh) for sh in ss] + list(then)
+
+    def randint(rs, lo, hi, shape):
+        return _ints(torch, rs.randint(lo, hi, shape))
+
+    def bits(rs, *shape):
+        return (randn(rs, *shape) > 0).float()
+
+    img, vol = (2, 3, 6, 7), (2, 2, 4, 5, 3)
+    cases = [
+        ("linear", shapes((4, 6), (6, 5), (5,)), {}),
+        ("bilinear", shapes((4, 3), (4, 5), (2, 3, 5), (2,)), {}),
+        ("embedding", lambda rs: [randint(rs, 0, 10, (3, 5)),
+                                  randn(rs, 10, 4)], dict(padding_idx=0)),
+        ("pad", shapes(img, then=[[2, 1, 1, 2]]), dict(mode="reflect")),
+        ("zeropad2d", shapes(img, then=[[1, 0, 2, 1]]), {}),
+        ("unfold", shapes(img, then=[[2, 3]]), dict(paddings=1)),
+        ("fold", shapes((2, 12, 20), then=[[5, 6], [2, 2]]), {}),
+        ("cosine_similarity", shapes((4, 6), (4, 6)), {}),
+        ("pairwise_distance", shapes((4, 6), (4, 6)), {}),
+        ("label_smooth", shapes((3, 5)), dict(epsilon=0.2)),
+        ("one_hot", lambda rs: [randint(rs, 0, 5, (4,))],
+         dict(num_classes=5)),
+        ("sequence_mask", lambda rs: [randint(rs, 0, 5, (3,))],
+         dict(maxlen=5)),
+        ("class_center_sample", lambda rs: [randint(rs, 0, 20, (8,))],
+         dict(num_classes=20, num_samples=12)),
+        ("normalize", shapes((3, 5)), {}),
+        ("temporal_shift", shapes((6, 8, 3, 3)), dict(seg_num=3)),
+        ("gather_tree", lambda rs: [randint(rs, 0, 9, (5, 2, 3)),
+                                    randint(rs, 0, 3, (5, 2, 3))], {}),
+        ("conv1d", shapes((2, 3, 9), (4, 3, 3)), dict(padding="SAME")),
+        ("conv2d", shapes(img, (4, 3, 3, 2)), dict(padding=[1, 0, 2, 1])),
+        ("conv3d", shapes(vol, (3, 2, 2, 3, 2)), dict(padding=1)),
+        ("conv1d_transpose", shapes((2, 3, 9), (3, 4, 3)), dict(stride=2)),
+        ("conv2d_transpose", shapes(img, (3, 2, 3, 3)),
+         dict(stride=2, padding=1, output_padding=1)),
+        ("conv3d_transpose", shapes(vol, (2, 3, 2, 2, 2)), dict(stride=2)),
+        ("avg_pool2d", shapes(img, then=[3]), dict(stride=2,
+                                                    padding="SAME")),
+        ("max_pool2d", shapes(img, then=[2]), dict(return_mask=True)),
+        ("max_pool3d", shapes(vol, then=[2]), {}),
+        ("adaptive_max_pool2d", shapes(img, then=[[4, 3]]), {}),
+        ("group_norm", shapes((2, 6, 4, 3), then=[3]), {}),
+        ("instance_norm", shapes(img), {}),
+        ("local_response_norm", shapes((2, 7, 3, 3), then=[3]), {}),
+        ("layer_norm", shapes(img, then=[[6, 7]]), {}),
+        ("interpolate", shapes(img), dict(size=[11, 5], mode="bicubic")),
+        ("pixel_shuffle", shapes((2, 8, 3, 3), then=[2]), {}),
+        ("channel_shuffle", shapes((2, 6, 2, 3), then=[3]), {}),
+        ("affine_grid", shapes((2, 2, 3), then=[[2, 3, 4, 5]]), {}),
+        ("grid_sample", shapes(img, (2, 4, 5, 2)), {}),
+        ("sparse_attention", lambda rs: [
+            randn(rs, 2, 2, 6, 8), randn(rs, 2, 2, 6, 8),
+            randn(rs, 2, 2, 6, 8),
+            _ints(torch, np.tile(np.arange(0, 13, 2), (2, 2, 1))),
+            randint(rs, 0, 6, (2, 2, 12))], {}),
+        ("ctc_loss", lambda rs: [
+            torch.log_softmax(randn(rs, 8, 2, 5), -1),
+            randint(rs, 1, 5, (2, 3)), [8, 6], [3, 2]], {}),
+        ("dice_loss", lambda rs: [torch.softmax(randn(rs, 2, 2, 5), -1),
+                                  randint(rs, 0, 5, (2, 2, 1))], {}),
+        ("sigmoid_focal_loss", lambda rs: [randn(rs, 4, 3),
+                                           bits(rs, 4, 3)], {}),
+        ("margin_cross_entropy", lambda rs: [torch.tanh(randn(rs, 4, 5)),
+                                             randint(rs, 0, 5, (4,))], {}),
+        ("npair_loss", lambda rs: [randn(rs, 4, 3), randn(rs, 4, 3),
+                                   randint(rs, 0, 3, (4,))], {}),
+        ("log_loss", lambda rs: [torch.softmax(randn(rs, 4, 3), -1),
+                                 bits(rs, 4, 3)], {}),
+        ("square_error_cost", shapes((4, 3), (4, 3)), {}),
+        ("gumbel_softmax", shapes((4, 6)), {}),
+        ("rrelu", shapes((4, 6)), {}),
+        ("flash_attention", shapes((2, 16, 2, 16), (2, 16, 2, 16),
+                                   (2, 16, 2, 16)), dict(causal=True)),
+    ]
+    cases += [(n, shapes((4, 6)), kw) for n, kw in (
+        ("relu_", {}), ("elu_", dict(alpha=0.7)), ("hardtanh_", {}),
+        ("leaky_relu_", dict(negative_slope=0.2)), ("softmax_", {}),
+        ("tanh_", {}), ("thresholded_relu_", dict(threshold=0.3)))]
+    return cases
+
+
+def _in_place(fn, x, *args, **kw):
+    """An in-place functional on a copy of `x` (a leaf that requires
+    grad cannot be written in place): it must return that copy, written,
+    and gradients flow back through it to `x`."""
+    y = x * 1.0
+    out = fn(y, *args, **kw)
+    check(out is y, f"{fn.__name__}: did not return its argument")
+    return out
+
+
+def phase_nn_layers_card():
+    """44. nn_layers_card: every layer class of the port's `nn` (the
+    layer surface of `_layer_cases`, in training mode where it has one)
+    and the functionals of `_functional_cases` (the ones no layer calls
+    with these options, and the in-place forms, each on a copy it must
+    return written) at small seeded shapes, f32 with TF32 off:
+    forward and backward on the card against the same call on the CPU
+    from the same weights (the layer deep-copied to the card); outputs
+    and every floating input's and parameter's gradient within 1e-4
+    relative to the largest CPU value.  The random ones (the dropouts,
+    RReLU, rrelu, gumbel_softmax) are held to their shape and
+    finiteness, the card drawing its own numbers.  Prints how many ran
+    and the largest error per family."""
+    import torch
+
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.core import device as D
+    from paddle_tpu_torch.nn import functional as F
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    random = {"Dropout", "Dropout2D", "Dropout3D", "AlphaDropout", "RReLU",
+              "gumbel_softmax", "rrelu"}
+    worst, ran = {}, 0
+
+    def held(family, name, cpu_out, gpu_out, cpu_in, gpu_in, params):
+        nonlocal ran
+        outs = cpu_out if isinstance(cpu_out, tuple) else (cpu_out,)
+        gouts = gpu_out if isinstance(gpu_out, tuple) else (gpu_out,)
+        err = 0.0
+        for c, g in zip(outs, gouts):
+            check(tuple(c.shape) == tuple(g.shape),
+                  f"nn_layers_card {name}: shape {tuple(g.shape)} vs "
+                  f"{tuple(c.shape)}")
+            if name in random:
+                check(bool(torch.isfinite(g.float()).all()),
+                      f"nn_layers_card {name}: non-finite")
+                continue
+            scale = max(1.0, c.float().abs().max().item())
+            err = max(err, (g.float().cpu() - c.float()).abs().max().item()
+                      / scale)
+        for c, g in list(zip(cpu_in, gpu_in)) + params:
+            if name in random or (c.grad is None and g.grad is None):
+                continue
+            cg = c.grad if c.grad is not None else torch.zeros_like(c)
+            gg = g.grad.cpu() if g.grad is not None else torch.zeros_like(c)
+            scale = max(1.0, cg.abs().max().item())
+            err = max(err, (gg - cg).abs().max().item() / scale)
+        check(err <= 1e-4, f"nn_layers_card {family}/{name}: card vs CPU "
+              f"{err:.3g} > 1e-4")
+        worst[family] = max(worst.get(family, 0.0), err)
+        ran += 1
+
+    def run(fn, ins):
+        out = fn(*ins)
+        outs = out if isinstance(out, tuple) else (out,)
+        loss = sum((o.float() * (1 + torch.arange(o.numel(), device=o.device)
+                                 .reshape(o.shape) % 7)).sum()
+                   for o in outs if torch.is_tensor(o)
+                   and o.is_floating_point() and o.requires_grad)
+        if torch.is_tensor(loss):
+            loss.backward()
+        return out
+
+    rs = np.random.RandomState(SEED)
+    for family, name, build, inputs in _layer_cases(torch, nn):
+        cpu_in = inputs(rs)
+        prev = D._default
+        D.set_device("cpu")       # built on the CPU, then copied over
+        try:
+            layer = build()
+        finally:
+            D._default = prev
+        card_layer = copy.deepcopy(layer).cuda()
+        gpu_in = [x.cuda() for x in cpu_in]
+        for x in cpu_in + gpu_in:
+            if x.is_floating_point():
+                x.requires_grad_()
+        co, go = run(layer, cpu_in), run(card_layer, gpu_in)
+        params = list(zip(layer.parameters(), card_layer.parameters()))
+        held(family, name, co, go, cpu_in, gpu_in, params)
+    for name, inputs, kw in _functional_cases(torch):
+        cpu_in = inputs(rs)
+        gpu_in = [x.cuda() if torch.is_tensor(x) else x for x in cpu_in]
+        for x in cpu_in + gpu_in:
+            if torch.is_tensor(x) and x.is_floating_point():
+                x.requires_grad_()
+        fn = getattr(F, name)
+        call = (functools.partial(_in_place, fn) if name.endswith("_")
+                else fn)
+        co = run(lambda *a: call(*a, **kw), cpu_in)
+        go = run(lambda *a: call(*a, **kw), gpu_in)
+        if name == "flash_attention":
+            co, go = co[0], go[0]
+        tin = [(c, g) for c, g in zip(cpu_in, gpu_in) if torch.is_tensor(c)]
+        held("functional", name, co, go, [c for c, _ in tin],
+             [g for _, g in tin], [])
+    log(f"[nn_layers_card] {ran} classes and functionals forward + backward "
+        f"on the card against the CPU (f32, TF32 off); largest relative "
+        f"error by family {json.dumps(worst)}")
+
+
+def phase_c1_card(card):
+    """45. c1_card: (a) a trainable mask's gradient through
+    `scaled_dot_product_attention` (the dBias mode, [B, 1, 1, Sk] and
+    [B, H, Sq, Sk], bf16 and f32) and through
+    `variable_length_memory_efficient_attention` ([B, 1, Sq, Sk] with key
+    lengths) on the card against the same calls on the CPU; (b) ROADMAP
+    C1.4: a CPU-built static program run by `Executor()` on the card,
+    `static.load` of another state after the first run, the next run
+    reading it; (c) C1.5: that program fed at a new batch; (d) C1.3:
+    `jit.save` of gpt_1p3b (bf16, full depth) writes a .pdmodel of about
+    a megabyte beside its .pdparams.  Returns the launch counts of (a)."""
+    import torch
+
+    from paddle_tpu_torch import jit, nn, static
+    from paddle_tpu_torch import enable_static, disable_static
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_1p3b
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import kernels as K
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rs = np.random.RandomState(SEED + 45)
+    K.reset_launches()
+    errs = {}
+    for dtype, tol in (("float32", F32_TOL), ("bfloat16", BF16_TOL)):
+        td = getattr(torch, dtype)
+        for shape in ((4, 1, 1, 96), (4, 8, 80, 96)):
+            q = rs.randn(4, 80, 8, 64).astype(np.float32)
+            k, v = (rs.randn(4, 96, 8, 64).astype(np.float32)
+                    for _ in range(2))
+            m = (0.5 * rs.randn(*shape)).astype(np.float32)
+            grads = []
+            for dev in ("cuda", "cpu"):
+                mt = torch.from_numpy(m).to(dev).requires_grad_()
+                out = F.scaled_dot_product_attention(
+                    *(torch.from_numpy(a).to(dev, td) for a in (q, k, v)),
+                    attn_mask=mt)
+                out.float().square().sum().backward()
+                grads.append(mt.grad.float().cpu())
+            err = ((grads[0] - grads[1]).abs().max()
+                   / grads[1].abs().max()).item()
+            check(err <= tol, f"c1_card sdpa dmask {shape} {dtype}: {err:.3g}")
+            errs[f"sdpa {list(shape)} {dtype}"] = err
+    q, k, v = (rs.randn(2, 4, 64, 32).astype(np.float32) for _ in range(3))
+    m = rs.randn(2, 1, 64, 64).astype(np.float32)
+    grads = []
+    for dev in ("cuda", "cpu"):
+        mt = torch.from_numpy(m).to(dev).requires_grad_()
+        out = IF.variable_length_memory_efficient_attention(
+            *(torch.from_numpy(a).to(dev) for a in (q, k, v)),
+            kv_seq_lens=torch.tensor([64, 40], device=dev), mask=mt,
+            causal=True)
+        out.square().sum().backward()
+        grads.append(mt.grad.cpu())
+    err = ((grads[0] - grads[1]).abs().max() / grads[1].abs().max()).item()
+    check(err <= F32_TOL, f"c1_card varlen mem-eff dmask: {err:.3g}")
+    errs["varlen_mem_eff f32"] = err
+    counts = K.launch_counts()
+    check(counts["flash_bwd"] == 5, f"c1_card: {counts['flash_bwd']} "
+          "flash_bwd launches for 5 trainable-mask backwards")
+    # (b), (c): a program built on the CPU, run on the card
+    tmp = _tmpdir("c1_card")
+    enable_static()
+    try:
+        x = static.data("x", [2, 4], "float32")
+        y = static.nn.fc(x, 3, device="cpu")
+    finally:
+        disable_static()
+    prog = static.default_main_program()
+    static.save(prog, os.path.join(tmp, "prog"))
+    state = static.load_program_state(os.path.join(tmp, "prog"))
+    exe = static.Executor()
+    feed = rs.rand(2, 4).astype(np.float32)
+    (first,) = exe.run(feed={"x": feed}, fetch_list=[y])
+    static.set_program_state(prog, {n: v * 0 + 1 for n, v in state.items()})
+    (ones,) = exe.run(feed={"x": feed}, fetch_list=[y])
+    check(np.allclose(ones, feed.sum(1, keepdims=True) + 1, atol=1e-5),
+          f"c1_card: the loaded state did not reach the card's run {ones}")
+    static.load(prog, os.path.join(tmp, "prog"))
+    (again,) = exe.run(feed={"x": feed}, fetch_list=[y])
+    check(np.array_equal(again, first), "c1_card: static.load did not "
+          "bring the saved state back to the card's run")
+    wide = rs.rand(3, 4).astype(np.float32)
+    (three,) = exe.run(feed={"x": wide}, fetch_list=[y])
+    check(three.shape == (3, 3), f"c1_card: a [3, 4] feed gave {three.shape}")
+    # (d)
+    cfg = gpt_1p3b()
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                           seed=SEED)
+    t0 = time.perf_counter()
+    jit.save(model, os.path.join(tmp, "gpt"),
+             input_spec=[torch.zeros(1, 128, dtype=torch.int64,
+                                     device="cuda")])
+    save_s = time.perf_counter() - t0
+    pdmodel = os.path.getsize(os.path.join(tmp, "gpt.pdmodel"))
+    pdparams = os.path.getsize(os.path.join(tmp, "gpt.pdparams"))
+    check(pdmodel < 16 * 2**20, f"c1_card: gpt_1p3b .pdmodel is "
+          f"{pdmodel / 2**20:.1f} MiB")
+    del model
+    shutil.rmtree(tmp, ignore_errors=True)
+    _release_card()
+    log(f"[c1_card] ({card}) trainable-mask gradients card vs CPU "
+        f"(relative to the largest): {json.dumps(errs)}; a CPU-built "
+        f"program on the card: the loaded state reached the next run, a "
+        f"[3, 4] feed gave {three.shape}; jit.save gpt_1p3b bf16 24L: "
+        f".pdmodel {pdmodel / 2**20:.2f} MiB, .pdparams "
+        f"{pdparams / 2**20:.1f} MiB, save {save_s:.2f} s")
+    return counts
+
+
 def main():
     try:
         import torch
@@ -7778,6 +8830,11 @@ def main():
         path("saved_model_serve", phase_saved_model_serve, card, saved)
         path("fleet_model", phase_fleet_model, card, saved)
         release()
+        path("transformer_train", phase_transformer_train, card)
+        path("transformer_decode", phase_transformer_decode, card)
+        run("nn_layers_card", phase_nn_layers_card)
+        path("c1_card", phase_c1_card, card)
+        release()
         path("fleet", phase_fleet)
         rows = []
         for name, k in K.KERNELS.items():
@@ -7796,6 +8853,11 @@ def main():
                 plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                 bound_by=row["bound_by"], library_ms=row["library_ms"],
                 shape=row["case"], paths=by_path))
+            if name == "flash_bwd":
+                # the dBias mode's rows (with and without dBias) by dtype
+                rows[-1]["dbias"] = {
+                    d: table[("flash_bwd dbias", d)]
+                    for d in ("float32", "bfloat16", "float16")}
             f16 = table[(name, "float16")]
             rows[-1]["float16"] = dict(
                 {k: f16[k] for k in ("case", "ms", "plain_ms", "library_ms",

@@ -44,17 +44,21 @@ and saved-model serving (slice 25): `enable_static`, `static` (`data`,
 the layer builders of `static.nn`), `inference.Config` /
 `create_predictor` / `Predictor` and the C inference ABI
 (`native/capi.py`), `InferenceServer(model_path=)` and fleet replicas of
-kind ``model``.
+kind ``model``; and Paddle's layer surface: `nn.Layer`,
+`Parameter`, `ParamAttr`, the initializers, every `nn.functional`
+function and `nn` layer of the JAX package but the recurrent family
+(`nn.Transformer` among them), and `set_device` / `get_device`.
 """
 from __future__ import annotations
 
 import importlib
 
 __all__ = ["Model", "amp", "core", "disable_static", "enable_static",
-           "flops", "framework", "hapi", "in_dynamic_mode", "incubate",
-           "inference", "io", "jit", "load", "metric", "models", "nn",
-           "observability", "ops", "optimizer", "regularizer", "save",
-           "static", "summary", "vision"]
+           "flops", "framework", "get_device", "hapi", "in_dynamic_mode",
+           "incubate", "inference", "io", "jit", "load", "metric",
+           "models", "nn", "observability", "ops", "optimizer",
+           "regularizer", "save", "set_device", "static", "summary",
+           "vision"]
 
 # top-level names, imported at first use (the package's import stays
 # light: the DataLoader's worker processes import it)
@@ -62,7 +66,8 @@ _LAZY = {"save": "framework.io_utils", "load": "framework.io_utils",
          "Model": "hapi.model", "summary": "hapi.summary",
          "flops": "hapi.summary", "enable_static": "static.recorder",
          "disable_static": "static.recorder",
-         "in_dynamic_mode": "static.recorder"}
+         "in_dynamic_mode": "static.recorder",
+         "set_device": "core.device", "get_device": "core.device"}
 
 
 def __getattr__(name):

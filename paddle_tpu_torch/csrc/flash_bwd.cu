@@ -14,7 +14,13 @@
 // Q/K/V/O/dO are read in the native [B, S, H, D] layout, the kv head of
 // query head h is h / (Hq / Hkv), and the optional f32 bias is read
 // through strides (stride 0 on broadcast dims), as flash_fwd.cu reads it.
-// The bias gets no gradient (the JAX core returns a zero cotangent).
+// The JAX core returns the bias a zero cotangent (its trainable masks
+// take `_sdpa_ref`); here the dBias mode (`flash_bwd` given a dbias
+// pointer, DBIAS = true, launched only for a mask that requires grad)
+// also gives dBias = p (dP - delta), the gradient of the scale-then-bias
+// scores, from the dK/dV pass, accumulated in f32 in the mask's own
+// shape (its broadcast axes summed); the other modes' instantiations do
+// not change.
 // Packed mode (below) replaces paddle_tpu/ops/pallas/varlen_attention.py
 // `_vl_bwd` (:139), and head-major mode the Q/O addressing of `_bwd_kv`.
 //
@@ -94,6 +100,16 @@
 #define FB_BK 32
 #define FB_WARPS 8
 #define FB_RPW (FB_BQ / FB_WARPS)
+
+// dBias mode: the f32 gradient of the additive bias, element (b, h, i, j)
+// at b * sb + h * sh + i * sq + j (stride 0 on the mask's broadcast axes,
+// zeroed by the caller).  `unique`: no two (b, h, i, j) share an element,
+// so the dK/dV pass stores it; otherwise it adds it atomically.
+struct DBias {
+  float* p;
+  long long sb, sh, sq;
+  int unique;
+};
 
 // (a) delta[b, h, i] over rows of [B, Sq, Hq] in memory order ([B, Hq,
 // Sq], delta's own order, in head-major mode).
@@ -271,7 +287,12 @@ __global__ void __launch_bounds__(FB_WARPS * 32) flash_bwd_dq_kernel(
 
 // (c) dK and dV for one (32-key tile, kv head, batch), summed over the
 // kv head's group of query heads.
-template <typename T, int NJ, bool PACKED, bool HM>
+// With DBIAS, also dBias = p (dP - delta) (the gradient of the scores
+// after the scale, where the bias is added): a mask broadcast over the
+// queries (sq == 0) sums its keys' column in registers, over the query
+// tiles and, when it is broadcast over heads too, over the GQA group,
+// and adds the sum once; any other mask gets each element.
+template <typename T, int NJ, bool PACKED, bool HM, bool DBIAS = false>
 __global__ void __launch_bounds__(FB_WARPS * 32) flash_bwd_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ bias, const float* __restrict__ lse,
@@ -279,7 +300,7 @@ __global__ void __launch_bounds__(FB_WARPS * 32) flash_bwd_dkv_kernel(
     T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk, int Hq, int Hkv,
     int D, long long bsb, long long bsh, long long bsq, int causal,
     float scale, const int* __restrict__ cu_q, const int* __restrict__ cu_k,
-    int nseg) {
+    int nseg, DBias db = DBias{}) {
   extern __shared__ float smem[];
   const int DP = D + 1;
   float* Ks = smem;              // [FB_BK][DP]
@@ -320,9 +341,13 @@ __global__ void __launch_bounds__(FB_WARPS * 32) flash_bwd_dkv_kernel(
     }
   }
 
+  float dbacc[FB_RPW];  // DBIAS, sq == 0: the keys' column sums
+#pragma unroll
+  for (int r = 0; r < FB_RPW; ++r) dbacc[r] = 0.f;
   for (int g = 0; g < rep; ++g) {
     const int h = hk * rep + g;
     const float* brow = bias ? bias + b * bsb + h * bsh : nullptr;
+    float* dbrow = DBIAS ? db.p + b * db.sb + h * db.sh : nullptr;
     for (int q0 = qstart; q0 < qend; q0 += FB_BQ) {
       __syncthreads();  // the previous query tile is consumed
       stage_rows<HM>(Qs, q, b, q0, Sq, Hq, h, D);
@@ -368,6 +393,18 @@ __global__ void __launch_bounds__(FB_WARPS * 32) flash_bwd_dkv_kernel(
           p[r] = (kj < Sk && qi < Sq) ? expf(sv - L) : 0.f;
         }
         ds[r] = p[r] * (dp[r] - Dl) * scale;
+        if constexpr (DBIAS) {
+          const float dx = p[r] * (dp[r] - Dl);
+          if (kj < Sk && qi < Sq) {
+            if (db.sq == 0) {
+              dbacc[r] += dx;
+            } else if (db.unique) {
+              dbrow[qi * db.sq + kj] = dx;
+            } else {
+              atomicAdd(dbrow + qi * db.sq + kj, dx);
+            }
+          }
+        }
       }
       for (int c = 0; c < FB_BQ; ++c) {
         float pc[FB_RPW], dsc[FB_RPW];
@@ -388,6 +425,19 @@ __global__ void __launch_bounds__(FB_WARPS * 32) flash_bwd_dkv_kernel(
             accv[r][j] += pc[r] * dd;
             acck[r][j] += dsc[r] * qd;
           }
+        }
+      }
+    }
+    if constexpr (DBIAS) {
+      // a column sum ends with its head, or with the group when the mask
+      // is broadcast over heads
+      if (db.sq == 0 && (db.sh != 0 || g == rep - 1)) {
+#pragma unroll
+        for (int r = 0; r < FB_RPW; ++r) {
+          const float sum = warp_sum(dbacc[r]);
+          const int kj = k0 + warp * FB_RPW + r;
+          if (lane == 0 && kj < Sk) atomicAdd(dbrow + kj, sum);
+          dbacc[r] = 0.f;
         }
       }
     }
@@ -416,14 +466,14 @@ static void allow_smem(K kern, size_t smem) {
                          (int)smem);
 }
 
-template <typename T, int NJ, bool PACKED, bool HM>
+template <typename T, int NJ, bool PACKED, bool HM, bool DBIAS>
 static int launch(const void* q, const void* k, const void* v,
                   const float* bias, const void* o, const float* lse,
                   const void* dout, float* delta, void* dq, void* dk,
                   void* dv, int B, int Sq, int Sk, int Hq, int Hkv, int D,
                   long long bsb, long long bsh, long long bsq, int causal,
                   float scale, const int* cu_q, const int* cu_k, int nseg,
-                  cudaStream_t stream) {
+                  cudaStream_t stream, DBias db) {
   const long long rows = (long long)B * Sq * Hq;
   flash_bwd_delta_kernel<T, HM>
       <<<(unsigned)((rows + FB_WARPS - 1) / FB_WARPS), FB_WARPS * 32, 0,
@@ -443,29 +493,29 @@ static int launch(const void* q, const void* k, const void* v,
   if (err) return err;
 
   const size_t smem_dkv = 4 * tile + sizeof(float) * 2 * FB_BQ;
-  auto dkv_kern = flash_bwd_dkv_kernel<T, NJ, PACKED, HM>;
+  auto dkv_kern = flash_bwd_dkv_kernel<T, NJ, PACKED, HM, DBIAS>;
   allow_smem(dkv_kern, smem_dkv);
   dkv_kern<<<dim3((Sk + FB_BK - 1) / FB_BK, Hkv, B), FB_WARPS * 32, smem_dkv,
              stream>>>((const T*)q, (const T*)k, (const T*)v, bias, lse,
                        delta, (const T*)dout, (T*)dk, (T*)dv, Sq, Sk, Hq,
                        Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k,
-                       nseg);
+                       nseg, db);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool PACKED, bool HM = false>
+template <typename T, bool PACKED, bool HM = false, bool DBIAS = false>
 static int dispatch(const void* q, const void* k, const void* v,
                     const float* bias, const void* o, const float* lse,
                     const void* dout, float* delta, void* dq, void* dk,
                     void* dv, int B, int Sq, int Sk, int Hq, int Hkv, int D,
                     long long bsb, long long bsh, long long bsq, int causal,
                     float scale, const int* cu_q, const int* cu_k, int nseg,
-                    cudaStream_t s) {
+                    cudaStream_t s, DBias db = DBias{}) {
   switch (pt_nj(D)) {
-    case 1: return launch<T, 1, PACKED, HM>(q, k, v, bias, o, lse, dout, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
-    case 2: return launch<T, 2, PACKED, HM>(q, k, v, bias, o, lse, dout, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
-    case 4: return launch<T, 4, PACKED, HM>(q, k, v, bias, o, lse, dout, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
-    default: return launch<T, 8, PACKED, HM>(q, k, v, bias, o, lse, dout, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
+    case 1: return launch<T, 1, PACKED, HM, DBIAS>(q, k, v, bias, o, lse, dout, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s, db);
+    case 2: return launch<T, 2, PACKED, HM, DBIAS>(q, k, v, bias, o, lse, dout, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s, db);
+    case 4: return launch<T, 4, PACKED, HM, DBIAS>(q, k, v, bias, o, lse, dout, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s, db);
+    default: return launch<T, 8, PACKED, HM, DBIAS>(q, k, v, bias, o, lse, dout, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s, db);
   }
 }
 
@@ -684,8 +734,13 @@ __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dq_tc(
 }
 
 // (c) dK and dV for one (key tile, kv head, batch), summed over the kv
-// head's group of query heads.
-template <typename E, int DT, bool BIAS, bool PACKED, bool HM>
+// head's group of query heads.  With DBIAS also dBias, as in the f32
+// kernel: each thread sums its two keys' columns in registers for a mask
+// broadcast over the queries (the four lanes of a key row then meet by
+// shuffle), else it stores or adds each element; with two warps on the
+// same keys (head dims above 128) only the first contributes.
+template <typename E, int DT, bool BIAS, bool PACKED, bool HM,
+          bool DBIAS = false>
 __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dkv_tc(
     const E* __restrict__ q, const E* __restrict__ k,
     const E* __restrict__ v, const float* __restrict__ bias,
@@ -693,7 +748,8 @@ __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dkv_tc(
     const E* __restrict__ dout, E* __restrict__ dk,
     E* __restrict__ dv, int Sq, int Sk, int Hq, int Hkv, int D,
     long long bsb, long long bsh, long long bsq, int causal, float scale,
-    const int* __restrict__ cu_q, const int* __restrict__ cu_k, int nseg) {
+    const int* __restrict__ cu_q, const int* __restrict__ cu_k, int nseg,
+    DBias db = DBias{}) {
   constexpr int NS = BwdTile<DT>::NS, KT = BwdTile<DT>::KT;
   constexpr int QT = BwdTile<DT>::QT, NQ = QT / 8, KS = DT / 16;
   constexpr int NC = DT / 8 / NS;  // dK / dV n-tiles per warp
@@ -768,6 +824,7 @@ __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dkv_tc(
 #pragma unroll
     for (int e = 0; e < 4; ++e) adk[n][e] = adv[n][e] = 0.f;
 
+  float dbacc[2] = {0.f, 0.f};  // DBIAS, sq == 0: keys g, g + 8
   for (int it = 0; it < ntiles; ++it) {
     const int st = it & 1;
     const int h = hk * rep + it / nqt, q0 = qstart + (it % nqt) * QT;
@@ -838,8 +895,42 @@ __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dkv_tc(
         }
         const float p =
             valid ? tc_exp2((x - (c ? lq.y : lq.x)) * TC_LOG2E) : 0.f;
+        if constexpr (DBIAS) {
+          const float dx = p * (dp[j][e] - (c ? dq2.y : dq2.x));
+          if (n0 == 0 && kj < Sk && qi < Sq) {
+            if (db.sq == 0) {
+              dbacc[r] += dx;
+            } else {
+              float* dbat = db.p + b * db.sb + h * db.sh + qi * db.sq + kj;
+              if (db.unique) {
+                *dbat = dx;
+              } else {
+                atomicAdd(dbat, dx);
+              }
+            }
+          }
+        }
         dp[j][e] = p * (dp[j][e] - (c ? dq2.y : dq2.x)) * scale;
         s[j][e] = p;
+      }
+    }
+    if constexpr (DBIAS) {
+      // a column sum ends with its head's last query tile, or with the
+      // group's when the mask is broadcast over heads
+      const bool flush = db.sq == 0 && n0 == 0 &&
+                         (db.sh != 0 ? it % nqt == nqt - 1
+                                     : it == ntiles - 1);
+      if (flush) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float sum = dbacc[r];
+          sum += __shfl_xor_sync(PT_FULL_MASK, sum, 1);
+          sum += __shfl_xor_sync(PT_FULL_MASK, sum, 2);
+          const int kj = k0 + wr + g + 8 * r;
+          if (t == 0 && kj < Sk)
+            atomicAdd(db.p + b * db.sb + h * db.sh + kj, sum);
+          dbacc[r] = 0.f;
+        }
       }
     }
 
@@ -876,14 +967,14 @@ __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dkv_tc(
                                     threadIdx.x);
 }
 
-template <typename E, int DT, bool BIAS, bool PACKED, bool HM>
+template <typename E, int DT, bool BIAS, bool PACKED, bool HM, bool DBIAS>
 static int launch_tc(const void* q, const void* k, const void* v,
                      const float* bias, const void* o, const float* lse,
                      const void* dout, float* delta, void* dq, void* dk,
                      void* dv, int B, int Sq, int Sk, int Hq, int Hkv, int D,
                      long long bsb, long long bsh, long long bsq, int causal,
                      float scale, const int* cu_q, const int* cu_k, int nseg,
-                     cudaStream_t stream) {
+                     cudaStream_t stream, DBias db) {
   const long long rows = (long long)B * Sq * Hq;
   flash_bwd_delta_kernel<E, HM>
       <<<(unsigned)((rows + FB_WARPS - 1) / FB_WARPS), FB_WARPS * 32, 0,
@@ -903,49 +994,77 @@ static int launch_tc(const void* q, const void* k, const void* v,
   if (err) return err;
 
   constexpr int KT = BwdTile<DT>::KT;
-  auto dkv_kern = flash_bwd_dkv_tc<E, DT, BIAS, PACKED, HM>;
+  auto dkv_kern = flash_bwd_dkv_tc<E, DT, BIAS, PACKED, HM, DBIAS>;
   allow_smem(dkv_kern, BwdTile<DT>::smem_dkv);
   dkv_kern<<<dim3((Sk + KT - 1) / KT, Hkv, B), TC_THREADS,
              BwdTile<DT>::smem_dkv, stream>>>(
       (const E*)q, (const E*)k, (const E*)v, bias, lse, delta,
       (const E*)dout, (E*)dk, (E*)dv, Sq, Sk, Hq, Hkv, D, bsb, bsh,
-      bsq, causal, scale, cu_q, cu_k, nseg);
+      bsq, causal, scale, cu_q, cu_k, nseg, db);
   return (int)cudaGetLastError();
 }
 
 // bf16 or f16 (any mode), E: the tile width DT is the
 // head dim rounded up to 64, 128 or 256.
-template <typename E, bool BIAS, bool PACKED, bool HM = false>
+template <typename E, bool BIAS, bool PACKED, bool HM = false,
+          bool DBIAS = false>
 static int dispatch_tc(const void* q, const void* k, const void* v,
                        const float* bias, const void* o, const float* lse,
                        const void* dout, float* delta, void* dq, void* dk,
                        void* dv, int B, int Sq, int Sk, int Hq, int Hkv,
                        int D, long long bsb, long long bsh, long long bsq,
                        int causal, float scale, const int* cu_q,
-                       const int* cu_k, int nseg, cudaStream_t s) {
+                       const int* cu_k, int nseg, cudaStream_t s,
+                       DBias db = DBias{}) {
   if (!tc_aligned(q) || !tc_aligned(k) || !tc_aligned(v) ||
       !tc_aligned(dout) || !tc_aligned(dq) || !tc_aligned(dk) ||
       !tc_aligned(dv))
     return (int)cudaErrorMisalignedAddress;
   if (D <= 64)
-    return launch_tc<E, 64, BIAS, PACKED, HM>(q, k, v, bias, o, lse, dout, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
+    return launch_tc<E, 64, BIAS, PACKED, HM, DBIAS>(q, k, v, bias, o, lse, dout, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s, db);
   if (D <= 128)
-    return launch_tc<E, 128, BIAS, PACKED, HM>(q, k, v, bias, o, lse, dout, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
-  return launch_tc<E, 256, BIAS, PACKED, HM>(q, k, v, bias, o, lse, dout, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s);
+    return launch_tc<E, 128, BIAS, PACKED, HM, DBIAS>(q, k, v, bias, o, lse, dout, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s, db);
+  return launch_tc<E, 256, BIAS, PACKED, HM, DBIAS>(q, k, v, bias, o, lse, dout, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq, causal, scale, cu_q, cu_k, nseg, s, db);
 }
 
 // q / o / dout / dq [B, Sq, Hq, D]; k / v / dk / dv [B, Sk, Hkv, D];
 // bias f32 or null, element (b, h, i, j) at b * bsb + h * bsh + i * bsq
 // + j; lse and delta (scratch) [B, Hq, Sq] f32; dtype PT_F32, PT_BF16
-// or PT_F16.  Returns the first launch error, 0 when all three launches
-// were accepted.
+// or PT_F16.  dbias null, or the dBias mode (a bias is then required):
+// the bias's gradient is written to dbias (f32, zeroed by the caller),
+// element (b, h, i, j) at b * dsb + h * dsh + i * dsq + j (stride 0 on
+// the mask's broadcast axes); `unique` when no element is shared (every
+// stride non-zero, or its axis of size 1).  The dQ pass is the biased
+// mode's own.  Returns the first launch error, 0 when all three
+// launches were accepted.
 extern "C" int flash_bwd(const void* q, const void* k, const void* v,
                          const void* bias, const void* o, const void* lse,
                          const void* dout, void* delta, void* dq, void* dk,
-                         void* dv, int B, int Sq, int Sk, int Hq, int Hkv,
-                         int D, long long bsb, long long bsh, long long bsq,
+                         void* dv, void* dbias, int B, int Sq, int Sk,
+                         int Hq, int Hkv, int D, long long bsb,
+                         long long bsh, long long bsq, long long dsb,
+                         long long dsh, long long dsq, int unique,
                          int causal, float scale, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (dbias) {
+    if (!bias) return (int)cudaErrorInvalidValue;
+    const DBias db{(float*)dbias, dsb, dsh, dsq, unique};
+    if (dtype == PT_BF16)
+      return dispatch_tc<bf16, true, false, false, true>(
+          q, k, v, (const float*)bias, o, (const float*)lse, dout,
+          (float*)delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq,
+          causal, scale, nullptr, nullptr, 0, s, db);
+    if (dtype == PT_F16)
+      return dispatch_tc<f16, true, false, false, true>(
+          q, k, v, (const float*)bias, o, (const float*)lse, dout,
+          (float*)delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq,
+          causal, scale, nullptr, nullptr, 0, s, db);
+    if (dtype != PT_F32) return (int)cudaErrorInvalidValue;
+    return dispatch<float, false, false, true>(
+        q, k, v, (const float*)bias, o, (const float*)lse, dout,
+        (float*)delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, bsb, bsh, bsq,
+        causal, scale, nullptr, nullptr, 0, s, db);
+  }
   if (dtype == PT_BF16)
     return bias ? dispatch_tc<bf16, true, false>(
                       q, k, v, (const float*)bias, o, (const float*)lse,

@@ -373,7 +373,8 @@ def variable_length_memory_efficient_attention(query, key, value,
     q's dtype; `causal` is aligned bottom-right; `seq_lens` and
     `pre_cache_length` are ignored, as in JAX.  Runs `FlashAttention`
     (the biased flash kernels on CUDA, their plain versions on the CPU),
-    below the AMP gate: the JAX op is on no AMP list."""
+    below the AMP gate: the JAX op is on no AMP list.  A mask that
+    requires grad gets its gradient."""
     b, _, _, d = query.shape
     sk = key.shape[2]
     q = query
@@ -382,11 +383,8 @@ def variable_length_memory_efficient_attention(query, key, value,
                              device=q.device)
     bias = None
     if mask is not None:
-        if mask.requires_grad and torch.is_grad_enabled():
-            raise NotImplementedError(
-                "variable_length_memory_efficient_attention: a trainable "
-                "mask needs a bias gradient, which the flash kernels do not "
-                "compute; detach the mask")
+        # a mask that requires grad gets it from the flash backward's
+        # dBias mode (JAX differentiates `_ref_attention` instead)
         bias = mask.to(device=q.device, dtype=torch.float32)
     if kv_seq_lens is not None:
         valid = torch.arange(sk, device=q.device)[None, None, None, :] \

@@ -27,6 +27,7 @@ from torch import nn
 
 from ...core.device import resolve_device
 from ...nn import Linear
+from ...nn.layer_base import Layer
 from . import functional as IF
 
 __all__ = [
@@ -44,7 +45,7 @@ def _fan_in(shape):
     return shape[1] * math.prod(shape[2:])
 
 
-class _Fused(nn.Module):
+class _Fused(Layer):
     """Holds the device, dtype and generator its parameters are drawn
     with (`kw`, handed down to sublayers)."""
 
@@ -93,7 +94,7 @@ class FusedLinear(_Fused):
                                transpose_weight=self.transpose_weight)
 
 
-class FusedDropoutAdd(nn.Module):
+class FusedDropoutAdd(Layer):
     """y = x + dropout(residual-input) in one fused op."""
 
     def __init__(self, p=0.5, mode="upscale_in_train", name=None):

@@ -441,6 +441,9 @@ def save(layer, path, input_spec=None, **configs):
         with _ExportMode(target), torch.no_grad():
             program = torch.export.export(
                 _Pure(target), (params, buffers, *inputs), strict=False)
+        # the archive would keep the example inputs, the parameters among
+        # them: they travel in .pdparams
+        program.example_inputs = None
         with open(path + ".pdmodel", "wb") as f:
             torch.export.save(program, f)
         exported = True

@@ -29,6 +29,7 @@ import torch
 from .. import nn
 from ..core.device import resolve_device
 from ..nn import functional as F
+from ..nn.layer_base import Layer
 
 __all__ = ["ErnieConfig", "ErnieModel", "ErnieForPretraining",
            "ErniePretrainingCriterion", "ernie_tiny", "ernie_base",
@@ -52,7 +53,7 @@ class ErnieConfig:
         self.pad_token_id = pad_token_id
 
 
-class ErnieEmbeddings(torch.nn.Module):
+class ErnieEmbeddings(Layer):
     def __init__(self, cfg, *, kw):
         super().__init__()
         self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
@@ -88,7 +89,7 @@ def _build_kw(device, dtype, seed, generator):
     return dict(device=dev, dtype=dtype, generator=generator)
 
 
-class ErnieModel(torch.nn.Module):
+class ErnieModel(Layer):
     """Encoder trunk: (sequence_output [B, S, H], pooled_output [B, H])."""
 
     def __init__(self, cfg, device=None, dtype=torch.float32, seed=0, *,
@@ -119,7 +120,7 @@ class ErnieModel(torch.nn.Module):
         return x, torch.tanh(self.pooler(x[:, 0]))
 
 
-class ErnieForPretraining(torch.nn.Module):
+class ErnieForPretraining(Layer):
     """MLM (decoder tied to the word embeddings) and NSP heads: (MLM
     logits [B, S, V], NSP logits [B, 2])."""
 
@@ -153,7 +154,7 @@ class ErnieForPretraining(torch.nn.Module):
         return logits, self.nsp_head(pooled)
 
 
-class ErniePretrainingCriterion(torch.nn.Module):
+class ErniePretrainingCriterion(Layer):
     """The MLM cross entropy over the positions whose label is not
     `ignore_index`, plus the NSP cross entropy when its labels are
     given; each a mean, summed."""

@@ -22,7 +22,6 @@ NotImplementedError.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -31,6 +30,7 @@ from ..distributed.recompute import _resolve_policy
 from ..distributed.recompute import recompute as _recompute
 from ..nn import Dropout, Embedding, LayerNorm, Linear, RMSNorm, weight_in_use
 from ..nn import functional as F
+from ..nn.layer_base import Layer, load_reference_state  # noqa: F401
 from ..ops.linalg import matmul
 from .generation import (
     GenerationMixin, _static_cache_attention, decode_position_ids,
@@ -99,7 +99,7 @@ def _norm(cfg, device, dtype):
                      dtype=dtype)
 
 
-class GPTAttention(nn.Module):
+class GPTAttention(Layer):
     def __init__(self, cfg, **kw):
         super().__init__()
         self.cfg = cfg
@@ -129,7 +129,7 @@ class GPTAttention(nn.Module):
         return self.out_proj(out.reshape(b, s, h))
 
 
-class GPTMLP(nn.Module):
+class GPTMLP(Layer):
     def __init__(self, cfg, **kw):
         super().__init__()
         self.use_swiglu = cfg.use_swiglu
@@ -146,7 +146,7 @@ class GPTMLP(nn.Module):
         return self.down_proj(F.gelu(self.up_proj(x), approximate=True))
 
 
-class GPTBlock(nn.Module):
+class GPTBlock(Layer):
     def __init__(self, cfg, *, device, dtype, generator):
         super().__init__()
         kw = dict(device=device, dtype=dtype, generator=generator)
@@ -176,7 +176,7 @@ class GPTBlock(nn.Module):
         return self._body(x, rope)
 
 
-class GPTModel(nn.Module):
+class GPTModel(Layer):
     def __init__(self, cfg, *, device, dtype, generator):
         super().__init__()
         self.cfg = cfg
@@ -217,7 +217,7 @@ class GPTModel(nn.Module):
         return self.ln_f(x)
 
 
-class GPTForCausalLM(nn.Module, GenerationMixin):
+class GPTForCausalLM(Layer, GenerationMixin):
     """GPT with the LM head.  ``device=None`` means ``"cuda"`` and raises
     on a host without CUDA (pass ``device="cpu"`` for the plain CPU
     path); parameters are drawn from a `torch.Generator` seeded with
@@ -231,7 +231,7 @@ class GPTForCausalLM(nn.Module, GenerationMixin):
         self.cfg = cfg
         self.gpt = GPTModel(cfg, device=dev, dtype=dtype, generator=gen)
         self.lm_head = None if cfg.tie_embeddings else Linear(
-            cfg.hidden_size, cfg.vocab_size, bias=False, device=dev,
+            cfg.hidden_size, cfg.vocab_size, bias_attr=False, device=dev,
             dtype=dtype, generator=gen)
         self.eval()
 
@@ -406,7 +406,7 @@ def _fused_linear_ce(h, w, labels, ignore_index, n_chunks=16):
     return total, valid.float().sum()
 
 
-class GPTPretrainingCriterion(nn.Module):
+class GPTPretrainingCriterion(Layer):
     """Token-level LM loss, the mean over tokens whose label is not
     `ignore_index` (JAX :461).
 
@@ -460,38 +460,6 @@ class GPTPretrainingCriterion(nn.Module):
                 self.ignore_index)
             return total / count.clamp(min=1.0)
         return F.cross_entropy(logits, labels, ignore_index=self.ignore_index)
-
-
-def load_reference_state(model, params, buffers=None) -> None:
-    """Copy the JAX model's ``functional_state()`` params (name -> array,
-    numpy or anything `np.asarray` takes) into `model`, onto its device
-    and dtype; with `buffers` (the second dict of ``functional_state()``)
-    the model's persistent buffers too, such as batch norm's `_mean` and
-    `_variance`.  Every name and shape must match: a missing or extra
-    name raises, as does a shape mismatch."""
-    own = dict(model.named_parameters())
-    targets = [(own, params)]
-    if buffers is not None:
-        state = model.state_dict(keep_vars=True)
-        targets.append(({n: b for n, b in model.named_buffers()
-                         if n in state}, buffers))
-    for dst, src_dict in targets:
-        missing = sorted(set(dst) - set(src_dict))
-        extra = sorted(set(src_dict) - set(dst))
-        if missing or extra:
-            raise KeyError(f"load_reference_state: missing {missing}, "
-                           f"unexpected {extra}")
-    with torch.no_grad():
-        for dst, src_dict in targets:
-            for name, p in dst.items():
-                src = np.asarray(src_dict[name])
-                if tuple(src.shape) != tuple(p.shape):
-                    raise ValueError(
-                        f"load_reference_state: {name} has shape "
-                        f"{tuple(src.shape)}, model expects "
-                        f"{tuple(p.shape)}")
-                p.copy_(torch.from_numpy(np.array(src)).to(
-                    device=p.device, dtype=p.dtype))
 
 
 def gpt_tiny(**kw):

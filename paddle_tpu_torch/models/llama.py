@@ -27,6 +27,7 @@ from ..distributed.recompute import _resolve_policy
 from ..distributed.recompute import recompute as _recompute
 from ..nn import Embedding, Linear, RMSNorm, weight_in_use
 from ..nn import functional as F
+from ..nn.layer_base import Layer
 from .generation import (
     GenerationMixin, _static_cache_attention, forward_phases, init_kv_caches,
 )
@@ -63,7 +64,7 @@ class LlamaConfig:
         self.recompute_policy = recompute_policy
 
 
-class LlamaAttention(nn.Module):
+class LlamaAttention(Layer):
     def __init__(self, cfg, **kw):
         super().__init__()
         self.cfg = cfg
@@ -74,8 +75,8 @@ class LlamaAttention(nn.Module):
         kv_size = cfg.num_kv_heads * self.head_dim
         # fused bias-free qkv, split [q | k | v] along the last axis
         self.qkv_proj = Linear(cfg.hidden_size, q_size + 2 * kv_size,
-                               bias=False, **kw)
-        self.out_proj = Linear(q_size, cfg.hidden_size, bias=False, **kw)
+                               bias_attr=False, **kw)
+        self.out_proj = Linear(q_size, cfg.hidden_size, bias_attr=False, **kw)
 
     def forward(self, x, rope, kv_cache=None, cache_pos=None,
                 attn_start=None):
@@ -102,19 +103,19 @@ class LlamaAttention(nn.Module):
         return self.out_proj(out.reshape(b, s, q_size))
 
 
-class LlamaMLP(nn.Module):
+class LlamaMLP(Layer):
     def __init__(self, cfg, **kw):
         super().__init__()
         self.gate_up_proj = Linear(cfg.hidden_size, 2 * cfg.ffn_hidden,
-                                   bias=False, **kw)
-        self.down_proj = Linear(cfg.ffn_hidden, cfg.hidden_size, bias=False,
+                                   bias_attr=False, **kw)
+        self.down_proj = Linear(cfg.ffn_hidden, cfg.hidden_size, bias_attr=False,
                                 **kw)
 
     def forward(self, x):
         return self.down_proj(F.swiglu(self.gate_up_proj(x)))
 
 
-class LlamaBlock(nn.Module):
+class LlamaBlock(Layer):
     def __init__(self, cfg, *, device, dtype, generator):
         super().__init__()
         kw = dict(device=device, dtype=dtype, generator=generator)
@@ -144,7 +145,7 @@ class LlamaBlock(nn.Module):
         return self._body(x, rope)
 
 
-class LlamaModel(nn.Module):
+class LlamaModel(Layer):
     def __init__(self, cfg, *, device, dtype, generator):
         super().__init__()
         self.cfg = cfg
@@ -173,7 +174,7 @@ class LlamaModel(nn.Module):
         return self.norm(x)
 
 
-class LlamaForCausalLM(nn.Module, GenerationMixin):
+class LlamaForCausalLM(Layer, GenerationMixin):
     """LLaMA with its LM head (tied, or an untied ``lm_head`` ``[hidden,
     vocab]``).  ``device=None`` means ``"cuda"`` and raises on a host
     without CUDA (pass ``device="cpu"`` for the plain CPU path);
@@ -188,7 +189,7 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
         self.cfg = cfg
         self.model = LlamaModel(cfg, device=dev, dtype=dtype, generator=gen)
         self.lm_head = None if cfg.tie_embeddings else Linear(
-            cfg.hidden_size, cfg.vocab_size, bias=False, device=dev,
+            cfg.hidden_size, cfg.vocab_size, bias_attr=False, device=dev,
             dtype=dtype, generator=gen)
         self.eval()
 
@@ -225,7 +226,7 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
                               dtype=self.dtype, device=self.device)
 
 
-class LlamaPretrainingCriterion(nn.Module):
+class LlamaPretrainingCriterion(Layer):
     """Mean token cross entropy over [B, S, V] logits, tokens labelled
     `ignore_index` left out (JAX :248)."""
 

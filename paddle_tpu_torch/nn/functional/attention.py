@@ -1,19 +1,25 @@
 """scaled_dot_product_attention (``paddle_tpu/nn/functional/
-attention.py:80`` counterpart; plain version `_sdpa_ref` :51), packed
+attention.py:80`` counterpart; plain version `_sdpa_ref` :51), its
+`flash_attention` (:123) and the `sdp_kernel` policy (:36), packed
 attention `flash_attn_unpadded` (:133) and the rotary embedding
 `fused_rotary_position_embedding` / `apply_rotary_pos_emb` (:211, :264).
 
 Inputs are ``[batch, seq, heads, head_dim]`` as in the JAX package.  A
 CPU tensor runs the plain version, which autograd differentiates; a
 CUDA tensor runs `FlashAttention` (the `flash_fwd` kernel, differentiated
-by the `flash_bwd` kernel), with the mask as its stop-gradient additive
+by the `flash_bwd` kernel), with the mask as its additive
 bias when one is given (the JAX entry's grad-safe mask route, :92-97),
 or, under ``FLAGS_flash_layout=kv``, `FlashAttentionKV` (the same kernels
-in head-major mode between the relayout kernels).  There is no fallback
-from CUDA to the plain version.
+in head-major mode between the relayout kernels).  A mask that requires
+grad gets its gradient from the biased backward kernel's dBias mode
+(JAX differentiates it through `_sdpa_ref` instead).  There is no
+fallback from CUDA to the plain version: the plain `_sdpa_ref` runs on
+the card only where `sdp_kernel` disables flash and enables math, as the
+caller asked; with both disabled the call raises, as in JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -26,6 +32,28 @@ from ...ops.kernels.rope import RoPE
 from ...ops.kernels.varlen_attention import VarlenAttention
 
 NEG_INF = -1e30
+
+# sdp_kernel's policy (JAX :32): which tiers scaled_dot_product_attention
+# may take; read at each call
+_sdp_policy = {"math": True, "flash": True}
+
+
+@contextlib.contextmanager
+def sdp_kernel(enable_math=False, enable_flash=True,
+               enable_mem_efficient=True):
+    """Constrain scaled_dot_product_attention's tier inside the context
+    (JAX :36): `enable_flash` or `enable_mem_efficient` allow the flash
+    kernels (the card's only fused tier), `enable_math` the plain
+    `_sdpa_ref`.  On the CPU there is no flash kernel, so a call there
+    needs math, as in JAX."""
+    global _sdp_policy
+    old = _sdp_policy
+    _sdp_policy = {"math": bool(enable_math),
+                   "flash": bool(enable_flash or enable_mem_efficient)}
+    try:
+        yield
+    finally:
+        _sdp_policy = old
 
 
 def _sdpa_ref(q, k, v, attn_mask, is_causal, scale=None):
@@ -77,27 +105,38 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     JAX entry passes no dropout to its flash kernels (:96-98) and its
     plain `_sdpa_ref` takes the rate and ignores it (:51-77), so the port
     keeps one function on the CPU and the card (ROADMAP C2.6).  On CUDA a
-    mask that requires grad raises: the kernel gives the bias no
-    gradient (the JAX entry sends such masks to its reference path
-    instead).  Under `amp.auto_cast` the op runs in the AMP dtype (its
-    floating mask too, as the JAX gate casts it)."""
+    mask that requires grad gets its gradient from the flash backward's
+    dBias mode.  Under `amp.auto_cast` the op runs in the AMP dtype (its
+    floating mask too, as the JAX gate casts it).  `sdp_kernel` chooses
+    the tier (module docstring)."""
     op = "scaled_dot_product_attention"
     query, key, value, attn_mask = _amp.cast(op, query, key, value,
                                              attn_mask)
-    if query.device.type == "cpu":
+    if query.device.type == "cpu" or not _sdp_policy["flash"]:
+        # the plain version: the CPU route, or the math tier the caller
+        # chose with sdp_kernel; never a fallback from a kernel
+        if not _sdp_policy["math"]:
+            raise RuntimeError(
+                "sdp_kernel: math backend disabled and the flash kernel is "
+                + ("unavailable for this input (a CPU tensor)"
+                   if _sdp_policy["flash"] else "also disabled"))
         return _amp.seen(op, _sdpa_ref(query, key, value, attn_mask,
                                          is_causal))
-    if attn_mask is not None and attn_mask.requires_grad \
-            and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "scaled_dot_product_attention: a trainable attn_mask needs a "
-            "bias gradient, which the flash kernels do not compute; "
-            "detach the mask")
     q, k, v = query.contiguous(), key.contiguous(), value.contiguous()
     if flash_tier(q, k, attn_mask) == "kv":
         return _amp.seen(op, FlashAttentionKV.apply(q, k, v, is_causal))
     return _amp.seen(op, FlashAttention.apply(q, k, v, attn_mask,
                                                 is_causal))
+
+
+def flash_attention(query, key, value, dropout=0.0, causal=False,
+                    return_softmax=False, fixed_seed_offset=None, rng_name="",
+                    training=True, name=None):
+    """`scaled_dot_product_attention` with no mask (JAX :123): returns
+    (out, None); the softmax is never materialized."""
+    out = scaled_dot_product_attention(query, key, value, None, dropout,
+                                       causal, training)
+    return out, None
 
 
 def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,

@@ -46,9 +46,10 @@ _SIG = {"flash_fwd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                                   ctypes.c_int, ctypes.c_void_p],
         "flash_fwd_hm": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]}
-_BWD_SIG = {"flash_bwd": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
-            + [ctypes.c_int64] * 3 + [ctypes.c_int, ctypes.c_float,
-                                      ctypes.c_int, ctypes.c_void_p],
+_BWD_SIG = {"flash_bwd": [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
+            + [ctypes.c_int64] * 6 + [ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_float, ctypes.c_int,
+                                      ctypes.c_void_p],
             "flash_bwd_hm": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]}
 
@@ -122,14 +123,32 @@ def flash_fwd_reference(q, k, v, bias=None, causal=False, head_major=False):
     return out.to(q.dtype), lse
 
 
+def _bias_shape4(bias):
+    """The bias's shape as [mb, mh, mq, Sk] (leading 1s added)."""
+    return (1,) * (4 - bias.dim()) + tuple(bias.shape)
+
+
+def _reduce_to_bias(g, bias):
+    """g [B, Hq, Sq, Sk] f32 summed over the bias's broadcast axes, in
+    the bias's shape and dtype."""
+    shape4 = _bias_shape4(bias)
+    axes = [i for i in range(3) if shape4[i] == 1 and g.shape[i] != 1]
+    if axes:
+        g = g.sum(dim=axes, keepdim=True)
+    return g.reshape(bias.shape).to(bias.dtype)
+
+
 def flash_bwd_reference(q, k, v, out, lse, dout, bias=None, causal=False,
-                        head_major=False):
+                        head_major=False, bias_grad=False):
     """Plain version of the backward: (dq, dk, dv) in the dtypes of q, k,
     v, everything in f32 between.  The math of `_dq_loop` / `_dkv_loop`:
     p = exp(scores - lse) from the saved LSE, delta = rowsum(dO * O),
     ds = p * (dO.v - delta) * scale; dK / dV summed over each GQA group.
-    The bias gets no gradient.  head_major: q, out, dout and dq are
-    [B,Hq,Sq,D]; k, v, dk, dv stay native."""
+    With `bias_grad` also dBias = p * (dO.v - delta) (the gradient of the
+    scores after the scale, where the bias is added), summed over the
+    bias's broadcast axes, in its shape and dtype, as a fourth output.
+    head_major: q, out, dout and dq are [B,Hq,Sq,D]; k, v, dk, dv stay
+    native."""
     if head_major:
         q, out, dout = (t.transpose(1, 2).contiguous()
                         for t in (q, out, dout))
@@ -146,7 +165,8 @@ def flash_bwd_reference(q, k, v, out, lse, dout, bias=None, causal=False,
     do = dout.float()
     delta = (do * out.float()).sum(-1).transpose(1, 2)          # [B,Hq,Sq]
     dp = torch.einsum("bqhd,bkhd->bhqk", do, vf)
-    ds = p * (dp - delta[..., None]) * (1.0 / math.sqrt(d))
+    dx = p * (dp - delta[..., None])
+    ds = dx * (1.0 / math.sqrt(d))
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
     dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
@@ -154,7 +174,10 @@ def flash_bwd_reference(q, k, v, out, lse, dout, bias=None, causal=False,
         # query head h serves kv head h // rep: consecutive groups
         dk = dk.reshape(b, sk, hkv, hq // hkv, d).sum(3)
         dv = dv.reshape(b, sk, hkv, hq // hkv, d).sum(3)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    grads = (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+    if bias_grad:
+        return grads + (_reduce_to_bias(dx, bias),)
+    return grads
 
 
 def _check_qkv(fn, q, k, v, head_major=False):
@@ -260,17 +283,24 @@ _flash_fwd_op = _op.define(
 
 
 def flash_bwd(q, k, v, out, lse, dout, bias=None, causal=False,
-              head_major=False):
+              head_major=False, bias_grad=False):
     """Gradients of flash_fwd: q/out/dout [B,Sq,Hq,D], k/v [B,Sk,Hkv,D],
     lse [B,Hq,Sq] f32 (flash_fwd's), bias and causal as given to it.
-    Returns (dq, dk, dv) in the inputs' layouts and dtype; the bias gets
-    no gradient.  head_major: q/out/dout/dq are [B,Hq,Sq,D] (the kernels'
-    head-major mode, `flash_bwd_hm`; no bias).  CPU tensors run the plain
-    version; CUDA tensors launch the kernel or raise."""
+    Returns (dq, dk, dv) in the inputs' layouts and dtype; with
+    `bias_grad` (a floating bias) also dBias in the bias's shape and
+    dtype (the kernels' dBias mode, given a dbias buffer: accumulated in
+    f32, its broadcast axes summed).  head_major: q/out/dout/dq are
+    [B,Hq,Sq,D] (the kernels' head-major mode, `flash_bwd_hm`; no bias).
+    CPU tensors run the plain version; CUDA tensors launch the kernel or
+    raise."""
     global bwd_launches
+    if bias_grad and (bias is None or not bias.is_floating_point()
+                      or head_major):
+        raise ValueError("flash_bwd: bias_grad needs a floating bias in "
+                         "the native layout")
     if q.device.type == "cpu":
         return flash_bwd_reference(q, k, v, out, lse, dout, bias, causal,
-                                   head_major)
+                                   head_major, bias_grad)
     b, sq, sk, hq, hkv, d = _check_qkv("flash_bwd", q, k, v, head_major)
     for name, t in (("out", out), ("dout", dout)):
         if t.shape != q.shape or t.dtype != q.dtype \
@@ -298,25 +328,42 @@ def flash_bwd(q, k, v, out, lse, dout, bias=None, causal=False,
         _build.check(err, "flash_bwd_hm")
         bwd_launches += 1
         return dq, dk, dv
+    mask = bias
     bias, strides = _bias_arg("flash_bwd", bias, q, b, hq, sq, sk)
+    dbias, ds, unique = None, (0, 0, 0), 0
+    if bias_grad:
+        # the dBias mode: an f32 buffer of the mask's [mb, mh, mq, Sk]
+        # shape (stride 0 on its broadcast axes), cast to the mask's
+        # dtype at the end
+        mb, mh, mq, _ = _bias_shape4(mask)
+        dbias = torch.zeros(mb, mh, mq, sk, device=q.device,
+                            dtype=torch.float32)
+        ds = (mh * mq * sk if mb > 1 else 0, mq * sk if mh > 1 else 0,
+              sk if mq > 1 else 0)
+        unique = int(ds[2] != 0 and (ds[1] != 0 or hq == 1)
+                     and (ds[0] != 0 or b == 1))
     lib = _build.library("flash_bwd", _BWD_SIG)
     err = lib.flash_bwd(
         _build.ptr(q), _build.ptr(k), _build.ptr(v),
         _build.ptr(bias) if bias is not None else None,
         _build.ptr(out), _build.ptr(lse), _build.ptr(dout),
         _build.ptr(delta), _build.ptr(dq), _build.ptr(dk), _build.ptr(dv),
-        b, sq, sk, hq, hkv, d, *strides, int(bool(causal)),
+        _build.ptr(dbias) if dbias is not None else None,
+        b, sq, sk, hq, hkv, d, *strides, *ds, unique, int(bool(causal)),
         1.0 / math.sqrt(d), _DTYPES[q.dtype], _build.stream_ptr(q.device))
     _build.check(err, "flash_bwd")
     bwd_launches += 1
+    if bias_grad:
+        return dq, dk, dv, dbias.reshape(mask.shape).to(mask.dtype)
     return dq, dk, dv
 
 
 class FlashAttention(torch.autograd.Function):
     """out = attention(q, k, v) through `flash_fwd`, differentiated by
     `flash_bwd` (the `_flash_core_flat` / `_flash_core_b` custom VJPs).
-    The bias is a stop-gradient mask: it gets no gradient, as in
-    `_flash_core_b_bwd` (:1616-1621)."""
+    A bias that needs its gradient gets it from the backward's dBias mode
+    (JAX's `_flash_core_b_bwd` gives it none, :1616-1621, and sends such
+    masks to `_sdpa_ref`)."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias=None, causal=False):
@@ -328,6 +375,10 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse, bias = ctx.saved_tensors
+        if ctx.needs_input_grad[3]:
+            return flash_bwd(q, k, v, out, lse, dout.contiguous(),
+                             bias=bias, causal=ctx.causal,
+                             bias_grad=True) + (None,)
         dq, dk, dv = flash_bwd(q, k, v, out, lse, dout.contiguous(),
                                bias=bias, causal=ctx.causal)
         return dq, dk, dv, None, None

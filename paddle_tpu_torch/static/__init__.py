@@ -166,10 +166,15 @@ def load_program_state(model_path, var_list=None):
 
 
 def set_program_state(program, state_dict):
+    """Write `state_dict`'s values into the program's parameters in place;
+    the program's version moves on, so an Executor copies its captures
+    to its device again (the JAX Executor reads every capture at each
+    run)."""
     for i, p in enumerate(program.all_parameters()):
         name = _name(p, i)
         if name in state_dict:
             _set(p, state_dict[name])
+    program._version += 1
     return program
 
 

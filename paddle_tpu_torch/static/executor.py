@@ -173,13 +173,12 @@ class Executor:
         raise TypeError(f"bad fetch target: {f!r}")
 
     def _feed_tensor(self, var, value):
-        t = to_tensor(value, var.dtype, self.device)
-        decl = var.declared_shape
-        if len(decl) != t.dim() or any(
-                d != -1 and d != s for d, s in zip(decl, t.shape)):
-            raise ValueError(f"feed {var.name!r} has shape "
-                             f"{list(t.shape)}; the program declares {decl}")
-        return t
+        """The feed as a tensor of the variable's dtype on this device, at
+        whatever shape it has: as the JAX Executor retraces a new
+        signature, a new shape runs through `_check_on_meta`, which
+        raises TypeError for a program that bakes the old one in
+        (ROADMAP C2.31)."""
+        return to_tensor(value, var.dtype, self.device)
 
     def _run_at(self, program, sigs, sig, feed_names, feed_vals, fetch_vids,
                 caps):

@@ -22,25 +22,19 @@ for that slice (ROADMAP).
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from ..core.device import resolve_device
 from .framework import torch_dtype
 
 __all__ = ["batch_norm", "conv2d", "embedding", "fc", "layer_norm"]
 
-_EXTRA_ACTS = {"softmax": lambda x: torch.softmax(x, -1),
-               "sigmoid": torch.sigmoid, "tanh": torch.tanh}
-
-
 def _act(out, act):
-    """`act` by its Paddle name: the port's functional of that name, or
-    softmax (last axis), sigmoid, tanh."""
+    """`act` by its Paddle name: the port's functional of that name."""
     if not act:
         return out
     from ..nn import functional as F
 
-    fn = getattr(F, act, None) or _EXTRA_ACTS.get(act)
+    fn = getattr(F, act, None)
     if fn is None:
         raise ValueError(f"static.nn: unknown activation {act!r}")
     return fn(out)
@@ -54,7 +48,7 @@ def fc(x, size, num_flatten_dims=1, activation=None, name=None,
     if any(d == -1 for d in decl[num_flatten_dims:]):
         raise ValueError("fc: flattened dims must be static")
     in_dim = int(np.prod(decl[num_flatten_dims:]))
-    layer = nn.Linear(in_dim, size, bias=bias_attr is not False,
+    layer = nn.Linear(in_dim, size, weight_attr, bias_attr,
                       device=resolve_device(device), dtype=x.dtype)
     flat = x
     if len(decl) > num_flatten_dims + 1:
@@ -66,11 +60,10 @@ def embedding(input, size, is_sparse=False, padding_idx=None,
               dtype="float32", param_attr=None, device=None):
     from .. import nn
 
-    layer = nn.Embedding(size[0], size[1], device=resolve_device(device),
+    layer = nn.Embedding(size[0], size[1], padding_idx=padding_idx,
+                         weight_attr=param_attr,
+                         device=resolve_device(device),
                          dtype=torch_dtype(dtype))
-    if padding_idx is not None:
-        with torch.no_grad():
-            layer.weight[padding_idx] = 0.0
     return layer(input)
 
 
@@ -79,11 +72,11 @@ def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
            data_format="NCHW", device=None):
     from .. import nn
 
-    if data_format != "NCHW":
-        raise NotImplementedError("static.nn.conv2d: NCHW only")
-    layer = nn.Conv2D(input.shape[1], num_filters, filter_size,
-                      stride=stride, padding=padding, dilation=dilation,
-                      groups=groups, bias_attr=bias_attr,
+    in_ch = input.shape[1] if data_format == "NCHW" else input.shape[-1]
+    layer = nn.Conv2D(in_ch, num_filters, filter_size, stride=stride,
+                      padding=padding, dilation=dilation, groups=groups,
+                      weight_attr=param_attr, bias_attr=bias_attr,
+                      data_format=data_format,
                       device=resolve_device(device), dtype=input.dtype)
     return _act(layer(input), act)
 
@@ -98,11 +91,10 @@ def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
             "static.nn.batch_norm in training mode updates its running "
             "statistics, an update the static training slice records; "
             "pass is_test=True for an inference program")
-    if data_layout != "NCHW":
-        raise NotImplementedError("static.nn.batch_norm: NCHW only")
-    layer = nn.BatchNorm2D(input.shape[1], momentum=momentum,
-                           epsilon=epsilon, device=resolve_device(device),
-                           dtype=input.dtype)
+    ch = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    layer = nn.BatchNorm2D(ch, momentum=momentum, epsilon=epsilon,
+                           data_format=data_layout,
+                           device=resolve_device(device), dtype=input.dtype)
     layer.eval()
     return _act(layer(input), act)
 

@@ -28,7 +28,8 @@ def _int2(v):
 
 
 def _fusable(conv, bn, act):
-    if bn.training:
+    if bn.training or conv.data_format != "NCHW":
+        # the kernel takes NCHW only (JAX's gate does not ask)
         return False
     if act not in ("relu", "relu6", None):
         return False

@@ -14,6 +14,7 @@ import torch
 
 from ... import nn
 from ...core.device import resolve_device
+from ...nn.layer_base import Layer
 from ._fused import conv_bn_act
 
 
@@ -37,7 +38,7 @@ class ConvBNReLU(nn.Sequential):
         return conv_bn_act(x, self[0], self[1], "relu6")
 
 
-class InvertedResidual(torch.nn.Module):
+class InvertedResidual(Layer):
     def __init__(self, inp, oup, stride, expand_ratio, *, kw):
         super().__init__()
         hidden = int(round(inp * expand_ratio))
@@ -58,7 +59,7 @@ class InvertedResidual(torch.nn.Module):
         return self.conv(x)
 
 
-class MobileNetV2(torch.nn.Module):
+class MobileNetV2(Layer):
     """Built in eval mode on `device` (``None`` = CUDA), parameters drawn
     from a generator seeded with `seed`."""
 

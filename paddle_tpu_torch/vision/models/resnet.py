@@ -18,10 +18,11 @@ import torch
 
 from ... import nn
 from ...core.device import resolve_device
+from ...nn.layer_base import Layer
 from ._fused import conv_bn_act
 
 
-class BasicBlock(torch.nn.Module):
+class BasicBlock(Layer):
     expansion = 1
 
     def __init__(self, inplanes, planes, stride=1, downsample=None,
@@ -46,7 +47,7 @@ class BasicBlock(torch.nn.Module):
         return self.relu(out + identity)
 
 
-class BottleneckBlock(torch.nn.Module):
+class BottleneckBlock(Layer):
     expansion = 4
 
     def __init__(self, inplanes, planes, stride=1, downsample=None,
@@ -75,7 +76,7 @@ class BottleneckBlock(torch.nn.Module):
         return self.relu(out + identity)
 
 
-class ResNet(torch.nn.Module):
+class ResNet(Layer):
     def __init__(self, block, depth=50, width=64, num_classes=1000,
                  with_pool=True, groups=1, *, device=None,
                  dtype=torch.float32, seed=0):

@@ -27,6 +27,7 @@ import torch
 from ... import nn
 from ...core.device import resolve_device
 from ...nn import functional as F
+from ...nn.layer_base import Layer
 from ...ops.kernels.window_attention import window_attention
 
 __all__ = ["SwinTransformer", "swin_t", "swin_s", "swin_b"]
@@ -65,7 +66,7 @@ def _shift_mask(resolution, ws, shift):
     return np.where(diff != 0, -100.0, 0.0).astype(np.float32)
 
 
-class WindowAttention(torch.nn.Module):
+class WindowAttention(Layer):
     """`forward(x_img, mask, shift)`: the normed features [B, H, W, C] ->
     qkv projection -> the window kernel -> output projection."""
 
@@ -85,7 +86,7 @@ class WindowAttention(torch.nn.Module):
         tab.uniform_(-bound, bound, generator=kw["generator"])
         self.rel_bias = torch.nn.Parameter(tab)
         self.register_buffer("_bias_onehot", torch.from_numpy(
-            _bias_onehot(window_size)).to(kw["device"]), persistent=False)
+            _bias_onehot(window_size)).to(kw["device"]), persistable=False)
 
     def dense_bias(self):
         """Dense f32 [heads, ws², ws²] bias: table [T, h] against the
@@ -107,7 +108,7 @@ class WindowAttention(torch.nn.Module):
         return out
 
 
-class SwinBlock(torch.nn.Module):
+class SwinBlock(Layer):
     def __init__(self, dim, input_resolution, num_heads, window_size=7,
                  shift_size=0, mlp_ratio=4.0, drop=0.0, *, kw):
         super().__init__()
@@ -128,7 +129,7 @@ class SwinBlock(torch.nn.Module):
         mask = None if self.shift == 0 else torch.from_numpy(
             _shift_mask(input_resolution, self.ws, self.shift)).to(
                 kw["device"])
-        self.register_buffer("_attn_mask", mask, persistent=False)
+        self.register_buffer("_attn_mask", mask, persistable=False)
 
     def forward(self, x):
         h, w = self.resolution
@@ -140,13 +141,13 @@ class SwinBlock(torch.nn.Module):
         return x + self.mlp(self.norm2(x))
 
 
-class PatchMerging(torch.nn.Module):
+class PatchMerging(Layer):
     def __init__(self, input_resolution, dim, *, kw):
         super().__init__()
         self.resolution = input_resolution
         self.norm = nn.LayerNorm(4 * dim, device=kw["device"],
                                  dtype=kw["dtype"])
-        self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False, **kw)
+        self.reduction = nn.Linear(4 * dim, 2 * dim, bias_attr=False, **kw)
 
     def forward(self, x):
         h, w = self.resolution
@@ -158,7 +159,7 @@ class PatchMerging(torch.nn.Module):
         return self.reduction(self.norm(x))
 
 
-class SwinTransformer(torch.nn.Module):
+class SwinTransformer(Layer):
     """Built in eval mode on `device` (``None`` = CUDA), parameters drawn
     from a generator seeded with `seed`; ``.train()`` trains it, with
     `drop_rate` dropout on each block's attention output, projection and

@@ -25,12 +25,13 @@ import torch
 from ... import nn
 from ...core.device import resolve_device
 from ...nn import functional as F
+from ...nn.layer_base import Layer
 
 __all__ = ["VisionTransformer", "vit_b_16", "vit_b_32", "vit_l_16",
            "vit_l_32", "vit_h_14"]
 
 
-class PatchEmbed(torch.nn.Module):
+class PatchEmbed(Layer):
     def __init__(self, img_size=224, patch_size=16, in_ch=3, embed_dim=768,
                  *, kw):
         super().__init__()
@@ -44,7 +45,7 @@ class PatchEmbed(torch.nn.Module):
         return x.reshape(b, e, -1).transpose(1, 2)   # [B, N, E]
 
 
-class MHSA(torch.nn.Module):
+class MHSA(Layer):
     def __init__(self, dim, num_heads, attn_drop=0.0, proj_drop=0.0, *,
                  kw):
         super().__init__()
@@ -68,7 +69,7 @@ class MHSA(torch.nn.Module):
         return out
 
 
-class Block(torch.nn.Module):
+class Block(Layer):
     def __init__(self, dim, num_heads, mlp_ratio=4.0, drop=0.0,
                  attn_drop=0.0, eps=1e-6, *, kw):
         super().__init__()
@@ -95,7 +96,7 @@ def _default_param(shape, kw):
     return torch.nn.Parameter(t)
 
 
-class VisionTransformer(torch.nn.Module):
+class VisionTransformer(Layer):
     def __init__(self, img_size=224, patch_size=16, in_ch=3,
                  num_classes=1000, embed_dim=768, depth=12, num_heads=12,
                  mlp_ratio=4.0, drop_rate=0.0, attn_drop_rate=0.0, eps=1e-6,

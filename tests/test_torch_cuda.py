@@ -312,6 +312,56 @@ def test_flash_bwd_bias_matches_plain(bias_shape, kind, dtype):
     _close_grads(got, want, dtype)
 
 
+@pytest.mark.parametrize("dtype", DTYPES16, ids=str)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("bias_shape,hq,hkv,d", [
+    ((2, 6, 24, 40), 6, 6, 64),      # full: stored, no atomics
+    ((2, 1, 1, 40), 6, 3, 64),       # a key-pad mask: summed over Sq, h
+    ((1, 6, 24, 40), 6, 2, 128),     # per head, summed over the batch
+    ((24, 40), 4, 4, 256),           # [Sq, Sk]: two warps a key row
+    ((2, 6, 1, 40), 6, 6, 32),       # per head, summed over Sq
+    ((1, 1, 24, 40), 2, 1, 8),
+])
+def test_flash_bwd_dbias_matches_plain(bias_shape, hq, hkv, d, causal,
+                                       dtype):
+    """The dBias mode (a mask that requires grad) against the plain
+    version: dQ / dK / dV and dBias in the mask's shape, relative to the
+    largest reference gradient; -inf entries give dBias 0."""
+    g = torch.Generator(device="cuda").manual_seed(17)
+    q, dout = (_randn(g, 2, 24, hq, d, dtype=dtype) for _ in range(2))
+    k, v = (_randn(g, 2, 40, hkv, d, dtype=dtype) for _ in range(2))
+    bias = _randn(g, *bias_shape, dtype=torch.float32)
+    bias[..., 3] = float("-inf")
+    out, lse = FA.flash_fwd(q, k, v, bias=bias, causal=causal)
+    got = FA.flash_bwd(q, k, v, out, lse, dout, bias=bias, causal=causal,
+                       bias_grad=True)
+    want = FA.flash_bwd_reference(q, k, v, out, lse, dout, bias=bias,
+                                  causal=causal, bias_grad=True)
+    assert got[3].shape == bias.shape and got[3].dtype == bias.dtype
+    assert not got[3][..., 3].any()
+    _close_grads(got, want, dtype)
+
+
+def test_flash_attention_trainable_mask_through_autograd():
+    """`FlashAttention` with a mask that requires grad launches the dBias
+    mode once and gives the mask the plain version's gradient, in the
+    mask's dtype (bf16 under O2)."""
+    g = torch.Generator(device="cuda").manual_seed(19)
+    q, k, v = (_randn(g, 2, 32, 4, 64, dtype=torch.bfloat16)
+               for _ in range(3))
+    mask = _randn(g, 2, 1, 1, 32, dtype=torch.bfloat16).requires_grad_()
+    K.reset_launches()
+    out = FA.FlashAttention.apply(q, k, v, mask, True)
+    out.float().sum().backward()
+    assert K.launch_counts()["flash_bwd"] == 1
+    assert mask.grad.dtype == torch.bfloat16
+    lse = FA.flash_fwd(q, k, v, bias=mask.detach(), causal=True)[1]
+    want = FA.flash_bwd_reference(
+        q, k, v, out.detach(), lse, torch.ones_like(out),
+        bias=mask.detach(), causal=True, bias_grad=True)[3]
+    _close_grads([mask.grad], [want], torch.bfloat16)
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("sq,sk,d", PAD_BIAS_CASES)
 def test_flash_bwd_causal_pad_rows(sq, sk, d, dtype):

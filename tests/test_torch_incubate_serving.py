@@ -518,10 +518,33 @@ def test_varlen_mem_eff_runs_flash_attention_below_the_amp_gate():
 
 
 def test_varlen_mem_eff_refuses_a_trainable_mask():
-    x = torch.zeros(1, 1, 8, 8)
-    with pytest.raises(NotImplementedError, match="trainable"):
-        TIF.variable_length_memory_efficient_attention(
-            x, x, x, mask=torch.zeros(1, 1, 8, 8, requires_grad=True))
+    """A trainable mask is no longer refused (ROADMAP C1.2): its gradient
+    through the port's plain flash backward (the dBias of the kernel's
+    contract) equals ``jax.grad`` of the JAX function with respect to
+    the mask, with key lengths and causal, and the other gradients stay
+    JAX's."""
+    for name in ("mask_and_lengths", "causal_mask"):
+        (q, k, v), kvl, m, kw = _varlen_inputs(name, "float32",
+                                               np.random.RandomState(9))
+        g = np.random.RandomState(10).randn(*q.shape[:3], v.shape[-1]) \
+            .astype(np.float32)
+        opt = lambda arr, a: None if a is None else arr(a)
+
+        def loss(q, k, v, mask):
+            out = JIF.variable_length_memory_efficient_attention(
+                Tensor(q), Tensor(k), Tensor(v), kv_seq_lens=opt(_j, kvl),
+                mask=Tensor(mask), **kw)
+            return jnp.sum(out._value * g)
+
+        want = jax.grad(loss, argnums=(0, 1, 2, 3))(
+            *(jnp.asarray(a) for a in (q, k, v, m)))
+        ts = [_t(a).requires_grad_() for a in (q, k, v, m)]
+        out = TIF.variable_length_memory_efficient_attention(
+            *ts[:3], kv_seq_lens=opt(_t, kvl), mask=ts[3], **kw)
+        (out * _t(g)).sum().backward()
+        assert np.abs(np.asarray(want[3])).max() > 0
+        for t, w, what in zip(ts, want, ("q", "k", "v", "mask")):
+            _held(t.grad, w, "float32", f"{name} d{what}")
 
 
 # ------------------------------------------------- fused_ec_moe, FusedEcMoe

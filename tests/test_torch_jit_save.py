@@ -217,6 +217,28 @@ def test_program_holds_every_kernel_op_and_no_weights(tmp_path):
     assert K.launch_counts() == {n: 0 for n in K.KERNELS}
 
 
+def test_pdmodel_size_is_independent_of_the_weights(tmp_path):
+    """ROADMAP C1.3: the exported program keeps no example inputs, so
+    the parameters travel only in .pdparams: a model 64x wider writes a
+    .pdmodel of about the same size, far under its weights, and
+    `jit.load` still runs it bit for bit."""
+    sizes = {}
+    for width in (32, 256):
+        net = torch.nn.Sequential(torch.nn.Linear(width, width),
+                                  torch.nn.ReLU(),
+                                  torch.nn.Linear(width, 4))
+        x = torch.randn(2, width)
+        path = str(tmp_path / f"w{width}")
+        jit.save(net, path, input_spec=[x])
+        sizes[width] = os.path.getsize(path + ".pdmodel")
+        loaded = jit.load(path, device="cpu")
+        with torch.no_grad():
+            assert torch.equal(loaded(x), net(x))
+    weights = 256 * 256 * 4
+    assert sizes[256] - sizes[32] < 16 * 1024, sizes
+    assert sizes[256] < weights / 4, sizes
+
+
 def test_swin_program_holds_window_attention(tmp_path):
     P.seed(0)
     tm = TV.SwinTransformer(**SWIN_SMALL, device="cpu")

@@ -324,10 +324,123 @@ def test_prune_and_missing_feed():
     np.testing.assert_allclose(r2, (np.maximum(xv, 0) + 1) * xv)
     with pytest.raises(KeyError, match="not found"):
         exe.run(feed={"x": xv}, fetch_list=["nope"])
-    # a declared dim the feed does not match
-    with pytest.raises(ValueError, match="declares"):
-        exe.run(feed={"x": np.zeros((3, 3), np.float32)},
-                fetch_list=[only_x])
+    # a declared dim the feed does not match: a new signature, run as the
+    # JAX Executor retraces it (ROADMAP C1.5)
+    x3 = np.arange(9, dtype=np.float32).reshape(3, 3) - 4
+    (r3,) = exe.run(feed={"x": x3}, fetch_list=[only_x])
+    np.testing.assert_allclose(r3, np.maximum(x3, 0) + 1)
+
+
+def test_feed_at_a_new_shape_runs_as_in_jax():
+    """ROADMAP C1.5: `static.data("x", [2, 4])` + `static.nn.fc(x, 3)` fed
+    [3, 4] gives (3, 3) in both packages (JAX retraces; the port runs
+    the new signature through its meta replay and captures its own
+    graph), with the weights carried."""
+    P.seed(0)
+    rs = np.random.RandomState(5)
+    feeds = [{"x": rs.rand(2, 4).astype(np.float32)},
+             {"x": rs.rand(3, 4).astype(np.float32)}]
+    P.enable_static()
+    try:
+        jout = JS.nn.fc(JS.data("x", [2, 4], "float32"), 3)
+        jexe = JS.Executor()
+        want = [jexe.run(feed=f, fetch_list=[jout])[0] for f in feeds]
+        (jw, jb) = [np.asarray(p._value) for p in
+                    JS.default_main_program().all_parameters()]
+    finally:
+        P.disable_static()
+    PT.enable_static()
+    try:
+        tout = static.nn.fc(static.data("x", [2, 4], "float32"), 3,
+                            device="cpu")
+        tw, tb = static.default_main_program().all_parameters()
+        with torch.no_grad():
+            tw.copy_(torch.from_numpy(jw))
+            tb.copy_(torch.from_numpy(jb))
+        exe = static.Executor("cpu")
+        got = [exe.run(feed=f, fetch_list=[tout])[0] for f in feeds]
+    finally:
+        PT.disable_static()
+    assert [g.shape for g in got] == [w.shape for w in want] == \
+        [(2, 3), (3, 3)]
+    for g, w in zip(got, want):
+        _close(g, w)
+    (_, _, sigs, _), = exe._cache.values()
+    assert len(sigs) == 2
+
+
+def test_loaded_state_reaches_the_next_run_across_devices(tmp_path):
+    """ROADMAP C1.4: an Executor on another device than the program's
+    captures copies them once per program version; `static.load`,
+    `set_program_state` and `deserialize_persistables` write the
+    parameters in place and move the version on, so the next run copies
+    the new values.  (The Executor's device is the meta device here, the
+    only other device on this host: its slot's copies are read.)"""
+    PT.enable_static()
+    try:
+        lin = TN.Linear(4, 2, device="cpu")
+        y = lin(static.data("x", [1, 4], "float32"))
+    finally:
+        PT.disable_static()
+    prog = static.default_main_program()
+    path = str(tmp_path / "prog")
+    static.save(prog, path)
+    state = static.load_program_state(path)
+    exe = static.Executor("cpu")
+    x = np.ones((1, 4), np.float32)
+    (before,) = exe.run(feed={"x": x}, fetch_list=[y])
+    other = static.Executor("cpu")
+    other.device = torch.device("meta")
+    for write in (
+            lambda: static.load(prog, path),
+            lambda: static.set_program_state(
+                prog, {k: v * 0 for k, v in state.items()}),
+            lambda: static.deserialize_persistables(
+                prog, static.serialize_persistables([], []))):
+        slot = other._slot(prog)
+        assert slot[3][0].device.type == "meta"
+        write()
+        assert other._slot(prog) is not slot
+    static.set_program_state(prog, {k: v * 0 for k, v in state.items()})
+    (after,) = exe.run(feed={"x": x}, fetch_list=[y])
+    assert before.any() and not after.any()
+
+
+def test_channel_last_builders():
+    """ROADMAP C1.1: `static.nn.conv2d(data_format="NHWC")` against the
+    JAX builder (weights carried), and `static.nn.batch_norm(data_layout=
+    "NHWC")` against the eager NHWC layer (JAX's builder records no
+    batch norm: it updates its statistics in training mode)."""
+    P.seed(0)
+    x = np.random.RandomState(6).randn(2, 6, 5, 3).astype(np.float32)
+    P.enable_static()
+    try:
+        jout = JS.nn.conv2d(JS.data("img", [2, 6, 5, 3], "float32"), 4, 3,
+                            padding=1, data_format="NHWC", act="relu")
+        (want,) = JS.Executor().run(feed={"img": x}, fetch_list=[jout])
+        jparams = [np.asarray(p._value) for p in
+                   JS.default_main_program().all_parameters()]
+    finally:
+        P.disable_static()
+    PT.enable_static()
+    try:
+        img = static.data("img", [2, 6, 5, 3], "float32")
+        tout = static.nn.conv2d(img, 4, 3, padding=1, data_format="NHWC",
+                                act="relu", device="cpu")
+        bn = static.nn.batch_norm(img, is_test=True, data_layout="NHWC",
+                                  device="cpu")
+        tparams = static.default_main_program().all_parameters()
+        with torch.no_grad():
+            for p, j in zip(tparams, jparams):
+                p.copy_(torch.from_numpy(j))
+        exe = static.Executor("cpu")
+        got, norm = exe.run(feed={"img": x}, fetch_list=[tout, bn])
+    finally:
+        PT.disable_static()
+    _close(got, want)
+    layer = TN.BatchNorm2D(3, data_format="NHWC", device="cpu").eval()
+    with torch.no_grad():
+        _close(norm, layer(torch.from_numpy(x)).numpy())
 
 
 def test_signatures_cached_per_feed_shape():

@@ -162,7 +162,17 @@ def test_flash_attention_bias_grad_matches_core_b(bias_shape, kind, causal):
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-4,
                                    rtol=0)
     if kind == "additive":
-        assert tbias.grad is None             # the port: no bias gradient
+        # the port gives a trainable bias its gradient (ROADMAP C1.2): the
+        # JAX entry sends such a mask to its reference path, whose
+        # gradient is the oracle
+        def ref(bias_):
+            return (JFA._ref_attention(*(jnp.asarray(x) for x in (q, k, v)),
+                                       bias_, causal) * g).sum()
+
+        want_bias = jax.grad(ref)(jnp.asarray(jbias))
+        assert np.abs(np.asarray(want_bias)).max() > 0
+        np.testing.assert_allclose(tbias.grad.numpy(), np.asarray(want_bias),
+                                   atol=1e-4, rtol=0)
 
 
 def test_flash_bwd_pad_rows_finite_and_zero_without_cotangent():
