@@ -440,7 +440,27 @@ non-zero and prints no result):
      `variable_length_memory_efficient_attention` on the card against
      the CPU; a CPU-built static program run by `Executor()` on the card
      after `set_program_state` / `static.load`, and fed at a new batch;
-     `jit.save` of gpt_1p3b: the `.pdmodel`'s size (no weights in it).
+     `jit.save` of gpt_1p3b: the `.pdmodel`'s size (no weights in it);
+ 46. seq2seq_train: PaddleNLP's base seq2seq (IWSLT'15 En-Vi, no
+     attention) at its published widths: an `nn.LSTM` encoder and a
+     stacked `nn.LSTMCell` decoder, 2 layers of 512, vocab 17,191 /
+     7,709, f32, Adam under ClipGradByGlobalNorm(5.0): 2 steps card vs
+     CPU at B32 x 50 (losses, every gradient), then 10 steps at B128 x 50
+     with dropout 0.2 (ms/step, target tokens/s, the loss falling; no
+     kernel launches: no TPU kernel lies on this path);
+ 47. seq2seq_beam: `BeamSearchDecoder(beam_size=10)` + `dynamic_decode`
+     over 50 steps of 16 seeded sentences, card against a CPU copy (ids
+     equal, but where the two decodes part at a near tie of the CPU's
+     candidates, reported; the other sentences' scores within 5e-4); ms
+     a decode step, sentences/s;
+ 48. ops_card: every case of ``tools_torch/op_cases.py`` (each public op
+     of the JAX op table and each in-place twin) on the card against the
+     CPU, the GRAD_CHECKED ops' gradients too; how many ran and the
+     largest error by kind;
+ 49. quant_card: `nn.quant` at llama_7b's MLP width (4096 -> 11008):
+     int8 / int4 / LLM.int8 codes per channel and g128 card == CPU bit
+     for bit, `weight_only_linear` / `llm_int8_linear` outputs within
+     1e-4, their ms beside `F.linear`.
 
 Phase 3 also holds flash_bwd's dBias mode (a mask that requires grad)
 at ERNIE-base's shape with [B, 1, 1, S] and [B, H, S, S] masks and at
@@ -7113,7 +7133,7 @@ def phase_hapi_fit(card, batch=8, seq=1024, lr=1e-4):
         loss.backward()
         opt.step()
         opt.clear_grad()
-        losses.append(float(loss))
+        losses.append(float(loss.detach()))
         times.append(time.perf_counter())
     eager_tps = batch * seq * (HAPI_STEPS - 2) / (times[-1] - times[1])
     # what the fit's step does beside the eager loop's: the metric's
@@ -8303,6 +8323,34 @@ def _layer_cases(torch, nn):
         ("transformer", "Transformer",
          lambda: nn.Transformer(32, 4, 1, 1, 64, 0.0),
          shapes((2, 7, 32), (2, 5, 32))),
+        # the recurrent family (returning outputs and states) and the
+        # reparametrisations of `nn.utils`
+        ("recurrent", "SimpleRNNCell", lambda: nn.SimpleRNNCell(8, 16),
+         shapes((4, 8), (4, 16))),
+        ("recurrent", "LSTMCell", lambda: nn.LSTMCell(8, 16),
+         shapes((4, 8))),
+        ("recurrent", "GRUCell", lambda: nn.GRUCell(8, 16),
+         shapes((4, 8), (4, 16))),
+        ("recurrent", "RNN", lambda: nn.RNN(nn.GRUCell(8, 16),
+                                            is_reverse=True),
+         shapes((3, 7, 8))),
+        ("recurrent", "SimpleRNN", lambda: nn.SimpleRNN(
+            8, 16, 2, "bidirect"), shapes((3, 7, 8))),
+        ("recurrent", "LSTM", lambda: nn.LSTM(8, 16, 2, time_major=True),
+         shapes((7, 3, 8))),
+        ("recurrent", "GRU", lambda: nn.GRU(8, 16, 2, "bidirect"),
+         shapes((3, 7, 8))),
+        ("recurrent", "BiRNN", lambda: nn.BiRNN(nn.LSTMCell(8, 16),
+                                                nn.GRUCell(8, 16)),
+         shapes((3, 7, 8))),
+        ("utils", "weight_norm", lambda: nn.utils.weight_norm(
+            nn.Linear(6, 5)), shapes((4, 6))),
+        ("utils", "weight_norm_conv", lambda: nn.utils.weight_norm(
+            nn.Conv2D(3, 4, 3), dim=1), shapes((2, 3, 7, 7))),
+        ("utils", "spectral_norm", lambda: nn.utils.spectral_norm(
+            nn.Linear(6, 5)), shapes((4, 6))),
+        ("utils", "WeightOnlyLinear", lambda: nn.quant.WeightOnlyLinear
+         .from_linear(nn.Linear(64, 16), "int4", 64), shapes((4, 64))),
     ]
     return cases
 
@@ -8410,7 +8458,9 @@ def _in_place(fn, x, *args, **kw):
 
 def phase_nn_layers_card():
     """44. nn_layers_card: every layer class of the port's `nn` (the
-    layer surface of `_layer_cases`, in training mode where it has one)
+    layer surface of `_layer_cases`, in training mode where it has one;
+    the recurrent family and `nn.utils`' weight and spectral norm and
+    an int4 `WeightOnlyLinear` among them)
     and the functionals of `_functional_cases` (the ones no layer calls
     with these options, and the in-place forms, each on a copy it must
     return written) at small seeded shapes, f32 with TF32 off:
@@ -8433,10 +8483,15 @@ def phase_nn_layers_card():
               "gumbel_softmax", "rrelu"}
     worst, ran = {}, 0
 
+    def flat(out):
+        # a recurrent layer returns (output, states), the states nested
+        if isinstance(out, (tuple, list)):
+            return tuple(t for o in out for t in flat(o))
+        return (out,)
+
     def held(family, name, cpu_out, gpu_out, cpu_in, gpu_in, params):
         nonlocal ran
-        outs = cpu_out if isinstance(cpu_out, tuple) else (cpu_out,)
-        gouts = gpu_out if isinstance(gpu_out, tuple) else (gpu_out,)
+        outs, gouts = flat(cpu_out), flat(gpu_out)
         err = 0.0
         for c, g in zip(outs, gouts):
             check(tuple(c.shape) == tuple(g.shape),
@@ -8463,7 +8518,7 @@ def phase_nn_layers_card():
 
     def run(fn, ins):
         out = fn(*ins)
-        outs = out if isinstance(out, tuple) else (out,)
+        outs = flat(out)
         loss = sum((o.float() * (1 + torch.arange(o.numel(), device=o.device)
                                  .reshape(o.shape) % 7)).sum()
                    for o in outs if torch.is_tensor(o)
@@ -8618,6 +8673,516 @@ def phase_c1_card(card):
         f".pdmodel {pdmodel / 2**20:.2f} MiB, .pdparams "
         f"{pdparams / 2**20:.1f} MiB, save {save_s:.2f} s")
     return counts
+
+
+# ------------------- the seq2seq LSTM, the op surface and nn.quant
+# PaddleNLP's base seq2seq (PaddlePaddle/models, PaddleNLP `seq2seq` on
+# IWSLT'15 English-Vietnamese, no attention): its run flags
+S2S = dict(src_vocab=17191, tgt_vocab=7709, hidden=512, layers=2,
+           dropout=0.2, init_scale=0.1, max_grad_norm=5.0, batch=128,
+           max_len=50, beam=10, lr=1e-3, bos=0, eos=1)
+S2S_STEPS = 10
+S2S_BEAM_SENTENCES = 16
+
+
+def _profile_calls(fn, what):
+    """One call of `fn` under torch.profiler: wall, device busy, launches
+    and the device split by kind (`_log_profile`)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    _log_profile(prof, what, wall, 1)
+
+
+def _s2s(device, dropout, seed=SEED, hidden=S2S["hidden"],
+         layers=S2S["layers"], src_vocab=S2S["src_vocab"],
+         tgt_vocab=S2S["tgt_vocab"]):
+    """The base seq2seq from the port's `nn`: `nn.Embedding` and an
+    `nn.LSTM` encoder, a decoder cell of stacked `nn.LSTMCell`s (dropout
+    between them) run by `nn.RNN`, whose states are one flat tuple (h0,
+    c0, h1, c1) seeded by the encoder's final states, and an
+    `nn.Linear(hidden, tgt_vocab)` head without bias.  Every weight from
+    U(-init_scale, init_scale) of a numpy seed (PaddleNLP's
+    `init_scale`), so a CPU and a card copy start equal."""
+    import torch
+
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.core import device as D
+
+    class Stacked(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.cells = nn.LayerList([nn.LSTMCell(hidden, hidden)
+                                       for _ in range(layers)])
+            self.drop = nn.Dropout(dropout)
+
+        def forward(self, x, states):
+            new = []
+            for i, cell in enumerate(self.cells):
+                x, (h, c) = cell(x, (states[2 * i], states[2 * i + 1]))
+                new += [h, c]
+                if i < layers - 1:
+                    x = self.drop(x)
+            return x, tuple(new)
+
+    class Seq2Seq(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.src_emb = nn.Embedding(src_vocab, hidden)
+            self.tgt_emb = nn.Embedding(tgt_vocab, hidden)
+            self.encoder = nn.LSTM(hidden, hidden, num_layers=layers,
+                                   dropout=dropout)
+            self.decoder = nn.RNN(Stacked())
+            self.head = nn.Linear(hidden, tgt_vocab, bias_attr=False)
+
+        def init_states(self, src):
+            _, (h, c) = self.encoder(self.src_emb(src))
+            return tuple(t for i in range(layers) for t in (h[i], c[i]))
+
+        def forward(self, src, tgt_in):
+            out, _ = self.decoder(self.tgt_emb(tgt_in),
+                                  self.init_states(src))
+            return self.head(out)
+
+    prev = D._default
+    D.set_device("cpu")
+    try:
+        model = Seq2Seq()
+    finally:
+        D._default = prev
+    rs = np.random.RandomState(seed)
+    scale = S2S["init_scale"]
+    with torch.no_grad():
+        for _, p in sorted(model.named_parameters()):
+            p.copy_(torch.from_numpy(rs.uniform(
+                -scale, scale, tuple(p.shape)).astype(np.float32)))
+    return model.to(device)
+
+
+def _s2s_batch(batch, length, seed=SEED):
+    """Seeded token ids (ids 0 and 1 are bos and eos): source [B, L],
+    target input (bos first) and labels [B, L], target lengths in
+    [L / 5, L] and the [B, L] float mask of the labels within them."""
+    rs = np.random.RandomState(seed)
+    src = rs.randint(2, S2S["src_vocab"], (batch, length)).astype(np.int64)
+    tgt = rs.randint(2, S2S["tgt_vocab"], (batch, length + 1)) \
+        .astype(np.int64)
+    tgt[:, 0] = S2S["bos"]
+    lens = rs.randint(length // 5, length + 1, batch)
+    mask = (np.arange(length)[None] < lens[:, None]).astype(np.float32)
+    return src, tgt[:, :-1].copy(), tgt[:, 1:].copy(), mask
+
+
+def _s2s_loss(model, batch):
+    """PaddleNLP's criterion: the masked token CE, summed over time of
+    its mean over the batch."""
+    from paddle_tpu_torch.nn import functional as F
+
+    src, tgt_in, labels, mask = batch
+    ce = F.cross_entropy(model(src, tgt_in), labels[..., None],
+                         reduction="none").squeeze(-1)
+    return (ce * mask).sum() / src.shape[0]
+
+
+def _s2s_opt(model):
+    from paddle_tpu_torch import nn, optimizer
+
+    return optimizer.Adam(learning_rate=S2S["lr"],
+                          parameters=list(model.parameters()),
+                          grad_clip=nn.ClipGradByGlobalNorm(
+                              S2S["max_grad_norm"]))
+
+
+def _s2s_steps(model, opt, batch, steps, grads=None):
+    losses = []
+    for i in range(steps):
+        loss = _s2s_loss(model, batch)
+        loss.backward()
+        if i == 0 and grads is not None:
+            grads.update({n: p.grad.detach().float().cpu()
+                          for n, p in model.named_parameters()})
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss.detach()))
+    return losses
+
+
+def phase_seq2seq_train(card, steps=S2S_STEPS):
+    """46. seq2seq_train: PaddleNLP's base seq2seq at its published
+    widths (`_s2s`: 2-layer LSTM encoder and stacked-cell decoder at
+    hidden 512, vocab 17,191 / 7,709), f32, Adam under
+    ClipGradByGlobalNorm(5.0).  First a card-vs-CPU parity at B32 x 50
+    with dropout 0 and TF32 off: 2 steps from one set of weights, the
+    losses within 1e-6 relative and every first-step gradient within
+    2e-5 of the largest CPU gradient of its parameter (readings 6.77e-08
+    and 1.38e-06 on the H100 when these limits were set).  Then `steps`
+    steps at B128 x 50 with dropout 0.2 on one seeded batch: the loss
+    must fall; ms a step and target tokens/s over the steps after the
+    first.  No TPU kernel lies on this path: it launches none.  Returns
+    the trained model."""
+    import torch
+
+    from paddle_tpu_torch.ops import kernels as K
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    small = _s2s_batch(32, S2S["max_len"], SEED + 46)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = _s2s(dev, 0.0)
+        batch = tuple(torch.from_numpy(a).to(dev) for a in small)
+        grads = {}
+        runs[dev] = (_s2s_steps(model, _s2s_opt(model), batch, 2, grads),
+                     grads)
+        del model
+    (gl, gg), (cl, cg) = runs["cuda"], runs["cpu"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(gl, cl))
+    check(loss_err <= 1e-6, f"seq2seq_train: card losses {gl} vs CPU {cl}")
+    grad_err = max(float((gg[n] - cg[n]).abs().max()
+                         / max(cg[n].abs().max(), 1e-30)) for n in cg)
+    check(grad_err <= 2e-5, f"seq2seq_train: gradients card vs CPU "
+          f"{grad_err:.3g} > 2e-5")
+    _release_card()
+    batch = tuple(torch.from_numpy(a).cuda() for a in _s2s_batch(
+        S2S["batch"], S2S["max_len"], SEED + 47))
+    model = _s2s("cuda", S2S["dropout"])
+    model.train()
+    opt = _s2s_opt(model)
+    K.reset_launches()
+    losses = _s2s_steps(model, opt, batch, 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses += _s2s_steps(model, opt, batch, steps - 1)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / (steps - 1)
+    launched = sum(K.launch_counts().values())
+    check(launched == 0, f"seq2seq_train: {launched} kernel launches")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _profile_calls(lambda: _s2s_steps(model, opt, batch, 1),
+                   "seq2seq B128x50 train step")
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          f"seq2seq_train: the loss did not fall {losses}")
+    tokens = float(batch[3].sum())
+    log(f"[seq2seq_train] ({card}) PaddleNLP base seq2seq "
+        f"{S2S['layers']}x{S2S['hidden']} LSTM, vocab "
+        f"{S2S['src_vocab']}/{S2S['tgt_vocab']}, f32 Adam + clip 5.0: "
+        f"parity B32x50 card vs CPU losses {gl} / {cl} (rel {loss_err:.3g}"
+        f"), gradients {grad_err:.3g} of the largest; B{S2S['batch']}x"
+        f"{S2S['max_len']} dropout {S2S['dropout']}: losses "
+        f"{[round(v, 4) for v in losses]}, {dt * 1e3:.2f} ms/step, "
+        f"{tokens / dt:.1f} target tokens/s ({tokens:.0f} a step), peak "
+        f"{peak:.2f} GiB, 0 kernel launches")
+    return model.eval()
+
+
+def _s2s_tie_at_divergence(b, decs, inits, eos, beam, steps):
+    """Sentence `b` decodes to other ids on the card than on the CPU
+    over `steps` steps.  Finds the first step after which the two
+    decodes' ids for it differ (bisecting `max_step_num`), and returns
+    the least gap between adjacent values among the CPU's W + 1 best
+    candidate totals at that step (a small gap is a near tie that a
+    rounding difference may flip), with the step."""
+    import torch
+
+    from paddle_tpu_torch import nn
+
+    def ids(dev, m):
+        return nn.dynamic_decode(decs[dev], inits[dev],
+                                 max_step_num=m)[0][b].cpu()
+
+    lo, hi = 0, steps
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if torch.equal(ids("cuda", mid), ids("cpu", mid)):
+            lo = mid
+        else:
+            hi = mid
+    step = hi - 1                      # the two agree for `step` steps
+    dec = decs["cpu"]
+    seen = []
+    hook = dec.output_fn.register_forward_hook(
+        lambda mod, args, out: seen.append(out))
+    try:
+        nn.dynamic_decode(dec, inits["cpu"], max_step_num=step + 1)
+    finally:
+        hook.remove()
+    rows = slice(b * beam, (b + 1) * beam)
+    logp = torch.log_softmax(seen[-1][rows].float(), -1)
+    if step == 0:
+        scores = torch.tensor([0.0] + [-1e9] * (beam - 1))
+        done = torch.zeros(beam, dtype=torch.bool)
+    else:
+        prev, sc = nn.dynamic_decode(dec, inits["cpu"], max_step_num=step)
+        scores, done = sc[b], prev[b, -1] == eos
+    end_only = torch.full((logp.shape[-1],), -1e9)
+    end_only[eos] = 0.0
+    total = scores[:, None] + torch.where(done[:, None], end_only, logp)
+    best = torch.sort(total.flatten(), descending=True).values[:beam + 1]
+    return float((best[:-1] - best[1:]).min()), step
+
+
+def phase_seq2seq_beam(card, model, sentences=S2S_BEAM_SENTENCES):
+    """47. seq2seq_beam: `BeamSearchDecoder(beam_size=10)` over the
+    trained model's decoder cell, `dynamic_decode(max_step_num=50)` from
+    the encoder's states of 16 seeded source sentences, f32 with TF32
+    off, on the card and on a CPU copy of the same weights: the ids
+    equal, but for a sentence whose decodes part at a step where the
+    CPU's W + 1 best candidates hold a near tie (two within 1e-4), which
+    a rounding difference may flip (`_s2s_tie_at_divergence`; such
+    sentences are reported); the final scores of the sentences whose
+    ids equal within 5e-4 (a reading of 6.1e-05 when this limit was
+    set).  Then ms a decode step and sentences/s on the card (a second,
+    timed decode)."""
+    import torch
+
+    from paddle_tpu_torch import nn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    src = _s2s_batch(sentences, S2S["max_len"], SEED + 48)[0]
+    cpu = _s2s("cpu", S2S["dropout"])
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu.eval()
+    decs, inits, outs = {}, {}, {}
+    for dev, m in (("cuda", model), ("cpu", cpu)):
+        decs[dev] = nn.BeamSearchDecoder(m.decoder.cell, S2S["bos"],
+                                         S2S["eos"], S2S["beam"],
+                                         m.tgt_emb, m.head)
+        with torch.no_grad():
+            inits[dev] = m.init_states(torch.from_numpy(src).to(dev))
+        outs[dev] = nn.dynamic_decode(decs[dev], inits[dev],
+                                      max_step_num=S2S["max_len"])
+    gids, gsc = (t.cpu() for t in outs["cuda"])
+    cids, csc = outs["cpu"]
+    check(tuple(gids.shape) == tuple(cids.shape),
+          f"seq2seq_beam: ids {tuple(gids.shape)} vs {tuple(cids.shape)}")
+    differ = [b for b in range(sentences) if not torch.equal(gids[b],
+                                                             cids[b])]
+    ties = {}
+    for b in differ:
+        gap, step = _s2s_tie_at_divergence(b, decs, inits, S2S["eos"],
+                                           S2S["beam"], cids.shape[1])
+        check(gap < 1e-4, f"seq2seq_beam: sentence {b}'s ids part at step "
+              f"{step} with no near tie (the CPU's best candidates "
+              f"{gap:.3g} apart)")
+        ties[b] = (step, gap)
+    same = [b for b in range(sentences) if b not in ties]
+    check(same, "seq2seq_beam: every sentence parted at a near tie")
+    score_err = float((gsc[same] - csc[same]).abs().max())
+    check(score_err <= 5e-4, f"seq2seq_beam: scores card vs CPU "
+          f"{score_err:.3g}")
+    dec, init = decs["cuda"], inits["cuda"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids, _ = nn.dynamic_decode(dec, init, max_step_num=S2S["max_len"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    steps = ids.shape[1]
+    _profile_calls(lambda: nn.dynamic_decode(
+        dec, init, max_step_num=S2S["max_len"]),
+        f"beam-10 decode of {sentences} sentences ({steps} steps)")
+    log(f"[seq2seq_beam] ({card}) beam {S2S['beam']}, {sentences} "
+        f"sentences of {S2S['max_len']} tokens, {steps} decode steps: "
+        f"ids card == CPU for {len(same)}/{sentences} (parted at a near "
+        f"tie, sentence: (step, gap) {ties}), scores of the others within "
+        f"{score_err:.3g} (largest |score| {float(csc.abs().max()):.2f}); "
+        f"{dt / steps * 1e3:.3f} ms a decode step, {sentences / dt:.2f} "
+        f"sentences/s")
+
+
+def _op_cases():
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from tools_torch import op_cases
+    from paddle_tpu_torch.ops import _op_table
+
+    return op_cases, op_cases.cases(_op_table.PUBLIC_OPS["paddle_tpu"],
+                                    _op_table.INPLACE_OPS), \
+        _op_table.GRAD_CHECKED
+
+
+def phase_ops_card(card):
+    """48. ops_card: every case of ``tools_torch/op_cases.py`` (each
+    public op of the JAX op table and each in-place twin, at small seeded
+    shapes) through the port on the card and on the CPU, f32 with TF32
+    off: outputs equal in shape, integer and boolean outputs equal, float
+    outputs within 1e-4 of the largest CPU value (1e-3 for the cases
+    whose CPU tolerance against JAX is 1e-4: solvers and special
+    functions), the GRAD_CHECKED ops' gradients too; in-place forms
+    return their written argument; the random ops held to their shape
+    and support on the card's own draw, and to their law (`LAWS`: the
+    case's parameters repeated 20,000 times, every element's sample mean
+    and variance, or each outcome's frequency, within 5 standard errors
+    of the law's); the decompositions to their invariants.  Prints how
+    many ran and the largest error by kind (for the laws, the largest
+    |z|)."""
+    import torch
+
+    import paddle_tpu_torch as PT
+    from paddle_tpu_torch.core import device as D
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    op_cases, cases, grad_checked = _op_cases()
+
+    def conv(a, dev, grad=False):
+        if isinstance(a, np.ndarray):
+            t = torch.from_numpy(np.array(a)).to(dev)
+            return t.requires_grad_() if grad and t.is_floating_point() \
+                else t
+        if isinstance(a, list):
+            return [conv(v, dev, grad) for v in a]
+        if isinstance(a, tuple):
+            return tuple(conv(v, dev, grad) for v in a)
+        return a
+
+    def leaves(x):
+        if isinstance(x, (list, tuple)):
+            return [v for e in x for v in leaves(e)]
+        return [x]
+
+    def host(x):
+        return x.detach().cpu().numpy() if torch.is_tensor(x) \
+            else np.asarray(x)
+
+    def call(case, args, kw, dev, grad=False, seed=True):
+        prev = D._default
+        D.set_device(dev)
+        try:
+            if seed:
+                PT.seed(SEED)
+            a = conv(args, dev, grad)
+            return a, getattr(PT, case.op)(*a, **kw)
+        finally:
+            D._default = prev
+
+    worst, ran, grads = {}, 0, 0
+    for case in cases:
+        args, kw = case.make(np.random.RandomState(SEED + 48))
+        cin, cpu = call(case, args, kw, "cpu")
+        gin, gpu = call(case, args, kw, "cuda")
+        what = f"ops_card {case.name}"
+        if case.written is not None:
+            check(gpu is gin[case.written], f"{what}: not written in place")
+        c, g = leaves(cpu), leaves(gpu)
+        check(len(c) == len(g), f"{what}: {len(g)} outputs vs {len(c)}")
+        for a, b in zip(g, c):
+            check(np.shape(host(a)) == np.shape(host(b)),
+                  f"{what}: shape {np.shape(host(a))} vs "
+                  f"{np.shape(host(b))}")
+            if torch.is_tensor(a):
+                check(a.device.type == "cuda" or not torch.is_tensor(b)
+                      or b.device.type == "cpu",
+                      f"{what}: output on {a.device}")
+        if case.kind == "random":
+            outs = [host(a) for a in g]
+            err = case.check(outs if len(outs) > 1 else outs[0], args,
+                             None)
+            PT.seed(SEED)
+            z = op_cases.moment_z(case, args, kw, lambda a, k: [
+                host(o) for o in leaves(call(case, a, k, "cuda",
+                                             seed=False)[1])])
+            check(z <= op_cases.Z_LIMIT, f"{what}: the card's draw is "
+                  f"{z:.3g} standard errors off its law")
+            worst["law_z"] = max(worst.get("law_z", 0.0), z)
+        elif case.kind == "decomp":
+            err = case.check([host(a) for a in g] if len(g) > 1
+                             else host(g[0]), args,
+                             [host(b) for b in c] if len(c) > 1
+                             else host(c[0]))
+        else:
+            err = 0.0
+            for a, b in zip(g, c):
+                an, bn = host(a), host(b)
+                if bn.dtype.kind in "biuU" or not np.size(bn):
+                    err = max(err, 0.0 if np.array_equal(an, bn) else 1.0)
+                    continue
+                fin = np.isfinite(bn)
+                check(np.array_equal(fin, np.isfinite(an)),
+                      f"{what}: non-finite entries differ")
+                if fin.any():
+                    err = max(err, float(np.abs(an[fin] - bn[fin]).max()
+                                         / max(1.0, np.abs(bn[fin]).max())))
+        limit = 0.0 if case.kind == "random" else (
+            case.tol if case.kind == "decomp" else 10 * case.tol)
+        check(err <= limit, f"{what}: card vs CPU {err:.3g} > {limit:g}")
+        worst[case.kind] = max(worst.get(case.kind, 0.0), err)
+        ran += 1
+        if case.name in grad_checked:
+            got = []
+            for dev in ("cpu", "cuda"):
+                ins, out = call(case, args, kw, dev, grad=True)
+                out.backward(torch.ones_like(out))
+                got.append([t.grad.detach().cpu() for t in ins
+                            if torch.is_tensor(t) and t.requires_grad])
+            for a, b in zip(got[1], got[0]):
+                gerr = float((a - b).abs().max()
+                             / max(1.0, b.abs().max()))
+                check(gerr <= 1e-4, f"{what}: gradient card vs CPU "
+                      f"{gerr:.3g}")
+                worst["grad"] = max(worst.get("grad", 0.0), gerr)
+            grads += 1
+    log(f"[ops_card] ({card}) {ran} cases of {len({c.op for c in cases})} "
+        f"ops (every public op and in-place twin) on the card against the "
+        f"CPU, {grads} GRAD_CHECKED gradients; largest error by kind "
+        f"{json.dumps({k: float(f'{v:.3g}') for k, v in worst.items()})}")
+
+
+def phase_quant_card(card, d_in=4096, d_out=11008, rows=16):
+    """49. quant_card: `nn.quant` at llama_7b's MLP width (4096 ->
+    11008, seeded N(0, 0.02) weights): `weight_quantize` for
+    weight_only_int8 / weight_only_int4 / llm.int8, per channel and
+    with groups of 128, on the card and the CPU: codes and scales equal
+    bit for bit; `weight_only_linear` (int8 and int4) and
+    `llm_int8_linear` (an outlier channel past the threshold) at [16,
+    4096] f32 inputs within 1e-4 of the largest CPU output; the card's
+    ms of `weight_only_linear` against `F.linear` of the f32 weight, in
+    turns."""
+    import torch
+
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.nn import quant as Q
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rs = np.random.RandomState(SEED + 49)
+    w = torch.from_numpy((rs.randn(d_in, d_out) * 0.02).astype(np.float32))
+    x = torch.from_numpy(rs.randn(rows, d_in).astype(np.float32))
+    x[:, 11] *= 40.0
+    wg, xg = w.cuda(), x.cuda()
+    errs, times = {}, {}
+    for algo, group in (("weight_only_int8", -1), ("weight_only_int8", 128),
+                        ("weight_only_int4", -1), ("weight_only_int4", 128),
+                        ("llm.int8", -1)):
+        cq, cs = Q.weight_quantize(w, algo, group_size=group)
+        gq, gs = Q.weight_quantize(wg, algo, group_size=group)
+        tag = f"{algo} g{group}"
+        check(torch.equal(gq.cpu(), cq) and torch.equal(gs.cpu(), cs),
+              f"quant_card {tag}: card codes or scales differ from the CPU")
+        if algo == "llm.int8":
+            cy = Q.llm_int8_linear(x, cq, None, cs, 6.0)
+            fn = functools.partial(Q.llm_int8_linear, xg, gq, None, gs, 6.0)
+        else:
+            wd = "int4" if algo.endswith("int4") else "int8"
+            cy = Q.weight_only_linear(x, cq, None, cs, wd, group_size=group)
+            fn = functools.partial(Q.weight_only_linear, xg, gq, None, gs,
+                                   wd, group_size=group)
+        gy = fn().cpu()
+        errs[tag] = float((gy - cy).abs().max() / cy.abs().max())
+        check(errs[tag] <= 1e-4, f"quant_card {tag}: card vs CPU "
+              f"{errs[tag]:.3g}")
+        times[tag] = time_ms(fn, iters=20)
+    plain = time_ms(lambda: F.linear(xg, wg), iters=20)
+    times["f32 F.linear"] = plain
+    log(f"[quant_card] ({card}) {d_in}->{d_out}, codes and scales card == "
+        f"CPU bit for bit; outputs card vs CPU (relative to the largest) "
+        f"{json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})}; "
+        f"ms at [{rows}, {d_in}] f32 (dequantize + matmul) "
+        f"{json.dumps({k: round(v, 4) for k, v in times.items()})}")
 
 
 def main():
@@ -8834,6 +9399,13 @@ def main():
         path("transformer_decode", phase_transformer_decode, card)
         run("nn_layers_card", phase_nn_layers_card)
         path("c1_card", phase_c1_card, card)
+        release()
+        s2s = run("seq2seq_train", phase_seq2seq_train, card)
+        run("seq2seq_beam", phase_seq2seq_beam, card, s2s)
+        del s2s
+        release()
+        run("ops_card", phase_ops_card, card)
+        run("quant_card", phase_quant_card, card)
         release()
         path("fleet", phase_fleet)
         rows = []

@@ -46,19 +46,27 @@ the layer builders of `static.nn`), `inference.Config` /
 (`native/capi.py`), `InferenceServer(model_path=)` and fleet replicas of
 kind ``model``; and Paddle's layer surface: `nn.Layer`,
 `Parameter`, `ParamAttr`, the initializers, every `nn.functional`
-function and `nn` layer of the JAX package but the recurrent family
-(`nn.Transformer` among them), and `set_device` / `get_device`.
+function and `nn` layer of the JAX package (`nn.Transformer` and the
+recurrent family with `BeamSearchDecoder` / `dynamic_decode` among
+them), `nn.utils`, `nn.quant`, and `set_device` / `get_device`; and
+Paddle's top-level op surface: the ops of `ops` (every name of
+the JAX op table's public surface and each in-place twin), `linalg`,
+`to_tensor`, `seed`, `grad`, `no_grad`, the dtype names and the places
+(`core.surface`).
+
+Top-level names resolve at first use (`__getattr__`): the package's
+import stays light, since the DataLoader's worker processes import it.
 """
 from __future__ import annotations
 
 import importlib
 
-__all__ = ["Model", "amp", "core", "disable_static", "enable_static",
-           "flops", "framework", "get_device", "hapi", "in_dynamic_mode",
-           "incubate", "inference", "io", "jit", "load", "metric",
-           "models", "nn", "observability", "ops", "optimizer",
-           "regularizer", "save", "set_device", "static", "summary",
-           "vision"]
+__all__ = ["Model", "amp", "core", "disable_static", "distributed",
+           "enable_static", "flops", "framework", "get_device", "hapi",
+           "in_dynamic_mode", "incubate", "inference", "io", "jit", "linalg",
+           "load", "metric", "models", "nn", "observability", "ops",
+           "optimizer", "regularizer", "resilience", "save", "set_device",
+           "static", "summary", "vision"]
 
 # top-level names, imported at first use (the package's import stays
 # light: the DataLoader's worker processes import it)
@@ -67,13 +75,29 @@ _LAZY = {"save": "framework.io_utils", "load": "framework.io_utils",
          "flops": "hapi.summary", "enable_static": "static.recorder",
          "disable_static": "static.recorder",
          "in_dynamic_mode": "static.recorder",
-         "set_device": "core.device", "get_device": "core.device"}
+         "set_device": "core.device", "get_device": "core.device",
+         "Parameter": "nn.layer_base", "ParamAttr": "nn.layer_base"}
+# Paddle's names for ops the port's ops package keeps under another
+_RENAMED = {"shape": "shape_op"}
 
 
 def __getattr__(name):
+    if name.startswith("__"):
+        raise AttributeError(name)
     if name in _LAZY:
-        return getattr(importlib.import_module(f".{_LAZY[name]}", __name__),
-                       name)
-    if name in __all__:
-        return importlib.import_module(f".{name}", __name__)
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+        obj = getattr(importlib.import_module(f".{_LAZY[name]}", __name__),
+                      name)
+    elif name in __all__:
+        obj = importlib.import_module(f".{name}", __name__)
+    else:
+        surface = importlib.import_module(".core.surface", __name__)
+        ops = importlib.import_module(".ops", __name__)
+        if name in surface.__all__:
+            obj = getattr(surface, name)
+        elif _RENAMED.get(name, name) in ops.__all__:
+            obj = getattr(ops, _RENAMED.get(name, name))
+        else:
+            raise AttributeError(
+                f"module {__name__!r} has no attribute {name!r}")
+    globals()[name] = obj
+    return obj

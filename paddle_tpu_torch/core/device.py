@@ -26,6 +26,8 @@ def _parse(device) -> torch.device:
     torch's (``"cuda:N"``, a `torch.device`)."""
     if isinstance(device, torch.device):
         return device
+    if hasattr(device, "torch_device"):      # CPUPlace(), CUDAPlace(i)
+        return device.torch_device()
     name = str(device).lower()
     if name == "gpu" or name.startswith("gpu:"):
         name = "cuda" + name[3:]

@@ -1,7 +1,7 @@
 """Layers of the port (``paddle_tpu/nn`` counterpart): `Layer`,
 `Parameter`, `ParamAttr`, the initializers, every layer class of the JAX
-package but its recurrent family (``layers_rnn.py``, ROADMAP A), the
-functionals and gradient clipping."""
+package (the recurrent family with `dynamic_decode` among them), the
+functionals, gradient clipping, `nn.utils` and `nn.quant`."""
 from __future__ import annotations
 
 from . import functional  # noqa: F401
@@ -23,4 +23,7 @@ from .layers_common import (  # noqa: F401
 from .layers_conv_pool import *  # noqa: F401,F403
 from .layers_loss import *  # noqa: F401,F403
 from .layers_norm import *  # noqa: F401,F403
+from .layers_rnn import *  # noqa: F401,F403
+from . import quant  # noqa: F401
+from . import utils  # noqa: F401
 from .layers_transformer import *  # noqa: F401,F403

@@ -171,9 +171,13 @@ class Layer(nn.Module):
         self.add_module(str(name), sublayer)
         return sublayer
 
-    def register_buffer(self, name, tensor, persistable=True):
-        """Paddle's `persistable`: a non-persistable buffer stays out of
-        `state_dict`.  A numpy array becomes a tensor."""
+    def register_buffer(self, name, tensor, persistable=True,
+                        persistent=None):
+        """Paddle's `persistable` (torch's `persistent`, which torch's own
+        attribute assignment passes): a non-persistable buffer stays out
+        of `state_dict`.  A numpy array becomes a tensor."""
+        if persistent is not None:
+            persistable = persistent
         if tensor is not None and not isinstance(tensor, torch.Tensor):
             tensor = torch.as_tensor(np.asarray(tensor))
         super().register_buffer(name, tensor, persistent=bool(persistable))

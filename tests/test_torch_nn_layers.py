@@ -1,7 +1,7 @@
 """The port's `nn` layers against the JAX package's, on the CPU.
 
-Every layer class of `paddle_tpu.nn` but the recurrent family
-(``layers_rnn.py``, not ported yet) is built in both packages with the
+Every layer class of `paddle_tpu.nn` (the recurrent family has its own
+file, ``tests/test_torch_rnn.py``) is built in both packages with the
 same arguments; the port's parameters and buffers are the JAX layer's
 (`load_reference_state` from ``functional_state()``), and the layer runs
 on the same seeded numpy inputs: outputs within rtol 1e-5 / atol 1e-6
@@ -578,14 +578,18 @@ def test_c1_1_linear_embedding_conv_take_jax_signatures():
           train=True, atol=1e-5)
 
 
-def test_every_jax_layer_class_resolves_but_the_recurrent_family():
+def test_every_jax_layer_class_resolves():
+    """Every layer class of the JAX `nn` has its port (the recurrent
+    family among them), as do `dynamic_decode`, `nn.utils` and
+    `nn.quant`."""
     import inspect
 
-    rnn = {"SimpleRNNCell", "LSTMCell", "GRUCell", "RNNCellBase", "RNN",
-           "SimpleRNN", "LSTM", "GRU", "BiRNN", "BeamSearchDecoder"}
     missing = {n for n in dir(JN) if not n.startswith("_")
                and inspect.isclass(getattr(JN, n)) and not hasattr(TN, n)}
-    assert missing == rnn
+    assert missing == set()
+    assert callable(TN.dynamic_decode)
+    assert set(JN.utils.__all__) <= set(dir(TN.utils))
+    assert set(JN.quant.__all__) <= set(dir(TN.quant))
     for n in dir(TN):
         obj = getattr(TN, n)
         if inspect.isclass(obj) and issubclass(obj, torch.nn.Module):

@@ -111,6 +111,13 @@ def test_import_leaves_jax_and_paddle_tpu_out():
         import paddle_tpu_torch.static.nn
         import paddle_tpu_torch.inference.capi_bridge
         import paddle_tpu_torch.native.capi
+        import paddle_tpu_torch.ops
+        import paddle_tpu_torch.linalg
+        import paddle_tpu_torch.core.surface
+        import paddle_tpu_torch.nn.layers_rnn
+        import paddle_tpu_torch.nn.utils
+        import paddle_tpu_torch.nn.quant
+        paddle_tpu_torch.concat, paddle_tpu_torch.seed, paddle_tpu_torch.grad
         paddle_tpu_torch.Model, paddle_tpu_torch.save, paddle_tpu_torch.flops
         paddle_tpu_torch.enable_static, paddle_tpu_torch.in_dynamic_mode
         bad = sorted(m for m in sys.modules
@@ -326,6 +333,10 @@ def _nn_constructors():
         "MultiHeadAttention": lambda **kw: tnn.MultiHeadAttention(8, 2,
                                                                   **kw),
         "Transformer": lambda **kw: tnn.Transformer(8, 2, 1, 1, 16, **kw),
+        "LSTM": lambda **kw: tnn.LSTM(4, 8, 2, "bidirect", **kw),
+        "GRUCell": lambda **kw: tnn.GRUCell(4, 8, **kw),
+        "WeightOnlyLinear": lambda **kw: tnn.quant.WeightOnlyLinear(
+            8, 4, **kw),
     }
 
 
@@ -391,6 +402,54 @@ def test_nn_modules_are_the_ported_files_only():
                     continue
                 assert not any(n.split(".")[0] in ("jax", "paddle_tpu")
                                for n in names), (fn, names)
+
+
+def _op_surface_files():
+    ops_dir = os.path.join(PKG, "ops")
+    return sorted([os.path.join(ops_dir, f) for f in os.listdir(ops_dir)
+                   if f.endswith(".py") and f != "quant.py"]
+                  + [os.path.join(PKG, "linalg.py"),
+                     os.path.join(PKG, "core", "surface.py")])
+
+
+@pytest.mark.parametrize("path", _op_surface_files(),
+                         ids=lambda p: os.path.relpath(p, PKG))
+def test_op_surface_files_catch_no_exception(path):
+    """The op surface's files (``ops/*.py``, ``linalg.py``,
+    ``core/surface.py``) import neither jax nor paddle_tpu and catch no
+    exception: no op falls back to another path."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        assert not (isinstance(node, ast.Try) and node.handlers), \
+            f"{os.path.relpath(path, REPO)}:{node.lineno}"
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        assert not any(n.split(".")[0] in ("jax", "paddle_tpu")
+                       for n in names), (path, names)
+
+
+def test_op_table_copy_matches_reference():
+    """``ops/_op_table.py`` is the JAX module's data (PUBLIC_OPS,
+    TENSOR_METHODS, GRAD_CHECKED, INPLACE_OPS) without its `validate()`,
+    which imports the JAX package."""
+    def assigns(path):
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        return {t.id: ast.dump(node.value) for node in tree.body
+                if isinstance(node, ast.Assign) for t in node.targets}
+
+    mine = assigns(os.path.join(PKG, "ops", "_op_table.py"))
+    theirs = assigns(os.path.join(REPO, "paddle_tpu", "ops", "_op_table.py"))
+    assert set(mine) == set(theirs) == {"PUBLIC_OPS", "TENSOR_METHODS",
+                                        "GRAD_CHECKED", "INPLACE_OPS"}
+    for name in theirs:
+        assert mine[name] == theirs[name], \
+            f"paddle_tpu_torch/ops/_op_table.py: {name} drifted"
 
 
 def test_file_and_loop_entry_points_default_to_cuda(tmp_path):
